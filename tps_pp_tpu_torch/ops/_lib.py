@@ -1,0 +1,112 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface and loaded with ``ctypes``. The build runs at first
+use, never at import, into ``build/tps_pp_tpu_torch/`` beside the package; the
+library's file name carries a hash of the sources and flags, so an edit
+rebuilds it. ``load()`` raises if there is no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG_DIR = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG_DIR / 'csrc'
+BUILD_DIR = _PKG_DIR.parent / 'build' / 'tps_pp_tpu_torch'
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# argtypes of every extern "C" entry point
+_SIGNATURES = {
+    'tpk_tps_sampler': [_P] * 7 + [_I] * 6 + [_P],
+    'tpk_encoder_forward': [_P] * 17 + [_I] * 7 + [_P],
+    'tpk_full_decode': [_P] * 28 + [_I] * 11 + [_P, _P],
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'),
+                              'bin', 'nvcc'), shutil.which('nvcc')):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError('nvcc not found: the CUDA kernels of '
+                       'tps_pp_tpu_torch need the CUDA toolkit to build')
+
+
+def _sources():
+    return sorted(SRC_DIR.glob('*.cu')) + sorted(SRC_DIR.glob('*.cuh'))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f'libtps_pp_kernels_{h.hexdigest()[:16]}.so'
+
+
+def build() -> Path:
+    """Compile the kernels if the library for the current sources is
+    missing; return its path. The compiler's output (``-Xptxas -v``: each
+    kernel's registers, shared memory and spills) goes to ``<lib>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f'.tmp{os.getpid()}')
+    cmd = [_nvcc()] + NVCC_FLAGS + ['-o', str(tmp)] + [
+        str(p) for p in sorted(SRC_DIR.glob('*.cu'))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix('.log').write_text(
+        ' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+                           f'{proc.stderr[-8000:]}')
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def require_cuda(device, name: str):
+    """Raise unless ``device`` is a CUDA device: a kernel's wrapper takes
+    the plain version for CPU tensors only and launches for CUDA ones."""
+    if device.type != 'cuda':
+        raise ValueError(f'{name}: tensors on {device}; the kernel takes '
+                         f'CUDA tensors, the plain version CPU ones')
+
+
+def check(rc: int, name: str):
+    """Raise on a non-zero cudaError_t returned by an entry point."""
+    if rc != 0:
+        raise RuntimeError(f'{name}: CUDA error {rc} (cudaError_t)')
+
+
+def stream_ptr(device) -> int:
+    """The current stream of ``device``, as an int for ctypes. The kernels
+    launch on the current CUDA device, so ``device`` must be it."""
+    import torch
+    if device.index is not None and \
+            device.index != torch.cuda.current_device():
+        raise ValueError(f'tensors on {device}, but the current CUDA device '
+                         f'is {torch.cuda.current_device()}: launch under '
+                         f'torch.cuda.device({device.index})')
+    return torch.cuda.current_stream(device).cuda_stream
