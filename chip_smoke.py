@@ -6,11 +6,22 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``tps_pp_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version at the serving path's shapes,
-serves the full-width NRTR + TPS++ flagship (bf16, random weights from a
-seed) through ``TextRecognizer.simple_test`` on a batch of 512 crops and a
-batch of 5 with mixed valid ratios, checks that the kernels carried that
-run and that its argmax agrees with the plain path, and times both paths.
+kernel against its plain PyTorch version at its path's shapes, then drives
+two paths of the full-width NRTR + TPS++ flagship (random weights from a
+seed):
+
+* serving (bf16): ``TextRecognizer.simple_test`` on a batch of 512 crops
+  and a batch of 5 with mixed valid ratios; the kernels must carry that
+  run, its argmax must agree with the plain path, and both paths are timed;
+* training (f32 parameters and Adam state, bf16 autocast, B=256, Adam at
+  1e-4 with grad clip 5.0, random DICT90 labels): one step from the same
+  weights and batch on the kernel path and on the plain path must agree
+  (the loss in f32 and bf16 compute; in f32 compute also the grad norm
+  and the gradient that reaches the loss only through the warp's d_grid);
+  five steps with dropout 0.1 must give finite losses through the
+  grid_sample kernels; both paths are timed. The d_img-only backward
+  kernel is driven through ``GridSampleFunction`` with a detached grid.
+
 It imports nothing of JAX and nothing of the JAX package.
 
 Output: progress lines, then one JSON line with the kernels, the card's
@@ -38,6 +49,21 @@ ENCODER_ATOL, ENCODER_RTOL = 6.25e-2, 3.125e-2
 # decode: argmax equal, or the first differing step is a near-tie of the
 # plain version; probabilities before it within the JAX bf16 contract
 NEAR_TIE, DECODE_ATOL, DECODE_RTOL = 1e-3, 2e-2, 5e-2
+# the training warp, (atol, rtol): bf16 as the sampler and as the JAX
+# package's bf16 VJP test (tests/test_grid_sample_vjp.py:180-193); f32 as
+# its f32 tests, at a cotangent scale of 1e-3 (d_grid scales 64-term
+# channel sums by (W-1)/2 = 63.5, so unit cotangents put the f32 rounding
+# of two summation orders near 2e-5, above the f32 atol)
+WARP_BOUNDS = {
+    'bfloat16': dict(fwd=(2e-2, 0.0), d_img=(5e-2, 5e-2),
+                     d_grid=(0.1, 5e-2), cot_scale=1.0),
+    'float32': dict(fwd=(1e-5, 0.0), d_img=(1e-5, 0.0),
+                    d_grid=(1e-5, 1e-4), cot_scale=1e-3),
+}
+B_TRAIN = 256    # training batch (the JAX package's bench_train.py)
+# the training step, kernel path against plain path (dropout 0)
+LOSS_RTOL, GRAD_COS_MIN, GRAD_NORM_RTOL = 1e-2, 0.99, 5e-2
+TRAIN_OPT = dict(type='Adam', lr=1e-4, grad_clip=dict(max_norm=5.0))
 
 
 def log(*a):
@@ -105,6 +131,236 @@ def check_decode(kernel_probs, plain_probs, what):
                 raise AssertionError(f'{what}: row {r} probabilities beyond '
                                      f'atol {DECODE_ATOL} rtol {DECODE_RTOL}')
     return err, ties
+
+
+def check_close(what, got, want, bound):
+    """Max abs error of ``got`` against ``want``; raises beyond
+    ``bound`` = (atol, rtol)."""
+    atol, rtol = bound
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    if got.shape != want.shape or bool(
+            (d > atol + rtol * want.abs()).any()):
+        raise AssertionError(f'{what}: max abs error {float(d.max())} beyond '
+                             f'atol {atol} rtol {rtol}')
+    return float(d.max())
+
+
+def warp_inputs(dev, dtype, cot_scale, g):
+    """The training warp at the flagship's training shapes: a
+    (B_TRAIN, 32, 128, 64) map, a (B_TRAIN, 16, 64) grid over [-1.3, 1.3]^2
+    (inside the map, on its clamped border and beyond it, exact pixel
+    centres in the first row) and a cotangent of ``cot_scale``."""
+    import numpy as np
+    import torch
+    img = g.uniform(-1, 1, (B_TRAIN, 32, 128, 64))
+    grid = g.uniform(-1.3, 1.3, (B_TRAIN, 16, 64, 2))
+    grid[:, 0, :, 0] = 2 * g.integers(1, 127, (B_TRAIN, 64)) / 127 - 1
+    grid[:, 0, :, 1] = 2 * g.integers(1, 31, (B_TRAIN, 64)) / 31 - 1
+    cot = cot_scale * g.uniform(-1, 1, (B_TRAIN, 16, 64, 64))
+    return (torch.tensor(img, dtype=dtype, device=dev),
+            torch.tensor(grid, dtype=torch.float32, device=dev),
+            torch.tensor(cot, dtype=dtype, device=dev))
+
+
+def warp_checks(dev, g, record, name):
+    """Kernels 8, 9 and 10 against their plain versions in bf16 and f32;
+    records them with their bf16 errors and times (the training path's
+    dtype)."""
+    import torch
+    from tps_pp_tpu_torch.ops.grid_sample import (
+        grid_sample_forward, grid_sample_grad, grid_sample_grad_img,
+        grid_sample_grad_img_plain, grid_sample_grad_plain,
+        grid_sample_plain)
+    errs, timed = {}, None
+    for dname in ('float32', 'bfloat16'):
+        b = WARP_BOUNDS[dname]
+        img, grid, cot = warp_inputs(dev, getattr(torch, dname),
+                                     b['cot_scale'], g)
+        out = grid_sample_forward(img, grid)
+        d_img, d_grid = grid_sample_grad(grid, cot, img)
+        d_img10 = grid_sample_grad_img(grid, cot, 32, 128)
+        want_img, want_grid = grid_sample_grad_plain(grid, cot, img)
+        want_img10 = grid_sample_grad_img_plain(grid, cot, 32, 128)
+        torch.cuda.synchronize()
+        if out.dtype != img.dtype or d_img.dtype != torch.float32 or \
+                d_grid.dtype != torch.float32:
+            raise AssertionError(f'grid_sample {dname}: output dtypes')
+        errs[dname] = dict(
+            fwd=check_close(f'grid_sample_forward {dname}', out,
+                            grid_sample_plain(img, grid), b['fwd']),
+            d_img=check_close(f'grid_sample_grad d_img {dname}', d_img,
+                              want_img, b['d_img']),
+            d_grid=check_close(f'grid_sample_grad d_grid {dname}', d_grid,
+                               want_grid, b['d_grid']),
+            d_img10=check_close(f'grid_sample_grad_img {dname}', d_img10,
+                                want_img10, b['d_img']))
+        log(f'grid_sample {dname}: max abs errors {errs[dname]} [{name}]')
+        timed = (img, grid, cot)
+    img, grid, cot = timed
+    e = errs['bfloat16']
+    src = 'tps_pp_tpu_torch/csrc/grid_sample.cu'
+    record('grid_sample_forward', src,
+           'tps_pp_tpu/ops/pallas_grid_sample.py:126',
+           lambda: grid_sample_forward(img, grid),
+           lambda: grid_sample_plain(img, grid), e['fwd'], 20)
+    record('grid_sample_grad', src,
+           'tps_pp_tpu/ops/pallas_grid_sample.py:283',
+           lambda: grid_sample_grad(grid, cot, img),
+           lambda: grid_sample_grad_plain(grid, cot, img),
+           max(e['d_img'], e['d_grid']), 10)
+    record('grid_sample_grad_img', src,
+           'tps_pp_tpu/ops/pallas_grid_sample.py:178',
+           lambda: grid_sample_grad_img(grid, cot, 32, 128),
+           lambda: grid_sample_grad_img_plain(grid, cot, 32, 128),
+           e['d_img10'], 10)
+    return img, grid, cot
+
+
+def cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp(min=1e-30))
+
+
+def train_slice(dev, g, name, warp_args):
+    """The training path of the full-width flagship; returns the launch
+    counts of the warp kernels in its runs."""
+    import copy
+
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import (FLAGSHIP_INPUT, build_recognizer,
+                                       nrtr_tps_pp_cfg)
+    from tps_pp_tpu_torch.ops.grid_sample import (
+        GridSampleFunction, grid_sample_forward, grid_sample_grad,
+        grid_sample_grad_img, grid_sample_grad_img_plain)
+    from tps_pp_tpu_torch.parallel import build_optimizer, make_train_step
+    warps = (grid_sample_forward, grid_sample_grad, grid_sample_grad_img)
+
+    def recognizer(dropout, dtype='bfloat16'):
+        cfg = nrtr_tps_pp_cfg(dtype=dtype)
+        cfg = dict(cfg, encoder=dict(cfg['encoder'], dropout=dropout),
+                   decoder=dict(cfg['decoder'], dropout=dropout))
+        return build_recognizer(cfg, device=dev, param_dtype='float32')
+
+    rec = recognizer(0.0).init_weights(SEED)
+    state0 = copy.deepcopy(rec.model.state_dict())
+    lc = rec.label_convertor
+    chars = [c for c in lc.idx2char if len(c) == 1]
+    texts = [''.join(g.choice(chars, int(g.integers(1, 26))))
+             for _ in range(B_TRAIN)]
+    h, w, c = FLAGSHIP_INPUT
+    batch = dict(
+        img=torch.from_numpy(g.standard_normal((B_TRAIN, h, w, c)).astype(
+            np.float32)).to(dev),
+        valid_ratio=g.uniform(0.5, 1.0, B_TRAIN).astype(np.float32),
+        padded_targets=lc.str2tensor(texts)['padded_targets'])
+
+    def step_fn(r):
+        opt, _ = build_optimizer(TRAIN_OPT, r.model.named_parameters())
+        return make_train_step(r, opt)
+
+    # ---- check step: the same weights and batch on both paths, dropout 0.
+    # In f32 compute the paths differ only by the kernels' rounding, and
+    # all three checks hold. In bf16 compute the gradients of a randomly
+    # initialised model are dominated by bf16 rounding amplified through
+    # the trunk: one bf16 ulp of the warp's output moves them (kernel
+    # against plain: cosine 0.92 over all parameters, 0.88-0.92 for
+    # localization_fc2; kernel against kernel 1.0), so there the loss is
+    # checked and the gradients are reported.
+    loc_grads = {}
+    for dtype in ('float32', 'bfloat16'):
+        rec = recognizer(0.0, dtype)
+        got = {}
+        for plain in (False, True):
+            rec.model.load_state_dict(state0)
+            step = step_fn(rec)
+            for fn in warps:
+                fn.launches = 0
+            m = step(batch, plain=plain)
+            torch.cuda.synchronize()
+            got[plain] = (float(m['loss']), float(m['grad_norm']),
+                          rec.model.tpsnet.TPE.localization_fc2.weight.grad
+                          .clone(), [fn.launches for fn in warps],
+                          torch.cat([p.grad.flatten().float()
+                                     for p in rec.model.parameters()]))
+        (lk, nk, gk, ck, ak), (lp, np_, gp, cp, ap) = got[False], got[True]
+        cos = cosine(gk, gp)
+        loc_grads[dtype] = gk
+        log(f'train check step, {dtype} compute: loss {lk:.6f} kernel / '
+            f'{lp:.6f} plain; grad_norm {nk:.6f} / {np_:.6f}; '
+            f'cos(d localization_fc2) {cos:.6f}, cos(all gradients) '
+            f'{cosine(ak, ap):.6f}; warp launches kernel path {ck}, plain '
+            f'path {cp} [{name}]')
+        del ak, ap, got
+        if not (np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp)):
+            raise AssertionError(f'train {dtype}: loss {lk} vs plain {lp}')
+        if ck[0] < 1 or ck[1] < 1 or any(cp):
+            raise AssertionError(f'train {dtype}: warp launches {ck} kernel '
+                                 f'path, {cp} plain path')
+        if dtype == 'bfloat16':
+            continue
+        if not abs(nk - np_) <= GRAD_NORM_RTOL * abs(np_):
+            raise AssertionError(f'train: grad_norm {nk} vs plain {np_}')
+        if not cos >= GRAD_COS_MIN:
+            raise AssertionError(f'train: cosine of the localization_fc2 '
+                                 f'gradient {cos} < {GRAD_COS_MIN}')
+    log(f'train check step, kernel path: cos(d localization_fc2) of bf16 '
+        f'against f32 compute '
+        f'{cosine(loc_grads["bfloat16"], loc_grads["float32"]):.6f} '
+        f'[{name}]')
+    del rec
+
+    # ---- the training path: five steps with dropout 0.1 ---------------
+    rec = recognizer(0.1)
+    rec.model.load_state_dict(state0)
+    step = step_fn(rec)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for fn in warps:
+        fn.launches = 0
+    losses = [float(step(batch, gen)['loss']) for _ in range(5)]
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in warps}
+    log(f'train: 5 steps, dropout 0.1, losses {losses}; warp launches '
+        f'{launches} [{name}]')
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'train: non-finite loss {losses}')
+    if launches['grid_sample_forward'] < 5 or \
+            launches['grid_sample_grad'] < 5:
+        raise AssertionError(f'train: warp kernels not launched {launches}')
+
+    # ---- kernel 10 through the autograd function, grid detached --------
+    img, grid, cot = warp_args
+    img = img.detach().requires_grad_(True)
+    for fn in warps:
+        fn.launches = 0
+    GridSampleFunction.apply(img, grid, False).backward(cot)
+    torch.cuda.synchronize()
+    counts = [fn.launches for fn in warps]
+    if counts != [1, 0, 1]:
+        raise AssertionError(f'detached grid: launches {counts}')
+    check_close('GridSampleFunction d_img', img.grad,
+                grid_sample_grad_img_plain(grid, cot, 32, 128).to(img.dtype),
+                WARP_BOUNDS['bfloat16']['d_img'])
+    launches['grid_sample_grad_img'] = counts[2]
+
+    # ---- warm step time, the two paths in turns --------------------------
+    times = {False: [], True: []}
+    for plain in (False, True, False, True):
+        step(batch, gen, plain=plain)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            loss = step(batch, gen, plain=plain)['loss']
+        torch.cuda.synchronize()
+        times[plain].append((time.perf_counter() - t0) / 3)
+        if not bool(torch.isfinite(loss)):
+            raise AssertionError('train: non-finite loss while timing')
+    for plain, ts in times.items():
+        log(f'train B={B_TRAIN} {"plain" if plain else "kernel"} path: '
+            f'{min(ts) * 1e3:.2f} ms/step, {B_TRAIN / min(ts):.1f} images/s '
+            f'(best of 2 rounds of 3 steps, dropout 0.1) [{name}]')
+    return launches
 
 
 def main():
@@ -218,6 +474,9 @@ def main():
            lambda: full_decode(*dargs), lambda: full_decode_plain(*dargs),
            err, 3)
 
+    # ---- kernels 8-10: the training warp at B_TRAIN, bf16 and f32 --------
+    warp_args = warp_checks(dev, g, record, name)
+
     # ---- the slice through the user's entry point ------------------------
     h, w, c = FLAGSHIP_INPUT
     img = torch.from_numpy(g.standard_normal((B, h, w, c)).astype(
@@ -277,6 +536,15 @@ def main():
             f'({min(ts) * 1e3:.2f} ms/batch, best of 2 rounds of 3) '
             f'[{name}]')
     rec.decode_mode = 'auto'
+    del rec, model
+
+    # ---- the training slice ------------------------------------------------
+    launches = train_slice(dev, g, name, warp_args)
+    for k in kernels:
+        if k['name'] in launches:
+            k['launches'] = launches[k['name']]
+    if any(not k['launches'] for k in kernels):
+        raise AssertionError(f'a kernel was not launched: {kernels}')
 
     for k in kernels:
         k['max_abs_err'] = float(k['max_abs_err'])

@@ -36,7 +36,7 @@ def _port(v):
     sd = {k[len('decoder.'):]: t for k, t in sd.items()}
     sd['position_enc.position_table'] = torch.from_numpy(
         sinusoid_position_table(200, 512))
-    dec = NRTRDecoder(**DIMS)
+    dec = NRTRDecoder(**DIMS).eval()
     dec.load_state_dict(sd, strict=True)
     return dec
 

@@ -41,7 +41,7 @@ def models():
             p[ln]['bias'] = rng.normal(0, 0.2, 64).astype(np.float32)
     sd = convert_rules({'params': {'encoder': v['params']}},
                        nrtr_encoder_rules(DIMS['n_layers']))
-    enc = NRTREncoder(**DIMS)
+    enc = NRTREncoder(**DIMS).eval()
     enc.load_state_dict({k[len('encoder.'):]: t for k, t in sd.items()},
                         strict=True)
     return jenc, jnp_tree(v), enc, feat, vr

@@ -16,6 +16,10 @@ from tps_pp_tpu_torch.models.encoders.nrtr import NRTREncoder, sequence_mask
 from tps_pp_tpu_torch.ops import tps
 from tps_pp_tpu_torch.ops.encoder import encoder_forward, encoder_forward_plain
 from tps_pp_tpu_torch.ops.full_decode import full_decode, full_decode_plain
+from tps_pp_tpu_torch.ops.grid_sample import (
+    GridSampleFunction, grid_sample_forward, grid_sample_grad,
+    grid_sample_grad_img, grid_sample_grad_img_plain, grid_sample_grad_plain,
+    grid_sample_plain)
 from tps_pp_tpu_torch.ops.tps_sampler import tps_sampler, tps_sampler_plain
 
 torch.set_num_threads(2)
@@ -62,7 +66,25 @@ def _decoder_args(device):
             dec.packed_weights(BF))
 
 
-@pytest.mark.parametrize('op', ['tps_sampler', 'encoder', 'full_decode'])
+def _warp_args(device, dtype, N=4, scale=1.0):
+    """The training warp at the flagship's shapes: a (N, 32, 128, 64) map,
+    a (N, 16, 64) grid over [-1.3, 1.3]^2 (in range, on the clamped border
+    and beyond it, with exact pixel centres in the first row), a
+    cotangent of ``scale``."""
+    rng = np.random.default_rng(1)
+    img = rng.uniform(-1, 1, (N, 32, 128, 64))
+    grid = rng.uniform(-1.3, 1.3, (N, 16, 64, 2))
+    grid[:, 0, :, 0] = 2 * rng.integers(1, 127, (N, 64)) / 127 - 1
+    grid[:, 0, :, 1] = 2 * rng.integers(1, 31, (N, 64)) / 31 - 1
+    cot = scale * rng.uniform(-1, 1, (N, 16, 64, 64))
+    return (torch.tensor(img, dtype=dtype, device=device),
+            torch.tensor(grid, dtype=torch.float32, device=device),
+            torch.tensor(cot, dtype=dtype, device=device))
+
+
+@pytest.mark.parametrize('op', ['tps_sampler', 'encoder', 'full_decode',
+                                'grid_sample_forward', 'grid_sample_grad',
+                                'grid_sample_grad_img'])
 def test_wrappers_refuse_non_cuda_devices(op):
     """A wrapper runs the plain version for CPU tensors only; on any other
     device it launches its kernel or raises, and never falls back."""
@@ -72,8 +94,16 @@ def test_wrappers_refuse_non_cuda_devices(op):
             tps_sampler(*_sampler_args(meta, N=1), (16, 64))
         elif op == 'encoder':
             encoder_forward(*_encoder_args(meta), 8)
-        else:
+        elif op == 'full_decode':
             full_decode(*_decoder_args(meta), 8, 91, 91)
+        else:
+            img, grid, cot = _warp_args(meta, torch.float32, N=1)
+            if op == 'grid_sample_forward':
+                grid_sample_forward(img, grid)
+            elif op == 'grid_sample_grad':
+                grid_sample_grad(grid, cot, img)
+            else:
+                grid_sample_grad_img(grid, cot, 32, 128)
 
 
 @pytest.mark.requires_cuda
@@ -126,3 +156,70 @@ def test_full_decode_kernel(cuda_device):
             assert float(top2[0] - top2[1]) < 1e-3
         torch.testing.assert_close(got[r, :stop], want[r, :stop],
                                    atol=2e-2, rtol=5e-2)
+
+
+# the warp's bounds (chip_smoke.py's): bf16 as the sampler and as the JAX
+# package's bf16 VJP test (tests/test_grid_sample_vjp.py:180-193); f32 as
+# its f32 tests. In f32 both versions round 64-term channel sums, which
+# d_grid scales by (W-1)/2 = 63.5: at unit cotangents that rounding reaches
+# ~2e-5 absolute, above the f32 atol of 1e-5, so the f32 check runs at a
+# cotangent scale of 1e-3 (a training step's are far smaller still).
+WARP_BOUNDS = {
+    torch.bfloat16: dict(fwd=(2e-2, 0.0), d_img=(5e-2, 5e-2),
+                         d_grid=(0.1, 5e-2), cot_scale=1.0),
+    torch.float32: dict(fwd=(1e-5, 0.0), d_img=(1e-5, 0.0),
+                        d_grid=(1e-5, 1e-4), cot_scale=1e-3),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_grid_sample_kernels(cuda_device, dtype):
+    """Kernels 8, 9 and 10 against their plain versions. d_img is a sum of
+    f32 atomics in a varying order, so it may differ from the plain
+    version's in its last bits; the bounds allow for that."""
+    b = WARP_BOUNDS[dtype]
+    img, grid, cot = _warp_args(cuda_device, dtype, scale=b['cot_scale'])
+    counts = [f.launches for f in (grid_sample_forward, grid_sample_grad,
+                                   grid_sample_grad_img)]
+    out = grid_sample_forward(img, grid)
+    d_img, d_grid = grid_sample_grad(grid, cot, img)
+    d_img10 = grid_sample_grad_img(grid, cot, 32, 128)
+    want_d_img, want_d_grid = grid_sample_grad_plain(grid, cot, img)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (grid_sample_forward, grid_sample_grad,
+                                 grid_sample_grad_img)] == [
+        n + 1 for n in counts]
+    assert out.dtype == dtype and d_img.dtype == d_grid.dtype == torch.float32
+    atol, rtol = b['fwd']
+    torch.testing.assert_close(out.float(),
+                               grid_sample_plain(img, grid).float(),
+                               atol=atol, rtol=rtol)
+    atol, rtol = b['d_img']
+    torch.testing.assert_close(d_img, want_d_img, atol=atol, rtol=rtol)
+    torch.testing.assert_close(d_img10, grid_sample_grad_img_plain(
+        grid, cot, 32, 128), atol=atol, rtol=rtol)
+    atol, rtol = b['d_grid']
+    torch.testing.assert_close(d_grid, want_d_grid, atol=atol, rtol=rtol)
+
+
+@pytest.mark.requires_cuda
+def test_grid_sample_function_routes(cuda_device):
+    """Under autograd the forward is kernel 8 and the backward kernel 9, or
+    kernel 10 when the grid needs no gradient; d_img comes back in the
+    image's dtype."""
+    img, grid, cot = _warp_args(cuda_device, torch.bfloat16)
+    img.requires_grad_(True)
+    for grid_grad in (True, False):
+        g = grid.clone().requires_grad_(grid_grad)
+        counts = [f.launches for f in (grid_sample_forward, grid_sample_grad,
+                                       grid_sample_grad_img)]
+        GridSampleFunction.apply(img, g, False).backward(cot)
+        torch.cuda.synchronize()
+        got = [f.launches - n for f, n in zip(
+            (grid_sample_forward, grid_sample_grad, grid_sample_grad_img),
+            counts)]
+        assert got == ([1, 1, 0] if grid_grad else [1, 0, 1])
+        assert img.grad.dtype == torch.bfloat16
+        assert (g.grad is not None) == grid_grad
+        img.grad = None

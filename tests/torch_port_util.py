@@ -36,15 +36,20 @@ def perturb_batch_stats(variables, seed=0):
     return v
 
 
-def jax_flagship(tiny=True, seed=0):
+def jax_flagship(tiny=True, seed=0, dropout=None):
     """(JAX recognizer on the ``steps`` decode and the gather sampler, its
-    variables as numpy with perturbed BatchNorm statistics, the config)."""
+    variables as numpy with perturbed BatchNorm statistics, the config).
+    ``dropout`` overrides the encoder's and decoder's rate."""
     cfg = nrtr_tps_pp_cfg(tiny=tiny)
+    if dropout is not None:
+        cfg = dict(cfg, encoder=dict(cfg['encoder'], dropout=dropout),
+                   decoder=dict(cfg['decoder'], dropout=dropout))
     jcfg = dict(cfg, decode_mode='steps',
                 tpsnet=dict(cfg['tpsnet'], sample_mode='gather'))
     jrec = build_jax(jcfg)
     shape = (1, 32, 64, 3) if tiny else (1, 32, 128, 3)
-    v = jrec.init_variables(jax.random.PRNGKey(seed), shape)
+    v = jax.jit(lambda key: jrec.init_variables(key, shape))(
+        jax.random.PRNGKey(seed))
     return jrec, perturb_batch_stats(v, seed), cfg
 
 

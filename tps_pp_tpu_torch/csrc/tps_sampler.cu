@@ -15,7 +15,8 @@
 // warp then takes one output pixel at a time, computes P' in f32 (lanes split
 // the F+3 terms, a shuffle reduction sums them) and reads its 4 taps. Lanes
 // run over channels, two bf16 channels each, so one tap of a 64-channel row
-// is one coalesced 128-byte read.
+// is one coalesced 128-byte read. The taps and the gather are shared with
+// the training warp (grid_sample.cu) through common.cuh.
 //
 // Bound on the H100: memory. Per image it reads the (n, F) f32 scores
 // (128 KB at n=1024, F=32) and 4 taps of 128 B per pixel (mostly L2 hits:
@@ -57,7 +58,6 @@ tps_sampler_kernel(const bf16* __restrict__ feat,   // (N, Hg, Wg, C)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int p_end = min((int)(blockIdx.x + 1) * kPixPerBlock, npix);
   const bf16* img = feat + (size_t)n * Hg * Wg * C;
-  const int C2 = C >> 1;
   for (int p = blockIdx.x * kPixPerBlock + warp; p < p_end;
        p += kThreads / 32) {
     const float* sc = score + ((size_t)n * npix + p) * F;
@@ -73,34 +73,8 @@ tps_sampler_kernel(const bf16* __restrict__ feat,   // (N, Hg, Wg, C)
     }
     px = warp_sum(px);
     py = warp_sum(py);
-    float gx = (px + 1.f) * 0.5f * (float)(Wg - 1);
-    float gy = (py + 1.f) * 0.5f * (float)(Hg - 1);
-    gx = fminf(fmaxf(gx, 0.f), (float)(Wg - 1));
-    gy = fminf(fmaxf(gy, 0.f), (float)(Hg - 1));
-    const float x0f = floorf(gx), y0f = floorf(gy);
-    const float wx = gx - x0f, wy = gy - y0f;
-    const int x0 = (int)x0f, y0 = (int)y0f;
-    const int x1 = min(x0 + 1, Wg - 1), y1 = min(y0 + 1, Hg - 1);
-    const float w00 = (1.f - wx) * (1.f - wy), w01 = wx * (1.f - wy);
-    const float w10 = (1.f - wx) * wy, w11 = wx * wy;
-    const bf162* r00 =
-        reinterpret_cast<const bf162*>(img + ((size_t)y0 * Wg + x0) * C);
-    const bf162* r01 =
-        reinterpret_cast<const bf162*>(img + ((size_t)y0 * Wg + x1) * C);
-    const bf162* r10 =
-        reinterpret_cast<const bf162*>(img + ((size_t)y1 * Wg + x0) * C);
-    const bf162* r11 =
-        reinterpret_cast<const bf162*>(img + ((size_t)y1 * Wg + x1) * C);
-    bf162* o = reinterpret_cast<bf162*>(out + ((size_t)n * npix + p) * C);
-    for (int c2 = lane; c2 < C2; c2 += 32) {
-      const float2 a = __bfloat1622float2(r00[c2]);
-      const float2 b = __bfloat1622float2(r01[c2]);
-      const float2 c = __bfloat1622float2(r10[c2]);
-      const float2 d = __bfloat1622float2(r11[c2]);
-      o[c2] = __floats2bfloat162_rn(
-          w00 * a.x + w01 * b.x + w10 * c.x + w11 * d.x,
-          w00 * a.y + w01 * b.y + w10 * c.y + w11 * d.y);
-    }
+    warp_sample_pixel(img, bilinear_taps(px, py, Hg, Wg),
+                      out + ((size_t)n * npix + p) * C, C, lane);
   }
 }
 

@@ -5,7 +5,9 @@
 stride geometry [1, 2, 2, 1, 2]. ``stem_and_head`` runs the stem and the
 first ``tps_stage`` stages and returns (x, skips); ``tail`` runs the rest.
 Both take and return NHWC; inside, the convolutions run on NCHW views.
-Module names are the reference's (conv1/bn1/layer{i}.{j}). Eval BatchNorm.
+Module names are the reference's (conv1/bn1/layer{i}.{j}). BatchNorm follows
+the module's mode: running statistics in eval, batch statistics (updating
+the running ones as flax does, ``layers.BatchNorm2d``) in train.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...registry import BACKBONES
-from ..layers import BasicBlock, nchw_to_nhwc, nhwc_to_nchw
+from ..layers import BasicBlock, BatchNorm2d, nchw_to_nhwc, nhwc_to_nchw
 
 
 @BACKBONES.register_module()
@@ -32,7 +34,7 @@ class ResNetABI_v2_large(nn.Module):
         super().__init__()
         self.tps_stage = tps_stage
         self.conv1 = nn.Conv2d(in_channels, stem_channels, 3, padding=1)
-        self.bn1 = nn.BatchNorm2d(stem_channels, eps=1e-5)
+        self.bn1 = BatchNorm2d(stem_channels, eps=1e-5)
         inplanes, planes = stem_channels, base_channels
         channels = [stem_channels]       # input of each stage, then output
         for i, num_blocks in enumerate(arch_settings):

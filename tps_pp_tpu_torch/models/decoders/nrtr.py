@@ -1,7 +1,10 @@
-"""NRTR transformer decoder, inference (counterpart of
+"""NRTR transformer decoder (counterpart of
 ``tps_pp_tpu/models/decoders/nrtr.py``).
 
-Two greedy paths with one output contract, (N, S, C-1) per-step softmax
+Training: ``forward(out_enc, targets, valid_ratio)`` is the teacher-forced
+pass (JAX ``decoders/nrtr.py:83-96``): pad & causal self-attention mask,
+embedding dropout and the layers' dropout in train mode. Inference: two
+greedy paths with one output contract, (N, S, C-1) per-step softmax
 probabilities:
 
 * ``decode_init`` / ``decode_step``: the KV-cached module path that
@@ -9,8 +12,8 @@ probabilities:
 * ``fused_full_decode``: the whole decode through ``ops.full_decode`` (the
   CUDA kernels on CUDA tensors, their plain version on CPU tensors or with
   ``plain=True``), the counterpart of ``decode_mode='fused40_bf16'``. Its
-  packed, folded weights are computed once per (device, dtype) and cached;
-  loading a state dict drops the cache.
+  packed, folded weights are computed once per (device, dtype) and cached
+  until a weight changes (``layers.weights_stamp``).
 
 Quirks of the reference kept: the pad embedding row is zeroed at lookup,
 the classifier has C-1 outputs (it never predicts <PAD>), and the final
@@ -27,7 +30,8 @@ from ...ops.full_decode import (fold_decoder_weights, full_decode,
                                 full_decode_plain)
 from ...registry import DECODERS
 from ..encoders.nrtr import sequence_mask
-from ..transformer import PositionalEncoding, TFDecoderLayer, attend
+from ..layers import weights_stamp
+from ..transformer import PositionalEncoding, TFDecoderLayer, attend, dropout
 
 
 @DECODERS.register_module()
@@ -38,11 +42,12 @@ class NRTRDecoder(nn.Module):
                  d_v=64, d_model=512, d_inner=256, n_position=200,
                  dropout=0.1, num_classes=93, max_seq_len=40, start_idx=1,
                  padding_idx=92, use_fused_step=False, kv_dtype='bfloat16'):
-        # dropout: a training setting; use_fused_step / kv_dtype choose
-        # JAX-side kernels. The port accepts them so that the JAX package's
-        # configs build unchanged, and has no use for them.
+        # use_fused_step / kv_dtype choose JAX-side kernels. The port
+        # accepts them so that the JAX package's configs build unchanged,
+        # and has no use for them.
         super().__init__()
         self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
+        self.dropout = dropout
         self.d_model = d_model
         self.max_seq_len = max_seq_len
         self.start_idx, self.padding_idx = start_idx, padding_idx
@@ -50,19 +55,39 @@ class NRTRDecoder(nn.Module):
                                          padding_idx=padding_idx)
         self.position_enc = PositionalEncoding(d_embedding, n_position)
         self.layer_stack = nn.ModuleList([
-            TFDecoderLayer(d_model, d_inner, n_head, d_k, d_v)
+            TFDecoderLayer(d_model, d_inner, n_head, d_k, d_v, dropout)
             for _ in range(n_layers)])
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-6)
         self.classifier = nn.Linear(d_model, num_classes - 1)
         self._packed: Dict = {}
-        self.register_load_state_dict_post_hook(
-            lambda module, _: module._packed.clear())
 
-    def _embed(self, token: torch.Tensor, t: int) -> torch.Tensor:
-        x = self.trg_word_emb(token)[:, None]                 # (N, 1, D)
-        x = torch.where((token == self.padding_idx)[:, None, None],
+    def _embed(self, tokens: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        """tokens (N, T) -> (N, T, D): the pad row zeroed at lookup, plus
+        the position table from ``offset``."""
+        x = self.trg_word_emb(tokens)
+        x = torch.where((tokens == self.padding_idx)[..., None],
                         torch.zeros_like(x), x)
-        return self.position_enc(x, offset=t)
+        return self.position_enc(x, offset=offset)
+
+    # ---- teacher-forced pass (training) ---------------------------------
+    def forward(self, out_enc: torch.Tensor, targets: torch.Tensor,
+                valid_ratio=None,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """out_enc (N, TE, D), targets (N, T) int -> (N, T, C-1) logits.
+        ``rng`` draws the dropout masks in train mode."""
+        T = targets.shape[1]
+        pad = (targets != self.padding_idx)[:, None, :]              # N,1,T
+        causal = torch.ones((T, T), dtype=torch.bool,
+                            device=targets.device).tril()[None]      # 1,T,T
+        trg_mask = (pad & causal).float()[:, None]                   # N,1,T,T
+        src_mask = sequence_mask(valid_ratio, out_enc.shape[1])
+        if src_mask is not None:
+            src_mask = src_mask[:, None, None, :]
+        x = dropout(self._embed(targets),
+                    self.dropout if self.training else 0.0, rng)
+        for layer in self.layer_stack:
+            x = layer(x, out_enc, trg_mask, src_mask, rng)
+        return self.classifier(self.layer_norm(x))
 
     # ---- steps path ----------------------------------------------------
     def decode_init(self, out_enc: torch.Tensor, valid_ratio=None):
@@ -84,7 +109,7 @@ class NRTRDecoder(nn.Module):
         """token (N,) -> (probs (N, C-1) float32, carry). The caches are
         updated in place at slot t."""
         enc_kvs, src_mask = static
-        x = self._embed(token, t)
+        x = self._embed(token[:, None], offset=t)
         T = self.max_seq_len + 1
         pos_mask = (torch.arange(T, device=x.device) <= t).float()
         for layer, (ck, cv), (ek, ev) in zip(self.layer_stack, carry,
@@ -104,9 +129,10 @@ class NRTRDecoder(nn.Module):
     # ---- fused path ----------------------------------------------------
     def packed_weights(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
         """Stacked (in, out) weights for ``ops.full_decode``, folded and in
-        ``dtype``; computed once per (device, dtype)."""
+        ``dtype``; computed once per (device, dtype) and weights stamp."""
         key = (self.classifier.weight.device, dtype)
-        if key not in self._packed:
+        stamp = weights_stamp(self)
+        if self._packed.get(key, (None,))[0] != stamp:
             def lin(m):
                 return m.weight.t()
             names = ('ln1_s', 'ln1_b', 'ln2_s', 'ln2_b', 'ln3_s', 'ln3_b',
@@ -132,8 +158,9 @@ class NRTRDecoder(nn.Module):
                 embed=self.trg_word_emb.weight,
                 wcls=lin(self.classifier), bcls=self.classifier.bias,
                 pe=self.position_enc.position_table[0, :self.max_seq_len])
-            self._packed[key] = fold_decoder_weights(raw, self.n_head, dtype)
-        return self._packed[key]
+            self._packed[key] = (stamp, fold_decoder_weights(
+                raw, self.n_head, dtype))
+        return self._packed[key][1]
 
     def fused_full_decode(self, out_enc: torch.Tensor, valid_ratio=None,
                           end_idx: Optional[int] = None,

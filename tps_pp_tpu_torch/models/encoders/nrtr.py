@@ -6,10 +6,11 @@ mask. The reference's quirk is kept: the mask is built over the *flattened
 token index* (``valid = ceil(H*W * valid_ratio)``), not over the width axis.
 
 ``forward(..., fused=True)`` runs the whole encoder through
-``ops.encoder``: the CUDA kernels on CUDA tensors, their plain version on
-CPU tensors (or everywhere with ``plain=True``). Its weights are stacked and
-folded once and cached per (device, dtype); loading a state dict drops the
-cache.
+``ops.encoder`` in eval mode: the CUDA kernels on CUDA tensors, their plain
+version on CPU tensors (or everywhere with ``plain=True``). Its weights are
+stacked and folded once per (device, dtype) and cached until a weight
+changes (``layers.weights_stamp``). Train mode takes the module path, with
+dropout, as the JAX package does (``encoders/nrtr.py:59-62``).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch.nn as nn
 from ...ops.encoder import (encoder_forward, encoder_forward_plain,
                             fold_encoder_weights)
 from ...registry import ENCODERS
+from ..layers import weights_stamp
 from ..transformer import TFEncoderLayer
 
 
@@ -40,23 +42,21 @@ class NRTREncoder(nn.Module):
 
     def __init__(self, n_layers=6, n_head=8, d_k=64, d_v=64, d_model=512,
                  d_inner=256, dropout=0.1):
-        # dropout: a training setting of the config; inference applies none
         super().__init__()
         self.n_head = n_head
         self.layer_stack = nn.ModuleList([
-            TFEncoderLayer(d_model, d_inner, n_head, d_k, d_v)
+            TFEncoderLayer(d_model, d_inner, n_head, d_k, d_v, dropout)
             for _ in range(n_layers)])
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-5)
         self._folded: Dict = {}
-        self.register_load_state_dict_post_hook(
-            lambda module, _: module._folded.clear())
 
     def folded_weights(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
         """All layers' weights stacked in (in, out) layout with the
         LayerNorm affines and 1/sqrt(d_k) folded in, matmul weights in
-        ``dtype``; computed once per (device, dtype)."""
+        ``dtype``; computed once per (device, dtype) and weights stamp."""
         key = (self.layer_norm.weight.device, dtype)
-        if key not in self._folded:
+        stamp = weights_stamp(self)
+        if self._folded.get(key, (None,))[0] != stamp:
             def lin(m):
                 return m.weight.t()
             raw = {k: [] for k in ('ln1_s', 'ln1_b', 'ln2_s', 'ln2_b',
@@ -79,20 +79,23 @@ class NRTREncoder(nn.Module):
             raw = {k: torch.stack(v) for k, v in raw.items()}
             raw['lnf_s'] = self.layer_norm.weight
             raw['lnf_b'] = self.layer_norm.bias
-            self._folded[key] = fold_encoder_weights(raw, self.n_head, dtype)
-        return self._folded[key]
+            self._folded[key] = (stamp, fold_encoder_weights(
+                raw, self.n_head, dtype))
+        return self._folded[key][1]
 
     def forward(self, feat: torch.Tensor, valid_ratio=None,
-                fused: bool = False, plain: bool = False) -> torch.Tensor:
+                fused: bool = False, plain: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """feat (N, H, W, C) NHWC -> (N, H*W, C) tokens, row-major like the
-        reference's ``view(n, c, h*w).permute``."""
+        reference's ``view(n, c, h*w).permute``. ``fused`` applies in eval
+        mode only; ``rng`` draws the dropout masks in train mode."""
         n, h, w, c = feat.shape
         x = feat.reshape(n, h * w, c)
         mask = sequence_mask(valid_ratio, h * w)
-        if fused:
+        if fused and not self.training:
             fn = encoder_forward_plain if plain else encoder_forward
             return fn(x, mask, self.folded_weights(x.dtype), self.n_head)
         attn_mask = None if mask is None else mask[:, None, None, :]
         for layer in self.layer_stack:
-            x = layer(x, attn_mask)
+            x = layer(x, attn_mask, rng)
         return self.layer_norm(x)

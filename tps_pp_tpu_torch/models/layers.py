@@ -5,9 +5,13 @@ NCHW, as PyTorch's convolutions expect. The trunk's public functions take
 and return NHWC (the JAX package's layout) through ``permute`` views, so the
 tensors inside are NCHW-shaped with channels-last strides and no copy is
 made at either boundary.
+
+``BatchNorm2d`` keeps flax's train-mode statistics (see its docstring);
+every BatchNorm of the port is one.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Tuple, Union
 
 import torch
@@ -17,6 +21,39 @@ import torch.nn.functional as F
 
 def _pair(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+
+def weights_stamp(module: nn.Module) -> tuple:
+    """A value that changes whenever a parameter or buffer of ``module``
+    changes: an in-place update (an optimizer step, ``load_state_dict``)
+    bumps the tensor's version, a move or cast replaces its storage. Caches
+    of values derived from the weights key on it."""
+    return tuple((t.data_ptr(), t._version) for t in itertools.chain(
+        module.parameters(), module.buffers()))
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's train-mode statistics (``flax.linen
+    .BatchNorm``, ``tps_pp_tpu/models/layers.py:56``): the running variance
+    takes the *biased* batch variance (torch takes the unbiased one, larger
+    by n/(n-1) for n values per channel), and the statistics are computed in
+    float32 at least, whatever the input's dtype. ``momentum`` is torch's convention:
+    0.1 here is flax's ``momentum=0.9``. Eval mode and the ``state_dict``
+    keys are ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(
+                x.to(torch.promote_types(x.dtype, torch.float32)),
+                dim=(0, 2, 3), correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 class ConvModule(nn.Module):
@@ -32,7 +69,7 @@ class ConvModule(nn.Module):
         self.conv = nn.Conv2d(in_channels, out_channels, _pair(kernel_size),
                               stride=_pair(stride), padding=_pair(padding),
                               bias=not use_norm)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5) if use_norm else None
+        self.bn = BatchNorm2d(out_channels, eps=1e-5) if use_norm else None
 
     def forward(self, x):
         x = self.conv(x)
@@ -54,11 +91,11 @@ class BasicBlock(nn.Module):
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride=_pair(stride),
                                padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
+        self.bn1 = BatchNorm2d(planes, eps=1e-5)
+        self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.downsample = nn.Sequential(
             nn.Conv2d(inplanes, planes, 1, stride=_pair(stride), bias=False),
-            nn.BatchNorm2d(planes, eps=1e-5)) if use_downsample else None
+            BatchNorm2d(planes, eps=1e-5)) if use_downsample else None
 
     def forward(self, x):
         out = F.relu(self.bn1(self.conv1(x)))

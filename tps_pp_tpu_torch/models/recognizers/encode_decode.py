@@ -4,7 +4,8 @@
 backbone + optional TPS++ rectifier + encoder + decoder. The rectifier is a
 mid-backbone stage: ``x, skips = backbone.stem_and_head(img)``,
 ``x = tpsnet(x, skips)['output']``, ``x = backbone.tail(x)``. Images and
-features are NHWC at these boundaries.
+features are NHWC at these boundaries. ``forward`` is the teacher-forced
+training pass (JAX ``encode_decode.py:63-69``).
 """
 from __future__ import annotations
 
@@ -32,6 +33,16 @@ class EncodeDecodeRecognizer(nn.Module):
         if self.tpsnet is not None:
             x = self.tpsnet(x, skips, plain=plain)['output']
         return self.backbone.tail(x)
+
+    def forward(self, img: torch.Tensor, targets: torch.Tensor,
+                valid_ratio=None, rng: Optional[torch.Generator] = None,
+                plain: bool = False) -> torch.Tensor:
+        """Teacher-forced logits (N, T, C-1) of img (N, H, W, C) against
+        targets (N, T); ``rng`` draws the dropout masks in train mode,
+        ``plain`` makes the rectifier's warp take the plain versions."""
+        feat = self.extract_feat(img, plain=plain)
+        out_enc = self.encoder(feat, valid_ratio, rng=rng)
+        return self.decoder(out_enc, targets, valid_ratio, rng=rng)
 
     def encode_full(self, img, valid_ratio=None):
         """(feat, out_enc) of the module path."""

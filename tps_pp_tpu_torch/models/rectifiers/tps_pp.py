@@ -14,9 +14,13 @@ The reference's semantics are kept, quirks included:
   computed.
 
 The convolutional parts run NCHW; the public ``forward`` takes and returns
-NHWC like the JAX module. The grid generation and the warp go through
-``ops.tps_sampler``: the CUDA kernel on CUDA tensors, its plain version on
-CPU tensors or with ``plain=True``. Module names are the reference's.
+NHWC like the JAX module. In eval mode the grid generation and the warp go
+through ``ops.tps_sampler`` (the serving kernel). In train mode, as in the
+JAX module (``tps_pp.py:312-343``), the grid is built with ``build_P_prime``
+in float32 under autograd, out of autocast, and the warp is the
+differentiable ``ops.grid_sample`` (the training kernels). Either way the
+kernels run on CUDA tensors and their plain versions on CPU tensors or with
+``plain=True``. Module names are the reference's.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops import tps as tps_ops
+from ...ops.grid_sample import grid_sample
 from ...ops.tps_sampler import tps_sampler, tps_sampler_plain
 from ...registry import RECTIFIERS
 from ..layers import (ConvModule, nchw_to_nhwc, nhwc_to_nchw,
@@ -215,7 +220,8 @@ class TPE(nn.Module):
         control_point = cp.reshape(N, self.num_fiducial, 2)
         p1 = self.p_linear(tokens)                          # (N, F, 128)
         f = self.feat_linear(x.flatten(2).transpose(1, 2))  # (N, HW, 128)
-        score = torch.matmul(f.float(), p1.float().transpose(1, 2))
+        with torch.autocast(f.device.type, enabled=False):
+            score = torch.matmul(f.float(), p1.float().transpose(1, 2))
         pc_score = torch.tanh(score * self.C ** -0.5).to(en_feat.dtype)
         return control_point, pc_score
 
@@ -259,10 +265,13 @@ class TPS_PP(nn.Module):
         self._tps_on = {}
 
     def tps_matrices(self, device) -> Tuple[torch.Tensor, ...]:
-        """(inv_delta_C, P_hat, P) as float32 tensors on ``device``."""
+        """(inv_delta_C, P_hat, P) as float32 tensors on ``device``; made
+        outside inference mode, so that training can use them after
+        ``predict`` made them."""
         if device not in self._tps_on:
-            self._tps_on[device] = tuple(torch.from_numpy(a).to(device)
-                                         for a in self._tps_np)
+            with torch.inference_mode(False):
+                self._tps_on[device] = tuple(torch.from_numpy(a).to(device)
+                                             for a in self._tps_np)
         return self._tps_on[device]
 
     def forward(self, batch_img, skips, plain: bool = False):
@@ -280,11 +289,24 @@ class TPS_PP(nn.Module):
         logits = self.MSFA(feat_cat)
         control_point, pc_score = self.TPE(logits['en_feat'],
                                            logits['de_feat'])
-        sampler = tps_sampler_plain if plain else tps_sampler
-        rect = sampler(nchw_to_nhwc(feat_grid).contiguous(),
-                       control_point.float().contiguous(),
-                       pc_score.float().contiguous(),
-                       *self.tps_matrices(feat_grid.device),
-                       self.rectified_img_size)
+        feat_nhwc = nchw_to_nhwc(feat_grid).contiguous()
+        mats = self.tps_matrices(feat_grid.device)
+        if self.training:
+            # the grid in float64, rounded once to the float32 the sampler
+            # takes (as JAX's does, grid_sample.py:44-45): in float32 its
+            # 35-term sums cancel (inv_delta_C holds entries near 56), two
+            # implementations part by ~1e-6, and through the trunk's ReLUs
+            # such noise can flip whole gradients downstream
+            with torch.autocast(feat_grid.device.type, enabled=False):
+                grid = tps_ops.build_P_prime(
+                    control_point.double(), pc_score.double(),
+                    *(m.double() for m in mats)).float()
+            rect = grid_sample(feat_nhwc, grid.reshape(
+                -1, *self.rectified_img_size, 2), plain=plain)
+        else:
+            sampler = tps_sampler_plain if plain else tps_sampler
+            rect = sampler(feat_nhwc, control_point.float().contiguous(),
+                           pc_score.float().contiguous(), *mats,
+                           self.rectified_img_size)
         return {'output': rect.to(batch_img.dtype),
                 'pc_score': pc_score, 'control_point': control_point}

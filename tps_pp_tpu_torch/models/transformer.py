@@ -6,7 +6,13 @@ separate q/k/v linears, scores scaled by ``1/sqrt(d_k)``, masked scores set
 to -1e9 (mask == 0 is masked), softmax in float32, exact-erf GELU, pre-norm
 layers with LayerNorm eps 1e-5. Tokens are (N, T, D). Module and parameter
 names are the reference's, so ``state_dict`` keys match its checkpoints.
-Inference only: dropout is not applied.
+
+Dropout sits where the JAX package has it: on the attention weights after
+the softmax, on each attention's output projection and on the FFN output
+(``tps_pp_tpu/models/transformer.py:103,121,182``). It applies in train
+mode only, with masks drawn from the ``torch.Generator`` passed as ``rng``.
+``attend`` keeps its scores, softmax and weighted sum out of autocast: the
+JAX package takes them in float32 from the compute-dtype operands.
 """
 from __future__ import annotations
 
@@ -18,6 +24,20 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 NEG_INF = -1e9
+
+
+def dropout(x: torch.Tensor, rate: float,
+            rng: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each value with probability 1 - rate and
+    scale it by 1 / (1 - rate). The mask comes from ``rng`` (a generator on
+    x's device; torch's default one when None). Identity at rate 0."""
+    if rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
@@ -47,26 +67,31 @@ class PositionalEncoding(nn.Module):
         return x + pe.to(x.dtype)
 
 
-def attend(q, k, v, mask: Optional[torch.Tensor], scale: float):
+def attend(q, k, v, mask: Optional[torch.Tensor], scale: float,
+           drop: float = 0.0, rng: Optional[torch.Generator] = None):
     """q (N, H, Tq, dk); k/v (N, H, Tk, d); mask broadcastable to
     (N, H, Tq, Tk), 0 = masked. Scores and softmax in float32; the weights
-    and the output are rounded to q's dtype. Returns (N, Tq, H*d)."""
-    s = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
-    if mask is not None:
-        s = s.masked_fill(mask == 0, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(q.dtype)
-    out = torch.matmul(p.float(), v.float()).to(q.dtype)
+    (then dropout at rate ``drop``) and the output are rounded to q's
+    dtype. Returns (N, Tq, H*d)."""
+    with torch.autocast(q.device.type, enabled=False):
+        s = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+        if mask is not None:
+            s = s.masked_fill(mask == 0, NEG_INF)
+        p = dropout(torch.softmax(s, dim=-1).to(q.dtype), drop, rng)
+        out = torch.matmul(p.float(), v.float()).to(q.dtype)
     N, H, Tq, d = out.shape
     return out.transpose(1, 2).reshape(N, Tq, H * d)
 
 
 class MultiHeadAttention(nn.Module):
-    """NRTR's attention: q/k/v and output linears without bias."""
+    """NRTR's attention: q/k/v and output linears without bias; dropout
+    (train mode) on the attention weights and on the output."""
 
     def __init__(self, n_head: int = 8, d_model: int = 512, d_k: int = 64,
-                 d_v: int = 64):
+                 d_v: int = 64, dropout: float = 0.1):
         super().__init__()
         self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
+        self.dropout = dropout
         self.linear_q = nn.Linear(d_model, n_head * d_k, bias=False)
         self.linear_k = nn.Linear(d_model, n_head * d_k, bias=False)
         self.linear_v = nn.Linear(d_model, n_head * d_v, bias=False)
@@ -81,54 +106,68 @@ class MultiHeadAttention(nn.Module):
         return (self.split(self.linear_k(kv), self.d_k),
                 self.split(self.linear_v(kv), self.d_v))
 
-    def attend_cached(self, q_in, k, v, mask=None):
+    def attend_cached(self, q_in, k, v, mask=None, rng=None):
         """Attention of ``q_in`` (N, Tq, D) over projected, split K/V."""
+        rate = self.dropout if self.training else 0.0
         q = self.split(self.linear_q(q_in), self.d_k)
-        return self.fc(attend(q, k, v, mask, self.d_k ** -0.5))
+        out = attend(q, k, v, mask, self.d_k ** -0.5, rate, rng)
+        return dropout(self.fc(out), rate, rng)
 
-    def forward(self, q, k, v, mask=None):
+    def forward(self, q, k, v, mask=None, rng=None):
         return self.attend_cached(q, self.split(self.linear_k(k), self.d_k),
                                   self.split(self.linear_v(v), self.d_v),
-                                  mask)
+                                  mask, rng)
 
 
 class PositionwiseFeedForward(nn.Module):
-    """w_2(GELU(w_1(x))), exact erf GELU."""
+    """w_2(GELU(w_1(x))), exact erf GELU, then dropout (train mode)."""
 
-    def __init__(self, d_in: int, d_hid: int):
+    def __init__(self, d_in: int, d_hid: int, dropout: float = 0.1):
         super().__init__()
         self.w_1 = nn.Linear(d_in, d_hid)
         self.w_2 = nn.Linear(d_hid, d_in)
+        self.dropout = dropout
 
-    def forward(self, x):
-        return self.w_2(F.gelu(self.w_1(x)))
+    def forward(self, x, rng=None):
+        return dropout(self.w_2(F.gelu(self.w_1(x))),
+                       self.dropout if self.training else 0.0, rng)
 
 
 class TFEncoderLayer(nn.Module):
     """Pre-norm self-attention + FFN (reference transformer_layers.py:9-73)."""
 
-    def __init__(self, d_model=512, d_inner=256, n_head=8, d_k=64, d_v=64):
+    def __init__(self, d_model=512, d_inner=256, n_head=8, d_k=64, d_v=64,
+                 dropout=0.1):
         super().__init__()
-        self.attn = MultiHeadAttention(n_head, d_model, d_k, d_v)
-        self.mlp = PositionwiseFeedForward(d_model, d_inner)
+        self.attn = MultiHeadAttention(n_head, d_model, d_k, d_v, dropout)
+        self.mlp = PositionwiseFeedForward(d_model, d_inner, dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, rng=None):
         y = self.norm1(x)
-        x = x + self.attn(y, y, y, mask)
-        return x + self.mlp(self.norm2(x))
+        x = x + self.attn(y, y, y, mask, rng)
+        return x + self.mlp(self.norm2(x), rng)
 
 
 class TFDecoderLayer(nn.Module):
     """Pre-norm self-attention + cross-attention + FFN (reference
     transformer_layers.py:76-167)."""
 
-    def __init__(self, d_model=512, d_inner=256, n_head=8, d_k=64, d_v=64):
+    def __init__(self, d_model=512, d_inner=256, n_head=8, d_k=64, d_v=64,
+                 dropout=0.1):
         super().__init__()
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
-        self.self_attn = MultiHeadAttention(n_head, d_model, d_k, d_v)
-        self.enc_attn = MultiHeadAttention(n_head, d_model, d_k, d_v)
-        self.mlp = PositionwiseFeedForward(d_model, d_inner)
+        self.self_attn = MultiHeadAttention(n_head, d_model, d_k, d_v,
+                                            dropout)
+        self.enc_attn = MultiHeadAttention(n_head, d_model, d_k, d_v, dropout)
+        self.mlp = PositionwiseFeedForward(d_model, d_inner, dropout)
+
+    def forward(self, x, enc, self_mask=None, enc_mask=None, rng=None):
+        """The teacher-forced pass: x (N, T, D) over enc (N, TE, D)."""
+        y = self.norm1(x)
+        x = x + self.self_attn(y, y, y, self_mask, rng)
+        x = x + self.enc_attn(self.norm2(x), enc, enc, enc_mask, rng)
+        return x + self.mlp(self.norm3(x), rng)

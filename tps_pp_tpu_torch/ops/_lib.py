@@ -27,6 +27,9 @@ _SIGNATURES = {
     'tpk_tps_sampler': [_P] * 7 + [_I] * 6 + [_P],
     'tpk_encoder_forward': [_P] * 17 + [_I] * 7 + [_P],
     'tpk_full_decode': [_P] * 28 + [_I] * 11 + [_P, _P],
+    'tpk_grid_sample_fwd': [_P] * 3 + [_I] * 6 + [_P],
+    'tpk_grid_sample_grad': [_P] * 5 + [_I] * 6 + [_P],
+    'tpk_grid_sample_grad_img': [_P] * 3 + [_I] * 6 + [_P],
 }
 
 _lib = None

@@ -13,7 +13,7 @@ from typing import Tuple
 import torch
 
 from . import _lib
-from .grid_sample import grid_sample
+from .grid_sample import grid_sample_plain
 from .tps import build_P_prime
 
 
@@ -27,7 +27,7 @@ def tps_sampler_plain(feat_grid, control_point, pc_score, inv_delta_C, P_hat,
     grid = build_P_prime(control_point.to(f32), pc_score.to(f32),
                          inv_delta_C.to(f32), P_hat.to(f32), P.to(f32))
     Hr, Wr = out_hw
-    return grid_sample(feat_grid, grid.reshape(-1, Hr, Wr, 2))
+    return grid_sample_plain(feat_grid, grid.reshape(-1, Hr, Wr, 2))
 
 
 def _expect(t, name, shape, dtype, device):

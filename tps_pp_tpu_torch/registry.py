@@ -51,3 +51,4 @@ RECTIFIERS = Registry('torch_rectifiers')
 ENCODERS = Registry('torch_encoders')
 DECODERS = Registry('torch_decoders')
 CONVERTORS = Registry('torch_convertors')
+LOSSES = Registry('torch_losses')
