@@ -7,12 +7,20 @@ Run from the repository root with no arguments:
 
 It builds the port's CUDA kernels from ``tps_pp_tpu_torch/csrc``, holds each
 kernel against its plain PyTorch version at its path's shapes, then drives
-two paths of the full-width NRTR + TPS++ flagship (random weights from a
+the paths of the full-width NRTR + TPS++ flagship (random weights from a
 seed):
 
-* serving (bf16): ``TextRecognizer.simple_test`` on a batch of 512 crops
-  and a batch of 5 with mixed valid ratios; the kernels must carry that
-  run, its argmax must agree with the plain path, and both paths are timed;
+* serving (bf16), through ``TextRecognizer.simple_test`` on a batch of 512
+  crops and a small batch with mixed valid ratios, on each of the JAX
+  package's serving decodes: ``fused40_bf16`` (B=512 and 5), ``fused40``
+  (int8 encoder K/V; B=512 and 5) and ``steps`` with a ``use_fused_step``
+  decoder (B=512 and 8, the small-batch regime it is kept for). Each path
+  runs with the launch counts set to 0 just before it, and its kernels
+  must carry it; its argmax must agree with its plain path (the
+  recognizer's ``plain`` switch); the decodes are timed in turns. A
+  float32 model then serves B=8 through ``steps``, with and without
+  ``use_fused_step`` (the kernels' float32 variants), against its plain
+  path;
 * training (f32 parameters and Adam state, bf16 autocast, B=256, Adam at
   1e-4 with grad clip 5.0, random DICT90 labels): one step from the same
   weights and batch on the kernel path and on the plain path must agree
@@ -21,6 +29,13 @@ seed):
   five steps with dropout 0.1 must give finite losses through the
   grid_sample kernels; both paths are timed. The d_img-only backward
   kernel is driven through ``GridSampleFunction`` with a detached grid.
+
+For every kernel it reports the time, the plain version's time, the time of
+one PyTorch call that computes the same function where there is one, and
+the bound: the larger of the bytes it must move (each input read once,
+each output written once) over the card's memory rate and its operations
+over the peak rate of their type (bf16 tensor cores for the matmuls, f32
+for the rest), at this run's shapes and steps.
 
 It imports nothing of JAX and nothing of the JAX package.
 
@@ -37,7 +52,11 @@ import time
 
 B = 512          # serving batch (bench.py's)
 N_DECODE = 64    # batch of the decode kernel check
+B_SMALL = 8      # the small batch the fused step is kept for
 SEED = 0
+# the H100 SXM's published peaks (NVIDIA data sheet, dense): HBM bytes/s,
+# bf16 tensor-core and f32 FLOP/s
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 
 # tolerances of the kernel-vs-plain checks (both sides in bf16 on the card)
 SAMPLER_ATOL = 2e-2
@@ -49,6 +68,23 @@ ENCODER_ATOL, ENCODER_RTOL = 6.25e-2, 3.125e-2
 # decode: argmax equal, or the first differing step is a near-tie of the
 # plain version; probabilities before it within the JAX bf16 contract
 NEAR_TIE, DECODE_ATOL, DECODE_RTOL = 1e-3, 2e-2, 5e-2
+# the bf16 `steps` decodes round the residual stream to bf16 after every
+# call (the JAX kernels with use_fused_step as the module path), where the
+# whole decode keeps it f32: there one bf16 ulp anywhere upstream moves
+# the step-0 probabilities by ~2e-3, and even the module `steps` decode,
+# with no decode kernel, parts from itself at top-2 gaps of ~2e-3 when
+# only the sampler's version changes. So the fused-step path's near-tie is
+# measured in each run (steps_tie_widths): that module decode's widest
+# gap, its own sensitivity to one ulp upstream, times STEPS_TIE_MULT, and
+# never below NEAR_TIE. The fused-step kernels against their plain
+# versions on one encoding, and the path against its plain path, must part
+# only within it. Readings over several seeds:
+# tools/steps_tie_calibration.py, PERF.md
+STEPS_TIE_MULT = 2.0
+# the per-step kernels (bf16 outputs of O(1) values): one bf16 rounding
+# apart where f32 sums in another order cross a rounding boundary, two
+# ulps relative and 2e-2 absolute near 0
+STEP_ATOL, STEP_RTOL = 2e-2, 2 ** -7
 # the training warp, (atol, rtol): bf16 as the sampler and as the JAX
 # package's bf16 VJP test (tests/test_grid_sample_vjp.py:180-193); f32 as
 # its f32 tests, at a cotangent scale of 1e-3 (d_grid scales 64-term
@@ -93,6 +129,18 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes, bf16_flops=0, f32_flops=0):
+    """(least ms, what binds it) of work that moves ``nbytes`` and does
+    ``bf16_flops`` on the tensor cores and ``f32_flops`` elsewhere."""
+    mem = nbytes / PEAK_BYTES * 1e3
+    ops = (bf16_flops / PEAK_BF16 + f32_flops / PEAK_F32) * 1e3
+    return (mem, 'bytes') if mem >= ops else (ops, 'operations')
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def first_divergence(kernel_probs, plain_probs):
     """Per row: (first step whose argmax differs or None, plain top-2 gap
     there)."""
@@ -110,18 +158,19 @@ def first_divergence(kernel_probs, plain_probs):
     return out
 
 
-def check_decode(kernel_probs, plain_probs, what):
+def check_decode(kernel_probs, plain_probs, what, near_tie=NEAR_TIE):
     """The decode rule; returns (max abs error on the agreeing prefix,
-    number of rows that part at a near-tie)."""
+    number of rows that part at a near-tie, their largest top-2 gap)."""
     div = first_divergence(kernel_probs, plain_probs)
-    err, ties = 0.0, 0
+    err, ties, widest = 0.0, 0, 0.0
     for r, (t, gap) in enumerate(div):
         if t is not None:
-            if not gap < NEAR_TIE:
+            if not gap < near_tie:
                 raise AssertionError(
                     f'{what}: row {r} parts from the plain path at step {t} '
-                    f'with a top-2 gap of {gap:.3g} (>= {NEAR_TIE})')
+                    f'with a top-2 gap of {gap:.3g} (>= {near_tie})')
             ties += 1
+            widest = max(widest, gap)
         stop = kernel_probs.shape[1] if t is None else t
         k, p = kernel_probs[r, :stop].float(), plain_probs[r, :stop].float()
         if stop:
@@ -130,7 +179,45 @@ def check_decode(kernel_probs, plain_probs, what):
             if bool(bad.any()):
                 raise AssertionError(f'{what}: row {r} probabilities beyond '
                                      f'atol {DECODE_ATOL} rtol {DECODE_RTOL}')
-    return err, ties
+    return err, ties, widest
+
+
+def steps_tie_widths(r, img):
+    """How far the bf16 ``steps`` decodes of ``r`` (a recognizer whose
+    decoder has ``use_fused_step``) part from themselves on ``img``, each
+    as (rows that part, widest top-2 gap of the plain side where they
+    part), with the probabilities before that held to the decode rule:
+
+    * ``module``: the module decode (no decode kernel) on the encodings of
+      the sampler's kernel and of its plain version: the decode's own
+      sensitivity to one bf16 ulp upstream;
+    * ``kernels``: the fused step's kernels against their plain versions
+      on one encoding (the sampler kernel's), so that the sampler drops
+      out;
+    * ``path``: the kernel path against the plain path, as ``predict``
+      gives them with ``r.plain`` False and True.
+    """
+    import torch
+    from tps_pp_tpu_torch.models.decoders import greedy_decode
+    dec, lc, n = r.model.decoder, r.label_convertor, img.shape[0]
+    with torch.inference_mode():
+        ones = torch.ones(n, device=img.device)
+
+        def decode(enc, plain):
+            return greedy_decode(dec, enc, ones, max_seq_len=r.max_seq_len,
+                                 start_idx=lc.start_idx,
+                                 end_idx=lc.end_idx, plain=plain)
+        enc_k, enc_p = (r.model.encode_full(img, ones, plain=p)[1]
+                        for p in (False, True))
+        out = dict(kernels=(decode(enc_k, False), decode(enc_k, True)))
+        out['path'] = (out['kernels'][0], decode(enc_p, True))
+        dec.use_fused_step = False
+        try:
+            out['module'] = (decode(enc_k, False), decode(enc_p, False))
+        finally:
+            dec.use_fused_step = True
+    return {k: check_decode(a, b, f'steps_tie_widths {k}', near_tie=1.0)[1:]
+            for k, (a, b) in out.items()}
 
 
 def check_close(what, got, want, bound):
@@ -200,20 +287,36 @@ def warp_checks(dev, g, record, name):
     img, grid, cot = timed
     e = errs['bfloat16']
     src = 'tps_pp_tpu_torch/csrc/grid_sample.cu'
+    # the library's sampler (ATen, NCHW views, a grid of the image's type):
+    # the same bilinear, border, align_corners function
+    img_l, cot_l = img.permute(0, 3, 1, 2), cot.permute(0, 3, 1, 2)
+    grid_l = grid.to(img.dtype)
+    taps = cot.numel() * 8                   # 4 taps, a multiply-add each
+    d_img = nbytes(img) * 2                  # f32
     record('grid_sample_forward', src,
            'tps_pp_tpu/ops/pallas_grid_sample.py:126',
            lambda: grid_sample_forward(img, grid),
-           lambda: grid_sample_plain(img, grid), e['fwd'], 20)
+           lambda: grid_sample_plain(img, grid), e['fwd'], 20,
+           nbytes(img, grid, cot), f32_flops=taps,
+           fn_lib=lambda: torch.nn.functional.grid_sample(
+               img_l, grid_l, mode='bilinear', padding_mode='border',
+               align_corners=True))
     record('grid_sample_grad', src,
            'tps_pp_tpu/ops/pallas_grid_sample.py:283',
            lambda: grid_sample_grad(grid, cot, img),
            lambda: grid_sample_grad_plain(grid, cot, img),
-           max(e['d_img'], e['d_grid']), 10)
+           max(e['d_img'], e['d_grid']), 10,
+           # d_grid is the grid's size
+           nbytes(grid, cot, img, grid) + d_img, f32_flops=2 * taps,
+           fn_lib=lambda: torch.ops.aten.grid_sampler_2d_backward(
+               cot_l, img_l, grid_l, 0, 1, True, [True, True]))
     record('grid_sample_grad_img', src,
            'tps_pp_tpu/ops/pallas_grid_sample.py:178',
            lambda: grid_sample_grad_img(grid, cot, 32, 128),
            lambda: grid_sample_grad_img_plain(grid, cot, 32, 128),
-           e['d_img10'], 10)
+           e['d_img10'], 10, nbytes(grid, cot) + d_img, f32_flops=taps,
+           fn_lib=lambda: torch.ops.aten.grid_sampler_2d_backward(
+               cot_l, img_l, grid_l, 0, 1, True, [True, False]))
     return img, grid, cot
 
 
@@ -363,6 +466,18 @@ def train_slice(dev, g, name, warp_args):
     return launches
 
 
+def decode_flops(d, N, steps, TE):
+    """(bf16, f32) operations of the whole greedy decode of ``N`` rows over
+    ``steps`` steps: the encoder K/V projection, every step's matmuls and
+    classifier, and the attention over t + 1 cached and TE encoder keys."""
+    L, D, HD, DI, NC, H, DK = (d[k] for k in ('L', 'D', 'HD', 'DI', 'NC',
+                                              'H', 'DK'))
+    mm = 2 * N * TE * D * L * 2 * HD + steps * (
+        2 * N * L * (D * 3 * HD + 3 * HD * D + 2 * D * DI) + 2 * N * D * NC)
+    att = sum(4 * N * H * DK * L * (t + 1 + TE) for t in range(steps))
+    return mm, att
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -374,9 +489,13 @@ def main():
                                        nrtr_tps_pp_cfg)
     from tps_pp_tpu_torch.models.encoders.nrtr import sequence_mask
     from tps_pp_tpu_torch.ops import _lib, tps as tps_ops
+    from tps_pp_tpu_torch.ops.decode_step import (cross_ffn_step,
+                                                  cross_ffn_step_plain,
+                                                  self_attn_step,
+                                                  self_attn_step_plain)
     from tps_pp_tpu_torch.ops.encoder import (encoder_forward,
                                               encoder_forward_plain)
-    from tps_pp_tpu_torch.ops.full_decode import (full_decode,
+    from tps_pp_tpu_torch.ops.full_decode import (_dims, full_decode,
                                                   full_decode_plain)
     from tps_pp_tpu_torch.ops.tps_sampler import (tps_sampler,
                                                   tps_sampler_plain)
@@ -396,7 +515,9 @@ def main():
 
     # ---- the flagship, bf16, seeded random weights -----------------------
     cfg = nrtr_tps_pp_cfg(dtype='bfloat16', decode_mode='auto')
-    rec = build_recognizer(cfg, device=dev)
+    rec = build_recognizer(cfg)
+    if rec.device.type != 'cuda':
+        raise AssertionError(f'built on {rec.device}, not on the card')
     rec.init_weights(SEED)
     if rec.resolved_decode_mode() != 'fused40_bf16':
         raise AssertionError(f'auto resolved to {rec.resolved_decode_mode()}')
@@ -405,14 +526,24 @@ def main():
     g = np.random.default_rng(SEED)
     kernels = []
 
-    def record(name_, src, replaces, fn_k, fn_p, err, reps):
-        kernels.append(dict(name=name_, route='cuda', source=src,
-                            replaces=replaces, launches=None,
-                            max_abs_err=err, ms=cuda_ms(fn_k, reps),
-                            plain_ms=cuda_ms(fn_p, reps)))
+    def record(name_, src, replaces, fn_k, fn_p, err, reps, moved,
+               bf16_flops=0, f32_flops=0, fn_lib=None, calls=1):
+        """Time the kernel, its plain version and the library call (each
+        ``fn`` makes ``calls`` calls) and note the bound of one call."""
+        bound_ms, bound_by = bound(moved, bf16_flops, f32_flops)
+        kernels.append(dict(
+            name=name_, route='cuda', source=src, replaces=replaces,
+            launches=None, max_abs_err=err,
+            ms=cuda_ms(fn_k, reps) / calls,
+            plain_ms=cuda_ms(fn_p, reps) / calls, bound_ms=bound_ms,
+            bound_by=bound_by,
+            library_ms=None if fn_lib is None else cuda_ms(fn_lib, reps)))
         k = kernels[-1]
+        lib = ('none' if k['library_ms'] is None
+               else f'{k["library_ms"]:.4f} ms')
         log(f'{name_}: max_abs_err {err:.4g}; {k["ms"]:.4f} ms kernel, '
-            f'{k["plain_ms"]:.4f} ms plain [{name}]')
+            f'{k["plain_ms"]:.4f} ms plain, bound {bound_ms:.4f} ms '
+            f'({bound_by}), library {lib} [{name}]')
 
     # ---- kernel 1: TPS++ grid + warp at (B, 32, 128, 64) -> (B, 16, 64, 64)
     tps = model.tpsnet
@@ -432,12 +563,16 @@ def main():
     if not err <= SAMPLER_ATOL:
         raise AssertionError(f'tps_sampler: max abs error {err} > '
                              f'{SAMPLER_ATOL}')
+    n_ctrl = inv.shape[0]
     record('tps_sampler', 'tps_pp_tpu_torch/csrc/tps_sampler.cu',
            'tps_pp_tpu/ops/pallas_tps.py:248',
            lambda: tps_sampler(*args), lambda: tps_sampler_plain(*args),
-           err, 20)
+           err, 20, nbytes(feat, cp, score, inv, P_hat, P, out_k),
+           # T = inv @ [C'; 0], the modulated P' rows, 4 taps per channel
+           f32_flops=B * (2 * n_ctrl * n_ctrl * 2 + 1024 * (
+               2 * 32 + 2 * n_ctrl * 2) + 1024 * 64 * 8))
 
-    # ---- kernel 2: whole encoder at (B, 64, 512) --------------------------
+    # ---- kernel 3: whole encoder at (B, 64, 512) --------------------------
     vr = torch.from_numpy(g.uniform(0.3, 1.0, B).astype(np.float32)).to(dev)
     mask = sequence_mask(vr, 64)
     x = torch.from_numpy(g.standard_normal((B, 64, 512)).astype(
@@ -451,98 +586,258 @@ def main():
     if bool((d > ENCODER_ATOL + ENCODER_RTOL * enc_p.float().abs()).any()):
         raise AssertionError(f'encoder: max abs error {err} beyond atol '
                              f'{ENCODER_ATOL} rtol {ENCODER_RTOL}')
+    Le, De, HDe = w_enc['wqkv'].shape[0], 512, w_enc['wfc'].shape[1]
+    DIe = w_enc['w1'].shape[2]
     record('encoder', 'tps_pp_tpu_torch/csrc/encoder.cu',
            'tps_pp_tpu/ops/pallas_encoder.py:178',
            lambda: encoder_forward(x, mask, w_enc, 8),
-           lambda: encoder_forward_plain(x, mask, w_enc, 8), err, 5)
+           lambda: encoder_forward_plain(x, mask, w_enc, 8), err, 5,
+           nbytes(x, mask, enc_k, *w_enc.values()),
+           bf16_flops=2 * B * 64 * Le * (De * 3 * HDe + HDe * De +
+                                         2 * De * DIe),
+           f32_flops=4 * B * 8 * 64 * 64 * 64 * Le)
 
-    # ---- kernel 3: whole greedy decode at N=64, bf16 encoder K/V ---------
+    # ---- kernels 4 and 5: whole greedy decode at N=64, bf16 and int8
+    # encoder K/V ------------------------------------------------------------
     dec = model.decoder
     lc = rec.label_convertor
     w_dec = dec.packed_weights(bf)
+    dd = _dims(w_dec, 8)
     out_enc = enc_p[:N_DECODE].contiguous()
     src_mask = mask[:N_DECODE].contiguous()
-    dargs = (out_enc, src_mask, w_dec, 8, lc.start_idx, lc.end_idx)
-    pk = full_decode(*dargs)
-    pp = full_decode_plain(*dargs)
+    for enc_dtype, kname in (('bfloat16', 'full_decode'),
+                             ('int8', 'full_decode_int8')):
+        dargs = (out_enc, src_mask, w_dec, 8, lc.start_idx, lc.end_idx,
+                 enc_dtype)
+        pk = full_decode(*dargs)
+        pp = full_decode_plain(*dargs)
+        torch.cuda.synchronize()
+        err, ties, widest = check_decode(pk, pp, kname)
+        steps = full_decode.last_steps
+        log(f'{kname}: {ties} of {N_DECODE} rows part at a near-tie (top-2 '
+            f'gap at most {widest:.3g}); {steps} steps run')
+        mm_ops, att_ops = decode_flops(dd, N_DECODE, steps, 64)
+        record(kname, 'tps_pp_tpu_torch/csrc/full_decode.cu',
+               'tps_pp_tpu/ops/pallas_full_decode.py:378',
+               lambda a=dargs: full_decode(*a),
+               lambda a=dargs: full_decode_plain(*a), err, 3,
+               nbytes(out_enc, src_mask, pk, *w_dec.values()),
+               bf16_flops=mm_ops, f32_flops=att_ops)
+
+    # ---- kernels 6 and 7: one decode step of one layer at N=B ------------
+    ws = {k: v[0] for k, v in dec.step_weights().items()}
+    sa_w = (ws['wqkv'], ws['wfc1'], ws['ln1_s'], ws['ln1_b'])
+    cf_w = tuple(ws[k] for k in ('wq2', 'wfc2', 'ln2_s', 'ln2_b', 'w1', 'b1',
+                                 'w2', 'b2', 'ln3_s', 'ln3_b'))
+    T = dec.max_seq_len + 1
+    xs = torch.from_numpy(g.standard_normal((B, 512)).astype(
+        np.float32)).to(dev, bf)
+    ck0 = torch.from_numpy(g.standard_normal((B, 8, T, 64)).astype(
+        np.float32)).to(dev, bf)
+    cv0 = torch.from_numpy(g.standard_normal((B, 8, T, 64)).astype(
+        np.float32)).to(dev, bf)
+    with torch.inference_mode():
+        ek, ev = (a.contiguous() for a in
+                  dec.layer_stack[0].enc_attn.project_kv(enc_p))
+    err6 = 0.0
+    for t in (0, 1, 20, T - 2):
+        ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
+        got, _, _ = self_attn_step(xs, ck, cv, t, *sa_w)
+        want, _, _ = self_attn_step_plain(xs, ckp, cvp, t, *sa_w)
+        torch.cuda.synchronize()
+        err6 = max(err6, check_close(f'self_attn_step t={t}', got, want,
+                                     (STEP_ATOL, STEP_RTOL)))
+        for c, cp_, c0 in ((ck, ckp, ck0), (cv, cvp, cv0)):
+            err6 = max(err6, check_close(f'self_attn_step t={t} cache',
+                                         c[:, :, t], cp_[:, :, t],
+                                         (STEP_ATOL, STEP_RTOL)))
+            keep = torch.arange(T, device=dev) != t
+            if not (torch.equal(c[:, :, keep], c0[:, :, keep]) and
+                    torch.equal(cp_[:, :, keep], c0[:, :, keep])):
+                raise AssertionError(f'self_attn_step t={t}: a cache slot '
+                                     f'other than t changed')
+    got = cross_ffn_step(xs, ek, ev, mask, *cf_w)
+    want = cross_ffn_step_plain(xs, ek, ev, mask, *cf_w)
     torch.cuda.synchronize()
-    err, ties = check_decode(pk, pp, 'full_decode')
-    log(f'full_decode: {ties} of {N_DECODE} rows part at a near-tie; '
-        f'{full_decode.last_steps} steps run')
-    record('full_decode', 'tps_pp_tpu_torch/csrc/full_decode.cu',
-           'tps_pp_tpu/ops/pallas_full_decode.py:378',
-           lambda: full_decode(*dargs), lambda: full_decode_plain(*dargs),
-           err, 3)
+    err7 = check_close('cross_ffn_step', got, want, (STEP_ATOL, STEP_RTOL))
+    log(f'self_attn_step at t = 0, 1, 20, {T - 2} and cross_ffn_step '
+        f'(B={B}): max abs errors {err6:.4g}, {err7:.4g}; caches equal '
+        f'outside slot t')
+    ck, cv = ck0.clone(), cv0.clone()
+    S = dec.max_seq_len
+    slot = nbytes(ck[:, :, 0])                  # one slot of K (or V)
+    record('self_attn_step', 'tps_pp_tpu_torch/csrc/decode_step.cu',
+           'tps_pp_tpu/ops/pallas_decode.py:122',
+           lambda: [self_attn_step(xs, ck, cv, t, *sa_w) for t in range(S)],
+           lambda: [self_attn_step_plain(xs, ck, cv, t, *sa_w)
+                    for t in range(S)], err6, 3,
+           # the mean step of the 40: reads t slots, writes slot t
+           nbytes(xs, xs, *sa_w) + 2 * slot * ((S - 1) / 2 + 1),
+           bf16_flops=2 * B * (512 * 3 * 512 + 512 * 512),
+           f32_flops=4 * B * 512 * (S + 1) / 2, calls=S)
+    record('cross_ffn_step', 'tps_pp_tpu_torch/csrc/decode_step.cu',
+           'tps_pp_tpu/ops/pallas_decode.py:219',
+           lambda: cross_ffn_step(xs, ek, ev, mask, *cf_w),
+           lambda: cross_ffn_step_plain(xs, ek, ev, mask, *cf_w), err7, 20,
+           nbytes(xs, ek, ev, mask, xs, *cf_w),
+           bf16_flops=2 * B * (2 * 512 * 512 + 2 * 512 * 256),
+           f32_flops=4 * B * 512 * 64)
+    del ck, cv, ck0, cv0, ek, ev
 
     # ---- kernels 8-10: the training warp at B_TRAIN, bf16 and f32 --------
     warp_args = warp_checks(dev, g, record, name)
 
-    # ---- the slice through the user's entry point ------------------------
+    # ---- the serving paths through the user's entry point ----------------
     h, w, c = FLAGSHIP_INPUT
     img = torch.from_numpy(g.standard_normal((B, h, w, c)).astype(
         np.float32)).to(dev, bf)
-    img5 = img[:5].contiguous()
-    vr5 = [1.0, 0.55, 0.8, 0.3, 0.95]
-    wrappers = (tps_sampler, encoder_forward, full_decode)
-    for fn in wrappers:
-        fn.launches = 0
-    res = rec.simple_test(img)
-    res5 = rec.simple_test(img5, vr5)
-    torch.cuda.synchronize()
-    counts = [fn.launches for fn in wrappers]
-    for k, n in zip(kernels, counts):
-        k['launches'] = n
-    log(f'slice launches: {dict(zip([k["name"] for k in kernels], counts))}')
-    if min(counts) < 1:
-        raise AssertionError(f'a kernel of the path did not launch: {counts}')
-    for r in res + res5:
-        if not isinstance(r['text'], str) or not np.all(
-                np.isfinite(r['score'])):
-            raise AssertionError(f'bad result {r}')
-    if len(res) != B or len(res5) != 5:
-        raise AssertionError('wrong number of results')
-    log(f'slice: {len(res)} + {len(res5)} results; first texts '
-        f'{[r["text"] for r in res[:3]]}')
-
-    # argmax of the kernel path against the plain path on both batches
+    small = {5: [1.0, 0.55, 0.8, 0.3, 0.95],
+             B_SMALL: [1.0, 0.55, 0.8, 0.3, 0.95, 0.6, 0.45, 1.0]}
+    rec_fs = build_recognizer(dict(cfg, decoder=dict(
+        cfg['decoder'], use_fused_step=True)))
+    rec_fs.model.load_state_dict(rec.model.state_dict())
+    rec_fs.decode_mode = 'steps'
+    widths = steps_tie_widths(rec_fs, img)
+    tie_steps = max(NEAR_TIE, STEPS_TIE_MULT * widths['module'][1])
+    log(f'steps near-ties at B={B} (rows that part, widest top-2 gap): '
+        f'module decode, kernel vs plain sampler {widths["module"]}; fused '
+        f'step, kernels vs plain on one encoding {widths["kernels"]}; fused '
+        f'step path vs plain path {widths["path"]}; near-tie of the '
+        f'fused-step path {tie_steps:.4g}')
+    for k in ('kernels', 'path'):
+        if not widths[k][1] < tie_steps:
+            raise AssertionError(f'steps {k}: parts at a top-2 gap of '
+                                 f'{widths[k][1]:.4g} >= {tie_steps:.4g}')
+    # path: (recognizer, decode mode, small batch, near-tie of the argmax
+    # rule, {kernel: its count})
+    paths = {
+        'fused40_bf16': (rec, 'fused40_bf16', 5, NEAR_TIE, {
+            'tps_sampler': lambda: tps_sampler.launches,
+            'encoder': lambda: encoder_forward.launches,
+            'full_decode': lambda: full_decode.launches}),
+        'fused40': (rec, 'fused40', 5, NEAR_TIE, {
+            'tps_sampler': lambda: tps_sampler.launches,
+            'encoder': lambda: encoder_forward.launches,
+            'full_decode_int8': lambda: full_decode.launches_int8}),
+        'steps, use_fused_step': (rec_fs, 'steps', B_SMALL, tie_steps, {
+            'tps_sampler': lambda: tps_sampler.launches,
+            'self_attn_step': lambda: self_attn_step.launches,
+            'cross_ffn_step': lambda: cross_ffn_step.launches}),
+    }
+    wrappers = (tps_sampler, encoder_forward, full_decode, self_attn_step,
+                cross_ffn_step)
     S, NC = rec.max_seq_len, lc.num_classes() - 1
-    for what, (im, v) in (('B=512', (img, None)), ('B=5', (img5, vr5))):
-        rec.decode_mode = 'fused40_bf16'
-        pk = rec.predict(im, v)
-        rec.decode_mode = 'plain'
-        pp = rec.predict(im, v)
-        if tuple(pk.shape) != (im.shape[0], S, NC) or not bool(
+    path_launches = {}
+    for pname, (r, mode, n_small, near_tie, counts) in paths.items():
+        r.decode_mode, r.plain = mode, False
+        im_s, vr_s = img[:n_small].contiguous(), small[n_small]
+        for fn in wrappers:
+            fn.launches = 0
+        full_decode.launches_int8 = 0
+        res = r.simple_test(img)
+        res_s = r.simple_test(im_s, vr_s)
+        torch.cuda.synchronize()
+        got = {k: f() for k, f in counts.items()}
+        log(f'{pname}: launches {got}')
+        if min(got.values()) < 1:
+            raise AssertionError(f'{pname}: a kernel of the path did not '
+                                 f'launch: {got}')
+        for k, n in got.items():
+            path_launches.setdefault(k, n)
+        for rr in res + res_s:
+            if not isinstance(rr['text'], str) or not np.all(
+                    np.isfinite(rr['score'])):
+                raise AssertionError(f'{pname}: bad result {rr}')
+        if len(res) != B or len(res_s) != n_small:
+            raise AssertionError(f'{pname}: wrong number of results')
+        log(f'{pname}: {len(res)} + {len(res_s)} results; first texts '
+            f'{[rr["text"] for rr in res[:3]]}')
+        # argmax of the kernel path against the plain path on both batches
+        for what, (im, v) in ((f'B={B}', (img, None)),
+                              (f'B={n_small}', (im_s, vr_s))):
+            pk = r.predict(im, v)
+            r.plain = True
+            pp = r.predict(im, v)
+            r.plain = False
+            if tuple(pk.shape) != (im.shape[0], S, NC) or not bool(
+                    torch.isfinite(pk).all()):
+                raise AssertionError(f'{pname} {what}: bad output '
+                                     f'{tuple(pk.shape)}')
+            err, ties, widest = check_decode(pk, pp, f'{pname} {what}',
+                                             near_tie)
+            same = int((pk.argmax(-1) == pp.argmax(-1)).all(-1).sum())
+            log(f'{pname} {what}: argmax equal to the plain path on {same} '
+                f'of {im.shape[0]} rows, {ties} part at a near-tie (top-2 '
+                f'gap at most {widest:.3g} < {near_tie}); max abs err '
+                f'{err:.4g}; step 0 max abs err '
+                f'{float((pk[:, 0] - pp[:, 0]).abs().max()):.4g}')
+
+    # ---- a float32 model serves through `steps`, at the small batch: the
+    # f32 variants of the sampler and of the step kernels -----------------
+    im_s, vr_s = img[:B_SMALL].contiguous(), small[B_SMALL]
+    for fused in (False, True):
+        cfg32 = nrtr_tps_pp_cfg(decode_mode='steps')
+        cfg32['decoder'] = dict(cfg32['decoder'], use_fused_step=fused)
+        r32 = build_recognizer(cfg32)
+        r32.model.load_state_dict(rec.model.state_dict())
+        what = f'float32 steps{", use_fused_step" if fused else ""}'
+        for fn in wrappers:
+            fn.launches = 0
+        pk = r32.predict(im_s, vr_s)
+        torch.cuda.synchronize()
+        got = {fn.__name__: fn.launches for fn in wrappers}
+        if r32.dtype != f32 or got['tps_sampler'] < 1 or fused != (
+                min(got['self_attn_step'], got['cross_ffn_step']) > 0):
+            raise AssertionError(f'{what}: launches {got}')
+        r32.plain = True
+        pp = r32.predict(im_s, vr_s)
+        if tuple(pk.shape) != (B_SMALL, S, NC) or not bool(
                 torch.isfinite(pk).all()):
             raise AssertionError(f'{what}: bad output {tuple(pk.shape)}')
-        err, ties = check_decode(pk, pp, f'slice {what}')
-        same = int((pk.argmax(-1) == pp.argmax(-1)).all(-1).sum())
-        log(f'slice {what}: argmax equal to the plain path on {same} of '
-            f'{im.shape[0]} rows, {ties} part at a near-tie; max abs err '
-            f'{err:.4g}')
+        err, ties, widest = check_decode(pk, pp, what)
+        log(f'{what} B={B_SMALL}: launches {got}; {ties} rows part from the '
+            f'plain path at a near-tie (top-2 gap at most {widest:.3g} < '
+            f'{NEAR_TIE}); max abs err {err:.4g}')
+        del r32
 
-    # ---- warm throughput at B=512, the two paths in turns ----------------
-    times = {'fused40_bf16': [], 'plain': []}
-    for mode in ('fused40_bf16', 'plain', 'fused40_bf16', 'plain'):
-        rec.decode_mode = mode
-        rec.predict(img)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            rec.predict(img)
-        torch.cuda.synchronize()
-        times[mode].append((time.perf_counter() - t0) / 3)
-    for mode, ts in times.items():
-        log(f'slice B={B} {mode}: {B / min(ts):.1f} images/s '
+    # ---- warm throughput at B=512, the decodes in turns -------------------
+    timed = {'fused40_bf16': (rec, 'fused40_bf16', False),
+             'fused40': (rec, 'fused40', False),
+             'steps, use_fused_step': (rec_fs, 'steps', False),
+             'fused40_bf16, plain': (rec, 'fused40_bf16', True)}
+    times = {k: [] for k in timed}
+    for _ in range(2):
+        for k, (r, mode, plain) in timed.items():
+            r.decode_mode, r.plain = mode, plain
+            r.predict(img)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                r.predict(img)
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) / 3)
+    for k, ts in times.items():
+        log(f'slice B={B} {k}: {B / min(ts):.1f} images/s '
             f'({min(ts) * 1e3:.2f} ms/batch, best of 2 rounds of 3) '
             f'[{name}]')
-    rec.decode_mode = 'auto'
-    del rec, model
+    rec_fs.predict(img[:B_SMALL])
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        rec_fs.predict(img[:B_SMALL])
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    log(f'slice B={B_SMALL} steps, use_fused_step: {min(ts) * 1e3:.2f} '
+        f'ms/batch (best of 5) [{name}]')
+    rec.decode_mode, rec.plain = 'auto', False
+    del rec, rec_fs, model
 
     # ---- the training slice ------------------------------------------------
     launches = train_slice(dev, g, name, warp_args)
+    path_launches.update(launches)
     for k in kernels:
-        if k['name'] in launches:
-            k['launches'] = launches[k['name']]
+        k['launches'] = path_launches.get(k['name'])
     if any(not k['launches'] for k in kernels):
         raise AssertionError(f'a kernel was not launched: {kernels}')
 

@@ -6,6 +6,12 @@ float32, with the JAX weights carried across.
   ``simple_test`` strings equal, per-character scores within 1e-6, on the
   port's ``steps`` and ``fused40_bf16`` paths (the latter through the
   kernels' plain versions here).
+* The same batch through the JAX package's other serving decodes, with
+  their Pallas kernels in interpret mode: ``fused40`` (int8 encoder K/V)
+  argmax equal and probabilities within atol 2e-2 / rtol 5e-2, the JAX
+  kernel's own contract (tests/test_pallas_full_decode.py:45); ``steps``
+  with ``use_fused_step=True`` argmax equal and within 1e-5 (both sides
+  round the same operands to bf16 at the same points).
 * Full-width flagship (heavy), batch 2: argmax equal, probabilities within
   atol 1e-3, which allows for float32 sums taken in another order over the
   trunk and 12 transformer layers.
@@ -16,7 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_util import jax_flagship, jnp_tree, port_from_jax
+from torch_port_util import (jax_flagship, jax_recognizer, jnp_tree,
+                             port_from_jax)
 
 from tps_pp_tpu.apis import flagship as jflag
 from tps_pp_tpu.convertors.attn import AttnConvertor as JaxAttnConvertor
@@ -55,6 +62,42 @@ def test_tiny_simple_test_matches_jax(tiny, mode):
     out = rec.predict(torch.from_numpy(img), torch.from_numpy(VR5))
     assert out.shape == probs.shape
     np.testing.assert_allclose(out.numpy(), probs, atol=1e-6, rtol=0)
+
+
+def _interpret_kernels(monkeypatch):
+    """The JAX package's Pallas kernels of the serving decodes, in
+    interpret mode."""
+    import tps_pp_tpu.ops.pallas_decode as pd
+    import tps_pp_tpu.ops.pallas_encoder as pe
+    import tps_pp_tpu.ops.pallas_full_decode as pfd
+    for mod, name in ((pe, 'fused_encoder_forward'),
+                      (pfd, 'full_greedy_decode'), (pd, 'self_attn_step'),
+                      (pd, 'cross_ffn_step')):
+        orig = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=orig, **k: _f(
+            *a, **dict(k, interpret=True)))
+
+
+@pytest.mark.parametrize('mode', ['fused40', 'fused_step'])
+def test_tiny_other_decodes_match_jax(tiny, monkeypatch, mode):
+    _interpret_kernels(monkeypatch)
+    v, cfg, img, _, _ = tiny
+    if mode == 'fused40':
+        jrec = jax_recognizer(cfg, 'fused40')
+        rec = port_from_jax(cfg, v, decode_mode='fused40')
+        atol, rtol = 2e-2, 5e-2
+    else:
+        jrec = jax_recognizer(cfg, use_fused_step=True)
+        rec = port_from_jax(
+            dict(cfg, decoder=dict(cfg['decoder'], use_fused_step=True)), v,
+            decode_mode='steps')
+        atol, rtol = 1e-5, 0
+    assert jrec.resolved_decode_mode() == rec.resolved_decode_mode()
+    want = np.asarray(jrec.predict(jnp_tree(v), jnp.asarray(img),
+                                   jnp.asarray(VR5)))
+    got = rec.predict(img, VR5).numpy()
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol)
 
 
 def test_bucketing_pads_and_slices(tiny):

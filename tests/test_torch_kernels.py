@@ -11,9 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+from tps_pp_tpu_torch.apis import build_recognizer, nrtr_tps_pp_cfg
 from tps_pp_tpu_torch.models.decoders import NRTRDecoder
 from tps_pp_tpu_torch.models.encoders.nrtr import NRTREncoder, sequence_mask
-from tps_pp_tpu_torch.ops import tps
+from tps_pp_tpu_torch.ops import _lib, tps
+from tps_pp_tpu_torch.ops.decode_step import (cross_ffn_step,
+                                              cross_ffn_step_plain,
+                                              self_attn_step,
+                                              self_attn_step_plain)
 from tps_pp_tpu_torch.ops.encoder import encoder_forward, encoder_forward_plain
 from tps_pp_tpu_torch.ops.full_decode import full_decode, full_decode_plain
 from tps_pp_tpu_torch.ops.grid_sample import (
@@ -34,7 +39,7 @@ def cuda_device():
     return torch.device('cuda')
 
 
-def _sampler_args(device, N=4):
+def _sampler_args(device, N=4, dtype=BF):
     rng = np.random.default_rng(0)
     fid = tps.build_C_cell_centers((2, 16))
     P = tps.build_P_cell_centers(64, 16)
@@ -44,7 +49,7 @@ def _sampler_args(device, N=4):
     feat = rng.uniform(-1, 1, (N, 32, 128, 64))
     args = [torch.tensor(a, dtype=torch.float32, device=device)
             for a in [feat, cp, score] + mats]
-    args[0] = args[0].to(BF)
+    args[0] = args[0].to(dtype)
     return args
 
 
@@ -66,6 +71,22 @@ def _decoder_args(device):
             dec.packed_weights(BF))
 
 
+def _step_args(device, N=8, T=41, TE=64, dtype=BF):
+    """The per-step kernels' inputs at the flagship's widths: x, caches
+    with random values in every slot and encoder K/V in ``dtype``, a mask
+    with a row of no valid key; one layer's step weights of a random
+    decoder."""
+    g = torch.Generator().manual_seed(0)
+    dec = NRTRDecoder(n_layers=1, max_seq_len=T - 1)
+    w = {k: v[0].to(device) for k, v in dec.step_weights().items()}
+
+    def r(*shape):
+        return torch.randn(shape, generator=g).to(device, dtype)
+    mask = sequence_mask(torch.linspace(0.0, 1.0, N), TE).to(device)
+    return (r(N, 512), r(N, 8, T, 64), r(N, 8, T, 64), r(N, 8, TE, 64),
+            r(N, 8, TE, 64), mask, w)
+
+
 def _warp_args(device, dtype, N=4, scale=1.0):
     """The training warp at the flagship's shapes: a (N, 32, 128, 64) map,
     a (N, 16, 64) grid over [-1.3, 1.3]^2 (in range, on the clamped border
@@ -83,8 +104,9 @@ def _warp_args(device, dtype, N=4, scale=1.0):
 
 
 @pytest.mark.parametrize('op', ['tps_sampler', 'encoder', 'full_decode',
-                                'grid_sample_forward', 'grid_sample_grad',
-                                'grid_sample_grad_img'])
+                                'full_decode_int8', 'self_attn_step',
+                                'cross_ffn_step', 'grid_sample_forward',
+                                'grid_sample_grad', 'grid_sample_grad_img'])
 def test_wrappers_refuse_non_cuda_devices(op):
     """A wrapper runs the plain version for CPU tensors only; on any other
     device it launches its kernel or raises, and never falls back."""
@@ -94,8 +116,17 @@ def test_wrappers_refuse_non_cuda_devices(op):
             tps_sampler(*_sampler_args(meta, N=1), (16, 64))
         elif op == 'encoder':
             encoder_forward(*_encoder_args(meta), 8)
-        elif op == 'full_decode':
-            full_decode(*_decoder_args(meta), 8, 91, 91)
+        elif op.startswith('full_decode'):
+            full_decode(*_decoder_args(meta), 8, 91, 91,
+                        enc_dtype='int8' if op.endswith('int8')
+                        else 'bfloat16')
+        elif op == 'self_attn_step':
+            x, ck, cv, _, _, _, w = _step_args(meta)
+            self_attn_step(x, ck, cv, 0, w['wqkv'], w['wfc1'], w['ln1_s'],
+                           w['ln1_b'])
+        elif op == 'cross_ffn_step':
+            x, _, _, ek, ev, mask, w = _step_args(meta)
+            cross_ffn_step(x, ek, ev, mask, *(w[k] for k in _CROSS_W))
         else:
             img, grid, cot = _warp_args(meta, torch.float32, N=1)
             if op == 'grid_sample_forward':
@@ -104,6 +135,17 @@ def test_wrappers_refuse_non_cuda_devices(op):
                 grid_sample_grad(grid, cot, img)
             else:
                 grid_sample_grad_img(grid, cot, 32, 128)
+
+
+def test_check_reports_the_kernels_limits():
+    """An entry point refuses arguments outside its limits with
+    cudaErrorInvalidValue, which the wrappers raise as a ValueError; any
+    other error is a RuntimeError."""
+    _lib.check(0, 'op')
+    with pytest.raises(ValueError, match="op: arguments outside the kernel"):
+        _lib.check(1, 'op')
+    with pytest.raises(RuntimeError, match='CUDA error 700'):
+        _lib.check(700, 'op')
 
 
 @pytest.mark.requires_cuda
@@ -118,6 +160,29 @@ def test_tps_sampler_kernel(cuda_device):
     assert tps_sampler.launches == before + 1
     assert got.dtype == BF and got.shape == (4, 16, 64, 64)
     assert float((got.float() - want.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.requires_cuda
+def test_tps_sampler_kernel_f32(cuda_device):
+    """The kernel on a float32 map (an f32 model's rectifier), output in
+    float32. The f32 grid is ill-conditioned (35-term sums over
+    inv_delta_C's entries near 56 cancel), so both versions carry its
+    rounding, in sums of another order: each is held against the same
+    function with the grid in float64, and the kernel may be off by at most
+    twice what the plain version is (the two versions part by up to ~1e-3
+    on an H100)."""
+    args = _sampler_args(cuda_device, dtype=torch.float32)
+    before = tps_sampler.launches
+    got = tps_sampler(*args, (16, 64))
+    want = tps_sampler_plain(*args, (16, 64))
+    feat, cp, score, inv, P_hat, P = (a.double() for a in args)
+    exact = grid_sample_plain(feat, tps.build_P_prime(
+        cp, score, inv, P_hat, P).reshape(-1, 16, 64, 2)).float()
+    torch.cuda.synchronize()
+    assert tps_sampler.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (4, 16, 64, 64)
+    plain_err = float((want - exact).abs().max())
+    assert float((got - exact).abs().max()) <= 2 * plain_err
 
 
 @pytest.mark.requires_cuda
@@ -136,26 +201,137 @@ def test_encoder_kernel(cuda_device):
     assert bool((d <= 6.25e-2 + 3.125e-2 * want.float().abs()).all())
 
 
+_CROSS_W = ('wq2', 'wfc2', 'ln2_s', 'ln2_b', 'w1', 'b1', 'w2', 'b2', 'ln3_s',
+            'ln3_b')
+
+
+def test_build_recognizer_defaults_to_cuda(monkeypatch):
+    """With no ``device``, the recognizer is built on the card, and without
+    one it raises: no fall back to the CPU."""
+    cfg = nrtr_tps_pp_cfg(tiny=True)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        build_recognizer(cfg)
+    assert build_recognizer(cfg, device='cpu').device.type == 'cpu'
+
+
 @pytest.mark.requires_cuda
-def test_full_decode_kernel(cuda_device):
+def test_build_recognizer_on_the_card(cuda_device):
+    rec = build_recognizer(nrtr_tps_pp_cfg(tiny=True))
+    assert rec.device.type == 'cuda'
+    assert next(rec.model.parameters()).is_cuda
+
+
+def _assert_decode_rule(got, want, atol=2e-2, rtol=5e-2, near_tie=1e-3):
     """Argmax equal unless the first differing step is a near-tie of the
-    plain version (top-2 gap < 1e-3); probabilities before it within the
-    JAX bf16 contract (atol 2e-2, rtol 5e-2)."""
-    out_enc, mask, w = _decoder_args(cuda_device)
-    before = full_decode.launches
-    got = full_decode(out_enc, mask, w, 8, 91, 91)
-    want = full_decode_plain(out_enc, mask, w, 8, 91, 91)
-    torch.cuda.synchronize()
-    assert full_decode.launches == before + 1
+    plain version (top-2 gap < ``near_tie``); probabilities before it
+    within (atol, rtol), by default the JAX bf16 contract."""
     ka, pa = got.argmax(-1), want.argmax(-1)
     for r in range(got.shape[0]):
         diff = torch.nonzero(ka[r] != pa[r])
         stop = got.shape[1] if diff.numel() == 0 else int(diff[0, 0])
         if stop < got.shape[1]:
             top2 = torch.topk(want[r, stop], 2).values
-            assert float(top2[0] - top2[1]) < 1e-3
+            assert float(top2[0] - top2[1]) < near_tie
         torch.testing.assert_close(got[r, :stop], want[r, :stop],
-                                   atol=2e-2, rtol=5e-2)
+                                   atol=atol, rtol=rtol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('enc_dtype', ['bfloat16', 'int8'])
+def test_full_decode_kernel(cuda_device, enc_dtype):
+    """Kernels 4 (bf16 encoder K/V) and 5 (int8), under the decode
+    rule."""
+    out_enc, mask, w = _decoder_args(cuda_device)
+    before = (full_decode.launches, full_decode.launches_int8)
+    got = full_decode(out_enc, mask, w, 8, 91, 91, enc_dtype)
+    want = full_decode_plain(out_enc, mask, w, 8, 91, 91, enc_dtype)
+    torch.cuda.synchronize()
+    q8 = enc_dtype == 'int8'
+    assert (full_decode.launches, full_decode.launches_int8) == (
+        before[0] + (not q8), before[1] + q8)
+    _assert_decode_rule(got, want)
+
+
+# kernels 6 and 7 against their plain versions: outputs of O(1) values,
+# one bf16 rounding apart where f32 sums in another order cross a rounding
+# boundary, of the output or (float32 activations) of a matmul operand:
+# two bf16 ulps, relative, and 2e-2 absolute near 0
+STEP_ATOL, STEP_RTOL = 2e-2, 2 ** -7
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [BF, torch.float32])
+@pytest.mark.parametrize('t', [0, 1, 39])
+def test_self_attn_step_kernel(cuda_device, t, dtype):
+    """Kernel 6: x_out and slot t of the caches within the bounds; every
+    other slot untouched."""
+    x, ck, cv, _, _, _, w = _step_args(cuda_device, dtype=dtype)
+    args = (w['wqkv'], w['wfc1'], w['ln1_s'], w['ln1_b'])
+    ck_p, cv_p = ck.clone(), cv.clone()
+    before = self_attn_step.launches
+    got, ck_k, cv_k = self_attn_step(x, ck, cv, t, *args)
+    want, _, _ = self_attn_step_plain(x, ck_p, cv_p, t, *args)
+    torch.cuda.synchronize()
+    assert self_attn_step.launches == before + 1 and ck_k is ck
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=STEP_ATOL,
+                               rtol=STEP_RTOL)
+    for k, p in ((ck, ck_p), (cv, cv_p)):
+        torch.testing.assert_close(k[:, :, t].float(), p[:, :, t].float(),
+                                   atol=STEP_ATOL, rtol=STEP_RTOL)
+        keep = torch.arange(k.shape[2], device=k.device) != t
+        assert torch.equal(k[:, :, keep], p[:, :, keep])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [BF, torch.float32])
+def test_cross_ffn_step_kernel(cuda_device, dtype):
+    """Kernel 7, with one row whose mask has no valid key."""
+    x, _, _, ek, ev, mask, w = _step_args(cuda_device, dtype=dtype)
+    args = (x, ek, ev, mask) + tuple(w[k] for k in _CROSS_W)
+    before = cross_ffn_step.launches
+    got = cross_ffn_step(*args)
+    want = cross_ffn_step_plain(*args)
+    torch.cuda.synchronize()
+    assert cross_ffn_step.launches == before + 1 and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=STEP_ATOL,
+                               rtol=STEP_RTOL)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('fused_step', [False, True])
+def test_predict_float32_steps(cuda_device, fused_step):
+    """A float32 model serves through ``steps`` on the card: the sampler
+    kernel (and, with ``use_fused_step``, kernels 6 and 7) in float32,
+    against the recognizer's plain path. The tiny flagship, its decoder at
+    d_k = 64 with one head where the fused step needs it. Both under the
+    decode rule; the module decode differs from its plain path only by the
+    f32 sampler (1e-3 on its output, see above), so its probabilities are
+    held within 1e-3."""
+    cfg = nrtr_tps_pp_cfg(tiny=True, decode_mode='steps')
+    if fused_step:
+        cfg['decoder'] = dict(cfg['decoder'], n_head=1, d_k=64, d_v=64,
+                              use_fused_step=True)
+    rec = build_recognizer(cfg).init_weights(0)
+    assert rec.dtype == torch.float32 and rec.resolved_decode_mode() == 'steps'
+    img = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (6, 32, 64, 3)).astype(np.float32))
+    vr = [1.0, 0.5, 0.8, 0.3, 0.95, 0.6]
+    counts = (tps_sampler.launches, self_attn_step.launches,
+              cross_ffn_step.launches)
+    got = rec.predict(img, vr)
+    torch.cuda.synchronize()
+    launched = [f.launches - n for f, n in zip(
+        (tps_sampler, self_attn_step, cross_ffn_step), counts)]
+    assert launched[0] == 1 and (min(launched[1:]) > 0) == fused_step
+    rec.plain = True
+    want = rec.predict(img, vr)
+    assert bool(torch.isfinite(got).all())
+    if fused_step:
+        _assert_decode_rule(got, want)
+    else:
+        _assert_decode_rule(got, want, atol=1e-3, rtol=0.0)
 
 
 # the warp's bounds (chip_smoke.py's): bf16 as the sampler and as the JAX

@@ -36,7 +36,8 @@ def test_state_dict_round_trips_through_jax_converter(tiny):
     v = _random_variables(cfg, tiny)
     sd = convert.state_dict_from_jax(v, cfg)
     # the keys are exactly the port model's
-    build_recognizer(cfg).model.load_state_dict(sd, strict=True)
+    model = build_recognizer(cfg, device='cpu').model
+    model.load_state_dict(sd, strict=True)
 
     sd_np = {k: t.numpy() for k, t in sd.items()}
     rules = jtc.filter_rules_to_state(jtc.rules_for_config(cfg), sd_np)

@@ -384,7 +384,8 @@ def test_dropout_applies_in_train_mode_only():
     cfg = nrtr_tps_pp_cfg(tiny=True)
     cfg0 = dict(cfg, encoder=dict(cfg['encoder'], dropout=0.0),
                 decoder=dict(cfg['decoder'], dropout=0.0))
-    rec, rec0 = build_recognizer(cfg), build_recognizer(cfg0)
+    rec = build_recognizer(cfg, device='cpu')
+    rec0 = build_recognizer(cfg0, device='cpu')
     rec.init_weights(1)
     rec0.model.load_state_dict(rec.model.state_dict())
     rng = np.random.default_rng(1)
@@ -425,13 +426,13 @@ def _one_update(rec, how):
 @pytest.mark.parametrize('how', ['optimizer', 'train_step'])
 def test_weight_caches_follow_the_weights(how):
     """The fused paths' folded weights are cached; after the weights change
-    in place, the ``plain`` path (which reads the cache) must serve the
-    new weights, as the ``steps`` path (which reads the modules) does."""
-    rec = build_recognizer(nrtr_tps_pp_cfg(tiny=True))
+    in place, the ``fused40_bf16`` path (which reads the cache) must serve
+    the new weights, as the ``steps`` path (which reads the modules) does."""
+    rec = build_recognizer(nrtr_tps_pp_cfg(tiny=True), device='cpu')
     rec.init_weights(0)
     img = np.random.default_rng(3).standard_normal(
         (4, 32, 64, 3)).astype(np.float32)
-    rec.decode_mode = 'plain'
+    rec.decode_mode, rec.plain = 'fused40_bf16', True
     before = rec.predict(img, VR)
     _one_update(rec, how)
     got = rec.predict(img, VR)
@@ -447,16 +448,17 @@ def test_predict_runs_in_eval_mode(how):
     ``predict`` of a fresh eval model with the same weights and BatchNorm
     statistics, and leaves the mode as it found it."""
     cfg = nrtr_tps_pp_cfg(tiny=True)
-    rec = build_recognizer(cfg)
+    rec = build_recognizer(cfg, device='cpu')
     rec.init_weights(0)
     if how == 'train_step':
         _one_update(rec, how)
     rec.model.train()
     img = np.random.default_rng(4).standard_normal(
         (4, 32, 64, 3)).astype(np.float32)
-    fresh = build_recognizer(cfg)
+    fresh = build_recognizer(cfg, device='cpu')
     fresh.model.load_state_dict(rec.model.state_dict())
-    for mode in ('plain', 'steps'):
+    rec.plain = fresh.plain = True
+    for mode in ('fused40_bf16', 'steps'):
         rec.decode_mode = fresh.decode_mode = mode
         torch.testing.assert_close(rec.predict(img, VR),
                                    fresh.predict(img, VR), atol=0, rtol=0)
@@ -468,7 +470,7 @@ def test_bf16_compute_with_f32_parameters():
     autocast, the parameters and their gradients stay f32, and ``predict``
     serves a bf16 copy that follows the weights."""
     rec = build_recognizer(nrtr_tps_pp_cfg(tiny=True, dtype='bfloat16'),
-                           param_dtype='float32')
+                           device='cpu', param_dtype='float32')
     rec.init_weights(0)
     img = np.random.default_rng(5).standard_normal(
         (4, 32, 64, 3)).astype(np.float32)

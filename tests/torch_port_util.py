@@ -44,18 +44,25 @@ def jax_flagship(tiny=True, seed=0, dropout=None):
     if dropout is not None:
         cfg = dict(cfg, encoder=dict(cfg['encoder'], dropout=dropout),
                    decoder=dict(cfg['decoder'], dropout=dropout))
-    jcfg = dict(cfg, decode_mode='steps',
-                tpsnet=dict(cfg['tpsnet'], sample_mode='gather'))
-    jrec = build_jax(jcfg)
+    jrec = jax_recognizer(cfg)
     shape = (1, 32, 64, 3) if tiny else (1, 32, 128, 3)
     v = jax.jit(lambda key: jrec.init_variables(key, shape))(
         jax.random.PRNGKey(seed))
     return jrec, perturb_batch_stats(v, seed), cfg
 
 
+def jax_recognizer(cfg, decode_mode='steps', **decoder):
+    """The JAX recognizer of ``cfg`` with the gather sampler, on
+    ``decode_mode``, with ``decoder`` overriding decoder options."""
+    return build_jax(dict(cfg, decode_mode=decode_mode,
+                          tpsnet=dict(cfg['tpsnet'], sample_mode='gather'),
+                          decoder=dict(cfg['decoder'], **decoder)))
+
+
 def port_from_jax(cfg, variables, **overrides):
-    """The port's recognizer with the JAX variables loaded (strict)."""
-    rec = build_recognizer(dict(cfg, **overrides))
+    """The port's recognizer, on the CPU, with the JAX variables loaded
+    (strict)."""
+    rec = build_recognizer(dict(cfg, **overrides), device='cpu')
     rec.model.load_state_dict(state_dict_from_jax(variables, cfg),
                               strict=True)
     return rec

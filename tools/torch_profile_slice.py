@@ -8,9 +8,12 @@ on one CUDA GPU.
 Builds the full-width NRTR + TPS++ flagship with seeded random weights.
 
 * ``serve`` (bf16): times each stage of ``decode_full_fused``
-  (``extract_feat``, the encoder, the decode with and without the EOS
-  check) and ``predict`` on the kernel path and on the plain path, with
-  CUDA events; then profiles one ``predict`` on the kernel path.
+  (``extract_feat``, the encoder, the decode with bf16 and with int8
+  encoder K/V, with and without the EOS check) and of the ``steps`` decode
+  with ``use_fused_step`` (the module encoder, the greedy decode) on the
+  kernel path and on the plain path, and ``predict`` in each decode mode,
+  with CUDA events; then profiles one ``predict`` on the kernel path in
+  ``fused40_bf16``, ``fused40`` and ``steps`` with ``use_fused_step``.
 * ``train`` (f32 parameters and Adam state, bf16 autocast, dropout 0.1,
   Adam at 1e-4 with grad clip 5.0, random DICT90 labels): times the
   forward (``compute_loss``), the backward and the optimizer step of a
@@ -89,7 +92,8 @@ def profiled(fn, what, card, out_dir):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    trace = os.path.join(out_dir, f'{what.replace(" ", "_")}_trace.json')
+    trace = os.path.join(out_dir, what.replace(' ', '_').replace(',', '') +
+                         '_trace.json')
     prof.export_chrome_trace(trace)
     window, busy, by_name = kernel_table(trace)
     warp = [(ms, n) for name, (ms, n) in by_name.items()
@@ -108,40 +112,65 @@ def serve_stage(dev, card, B, out_dir):
     import numpy as np
     import torch
     from tps_pp_tpu_torch.apis import build_recognizer, nrtr_tps_pp_cfg
+    from tps_pp_tpu_torch.models.decoders import greedy_decode
 
     bf = torch.bfloat16
-    rec = build_recognizer(nrtr_tps_pp_cfg(dtype='bfloat16',
-                                           decode_mode='auto'), device=dev)
+    cfg = nrtr_tps_pp_cfg(dtype='bfloat16', decode_mode='auto')
+    rec = build_recognizer(cfg, device=dev)
     rec.init_weights(0)
+    rec_fs = build_recognizer(dict(cfg, decoder=dict(
+        cfg['decoder'], use_fused_step=True)), device=dev)
+    rec_fs.model.load_state_dict(rec.model.state_dict())
     m, end_idx = rec.model, rec.label_convertor.end_idx
+    start_idx, S = rec.label_convertor.start_idx, rec.max_seq_len
     img = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (B, 32, 128, 3)).astype(np.float32)).to(dev, bf)
     vr = torch.ones(B, device=dev)
     with torch.inference_mode():
         feat = m.extract_feat(img)
         enc = m.encoder(feat, vr, fused=True)
+        enc_mod = m.encoder(feat, vr)
         for plain in (False, True):
             path = 'plain' if plain else 'kernel'
-            stages = (
+            stages = [
                 ('extract_feat', 5,
                  lambda: m.extract_feat(img, plain=plain)),
                 ('encoder', 5,
                  lambda: m.encoder(feat, vr, fused=True, plain=plain)),
-                ('decode, EOS check', 3,
-                 lambda: m.decoder.fused_full_decode(
-                     enc, vr, end_idx=end_idx, plain=plain)),
-                ('decode, no exit', 3,
-                 lambda: m.decoder.fused_full_decode(enc, vr, plain=plain)))
+                ('encoder, module', 5, lambda: m.encoder(feat, vr))]
+            for dt in ('bfloat16', 'int8'):
+                stages += [
+                    (f'decode {dt}, EOS check', 3,
+                     lambda dt=dt: m.decoder.fused_full_decode(
+                         enc, vr, end_idx=end_idx, plain=plain,
+                         enc_dtype=dt)),
+                    (f'decode {dt}, no exit', 3,
+                     lambda dt=dt: m.decoder.fused_full_decode(
+                         enc, vr, plain=plain, enc_dtype=dt))]
+            stages.append(('decode fused step, EOS check', 3,
+                           lambda: greedy_decode(
+                               rec_fs.model.decoder, enc_mod, vr,
+                               max_seq_len=S, start_idx=start_idx,
+                               end_idx=end_idx, plain=plain)))
             for name, reps, fn in stages:
-                print(f'{path:6s} {name:18s} {cuda_ms(fn, reps):9.3f} ms '
+                print(f'{path:6s} {name:30s} {cuda_ms(fn, reps):9.3f} ms '
                       f'(B={B}) [{card}]', flush=True)
-        for mode in ('fused40_bf16', 'plain', 'steps'):
-            rec.decode_mode = mode
-            print(f'predict {mode:12s} '
-                  f'{cuda_ms(lambda: rec.predict(img), 3):9.3f} ms '
-                  f'(B={B}) [{card}]', flush=True)
-        rec.decode_mode = 'fused40_bf16'
-        return profiled(lambda: rec.predict(img), 'predict', card, out_dir)
+        modes = {'fused40_bf16': (rec, 'fused40_bf16'),
+                 'fused40': (rec, 'fused40'), 'steps': (rec, 'steps'),
+                 'steps, use_fused_step': (rec_fs, 'steps')}
+        for plain in (False, True):
+            for mode, (r, dm) in modes.items():
+                r.decode_mode, r.plain = dm, plain
+                print(f'predict {mode:22s} {"plain" if plain else "kernel":6s}'
+                      f' {cuda_ms(lambda: r.predict(img), 3):9.3f} ms '
+                      f'(B={B}) [{card}]', flush=True)
+        traces = []
+        for mode in ('fused40_bf16', 'fused40', 'steps, use_fused_step'):
+            r, dm = modes[mode]
+            r.decode_mode, r.plain = dm, False
+            traces.append(profiled(lambda: r.predict(img),
+                                   f'predict {mode}', card, out_dir))
+        return traces
 
 
 def train_stage(dev, card, B, out_dir):
@@ -220,7 +249,7 @@ def main():
     traces = []
     stages = args.stages.split(',')
     if 'serve' in stages:
-        traces.append(serve_stage(dev, card, args.batch, out_dir))
+        traces += serve_stage(dev, card, args.batch, out_dir)
         torch.cuda.empty_cache()
     if 'train' in stages:
         traces.append(train_stage(dev, card, args.train_batch, out_dir))

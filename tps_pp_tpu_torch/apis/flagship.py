@@ -51,8 +51,8 @@ def nrtr_tps_pp_cfg(dtype: str = 'float32', tiny: bool = False,
         # are 512x256 — this config must match to load them.
         encoder=dict(type='NRTREncoder', n_layers=6, n_head=8, d_k=64,
                      d_v=64, d_model=512, d_inner=256, dropout=0.1),
-        # sample_mode, use_fused_step and kv_dtype choose JAX-side kernels;
-        # the port's modules accept them and choose by decode_mode instead.
+        # the decoder honours use_fused_step and kv_dtype as the JAX
+        # package's does.
         decoder=dict(type='NRTRDecoder', n_layers=6, d_embedding=512,
                      n_head=8, d_model=512, d_inner=256, d_k=64, d_v=64,
                      n_position=200, use_fused_step=False,

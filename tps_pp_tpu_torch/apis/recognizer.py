@@ -3,17 +3,27 @@ serving and training (counterpart of ``tps_pp_tpu/apis/recognizer.py``).
 
 ``predict`` pads the batch to the next power of two (replicating the last
 row, so the all-rows-EOS exit is not held up) and slices the result back,
-as the JAX package does. Decode modes:
+as the JAX package does. Decode modes, the JAX package's
+(``tps_pp_tpu/apis/recognizer.py:91-101``):
 
 * ``'fused40_bf16'``: the serving path. The TPS sampler, the whole encoder
-  and the whole greedy decode run through the port's ops: the CUDA kernels
-  on CUDA tensors, their plain versions on CPU tensors.
-* ``'plain'``: the same path with every kernel replaced by its plain
-  PyTorch version on any device, the reference the kernels are held to.
+  and the whole greedy decode with bf16 encoder K/V run through the port's
+  ops: the CUDA kernels on CUDA tensors, their plain versions on CPU
+  tensors.
+* ``'fused40'``: the same path with the encoder K/V quantized to int8 with
+  one absmax scale per (layer, head) over the whole batch, so a row's
+  output depends on the rest of its batch (argmax flips at quantization
+  near-ties).
 * ``'steps'``: the module path (per-layer modules, KV-cached
-  ``greedy_decode``), the counterpart of the JAX package's ``steps``.
+  ``greedy_decode``), the counterpart of the JAX package's ``steps``. A
+  decoder with ``use_fused_step`` runs each layer's step as two kernels
+  (``ops.decode_step``); one with ``kv_dtype='int8'`` keeps int8 caches.
 * ``'auto'`` (default): ``'fused40_bf16'`` for a bf16 model on CUDA whose
   decoder has ``d_k == d_v``, else ``'steps'``.
+
+Setting the attribute ``plain`` to True makes every mode run its kernels'
+plain PyTorch versions on any device: the reference the kernels are held
+to on the card.
 
 ``early_exit`` (default on) stops decoding once every row has emitted EOS.
 ``predict`` runs the model in eval mode for the call, whatever mode
@@ -57,7 +67,7 @@ from ..utils.batching import next_pow2, pad_rows
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
            'float64': torch.float64}
-DECODE_MODES = ('auto', 'fused40_bf16', 'plain', 'steps')
+DECODE_MODES = ('auto', 'fused40_bf16', 'fused40', 'steps')
 
 
 class TextRecognizer:
@@ -65,18 +75,28 @@ class TextRecognizer:
 
     def __init__(self, cfg: Dict[str, Any], device=None,
                  param_dtype: Optional[str] = None):
+        """``device``: where the model lives; the CUDA device when None,
+        and a ``RuntimeError`` if there is none (pass ``'cpu'`` to build on
+        the CPU)."""
         cfg = dict(cfg)
         self.cfg = cfg
         self.max_seq_len = int(cfg.get('max_seq_len', 40))
         self.dtype = _DTYPES[cfg.get('dtype', 'float32')]
         self.param_dtype = (_DTYPES[param_dtype] if param_dtype is not None
                             else self.dtype)
-        self.device = torch.device(device if device is not None else 'cpu')
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    'TextRecognizer: no CUDA device; pass device="cpu" to '
+                    'build on the CPU')
+            device = 'cuda'
+        self.device = torch.device(device)
         self.decode_mode = cfg.get('decode_mode', 'auto')
         if self.decode_mode not in DECODE_MODES:
             raise ValueError(f'decode_mode {self.decode_mode!r} not in '
                              f'{DECODE_MODES}')
         self.early_exit = bool(cfg.get('early_exit', True))
+        self.plain = False
 
         lc_cfg = dict(cfg['label_convertor'], max_seq_len=self.max_seq_len)
         self.label_convertor = lc = CONVERTORS.build(lc_cfg)
@@ -190,14 +210,15 @@ class TextRecognizer:
     def _predict_impl(self, model, img, valid_ratio):
         mode = self.resolved_decode_mode()
         end_idx = self.label_convertor.end_idx if self.early_exit else None
-        if mode in ('fused40_bf16', 'plain'):
-            return model.decode_full_fused(img, valid_ratio, end_idx=end_idx,
-                                           plain=mode == 'plain')
-        _, out_enc = model.encode_full(img, valid_ratio)
+        if mode in ('fused40_bf16', 'fused40'):
+            return model.decode_full_fused(
+                img, valid_ratio, end_idx=end_idx, plain=self.plain,
+                enc_dtype='int8' if mode == 'fused40' else 'bfloat16')
+        _, out_enc = model.encode_full(img, valid_ratio, plain=self.plain)
         return greedy_decode(model.decoder, out_enc, valid_ratio,
                              max_seq_len=self.max_seq_len,
                              start_idx=self.label_convertor.start_idx,
-                             end_idx=end_idx)
+                             end_idx=end_idx, plain=self.plain)
 
     def predict(self, img, valid_ratio=None,
                 bucket_batch: bool = True) -> torch.Tensor:
@@ -232,7 +253,8 @@ class TextRecognizer:
 def build_recognizer(cfg: Dict[str, Any], device=None,
                      param_dtype: Optional[str] = None) -> TextRecognizer:
     """The NRTR family (``type`` NRTR / EncodeDecodeRecognizer) is the one
-    the port serves and trains so far."""
+    the port serves and trains so far. ``device`` defaults to the CUDA
+    device (see :class:`TextRecognizer`)."""
     type_name = cfg.get('type', 'EncodeDecodeRecognizer')
     if type_name not in ('NRTR', 'EncodeDecodeRecognizer'):
         raise NotImplementedError(

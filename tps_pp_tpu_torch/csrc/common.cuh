@@ -106,6 +106,11 @@ static __device__ __forceinline__ float2 load2(const bf16* p, int c2) {
 static __device__ __forceinline__ float2 load2(const float* p, int c2) {
   return reinterpret_cast<const float2*>(p)[c2];
 }
+static __device__ __forceinline__ float2 load2(const signed char* p,
+                                               int c2) {
+  const char2 v = reinterpret_cast<const char2*>(p)[c2];
+  return make_float2((float)v.x, (float)v.y);
+}
 static __device__ __forceinline__ void store2(bf16* p, int c2, float a,
                                               float b) {
   reinterpret_cast<bf162*>(p)[c2] = __floats2bfloat162_rn(a, b);

@@ -24,8 +24,8 @@
 // 0.4 MB per image, so ~0.2 GB at B=512: ~70 us at 3.35 TB/s.
 //
 // Numerics: the bilinear weights stay in f32 (the TPU rounds them to bf16,
-// pallas_tps.py:76, before its MXU product); the output is rounded to bf16
-// once.
+// pallas_tps.py:76, before its MXU product); the output is rounded to the
+// feature map's type (bf16 or f32, as the TPU kernel takes either) once.
 #include "common.cuh"
 
 namespace {
@@ -34,14 +34,15 @@ constexpr int kThreads = 256;   // 8 warps
 constexpr int kPixPerBlock = 64;
 constexpr int kMaxF3 = 128;     // F + 3 fiducial terms held in shared memory
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-tps_sampler_kernel(const bf16* __restrict__ feat,   // (N, Hg, Wg, C)
+tps_sampler_kernel(const T* __restrict__ feat,      // (N, Hg, Wg, C)
                    const float* __restrict__ cp,    // (N, F, 2)
                    const float* __restrict__ score, // (N, npix, F)
                    const float* __restrict__ inv,   // (F+3, F+3)
                    const float* __restrict__ phat,  // (npix, F)
                    const float* __restrict__ P,     // (npix, 2)
-                   bf16* __restrict__ out,          // (N, npix, C)
+                   T* __restrict__ out,             // (N, npix, C)
                    int Hg, int Wg, int C, int npix, int F) {
   __shared__ float Ts[kMaxF3 * 2];
   const int n = blockIdx.y;
@@ -57,7 +58,7 @@ tps_sampler_kernel(const bf16* __restrict__ feat,   // (N, Hg, Wg, C)
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int p_end = min((int)(blockIdx.x + 1) * kPixPerBlock, npix);
-  const bf16* img = feat + (size_t)n * Hg * Wg * C;
+  const T* img = feat + (size_t)n * Hg * Wg * C;
   for (int p = blockIdx.x * kPixPerBlock + warp; p < p_end;
        p += kThreads / 32) {
     const float* sc = score + ((size_t)n * npix + p) * F;
@@ -80,16 +81,23 @@ tps_sampler_kernel(const bf16* __restrict__ feat,   // (N, Hg, Wg, C)
 
 }  // namespace
 
+// is_bf16 selects the element type of feat / out: 1 = bf16, 0 = f32.
 extern "C" int tpk_tps_sampler(const void* feat, const float* cp,
                                const float* score, const float* inv,
                                const float* phat, const float* P, void* out,
                                int N, int Hg, int Wg, int C, int npix, int F,
-                               void* stream) {
+                               int is_bf16, void* stream) {
   if (F + 3 > kMaxF3 || (C & 1)) return (int)cudaErrorInvalidValue;
   dim3 grid((npix + kPixPerBlock - 1) / kPixPerBlock, N);
-  tps_sampler_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)feat, cp, score, inv, phat, P, (bf16*)out, Hg, Wg, C, npix,
-      F);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    tps_sampler_kernel<bf16><<<grid, kThreads, 0, s>>>(
+        (const bf16*)feat, cp, score, inv, phat, P, (bf16*)out, Hg, Wg, C,
+        npix, F);
+  else
+    tps_sampler_kernel<float><<<grid, kThreads, 0, s>>>(
+        (const float*)feat, cp, score, inv, phat, P, (float*)out, Hg, Wg, C,
+        npix, F);
   TPK_CHECK();
   return 0;
 }

@@ -2,10 +2,11 @@
 ``tps_pp_tpu/models/decoders/base.py:22-102``, the ``steps`` path).
 
 An autoregressive decoder implements ``decode_init(out_enc, valid_ratio)
--> (carry, static)`` and ``decode_step(token, t, carry, static) -> (probs,
-carry)``. ``greedy_decode`` feeds each step's argmax (first index on ties)
-back in. With ``end_idx`` it stops once every row has emitted it; the
-steps it skips read back as zeros, as in the JAX loop.
+-> (carry, static)`` and ``decode_step(token, t, carry, static, plain) ->
+(probs, carry)``. ``greedy_decode`` feeds each step's argmax (first index
+on ties) back in; ``plain`` asks the step for its kernels' plain versions.
+With ``end_idx`` it stops once every row has emitted it; the steps it
+skips read back as zeros, as in the JAX loop.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import torch
 
 def greedy_decode(decoder, out_enc: torch.Tensor, valid_ratio, *,
                   max_seq_len: int, start_idx: int,
-                  end_idx: Optional[int] = None) -> torch.Tensor:
+                  end_idx: Optional[int] = None,
+                  plain: bool = False) -> torch.Tensor:
     """Returns (N, max_seq_len, C') float32 per-step probabilities."""
     N = out_enc.shape[0]
     carry, static = decoder.decode_init(out_enc, valid_ratio)
@@ -25,7 +27,8 @@ def greedy_decode(decoder, out_enc: torch.Tensor, valid_ratio, *,
     done = torch.zeros((N,), dtype=torch.bool, device=out_enc.device)
     out = None
     for t in range(max_seq_len):
-        probs, carry = decoder.decode_step(token, t, carry, static)
+        probs, carry = decoder.decode_step(token, t, carry, static,
+                                           plain=plain)
         if out is None:
             out = probs.new_zeros((N, max_seq_len, probs.shape[-1]))
         out[:, t] = probs

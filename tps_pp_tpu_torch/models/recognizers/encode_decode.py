@@ -44,19 +44,23 @@ class EncodeDecodeRecognizer(nn.Module):
         out_enc = self.encoder(feat, valid_ratio, rng=rng)
         return self.decoder(out_enc, targets, valid_ratio, rng=rng)
 
-    def encode_full(self, img, valid_ratio=None):
-        """(feat, out_enc) of the module path."""
-        feat = self.extract_feat(img, plain=True)
+    def encode_full(self, img, valid_ratio=None, plain: bool = False):
+        """(feat, out_enc) of the module path; ``plain`` as in
+        :meth:`extract_feat`."""
+        feat = self.extract_feat(img, plain=plain)
         return feat, self.encoder(feat, valid_ratio)
 
     def decode_full_fused(self, img, valid_ratio=None,
                           end_idx: Optional[int] = None,
-                          plain: bool = False) -> torch.Tensor:
+                          plain: bool = False,
+                          enc_dtype: str = 'bfloat16') -> torch.Tensor:
         """The serving path: rectifier sampler, whole encoder and whole
         decode through the ops (kernels on CUDA tensors); ``plain`` runs
-        the same functions through their plain PyTorch versions.
-        Returns (N, S, C-1) float32 probabilities."""
+        the same functions through their plain PyTorch versions;
+        ``enc_dtype`` is the decode's encoder K/V type (``'bfloat16'`` or
+        ``'int8'``). Returns (N, S, C-1) float32 probabilities."""
         feat = self.extract_feat(img, plain=plain)
         out_enc = self.encoder(feat, valid_ratio, fused=True, plain=plain)
         return self.decoder.fused_full_decode(out_enc, valid_ratio,
-                                              end_idx=end_idx, plain=plain)
+                                              end_idx=end_idx, plain=plain,
+                                              enc_dtype=enc_dtype)

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface and loaded with ``ctypes``. The build runs at first
-use, never at import, into ``build/tps_pp_tpu_torch/`` beside the package; the
-library's file name carries a hash of the sources and flags, so an edit
-rebuilds it. ``load()`` raises if there is no ``nvcc``.
+Each source is compiled by its own ``nvcc`` for ``sm_90a``, all at once,
+and the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes``. The build runs at first use, never at
+import, into ``build/tps_pp_tpu_torch/`` beside the package; the library's
+file name carries a hash of the sources and flags, so an edit rebuilds it.
+``load()`` raises if there is no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -19,14 +20,16 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / 'csrc'
 BUILD_DIR = _PKG_DIR.parent / 'build' / 'tps_pp_tpu_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every extern "C" entry point
 _SIGNATURES = {
-    'tpk_tps_sampler': [_P] * 7 + [_I] * 6 + [_P],
+    'tpk_tps_sampler': [_P] * 7 + [_I] * 7 + [_P],
     'tpk_encoder_forward': [_P] * 17 + [_I] * 7 + [_P],
-    'tpk_full_decode': [_P] * 28 + [_I] * 11 + [_P, _P],
+    'tpk_full_decode': [_P] * 32 + [_I] * 11 + [_P, _P],
+    'tpk_self_attn_step': [_P] * 12 + [_I] * 7 + [_P],
+    'tpk_cross_ffn_step': [_P] * 20 + [_I] * 7 + [_P],
     'tpk_grid_sample_fwd': [_P] * 3 + [_I] * 6 + [_P],
     'tpk_grid_sample_grad': [_P] * 5 + [_I] * 6 + [_P],
     'tpk_grid_sample_grad_img': [_P] * 3 + [_I] * 6 + [_P],
@@ -58,21 +61,39 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels if the library for the current sources is
-    missing; return its path. The compiler's output (``-Xptxas -v``: each
+    missing; return its path. The compilers' output (``-Xptxas -v``: each
     kernel's registers, shared memory and spills) goes to ``<lib>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.tmp{os.getpid()}')
-    cmd = [_nvcc()] + NVCC_FLAGS + ['-o', str(tmp)] + [
-        str(p) for p in sorted(SRC_DIR.glob('*.cu'))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix('.log').write_text(
-        ' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                           f'{proc.stderr[-8000:]}')
+    nvcc = _nvcc()
+    tag = f'{out.stem}.tmp{os.getpid()}'
+    jobs = []
+    for src in sorted(SRC_DIR.glob('*.cu')):
+        obj = BUILD_DIR / f'{tag}.{src.stem}.o'
+        cmd = [nvcc] + NVCC_FLAGS + ['-c', '-o', str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        text = proc.communicate()[0]
+        log.append(' '.join(cmd) + '\n' + text)
+        if proc.returncode != 0:
+            failed.append(f'{cmd[-1]} ({proc.returncode}):\n{text[-4000:]}')
+    tmp = BUILD_DIR / f'{tag}.so'
+    if not failed:
+        cmd = [nvcc, '-shared', '-o', str(tmp)] + [str(o) for _, o, _ in jobs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(' '.join(cmd) + '\n' + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f'link ({proc.returncode}):\n{proc.stderr[-4000:]}')
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix('.log').write_text('\n'.join(log))
+    if failed:
+        raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
     os.replace(tmp, out)
     return out
 
@@ -97,8 +118,30 @@ def require_cuda(device, name: str):
                          f'CUDA tensors, the plain version CPU ones')
 
 
+def check_args(name: str, device, expected):
+    """Raise unless every tensor of ``expected`` ({arg: (tensor, shape,
+    dtype)}) is contiguous, on ``device``, of that shape and dtype."""
+    for arg, (t, shape, dt) in expected.items():
+        if t.device != device or t.dtype != dt or \
+                tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(
+                f'{name}: {arg} must be a contiguous {dt} tensor of shape '
+                f'{tuple(shape)} on {device}, got {t.dtype} '
+                f'{tuple(t.shape)} on {t.device}')
+
+
+_INVALID_VALUE = 1     # cudaErrorInvalidValue
+
+
 def check(rc: int, name: str):
-    """Raise on a non-zero cudaError_t returned by an entry point."""
+    """Raise on a non-zero cudaError_t returned by an entry point: a
+    ``ValueError`` for cudaErrorInvalidValue, which an entry point returns
+    for arguments outside the limits stated in its source; a
+    ``RuntimeError`` otherwise."""
+    if rc == _INVALID_VALUE:
+        raise ValueError(f'{name}: arguments outside the kernel\'s limits, '
+                         f'which its entry point in tps_pp_tpu_torch/csrc '
+                         f'states (cudaErrorInvalidValue)')
     if rc != 0:
         raise RuntimeError(f'{name}: CUDA error {rc} (cudaError_t)')
 

@@ -106,21 +106,14 @@ def encoder_forward(x: torch.Tensor, mask: Optional[torch.Tensor],
     bf, f32 = torch.bfloat16, torch.float32
     if mask is None:
         mask = torch.ones((N, T), dtype=f32, device=dev)
-    expected = {
+    _lib.check_args('encoder_forward', dev, {
         'x': (x, (N, T, D), bf), 'mask': (mask, (N, T), f32),
         'wqkv': (w['wqkv'], (L, D, 3 * HD), bf),
         'bqkv': (w['bqkv'], (L, 3 * HD), f32),
         'wfc': (w['wfc'], (L, HD, D), bf), 'w1': (w['w1'], (L, D, DI), bf),
         'b1': (w['b1'], (L, DI), f32), 'w2': (w['w2'], (L, DI, D), bf),
         'b2': (w['b2'], (L, D), f32), 'lnf_s': (w['lnf_s'], (D,), f32),
-        'lnf_b': (w['lnf_b'], (D,), f32)}
-    for name, (t, shape, dt) in expected.items():
-        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(
-                f'encoder_forward: {name} must be a contiguous {dt} tensor '
-                f'of shape {shape} on {dev}, got {t.dtype} '
-                f'{tuple(t.shape)} on {t.device}')
+        'lnf_b': (w['lnf_b'], (D,), f32)})
     if HD != n_head * DK or D % 64 or HD % 64 or DI % 64:
         raise ValueError(f'encoder_forward: needs d_model, n_head*d_k and '
                          f'd_inner to be multiples of 64 (GEMM tiles), got '

@@ -30,19 +30,12 @@ def tps_sampler_plain(feat_grid, control_point, pc_score, inv_delta_C, P_hat,
     return grid_sample_plain(feat_grid, grid.reshape(-1, Hr, Wr, 2))
 
 
-def _expect(t, name, shape, dtype, device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
-            or not t.is_contiguous():
-        raise ValueError(
-            f'tps_sampler: {name} must be a contiguous {dtype} tensor of '
-            f'shape {shape} on {device}, got {t.dtype} {tuple(t.shape)} on '
-            f'{t.device} (contiguous={t.is_contiguous()})')
-
-
 def tps_sampler(feat_grid, control_point, pc_score, inv_delta_C, P_hat, P,
                 out_hw: Tuple[int, int]) -> torch.Tensor:
-    """The kernel on CUDA tensors (bf16 features, f32 TPS inputs), the plain
-    version on CPU tensors. Same arguments as :func:`tps_sampler_plain`."""
+    """The kernel on CUDA tensors (bf16 or float32 features, float32 TPS
+    inputs; the limits of the shapes are stated in ``csrc/tps_sampler.cu``),
+    the plain version on CPU tensors. Same arguments as
+    :func:`tps_sampler_plain`."""
     if feat_grid.device.type == 'cpu':
         return tps_sampler_plain(feat_grid, control_point, pc_score,
                                  inv_delta_C, P_hat, P, out_hw)
@@ -55,22 +48,23 @@ def tps_sampler(feat_grid, control_point, pc_score, inv_delta_C, P_hat, P,
     Hr, Wr = out_hw
     n = Hr * Wr
     F = control_point.shape[1]
-    f32 = torch.float32
-    _expect(feat_grid, 'feat_grid', (N, Hg, Wg, C), torch.bfloat16, dev)
-    _expect(control_point, 'control_point', (N, F, 2), f32, dev)
-    _expect(pc_score, 'pc_score', (N, n, F), f32, dev)
-    _expect(inv_delta_C, 'inv_delta_C', (F + 3, F + 3), f32, dev)
-    _expect(P_hat, 'P_hat', (n, F), f32, dev)
-    _expect(P, 'P', (n, 2), f32, dev)
-    if C % 2 or F + 3 > 128:
-        raise ValueError(f'tps_sampler: needs an even channel count and '
-                         f'F + 3 <= 128, got C={C}, F={F}')
-    out = torch.empty((N, Hr, Wr, C), dtype=torch.bfloat16, device=dev)
+    f32, ft = torch.float32, feat_grid.dtype
+    if ft not in (torch.bfloat16, f32):
+        raise ValueError(f'tps_sampler: feat_grid must be bfloat16 or '
+                         f'float32, got {ft}')
+    _lib.check_args('tps_sampler', dev, {
+        'feat_grid': (feat_grid, (N, Hg, Wg, C), ft),
+        'control_point': (control_point, (N, F, 2), f32),
+        'pc_score': (pc_score, (N, n, F), f32),
+        'inv_delta_C': (inv_delta_C, (F + 3, F + 3), f32),
+        'P_hat': (P_hat, (n, F), f32), 'P': (P, (n, 2), f32)})
+    out = torch.empty((N, Hr, Wr, C), dtype=ft, device=dev)
     lib = _lib.load()
     rc = lib.tpk_tps_sampler(
         feat_grid.data_ptr(), control_point.data_ptr(), pc_score.data_ptr(),
         inv_delta_C.data_ptr(), P_hat.data_ptr(), P.data_ptr(),
-        out.data_ptr(), N, Hg, Wg, C, n, F, _lib.stream_ptr(dev))
+        out.data_ptr(), N, Hg, Wg, C, n, F, int(ft == torch.bfloat16),
+        _lib.stream_ptr(dev))
     _lib.check(rc, 'tps_sampler')
     tps_sampler.launches += 1
     return out
