@@ -14,13 +14,16 @@ seed):
   crops and a small batch with mixed valid ratios, on each of the JAX
   package's serving decodes: ``fused40_bf16`` (B=512 and 5), ``fused40``
   (int8 encoder K/V; B=512 and 5) and ``steps`` with a ``use_fused_step``
-  decoder (B=512 and 8, the small-batch regime it is kept for). Each path
-  runs with the launch counts set to 0 just before it, and its kernels
-  must carry it; its argmax must agree with its plain path (the
-  recognizer's ``plain`` switch); the decodes are timed in turns. A
-  float32 model then serves B=8 through ``steps``, with and without
-  ``use_fused_step`` (the kernels' float32 variants), against its plain
-  path;
+  decoder (B=512 and 8, the small-batch regime it is kept for); and
+  ``fused40_bf16`` with ``stem_mode='fused'`` (kernel 12, seven launches a
+  ``predict``) and with the two-stage sampler (``sample_mode='pallas'``,
+  ``TPS_SAMPLER_VARIANT=twostage``: kernel 2, and kernel 1 not at all),
+  B=512 and 5 each. Each path runs with the launch counts set to 0 just
+  before it, and its kernels must carry it; its argmax must agree with its
+  plain path (the recognizer's ``plain`` switch); the paths are timed in
+  turns. A float32 model then serves B=8 through ``steps``, with and
+  without ``use_fused_step`` and with the fused stem (the kernels' float32
+  variants), against its plain path;
 * training (f32 parameters and Adam state, bf16 autocast, B=256, Adam at
   1e-4 with grad clip 5.0, random DICT90 labels): one step from the same
   weights and batch on the kernel path and on the plain path must agree
@@ -29,6 +32,9 @@ seed):
   five steps with dropout 0.1 must give finite losses through the
   grid_sample kernels; both paths are timed. The d_img-only backward
   kernel is driven through ``GridSampleFunction`` with a detached grid.
+
+The 3x3 convolution of the fused stem (kernel 11) has no caller in either
+package; it is driven as an op, at the stem's width over the batch of 512.
 
 For every kernel it reports the time, the plain version's time, the time of
 one PyTorch call that computes the same function where there is one, and
@@ -75,12 +81,16 @@ NEAR_TIE, DECODE_ATOL, DECODE_RTOL = 1e-3, 2e-2, 5e-2
 # with no decode kernel, parts from itself at top-2 gaps of ~2e-3 when
 # only the sampler's version changes. So the fused-step path's near-tie is
 # measured in each run (steps_tie_widths): that module decode's widest
-# gap, its own sensitivity to one ulp upstream, times STEPS_TIE_MULT, and
+# gap, its own sensitivity to one ulp upstream, times TIE_MULT, and
 # never below NEAR_TIE. The fused-step kernels against their plain
 # versions on one encoding, and the path against its plain path, must part
-# only within it. Readings over several seeds:
-# tools/steps_tie_calibration.py, PERF.md
-STEPS_TIE_MULT = 2.0
+# only within it. Likewise the fused stem (stem_tie_widths): it perturbs
+# every activation of the trunk by bf16 roundings on top of the
+# sampler's, encoder's and decode's kernels, so its path's near-tie is
+# TIE_MULT times the widest gap at which the decode parts when only the
+# stem's rounding changes (module stem against the fused stem, all plain).
+# Readings over several seeds: tools/steps_tie_calibration.py, PERF.md
+TIE_MULT = 2.0
 # the per-step kernels (bf16 outputs of O(1) values): one bf16 rounding
 # apart where f32 sums in another order cross a rounding boundary, two
 # ulps relative and 2e-2 absolute near 0
@@ -96,6 +106,17 @@ WARP_BOUNDS = {
     'float32': dict(fwd=(1e-5, 0.0), d_img=(1e-5, 0.0),
                     d_grid=(1e-5, 1e-4), cot_scale=1e-3),
 }
+# kernels 11-12 (bf16 outputs of O(1) values): both versions round y and
+# the output at the same points; an f32 sum in another order moves a
+# rounding by one ulp now and then: two bf16 ulps, relative, and 2e-2
+# absolute near 0. float32: sums of up to 9 * 64 terms in another order
+STEM_BOUNDS = {'bfloat16': (2e-2, 2 ** -7), 'float32': (1e-4, 1e-4)}
+# the three BasicBlock shapes of the flagship's stem, (C_in, C_mid, C_out,
+# H, W, residual): layer1's blocks, layer2's block0 at full resolution (its
+# stride-2 main path), layer2's blocks 1-3
+STEM_SHAPES = {'layer1': (32, 32, 32, 32, 128, True),
+               'layer2_block0': (32, 64, 64, 32, 128, False),
+               'layer2_blocks': (64, 64, 64, 16, 64, True)}
 B_TRAIN = 256    # training batch (the JAX package's bench_train.py)
 # the training step, kernel path against plain path (dropout 0)
 LOSS_RTOL, GRAD_COS_MIN, GRAD_NORM_RTOL = 1e-2, 0.99, 5e-2
@@ -220,6 +241,40 @@ def steps_tie_widths(r, img):
             for k, (a, b) in out.items()}
 
 
+def stem_tie_widths(r, img):
+    """How far the ``fused40_bf16`` decode of ``r`` (bf16, the flagship's
+    trunk) parts from itself on ``img`` around the fused stem, each as (rows
+    that part, widest top-2 gap of the second side where they part), with
+    the probabilities before that held to the decode rule:
+
+    * ``module``: the module stem against the fused stem's plain version,
+      the rest plain: the decode's sensitivity to the stem's bf16 rounding,
+      which no kernel enters;
+    * ``kernel``: the fused stem's kernels against their plain versions,
+      the rest of the path on its kernels, so that only the stem differs;
+    * ``path``: the kernel path against the plain path, both with the fused
+      stem, as ``predict`` gives them with ``r.plain`` False and True.
+    """
+    import torch
+    from tps_pp_tpu_torch.ops.stem import fused_stem_forward
+    m, n = r.model, img.shape[0]
+    end = r.label_convertor.end_idx if r.early_exit else None
+
+    def decode(stem, plain, stem_plain=None):
+        stem = None if stem == 'module' else fused_stem_forward(
+            m.backbone, img, r.dtype, plain=stem_plain)
+        return m.decode_full_fused(img, torch.ones(n, device=img.device),
+                                   end_idx=end, plain=plain, stem=stem)
+
+    with torch.inference_mode():
+        fused_k, fused_p = (decode('fused', p, p) for p in (False, True))
+        out = dict(module=(decode('module', True), fused_p),
+                   kernel=(fused_k, decode('fused', False, True)),
+                   path=(fused_k, fused_p))
+    return {k: check_decode(a, b, f'stem_tie_widths {k}', near_tie=1.0)[1:]
+            for k, (a, b) in out.items()}
+
+
 def check_close(what, got, want, bound):
     """Max abs error of ``got`` against ``want``; raises beyond
     ``bound`` = (atol, rtol)."""
@@ -318,6 +373,97 @@ def warp_checks(dev, g, record, name):
            fn_lib=lambda: torch.ops.aten.grid_sampler_2d_backward(
                cot_l, img_l, grid_l, 0, 1, True, [True, False]))
     return img, grid, cot
+
+
+def stem_checks(dev, g, record):
+    """Kernels 11 and 12 against their plain versions: float32 on 8 images,
+    then bf16 over the batch of B at the stem's shapes, timed; kernel 12
+    at its three shapes (layer1's is listed), kernel 11 with the library's
+    convolution beside it. Returns the launch count of kernel 11's run as
+    an op."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from tps_pp_tpu_torch.ops.stem import (basic_block_cp,
+                                           basic_block_cp_plain, conv3x3_cp,
+                                           conv3x3_cp_plain)
+    f32, bf = torch.float32, torch.bfloat16
+
+    def inputs(cin, cmid, cout, n, H, W, dtype):
+        """t (cin, n*H*W) in [-1, 1]; w1, wt with variance 1/fan_in;
+        biases in [-0.5, 0.5], float32."""
+        def r(*shape, scale=1.0, dt=dtype):
+            return torch.from_numpy(g.uniform(-scale, scale, shape).astype(
+                np.float32)).to(dev, dt)
+        return (r(cin, n * H * W), r(cmid, cin, scale=(3 / cin) ** 0.5),
+                r(cmid, 1, scale=0.5, dt=f32),
+                r(cout, 9 * cmid, scale=(3 / (9 * cmid)) ** 0.5),
+                r(cout, 1, scale=0.5, dt=f32))
+
+    errs = {}
+    for sname, (cin, cmid, cout, H, W, res) in STEM_SHAPES.items():
+        a = inputs(cin, cmid, cout, 8, H, W, f32)
+        errs[sname] = check_close(
+            f'basic_block_cp float32 {sname}',
+            basic_block_cp(*a, H=H, W=W, residual=res),
+            basic_block_cp_plain(*a, H=H, W=W, residual=res),
+            STEM_BOUNDS['float32'])
+    x, _, _, w, b = inputs(32, 32, 32, 8, 32, 128, f32)
+    errs['conv3x3_cp'] = check_close(
+        'conv3x3_cp float32', conv3x3_cp(x, w, b, H=32, W=128, relu=True),
+        conv3x3_cp_plain(x, w, b, H=32, W=128, relu=True),
+        STEM_BOUNDS['float32'])
+    log(f'stem kernels, float32 on 8 images: max abs errors {errs}')
+
+    src, rep = 'tps_pp_tpu_torch/csrc/stem.cu', 'tps_pp_tpu/ops/pallas_stem.py'
+    # kernel 11 as an op at the stem's width, (32, B*32*128) -> 32
+    x, _, _, w, b = inputs(32, 32, 32, B, 32, 128, bf)
+    conv3x3_cp.launches = 0
+    out = conv3x3_cp(x, w, b, H=32, W=128)
+    torch.cuda.synchronize()
+    launches = conv3x3_cp.launches
+    err = check_close('conv3x3_cp', out, conv3x3_cp_plain(x, w, b, H=32,
+                                                          W=128),
+                      STEM_BOUNDS['bfloat16'])
+    # the library's convolution of the same function: NCHW channels-last
+    # views of x, OIHW weights, a bf16 bias; never used by the port
+    x_l = x.reshape(32, B, 32, 128).permute(1, 0, 2, 3).contiguous(
+        memory_format=torch.channels_last)
+    w_l = w.reshape(32, 3, 3, 32).permute(0, 3, 1, 2).contiguous()
+    b_l = b[:, 0].to(bf)
+    lib = F.conv2d(x_l, w_l, b_l, padding=1)
+    lib_err = float((lib.permute(1, 0, 2, 3).reshape(32, -1).float() -
+                     out.float()).abs().max())
+    log(f'conv3x3_cp: launches {launches} as an op; the library '
+        f'convolution parts from the kernel by {lib_err:.4g}')
+    if launches != 1 or not lib_err <= 0.1:
+        raise AssertionError(f'conv3x3_cp: launches {launches}, library '
+                             f'error {lib_err}')
+    P = x.shape[1]
+    record('conv3x3_cp', src, rep + ':93',
+           lambda: conv3x3_cp(x, w, b, H=32, W=128),
+           lambda: conv3x3_cp_plain(x, w, b, H=32, W=128), err, 10,
+           nbytes(x, w, b, out), bf16_flops=2 * P * 32 * 9 * 32,
+           fn_lib=lambda: F.conv2d(x_l, w_l, b_l, padding=1))
+    del x, w, b, out, x_l, lib
+
+    # kernel 12 at the stem's three shapes over the batch of B
+    for sname, (cin, cmid, cout, H, W, res) in STEM_SHAPES.items():
+        a = inputs(cin, cmid, cout, B, H, W, bf)
+        got = basic_block_cp(*a, H=H, W=W, residual=res)
+        err = check_close(f'basic_block_cp {sname}', got,
+                          basic_block_cp_plain(*a, H=H, W=W, residual=res),
+                          STEM_BOUNDS['bfloat16'])
+        P = a[0].shape[1]
+        record('basic_block_cp', src, rep + ':174',
+               lambda a=a, H=H, W=W, res=res: basic_block_cp(
+                   *a, H=H, W=W, residual=res),
+               lambda a=a, H=H, W=W, res=res: basic_block_cp_plain(
+                   *a, H=H, W=W, residual=res), err, 5, nbytes(*a, got),
+               bf16_flops=2 * P * (cmid * cin + cout * 9 * cmid),
+               listed=sname == 'layer1', label=f'basic_block_cp {sname}')
+        del a, got
+    return launches
 
 
 def cosine(a, b):
@@ -497,8 +643,10 @@ def main():
                                               encoder_forward_plain)
     from tps_pp_tpu_torch.ops.full_decode import (_dims, full_decode,
                                                   full_decode_plain)
-    from tps_pp_tpu_torch.ops.tps_sampler import (tps_sampler,
-                                                  tps_sampler_plain)
+    from tps_pp_tpu_torch.ops.stem import basic_block_cp
+    from tps_pp_tpu_torch.ops.tps_sampler import (
+        PLAIN, tps_grid_sample_fused, tps_sampler, tps_sampler_plain,
+        tps_sampler_plain_twostage, warp_twostage)
 
     # plain f32 products on the card stay f32 (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -527,22 +675,26 @@ def main():
     kernels = []
 
     def record(name_, src, replaces, fn_k, fn_p, err, reps, moved,
-               bf16_flops=0, f32_flops=0, fn_lib=None, calls=1):
+               bf16_flops=0, f32_flops=0, fn_lib=None, calls=1,
+               listed=True, label=None):
         """Time the kernel, its plain version and the library call (each
-        ``fn`` makes ``calls`` calls) and note the bound of one call."""
+        ``fn`` makes ``calls`` calls) and note the bound of one call; the
+        entry goes into the ``kernels`` line when ``listed``, the log line
+        in any case (under ``label``, default the name)."""
         bound_ms, bound_by = bound(moved, bf16_flops, f32_flops)
-        kernels.append(dict(
+        k = dict(
             name=name_, route='cuda', source=src, replaces=replaces,
             launches=None, max_abs_err=err,
             ms=cuda_ms(fn_k, reps) / calls,
             plain_ms=cuda_ms(fn_p, reps) / calls, bound_ms=bound_ms,
             bound_by=bound_by,
-            library_ms=None if fn_lib is None else cuda_ms(fn_lib, reps)))
-        k = kernels[-1]
+            library_ms=None if fn_lib is None else cuda_ms(fn_lib, reps))
+        if listed:
+            kernels.append(k)
         lib = ('none' if k['library_ms'] is None
                else f'{k["library_ms"]:.4f} ms')
-        log(f'{name_}: max_abs_err {err:.4g}; {k["ms"]:.4f} ms kernel, '
-            f'{k["plain_ms"]:.4f} ms plain, bound {bound_ms:.4f} ms '
+        log(f'{label or name_}: max_abs_err {err:.4g}; {k["ms"]:.4f} ms '
+            f'kernel, {k["plain_ms"]:.4f} ms plain, bound {bound_ms:.4f} ms '
             f'({bound_by}), library {lib} [{name}]')
 
     # ---- kernel 1: TPS++ grid + warp at (B, 32, 128, 64) -> (B, 16, 64, 64)
@@ -571,6 +723,59 @@ def main():
            # T = inv @ [C'; 0], the modulated P' rows, 4 taps per channel
            f32_flops=B * (2 * n_ctrl * n_ctrl * 2 + 1024 * (
                2 * 32 + 2 * n_ctrl * 2) + 1024 * 64 * 8))
+
+    # ---- kernel 2: the two-stage variant at the same shapes; the second
+    # map (with_mp) of both variants ------------------------------------------
+    out_k = tps_sampler(*args, variant='twostage')
+    out_p = tps_sampler_plain_twostage(*args)
+    torch.cuda.synchronize()
+    err = float((out_k.float() - out_p.float()).abs().max())
+    if not err <= SAMPLER_ATOL:
+        raise AssertionError(f'tps_sampler twostage: max abs error {err} > '
+                             f'{SAMPLER_ATOL}')
+    # float32: the f32 grid's rounding parts the two versions, so each is
+    # held against the same function with the grid in float64, the kernel
+    # within twice the plain version's error (as kernel 1's float32 test)
+    args32 = (feat.float(),) + args[1:]
+    got32 = tps_sampler(*args32, variant='twostage')
+    want32 = tps_sampler_plain_twostage(*args32)
+    f64 = [a.double() for a in args32[:6]]
+    exact = warp_twostage(f64[0], tps_ops.build_P_prime(*f64[1:])).reshape(
+        got32.shape).float()
+    torch.cuda.synchronize()
+    err_k = float((got32 - exact).abs().max())
+    err_p = float((want32 - exact).abs().max())
+    if not err_k <= 2 * err_p:
+        raise AssertionError(f'tps_sampler twostage float32: error {err_k} '
+                             f'against the float64 grid, plain {err_p}')
+    log(f'tps_sampler twostage float32: max abs error against the float64 '
+        f'grid {err_k:.4g} kernel, {err_p:.4g} plain')
+    del args32, got32, want32, f64, exact
+    mp_img = torch.from_numpy(g.uniform(-1, 1, (B, 16, 64, 64)).astype(
+        np.float32)).to(dev, bf)
+    for variant in ('dense', 'twostage'):
+        rect, mp = tps_grid_sample_fused(feat, mp_img, *args[1:],
+                                         variant=variant)
+        torch.cuda.synchronize()
+        errs = [check_close(f'tps_grid_sample_fused {variant} {what}', got,
+                            PLAIN[variant](m, *args[1:]), (SAMPLER_ATOL, 0))
+                for what, got, m in (('rect', rect, feat), ('mp', mp, mp_img))]
+        ms = cuda_ms(lambda v=variant: tps_grid_sample_fused(
+            feat, mp_img, *args[1:], variant=v), 20)
+        log(f'tps_grid_sample_fused with_mp, {variant}: max abs errors '
+            f'{errs[0]:.4g} (rect), {errs[1]:.4g} (mp); {ms:.4f} ms, both '
+            f'maps in one launch [{name}]')
+    del rect, mp, mp_img
+    record('tps_sampler_twostage', 'tps_pp_tpu_torch/csrc/tps_sampler.cu',
+           'tps_pp_tpu/ops/pallas_tps.py:86',
+           lambda: tps_sampler(*args, variant='twostage'),
+           lambda: tps_sampler_plain_twostage(*args), err, 20,
+           nbytes(feat, cp, score, inv, P_hat, P, out_k),
+           f32_flops=B * (2 * n_ctrl * n_ctrl * 2 + 1024 * (
+               2 * 32 + 2 * n_ctrl * 2) + 1024 * 64 * 8))
+
+    # ---- kernels 11 and 12: the fused stem's convolutions ----------------
+    conv_launches = stem_checks(dev, g, record)
 
     # ---- kernel 3: whole encoder at (B, 64, 512) --------------------------
     vr = torch.from_numpy(g.uniform(0.3, 1.0, B).astype(np.float32)).to(dev)
@@ -698,7 +903,7 @@ def main():
     rec_fs.model.load_state_dict(rec.model.state_dict())
     rec_fs.decode_mode = 'steps'
     widths = steps_tie_widths(rec_fs, img)
-    tie_steps = max(NEAR_TIE, STEPS_TIE_MULT * widths['module'][1])
+    tie_steps = max(NEAR_TIE, TIE_MULT * widths['module'][1])
     log(f'steps near-ties at B={B} (rows that part, widest top-2 gap): '
         f'module decode, kernel vs plain sampler {widths["module"]}; fused '
         f'step, kernels vs plain on one encoding {widths["kernels"]}; fused '
@@ -708,32 +913,67 @@ def main():
         if not widths[k][1] < tie_steps:
             raise AssertionError(f'steps {k}: parts at a top-2 gap of '
                                  f'{widths[k][1]:.4g} >= {tie_steps:.4g}')
-    # path: (recognizer, decode mode, small batch, near-tie of the argmax
-    # rule, {kernel: its count})
+    sw = stem_tie_widths(rec, img)
+    tie_stem = max(NEAR_TIE, TIE_MULT * sw['module'][1])
+    log(f'fused stem near-ties at B={B} (rows that part, widest top-2 gap): '
+        f'module stem vs the fused stem, both plain {sw["module"]}; fused '
+        f'stem kernels vs plain, the rest on kernels {sw["kernel"]}; '
+        f'fused-stem path vs plain path {sw["path"]}; near-tie of the '
+        f'fused-stem path {tie_stem:.4g}')
+    for k in ('kernel', 'path'):
+        if not sw[k][1] < tie_stem:
+            raise AssertionError(f'fused stem {k}: parts at a top-2 gap of '
+                                 f'{sw[k][1]:.4g} >= {tie_stem:.4g}')
+    # path: (recognizer, decode mode, stem mode, sampler variant, small
+    # batch, near-tie of the argmax rule, {kernel: its count})
     paths = {
-        'fused40_bf16': (rec, 'fused40_bf16', 5, NEAR_TIE, {
+        'fused40_bf16': (rec, 'fused40_bf16', 'xla', 'dense', 5, NEAR_TIE, {
             'tps_sampler': lambda: tps_sampler.launches,
             'encoder': lambda: encoder_forward.launches,
             'full_decode': lambda: full_decode.launches}),
-        'fused40': (rec, 'fused40', 5, NEAR_TIE, {
+        'fused40': (rec, 'fused40', 'xla', 'dense', 5, NEAR_TIE, {
             'tps_sampler': lambda: tps_sampler.launches,
             'encoder': lambda: encoder_forward.launches,
             'full_decode_int8': lambda: full_decode.launches_int8}),
-        'steps, use_fused_step': (rec_fs, 'steps', B_SMALL, tie_steps, {
-            'tps_sampler': lambda: tps_sampler.launches,
-            'self_attn_step': lambda: self_attn_step.launches,
-            'cross_ffn_step': lambda: cross_ffn_step.launches}),
+        'steps, use_fused_step': (
+            rec_fs, 'steps', 'xla', 'dense', B_SMALL, tie_steps, {
+                'tps_sampler': lambda: tps_sampler.launches,
+                'self_attn_step': lambda: self_attn_step.launches,
+                'cross_ffn_step': lambda: cross_ffn_step.launches}),
+        'fused40_bf16, fused stem': (
+            rec, 'fused40_bf16', 'fused', 'dense', 5, tie_stem, {
+                'basic_block_cp': lambda: basic_block_cp.launches,
+                'tps_sampler': lambda: tps_sampler.launches,
+                'encoder': lambda: encoder_forward.launches,
+                'full_decode': lambda: full_decode.launches}),
+        'fused40_bf16, two-stage sampler': (
+            rec, 'fused40_bf16', 'xla', 'twostage', 5, NEAR_TIE, {
+                'tps_sampler_twostage':
+                    lambda: tps_sampler.launches_twostage,
+                'encoder': lambda: encoder_forward.launches,
+                'full_decode': lambda: full_decode.launches}),
     }
     wrappers = (tps_sampler, encoder_forward, full_decode, self_attn_step,
-                cross_ffn_step)
+                cross_ffn_step, basic_block_cp)
     S, NC = rec.max_seq_len, lc.num_classes() - 1
+
+    def serve(r, mode, stem_mode='xla', variant='dense', plain=False):
+        """``r`` on decode ``mode``, ``stem_mode`` and the sampler
+        ``variant`` (``TPS_SAMPLER_VARIANT``, which the flagship's
+        ``sample_mode='pallas'`` reads), the kernels or, with ``plain``,
+        their plain versions."""
+        r.decode_mode, r.stem_mode, r.plain = mode, stem_mode, plain
+        os.environ['TPS_SAMPLER_VARIANT'] = variant
+        return r
+
     path_launches = {}
-    for pname, (r, mode, n_small, near_tie, counts) in paths.items():
-        r.decode_mode, r.plain = mode, False
+    for pname, (r, mode, stem_mode, variant, n_small, near_tie,
+                counts) in paths.items():
+        serve(r, mode, stem_mode, variant)
         im_s, vr_s = img[:n_small].contiguous(), small[n_small]
         for fn in wrappers:
             fn.launches = 0
-        full_decode.launches_int8 = 0
+        full_decode.launches_int8 = tps_sampler.launches_twostage = 0
         res = r.simple_test(img)
         res_s = r.simple_test(im_s, vr_s)
         torch.cuda.synchronize()
@@ -742,6 +982,14 @@ def main():
         if min(got.values()) < 1:
             raise AssertionError(f'{pname}: a kernel of the path did not '
                                  f'launch: {got}')
+        # the fused stem: 7 blocks a predict (layer1's 3, layer2's 4), two
+        # predicts; the two-stage sampler replaces the dense one
+        if stem_mode == 'fused' and got['basic_block_cp'] != 7 * 2:
+            raise AssertionError(f'{pname}: {got["basic_block_cp"]} block '
+                                 f'launches in two predicts, not 14')
+        if variant == 'twostage' and tps_sampler.launches:
+            raise AssertionError(f'{pname}: the dense sampler launched '
+                                 f'{tps_sampler.launches} times')
         for k, n in got.items():
             path_launches.setdefault(k, n)
         for rr in res + res_s:
@@ -771,23 +1019,28 @@ def main():
                 f'gap at most {widest:.3g} < {near_tie}); max abs err '
                 f'{err:.4g}; step 0 max abs err '
                 f'{float((pk[:, 0] - pp[:, 0]).abs().max()):.4g}')
+    serve(rec, 'fused40_bf16')
 
     # ---- a float32 model serves through `steps`, at the small batch: the
-    # f32 variants of the sampler and of the step kernels -----------------
+    # f32 variants of the sampler, of the step kernels and of the stem's
+    # blocks -------------------------------------------------------------
     im_s, vr_s = img[:B_SMALL].contiguous(), small[B_SMALL]
-    for fused in (False, True):
+    for fused, stem_mode in ((False, 'xla'), (True, 'xla'),
+                             (False, 'fused')):
         cfg32 = nrtr_tps_pp_cfg(decode_mode='steps')
         cfg32['decoder'] = dict(cfg32['decoder'], use_fused_step=fused)
-        r32 = build_recognizer(cfg32)
+        r32 = build_recognizer(dict(cfg32, stem_mode=stem_mode))
         r32.model.load_state_dict(rec.model.state_dict())
-        what = f'float32 steps{", use_fused_step" if fused else ""}'
+        what = (f'float32 steps{", use_fused_step" if fused else ""}'
+                f'{", fused stem" if stem_mode == "fused" else ""}')
         for fn in wrappers:
             fn.launches = 0
         pk = r32.predict(im_s, vr_s)
         torch.cuda.synchronize()
         got = {fn.__name__: fn.launches for fn in wrappers}
         if r32.dtype != f32 or got['tps_sampler'] < 1 or fused != (
-                min(got['self_attn_step'], got['cross_ffn_step']) > 0):
+                min(got['self_attn_step'], got['cross_ffn_step']) > 0) or \
+                got['basic_block_cp'] != 7 * (stem_mode == 'fused'):
             raise AssertionError(f'{what}: launches {got}')
         r32.plain = True
         pp = r32.predict(im_s, vr_s)
@@ -800,15 +1053,22 @@ def main():
             f'{NEAR_TIE}); max abs err {err:.4g}')
         del r32
 
-    # ---- warm throughput at B=512, the decodes in turns -------------------
-    timed = {'fused40_bf16': (rec, 'fused40_bf16', False),
-             'fused40': (rec, 'fused40', False),
-             'steps, use_fused_step': (rec_fs, 'steps', False),
-             'fused40_bf16, plain': (rec, 'fused40_bf16', True)}
+    # ---- warm throughput at B=512, the paths in turns ---------------------
+    # (recognizer, decode mode, stem mode, sampler variant, plain)
+    timed = {'fused40_bf16': (rec, 'fused40_bf16', 'xla', 'dense', False),
+             'fused40': (rec, 'fused40', 'xla', 'dense', False),
+             'steps, use_fused_step': (rec_fs, 'steps', 'xla', 'dense',
+                                       False),
+             'fused40_bf16, fused stem': (rec, 'fused40_bf16', 'fused',
+                                          'dense', False),
+             'fused40_bf16, two-stage sampler': (rec, 'fused40_bf16', 'xla',
+                                                 'twostage', False),
+             'fused40_bf16, plain': (rec, 'fused40_bf16', 'xla', 'dense',
+                                     True)}
     times = {k: [] for k in timed}
     for _ in range(2):
-        for k, (r, mode, plain) in timed.items():
-            r.decode_mode, r.plain = mode, plain
+        for k, (r, *setting) in timed.items():
+            serve(r, *setting)
             r.predict(img)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -820,6 +1080,8 @@ def main():
         log(f'slice B={B} {k}: {B / min(ts):.1f} images/s '
             f'({min(ts) * 1e3:.2f} ms/batch, best of 2 rounds of 3) '
             f'[{name}]')
+    serve(rec, 'fused40_bf16')
+    serve(rec_fs, 'steps')
     rec_fs.predict(img[:B_SMALL])
     torch.cuda.synchronize()
     ts = []
@@ -830,12 +1092,14 @@ def main():
         ts.append(time.perf_counter() - t0)
     log(f'slice B={B_SMALL} steps, use_fused_step: {min(ts) * 1e3:.2f} '
         f'ms/batch (best of 5) [{name}]')
-    rec.decode_mode, rec.plain = 'auto', False
+    serve(rec, 'auto')
+    os.environ.pop('TPS_SAMPLER_VARIANT')
     del rec, rec_fs, model
 
     # ---- the training slice ------------------------------------------------
     launches = train_slice(dev, g, name, warp_args)
     path_launches.update(launches)
+    path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])
     if any(not k['launches'] for k in kernels):

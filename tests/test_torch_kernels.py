@@ -25,7 +25,13 @@ from tps_pp_tpu_torch.ops.grid_sample import (
     GridSampleFunction, grid_sample_forward, grid_sample_grad,
     grid_sample_grad_img, grid_sample_grad_img_plain, grid_sample_grad_plain,
     grid_sample_plain)
-from tps_pp_tpu_torch.ops.tps_sampler import tps_sampler, tps_sampler_plain
+from tps_pp_tpu_torch.ops.stem import (basic_block_cp, basic_block_cp_plain,
+                                      conv3x3_cp, conv3x3_cp_plain,
+                                      fused_stem_forward)
+from tps_pp_tpu_torch.ops.tps_sampler import (tps_grid_sample_fused,
+                                              tps_sampler, tps_sampler_plain,
+                                              tps_sampler_plain_twostage,
+                                              warp_twostage)
 
 torch.set_num_threads(2)
 BF = torch.bfloat16
@@ -103,10 +109,29 @@ def _warp_args(device, dtype, N=4, scale=1.0):
             torch.tensor(cot, dtype=dtype, device=device))
 
 
-@pytest.mark.parametrize('op', ['tps_sampler', 'encoder', 'full_decode',
-                                'full_decode_int8', 'self_attn_step',
-                                'cross_ffn_step', 'grid_sample_forward',
-                                'grid_sample_grad', 'grid_sample_grad_img'])
+def _block_args(device, cin, cmid, cout, N=2, H=32, W=128, dtype=BF,
+                seed=0):
+    """A folded BasicBlock's (C, P) input and weights: t (cin, N*H*W) in
+    [-1, 1], w1 (cmid, cin), wt (cout, 9*cmid) with variance 1/fan_in,
+    biases in [-0.5, 0.5]."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, scale=1.0, dt=dtype):
+        return torch.tensor(rng.uniform(-scale, scale, shape),
+                            dtype=torch.float32, device=device).to(dt)
+    return (r(cin, N * H * W), r(cmid, cin, scale=(3 / cin) ** 0.5),
+            r(cmid, 1, scale=0.5, dt=torch.float32),
+            r(cout, 9 * cmid, scale=(3 / (9 * cmid)) ** 0.5),
+            r(cout, 1, scale=0.5, dt=torch.float32))
+
+
+@pytest.mark.parametrize('op', ['tps_sampler', 'tps_sampler_twostage',
+                                'tps_grid_sample_fused', 'encoder',
+                                'full_decode', 'full_decode_int8',
+                                'self_attn_step', 'cross_ffn_step',
+                                'grid_sample_forward', 'grid_sample_grad',
+                                'grid_sample_grad_img', 'conv3x3_cp',
+                                'basic_block_cp'])
 def test_wrappers_refuse_non_cuda_devices(op):
     """A wrapper runs the plain version for CPU tensors only; on any other
     device it launches its kernel or raises, and never falls back."""
@@ -114,6 +139,17 @@ def test_wrappers_refuse_non_cuda_devices(op):
     with pytest.raises(ValueError, match='CUDA tensors'):
         if op == 'tps_sampler':
             tps_sampler(*_sampler_args(meta, N=1), (16, 64))
+        elif op == 'tps_sampler_twostage':
+            tps_sampler(*_sampler_args(meta, N=1), (16, 64),
+                        variant='twostage')
+        elif op == 'tps_grid_sample_fused':
+            feat, *rest = _sampler_args(meta, N=1)
+            tps_grid_sample_fused(feat, feat[:, ::2, ::2], *rest, (16, 64))
+        elif op == 'conv3x3_cp':
+            t, _, _, wt, b2 = _block_args(meta, 32, 32, 32, N=1)
+            conv3x3_cp(t, wt, b2, H=32, W=128)
+        elif op == 'basic_block_cp':
+            basic_block_cp(*_block_args(meta, 32, 32, 32, N=1), H=32, W=128)
         elif op == 'encoder':
             encoder_forward(*_encoder_args(meta), 8)
         elif op.startswith('full_decode'):
@@ -183,6 +219,147 @@ def test_tps_sampler_kernel_f32(cuda_device):
     assert got.dtype == torch.float32 and got.shape == (4, 16, 64, 64)
     plain_err = float((want - exact).abs().max())
     assert float((got - exact).abs().max()) <= 2 * plain_err
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [BF, torch.float32])
+def test_tps_sampler_twostage_kernel(cuda_device, dtype):
+    """Kernel 2. bf16: one rounding of the output, and of an x-weight,
+    apart: 2e-2 absolute (inputs in [-1, 1]). float32: held, as kernel 1,
+    against the same function with the grid in float64; the kernel may be
+    off by at most twice what the plain version is."""
+    args = _sampler_args(cuda_device, dtype=dtype)
+    before = (tps_sampler.launches, tps_sampler.launches_twostage)
+    got = tps_sampler(*args, (16, 64), variant='twostage')
+    want = tps_sampler_plain_twostage(*args, (16, 64))
+    torch.cuda.synchronize()
+    assert (tps_sampler.launches, tps_sampler.launches_twostage) == (
+        before[0], before[1] + 1)
+    assert got.dtype == dtype and got.shape == (4, 16, 64, 64)
+    if dtype == BF:
+        assert float((got.float() - want.float()).abs().max()) <= 2e-2
+        return
+    feat, cp, score, inv, P_hat, P = (a.double() for a in args)
+    exact = warp_twostage(feat, tps.build_P_prime(
+        cp, score, inv, P_hat, P)).reshape(got.shape).float()
+    plain_err = float((want - exact).abs().max())
+    assert float((got - exact).abs().max()) <= 2 * plain_err
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('variant', ['dense', 'twostage'])
+@pytest.mark.parametrize('Hg,Hi', [(32, 16), (31, 15)])
+def test_tps_grid_sample_fused_kernel(cuda_device, variant, Hg, Hi):
+    """Both maps from one launch (``with_mp``), odd heights included, each
+    against its plain version within 2e-2 (bf16); the rectified map equal
+    to the one of a launch without the second map."""
+    feat, *rest = _sampler_args(cuda_device)
+    feat = feat[:, :Hg].contiguous()
+    img = feat[:, ::2, ::2][:, :Hi].contiguous()
+    before = (tps_sampler.launches, tps_sampler.launches_twostage)
+    rect, mp = tps_grid_sample_fused(feat, img, *rest, (16, 64),
+                                     variant=variant)
+    alone = tps_sampler(feat, *rest, (16, 64), variant=variant)
+    torch.cuda.synchronize()
+    two = variant == 'twostage'
+    assert (tps_sampler.launches, tps_sampler.launches_twostage) == (
+        before[0] + 2 * (not two), before[1] + 2 * two)
+    plain = tps_sampler_plain_twostage if two else tps_sampler_plain
+    for got, m in ((rect, feat), (mp, img)):
+        assert got.shape == (4, 16, 64, 64) and got.dtype == BF
+        want = plain(m, *rest, (16, 64))
+        assert float((got.float() - want.float()).abs().max()) <= 2e-2
+    assert torch.equal(rect, alone)
+
+
+# kernels 11-12 against their plain versions: bf16 outputs of O(1) values,
+# both versions rounding y and the output at the same points; an f32 sum in
+# another order moves a rounding by one ulp now and then: two bf16 ulps,
+# relative, and 2e-2 absolute near 0. float32: sums of up to 9 * 64 terms
+# in another order
+STEM_BOUNDS = {BF: (2e-2, 2 ** -7), torch.float32: (1e-4, 1e-4)}
+# the three BasicBlock shapes of the flagship's stem: layer1, layer2's
+# block0 at full resolution (its stride-2 main path), layer2's blocks 1-3
+STEM_SHAPES = {'layer1': (32, 32, 32, 32, 128, True),
+               'layer2_block0': (32, 64, 64, 32, 128, False),
+               'layer2_blocks': (64, 64, 64, 16, 64, True)}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [BF, torch.float32])
+@pytest.mark.parametrize('relu', [False, True])
+def test_conv3x3_cp_kernel(cuda_device, dtype, relu):
+    """Kernel 11 at the stem's width; an odd image height (31) too."""
+    atol, rtol = STEM_BOUNDS[dtype]
+    for H in (32, 31):
+        t, _, _, wt, b2 = _block_args(cuda_device, 32, 32, 32, H=H,
+                                      dtype=dtype)
+        before = conv3x3_cp.launches
+        got = conv3x3_cp(t, wt, b2, H=H, W=128, relu=relu)
+        want = conv3x3_cp_plain(t, wt, b2, H=H, W=128, relu=relu)
+        torch.cuda.synchronize()
+        assert conv3x3_cp.launches == before + 1 and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [BF, torch.float32])
+@pytest.mark.parametrize('shape', list(STEM_SHAPES))
+def test_basic_block_cp_kernel(cuda_device, dtype, shape):
+    """Kernel 12 at the three shapes of the stem."""
+    cin, cmid, cout, H, W, residual = STEM_SHAPES[shape]
+    args = _block_args(cuda_device, cin, cmid, cout, H=H, W=W, dtype=dtype)
+    before = basic_block_cp.launches
+    got = basic_block_cp(*args, H=H, W=W, residual=residual)
+    want = basic_block_cp_plain(*args, H=H, W=W, residual=residual)
+    torch.cuda.synchronize()
+    assert basic_block_cp.launches == before + 1 and got.dtype == dtype
+    assert got.shape == (cout, 2 * H * W)
+    atol, rtol = STEM_BOUNDS[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.requires_cuda
+def test_stem_kernels_refuse_their_limits(cuda_device):
+    """Channels not a multiple of 16, or a residual across widths, are
+    outside the kernels' limits: a ValueError, nothing launched."""
+    before = (conv3x3_cp.launches, basic_block_cp.launches)
+    t, w1, b1, wt, b2 = _block_args(cuda_device, 24, 24, 24)
+    with pytest.raises(ValueError, match='outside the kernel'):
+        conv3x3_cp(t, wt, b2, H=32, W=128)
+    with pytest.raises(ValueError, match='outside the kernel'):
+        basic_block_cp(*_block_args(cuda_device, 32, 64, 64), H=32, W=128,
+                       residual=True)
+    assert (conv3x3_cp.launches, basic_block_cp.launches) == before
+
+
+@pytest.mark.requires_cuda
+def test_predict_fused_stem(cuda_device):
+    """The full-width flagship serves a batch of 4 in bf16 with
+    ``stem_mode='fused'``: seven block launches per ``predict`` (layer1's
+    three, layer2's four), argmax against the plain path under the decode
+    rule; and a float32 model's fused stem within the float32 bounds of
+    its plain version."""
+    cfg = nrtr_tps_pp_cfg(dtype='bfloat16', decode_mode='fused40_bf16')
+    rec = build_recognizer(dict(cfg, stem_mode='fused')).init_weights(0)
+    assert rec.resolved_stem_mode() == 'fused'
+    img = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, 32, 128, 3)).astype(np.float32))
+    before = basic_block_cp.launches
+    got = rec.predict(img)
+    torch.cuda.synchronize()
+    assert basic_block_cp.launches == before + 7
+    rec.plain = True
+    _assert_decode_rule(got, rec.predict(img))
+    bb = rec.model.backbone.float()
+    with torch.inference_mode():
+        x, skips = fused_stem_forward(bb, img.cuda(), torch.float32)
+        xp, skips_p = fused_stem_forward(bb, img.cuda(), torch.float32,
+                                         plain=True)
+    for a, b in zip([x] + skips, [xp] + skips_p):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.requires_cuda

@@ -2,7 +2,11 @@
 (bit-equal), ``build_P_prime``, the bilinear sampler on one grid, the plain
 rectification sampler against the Pallas kernel in interpret mode (rtol/atol
 1e-4, the JAX kernel's own contract, tests/test_pallas_tps.py) and the tiny
-TPS_PP module (1e-4).
+TPS_PP module (1e-4). The two-stage variant and the second map
+(``with_mp``) likewise against ``tps_grid_sample_fused`` in interpret mode:
+float32 at 1e-4, bfloat16 within one bf16 ulp of the output, odd heights
+included; and the tiny recognizer serving through the two-stage variant
+against JAX's (``sample_mode='pallas'``, ``TPS_SAMPLER_VARIANT``).
 
 The grid is ill-conditioned in float32: its 35-term sums cancel, and JAX's
 and torch's f32 grids each sit ~1.5e-6 from a float64 grid, in different
@@ -18,12 +22,14 @@ import pytest
 import torch
 from torch_port_util import jax_flagship, jnp_tree, port_from_jax
 
+from tps_pp_tpu.apis.recognizer import build_recognizer as build_jax
 from tps_pp_tpu.ops import tps as jtps
 from tps_pp_tpu.ops.grid_sample import grid_sample as jgrid_sample
 from tps_pp_tpu.ops.pallas_tps import tps_grid_sample_fused
 
 from tps_pp_tpu_torch.ops import tps as ttps
 from tps_pp_tpu_torch.ops.grid_sample import grid_sample as tgrid_sample
+from tps_pp_tpu_torch.ops import tps_sampler as tsampler
 from tps_pp_tpu_torch.ops.tps_sampler import tps_sampler, tps_sampler_plain
 
 torch.set_num_threads(2)
@@ -132,3 +138,116 @@ def test_tps_pp_module():
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    rtol=1e-4, atol=1e-4, err_msg=key)
     assert float(np.ptp(got['control_point'].numpy())) > 0
+
+
+def _bf16_ulps(got, want, floor=0.25):
+    """|got - want| in units of the bf16 ulp at the larger magnitude, or at
+    ``floor`` below it."""
+    got, want = (np.asarray(a, np.float32) for a in (got, want))
+    mag = np.maximum(np.maximum(np.abs(got), np.abs(want)), floor)
+    return np.abs(got - want) / np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize('Hg,Hi', [(16, 8), (15, 7)])
+@pytest.mark.parametrize('variant,dtype', [('dense', 'float32'),
+                                           ('twostage', 'float32'),
+                                           ('twostage', 'bfloat16')])
+def test_fused_sampler_with_mp_matches_pallas_kernel(variant, dtype, Hg, Hi):
+    """Both variants, both maps (``with_mp``), odd heights included. The
+    dense variant keeps float32 bilinear weights where the Pallas kernel
+    rounds them to the feature type, so it is compared in float32 only.
+
+    bf16: on JAX's grid the two-stage warp is bit-equal to the Pallas
+    kernel's (same weights, same rounding points); the whole function,
+    whose float32 grid differs from JAX's by ~1e-6, is within one bf16 ulp
+    of the output, taken at magnitude 0.25 or more: near 0 the outputs are
+    sums of O(1) taps that cancel, and a 1e-6 move of a weight there is
+    many ulps of the small sum."""
+    N, C, Hr, Wr, Wg, Wi = 2, 8, 8, 32, 64, 32
+    feat, cp, score, inv, P_hat, P = _inputs(Hg + Hi, N, C, Hr, Wr, Hg, Wg,
+                                             smooth=True)
+    img = _inputs(Hi, N, C, Hr, Wr, Hi, Wi, smooth=True)[0]
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    tps_args = (cp, score, inv, P_hat, P)
+    want = tps_grid_sample_fused(
+        jnp.asarray(feat, jdt), jnp.asarray(img, jdt),
+        *map(jnp.asarray, tps_args), (Hr, Wr), tile=64, interpret=True,
+        with_mp=True, variant=variant)
+    maps = [torch.from_numpy(a).to(tdt) for a in (feat, img)]
+    mats = [torch.from_numpy(a) for a in tps_args]
+    got = tsampler.tps_grid_sample_fused(*maps, *mats, (Hr, Wr),
+                                         with_mp=True, variant=variant)
+    jgrid = torch.tensor(np.asarray(jtps.build_P_prime(
+        *map(jnp.asarray, tps_args))))
+    for g, w, m in zip(got, want, maps, strict=True):
+        assert g.shape == (N, Hr, Wr, C) and g.dtype == tdt
+        g, w = g.float().numpy(), np.asarray(w, np.float32)
+        if dtype == 'float32':
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+        else:
+            assert float(_bf16_ulps(g, w).max()) <= 1.0
+            np.testing.assert_array_equal(
+                tsampler.warp_twostage(m, jgrid).float().numpy(),
+                w.reshape(N, Hr * Wr, C))
+    # without the second map: the same rectified map, and no second output
+    rect, mp = tsampler.tps_grid_sample_fused(
+        maps[0], None, *mats, (Hr, Wr), with_mp=False, variant=variant)
+    assert mp is None and torch.equal(rect, got[0])
+
+
+def test_sampler_variant_is_read_per_call(monkeypatch):
+    """``variant=None`` reads TPS_SAMPLER_VARIANT at each call (the JAX
+    package bakes it in at trace time); an unknown variant raises; on CPU
+    tensors nothing is launched."""
+    feat, cp, score, inv, P_hat, P = _inputs(3, 2, 8, 8, 32, 16, 64)
+    args = [torch.from_numpy(feat).to(torch.bfloat16)] + [
+        torch.from_numpy(a) for a in (cp, score, inv, P_hat, P)] + [(8, 32)]
+    dense = tsampler.tps_sampler_plain(*args)
+    twostage = tsampler.tps_sampler_plain_twostage(*args)
+    assert not torch.equal(dense, twostage)
+    before = (tps_sampler.launches, tps_sampler.launches_twostage)
+    monkeypatch.delenv('TPS_SAMPLER_VARIANT', raising=False)
+    assert torch.equal(tps_sampler(*args), dense)
+    monkeypatch.setenv('TPS_SAMPLER_VARIANT', 'twostage')
+    assert torch.equal(tps_sampler(*args), twostage)
+    assert torch.equal(tps_sampler(*args, variant='dense'), dense)
+    monkeypatch.setenv('TPS_SAMPLER_VARIANT', 'onehot')
+    with pytest.raises(ValueError, match='variant'):
+        tps_sampler(*args)
+    assert (tps_sampler.launches, tps_sampler.launches_twostage) == before
+
+
+def _interpret_tps(monkeypatch):
+    import tps_pp_tpu.ops.pallas_tps as ptps
+    orig = ptps.tps_grid_sample_fused
+    monkeypatch.setattr(ptps, 'tps_grid_sample_fused', lambda *a, **k: orig(
+        *a, **dict(k, interpret=True)))
+
+
+@pytest.mark.parametrize('variant', ['dense', 'twostage'])
+def test_tiny_recognizer_pallas_sample_mode_matches_jax(monkeypatch,
+                                                         variant):
+    """``sample_mode='pallas'`` serves through the variant that
+    TPS_SAMPLER_VARIANT names, on both sides (fresh recognizers after the
+    variable is set; JAX's Pallas kernel in interpret mode): argmax equal,
+    probabilities within 1e-5 in float32."""
+    _interpret_tps(monkeypatch)
+    monkeypatch.setenv('TPS_SAMPLER_VARIANT', variant)
+    _, v, cfg = jax_flagship(tiny=True, seed=9)
+    k = v['params']['tpsnet']['TPE']['loc_fc2']['kernel']
+    v['params']['tpsnet']['TPE']['loc_fc2']['kernel'] = (
+        0.05 * np.random.default_rng(9).standard_normal(k.shape)).astype(
+            np.float32)
+    cfg = dict(cfg, tpsnet=dict(cfg['tpsnet'], sample_mode='pallas'))
+    jrec = build_jax(dict(cfg, decode_mode='steps'))
+    rec = port_from_jax(cfg, v)
+    img = np.random.default_rng(9).standard_normal((3, 32, 64, 3)).astype(
+        np.float32)
+    vr = np.array([1.0, 0.5, 0.8], np.float32)
+    want = np.asarray(jrec.predict(jnp_tree(v), jnp.asarray(img),
+                                   jnp.asarray(vr)))
+    launched = (tps_sampler.launches, tps_sampler.launches_twostage)
+    got = rec.predict(img, vr).numpy()
+    assert (tps_sampler.launches, tps_sampler.launches_twostage) == launched
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)

@@ -3,7 +3,8 @@
 on one CUDA GPU.
 
     python tools/torch_profile_slice.py [--stages serve,train] [--batch 512]
-        [--train-batch 256] [--trace DIR]
+        [--train-batch 256] [--stem-mode xla|fused]
+        [--sampler-variant dense|twostage] [--trace DIR]
 
 Builds the full-width NRTR + TPS++ flagship with seeded random weights.
 
@@ -11,9 +12,15 @@ Builds the full-width NRTR + TPS++ flagship with seeded random weights.
   (``extract_feat``, the encoder, the decode with bf16 and with int8
   encoder K/V, with and without the EOS check) and of the ``steps`` decode
   with ``use_fused_step`` (the module encoder, the greedy decode) on the
-  kernel path and on the plain path, and ``predict`` in each decode mode,
-  with CUDA events; then profiles one ``predict`` on the kernel path in
-  ``fused40_bf16``, ``fused40`` and ``steps`` with ``use_fused_step``.
+  kernel path and on the plain path, with CUDA events; beside them the
+  module stem against the fused stem (``ops.stem.fused_stem_forward``,
+  kernels 11-12) alone and inside ``extract_feat``, and ``extract_feat``
+  with the dense sampler against the two-stage one. Then ``predict`` in
+  each decode mode, and a profile of one ``predict`` on the kernel path in
+  ``fused40_bf16``, ``fused40`` and ``steps`` with ``use_fused_step``; these
+  run with ``--stem-mode`` (default ``xla``, the module stem) and
+  ``--sampler-variant`` (default ``dense``; the flagship's
+  ``sample_mode='pallas'`` reads it from ``TPS_SAMPLER_VARIANT``).
 * ``train`` (f32 parameters and Adam state, bf16 autocast, dropout 0.1,
   Adam at 1e-4 with grad clip 5.0, random DICT90 labels): times the
   forward (``compute_loss``), the backward and the optimizer step of a
@@ -108,14 +115,16 @@ def profiled(fn, what, card, out_dir):
     return trace
 
 
-def serve_stage(dev, card, B, out_dir):
+def serve_stage(dev, card, B, out_dir, stem_mode, variant):
     import numpy as np
     import torch
     from tps_pp_tpu_torch.apis import build_recognizer, nrtr_tps_pp_cfg
     from tps_pp_tpu_torch.models.decoders import greedy_decode
+    from tps_pp_tpu_torch.ops.stem import fused_stem_forward
 
     bf = torch.bfloat16
-    cfg = nrtr_tps_pp_cfg(dtype='bfloat16', decode_mode='auto')
+    cfg = dict(nrtr_tps_pp_cfg(dtype='bfloat16', decode_mode='auto'),
+               stem_mode=stem_mode)
     rec = build_recognizer(cfg, device=dev)
     rec.init_weights(0)
     rec_fs = build_recognizer(dict(cfg, decoder=dict(
@@ -126,6 +135,18 @@ def serve_stage(dev, card, B, out_dir):
     img = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (B, 32, 128, 3)).astype(np.float32)).to(dev, bf)
     vr = torch.ones(B, device=dev)
+
+    def sampler(v, fn):
+        """``fn()`` with the rectifier's sampler variant ``v``."""
+        def run():
+            os.environ['TPS_SAMPLER_VARIANT'] = v
+            try:
+                return fn()
+            finally:
+                os.environ['TPS_SAMPLER_VARIANT'] = variant
+        return run
+
+    os.environ['TPS_SAMPLER_VARIANT'] = variant
     with torch.inference_mode():
         feat = m.extract_feat(img)
         enc = m.encoder(feat, vr, fused=True)
@@ -133,8 +154,17 @@ def serve_stage(dev, card, B, out_dir):
         for plain in (False, True):
             path = 'plain' if plain else 'kernel'
             stages = [
-                ('extract_feat', 5,
-                 lambda: m.extract_feat(img, plain=plain)),
+                ('stem, module', 5, lambda: m.backbone.stem_and_head(img)),
+                ('stem, fused', 5, lambda: fused_stem_forward(
+                    m.backbone, img, bf, plain=plain)),
+                ('extract_feat', 5, sampler('dense', lambda: m.extract_feat(
+                    img, plain=plain))),
+                ('extract_feat, fused stem', 5, sampler(
+                    'dense', lambda: m.extract_feat(
+                        img, plain=plain, stem=fused_stem_forward(
+                            m.backbone, img, bf, plain=plain)))),
+                ('extract_feat, two-stage sampler', 5, sampler(
+                    'twostage', lambda: m.extract_feat(img, plain=plain))),
                 ('encoder', 5,
                  lambda: m.encoder(feat, vr, fused=True, plain=plain)),
                 ('encoder, module', 5, lambda: m.encoder(feat, vr))]
@@ -153,17 +183,18 @@ def serve_stage(dev, card, B, out_dir):
                                max_seq_len=S, start_idx=start_idx,
                                end_idx=end_idx, plain=plain)))
             for name, reps, fn in stages:
-                print(f'{path:6s} {name:30s} {cuda_ms(fn, reps):9.3f} ms '
+                print(f'{path:6s} {name:32s} {cuda_ms(fn, reps):9.3f} ms '
                       f'(B={B}) [{card}]', flush=True)
         modes = {'fused40_bf16': (rec, 'fused40_bf16'),
                  'fused40': (rec, 'fused40'), 'steps': (rec, 'steps'),
                  'steps, use_fused_step': (rec_fs, 'steps')}
+        setting = f'stem {rec.resolved_stem_mode()}, sampler {variant}'
         for plain in (False, True):
             for mode, (r, dm) in modes.items():
                 r.decode_mode, r.plain = dm, plain
                 print(f'predict {mode:22s} {"plain" if plain else "kernel":6s}'
                       f' {cuda_ms(lambda: r.predict(img), 3):9.3f} ms '
-                      f'(B={B}) [{card}]', flush=True)
+                      f'(B={B}; {setting}) [{card}]', flush=True)
         traces = []
         for mode in ('fused40_bf16', 'fused40', 'steps, use_fused_step'):
             r, dm = modes[mode]
@@ -232,6 +263,11 @@ def main():
                     help='comma-separated: serve, train')
     ap.add_argument('--batch', type=int, default=512)
     ap.add_argument('--train-batch', type=int, default=256)
+    ap.add_argument('--stem-mode', default='xla', choices=('xla', 'fused'),
+                    help='the stem of the predict and profile runs')
+    ap.add_argument('--sampler-variant', default='dense',
+                    choices=('dense', 'twostage'),
+                    help='the TPS++ sampler of the predict and profile runs')
     ap.add_argument('--trace', help='directory for the Chrome traces')
     args = ap.parse_args()
     import torch
@@ -249,7 +285,8 @@ def main():
     traces = []
     stages = args.stages.split(',')
     if 'serve' in stages:
-        traces += serve_stage(dev, card, args.batch, out_dir)
+        traces += serve_stage(dev, card, args.batch, out_dir,
+                              args.stem_mode, args.sampler_variant)
         torch.cuda.empty_cache()
     if 'train' in stages:
         traces.append(train_stage(dev, card, args.train_batch, out_dir))

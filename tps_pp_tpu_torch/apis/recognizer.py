@@ -25,6 +25,15 @@ Setting the attribute ``plain`` to True makes every mode run its kernels'
 plain PyTorch versions on any device: the reference the kernels are held
 to on the card.
 
+Stem modes (``cfg['stem_mode']``), the JAX package's
+(``tps_pp_tpu/apis/recognizer.py:179-213``): ``'xla'`` runs the module stem
+(``backbone.stem_and_head``); ``'fused'`` runs the stem, layer1 and layer2
+through ``ops.stem.fused_stem_forward`` (kernels 11-12 in the (C, P)
+layout) when the trunk has the flagship's geometry (a rectifier,
+``tps_stage == 2``, ``strides[:2] == (1, 2)``, stem width == base width),
+and the module stem otherwise; ``'auto'`` (default) is ``'xla'``, as in
+JAX. The fused stem folds the stem conv's bias, which the JAX one drops.
+
 ``early_exit`` (default on) stops decoding once every row has emitted EOS.
 ``predict`` runs the model in eval mode for the call, whatever mode
 training left it in.
@@ -61,6 +70,7 @@ from ..models import backbones, decoders, encoders, rectifiers  # noqa: F401
 from ..models.decoders.base import greedy_decode
 from ..models.layers import weights_stamp
 from ..models.recognizers.encode_decode import EncodeDecodeRecognizer
+from ..ops.stem import fused_stem_forward
 from ..registry import (BACKBONES, CONVERTORS, DECODERS, ENCODERS, LOSSES,
                         RECTIFIERS)
 from ..utils.batching import next_pow2, pad_rows
@@ -68,6 +78,7 @@ from ..utils.batching import next_pow2, pad_rows
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
            'float64': torch.float64}
 DECODE_MODES = ('auto', 'fused40_bf16', 'fused40', 'steps')
+STEM_MODES = ('auto', 'xla', 'fused')
 
 
 class TextRecognizer:
@@ -95,6 +106,10 @@ class TextRecognizer:
         if self.decode_mode not in DECODE_MODES:
             raise ValueError(f'decode_mode {self.decode_mode!r} not in '
                              f'{DECODE_MODES}')
+        self.stem_mode = cfg.get('stem_mode', 'auto')
+        if self.stem_mode not in STEM_MODES:
+            raise ValueError(f'stem_mode {self.stem_mode!r} not in '
+                             f'{STEM_MODES}')
         self.early_exit = bool(cfg.get('early_exit', True))
         self.plain = False
 
@@ -192,6 +207,17 @@ class TextRecognizer:
             return 'fused40_bf16'
         return 'steps'
 
+    def resolved_stem_mode(self) -> str:
+        """``'fused'`` iff ``predict`` runs the fused stem: the mode is
+        ``'fused'`` and the trunk has the flagship's geometry."""
+        if self.stem_mode != 'fused':
+            return 'xla'
+        bb = self.model.backbone
+        geometry_ok = (self.model.tpsnet is not None and bb.tps_stage == 2
+                       and bb.strides[:2] == (1, 2)
+                       and bb.stem_channels == bb.base_channels)
+        return 'fused' if geometry_ok else 'xla'
+
     def serving_model(self) -> nn.Module:
         """The model ``predict`` runs: ``self.model``, or, when the
         parameters are wider than the compute dtype, a copy cast to it,
@@ -210,11 +236,16 @@ class TextRecognizer:
     def _predict_impl(self, model, img, valid_ratio):
         mode = self.resolved_decode_mode()
         end_idx = self.label_convertor.end_idx if self.early_exit else None
+        stem = (fused_stem_forward(model.backbone, img, self.dtype,
+                                   plain=self.plain)
+                if self.resolved_stem_mode() == 'fused' else None)
         if mode in ('fused40_bf16', 'fused40'):
             return model.decode_full_fused(
                 img, valid_ratio, end_idx=end_idx, plain=self.plain,
-                enc_dtype='int8' if mode == 'fused40' else 'bfloat16')
-        _, out_enc = model.encode_full(img, valid_ratio, plain=self.plain)
+                enc_dtype='int8' if mode == 'fused40' else 'bfloat16',
+                stem=stem)
+        _, out_enc = model.encode_full(img, valid_ratio, plain=self.plain,
+                                       stem=stem)
         return greedy_decode(model.decoder, out_enc, valid_ratio,
                              max_seq_len=self.max_seq_len,
                              start_idx=self.label_convertor.start_idx,

@@ -11,13 +11,16 @@ the running ones as flax does, ``layers.BatchNorm2d``) in train.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
+import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops.stem import fold_stem
 from ...registry import BACKBONES
-from ..layers import BasicBlock, BatchNorm2d, nchw_to_nhwc, nhwc_to_nchw
+from ..layers import (BasicBlock, BatchNorm2d, nchw_to_nhwc, nhwc_to_nchw,
+                      weights_stamp)
 
 
 @BACKBONES.register_module()
@@ -33,6 +36,9 @@ class ResNetABI_v2_large(nn.Module):
                  tps_stage: int = 2):
         super().__init__()
         self.tps_stage = tps_stage
+        # the geometry TextRecognizer.resolved_stem_mode reads
+        self.strides = tuple(strides)
+        self.stem_channels, self.base_channels = stem_channels, base_channels
         self.conv1 = nn.Conv2d(in_channels, stem_channels, 3, padding=1)
         self.bn1 = BatchNorm2d(stem_channels, eps=1e-5)
         inplanes, planes = stem_channels, base_channels
@@ -50,6 +56,17 @@ class ResNetABI_v2_large(nn.Module):
         self.num_stages = len(arch_settings)
         # channels of stem_and_head's skips and of its output feature
         self.head_channels = tuple(channels[:tps_stage + 1])
+        self._fused_stem: Dict = {}   # (device, dtype) -> (stamp, weights)
+
+    def fused_stem_weights(self, dtype: torch.dtype) -> Dict:
+        """The stem's and the first two stages' weights with their
+        BatchNorms folded, for ``ops.stem.fused_stem_forward``; computed once
+        per (device, dtype) and weights stamp."""
+        key = (self.conv1.weight.device, dtype)
+        stamp = weights_stamp(self)
+        if self._fused_stem.get(key, (None,))[0] != stamp:
+            self._fused_stem[key] = (stamp, fold_stem(self, dtype))
+        return self._fused_stem[key][1]
 
     def _stage(self, i):
         return getattr(self, f'layer{i + 1}')

@@ -25,11 +25,14 @@ class EncodeDecodeRecognizer(nn.Module):
         self.encoder = encoder
         self.decoder = decoder
 
-    def extract_feat(self, img: torch.Tensor, plain: bool = False):
+    def extract_feat(self, img: torch.Tensor, plain: bool = False,
+                     stem=None):
         """img (N, H, W, C) -> backbone feature (N, h, w, c). ``plain``
-        makes the rectifier use the sampler's plain version on any
-        device."""
-        x, skips = self.backbone.stem_and_head(img)
+        makes the rectifier use the sampler's plain version on any device;
+        ``stem``, a precomputed (x, skips) (``ops.stem.fused_stem_forward``),
+        replaces ``backbone.stem_and_head``."""
+        x, skips = (stem if stem is not None else
+                    self.backbone.stem_and_head(img))
         if self.tpsnet is not None:
             x = self.tpsnet(x, skips, plain=plain)['output']
         return self.backbone.tail(x)
@@ -44,22 +47,25 @@ class EncodeDecodeRecognizer(nn.Module):
         out_enc = self.encoder(feat, valid_ratio, rng=rng)
         return self.decoder(out_enc, targets, valid_ratio, rng=rng)
 
-    def encode_full(self, img, valid_ratio=None, plain: bool = False):
-        """(feat, out_enc) of the module path; ``plain`` as in
-        :meth:`extract_feat`."""
-        feat = self.extract_feat(img, plain=plain)
+    def encode_full(self, img, valid_ratio=None, plain: bool = False,
+                    stem=None):
+        """(feat, out_enc) of the module path; ``plain`` and ``stem`` as
+        in :meth:`extract_feat`."""
+        feat = self.extract_feat(img, plain=plain, stem=stem)
         return feat, self.encoder(feat, valid_ratio)
 
     def decode_full_fused(self, img, valid_ratio=None,
                           end_idx: Optional[int] = None,
                           plain: bool = False,
-                          enc_dtype: str = 'bfloat16') -> torch.Tensor:
+                          enc_dtype: str = 'bfloat16',
+                          stem=None) -> torch.Tensor:
         """The serving path: rectifier sampler, whole encoder and whole
         decode through the ops (kernels on CUDA tensors); ``plain`` runs
         the same functions through their plain PyTorch versions;
         ``enc_dtype`` is the decode's encoder K/V type (``'bfloat16'`` or
-        ``'int8'``). Returns (N, S, C-1) float32 probabilities."""
-        feat = self.extract_feat(img, plain=plain)
+        ``'int8'``); ``stem`` as in :meth:`extract_feat`. Returns (N, S,
+        C-1) float32 probabilities."""
+        feat = self.extract_feat(img, plain=plain, stem=stem)
         out_enc = self.encoder(feat, valid_ratio, fused=True, plain=plain)
         return self.decoder.fused_full_decode(out_enc, valid_ratio,
                                               end_idx=end_idx, plain=plain,

@@ -15,7 +15,9 @@ The reference's semantics are kept, quirks included:
 
 The convolutional parts run NCHW; the public ``forward`` takes and returns
 NHWC like the JAX module. In eval mode the grid generation and the warp go
-through ``ops.tps_sampler`` (the serving kernel). In train mode, as in the
+through ``ops.tps_sampler`` (the serving kernel: the dense variant, or the
+one ``TPS_SAMPLER_VARIANT`` names when ``sample_mode='pallas'``, the JAX
+condition, ``tps_pp.py:315-327``). In train mode, as in the
 JAX module (``tps_pp.py:312-343``), the grid is built with ``build_P_prime``
 in float32 under autograd, out of autocast, and the warp is the
 differentiable ``ops.grid_sample`` (the training kernels). Either way the
@@ -33,7 +35,7 @@ import torch.nn.functional as F
 
 from ...ops import tps as tps_ops
 from ...ops.grid_sample import grid_sample
-from ...ops.tps_sampler import tps_sampler, tps_sampler_plain
+from ...ops.tps_sampler import PLAIN, resolve_variant, tps_sampler
 from ...registry import RECTIFIERS
 from ..layers import (ConvModule, nchw_to_nhwc, nhwc_to_nchw,
                       upsample_nearest)
@@ -239,10 +241,13 @@ class TPS_PP(nn.Module):
                  num_img_channel=64, point_size=(2, 16), p_stride=2,
                  in_channels: Sequence[int] = None,
                  sample_mode='gather', pallas_tile=1024):
-        # sample_mode / pallas_tile pick the JAX-side sampler; the port has
-        # one (ops.tps_sampler) and accepts them so that the JAX package's
-        # configs build unchanged.
+        # sample_mode: 'pallas' serves through the variant that
+        # TPS_SAMPLER_VARIANT names (ops.tps_sampler), as the JAX package's
+        # Pallas sampler does; any other mode serves through the dense
+        # variant. pallas_tile is a TPU knob, accepted so that the JAX
+        # package's configs build unchanged.
         super().__init__()
+        self.sample_mode = sample_mode
         C = num_img_channel
         c0, c1, c2 = in_channels or (C // 2, C // 2, C)
         self.rectified_img_size = tuple(rectified_img_size)
@@ -304,9 +309,13 @@ class TPS_PP(nn.Module):
             rect = grid_sample(feat_nhwc, grid.reshape(
                 -1, *self.rectified_img_size, 2), plain=plain)
         else:
-            sampler = tps_sampler_plain if plain else tps_sampler
-            rect = sampler(feat_nhwc, control_point.float().contiguous(),
-                           pc_score.float().contiguous(), *mats,
-                           self.rectified_img_size)
+            # the variant is resolved per call (JAX bakes it in at trace)
+            variant = resolve_variant(
+                None if self.sample_mode == 'pallas' else 'dense')
+            args = (feat_nhwc, control_point.float().contiguous(),
+                    pc_score.float().contiguous(), *mats,
+                    self.rectified_img_size)
+            rect = (PLAIN[variant](*args) if plain
+                    else tps_sampler(*args, variant=variant))
         return {'output': rect.to(batch_img.dtype),
                 'pc_score': pc_score, 'control_point': control_point}

@@ -25,7 +25,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # argtypes of every extern "C" entry point
 _SIGNATURES = {
-    'tpk_tps_sampler': [_P] * 7 + [_I] * 7 + [_P],
+    'tpk_tps_sampler': [_P] * 9 + [_I] * 10 + [_P],
     'tpk_encoder_forward': [_P] * 17 + [_I] * 7 + [_P],
     'tpk_full_decode': [_P] * 32 + [_I] * 11 + [_P, _P],
     'tpk_self_attn_step': [_P] * 12 + [_I] * 7 + [_P],
@@ -33,6 +33,8 @@ _SIGNATURES = {
     'tpk_grid_sample_fwd': [_P] * 3 + [_I] * 6 + [_P],
     'tpk_grid_sample_grad': [_P] * 5 + [_I] * 6 + [_P],
     'tpk_grid_sample_grad_img': [_P] * 3 + [_I] * 6 + [_P],
+    'tpk_conv3x3_cp': [_P] * 4 + [_I] * 7 + [_P],
+    'tpk_basic_block_cp': [_P] * 6 + [_I] * 8 + [_P],
 }
 
 _lib = None
