@@ -624,6 +624,67 @@ def decode_flops(d, N, steps, TE):
     return mm, att
 
 
+def decode_graph_checks(w, out_enc, src_mask, lc):
+    """The captured decode's exit and weight cache, bf16 and int8 encoder
+    K/V: a classifier bias that makes EOS win ends the decode on the device
+    after as many steps as the plain version runs (fewer than 40); a weight
+    changed in place is served by the next replay (the graph reads it
+    through its pointer: no new capture), and another tensor in a weight's
+    place by a new capture, each against the plain version on the new
+    weights."""
+    import torch
+    from tps_pp_tpu_torch.ops.full_decode import (full_decode,
+                                                  full_decode_plain)
+    w = {k: v.clone() for k, v in w.items()}
+    bcls = w['bcls'].clone()
+    w['bcls'][lc.end_idx] += 100.0
+    for enc_dtype in ('bfloat16', 'int8'):
+        args = (out_enc, src_mask, w, 8, lc.start_idx, lc.end_idx, enc_dtype)
+        got = full_decode(*args)
+        steps = full_decode.last_steps
+        want = full_decode_plain(*args)
+        ran = int((want.abs().sum((0, 2)) > 0).sum())
+        check_decode(got, want, f'full_decode {enc_dtype} forced EOS')
+        if not steps == ran < want.shape[1] or bool(
+                (got[:, steps:] != 0).any()):
+            raise AssertionError(f'full_decode {enc_dtype} forced EOS: '
+                                 f'{steps} steps run, plain {ran}')
+        log(f'full_decode {enc_dtype} forced EOS: {steps} steps run, plain '
+            f'{ran}')
+    w['bcls'].copy_(bcls)
+    args = (out_enc, src_mask, w, 8, lc.start_idx, None)
+    before = full_decode(*args)
+    captures = full_decode.captures
+    g = torch.Generator(device=out_enc.device).manual_seed(SEED)
+    # noise at 0.3 of the weights' spread: the outputs move, the weights'
+    # scale (at which the near-tie rule was set) stays within 5%
+    with torch.no_grad():
+        w['wcls'].add_((0.3 * w['wcls'].float().std() * torch.randn(
+            w['wcls'].shape, generator=g, device=out_enc.device)).to(
+            w['wcls'].dtype))
+    got = full_decode(*args)
+    err, ties, _ = check_decode(got, full_decode_plain(*args),
+                                'full_decode after a weight change')
+    if full_decode.captures != captures or torch.equal(got, before):
+        raise AssertionError('full_decode: a weight changed in place was '
+                             'not served by the replay')
+    log(f'full_decode after an in-place weight change: replayed, {ties} '
+        f'rows part from the plain version at a near-tie, max abs err '
+        f'{err:.4g}')
+    w['wfc2'] = w['wfc2'] + (0.3 * w['wfc2'].float().std() * torch.randn(
+        w['wfc2'].shape, generator=g, device=out_enc.device)).to(
+        w['wfc2'].dtype)
+    again = full_decode(*args)
+    err, ties, _ = check_decode(again, full_decode_plain(*args),
+                                'full_decode after a weight replaced')
+    if full_decode.captures != captures + 1 or torch.equal(again, got):
+        raise AssertionError('full_decode: a weight replaced by another '
+                             'tensor was not captured again')
+    log(f'full_decode after a weight replaced by another tensor: '
+        f'recaptured, {ties} rows part from the plain version at a '
+        f'near-tie, max abs err {err:.4g}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -642,7 +703,8 @@ def main():
     from tps_pp_tpu_torch.ops.encoder import (encoder_forward,
                                               encoder_forward_plain)
     from tps_pp_tpu_torch.ops.full_decode import (_dims, full_decode,
-                                                  full_decode_plain)
+                                                  full_decode_plain,
+                                                  graph_bytes)
     from tps_pp_tpu_torch.ops.stem import basic_block_cp
     from tps_pp_tpu_torch.ops.tps_sampler import (
         PLAIN, tps_grid_sample_fused, tps_sampler, tps_sampler_plain,
@@ -802,32 +864,52 @@ def main():
                                          2 * De * DIe),
            f32_flops=4 * B * 8 * 64 * 64 * 64 * Le)
 
-    # ---- kernels 4 and 5: whole greedy decode at N=64, bf16 and int8
-    # encoder K/V ------------------------------------------------------------
+    # ---- kernels 4 and 5: whole greedy decode, one captured CUDA graph, at
+    # N=64 (listed) and at the serving batch, bf16 and int8 encoder K/V ----
     dec = model.decoder
     lc = rec.label_convertor
     w_dec = dec.packed_weights(bf)
     dd = _dims(w_dec, 8)
-    out_enc = enc_p[:N_DECODE].contiguous()
-    src_mask = mask[:N_DECODE].contiguous()
-    for enc_dtype, kname in (('bfloat16', 'full_decode'),
-                             ('int8', 'full_decode_int8')):
-        dargs = (out_enc, src_mask, w_dec, 8, lc.start_idx, lc.end_idx,
-                 enc_dtype)
-        pk = full_decode(*dargs)
-        pp = full_decode_plain(*dargs)
-        torch.cuda.synchronize()
-        err, ties, widest = check_decode(pk, pp, kname)
-        steps = full_decode.last_steps
-        log(f'{kname}: {ties} of {N_DECODE} rows part at a near-tie (top-2 '
-            f'gap at most {widest:.3g}); {steps} steps run')
-        mm_ops, att_ops = decode_flops(dd, N_DECODE, steps, 64)
-        record(kname, 'tps_pp_tpu_torch/csrc/full_decode.cu',
-               'tps_pp_tpu/ops/pallas_full_decode.py:378',
-               lambda a=dargs: full_decode(*a),
-               lambda a=dargs: full_decode_plain(*a), err, 3,
-               nbytes(out_enc, src_mask, pk, *w_dec.values()),
-               bf16_flops=mm_ops, f32_flops=att_ops)
+    for n_rows in (N_DECODE, B):
+        out_enc = enc_p[:n_rows].contiguous()
+        src_mask = mask[:n_rows].contiguous()
+        for enc_dtype, kname in (('bfloat16', 'full_decode'),
+                                 ('int8', 'full_decode_int8')):
+            dargs = (out_enc, src_mask, w_dec, 8, lc.start_idx, lc.end_idx,
+                     enc_dtype)
+            captures = full_decode.captures
+            pk = full_decode(*dargs)
+            again = full_decode(*dargs)
+            pp = full_decode_plain(*dargs)
+            torch.cuda.synchronize()
+            if full_decode.captures != captures + 1 or \
+                    not torch.equal(pk, again):
+                raise AssertionError(
+                    f'{kname} N={n_rows}: {full_decode.captures - captures} '
+                    f'captures in two calls, replay equal to the first call: '
+                    f'{torch.equal(pk, again)}')
+            err, ties, widest = check_decode(pk, pp, f'{kname} N={n_rows}')
+            steps = full_decode.last_steps
+            mm_ops, att_ops = decode_flops(dd, n_rows, steps, 64)
+            # the encoder K/V that every step reads again, at the memory rate
+            kv_ms = nbytes(out_enc) * 2 * dd['L'] * dd['HD'] // dd['D'] // (
+                1 + (enc_dtype == 'int8')) / PEAK_BYTES * 1e3
+            held = max(v for k, v in graph_bytes(w_dec).items()
+                       if k[1] == n_rows and k[3] == (enc_dtype == 'int8'))
+            log(f'{kname} N={n_rows}: {ties} of {n_rows} rows part at a '
+                f'near-tie (top-2 gap at most {widest:.3g}); {steps} steps '
+                f'run; replay equal to the first call; encoder K/V floor '
+                f'{kv_ms:.4f} ms a step, {steps * kv_ms:.4f} ms a decode; '
+                f'the captured decode holds {held / 2 ** 20:.1f} MiB')
+            record(kname, 'tps_pp_tpu_torch/csrc/full_decode.cu',
+                   'tps_pp_tpu/ops/pallas_full_decode.py:378',
+                   lambda a=dargs: full_decode(*a),
+                   lambda a=dargs: full_decode_plain(*a), err, 3,
+                   nbytes(out_enc, src_mask, pk, *w_dec.values()),
+                   bf16_flops=mm_ops, f32_flops=att_ops,
+                   listed=n_rows == N_DECODE, label=f'{kname} N={n_rows}')
+    decode_graph_checks(w_dec, enc_p[:N_DECODE].contiguous(),
+                        mask[:N_DECODE].contiguous(), lc)
 
     # ---- kernels 6 and 7: one decode step of one layer at N=B ------------
     ws = {k: v[0] for k, v in dec.step_weights().items()}
@@ -990,6 +1072,14 @@ def main():
         if variant == 'twostage' and tps_sampler.launches:
             raise AssertionError(f'{pname}: the dense sampler launched '
                                  f'{tps_sampler.launches} times')
+        if mode.startswith('fused40'):
+            # the whole decode of a batch is a replay of its bucket's graph
+            captures = full_decode.captures
+            r.predict(img)
+            torch.cuda.synchronize()
+            if full_decode.captures != captures:
+                raise AssertionError(f'{pname}: a second batch of {B} '
+                                     f'captured its decode again')
         for k, n in got.items():
             path_launches.setdefault(k, n)
         for rr in res + res_s:

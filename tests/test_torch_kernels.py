@@ -20,7 +20,8 @@ from tps_pp_tpu_torch.ops.decode_step import (cross_ffn_step,
                                               self_attn_step,
                                               self_attn_step_plain)
 from tps_pp_tpu_torch.ops.encoder import encoder_forward, encoder_forward_plain
-from tps_pp_tpu_torch.ops.full_decode import full_decode, full_decode_plain
+from tps_pp_tpu_torch.ops.full_decode import (full_decode, full_decode_plain,
+                                              graph_bytes)
 from tps_pp_tpu_torch.ops.grid_sample import (
     GridSampleFunction, grid_sample_forward, grid_sample_grad,
     grid_sample_grad_img, grid_sample_grad_img_plain, grid_sample_grad_plain,
@@ -304,6 +305,24 @@ def test_conv3x3_cp_kernel(cuda_device, dtype, relu):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize('W,H,N', [(16, 32, 3), (32, 31, 5), (128, 31, 7),
+                                   (128, 32, 300)])
+def test_conv3x3_cp_band_walk(cuda_device, W, H, N):
+    """Kernel 11 in bf16 at W = 16, 32 and 128: groups of 256 / W rows, and
+    blocks whose walks cross image boundaries (more images than blocks,
+    odd heights with a short last band), against the plain version."""
+    atol, rtol = STEM_BOUNDS[BF]
+    t, _, _, wt, b2 = _block_args(cuda_device, 32, 32, 32, N=N, H=H, W=W)
+    before = conv3x3_cp.launches
+    got = conv3x3_cp(t, wt, b2, H=H, W=W, relu=True)
+    want = conv3x3_cp_plain(t, wt, b2, H=H, W=W, relu=True)
+    torch.cuda.synchronize()
+    assert conv3x3_cp.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize('dtype', [BF, torch.float32])
 @pytest.mark.parametrize('shape', list(STEM_SHAPES))
 def test_basic_block_cp_kernel(cuda_device, dtype, shape):
@@ -428,6 +447,84 @@ def test_full_decode_kernel(cuda_device, enc_dtype):
     assert (full_decode.launches, full_decode.launches_int8) == (
         before[0] + (not q8), before[1] + q8)
     _assert_decode_rule(got, want)
+
+
+def _decode_inputs(device, N, seed=0):
+    g = np.random.default_rng(seed)
+    out_enc = torch.tensor(g.standard_normal((N, 64, 512)),
+                           dtype=torch.float32).to(device, BF)
+    vr = torch.tensor(g.uniform(0.3, 1.0, N), dtype=torch.float32)
+    return out_enc, sequence_mask(vr, 64).to(device)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('enc_dtype', ['bfloat16', 'int8'])
+@pytest.mark.parametrize('N', [1, 3, 64, 512])
+def test_full_decode_graph_buckets(cuda_device, N, enc_dtype):
+    """The captured decode at the serving buckets' widths: the first call
+    captures, a replay gives the same bits (the split-K sums are taken in
+    a fixed order), both under the decode rule against the plain version,
+    and all 40 steps run without an exit."""
+    _, _, w = _decoder_args(cuda_device)
+    out_enc, mask = _decode_inputs(cuda_device, N)
+    args = (out_enc, mask, w, 8, 1, None, enc_dtype)
+    captures = full_decode.captures
+    got = full_decode(*args)
+    again = full_decode(*args)
+    torch.cuda.synchronize()
+    assert full_decode.captures == captures + 1
+    assert full_decode.last_steps == 40
+    assert torch.equal(got, again)
+    _assert_decode_rule(got, full_decode_plain(*args))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('enc_dtype', ['bfloat16', 'int8'])
+def test_full_decode_graph_early_exit(cuda_device, enc_dtype):
+    """A classifier bias that makes EOS win: the exit is taken on the
+    device, after as many steps as the plain version runs, and the steps
+    after it read back as zeros."""
+    _, _, w = _decoder_args(cuda_device)
+    w = dict(w, bcls=w['bcls'].clone())
+    w['bcls'][91] += 100.0
+    out_enc, mask = _decode_inputs(cuda_device, 64)
+    args = (out_enc, mask, w, 8, 1, 91, enc_dtype)
+    got = full_decode(*args)
+    steps = full_decode.last_steps
+    want = full_decode_plain(*args)
+    ran = int((want.abs().sum((0, 2)) > 0).sum())
+    assert steps == ran == 1
+    assert bool((got[:, steps:] == 0).all())
+    _assert_decode_rule(got, want)
+
+
+@pytest.mark.requires_cuda
+def test_full_decode_graph_follows_weight_changes(cuda_device):
+    """A graph reads every weight through its pointer: an in-place update
+    is served by the next replay with no new capture; another tensor in a
+    weight's place is captured again, in place of the old graph. Both
+    against the plain version on the new weights."""
+    _, _, w = _decoder_args(cuda_device)
+    out_enc, mask = _decode_inputs(cuda_device, 8)
+    args = (out_enc, mask, w, 8, 1, None)
+    before = full_decode(*args)
+    captures = full_decode.captures
+    with torch.no_grad():
+        w['wcls'].add_(0.3 * w['wcls'].float().std().to(w['wcls'].dtype) *
+                       torch.randn_like(w['wcls']))
+    got = full_decode(*args)
+    torch.cuda.synchronize()
+    assert full_decode.captures == captures
+    assert not torch.equal(got, before)
+    _assert_decode_rule(got, full_decode_plain(*args))
+    w2 = dict(w, wfc2=w['wfc2'] + 0.3 * w['wfc2'].float().std().to(BF) *
+              torch.randn_like(w['wfc2']))
+    args2 = (out_enc, mask, w2, 8, 1, None)
+    got2 = full_decode(*args2)
+    torch.cuda.synchronize()
+    assert full_decode.captures == captures + 1
+    assert len(graph_bytes(w2)) == 1
+    _assert_decode_rule(got2, full_decode_plain(*args2))
 
 
 # kernels 6 and 7 against their plain versions: outputs of O(1) values,

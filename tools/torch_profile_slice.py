@@ -2,7 +2,8 @@
 """Where the time goes in the PyTorch port's serving path and training step,
 on one CUDA GPU.
 
-    python tools/torch_profile_slice.py [--stages serve,train] [--batch 512]
+    python tools/torch_profile_slice.py [--stages serve,train,decode]
+        [--batch 512]
         [--train-batch 256] [--stem-mode xla|fused]
         [--sampler-variant dense|twostage] [--trace DIR]
 
@@ -21,6 +22,15 @@ Builds the full-width NRTR + TPS++ flagship with seeded random weights.
   run with ``--stem-mode`` (default ``xla``, the module stem) and
   ``--sampler-variant`` (default ``dense``; the flagship's
   ``sample_mode='pallas'`` reads it from ``TPS_SAMPLER_VARIANT``).
+* ``decode`` (bf16): the whole decode alone at the batch, bf16 and int8
+  encoder K/V, no exit: its time, then a profile of each, its
+  device time by part (GEMM, attention, head, gate + embed; LayerNorm and
+  the int8 quantization where they run apart) and its idle share. With
+  dependent launch a kernel starts before the one it follows ends, so its
+  interval holds its wait and the parts add up to more than the busy
+  time. It reads the kernels of an earlier tree of the port too, so that
+  the same file run from a parent's checkout gives the before of a
+  change.
 * ``train`` (f32 parameters and Adam state, bf16 autocast, dropout 0.1,
   Adam at 1e-4 with grad clip 5.0, random DICT90 labels): times the
   forward (``compute_loss``), the backward and the optimizer step of a
@@ -113,6 +123,56 @@ def profiled(fn, what, card, out_dir):
         if ms >= 0.1:
             print(f'  {ms:9.3f} ms {n:6d}x  {name[:90]}')
     return trace
+
+
+# the whole decode's kernels by part, matched on their names (the card's
+# kernels of this tree or of an earlier one, so that one tool reads both)
+DECODE_PARTS = (('GEMM', ('step_gemm', 'gemm_bf16')),
+                ('attention', ('attend',)),
+                ('head', ('decode_head',)),
+                ('gate + embed', ('embed',)),
+                ('LayerNorm', ('layernorm', 'ln_rows')),
+                ('int8 quantize', ('absmax', 'quantize')))
+
+
+def decode_stage(dev, card, B, out_dir):
+    """Profile the whole decode alone at ``B`` rows, bf16 and int8 encoder
+    K/V, no exit: the device time of its GEMMs, attention, head, gate and
+    embedding (and LayerNorm, where the kernels have it apart) and the
+    idle share of its kernel window."""
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import build_recognizer, nrtr_tps_pp_cfg
+    rec = build_recognizer(nrtr_tps_pp_cfg(dtype='bfloat16'), device=dev)
+    rec.init_weights(0)
+    m = rec.model
+    img = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (B, 32, 128, 3)).astype(np.float32)).to(dev, torch.bfloat16)
+    vr = torch.ones(B, device=dev)
+    traces = []
+    with torch.inference_mode():
+        enc = m.encoder(m.extract_feat(img), vr, fused=True)
+        for dt in ('bfloat16', 'int8'):
+            fn = (lambda dt=dt: m.decoder.fused_full_decode(enc, vr,
+                                                            enc_dtype=dt))
+            print(f'decode {dt:9s} {cuda_ms(fn, 3):9.3f} ms (B={B}, no '
+                  f'exit) [{card}]', flush=True)
+            trace = profiled(fn, f'decode {dt}', card, out_dir)
+            window, busy, by_name = kernel_table(trace)
+            parts = collections.OrderedDict((p, [0.0, 0])
+                                            for p, _ in DECODE_PARTS)
+            parts['other'] = [0.0, 0]
+            for name, (ms, n) in by_name.items():
+                part = next((p for p, keys in DECODE_PARTS
+                             if any(k in name for k in keys)), 'other')
+                parts[part][0] += ms
+                parts[part][1] += n
+            print(f'decode {dt} by part: ' + '; '.join(
+                f'{p} {ms:.3f} ms in {n}' for p, (ms, n) in parts.items()
+                if n) + f'; idle share {1 - busy / window:.4f} [{card}]',
+                flush=True)
+            traces.append(trace)
+    return traces
 
 
 def serve_stage(dev, card, B, out_dir, stem_mode, variant):
@@ -260,7 +320,7 @@ def train_stage(dev, card, B, out_dir):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--stages', default='serve,train',
-                    help='comma-separated: serve, train')
+                    help='comma-separated: serve, train, decode')
     ap.add_argument('--batch', type=int, default=512)
     ap.add_argument('--train-batch', type=int, default=256)
     ap.add_argument('--stem-mode', default='xla', choices=('xla', 'fused'),
@@ -287,6 +347,9 @@ def main():
     if 'serve' in stages:
         traces += serve_stage(dev, card, args.batch, out_dir,
                               args.stem_mode, args.sampler_variant)
+        torch.cuda.empty_cache()
+    if 'decode' in stages:
+        traces += decode_stage(dev, card, args.batch, out_dir)
         torch.cuda.empty_cache()
     if 'train' in stages:
         traces.append(train_stage(dev, card, args.train_batch, out_dir))

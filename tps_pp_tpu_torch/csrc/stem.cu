@@ -22,9 +22,11 @@
 // there (a product over C_in, bias, ReLU, rounding), with a zero column on
 // either side, and then runs the 3x3 as an implicit GEMM: each tap is the
 // same y tile read at a pixel offset of dy*(W+2) + dx, so the nine taps cost
-// no copies. Kernel 11 loads its input straight into that y tile and runs
-// the second stage alone. The halo rows are read by two blocks and their y
-// computed twice ((R+2)/R of the first stage's work, ~1/9 of the second's).
+// no copies. Kernel 11 in float32 loads its input straight into that y tile
+// and runs the second stage alone (in bf16 it has a kernel of its own,
+// conv3x3_band_kernel below). The halo rows are read by two blocks and
+// their y computed twice ((R+2)/R of the first stage's work, ~1/9 of the
+// second's).
 //
 // bf16: the products are mma.sync m16n8k16 (bf16 in, f32 accumulation),
 // pixels as the M dimension and channels as N, so each fragment of a tap is
@@ -51,6 +53,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "ptx.cuh"
 
 namespace {
 
@@ -483,6 +486,284 @@ int launch_stem(const void* src, const void* w1, const float* b1,
                                       C_out, N, H, W, residual, relu, s);
 }
 
+// ---- kernel 11 in bf16: persistent blocks over bands of output rows -------
+// The output rows of the batch are cut into groups: group g is image
+// g / bands and rows h0 .. h0+cnt-1, h0 = (g % bands) * R, cnt =
+// min(R, H - h0). Block b takes groups [b*G/grid, (b+1)*G/grid) and walks
+// them in order. A group needs input rows h0-1 .. h0+cnt (zero outside the
+// image); when the block's previous group is the band above in the same
+// image, its last two are already in shared memory, so a walk reads each
+// input row once, plus two halo rows where it enters an image.
+//
+// Shared memory, bf16 unless noted:
+//   ws   (C_out, 9C + 8): the tap weights, loaded once;
+//   ys   (R + 2, W + 2, C + 8): the pixel-major window, input row h in
+//        slot (h + 1) % (R + 2), columns 0 and W + 1 zero (SAME padding);
+//   os   (C_out, R*W + 8): the group's output, channel-major;
+//   raw  (NR, C, W + 8): a ring of input rows as copied, channel-major;
+//   bar  (NR) mbarriers (uint64), one per raw slot.
+// Row paddings keep ldmatrix / stmatrix free of bank conflicts (8 rows at
+// strides of 16 mod 128 bytes or its odd multiples).
+//
+// The j-th input row the block needs goes to raw slot j % NR: every thread
+// copies its share in 16-byte asynchronous copies (cp.async, neighbouring
+// threads along the pixels of a channel) and arrives on the slot's
+// mbarrier once its copies have landed; for a row outside the image the
+// threads arrive and copy nothing. The block keeps NR rows ahead: after a
+// group's rows have been moved out of the ring, it issues every row up to
+// NR past them. (On the H100 at the flagship's shape: issued by one warp
+// alone, the copies held that warp back from its share of the products,
+// 0.325 against 0.311 ms; as one bulk copy of W*2 bytes per channel,
+// counted on the mbarrier, 0.33 ms, since the SM's copy engine issues
+// 256-byte bulk copies one at a time.)
+//
+// Per group: wait for its rows, transpose each (ldmatrix.trans of 8x8
+// channel-by-pixel blocks, stmatrix into the window: a 16-byte aligned
+// pixel-major row per pixel, which a tap offset of +-1 pixel keeps
+// aligned), sync, issue the next copies, then the 3x3 as an implicit GEMM
+// (mma.sync m16n8k16: 16 pixels of one output row by 8 output channels, K
+// over the 9 taps x C; A by ldmatrix from the window at the tap's pixel
+// offset and row slot, B by ldmatrix from ws), + bias, ReLU, one bf16
+// rounding, stmatrix.trans into os, sync, and 16-byte stores of cnt*W
+// contiguous pixels per output channel.
+constexpr int kConvThreads = 256;
+constexpr int kConvWarps = kConvThreads / 32;
+constexpr int kConvBandPixels = 256;  // output pixels of a group: 2 m tiles
+                                      // a warp
+
+struct ConvSmem {
+  size_t ws, ys, os, raw, bytes;
+  __host__ __device__ ConvSmem(int C, int C_out, int W, int R, int NR) {
+    ws = 0;
+    ys = ws + (size_t)C_out * (9 * C + 8) * 2;
+    os = ys + (size_t)(R + 2) * (W + 2) * (C + 8) * 2;
+    raw = os + (size_t)C_out * (R * W + 8) * 2;
+    bytes = raw + (size_t)NR * C * (W + 8) * 2 + (size_t)NR * 8;
+  }
+};
+
+__global__ void __launch_bounds__(kConvThreads, 2)
+conv3x3_band_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                    const float* __restrict__ b, bf16* __restrict__ out,
+                    int C, int C_out, int N, int H, int W, int R, int NR,
+                    int relu) {
+  extern __shared__ __align__(16) unsigned char conv_smem[];
+  const ConvSmem lay(C, C_out, W, R, NR);
+  bf16* ws = reinterpret_cast<bf16*>(conv_smem + lay.ws);
+  bf16* ys = reinterpret_cast<bf16*>(conv_smem + lay.ys);
+  bf16* os = reinterpret_cast<bf16*>(conv_smem + lay.os);
+  bf16* raw = reinterpret_cast<bf16*>(conv_smem + lay.raw);
+  uint64_t* bar =
+      reinterpret_cast<uint64_t*>(conv_smem + lay.bytes - (size_t)NR * 8);
+  const int KW = 9 * C + 8, SM = C + 8, OS = R * W + 8, RW = W + 8;
+  const int NS = R + 2;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bands = (H + R - 1) / R, G = N * bands;
+  const int gb = (int)((long long)blockIdx.x * G / gridDim.x);
+  const int ge = (int)((long long)(blockIdx.x + 1) * G / gridDim.x);
+  const size_t P = (size_t)N * H * W;
+
+  if (tid == 0) {
+    for (int s = 0; s < NR; ++s) ptx::mbar_init(&bar[s], kConvThreads);
+    ptx::mbar_fence_init();
+  }
+  load_weights(w, C_out, 9 * C, ws);
+  for (int e = tid; e < NS * 2 * C; e += kConvThreads) {
+    const int r = e / (2 * C), side = (e / C) & 1, c = e % C;
+    ys[((size_t)r * (W + 2) + side * (W + 1)) * SM + c] = __float2bfloat16(0.f);
+  }
+  __syncthreads();
+
+  // the rows of group g: the first and how many (fresh: with both halos)
+  auto group_rows = [&](int g, int& n, int& h0, int& cnt, int& first,
+                        int& count) {
+    n = g / bands;
+    h0 = (g % bands) * R;
+    cnt = min(R, H - h0);
+    const bool fresh = g == gb || h0 == 0;
+    first = fresh ? h0 - 1 : h0 + 1;
+    count = cnt + (fresh ? 2 : 0);
+  };
+
+  // the copy state, the same in every thread: the next row to issue is row
+  // pj of group pg, the issued-th of the walk
+  int pg = gb, pj = 0, issued = 0;
+  auto issue_upto = [&](int limit) {
+    while (issued < limit && pg < ge) {
+      int n, h0, cnt, first, count;
+      group_rows(pg, n, h0, cnt, first, count);
+      const int h = first + pj, slot = issued % NR;
+      if (h < 0 || h >= H) {
+        ptx::mbar_arrive(&bar[slot]);
+      } else {
+        const bf16* src = x + ((size_t)n * H + h) * W;
+        bf16* dst = raw + (size_t)slot * C * RW;
+        for (int e = tid; e < C * (W / 8); e += kConvThreads) {
+          const int c = e / (W / 8), v = (e % (W / 8)) * 8;
+          ptx::cp_async16(dst + (size_t)c * RW + v, src + (size_t)c * P + v);
+        }
+        ptx::cp_async_mbar_arrive(&bar[slot]);
+      }
+      ++issued;
+      if (++pj == count) {
+        ++pg;
+        pj = 0;
+      }
+    }
+  };
+  issue_upto(NR);
+
+  const int units = (C / 16) * (W / 16);  // 16x16 transposes of a row
+  int consumed = 0;
+  for (int g = gb; g < ge; ++g) {
+    int n, h0, cnt, first, count;
+    group_rows(g, n, h0, cnt, first, count);
+    // ---- the group's new input rows into the window
+    for (int j = 0; j < count; ++j) {
+      const int i = consumed + j, slot = i % NR, h = first + j;
+      bf16* yrow = ys + (size_t)((h + 1) % NS) * (W + 2) * SM + SM;
+      ptx::mbar_wait(&bar[slot], (uint32_t)((i / NR) & 1));
+      if (h < 0 || h >= H) {
+        for (int e = tid; e < W * (C / 8); e += kConvThreads)
+          *reinterpret_cast<uint4*>(yrow + (size_t)(e / (C / 8)) * SM +
+                                    (e % (C / 8)) * 8) =
+              make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        const bf16* rs = raw + (size_t)slot * C * RW;
+        const int mi = lane >> 3, r8 = lane & 7;
+        for (int u = warp; u < units; u += kConvWarps) {
+          const int c0 = (u % (C / 16)) * 16 + (mi & 1) * 8;
+          const int p0 = (u / (C / 16)) * 16 + (mi >> 1) * 8;
+          uint32_t v[4];
+          ptx::ldsm_x4_t(v, rs + (size_t)(c0 + r8) * RW + p0);
+          ptx::stsm_x4(yrow + (size_t)(p0 + r8) * SM + c0, v);
+        }
+      }
+    }
+    consumed += count;
+    __syncthreads();
+    issue_upto(consumed + NR);
+
+    // ---- the 3x3 of rows h0 .. h0+cnt-1
+    const int nmt = cnt * W / 16;
+    for (int nc0 = 0; nc0 < C_out; nc0 += 32) {
+      const int npair = min(2, (C_out - nc0) / 16);  // pairs of n tiles
+      for (int mt0 = warp * 2; mt0 < nmt; mt0 += 2 * kConvWarps) {
+        const bool two = mt0 + 1 < nmt;
+        float acc[2][4][4] = {};
+        // this lane's A row in each m tile: its pixel in the window rows
+        // of dy = -1, 0, 1, at dx = -1 (taps step from there by SM)
+        const bf16* arow[2][3];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int pix = min(mt0 + i, nmt - 1) * 16 + (lane & 15);
+          const int r = pix / W, col = pix % W;
+#pragma unroll
+          for (int d = 0; d < 3; ++d)
+            arow[i][d] = ys +
+                         ((size_t)((h0 + r + d) % NS) * (W + 2) + col) * SM +
+                         (lane >> 4) * 8;
+        }
+        const bf16* bcol = ws +
+                           (size_t)(nc0 + (lane & 7) + ((lane >> 4) & 1) * 8) *
+                               KW +
+                           ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          const bf16* ap0 = arow[0][tap / 3] + (tap % 3) * SM;
+          const bf16* ap1 = arow[1][tap / 3] + (tap % 3) * SM;
+          const bf16* bp = bcol + tap * C;
+#pragma unroll 2
+          for (int c0 = 0; c0 < C; c0 += 16) {
+            uint32_t a0[4], a1[4];
+            ptx::ldsm_x4(a0, ap0 + c0);
+            ptx::ldsm_x4(a1, ap1 + c0);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              if (j >= npair) break;
+              uint32_t bb[4];
+              ptx::ldsm_x4(bb, bp + (size_t)j * 16 * KW + c0);
+              ptx::mma_bf16(acc[0][2 * j], a0, bb[0], bb[1]);
+              ptx::mma_bf16(acc[0][2 * j + 1], a0, bb[2], bb[3]);
+              ptx::mma_bf16(acc[1][2 * j], a1, bb[0], bb[1]);
+              ptx::mma_bf16(acc[1][2 * j + 1], a1, bb[2], bb[3]);
+            }
+          }
+        }
+        // + bias, ReLU, one rounding; transposed into os
+        const int q = lane & 3, mi = lane >> 3, r8 = lane & 7;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (i == 1 && !two) break;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            if (j >= npair) break;
+            uint32_t v[4];
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              const int nt = 2 * j + (m >> 1), c = nc0 + nt * 8 + 2 * q;
+              float v0 = acc[i][nt][(m & 1) * 2] + b[c];
+              float v1 = acc[i][nt][(m & 1) * 2 + 1] + b[c + 1];
+              if (relu) {
+                v0 = fmaxf(v0, 0.f);
+                v1 = fmaxf(v1, 0.f);
+              }
+              const bf162 h2 = __floats2bfloat162_rn(v0, v1);
+              v[m] = *reinterpret_cast<const uint32_t*>(&h2);
+            }
+            ptx::stsm_x4_t(os + (size_t)(nc0 + j * 16 + (mi >> 1) * 8 + r8) * OS +
+                               (mt0 + i) * 16 + (mi & 1) * 8,
+                           v);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // ---- cnt * W contiguous pixels of every output channel
+    const int vecs = cnt * W / 8;
+    bf16* dst = out + ((size_t)n * H + h0) * W;
+    for (int e = tid; e < C_out * vecs; e += kConvThreads) {
+      const int c = e / vecs, u = e % vecs;
+      *reinterpret_cast<uint4*>(dst + (size_t)c * P + u * 8) =
+          *reinterpret_cast<const uint4*>(os + (size_t)c * OS + u * 8);
+    }
+  }
+}
+
+// The plan of conv3x3_band_kernel on the current device: R output rows a
+// group (kConvBandPixels / W, fewer where the window does not fit), NR raw
+// row slots (at least R + 2, a fresh group's rows; up to twice that), two
+// blocks an SM where their shared memory fits, else one, and no more blocks
+// than groups. cudaErrorInvalidValue where no plan fits.
+int conv3x3_plan(int C, int C_out, int N, int H, int W, int& R, int& NR,
+                 int& blocks, size_t& smem) {
+  int dev, sms, per_sm, per_block, reserved;
+  TPK_TRY((int)cudaGetDevice(&dev));
+  TPK_TRY((int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev));
+  TPK_TRY((int)cudaDeviceGetAttribute(
+      &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev));
+  TPK_TRY((int)cudaDeviceGetAttribute(
+      &per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+  TPK_TRY((int)cudaDeviceGetAttribute(
+      &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev));
+  for (R = std::min(H, std::max(1, kConvBandPixels / W)); R >= 1; --R) {
+    for (int k = 2; k >= 1; --k) {
+      const size_t budget =
+          (size_t)std::min(per_block, per_sm / k - reserved);
+      NR = 2 * (R + 2);
+      while (NR > R + 2 && ConvSmem(C, C_out, W, R, NR).bytes > budget) --NR;
+      smem = ConvSmem(C, C_out, W, R, NR).bytes;
+      if (smem <= budget) {
+        blocks = (int)std::min((long long)N * ((H + R - 1) / R),
+                               (long long)k * sms);
+        return 0;
+      }
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // t (C_in, N*H*W), w1 (C_mid, C_in), wt (C_out, 9*C_mid) of one type (is_bf16:
@@ -501,14 +782,30 @@ extern "C" int tpk_basic_block_cp(const void* t, const void* w1,
 }
 
 // x (C_in, N*H*W), w (C_out, 9*C_in) of one type, b (C_out) f32 -> out.
+// bf16 runs conv3x3_band_kernel as conv3x3_plan plans it (besides the limits
+// above: a plan must fit the shared memory); float32 runs the second stage
+// of kernel 12 on the CUDA cores.
 extern "C" int tpk_conv3x3_cp(const void* x, const void* w, const float* b,
                               void* out, int C_in, int C_out, int N, int H,
                               int W, int relu, int is_bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return is_bf16 ? launch_stem<bf16, false>(x, nullptr, nullptr, w, b, out,
-                                            C_in, C_in, C_out, N, H, W, 0,
-                                            relu, s)
-                 : launch_stem<float, false>(x, nullptr, nullptr, w, b, out,
-                                             C_in, C_in, C_out, N, H, W, 0,
-                                             relu, s);
+  if (!is_bf16)
+    return launch_stem<float, false>(x, nullptr, nullptr, w, b, out, C_in,
+                                     C_in, C_out, N, H, W, 0, relu, s);
+  if (C_in % 16 || C_out % 16 || C_in <= 0 || C_out <= 0 || W % 16 ||
+      W <= 0 || H <= 0 || N <= 0 ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+        reinterpret_cast<uintptr_t>(out)) & 15))
+    return (int)cudaErrorInvalidValue;
+  int R, NR, blocks;
+  size_t smem;
+  TPK_TRY(conv3x3_plan(C_in, C_out, N, H, W, R, NR, blocks, smem));
+  cudaFuncSetAttribute(conv3x3_band_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  TPK_CHECK();
+  conv3x3_band_kernel<<<blocks, kConvThreads, smem, s>>>(
+      (const bf16*)x, (const bf16*)w, b, (bf16*)out, C_in, C_out, N, H, W, R,
+      NR, relu);
+  TPK_CHECK();
+  return 0;
 }

@@ -15,10 +15,11 @@ into the classifier.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from . import _lib
 from .encoder import NEG_INF, ln_norm, mm
@@ -178,6 +179,176 @@ def _check_enc_dtype(enc_dtype: str) -> bool:
 _WEIGHT_ORDER = ('wkv_enc', 'embed', 'pe', 'wqkv', 'bqkv', 'wfc1', 'wq2',
                  'bq2', 'wfc2', 'w1', 'b1', 'w2', 'b2', 'wcls', 'bcls')
 
+# ---- the step products' schedule ------------------------------------------
+# csrc/full_decode.cu's step_gemm_kernel: tiles of GEMM_BM rows and BN in
+# GEMM_BN columns, K split into `splits` parts of a multiple of 16, at most
+# MAX_SPLITS (the parts of a tile are one cluster of blocks; part z starts at
+# z * K / splits); the grid is (N / BN, ceil(M / GEMM_BM), splits).
+GEMM_BM = 64
+GEMM_BN = (64, 32, 16)
+MAX_SPLITS = 8           # the portable cluster size (kMaxSplits)
+MIN_BLOCKS = 132         # the H100's SMs: every product gets at least these
+_RESIDENT = 4            # blocks an SM holds (~39 KB of shared memory each)
+_LATENCY_BYTES = 8192    # what a dependent round trip to memory costs, in
+                         # bytes an SM would stream meanwhile (~1 us)
+
+
+def step_products(d) -> Tuple[Tuple[str, int, int], ...]:
+    """The step products of one layer, in order, as (name, N_out, K)."""
+    D, HD, DI = d['D'], d['HD'], d['DI']
+    return (('qkv', 3 * HD, D), ('fc1', D, HD), ('q2', HD, D),
+            ('fc2', D, HD), ('w1', DI, D), ('w2', D, DI))
+
+
+def gemm_plan(M: int, N: int, K: int) -> Tuple[int, int]:
+    """(BN, splits) of the step GEMM for (M, K) @ (K, N): at least
+    MIN_BLOCKS blocks where some choice gives them, then the least estimated
+    time of the slowest SM, in bytes: each wave of blocks costs a round trip
+    and its A and B loads, and a split tile's blocks then each read their
+    share of every part's partial from the cluster; fewer splits, then wider
+    tiles, on a tie. Splits are powers of two up to MAX_SPLITS with
+    K % (16 * splits) == 0."""
+    m_tiles = -(-M // GEMM_BM)
+    rows = min(M, GEMM_BM)
+    best = None
+    for bn in GEMM_BN:
+        if N % bn:
+            continue
+        tiles = m_tiles * (N // bn)
+        splits = 1
+        while splits <= MAX_SPLITS and K % (16 * splits) == 0:
+            blocks, part = tiles * splits, K // splits
+            waves = -(-blocks // (MIN_BLOCKS * _RESIDENT))
+            cost = waves * (_LATENCY_BYTES + 2 * rows * part + 2 * part * bn)
+            if splits > 1:
+                cost += _LATENCY_BYTES + 4 * rows * bn
+            key = (max(0, MIN_BLOCKS - blocks), cost, splits, -bn)
+            if best is None or key < best[0]:
+                best = (key, (bn, splits))
+            splits *= 2
+    if best is None:
+        raise ValueError(f'gemm_plan: N={N} is not a multiple of 16 or K={K} '
+                         f'of 16')
+    return best[1]
+
+
+# ---- the captured decode ----------------------------------------------------
+# The captured decodes of each weight set, keyed on its QKV weight tensor so
+# that they go with it: for each (device, rows, source tokens, int8 K/V,
+# heads, start, end), one graph. A graph reads every weight through the
+# pointer it was captured with, so an in-place update is served by the next
+# replay, and a weight set with another tensor in its place is captured
+# again.
+_GRAPHS = WeakTensorKeyDictionary()
+
+
+def _weight_ptrs(w: Dict[str, torch.Tensor]) -> tuple:
+    return tuple((w[k].data_ptr(), w[k].shape) for k in _WEIGHT_ORDER)
+
+
+class _DecodeGraph:
+    """The whole decode of one shape, captured once: its static inputs,
+    scratch, outputs and graph. ``run`` copies a call's inputs in, replays
+    the graph and returns (probs, steps run). It holds the weights'
+    pointers, never the tensors, so that the cache entry dies with them."""
+
+    def __init__(self, w, d, N, TE, q8, start_idx, end_idx, dev):
+        L, D, HD, H, DI, S, NC = (d[k] for k in ('L', 'D', 'HD', 'H', 'DI',
+                                                 'S', 'NC'))
+        prods = step_products(d)
+        plan = [gemm_plan(N, n, k) for _, n, k in prods]
+        self.ptrs, self.q8 = _weight_ptrs(w), q8
+        bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+        with torch.inference_mode(False):
+            def empty(shape, dtype):
+                return torch.empty(shape, dtype=dtype, device=dev)
+            # the classifier transposed in the graph: the head reads it a
+            # class row at a time
+            self.wcls_t = empty((NC, D), bf)
+            # (the int8 branch starts from the projection in enc_kv)
+            self.out_enc = None if q8 else empty((N, TE, D), bf)
+            self.src_mask = empty((N, TE), f32)
+            self.enc_kv = empty((N * TE, L * 2 * HD), bf)
+            self.probs = empty((N, S, NC), f32)
+            self.steps_run = empty((1,), i32)
+            # cache, x32, y, qkv, att, hid, tok, finished, remaining
+            self.scratch = [empty((L, N, S, 2 * HD), bf), empty((N, D), f32),
+                            empty((N, D), bf), empty((N, 3 * HD), bf),
+                            empty((N, HD), bf), empty((N, DI), bf),
+                            empty((N,), i32), empty((N,), i32),
+                            empty((1,), i32)]
+            # int8 branch: quantized K/V, per-group absmax bits and scales,
+            # f32 q2
+            self.int8 = ([empty((N * TE, L * 2 * HD), torch.int8),
+                          empty((L * 2 * H,), i32), empty((L * 2 * H,), f32),
+                          empty((N, HD), f32)] if q8 else [])
+            # the gate's flag
+            self.go = empty((1,), i32)
+        self.args = (N, TE, D, H, d['DK'], DI, L, S, NC, start_idx,
+                     -1 if end_idx is None else end_idx)
+        self.c_plan = (ctypes.c_int * 12)(*[v for p in plan for v in p])
+        self.graph = None
+
+    @property
+    def nbytes(self) -> int:
+        """The device memory that the bucket holds: its static inputs,
+        scratch and outputs (the capture allocates nothing)."""
+        return sum(t.numel() * t.element_size() for t in
+                   [self.wcls_t, self.out_enc, self.src_mask, self.enc_kv,
+                    self.probs, self.steps_run, self.go] + self.scratch +
+                   self.int8 if t is not None)
+
+    def _enqueue(self, w, dev):
+        self.wcls_t.copy_(w['wcls'].t())
+        int8 = [t.data_ptr() for t in self.int8] if self.q8 else [None] * 4
+        rc = _lib.load().tpk_full_decode(
+            None if self.q8 else self.out_enc.data_ptr(),
+            self.src_mask.data_ptr(),
+            *(self.wcls_t.data_ptr() if k == 'wcls' else w[k].data_ptr()
+              for k in _WEIGHT_ORDER),
+            self.enc_kv.data_ptr(), *(t.data_ptr() for t in self.scratch),
+            self.probs.data_ptr(), *int8,
+            self.go.data_ptr(), self.steps_run.data_ptr(),
+            self.c_plan, *self.args, _lib.stream_ptr(dev))
+        _lib.check(rc, 'full_decode')
+
+    def _capture(self, w, dev):
+        """A first run on a side stream (it loads the kernels), then the
+        capture."""
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self._enqueue(w, dev)
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self._enqueue(w, dev)
+        self.graph = graph
+        full_decode.captures += 1
+
+    def run(self, out_enc, src_mask, w):
+        if self.q8:
+            # the projection that the JAX package computes outside its
+            # kernel, by the plain version's own op: quantization turns a
+            # one-ulp difference of a K/V value, or of a group's max, into a
+            # whole quantization step, so both paths quantize the same values
+            self.enc_kv.copy_(_project_enc_kv(out_enc, w['wkv_enc']))
+        else:
+            self.out_enc.copy_(out_enc)
+        self.src_mask.copy_(src_mask)
+        if self.graph is None:
+            self._capture(w, out_enc.device)
+        self.graph.replay()
+        return self.probs.clone(), int(self.steps_run.item())
+
+
+def graph_bytes(w: Dict[str, torch.Tensor]) -> Dict[tuple, int]:
+    """The device memory that each captured decode of the weights ``w``
+    holds, by its key (device, rows, source tokens, int8 K/V, heads, start,
+    end)."""
+    return {k: g.nbytes for k, g in _GRAPHS.get(w['wqkv'], {}).items()}
+
 
 def full_decode(out_enc: torch.Tensor, src_mask: torch.Tensor,
                 w: Dict[str, torch.Tensor], n_head: int, start_idx: int,
@@ -185,8 +356,12 @@ def full_decode(out_enc: torch.Tensor, src_mask: torch.Tensor,
                 enc_dtype: str = 'bfloat16') -> torch.Tensor:
     """The kernels on CUDA tensors (bf16 encoder output and weights), the
     plain version on CPU tensors. Same arguments as
-    :func:`full_decode_plain`. ``launches`` counts the bf16 branch's calls,
-    ``launches_int8`` the int8 branch's."""
+    :func:`full_decode_plain`. The decode of a shape is captured as a CUDA
+    graph at its first call for a weight set and replayed from then on
+    (``_GRAPHS``).
+    ``launches`` counts the bf16 branch's calls, ``launches_int8`` the int8
+    branch's, ``captures`` the graphs captured; ``last_steps`` is the steps
+    the last call ran."""
     if out_enc.device.type == 'cpu':
         return full_decode_plain(out_enc, src_mask, w, n_head, start_idx,
                                  end_idx, enc_dtype)
@@ -212,56 +387,32 @@ def full_decode(out_enc: torch.Tensor, src_mask: torch.Tensor,
         'w1': (w['w1'], (L, D, DI), bf), 'b1': (w['b1'], (L, DI), f32),
         'w2': (w['w2'], (L, DI, D), bf), 'b2': (w['b2'], (L, D), f32),
         'wcls': (w['wcls'], (D, NC), bf), 'bcls': (w['bcls'], (NC,), f32)})
-    if DK != 64 or D % 64 or DI % 64 or S > 256 or TE > 256 \
-            or (D + NC) * 4 > 48 * 1024:
+    if DK != 64 or D % 64 or DI % 64 or D > 1024 or S > 256 or TE > 256 \
+            or N < 1 or TE < 1 or (D + NC) * 4 > 48 * 1024:
         raise ValueError(f'full_decode: needs d_k == 64, d_model and d_inner '
-                         f'multiples of 64, at most 256 steps and source '
-                         f'tokens; got d_k={DK}, D={D}, DI={DI}, S={S}, '
+                         f'multiples of 64, d_model <= 1024, at most 256 '
+                         f'steps and source tokens, at least one row and '
+                         f'token; got d_k={DK}, D={D}, DI={DI}, S={S}, N={N}, '
                          f'TE={TE}')
-    i32 = torch.int32
-
-    def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    if q8:
-        # the projection that the JAX package computes outside its kernel,
-        # by the plain version's own op: quantization turns a one-ulp
-        # difference of a K/V value, or of a group's max, into a whole
-        # quantization step, so both paths quantize the same values
-        enc_kv = _project_enc_kv(out_enc, w['wkv_enc'])
-    else:
-        enc_kv = empty((N * TE, L * 2 * HD), bf)
-    cache = empty((L, N, S, 2 * HD), bf)
-    x32, y = empty((N, D), f32), empty((N, D), bf)
-    qkv, att, hid = empty((N, 3 * HD), bf), empty((N, HD), bf), \
-        empty((N, DI), bf)
-    tok, finished, remaining = empty((N,), i32), empty((N,), i32), \
-        empty((1,), i32)
-    probs = empty((N, S, NC), f32)
-    # int8 branch: quantized K/V, per-group absmax bits and scales, f32 q2
-    int8_scratch = ((empty((N * TE, L * 2 * HD), torch.int8),
-                     empty((L * 2 * H,), i32), empty((L * 2 * H,), f32),
-                     empty((N, HD), f32)) if q8 else None)
-    ptrs = ([t.data_ptr() for t in int8_scratch] if q8 else [None] * 4)
-    steps_run = ctypes.c_int(0)
-    rc = _lib.load().tpk_full_decode(
-        out_enc.data_ptr(), src_mask.data_ptr(),
-        *(w[k].data_ptr() for k in _WEIGHT_ORDER),
-        enc_kv.data_ptr(), cache.data_ptr(), x32.data_ptr(), y.data_ptr(),
-        qkv.data_ptr(), att.data_ptr(), hid.data_ptr(), tok.data_ptr(),
-        finished.data_ptr(), remaining.data_ptr(), probs.data_ptr(), *ptrs,
-        N, TE, D, H, DK, DI, L, S, NC, start_idx,
-        -1 if end_idx is None else end_idx,
-        ctypes.addressof(steps_run), _lib.stream_ptr(dev))
-    _lib.check(rc, 'full_decode')
+    key = (dev, N, TE, q8, n_head, start_idx, end_idx)
+    graphs = _GRAPHS.setdefault(w['wqkv'], {})
+    g = graphs.get(key)
+    if g is None or g.ptrs != _weight_ptrs(w):
+        # another tensor in a weight's place: the old bucket goes before the
+        # new one is allocated
+        graphs.pop(key, None)
+        g = None
+        g = graphs[key] = _DecodeGraph(w, d, N, TE, q8, start_idx, end_idx,
+                                       dev)
+    probs, full_decode.last_steps = g.run(out_enc, src_mask, w)
     if q8:
         full_decode.launches_int8 += 1
     else:
         full_decode.launches += 1
-    full_decode.last_steps = steps_run.value
     return probs
 
 
 full_decode.launches = 0
 full_decode.launches_int8 = 0
+full_decode.captures = 0
 full_decode.last_steps = 0
