@@ -162,6 +162,43 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def transformer_encoder_yardstick(enc, dtype):
+    """One ``nn.TransformerEncoder`` with the weights of the port's
+    ``NRTREncoder`` ``enc``: pre-norm layers, erf-GELU, the attention's
+    biases zero (NRTR's projections have none), the final LayerNorm; in
+    eval mode and ``dtype`` on enc's device. It computes kernel 3's
+    function (the mask as ``src_key_padding_mask``, True where a key is
+    masked) and is its library yardstick: timed beside it, never called by
+    the port. Needs n_head * d_k == d_model, as nn.MultiheadAttention."""
+    import torch
+    from torch import nn
+    first = enc.layer_stack[0]
+    D = first.norm1.normalized_shape[0]
+    te = nn.TransformerEncoder(
+        nn.TransformerEncoderLayer(
+            D, enc.n_head, first.mlp.w_1.out_features, dropout=0.0,
+            activation='gelu', layer_norm_eps=1e-5, batch_first=True,
+            norm_first=True),
+        len(enc.layer_stack), norm=nn.LayerNorm(D, eps=1e-5),
+        enable_nested_tensor=False)
+    with torch.no_grad():
+        for src, dst in zip(enc.layer_stack, te.layers):
+            a = src.attn
+            dst.self_attn.in_proj_weight.copy_(torch.cat(
+                [a.linear_q.weight, a.linear_k.weight, a.linear_v.weight]))
+            dst.self_attn.in_proj_bias.zero_()
+            dst.self_attn.out_proj.weight.copy_(a.fc.weight)
+            dst.self_attn.out_proj.bias.zero_()
+            for d, m in ((dst.linear1, src.mlp.w_1), (dst.linear2,
+                                                      src.mlp.w_2),
+                         (dst.norm1, src.norm1), (dst.norm2, src.norm2)):
+                d.weight.copy_(m.weight)
+                d.bias.copy_(m.bias)
+        te.norm.weight.copy_(enc.layer_norm.weight)
+        te.norm.bias.copy_(enc.layer_norm.bias)
+    return te.to(enc.layer_norm.weight.device, dtype).eval()
+
+
 def first_divergence(kernel_probs, plain_probs):
     """Per row: (first step whose argmax differs or None, plain top-2 gap
     there)."""
@@ -700,8 +737,11 @@ def main():
                                                   cross_ffn_step_plain,
                                                   self_attn_step,
                                                   self_attn_step_plain)
-    from tps_pp_tpu_torch.ops.encoder import (encoder_forward,
+    from tps_pp_tpu_torch.ops.encoder import (encoder_attention,
+                                              encoder_attention_plain,
+                                              encoder_forward,
                                               encoder_forward_plain)
+    from tps_pp_tpu_torch.ops.gemm import gemm, gemm_plain
     from tps_pp_tpu_torch.ops.full_decode import (_dims, full_decode,
                                                   full_decode_plain,
                                                   graph_bytes)
@@ -855,14 +895,90 @@ def main():
                              f'{ENCODER_ATOL} rtol {ENCODER_RTOL}')
     Le, De, HDe = w_enc['wqkv'].shape[0], 512, w_enc['wfc'].shape[1]
     DIe = w_enc['w1'].shape[2]
+    # the library yardstick: nn.TransformerEncoder with the same weights
+    te = transformer_encoder_yardstick(model.encoder, bf)
+    pad = mask <= 0
+
+    def te_call():
+        with torch.no_grad():
+            return te(x, src_key_padding_mask=pad)
+
+    err_te = float((te_call().float() - enc_p.float()).abs().max())
+    # the encoder's four products and its attention on the products' matmul
+    # (bf16) rate; the attention's score and weighted sum are bf16 products
+    # too (tps_pp_tpu/ops/pallas_encoder.py:56-70 rounds their operands)
     record('encoder', 'tps_pp_tpu_torch/csrc/encoder.cu',
            'tps_pp_tpu/ops/pallas_encoder.py:178',
            lambda: encoder_forward(x, mask, w_enc, 8),
            lambda: encoder_forward_plain(x, mask, w_enc, 8), err, 5,
            nbytes(x, mask, enc_k, *w_enc.values()),
            bf16_flops=2 * B * 64 * Le * (De * 3 * HDe + HDe * De +
-                                         2 * De * DIe),
-           f32_flops=4 * B * 8 * 64 * 64 * 64 * Le)
+                                         2 * De * DIe) +
+           4 * B * 8 * 64 * 64 * 64 * Le, fn_lib=te_call)
+    feat_enc = x.reshape(B, 4, 16, De)
+
+    def module_call():
+        with torch.no_grad():
+            return model.encoder(feat_enc, vr)
+
+    ms_mod = cuda_ms(module_call, 5)
+    log(f'encoder, module path (cuBLAS products, f32 attention): '
+        f'{ms_mod:.4f} ms; nn.TransformerEncoder max abs difference from '
+        f'the plain version {err_te:.4g} [{name}]')
+    del te
+
+    # ---- kernel 3's parts alone at its shapes: the GEMM with each
+    # product's epilogue (and the whole decode's K/V projection), the
+    # attention with a fully masked image ------------------------------------
+    Me = B * 64
+    y_e = torch.from_numpy(g.standard_normal((Me, De)).astype(
+        np.float32)).to(dev, bf)
+    x32_e = torch.from_numpy(g.standard_normal((Me, De)).astype(
+        np.float32)).to(dev)
+    wkv = model.decoder.packed_weights(bf)['wkv_enc']
+    parts = (('QKV', y_e, w_enc['wqkv'][0], dict(bias=w_enc['bqkv'][0])),
+             ('fc', y_e, w_enc['wfc'][0],
+              dict(residual=x32_e, out_dtype=f32, ln=True)),
+             ('W1', y_e, w_enc['w1'][0], dict(bias=w_enc['b1'][0],
+                                                gelu=True)),
+             ('W2', y_e[:, :DIe].contiguous(), w_enc['w2'][Le - 1],
+              dict(bias=w_enc['b2'][Le - 1], residual=x32_e, out_dtype=f32,
+                   ln=True, ln_s=w_enc['lnf_s'], ln_b=w_enc['lnf_b'])),
+             ('decode K/V projection', y_e, wkv, {}))
+    for what, a_, b_, kw in parts:
+        got = gemm(a_, b_, **kw)
+        want = gemm_plain(a_, b_, **kw)
+        torch.cuda.synchronize()
+        errs = [check_close(f'gemm {what}', gt, wt,
+                            (1e-3, 1e-4) if gt.dtype == f32
+                            else (2e-2, 2 ** -7))
+                for gt, wt in zip(*((got, want) if kw.get('ln')
+                                    else ((got,), (want,))))]
+        ms_k = cuda_ms(lambda: gemm(a_, b_, **kw), 10)
+        ms_t = cuda_ms(lambda: a_ @ b_, 10)
+        Nn, Kk = b_.shape[1], b_.shape[0]
+        bmin, by = bound(nbytes(a_, b_, got if not kw.get('ln') else got[0],
+                                *(t for t in kw.values()
+                                  if isinstance(t, torch.Tensor))),
+                         2 * Me * Nn * Kk)
+        log(f'gemm {what} ({Me} x {Nn} x {Kk}): max abs errors '
+            f'{", ".join(f"{e:.4g}" for e in errs)}; {ms_k:.4f} ms kernel, '
+            f'{ms_t:.4f} ms torch.matmul (product only), bound {bmin:.4f} '
+            f'ms ({by}) [{name}]')
+    qkv_e = torch.from_numpy(g.standard_normal((Me, 3 * HDe)).astype(
+        np.float32)).to(dev, bf)
+    mask_e = mask.clone()
+    mask_e[1] = 0.0
+    att_k = encoder_attention(qkv_e, mask_e, 8)
+    err_a = check_close('encoder attention', att_k,
+                        encoder_attention_plain(qkv_e, mask_e, 8),
+                        (2e-2, 2 ** -7))
+    ms_a = cuda_ms(lambda: encoder_attention(qkv_e, mask_e, 8), 10)
+    bmin, by = bound(nbytes(qkv_e, mask_e, att_k), 4 * B * 8 * 64 ** 3)
+    log(f'encoder attention (B={B}, one layer; image 1 fully masked): max '
+        f'abs error {err_a:.4g}; {ms_a:.4f} ms kernel, bound {bmin:.4f} ms '
+        f'({by}) [{name}]')
+    del y_e, x32_e, qkv_e, att_k, got, want
 
     # ---- kernels 4 and 5: whole greedy decode, one captured CUDA graph, at
     # N=64 (listed) and at the serving batch, bf16 and int8 encoder K/V ----

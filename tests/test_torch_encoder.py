@@ -4,9 +4,19 @@
   whole-encoder Pallas kernel in interpret mode, at atol 2e-5 / rtol 1e-4,
   the JAX kernel's own contract (tests/test_pallas_encoder.py).
 * The module path against the XLA ``NRTREncoder``, same tolerance.
+* The fused path on a batch with an image whose keys are all masked
+  (valid ratio 0) against the XLA encoder, which attends within each
+  image. Not against the Pallas kernel: its block-diagonal mask sets every
+  score of such an image to -1e9, so the image's softmax spreads over the
+  other images of its block (a fault of the JAX package, ROADMAP.md
+  queue 3).
+* ``chip_smoke.py``'s library yardstick for kernel 3, an
+  ``nn.TransformerEncoder`` loaded with the module's weights, against the
+  fused path's plain version.
 
 valid_ratio < 1 makes the flattened-token ceil mask matter.
 """
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -92,6 +102,39 @@ def test_module_path_matches_xla_encoder(models, masked):
         got = enc(torch.from_numpy(feat),
                   None if vr is None else torch.from_numpy(vr))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize('n', [6, 3])
+def test_fused_path_attends_within_each_image(models, n):
+    """Image 1 has valid ratio 0: every key masked, so its softmax is
+    uniform over its own 64 keys, as in the XLA encoder."""
+    jenc, v, enc, feat, vr = models
+    feat, vr = feat[:n], vr[:n].copy()
+    vr[1] = 0.0
+    want = np.asarray(jenc.apply(v, jnp.asarray(feat),
+                                 valid_ratio=jnp.asarray(vr)))
+    with torch.no_grad():
+        got = enc(torch.from_numpy(feat), torch.from_numpy(vr), fused=True)
+    assert not bool(sequence_mask(torch.from_numpy(vr), 32)[1].any())
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize('masked', [True, False])
+def test_transformer_encoder_yardstick_computes_the_same(models, masked):
+    """The yardstick that chip_smoke.py times beside kernel 3 computes the
+    fused path's function: float32, tiny width, valid ratios > 0 (its
+    softmax of a fully masked row is NaN)."""
+    _, _, enc, feat, vr = models
+    n = feat.shape[0]
+    x = torch.from_numpy(feat).reshape(n, 32, 64)
+    mask = sequence_mask(torch.from_numpy(vr) if masked else None, 32)
+    te = chip_smoke.transformer_encoder_yardstick(enc, torch.float32)
+    with torch.no_grad():
+        got = te(x, src_key_padding_mask=None if mask is None
+                 else mask <= 0)
+    want = encoder_forward_plain(x, mask, enc.folded_weights(torch.float32),
+                                 DIMS['n_head'])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 def test_folded_weights_cached_until_reload(models):

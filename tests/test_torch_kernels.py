@@ -19,9 +19,13 @@ from tps_pp_tpu_torch.ops.decode_step import (cross_ffn_step,
                                               cross_ffn_step_plain,
                                               self_attn_step,
                                               self_attn_step_plain)
-from tps_pp_tpu_torch.ops.encoder import encoder_forward, encoder_forward_plain
+from tps_pp_tpu_torch.ops.encoder import (encoder_attention,
+                                          encoder_attention_plain,
+                                          encoder_forward,
+                                          encoder_forward_plain)
 from tps_pp_tpu_torch.ops.full_decode import (full_decode, full_decode_plain,
                                               graph_bytes)
+from tps_pp_tpu_torch.ops.gemm import gemm, gemm_plain
 from tps_pp_tpu_torch.ops.grid_sample import (
     GridSampleFunction, grid_sample_forward, grid_sample_grad,
     grid_sample_grad_img, grid_sample_grad_img_plain, grid_sample_grad_plain,
@@ -60,11 +64,20 @@ def _sampler_args(device, N=4, dtype=BF):
     return args
 
 
-def _encoder_args(device):
+def _encoder_args(device, N=4):
+    """The flagship encoder's folded weights and N images of tokens; N=4
+    has valid ratios 1, 0.5, 0.3, 0.9, any other N seeded ones in
+    [0.3, 1] with the second image's keys all masked (ratio 0)."""
     torch.manual_seed(0)
     enc = NRTREncoder().to(device, BF)
-    x = torch.randn((4, 64, 512), generator=torch.Generator().manual_seed(0))
-    mask = sequence_mask(torch.tensor([1.0, 0.5, 0.3, 0.9]), 64)
+    x = torch.randn((N, 64, 512), generator=torch.Generator().manual_seed(0))
+    if N == 4:
+        vr = torch.tensor([1.0, 0.5, 0.3, 0.9])
+    else:
+        vr = torch.from_numpy(np.random.default_rng(N).uniform(
+            0.3, 1.0, N).astype(np.float32))
+        vr[1:2] = 0.0
+    mask = sequence_mask(vr, 64)
     return x.to(device, BF), mask.to(device), enc.folded_weights(BF)
 
 
@@ -127,7 +140,8 @@ def _block_args(device, cin, cmid, cout, N=2, H=32, W=128, dtype=BF,
 
 
 @pytest.mark.parametrize('op', ['tps_sampler', 'tps_sampler_twostage',
-                                'tps_grid_sample_fused', 'encoder',
+                                'tps_grid_sample_fused', 'encoder', 'gemm',
+                                'encoder_attention',
                                 'full_decode', 'full_decode_int8',
                                 'self_attn_step', 'cross_ffn_step',
                                 'grid_sample_forward', 'grid_sample_grad',
@@ -153,6 +167,13 @@ def test_wrappers_refuse_non_cuda_devices(op):
             basic_block_cp(*_block_args(meta, 32, 32, 32, N=1), H=32, W=128)
         elif op == 'encoder':
             encoder_forward(*_encoder_args(meta), 8)
+        elif op == 'gemm':
+            gemm(torch.zeros((64, 64), dtype=BF, device=meta),
+                 torch.zeros((64, 128), dtype=BF, device=meta))
+        elif op == 'encoder_attention':
+            encoder_attention(torch.zeros((64, 3 * 512), dtype=BF,
+                                          device=meta),
+                              torch.ones((1, 64), device=meta), 8)
         elif op.startswith('full_decode'):
             full_decode(*_decoder_args(meta), 8, 91, 91,
                         enc_dtype='int8' if op.endswith('int8')
@@ -381,13 +402,106 @@ def test_predict_fused_stem(cuda_device):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
+# the GEMM's products of the main path, (N, K) at the flagship's widths:
+# the encoder's QKV, fc, W1, W2 and the whole decode's encoder K/V
+# projection, each with the epilogue its caller gives it
+_GEMM_CASES = {
+    'qkv': (1536, 512, dict(bias=True)),
+    'fc': (512, 512, dict(residual=True, out_dtype=torch.float32, ln=True)),
+    'w1': (256, 512, dict(bias=True, gelu=True)),
+    'w2': (512, 256, dict(bias=True, residual=True,
+                          out_dtype=torch.float32, ln=True)),
+    'w2_final': (512, 256, dict(bias=True, residual=True,
+                                out_dtype=torch.float32, ln=True,
+                                affine=True)),
+    'kv_projection': (6144, 512, dict()),
+    'f32_residual': (768, 256, dict(bias=True, residual=True,
+                                    out_dtype=torch.float32)),
+}
+
+
 @pytest.mark.requires_cuda
-def test_encoder_kernel(cuda_device):
+@pytest.mark.parametrize('M', [64, 192, 4096])
+@pytest.mark.parametrize('case', sorted(_GEMM_CASES))
+def test_gemm_kernel(cuda_device, case, M):
+    """The tensor-core GEMM against the plain product on the same bf16
+    operands, at the main path's (N, K) and each epilogue; M = 64 and 192
+    leave the last 128-row tile half empty. f32 outputs differ by the sum's
+    order (1e-4 at magnitude 1); bf16 ones by one rounding (two ulps)."""
+    N, K, opt = _GEMM_CASES[case]
+    g = torch.Generator().manual_seed(M + N + K)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(cuda_device)
+
+    a = r(M, K).to(BF)
+    b = r(K, N, scale=K ** -0.5).to(BF)
+    kw = dict(out_dtype=opt.get('out_dtype', BF), gelu=opt.get('gelu', False),
+              ln=opt.get('ln', False))
+    if opt.get('bias'):
+        kw['bias'] = r(N, scale=0.5)
+    if opt.get('residual'):
+        kw['residual'] = r(M, N)
+    if opt.get('affine'):
+        kw['ln_s'], kw['ln_b'] = r(N, scale=0.5) + 1.0, r(N, scale=0.2)
+    before = gemm.launches
+    got = gemm(a, b, **kw)
+    want = gemm_plain(a, b, **kw)
+    torch.cuda.synchronize()
+    assert gemm.launches == before + 1
+    if not kw['ln']:
+        got, want = (got,), (want,)
+    for gt, wt in zip(got, want):
+        if gt.dtype == torch.float32:
+            torch.testing.assert_close(gt, wt, atol=1e-4, rtol=1e-4)
+        else:
+            torch.testing.assert_close(gt.float(), wt.float(), atol=2e-2,
+                                       rtol=2 ** -7)
+
+
+@pytest.mark.requires_cuda
+def test_gemm_kernel_refuses_its_limits(cuda_device):
+    a = torch.zeros((64, 64), dtype=BF, device=cuda_device)
+    with pytest.raises(ValueError, match='outside the kernel'):
+        gemm(a, torch.zeros((64, 384), dtype=BF, device=cuda_device))
+    with pytest.raises(ValueError, match='outside the kernel'):
+        gemm(a, torch.zeros((64, 256), dtype=BF, device=cuda_device),
+             out_dtype=torch.float32, ln=True)
+    with pytest.raises(ValueError, match='outside the kernel'):
+        gemm(torch.zeros((64, 32), dtype=BF, device=cuda_device),
+             torch.zeros((32, 128), dtype=BF, device=cuda_device))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('N', [1, 3, 64])
+def test_encoder_attention_kernel(cuda_device, N):
+    """The attention kernel against its plain version at the flagship's
+    width, with masks that include an image with every key masked (uniform
+    weights over its own keys). Both round p and the output to bf16 at the
+    same points: two ulps, 2e-2 absolute near 0."""
+    g = torch.Generator().manual_seed(N)
+    qkv = torch.randn((N * 64, 3 * 512), generator=g).to(cuda_device, BF)
+    vr = torch.rand((N,), generator=g) * 0.7 + 0.3
+    vr[N // 2] = 0.0
+    mask = sequence_mask(vr, 64).to(cuda_device)
+    assert not bool(mask[N // 2].any())
+    before = encoder_attention.launches
+    got = encoder_attention(qkv, mask, 8)
+    want = encoder_attention_plain(qkv, mask, 8)
+    torch.cuda.synchronize()
+    assert encoder_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2 ** -7)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('N', [1, 3, 4, 64, 512])
+def test_encoder_kernel(cuda_device, N):
     """Both versions round to bf16 at the same points; an f32 sum in
     another order moves a rounding by one ulp now and then, which drifts
     through six layers: eight bf16 ulps, absolute at magnitude 1 and
     relative above."""
-    x, mask, w = _encoder_args(cuda_device)
+    x, mask, w = _encoder_args(cuda_device, N)
     before = encoder_forward.launches
     got = encoder_forward(x, mask, w, 8)
     want = encoder_forward_plain(x, mask, w, 8)

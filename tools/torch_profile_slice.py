@@ -2,7 +2,8 @@
 """Where the time goes in the PyTorch port's serving path and training step,
 on one CUDA GPU.
 
-    python tools/torch_profile_slice.py [--stages serve,train,decode]
+    python tools/torch_profile_slice.py
+        [--stages serve,train,decode,encoder,predict]
         [--batch 512]
         [--train-batch 256] [--stem-mode xla|fused]
         [--sampler-variant dense|twostage] [--trace DIR]
@@ -24,13 +25,24 @@ Builds the full-width NRTR + TPS++ flagship with seeded random weights.
   ``sample_mode='pallas'`` reads it from ``TPS_SAMPLER_VARIANT``).
 * ``decode`` (bf16): the whole decode alone at the batch, bf16 and int8
   encoder K/V, no exit: its time, then a profile of each, its
-  device time by part (GEMM, attention, head, gate + embed; LayerNorm and
+  device time by part (the encoder K/V projection, the step GEMMs,
+  attention, head, gate + embed; LayerNorm and
   the int8 quantization where they run apart) and its idle share. With
   dependent launch a kernel starts before the one it follows ends, so its
   interval holds its wait and the parts add up to more than the busy
   time. It reads the kernels of an earlier tree of the port too, so that
   the same file run from a parent's checkout gives the before of a
   change.
+* ``predict`` (bf16): ``predict`` on the kernel path in ``fused40_bf16``
+  and ``fused40`` alone, CUDA events, mean of 5 batches: the main path's
+  end-to-end time, quick enough to run in turns against a parent's tree.
+* ``encoder`` (bf16): kernel 3 (the whole encoder) alone at the batch,
+  beside the module encoder, with CUDA events; then a profile of kernel 3:
+  its device time by part (each of the four products of a layer, QKV, fc,
+  W1 and W2, told apart by their order of launch; the attention;
+  LayerNorm, with or without the bf16 to f32 cast, and the cast where
+  they run apart), launches and idle share. Like ``decode`` it reads an
+  earlier tree's kernels too.
 * ``train`` (f32 parameters and Adam state, bf16 autocast, dropout 0.1,
   Adam at 1e-4 with grad clip 5.0, random DICT90 labels): times the
   forward (``compute_loss``), the backward and the optimizer step of a
@@ -127,7 +139,8 @@ def profiled(fn, what, card, out_dir):
 
 # the whole decode's kernels by part, matched on their names (the card's
 # kernels of this tree or of an earlier one, so that one tool reads both)
-DECODE_PARTS = (('GEMM', ('step_gemm', 'gemm_bf16')),
+DECODE_PARTS = (('K/V projection', ('gemm_bf16', 'wgmma_gemm')),
+                ('GEMM', ('step_gemm',)),
                 ('attention', ('attend',)),
                 ('head', ('decode_head',)),
                 ('gate + embed', ('embed',)),
@@ -173,6 +186,80 @@ def decode_stage(dev, card, B, out_dir):
                 flush=True)
             traces.append(trace)
     return traces
+
+
+# kernel 3's kernels by part, matched on their names (this tree's or an
+# earlier one's); the products run in the order QKV, fc, W1, W2 each layer
+ENCODER_PRODUCTS = ('QKV', 'fc', 'W1', 'W2')
+ENCODER_PARTS = (('GEMM', ('gemm',)), ('attention', ('attn',)),
+                 ('LayerNorm', ('layernorm', 'ln_rows')),
+                 ('cast', ('bf16_to_f32',)))
+
+
+def encoder_stage(dev, card, B, out_dir):
+    """Kernel 3 alone at ``B`` images beside the module encoder, then its
+    device time by part: each product (the GEMM launches in order of
+    launch, four a layer), the attention, LayerNorm and the cast where
+    they run apart; launches and the idle share of its kernel window."""
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import build_recognizer, nrtr_tps_pp_cfg
+    rec = build_recognizer(nrtr_tps_pp_cfg(dtype='bfloat16'), device=dev)
+    rec.init_weights(0)
+    m = rec.model
+    img = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (B, 32, 128, 3)).astype(np.float32)).to(dev, torch.bfloat16)
+    vr = torch.ones(B, device=dev)
+    with torch.inference_mode():
+        feat = m.extract_feat(img)
+        for what, fn in (
+                ('kernel 3', lambda: m.encoder(feat, vr, fused=True)),
+                ('module encoder', lambda: m.encoder(feat, vr))):
+            print(f'encoder {what:15s} {cuda_ms(fn, 10):9.3f} ms (B={B}) '
+                  f'[{card}]', flush=True)
+        trace = profiled(lambda: m.encoder(feat, vr, fused=True),
+                         'encoder kernel 3', card, out_dir)
+    window, busy, _ = kernel_table(trace)
+    with open(trace) as f:
+        events = sorted((e for e in json.load(f)['traceEvents']
+                         if e.get('ph') == 'X' and e.get('cat') == 'kernel'),
+                        key=lambda e: e['ts'])
+    parts = collections.OrderedDict(
+        [(f'GEMM {p}', [0.0, 0]) for p in ENCODER_PRODUCTS] +
+        [(p, [0.0, 0]) for p, _ in ENCODER_PARTS[1:]] + [('other', [0.0, 0])])
+    n_gemm = 0
+    for e in events:
+        part = next((p for p, keys in ENCODER_PARTS
+                     if any(k in e['name'] for k in keys)), 'other')
+        if part == 'GEMM':
+            part = f'GEMM {ENCODER_PRODUCTS[n_gemm % 4]}'
+            n_gemm += 1
+        parts[part][0] += e['dur'] / 1e3
+        parts[part][1] += 1
+    print(f'encoder kernel 3 by part (B={B}): ' + '; '.join(
+        f'{p} {ms:.3f} ms in {n}' for p, (ms, n) in parts.items() if n) +
+        f'; {len(events)} launches, busy {busy:.3f} ms, idle share '
+        f'{1 - busy / window:.4f} [{card}]', flush=True)
+    return [trace]
+
+
+def predict_stage(dev, card, B):
+    """``predict`` of a batch of ``B`` crops in ``fused40_bf16`` and
+    ``fused40`` on the kernel path: ms a batch and images/s."""
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import build_recognizer, nrtr_tps_pp_cfg
+    rec = build_recognizer(nrtr_tps_pp_cfg(dtype='bfloat16',
+                                           decode_mode='auto'), device=dev)
+    rec.init_weights(0)
+    img = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (B, 32, 128, 3)).astype(np.float32)).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        for mode in ('fused40_bf16', 'fused40'):
+            rec.decode_mode = mode
+            ms = cuda_ms(lambda: rec.predict(img), 5)
+            print(f'predict {mode:12s} {ms:9.3f} ms, {B / ms * 1e3:.1f} '
+                  f'images/s (B={B}, mean of 5) [{card}]', flush=True)
 
 
 def serve_stage(dev, card, B, out_dir, stem_mode, variant):
@@ -320,7 +407,8 @@ def train_stage(dev, card, B, out_dir):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--stages', default='serve,train',
-                    help='comma-separated: serve, train, decode')
+                    help='comma-separated: serve, train, decode, encoder, '
+                    'predict')
     ap.add_argument('--batch', type=int, default=512)
     ap.add_argument('--train-batch', type=int, default=256)
     ap.add_argument('--stem-mode', default='xla', choices=('xla', 'fused'),
@@ -347,6 +435,12 @@ def main():
     if 'serve' in stages:
         traces += serve_stage(dev, card, args.batch, out_dir,
                               args.stem_mode, args.sampler_variant)
+        torch.cuda.empty_cache()
+    if 'predict' in stages:
+        predict_stage(dev, card, args.batch)
+        torch.cuda.empty_cache()
+    if 'encoder' in stages:
+        traces += encoder_stage(dev, card, args.batch, out_dir)
         torch.cuda.empty_cache()
     if 'decode' in stages:
         traces += decode_stage(dev, card, args.batch, out_dir)

@@ -138,19 +138,3 @@ static __device__ __forceinline__ void warp_sample_pixel(
            t.w00 * a.y + t.w01 * b.y + t.w10 * c.y + t.w11 * d.y);
   }
 }
-
-// Host launchers defined in encoder.cu and reused by full_decode.cu.
-// C[M,N] = epilogue(A[M,K] @ B[K,N]): bf16 operands, f32 accumulation;
-// epilogue = (+bias[N]) -> (erf-GELU) -> (residual[M,N] +) -> f32 or bf16.
-// `residual` may alias C (in-place residual add). Needs K % 32 == 0,
-// N % 64 == 0, lda/ldb % 8 == 0 and 16-byte aligned A/B.
-int tpk_launch_gemm(const bf16* A, int lda, const bf16* B, int ldb, void* C,
-                    int ldc, int M, int N, int K, const float* bias,
-                    const float* residual, int ldr, int gelu, int out_bf16,
-                    cudaStream_t stream);
-// Row LayerNorm of f32 rows: (x - mean) * rsqrt(var + eps), then the affine
-// when scale/bias are given; output f32 or bf16.
-int tpk_launch_layernorm(const float* x, int ldx, void* y, int ldy, int M,
-                         int D, float eps, const float* scale,
-                         const float* bias, int out_bf16,
-                         cudaStream_t stream);

@@ -25,8 +25,9 @@
 // traffic of an in-place slot update, which is what made them lose to
 // XLA's loop at large batch on the TPU (tps_pp_tpu/apis/flagship.py:53-58).
 // Here each entry point is a few launches: a LayerNorm that also keeps the
-// f32 copy of x, the WMMA GEMM of encoder.cu with its fused epilogues (bias,
-// GELU, residual, f32 or bf16 out), and one attention kernel for both, one
+// f32 copy of x, a WMMA GEMM with fused epilogues (bias, GELU, residual,
+// f32 or bf16 out; 64 x 64 tiles, unpipelined: these products have N <= 512
+// rows), and one attention kernel for both, one
 // warp per (row, head) (d_k = 64: two dims per lane; scores of a warp in
 // shared memory). The self-attention reads slots 0..t-1 and writes slot t
 // only.
@@ -38,9 +39,159 @@
 // Both are far below that in this first version: each is 4-7 launches of
 // a few microseconds, the attention's key loop is serial within a warp,
 // and the host loop of the `steps` decode issues 2 x 6 of them per step.
+#include <mma.h>
+
 #include "common.cuh"
 
+using namespace nvcuda;
+
 namespace {
+
+// ---- the products and the LayerNorm of the step --------------------------
+constexpr int kBM = 64, kBN = 64, kBK = 32;
+constexpr int kGemmThreads = 128;  // 4 warps, 2 x 2, each 32 x 32
+constexpr int kALd = kBK + 8;      // bf16 elements
+constexpr int kBLd = kBN + 8;      // bf16 elements
+constexpr int kCLd = kBN + 4;      // f32 elements
+
+__global__ void __launch_bounds__(kGemmThreads)
+gemm_bf16_kernel(const bf16* __restrict__ A, int lda,
+                 const bf16* __restrict__ B, int ldb, void* C, int ldc, int M,
+                 int N, int K, const float* __restrict__ bias,
+                 const float* residual, int ldr, int gelu, int out_bf16) {
+  __shared__ __align__(128) bf16 As[kBM * kALd];
+  __shared__ __align__(128) bf16 Bs[kBK * kBLd];
+  __shared__ __align__(128) float Cs[kBM * kCLd];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const int bm = blockIdx.y * kBM, bn = blockIdx.x * kBN;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    for (int v = tid; v < kBM * kBK / 8; v += kGemmThreads) {
+      const int r = v / (kBK / 8), c8 = (v % (kBK / 8)) * 8;
+      const int gr = bm + r;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (gr < M)
+        val = *reinterpret_cast<const uint4*>(A + (size_t)gr * lda + k0 + c8);
+      *reinterpret_cast<uint4*>(&As[r * kALd + c8]) = val;
+    }
+    for (int v = tid; v < kBK * kBN / 8; v += kGemmThreads) {
+      const int r = v / (kBN / 8), c8 = (v % (kBN / 8)) * 8;
+      *reinterpret_cast<uint4*>(&Bs[r * kBLd + c8]) =
+          *reinterpret_cast<const uint4*>(B + (size_t)(k0 + r) * ldb + bn +
+                                          c8);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(a[i], &As[(wm * 32 + i * 16) * kALd + kk],
+                               kALd);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(b[j], &Bs[kk * kBLd + wn * 32 + j * 16], kBLd);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(&Cs[(wm * 32 + i * 16) * kCLd + wn * 32 + j * 16],
+                              acc[i][j], kCLd, wmma::mem_row_major);
+  __syncthreads();
+  for (int e = tid; e < kBM * kBN; e += kGemmThreads) {
+    const int r = e / kBN, c = e % kBN;
+    const int gr = bm + r, gc = bn + c;
+    if (gr >= M) continue;
+    float v = Cs[r * kCLd + c];
+    if (bias) v += bias[gc];
+    if (gelu) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+    if (residual) v = residual[(size_t)gr * ldr + gc] + v;
+    if (out_bf16)
+      reinterpret_cast<bf16*>(C)[(size_t)gr * ldc + gc] = __float2bfloat16(v);
+    else
+      reinterpret_cast<float*>(C)[(size_t)gr * ldc + gc] = v;
+  }
+}
+
+// One warp per row.
+__global__ void layernorm_kernel(const float* __restrict__ x, int ldx,
+                                 void* __restrict__ y, int ldy, int M, int D,
+                                 float eps, const float* __restrict__ scale,
+                                 const float* __restrict__ bias,
+                                 int out_bf16) {
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const float* xr = x + (size_t)row * ldx;
+  float s = 0.f;
+  for (int d = lane; d < D; d += 32) s += xr[d];
+  const float mu = warp_sum(s) / (float)D;
+  float v = 0.f;
+  for (int d = lane; d < D; d += 32) {
+    const float t = xr[d] - mu;
+    v += t * t;
+  }
+  const float rstd = rsqrtf(warp_sum(v) / (float)D + eps);
+  for (int d = lane; d < D; d += 32) {
+    float o = (xr[d] - mu) * rstd;
+    if (scale) o = o * scale[d] + bias[d];
+    if (out_bf16)
+      reinterpret_cast<bf16*>(y)[(size_t)row * ldy + d] = __float2bfloat16(o);
+    else
+      reinterpret_cast<float*>(y)[(size_t)row * ldy + d] = o;
+  }
+}
+
+// C[M,N] = epilogue(A[M,K] @ B[K,N]): bf16 operands, f32 accumulation;
+// epilogue = (+bias[N]) -> (erf-GELU) -> (residual[M,N] +) -> f32 or bf16.
+// `residual` may alias C (in-place residual add). Needs K % 32 == 0,
+// N % 64 == 0, lda/ldb % 8 == 0 and 16-byte aligned A/B.
+int tpk_launch_gemm(const bf16* A, int lda, const bf16* B, int ldb, void* C,
+                    int ldc, int M, int N, int K, const float* bias,
+                    const float* residual, int ldr, int gelu, int out_bf16,
+                    cudaStream_t stream) {
+  if (K % kBK || N % kBN || lda % 8 || ldb % 8 ||
+      (reinterpret_cast<uintptr_t>(A) & 15) ||
+      (reinterpret_cast<uintptr_t>(B) & 15))
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  dim3 grid(N / kBN, (M + kBM - 1) / kBM);
+  gemm_bf16_kernel<<<grid, kGemmThreads, 0, stream>>>(
+      A, lda, B, ldb, C, ldc, M, N, K, bias, residual, ldr, gelu, out_bf16);
+  TPK_CHECK();
+  return 0;
+}
+
+// Row LayerNorm of f32 rows: (x - mean) * rsqrt(var + eps), then the affine
+// when scale/bias are given; output f32 or bf16.
+int tpk_launch_layernorm(const float* x, int ldx, void* y, int ldy, int M,
+                         int D, float eps, const float* scale,
+                         const float* bias, int out_bf16,
+                         cudaStream_t stream) {
+  if (M == 0) return 0;
+  const int rows_per_block = 8;
+  layernorm_kernel<<<(M + rows_per_block - 1) / rows_per_block,
+                     rows_per_block * 32, 0, stream>>>(
+      x, ldx, y, ldy, M, D, eps, scale, bias, out_bf16);
+  TPK_CHECK();
+  return 0;
+}
 
 constexpr int kWarps = 4;
 constexpr int kMaxKeys = 256;

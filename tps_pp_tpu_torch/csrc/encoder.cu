@@ -13,245 +13,276 @@
 //
 // The TPU runs all layers in one launch with ~31 MB of weights resident in
 // VMEM, and batches attention block-diagonally over several images. Neither
-// carries over: an SM has 227 KB of shared memory. Here each layer is five
-// launches: a bf16 tensor-core GEMM (WMMA 16x16x16, f32 accumulation) with a
-// fused bias / erf-GELU / residual epilogue, a row LayerNorm without affine,
-// and an attention kernel in which one block takes one (image, head) and
-// keeps its T x d_k Q, K and V tiles in shared memory. No block-diagonal
-// over-compute.
+// carries over: an SM has 227 KB of shared memory. Here a forward is 1 + 5 L
+// launches (31 for the flagship): the first LayerNorm with the bf16 -> f32
+// cast of the tokens, then per layer the four products on the tensor-core
+// GEMM of gemm.cu and one attention kernel.
 //
-// Bound on the H100: at B=512 (32768 tokens of width 512) the GEMMs do
-// ~0.54 TFLOP per forward, ~0.55 ms at the bf16 tensor-core peak; the
-// activations moved between launches are ~64 MB per layer (~20 us each at
-// 3.35 TB/s). This first version is bound by its GEMM: 64x64 tiles, no
-// cp.async/TMA pipelining, no wgmma, so it runs far below that peak. Making
-// it fast (wgmma + TMA ring, fused LN prologue) is later work.
+// Bound on the H100 at B=512 (32768 tokens of width 512): 541 GFLOP of bf16
+// products (the four GEMMs and the attention's two), 0.547 ms at 989
+// TFLOP/s. Launched layer by layer, the activations cross device memory
+// between launches (the f32 residual stream read and written by fc and W2,
+// y, qkv, the attention output, the FFN hidden): ~0.68 GB a layer, ~0.2 ms
+// at 3.35 TB/s, ~1.2 ms a forward unless the 50 MB L2 keeps some. The
+// design follows from that:
+//
+// * the products run on wgmma fed by TMA (gemm.cu), with their bias, GELU
+//   and residual in the epilogue;
+// * the LayerNorm has no pass of its own after the first: fc and W2 take
+//   tiles of whole rows (64 x 512), and their epilogue writes x and also
+//   y = LN(x) in bf16 for the next product (the last W2 writes the final
+//   LayerNorm with its affine, and no x). The first LayerNorm also makes
+//   the f32 copy of the tokens, one read of each row with 16-byte loads;
+// * the attention runs on the tensor cores: one block takes one image and
+//   two heads, copies their Q, K and V (T x d_k = 64 x 64 bf16 each) into
+//   shared memory with 16-byte asynchronous copies, and each of its 4 warps
+//   takes 16 query rows: S = Q K^T with ldmatrix + mma.sync m16n8k16, the
+//   mask and softmax in f32 registers (a quad of lanes holds a row),
+//   normalised and rounded to bf16 as the contract has it, then P V from
+//   the same registers (the accumulator layout of S is the A operand's)
+//   with V through ldmatrix.trans, and the bf16 output written back through
+//   the warp's own Q rows as 16-byte stores. T = 64 keys fit whole, so the
+//   softmax is exact in one pass; an image with every key masked gets
+//   uniform weights over its own 64 keys, as in the plain version.
 //
 // Numerics follow the TPU kernel: bf16 operands rounded where it rounds them
 // (normalised activations, q/k/v, softmax weights, GELU output), f32
 // accumulation, f32 LayerNorm and softmax, masked scores = -1e9. GELU uses
 // CUDA's erff (within 1.5e-7 of the Abramowitz-Stegun polynomial the TPU
 // kernel uses, ops/pallas_decode.py:41-50).
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "gemm.cuh"
+#include "ptx.cuh"
 
 namespace {
 
-constexpr int kBM = 64, kBN = 64, kBK = 32;
-constexpr int kGemmThreads = 128;  // 4 warps, 2 x 2, each 32 x 32
-constexpr int kALd = kBK + 8;      // bf16 elements
-constexpr int kBLd = kBN + 8;      // bf16 elements
-constexpr int kCLd = kBN + 4;      // f32 elements
+constexpr int kT = 64;               // tokens of an image (4 x 16 cells)
+constexpr int kDk = 64;              // dims of a head
+constexpr int kD = kGemmLnWidth;     // d_model: a LayerNorm row
+constexpr int kLd = kDk + 8;         // shared row stride (bf16), 144 bytes:
+                                     // ldmatrix rows fall in distinct banks
+constexpr int kAttnThreads = 128;    // 4 warps x 16 query rows
+constexpr float kEps = 1e-5f;
 
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_bf16_kernel(const bf16* __restrict__ A, int lda,
-                 const bf16* __restrict__ B, int ldb, void* C, int ldc, int M,
-                 int N, int K, const float* __restrict__ bias,
-                 const float* residual, int ldr, int gelu, int out_bf16) {
-  __shared__ __align__(128) bf16 As[kBM * kALd];
-  __shared__ __align__(128) bf16 Bs[kBK * kBLd];
-  __shared__ __align__(128) float Cs[kBM * kCLd];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int bm = blockIdx.y * kBM, bn = blockIdx.x * kBN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int v = tid; v < kBM * kBK / 8; v += kGemmThreads) {
-      const int r = v / (kBK / 8), c8 = (v % (kBK / 8)) * 8;
-      const int gr = bm + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < M)
-        val = *reinterpret_cast<const uint4*>(A + (size_t)gr * lda + k0 + c8);
-      *reinterpret_cast<uint4*>(&As[r * kALd + c8]) = val;
-    }
-    for (int v = tid; v < kBK * kBN / 8; v += kGemmThreads) {
-      const int r = v / (kBN / 8), c8 = (v % (kBN / 8)) * 8;
-      *reinterpret_cast<uint4*>(&Bs[r * kBLd + c8]) =
-          *reinterpret_cast<const uint4*>(B + (size_t)(k0 + r) * ldb + bn +
-                                          c8);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[(wm * 32 + i * 16) * kALd + kk],
-                               kALd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[kk * kBLd + wn * 32 + j * 16], kBLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[(wm * 32 + i * 16) * kCLd + wn * 32 + j * 16],
-                              acc[i][j], kCLd, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < kBM * kBN; e += kGemmThreads) {
-    const int r = e / kBN, c = e % kBN;
-    const int gr = bm + r, gc = bn + c;
-    if (gr >= M) continue;
-    float v = Cs[r * kCLd + c];
-    if (bias) v += bias[gc];
-    if (gelu) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-    if (residual) v = residual[(size_t)gr * ldr + gc] + v;
-    if (out_bf16)
-      reinterpret_cast<bf16*>(C)[(size_t)gr * ldc + gc] = __float2bfloat16(v);
-    else
-      reinterpret_cast<float*>(C)[(size_t)gr * ldc + gc] = v;
-  }
-}
-
-// One warp per row.
-__global__ void layernorm_kernel(const float* __restrict__ x, int ldx,
-                                 void* __restrict__ y, int ldy, int M, int D,
-                                 float eps, const float* __restrict__ scale,
-                                 const float* __restrict__ bias,
-                                 int out_bf16) {
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
+// The first LayerNorm, with the cast: one warp a row, a lane 8 columns of
+// each 256-column half (16-byte loads and stores): x32 = f32(x);
+// y = bf16(LN(x32)) (eps, no affine).
+__global__ void __launch_bounds__(256)
+layernorm_cast_kernel(const bf16* __restrict__ x, float* __restrict__ x32,
+                      bf16* __restrict__ y, int M) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= M) return;
-  const float* xr = x + (size_t)row * ldx;
-  float s = 0.f;
-  for (int d = lane; d < D; d += 32) s += xr[d];
-  const float mu = warp_sum(s) / (float)D;
-  float v = 0.f;
-  for (int d = lane; d < D; d += 32) {
-    const float t = xr[d] - mu;
-    v += t * t;
+  constexpr int G = kD / 256;
+  float v[G][8];
+  float sum = 0.f;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const size_t at = (size_t)row * kD + 256 * g + 8 * lane;
+    const uint4 u = *reinterpret_cast<const uint4*>(x + at);
+    const bf162* h = reinterpret_cast<const bf162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[g][2 * i] = f.x;
+      v[g][2 * i + 1] = f.y;
+      sum += f.x + f.y;
+    }
+    reinterpret_cast<float4*>(x32 + at)[0] =
+        make_float4(v[g][0], v[g][1], v[g][2], v[g][3]);
+    reinterpret_cast<float4*>(x32 + at)[1] =
+        make_float4(v[g][4], v[g][5], v[g][6], v[g][7]);
   }
-  const float rstd = rsqrtf(warp_sum(v) / (float)D + eps);
-  for (int d = lane; d < D; d += 32) {
-    float o = (xr[d] - mu) * rstd;
-    if (scale) o = o * scale[d] + bias[d];
-    if (out_bf16)
-      reinterpret_cast<bf16*>(y)[(size_t)row * ldy + d] = __float2bfloat16(o);
-    else
-      reinterpret_cast<float*>(y)[(size_t)row * ldy + d] = o;
+  const float mu = warp_sum(sum) / (float)kD;
+  float var = 0.f;
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float t = v[g][i] - mu;
+      var += t * t;
+    }
+  const float rstd = rsqrtf(warp_sum(var) / (float)kD + kEps);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    uint4 u;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bf162 h = __floats2bfloat162_rn((v[g][2 * i] - mu) * rstd,
+                                            (v[g][2 * i + 1] - mu) * rstd);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(y + (size_t)row * kD + 256 * g + 8 * lane) = u;
   }
 }
 
-__global__ void bf16_to_f32_kernel(const bf16* __restrict__ x,
-                                   float* __restrict__ y, size_t n) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x)
-    y[i] = __bfloat162float(x[i]);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const bf162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// One block per (image, head); one thread per query row.
-// qkv: (N*T, 3*H*DK) bf16, q|k|v column blocks; mask: (N, T) or null;
-// out: (N*T, H*DK) bf16.
-__global__ void encoder_attn_kernel(const bf16* __restrict__ qkv,
-                                    const float* __restrict__ mask,
-                                    bf16* __restrict__ out, int T, int H,
-                                    int DK) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // T x (DK+1)
-  float* Ss = Qs + T * (DK + 1);                   // T x (T+1)
-  float* Ms = Ss + T * (T + 1);                    // T
-  bf16* Ks = reinterpret_cast<bf16*>(Ms + T);      // T x DK
-  bf16* Vs = Ks + T * DK;                          // T x DK
-  const int n = blockIdx.x / H, h = blockIdx.x % H;
-  const int HD = H * DK, rs = 3 * HD;
-  const bf16* base = qkv + (size_t)n * T * rs;
-  for (int e = threadIdx.x; e < T * DK; e += blockDim.x) {
-    const int i = e / DK, d = e % DK;
-    const bf16* row = base + (size_t)i * rs + h * DK + d;
-    Qs[i * (DK + 1) + d] = __bfloat162float(row[0]);
-    Ks[e] = row[HD];
-    Vs[e] = row[2 * HD];
+// Grid N * (H / hg): block b takes image b / (H / hg) and heads
+// hg (b % (H / hg)) .. + hg - 1. qkv (N*T, 3 H d_k) bf16, q|k|v column
+// blocks; mask (N, T), key valid iff > 0; out (N*T, H d_k) bf16. Dynamic
+// shared memory: hg x (Q, K, V) tiles of kT x kLd bf16, then kT floats.
+__global__ void __launch_bounds__(kAttnThreads)
+encoder_attn_kernel(const bf16* __restrict__ qkv,
+                    const float* __restrict__ mask, bf16* __restrict__ out,
+                    int H, int hg) {
+  extern __shared__ __align__(16) uint8_t attn_smem[];
+  bf16* tiles = reinterpret_cast<bf16*>(attn_smem);
+  float* keep = reinterpret_cast<float*>(tiles + hg * 3 * kT * kLd);
+  const int groups = H / hg;
+  const int n = blockIdx.x / groups, h0 = (blockIdx.x % groups) * hg;
+  const int HD = H * kDk, rs = 3 * HD;
+  const bf16* src = qkv + (size_t)n * kT * rs;
+  // tile t = head * 3 + (q | k | v), row r, 16-byte chunk c
+  for (int e = threadIdx.x; e < hg * 3 * kT * 8; e += kAttnThreads) {
+    const int c = e & 7, r = (e >> 3) % kT, t = (e >> 3) / kT;
+    ptx::cp_async16(tiles + (t * kT + r) * kLd + 8 * c,
+                    src + (size_t)r * rs + (t % 3) * HD +
+                        (h0 + t / 3) * kDk + 8 * c);
   }
-  for (int j = threadIdx.x; j < T; j += blockDim.x)
-    Ms[j] = mask ? mask[(size_t)n * T + j] : 1.f;
+  if (threadIdx.x < kT) keep[threadIdx.x] = mask[(size_t)n * kT + threadIdx.x];
+  ptx::cp_async_wait_all();
   __syncthreads();
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    const float* q = Qs + i * (DK + 1);
-    float* s = Ss + i * (T + 1);
-    float m = -INFINITY;
-    for (int j = 0; j < T; ++j) {
-      float acc = 0.f;
-      const bf16* k = Ks + j * DK;
-      for (int d = 0; d < DK; ++d) acc += q[d] * __bfloat162float(k[d]);
-      acc = Ms[j] > 0.f ? acc : -1e9f;
-      s[j] = acc;
-      m = fmaxf(m, acc);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q4 = lane % 4, mi = lane / 8;
+  const int r0 = 16 * warp;  // this warp's query rows r0 .. r0 + 15
+  for (int hh = 0; hh < hg; ++hh) {
+    bf16* Q = tiles + hh * 3 * kT * kLd;
+    const bf16* Kt = Q + kT * kLd;
+    const bf16* V = Kt + kT * kLd;
+    // S = Q K^T: 8 tiles of 8 keys, s[j] = {(g, 2q4), (g, 2q4 + 1),
+    // (g + 8, 2q4), (g + 8, 2q4 + 1)} of keys 8 j .., g = lane / 4
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kDk / 16; ++kk) {
+      uint32_t a[4];
+      ptx::ldsm_x4(a, Q + (r0 + (lane & 15)) * kLd + 16 * kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t b[4];
+        ptx::ldsm_x4(b, Kt + (16 * jp + (mi >> 1) * 8 + (lane & 7)) * kLd +
+                            16 * kk + (mi & 1) * 8);
+        ptx::mma_bf16(s[2 * jp], a, b[0], b[1]);
+        ptx::mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
+      }
     }
-    float sum = 0.f;
-    for (int j = 0; j < T; ++j) {
-      const float e = expf(s[j] - m);
-      s[j] = e;
-      sum += e;
+    // mask, then the softmax of rows g and g + 8 over the quad's lanes
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (!(keep[8 * j + 2 * q4 + (i & 1)] > 0.f)) s[j][i] = -1e9f;
+        mx[i >> 1] = fmaxf(mx[i >> 1], s[j][i]);
+      }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
     }
-    for (int j = 0; j < T; ++j) s[j] = bf_round(s[j] / sum);
-    bf16* o = out + ((size_t)n * T + i) * HD + h * DK;
-    for (int d = 0; d < DK; ++d) {
-      float acc = 0.f;
-      for (int j = 0; j < T; ++j) acc += s[j] * __bfloat162float(Vs[j * DK + d]);
-      o[d] = __float2bfloat16(acc);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = expf(s[j][i] - mx[i >> 1]);
+        sum[i >> 1] += s[j][i];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    }
+    // p = bf16(e / sum), as A fragments of P V: keys 16 kk .. are S tiles
+    // 2 kk and 2 kk + 1
+    uint32_t p[8][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      p[j][0] = pack_bf16(s[j][0] / sum[0], s[j][1] / sum[0]);
+      p[j][1] = pack_bf16(s[j][2] / sum[1], s[j][3] / sum[1]);
+    }
+    float o[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kT / 16; ++kk) {
+      const uint32_t a[4] = {p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0],
+                             p[2 * kk + 1][1]};
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t b[4];
+        ptx::ldsm_x4_t(b, V + (16 * kk + (mi & 1) * 8 + (lane & 7)) * kLd +
+                              16 * jp + (mi >> 1) * 8);
+        ptx::mma_bf16(o[2 * jp], a, b[0], b[1]);
+        ptx::mma_bf16(o[2 * jp + 1], a, b[2], b[3]);
+      }
+    }
+    // the bf16 output through this warp's own Q rows, then 16-byte stores
+    __syncwarp();
+    const int g = lane / 4;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(Q + (r0 + g) * kLd + 8 * j + 2 * q4) =
+          pack_bf16(o[j][0], o[j][1]);
+      *reinterpret_cast<uint32_t*>(Q + (r0 + g + 8) * kLd + 8 * j + 2 * q4) =
+          pack_bf16(o[j][2], o[j][3]);
+    }
+    __syncwarp();
+    bf16* dst = out + ((size_t)n * kT + r0) * HD + (h0 + hh) * kDk;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = 4 * i + lane / 8, c = lane % 8;
+      *reinterpret_cast<uint4*>(dst + (size_t)rr * HD + 8 * c) =
+          *reinterpret_cast<const uint4*>(Q + (r0 + rr) * kLd + 8 * c);
     }
   }
 }
 
-size_t encoder_attn_smem(int T, int DK) {
-  return sizeof(float) * ((size_t)T * (DK + 1) + (size_t)T * (T + 1) + T) +
-         sizeof(bf16) * 2 * (size_t)T * DK;
+// Two heads a block where H allows it.
+int launch_attention(const bf16* qkv, const float* mask, bf16* out, int N,
+                     int H, cudaStream_t st) {
+  const int hg = H % 2 ? 1 : 2;
+  const size_t smem =
+      sizeof(bf16) * hg * 3 * kT * kLd + sizeof(float) * kT;
+  TPK_TRY((int)cudaFuncSetAttribute(
+      encoder_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem));
+  encoder_attn_kernel<<<N * (H / hg), kAttnThreads, smem, st>>>(qkv, mask,
+                                                                out, H, hg);
+  TPK_CHECK();
+  return 0;
 }
 
 }  // namespace
 
-int tpk_launch_gemm(const bf16* A, int lda, const bf16* B, int ldb, void* C,
-                    int ldc, int M, int N, int K, const float* bias,
-                    const float* residual, int ldr, int gelu, int out_bf16,
-                    cudaStream_t stream) {
-  if (K % kBK || N % kBN || lda % 8 || ldb % 8 ||
-      (reinterpret_cast<uintptr_t>(A) & 15) ||
-      (reinterpret_cast<uintptr_t>(B) & 15))
+// The attention alone (tests and chip_smoke.py hold it against the plain
+// version): qkv (N*T, 3 H DK) bf16, mask (N, T) f32, out (N*T, H DK) bf16.
+// Needs T == 64, DK == 64.
+extern "C" int tpk_encoder_attention(const void* qkv, const float* mask,
+                                     void* out, int N, int T, int H, int DK,
+                                     void* stream) {
+  if (T != kT || DK != kDk || H < 1 || N < 0)
     return (int)cudaErrorInvalidValue;
-  if (M == 0) return 0;
-  dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-  gemm_bf16_kernel<<<grid, kGemmThreads, 0, stream>>>(
-      A, lda, B, ldb, C, ldc, M, N, K, bias, residual, ldr, gelu, out_bf16);
-  TPK_CHECK();
-  return 0;
-}
-
-int tpk_launch_layernorm(const float* x, int ldx, void* y, int ldy, int M,
-                         int D, float eps, const float* scale,
-                         const float* bias, int out_bf16,
-                         cudaStream_t stream) {
-  if (M == 0) return 0;
-  const int rows_per_block = 8;
-  layernorm_kernel<<<(M + rows_per_block - 1) / rows_per_block,
-                     rows_per_block * 32, 0, stream>>>(
-      x, ldx, y, ldy, M, D, eps, scale, bias, out_bf16);
-  TPK_CHECK();
-  return 0;
+  if (N == 0) return 0;
+  return launch_attention((const bf16*)qkv, mask, (bf16*)out, N, H,
+                          (cudaStream_t)stream);
 }
 
 // Whole encoder. Weights are stacked over layers and already folded:
 // wqkv (L, D, 3HD) bf16, bqkv (L, 3HD) f32, wfc (L, HD, D) bf16,
 // w1 (L, D, DI) bf16, b1 (L, DI) f32, w2 (L, DI, D) bf16, b2 (L, D) f32,
 // lnf_s/lnf_b (D) f32. Scratch: x32 (N*T, D) f32, y (N*T, D) bf16,
-// qkv (N*T, 3HD) bf16, att (N*T, HD) bf16, hid (N*T, DI) bf16.
+// qkv (N*T, 3HD) bf16, att (N*T, HD) bf16, hid (N*T, DI) bf16. Needs
+// T == 64, DK == 64, D == 512, 3 HD and DI multiples of 256.
 extern "C" int tpk_encoder_forward(
     const void* x_in, const float* mask, const void* wqkv, const float* bqkv,
     const void* wfc, const void* w1, const float* b1, const void* w2,
@@ -260,42 +291,39 @@ extern "C" int tpk_encoder_forward(
     int H, int DK, int DI, int L, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int M = N * T, HD = H * DK;
-  const size_t smem = encoder_attn_smem(T, DK);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(encoder_attn_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  if (T != kT || DK != kDk || D != kD || H < 1 || L < 1 || N < 0 ||
+      (3 * HD) % 256 || DI < 256 || DI % 256)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  bf16* yb = (bf16*)y;
+  layernorm_cast_kernel<<<(M + 7) / 8, 256, 0, st>>>((const bf16*)x_in, x32,
+                                                     yb, M);
   TPK_CHECK();
-  const size_t total = (size_t)M * D;
-  bf16_to_f32_kernel<<<(unsigned)((total + 255) / 256 < 65535
-                                      ? (total + 255) / 256
-                                      : 65535),
-                       256, 0, st>>>((const bf16*)x_in, x32, total);
-  TPK_CHECK();
-  const int attn_threads = T < 32 ? 32 : (T > 256 ? 256 : ((T + 31) / 32) * 32);
   for (int l = 0; l < L; ++l) {
     const bf16* Wqkv = (const bf16*)wqkv + (size_t)l * D * 3 * HD;
     const bf16* Wfc = (const bf16*)wfc + (size_t)l * HD * D;
     const bf16* W1 = (const bf16*)w1 + (size_t)l * D * DI;
     const bf16* W2 = (const bf16*)w2 + (size_t)l * DI * D;
-    TPK_TRY(tpk_launch_layernorm(x32, D, y, D, M, D, 1e-5f, nullptr, nullptr,
-                                 1, st));
-    TPK_TRY(tpk_launch_gemm((const bf16*)y, D, Wqkv, 3 * HD, qkv, 3 * HD, M,
-                            3 * HD, D, bqkv + (size_t)l * 3 * HD, nullptr, 0,
-                            0, 1, st));
-    encoder_attn_kernel<<<N * H, attn_threads, smem, st>>>(
-        (const bf16*)qkv, mask, (bf16*)att, T, H, DK);
-    TPK_CHECK();
-    TPK_TRY(tpk_launch_gemm((const bf16*)att, HD, Wfc, D, x32, D, M, D, HD,
-                            nullptr, x32, D, 0, 0, st));
-    TPK_TRY(tpk_launch_layernorm(x32, D, y, D, M, D, 1e-5f, nullptr, nullptr,
-                                 1, st));
-    TPK_TRY(tpk_launch_gemm((const bf16*)y, D, W1, DI, hid, DI, M, DI, D,
-                            b1 + (size_t)l * DI, nullptr, 0, 1, 1, st));
-    TPK_TRY(tpk_launch_gemm((const bf16*)hid, DI, W2, D, x32, D, M, D, DI,
-                            b2 + (size_t)l * D, x32, D, 0, 0, st));
+    const bool last = l == L - 1;
+    // c, ldc, out_bf16, bias, gelu, residual, ldr, ln_out, ld_ln, ln_s,
+    // ln_b, ln_eps
+    const GemmEpilogue e_qkv = {qkv, 3 * HD, 1, bqkv + (size_t)l * 3 * HD,
+                                0, nullptr, 0, nullptr, 0, nullptr,
+                                nullptr, 0.f};
+    const GemmEpilogue e_fc = {x32, D, 0, nullptr, 0, x32, D, yb, D,
+                               nullptr, nullptr, kEps};
+    const GemmEpilogue e_w1 = {hid, DI, 1, b1 + (size_t)l * DI, 1, nullptr,
+                               0, nullptr, 0, nullptr, nullptr, 0.f};
+    const GemmEpilogue e_w2 = {last ? nullptr : x32, D, 0,
+                               b2 + (size_t)l * D, 0, x32, D,
+                               last ? (bf16*)out : yb, D,
+                               last ? lnf_s : nullptr,
+                               last ? lnf_b : nullptr, kEps};
+    TPK_TRY(gemm_tc(yb, D, Wqkv, 3 * HD, M, 3 * HD, D, e_qkv, st));
+    TPK_TRY(launch_attention((const bf16*)qkv, mask, (bf16*)att, N, H, st));
+    TPK_TRY(gemm_tc((const bf16*)att, HD, Wfc, D, M, D, HD, e_fc, st));
+    TPK_TRY(gemm_tc(yb, D, W1, DI, M, DI, D, e_w1, st));
+    TPK_TRY(gemm_tc((const bf16*)hid, DI, W2, D, M, D, DI, e_w2, st));
   }
-  TPK_TRY(tpk_launch_layernorm(x32, D, out, D, M, D, 1e-5f, lnf_s, lnf_b, 1,
-                               st));
   return 0;
 }

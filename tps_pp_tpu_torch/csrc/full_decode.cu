@@ -16,7 +16,8 @@
 // resident in VMEM for the whole 40-step loop. An SM has 227 KB of shared
 // memory, and at N=512 the encoder K/V alone is ~400 MB, so this keeps the
 // output contract and drops the residency: the encoder K/V of all layers
-// ((N, TE, L, 2HD) bf16, one GEMM) and the self-attention cache
+// ((N, TE, L, 2HD) bf16, one product on the tensor-core GEMM of gemm.cu)
+// and the self-attention cache
 // ((L, N, S, 2HD) bf16) live in global scratch that the wrapper allocates.
 //
 // Bound on the H100: per step the weights (~7 MB bf16, mostly L2-resident)
@@ -98,6 +99,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "gemm.cuh"
 #include "ptx.cuh"
 
 namespace {
@@ -931,9 +933,12 @@ extern "C" int tpk_full_decode(
 
   signed char* q8 = (signed char*)enc_q8;
   if (!q8) {
-    TPK_TRY(tpk_launch_gemm((const bf16*)out_enc, D, (const bf16*)wkv_enc,
-                            KV, ekv, KV, N * TE, KV, D, nullptr, nullptr, 0,
-                            0, 1, st));
+    // c, ldc, out_bf16, bias, gelu, residual, ldr, ln_out, ld_ln, ln_s,
+    // ln_b, ln_eps
+    const GemmEpilogue ep = {ekv,     KV, 1,       nullptr, 0, nullptr, 0,
+                             nullptr, 0,  nullptr, nullptr, 0.f};
+    TPK_TRY(gemm_tc((const bf16*)out_enc, D, (const bf16*)wkv_enc, KV,
+                    N * TE, KV, D, ep, st));
   } else {
     const int G = KV / 64, rows = N * TE, rpb = 256;
     cudaMemsetAsync(amax, 0, sizeof(unsigned) * G, st);

@@ -27,6 +27,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     'tpk_tps_sampler': [_P] * 9 + [_I] * 10 + [_P],
     'tpk_encoder_forward': [_P] * 17 + [_I] * 7 + [_P],
+    'tpk_encoder_attention': [_P] * 3 + [_I] * 4 + [_P],
+    'tpk_gemm': [_P] * 8 + [_I] * 5 + [_P],
     'tpk_full_decode': [_P] * 35 + [_I] * 11 + [_P],
     'tpk_self_attn_step': [_P] * 12 + [_I] * 7 + [_P],
     'tpk_cross_ffn_step': [_P] * 20 + [_I] * 7 + [_P],

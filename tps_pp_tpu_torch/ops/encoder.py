@@ -2,12 +2,14 @@
 
 Counterpart of ``tps_pp_tpu/ops/pallas_encoder.py``
 (``fused_encoder_forward``): ``encoder_forward`` launches the CUDA kernels of
-``csrc/encoder.cu`` on CUDA tensors; ``encoder_forward_plain`` is the same
-function in plain PyTorch, used for CPU tensors and as the kernel's
-reference. Both take the weights as folded by :func:`fold_encoder_weights`
-once, when the weights are loaded: each LayerNorm affine goes into the matmul
-that consumes it (``y@W`` for ``y = norm*s + b`` equals ``norm@(s*W) +
-b@W``), and 1/sqrt(d_k) into the q columns.
+``csrc/encoder.cu`` (its products on the GEMM of ``csrc/gemm.cu``) on CUDA
+tensors; ``encoder_forward_plain`` is the same function in plain PyTorch,
+used for CPU tensors and as the kernel's reference. Both take the weights as
+folded by :func:`fold_encoder_weights` once, when the weights are loaded:
+each LayerNorm affine goes into the matmul that consumes it (``y@W`` for
+``y = norm*s + b`` equals ``norm@(s*W) + b@W``), and 1/sqrt(d_k) into the q
+columns. ``encoder_attention`` is the encoder's attention kernel alone, for
+the tests.
 """
 from __future__ import annotations
 
@@ -59,6 +61,53 @@ def fold_encoder_weights(raw: Dict[str, torch.Tensor], n_head: int,
     return {k: v.contiguous() for k, v in out.items()}
 
 
+def encoder_attention_plain(qkv: torch.Tensor, mask: torch.Tensor,
+                            n_head: int) -> torch.Tensor:
+    """qkv (N*T, 3HD), the q|k|v column blocks (q already scaled by
+    1/sqrt(d_k)), in the compute dtype; mask (N, T), key valid iff > 0. Per
+    (image, head): scores in float32, masked ones -1e9, softmax in float32
+    rounded to qkv's dtype, then the weighted sum of v in float32. Returns
+    (N*T, HD) in qkv's dtype. An image with every key masked gets uniform
+    weights over its own keys."""
+    N, T = mask.shape
+    HD = qkv.shape[1] // 3
+    keep = (mask > 0)[:, None, None, :]
+
+    def heads(a):                      # (N*T, HD) -> (N, H, T, DK)
+        return a.reshape(N, T, n_head, HD // n_head).transpose(1, 2).float()
+
+    q, k, v = (heads(a) for a in qkv.split(HD, dim=1))
+    s = (q @ k.transpose(-1, -2)).masked_fill(~keep, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(qkv.dtype)
+    return (p.float() @ v).to(qkv.dtype).transpose(1, 2).reshape(N * T, HD)
+
+
+def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor,
+                      n_head: int) -> torch.Tensor:
+    """The encoder's attention kernel on CUDA tensors (bf16 qkv, f32 mask),
+    the plain version on CPU tensors. Same arguments as
+    :func:`encoder_attention_plain`."""
+    if qkv.device.type == 'cpu':
+        return encoder_attention_plain(qkv, mask, n_head)
+    dev = qkv.device
+    _lib.require_cuda(dev, 'encoder_attention')
+    N, T = mask.shape
+    HD = qkv.shape[1] // 3
+    _lib.check_args('encoder_attention', dev, {
+        'qkv': (qkv, (N * T, 3 * HD), torch.bfloat16),
+        'mask': (mask, (N, T), torch.float32)})
+    out = torch.empty((N * T, HD), dtype=torch.bfloat16, device=dev)
+    rc = _lib.load().tpk_encoder_attention(
+        qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), N, T, n_head,
+        HD // n_head, _lib.stream_ptr(dev))
+    _lib.check(rc, 'encoder_attention')
+    encoder_attention.launches += 1
+    return out
+
+
+encoder_attention.launches = 0
+
+
 def encoder_forward_plain(x: torch.Tensor, mask: Optional[torch.Tensor],
                           w: Dict[str, torch.Tensor],
                           n_head: int) -> torch.Tensor:
@@ -69,21 +118,13 @@ def encoder_forward_plain(x: torch.Tensor, mask: Optional[torch.Tensor],
     x's dtype."""
     cdt = w['wqkv'].dtype
     N, T, D = x.shape
-    L, HD = w['wqkv'].shape[0], w['wfc'].shape[1]
-    H, DK = n_head, HD // n_head
+    L = w['wqkv'].shape[0]
     x32 = x.reshape(N * T, D).float()
-    keep = (torch.ones((N, T), dtype=torch.bool, device=x.device)
-            if mask is None else mask > 0)[:, None, None, :]
-
-    def heads(a):                      # (N*T, HD) -> (N, H, T, DK)
-        return a.reshape(N, T, H, DK).transpose(1, 2).float()
-
+    if mask is None:
+        mask = torch.ones((N, T), device=x.device)
     for l in range(L):
         qkv = (mm(ln_norm(x32).to(cdt), w['wqkv'][l]) + w['bqkv'][l]).to(cdt)
-        q, k, v = (heads(a) for a in qkv.split(HD, dim=1))
-        s = (q @ k.transpose(-1, -2)).masked_fill(~keep, NEG_INF)
-        p = torch.softmax(s, dim=-1).to(cdt)
-        att = (p.float() @ v).to(cdt).transpose(1, 2).reshape(N * T, HD)
+        att = encoder_attention_plain(qkv, mask, n_head)
         x32 = x32 + mm(att, w['wfc'][l])
         h = F.gelu(mm(ln_norm(x32).to(cdt), w['w1'][l]) + w['b1'][l]).to(cdt)
         x32 = x32 + (mm(h, w['w2'][l]) + w['b2'][l])
@@ -95,7 +136,9 @@ def encoder_forward(x: torch.Tensor, mask: Optional[torch.Tensor],
                     w: Dict[str, torch.Tensor], n_head: int) -> torch.Tensor:
     """The kernels on CUDA tensors (bf16 tokens and weights), the plain
     version on CPU tensors. Same arguments as
-    :func:`encoder_forward_plain`."""
+    :func:`encoder_forward_plain`. The kernels' limits (64 tokens an image,
+    d_k 64, d_model 512, ...) are checked at their entry point,
+    ``csrc/encoder.cu`` ``tpk_encoder_forward``."""
     if x.device.type == 'cpu':
         return encoder_forward_plain(x, mask, w, n_head)
     dev = x.device
@@ -114,10 +157,9 @@ def encoder_forward(x: torch.Tensor, mask: Optional[torch.Tensor],
         'b1': (w['b1'], (L, DI), f32), 'w2': (w['w2'], (L, DI, D), bf),
         'b2': (w['b2'], (L, D), f32), 'lnf_s': (w['lnf_s'], (D,), f32),
         'lnf_b': (w['lnf_b'], (D,), f32)})
-    if HD != n_head * DK or D % 64 or HD % 64 or DI % 64:
-        raise ValueError(f'encoder_forward: needs d_model, n_head*d_k and '
-                         f'd_inner to be multiples of 64 (GEMM tiles), got '
-                         f'{D}, {HD}, {DI}')
+    if HD != n_head * DK:
+        raise ValueError(f'encoder_forward: n_head {n_head} does not divide '
+                         f'the attention width {HD}')
     M = N * T
     x32 = torch.empty((M, D), dtype=f32, device=dev)
     y = torch.empty((M, D), dtype=bf, device=dev)
