@@ -1042,30 +1042,38 @@ def main():
     with torch.inference_mode():
         ek, ev = (a.contiguous() for a in
                   dec.layer_stack[0].enc_attn.project_kv(enc_p))
-    err6 = 0.0
-    for t in (0, 1, 20, T - 2):
-        ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
-        got, _, _ = self_attn_step(xs, ck, cv, t, *sa_w)
-        want, _, _ = self_attn_step_plain(xs, ckp, cvp, t, *sa_w)
+    err6 = err7 = 0.0
+    # bf16 at B, and the f32 variants at the small batch the f32 model
+    # serves
+    for dt, n in ((bf, B), (f32, B_SMALL)):
+        xd, ckd, cvd, ekd, evd = (a[:n].to(dt).contiguous() for a in
+                                  (xs, ck0, cv0, ek, ev))
+        for t in (0, 1, 20, T - 2):
+            ck, cv, ckp, cvp = (ckd.clone(), cvd.clone(), ckd.clone(),
+                                cvd.clone())
+            got, _, _ = self_attn_step(xd, ck, cv, t, *sa_w)
+            want, _, _ = self_attn_step_plain(xd, ckp, cvp, t, *sa_w)
+            torch.cuda.synchronize()
+            err6 = max(err6, check_close(f'self_attn_step {dt} N={n} t={t}',
+                                         got, want, (STEP_ATOL, STEP_RTOL)))
+            for c, cp_, c0 in ((ck, ckp, ckd), (cv, cvp, cvd)):
+                err6 = max(err6, check_close(
+                    f'self_attn_step {dt} N={n} t={t} cache', c[:, :, t],
+                    cp_[:, :, t], (STEP_ATOL, STEP_RTOL)))
+                keep = torch.arange(T, device=dev) != t
+                if not (torch.equal(c[:, :, keep], c0[:, :, keep]) and
+                        torch.equal(cp_[:, :, keep], c0[:, :, keep])):
+                    raise AssertionError(f'self_attn_step {dt} N={n} t={t}: '
+                                         f'a cache slot other than t changed')
+        got = cross_ffn_step(xd, ekd, evd, mask[:n].contiguous(), *cf_w)
+        want = cross_ffn_step_plain(xd, ekd, evd, mask[:n].contiguous(),
+                                    *cf_w)
         torch.cuda.synchronize()
-        err6 = max(err6, check_close(f'self_attn_step t={t}', got, want,
+        err7 = max(err7, check_close(f'cross_ffn_step {dt} N={n}', got, want,
                                      (STEP_ATOL, STEP_RTOL)))
-        for c, cp_, c0 in ((ck, ckp, ck0), (cv, cvp, cv0)):
-            err6 = max(err6, check_close(f'self_attn_step t={t} cache',
-                                         c[:, :, t], cp_[:, :, t],
-                                         (STEP_ATOL, STEP_RTOL)))
-            keep = torch.arange(T, device=dev) != t
-            if not (torch.equal(c[:, :, keep], c0[:, :, keep]) and
-                    torch.equal(cp_[:, :, keep], c0[:, :, keep])):
-                raise AssertionError(f'self_attn_step t={t}: a cache slot '
-                                     f'other than t changed')
-    got = cross_ffn_step(xs, ek, ev, mask, *cf_w)
-    want = cross_ffn_step_plain(xs, ek, ev, mask, *cf_w)
-    torch.cuda.synchronize()
-    err7 = check_close('cross_ffn_step', got, want, (STEP_ATOL, STEP_RTOL))
     log(f'self_attn_step at t = 0, 1, 20, {T - 2} and cross_ffn_step '
-        f'(B={B}): max abs errors {err6:.4g}, {err7:.4g}; caches equal '
-        f'outside slot t')
+        f'(bf16 B={B}, f32 B={B_SMALL}): max abs errors {err6:.4g}, '
+        f'{err7:.4g}; caches equal outside slot t')
     ck, cv = ck0.clone(), cv0.clone()
     S = dec.max_seq_len
     slot = nbytes(ck[:, :, 0])                  # one slot of K (or V)

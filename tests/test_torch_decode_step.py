@@ -18,6 +18,15 @@ heads of 8).
   in float32: argmax equal, probabilities within 1e-6 (the same
   quantization on both sides; int8 values part only where f32 noise moves
   x / scale across a rounding boundary).
+* ``greedy_decode``'s exit, which reads the all-done flag a few steps
+  behind the step it issues, on the fused-step, module and int8 step
+  paths, with rows forced to emit EOS at chosen steps: bit-equal to a loop
+  that reads the flag after every step (the zeros after the exit step
+  included), and to the JAX ``greedy_decode`` (``lax.while_loop``) with
+  the same forcing: argmax equal, the same zeros, probabilities within
+  1e-5 (int8: 1e-4, an int8 value may sit one step away where f32 noise
+  moves x / scale across a rounding boundary, and over 12 steps that
+  reaches ~2e-5).
 """
 import functools
 
@@ -29,6 +38,7 @@ import torch
 from torch_port_util import jnp_tree, to_numpy
 
 import tps_pp_tpu.ops.pallas_decode as pd
+from tps_pp_tpu.models.decoders.base import greedy_decode as jax_greedy
 from tps_pp_tpu.models.decoders.nrtr import NRTRDecoder as JaxDecoder
 
 from tps_pp_tpu_torch.models.decoders import NRTRDecoder, greedy_decode
@@ -137,13 +147,13 @@ def test_cross_ffn_step_matches_pallas(dtype, masked):
 
 # ------------------------------------------------------- the steps decode
 
-def _port(v, **kw):
+def _port(v, max_seq_len=S, **kw):
     sd = convert_rules({'params': {'decoder': v['params']}},
                        nrtr_decoder_rules(DIMS['n_layers']))
     sd = {k[len('decoder.'):]: t for k, t in sd.items()}
     sd['position_enc.position_table'] = torch.from_numpy(
         sinusoid_position_table(200, DIMS['d_embedding']))
-    dec = NRTRDecoder(**DIMS, **kw).eval()
+    dec = NRTRDecoder(**dict(DIMS, max_seq_len=max_seq_len), **kw).eval()
     dec.load_state_dict(sd, strict=True)
     return dec
 
@@ -246,3 +256,104 @@ def test_fused_step_refuses_int8(setup):
         _port_steps(dec, out_enc)
     with pytest.raises(AssertionError, match='int8'):
         _jax_steps(v, out_enc, use_fused_step=True, kv_dtype='int8')
+
+
+# ---------------------------------------------------------- the loop's exit
+EXIT_S, END = 12, 37     # steps (7 and the last differ), the EOS class
+# step at which each row is forced to emit EOS (-1: never)
+EXIT_SCHEDULES = {'all_at_0': [0, 0, 0, 0], 'last_at_7': [2, 7, 0, 5],
+                  'last_at_end': [3, EXIT_S - 1, 6, 1],
+                  'never': [2, -1, 4, 0]}
+EXIT_PATHS = {'fused_step': dict(use_fused_step=True), 'module': {},
+              'int8': dict(kv_dtype='int8')}
+EXIT_ATOL = {'fused_step': 1e-5, 'module': 1e-5, 'int8': 1e-4}
+
+
+class _Forced:
+    """The decoder's steps, with row n's probabilities replaced by a
+    one-hot EOS at step finish[n]."""
+
+    def __init__(self, dec, finish):
+        self.dec, self.finish = dec, torch.tensor(finish)
+
+    def decode_init(self, *a):
+        return self.dec.decode_init(*a)
+
+    def decode_step(self, token, t, carry, static, plain=False):
+        probs, carry = self.dec.decode_step(token, t, carry, static,
+                                            plain=plain)
+        eos = torch.nn.functional.one_hot(torch.tensor(END), C - 1).float()
+        return torch.where((self.finish == t)[:, None], eos, probs), carry
+
+
+def _every_step_loop(decoder, out_enc, vr, end_idx):
+    """The greedy loop that reads the all-done flag after every step."""
+    N = out_enc.shape[0]
+    carry, static = decoder.decode_init(out_enc, vr)
+    token = torch.full((N,), 1, dtype=torch.long)
+    done = torch.zeros((N,), dtype=torch.bool)
+    out = None
+    for t in range(EXIT_S):
+        probs, carry = decoder.decode_step(token, t, carry, static)
+        if out is None:
+            out = probs.new_zeros((N, EXIT_S, probs.shape[-1]))
+        out[:, t] = probs
+        token = probs.argmax(dim=-1)
+        done |= token == end_idx
+        if bool(done.all()):
+            break
+    return out
+
+
+@pytest.fixture(scope='module')
+def jax_exit(setup):
+    """{path: jitted (finish (N,) int32) -> the JAX greedy decode with
+    end_idx and that forcing}, the Pallas step kernels in interpret mode."""
+    v, out_enc = setup
+    fns = {}
+    for path, kw in EXIT_PATHS.items():
+        jdec = JaxDecoder(**dict(DIMS, max_seq_len=EXIT_S),
+                          dtype=jnp.float32, **kw)
+        jv = jnp_tree(v)
+
+        def run(finish, jdec=jdec, jv=jv):
+            def apply(name, *a):
+                out = jdec.apply(jv, *a, method=name)
+                if name != 'decode_step':
+                    return out
+                probs, carry = out
+                eos = jax.nn.one_hot(END, C - 1, dtype=probs.dtype)
+                return jnp.where((finish == a[1])[:, None], eos, probs), carry
+            return jax_greedy(apply, None, jnp.asarray(out_enc),
+                              jnp.asarray(VR), max_seq_len=EXIT_S,
+                              start_idx=1, end_idx=END)
+        fns[path] = jax.jit(run)
+    return fns
+
+
+@pytest.mark.parametrize('schedule', list(EXIT_SCHEDULES))
+@pytest.mark.parametrize('path', list(EXIT_PATHS))
+def test_greedy_decode_exit(setup, jax_exit, path, schedule):
+    v, out_enc = setup
+    finish = EXIT_SCHEDULES[schedule]
+    dec = _Forced(_port(v, max_seq_len=EXIT_S, **EXIT_PATHS[path]), finish)
+    with torch.no_grad():
+        got = greedy_decode(dec, torch.from_numpy(out_enc),
+                            torch.from_numpy(VR), max_seq_len=EXIT_S,
+                            start_idx=1, end_idx=END)
+        want = _every_step_loop(dec, torch.from_numpy(out_enc),
+                                torch.from_numpy(VR), END)
+    assert torch.equal(got, want)
+    got = got.numpy()
+    if max(finish) >= 0 and min(finish) >= 0:
+        stop = max(finish)
+        assert (got[:, stop + 1:] == 0).all() and (got[:, stop].sum(-1) > 0.99
+                                                   ).all()
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ('self_attn_step', 'cross_ffn_step'):
+            mp.setattr(pd, name, functools.partial(getattr(pd, name),
+                                                   interpret=True))
+        ref = np.asarray(jax_exit[path](jnp.asarray(finish, jnp.int32)))
+    np.testing.assert_array_equal(got == 0, ref == 0)
+    np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+    np.testing.assert_allclose(got, ref, atol=EXIT_ATOL[path], rtol=0)

@@ -91,20 +91,26 @@ def _decoder_args(device):
             dec.packed_weights(BF))
 
 
-def _step_args(device, N=8, T=41, TE=64, dtype=BF):
+def _step_args(device, N=8, T=41, TE=64, dtype=BF, mask='masked'):
     """The per-step kernels' inputs at the flagship's widths: x, caches
-    with random values in every slot and encoder K/V in ``dtype``, a mask
-    with a row of no valid key; one layer's step weights of a random
-    decoder."""
+    with random values in every slot and encoder K/V in ``dtype``; one
+    layer's step weights of a random decoder. ``mask='masked'``: valid
+    ratios from 0 to 1 over the rows, the first row with no valid key and
+    the second (for N > 1) with a single one; ``'all_valid'``: ones."""
     g = torch.Generator().manual_seed(0)
     dec = NRTRDecoder(n_layers=1, max_seq_len=T - 1)
     w = {k: v[0].to(device) for k, v in dec.step_weights().items()}
 
     def r(*shape):
         return torch.randn(shape, generator=g).to(device, dtype)
-    mask = sequence_mask(torch.linspace(0.0, 1.0, N), TE).to(device)
+    if mask == 'all_valid':
+        m = torch.ones((N, TE), device=device)
+    else:
+        vr = torch.linspace(0.0, 1.0, N)
+        vr[1:2] = 1.0 / TE
+        m = sequence_mask(vr, TE).to(device)
     return (r(N, 512), r(N, 8, T, 64), r(N, 8, T, 64), r(N, 8, TE, 64),
-            r(N, 8, TE, 64), mask, w)
+            r(N, 8, TE, 64), m, w)
 
 
 def _warp_args(device, dtype, N=4, scale=1.0):
@@ -648,14 +654,21 @@ def test_full_decode_graph_follows_weight_changes(cuda_device):
 STEP_ATOL, STEP_RTOL = 2e-2, 2 ** -7
 
 
+# N: one row, a ragged band of 16 rows, B_SMALL, full bands, a ragged
+# multiple of 16 and the serving batch
+STEP_NS = [1, 5, 8, 64, 100, 512]
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize('dtype', [BF, torch.float32])
-@pytest.mark.parametrize('t', [0, 1, 39])
-def test_self_attn_step_kernel(cuda_device, t, dtype):
+@pytest.mark.parametrize('t', [0, 1, 20, 39])
+@pytest.mark.parametrize('N', STEP_NS)
+def test_self_attn_step_kernel(cuda_device, N, t, dtype):
     """Kernel 6: x_out and slot t of the caches within the bounds; every
-    other slot untouched."""
-    x, ck, cv, _, _, _, w = _step_args(cuda_device, dtype=dtype)
+    other slot bit-equal to before."""
+    x, ck, cv, _, _, _, w = _step_args(cuda_device, N=N, dtype=dtype)
     args = (w['wqkv'], w['wfc1'], w['ln1_s'], w['ln1_b'])
+    ck0, cv0 = ck.clone(), cv.clone()
     ck_p, cv_p = ck.clone(), cv.clone()
     before = self_attn_step.launches
     got, ck_k, cv_k = self_attn_step(x, ck, cv, t, *args)
@@ -665,19 +678,25 @@ def test_self_attn_step_kernel(cuda_device, t, dtype):
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), atol=STEP_ATOL,
                                rtol=STEP_RTOL)
-    for k, p in ((ck, ck_p), (cv, cv_p)):
+    for k, p, k0 in ((ck, ck_p, ck0), (cv, cv_p, cv0)):
         torch.testing.assert_close(k[:, :, t].float(), p[:, :, t].float(),
                                    atol=STEP_ATOL, rtol=STEP_RTOL)
         keep = torch.arange(k.shape[2], device=k.device) != t
-        assert torch.equal(k[:, :, keep], p[:, :, keep])
+        assert torch.equal(k[:, :, keep], k0[:, :, keep])
+        assert torch.equal(p[:, :, keep], k0[:, :, keep])
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize('mask', ['masked', 'all_valid'])
 @pytest.mark.parametrize('dtype', [BF, torch.float32])
-def test_cross_ffn_step_kernel(cuda_device, dtype):
-    """Kernel 7, with one row whose mask has no valid key."""
-    x, _, _, ek, ev, mask, w = _step_args(cuda_device, dtype=dtype)
-    args = (x, ek, ev, mask) + tuple(w[k] for k in _CROSS_W)
+@pytest.mark.parametrize('N', STEP_NS)
+def test_cross_ffn_step_kernel(cuda_device, N, dtype, mask):
+    """Kernel 7, with masked keys (a row with none valid, a row with one)
+    or all keys valid; the encoder K/V untouched."""
+    x, _, _, ek, ev, m, w = _step_args(cuda_device, N=N, dtype=dtype,
+                                       mask=mask)
+    ek0, ev0 = ek.clone(), ev.clone()
+    args = (x, ek, ev, m) + tuple(w[k] for k in _CROSS_W)
     before = cross_ffn_step.launches
     got = cross_ffn_step(*args)
     want = cross_ffn_step_plain(*args)
@@ -685,6 +704,7 @@ def test_cross_ffn_step_kernel(cuda_device, dtype):
     assert cross_ffn_step.launches == before + 1 and got.dtype == dtype
     torch.testing.assert_close(got.float(), want.float(), atol=STEP_ATOL,
                                rtol=STEP_RTOL)
+    assert torch.equal(ek, ek0) and torch.equal(ev, ev0)
 
 
 @pytest.mark.requires_cuda

@@ -3,7 +3,7 @@
 on one CUDA GPU.
 
     python tools/torch_profile_slice.py
-        [--stages serve,train,decode,encoder,predict]
+        [--stages serve,train,decode,encoder,predict,fused_step]
         [--batch 512]
         [--train-batch 256] [--stem-mode xla|fused]
         [--sampler-variant dense|twostage] [--trace DIR]
@@ -43,6 +43,21 @@ Builds the full-width NRTR + TPS++ flagship with seeded random weights.
   LayerNorm, with or without the bf16 to f32 cast, and the cast where
   they run apart), launches and idle share. Like ``decode`` it reads an
   earlier tree's kernels too.
+* ``fused_step`` (bf16): the ``steps`` decode with ``use_fused_step`` at
+  B=512 and B=8 (``--batch`` is not read). Kernels 6 and 7 alone on one
+  layer's weights and the path's own encoder K/V: their device time by
+  internal launch (position in the call, kernel name, mean device ms;
+  kernel 6 over the 40 steps t = 0..39), launches a call, and the host
+  ms a call (the enqueue, no synchronisation); beside them the same
+  layer-step through the module path (``use_fused_step=False``: cuBLAS
+  products, PyTorch attention), its self-attention part and its
+  cross-attention + FFN part. Then the path: ``predict``,
+  and apart, ``extract_feat`` (the trunk), the module encoder and the
+  greedy decode (the 40 steps with the EOS check), with CUDA events; and
+  a profile of one ``predict``: its idle share and the host's time
+  blocked on the device (the trace's ``cuda*Synchronize`` calls, which
+  hold ``greedy_decode``'s wait on its exit flag). Like ``decode`` it
+  reads an earlier tree's kernels too.
 * ``train`` (f32 parameters and Adam state, bf16 autocast, dropout 0.1,
   Adam at 1e-4 with grad clip 5.0, random DICT90 labels): times the
   forward (``compute_loss``), the backward and the optimizer step of a
@@ -351,6 +366,163 @@ def serve_stage(dev, card, B, out_dir, stem_mode, variant):
         return traces
 
 
+def _launch_parts(trace, calls):
+    """[(position, kernel name, mean interval ms, mean exclusive ms)] of
+    the last ``calls`` calls of one entry point in a trace, by the
+    launch's position in its call, and the launches a call. A launch's
+    exclusive time is what it adds to the chain: its end less the later
+    of its start and the end of the launch before it (under dependent
+    launch a kernel starts before the one it follows ends, and its
+    interval holds that wait). The trace holds twice ``calls`` calls: the
+    profiler may miss the first kernels of its window."""
+    with open(trace) as f:
+        events = sorted((e for e in json.load(f)['traceEvents']
+                         if e.get('ph') == 'X' and e.get('cat') == 'kernel'),
+                        key=lambda e: e['ts'])
+    per = round(len(events) / (2 * calls))
+    first = len(events) - per * calls
+    excl = [e['ts'] + e['dur'] - max(e['ts'], p['ts'] + p['dur'])
+            for p, e in zip(events[first - 1:], events[first:])]
+    events = events[first:]
+    parts = []
+    for i in range(per):
+        ev = events[i::per]
+        name = ev[0]['name'].replace('(anonymous namespace)::', '')
+        parts.append((i, name.split('(')[0][:60],
+                      sum(e['dur'] for e in ev) / len(ev) / 1e3,
+                      sum(excl[i::per]) / len(ev) / 1e3))
+    return parts, per
+
+
+def _host_waits(trace):
+    """(ms, count) of the host's ``cuda*Synchronize`` calls in a trace."""
+    with open(trace) as f:
+        ev = [e for e in json.load(f)['traceEvents']
+              if e.get('ph') == 'X' and e.get('cat') == 'cuda_runtime' and
+              'Synchronize' in e.get('name', '')]
+    return sum(e['dur'] for e in ev) / 1e3, len(ev)
+
+
+def fused_step_stage(dev, card, out_dir):
+    """Kernels 6 and 7 by internal launch and their host ms a call, then
+    the ``steps`` + ``use_fused_step`` path split into its stages, at
+    B=512 and B=8."""
+    import time
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import build_recognizer, nrtr_tps_pp_cfg
+    from tps_pp_tpu_torch.models.decoders import greedy_decode
+    from tps_pp_tpu_torch.models.transformer import attend
+    from tps_pp_tpu_torch.ops.decode_step import (cross_ffn_step,
+                                                  self_attn_step)
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = nrtr_tps_pp_cfg(dtype='bfloat16', decode_mode='steps')
+    cfg['decoder'] = dict(cfg['decoder'], use_fused_step=True)
+    rec = build_recognizer(cfg, device=dev)
+    rec.init_weights(0)
+    m, dec = rec.model, rec.model.decoder
+    lc = rec.label_convertor
+    traces = []
+    for B in (512, 8):
+        img = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (B, 32, 128, 3)).astype(np.float32)).to(dev, torch.bfloat16)
+        vr = torch.ones(B, device=dev)
+        with torch.inference_mode():
+            feat = m.extract_feat(img)
+            enc = m.encoder(feat, vr)
+            carry, (enc_kvs, mask) = dec.decode_init(enc, vr)
+            ws = {k: v[0] for k, v in dec.step_weights().items()}
+            sa_w = (ws['wqkv'], ws['wfc1'], ws['ln1_s'], ws['ln1_b'])
+            cf_w = tuple(ws[k] for k in (
+                'wq2', 'wfc2', 'ln2_s', 'ln2_b', 'w1', 'b1', 'w2', 'b2',
+                'ln3_s', 'ln3_b'))
+            x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+                (B, 512)).astype(np.float32)).to(dev, torch.bfloat16)
+            (ck, cv), (ek, ev) = carry[0], enc_kvs[0]
+            S = dec.max_seq_len
+            calls = {
+                'kernel 6 (self_attn_step)': (S, lambda: [
+                    self_attn_step(x, ck, cv, t, *sa_w) for t in range(S)]),
+                'kernel 7 (cross_ffn_step)': (S, lambda: [
+                    cross_ffn_step(x, ek, ev, mask, *cf_w)
+                    for _ in range(S)])}
+            for what, (n, fn) in calls.items():
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                host = (time.perf_counter() - t0) / n * 1e3
+                torch.cuda.synchronize()
+                dev_ms = cuda_ms(fn, 3) / n
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    fn()
+                    torch.cuda.synchronize()
+                trace = os.path.join(out_dir, f'fused_step_{B}_{what[:8]}'
+                                     .replace(' ', '_') + '_trace.json')
+                prof.export_chrome_trace(trace)
+                parts, per = _launch_parts(trace, n)
+                print(f'fused_step B={B} {what}: {dev_ms:.4f} ms a call '
+                      f'(CUDA events, back to back), host {host:.4f} ms a '
+                      f'call, {per:g} launches a call [{card}]', flush=True)
+                for i, name, ms, ex in parts:
+                    print(f'  launch {i}: {ms:8.4f} ms interval, {ex:8.4f} '
+                          f'ms exclusive  {name}', flush=True)
+                traces.append(trace)
+            # the same layer-step on the module path, from its own
+            # decode_init (its caches and K/V layouts, the (N,1,1,TE) mask)
+            dec.use_fused_step = False
+            mcarry, (mkvs, mmask) = dec.decode_init(enc, vr)
+            dec.use_fused_step = True
+            layer, x3 = dec.layer_stack[0], x[:, None]
+            sa, (mck, mcv), (mek, mev) = layer.self_attn, mcarry[0], mkvs[0]
+            T = S + 1
+
+            def module_self(t):
+                y = layer.norm1(x3)
+                q = sa.split(sa.linear_q(y), dec.d_k)
+                mck[:, :, t:t + 1] = sa.split(sa.linear_k(y), dec.d_k)
+                mcv[:, :, t:t + 1] = sa.split(sa.linear_v(y), dec.d_v)
+                pos = (torch.arange(T, device=dev) <= t).float()
+                return x3 + sa.fc(attend(q, mck, mcv, pos, dec.d_k ** -0.5))
+
+            def module_cross():
+                x2 = x3 + layer.enc_attn.attend_cached(layer.norm2(x3), mek,
+                                                       mev, mmask)
+                return x2 + layer.mlp(layer.norm3(x2))
+            self_ms = cuda_ms(lambda: [module_self(t) for t in range(S)],
+                              3) / S
+            cross_ms = cuda_ms(lambda: [module_cross() for _ in range(S)],
+                               3) / S
+            print(f'fused_step B={B} module layer-step (use_fused_step='
+                  f'False): self-attention {self_ms:.4f} ms, cross-attention '
+                  f'+ FFN {cross_ms:.4f} ms a call (CUDA events, back to '
+                  f'back) [{card}]', flush=True)
+            del carry, enc_kvs, mcarry, mkvs
+            rec.decode_mode = 'steps'
+            end_idx, start_idx = lc.end_idx, lc.start_idx
+            stages = (
+                ('predict', lambda: rec.predict(img)),
+                ('trunk (extract_feat)', lambda: m.extract_feat(img)),
+                ('module encoder', lambda: m.encoder(feat, vr)),
+                ('greedy decode, 40 steps, EOS check', lambda: greedy_decode(
+                    dec, enc, vr, max_seq_len=S, start_idx=start_idx,
+                    end_idx=end_idx)))
+            for name, fn in stages:
+                print(f'fused_step B={B} {name:36s} {cuda_ms(fn, 3):9.3f} ms '
+                      f'[{card}]', flush=True)
+            trace = profiled(lambda: rec.predict(img),
+                             f'fused_step predict B={B}', card, out_dir)
+            wait, n_wait = _host_waits(trace)
+            print(f'fused_step B={B} predict: host blocked on the device '
+                  f'{wait:.3f} ms in {n_wait} cuda*Synchronize calls '
+                  f'(profiled) [{card}]', flush=True)
+            traces.append(trace)
+        torch.cuda.empty_cache()
+    return traces
+
+
 def train_stage(dev, card, B, out_dir):
     import numpy as np
     import torch
@@ -408,7 +580,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--stages', default='serve,train',
                     help='comma-separated: serve, train, decode, encoder, '
-                    'predict')
+                    'predict, fused_step')
     ap.add_argument('--batch', type=int, default=512)
     ap.add_argument('--train-batch', type=int, default=256)
     ap.add_argument('--stem-mode', default='xla', choices=('xla', 'fused'),
@@ -444,6 +616,9 @@ def main():
         torch.cuda.empty_cache()
     if 'decode' in stages:
         traces += decode_stage(dev, card, args.batch, out_dir)
+        torch.cuda.empty_cache()
+    if 'fused_step' in stages:
+        traces += fused_step_stage(dev, card, out_dir)
         torch.cuda.empty_cache()
     if 'train' in stages:
         traces.append(train_stage(dev, card, args.train_batch, out_dir))

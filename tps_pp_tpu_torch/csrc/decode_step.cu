@@ -22,371 +22,769 @@
 // The TPU kernels hold a batch block's caches or encoder K/V and all the
 // layer's weights in VMEM for one launch, and, because Pallas aliases the
 // caches, write the whole cache block back every step: twice the cache
-// traffic of an in-place slot update, which is what made them lose to
-// XLA's loop at large batch on the TPU (tps_pp_tpu/apis/flagship.py:53-58).
-// Here each entry point is a few launches: a LayerNorm that also keeps the
-// f32 copy of x, a WMMA GEMM with fused epilogues (bias, GELU, residual,
-// f32 or bf16 out; 64 x 64 tiles, unpipelined: these products have N <= 512
-// rows), and one attention kernel for both, one
-// warp per (row, head) (d_k = 64: two dims per lane; scores of a warp in
-// shared memory). The self-attention reads slots 0..t-1 and writes slot t
-// only.
+// traffic of an in-place slot update. An SM holds 227 KB, not the layer's
+// 2.5 MB of weights, so here each entry point is three launches chained
+// with programmatic dependent launch, built from the whole decode's blocks
+// (decode_blocks.cuh):
+//
+// * LayerNorm + the first product (ln_product_kernel): a block owns 16 rows
+//   and W in {32, 64, 128} columns of the product; it stages its rows of x
+//   and the affine in shared memory, normalises them there (8 threads a
+//   row), then streams its columns of the weights through a ring of 64-deep
+//   cp.async stages (the first issued before the wait on the kernel
+//   before: no kernel writes the weights) into mma.sync with f32
+//   accumulation, K split over the warps, and stores f32 (qkv, or q). The
+//   launcher picks W and the ring's depth from N, the SM count and the
+//   shared memory.
+// * The attention: attend_keys_kernel, one warp a (row, head), lanes over
+//   keys, whole K rows in 16-byte loads, the keys that earlier kernels
+//   wrote loaded before the wait; the self-attention stores this step's
+//   k/v to slot t rounded to X and reads them unrounded.
+// * Self-attention: the output product + residual on step_gemm_kernel (the
+//   skinny-M split-K GEMM; plan from N and the SM count), its residual x
+//   read in place of a copy, out in X.
+// * Cross + FFN: ffn_cluster_kernel, one cluster of CS blocks a band of 16
+//   rows, each block 1/CS of every product's columns: x2 = x + att @ Wfc
+//   kept in registers; LN3's row statistics summed over the cluster
+//   through distributed shared memory (two passes, in rank order); each
+//   block writes its columns of bf16(LN3(x2)) and gathers the others' from
+//   the cluster, then its columns of GELU(. @ W1 + b1), gathered likewise,
+//   then x_out = x2 + (. @ W2 + b2). One ring streams the three products'
+//   weight columns, so W1's and W2's loads are in flight during the
+//   exchanges; it is 8 stages deep when every cluster of the grid is
+//   resident at once with that, else 4. No f32 copy of the residual stream
+//   goes through memory.
 //
 // Bound on the H100 at N=512 (flagship: D=512, H=8, T=41, TE=64, DI=256):
 // memory. The self-attention step moves the weights (2 MB bf16) and t
 // cache slots of K and V (1.05 MB per slot), ~21 MB at the mean step t=20,
 // ~7 us at 3.35 TB/s; the cross step reads 67 MB of encoder K/V, ~20 us.
-// Both are far below that in this first version: each is 4-7 launches of
-// a few microseconds, the attention's key loop is serial within a warp,
-// and the host loop of the `steps` decode issues 2 x 6 of them per step.
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+// A block of the row-block kernels here is 4 warps, one a scheduler, so
+// their time is the latency of each warp's chain of instructions and
+// memory round trips, not their bytes; the notes at each kernel say what
+// its layout does about that.
+#include "decode_blocks.cuh"
 
 namespace {
 
-// ---- the products and the LayerNorm of the step --------------------------
-constexpr int kBM = 64, kBN = 64, kBK = 32;
-constexpr int kGemmThreads = 128;  // 4 warps, 2 x 2, each 32 x 32
-constexpr int kALd = kBK + 8;      // bf16 elements
-constexpr int kBLd = kBN + 8;      // bf16 elements
-constexpr int kCLd = kBN + 4;      // f32 elements
+// ---- row blocks: 16 rows a block, weights streamed -------------------------
+constexpr int kRbM = 16;          // rows a block (one m16 tile)
+constexpr int kRbK = 64;          // depth of a ring stage
+constexpr int kRbThreads = 128;   // 4 warps, a quarter of the columns each
+constexpr int kRbMaxNF = 4;       // n fragments a warp: <= 128 columns
+constexpr int kStepMaxD = 512;    // the LayerNorm prologue's row width
+constexpr float kQScale = 0.125f; // 1 / sqrt(d_k)
 
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_bf16_kernel(const bf16* __restrict__ A, int lda,
-                 const bf16* __restrict__ B, int ldb, void* C, int ldc, int M,
-                 int N, int K, const float* __restrict__ bias,
-                 const float* residual, int ldr, int gelu, int out_bf16) {
-  __shared__ __align__(128) bf16 As[kBM * kALd];
-  __shared__ __align__(128) bf16 Bs[kBK * kBLd];
-  __shared__ __align__(128) float Cs[kBM * kCLd];
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int bm = blockIdx.y * kBM, bn = blockIdx.x * kBN;
+// The weights' ring of S slots (4 or 8, the launcher's choice): stage g
+// holds rows k0 .. k0 + 63 of w columns of B (w in {32, 64, 128}) in slot
+// g % S, rows of bld elements (w + 8 at most: 16 bytes of padding, free of
+// bank conflicts for ldmatrix). Each thread's copies of a stage are one
+// cp.async group; S - 1 stages are in flight. A block here runs one warp
+// a scheduler, so its time is the latency of each warp's instruction
+// chain: the addressing is shifts and masks, and the stages are deep.
+// (Tracked by an mbarrier a stage, with cp.async.mbarrier.arrive, and 32
+// deep with divisions in the addressing, a stage cost about a memory
+// round trip on the H100.)
+template <int S>
+struct RbRing {
+  bf16* bs;
+  int bld;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int v = tid; v < kBM * kBK / 8; v += kGemmThreads) {
-      const int r = v / (kBK / 8), c8 = (v % (kBK / 8)) * 8;
-      const int gr = bm + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < M)
-        val = *reinterpret_cast<const uint4*>(A + (size_t)gr * lda + k0 + c8);
-      *reinterpret_cast<uint4*>(&As[r * kALd + c8]) = val;
+  __device__ __forceinline__ void fill(int g, const bf16* B, int ldb, int c0,
+                                       int k0, int w, int tid) const {
+    bf16* dst = stage(g);
+    const int lv = w == 128 ? 4 : w == 64 ? 3 : 2;  // log2(w / 8)
+    const bf16* src = B + (size_t)k0 * ldb + c0;
+    for (int e = tid; e < kRbK << lv; e += kRbThreads) {
+      const int r = e >> lv, c = (e & ((1 << lv) - 1)) << 3;
+      ptx::cp_async16(dst + r * bld + c, src + r * ldb + c);
     }
-    for (int v = tid; v < kBK * kBN / 8; v += kGemmThreads) {
-      const int r = v / (kBN / 8), c8 = (v % (kBN / 8)) * 8;
-      *reinterpret_cast<uint4*>(&Bs[r * kBLd + c8]) =
-          *reinterpret_cast<const uint4*>(B + (size_t)(k0 + r) * ldb + bn +
-                                          c8);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[(wm * 32 + i * 16) * kALd + kk],
-                               kALd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], &Bs[kk * kBLd + wn * 32 + j * 16], kBLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
+
+  __device__ __forceinline__ bf16* stage(int g) const {
+    return bs + (g & (S - 1)) * kRbK * bld;
+  }
+};
+
+// acc[j] += A[0:16, ka:ka+64] @ Bs[0:64, wc + 8j : wc + 8j + 8], j < nf:
+// A in shared memory (row stride ald), one ring stage Bs (stride bld).
+static __device__ __forceinline__ void rb_mma(const bf16* As, int ald, int ka,
+                                              const bf16* Bs, int bld, int wc,
+                                              int nf,
+                                              float (&acc)[kRbMaxNF][4],
+                                              int lane) {
+  const int mi = lane >> 3;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int kk = 0; kk < kRbK; kk += 16) {
+    uint32_t a[4];
+    ptx::ldsm_x4(a, As + (lane & 15) * ald + ka + kk + (lane >> 4) * 8);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[(wm * 32 + i * 16) * kCLd + wn * 32 + j * 16],
-                              acc[i][j], kCLd, wmma::mem_row_major);
+    for (int j = 0; j < kRbMaxNF; j += 2) {
+      if (j >= nf) break;
+      uint32_t b[4];
+      ptx::ldsm_x4_t(b, Bs + (kk + (mi & 1) * 8 + (lane & 7)) * bld + wc +
+                            j * 8 + (mi >> 1) * 8);
+      ptx::mma_bf16(acc[j], a, b[0], b[1]);
+      if (j + 1 < nf) ptx::mma_bf16(acc[j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Consumes ring stages g .. g + nst - 1 as the k-steps of A @ (the stages'
+// columns) into acc. Before stage g a thread waits for its copies of it,
+// the block syncs (so every warp is done with stage g - 1), and issue(g +
+// S - 1) refills g - 1's slot (issue commits a group, empty past the last
+// stage). A caller that then writes what the warps read here syncs first.
+template <int S, typename Issue>
+static __device__ __forceinline__ void rb_product(
+    const RbRing<S>& ring, const Issue& issue, int& g, const bf16* A, int ald,
+    int nst, int wc, int nf, float (&acc)[kRbMaxNF][4], int lane) {
+#pragma unroll
+  for (int j = 0; j < kRbMaxNF; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  for (int i = 0; i < nst; ++i, ++g) {
+    ptx::cp_async_wait_group<S - 2>();
+    __syncthreads();
+    issue(g + S - 1);
+    rb_mma(A, ald, i * kRbK, ring.stage(g), ring.bld, wc, nf, acc, lane);
+  }
+}
+
+// ---- LayerNorm + product --------------------------------------------------
+// C (N, Nout) f32 = bf16(LN(x) * s + b) @ B (D, Nout). Grid (Nout / W,
+// ceil(N / 16)). A block here is 4 warps, one a scheduler, so its time is
+// the latency of each warp's chain; both phases are laid out for
+// independent work. The LayerNorm's affine (before the wait) and the
+// band's rows of x (after it) land in shared memory by cp.async; 8
+// threads a row then normalise all 16 rows at once, each thread's 64
+// values of its row read once, in 16-byte vectors, and held in registers
+// (8-lane sums). The product: warp w takes the
+// k16 slice w of every 64-deep stage over all W columns (W / 8
+// independent mma chains), and the four warps' partial sums are added in
+// warp order through shared memory (the ring, drained) at the end. (A
+// warp a quarter of the columns, over all of K, with rows normalised from
+// global memory four a warp, was slower on the H100.) Shared memory:
+// A (16 x (D + 8) bf16), the x band (16 rows of D of X and 16 bytes, free
+// of bank conflicts), the affine (2 x D f32), the ring.
+template <typename X, int S>
+__global__ void __launch_bounds__(kRbThreads)
+ln_product_kernel(const X* __restrict__ x, const float* __restrict__ ln_s,
+                  const float* __restrict__ ln_b, const bf16* __restrict__ B,
+                  float* __restrict__ C, int N, int D, int Nout, int W) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ald = D + 8;
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  constexpr int VX = 16 / (int)sizeof(X);  // values a 16-byte vector
+  const int xld = D + VX;                  // x band row stride
+  X* xs = reinterpret_cast<X*>(As + kRbM * ald);
+  float* aff = reinterpret_cast<float*>(xs + kRbM * xld);  // s, then b
+  const RbRing<S> ring = {reinterpret_cast<bf16*>(aff + 2 * D), W + 8};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.y * kRbM, c0 = blockIdx.x * W;
+  const int rows = min(kRbM, N - m0), nst = D / kRbK;
+  for (int v = tid; v < D / 4; v += kRbThreads) {
+    ptx::cp_async16(aff + 4 * v, ln_s + 4 * v);
+    ptx::cp_async16(aff + D + 4 * v, ln_b + 4 * v);
+  }
+  auto issue = [&](int g) {
+    if (g < nst) ring.fill(g, B, Nout, c0, g * kRbK, W, tid);
+    ptx::cp_async_commit();
+  };
+  for (int g = 0; g < S - 1; ++g) issue(g);
+  ptx::grid_dep_wait();
+  ptx::grid_dep_launch();
+
+  const int xv = D / VX;  // 16-byte vectors a row
+  for (int r = 0; r < rows; ++r)
+    for (int v = tid; v < xv; v += kRbThreads)
+      ptx::cp_async16(reinterpret_cast<uint4*>(xs + r * xld) + v,
+                      reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * D) +
+                          v);
+  ptx::cp_async_commit();
+  ptx::cp_async_wait_all();
   __syncthreads();
-  for (int e = tid; e < kBM * kBN; e += kGemmThreads) {
-    const int r = e / kBN, c = e % kBN;
-    const int gr = bm + r, gc = bn + c;
-    if (gr >= M) continue;
-    float v = Cs[r * kCLd + c];
-    if (bias) v += bias[gc];
-    if (gelu) v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-    if (residual) v = residual[(size_t)gr * ldr + gc] + v;
-    if (out_bf16)
-      reinterpret_cast<bf16*>(C)[(size_t)gr * ldc + gc] = __float2bfloat16(v);
-    else
-      reinterpret_cast<float*>(C)[(size_t)gr * ldc + gc] = v;
+  {
+    // row r, its 16-byte vectors p + 8 i (D / (8 VX) <= 64 / VX of them)
+    constexpr int NV = 64 / VX;
+    const int r = tid >> 3, p = tid & 7, nv = xv / 8;
+    const uint4* xr = reinterpret_cast<const uint4*>(xs + r * xld);
+    float v[NV][VX];
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i < nv) {
+        const uint4 u = xr[p + 8 * i];
+        if constexpr (VX == 8) {
+          const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            v[i][2 * k] = __uint_as_float(w[k] << 16);
+            v[i][2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+          }
+        } else {
+          v[i][0] = __uint_as_float(u.x);
+          v[i][1] = __uint_as_float(u.y);
+          v[i][2] = __uint_as_float(u.z);
+          v[i][3] = __uint_as_float(u.w);
+        }
+      }
+    // every lane runs the sums (rows past N on whatever the band holds:
+    // the shuffles need the whole warp), rows past N store zeros
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int k = 0; k < VX; ++k)
+        if (i < nv) sum += v[i][k];
+    for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    const float mu = sum / (float)D;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+#pragma unroll
+      for (int k = 0; k < VX; ++k)
+        if (i < nv) q += (v[i][k] - mu) * (v[i][k] - mu);
+    for (int o = 1; o < 8; o <<= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+    const float rstd = rsqrtf(q / (float)D + 1e-5f);
+    bf16* yr = As + r * ald;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (i < nv) {
+        const int c = (p + 8 * i) * VX;
+#pragma unroll
+        for (int k = 0; k < VX; k += 2) {
+          const float2 s2 = load2(aff + c + k, 0);
+          const float2 b2 = load2(aff + D + c + k, 0);
+          const float a = r < rows ? (v[i][k] - mu) * rstd * s2.x + b2.x : 0.f;
+          const float b = r < rows ? (v[i][k + 1] - mu) * rstd * s2.y + b2.y
+                                   : 0.f;
+          store2(yr + c + k, 0, a, b);
+        }
+      }
+  }
+
+  // the product, K split over the warps
+  constexpr int kMaxNF = 16;  // W <= 128
+  const int nf = W / 8, mi = lane >> 3, kk = warp * 16;
+  float acc[kMaxNF][4];
+#pragma unroll
+  for (int j = 0; j < kMaxNF; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  for (int g = 0; g < nst; ++g) {
+    ptx::cp_async_wait_group<S - 2>();
+    __syncthreads();  // stage g landed; every warp is done with g - 1
+    issue(g + S - 1);
+    const bf16* Bs = ring.stage(g);
+    uint32_t a[4];
+    ptx::ldsm_x4(a, As + (lane & 15) * ald + g * kRbK + kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < kMaxNF; j += 2) {
+      if (j >= nf) break;
+      uint32_t b[4];
+      ptx::ldsm_x4_t(b, Bs + (kk + (mi & 1) * 8 + (lane & 7)) * ring.bld +
+                            j * 8 + (mi >> 1) * 8);
+      ptx::mma_bf16(acc[j], a, b[0], b[1]);
+      ptx::mma_bf16(acc[j + 1], a, b[2], b[3]);
+    }
+  }
+  // the warps' partial tiles (16 x W f32 each) into the drained ring,
+  // then each thread sums four columns of a row over the warps, in order
+  ptx::cp_async_wait_all();
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(ring.bs);
+  const int gr = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kMaxNF; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (j < nf)
+        *reinterpret_cast<float2*>(part + (warp * kRbM + gr + 8 * h) * W +
+                                   j * 8 + 2 * q) =
+            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+  __syncthreads();
+  const int w4 = W / 4;
+  for (int e = tid; e < rows * w4; e += kRbThreads) {
+    const int r = e / w4, c = (e % w4) * 4;
+    float4 v = *reinterpret_cast<const float4*>(part + r * W + c);
+#pragma unroll
+    for (int w = 1; w < 4; ++w) {
+      const float4 u =
+          *reinterpret_cast<const float4*>(part + (w * kRbM + r) * W + c);
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    *reinterpret_cast<float4*>(C + (size_t)(m0 + r) * Nout + c0 + c) = v;
   }
 }
 
-// One warp per row.
-__global__ void layernorm_kernel(const float* __restrict__ x, int ldx,
-                                 void* __restrict__ y, int ldy, int M, int D,
-                                 float eps, const float* __restrict__ scale,
-                                 const float* __restrict__ bias,
-                                 int out_bf16) {
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const float* xr = x + (size_t)row * ldx;
-  float s = 0.f;
-  for (int d = lane; d < D; d += 32) s += xr[d];
-  const float mu = warp_sum(s) / (float)D;
-  float v = 0.f;
-  for (int d = lane; d < D; d += 32) {
-    const float t = xr[d] - mu;
-    v += t * t;
+size_t ln_product_smem(int D, int W, size_t x_bytes, int S) {
+  return sizeof(bf16) * ((size_t)kRbM * (D + 8) +
+                         (size_t)S * kRbK * (W + 8)) +
+         x_bytes * kRbM * D + 16 * kRbM + 2 * sizeof(float) * D;
+}
+
+// The current device's SM count, read once a device.
+int sm_count() {
+  static int sms[64];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 64) dev = 63;
+  if (!sms[dev]) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    sms[dev] = n > 0 ? n : 1;
   }
-  const float rstd = rsqrtf(warp_sum(v) / (float)D + eps);
-  for (int d = lane; d < D; d += 32) {
-    float o = (xr[d] - mu) * rstd;
-    if (scale) o = o * scale[d] + bias[d];
-    if (out_bf16)
-      reinterpret_cast<bf16*>(y)[(size_t)row * ldy + d] = __float2bfloat16(o);
-    else
-      reinterpret_cast<float*>(y)[(size_t)row * ldy + d] = o;
-  }
+  return sms[dev];
 }
 
-// C[M,N] = epilogue(A[M,K] @ B[K,N]): bf16 operands, f32 accumulation;
-// epilogue = (+bias[N]) -> (erf-GELU) -> (residual[M,N] +) -> f32 or bf16.
-// `residual` may alias C (in-place residual add). Needs K % 32 == 0,
-// N % 64 == 0, lda/ldb % 8 == 0 and 16-byte aligned A/B.
-int tpk_launch_gemm(const bf16* A, int lda, const bf16* B, int ldb, void* C,
-                    int ldc, int M, int N, int K, const float* bias,
-                    const float* residual, int ldr, int gelu, int out_bf16,
-                    cudaStream_t stream) {
-  if (K % kBK || N % kBN || lda % 8 || ldb % 8 ||
-      (reinterpret_cast<uintptr_t>(A) & 15) ||
-      (reinterpret_cast<uintptr_t>(B) & 15))
-    return (int)cudaErrorInvalidValue;
-  if (M == 0) return 0;
-  dim3 grid(N / kBN, (M + kBM - 1) / kBM);
-  gemm_bf16_kernel<<<grid, kGemmThreads, 0, stream>>>(
-      A, lda, B, ldb, C, ldc, M, N, K, bias, residual, ldr, gelu, out_bf16);
-  TPK_CHECK();
-  return 0;
-}
-
-// Row LayerNorm of f32 rows: (x - mean) * rsqrt(var + eps), then the affine
-// when scale/bias are given; output f32 or bf16.
-int tpk_launch_layernorm(const float* x, int ldx, void* y, int ldy, int M,
-                         int D, float eps, const float* scale,
-                         const float* bias, int out_bf16,
-                         cudaStream_t stream) {
-  if (M == 0) return 0;
-  const int rows_per_block = 8;
-  layernorm_kernel<<<(M + rows_per_block - 1) / rows_per_block,
-                     rows_per_block * 32, 0, stream>>>(
-      x, ldx, y, ldy, M, D, eps, scale, bias, out_bf16);
-  TPK_CHECK();
-  return 0;
-}
-
-constexpr int kWarps = 4;
-constexpr int kMaxKeys = 256;
-constexpr int kDk = 64;
-
-static __device__ __forceinline__ float to_f32(bf16 v) {
-  return __bfloat162float(v);
-}
-static __device__ __forceinline__ float to_f32(float v) { return v; }
-
-// One warp per row: x32 = f32(x); y = bf16((x - mean) * rstd * s + b).
+// (W, S): W in {128, 64, 32} (dividing Nout) and 8 or 4 ring slots; the
+// fewest waves of blocks (as many resident an SM as its 228 KB of shared
+// memory hold, at most 4), then the deeper ring, then, with a block for
+// every SM, the widest W, else the narrowest (more blocks in flight).
 template <typename X>
-__global__ void ln_affine_kernel(const X* __restrict__ x,
-                                 float* __restrict__ x32,
-                                 bf16* __restrict__ y,
-                                 const float* __restrict__ s,
-                                 const float* __restrict__ b, int M, int D,
-                                 float eps) {
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const X* xr = x + (size_t)row * D;
-  float* xo = x32 + (size_t)row * D;
-  float sum = 0.f;
-  for (int d = lane; d < D; d += 32) {
-    const float v = to_f32(xr[d]);
-    xo[d] = v;
-    sum += v;
-  }
-  const float mu = warp_sum(sum) / (float)D;
-  float var = 0.f;
-  for (int d = lane; d < D; d += 32) {
-    const float u = xo[d] - mu;
-    var += u * u;
-  }
-  const float rstd = rsqrtf(warp_sum(var) / (float)D + eps);
-  for (int d = lane; d < D; d += 32)
-    y[(size_t)row * D + d] = __float2bfloat16((xo[d] - mu) * rstd * s[d] +
-                                              b[d]);
+int launch_ln_product(const X* x, const float* s, const float* b,
+                      const bf16* B, float* C, int N, int D, int Nout,
+                      int sms, cudaStream_t st) {
+  const long long bands = (N + kRbM - 1) / kRbM;
+  int W = 0, S = 0;
+  long long best[3] = {0, 0, 0};
+  for (int slots : {8, 4})
+    for (int w : {128, 64, 32}) {
+      if (Nout % w) continue;
+      const long long blocks = Nout / w * bands;
+      const long long res = std::min<long long>(
+          4, 227 * 1024 / (ln_product_smem(D, w, sizeof(X), slots) + 1024));
+      if (res < 1) continue;
+      const long long key[3] = {(blocks + sms * res - 1) / (sms * res),
+                                -slots, blocks >= sms ? -w : w};
+      if (!W || std::lexicographical_compare(key, key + 3, best, best + 3)) {
+        W = w;
+        S = slots;
+        std::copy(key, key + 3, best);
+      }
+    }
+  const size_t smem = ln_product_smem(D, W, sizeof(X), S);
+  auto kernel = S == 8 ? ln_product_kernel<X, 8> : ln_product_kernel<X, 4>;
+  TPK_TRY(allow_smem(kernel, smem));
+  return launch_pdl(kernel, dim3(Nout / W, bands), kRbThreads, smem, st, 1,
+                    x, s, b, B, C, N, D, Nout, W);
 }
 
-// One warp per (row n, head h): the softmax attention of q (f32 rows of
-// stride q_rs, unscaled) over the keys 0..nkeys-1 of k/v (N, H, kv_len, 64)
-// of type KV, with f32 weights. mask (N, nkeys): key j valid iff mask > 0, else
-// -1e9 (null = all valid). With t_new >= 0 this step's k/v are the f32
-// values at q + HD and q + 2HD: they are stored to slot t_new, rounded to
-// KV, and read there unrounded. att (N, HD) bf16.
-template <typename KV>
-__global__ void __launch_bounds__(kWarps * 32)
-attend_step_kernel(const float* __restrict__ q, int q_rs,
-                   KV* __restrict__ k, KV* __restrict__ v, int kv_len,
-                   int nkeys, const float* __restrict__ mask, int t_new,
-                   bf16* __restrict__ att, int N, int H, float scale) {
-  __shared__ float sc[kWarps][kMaxKeys];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int w = blockIdx.x * kWarps + warp;  // = n * H + h
-  if (w >= N * H) return;
-  const int n = w / H, h = w % H, HD = H * kDk;
-  const float* row = q + (size_t)n * q_rs + h * kDk;
-  float2 qv = load2(row, lane);
-  qv.x *= scale;
-  qv.y *= scale;
-  KV* kr = k + (size_t)w * kv_len * kDk;
-  KV* vr = v + (size_t)w * kv_len * kDk;
-  float2 kt = make_float2(0.f, 0.f), vt = kt;
-  if (t_new >= 0) {
-    kt = load2(row + HD, lane);
-    vt = load2(row + 2 * HD, lane);
-    store2(kr + (size_t)t_new * kDk, lane, kt.x, kt.y);
-    store2(vr + (size_t)t_new * kDk, lane, vt.x, vt.y);
-  }
-  const float* mr = mask ? mask + (size_t)n * nkeys : nullptr;
-  float m = -INFINITY;
-#pragma unroll 4
-  for (int j = 0; j < nkeys; ++j) {
-    const float2 kf = j == t_new ? kt : load2(kr + (size_t)j * kDk, lane);
-    float s = warp_sum(qv.x * kf.x + qv.y * kf.y);
-    if (mr && !(mr[j] > 0.f)) s = -1e9f;
-    if (lane == 0) sc[warp][j] = s;
-    m = fmaxf(m, s);
-  }
-  __syncwarp();
-  float sum = 0.f;
-  for (int j = 0; j < nkeys; ++j) sum += expf(sc[warp][j] - m);
-  float ox = 0.f, oy = 0.f;
-#pragma unroll 4
-  for (int j = 0; j < nkeys; ++j) {
-    const float p = expf(sc[warp][j] - m) / sum;
-    const float2 vf = j == t_new ? vt : load2(vr + (size_t)j * kDk, lane);
-    ox += p * vf.x;
-    oy += p * vf.y;
-  }
-  store2(att + (size_t)n * HD + h * kDk, lane, ox, oy);
+// ---- fc + residual -> LN3 -> W1 + GELU -> W2 + b2 + residual -------------
+// Grid (1, ceil(N / 16), CS) in clusters of CS blocks along z: cluster =
+// band of 16 rows, block rank q = columns q sd .. (q+1) sd - 1 of fc and
+// W2 (sd = D / CS) and q si .. of W1 (si = DI / CS). Shared memory: A
+// (16 x (max(D, HD) + 8) bf16: att, then bf16(LN3(x2))), H (16 x (DI + 8)
+// bf16), the ring, and the row sums.
+struct FfnLayout {
+  size_t a, h, ring, red, bytes;
+  int ald, hld, bld;
+};
+
+static __host__ __device__ FfnLayout ffn_layout(int D, int HD, int DI,
+                                                int CS, int S) {
+  FfnLayout l;
+  l.ald = (D > HD ? D : HD) + 8;
+  l.hld = DI + 8;
+  l.bld = (D / CS > DI / CS ? D / CS : DI / CS) + 8;
+  l.a = 0;
+  l.h = l.a + sizeof(bf16) * kRbM * l.ald;
+  l.ring = l.h + sizeof(bf16) * kRbM * l.hld;
+  l.red = l.ring + sizeof(bf16) * S * kRbK * l.bld;
+  // red (4 warps x 16 rows), two passes' partials and sums (16 rows each)
+  l.bytes = l.red + sizeof(float) * (4 * kRbM + 4 * kRbM);
+  return l;
 }
 
-constexpr int kLnRows = 8;  // rows (warps) per LayerNorm block
+template <typename X, int S>
+__global__ void __launch_bounds__(kRbThreads)
+ffn_cluster_kernel(const X* __restrict__ x, const bf16* __restrict__ att,
+                   const bf16* __restrict__ wfc,
+                   const float* __restrict__ ln_s,
+                   const float* __restrict__ ln_b,
+                   const bf16* __restrict__ w1, const float* __restrict__ b1,
+                   const bf16* __restrict__ w2, const float* __restrict__ b2,
+                   X* __restrict__ out, int N, int D, int HD, int DI) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CS = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const FfnLayout L = ffn_layout(D, HD, DI, CS, S);
+  bf16* As = reinterpret_cast<bf16*>(smem + L.a);
+  bf16* Hs = reinterpret_cast<bf16*>(smem + L.h);
+  float* red = reinterpret_cast<float*>(smem + L.red);   // [4][16]
+  float* part = red + 4 * kRbM;                           // [2][16]
+  float* stat = part + 2 * kRbM;                          // [2][16]
+  const RbRing<S> ring = {reinterpret_cast<bf16*>(smem + L.ring), L.bld};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, q4 = lane & 3;
+  const int m0 = blockIdx.y * kRbM, rows = min(kRbM, N - m0);
+  const int sd = D / CS, si = DI / CS;
+  const int n0 = HD / kRbK, n1 = D / kRbK, n2 = DI / kRbK;
+  const int total = n0 + n1 + n2;
+  auto issue = [&](int g) {
+    if (g < n0)
+      ring.fill(g, wfc, D, rank * sd, g * kRbK, sd, tid);
+    else if (g < n0 + n1)
+      ring.fill(g, w1, DI, rank * si, (g - n0) * kRbK, si, tid);
+    else if (g < total)
+      ring.fill(g, w2, D, rank * sd, (g - n0 - n1) * kRbK, sd, tid);
+    ptx::cp_async_commit();
+  };
+  for (int g = 0; g < S - 1; ++g) issue(g);
+  // this thread's columns of LN3's affine, b1 and b2, and (after the wait)
+  // of x, all loaded before any store: a load after a store that may alias
+  // it would wait for it
+  const int nfd = sd / 32, wcd = warp * (sd / 4);
+  const int nfi = si / 32, wci = warp * (si / 4);
+  float2 lns[kRbMaxNF], lnb[kRbMaxNF], bb1[kRbMaxNF], bb2[kRbMaxNF];
+  float2 xv[kRbMaxNF][2];
+#pragma unroll
+  for (int j = 0; j < kRbMaxNF; ++j) {
+    const int cd = rank * sd + wcd + j * 8 + 2 * q4;
+    const int ci = rank * si + wci + j * 8 + 2 * q4;
+    if (j < nfd) {
+      lns[j] = __ldg(reinterpret_cast<const float2*>(ln_s + cd));
+      lnb[j] = __ldg(reinterpret_cast<const float2*>(ln_b + cd));
+      bb2[j] = __ldg(reinterpret_cast<const float2*>(b2 + cd));
+    }
+    if (j < nfi) bb1[j] = __ldg(reinterpret_cast<const float2*>(b1 + ci));
+  }
+  ptx::grid_dep_wait();
+  ptx::grid_dep_launch();
+  const X* xb = x + (size_t)m0 * D + rank * sd + wcd;
+#pragma unroll
+  for (int j = 0; j < kRbMaxNF; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = gr + 8 * h;
+      xv[j][h] = j < nfd && r < rows
+                     ? load2(xb + (size_t)r * D + j * 8 + 2 * q4, 0)
+                     : make_float2(0.f, 0.f);
+    }
 
-int launch_ln_affine(const void* x, int is_bf16, float* x32, void* y,
-                     const float* s, const float* b, int M, int D,
-                     cudaStream_t st) {
-  const int blocks = (M + kLnRows - 1) / kLnRows, threads = kLnRows * 32;
-  if (is_bf16)
-    ln_affine_kernel<bf16><<<blocks, threads, 0, st>>>(
-        (const bf16*)x, x32, (bf16*)y, s, b, M, D, 1e-5f);
-  else
-    ln_affine_kernel<float><<<blocks, threads, 0, st>>>(
-        (const float*)x, x32, (bf16*)y, s, b, M, D, 1e-5f);
-  TPK_CHECK();
+  // the band's rows of att (zeros past N)
+  const int av = HD / 8;
+  for (int e = tid; e < kRbM * av; e += kRbThreads) {
+    const int r = e / av, c = (e % av) * 8;
+    if (r < rows)
+      ptx::cp_async16(As + r * L.ald + c, att + (size_t)(m0 + r) * HD + c);
+    else
+      *reinterpret_cast<uint4*>(As + r * L.ald + c) = make_uint4(0, 0, 0, 0);
+  }
+  ptx::cp_async_commit();
+  ptx::cp_async_wait_all();
+  __syncthreads();
+
+  // x2 = x + att @ Wfc[:, this block's columns], kept in registers
+  float x2[kRbMaxNF][4];
+  int g = 0;
+  rb_product(ring, issue, g, As, L.ald, n0, wcd, nfd, x2, lane);
+  float lo = 0.f, hi = 0.f;
+#pragma unroll
+  for (int j = 0; j < kRbMaxNF; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (j >= nfd) continue;
+      x2[j][2 * h] = xv[j][h].x + x2[j][2 * h];
+      x2[j][2 * h + 1] = xv[j][h].y + x2[j][2 * h + 1];
+      (h ? hi : lo) += x2[j][2 * h] + x2[j][2 * h + 1];
+    }
+
+  // sums over the cluster of the band's rows: this thread's rows gr and
+  // gr + 8, summed over the quad, the warps and then the cluster's blocks
+  // in rank order into stat[pass][row]
+  auto cluster_row_sums = [&](float a, float b, int pass) {
+    a += __shfl_xor_sync(0xffffffffu, a, 1);
+    a += __shfl_xor_sync(0xffffffffu, a, 2);
+    b += __shfl_xor_sync(0xffffffffu, b, 1);
+    b += __shfl_xor_sync(0xffffffffu, b, 2);
+    if (q4 == 0) {
+      red[warp * kRbM + gr] = a;
+      red[warp * kRbM + gr + 8] = b;
+    }
+    __syncthreads();
+    float* pp = part + pass * kRbM;
+    if (tid < kRbM)
+      pp[tid] = red[tid] + red[kRbM + tid] + red[2 * kRbM + tid] +
+                red[3 * kRbM + tid];
+    cluster.sync();
+    if (tid < kRbM) {
+      float s = 0.f;
+      for (int c = 0; c < CS; ++c) s += cluster.map_shared_rank(pp, c)[tid];
+      stat[pass * kRbM + tid] = s;
+    }
+    __syncthreads();
+  };
+  cluster_row_sums(lo, hi, 0);
+  const float mu[2] = {stat[gr] / (float)D, stat[gr + 8] / (float)D};
+  lo = hi = 0.f;
+#pragma unroll
+  for (int j = 0; j < kRbMaxNF; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (j >= nfd) continue;
+      const float a = x2[j][2 * h] - mu[h], b = x2[j][2 * h + 1] - mu[h];
+      (h ? hi : lo) += a * a + b * b;
+    }
+  cluster_row_sums(lo, hi, 1);
+  const float rstd[2] = {rsqrtf(stat[kRbM + gr] / (float)D + 1e-5f),
+                         rsqrtf(stat[kRbM + gr + 8] / (float)D + 1e-5f)};
+  // this block's columns of bf16(LN3(x2)) into A, then the cluster's
+#pragma unroll
+  for (int j = 0; j < kRbMaxNF; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (j >= nfd) continue;
+      const int c = rank * sd + wcd + j * 8 + 2 * q4;
+      store2(As + (gr + 8 * h) * L.ald + c, 0,
+             (x2[j][2 * h] - mu[h]) * rstd[h] * lns[j].x + lnb[j].x,
+             (x2[j][2 * h + 1] - mu[h]) * rstd[h] * lns[j].y + lnb[j].y);
+    }
+  // the other blocks' columns of a bf16 band (cols of width w from q w),
+  // from their shared memory: eight 16-byte loads a thread in flight, then
+  // their stores
+  auto gather = [&](bf16* buf, int ld, int w) {
+    const int vw = w / 8, n = CS * kRbM * vw;
+    for (int e0 = 0; e0 < n; e0 += 8 * kRbThreads) {
+      uint4 v[8];
+      int off[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * kRbThreads + tid;
+        const int c = e / (kRbM * vw), rem = e % (kRbM * vw);
+        off[u] = e < n && c != rank
+                     ? (rem / vw) * ld + c * w + (rem % vw) * 8
+                     : -1;
+        if (off[u] >= 0)
+          v[u] = *reinterpret_cast<const uint4*>(
+              cluster.map_shared_rank(buf, c) + off[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (off[u] >= 0) *reinterpret_cast<uint4*>(buf + off[u]) = v[u];
+    }
+  };
+  cluster.sync();
+  gather(As, L.ald, sd);
+  __syncthreads();
+
+  // h = GELU(y3 @ W1[:, this block's columns] + b1) into H, then the
+  // cluster's
+  float acc[kRbMaxNF][4];
+  rb_product(ring, issue, g, As, L.ald, n1, wci, nfi, acc, lane);
+#pragma unroll
+  for (int j = 0; j < kRbMaxNF; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (j >= nfi) continue;
+      const int c = rank * si + wci + j * 8 + 2 * q4;
+      store2(Hs + (gr + 8 * h) * L.hld + c, 0,
+             gelu_erf(acc[j][2 * h] + bb1[j].x),
+             gelu_erf(acc[j][2 * h + 1] + bb1[j].y));
+    }
+  cluster.sync();
+  gather(Hs, L.hld, si);
+  cluster.sync();  // no block reads another's shared memory after this
+
+  // x_out = x2 + (h @ W2[:, this block's columns] + b2)
+  rb_product(ring, issue, g, Hs, L.hld, n2, wcd, nfd, acc, lane);
+  X* ob = out + (size_t)m0 * D + rank * sd + wcd;
+#pragma unroll
+  for (int j = 0; j < kRbMaxNF; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = gr + 8 * h;
+      if (j >= nfd || r >= rows) continue;
+      store2(ob + (size_t)r * D + j * 8 + 2 * q4, 0,
+             x2[j][2 * h] + (acc[j][2 * h] + bb2[j].x),
+             x2[j][2 * h + 1] + (acc[j][2 * h + 1] + bb2[j].y));
+    }
+}
+
+// CS: the largest of 8, 4, 2, 1 that leaves each block 32, 64 or 128
+// columns of fc and W2 and of W1 (0: none).
+int ffn_cluster_size(int D, int DI) {
+  auto fits = [](int w) { return w == 32 || w == 64 || w == 128; };
+  for (int cs : {8, 4, 2, 1})
+    if (D % cs == 0 && DI % cs == 0 && fits(D / cs) && fits(DI / cs))
+      return cs;
   return 0;
 }
 
-// attend_step_kernel over k/v of type bf16 (is_bf16) or f32.
-int launch_attend_step(const float* q, int q_rs, void* k, void* v,
-                       int kv_len, int nkeys, const float* mask, int t_new,
-                       void* att, int N, int H, int is_bf16,
-                       cudaStream_t st) {
-  const int blocks = (N * H + kWarps - 1) / kWarps, threads = kWarps * 32;
-  const float scale = 1.f / sqrtf((float)kDk);
-  if (is_bf16)
-    attend_step_kernel<bf16><<<blocks, threads, 0, st>>>(
-        q, q_rs, (bf16*)k, (bf16*)v, kv_len, nkeys, mask, t_new, (bf16*)att,
-        N, H, scale);
-  else
-    attend_step_kernel<float><<<blocks, threads, 0, st>>>(
-        q, q_rs, (float*)k, (float*)v, kv_len, nkeys, mask, t_new,
-        (bf16*)att, N, H, scale);
-  TPK_CHECK();
-  return 0;
+// S: 8 ring slots if every cluster of the grid is resident at once with
+// them (cudaOccupancyMaxActiveClusters), else 4.
+template <typename X>
+int launch_ffn(const X* x, const bf16* att, const bf16* wfc,
+               const float* ln_s, const float* ln_b, const bf16* w1,
+               const float* b1, const bf16* w2, const float* b2, X* out,
+               int N, int D, int HD, int DI, cudaStream_t st) {
+  const int cs = ffn_cluster_size(D, DI), bands = (N + kRbM - 1) / kRbM;
+  const size_t smem8 = ffn_layout(D, HD, DI, cs, 8).bytes;
+  TPK_TRY(allow_smem(ffn_cluster_kernel<X, 8>, smem8));
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = cs;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, bands, cs);
+  cfg.blockDim = kRbThreads;
+  cfg.dynamicSmemBytes = smem8;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  // the clusters resident at once, cached per (device, kernel, shared
+  // memory, cluster size): the query is a host call
+  static long long key[16][4];
+  static int val[16], n_cached = 0;
+  int dev = 0, fit = -1;
+  cudaGetDevice(&dev);
+  const long long k[4] = {dev, std::is_same<X, bf16>::value, (long long)smem8,
+                          cs};
+  for (int i = 0; i < n_cached && fit < 0; ++i)
+    if (std::equal(k, k + 4, key[i])) fit = val[i];
+  if (fit < 0) {
+    if (cudaOccupancyMaxActiveClusters(&fit, ffn_cluster_kernel<X, 8>,
+                                       &cfg) != cudaSuccess) {
+      cudaGetLastError();
+      fit = 0;
+    }
+    if (n_cached < 16) {
+      std::copy(k, k + 4, key[n_cached]);
+      val[n_cached++] = fit;
+    }
+  }
+  const int S = fit >= bands ? 8 : 4;
+  const size_t smem = ffn_layout(D, HD, DI, cs, S).bytes;
+  auto kernel = S == 8 ? ffn_cluster_kernel<X, 8> : ffn_cluster_kernel<X, 4>;
+  TPK_TRY(allow_smem(kernel, smem));
+  return launch_pdl(kernel, dim3(1, bands, cs), kRbThreads, smem, st, cs, x,
+                    att, wfc, ln_s, ln_b, w1, b1, w2, b2, out, N, D, HD, DI);
+}
+
+template <typename X>
+int self_attn_step(const X* x, X* ck, X* cv, const bf16* wqkv,
+                   const bf16* wfc, const float* ln_s, const float* ln_b,
+                   void* scratch, X* x_out, int N, int D, int H, int T, int t,
+                   cudaStream_t st) {
+  const int HD = H * kDk, sms = sm_count();
+  float* qkv = reinterpret_cast<float*>(scratch);
+  bf16* att = reinterpret_cast<bf16*>(qkv + (size_t)N * 3 * HD);
+  TPK_TRY(launch_ln_product(x, ln_s, ln_b, wqkv, qkv, N, D, 3 * HD, sms, st));
+  TPK_TRY((launch_attend<true, float, X, float>(
+      nullptr, qkv, 3 * HD, kQScale, ck, cv, (long long)H * T * kDk,
+      (long long)T * kDk, kDk, t + 1, nullptr, 0, nullptr, nullptr, att,
+      HD, N, H, qkv + HD, qkv + 2 * HD, 3 * HD, t, st)));
+  const GemmPlan plan = step_gemm_plan(N, D, HD, sms);
+  StepGemm p = {};
+  p.A = att;
+  p.B = wfc;
+  p.C = x_out;
+  p.res = x;
+  p.lda = HD;
+  p.ldb = D;
+  p.ldc = D;
+  p.ldr = D;
+  p.M = N;
+  p.N = D;
+  p.K = HD;
+  p.splits = plan.splits;
+  p.res_bf16 = p.out_bf16 = std::is_same<X, bf16>::value;
+  return launch_step_gemm(p, plan.bn, st);
+}
+
+template <typename X>
+int cross_ffn_step(const X* x, const X* ek, const X* ev, const float* mask,
+                   const bf16* wq, const bf16* wfc, const float* ln2_s,
+                   const float* ln2_b, const bf16* w1, const float* b1,
+                   const bf16* w2, const float* b2, const float* ln3_s,
+                   const float* ln3_b, void* scratch, X* x_out, int N, int D,
+                   int H, int TE, int DI, cudaStream_t st) {
+  const int HD = H * kDk;
+  float* q32 = reinterpret_cast<float*>(scratch);
+  bf16* att = reinterpret_cast<bf16*>(q32 + (size_t)N * HD);
+  TPK_TRY(launch_ln_product(x, ln2_s, ln2_b, wq, q32, N, D, HD, sm_count(),
+                            st));
+  // the encoder K/V are read only: no appended key
+  TPK_TRY((launch_attend<true, float, X, X>(
+      nullptr, q32, HD, kQScale, const_cast<X*>(ek), const_cast<X*>(ev),
+      (long long)H * TE * kDk, (long long)TE * kDk, kDk, TE, mask, TE,
+      nullptr, nullptr, att, HD, N, H, nullptr, nullptr, 0, -1, st)));
+  return launch_ffn(x, att, wfc, ln3_s, ln3_b, w1, b1, w2, b2, x_out, N, D,
+                    HD, DI, st);
+}
+
+// Whether every pointer is 16-byte aligned (the kernels copy 16 bytes at
+// a time; PyTorch's allocations are).
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) & 15) return false;
+  return true;
 }
 
 }  // namespace
 
-// The limits of both entry points, the only copy of them: d_k == 64 (two
-// dims per lane of a warp), d_model and d_inner multiples of 64 (the GEMM's
-// tiles), at most kMaxKeys keys (a warp's scores sit in shared memory).
-// Outside them an entry point launches nothing and returns
-// cudaErrorInvalidValue.
+// The limits of both entry points, the only copy of them: d_k == 64 (the
+// attention's head width), d_model and d_inner multiples of 64, d_model at
+// most 512 (the x band of a LayerNorm + product block sits in shared
+// memory), at most kMaxKeys keys (a warp's softmax weights sit in shared
+// memory), every pointer 16-byte aligned. Outside them an entry point
+// launches nothing and returns cudaErrorInvalidValue.
 //
 // Self-attention step. is_bf16 selects X: 1 = bf16, 0 = f32. x (N, D) X;
 // ck/cv (N, H, T, DK) X, slot t written in place; wqkv (D, 3HD), wfc
-// (HD, D) bf16; ln_s/ln_b (D) f32. Scratch: x32 (N, D) f32, y (N, D) bf16,
-// qkv (N, 3HD) f32, att (N, HD) bf16. Output x_out (N, D) X.
+// (HD, D) bf16; ln_s/ln_b (D) f32. Scratch: N * HD * 14 bytes (qkv (N, 3HD)
+// f32, then att (N, HD) bf16). Output x_out (N, D) X.
 extern "C" int tpk_self_attn_step(const void* x, void* ck, void* cv,
                                   const void* wqkv, const void* wfc,
                                   const float* ln_s, const float* ln_b,
-                                  float* x32, void* y, float* qkv, void* att,
-                                  void* x_out, int N, int D, int H, int DK,
-                                  int T, int t, int is_bf16, void* stream) {
+                                  void* scratch, void* x_out, int N, int D,
+                                  int H, int DK, int T, int t, int is_bf16,
+                                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int HD = H * DK;
-  if (DK != kDk || D % 64 || t < 0 || t >= T || t >= kMaxKeys)
+  if (DK != kDk || D % 64 || D > kStepMaxD || t < 0 || t >= T ||
+      t >= kMaxKeys ||
+      !aligned16({x, ck, cv, wqkv, wfc, ln_s, ln_b, scratch, x_out}))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  TPK_TRY(launch_ln_affine(x, is_bf16, x32, y, ln_s, ln_b, N, D, st));
-  TPK_TRY(tpk_launch_gemm((const bf16*)y, D, (const bf16*)wqkv, 3 * HD, qkv,
-                          3 * HD, N, 3 * HD, D, nullptr, nullptr, 0, 0, 0,
-                          st));
-  TPK_TRY(launch_attend_step(qkv, 3 * HD, ck, cv, T, t + 1, nullptr, t, att,
-                             N, H, is_bf16, st));
-  TPK_TRY(tpk_launch_gemm((const bf16*)att, HD, (const bf16*)wfc, D, x_out,
-                          D, N, D, HD, nullptr, x32, D, 0, is_bf16, st));
-  return 0;
+  if (is_bf16)
+    return self_attn_step((const bf16*)x, (bf16*)ck, (bf16*)cv,
+                          (const bf16*)wqkv, (const bf16*)wfc, ln_s, ln_b,
+                          scratch, (bf16*)x_out, N, D, H, T, t, st);
+  return self_attn_step((const float*)x, (float*)ck, (float*)cv,
+                        (const bf16*)wqkv, (const bf16*)wfc, ln_s, ln_b,
+                        scratch, (float*)x_out, N, D, H, T, t, st);
 }
 
 // Cross-attention + FFN step. x (N, D) X; ek/ev (N, H, TE, DK) X; mask
 // (N, TE) f32; wq (D, HD), wfc (HD, D), w1 (D, DI), w2 (DI, D) bf16; b1
-// (DI), b2 (D), ln2_s/ln2_b/ln3_s/ln3_b (D) f32. Scratch: x32 (N, D) f32,
-// y (N, D) bf16, q32 (N, HD) f32, att (N, HD) bf16, hid (N, DI) bf16.
-// Output x_out (N, D) X.
+// (DI), b2 (D), ln2_s/ln2_b/ln3_s/ln3_b (D) f32. Scratch: N * HD * 6 bytes
+// (q (N, HD) f32, then att (N, HD) bf16). Output x_out (N, D) X.
 extern "C" int tpk_cross_ffn_step(
     const void* x, const void* ek, const void* ev, const float* mask,
     const void* wq, const void* wfc, const float* ln2_s, const float* ln2_b,
     const void* w1, const float* b1, const void* w2, const float* b2,
-    const float* ln3_s, const float* ln3_b, float* x32, void* y, float* q32,
-    void* att, void* hid, void* x_out, int N, int D, int H, int DK, int TE,
-    int DI, int is_bf16, void* stream) {
+    const float* ln3_s, const float* ln3_b, void* scratch, void* x_out, int N,
+    int D, int H, int DK, int TE, int DI, int is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int HD = H * DK;
-  if (DK != kDk || D % 64 || DI % 64 || TE < 1 || TE > kMaxKeys)
+  if (DK != kDk || D % 64 || D > kStepMaxD || DI % 64 || TE < 1 ||
+      TE > kMaxKeys || !ffn_cluster_size(D, DI) ||
+      !aligned16({x, ek, ev, wq, wfc, ln2_s, ln2_b, w1, b1, w2, b2, ln3_s,
+                  ln3_b, scratch, x_out}))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
-  TPK_TRY(launch_ln_affine(x, is_bf16, x32, y, ln2_s, ln2_b, N, D, st));
-  TPK_TRY(tpk_launch_gemm((const bf16*)y, D, (const bf16*)wq, HD, q32, HD, N,
-                          HD, D, nullptr, nullptr, 0, 0, 0, st));
-  // the encoder K/V are read only: t_new < 0 stores nothing
-  TPK_TRY(launch_attend_step(q32, HD, (void*)ek, (void*)ev, TE, TE, mask, -1,
-                             att, N, H, is_bf16, st));
-  // x2 = x + bf16(merged) @ Wfc, kept in f32 (in place over x32)
-  TPK_TRY(tpk_launch_gemm((const bf16*)att, HD, (const bf16*)wfc, D, x32, D,
-                          N, D, HD, nullptr, x32, D, 0, 0, st));
-  TPK_TRY(tpk_launch_layernorm(x32, D, y, D, N, D, 1e-5f, ln3_s, ln3_b, 1,
-                               st));
-  TPK_TRY(tpk_launch_gemm((const bf16*)y, D, (const bf16*)w1, DI, hid, DI, N,
-                          DI, D, b1, nullptr, 0, 1, 1, st));
-  TPK_TRY(tpk_launch_gemm((const bf16*)hid, DI, (const bf16*)w2, D, x_out, D,
-                          N, D, DI, b2, x32, D, 0, is_bf16, st));
-  return 0;
+  if (is_bf16)
+    return cross_ffn_step(
+        (const bf16*)x, (const bf16*)ek, (const bf16*)ev, mask,
+        (const bf16*)wq, (const bf16*)wfc, ln2_s, ln2_b, (const bf16*)w1, b1,
+        (const bf16*)w2, b2, ln3_s, ln3_b, scratch, (bf16*)x_out, N, D, H, TE,
+        DI, st);
+  return cross_ffn_step(
+      (const float*)x, (const float*)ek, (const float*)ev, mask,
+      (const bf16*)wq, (const bf16*)wfc, ln2_s, ln2_b, (const bf16*)w1, b1,
+      (const bf16*)w2, b2, ln3_s, ln3_b, scratch, (float*)x_out, N, D, H, TE,
+      DI, st);
 }

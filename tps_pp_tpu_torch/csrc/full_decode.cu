@@ -42,26 +42,15 @@
 //   and cached steps) is loaded before it waits for that kernel
 //   (ptx::grid_dep_wait), so a node's launch and first loads overlap the
 //   node before.
-// * runs each step product (QKV, fc1, q2, fc2, w1, w2) as step_gemm_kernel:
-//   64-row tiles (M = 64 fits one), BN in {16, 32, 64} columns, and split-K,
-//   chosen per product and bucket by the wrapper (ops/full_decode.py
-//   `gemm_plan`) so that every product runs on >= 132 blocks. Each block
-//   streams its K range through a ring of 4 shared-memory stages of A and B
-//   tiles fed by 16-byte asynchronous copies (cp.async; every thread
-//   arrives on the stage's mbarrier once its copies have landed), so up to
-//   4 stages of loads are in flight while the tensor cores work on the
-//   oldest (mma.sync m16n8k16 from ldmatrix fragments; rows padded by 16
-//   bytes, free of bank conflicts). A tile's rows are 32-128 bytes: fed as
-//   one bulk copy (cp.async.bulk) a row, ~100 a stage issued one at a time
-//   by the SM's copy engine, the products took 43 us each at N=512 on the
-//   H100, no faster than the unpipelined WMMA GEMM this replaces. mma.sync,
-//   not wgmma: the products are ~1 GFLOP a step, ~1 us
-//   at the tensor cores' peak, and their time is load latency. Split-K is
-//   deterministic and stays on chip: the parts of a tile are one cluster
-//   of blocks, each keeps its f32 partial tile in its shared memory, and
-//   each sums a share of the tile's rows over the cluster's partials in
-//   split order (distributed shared memory) and runs their epilogue (bias,
-//   GELU, residual in place, f32 or bf16 out), so replays give equal bits.
+// * runs each step product (QKV, fc1, q2, fc2, w1, w2) as step_gemm_kernel
+//   (decode_blocks.cuh, shared with the per-step kernels of
+//   decode_step.cu): 64-row tiles, BN in {16, 32, 64} columns and split-K
+//   through clusters, chosen per product and bucket by the wrapper
+//   (ops/full_decode.py `gemm_plan`) so that every product runs on >= 132
+//   blocks, fed by a 4-stage cp.async ring into mma.sync. A tile's rows are
+//   32-128 bytes: fed as one bulk copy (cp.async.bulk) a row, ~100 a stage
+//   issued one at a time by the SM's copy engine, the products took 43 us
+//   each at N=512 on the H100, no faster than an unpipelined WMMA GEMM.
 // * keeps the LayerNorm after fc1, fc2 and w2 a kernel of its own
 //   (ln_rows_kernel, one warp a row): folded into the next product as a
 //   prologue, each of the next product's 256-512 blocks would read the
@@ -94,60 +83,12 @@
 // scores = q . k8 in f32, softmax weights rounded to bf16 before . v8, the
 // f32 result times v_scale. The self-attention and the rest of the step are
 // the bf16 branch's.
-#include <cooperative_groups.h>
-
-#include <algorithm>
-
-#include "common.cuh"
+#include "decode_blocks.cuh"
 #include "gemm.cuh"
-#include "ptx.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
-
-constexpr int kAttnWarps = 4;
-constexpr int kMaxKeys = 256;
-constexpr int kMaxPass = kMaxKeys / 32;
-constexpr int kDk = 64;
 constexpr int kRowsPerBlock = 8;  // embed_ln_kernel: one warp per row
-
-// Launches `kernel` in clusters of cluster_z blocks along z, with
-// programmatic stream serialization: it may start while
-// the kernel before it on the stream still runs, and waits for it in
-// ptx::grid_dep_wait(). Every kernel of the step loop is launched so, and
-// each waits before it reads what an earlier kernel of the loop wrote and
-// before it exits, so each kernel's completion still implies all earlier
-// ones'.
-template <typename... KArgs, typename... Args>
-int launch_pdl(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem,
-               cudaStream_t st, unsigned cluster_z, Args... args) {
-  cudaLaunchAttribute attr[2];
-  int n = 0;
-  attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[n++].val.programmaticStreamSerializationAllowed = 1;
-  if (cluster_z > 1) {
-    attr[n].id = cudaLaunchAttributeClusterDimension;
-    attr[n].val.clusterDim.x = 1;
-    attr[n].val.clusterDim.y = 1;
-    attr[n++].val.clusterDim.z = cluster_z;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = block;
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = n;
-  const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return (int)e;
-  }
-  TPK_CHECK();
-  return 0;
-}
 
 // ---- gate + embedding + the first LayerNorm ------------------------------
 // go = remaining > 0 (1 without the exit check), read by every block before
@@ -188,508 +129,6 @@ __global__ void embed_ln_kernel(const int* __restrict__ remaining,
   const float rstd = rsqrtf(warp_sum(v) / (float)D + eps);
   for (int d = lane; d < D; d += 32)
     y[(size_t)row * D + d] = __float2bfloat16((xr[d] - mu) * rstd);
-}
-
-// ---- the step products ---------------------------------------------------
-constexpr int kBM = 64;            // rows of a tile: 4 warps x 16
-constexpr int kBK = 32;            // depth of a stage (16 for a 16-deep rest)
-constexpr int kStages = 4;         // stages in flight
-constexpr int kGemmThreads = 128;
-
-// C[M, N] = epilogue(A[M, K] @ B[K, N]), bf16 operands (A rows of lda, B
-// the (K, N) weights of ldb), f32 accumulation; epilogue = (+bias[N]) ->
-// (erf-GELU) -> (residual: C f32 += in place) -> f32 or bf16. `splits`
-// parts of K (K % (16 * splits) == 0, splits <= kMaxSplits), one block
-// each, the blocks of a tile one cluster.
-constexpr int kMaxSplits = 8;      // the portable cluster size
-struct StepGemm {
-  const bf16* A;
-  const bf16* B;
-  void* C;
-  const float* bias;
-  const int* go;
-  int lda, ldb, ldc, M, N, K, splits, gelu, residual, out_bf16;
-};
-
-static __device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-// The epilogue of columns c, c + 1 of row r.
-static __device__ __forceinline__ void epilogue2(const StepGemm& p, int r,
-                                                 int c, float v0, float v1) {
-  if (p.bias) {
-    v0 += p.bias[c];
-    v1 += p.bias[c + 1];
-  }
-  if (p.gelu) {
-    v0 = gelu_erf(v0);
-    v1 = gelu_erf(v1);
-  }
-  const size_t at = (size_t)r * p.ldc + c;
-  if (p.residual) {
-    const float2 old = *reinterpret_cast<const float2*>(
-        reinterpret_cast<float*>(p.C) + at);
-    v0 = old.x + v0;
-    v1 = old.y + v1;
-  }
-  if (p.out_bf16)
-    store2(reinterpret_cast<bf16*>(p.C) + at, 0, v0, v1);
-  else
-    store2(reinterpret_cast<float*>(p.C) + at, 0, v0, v1);
-}
-
-// Every thread copies its share of one stage: `depth` rows from k0 of the
-// tile's B columns (fill_b; the weights, which no kernel of the loop
-// writes), and the `depth` columns from k0 of its A rows (fill_a), in
-// 16-byte asynchronous copies (rows of A past M are not copied; they only
-// reach output rows that are not stored); then it arrives on the stage's
-// mbarrier, which completes once they have landed.
-template <int BN>
-static __device__ __forceinline__ void fill_b(const StepGemm& p, bf16* bs,
-                                              int n0, int k0, int depth,
-                                              int tid) {
-  constexpr int BLD = BN + 8, BV = BN / 8;
-  for (int e = tid; e < depth * BV; e += kGemmThreads) {
-    const int r = e / BV, c = (e % BV) * 8;
-    ptx::cp_async16(bs + r * BLD + c,
-                    p.B + (size_t)(k0 + r) * p.ldb + n0 + c);
-  }
-}
-
-static __device__ __forceinline__ void fill_a(const StepGemm& p, bf16* as,
-                                              uint64_t* bar, int m0, int rows,
-                                              int k0, int depth, int tid) {
-  constexpr int ALD = kBK + 8;
-  const int av = depth / 8;
-  for (int e = tid; e < rows * av; e += kGemmThreads) {
-    const int r = e / av, c = (e % av) * 8;
-    ptx::cp_async16(as + r * ALD + c, p.A + (size_t)(m0 + r) * p.lda + k0 + c);
-  }
-  ptx::cp_async_mbar_arrive(bar);
-}
-
-// Grid (N / BN, ceil(M / 64), splits), clusters of splits blocks along z.
-// Warp w owns rows 16w .. 16w+15 of the tile and all BN columns.
-template <int BN>
-__global__ void __launch_bounds__(kGemmThreads)
-step_gemm_kernel(const StepGemm p) {
-  constexpr int NF = BN / 8;       // n fragments of a warp
-  constexpr int ALD = kBK + 8;     // A row stride in smem (80 B)
-  constexpr int BLD = BN + 8;      // B row stride (2 BN + 16 B)
-  __shared__ __align__(128) bf16 As[kStages][kBM * ALD];
-  __shared__ __align__(128) bf16 Bs[kStages][kBK * BLD];
-  __shared__ __align__(8) uint64_t bar[kStages];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * BN;
-  const int rows = min(kBM, p.M - m0);
-  const int krange = p.K / p.splits, kbeg = blockIdx.z * krange;
-  const int nsteps = (krange + kBK - 1) / kBK;
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) ptx::mbar_init(&bar[s], kGemmThreads);
-    ptx::mbar_fence_init();
-  }
-  __syncthreads();
-
-  // the first stages' weights before the wait on the kernel before, their
-  // activations after it
-  const int pre = min(kStages, nsteps);
-  for (int st = 0; st < pre; ++st)
-    fill_b<BN>(p, Bs[st], n0, kbeg + st * kBK, min(kBK, krange - st * kBK),
-               tid);
-  ptx::grid_dep_wait();
-  if (!*p.go) {
-    ptx::cp_async_wait_all();
-    return;
-  }
-  ptx::grid_dep_launch();
-  for (int st = 0; st < pre; ++st)
-    fill_a(p, As[st], &bar[st], m0, rows, kbeg + st * kBK,
-           min(kBK, krange - st * kBK), tid);
-
-  float acc[NF][4];
-#pragma unroll
-  for (int j = 0; j < NF; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  const int wr = warp * 16, mi = lane >> 3;
-  for (int st = 0; st < nsteps; ++st) {
-    const int s = st % kStages;
-    ptx::mbar_wait(&bar[s], (uint32_t)((st / kStages) & 1));
-    const int depth = min(kBK, krange - st * kBK);
-    for (int kk = 0; kk < depth; kk += 16) {
-      uint32_t a[4];
-      ptx::ldsm_x4(a, &As[s][(wr + (lane & 15)) * ALD + kk + (lane >> 4) * 8]);
-#pragma unroll
-      for (int j = 0; j < NF / 2; ++j) {
-        uint32_t b[4];
-        ptx::ldsm_x4_t(b, &Bs[s][(kk + (mi & 1) * 8 + (lane & 7)) * BLD +
-                                 j * 16 + (mi >> 1) * 8]);
-        ptx::mma_bf16(acc[2 * j], a, b[0], b[1]);
-        ptx::mma_bf16(acc[2 * j + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with stage s
-    if (st + kStages < nsteps) {
-      const int nx = st + kStages;
-      const int k0 = kbeg + nx * kBK, depth = min(kBK, krange - nx * kBK);
-      fill_b<BN>(p, Bs[s], n0, k0, depth, tid);
-      fill_a(p, As[s], &bar[s], m0, rows, k0, depth, tid);
-    }
-  }
-
-  const int g = lane >> 2, q = lane & 3;
-  if (p.splits == 1) {
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wr + g + 8 * h;
-        if (r < rows)
-          epilogue2(p, m0 + r, n0 + j * 8 + 2 * q, acc[j][2 * h],
-                    acc[j][2 * h + 1]);
-      }
-  } else {
-    // the tile's parts, one a block of the cluster: each block stores its
-    // partial tile in its own shared memory (the ring, which every warp is
-    // done with), then block z sums its share of the tile's rows over the
-    // parts, in split order, through distributed shared memory, and runs
-    // their epilogue (bias and residual loaded beside the partials)
-    cg::cluster_group cluster = cg::this_cluster();
-    constexpr int PLD = BN + 4;  // f32 row stride of a partial tile
-    float* part = reinterpret_cast<float*>(&As[0][0]);
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wr + g + 8 * h;
-        if (r < rows)
-          *reinterpret_cast<float2*>(part + r * PLD + j * 8 + 2 * q) =
-              make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
-      }
-    cluster.sync();
-    const int per = (rows + p.splits - 1) / p.splits;
-    const int r0 = (int)cluster.block_rank() * per;
-    const int r1 = min(rows, r0 + per);
-    constexpr int C4 = BN / 4;
-    for (int e = tid; e < (r1 - r0) * C4; e += kGemmThreads) {
-      const int r = r0 + e / C4, c = (e % C4) * 4;
-      const size_t at = (size_t)(m0 + r) * p.ldc + n0 + c;
-      const float4 b4 = p.bias ? *reinterpret_cast<const float4*>(
-                                     p.bias + n0 + c)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 o4 = p.residual ? *reinterpret_cast<const float4*>(
-                                         reinterpret_cast<float*>(p.C) + at)
-                                   : make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int sp = 0; sp < p.splits; ++sp) {
-        const float4 u = *reinterpret_cast<const float4*>(
-            cluster.map_shared_rank(part, sp) + r * PLD + c);
-        v.x += u.x;
-        v.y += u.y;
-        v.z += u.z;
-        v.w += u.w;
-      }
-      float t[4] = {v.x + b4.x, v.y + b4.y, v.z + b4.z, v.w + b4.w};
-      const float o[4] = {o4.x, o4.y, o4.z, o4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (p.gelu) t[i] = gelu_erf(t[i]);
-        if (p.residual) t[i] = o[i] + t[i];
-      }
-      if (p.out_bf16) {
-        bf16* dst = reinterpret_cast<bf16*>(p.C) + at;
-        store2(dst, 0, t[0], t[1]);
-        store2(dst, 1, t[2], t[3]);
-      } else {
-        *reinterpret_cast<float4*>(reinterpret_cast<float*>(p.C) + at) =
-            make_float4(t[0], t[1], t[2], t[3]);
-      }
-    }
-    cluster.sync();  // the partials are read until every block is done
-  }
-}
-
-template <int BN>
-int launch_step_gemm_bn(const StepGemm& p, cudaStream_t st) {
-  const dim3 grid(p.N / BN, (p.M + kBM - 1) / kBM, p.splits);
-  return launch_pdl(step_gemm_kernel<BN>, grid, kGemmThreads, 0, st, p.splits,
-                    p);
-}
-
-int launch_step_gemm(const StepGemm& p, int bn, cudaStream_t st) {
-  switch (bn) {
-    case 16: return launch_step_gemm_bn<16>(p, st);
-    case 32: return launch_step_gemm_bn<32>(p, st);
-    case 64: return launch_step_gemm_bn<64>(p, st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// ---- LayerNorm of the residual stream ------------------------------------
-constexpr int kLnWarps = 8;
-constexpr int kLnMaxPerLane = 32;  // D <= 1024
-
-// One warp per row: y = bf16((x - mean) * rsqrt(var + eps)), no affine (it
-// is folded into the next product), the row held in registers between the
-// two passes.
-__global__ void __launch_bounds__(kLnWarps * 32)
-ln_rows_kernel(const int* __restrict__ go, const float* __restrict__ x,
-               bf16* __restrict__ y, int N, int D, float eps) {
-  ptx::grid_dep_wait();
-  if (!*go) return;
-  ptx::grid_dep_launch();
-  const int row = blockIdx.x * kLnWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= N) return;
-  const float2* xr = reinterpret_cast<const float2*>(x + (size_t)row * D);
-  const int pairs = D / 64;
-  float2 v[kLnMaxPerLane / 2];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < kLnMaxPerLane / 2; ++i)
-    if (i < pairs) {
-      v[i] = xr[i * 32 + lane];
-      s += v[i].x + v[i].y;
-    }
-  const float mu = warp_sum(s) / (float)D;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < kLnMaxPerLane / 2; ++i)
-    if (i < pairs) {
-      const float a = v[i].x - mu, b = v[i].y - mu;
-      q += a * a + b * b;
-    }
-  const float rstd = rsqrtf(warp_sum(q) / (float)D + eps);
-  bf16* yr = y + (size_t)row * D;
-#pragma unroll
-  for (int i = 0; i < kLnMaxPerLane / 2; ++i)
-    if (i < pairs)
-      store2(yr, i * 32 + lane, (v[i].x - mu) * rstd, (v[i].y - mu) * rstd);
-}
-
-// ---- one-query attention -------------------------------------------------
-// The f32 dot product of a 16-byte vector of a key row with the matching
-// dims of q (8 bf16 or 16 int8 values).
-static __device__ __forceinline__ float dot_vec(const float* q, uint4 v,
-                                                const bf16*) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    s += q[2 * i] * __uint_as_float(w[i] << 16);
-    s += q[2 * i + 1] * __uint_as_float(w[i] & 0xffff0000u);
-  }
-  return s;
-}
-static __device__ __forceinline__ float dot_vec(const float* q, uint4 v,
-                                                const signed char*) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      s += q[4 * i + b] * (float)((int)(w[i] << (24 - 8 * b)) >> 24);
-  return s;
-}
-
-// acc[i] += p * (element i of a 16-byte vector of a V row).
-static __device__ __forceinline__ void axpy_vec(float* acc, float p, uint4 v,
-                                                const bf16*) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    acc[2 * i] += p * __uint_as_float(w[i] << 16);
-    acc[2 * i + 1] += p * __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-static __device__ __forceinline__ void axpy_vec(float* acc, float p, uint4 v,
-                                                const signed char*) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      acc[4 * i + b] += p * (float)((int)(w[i] << (24 - 8 * b)) >> 24);
-}
-
-// One warp per (row n, head h); head width 64. q: row n at q + n*q_rs (bf16;
-// f32 for int8 K/V). K and V of key j at kbase/vbase + n*kv_rs + j*kv_ks
-// (bf16 or int8). When app_k is given (bf16 K/V), this step's K/V
-// (app_k/app_v + n*app_rs) are written to key slot app_slot, and key
-// app_slot is read from them. mask (N, nkeys): key j valid iff mask > 0
-// (null = all valid). int8 K/V come with the layer's per-head scales: q is
-// rounded to bf16 after the K scale, the output takes the V scale.
-//
-// Scores with lanes over keys: key j = pass * 32 + lane, each lane's whole
-// K row in 16-byte loads, two passes' loads (64 keys, every key of the
-// flagship's cross- and self-attention) in flight at once, q broadcast
-// from shared memory. The first two passes' K rows are loaded before the
-// wait on the kernel before (grid_dep_wait): the encoder K/V and the
-// cached steps were written by kernels that completed earlier, so the
-// loads overlap that kernel's tail and this one's launch; only this step's
-// key (app_slot) waits. One warp max, one warp sum; then P.V with lanes
-// over the 64 dims, NV lanes a V row, each row read coalesced, 64 rows in
-// flight.
-template <typename Q, typename KV>
-__global__ void __launch_bounds__(kAttnWarps * 32)
-attend_keys_kernel(const int* __restrict__ go, const Q* __restrict__ q,
-                   long long q_rs, KV* kbase, KV* vbase, long long kv_rs,
-                   long long kv_ks, int nkeys, const float* __restrict__ mask,
-                   int mask_rs, const float* __restrict__ kscale,
-                   const float* __restrict__ vscale, bf16* __restrict__ out,
-                   long long out_rs, int N, int H, const bf16* app_k,
-                   const bf16* app_v, long long app_rs, int app_slot) {
-  constexpr int NV = kDk * (int)sizeof(KV) / 16;   // 16-byte vectors a row
-  constexpr int VD = 16 / (int)sizeof(KV);          // dims a vector
-  __shared__ __align__(16) float qs[kAttnWarps][kDk];
-  __shared__ float ps[kAttnWarps][kMaxKeys];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int w = blockIdx.x * kAttnWarps + warp;
-  const bool live = w < N * H;
-  const int n = live ? w / H : 0, h = w % H;
-  const int off = h * kDk;
-  KV* kr = kbase + n * kv_rs + off;
-  KV* vr = vbase + n * kv_rs + off;
-  auto load_k = [&](uint4 (&kv)[NV], const KV* kp) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i)
-      kv[i] = __ldg(reinterpret_cast<const uint4*>(kp) + i);
-  };
-
-  uint4 kv[2][NV];
-  if (live) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int j = u * 32 + lane;
-      if (j < nkeys && !(app_k && j == app_slot))
-        load_k(kv[u], kr + (size_t)j * kv_ks);
-    }
-  }
-  ptx::grid_dep_wait();
-  if (!live || !*go) return;
-  ptx::grid_dep_launch();
-
-  float2 qf = load2(q + n * q_rs + off, lane);
-  if (kscale) {
-    qf.x = bf_round(qf.x * kscale[h]);
-    qf.y = bf_round(qf.y * kscale[h]);
-  }
-  qs[warp][2 * lane] = qf.x;
-  qs[warp][2 * lane + 1] = qf.y;
-  const KV* ak = nullptr;
-  const KV* av = nullptr;
-  if (app_k) {
-    const bf16* sk = app_k + n * app_rs + off;
-    const bf16* sv = app_v + n * app_rs + off;
-    reinterpret_cast<bf162*>(kr + app_slot * kv_ks)[lane] =
-        reinterpret_cast<const bf162*>(sk)[lane];
-    reinterpret_cast<bf162*>(vr + app_slot * kv_ks)[lane] =
-        reinterpret_cast<const bf162*>(sv)[lane];
-    ak = reinterpret_cast<const KV*>(sk);
-    av = reinterpret_cast<const KV*>(sv);
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-      if (u * 32 + lane == app_slot) load_k(kv[u], ak);
-  }
-  __syncwarp();
-
-  // scores: key j = pass * 32 + lane
-  float sc[kMaxPass];
-#pragma unroll
-  for (int i = 0; i < kMaxPass; ++i) sc[i] = -INFINITY;
-  float m = -INFINITY;
-#pragma unroll
-  for (int pp = 0; pp < kMaxPass; pp += 2) {
-    if (pp * 32 >= nkeys) break;
-    if (pp > 0) {
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int j = (pp + u) * 32 + lane;
-        if (j < nkeys)
-          load_k(kv[u], (ak && j == app_slot) ? ak : kr + (size_t)j * kv_ks);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int j = (pp + u) * 32 + lane;
-      if (j < nkeys) {
-        float s = 0.f;
-#pragma unroll
-        for (int i = 0; i < NV; ++i)
-          s += dot_vec(&qs[warp][i * VD], kv[u][i], (const KV*)nullptr);
-        if (mask && !(mask[(size_t)n * mask_rs + j] > 0.f)) s = -1e9f;
-        sc[pp + u] = s;
-        m = fmaxf(m, s);
-      }
-    }
-  }
-  m = warp_max(m);
-  float e[kMaxPass];
-  float sum = 0.f;
-#pragma unroll
-  for (int i = 0; i < kMaxPass; ++i) {
-    e[i] = expf(sc[i] - m);
-    sum += e[i];
-  }
-  sum = warp_sum(sum);
-#pragma unroll
-  for (int i = 0; i < kMaxPass; ++i) {
-    const int j = i * 32 + lane;
-    if (j < nkeys) ps[warp][j] = bf_round(e[i] / sum);
-  }
-  __syncwarp();
-
-  // P.V: NV lanes read one V row, 16 bytes each (dims VD*dg ..), KPL rows
-  // a warp-wide load, 64 rows in flight; then the lanes of one dim group
-  // sum their keys' shares
-  constexpr int KPL = 32 / NV, kVInFlight = 64 / KPL;
-  const int dg = lane % NV, kq = lane / NV;
-  float acc[VD];
-#pragma unroll
-  for (int i = 0; i < VD; ++i) acc[i] = 0.f;
-  for (int j0 = 0; j0 < nkeys; j0 += KPL * kVInFlight) {
-    uint4 vv[kVInFlight];
-#pragma unroll
-    for (int u = 0; u < kVInFlight; ++u) {
-      const int j = j0 + u * KPL + kq;
-      if (j < nkeys) {
-        const KV* vp = (av && j == app_slot) ? av : vr + (size_t)j * kv_ks;
-        vv[u] = __ldg(reinterpret_cast<const uint4*>(vp) + dg);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kVInFlight; ++u) {
-      const int j = j0 + u * KPL + kq;
-      if (j < nkeys) axpy_vec(acc, ps[warp][j], vv[u], (const KV*)nullptr);
-    }
-  }
-#pragma unroll
-  for (int o = NV; o < 32; o <<= 1)
-#pragma unroll
-    for (int i = 0; i < VD; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
-  if (kq == 0) {
-    const float vs = vscale ? vscale[h] : 1.f;
-    bf16* dst = out + n * out_rs + off + VD * dg;
-#pragma unroll
-    for (int i = 0; i < VD / 2; ++i)
-      store2(dst, i, acc[2 * i] * vs, acc[2 * i + 1] * vs);
-  }
-}
-
-template <typename Q, typename KV>
-int launch_attend(const int* go, const Q* q, long long q_rs, KV* k, KV* v,
-                  long long kv_rs, long long kv_ks, int nkeys,
-                  const float* mask, int mask_rs, const float* kscale,
-                  const float* vscale, bf16* out, long long out_rs, int N,
-                  int H, const bf16* app_k, const bf16* app_v,
-                  long long app_rs, int app_slot, cudaStream_t st) {
-  const int blocks = (N * H + kAttnWarps - 1) / kAttnWarps;
-  return launch_pdl(attend_keys_kernel<Q, KV>, blocks, kAttnWarps * 32, 0, st,
-                    1, go, q, q_rs, k, v, kv_rs, kv_ks, nkeys, mask, mask_rs,
-                    kscale, vscale, out, out_rs, N, H, app_k, app_v, app_rs,
-                    app_slot);
 }
 
 // ---- int8 encoder K/V ----------------------------------------------------
@@ -968,16 +407,18 @@ extern "C" int tpk_full_decode(
     p.B = (const bf16*)B + (size_t)l * prod_k[i] * prod_n[i];
     p.C = C;
     p.bias = bias ? bias + (size_t)l * prod_n[i] : nullptr;
+    p.res = residual ? C : nullptr;
     p.go = go;
     p.lda = lda;
     p.ldb = prod_n[i];
     p.ldc = ldc;
+    p.ldr = ldc;
     p.M = N;
     p.N = prod_n[i];
     p.K = prod_k[i];
     p.splits = plan[2 * i + 1];
     p.gelu = gelu;
-    p.residual = residual;
+    p.res_bf16 = 0;
     p.out_bf16 = out_bf16;
     return launch_step_gemm(p, plan[2 * i], st);
   };
@@ -997,9 +438,10 @@ extern "C" int tpk_full_decode(
       bf16* cl = ch + (size_t)l * N * S * 2 * HD;
       // self-attention over the cached steps 0..t (y = LN1(x) on entry)
       TPK_TRY(gemm(0, yb, D, wqkv, l, qb, 3 * HD, bqkv, 0, 0, 1));
-      TPK_TRY(launch_attend(go, qb, 3 * HD, cl, cl + HD, (long long)S * 2 * HD,
-                            2 * HD, t + 1, nullptr, 0, nullptr, nullptr, ab,
-                            HD, N, H, qb + HD, qb + 2 * HD, 3 * HD, t, st));
+      TPK_TRY((launch_attend<false, bf16, bf16, bf16>(
+          go, qb, 3 * HD, 1.f, cl, cl + HD, (long long)S * 2 * HD, kDk,
+          2 * HD, t + 1, nullptr, 0, nullptr, nullptr, ab, HD, N, H,
+          qb + HD, qb + 2 * HD, 3 * HD, t, st)));
       TPK_TRY(gemm(1, ab, HD, wfc1, l, x32, D, nullptr, 0, 1, 0));
       TPK_TRY(layernorm());
       // cross-attention over the encoder K/V (q2 reuses the qkv buffer;
@@ -1009,14 +451,16 @@ extern "C" int tpk_full_decode(
       if (q8) {
         signed char* ek8 = q8 + (size_t)l * 2 * HD;
         const float* sl = scales + (size_t)l * 2 * H;
-        TPK_TRY(launch_attend(go, q32, HD, ek8, ek8 + HD, (long long)TE * KV,
-                              KV, TE, src_mask, TE, sl, sl + H, ab, HD, N, H,
-                              nullptr, nullptr, 0, 0, st));
+        TPK_TRY((launch_attend<false, float, signed char, signed char>(
+            go, q32, HD, 1.f, ek8, ek8 + HD, (long long)TE * KV, kDk, KV, TE,
+            src_mask, TE, sl, sl + H, ab, HD, N, H, nullptr, nullptr, 0,
+            0, st)));
       } else {
         bf16* ek = ekv + (size_t)l * 2 * HD;
-        TPK_TRY(launch_attend(go, qb, HD, ek, ek + HD, (long long)TE * KV, KV,
-                              TE, src_mask, TE, nullptr, nullptr, ab, HD, N,
-                              H, nullptr, nullptr, 0, 0, st));
+        TPK_TRY((launch_attend<false, bf16, bf16, bf16>(
+            go, qb, HD, 1.f, ek, ek + HD, (long long)TE * KV, kDk, KV, TE,
+            src_mask, TE, nullptr, nullptr, ab, HD, N, H, nullptr,
+            nullptr, 0, 0, st)));
       }
       TPK_TRY(gemm(3, ab, HD, wfc2, l, x32, D, nullptr, 0, 1, 0));
       TPK_TRY(layernorm());

@@ -72,6 +72,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
+// Close the group of this thread's cp.asyncs issued since the last one;
+// wait until at most N of its groups are pending.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 // Programmatic dependent launch. A kernel launched with the
 // programmatic-stream-serialization attribute may start while the kernel
 // before it on the stream still runs; grid_dep_wait() returns once that

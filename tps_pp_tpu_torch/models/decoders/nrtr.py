@@ -259,6 +259,21 @@ class NRTRDecoder(nn.Module):
                     if k not in ('wk2', 'wv2')}
         return self._cached((self.classifier.weight.device, 'step'), make)
 
+    def _step_layer_args(self):
+        """Per layer, the weight arguments of ``self_attn_step`` and of
+        ``cross_ffn_step``: views of :meth:`step_weights`, made once per
+        (device, weights stamp) and not at every step."""
+        def make():
+            w = self.step_weights()
+            return [((w['wqkv'][l], w['wfc1'][l], w['ln1_s'][l],
+                      w['ln1_b'][l]),
+                     tuple(w[k][l] for k in (
+                         'wq2', 'wfc2', 'ln2_s', 'ln2_b', 'w1', 'b1', 'w2',
+                         'b2', 'ln3_s', 'ln3_b')))
+                    for l in range(len(self.layer_stack))]
+        return self._cached((self.classifier.weight.device, 'step_layers'),
+                            make)
+
     def _fused_decode_step(self, token, t: int, carry, static, plain: bool):
         """decode_step through ``ops.decode_step``: per layer
         ``self_attn_step`` (LN1, QKV, cache append, attention, projection,
@@ -267,14 +282,11 @@ class NRTRDecoder(nn.Module):
         enc_kvs, src_mask = static
         sa_fn = self_attn_step_plain if plain else self_attn_step
         cf_fn = cross_ffn_step_plain if plain else cross_ffn_step
-        w = self.step_weights()
         x = self._embed(token[:, None], offset=t)[:, 0].contiguous()
-        for l, ((ck, cv), (ek, ev)) in enumerate(zip(carry, enc_kvs)):
-            x, _, _ = sa_fn(x, ck, cv, t, w['wqkv'][l], w['wfc1'][l],
-                            w['ln1_s'][l], w['ln1_b'][l])
-            x = cf_fn(x, ek, ev, src_mask, w['wq2'][l], w['wfc2'][l],
-                      w['ln2_s'][l], w['ln2_b'][l], w['w1'][l], w['b1'][l],
-                      w['w2'][l], w['b2'][l], w['ln3_s'][l], w['ln3_b'][l])
+        for (sa_w, cf_w), (ck, cv), (ek, ev) in zip(self._step_layer_args(),
+                                                    carry, enc_kvs):
+            x, _, _ = sa_fn(x, ck, cv, t, *sa_w)
+            x = cf_fn(x, ek, ev, src_mask, *cf_w)
         return self._head(x), carry
 
     # ---- fused path ----------------------------------------------------

@@ -30,8 +30,8 @@ _SIGNATURES = {
     'tpk_encoder_attention': [_P] * 3 + [_I] * 4 + [_P],
     'tpk_gemm': [_P] * 8 + [_I] * 5 + [_P],
     'tpk_full_decode': [_P] * 35 + [_I] * 11 + [_P],
-    'tpk_self_attn_step': [_P] * 12 + [_I] * 7 + [_P],
-    'tpk_cross_ffn_step': [_P] * 20 + [_I] * 7 + [_P],
+    'tpk_self_attn_step': [_P] * 9 + [_I] * 7 + [_P],
+    'tpk_cross_ffn_step': [_P] * 16 + [_I] * 7 + [_P],
     'tpk_grid_sample_fwd': [_P] * 3 + [_I] * 6 + [_P],
     'tpk_grid_sample_grad': [_P] * 5 + [_I] * 6 + [_P],
     'tpk_grid_sample_grad_img': [_P] * 3 + [_I] * 6 + [_P],
@@ -124,10 +124,11 @@ def require_cuda(device, name: str):
 
 def check_args(name: str, device, expected):
     """Raise unless every tensor of ``expected`` ({arg: (tensor, shape,
-    dtype)}) is contiguous, on ``device``, of that shape and dtype."""
+    dtype)}, the shape a tuple) is contiguous, on ``device``, of that shape
+    and dtype."""
     for arg, (t, shape, dt) in expected.items():
-        if t.device != device or t.dtype != dt or \
-                tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        if t.dtype != dt or t.shape != shape or t.device != device or \
+                not t.is_contiguous():
             raise ValueError(
                 f'{name}: {arg} must be a contiguous {dt} tensor of shape '
                 f'{tuple(shape)} on {device}, got {t.dtype} '

@@ -21,6 +21,7 @@ step's attention reads the unrounded float32 K/V at slot ``t``.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -98,6 +99,32 @@ def _act_dtype(name, x):
     return x.dtype
 
 
+def _scratch(n_bytes, dev):
+    """One uint8 scratch buffer of a call (the kernels carve it up)."""
+    return torch.empty((n_bytes,), dtype=torch.uint8, device=dev)
+
+
+# Weight tuples that passed a wrapper's checks, keyed by the tensors'
+# storage pointers: a decode step passes the same weights at every step,
+# so each tuple is checked once, and a call looks its key up in place of
+# checking 4-10 tensors on the host. The weakrefs tell a tensor
+# freed and its storage reused from the one checked; a weight given other
+# storage has another key. (A weight resized in place over its storage
+# after its first call is not checked again.)
+_CHECKED = {}
+
+
+def _weights_checked(name, ws, ptrs) -> bool:
+    refs = _CHECKED.get((name,) + ptrs)
+    return refs is not None and all(r() is t for r, t in zip(refs, ws))
+
+
+def _remember_weights(name, ws, ptrs):
+    if len(_CHECKED) >= 256:
+        _CHECKED.clear()
+    _CHECKED[(name,) + ptrs] = tuple(weakref.ref(t) for t in ws)
+
+
 def self_attn_step(x, ck, cv, t: int, wqkv, wfc, ln_s, ln_b):
     """The kernel on CUDA tensors, the plain version on CPU tensors. Same
     arguments as :func:`self_attn_step_plain`."""
@@ -111,18 +138,21 @@ def self_attn_step(x, ck, cv, t: int, wqkv, wfc, ln_s, ln_b):
     f32, xt = torch.float32, _act_dtype('self_attn_step', x)
     _lib.check_args('self_attn_step', dev, {
         'x': (x, (N, D), xt), 'ck': (ck, (N, H, T, DK), xt),
-        'cv': (cv, (N, H, T, DK), xt), 'wqkv': (wqkv, (D, 3 * HD), _BF),
-        'wfc': (wfc, (HD, D), _BF), 'ln_s': (ln_s, (D,), f32),
-        'ln_b': (ln_b, (D,), f32)})
-    x32 = torch.empty((N, D), dtype=f32, device=dev)
-    y = torch.empty((N, D), dtype=_BF, device=dev)
-    qkv = torch.empty((N, 3 * HD), dtype=f32, device=dev)
-    att = torch.empty((N, HD), dtype=_BF, device=dev)
+        'cv': (cv, (N, H, T, DK), xt)})
+    ws = (wqkv, wfc, ln_s, ln_b)
+    wp = tuple(w.data_ptr() for w in ws)
+    if not _weights_checked('self_attn_step', ws, wp):
+        _lib.check_args('self_attn_step', dev, {
+            'wqkv': (wqkv, (D, 3 * HD), _BF), 'wfc': (wfc, (HD, D), _BF),
+            'ln_s': (ln_s, (D,), f32), 'ln_b': (ln_b, (D,), f32)})
+        _remember_weights('self_attn_step', ws, wp)
+    # qkv (N, 3HD) f32, then att (N, HD) bf16
+    scratch = _scratch(N * HD * 14, dev)
     out = torch.empty((N, D), dtype=xt, device=dev)
     rc = _lib.load().tpk_self_attn_step(
-        *(a.data_ptr() for a in (x, ck, cv, wqkv, wfc, ln_s, ln_b, x32, y,
-                                 qkv, att, out)),
-        N, D, H, DK, T, t, int(xt == _BF), _lib.stream_ptr(dev))
+        x.data_ptr(), ck.data_ptr(), cv.data_ptr(), *wp, scratch.data_ptr(),
+        out.data_ptr(), N, D, H, DK, T, t, int(xt == _BF),
+        _lib.stream_ptr(dev))
     _lib.check(rc, 'self_attn_step')
     self_attn_step.launches += 1
     return out, ck, cv
@@ -147,23 +177,24 @@ def cross_ffn_step(x, enc_k, enc_v, src_mask, wq, wfc, ln2_s, ln2_b, w1, b1,
     _lib.check_args('cross_ffn_step', dev, {
         'x': (x, (N, D), xt), 'enc_k': (enc_k, (N, H, TE, DK), xt),
         'enc_v': (enc_v, (N, H, TE, DK), xt),
-        'src_mask': (src_mask, (N, TE), f32), 'wq': (wq, (D, HD), _BF),
-        'wfc': (wfc, (HD, D), _BF), 'w1': (w1, (D, DI), _BF),
-        'b1': (b1, (DI,), f32), 'w2': (w2, (DI, D), _BF),
-        'b2': (b2, (D,), f32), 'ln2_s': (ln2_s, (D,), f32),
-        'ln2_b': (ln2_b, (D,), f32), 'ln3_s': (ln3_s, (D,), f32),
-        'ln3_b': (ln3_b, (D,), f32)})
-    x32 = torch.empty((N, D), dtype=f32, device=dev)
-    y = torch.empty((N, D), dtype=_BF, device=dev)
-    q32 = torch.empty((N, HD), dtype=f32, device=dev)
-    att = torch.empty((N, HD), dtype=_BF, device=dev)
-    hid = torch.empty((N, DI), dtype=_BF, device=dev)
+        'src_mask': (src_mask, (N, TE), f32)})
+    ws = (wq, wfc, ln2_s, ln2_b, w1, b1, w2, b2, ln3_s, ln3_b)
+    wp = tuple(w.data_ptr() for w in ws)
+    if not _weights_checked('cross_ffn_step', ws, wp):
+        _lib.check_args('cross_ffn_step', dev, {
+            'wq': (wq, (D, HD), _BF), 'wfc': (wfc, (HD, D), _BF),
+            'w1': (w1, (D, DI), _BF), 'b1': (b1, (DI,), f32),
+            'w2': (w2, (DI, D), _BF), 'b2': (b2, (D,), f32),
+            'ln2_s': (ln2_s, (D,), f32), 'ln2_b': (ln2_b, (D,), f32),
+            'ln3_s': (ln3_s, (D,), f32), 'ln3_b': (ln3_b, (D,), f32)})
+        _remember_weights('cross_ffn_step', ws, wp)
+    # q (N, HD) f32, then att (N, HD) bf16
+    scratch = _scratch(N * HD * 6, dev)
     out = torch.empty((N, D), dtype=xt, device=dev)
     rc = _lib.load().tpk_cross_ffn_step(
-        *(a.data_ptr() for a in (x, enc_k, enc_v, src_mask, wq, wfc, ln2_s,
-                                 ln2_b, w1, b1, w2, b2, ln3_s, ln3_b, x32, y,
-                                 q32, att, hid, out)),
-        N, D, H, DK, TE, DI, int(xt == _BF), _lib.stream_ptr(dev))
+        x.data_ptr(), enc_k.data_ptr(), enc_v.data_ptr(), src_mask.data_ptr(),
+        *wp, scratch.data_ptr(), out.data_ptr(), N, D, H, DK, TE, DI,
+        int(xt == _BF), _lib.stream_ptr(dev))
     _lib.check(rc, 'cross_ffn_step')
     cross_ffn_step.launches += 1
     return out
