@@ -35,6 +35,8 @@ seed):
 
 The 3x3 convolution of the fused stem (kernel 11) has no caller in either
 package; it is driven as an op, at the stem's width over the batch of 512.
+The band walk's plan at each stem shape (kernels 11 and 12 in bf16) is
+logged, and the module stem is timed against the fused stem.
 
 For every kernel it reports the time, the plain version's time, the time of
 one PyTorch call that computes the same function where there is one, and
@@ -423,7 +425,7 @@ def stem_checks(dev, g, record):
     import torch.nn.functional as F
     from tps_pp_tpu_torch.ops.stem import (basic_block_cp,
                                            basic_block_cp_plain, conv3x3_cp,
-                                           conv3x3_cp_plain)
+                                           conv3x3_cp_plain, stem_plan)
     f32, bf = torch.float32, torch.bfloat16
 
     def inputs(cin, cmid, cout, n, H, W, dtype):
@@ -484,8 +486,14 @@ def stem_checks(dev, g, record):
            fn_lib=lambda: F.conv2d(x_l, w_l, b_l, padding=1))
     del x, w, b, out, x_l, lib
 
-    # kernel 12 at the stem's three shapes over the batch of B
+    # kernel 12 at the stem's three shapes over the batch of B, each with
+    # the plan of its band walk on this card
+    log(f'conv3x3_cp plan at B={B}: '
+        f'{stem_plan(32, 32, 32, B, 32, 128, block=False)}')
     for sname, (cin, cmid, cout, H, W, res) in STEM_SHAPES.items():
+        log(f'basic_block_cp {sname} plan at B={B} (R output rows a group, '
+            f'NR ring slots, blocks, shared memory bytes a block): '
+            f'{stem_plan(cin, cmid, cout, B, H, W)}')
         a = inputs(cin, cmid, cout, B, H, W, bf)
         got = basic_block_cp(*a, H=H, W=W, residual=res)
         err = check_close(f'basic_block_cp {sname}', got,
@@ -745,7 +753,7 @@ def main():
     from tps_pp_tpu_torch.ops.full_decode import (_dims, full_decode,
                                                   full_decode_plain,
                                                   graph_bytes)
-    from tps_pp_tpu_torch.ops.stem import basic_block_cp
+    from tps_pp_tpu_torch.ops.stem import basic_block_cp, fused_stem_forward
     from tps_pp_tpu_torch.ops.tps_sampler import (
         PLAIN, tps_grid_sample_fused, tps_sampler, tps_sampler_plain,
         tps_sampler_plain_twostage, warp_twostage)
@@ -1306,6 +1314,14 @@ def main():
         ts.append(time.perf_counter() - t0)
     log(f'slice B={B_SMALL} steps, use_fused_step: {min(ts) * 1e3:.2f} '
         f'ms/batch (best of 5) [{name}]')
+    # the module stem against the fused stem (stem + layer1 + layer2), in
+    # turns, CUDA events
+    stems = {'module': lambda: model.backbone.stem_and_head(img),
+             'fused': lambda: fused_stem_forward(model.backbone, img, bf)}
+    with torch.inference_mode():
+        for k in ('module', 'fused', 'fused', 'module'):
+            log(f'stem B={B}, {k}: {cuda_ms(stems[k], 5):.3f} ms (stem + '
+                f'layer1 + layer2) [{name}]')
     serve(rec, 'auto')
     os.environ.pop('TPS_SAMPLER_VARIANT')
     del rec, rec_fs, model

@@ -32,7 +32,7 @@ from tps_pp_tpu_torch.ops.grid_sample import (
     grid_sample_plain)
 from tps_pp_tpu_torch.ops.stem import (basic_block_cp, basic_block_cp_plain,
                                       conv3x3_cp, conv3x3_cp_plain,
-                                      fused_stem_forward)
+                                      fused_stem_forward, stem_plan)
 from tps_pp_tpu_torch.ops.tps_sampler import (tps_grid_sample_fused,
                                               tps_sampler, tps_sampler_plain,
                                               tps_sampler_plain_twostage,
@@ -365,6 +365,79 @@ def test_basic_block_cp_kernel(cuda_device, dtype, shape):
     atol, rtol = STEM_BOUNDS[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('W,H,N,cin,cmid,cout,residual', [
+    (16, 31, 3, 32, 32, 32, True), (32, 31, 5, 32, 64, 64, False),
+    (64, 15, 300, 64, 64, 64, True), (128, 31, 300, 32, 64, 64, False),
+    (128, 33, 7, 32, 64, 32, True), (64, 17, 9, 16, 48, 16, True)])
+def test_basic_block_cp_band_walk(cuda_device, W, H, N, cin, cmid, cout,
+                                  residual):
+    """Kernel 12 in bf16 at W = 16 to 128: groups of 256 / W rows, walks
+    that cross image boundaries (more groups than blocks, odd heights with a
+    short last band), C_mid != C_in with and without the residual, and a
+    48-wide C_mid (a 16-wide last chunk of the first stage), against the
+    plain version."""
+    atol, rtol = STEM_BOUNDS[BF]
+    args = _block_args(cuda_device, cin, cmid, cout, N=N, H=H, W=W)
+    before = basic_block_cp.launches
+    got = basic_block_cp(*args, H=H, W=W, residual=residual)
+    want = basic_block_cp_plain(*args, H=H, W=W, residual=residual)
+    torch.cuda.synchronize()
+    assert basic_block_cp.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('shape', list(STEM_SHAPES))
+def test_basic_block_cp_zero_halo(cuda_device, shape):
+    """b1 = +0.5 everywhere, so relu(b1) = 0.5 where y is SAME padding: a
+    window row or column outside the image that took relu(b1) instead of
+    zero would move the first and last rows and columns of the output by
+    far more than the bound (checked on the weights); odd heights."""
+    cin, cmid, cout, H, W, residual = STEM_SHAPES[shape]
+    atol, rtol = STEM_BOUNDS[BF]
+    t, w1, b1, wt, b2 = _block_args(cuda_device, cin, cmid, cout, N=3,
+                                    H=H - 1, W=W)
+    b1 = torch.full_like(b1, 0.5)
+    got = basic_block_cp(t, w1, b1, wt, b2, H=H - 1, W=W, residual=residual)
+    want = basic_block_cp_plain(t, w1, b1, wt, b2, H=H - 1, W=W,
+                                residual=residual)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    # what one halo row of 0.5 would add to an output row
+    halo = (0.5 * wt.float().reshape(cout, 3, 3, cmid)[:, 0].sum((1, 2)))
+    assert float(halo.abs().max()) > 10 * atol
+
+
+@pytest.mark.requires_cuda
+def test_stem_plans(cuda_device):
+    """The bf16 plans at the stem's shapes over a batch of 512: groups of
+    at most 256 pixels, a ring of at least a fresh group's R + 2 rows, no
+    more blocks than groups or than two an SM, within the shared memory;
+    kernel 11's plan at layer1's shape as kernel 12's; and a shape that no
+    plan fits raises, nothing launched."""
+    props = torch.cuda.get_device_properties(cuda_device)
+    for shape, (cin, cmid, cout, H, W, _) in STEM_SHAPES.items():
+        plan = stem_plan(cin, cmid, cout, 512, H, W)
+        R, NR = plan['R'], plan['NR']
+        assert R * W <= 256 and NR >= R + 2, (shape, plan)
+        assert plan['blocks'] <= min(512 * -(-H // R),
+                                     2 * props.multi_processor_count)
+        assert plan['smem'] <= 227 * 1024
+    conv = stem_plan(32, 32, 32, 512, 32, 128, block=False)
+    assert (conv['R'], conv['NR']) == tuple(
+        stem_plan(32, 32, 32, 512, 32, 128)[k] for k in ('R', 'NR'))
+    before = basic_block_cp.launches
+    with pytest.raises(ValueError, match='outside the kernel'):
+        stem_plan(64, 64, 64, 1, 2, 4096)
+    with pytest.raises(ValueError, match='outside the kernel'):
+        basic_block_cp(*_block_args(cuda_device, 64, 64, 64, N=1, H=2,
+                                    W=4096), H=2, W=4096)
+    assert basic_block_cp.launches == before
 
 
 @pytest.mark.requires_cuda

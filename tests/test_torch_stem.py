@@ -101,12 +101,29 @@ def _jax_fold(conv_w_oihw, bn):
     return jstem.fold_bn(k, params, stats)
 
 
-@pytest.mark.parametrize('residual', [True, False])
-def test_basic_block_cp_plain_matches_pallas(residual):
-    N, H, W = 2, 6, 16
-    cin, planes = (16, 16) if residual else (8, 16)
-    blk = _block(int(residual), cin, planes)
+# (residual, C_in, planes, H, b1 made positive): two small blocks, then the
+# stem's three channel patterns (layer1's 32 -> 32 -> 32, layer2's block0
+# 32 -> 64 -> 64 without the residual, its blocks 64 -> 64 -> 64) at an odd
+# height with b1 > 0, so that a y of relu(b1) in place of the SAME padding
+# would show at the first and last rows
+_BLOCK_CASES = [pytest.param(True, 16, 16, 6, False, id='True'),
+                pytest.param(False, 8, 16, 6, False, id='False'),
+                pytest.param(True, 32, 32, 5, True, id='layer1'),
+                pytest.param(False, 32, 64, 5, True, id='layer2_block0'),
+                pytest.param(True, 64, 64, 5, True, id='layer2_blocks')]
+
+
+@pytest.mark.parametrize('residual,cin,planes,H,positive_b1', _BLOCK_CASES)
+def test_basic_block_cp_plain_matches_pallas(residual, cin, planes, H,
+                                             positive_b1):
+    N, W = 2, 16
+    blk = _block(int(residual) + (cin if positive_b1 else 0), cin, planes)
+    if positive_b1:     # shift bn1's beta so that every folded b1 is >= 0.5
+        with torch.no_grad():
+            _, b1 = stem.fold_bn(blk.conv1.weight[:, :, 0, 0], blk.bn1)
+            blk.bn1.bias += (0.5 - b1.min()).clamp(min=0)
     w1, b1 = stem.fold_bn(blk.conv1.weight[:, :, 0, 0], blk.bn1)
+    assert not positive_b1 or float(b1.detach().min()) >= 0.5 - 1e-6
     w2, b2 = stem.fold_bn(blk.conv2.weight, blk.bn2)
     jw1, jb1 = _jax_fold(blk.conv1.weight, blk.bn1)
     jw2, jb2 = _jax_fold(blk.conv2.weight, blk.bn2)

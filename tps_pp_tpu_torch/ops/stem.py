@@ -14,6 +14,8 @@ taking the plain version on CPU tensors:
 * ``basic_block_cp``: kernel 12, replaces ``_block_kernel``: a BasicBlock
   (``use_conv1x1``) with its BatchNorms folded in.
 
+In bf16 both run one band-walk kernel; ``stem_plan`` reports its plan.
+
 ``fused_stem_forward(backbone, img, dtype, plain=False)`` runs the flagship
 trunk's stem, layer1 and layer2 through them, as the JAX function does
 (``pallas_stem.py:229-302``), with one deliberate difference: the stem
@@ -23,6 +25,7 @@ stem, ``ResNetABI_v2_large.stem_and_head``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import torch
@@ -220,6 +223,19 @@ def basic_block_cp(t, w1, b1, wtaps, b2, *, H: int, W: int,
 
 
 basic_block_cp.launches = 0
+
+
+def stem_plan(C_in: int, C_mid: int, C_out: int, N: int, H: int, W: int,
+              block: bool = True) -> Dict[str, int]:
+    """The plan that the bf16 kernel (12 with ``block``, else 11 with
+    C_mid = C_in) takes at this shape on the current CUDA device: ``R``
+    output rows a group, ``NR`` ring slots, ``blocks`` and the shared
+    memory of a block in bytes (``csrc/stem.cu`` ``band_plan``). Raises a
+    ValueError where no plan fits."""
+    plan = (ctypes.c_int * 4)()
+    _lib.check(_lib.load().tpk_stem_plan(C_in, C_mid, C_out, N, H, W,
+                                         int(block), plan), 'stem_plan')
+    return dict(zip(('R', 'NR', 'blocks', 'smem'), plan))
 
 
 # ---------------------------------------------------------- fused stem
