@@ -31,7 +31,16 @@ seed):
   and the gradient that reaches the loss only through the warp's d_grid);
   five steps with dropout 0.1 must give finite losses through the
   grid_sample kernels; both paths are timed. The d_img-only backward
-  kernel is driven through ``GridSampleFunction`` with a detached grid.
+  kernel is driven through ``GridSampleFunction`` with a detached grid;
+* beam search (``beam_width`` 5) on a float32 model whose decoder has
+  ``use_fused_step``, B=64 (the step kernels at 320 rows): each kernel step
+  against the plain step on the same caches, and the path against its
+  plain path, the best beam's tokens equal on every row but one whose
+  plain ranking has a near-tie (``BEAM_TIE``).
+
+The warp's backward kernels (9 and 10) are timed on the uniform grid of
+the checks and on TPS++'s own [0, 1]^2 grid, which puts every sample in
+the lower half of the map's rows; their band plan is logged.
 
 The 3x3 convolution of the fused stem (kernel 11) has no caller in either
 package; it is driven as an op, at the stem's width over the batch of 512.
@@ -120,6 +129,10 @@ STEM_SHAPES = {'layer1': (32, 32, 32, 32, 128, True),
                'layer2_block0': (32, 64, 64, 32, 128, False),
                'layer2_blocks': (64, 64, 64, 16, 64, True)}
 B_TRAIN = 256    # training batch (the JAX package's bench_train.py)
+# beam search: batch, beam width, and the near-tie of the plain path's
+# ranking (its two best final totals, or a step's last kept and best
+# dropped candidate) under which a row's kernel path may pick another beam
+B_BEAM, BEAM_W, BEAM_TIE = 64, 5, 1e-3
 # the training step, kernel path against plain path (dropout 0)
 LOSS_RTOL, GRAD_COS_MIN, GRAD_NORM_RTOL = 1e-2, 0.99, 5e-2
 TRAIN_OPT = dict(type='Adam', lr=1e-4, grad_clip=dict(max_norm=5.0))
@@ -347,12 +360,13 @@ def warp_inputs(dev, dtype, cot_scale, g):
 def warp_checks(dev, g, record, name):
     """Kernels 8, 9 and 10 against their plain versions in bf16 and f32;
     records them with their bf16 errors and times (the training path's
-    dtype)."""
+    dtype); times 9 and 10 on the [0, 1]^2 grid too, with their plan."""
+    import numpy as np
     import torch
     from tps_pp_tpu_torch.ops.grid_sample import (
         grid_sample_forward, grid_sample_grad, grid_sample_grad_img,
         grid_sample_grad_img_plain, grid_sample_grad_plain,
-        grid_sample_plain)
+        grid_sample_plain, grid_sample_plan)
     errs, timed = {}, None
     for dname in ('float32', 'bfloat16'):
         b = WARP_BOUNDS[dname]
@@ -411,7 +425,144 @@ def warp_checks(dev, g, record, name):
            e['d_img10'], 10, nbytes(grid, cot) + d_img, f32_flops=taps,
            fn_lib=lambda: torch.ops.aten.grid_sampler_2d_backward(
                cot_l, img_l, grid_l, 0, 1, True, [True, False]))
+    # TPS++ feeds a [0, 1]^2 grid to this [-1, 1] sampler: every sample in
+    # the lower half of the rows, the upper half's bands empty
+    plan = grid_sample_plan(B_TRAIN, 32, 128, 64)
+    if grid_sample_grad.last_plan != plan or \
+            grid_sample_grad_img.last_plan != plan:
+        raise AssertionError(f'grid_sample plan {plan}, the kernels ran '
+                             f'{grid_sample_grad.last_plan}, '
+                             f'{grid_sample_grad_img.last_plan}')
+    # (its own generator: the later phases draw the data they always drew)
+    quad = torch.tensor(np.random.default_rng(SEED + 2).uniform(
+        0, 1, tuple(grid.shape)), dtype=torch.float32, device=dev)
+    b = WARP_BOUNDS['bfloat16']
+    (d_img, d_grid), (want_img, want_grid) = (
+        fn(quad, cot, img) for fn in (grid_sample_grad,
+                                      grid_sample_grad_plain))
+    errs = [check_close('grid_sample_grad d_img [0, 1]^2', d_img, want_img,
+                        b['d_img']),
+            check_close('grid_sample_grad d_grid [0, 1]^2', d_grid,
+                        want_grid, b['d_grid']),
+            check_close('grid_sample_grad_img [0, 1]^2',
+                        grid_sample_grad_img(quad, cot, 32, 128),
+                        grid_sample_grad_img_plain(quad, cot, 32, 128),
+                        b['d_img'])]
+    del d_img, want_img
+    ms = [cuda_ms(fn, 10) for fn in (
+        lambda: grid_sample_grad(quad, cot, img),
+        lambda: grid_sample_grad_img(quad, cot, 32, 128))]
+    log(f'grid_sample_grad / grid_sample_grad_img on the [0, 1]^2 grid: '
+        f'{ms[0]:.4f} / {ms[1]:.4f} ms, max abs errors '
+        f'{", ".join(f"{e:.4g}" for e in errs)}; band plan at B={B_TRAIN} '
+        f'(rows a band, channels a slab, CTAs an SM, CTAs, shared memory '
+        f'bytes a CTA): {plan} [{name}]')
     return img, grid, cot
+
+
+def beam_phase(rec, img, name):
+    """Beam search through ``TextRecognizer.predict`` on a float32 copy of
+    ``rec`` whose decoder has ``use_fused_step`` (kernels 6 and 7 at
+    B_BEAM * BEAM_W rows, the sampler's f32 variant), timed, then checked
+    two ways on the same B_BEAM images:
+
+    * step by step: the same ``beam_decode`` on the kernels, each step's
+      probabilities against the plain step's on a copy of the same
+      (reindexed) caches and tokens, within the decode rule's bounds;
+    * end to end against the plain path: the best beam's tokens equal on
+      every row, or the plain path's ranking had a near-tie (within
+      BEAM_TIE) where a step's rounding can swap a beam: between its two
+      best final totals, or at a step's cut between the last kept and the
+      best dropped candidate. Such a row is printed."""
+    import torch
+    from tps_pp_tpu_torch.apis import build_recognizer, nrtr_tps_pp_cfg
+    from tps_pp_tpu_torch.models.decoders import beam_decode
+    from tps_pp_tpu_torch.ops.decode_step import cross_ffn_step, self_attn_step
+    from tps_pp_tpu_torch.ops.tps_sampler import tps_sampler
+    cfg = nrtr_tps_pp_cfg(decode_mode='steps')
+    cfg = dict(cfg, beam_width=BEAM_W, decoder=dict(cfg['decoder'],
+                                                    use_fused_step=True))
+    r = build_recognizer(cfg)
+    r.model.load_state_dict(rec.model.state_dict())
+    if r.beam_width != BEAM_W or r.resolved_decode_mode() != 'steps' or \
+            r.dtype != torch.float32:
+        raise AssertionError(f'beam: width {r.beam_width}, mode '
+                             f'{r.resolved_decode_mode()}, {r.dtype}')
+    im = img[:B_BEAM].to(torch.float32).contiguous()
+    ones = torch.ones(B_BEAM, device=im.device)
+    dec = r.model.decoder
+    fns = (tps_sampler, self_attn_step, cross_ffn_step)
+    step_err = [0.0]
+
+    class Twin:
+        """The decoder's kernel steps, each held against the plain step on
+        a copy of its caches."""
+
+        def decode_init(self, *a):
+            return dec.decode_init(*a)
+
+        def decode_step(self, token, t, carry, static, plain=False):
+            copy = [tuple(c.clone() for c in layer) for layer in carry]
+            want, _ = dec.decode_step(token, t, copy, static, plain=True)
+            got, carry = dec.decode_step(token, t, carry, static)
+            step_err[0] = max(step_err[0], check_close(
+                f'beam step {t}', got, want, (DECODE_ATOL, DECODE_RTOL)))
+            return got, carry
+
+    def run(decoder, plain):
+        with torch.inference_mode():
+            _, enc = r.model.encode_full(im, ones, plain=plain)
+            return beam_decode(
+                decoder, enc, ones, max_seq_len=r.max_seq_len,
+                start_idx=r.label_convertor.start_idx, beam_width=BEAM_W,
+                length_norm=r.beam_length_norm, plain=plain,
+                return_ranking=True)
+
+    r.predict(im)                                 # warm
+    for fn in fns:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pk = r.predict(im)
+    torch.cuda.synchronize()
+    ms_k = (time.perf_counter() - t0) * 1e3
+    launches = {fn.__name__: fn.launches for fn in fns}
+    if min(launches.values()) < 1:
+        raise AssertionError(f'beam: a kernel did not launch: {launches}')
+    t0 = time.perf_counter()
+    pp, totals, cut = run(dec, True)
+    torch.cuda.synchronize()
+    ms_p = (time.perf_counter() - t0) * 1e3
+    twin = run(Twin(), False)[0]
+    if pk.shape != pp.shape or not bool(torch.isfinite(pk).all()):
+        raise AssertionError(f'beam: bad output {tuple(pk.shape)}')
+    same = (pk.argmax(-1) == pp.argmax(-1)).all(-1)
+    near = torch.minimum(totals[:, 0] - totals[:, 1], cut.min(1).values)
+    for row in torch.nonzero(~same).flatten().tolist():
+        gap = float(near[row])
+        if not gap < BEAM_TIE:
+            raise AssertionError(f'beam: row {row} picks another best beam '
+                                 f'than the plain path, whose ranking has no '
+                                 f'near-tie ({gap:.4g} >= {BEAM_TIE})')
+        log(f'beam: row {row} parts from the plain path; the plain '
+            f'ranking\'s closest call {gap:.4g} (final totals '
+            f'{float(totals[row, 0] - totals[row, 1]):.4g}, cut '
+            f'{float(cut[row].min()):.4g} at step '
+            f'{int(cut[row].argmin())}) < {BEAM_TIE}')
+    k, p = pk[same], pp[same]
+    if bool(((k - p).abs() > DECODE_ATOL + DECODE_RTOL * p.abs()).any()):
+        raise AssertionError(f'beam: scores beyond atol {DECODE_ATOL} rtol '
+                             f'{DECODE_RTOL}')
+    log(f'beam B={B_BEAM} beam_width={BEAM_W}, float32, use_fused_step: '
+        f'launches {launches}; each kernel step against the plain step on '
+        f'its caches: max abs err {step_err[0]:.4g} (that run\'s tokens '
+        f'equal to predict\'s on '
+        f'{int((twin.argmax(-1) == pk.argmax(-1)).all(-1).sum())} rows); '
+        f'best-beam tokens equal to the plain path on {int(same.sum())} of '
+        f'{B_BEAM} rows, the rest at a near-tie; rows whose plain ranking '
+        f'has one {int((near < BEAM_TIE).sum())}; max abs err on agreeing '
+        f'rows {float((k - p).abs().max()):.4g}; {ms_k:.2f} ms kernel path '
+        f'(predict), {ms_p:.2f} ms plain [{name}]')
 
 
 def stem_checks(dev, g, record):
@@ -1274,6 +1425,9 @@ def main():
             f'plain path at a near-tie (top-2 gap at most {widest:.3g} < '
             f'{NEAR_TIE}); max abs err {err:.4g}')
         del r32
+
+    # ---- beam search on the card --------------------------------------------
+    beam_phase(rec, img, name)
 
     # ---- warm throughput at B=512, the paths in turns ---------------------
     # (recognizer, decode mode, stem mode, sampler variant, plain)

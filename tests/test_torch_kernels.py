@@ -29,7 +29,7 @@ from tps_pp_tpu_torch.ops.gemm import gemm, gemm_plain
 from tps_pp_tpu_torch.ops.grid_sample import (
     GridSampleFunction, grid_sample_forward, grid_sample_grad,
     grid_sample_grad_img, grid_sample_grad_img_plain, grid_sample_grad_plain,
-    grid_sample_plain)
+    grid_sample_plain, grid_sample_plan)
 from tps_pp_tpu_torch.ops.stem import (basic_block_cp, basic_block_cp_plain,
                                       conv3x3_cp, conv3x3_cp_plain,
                                       fused_stem_forward, stem_plan)
@@ -832,9 +832,9 @@ WARP_BOUNDS = {
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 def test_grid_sample_kernels(cuda_device, dtype):
-    """Kernels 8, 9 and 10 against their plain versions. d_img is a sum of
-    f32 atomics in a varying order, so it may differ from the plain
-    version's in its last bits; the bounds allow for that."""
+    """Kernels 8, 9 and 10 against their plain versions. d_img is summed by
+    shared-memory f32 atomics in a varying order, so it may differ from the
+    plain version's in its last bits; the bounds allow for that."""
     b = WARP_BOUNDS[dtype]
     img, grid, cot = _warp_args(cuda_device, dtype, scale=b['cot_scale'])
     counts = [f.launches for f in (grid_sample_forward, grid_sample_grad,
@@ -880,3 +880,155 @@ def test_grid_sample_function_routes(cuda_device):
         assert img.grad.dtype == torch.bfloat16
         assert (g.grad is not None) == grid_grad
         img.grad = None
+
+
+# ---- kernels 9 and 10: the band plan and the grids that stress it ------
+
+def _pixel_grid(px, py, H, W):
+    """(N, Ho, Wo, 2) float32 grid in the [-1, 1] convention from pixel
+    coordinates (align_corners=True: pixel 0 at -1, pixel W-1 at 1)."""
+    return np.stack([2 * np.asarray(px) / (W - 1) - 1,
+                     2 * np.asarray(py) / (H - 1) - 1], -1)
+
+
+def _check_warp_grads(device, dtype, grid, H=32, W=128, C=64, seed=2):
+    """Kernels 9 and 10 against their plain versions on ``grid`` (numpy,
+    (N, Ho, Wo, 2)) with a random map and cotangent; returns the kernels'
+    d_img (9, 10)."""
+    b = WARP_BOUNDS[dtype]
+    rng = np.random.default_rng(seed)
+    N, Ho, Wo = grid.shape[:3]
+    img = torch.tensor(rng.uniform(-1, 1, (N, H, W, C)), dtype=dtype,
+                       device=device)
+    cot = torch.tensor(b['cot_scale'] * rng.uniform(-1, 1, (N, Ho, Wo, C)),
+                       dtype=dtype, device=device)
+    grid = torch.tensor(grid, dtype=torch.float32, device=device)
+    d_img, d_grid = grid_sample_grad(grid, cot, img)
+    d_img10 = grid_sample_grad_img(grid, cot, H, W)
+    want_img, want_grid = grid_sample_grad_plain(grid, cot, img)
+    torch.cuda.synchronize()
+    atol, rtol = b['d_img']
+    torch.testing.assert_close(d_img, want_img, atol=atol, rtol=rtol)
+    torch.testing.assert_close(d_img10, grid_sample_grad_img_plain(
+        grid, cot, H, W), atol=atol, rtol=rtol)
+    atol, rtol = b['d_grid']
+    torch.testing.assert_close(d_grid, want_grid, atol=atol, rtol=rtol)
+    return d_img, d_img10
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_grid_sample_grad_band_edges(cuda_device, dtype):
+    """Every sample's top tap on the last row of a band of the plan
+    (y0 = r0 + rows - 1), so its bottom tap falls in the next band (the
+    last band's clamps onto itself): each straddling sample is read by two
+    CTAs, and only the first writes its d_grid."""
+    H, W = 32, 128
+    rows = grid_sample_plan(4, H, W, 64)['rows']
+    rng = np.random.default_rng(0)
+    edges = np.arange(rows - 1, H, rows)
+    py = edges[rng.integers(0, len(edges), (4, 16, 64))] + rng.uniform(
+        0.05, 0.95, (4, 16, 64))
+    py = np.minimum(py, H - 1)
+    px = rng.uniform(0, W - 1, (4, 16, 64))
+    _check_warp_grads(cuda_device, dtype, _pixel_grid(px, py, H, W))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('case', ['last_row_col', 'quadrant', 'one_pixel',
+                                  'chunks'])
+def test_grid_sample_grad_grids(cuda_device, dtype, case):
+    """``last_row_col``: samples on the last row and column, exactly and
+    beyond the border (the far taps clamp onto the near ones, ties pass
+    d_grid); ``quadrant``: TPS++'s own [0, 1]^2 grid, which leaves the
+    upper half of the rows without samples; ``one_pixel``: every sample of
+    an image on one pixel, all warps adding to the same addresses;
+    ``chunks``: 2,560 samples an image, three lists of a CTA."""
+    H, W = 32, 128
+    rng = np.random.default_rng(1)
+    shape = (4, 40, 64) if case == 'chunks' else (4, 16, 64)
+    if case == 'last_row_col':
+        px = rng.choice([W - 1.0, W - 1.5, W - 1 + 1e-3, W + 5.0,
+                         rng.uniform(0, W - 1)], shape)
+        py = rng.choice([H - 1.0, H - 1.5, H + 3.0, rng.uniform(0, H - 1)],
+                        shape)
+        grid = _pixel_grid(px, py, H, W)
+    elif case == 'quadrant':
+        grid = rng.uniform(0, 1, shape + (2,))
+    elif case == 'one_pixel':
+        grid = np.broadcast_to(rng.uniform(-1, 1, (4, 1, 1, 2)),
+                               shape + (2,)).copy()
+    else:
+        grid = rng.uniform(-1.1, 1.1, shape + (2,))
+    _check_warp_grads(cuda_device, dtype, grid)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_grid_sample_grad_writes_every_pixel(cuda_device, dtype):
+    """d_img comes from ``torch.empty``: a pixel the kernels failed to
+    write would hold what the allocator's block held before. With the
+    memory just freed from a NaN-filled tensor of d_img's size and every
+    sample on row 0 (wy = 0), d_img is exactly 0 below row 0."""
+    H, W, C, N = 32, 128, 64, 4
+    rng = np.random.default_rng(3)
+    grid = _pixel_grid(rng.uniform(0, W - 1, (N, 16, 64)),
+                       np.zeros((N, 16, 64)), H, W)
+    # blocks of d_img's size for the image (float32), kernel 9's d_img
+    # and kernel 10's, and one more, all held at once and then freed
+    nans = [torch.full((N, H, W, C), float('nan'), device=cuda_device)
+            for _ in range(4)]
+    del nans
+    d_img, d_img10 = _check_warp_grads(cuda_device, dtype, grid, H, W, C)
+    for d in (d_img, d_img10):
+        assert not bool(torch.isnan(d).any())
+        assert bool((d[:, 1:] == 0).all())
+        assert bool((d[:, 0] != 0).any())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('shape', [(1, 4, 256, 256, (8, 16)),
+                                   (3, 5, 6, 2, (7, 9))])
+def test_grid_sample_grad_other_plans(cuda_device, dtype, shape):
+    """(N, H, W, C, (Ho, Wo)): 256 channels of 256 columns, whose row of
+    C does not fit, so the plan splits channels into slabs (and d_grid
+    sums over all of them); C=2 with an odd Ho * Wo."""
+    N, H, W, C, (Ho, Wo) = shape
+    plan = grid_sample_plan(N, H, W, C)
+    if C == 256:
+        assert plan['slab'] < C or plan['rows'] == 1, plan
+    rng = np.random.default_rng(4)
+    grid = rng.uniform(-1.1, 1.1, (N, Ho, Wo, 2))
+    _check_warp_grads(cuda_device, dtype, grid, H, W, C)
+    assert grid_sample_grad.last_plan == grid_sample_grad_img.last_plan \
+        == plan
+
+
+@pytest.mark.requires_cuda
+def test_grid_sample_plan(cuda_device):
+    """The plan at the flagship's training shape is the one the kernels
+    ran: bands of whole rows at all 64 channels, two or more CTAs an SM,
+    one CTA an (image, band), within the shared memory; a shape no plan
+    fits raises, nothing launched."""
+    img, grid, cot = _warp_args(cuda_device, torch.bfloat16)
+    plan = grid_sample_plan(4, 32, 128, 64)
+    grid_sample_grad(grid, cot, img)
+    grid_sample_grad_img(grid, cot, 32, 128)
+    assert grid_sample_grad.last_plan == grid_sample_grad_img.last_plan \
+        == plan
+    assert plan['slab'] == 64 and 1 <= plan['rows'] <= 32
+    assert plan['ctas_per_sm'] >= 2
+    assert plan['blocks'] == 4 * -(-32 // plan['rows'])
+    assert plan['rows'] * 128 * 64 * 4 < plan['smem'] <= 227 * 1024
+    before = (grid_sample_grad.launches, grid_sample_grad_img.launches)
+    with pytest.raises(ValueError, match='outside the kernel'):
+        grid_sample_plan(1, 2, 20000, 2)
+    big = torch.zeros((1, 2, 20000, 2), device=cuda_device)
+    g = torch.zeros((1, 2, 2, 2), device=cuda_device)
+    with pytest.raises(ValueError, match='outside the kernel'):
+        grid_sample_grad(g, torch.zeros((1, 2, 2, 2), device=cuda_device),
+                         big)
+    assert (grid_sample_grad.launches,
+            grid_sample_grad_img.launches) == before

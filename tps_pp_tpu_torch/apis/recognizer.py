@@ -34,7 +34,12 @@ layout) when the trunk has the flagship's geometry (a rectifier,
 and the module stem otherwise; ``'auto'`` (default) is ``'xla'``, as in
 JAX. The fused stem folds the stem conv's bias, which the JAX one drops.
 
-``early_exit`` (default on) stops decoding once every row has emitted EOS.
+``early_exit`` (default on) stops decoding once every row has emitted EOS;
+``fused_early_exit`` (default on) set to False turns that exit off in the
+whole decodes (``fused40*``) only, as in JAX. ``beam_width`` above 1 (the
+cfg key, else the decoder's attribute) runs ``beam_decode`` after
+``encode_full`` in any mode, ranked with ``beam_length_norm``; it has no
+early exit.
 ``predict`` runs the model in eval mode for the call, whatever mode
 training left it in.
 
@@ -67,7 +72,7 @@ import torch.nn as nn
 from .. import convertors as _convertors  # noqa: F401 (registration)
 from .. import losses as _losses  # noqa: F401 (registration)
 from ..models import backbones, decoders, encoders, rectifiers  # noqa: F401
-from ..models.decoders.base import greedy_decode
+from ..models.decoders.base import beam_decode, greedy_decode
 from ..models.layers import weights_stamp
 from ..models.recognizers.encode_decode import EncodeDecodeRecognizer
 from ..ops.stem import fused_stem_forward
@@ -110,7 +115,12 @@ class TextRecognizer:
         if self.stem_mode not in STEM_MODES:
             raise ValueError(f'stem_mode {self.stem_mode!r} not in '
                              f'{STEM_MODES}')
+        # stop the decode once every row has emitted EOS; fused_early_exit
+        # turns the exit off in the whole decodes only
+        # (tps_pp_tpu/apis/recognizer.py:78-86)
         self.early_exit = bool(cfg.get('early_exit', True))
+        self.fused_early_exit = bool(cfg.get('fused_early_exit', True))
+        self.beam_length_norm = bool(cfg.get('beam_length_norm', False))
         self.plain = False
 
         lc_cfg = dict(cfg['label_convertor'], max_seq_len=self.max_seq_len)
@@ -123,6 +133,10 @@ class TextRecognizer:
             cfg['decoder'], num_classes=lc.num_classes(),
             start_idx=lc.start_idx, padding_idx=lc.padding_idx,
             max_seq_len=self.max_seq_len)
+        # beam search above 1: the cfg key, else the decoder's
+        # (tps_pp_tpu/apis/recognizer.py:110-113)
+        self.beam_width = int(cfg.get(
+            'beam_width', getattr(decoder, 'beam_width', 1) or 1))
         model = EncodeDecodeRecognizer(
             backbone, ENCODERS.build(cfg['encoder']), decoder, tpsnet)
         self.model = model.to(self.device, self.param_dtype).eval()
@@ -199,11 +213,16 @@ class TextRecognizer:
 
     # -------------------------------------------------------- inference
     def resolved_decode_mode(self) -> str:
+        """The decode ``predict`` runs: a beam search (``beam_width`` > 1)
+        runs ``'steps'`` whatever the mode, as in JAX
+        (``tps_pp_tpu/apis/recognizer.py:150-165``)."""
         if self.decode_mode != 'auto':
+            if self.beam_width > 1 and self.decode_mode != 'steps':
+                return 'steps'
             return self.decode_mode
         dec = self.model.decoder
         if (self.device.type == 'cuda' and self.dtype == torch.bfloat16
-                and dec.d_k == dec.d_v):
+                and dec.d_k == dec.d_v and self.beam_width <= 1):
             return 'fused40_bf16'
         return 'steps'
 
@@ -236,20 +255,30 @@ class TextRecognizer:
     def _predict_impl(self, model, img, valid_ratio):
         mode = self.resolved_decode_mode()
         end_idx = self.label_convertor.end_idx if self.early_exit else None
+        start_idx = self.label_convertor.start_idx
         stem = (fused_stem_forward(model.backbone, img, self.dtype,
                                    plain=self.plain)
                 if self.resolved_stem_mode() == 'fused' else None)
         if mode in ('fused40_bf16', 'fused40'):
             return model.decode_full_fused(
-                img, valid_ratio, end_idx=end_idx, plain=self.plain,
+                img, valid_ratio,
+                end_idx=end_idx if self.fused_early_exit else None,
+                plain=self.plain,
                 enc_dtype='int8' if mode == 'fused40' else 'bfloat16',
                 stem=stem)
         _, out_enc = model.encode_full(img, valid_ratio, plain=self.plain,
                                        stem=stem)
+        if self.beam_width > 1:
+            return beam_decode(model.decoder, out_enc, valid_ratio,
+                               max_seq_len=self.max_seq_len,
+                               start_idx=start_idx,
+                               beam_width=self.beam_width,
+                               length_norm=self.beam_length_norm,
+                               plain=self.plain)
         return greedy_decode(model.decoder, out_enc, valid_ratio,
                              max_seq_len=self.max_seq_len,
-                             start_idx=self.label_convertor.start_idx,
-                             end_idx=end_idx, plain=self.plain)
+                             start_idx=start_idx, end_idx=end_idx,
+                             plain=self.plain)
 
     def predict(self, img, valid_ratio=None,
                 bucket_batch: bool = True) -> torch.Tensor:

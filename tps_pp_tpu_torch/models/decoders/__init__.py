@@ -1,4 +1,4 @@
-from .base import greedy_decode
+from .base import beam_decode, greedy_decode
 from .nrtr import NRTRDecoder
 
-__all__ = ['greedy_decode', 'NRTRDecoder']
+__all__ = ['beam_decode', 'greedy_decode', 'NRTRDecoder']

@@ -1,5 +1,6 @@
-"""Greedy decode over the decode_init / decode_step protocol (counterpart of
-``tps_pp_tpu/models/decoders/base.py:22-102``, the ``steps`` path).
+"""Greedy and beam decodes over the decode_init / decode_step protocol
+(counterpart of ``tps_pp_tpu/models/decoders/base.py``: ``greedy_decode``,
+the ``steps`` path, and ``beam_decode``).
 
 An autoregressive decoder implements ``decode_init(out_enc, valid_ratio)
 -> (carry, static)`` and ``decode_step(token, t, carry, static, plain) ->
@@ -79,3 +80,82 @@ def _first_exit(flags, events, lo, hi):
         if bool(flags[s]):
             return s
     return None
+
+
+def beam_decode(decoder, out_enc: torch.Tensor, valid_ratio, *,
+                max_seq_len: int, start_idx: int, beam_width: int = 5,
+                length_norm: bool = False, plain: bool = False,
+                return_ranking: bool = False):
+    """Beam search over decode_init / decode_step, the JAX package's
+    ``beam_decode`` (``tps_pp_tpu/models/decoders/base.py:105-189``) with
+    its criterion: beams are ranked by the sum of their tokens' softmax
+    scores (divided by t + 1 under ``length_norm``), only beam 0 is live at
+    step 0, every step keeps the top ``beam_width`` of the W * C
+    candidates, and there is no early exit. Returns (N, max_seq_len, C')
+    float32 zeros with the best beam's step scores at its tokens, which the
+    convertor's argmax reads back. With ``return_ranking``, also the
+    (N, W) final beam totals, best first (the sums, not divided), and the
+    (N, T) margin of each step's cut: the W-th kept candidate's rank minus
+    the best dropped one's (where a perturbation of the scores can swap a
+    beam).
+
+    The decode runs N * W rows, beam-major within each image: the encoder
+    output and valid ratios are tiled with ``repeat_interleave`` (JAX's
+    ``jnp.repeat(axis=0)``) before ``decode_init``. ``decode_step`` writes
+    its caches in place, so each step's reindex by parent beam copies every
+    carry tensor of N * W rows (``index_select``) and never aliases a
+    parent's cache.
+
+    Ties: ``torch.topk`` does not promise JAX's lower-index-first order on
+    exact ties, and it is not emulated. On random weights the only exact
+    ties are the dead beams at step 0 (all at -1e9), which are never chosen
+    while C >= W."""
+    N, dev, W = out_enc.shape[0], out_enc.device, beam_width
+    T = max_seq_len
+    vr = None if valid_ratio is None else valid_ratio.repeat_interleave(
+        W, dim=0)
+    carry, static = decoder.decode_init(out_enc.repeat_interleave(W, dim=0),
+                                        vr)
+    tokens = torch.full((N * W,), start_idx, dtype=torch.long, device=dev)
+    scores = torch.full((N, W), -1e9, dtype=torch.float32, device=dev)
+    scores[:, 0] = 0.0
+    tok_hist = torch.zeros((N, W, T), dtype=torch.long, device=dev)
+    score_hist = torch.zeros((N, W, T), dtype=torch.float32, device=dev)
+    first_row = torch.arange(N, device=dev)[:, None] * W
+    cut = torch.zeros((N, T), dtype=torch.float32, device=dev)
+    for t in range(T):
+        probs, carry = decoder.decode_step(tokens, t, carry, static,
+                                           plain=plain)
+        C = probs.shape[-1]
+        step = probs.float().reshape(N, W * C)
+        flat = (scores[:, :, None] + step.reshape(N, W, C)).reshape(N, W * C)
+        rank = flat / (t + 1.0) if length_norm else flat
+        top = torch.topk(rank, min(W + 1, W * C), dim=1)  # sorted
+        top_i = top.indices[:, :W]
+        if W * C > W:
+            cut[:, t] = top.values[:, W - 1] - top.values[:, W]
+        parent, token = top_i // C, top_i % C
+        carry = _reindex(carry, (first_row + parent).reshape(-1), N * W)
+        hist = parent[..., None].expand(-1, -1, T)
+        tok_hist = tok_hist.gather(1, hist)
+        score_hist = score_hist.gather(1, hist)
+        tok_hist[:, :, t] = token
+        score_hist[:, :, t] = step.gather(1, top_i)
+        scores = flat.gather(1, top_i)
+        tokens = token.reshape(-1)
+    # the best beam is column 0 of the sorted top-k
+    out = torch.zeros((N, T, C), dtype=torch.float32, device=dev)
+    out.scatter_(2, tok_hist[:, 0, :, None], score_hist[:, 0, :, None])
+    return (out, scores, cut) if return_ranking else out
+
+
+def _reindex(tree, rows: torch.Tensor, n_rows: int):
+    """Every tensor of ``tree`` (lists and tuples of tensors) whose first
+    dimension is ``n_rows``, gathered at ``rows`` into a new tensor; the
+    rest as it is."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_reindex(x, rows, n_rows) for x in tree)
+    if isinstance(tree, torch.Tensor) and tree.dim() and \
+            tree.shape[0] == n_rows:
+        return tree.index_select(0, rows)
+    return tree

@@ -33,8 +33,9 @@ _SIGNATURES = {
     'tpk_self_attn_step': [_P] * 9 + [_I] * 7 + [_P],
     'tpk_cross_ffn_step': [_P] * 16 + [_I] * 7 + [_P],
     'tpk_grid_sample_fwd': [_P] * 3 + [_I] * 6 + [_P],
-    'tpk_grid_sample_grad': [_P] * 5 + [_I] * 6 + [_P],
-    'tpk_grid_sample_grad_img': [_P] * 3 + [_I] * 6 + [_P],
+    'tpk_grid_sample_grad': [_P] * 5 + [_I] * 6 + [_P, _P],
+    'tpk_grid_sample_grad_img': [_P] * 3 + [_I] * 6 + [_P, _P],
+    'tpk_grid_sample_plan': [_I] * 4 + [_P],
     'tpk_conv3x3_cp': [_P] * 4 + [_I] * 7 + [_P],
     'tpk_basic_block_cp': [_P] * 6 + [_I] * 8 + [_P],
     'tpk_stem_plan': [_I] * 7 + [_P],

@@ -27,6 +27,13 @@ taking the plain version on CPU tensors:
 * ``grid_sample_grad``: kernel 9, replaces ``_bwd_fused_kernel``;
 * ``grid_sample_grad_img``: kernel 10, replaces ``_bwd_kernel``.
 
+Kernels 9 and 10 are one template: each CTA owns a band of source rows of
+one image (and a slab of channels where one row of all of them does not
+fit), sums its d_img in shared memory and writes it once, so d_img is
+allocated with ``torch.empty`` and nothing zeroes it; ``grid_sample_plan``
+reports the band plan the kernels take at a shape on the current card, and
+each wrapper keeps the plan of its last launch in ``last_plan``.
+
 ``grid_sample(img, grid, plain=False)`` is the differentiable entry point
 (``GridSampleFunction``): forward through kernel 8, backward through
 kernel 9, or kernel 10 when the grid needs no gradient. ``plain=True``
@@ -34,7 +41,8 @@ takes the plain versions on any device.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -159,12 +167,27 @@ def grid_sample_forward(img: torch.Tensor, grid: torch.Tensor
     return out
 
 
+_PLAN_KEYS = ('rows', 'slab', 'ctas_per_sm', 'blocks', 'smem')
+
+
+def grid_sample_plan(N: int, H: int, W: int, C: int) -> Dict[str, int]:
+    """The plan that kernels 9 and 10 take for an (N, H, W, C) image on the
+    current CUDA device (``csrc/grid_sample.cu`` ``bwd_plan``): ``rows`` a
+    band, ``slab`` channels a CTA, ``ctas_per_sm`` that fit an SM,
+    ``blocks`` (one an image, band and slab) and the shared memory of a CTA
+    in bytes (``smem``). Raises a ValueError where no plan fits."""
+    plan = (ctypes.c_int * len(_PLAN_KEYS))()
+    _lib.check(_lib.load().tpk_grid_sample_plan(N, H, W, C, plan),
+               'grid_sample_plan')
+    return dict(zip(_PLAN_KEYS, plan))
+
+
 def grid_sample_grad(grid: torch.Tensor, cot: torch.Tensor,
                      img: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 9 on CUDA tensors (cotangent and image of one dtype, bf16 or
     f32; f32 grid), the plain version on CPU tensors. Same contract as
-    :func:`grid_sample_grad_plain`. d_img is a sum of f32 atomics, so its
-    last bits vary from run to run."""
+    :func:`grid_sample_grad_plain`. d_img is summed by shared-memory f32
+    atomics in a varying order, so its last bits vary from run to run."""
     if img.device.type == 'cpu':
         return grid_sample_grad_plain(grid, cot, img)
     what = 'grid_sample_grad'
@@ -173,14 +196,16 @@ def grid_sample_grad(grid: torch.Tensor, cot: torch.Tensor,
     _expect(img, what, 'img', (N, H, W, C), _KERNEL_DTYPES, dev)
     _expect(cot, what, 'cot', tuple(grid.shape[:3]) + (C,), (img.dtype,),
             dev)
-    d_img = torch.zeros((N, H, W, C), dtype=torch.float32, device=dev)
+    d_img = torch.empty((N, H, W, C), dtype=torch.float32, device=dev)
     d_grid = torch.empty(grid.shape, dtype=torch.float32, device=dev)
+    plan = (ctypes.c_int * len(_PLAN_KEYS))()
     rc = _lib.load().tpk_grid_sample_grad(
         grid.data_ptr(), cot.data_ptr(), img.data_ptr(), d_img.data_ptr(),
         d_grid.data_ptr(), N, H, W, C, npix,
-        int(img.dtype == torch.bfloat16), _lib.stream_ptr(dev))
+        int(img.dtype == torch.bfloat16), plan, _lib.stream_ptr(dev))
     _lib.check(rc, what)
     grid_sample_grad.launches += 1
+    grid_sample_grad.last_plan = dict(zip(_PLAN_KEYS, plan))
     return d_img, d_grid
 
 
@@ -188,7 +213,8 @@ def grid_sample_grad_img(grid: torch.Tensor, cot: torch.Tensor, H: int,
                          W: int) -> torch.Tensor:
     """Kernel 10 on CUDA tensors (bf16 or f32 cotangent, f32 grid), the
     plain version on CPU tensors. Same contract as
-    :func:`grid_sample_grad_img_plain`."""
+    :func:`grid_sample_grad_img_plain`; the kernel of
+    :func:`grid_sample_grad` without d_grid and without the image."""
     if cot.device.type == 'cpu':
         return grid_sample_grad_img_plain(grid, cot, H, W)
     what = 'grid_sample_grad_img'
@@ -196,18 +222,21 @@ def grid_sample_grad_img(grid: torch.Tensor, cot: torch.Tensor, H: int,
     dev, N, npix = _check_common(what, grid, cot, C)
     _expect(cot, what, 'cot', tuple(grid.shape[:3]) + (C,), _KERNEL_DTYPES,
             dev)
-    d_img = torch.zeros((N, H, W, C), dtype=torch.float32, device=dev)
+    d_img = torch.empty((N, H, W, C), dtype=torch.float32, device=dev)
+    plan = (ctypes.c_int * len(_PLAN_KEYS))()
     rc = _lib.load().tpk_grid_sample_grad_img(
         grid.data_ptr(), cot.data_ptr(), d_img.data_ptr(), N, H, W, C, npix,
-        int(cot.dtype == torch.bfloat16), _lib.stream_ptr(dev))
+        int(cot.dtype == torch.bfloat16), plan, _lib.stream_ptr(dev))
     _lib.check(rc, what)
     grid_sample_grad_img.launches += 1
+    grid_sample_grad_img.last_plan = dict(zip(_PLAN_KEYS, plan))
     return d_img
 
 
 grid_sample_forward.launches = 0
 grid_sample_grad.launches = 0
 grid_sample_grad_img.launches = 0
+grid_sample_grad.last_plan = grid_sample_grad_img.last_plan = None
 
 
 class GridSampleFunction(torch.autograd.Function):
