@@ -38,6 +38,20 @@ seed):
   plain path, the best beam's tokens equal on every row but one whose
   plain ranking has a near-tie (``BEAM_TIE``).
 
+* the inference API, after the serving paths: the seed-0 bf16 flagship's
+  weights written as a ``.pth`` (mmcv's wrapper, ``module.`` prefixes)
+  and loaded by ``init_recognizer`` from
+  ``configs/textrecog/nrtr/nrtr_tps++.py`` with ``model.dtype=bfloat16``
+  (``fused40_bf16``); ``model_inference`` on 512 seed-0 uint8 BGR crops
+  (heights 16-64, widths 24-400) through the config's test pipeline,
+  which must launch kernels 1, 3 and 4, its batch held against the plain
+  path, and ``batch_mode=False`` on 16 of them against ``batch_mode=True``
+  under the near-tie rule; ``eval_recognizer`` over the crops with random
+  DICT90 labels at batch 64, whose metrics must be those of
+  ``model_inference``'s texts; ``model_inference``, the host pipeline and
+  ``predict`` timed apart; and ``bench_torch.py`` run with
+  ``BENCH_ITERS=3``, which must report ``fused40_bf16``.
+
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
 the checks and on TPS++'s own [0, 1]^2 grid, which puts every sample in
 the lower half of the map's rows; their band plan is logged.
@@ -881,6 +895,233 @@ def decode_graph_checks(w, out_enc, src_mask, lc):
         f'near-tie, max abs err {err:.4g}')
 
 
+def same_upto_eos(probs, ref, end_idx):
+    """``probs`` with every step after ``ref``'s first EOS of its row set to
+    ``ref``'s: the convertor reads no step past EOS, and a decode of
+    another batch size may stop earlier (the all-rows-EOS exit)."""
+    import torch
+    eos = ref.argmax(-1) == end_idx
+    after = (torch.cumsum(eos.int(), 1) - eos.int()) > 0
+    return torch.where(after[..., None], ref, probs)
+
+
+def inference_api_phase(rec, name):
+    """The user's entry points on the card: ``init_recognizer`` from the
+    flagship's config file and a ``.pth``, ``model_inference`` on 512 uint8
+    crops, ``eval_recognizer`` over them, and ``bench_torch.py``."""
+    import logging
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import (eval_recognizer, init_recognizer,
+                                       model_inference)
+    from tps_pp_tpu_torch.config import load_config, merge_cli_options
+    from tps_pp_tpu_torch.convertors import BaseConvertor
+    from tps_pp_tpu_torch.datasets.pipelines.transforms import Compose
+    from tps_pp_tpu_torch.evaluation import eval_ocr_metric
+    from tps_pp_tpu_torch.ops.encoder import encoder_forward
+    from tps_pp_tpu_torch.ops.full_decode import full_decode
+    from tps_pp_tpu_torch.ops.tps_sampler import tps_sampler
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    counted = {'tps_sampler': tps_sampler, 'encoder': encoder_forward,
+               'full_decode': full_decode}
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def launches(what):
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in counted.items()}
+        log(f'inference API, {what}: launches {got}')
+        if min(got.values()) < 1:
+            raise AssertionError(f'inference API, {what}: a kernel of the '
+                                 f'path did not launch: {got}')
+        return got
+
+    # ---- a .pth of the seed-0 flagship (mmcv's wrapper, DDP prefixes),
+    # loaded over seed-1 weights from the config file with model.dtype set
+    sd = {k: v.detach().cpu() for k, v in rec.model.state_dict().items()}
+    cfg = load_config(os.path.join(repo, 'configs/textrecog/nrtr/'
+                                   'nrtr_tps++.py'))
+    merge_cli_options(cfg, {'model.dtype': 'bfloat16'})
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, 'flagship.pth')
+        torch.save({'meta': {}, 'state_dict': {
+            f'module.{k}': v for k, v in sd.items()}}, pth)
+        r = init_recognizer(cfg, pth, seed=1)
+    if r.device.type != 'cuda' or r.resolved_decode_mode() != 'fused40_bf16':
+        raise AssertionError(f'init_recognizer: {r.device}, '
+                             f'{r.resolved_decode_mode()}')
+    loaded = r.model.state_dict()
+    if loaded.keys() != sd.keys() or not all(
+            torch.equal(loaded[k].cpu(), v) for k, v in sd.items()):
+        raise AssertionError('init_recognizer: the loaded weights are not '
+                             'the written ones')
+    log(f'inference API: init_recognizer(configs/textrecog/nrtr/'
+        f'nrtr_tps++.py, .pth) with model.dtype=bfloat16 resolves to '
+        f'{r.resolved_decode_mode()}, stem {r.resolved_stem_mode()}; '
+        f'{len(sd)} tensors loaded as written')
+
+    # ---- 512 uint8 BGR crops of assorted sizes through model_inference --
+    g = np.random.default_rng(SEED)
+    crops = [g.integers(0, 256, (int(g.integers(16, 65)),
+                                 int(g.integers(24, 401)), 3), np.uint8)
+             for _ in range(B)]
+    lc = r.label_convertor
+    zero()
+    batched = model_inference(r, crops, batch_mode=True)
+    launches(f'model_inference B={B}')
+    pipeline = Compose([dict(type='LoadImageFromNdarray')] +
+                       [dict(t) for t in r.test_pipeline_cfg[1:]])
+
+    def host_batch(imgs):
+        datas = [pipeline(dict(img=im, img_info=dict(filename=None)))
+                 for im in imgs]
+        return (np.stack([d['img'] for d in datas]).astype(np.float32),
+                np.asarray([d['img_metas'].get('valid_ratio', 1.0) or 1.0
+                            for d in datas], np.float32))
+
+    img, vr = host_batch(crops)
+
+    def texts(probs):
+        idx, _ = lc.tensor2idx(probs.float().cpu().numpy())
+        return lc.idx2str(idx)
+
+    pk = r.predict(img, vr)
+    r.plain = True
+    pp = r.predict(img, vr)
+    r.plain = False
+    if tuple(pk.shape) != (B, r.max_seq_len, lc.num_classes() - 1) or \
+            not bool(torch.isfinite(pk).all()):
+        raise AssertionError(f'inference API: bad output {tuple(pk.shape)}')
+    err, ties, widest = check_decode(pk, pp, 'inference API B=512')
+    if texts(pk) != [x['text'] for x in batched]:
+        raise AssertionError('model_inference: texts other than the '
+                             'decode of predict on the pipeline batch')
+    log(f'inference API B={B}: kernel path against the plain path on the '
+        f'pipeline batch: {ties} rows part at a near-tie (top-2 gap at most '
+        f'{widest:.3g} < {NEAR_TIE}); max abs err {err:.4g}; texts of '
+        f'model_inference = decode of predict; first texts '
+        f'{[x["text"] for x in batched[:3]]}')
+
+    # ---- batch_mode=False (batches of 1) on the first 16 crops ----------
+    n1 = 16
+    alone = model_inference(r, crops[:n1], batch_mode=False)
+    p1 = torch.cat([r.predict(img[i:i + 1], vr[i:i + 1])
+                    for i in range(n1)])
+    if texts(p1) != [x['text'] for x in alone]:
+        raise AssertionError('model_inference batch_mode=False: texts other '
+                             'than the decode of predict')
+    err, ties, widest = check_decode(
+        same_upto_eos(p1, pk[:n1], lc.end_idx), pk[:n1],
+        'model_inference batch 1 vs B=512')
+    same = sum(a['text'] == b['text'] for a, b in zip(alone, batched))
+    log(f'inference API batch_mode=False, first {n1} crops: {same} of {n1} '
+        f'texts equal to batch_mode=True\'s, {ties} part at a near-tie '
+        f'(top-2 gap at most {widest:.3g}); max abs err {err:.4g}')
+
+    # ---- eval_recognizer over the crops with random DICT90 labels -------
+    class ArrayDataset:
+        """The crops and their labels through the test pipeline."""
+
+        def __init__(self, imgs, labels):
+            self.imgs, self.labels = imgs, labels
+
+        def __len__(self):
+            return len(self.imgs)
+
+        def __getitem__(self, i):
+            return pipeline(dict(img=self.imgs[i], img_info=dict(
+                filename=None, text=self.labels[i]), text=self.labels[i]))
+
+        def evaluate(self, results, metric='acc'):
+            return eval_ocr_metric([x['text'] for x in results],
+                                   self.labels)
+
+    chars = BaseConvertor.DICT90
+    labels = [''.join(chars[int(i)] for i in g.integers(
+        0, len(chars), int(g.integers(1, 26)))) for _ in range(B)]
+    bs = 64
+    kept = []   # eval_recognizer's own 'ms per image' line
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            kept.append(record.getMessage())
+
+    logger = logging.getLogger('tps_pp_tpu_torch')
+    keep, level = Keep(), logger.level
+    logger.addHandler(keep)
+    logger.setLevel(logging.INFO)
+    zero()
+    try:
+        t0 = time.perf_counter()
+        metrics, results = eval_recognizer(r, ArrayDataset(crops, labels),
+                                           batch_size=bs,
+                                           return_results=True)
+        t_eval = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(keep)
+        logger.setLevel(level)
+    launches(f'eval_recognizer batch {bs}')
+    want = eval_ocr_metric([x['text'] for x in batched], labels)
+    if metrics != want:
+        raise AssertionError(f'eval_recognizer: {metrics} != {want}')
+    p64 = torch.cat([r.predict(img[i:i + bs], vr[i:i + bs],
+                               bucket_batch=False) for i in range(0, B, bs)])
+    if texts(p64) != [x['text'] for x in results]:
+        raise AssertionError('eval_recognizer: texts other than the decode '
+                             'of predict on its batches')
+    err, ties, widest = check_decode(same_upto_eos(p64, pk, lc.end_idx), pk,
+                                     f'eval batches of {bs} vs B=512')
+    same = sum(a['text'] == b['text'] for a, b in zip(results, batched))
+    log(f'inference API eval_recognizer ({B} crops, random DICT90 labels, '
+        f'batch {bs}): {metrics} = eval_ocr_metric of model_inference\'s '
+        f'texts; {same} of {B} texts equal, {ties} part at a near-tie (top-2 '
+        f'gap at most {widest:.3g}); {t_eval * 1e3 / B:.3f} ms per image '
+        f'wall (pipeline included), eval_recognizer\'s own log (predict and '
+        f'its copy to the host): {kept} [{name}]')
+
+    # ---- times: model_inference, the host pipeline alone, predict alone --
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    calls = {'model_inference': lambda: model_inference(r, crops,
+                                                        batch_mode=True),
+             'host pipeline': lambda: host_batch(crops),
+             'predict': lambda: r.predict(img, vr)}
+    best = {k: [] for k in calls}
+    for _ in range(2):
+        for k, fn in calls.items():
+            best[k].append(sum(timed_call(fn) for _ in range(3)) / 3)
+    for k, ts in best.items():
+        log(f'inference API B={B}, {k}: {min(ts) * 1e3:.2f} ms/batch, '
+            f'{B / min(ts):.1f} images/s (best of 2 rounds of 3; the '
+            f'rounds {", ".join(f"{t * 1e3:.2f}" for t in ts)} ms) [{name}]')
+    del r, pk, pp, p1, p64
+    torch.cuda.empty_cache()
+
+    # ---- the bench twin ---------------------------------------------------
+    out = subprocess.run([sys.executable, 'bench_torch.py'], cwd=repo,
+                         env=dict(os.environ, BENCH_ITERS='3'),
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f'bench_torch.py exited {out.returncode}: '
+                             f'{out.stderr[-2000:]}')
+    line = out.stdout.strip().splitlines()[-1]
+    bench = json.loads(line)
+    if bench['decode_mode'] != 'fused40_bf16' or not (
+            np.isfinite(bench['value']) and bench['value'] > 0):
+        raise AssertionError(f'bench_torch.py: {line}')
+    log(f'bench_torch.py (BENCH_ITERS=3): {line}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1478,7 +1719,12 @@ def main():
                 f'layer1 + layer2) [{name}]')
     serve(rec, 'auto')
     os.environ.pop('TPS_SAMPLER_VARIANT')
-    del rec, rec_fs, model
+
+    # ---- the inference API: init_recognizer, model_inference,
+    # eval_recognizer and the bench twin -------------------------------------
+    del rec_fs
+    inference_api_phase(rec, name)
+    del rec, model
 
     # ---- the training slice ------------------------------------------------
     launches = train_slice(dev, g, name, warp_args)

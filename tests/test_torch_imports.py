@@ -73,3 +73,90 @@ def test_port_imports_and_serves_without_jax():
     assert out.returncode == 0, out.stderr[-4000:]
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {'loaded': [], 'launches': [0] * 12, 'library': False}
+
+
+SERVE_SCRIPT = r'''
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import bench_torch
+from tps_pp_tpu_torch import config, datasets, evaluation
+from tps_pp_tpu_torch.apis import (eval_recognizer, init_recognizer,
+                                   model_inference, nrtr_tps_pp_cfg)
+from tps_pp_tpu_torch.apis import inference, test
+from tps_pp_tpu_torch.datasets import loader, ocr_dataset
+from tps_pp_tpu_torch.datasets.pipelines import test_time_aug, transforms
+from tps_pp_tpu_torch.evaluation import eval_ocr_metric, ocr_metric
+from tps_pp_tpu_torch.tools import test as test_tool
+from tps_pp_tpu_torch.utils import string_util
+
+pipeline = [dict(type='LoadImageFromNdarray'),
+            dict(type='ResizeOCR', height=32, min_width=64, max_width=64,
+                 keep_aspect_ratio=False),
+            dict(type='ToTensorOCR'),
+            dict(type='NormalizeOCR', mean=[0.5] * 3, std=[0.25] * 3),
+            dict(type='Collect', keys=['img'])]
+
+
+class ArrayDataset:
+    """Decoded crops and their labels, through the test pipeline."""
+
+    def __init__(self, imgs, texts):
+        self.imgs, self.texts = imgs, texts
+        self.pipeline = transforms.Compose(pipeline)
+
+    def __len__(self):
+        return len(self.imgs)
+
+    def __getitem__(self, i):
+        info = dict(filename=None, text=self.texts[i])
+        return self.pipeline(dict(img=self.imgs[i], img_info=info,
+                                  text=self.texts[i]))
+
+    def evaluate(self, results, metric='acc'):
+        return eval_ocr_metric([r['text'] for r in results], self.texts)
+
+
+rec = init_recognizer(dict(model=nrtr_tps_pp_cfg(tiny=True),
+                           test_pipeline=pipeline), device='cpu')
+g = np.random.default_rng(0)
+imgs = [g.integers(0, 256, (int(g.integers(16, 48)), int(g.integers(24, 200)),
+                            3), np.uint8) for _ in range(6)]
+texts = ['ab', 'c', '12', 'xyz', '', 'q']
+alone = model_inference(rec, imgs)
+batched = model_inference(rec, imgs, batch_mode=True)
+metrics = eval_recognizer(rec, ArrayDataset(imgs, texts), batch_size=4)
+print(json.dumps({
+    'loaded': sorted(m for m in ('jax', 'flax', 'cv2', 'tps_pp_tpu')
+                     if m in sys.modules),
+    'alone': [r['text'] for r in alone],
+    'batched': [r['text'] for r in batched],
+    'metrics': metrics,
+    'expected': eval_ocr_metric([r['text'] for r in alone], texts)}))
+'''
+
+
+def test_serving_and_eval_entry_points_load_no_jax_or_cv2():
+    """init_recognizer, model_inference on ndarrays and eval_recognizer
+    on an in-memory dataset run on the CPU without JAX, flax, cv2 or the
+    JAX package; the eval metrics are those of the texts."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', SERVE_SCRIPT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got['loaded'] == []
+    assert len(got['alone']) == 6 and got['alone'] == got['batched']
+    assert got['metrics'] == got['expected']
+
+
+def test_bench_torch_without_a_gpu_fails_and_prints_no_result():
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES='')
+    out = subprocess.run([sys.executable, 'bench_torch.py'], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '{' not in out.stdout
+    assert 'no CUDA device' in out.stderr

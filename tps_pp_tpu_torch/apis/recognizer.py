@@ -144,6 +144,9 @@ class TextRecognizer:
         loss_cfg.setdefault('ignore_index', lc.padding_idx)
         self.loss_obj = LOSSES.build(loss_cfg)
         self._serving = None     # (weights stamp, model in self.dtype)
+        # the test pipeline of the config, set by apis.inference
+        # init_recognizer for model_inference
+        self.test_pipeline_cfg = None
 
     def init_weights(self, seed: int = 0):
         """Random weights from a seeded ``torch.Generator``, drawn on the

@@ -52,3 +52,9 @@ ENCODERS = Registry('torch_encoders')
 DECODERS = Registry('torch_decoders')
 CONVERTORS = Registry('torch_convertors')
 LOSSES = Registry('torch_losses')
+# data side: the test pipeline's transforms, datasets, annotation loaders
+# and their line parsers
+PIPELINES = Registry('torch_pipelines')
+DATASETS = Registry('torch_datasets')
+LOADERS = Registry('torch_loaders')
+PARSERS = Registry('torch_parsers')

@@ -187,3 +187,15 @@ def state_dict_from_jax(variables: Mapping, cfg: Mapping
         sinusoid_position_table(int(cfg['decoder'].get('n_position', 200)),
                                 d))
     return sd
+
+
+def load_pth(path: str) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of a torch checkpoint on the CPU: a bare one, or
+    mmcv's ``{'meta': ..., 'state_dict': ...}`` wrapper, with any DDP
+    ``module.`` prefix dropped (as ``tps_pp_tpu/utils/torch_convert.py:
+    750-761`` reads them). Unpickled with ``weights_only=True``: tensors and
+    plain containers only."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    sd = ckpt.get('state_dict', ckpt) if isinstance(ckpt, dict) else ckpt
+    return {k[len('module.'):] if k.startswith('module.') else k: v
+            for k, v in sd.items()}
