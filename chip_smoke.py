@@ -52,6 +52,27 @@ seed):
   ``predict`` timed apart; and ``bench_torch.py`` run with
   ``BENCH_ITERS=3``, which must report ``fused40_bf16``.
 
+* the training API, last: the flagship of
+  ``configs/textrecog/nrtr/nrtr_tps++.py`` (``model.dtype=bfloat16``, f32
+  parameters and Adam state, the config's schedule) through
+  ``train_recognizer`` in a world-1 NCCL process group (so that the
+  data-parallel gradient all-reduce and the global-batch BatchNorm run),
+  on 1,024 seed-0 uint8 crops (heights 16-64, widths 24-400, random
+  DICT90 labels of 1-25 characters) through the config's
+  ``train_pipeline`` with ``LoadImageFromNdarray`` for
+  ``LoadImageFromFile``, ``samples_per_gpu`` 256, ``workers_per_gpu``
+  ``min(10, os.cpu_count() - 1)`` spawned workers: two epochs of 4 steps,
+  each with its ``.pth`` checkpoint and its evaluation on 256 crops
+  (kernels 1, 3 and 4), kernels 8 and 9 launched on every step; then a
+  resume from epoch 1's ``.pth`` that runs epoch 2 again, whose step
+  count and lr must equal the uninterrupted run's and whose losses must
+  be within ``LOSS_RTOL`` (cuDNN's and kernel 9's atomics are not
+  bit-reproducible); and a resume of the finished job, which must run no
+  step. It prints the CPU count, the loader's images/s alone, the bare
+  step's images/s at B=256, ``train_recognizer``'s images/s and the share
+  of its wall time the step loop waited on the loader, and the
+  checkpoint's size and save time.
+
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
 the checks and on TPS++'s own [0, 1]^2 grid, which puts every sample in
 the lower half of the map's rows; their band plan is logged.
@@ -150,6 +171,9 @@ B_BEAM, BEAM_W, BEAM_TIE = 64, 5, 1e-3
 # the training step, kernel path against plain path (dropout 0)
 LOSS_RTOL, GRAD_COS_MIN, GRAD_NORM_RTOL = 1e-2, 0.99, 5e-2
 TRAIN_OPT = dict(type='Adam', lr=1e-4, grad_clip=dict(max_norm=5.0))
+# the training API phase: crops in the training and validation sets,
+# steps an epoch at B=256
+N_TRAIN_CROPS, N_VAL_CROPS, TRAIN_EPOCHS = 1024, 256, 2
 
 
 def log(*a):
@@ -1122,6 +1146,246 @@ def inference_api_phase(rec, name):
     log(f'bench_torch.py (BENCH_ITERS=3): {line}')
 
 
+class ArrayCrops:
+    """Decoded uint8 crops and their labels through a pipeline: the
+    training API phase's in-memory datasets, pickled into the loader's
+    spawned workers."""
+
+    def __init__(self, imgs, texts, pipeline):
+        from tps_pp_tpu_torch.datasets.pipelines.transforms import Compose
+        self.imgs, self.texts = imgs, texts
+        self.pipeline = Compose(pipeline)
+
+    def __len__(self):
+        return len(self.imgs)
+
+    def sample(self, i, key=None):
+        from tps_pp_tpu_torch.datasets import seeded_rngs
+        rngs = seeded_rngs(key) if key is not None else {}
+        return self.pipeline(dict(img=self.imgs[i], text=self.texts[i],
+                                  img_info=dict(filename=None), **rngs))
+
+    def __getitem__(self, i):
+        return self.sample(i)
+
+    def evaluate(self, results, metric='acc'):
+        from tps_pp_tpu_torch.evaluation import eval_ocr_metric
+        return eval_ocr_metric([r['text'] for r in results], self.texts)
+
+
+def train_api_phase(name):
+    """``train_recognizer`` on the card: the flagship config's model and
+    train pipeline, spawned workers, a world-1 NCCL group, checkpoints,
+    the eval hook and resume (see the module docstring)."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    from tps_pp_tpu_torch.apis import build_recognizer, train_recognizer
+    from tps_pp_tpu_torch.config import load_config, merge_cli_options
+    from tps_pp_tpu_torch.convertors import BaseConvertor
+    from tps_pp_tpu_torch.datasets import DataLoader
+    from tps_pp_tpu_torch.ops.encoder import encoder_forward
+    from tps_pp_tpu_torch.ops.full_decode import full_decode
+    from tps_pp_tpu_torch.ops.grid_sample import (grid_sample_forward,
+                                                  grid_sample_grad)
+    from tps_pp_tpu_torch.ops.tps_sampler import tps_sampler
+    from tps_pp_tpu_torch.parallel import (build_optimizer_from_run_cfg,
+                                           dist, make_train_step,
+                                           maybe_init_distributed,
+                                           step_generator)
+    from tps_pp_tpu_torch.tools.train import train_cfg_of
+    from tps_pp_tpu_torch.utils.checkpoint import CheckpointManager
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    counted = {'grid_sample_forward': grid_sample_forward,
+               'grid_sample_grad': grid_sample_grad,
+               'tps_sampler': tps_sampler, 'encoder': encoder_forward,
+               'full_decode': full_decode}
+    cpus = os.cpu_count()
+    workers = min(10, cpus - 1)
+    log(f'training API: os.cpu_count() {cpus}, workers_per_gpu {workers}')
+
+    # ---- a world-1 NCCL group -------------------------------------------
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    os.environ.update(RANK='0', LOCAL_RANK='0', WORLD_SIZE='1',
+                      MASTER_ADDR='localhost', MASTER_PORT=str(port))
+    dev = maybe_init_distributed()
+    if not (dist.is_active() and dist.world_size() == 1
+            and tdist.get_backend() == 'nccl'):
+        raise AssertionError('training API: no world-1 NCCL group')
+
+    # ---- the config's model and train pipeline, in-memory crops ----------
+    cfg = load_config(os.path.join(repo, 'configs/textrecog/nrtr/'
+                                   'nrtr_tps++.py'))
+    merge_cli_options(cfg, {'model.dtype': 'bfloat16'})
+
+    def ndarray_input(pipeline):
+        steps = [dict(t) for t in pipeline]
+        if steps[0]['type'] != 'LoadImageFromFile':
+            raise AssertionError(f'pipeline starts with {steps[0]}')
+        steps[0]['type'] = 'LoadImageFromNdarray'
+        return steps
+
+    g = np.random.default_rng(SEED)
+    chars = BaseConvertor.DICT90
+
+    def crops(n):
+        imgs = [g.integers(0, 256, (int(g.integers(16, 65)),
+                                    int(g.integers(24, 401)), 3), np.uint8)
+                for _ in range(n)]
+        texts = [''.join(chars[int(i)] for i in g.integers(
+            0, len(chars), int(g.integers(1, 26)))) for _ in range(n)]
+        return imgs, texts
+
+    train_ds = ArrayCrops(*crops(N_TRAIN_CROPS),
+                          ndarray_input(cfg['train_pipeline']))
+    val_ds = ArrayCrops(*crops(N_VAL_CROPS),
+                        ndarray_input(cfg['test_pipeline']))
+    tcfg = train_cfg_of(cfg)
+    tcfg.update(samples_per_gpu=B_TRAIN, workers_per_gpu=workers,
+                total_epochs=TRAIN_EPOCHS, log_interval=1)
+    steps_per_epoch = N_TRAIN_CROPS // B_TRAIN
+
+    def recognizer():
+        return build_recognizer(cfg['model'], dev, param_dtype='float32')
+
+    def run(**kw):
+        rec = recognizer()
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        opt, hist = train_recognizer(rec, train_ds, tcfg,
+                                     val_dataset=val_ds, seed=SEED, **kw)
+        torch.cuda.synchronize()
+        return (rec, opt, hist, time.perf_counter() - t0,
+                {k: fn.launches for k, fn in counted.items()})
+
+    with tempfile.TemporaryDirectory() as wd:
+        # ---- the uninterrupted run: 2 epochs, checkpoints, eval hook ---
+        rec, opt, hist, wall, got = run(work_dir=wd)
+        steps = [h for h in hist if 'loss' in h]
+        epochs = [h for h in hist if 'seconds' in h]
+        evals = [h['eval'] for h in hist if 'eval' in h]
+        n_steps = TRAIN_EPOCHS * steps_per_epoch
+        log(f'training API, train_recognizer: {len(steps)} steps, losses '
+            f'{[round(h["loss"], 5) for h in steps]}, lr '
+            f'{[h["lr"] for h in steps]}; evals {evals}; launches {got}; '
+            f'{wall:.2f} s wall')
+        if opt.count != n_steps or len(steps) != n_steps or not all(
+                np.isfinite(h['loss']) for h in steps):
+            raise AssertionError(f'training API: {opt.count} steps, losses '
+                                 f'{[h["loss"] for h in steps]}')
+        if got['grid_sample_forward'] != n_steps or \
+                got['grid_sample_grad'] != n_steps:
+            raise AssertionError(f'training API: kernels 8 and 9 not '
+                                 f'launched on every step: {got}')
+        if min(got[k] for k in ('tps_sampler', 'encoder',
+                                'full_decode')) < TRAIN_EPOCHS or \
+                len(evals) != TRAIN_EPOCHS:
+            raise AssertionError(f'training API: the eval hook did not run '
+                                 f'on kernels 1, 3 and 4: {got}, {evals}')
+        files = sorted(os.listdir(wd))
+        if files != [f'epoch_{e + 1}.pth' for e in range(TRAIN_EPOCHS)]:
+            raise AssertionError(f'training API: checkpoints {files}')
+        for e in epochs:
+            log(f'training API epoch {e["epoch"]}: {e["images"]} images in '
+                f'{e["seconds"]:.3f} s, {e["images"] / e["seconds"]:.1f} '
+                f'images/s end to end; waited on the loader '
+                f'{e["loader_wait"]:.3f} s, idle share '
+                f'{e["loader_wait"] / e["seconds"]:.3f} [{name}]')
+
+        # ---- resume from epoch 1's .pth: epoch 2 again ------------------
+        _, opt2, hist2, _, got2 = run(
+            work_dir=os.path.join(wd, 'resumed'),
+            resume_from=os.path.join(wd, 'epoch_1.pth'))
+        again = [h for h in hist2 if 'loss' in h]
+        last = steps[steps_per_epoch:]
+        gap = max(abs(a['loss'] - b['loss']) / abs(b['loss'])
+                  for a, b in zip(again, last))
+        log(f'training API, resumed from epoch_1.pth: {len(again)} steps, '
+            f'count {opt2.count}, lr {[h["lr"] for h in again]}, losses '
+            f'{[round(h["loss"], 5) for h in again]}; largest relative gap '
+            f'to the uninterrupted epoch 2: {gap:.3g} (LOSS_RTOL '
+            f'{LOSS_RTOL}); launches {got2}')
+        if opt2.count != opt.count or len(again) != len(last) or \
+                [h['lr'] for h in again] != [h['lr'] for h in last] or \
+                [h['iter'] for h in again] != [h['iter'] for h in last]:
+            raise AssertionError('training API: the resumed run is not '
+                                 'epoch 2 of the uninterrupted one')
+        if not gap <= LOSS_RTOL:
+            raise AssertionError(f'training API: resumed losses part by '
+                                 f'{gap} > {LOSS_RTOL}')
+
+        # ---- resume of the finished job: nothing left --------------------
+        _, opt3, hist3, _, _ = run(resume_from=wd)
+        if opt3.count != opt.count or any('loss' in h for h in hist3):
+            raise AssertionError(f'training API: a finished job replayed '
+                                 f'{opt3.count - opt.count} steps')
+        log(f'training API: resume of the finished job ran no step '
+            f'(count {opt3.count})')
+
+        # ---- the checkpoint: size and save time --------------------------
+        mgr = CheckpointManager(os.path.join(wd, 'timed'))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = mgr.save(TRAIN_EPOCHS, rec.model, opt)
+        t_save = time.perf_counter() - t0
+        log(f'training API checkpoint: {os.path.getsize(path) / 2**20:.1f} '
+            f'MiB, saved in {t_save:.3f} s [{name}]')
+
+    # ---- the loader alone, with its workers ------------------------------
+    loader = DataLoader(train_ds, B_TRAIN, shuffle=True, seed=SEED,
+                        num_workers=workers, pin_memory=True)
+    try:
+        n_img = 0
+        for epoch in range(3):
+            loader.set_epoch(epoch)
+            if epoch == 1:      # epoch 0 starts the workers
+                t0 = time.perf_counter()
+            for b in loader:
+                n_img += (epoch > 0) * len(b['texts'])
+        t_loader = time.perf_counter() - t0
+    finally:
+        loader.close()
+    log(f'training API loader alone: {n_img} images in {t_loader:.3f} s, '
+        f'{n_img / t_loader:.1f} images/s ({workers} workers, pinned) '
+        f'[{name}]')
+
+    # ---- the bare step at B=256 on a batch already on the card ----------
+    rec = recognizer().init_weights(SEED)
+    opt, _ = build_optimizer_from_run_cfg(
+        tcfg, rec.model.named_parameters(), steps_per_epoch,
+        TRAIN_EPOCHS)
+    step = make_train_step(rec, opt)
+    host = next(iter(DataLoader(train_ds, B_TRAIN, shuffle=True,
+                                seed=SEED)))
+    batch = dict(img=torch.as_tensor(host['img']).to(dev),
+                 valid_ratio=torch.as_tensor(host['valid_ratio']).to(dev),
+                 padded_targets=rec.label_convertor.str2tensor(
+                     host['texts'])['padded_targets'])
+    ts = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(step(batch, step_generator(SEED + 1, i, dev))['loss'])
+        ts.append(time.perf_counter() - t0)
+    t_step = min(ts[2:])
+    log(f'training API bare step B={B_TRAIN}: {t_step * 1e3:.2f} ms, '
+        f'{B_TRAIN / t_step:.1f} images/s (best of 3 after 2, the metrics '
+        f'read each step as train_recognizer does) [{name}]')
+    del rec, opt, step, batch
+    tdist.destroy_process_group()
+    for k in ('RANK', 'LOCAL_RANK', 'WORLD_SIZE', 'MASTER_ADDR',
+              'MASTER_PORT'):
+        os.environ.pop(k)
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1729,6 +1993,9 @@ def main():
     # ---- the training slice ------------------------------------------------
     launches = train_slice(dev, g, name, warp_args)
     path_launches.update(launches)
+
+    # ---- the training API: train_recognizer, checkpoints, resume ---------
+    train_api_phase(name)
     path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])

@@ -1,8 +1,9 @@
 """The port stands alone: importing it, serving (through every decode mode,
 the fused decode step, the fused stem and the two-stage sampler) and
-training on the CPU loads neither JAX,
-flax, cv2 nor the JAX package, and launches no kernel (CPU tensors go to
-the kernels' plain versions; nothing is built)."""
+training on the CPU (``train_recognizer`` on crops through the flagship's
+train augmentations) loads neither JAX, flax, cv2 nor the JAX package, and
+launches no kernel (CPU tensors go to the kernels' plain versions; nothing
+is built)."""
 import json
 import os
 import subprocess
@@ -52,10 +53,52 @@ for mode, fused_step, stem_mode, variant in (
     res = rec.simple_test(np.zeros((3, 32, 64, 3), np.float32),
                           [1.0, 0.5, 0.8])
     assert len(res) == 3
-_, history = train.train_recognizer(rec, [dict(
-    img=np.zeros((2, 32, 64, 3), np.float32), valid_ratio=[1.0, 0.5],
-    texts=['ab', 'c'])], dict(optimizer=dict(type='Adam', lr=1e-4)))
-assert np.isfinite(history[0]['loss'])
+from tps_pp_tpu_torch.datasets import seeded_rngs
+from tps_pp_tpu_torch.datasets.pipelines import cv_ops
+from tps_pp_tpu_torch.datasets.pipelines.transforms import Compose
+from tps_pp_tpu_torch.parallel import dist
+from tps_pp_tpu_torch.tools import train as train_tool
+from tps_pp_tpu_torch.utils import checkpoint
+
+
+class Crops:
+    """uint8 crops through the flagship's train augmentations."""
+
+    def __init__(self):
+        g = np.random.default_rng(0)
+        self.imgs = [g.integers(0, 256, (20 + 4 * i, 40 + 9 * i, 3),
+                                np.uint8) for i in range(4)]
+        self.pipeline = Compose([
+            dict(type='LoadImageFromNdarray'),
+            dict(type='ResizeOCR', height=32, min_width=64, max_width=64,
+                 keep_aspect_ratio=False),
+            dict(type='RandomWrapper', p=1.0, transforms=[
+                dict(type='OneOfWrapper', transforms=[
+                    dict(type='RandomRotateTextDet'),
+                    dict(type='RandomAffine'),
+                    dict(type='RandomPerspective')]),
+                dict(type='PyramidRescale', randomize_factor=False,
+                     factor=2),
+                dict(type='GaussNoise'), dict(type='MotionBlur'),
+                dict(type='ColorJitter')]),
+            dict(type='ToTensorOCR'),
+            dict(type='NormalizeOCR', mean=[0.5] * 3, std=[0.25] * 3),
+            dict(type='Collect', keys=['img'])])
+
+    def __len__(self):
+        return len(self.imgs)
+
+    def sample(self, i, key=None):
+        return self.pipeline(dict(img=self.imgs[i], text='ab'[:i % 2 + 1],
+                                  img_info=dict(filename=None),
+                                  **seeded_rngs(key)))
+
+
+opt, history = train.train_recognizer(
+    rec, Crops(), dict(optimizer=dict(type='Adam', lr=1e-4),
+                       samples_per_gpu=4, total_epochs=1, log_interval=1))
+assert opt.count == 1 and np.isfinite(history[0]['loss'])
+assert not dist.is_active()
 print(json.dumps({
     'loaded': sorted(m for m in ('jax', 'flax', 'cv2', 'tps_pp_tpu')
                      if m in sys.modules),

@@ -465,6 +465,20 @@ def test_predict_runs_in_eval_mode(how):
         assert rec.model.training
 
 
+class ArrayBatch:
+    """Prepared images, valid ratios and texts as a training set."""
+
+    def __init__(self, img, valid_ratio, texts):
+        self.img, self.valid_ratio, self.texts = img, valid_ratio, texts
+
+    def __len__(self):
+        return len(self.texts)
+
+    def sample(self, i, key=None):
+        return dict(img=self.img[i], text=self.texts[i],
+                    img_metas=dict(valid_ratio=float(self.valid_ratio[i])))
+
+
 def test_bf16_compute_with_f32_parameters():
     """``param_dtype='float32'`` with a bf16 config: the loss runs under
     autocast, the parameters and their gradients stay f32, and ``predict``
@@ -477,9 +491,10 @@ def test_bf16_compute_with_f32_parameters():
     serving = rec.serving_model()
     assert next(serving.parameters()).dtype == torch.bfloat16
     assert rec.serving_model() is serving
-    batches = [dict(img=img, valid_ratio=VR, texts=TEXTS)] * 2
-    chain, history = train_recognizer(rec, batches, dict(
-        optimizer=dict(type='Adam', lr=1e-3), log_interval=1))
+    chain, history = train_recognizer(rec, ArrayBatch(img, VR, TEXTS), dict(
+        optimizer=dict(type='Adam', lr=1e-3), log_interval=1,
+        samples_per_gpu=4, total_epochs=2))
+    history = [h for h in history if 'loss' in h]
     assert chain.count == 2 and len(history) == 2
     assert all(np.isfinite(h['loss']) and h['grad_norm'] > 0
                for h in history)

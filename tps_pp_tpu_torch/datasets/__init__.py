@@ -1,11 +1,11 @@
-"""Recognition datasets, loaders and the test pipeline (counterpart of
-``tps_pp_tpu/datasets``, test mode)."""
+"""Recognition datasets, loaders, the pipelines and the batcher
+(counterpart of ``tps_pp_tpu/datasets``, recognition)."""
 from . import pipelines  # noqa: F401 (registration)
 from .loader import HardDiskLoader, LineJsonParser, LineStrParser, LmdbLoader
 from .ocr_dataset import (DataLoader, OCRDataset, UniformConcatDataset,
-                          build_dataset)
+                          build_dataset, sample_key, seeded_rngs)
 from .pipelines.transforms import Compose
 
 __all__ = ['HardDiskLoader', 'LmdbLoader', 'LineStrParser', 'LineJsonParser',
            'OCRDataset', 'UniformConcatDataset', 'DataLoader',
-           'build_dataset', 'Compose']
+           'build_dataset', 'Compose', 'sample_key', 'seeded_rngs']

@@ -1,9 +1,15 @@
-from . import test_time_aug, transforms  # noqa: F401 (registration)
+from . import cv_ops, test_time_aug, transforms  # noqa: F401 (registration)
 from .test_time_aug import MultiRotateAugOCR, merge_aug_results
-from .transforms import (Collect, Compose, LoadImageFromFile,
-                         LoadImageFromNdarray, NormalizeOCR, ResizeOCR,
-                         ToTensorOCR)
+from .transforms import (Collect, ColorJitter, Compose, GaussNoise,
+                         LoadImageFromFile, LoadImageFromNdarray, MotionBlur,
+                         NormalizeOCR, OneOfWrapper, PyramidRescale,
+                         RandomAffine, RandomPerspective, RandomRotateTextDet,
+                         RandomWrapper, ResizeOCR, ToTensorOCR,
+                         TorchVisionWrapper)
 
-__all__ = ['Collect', 'Compose', 'LoadImageFromFile', 'LoadImageFromNdarray',
-           'MultiRotateAugOCR', 'NormalizeOCR', 'ResizeOCR', 'ToTensorOCR',
-           'merge_aug_results']
+__all__ = ['Collect', 'ColorJitter', 'Compose', 'GaussNoise',
+           'LoadImageFromFile', 'LoadImageFromNdarray', 'MotionBlur',
+           'MultiRotateAugOCR', 'NormalizeOCR', 'OneOfWrapper',
+           'PyramidRescale', 'RandomAffine', 'RandomPerspective',
+           'RandomRotateTextDet', 'RandomWrapper', 'ResizeOCR',
+           'ToTensorOCR', 'TorchVisionWrapper', 'merge_aug_results']

@@ -1,7 +1,10 @@
-"""The test pipeline's transforms (counterpart of the test-time part of
+"""The recognition pipeline's transforms (counterpart of
 ``tps_pp_tpu/datasets/pipelines/transforms.py``): load, resize and pad with
-``valid_ratio``, scale to [0, 1], normalise, collect. The training
-augmentations of that file are not ported yet.
+``valid_ratio``, scale to [0, 1], normalise, collect; and the flagship's
+training augmentations (``configs/_base_/recog_pipelines/
+crnn_pp_pipeline.py``): rotate, affine, perspective, pyramid rescale,
+Gaussian noise, motion blur, colour jitter, and the ``OneOf`` / ``Random``
+/ ``TorchVision`` wrappers.
 
 Host-side numpy, as in the JAX package. Where the port differs:
 
@@ -10,12 +13,20 @@ Host-side numpy, as in the JAX package. Where the port differs:
   serving path fed with ndarrays never needs it. No other decoder stands
   in, because another JPEG decoder gives other pixels.
 * ``ResizeOCR`` resizes with its own bilinear interpolation: cv2
-  ``INTER_LINEAR``'s taps (half-pixel centres, clamped at the edges), in
-  float32. cv2 rounds uint8 images through 11-bit fixed-point weights;
-  this rounds the float32 value to nearest, so a uint8 pixel is within one
-  grey level of cv2's (float32 images within float32 rounding).
+  ``INTER_LINEAR``'s taps (half-pixel centres, clamped at the edges); a
+  uint8 image in cv2's fixed point, bit for bit (``cv_ops.resize_u8``),
+  other images in float32 (within float32 rounding of cv2's).
 * ``LoadImageFromNdarray`` converts grey <-> BGR in numpy with
   ``cv2.cvtColor``'s weights (uint8 in its 14-bit fixed point).
+* The augmentations compute on ``cv_ops``, the port's copies of the cv2
+  calls the JAX transforms make. They draw their parameters, in the JAX
+  transforms' order call for call, from the generators the loader puts
+  into ``results``: ``results['rng']`` (a ``random.Random``) for what JAX
+  draws from ``random``, and ``results['np_rng']`` (a
+  ``np.random.RandomState``) for what it draws from ``np.random``. Seeded
+  with the JAX loader's per-sample key, they give a sample the JAX
+  parameters; without them a transform draws from the global modules, as
+  in JAX.
 
 ``tests/test_torch_pipeline.py`` holds each transform against its JAX
 original.
@@ -24,11 +35,13 @@ from __future__ import annotations
 
 import math
 import os
+import random
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 
 from ...registry import PIPELINES
+from . import cv_ops
 
 # cv2.cvtColor's BGR -> grey weights (B, G, R): float, and uint8's 14-bit
 # fixed point
@@ -68,9 +81,12 @@ def _linear_taps(src: int, dst: int):
 
 def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
     """``cv2.resize(img, (width, height))`` with ``INTER_LINEAR``, without
-    cv2: (H, W[, C]) -> (height, width[, C]), the input's dtype. Rows first,
-    then columns, in float32; integer images rounded to nearest and
-    clipped to their range."""
+    cv2: (H, W[, C]) -> (height, width[, C]), the input's dtype. uint8 in
+    cv2's fixed point (``cv_ops.resize_u8``); other types rows first, then
+    columns, in float32, integers rounded to nearest and clipped to their
+    range."""
+    if img.dtype == np.uint8:
+        return cv_ops.resize_u8(img, width, height)
     x0, x1, fx = _linear_taps(img.shape[1], width)
     y0, y1, fy = _linear_taps(img.shape[0], height)
     src = img.astype(np.float32)
@@ -260,6 +276,250 @@ class Collect:
         if 'text' in results:
             data['text'] = results['text']
         return data
+
+
+# ---------------------------------------------------------------------------
+# The training augmentations (tps_pp_tpu/datasets/pipelines/transforms.py:
+# 263-488), on cv_ops
+# ---------------------------------------------------------------------------
+
+
+def _rngs(results: Dict):
+    """(``random``-like, ``np.random``-like) generators of the sample."""
+    return results.get('rng', random), results.get('np_rng', np.random)
+
+
+def _hwc(img: np.ndarray) -> np.ndarray:
+    return img[:, :, None] if img.ndim == 2 else img
+
+
+@PIPELINES.register_module()
+class RandomRotateTextDet:
+    """With probability ``rotate_ratio``, rotate about the centre by a
+    uniform angle in [-max_angle, max_angle] degrees, edges replicated."""
+
+    def __init__(self, rotate_ratio=1.0, max_angle=15):
+        self.rotate_ratio = rotate_ratio
+        self.max_angle = max_angle
+
+    def __call__(self, results: Dict) -> Dict:
+        rng, _ = _rngs(results)
+        if rng.random() < self.rotate_ratio:
+            img = results['img']
+            h, w = img.shape[:2]
+            angle = rng.uniform(-self.max_angle, self.max_angle)
+            m = cv_ops.get_rotation_matrix_2d((w / 2, h / 2), angle, 1.0)
+            results['img'] = _hwc(cv_ops.warp_affine(img, m, (w, h)))
+        return results
+
+
+@PIPELINES.register_module()
+class RandomAffine:
+    """torchvision-style random affine about the centre: rotation within
+    ``degrees``, x-shear within ``shear``, ``scale`` and ``translate``
+    (fractions of the size), edges replicated."""
+
+    def __init__(self, degrees=15, translate=(0.3, 0.3), scale=(0.5, 2.0),
+                 shear=(-45, 45), **kwargs):
+        self.degrees = degrees
+        self.translate = translate
+        self.scale = scale
+        self.shear = shear if isinstance(shear, (tuple, list)) else (-shear,
+                                                                     shear)
+
+    def __call__(self, results: Dict) -> Dict:
+        rng, _ = _rngs(results)
+        img = results['img']
+        h, w = img.shape[:2]
+        angle = math.radians(rng.uniform(-self.degrees, self.degrees))
+        sx = math.radians(rng.uniform(self.shear[0], self.shear[1]))
+        scale = rng.uniform(self.scale[0], self.scale[1])
+        tx = rng.uniform(-self.translate[0], self.translate[0]) * w
+        ty = rng.uniform(-self.translate[1], self.translate[1]) * h
+        ca, sa = math.cos(angle), math.sin(angle)
+        m = np.array([[scale * ca, scale * (-sa + math.tan(sx) * ca), tx],
+                      [scale * sa, scale * (ca + math.tan(sx) * sa), ty]],
+                     np.float32)
+        cx, cy = w / 2, h / 2
+        m[:, 2] += np.array([cx, cy]) - m[:, :2] @ np.array([cx, cy])
+        results['img'] = _hwc(cv_ops.warp_affine(img, m, (w, h)))
+        return results
+
+
+@PIPELINES.register_module()
+class RandomPerspective:
+    """With probability ``p``, move each corner by up to
+    ``distortion_scale / 2`` of the size along each axis and warp the
+    image onto the moved corners, edges replicated."""
+
+    def __init__(self, distortion_scale=0.5, p=1.0, **kwargs):
+        self.distortion_scale = distortion_scale
+        self.p = p
+
+    def __call__(self, results: Dict) -> Dict:
+        rng, _ = _rngs(results)
+        if rng.random() >= self.p:
+            return results
+        img = results['img']
+        h, w = img.shape[:2]
+        dx = w * self.distortion_scale / 2
+        dy = h * self.distortion_scale / 2
+        src = np.float32([[0, 0], [w - 1, 0], [w - 1, h - 1], [0, h - 1]])
+        dst = np.float32([[x + rng.uniform(-dx, dx), y + rng.uniform(-dy, dy)]
+                          for x, y in src])
+        m = cv_ops.get_perspective_transform(src, dst)
+        results['img'] = _hwc(cv_ops.warp_perspective(img, m, (w, h)))
+        return results
+
+
+@PIPELINES.register_module()
+class ColorJitter:
+    """Brightness, contrast, saturation (towards the channel mean) and, on
+    BGR images, a hue shift in cv2's HSV (H in [0, 180)), in float32."""
+
+    def __init__(self, brightness=0.5, saturation=0.5, contrast=0.5,
+                 hue=0.1, **kwargs):
+        self.brightness = brightness
+        self.saturation = saturation
+        self.contrast = contrast
+        self.hue = hue
+
+    def __call__(self, results: Dict) -> Dict:
+        rng, _ = _rngs(results)
+        img = results['img'].astype(np.float32)
+        if self.brightness:
+            img *= rng.uniform(1 - self.brightness, 1 + self.brightness)
+        if self.contrast:
+            f = rng.uniform(1 - self.contrast, 1 + self.contrast)
+            img = img.mean() + f * (img - img.mean())
+        if self.saturation and img.shape[-1] == 3:
+            f = rng.uniform(1 - self.saturation, 1 + self.saturation)
+            gray = img.mean(axis=-1, keepdims=True)
+            img = gray + f * (img - gray)
+        if self.hue and img.shape[-1] == 3:
+            shift = rng.uniform(-self.hue, self.hue) * 180.0
+            hsv = cv_ops.bgr_to_hsv(np.clip(img, 0, 255).astype(
+                np.uint8)).astype(np.float32)
+            hsv[..., 0] = (hsv[..., 0] + shift) % 180.0
+            img = cv_ops.hsv_to_bgr(hsv.astype(np.uint8)).astype(np.float32)
+        results['img'] = np.clip(img, 0, 255).astype(results['img'].dtype)
+        return results
+
+
+@PIPELINES.register_module()
+class GaussNoise:
+    """With probability ``p``, add Gaussian noise of a variance uniform in
+    ``var_limit``; the result is uint8."""
+
+    def __init__(self, var_limit=(10.0, 50.0), p=1.0, **kwargs):
+        self.var_limit = var_limit
+        self.p = p
+
+    def __call__(self, results: Dict) -> Dict:
+        rng, np_rng = _rngs(results)
+        if rng.random() >= self.p:
+            return results
+        img = results['img'].astype(np.float32)
+        sigma = math.sqrt(rng.uniform(*self.var_limit))
+        img = img + np_rng.randn(*img.shape).astype(np.float32) * sigma
+        results['img'] = np.clip(img, 0, 255).astype(np.uint8)
+        return results
+
+
+@PIPELINES.register_module()
+class MotionBlur:
+    """With probability ``p``, a horizontal or vertical box blur of an odd
+    length in [3, blur_limit]."""
+
+    def __init__(self, blur_limit=6, p=1.0, **kwargs):
+        self.blur_limit = blur_limit
+        self.p = p
+
+    def __call__(self, results: Dict) -> Dict:
+        rng, _ = _rngs(results)
+        if rng.random() >= self.p:
+            return results
+        k = rng.choice(range(3, max(4, self.blur_limit + 1), 2))
+        kernel = np.zeros((k, k), np.float32)
+        if rng.random() < 0.5:
+            kernel[k // 2, :] = 1.0
+        else:
+            kernel[:, k // 2] = 1.0
+        kernel /= kernel.sum()
+        results['img'] = _hwc(cv_ops.filter2d(results['img'], kernel))
+        return results
+
+
+@PIPELINES.register_module()
+class PyramidRescale:
+    """Blur by resizing to ``base_shape``, ``factor`` (uniform in [0,
+    factor] with ``randomize_factor``) pyramid steps down and up, and back
+    to the image's size."""
+
+    def __init__(self, factor=4, base_shape=(128, 512), randomize_factor=True,
+                 **kwargs):
+        self.factor = factor
+        self.base_shape = base_shape
+        self.randomize_factor = randomize_factor
+
+    def __call__(self, results: Dict) -> Dict:
+        rng, _ = _rngs(results)
+        img = results['img']
+        factor = (rng.randint(0, self.factor) if self.randomize_factor
+                  else self.factor)
+        if factor == 0:
+            return results
+        h, w = img.shape[:2]
+        scaled = resize_bilinear(img, self.base_shape[1], self.base_shape[0])
+        for _ in range(factor):
+            scaled = cv_ops.pyr_down(scaled)
+        for _ in range(factor):
+            scaled = cv_ops.pyr_up(scaled)
+        results['img'] = _hwc(resize_bilinear(scaled, w, h))
+        return results
+
+
+@PIPELINES.register_module()
+class OneOfWrapper:
+    """Apply one of ``transforms``, picked uniformly."""
+
+    def __init__(self, transforms: Sequence):
+        self.transforms = [PIPELINES.build(t) if isinstance(t, dict) else t
+                           for t in transforms]
+
+    def __call__(self, results: Dict) -> Dict:
+        rng, _ = _rngs(results)
+        return rng.choice(self.transforms)(results)
+
+
+@PIPELINES.register_module()
+class RandomWrapper:
+    """Apply ``transforms`` in turn with probability ``p``."""
+
+    def __init__(self, transforms: Sequence, p=0.5):
+        self.transforms = [PIPELINES.build(t) if isinstance(t, dict) else t
+                           for t in transforms]
+        self.p = p
+
+    def __call__(self, results: Dict) -> Dict:
+        rng, _ = _rngs(results)
+        if rng.random() > self.p:
+            return results
+        for t in self.transforms:
+            results = t(results)
+        return results
+
+
+@PIPELINES.register_module()
+class TorchVisionWrapper:
+    """The reference configs' torchvision ops by name: ``op`` is built as
+    the transform of that name registered here."""
+
+    def __init__(self, op: str, **kwargs):
+        self.transform = PIPELINES.build(dict(type=op, **kwargs))
+
+    def __call__(self, results: Dict) -> Dict:
+        return self.transform(results)
 
 
 class Compose:

@@ -7,7 +7,8 @@ tensors inside are NCHW-shaped with channels-last strides and no copy is
 made at either boundary.
 
 ``BatchNorm2d`` keeps flax's train-mode statistics (see its docstring);
-every BatchNorm of the port is one.
+every BatchNorm of the port is one. Under a process group its statistics
+are those of the global batch.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import itertools
 from typing import Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -39,11 +41,21 @@ class BatchNorm2d(nn.BatchNorm2d):
     by n/(n-1) for n values per channel), and the statistics are computed in
     float32 at least, whatever the input's dtype. ``momentum`` is torch's convention:
     0.1 here is flax's ``momentum=0.9``. Eval mode and the ``state_dict``
-    keys are ``nn.BatchNorm2d``'s."""
+    keys are ``nn.BatchNorm2d``'s.
+
+    Under a process group the train-mode statistics are the global batch's,
+    as under JAX's mesh, where ``jit`` over the sharded batch reduces across
+    it: the count, sum and sum of squares of every rank go through one
+    all-reduce, and the backward all-reduces its two sums, so that it is
+    the global batch's too (``_GlobalBatchNorm``; ``nn.SyncBatchNorm``
+    keeps torch's unbiased running variance and does not run on gloo CPU
+    tensors)."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if dist.is_available() and dist.is_initialized():
+            return self._global_batch_forward(x)
         with torch.no_grad():
             var, mean = torch.var_mean(
                 x.to(torch.promote_types(x.dtype, torch.float32)),
@@ -54,6 +66,60 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _global_batch_forward(self, x):
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                              self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of a process group:
+    the forward all-reduces each channel's sum, sum of squares and count;
+    the backward all-reduces the sums of the output gradient and of its
+    product with the centred input, so that the input gradient is the
+    global batch's. The weight and bias gradients stay this rank's, for
+    the step's gradient all-reduce. Statistics in float32 at least.
+    Returns (y, mean, biased variance)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        c = x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        stats = torch.cat([xf.sum(dim=(0, 2, 3)),
+                           (xf * xf).sum(dim=(0, 2, 3)),
+                           xf.new_full((1,), x.numel() // c)])
+        dist.all_reduce(stats)
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = (stats[c:2 * c] / n - mean * mean).clamp(min=0)
+        invstd = torch.rsqrt(var + eps)
+        scale = invstd * weight
+        shift = bias - mean * scale
+        y = torch.addcmul(shift.to(x.dtype)[:, None, None], x,
+                          scale.to(x.dtype)[:, None, None])
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        c = x.shape[1]
+        g = gy.to(mean.dtype)
+        xc = x.to(mean.dtype) - mean[:, None, None]
+        sums = torch.cat([g.sum(dim=(0, 2, 3)), (g * xc).sum(dim=(0, 2, 3))])
+        d_bias, d_weight = sums[:c].clone(), sums[c:] * invstd
+        dist.all_reduce(sums)
+        k = (weight * invstd)[:, None, None]
+        gx = k * (g - (sums[:c] / n)[:, None, None]
+                  - xc * (invstd * invstd * sums[c:] / n)[:, None, None])
+        return gx.to(x.dtype), d_weight, d_bias, None
 
 
 class ConvModule(nn.Module):

@@ -1,5 +1,6 @@
 """Optimizer, schedule and train step (counterpart of
-``tps_pp_tpu/parallel/train.py:46-234``) on one device.
+``tps_pp_tpu/parallel/train.py:46-234``), on one device or one device a
+rank of a process group (``parallel.dist``).
 
 The JAX package builds one optax chain: clip by global norm -> coupled L2
 (``add_decayed_weights``, every optimizer but AdamW) -> the optimizer with
@@ -20,12 +21,21 @@ chain over ``torch.optim``:
 ``custom_keys`` of ``paramwise_cfg`` match as substrings of the torch
 parameter names (mmcv's convention; the JAX package matches them against
 flax paths), the longest key first.
+
+Under a process group the step averages the gradients over the ranks
+before the clip, in buckets flattened into one all-reduce each after the
+backward (``dist.all_reduce_mean``), as the mesh's ``psum`` over the data
+axis does in JAX; with equal shares of the batch and the loss's mean over
+all positions that is the gradient of the global batch's loss. The
+metrics are averaged too.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
+
+from . import dist
 
 Schedule = Callable[[int], float]
 
@@ -85,13 +95,17 @@ class OptimizerChain:
     def zero_grad(self):
         self.optimizer.zero_grad(set_to_none=True)
 
-    def step(self) -> torch.Tensor:
-        """Clip, set the lr, step; returns the global norm of the gradients
-        before clipping (a 0-d tensor, not synchronised)."""
+    def grads(self) -> List[torch.Tensor]:
+        """Every parameter's gradient, zeros where it has none."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
+        return [p.grad for p in self.params]
+
+    def step(self) -> torch.Tensor:
+        """Clip, set the lr, step; returns the global norm of the gradients
+        before clipping (a 0-d tensor, not synchronised)."""
+        grads = self.grads()
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         if self.max_norm is not None:
             torch._foreach_mul_(grads, torch.clamp(self.max_norm / norm,
@@ -102,6 +116,14 @@ class OptimizerChain:
         self.optimizer.step()
         self.count += 1
         return norm
+
+    def state_dict(self) -> Dict:
+        """The optimizer's state and the step count the schedule reads."""
+        return {'count': self.count, 'optimizer': self.optimizer.state_dict()}
+
+    def load_state_dict(self, state: Dict):
+        self.count = int(state['count'])
+        self.optimizer.load_state_dict(state['optimizer'])
 
 
 def _torch_optimizer(opt_type: str, groups: List[Dict], base_lr: float,
@@ -184,12 +206,22 @@ def build_optimizer_from_run_cfg(cfg: Dict, named_params, steps_per_epoch: int,
                            steps_per_epoch=steps_per_epoch)
 
 
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The dropout generator of ``step``: seeded from ``(seed, step)`` and
+    the rank, as JAX folds the step into its key
+    (``tps_pp_tpu/parallel/train.py:196``), so that a resumed run draws
+    the masks the uninterrupted run drew."""
+    key = ((seed * 1000003 + step) * 1000003 + dist.rank()) % (2 ** 63)
+    return torch.Generator(device=device).manual_seed(key)
+
+
 def make_train_step(recognizer, optimizer: OptimizerChain) -> Callable:
     """``train_step(batch, generator=None, plain=False) -> metrics``: one
     forward and backward through ``recognizer.compute_loss`` in train mode
     and one optimizer step. The metrics (0-d tensors, not synchronised)
     are ``loss``, each named loss (``loss_ce``) and ``grad_norm``, the
-    global norm of the gradients before clipping."""
+    global norm of the gradients before clipping; under a process group,
+    means over the ranks."""
 
     def train_step(batch, generator: Optional[torch.Generator] = None,
                    plain: bool = False) -> Dict[str, torch.Tensor]:
@@ -197,9 +229,14 @@ def make_train_step(recognizer, optimizer: OptimizerChain) -> Callable:
         total, losses = recognizer.compute_loss(batch, generator,
                                                 plain=plain)
         total.backward()
-        grad_norm = optimizer.step()
-        return {'loss': total.detach(),
-                **{k: v.detach() for k, v in losses.items()},
-                'grad_norm': grad_norm}
+        metrics = {'loss': total.detach(),
+                   **{k: v.detach() for k, v in losses.items()}}
+        if dist.is_active():
+            dist.all_reduce_mean(optimizer.grads())
+            values = torch.stack(list(metrics.values()))
+            dist.all_reduce_mean([values])
+            metrics = dict(zip(metrics, values))
+        metrics['grad_norm'] = optimizer.step()
+        return metrics
 
     return train_step
