@@ -73,6 +73,30 @@ seed):
   of its wall time the step loop waited on the loader, and the
   checkpoint's size and save time.
 
+* the ABINet + TPS++ family, last: the model of
+  ``configs/textrecog/abinet/abinet_tps++.py`` through the port's config
+  loader with ``model.dtype=bfloat16``, seed-0 weights, on the card.
+  Serving at B=512 (random 32x128x3 crops) and B=5 (mixed valid ratios)
+  must launch kernel 1 and no other kernel; its logits' argmax must equal
+  the plain path's at every position but where the plain path's top-2
+  logit gap is below the near-tie width: ``TIE_MULT`` times the widest gap
+  at which the plain path parts from itself when only the sampler's
+  rounding changes (the two-stage sampler's plain version), never below
+  ``NEAR_TIE``. ``predict`` is timed against the plain path, and its
+  stages by CUDA events (``extract_feat``, the vision model, the LM +
+  fuser rounds). A float32 model at B=8: logits within
+  ``ABINET_F32_ATOL`` of its plain path. The inference API:
+  ``init_recognizer`` from the config and a ``.pth`` of the weights, then
+  ``model_inference`` on 64 uint8 crops through the config's test
+  pipeline (kernel 1; texts those of the plain path but for near-ties).
+  Training with the config's Adam at its ``samples_per_gpu`` (192), f32
+  parameters, random DICT36 labels of 1-25 characters: one step without
+  dropout, kernel path against plain path, in f32 compute (loss, grad
+  norm and the ``localization_fc2`` gradient, as the flagship's) and in
+  bf16 compute (the loss); five steps with the config's dropout under
+  bf16 autocast, finite, launching kernels 8 and 9 once each a step; the
+  step timed against the plain path.
+
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
 the checks and on TPS++'s own [0, 1]^2 grid, which puts every sample in
 the lower half of the map's rows; their band plan is logged.
@@ -174,6 +198,12 @@ TRAIN_OPT = dict(type='Adam', lr=1e-4, grad_clip=dict(max_norm=5.0))
 # the training API phase: crops in the training and validation sets,
 # steps an epoch at B=256
 N_TRAIN_CROPS, N_VAL_CROPS, TRAIN_EPOCHS = 1024, 256, 2
+# the ABINet phase: its config, the crops of its inference API check, and
+# the tolerance of the f32 model's logits, kernel path against plain path
+# (the f32 warps part by ~1e-6, WARP_BOUNDS; seven transformer layers and
+# three rounds amplify that, and the logits reach ~10)
+ABINET_CONFIG = 'configs/textrecog/abinet/abinet_tps++.py'
+N_ABINET_CROPS, ABINET_F32_ATOL = 64, 1e-3
 
 
 def log(*a):
@@ -1386,6 +1416,351 @@ def train_api_phase(name):
     torch.cuda.empty_cache()
 
 
+def check_logits(kernel, plain, what, near_tie):
+    """The single-pass rule: the argmax of ``kernel`` (N, T, C) logits
+    equals ``plain``'s at every position but where the plain top-2 logit
+    gap is below ``near_tie``. Returns (max abs logit error, positions
+    that part, their widest plain gap)."""
+    import torch
+    kernel, plain = kernel.float(), plain.float()
+    top2 = torch.topk(plain, 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    part = kernel.argmax(-1) != plain.argmax(-1)
+    widest = float(gap[part].max()) if bool(part.any()) else 0.0
+    if not widest < near_tie and bool(part.any()):
+        raise AssertionError(f'{what}: {int(part.sum())} positions part from '
+                             f'the plain path, one at a top-2 logit gap of '
+                             f'{widest:.4g} (>= {near_tie:.4g})')
+    return float((kernel - plain).abs().max()), int(part.sum()), widest
+
+
+def abinet_phase(dev, name):
+    """The ABINet + TPS++ family on ``dev``, the card (see the module
+    docstring): serving through kernel 1, the f32 model, the inference API
+    and training through kernels 8 and 9. Returns the launch counts of its
+    serving, inference API and training runs."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import (ABINetRecognizer, build_recognizer,
+                                       init_recognizer, model_inference)
+    from tps_pp_tpu_torch.config import load_config, merge_cli_options
+    from tps_pp_tpu_torch.datasets.pipelines.transforms import Compose
+    from tps_pp_tpu_torch.ops.decode_step import (cross_ffn_step,
+                                                  self_attn_step)
+    from tps_pp_tpu_torch.ops.encoder import encoder_forward
+    from tps_pp_tpu_torch.ops.full_decode import full_decode
+    from tps_pp_tpu_torch.ops.grid_sample import (grid_sample_forward,
+                                                  grid_sample_grad,
+                                                  grid_sample_grad_img)
+    from tps_pp_tpu_torch.ops.stem import basic_block_cp, conv3x3_cp
+    from tps_pp_tpu_torch.ops.tps_sampler import tps_sampler
+    from tps_pp_tpu_torch.parallel import (build_optimizer_from_run_cfg,
+                                           make_train_step)
+    from tps_pp_tpu_torch.tools.train import train_cfg_of
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cfg_path = os.path.join(repo, ABINET_CONFIG)
+    counted = {'tps_sampler': lambda: tps_sampler.launches,
+               'tps_sampler_twostage': lambda: tps_sampler.launches_twostage,
+               'encoder': lambda: encoder_forward.launches,
+               'full_decode': lambda: full_decode.launches,
+               'full_decode_int8': lambda: full_decode.launches_int8,
+               'self_attn_step': lambda: self_attn_step.launches,
+               'cross_ffn_step': lambda: cross_ffn_step.launches,
+               'grid_sample_forward': lambda: grid_sample_forward.launches,
+               'grid_sample_grad': lambda: grid_sample_grad.launches,
+               'grid_sample_grad_img': lambda: grid_sample_grad_img.launches,
+               'conv3x3_cp': lambda: conv3x3_cp.launches,
+               'basic_block_cp': lambda: basic_block_cp.launches}
+
+    def zero():
+        for fn in (tps_sampler, encoder_forward, full_decode, self_attn_step,
+                   cross_ffn_step, grid_sample_forward, grid_sample_grad,
+                   grid_sample_grad_img, conv3x3_cp, basic_block_cp):
+            fn.launches = 0
+        tps_sampler.launches_twostage = full_decode.launches_int8 = 0
+
+    def read(what, want):
+        """The counts now; each kernel in ``want`` (name -> count, None for
+        at least one) must match, every other must be 0."""
+        torch.cuda.synchronize()
+        got = {k: f() for k, f in counted.items()}
+        bad = {k: n for k, n in got.items()
+               if (k not in want and n) or (k in want and (
+                   n < 1 if want[k] is None else n != want[k]))}
+        log(f'abinet {what}: launches {got}')
+        if bad:
+            raise AssertionError(f'abinet {what}: launches {bad} against '
+                                 f'{want}')
+        return {k: n for k, n in got.items() if n}
+
+    def model_cfg(dtype, dropout=None):
+        cfg = load_config(cfg_path)
+        merge_cli_options(cfg, {'model.dtype': dtype})
+        model = copy.deepcopy(dict(cfg['model']))
+        if dropout is not None:
+            model['encoder']['encoder']['dropout'] = dropout
+            model['decoder']['dropout'] = dropout
+        return cfg, model
+
+    # ---- build: the config's model in bf16, seed-0 weights, on the card
+    cfg, model = model_cfg('bfloat16')
+    rec = build_recognizer(model, device=dev)
+    if not isinstance(rec, ABINetRecognizer) or rec.device != dev \
+            or rec.resolved_decode_mode() != 'single_pass':
+        raise AssertionError(f'abinet: built {type(rec).__name__} on '
+                             f'{rec.device}, {rec.resolved_decode_mode()}')
+    rec.init_weights(SEED)
+    lc = rec.label_convertor
+    S, C = rec.max_seq_len, model['decoder']['num_chars']
+    g = np.random.default_rng(SEED + 14)
+    img = torch.from_numpy(g.standard_normal((B, 32, 128, 3)).astype(
+        np.float32)).to(dev)
+
+    # ---- serving, B=512 and B=5: kernel 1 only ---------------------------
+    zero()
+    pk = rec.predict(img)
+    vr5 = np.array([1.0, 0.6, 0.85, 0.35, 1.0], np.float32)
+    pk5 = rec.predict(img[:5], vr5)
+    launches = {'serving': read('serving B=512 and B=5',
+                                {'tps_sampler': 2})}
+    zero()
+    rec.plain = True
+    pp, pp5 = rec.predict(img), rec.predict(img[:5], vr5)
+    # the path's own spread from one upstream rounding, no kernel in it:
+    # the plain path with the two-stage sampler's plain version (another
+    # rounding of the same warp) against the dense one's
+    tpsnet, sample_mode = rec.model.tpsnet, rec.model.tpsnet.sample_mode
+    tpsnet.sample_mode = 'pallas'
+    os.environ['TPS_SAMPLER_VARIANT'] = 'twostage'
+    try:
+        p2 = rec.predict(img)
+    finally:
+        tpsnet.sample_mode = sample_mode
+        os.environ.pop('TPS_SAMPLER_VARIANT')
+    rec.plain = False
+    read('plain paths', {})
+    if tuple(pk.shape) != (B, S, C) or not bool(torch.isfinite(pk).all()):
+        raise AssertionError(f'abinet: bad output {tuple(pk.shape)}')
+    _, n_spread, spread = check_logits(p2, pp, 'abinet spread', 1e9)
+    near_tie = max(TIE_MULT * spread, NEAR_TIE)
+    err, parts, widest = check_logits(pk, pp, 'abinet B=512', near_tie)
+    err5, parts5, widest5 = check_logits(pk5, pp5, 'abinet B=5', near_tie)
+    log(f'abinet serving: plain logits up to {float(pp.abs().max()):.4g} '
+        f'in magnitude; the plain path with the two-stage sampler parts '
+        f'from the dense one at {n_spread} of {B * S} positions, widest '
+        f'top-2 logit gap {spread:.4g}: near-tie width {near_tie:.4g} '
+        f'(TIE_MULT x that, >= {NEAR_TIE}); kernel path against plain path '
+        f'B={B}: {parts} positions part (widest gap {widest:.4g}), max abs '
+        f'logit error {err:.4g}; B=5 with mixed valid ratios: {parts5} part '
+        f'(widest {widest5:.4g}), max abs error {err5:.4g}; first texts '
+        f'{[x["text"] for x in rec.simple_test(img[:3])]} [{name}]')
+
+    # ---- times: predict at B=512, kernel and plain paths in turns; the
+    # stages by CUDA events -------------------------------------------------
+    times = {False: [], True: []}
+    for plain in (False, True, True, False):
+        rec.plain = plain
+        rec.predict(img)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            rec.predict(img)
+        torch.cuda.synchronize()
+        times[plain].append((time.perf_counter() - t0) / 3)
+    rec.plain = False
+    for plain, ts in times.items():
+        log(f'abinet serving B={B} {"plain" if plain else "kernel"} path: '
+            f'{B / min(ts):.1f} images/s ({min(ts) * 1e3:.2f} ms/batch, '
+            f'best of 2 rounds of 3; the rounds '
+            f'{", ".join(f"{t * 1e3:.2f}" for t in ts)} ms) [{name}]')
+    m = rec.model
+    with torch.inference_mode():
+        x = img.to(torch.bfloat16)
+        feat = m.extract_feat(x)
+        out_enc = m.encoder(feat)
+
+        def rounds():
+            logits = out_enc['logits']
+            for _ in range(m.iter_size):
+                d = m.decoder(logits)
+                logits = m.fuser(out_enc['feature'], d['feature'])['logits']
+            return logits
+
+        stages = {'extract_feat': lambda: m.extract_feat(x),
+                  'vision model': lambda: m.encoder(feat),
+                  f'{m.iter_size} LM + fuser rounds': rounds,
+                  'forward_test_nar': lambda: m.forward_test_nar(x)}
+        ms = {k: cuda_ms(fn, 5) for k, fn in stages.items()}
+    log(f'abinet serving B={B} by stage (CUDA events, mean of 5): '
+        + ', '.join(f'{k} {v:.3f} ms' for k, v in ms.items()) + f' [{name}]')
+    del feat, out_enc, x
+
+    # ---- a float32 model at B=8: the sampler kernel's f32 variant --------
+    _, model32 = model_cfg('float32')
+    r32 = build_recognizer(model32, device=dev)
+    r32.model.load_state_dict(rec.model.state_dict())
+    zero()
+    lk = r32.predict(img[:B_SMALL])
+    read(f'float32 B={B_SMALL}', {'tps_sampler': 1})
+    r32.plain = True
+    lp = r32.predict(img[:B_SMALL])
+    err32, parts32, _ = check_logits(lk, lp, 'abinet float32', NEAR_TIE)
+    if not err32 <= ABINET_F32_ATOL:
+        raise AssertionError(f'abinet float32: logits part by {err32} > '
+                             f'{ABINET_F32_ATOL}')
+    log(f'abinet float32 B={B_SMALL}: kernel path against plain path, max '
+        f'abs logit error {err32:.4g} (<= {ABINET_F32_ATOL}), {parts32} '
+        f'positions part')
+    del r32
+
+    # ---- the inference API: .pth, init_recognizer, model_inference -------
+    sd = {k: v.detach().cpu() for k, v in rec.model.state_dict().items()}
+    crops = [g.integers(0, 256, (int(g.integers(16, 65)),
+                                 int(g.integers(24, 401)), 3), np.uint8)
+             for _ in range(N_ABINET_CROPS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, 'abinet.pth')
+        torch.save({'meta': {}, 'state_dict': sd}, pth)
+        r = init_recognizer(cfg, pth, device=dev, seed=1)
+    if not isinstance(r, ABINetRecognizer) or r.device != dev or \
+            not all(torch.equal(v.cpu(), sd[k])
+                    for k, v in r.model.state_dict().items()):
+        raise AssertionError('abinet init_recognizer: not the written '
+                             'weights on the card')
+    zero()
+    got = model_inference(r, crops, batch_mode=True)
+    launches['inference API'] = read(
+        f'model_inference on {N_ABINET_CROPS} crops', {'tps_sampler': 1})
+    pipeline = Compose([dict(type='LoadImageFromNdarray')] +
+                       [dict(t) for t in r.test_pipeline_cfg[1:]])
+    batch = np.stack([pipeline(dict(img=c, img_info=dict(filename=None)))[
+        'img'] for c in crops]).astype(np.float32)
+    r.plain = True
+    plain_res = model_inference(r, crops, batch_mode=True)
+    lp = r.predict(batch)
+    r.plain = False
+    lk = r.predict(batch)
+
+    def texts(logits):
+        return lc.idx2str(lc.tensor2idx(logits.cpu().numpy())[0])
+
+    if texts(lk) != [x['text'] for x in got] or \
+            texts(lp) != [x['text'] for x in plain_res]:
+        raise AssertionError('abinet model_inference: texts other than the '
+                             'decode of predict on the pipeline batch')
+    err, parts, widest = check_logits(lk, lp, 'abinet model_inference',
+                                      near_tie)
+    same = sum(a['text'] == b['text'] for a, b in zip(got, plain_res))
+    log(f'abinet inference API: init_recognizer({ABINET_CONFIG}, .pth), '
+        f'model_inference on {N_ABINET_CROPS} uint8 crops: {same} of '
+        f'{N_ABINET_CROPS} texts equal to the plain path\'s, {parts} '
+        f'positions part (widest gap {widest:.4g} < {near_tie:.4g}); first '
+        f'texts {[x["text"] for x in got[:3]]}')
+    del r, rec, m, pk, pp, p2, lk, lp
+    torch.cuda.empty_cache()
+
+    # ---- training: the config's Adam, f32 parameters, B=192 ------------
+    tc = train_cfg_of(cfg)
+    bt = int(tc['samples_per_gpu'])
+    chars = lc.idx2char[:36]
+    labels = [''.join(g.choice(chars, int(g.integers(1, 26))))
+              for _ in range(bt)]
+    td = lc.str2tensor(labels)
+    tbatch = dict(
+        img=torch.from_numpy(g.standard_normal((bt, 32, 128, 3)).astype(
+            np.float32)).to(dev),
+        valid_ratio=np.ones(bt, np.float32),
+        padded_targets=td['padded_targets'],
+        target_lengths=td['target_lengths'])
+
+    def trainer(dtype, dropout=None):
+        rt = build_recognizer(model_cfg(dtype, dropout)[1], device=dev,
+                              param_dtype='float32')
+        if dropout == 0.0:
+            rt.model.decoder.token_encoder.dropout = 0.0
+        return rt
+
+    def step_fn(rt):
+        opt, _ = build_optimizer_from_run_cfg(
+            tc, rt.model.named_parameters(), steps_per_epoch=1,
+            total_epochs=tc['total_epochs'])
+        return make_train_step(rt, opt)
+
+    rt = trainer('float32', 0.0).init_weights(SEED)
+    state0 = copy.deepcopy(rt.model.state_dict())
+    for dtype in ('float32', 'bfloat16'):
+        if dtype == 'bfloat16':
+            rt = trainer(dtype, 0.0)
+        res = {}
+        for plain in (False, True):
+            rt.model.load_state_dict(state0)
+            step = step_fn(rt)
+            zero()
+            mets = step(tbatch, plain=plain)
+            n = read(f'train check step, {dtype} compute, '
+                     f'{"plain" if plain else "kernel"} path',
+                     {} if plain else {'grid_sample_forward': 1,
+                                       'grid_sample_grad': 1})
+            res[plain] = (float(mets['loss']), float(mets['grad_norm']),
+                          rt.model.tpsnet.TPE.localization_fc2.weight.grad
+                          .clone(), n)
+        (lk_, nk, gk, _), (lp_, np_, gp, _) = res[False], res[True]
+        cos = cosine(gk, gp)
+        log(f'abinet train check step B={bt}, {dtype} compute: loss '
+            f'{lk_:.6f} kernel / {lp_:.6f} plain; grad_norm {nk:.6f} / '
+            f'{np_:.6f}; cos(d localization_fc2) {cos:.6f} [{name}]')
+        if not (np.isfinite(lk_) and abs(lk_ - lp_) <= LOSS_RTOL * abs(lp_)):
+            raise AssertionError(f'abinet train {dtype}: loss {lk_} vs '
+                                 f'plain {lp_}')
+        if dtype == 'float32' and not (
+                abs(nk - np_) <= GRAD_NORM_RTOL * abs(np_)
+                and cos >= GRAD_COS_MIN):
+            raise AssertionError(f'abinet train: grad_norm {nk} vs {np_}, '
+                                 f'cosine {cos}')
+    del rt
+
+    # ---- five steps with the config's dropout, then the step's time ----
+    rt = trainer('bfloat16')
+    rt.model.load_state_dict(state0)
+    step = step_fn(rt)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    zero()
+    losses = [float(step(tbatch, gen)['loss']) for _ in range(5)]
+    launches['training'] = read('5 training steps', {
+        'grid_sample_forward': 5, 'grid_sample_grad': 5})
+    log(f'abinet train: 5 steps B={bt}, bf16 compute, dropout 0.1, losses '
+        f'{losses}')
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'abinet train: non-finite loss {losses}')
+    times = {False: [], True: []}
+    for plain in (False, True, True, False):
+        step(tbatch, gen, plain=plain)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            loss = step(tbatch, gen, plain=plain)['loss']
+        torch.cuda.synchronize()
+        times[plain].append((time.perf_counter() - t0) / 3)
+        if not bool(torch.isfinite(loss)):
+            raise AssertionError('abinet train: non-finite loss while '
+                                 'timing')
+    for plain, ts in times.items():
+        log(f'abinet train B={bt} {"plain" if plain else "kernel"} path: '
+            f'{min(ts) * 1e3:.2f} ms/step, {bt / min(ts):.1f} images/s (best '
+            f'of 2 rounds of 3 steps; the rounds '
+            f'{", ".join(f"{t * 1e3:.2f}" for t in ts)} ms) [{name}]')
+    del rt, step
+    torch.cuda.empty_cache()
+    log(f'abinet phase: {time.perf_counter() - t_phase:.1f} s; launches '
+        f'{json.dumps(launches)}')
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1996,6 +2371,9 @@ def main():
 
     # ---- the training API: train_recognizer, checkpoints, resume ---------
     train_api_phase(name)
+
+    # ---- the ABINet + TPS++ family: kernel 1 serving, kernels 8-9 training
+    abinet_phase(dev, name)
     path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])

@@ -1,8 +1,8 @@
 """The port stands alone: importing it, serving (through every decode mode,
 the fused decode step, the fused stem and the two-stage sampler) and
 training on the CPU (``train_recognizer`` on crops through the flagship's
-train augmentations) loads neither JAX, flax, cv2 nor the JAX package, and
-launches no kernel (CPU tensors go to the kernels' plain versions; nothing
+train augmentations), and the same for a tiny ABINet + TPS++, loads
+neither JAX, flax, cv2 nor the JAX package, and launches no kernel (CPU tensors go to the kernels' plain versions; nothing
 is built)."""
 import json
 import os
@@ -98,6 +98,41 @@ opt, history = train.train_recognizer(
     rec, Crops(), dict(optimizer=dict(type='Adam', lr=1e-4),
                        samples_per_gpu=4, total_epochs=1, log_interval=1))
 assert opt.count == 1 and np.isfinite(history[0]['loss'])
+
+# the ABINet family: serving and a training step of a tiny ABINet + TPS++
+from tps_pp_tpu_torch.apis import abinet
+from tps_pp_tpu_torch.convertors import abi as cabi
+from tps_pp_tpu_torch.losses import abi as labi
+from tps_pp_tpu_torch.models import fusers
+from tps_pp_tpu_torch.models.decoders import abi as dabi
+from tps_pp_tpu_torch.models.encoders import abi as eabi
+from tps_pp_tpu_torch.models.recognizers import abinet as rabinet
+abi_cfg = dict(
+    type='ABINet',
+    label_convertor=dict(type='ABIConvertor', dict_type='DICT36',
+                         with_unknown=False, lower=True),
+    backbone=dict(type='ResNetABI', stem_channels=4, base_channels=4,
+                  arch_settings=[1, 1, 1, 1, 1], strides=[1, 2, 2, 1, 1]),
+    tpsnet=dict(type='TPS_PP', num_img_channel=8, img_size=(16, 32),
+                rectified_img_size=(16, 32), point_size=(2, 8)),
+    encoder=dict(type='ABIVisionModel',
+                 encoder=dict(type='TransformerEncoder', n_layers=1,
+                              n_head=2, d_model=64, d_inner=64,
+                              max_len=128),
+                 decoder=dict(type='ABIVisionDecoder', in_channels=64,
+                              num_channels=16)),
+    decoder=dict(type='ABILanguageDecoder', d_model=64, n_head=2,
+                 d_inner=64, n_layers=1),
+    fuser=dict(type='ABIFuser', d_model=64),
+    loss=dict(type='ABILoss'), max_seq_len=8, iter_size=2)
+rec = build_recognizer(abi_cfg, device='cpu', param_dtype='float32')
+assert isinstance(rec, abinet.ABINetRecognizer)
+rec.init_weights(0)
+assert len(rec.simple_test(np.zeros((3, 32, 64, 3), np.float32))) == 3
+opt, history = train.train_recognizer(
+    rec, Crops(), dict(optimizer=dict(type='Adam', lr=1e-4),
+                       samples_per_gpu=4, total_epochs=1, log_interval=1))
+assert opt.count == 1 and np.isfinite(history[0]['loss_fusion'])
 assert not dist.is_active()
 print(json.dumps({
     'loaded': sorted(m for m in ('jax', 'flax', 'cv2', 'tps_pp_tpu')

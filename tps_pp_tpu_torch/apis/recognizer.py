@@ -75,6 +75,7 @@ from ..models import backbones, decoders, encoders, rectifiers  # noqa: F401
 from ..models.decoders.base import beam_decode, greedy_decode
 from ..models.layers import weights_stamp
 from ..models.recognizers.encode_decode import EncodeDecodeRecognizer
+from ..models.transformer import PackedMultiheadAttention
 from ..ops.stem import fused_stem_forward
 from ..registry import (BACKBONES, CONVERTORS, DECODERS, ENCODERS, LOSSES,
                         RECTIFIERS)
@@ -94,19 +95,7 @@ class TextRecognizer:
         """``device``: where the model lives; the CUDA device when None,
         and a ``RuntimeError`` if there is none (pass ``'cpu'`` to build on
         the CPU)."""
-        cfg = dict(cfg)
-        self.cfg = cfg
-        self.max_seq_len = int(cfg.get('max_seq_len', 40))
-        self.dtype = _DTYPES[cfg.get('dtype', 'float32')]
-        self.param_dtype = (_DTYPES[param_dtype] if param_dtype is not None
-                            else self.dtype)
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    'TextRecognizer: no CUDA device; pass device="cpu" to '
-                    'build on the CPU')
-            device = 'cuda'
-        self.device = torch.device(device)
+        cfg = self._setup(cfg, device, param_dtype)
         self.decode_mode = cfg.get('decode_mode', 'auto')
         if self.decode_mode not in DECODE_MODES:
             raise ValueError(f'decode_mode {self.decode_mode!r} not in '
@@ -121,7 +110,6 @@ class TextRecognizer:
         self.early_exit = bool(cfg.get('early_exit', True))
         self.fused_early_exit = bool(cfg.get('fused_early_exit', True))
         self.beam_length_norm = bool(cfg.get('beam_length_norm', False))
-        self.plain = False
 
         lc_cfg = dict(cfg['label_convertor'], max_seq_len=self.max_seq_len)
         self.label_convertor = lc = CONVERTORS.build(lc_cfg)
@@ -143,10 +131,31 @@ class TextRecognizer:
         loss_cfg = dict(cfg.get('loss') or dict(type='TFLoss'))
         loss_cfg.setdefault('ignore_index', lc.padding_idx)
         self.loss_obj = LOSSES.build(loss_cfg)
+
+    def _setup(self, cfg: Dict[str, Any], device,
+               param_dtype: Optional[str]) -> Dict[str, Any]:
+        """The attributes every recognizer has (config, lengths, dtypes,
+        device, the ``plain`` switch, caches); returns the config as a
+        dict."""
+        cfg = dict(cfg)
+        self.cfg = cfg
+        self.max_seq_len = int(cfg.get('max_seq_len', 40))
+        self.dtype = _DTYPES[cfg.get('dtype', 'float32')]
+        self.param_dtype = (_DTYPES[param_dtype] if param_dtype is not None
+                            else self.dtype)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    f'{type(self).__name__}: no CUDA device; pass '
+                    'device="cpu" to build on the CPU')
+            device = 'cuda'
+        self.device = torch.device(device)
+        self.plain = False
         self._serving = None     # (weights stamp, model in self.dtype)
         # the test pipeline of the config, set by apis.inference
         # init_recognizer for model_inference
         self.test_pipeline_cfg = None
+        return cfg
 
     def init_weights(self, seed: int = 0):
         """Random weights from a seeded ``torch.Generator``, drawn on the
@@ -170,6 +179,11 @@ class TextRecognizer:
                     fill(m.weight, lambda x: x.normal_(generator=g))
                     if m.padding_idx is not None:
                         m.weight[m.padding_idx].zero_()
+                elif isinstance(m, PackedMultiheadAttention):
+                    w = m.in_proj_weight
+                    b = (3.0 / w.shape[1]) ** 0.5
+                    fill(w, lambda x: x.uniform_(-b, b, generator=g))
+                    m.in_proj_bias.zero_()
                 elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
                     m.reset_parameters()
             if self.model.tpsnet is not None:
@@ -182,8 +196,9 @@ class TextRecognizer:
                      train: bool = True, plain: bool = False
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total loss, {name: loss}) of one batch of ``img`` (N, H, W, C),
-        ``padded_targets`` (N, T) and optional ``valid_ratio`` (N,), through
-        the teacher-forced pass in train mode (``train=False``: eval mode)
+        ``padded_targets`` (N, T) and the optional ``valid_ratio`` (N,) and
+        ``target_lengths`` (N,) (passed to the loss, as in JAX), through
+        the model's training pass in train mode (``train=False``: eval mode)
         for the call. Train mode updates the BatchNorm running statistics,
         as ``mutable=['batch_stats']`` does in JAX; ``generator`` (on the
         model's device) draws the dropout masks; ``plain`` makes the
@@ -199,8 +214,11 @@ class TextRecognizer:
                 enabled=self.param_dtype != self.dtype):
             logits = self.model(img.contiguous(), targets, vr,
                                 rng=generator, plain=plain)
-        losses = self.loss_obj(logits, {'padded_targets': targets},
-                               valid_ratio=vr)
+        targets_dict = {'padded_targets': targets}
+        if batch.get('target_lengths') is not None:
+            targets_dict['target_lengths'] = torch.as_tensor(
+                batch['target_lengths']).to(self.device, torch.long)
+        losses = self.loss_obj(logits, targets_dict, valid_ratio=vr)
         return sum(losses.values()), losses
 
     @staticmethod
@@ -315,10 +333,15 @@ class TextRecognizer:
 
 def build_recognizer(cfg: Dict[str, Any], device=None,
                      param_dtype: Optional[str] = None) -> TextRecognizer:
-    """The NRTR family (``type`` NRTR / EncodeDecodeRecognizer) is the one
-    the port serves and trains so far. ``device`` defaults to the CUDA
-    device (see :class:`TextRecognizer`)."""
+    """The recognizer of a model config: ``type`` ABINet builds an
+    ``ABINetRecognizer`` (JAX ``apis/recognizer.py:337-348``); NRTR and
+    EncodeDecodeRecognizer a ``TextRecognizer``. The other families are
+    not ported yet. ``device`` defaults to the CUDA device (see
+    :class:`TextRecognizer`)."""
     type_name = cfg.get('type', 'EncodeDecodeRecognizer')
+    if type_name == 'ABINet':
+        from .abinet import ABINetRecognizer
+        return ABINetRecognizer(cfg, device, param_dtype)
     if type_name not in ('NRTR', 'EncodeDecodeRecognizer'):
         raise NotImplementedError(
             f'recognizer type {type_name!r} is not ported yet')

@@ -2,12 +2,13 @@
 ``tps_pp_tpu/apis/train.py:31-136``, the reference's ``apis/train.py``).
 
 Per step: a batch of the seeded shuffling ``DataLoader`` (this rank's share
-under a process group), its labels from the recognizer's
-``AttnConvertor.str2tensor``, and ``make_train_step`` with the dropout
-generator of the step. Per epoch: a checkpoint (``work_dir``), the
-evaluation hook (``eval_recognizer`` on ``val_dataset``, rank 0) and the
-log. ``load_from`` loads weights only; ``resume_from`` (a ``.pth`` or a
-work dir) restores weights, optimizer state and step, and the run goes on
+under a process group), its labels from the recognizer's convertor's
+``str2tensor`` (``padded_targets``, and ``target_lengths`` where it makes
+them), and ``make_train_step`` with the dropout generator of the step.
+Per epoch: a checkpoint (``work_dir``), the evaluation hook
+(``eval_recognizer`` on ``val_dataset``, rank 0) and the log.
+``load_from`` loads weights only; ``resume_from`` (a ``.pth`` or a work
+dir) restores weights, optimizer state and step, and the run goes on
 from the epoch the step lies in, so a finished job replays nothing.
 """
 from __future__ import annotations
@@ -32,12 +33,13 @@ def train_recognizer(rec, train_dataset, cfg: Dict, val_dataset=None,
                      resume_from: Optional[str] = None,
                      load_from: Optional[str] = None, seed: int = 0
                      ) -> Tuple[OptimizerChain, List[Dict]]:
-    """Train ``rec`` (a ``TextRecognizer``) on ``train_dataset``, from
-    ``rec.init_weights(seed)`` unless ``load_from`` / ``resume_from`` say
-    otherwise. ``cfg`` keys (the reference's names): ``samples_per_gpu``
-    (the global batch, rounded up to a multiple of the ranks),
-    ``total_epochs``, ``optimizer``, ``lr_config``, ``optimizer_config``,
-    ``log_interval``, ``workers_per_gpu``. Returns the optimizer chain
+    """Train ``rec`` (a ``TextRecognizer`` or ``ABINetRecognizer``) on
+    ``train_dataset``, from ``rec.init_weights(seed)`` unless
+    ``load_from`` / ``resume_from`` say otherwise. ``cfg`` keys (the
+    reference's names): ``samples_per_gpu`` (the global batch, rounded
+    up to a multiple of the ranks), ``total_epochs``, ``optimizer``,
+    ``lr_config``, ``optimizer_config``, ``log_interval``,
+    ``workers_per_gpu``. Returns the optimizer chain
     (its state and step count) and the history: the logged metrics of each
     ``log_interval``-th step and each epoch's evaluation. Also logs, each
     epoch, images/s and the seconds the step loop waited on the loader."""
@@ -88,6 +90,10 @@ def train_recognizer(rec, train_dataset, cfg: Dict, val_dataset=None,
                         host_batch['valid_ratio']).to(device,
                                                       non_blocking=True),
                     'padded_targets': td['padded_targets']}
+                # the ABINet convertor's lengths, which ABILoss reads
+                # (tps_pp_tpu/apis/train.py:118-119)
+                if 'target_lengths' in td:
+                    batch['target_lengths'] = td['target_lengths']
                 lr = schedule(optimizer.count)
                 gen = step_generator(seed + 1, optimizer.count, device)
                 metrics = train_step(batch, gen)

@@ -1,4 +1,5 @@
 from .base import BaseConvertor
 from .attn import AttnConvertor
+from .abi import ABIConvertor
 
-__all__ = ['BaseConvertor', 'AttnConvertor']
+__all__ = ['BaseConvertor', 'AttnConvertor', 'ABIConvertor']

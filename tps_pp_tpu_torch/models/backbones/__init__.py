@@ -1,3 +1,3 @@
-from .resnet_abi import ResNetABI_v2_large
+from .resnet_abi import ResNetABI, ResNetABI_v2_large
 
-__all__ = ['ResNetABI_v2_large']
+__all__ = ['ResNetABI', 'ResNetABI_v2_large']

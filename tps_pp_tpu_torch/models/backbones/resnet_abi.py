@@ -1,8 +1,11 @@
-"""ABINet-style ResNet backbone with the mid-backbone TPS++ hook
+"""ABINet-style ResNet backbones with the mid-backbone TPS++ hook
 (counterpart of ``tps_pp_tpu/models/backbones/resnet_abi.py``).
 
-``ResNetABI_v2_large`` (reference resnet_v2_large.py) with the consistent
-stride geometry [1, 2, 2, 1, 2]. ``stem_and_head`` runs the stem and the
+One trunk, ``ResNetABIBase``, under two names: ``ResNetABI`` (reference
+resnet_abi.py, ABINet's ResNet-45, default strides [2, 1, 2, 1, 1]) and
+``ResNetABI_v2_large`` (reference resnet_v2_large.py, the NRTR + TPS++
+flagship's, with the consistent stride geometry [1, 2, 2, 1, 2]). Either
+takes any strides. ``stem_and_head`` runs the stem and the
 first ``tps_stage`` stages and returns (x, skips); ``tail`` runs the rest.
 Both take and return NHWC; inside, the convolutions run on NCHW views.
 Module names are the reference's (conv1/bn1/layer{i}.{j}). BatchNorm follows
@@ -23,16 +26,14 @@ from ..layers import (BasicBlock, BatchNorm2d, nchw_to_nhwc, nhwc_to_nchw,
                       weights_stamp)
 
 
-@BACKBONES.register_module()
-class ResNetABI_v2_large(nn.Module):
-    """The NRTR + TPS++ flagship trunk: stem, then stages of conv1x1-style
-    BasicBlocks whose first block downsamples where stride or width
-    change."""
+class ResNetABIBase(nn.Module):
+    """The trunk: stem, then stages of conv1x1-style BasicBlocks whose
+    first block downsamples where stride or width change."""
 
     def __init__(self, in_channels: int = 3, stem_channels: int = 32,
                  base_channels: int = 32,
                  arch_settings: Sequence[int] = (3, 4, 6, 6, 3),
-                 strides: Sequence[int] = (1, 2, 2, 1, 2),
+                 strides: Sequence[int] = (2, 1, 2, 1, 1),
                  tps_stage: int = 2):
         super().__init__()
         self.tps_stage = tps_stage
@@ -86,3 +87,22 @@ class ResNetABI_v2_large(nn.Module):
         for i in range(self.tps_stage, self.num_stages):
             x = self._stage(i)(x)
         return nchw_to_nhwc(x)
+
+
+@BACKBONES.register_module()
+class ResNetABI(ResNetABIBase):
+    """ABINet's ResNet-45 (reference resnet_abi.py): 512 channels at H/4
+    with the default strides."""
+
+
+@BACKBONES.register_module()
+class ResNetABI_v2_large(ResNetABIBase):
+    """The NRTR + TPS++ flagship trunk (reference resnet_v2_large.py)."""
+
+    def __init__(self, in_channels: int = 3, stem_channels: int = 32,
+                 base_channels: int = 32,
+                 arch_settings: Sequence[int] = (3, 4, 6, 6, 3),
+                 strides: Sequence[int] = (1, 2, 2, 1, 2),
+                 tps_stage: int = 2):
+        super().__init__(in_channels, stem_channels, base_channels,
+                         arch_settings, strides, tps_stage)

@@ -1,3 +1,5 @@
+from .abi import ABIVisionModel, PostNormTransformerLayer, TransformerEncoder
 from .nrtr import NRTREncoder
 
-__all__ = ['NRTREncoder']
+__all__ = ['ABIVisionModel', 'NRTREncoder', 'PostNormTransformerLayer',
+           'TransformerEncoder']

@@ -180,6 +180,21 @@ def upsample_nearest(x: torch.Tensor, scale) -> torch.Tensor:
     return x
 
 
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest-neighbour resize of an NCHW tensor to ``size`` (h, w) with
+    ``jax.image.resize``'s index rule: output i reads input
+    ``floor((i + 0.5) * m / n)``, in float32, for an axis of m -> n. For
+    an integer ratio that is ``upsample_nearest``; torch's ``'nearest'``
+    reads ``floor(i * m / n)`` and differs elsewhere."""
+    for dim, n in zip((2, 3), size):
+        m = x.shape[dim]
+        if m != n:
+            idx = torch.floor((torch.arange(n, dtype=torch.float32) + 0.5)
+                              * m / n).long()
+            x = x.index_select(dim, idx.to(x.device))
+    return x
+
+
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC tensor -> NCHW-shaped view (channels-last strides, no copy)."""
     return x.permute(0, 3, 1, 2)

@@ -1,3 +1,4 @@
+from .abinet import ABINetRecognizerModule
 from .encode_decode import EncodeDecodeRecognizer
 
-__all__ = ['EncodeDecodeRecognizer']
+__all__ = ['ABINetRecognizerModule', 'EncodeDecodeRecognizer']

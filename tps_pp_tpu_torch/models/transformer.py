@@ -54,17 +54,22 @@ def sinusoid_position_table(n_position: int, d_hid: int) -> np.ndarray:
 
 
 class PositionalEncoding(nn.Module):
-    """Adds the sinusoid table; ``position_table`` is a buffer, as in the
-    reference."""
+    """Adds the sinusoid table, then dropout at rate ``dropout`` in train
+    mode (JAX ``transformer.py:43-57``); ``position_table`` is a buffer, as
+    in the reference."""
 
-    def __init__(self, d_hid: int = 512, n_position: int = 200):
+    def __init__(self, d_hid: int = 512, n_position: int = 200,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.register_buffer('position_table', torch.from_numpy(
             sinusoid_position_table(n_position, d_hid)))
 
-    def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, offset: int = 0,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         pe = self.position_table[:, offset:offset + x.shape[1]]
-        return x + pe.to(x.dtype)
+        return dropout(x + pe.to(x.dtype),
+                       self.dropout if self.training else 0.0, rng)
 
 
 def attend(q, k, v, mask: Optional[torch.Tensor], scale: float,
@@ -117,6 +122,46 @@ class MultiHeadAttention(nn.Module):
         return self.attend_cached(q, self.split(self.linear_k(k), self.d_k),
                                   self.split(self.linear_v(v), self.d_v),
                                   mask, rng)
+
+
+class PackedMultiheadAttention(nn.Module):
+    """The JAX package's ``MultiHeadAttention(qkv_bias=True)`` with
+    ``d_k = d_model / n_head`` (``tps_pp_tpu/models/transformer.py:60-121``)
+    under torch ``nn.MultiheadAttention``'s parameter names: ``in_proj_weight``
+    holds the q, k and v rows in that order, ``in_proj_bias`` their biases,
+    ``out_proj`` the output linear, so that the reference's checkpoints of
+    mmcv's attention load. The rest is ``attend``; dropout (train mode, masks
+    from ``rng``) on the weights and on the output."""
+
+    def __init__(self, d_model: int = 512, n_head: int = 8,
+                 dropout: float = 0.1):
+        super().__init__()
+        self.d_model, self.n_head = d_model, n_head
+        self.d_k = d_model // n_head
+        self.dropout = dropout
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
+        self.out_proj = nn.Linear(d_model, d_model)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def split(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, T, D) -> (N, H, T, d_k)."""
+        N, T, _ = x.shape
+        return x.reshape(N, T, self.n_head, self.d_k).transpose(1, 2)
+
+    def forward(self, q, kv=None, mask=None, rng=None):
+        """Attention of q (N, Tq, D) over kv (N, Tk, D), itself when None;
+        ``mask`` broadcastable to (N, H, Tq, Tk), 0 = masked."""
+        D, w, b = self.d_model, self.in_proj_weight, self.in_proj_bias
+        if kv is None:
+            q, k, v = F.linear(q, w, b).split(D, dim=-1)
+        else:
+            q = F.linear(q, w[:D], b[:D])
+            k, v = F.linear(kv, w[D:], b[D:]).split(D, dim=-1)
+        rate = self.dropout if self.training else 0.0
+        out = attend(self.split(q), self.split(k), self.split(v), mask,
+                     self.d_k ** -0.5, rate, rng)
+        return dropout(self.out_proj(out), rate, rng)
 
 
 class PositionwiseFeedForward(nn.Module):

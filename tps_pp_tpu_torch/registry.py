@@ -50,6 +50,7 @@ BACKBONES = Registry('torch_backbones')
 RECTIFIERS = Registry('torch_rectifiers')
 ENCODERS = Registry('torch_encoders')
 DECODERS = Registry('torch_decoders')
+FUSERS = Registry('torch_fusers')
 CONVERTORS = Registry('torch_convertors')
 LOSSES = Registry('torch_losses')
 # data side: the test pipeline's transforms, datasets, annotation loaders

@@ -23,7 +23,8 @@ Rule = Tuple[str, str, str]
 
 
 def resnet_abi_rules(arch=(3, 4, 6, 6, 3)) -> List[Rule]:
-    """ResNetABI_v2_large (reference names conv1/bn1/layer{i}.{j})."""
+    """ResNetABI / ResNetABI_v2_large (reference names
+    conv1/bn1/layer{i}.{j})."""
     rules = [('backbone.conv1', 'backbone/conv1', 'conv'),
              ('backbone.bn1', 'backbone/bn1', 'bn')]
     for li, blocks in enumerate(arch):
@@ -114,12 +115,92 @@ def nrtr_decoder_rules(n_layers: int) -> List[Rule]:
         ('decoder.classifier', 'decoder/classifier', 'linear')]
 
 
+def _post_norm_layer_rules(tp: str, fp_attn: str, fp_norm1: str,
+                           fp_norm2: str, fp_fc1: str,
+                           fp_fc2: str) -> List[Rule]:
+    """One mmcv BaseTransformerLayer (attention, norm, ffn, norm)."""
+    return [(f'{tp}.attentions.0.attn', fp_attn, 'torch_mha'),
+            (f'{tp}.norms.0', fp_norm1, 'ln'),
+            (f'{tp}.norms.1', fp_norm2, 'ln'),
+            (f'{tp}.ffns.0.layers.0.0', fp_fc1, 'linear'),
+            (f'{tp}.ffns.0.layers.1', fp_fc2, 'linear')]
+
+
+def abinet_rules(n_enc_layers: int = 3, n_lang_layers: int = 4,
+                 language: bool = True, fuser: bool = True) -> List[Rule]:
+    """The ABINet recognizer's vision model, language decoder and fuser
+    (JAX ``torch_convert.py:442-506`` with the recognizer's prefixes,
+    ``:672-681``); ``language`` / ``fuser`` False leave those out."""
+    rules = []
+    for i in range(n_enc_layers):
+        fp = f'encoder/enc/layer{i}'
+        rules += _post_norm_layer_rules(
+            f'encoder.encoder.transformer.{i}', f'{fp}/attn', f'{fp}/norm1',
+            f'{fp}/norm2', f'{fp}/ffn_fc1', f'{fp}/ffn_fc2')
+    for i in range(4):
+        rules += [
+            (f'encoder.decoder.k_encoder.{i}.conv',
+             f'encoder/dec/k_enc{i}/conv', 'conv_nobias'),
+            (f'encoder.decoder.k_encoder.{i}.bn', f'encoder/dec/k_enc{i}/bn',
+             'bn'),
+            (f'encoder.decoder.k_decoder.{i}.1.conv',
+             f'encoder/dec/k_dec{i}/conv', 'conv_nobias'),
+            (f'encoder.decoder.k_decoder.{i}.1.bn',
+             f'encoder/dec/k_dec{i}/bn', 'bn')]
+    rules += [('encoder.decoder.project', 'encoder/dec/project', 'linear'),
+              ('encoder.decoder.cls', 'encoder/dec/cls', 'linear')]
+    if language:
+        rules.append(('decoder.proj', 'decoder/proj', 'linear_nobias'))
+        for i in range(n_lang_layers):
+            rules += _post_norm_layer_rules(
+                f'decoder.decoder_layers.{i}', f'decoder/cross{i}',
+                f'decoder/norm{i}_1', f'decoder/norm{i}_2',
+                f'decoder/ffn{i}_fc1', f'decoder/ffn{i}_fc2')
+        rules.append(('decoder.cls', 'decoder/cls', 'linear'))
+    if fuser:
+        rules += [('fuser.w_att', 'fuser/w_att', 'linear'),
+                  ('fuser.cls', 'fuser/cls', 'linear')]
+    return rules
+
+
+def _abinet_position_tables(cfg: Mapping) -> Dict[str, torch.Tensor]:
+    """The ABINet recognizer's four sinusoid tables (buffers, as in the
+    reference), sized as ``ABINetRecognizer`` builds them: the encoder's
+    ``max_len`` x ``d_model``, the vision decoder's and the language
+    decoder's ``max_seq_len`` (the model's where they leave it out) x
+    their widths."""
+    T = int(cfg.get('max_seq_len', 40))
+    vision = cfg['encoder']
+    enc = vision.get('encoder') or {}
+    vdec = dict(vision.get('decoder') or {})
+    if 'decoder' in vision:
+        vdec.setdefault('max_seq_len', T)
+    sizes = {'encoder.encoder.pos_encoder': (enc.get('max_len', 8 * 32),
+                                             enc.get('d_model', 512)),
+             'encoder.decoder.pos_encoder': (vdec.get('max_seq_len', 40),
+                                             vdec.get('in_channels', 512))}
+    if cfg.get('decoder'):
+        lang = cfg['decoder']
+        n, d = lang.get('max_seq_len', T), lang.get('d_model', 512)
+        sizes['decoder.token_encoder'] = sizes['decoder.pos_encoder'] = (n,
+                                                                         d)
+    return {f'{k}.position_table': torch.from_numpy(
+        sinusoid_position_table(int(n), int(d)))
+        for k, (n, d) in sizes.items()}
+
+
 def rules_for_config(cfg: Mapping) -> List[Rule]:
-    """The rule table of an NRTR (+ TPS_PP) recognizer config."""
+    """The rule table of an NRTR or ABINet (+ TPS_PP) recognizer config."""
     rules = resnet_abi_rules(tuple(cfg['backbone'].get(
         'arch_settings', (3, 4, 6, 6, 3))))
     if cfg.get('tpsnet'):
         rules += tps_pp_rules()
+    if cfg.get('type') == 'ABINet':
+        vision = cfg['encoder'].get('encoder') or {}
+        return rules + abinet_rules(
+            int(vision.get('n_layers', 3)),
+            int((cfg.get('decoder') or {}).get('n_layers', 4)),
+            language=bool(cfg.get('decoder')), fuser=bool(cfg.get('fuser')))
     rules += nrtr_encoder_rules(int(cfg['encoder'].get('n_layers', 6)))
     return rules + nrtr_decoder_rules(int(cfg['decoder'].get('n_layers', 6)))
 
@@ -150,6 +231,16 @@ def _torch_entries(kind: str, get) -> Dict[str, np.ndarray]:
                'num_batches_tracked': np.zeros((), np.int64)}
     elif kind == 'embed':
         return {'weight': get('params', 'embedding')}
+    elif kind == 'torch_mha':
+        # the inverse of JAX's 'torch_mha' rule: q;k;v rows packed
+        qkv = ('linear_q', 'linear_k', 'linear_v')
+        return {
+            'in_proj_weight': np.concatenate(
+                [get('params', f'{n}/kernel').T for n in qkv]),
+            'in_proj_bias': np.concatenate(
+                [get('params', f'{n}/bias') for n in qkv]),
+            'out_proj.weight': get('params', 'fc/kernel').T,
+            'out_proj.bias': get('params', 'fc/bias')}
     else:
         raise ValueError(kind)
     if kind in ('conv', 'linear', 'ln', 'bn'):
@@ -163,8 +254,8 @@ def convert_rules(variables: Mapping, rules: List[Rule]
     in ``variables``; only a stage's optional downsample may be absent."""
     sd = {}
     for tp, fp, kind in rules:
-        probe = {'ln': 'scale', 'bn': 'scale', 'embed': 'embedding'}.get(
-            kind, 'kernel')
+        probe = {'ln': 'scale', 'bn': 'scale', 'embed': 'embedding',
+                 'torch_mha': 'fc/kernel'}.get(kind, 'kernel')
         if _leaf(variables['params'], f'{fp}/{probe}') is None:
             if '.downsample.' in tp:
                 continue
@@ -178,10 +269,13 @@ def convert_rules(variables: Mapping, rules: List[Rule]
 
 def state_dict_from_jax(variables: Mapping, cfg: Mapping
                         ) -> Dict[str, torch.Tensor]:
-    """JAX recognizer variables -> a ``state_dict`` that
-    ``TextRecognizer(cfg).model.load_state_dict`` takes with
-    ``strict=True``."""
+    """JAX recognizer variables -> a ``state_dict`` that the model of
+    ``build_recognizer(cfg)`` (NRTR or ABINet) takes with
+    ``load_state_dict(strict=True)``."""
     sd = convert_rules(variables, rules_for_config(cfg))
+    if cfg.get('type') == 'ABINet':
+        sd.update(_abinet_position_tables(cfg))
+        return sd
     d = sd['decoder.trg_word_emb.weight'].shape[1]
     sd['decoder.position_enc.position_table'] = torch.from_numpy(
         sinusoid_position_table(int(cfg['decoder'].get('n_position', 200)),
