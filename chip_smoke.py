@@ -97,6 +97,34 @@ seed):
   bf16 autocast, finite, launching kernels 8 and 9 once each a step; the
   step timed against the plain path.
 
+* the CTC family's CRNN-TPS, last: the model of
+  ``configs/textrecog/tps/crnn_tps_academic_dataset.py`` through the
+  port's config loader with ``model.dtype=bfloat16``, seed-0 weights and
+  the TPS-STN's fc2 weights drawn at random (``CRNN_FC2_SCALE``), so that
+  the warp samples between pixels and past the border. Kernels 8, 9 and
+  10 at one channel against their plain versions on the model's own
+  grids, bf16 and f32, at the serving shape (B=512) and the training
+  shape (B=64), and at three channels on a uniform grid; the one-channel
+  rows are recorded (``*_c1``) at the serving (8) and training (9, 10)
+  shapes. Serving at B=512 and B=5 (random 32x100x1 crops) must launch
+  kernel 8 and no other kernel; its logits' argmax must equal the plain
+  path's at every position but where the plain top-2 logit gap is below
+  ``TIE_MULT`` times the widest gap at which the plain path parts from
+  itself when only the warp's rounding changes (the gather + lerp of the
+  plain backward, in f32, rounded to bf16 once, against ATen's warp),
+  never below ``NEAR_TIE``; ``predict`` timed against the plain path,
+  and its stages by CUDA events. A float32 model at B=8: logits within
+  ``CRNN_F32_ATOL``. ``init_recognizer`` from the config and a ``.pth``,
+  ``model_inference`` on 64 uint8 crops of mixed widths through the
+  grayscale test pipeline (kernel 8; valid ratios below 1 clip the CTC
+  decode). Training with the config's Adadelta at its
+  ``samples_per_gpu`` (64), f32 parameters, random DICT36 labels of 1-12
+  characters: one step, kernel path against plain path, in f32 compute
+  (loss, grad norm and the ``localization_fc2`` gradient, as the
+  flagship's) and in bf16 compute (the loss); five bf16 steps, finite,
+  launching kernels 8 and 9 once each a step; then the warp of a
+  training batch with a detached grid, whose backward is kernel 10.
+
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
 the checks and on TPS++'s own [0, 1]^2 grid, which puts every sample in
 the lower half of the map's rows; their band plan is logged.
@@ -204,6 +232,16 @@ N_TRAIN_CROPS, N_VAL_CROPS, TRAIN_EPOCHS = 1024, 256, 2
 # three rounds amplify that, and the logits reach ~10)
 ABINET_CONFIG = 'configs/textrecog/abinet/abinet_tps++.py'
 N_ABINET_CROPS, ABINET_F32_ATOL = 64, 1e-3
+# the CRNN-TPS phase: its config, the crops of its inference API check, the
+# tolerance of the f32 model's logits (kernel path against plain path: the
+# f32 warps part by ~1e-6 where ATen and the kernel round the unnormalized
+# coordinate in other orders), the scale of the random fc2 weights (so
+# that the warp samples between pixels and past the border), and the
+# longest label of its training batch (26 frames align any label of 12
+# characters, repeats and all: 2 * 12 - 1 <= 26)
+CRNN_TPS_CONFIG = 'configs/textrecog/tps/crnn_tps_academic_dataset.py'
+N_CRNN_CROPS, CRNN_F32_ATOL = 64, 1e-3
+CRNN_FC2_SCALE, CRNN_MAX_LABEL = 0.05, 12
 
 
 def log(*a):
@@ -231,6 +269,35 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, calls=20, reps=5):
+    """Device milliseconds of one ``fn()`` call: ``calls`` calls captured
+    in one CUDA graph and replayed ``reps`` times between CUDA events, so
+    that the host's cost of a call (Python, the wrapper's checks, the
+    launch) is not in it, as it is in ``cuda_ms`` where a call is short."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode='relaxed'):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * calls)
+    del graph
+    return ms
 
 
 def bound(nbytes, bf16_flops=0, f32_flops=0):
@@ -1434,6 +1501,66 @@ def check_logits(kernel, plain, what, near_tie):
     return float((kernel - plain).abs().max()), int(part.sum()), widest
 
 
+def launch_counters():
+    """Each kernel wrapper's launch count, by the name of its kernel."""
+    from tps_pp_tpu_torch.ops.decode_step import (cross_ffn_step,
+                                                  self_attn_step)
+    from tps_pp_tpu_torch.ops.encoder import encoder_forward
+    from tps_pp_tpu_torch.ops.full_decode import full_decode
+    from tps_pp_tpu_torch.ops.grid_sample import (grid_sample_forward,
+                                                  grid_sample_grad,
+                                                  grid_sample_grad_img)
+    from tps_pp_tpu_torch.ops.stem import basic_block_cp, conv3x3_cp
+    from tps_pp_tpu_torch.ops.tps_sampler import tps_sampler
+    return {'tps_sampler': lambda: tps_sampler.launches,
+            'tps_sampler_twostage': lambda: tps_sampler.launches_twostage,
+            'encoder': lambda: encoder_forward.launches,
+            'full_decode': lambda: full_decode.launches,
+            'full_decode_int8': lambda: full_decode.launches_int8,
+            'self_attn_step': lambda: self_attn_step.launches,
+            'cross_ffn_step': lambda: cross_ffn_step.launches,
+            'grid_sample_forward': lambda: grid_sample_forward.launches,
+            'grid_sample_grad': lambda: grid_sample_grad.launches,
+            'grid_sample_grad_img': lambda: grid_sample_grad_img.launches,
+            'conv3x3_cp': lambda: conv3x3_cp.launches,
+            'basic_block_cp': lambda: basic_block_cp.launches}
+
+
+def zero_launches():
+    """Every wrapper's launch count set to 0."""
+    from tps_pp_tpu_torch.ops.decode_step import (cross_ffn_step,
+                                                  self_attn_step)
+    from tps_pp_tpu_torch.ops.encoder import encoder_forward
+    from tps_pp_tpu_torch.ops.full_decode import full_decode
+    from tps_pp_tpu_torch.ops.grid_sample import (grid_sample_forward,
+                                                  grid_sample_grad,
+                                                  grid_sample_grad_img)
+    from tps_pp_tpu_torch.ops.stem import basic_block_cp, conv3x3_cp
+    from tps_pp_tpu_torch.ops.tps_sampler import tps_sampler
+    for fn in (tps_sampler, encoder_forward, full_decode, self_attn_step,
+               cross_ffn_step, grid_sample_forward, grid_sample_grad,
+               grid_sample_grad_img, conv3x3_cp, basic_block_cp):
+        fn.launches = 0
+    tps_sampler.launches_twostage = full_decode.launches_int8 = 0
+
+
+def read_launches(family, what, want):
+    """The counts now; each kernel in ``want`` (name -> count, None for
+    at least one) must match, every other must be 0. Returns the counts
+    that are not 0."""
+    import torch
+    torch.cuda.synchronize()
+    got = {k: f() for k, f in launch_counters().items()}
+    bad = {k: n for k, n in got.items()
+           if (k not in want and n) or (k in want and (
+               n < 1 if want[k] is None else n != want[k]))}
+    log(f'{family} {what}: launches {got}')
+    if bad:
+        raise AssertionError(f'{family} {what}: launches {bad} against '
+                             f'{want}')
+    return {k: n for k, n in got.items() if n}
+
+
 def abinet_phase(dev, name):
     """The ABINet + TPS++ family on ``dev``, the card (see the module
     docstring): serving through kernel 1, the f32 model, the inference API
@@ -1448,15 +1575,6 @@ def abinet_phase(dev, name):
                                        init_recognizer, model_inference)
     from tps_pp_tpu_torch.config import load_config, merge_cli_options
     from tps_pp_tpu_torch.datasets.pipelines.transforms import Compose
-    from tps_pp_tpu_torch.ops.decode_step import (cross_ffn_step,
-                                                  self_attn_step)
-    from tps_pp_tpu_torch.ops.encoder import encoder_forward
-    from tps_pp_tpu_torch.ops.full_decode import full_decode
-    from tps_pp_tpu_torch.ops.grid_sample import (grid_sample_forward,
-                                                  grid_sample_grad,
-                                                  grid_sample_grad_img)
-    from tps_pp_tpu_torch.ops.stem import basic_block_cp, conv3x3_cp
-    from tps_pp_tpu_torch.ops.tps_sampler import tps_sampler
     from tps_pp_tpu_torch.parallel import (build_optimizer_from_run_cfg,
                                            make_train_step)
     from tps_pp_tpu_torch.tools.train import train_cfg_of
@@ -1464,39 +1582,10 @@ def abinet_phase(dev, name):
     t_phase = time.perf_counter()
     repo = os.path.dirname(os.path.abspath(__file__))
     cfg_path = os.path.join(repo, ABINET_CONFIG)
-    counted = {'tps_sampler': lambda: tps_sampler.launches,
-               'tps_sampler_twostage': lambda: tps_sampler.launches_twostage,
-               'encoder': lambda: encoder_forward.launches,
-               'full_decode': lambda: full_decode.launches,
-               'full_decode_int8': lambda: full_decode.launches_int8,
-               'self_attn_step': lambda: self_attn_step.launches,
-               'cross_ffn_step': lambda: cross_ffn_step.launches,
-               'grid_sample_forward': lambda: grid_sample_forward.launches,
-               'grid_sample_grad': lambda: grid_sample_grad.launches,
-               'grid_sample_grad_img': lambda: grid_sample_grad_img.launches,
-               'conv3x3_cp': lambda: conv3x3_cp.launches,
-               'basic_block_cp': lambda: basic_block_cp.launches}
-
-    def zero():
-        for fn in (tps_sampler, encoder_forward, full_decode, self_attn_step,
-                   cross_ffn_step, grid_sample_forward, grid_sample_grad,
-                   grid_sample_grad_img, conv3x3_cp, basic_block_cp):
-            fn.launches = 0
-        tps_sampler.launches_twostage = full_decode.launches_int8 = 0
+    zero = zero_launches
 
     def read(what, want):
-        """The counts now; each kernel in ``want`` (name -> count, None for
-        at least one) must match, every other must be 0."""
-        torch.cuda.synchronize()
-        got = {k: f() for k, f in counted.items()}
-        bad = {k: n for k, n in got.items()
-               if (k not in want and n) or (k in want and (
-                   n < 1 if want[k] is None else n != want[k]))}
-        log(f'abinet {what}: launches {got}')
-        if bad:
-            raise AssertionError(f'abinet {what}: launches {bad} against '
-                                 f'{want}')
-        return {k: n for k, n in got.items() if n}
+        return read_launches('abinet', what, want)
 
     def model_cfg(dtype, dropout=None):
         cfg = load_config(cfg_path)
@@ -1759,6 +1848,426 @@ def abinet_phase(dev, name):
     log(f'abinet phase: {time.perf_counter() - t_phase:.1f} s; launches '
         f'{json.dumps(launches)}')
     return launches
+
+
+def crnn_tps_phase(dev, name, record):
+    """The CTC family's CRNN-TPS on ``dev``, the card (see the module
+    docstring): kernels 8, 9 and 10 at C = 1 (and C = 3) against their
+    plain versions, recorded at the serving and training shapes; serving
+    through kernel 8, the f32 model, the inference API, training through
+    kernels 8 and 9, and the detached-grid backward through kernel 10.
+    Returns the launch counts of the C = 1 entries."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from tps_pp_tpu_torch.apis import (TextRecognizer, build_recognizer,
+                                       init_recognizer, model_inference)
+    from tps_pp_tpu_torch.config import load_config, merge_cli_options
+    from tps_pp_tpu_torch.datasets.pipelines.transforms import Compose
+    from tps_pp_tpu_torch.ops.grid_sample import (
+        GridSampleFunction, _gather_lerp, grid_sample_forward,
+        grid_sample_grad, grid_sample_grad_img, grid_sample_grad_img_plain,
+        grid_sample_grad_plain, grid_sample_plain, grid_sample_plan)
+    from tps_pp_tpu_torch.parallel import (build_optimizer_from_run_cfg,
+                                           make_train_step)
+    from tps_pp_tpu_torch.tools.train import train_cfg_of
+
+    t_phase = time.perf_counter()
+    cfg_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            CRNN_TPS_CONFIG)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def read(what, want):
+        return read_launches('crnn_tps', what, want)
+
+    def model_cfg(dtype):
+        cfg = load_config(cfg_path)
+        merge_cli_options(cfg, {'model.dtype': dtype})
+        return cfg, copy.deepcopy(dict(cfg['model']))
+
+    def random_fc2(r):
+        """fc2's weights drawn at random (seeded, on the CPU)."""
+        fc2 = r.model.preprocessor.LocalizationNetwork.localization_fc2
+        gen = torch.Generator().manual_seed(SEED + 15)
+        with torch.no_grad():
+            fc2.weight.copy_(CRNN_FC2_SCALE * torch.randn(
+                tuple(fc2.weight.shape), generator=gen))
+        return r
+
+    # ---- build: the config's model in bf16, seed-0 weights, fc2 random ---
+    cfg, model = model_cfg('bfloat16')
+    rec = build_recognizer(model, device=dev)
+    if type(rec) is not TextRecognizer or rec.device != dev or \
+            rec.resolved_decode_mode() != 'single_pass' or \
+            rec.model.preprocessor is None or rec.model.encoder is not None:
+        raise AssertionError(f'crnn_tps: built {type(rec).__name__} on '
+                             f'{rec.device}, {rec.resolved_decode_mode()}')
+    random_fc2(rec.init_weights(SEED))
+    lc, m = rec.label_convertor, rec.model
+    S, C = 26, lc.num_classes()
+    g = np.random.default_rng(SEED + 15)
+    img = torch.from_numpy(g.standard_normal((B, 32, 100, 1)).astype(
+        np.float32)).to(dev)
+    with torch.no_grad():
+        grid = m.preprocessor.grid(img.to(bf))
+    gx = (grid[..., 0] + 1) * 0.5 * 99
+    gy = (grid[..., 1] + 1) * 0.5 * 31
+    outside = float((grid.abs() > 1).any(-1).float().mean())
+    centres = float((((gx - gx.round()).abs() < 1e-3) &
+                     ((gy - gy.round()).abs() < 1e-3)).float().mean())
+    log(f'crnn_tps: the serving grid (B={B}, 32 x 100, fc2 ~ '
+        f'{CRNN_FC2_SCALE} N(0, 1)): {outside:.4f} of the samples beyond '
+        f'[-1, 1] (clipped to the border), {centres:.4f} within 1e-3 px of '
+        f'a pixel centre')
+    if not outside > 0 or not centres < 0.5:
+        raise AssertionError('crnn_tps: the grid tests too little of the '
+                             'warp')
+
+    # ---- kernels 8, 9 and 10 at C = 1 (the model's grids) and C = 3 ------
+    src = 'tps_pp_tpu_torch/csrc/grid_sample.cu'
+
+    def warp_check(x, gr, what):
+        dname = 'bfloat16' if x.dtype == bf else 'float32'
+        b = WARP_BOUNDS[dname]
+        H, W = x.shape[1:3]
+        cot = torch.from_numpy((b['cot_scale'] * g.uniform(
+            -1, 1, tuple(x.shape))).astype(np.float32)).to(dev, x.dtype)
+        out = grid_sample_forward(x, gr)
+        d_img, d_grid = grid_sample_grad(gr, cot, x)
+        d_img10 = grid_sample_grad_img(gr, cot, H, W)
+        want_img, want_grid = grid_sample_grad_plain(gr, cot, x)
+        tag = f'crnn_tps {what} {dname}'
+        e = dict(
+            fwd=check_close(f'{tag} forward', out, grid_sample_plain(x, gr),
+                            b['fwd']),
+            d_img=check_close(f'{tag} d_img', d_img, want_img, b['d_img']),
+            d_grid=check_close(f'{tag} d_grid', d_grid, want_grid,
+                               b['d_grid']),
+            d_img10=check_close(f'{tag} d_img only', d_img10,
+                                grid_sample_grad_img_plain(gr, cot, H, W),
+                                b['d_img']))
+        log(f'{tag}: max abs errors {e}; band plan '
+            f'{grid_sample_plan(*x.shape)} [{name}]')
+        return cot, e
+
+    def crops(n, c):
+        return torch.from_numpy(g.uniform(-1, 1, (n, 32, 100, c)).astype(
+            np.float32)).to(dev)
+
+    bt = int(train_cfg_of(cfg)['samples_per_gpu'])
+    x_s, grid_t = crops(B, 1).to(bf), grid[:bt].contiguous()
+    x_t = crops(bt, 1)
+    errs = {}
+    cots = {}
+    for what, x, gr in (('serving B=512', x_s, grid),
+                        (f'training B={bt}', x_t, grid_t)):
+        for dt in (bf, f32):
+            cots[what, dt], errs[what, dt] = warp_check(x.to(dt), gr, what)
+    cot_t = cots[f'training B={bt}', f32]
+    grid3 = g.uniform(-1.3, 1.3, (bt, 32, 100, 2))
+    grid3[:, 0, :, 0] = 2 * g.integers(0, 100, (bt, 100)) / 99 - 1
+    grid3[:, 0, :, 1] = 2 * g.integers(0, 32, (bt, 100)) / 31 - 1
+    grid3 = torch.tensor(grid3, dtype=f32, device=dev)
+    for dt in (bf, f32):
+        warp_check(crops(bt, 3).to(dt), grid3, f'C = 3, B={bt}')
+    e_s, e_t = errs['serving B=512', bf], errs[f'training B={bt}', f32]
+    taps_s, taps_t = grid.shape[0] * 3200 * 8, bt * 3200 * 8
+
+    def aten_bwd(masks):
+        x_l, c_l = x_t.permute(0, 3, 1, 2), cot_t.permute(0, 3, 1, 2)
+        return lambda: torch.ops.aten.grid_sampler_2d_backward(
+            c_l, x_l, grid_t, 0, 1, True, masks)
+
+    record('grid_sample_forward_c1', src,
+           'tps_pp_tpu/ops/pallas_grid_sample.py:126',
+           lambda: grid_sample_forward(x_s, grid),
+           lambda: grid_sample_plain(x_s, grid), e_s['fwd'], 50,
+           # the image in, the grid, the warped image out
+           nbytes(x_s, grid, x_s), f32_flops=taps_s,
+           fn_lib=lambda: F.grid_sample(
+               x_s.permute(0, 3, 1, 2), grid.to(bf), mode='bilinear',
+               padding_mode='border', align_corners=True),
+           label=f'grid_sample_forward C=1 bf16 B={B} (CRNN-TPS serving)')
+    record('grid_sample_grad_c1', src,
+           'tps_pp_tpu/ops/pallas_grid_sample.py:283',
+           lambda: grid_sample_grad(grid_t, cot_t, x_t),
+           lambda: grid_sample_grad_plain(grid_t, cot_t, x_t),
+           max(e_t['d_img'], e_t['d_grid']), 50,
+           # grid, cotangent and image in; f32 d_img and d_grid out
+           nbytes(grid_t, cot_t, x_t, x_t, grid_t), f32_flops=2 * taps_t,
+           fn_lib=aten_bwd([True, True]),
+           label=f'grid_sample_grad C=1 f32 B={bt} (CRNN-TPS training)')
+    record('grid_sample_grad_img_c1', src,
+           'tps_pp_tpu/ops/pallas_grid_sample.py:178',
+           lambda: grid_sample_grad_img(grid_t, cot_t, 32, 100),
+           lambda: grid_sample_grad_img_plain(grid_t, cot_t, 32, 100),
+           e_t['d_img10'], 50, nbytes(grid_t, cot_t, x_t), f32_flops=taps_t,
+           fn_lib=aten_bwd([True, False]),
+           label=f'grid_sample_grad_img C=1 f32 B={bt} (detached grid)')
+    # the calls above are short enough for the host to pace them: their
+    # device time alone, the kernels' and the library calls'
+    device = {
+        'kernel 8': lambda: grid_sample_forward(x_s, grid),
+        'F.grid_sample': lambda: F.grid_sample(
+            x_s.permute(0, 3, 1, 2), grid.to(bf), mode='bilinear',
+            padding_mode='border', align_corners=True),
+        'kernel 9': lambda: grid_sample_grad(grid_t, cot_t, x_t),
+        'aten backward (d_img, d_grid)': aten_bwd([True, True]),
+        'kernel 10': lambda: grid_sample_grad_img(grid_t, cot_t, 32, 100),
+        'aten backward (d_img)': aten_bwd([True, False])}
+    log('crnn_tps C=1 device ms a call (CUDA graph of 20 calls, 5 replays; '
+        f'8 at B={B} bf16, 9 and 10 at B={bt} f32): ' + ', '.join(
+            f'{k} {graph_ms(fn):.4f}' for k, fn in device.items())
+        + f' [{name}]')
+    del x_s, x_t, grid3
+
+    # ---- serving, B=512 and B=5: kernel 8 only ---------------------------
+    zero_launches()
+    pk = rec.predict(img)
+    vr5 = np.array([1.0, 0.6, 0.85, 0.35, 1.0], np.float32)
+    pk5 = rec.predict(img[:5], vr5)
+    launches = {'serving': read('serving B=512 and B=5',
+                                {'grid_sample_forward': 2})}
+    zero_launches()
+    rec.plain = True
+    pp, pp5 = rec.predict(img), rec.predict(img[:5], vr5)
+    rec.plain = False
+    # the path's own spread from one rounding of the warp, no kernel in it:
+    # the plain path with the warp computed by the gather + lerp of the
+    # plain backward (JAX's order of the f32 unnormalize and lerp) and
+    # rounded to bf16 once, against ATen's f32 warp rounded once
+    with torch.inference_mode():
+        x = img.to(bf)
+        warped = _gather_lerp(x.float(), grid).to(bf)
+        p2 = m.decoder(m.backbone(warped), None).float()
+    read('plain paths', {})
+    if tuple(pk.shape) != (B, S, C) or not bool(torch.isfinite(pk).all()):
+        raise AssertionError(f'crnn_tps: bad output {tuple(pk.shape)}')
+    _, n_spread, spread = check_logits(p2, pp, 'crnn_tps spread', 1e9)
+    near_tie = max(TIE_MULT * spread, NEAR_TIE)
+    err, parts, widest = check_logits(pk, pp, 'crnn_tps B=512', near_tie)
+    err5, parts5, widest5 = check_logits(pk5, pp5, 'crnn_tps B=5', near_tie)
+    log(f'crnn_tps serving: plain logits up to {float(pp.abs().max()):.4g} '
+        f'in magnitude; the plain path with the gather + lerp warp parts '
+        f'from the ATen one at {n_spread} of {B * S} positions, widest '
+        f'top-2 logit gap {spread:.4g}: near-tie width {near_tie:.4g} '
+        f'(TIE_MULT x that, >= {NEAR_TIE}); kernel path against plain path '
+        f'B={B}: {parts} positions part (widest gap {widest:.4g}), max abs '
+        f'logit error {err:.4g}; B=5 with mixed valid ratios: {parts5} part '
+        f'(widest {widest5:.4g}), max abs error {err5:.4g}; first texts '
+        f'{[x["text"] for x in rec.simple_test(img[:3])]} [{name}]')
+
+    # ---- times: predict at B=512 in turns; the stages by CUDA events -----
+    times = {False: [], True: []}
+    for plain in (False, True, True, False):
+        rec.plain = plain
+        rec.predict(img)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            rec.predict(img)
+        torch.cuda.synchronize()
+        times[plain].append((time.perf_counter() - t0) / 5)
+    rec.plain = False
+    for plain, ts in times.items():
+        log(f'crnn_tps serving B={B} {"plain" if plain else "kernel"} path: '
+            f'{B / min(ts):.1f} images/s ({min(ts) * 1e3:.3f} ms/batch, '
+            f'best of 2 rounds of 5; the rounds '
+            f'{", ".join(f"{t * 1e3:.3f}" for t in ts)} ms) [{name}]')
+    with torch.inference_mode():
+        x = img.to(bf)
+        rect = m.preprocessor(x)
+        feat = m.backbone(rect)
+        stages = {'localization + grid': lambda: m.preprocessor.grid(x),
+                  'preprocessor (grid + kernel 8)': lambda: m.preprocessor(x),
+                  'VGG': lambda: m.backbone(rect),
+                  'BiLSTM decoder': lambda: m.decoder(feat, None),
+                  'forward_test_nar': lambda: m.forward_test_nar(x)}
+        ms = {k: cuda_ms(fn, 10) for k, fn in stages.items()}
+    log(f'crnn_tps serving B={B} by stage (CUDA events, mean of 10): '
+        + ', '.join(f'{k} {v:.3f} ms' for k, v in ms.items()) + f' [{name}]')
+    del rect, feat, x, warped
+
+    # ---- a float32 model at B=8: kernel 8's f32 variant ------------------
+    _, model32 = model_cfg('float32')
+    r32 = build_recognizer(model32, device=dev)
+    r32.model.load_state_dict(rec.model.state_dict())
+    zero_launches()
+    lk = r32.predict(img[:B_SMALL])
+    read(f'float32 B={B_SMALL}', {'grid_sample_forward': 1})
+    r32.plain = True
+    lp = r32.predict(img[:B_SMALL])
+    err32, parts32, _ = check_logits(lk, lp, 'crnn_tps float32', NEAR_TIE)
+    if not err32 <= CRNN_F32_ATOL:
+        raise AssertionError(f'crnn_tps float32: logits part by {err32} > '
+                             f'{CRNN_F32_ATOL}')
+    log(f'crnn_tps float32 B={B_SMALL}: kernel path against plain path, '
+        f'max abs logit error {err32:.4g} (<= {CRNN_F32_ATOL}), {parts32} '
+        f'positions part')
+    del r32
+
+    # ---- the inference API: .pth, init_recognizer, model_inference -------
+    sd = {k: v.detach().cpu() for k, v in rec.model.state_dict().items()}
+    crops_u8 = [g.integers(0, 256, (int(g.integers(16, 65)),
+                                    int(g.integers(8, 241)), 3), np.uint8)
+                for _ in range(N_CRNN_CROPS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, 'crnn_tps.pth')
+        torch.save({'meta': {}, 'state_dict': sd}, pth)
+        r = init_recognizer(cfg, pth, device=dev, seed=1)
+    if type(r) is not TextRecognizer or r.device != dev or \
+            not all(torch.equal(v.cpu(), sd[k])
+                    for k, v in r.model.state_dict().items()):
+        raise AssertionError('crnn_tps init_recognizer: not the written '
+                             'weights on the card')
+    zero_launches()
+    got = model_inference(r, crops_u8, batch_mode=True)
+    launches['inference API'] = read(
+        f'model_inference on {N_CRNN_CROPS} crops', {'grid_sample_forward': 1})
+    pipeline = Compose([dict(type='LoadImageFromNdarray',
+                             color_type='grayscale')] +
+                       [dict(t) for t in r.test_pipeline_cfg[1:]])
+    datas = [pipeline(dict(img=c, img_info=dict(filename=None)))
+             for c in crops_u8]
+    batch = np.stack([d['img'] for d in datas]).astype(np.float32)
+    metas = [d['img_metas'] for d in datas]
+    vr = np.asarray([mt['valid_ratio'] for mt in metas], np.float32)
+    r.plain = True
+    plain_res = model_inference(r, crops_u8, batch_mode=True)
+    lp = r.predict(batch, vr)
+    r.plain = False
+    lk = r.predict(batch, vr)
+
+    def texts(logits):
+        return lc.idx2str(lc.tensor2idx(logits.cpu().numpy(), metas)[0])
+
+    if batch.shape[1:] != (32, 100, 1) or not float(vr.min()) < 1.0 or \
+            texts(lk) != [x['text'] for x in got] or \
+            texts(lp) != [x['text'] for x in plain_res]:
+        raise AssertionError('crnn_tps model_inference: texts other than the '
+                             'decode of predict on the pipeline batch')
+    err, parts, widest = check_logits(lk, lp, 'crnn_tps model_inference',
+                                      near_tie)
+    same = sum(a['text'] == b['text'] for a, b in zip(got, plain_res))
+    log(f'crnn_tps inference API: init_recognizer({CRNN_TPS_CONFIG}, .pth), '
+        f'model_inference on {N_CRNN_CROPS} grayscale uint8 crops (valid '
+        f'ratios {float(vr.min()):.2f}-{float(vr.max()):.2f}): {same} of '
+        f'{N_CRNN_CROPS} texts equal to the plain path\'s, {parts} '
+        f'positions part (widest gap {widest:.4g} < {near_tie:.4g}); first '
+        f'texts {[x["text"] for x in got[:3]]}')
+    del r, rec, m, pk, pp, p2, lk, lp
+    torch.cuda.empty_cache()
+
+    # ---- training: the config's Adadelta, f32 parameters, B=64 -----------
+    tc = train_cfg_of(cfg)
+    chars = lc.idx2char[1:37]
+    labels = [''.join(g.choice(chars, int(g.integers(1, CRNN_MAX_LABEL + 1))))
+              for _ in range(bt)]
+    td = lc.str2tensor(labels)
+    x_train = torch.from_numpy(g.standard_normal((bt, 32, 100, 1)).astype(
+        np.float32)).to(dev)
+    tbatch = dict(img=x_train, valid_ratio=np.ones(bt, np.float32),
+                  padded_targets=td['padded_targets'],
+                  target_lengths=td['target_lengths'])
+
+    def trainer(dtype):
+        return build_recognizer(model_cfg(dtype)[1], device=dev,
+                                param_dtype='float32')
+
+    def step_fn(rt):
+        opt, _ = build_optimizer_from_run_cfg(
+            tc, rt.model.named_parameters(), steps_per_epoch=1,
+            total_epochs=tc['total_epochs'])
+        return make_train_step(rt, opt)
+
+    rt = random_fc2(trainer('float32').init_weights(SEED))
+    state0 = copy.deepcopy(rt.model.state_dict())
+    for dtype in ('float32', 'bfloat16'):
+        if dtype == 'bfloat16':
+            rt = trainer(dtype)
+        res = {}
+        for plain in (False, True):
+            rt.model.load_state_dict(state0)
+            step = step_fn(rt)
+            zero_launches()
+            mets = step(tbatch, plain=plain)
+            read(f'train check step, {dtype} compute, '
+                 f'{"plain" if plain else "kernel"} path',
+                 {} if plain else {'grid_sample_forward': 1,
+                                   'grid_sample_grad': 1})
+            fc2 = rt.model.preprocessor.LocalizationNetwork.localization_fc2
+            res[plain] = (float(mets['loss']), float(mets['grad_norm']),
+                          fc2.weight.grad.clone())
+        (lk_, nk, gk), (lp_, np_, gp) = res[False], res[True]
+        cos = cosine(gk, gp)
+        log(f'crnn_tps train check step B={bt}, {dtype} compute: loss '
+            f'{lk_:.6f} kernel / {lp_:.6f} plain; grad_norm {nk:.6f} / '
+            f'{np_:.6f}; cos(d localization_fc2) {cos:.6f} [{name}]')
+        if not (np.isfinite(lk_) and abs(lk_ - lp_) <= LOSS_RTOL * abs(lp_)):
+            raise AssertionError(f'crnn_tps train {dtype}: loss {lk_} vs '
+                                 f'plain {lp_}')
+        if dtype == 'float32' and not (
+                abs(nk - np_) <= GRAD_NORM_RTOL * abs(np_)
+                and cos >= GRAD_COS_MIN):
+            raise AssertionError(f'crnn_tps train: grad_norm {nk} vs {np_}, '
+                                 f'cosine {cos}')
+
+    # ---- five bf16 steps, then the step's time ----------------------------
+    rt.model.load_state_dict(state0)
+    step = step_fn(rt)
+    zero_launches()
+    losses = [float(step(tbatch)['loss']) for _ in range(5)]
+    launches['training'] = read('5 training steps', {
+        'grid_sample_forward': 5, 'grid_sample_grad': 5})
+    log(f'crnn_tps train: 5 steps B={bt}, bf16 compute, Adadelta lr '
+        f'{tc["optimizer"]["lr"]}, losses {losses}')
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'crnn_tps train: non-finite loss {losses}')
+    times = {False: [], True: []}
+    for plain in (False, True, True, False):
+        step(tbatch, plain=plain)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            loss = step(tbatch, plain=plain)['loss']
+        torch.cuda.synchronize()
+        times[plain].append((time.perf_counter() - t0) / 5)
+        if not bool(torch.isfinite(loss)):
+            raise AssertionError('crnn_tps train: non-finite loss while '
+                                 'timing')
+    for plain, ts in times.items():
+        log(f'crnn_tps train B={bt} {"plain" if plain else "kernel"} path: '
+            f'{min(ts) * 1e3:.2f} ms/step, {bt / min(ts):.1f} images/s (best '
+            f'of 2 rounds of 5 steps; the rounds '
+            f'{", ".join(f"{t * 1e3:.2f}" for t in ts)} ms) [{name}]')
+
+    # ---- the warp with a detached grid: kernel 10 ------------------------
+    with torch.no_grad():
+        gr = rt.model.preprocessor.grid(x_train)
+    x = x_train.clone().requires_grad_(True)
+    cot = torch.from_numpy((1e-3 * g.uniform(-1, 1, (bt, 32, 100, 1))).astype(
+        np.float32)).to(dev)
+    zero_launches()
+    GridSampleFunction.apply(x, gr, False).backward(cot)
+    launches['detached grid'] = read('detached-grid backward', {
+        'grid_sample_forward': 1, 'grid_sample_grad_img': 1})
+    err = check_close('crnn_tps detached-grid d_img', x.grad,
+                      grid_sample_grad_img_plain(gr, cot, 32, 100),
+                      WARP_BOUNDS['float32']['d_img'])
+    log(f'crnn_tps detached-grid backward B={bt}: d_img max abs error '
+        f'{err:.4g} against the plain version')
+    del rt, step, x
+    torch.cuda.empty_cache()
+    log(f'crnn_tps phase: {time.perf_counter() - t_phase:.1f} s; launches '
+        f'{json.dumps(launches)}')
+    return {'grid_sample_forward_c1': sum(
+                n.get('grid_sample_forward', 0) for n in launches.values()),
+            'grid_sample_grad_c1': launches['training']['grid_sample_grad'],
+            'grid_sample_grad_img_c1':
+                launches['detached grid']['grid_sample_grad_img']}
 
 
 def main():
@@ -2374,6 +2883,9 @@ def main():
 
     # ---- the ABINet + TPS++ family: kernel 1 serving, kernels 8-9 training
     abinet_phase(dev, name)
+
+    # ---- the CTC family's CRNN-TPS: kernels 8-10 at one channel
+    path_launches.update(crnn_tps_phase(dev, name, record))
     path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])

@@ -1,9 +1,10 @@
 """The port stands alone: importing it, serving (through every decode mode,
 the fused decode step, the fused stem and the two-stage sampler) and
 training on the CPU (``train_recognizer`` on crops through the flagship's
-train augmentations), and the same for a tiny ABINet + TPS++, loads
-neither JAX, flax, cv2 nor the JAX package, and launches no kernel (CPU tensors go to the kernels' plain versions; nothing
-is built)."""
+train augmentations), and the same for a tiny ABINet + TPS++ and for a
+small CRNN + TPS-STN (the CTC family, grayscale crops), loads neither JAX,
+flax, cv2 nor the JAX package, and launches no kernel (CPU tensors go to
+the kernels' plain versions; nothing is built)."""
 import json
 import os
 import subprocess
@@ -133,6 +134,40 @@ opt, history = train.train_recognizer(
     rec, Crops(), dict(optimizer=dict(type='Adam', lr=1e-4),
                        samples_per_gpu=4, total_epochs=1, log_interval=1))
 assert opt.count == 1 and np.isfinite(history[0]['loss_fusion'])
+
+# the CTC family: serving and a training step of a small CRNN + TPS-STN
+from tps_pp_tpu_torch.convertors import ctc as cctc
+from tps_pp_tpu_torch.losses import ctc as lctc
+from tps_pp_tpu_torch.models.backbones import vgg
+from tps_pp_tpu_torch.models.decoders import crnn as dcrnn
+from tps_pp_tpu_torch.models.rectifiers import tps_stn
+crnn_cfg = dict(
+    type='CRNNNet',
+    label_convertor=dict(type='CTCConvertor', dict_type='DICT36',
+                         with_unknown=False, lower=True),
+    preprocessor=dict(type='TPSPreprocessor', num_fiducial=6,
+                      img_size=(32, 64), rectified_img_size=(32, 64),
+                      num_img_channel=1),
+    backbone=dict(type='VeryDeepVgg', leaky_relu=False, input_channels=1),
+    decoder=dict(type='CRNNDecoder', in_channels=512, rnn_flag=True),
+    loss=dict(type='CTCLoss'), max_seq_len=8)
+rec = build_recognizer(crnn_cfg, device='cpu', param_dtype='float32')
+assert rec.resolved_decode_mode() == 'single_pass'
+rec.init_weights(0)
+assert len(rec.simple_test(np.zeros((3, 32, 64, 1), np.float32),
+                           [1.0, 0.5, 0.8])) == 3
+gray = Crops()
+gray.pipeline = Compose([
+    dict(type='LoadImageFromNdarray', color_type='grayscale'),
+    dict(type='ResizeOCR', height=32, min_width=64, max_width=64,
+         keep_aspect_ratio=False),
+    dict(type='ToTensorOCR'), dict(type='NormalizeOCR', mean=[0.5],
+                                   std=[0.5]),
+    dict(type='Collect', keys=['img'])])
+opt, history = train.train_recognizer(
+    rec, gray, dict(optimizer=dict(type='Adadelta', lr=1.0),
+                    samples_per_gpu=4, total_epochs=1, log_interval=1))
+assert opt.count == 1 and np.isfinite(history[0]['loss_ctc'])
 assert not dist.is_active()
 print(json.dumps({
     'loaded': sorted(m for m in ('jax', 'flax', 'cv2', 'tps_pp_tpu')

@@ -1032,3 +1032,101 @@ def test_grid_sample_plan(cuda_device):
                          big)
     assert (grid_sample_grad.launches,
             grid_sample_grad_img.launches) == before
+
+
+# ---- kernels 8, 9 and 10 at odd channel counts: the narrow path --------
+
+def _odd_warp_args(device, dtype, C, N=4, H=32, W=100, scale=1.0, seed=5):
+    """A (N, H, W, C) crop, a (N, H, W) grid over [-1.3, 1.3]^2 (in range,
+    on the clamped border and beyond it; exact pixel centres in the first
+    row, the last column and the last row) and a cotangent of ``scale``:
+    the shapes of the CTC family's TPS-STN warp."""
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(-1, 1, (N, H, W, C))
+    grid = rng.uniform(-1.3, 1.3, (N, H, W, 2))
+    grid[:, 0, :, 0] = 2 * rng.integers(0, W, (N, W)) / (W - 1) - 1
+    grid[:, 0, :, 1] = 2 * rng.integers(0, H, (N, W)) / (H - 1) - 1
+    grid[:, 1, :, 0] = 1.0
+    grid[:, 2, :, 1] = 1.0
+    cot = scale * rng.uniform(-1, 1, (N, H, W, C))
+    return (torch.tensor(img, dtype=dtype, device=device),
+            torch.tensor(grid, dtype=torch.float32, device=device),
+            torch.tensor(cot, dtype=dtype, device=device))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('C', [1, 3])
+def test_grid_sample_kernels_odd_channels(cuda_device, dtype, C):
+    """Kernels 8, 9 and 10 on the narrow path (C = 1, CRNN-TPS's crops, and
+    C = 3) against their plain versions, within the even path's bounds;
+    the plan's slab is all of C, and a whole 32 x 100 image fits one
+    CTA."""
+    b = WARP_BOUNDS[dtype]
+    img, grid, cot = _odd_warp_args(cuda_device, dtype, C,
+                                    scale=b['cot_scale'])
+    counts = [f.launches for f in (grid_sample_forward, grid_sample_grad,
+                                   grid_sample_grad_img)]
+    out = grid_sample_forward(img, grid)
+    d_img, d_grid = grid_sample_grad(grid, cot, img)
+    d_img10 = grid_sample_grad_img(grid, cot, 32, 100)
+    want_d_img, want_d_grid = grid_sample_grad_plain(grid, cot, img)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (grid_sample_forward, grid_sample_grad,
+                                 grid_sample_grad_img)] == [
+        n + 1 for n in counts]
+    assert out.dtype == dtype and out.shape == img.shape
+    atol, rtol = b['fwd']
+    torch.testing.assert_close(out.float(),
+                               grid_sample_plain(img, grid).float(),
+                               atol=atol, rtol=rtol)
+    atol, rtol = b['d_img']
+    torch.testing.assert_close(d_img, want_d_img, atol=atol, rtol=rtol)
+    torch.testing.assert_close(d_img10, grid_sample_grad_img_plain(
+        grid, cot, 32, 100), atol=atol, rtol=rtol)
+    atol, rtol = b['d_grid']
+    torch.testing.assert_close(d_grid, want_d_grid, atol=atol, rtol=rtol)
+    plan = grid_sample_plan(4, 32, 100, C)
+    assert grid_sample_grad.last_plan == grid_sample_grad_img.last_plan \
+        == plan
+    assert plan['slab'] == C and plan['rows'] == 32 and plan['blocks'] == 4
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('C', [1, 3])
+def test_grid_sample_odd_channels_other_grids(cuda_device, C):
+    """The narrow path's backward on a plan of several bands (a tall map),
+    on one pixel (every thread adding to the same addresses) and on a
+    chunked list (more samples than a list holds), in float32."""
+    for H, W, shape, grid_case in ((300, 100, (2, 16, 64), 'uniform'),
+                                   (32, 100, (2, 16, 64), 'one_pixel'),
+                                   (32, 100, (2, 40, 64), 'uniform')):
+        rng = np.random.default_rng(6)
+        if grid_case == 'one_pixel':
+            grid = np.broadcast_to(rng.uniform(-1, 1, (2, 1, 1, 2)),
+                                   shape + (2,)).copy()
+        else:
+            grid = rng.uniform(-1.1, 1.1, shape + (2,))
+        _check_warp_grads(cuda_device, torch.float32, grid, H, W, C)
+        if H == 300:
+            assert grid_sample_plan(2, H, W, C)['rows'] < H
+
+
+@pytest.mark.requires_cuda
+def test_grid_sample_function_routes_at_one_channel(cuda_device):
+    """Under autograd at C = 1: kernel 8 forward, kernel 9 backward with a
+    grid gradient, kernel 10 without; d_img in the image's dtype."""
+    img, grid, cot = _odd_warp_args(cuda_device, torch.bfloat16, 1)
+    img.requires_grad_(True)
+    for grid_grad in (True, False):
+        g = grid.clone().requires_grad_(grid_grad)
+        counts = [f.launches for f in (grid_sample_forward, grid_sample_grad,
+                                       grid_sample_grad_img)]
+        GridSampleFunction.apply(img, g, False).backward(cot)
+        torch.cuda.synchronize()
+        got = [f.launches - n for f, n in zip(
+            (grid_sample_forward, grid_sample_grad, grid_sample_grad_img),
+            counts)]
+        assert got == ([1, 1, 0] if grid_grad else [1, 0, 1])
+        assert img.grad.dtype == torch.bfloat16
+        img.grad = None

@@ -1,6 +1,16 @@
 """TextRecognizer: config -> model, convertor, loss and the entry points for
 serving and training (counterpart of ``tps_pp_tpu/apis/recognizer.py``).
 
+The generic encode-decode recognizer of the JAX package
+(``tps_pp_tpu/apis/recognizer.py:47-116``): the preprocessor, the TPS++
+rectifier and the encoder are built only where the config has them, and
+``autoregressive`` is the decoder's ``IS_AUTOREGRESSIVE``. A
+non-autoregressive decoder (CRNN) has no decode loop:
+``resolved_decode_mode()`` is ``'single_pass'`` and ``predict`` returns
+its raw float32 logits (N, T, C), which the CTC convertor's
+``tensor2idx`` softmaxes, as in JAX. What follows is the autoregressive
+decoders' (NRTR).
+
 ``predict`` pads the batch to the next power of two (replicating the last
 row, so the all-rows-EOS exit is not held up) and slices the result back,
 as the JAX package does. Decode modes, the JAX package's
@@ -53,9 +63,12 @@ matmuls and convolutions to bf16 as flax does, but runs LayerNorm and
 softmax in float32 and leaves their outputs there, and the decoder's
 embedding lookup is not cast, so the decoder's residual stream stays
 float32 where flax keeps bf16 activations throughout. The attention scores,
-the TPS grid and the warp run outside autocast, as JAX keeps them in
-float32. ``predict`` on such a recognizer serves a copy of the model cast
-to the compute dtype, made again after the weights change. ``'float64'``
+the TPS grids and the warps run outside autocast, as JAX keeps them in
+float32; so do the CRNN decoder's LSTMs, which stay float32 in a bf16
+model too (``models/layers.py`` ``Float32LSTM``), where JAX runs its scan
+in the model's dtype. ``predict`` on such a recognizer serves a copy of
+the model cast to the compute dtype, made again after the weights
+change. ``'float64'``
 is for parity tests: the model runs in float64 apart from the float32
 islands the JAX package keeps too (attention and TPE scores, the sampler's
 coordinates, the loss).
@@ -74,11 +87,12 @@ from .. import losses as _losses  # noqa: F401 (registration)
 from ..models import backbones, decoders, encoders, rectifiers  # noqa: F401
 from ..models.decoders.base import beam_decode, greedy_decode
 from ..models.layers import weights_stamp
+from ..models.rectifiers.tps_stn import LocalizationNetwork
 from ..models.recognizers.encode_decode import EncodeDecodeRecognizer
 from ..models.transformer import PackedMultiheadAttention
 from ..ops.stem import fused_stem_forward
 from ..registry import (BACKBONES, CONVERTORS, DECODERS, ENCODERS, LOSSES,
-                        RECTIFIERS)
+                        PREPROCESSORS, RECTIFIERS)
 from ..utils.batching import next_pow2, pad_rows
 
 _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
@@ -88,7 +102,8 @@ STEM_MODES = ('auto', 'xla', 'fused')
 
 
 class TextRecognizer:
-    """NRTR-style encode-decode recognizer with optional TPS++."""
+    """Encode-decode recognizer (NRTR, CRNN) with an optional TPS++
+    rectifier or image-space preprocessor."""
 
     def __init__(self, cfg: Dict[str, Any], device=None,
                  param_dtype: Optional[str] = None):
@@ -117,16 +132,22 @@ class TextRecognizer:
         tpsnet = (RECTIFIERS.build(cfg['tpsnet'],
                                    in_channels=backbone.head_channels)
                   if cfg.get('tpsnet') else None)
+        preprocessor = (PREPROCESSORS.build(cfg['preprocessor'])
+                        if cfg.get('preprocessor') else None)
+        encoder = (ENCODERS.build(cfg['encoder']) if cfg.get('encoder')
+                   else None)
         decoder = DECODERS.build(
             cfg['decoder'], num_classes=lc.num_classes(),
             start_idx=lc.start_idx, padding_idx=lc.padding_idx,
             max_seq_len=self.max_seq_len)
+        self.autoregressive = bool(getattr(type(decoder),
+                                           'IS_AUTOREGRESSIVE', False))
         # beam search above 1: the cfg key, else the decoder's
         # (tps_pp_tpu/apis/recognizer.py:110-113)
         self.beam_width = int(cfg.get(
             'beam_width', getattr(decoder, 'beam_width', 1) or 1))
-        model = EncodeDecodeRecognizer(
-            backbone, ENCODERS.build(cfg['encoder']), decoder, tpsnet)
+        model = EncodeDecodeRecognizer(backbone, encoder, decoder, tpsnet,
+                                       preprocessor)
         self.model = model.to(self.device, self.param_dtype).eval()
         loss_cfg = dict(cfg.get('loss') or dict(type='TFLoss'))
         loss_cfg.setdefault('ignore_index', lc.padding_idx)
@@ -161,8 +182,10 @@ class TextRecognizer:
         """Random weights from a seeded ``torch.Generator``, drawn on the
         CPU so that every device gets the same values: conv and linear
         weights uniform with variance 1/fan_in, zero biases, unit normal
-        embeddings (pad row zero), identity norms and BatchNorm statistics,
-        and TPS++'s localization head at its reference init."""
+        embeddings (pad row zero), LSTM weights and biases
+        U(-1/sqrt(H), 1/sqrt(H)) as the JAX package's init, identity norms
+        and BatchNorm statistics, and the localization heads of TPS++ and
+        of the TPS-STN at their reference init."""
         g = torch.Generator().manual_seed(seed)
 
         def fill(t, draw):
@@ -184,10 +207,17 @@ class TextRecognizer:
                     b = (3.0 / w.shape[1]) ** 0.5
                     fill(w, lambda x: x.uniform_(-b, b, generator=g))
                     m.in_proj_bias.zero_()
+                elif isinstance(m, nn.LSTM):
+                    b = 1.0 / m.hidden_size ** 0.5
+                    for w in m.parameters():
+                        fill(w, lambda x: x.uniform_(-b, b, generator=g))
                 elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
                     m.reset_parameters()
             if self.model.tpsnet is not None:
                 self.model.tpsnet.TPE.reset_localization()
+            for m in self.model.modules():
+                if isinstance(m, LocalizationNetwork):
+                    m.reset_localization()
         return self
 
     # ------------------------------------------------------------- train
@@ -234,9 +264,12 @@ class TextRecognizer:
 
     # -------------------------------------------------------- inference
     def resolved_decode_mode(self) -> str:
-        """The decode ``predict`` runs: a beam search (``beam_width`` > 1)
+        """The decode ``predict`` runs: ``'single_pass'`` for a
+        non-autoregressive decoder; a beam search (``beam_width`` > 1)
         runs ``'steps'`` whatever the mode, as in JAX
-        (``tps_pp_tpu/apis/recognizer.py:150-165``)."""
+        (``tps_pp_tpu/apis/recognizer.py:146-165``)."""
+        if not self.autoregressive:
+            return 'single_pass'
         if self.decode_mode != 'auto':
             if self.beam_width > 1 and self.decode_mode != 'steps':
                 return 'steps'
@@ -253,7 +286,9 @@ class TextRecognizer:
         if self.stem_mode != 'fused':
             return 'xla'
         bb = self.model.backbone
-        geometry_ok = (self.model.tpsnet is not None and bb.tps_stage == 2
+        geometry_ok = (self.model.tpsnet is not None
+                       and self.model.preprocessor is None
+                       and bb.tps_stage == 2
                        and bb.strides[:2] == (1, 2)
                        and bb.stem_channels == bb.base_channels)
         return 'fused' if geometry_ok else 'xla'
@@ -274,6 +309,9 @@ class TextRecognizer:
         return self._serving[1]
 
     def _predict_impl(self, model, img, valid_ratio):
+        if not self.autoregressive:
+            return model.forward_test_nar(img, valid_ratio,
+                                          plain=self.plain).float()
         mode = self.resolved_decode_mode()
         end_idx = self.label_convertor.end_idx if self.early_exit else None
         start_idx = self.label_convertor.start_idx
@@ -304,7 +342,8 @@ class TextRecognizer:
     def predict(self, img, valid_ratio=None,
                 bucket_batch: bool = True) -> torch.Tensor:
         """img (N, H, W, C) array or tensor -> (N, S, C-1) float32
-        per-step probabilities on the model's device."""
+        per-step probabilities (an autoregressive decoder's) or (N, T, C)
+        float32 logits (a single pass's) on the model's device."""
         img = torch.as_tensor(img).to(self.device, self.dtype)
         n = int(img.shape[0])
         if valid_ratio is None:
@@ -323,9 +362,15 @@ class TextRecognizer:
     def simple_test(self, img, valid_ratio=None, img_metas=None,
                     bucket_batch: bool = True):
         """Full test path with host-side decoding ->
-        ``[{'text': str, 'score': [float, ...]}, ...]``."""
+        ``[{'text': str, 'score': [float, ...]}, ...]``. Without
+        ``img_metas`` each row's meta holds its ``valid_ratio`` (1.0 when
+        none is given), which clips a CTC decode, as in JAX."""
         out = self.predict(img, valid_ratio,
                            bucket_batch=bucket_batch).cpu().numpy()
+        if img_metas is None:
+            vr = (torch.as_tensor(valid_ratio).tolist()
+                  if valid_ratio is not None else [1.0] * out.shape[0])
+            img_metas = [{'valid_ratio': r} for r in vr]
         indexes, scores = self.label_convertor.tensor2idx(out, img_metas)
         strings = self.label_convertor.idx2str(indexes)
         return [dict(text=s, score=sc) for s, sc in zip(strings, scores)]
@@ -334,15 +379,16 @@ class TextRecognizer:
 def build_recognizer(cfg: Dict[str, Any], device=None,
                      param_dtype: Optional[str] = None) -> TextRecognizer:
     """The recognizer of a model config: ``type`` ABINet builds an
-    ``ABINetRecognizer`` (JAX ``apis/recognizer.py:337-348``); NRTR and
-    EncodeDecodeRecognizer a ``TextRecognizer``. The other families are
-    not ported yet. ``device`` defaults to the CUDA device (see
+    ``ABINetRecognizer`` (JAX ``apis/recognizer.py:337-348``); NRTR,
+    CRNNNet and EncodeDecodeRecognizer a ``TextRecognizer`` (JAX
+    ``models/recognizers/encode_decode.py:110-111``). The other families
+    are not ported yet. ``device`` defaults to the CUDA device (see
     :class:`TextRecognizer`)."""
     type_name = cfg.get('type', 'EncodeDecodeRecognizer')
     if type_name == 'ABINet':
         from .abinet import ABINetRecognizer
         return ABINetRecognizer(cfg, device, param_dtype)
-    if type_name not in ('NRTR', 'EncodeDecodeRecognizer'):
+    if type_name not in ('NRTR', 'CRNNNet', 'EncodeDecodeRecognizer'):
         raise NotImplementedError(
             f'recognizer type {type_name!r} is not ported yet')
     return TextRecognizer(cfg, device, param_dtype)

@@ -1,5 +1,6 @@
 from .base import BaseConvertor
 from .attn import AttnConvertor
 from .abi import ABIConvertor
+from .ctc import CTCConvertor
 
-__all__ = ['BaseConvertor', 'AttnConvertor', 'ABIConvertor']
+__all__ = ['BaseConvertor', 'AttnConvertor', 'ABIConvertor', 'CTCConvertor']

@@ -120,6 +120,20 @@ static __device__ __forceinline__ void store2(float* p, int c2, float a,
   reinterpret_cast<float2*>(p)[c2] = make_float2(a, b);
 }
 
+// One channel as f32, and back (the odd-channel paths of the warp).
+static __device__ __forceinline__ float load1(const bf16* p, int c) {
+  return __bfloat162float(p[c]);
+}
+static __device__ __forceinline__ float load1(const float* p, int c) {
+  return p[c];
+}
+static __device__ __forceinline__ void store1(bf16* p, int c, float v) {
+  p[c] = __float2bfloat16(v);
+}
+static __device__ __forceinline__ void store1(float* p, int c, float v) {
+  p[c] = v;
+}
+
 // One warp samples one pixel: each lane takes channel pairs c2 = lane,
 // lane + 32, ... of the four taps of `img` (pixel rows of C channels) and
 // writes their weighted sum to `out`, rounded once.

@@ -37,6 +37,22 @@
 // backward writes the 268 MB f32 d_img once and reads the 34 MB cotangent
 // (a little more: samples that straddle two bands) and, in kernel 9, the
 // 134 MB map.
+//
+// Odd channel counts (the one-channel 32x100 crops that the CTC family's
+// TPS-STN warps, C = 1; RGB crops, C = 3) cannot be loaded as pairs, and a
+// warp over one channel would leave 31 of its lanes idle. There each
+// kernel takes its narrow path: one thread a sample, four scalar taps from
+// bilinear_taps, one load or store a channel. The backward's slab is all
+// of C, and a 32x100 f32 band of one channel is 12.8 KB, so one CTA holds
+// a whole image. Each of its threads takes every 512th sample, with no
+// list: it adds the four weighted cotangents of a sample that meets its
+// band with scalar shared-memory atomics, and kernel 9 takes d_grid from
+// the four taps directly, with no shuffle sum. (Cutting the images of a
+// B=64 batch into 5 bands, to put CTAs on every SM, measured slower on an
+// H100: each band scans all of its image's samples.) Even C keeps the
+// paths above. At CRNN-TPS's serving shape (N=512 bf16) the forward moves
+// ~20 MB, a few microseconds at the memory rate: it is bound by its
+// launch.
 #include <algorithm>
 
 #include "common.cuh"
@@ -46,6 +62,29 @@ namespace {
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kPixPerBlock = 64;
+
+// The forward's narrow path (odd C): one thread a sample.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+grid_sample_fwd_narrow_kernel(const T* __restrict__ img,      // (N, H, W, C)
+                              const float* __restrict__ grid,  // (N, npix, 2)
+                              T* __restrict__ out,             // (N, npix, C)
+                              int H, int W, int C, int npix) {
+  const int n = blockIdx.y, p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= npix) return;
+  const size_t np = (size_t)n * npix + p;
+  const float2 g = reinterpret_cast<const float2*>(grid)[np];
+  const BilinearTaps t = bilinear_taps(g.x, g.y, H, W);
+  const T* im = img + (size_t)n * H * W * C;
+  const T* r00 = im + (size_t)t.o00 * C;
+  const T* r01 = im + (size_t)t.o01 * C;
+  const T* r10 = im + (size_t)t.o10 * C;
+  const T* r11 = im + (size_t)t.o11 * C;
+  for (int c = 0; c < C; ++c)
+    store1(out + np * C, c,
+           t.w00 * load1(r00, c) + t.w01 * load1(r01, c) +
+               t.w10 * load1(r10, c) + t.w11 * load1(r11, c));
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -118,13 +157,12 @@ struct BwdPlan {
   size_t smem;
 };
 
-// The plan on the current device: the widest slab (an even divisor of C)
-// of which one row fits kMinCtasPerSm CTAs an SM (C unless a row of C is
-// too wide), then as many rows as fit beside it. cudaErrorInvalidValue
-// where none fits or the CTAs overflow a 1-D grid.
+// The plan on the current device: the widest slab (an even divisor of C;
+// all of an odd C) of which one row fits kMinCtasPerSm CTAs an SM (C
+// unless a row of C is too wide), then as many rows as fit beside it.
+// cudaErrorInvalidValue where none fits or the CTAs overflow a 1-D grid.
 int bwd_plan(int N, int H, int W, int C, BwdPlan& p) {
-  if (N < 1 || H < 1 || W < 1 || C < 2 || (C & 1))
-    return (int)cudaErrorInvalidValue;
+  if (N < 1 || H < 1 || W < 1 || C < 1) return (int)cudaErrorInvalidValue;
   int dev, per_sm, per_block, reserved;
   TPK_TRY((int)cudaGetDevice(&dev));
   TPK_TRY((int)cudaDeviceGetAttribute(
@@ -135,9 +173,14 @@ int bwd_plan(int N, int H, int W, int C, BwdPlan& p) {
       &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev));
   const size_t budget =
       (size_t)std::min(per_block, per_sm / kMinCtasPerSm - reserved);
-  for (p.slab = C; p.slab >= 2; p.slab -= 2)
-    if (C % p.slab == 0 && bwd_smem(1, W, p.slab) <= budget) break;
-  if (p.slab < 2) return (int)cudaErrorInvalidValue;
+  if (C & 1) {
+    p.slab = C;
+    if (bwd_smem(1, W, C) > budget) return (int)cudaErrorInvalidValue;
+  } else {
+    for (p.slab = C; p.slab >= 2; p.slab -= 2)
+      if (C % p.slab == 0 && bwd_smem(1, W, p.slab) <= budget) break;
+    if (p.slab < 2) return (int)cudaErrorInvalidValue;
+  }
   p.rows = 1;
   while (p.rows < H && bwd_smem(p.rows + 1, W, p.slab) <= budget) ++p.rows;
   p.smem = bwd_smem(p.rows, W, p.slab);
@@ -158,7 +201,8 @@ static __device__ __forceinline__ void add_pair(float* p, float2 v, float w,
   atomicAdd(p + 1 - first, w * (first ? v.x : v.y));
 }
 
-template <typename T, bool kWithGrid>
+// kNarrow: the path of an odd C (slab = C), one thread a sample.
+template <typename T, bool kWithGrid, bool kNarrow>
 __global__ void __launch_bounds__(kBwdThreads, kMinCtasPerSm)
 grid_sample_bwd_kernel(const float* __restrict__ grid,  // (N, npix, 2)
                        const T* __restrict__ cot,       // (N, npix, C)
@@ -192,124 +236,173 @@ grid_sample_bwd_kernel(const float* __restrict__ grid,  // (N, npix, 2)
   const T* im = kWithGrid ? img + (size_t)n * H * W * C : nullptr;
   const int c2_lo = s * pairs, c2_hi = c2_lo + pairs;
   const int first = lane >= 16;
-  for (int p0 = 0; p0 < npix; p0 += kChunk) {
-    const int cnt = min(kChunk, npix - p0);
-    // ---- 2. list the chunk's samples that meet the band
-    float2 gv[kPer];
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int i = r * kBwdThreads + tid;
-      gv[r] = i < cnt ? gr[p0 + i] : make_float2(0.f, 0.f);
-    }
-    int nsel = 0;
-#pragma unroll
-    for (int r = 0; r < kPer; ++r) {
-      const int i = r * kBwdThreads + tid;
-      bool keep = false;
-      if (i < cnt) {
-        const BilinearTaps t = bilinear_taps(gv[r].x, gv[r].y, H, W);
-        keep = (unsigned)(t.o00 - lo) < (unsigned)span ||
-               (unsigned)(t.o10 - lo) < (unsigned)span;
-      }
-      const unsigned m = __ballot_sync(0xffffffffu, keep);
-      __syncthreads();  // the last round's counts (and chunk's list) are read
-      if (lane == 0) wcnt[warp] = __popc(m);
-      __syncthreads();
-      int off = nsel;
-      for (int w = 0; w < kBwdWarps; ++w) {
-        off += w < warp ? wcnt[w] : 0;
-        nsel += wcnt[w];
-      }
-      if (keep) {
-        const int k = off + __popc(m & ((1u << lane) - 1u));
-        list[k] = i;
-        lg[k] = gv[r];
-      }
-    }
-    __syncthreads();
-
-    // ---- 3. add the listed samples' contributions, kU a warp
-    for (int k0 = warp * kU; k0 < nsel; k0 += kBwdWarps * kU) {
-      BilinearTaps t[kU];
-      const T* co[kU];
-      bool in0[kU], in1[kU], own[kU];
-      bool any_own = false;
-#pragma unroll
-      for (int u = 0; u < kU; ++u) {
-        // past the list's end: the first sample again, adding nothing
-        const bool valid = k0 + u < nsel;
-        const int k = valid ? k0 + u : k0;
-        t[u] = bilinear_taps(lg[k].x, lg[k].y, H, W);
-        co[u] = co_n + (size_t)(p0 + list[k]) * C;
-        in0[u] = valid && (unsigned)(t[u].o00 - lo) < (unsigned)span;
-        in1[u] = valid && (unsigned)(t[u].o10 - lo) < (unsigned)span;
-        own[u] = kWithGrid && s == 0 && in0[u];
-        any_own |= own[u];
-      }
-      // d_grid sums over every channel: an owner reads them all
-      const int c2_begin = any_own ? 0 : c2_lo;
-      const int c2_end = any_own ? C / 2 : c2_hi;
-      float sx[kU], sy[kU];
-#pragma unroll
-      for (int u = 0; u < kU; ++u) sx[u] = sy[u] = 0.f;
-      for (int c2 = c2_begin + lane; c2 < c2_end; c2 += 32) {
-        float2 v[kU];
-#pragma unroll
-        for (int u = 0; u < kU; ++u) v[u] = load2(co[u], c2);
-        if (c2 >= c2_lo && c2 < c2_hi) {
-          const int cl = 2 * (c2 - c2_lo);
-#pragma unroll
-          for (int u = 0; u < kU; ++u) {
-            if (in0[u]) {
-              add_pair(acc + (size_t)(t[u].o00 - lo) * slab + cl, v[u],
-                       t[u].w00, first);
-              add_pair(acc + (size_t)(t[u].o01 - lo) * slab + cl, v[u],
-                       t[u].w01, first);
-            }
-            if (in1[u]) {
-              add_pair(acc + (size_t)(t[u].o10 - lo) * slab + cl, v[u],
-                       t[u].w10, first);
-              add_pair(acc + (size_t)(t[u].o11 - lo) * slab + cl, v[u],
-                       t[u].w11, first);
-            }
-          }
+  if constexpr (kNarrow) {
+    // ---- 2n-3n. the narrow path lists nothing: a thread takes the samples
+    // p = tid, tid + 512, ..., adds the taps of those that meet the band
+    // and, in kernel 9, writes the d_grid of those whose y0 it holds
+    __syncthreads();  // the zeroed accumulator
+    for (int p = tid; p < npix; p += kBwdThreads) {
+      const float2 g = gr[p];
+      const BilinearTaps t = bilinear_taps(g.x, g.y, H, W);
+      const bool in0 = (unsigned)(t.o00 - lo) < (unsigned)span;
+      const bool in1 = (unsigned)(t.o10 - lo) < (unsigned)span;
+      if (!in0 && !in1) continue;
+      const T* co = co_n + (size_t)p * C;
+      float sx = 0.f, sy = 0.f;
+      for (int c = 0; c < C; ++c) {
+        const float v = load1(co, c);
+        if (in0) {
+          atomicAdd(acc + (size_t)(t.o00 - lo) * C + c, t.w00 * v);
+          atomicAdd(acc + (size_t)(t.o01 - lo) * C + c, t.w01 * v);
+        }
+        if (in1) {
+          atomicAdd(acc + (size_t)(t.o10 - lo) * C + c, t.w10 * v);
+          atomicAdd(acc + (size_t)(t.o11 - lo) * C + c, t.w11 * v);
         }
         if constexpr (kWithGrid) {
-#pragma unroll
-          for (int u = 0; u < kU; ++u) {
-            if (!own[u]) continue;
-            const float2 a = load2(im + (size_t)t[u].o00 * C, c2);
-            const float2 b = load2(im + (size_t)t[u].o01 * C, c2);
-            const float2 e = load2(im + (size_t)t[u].o10 * C, c2);
-            const float2 d = load2(im + (size_t)t[u].o11 * C, c2);
-            const float wy = t[u].wy, wx = t[u].wx;
-            sx[u] += v[u].x * ((1.f - wy) * (b.x - a.x) + wy * (d.x - e.x)) +
-                     v[u].y * ((1.f - wy) * (b.y - a.y) + wy * (d.y - e.y));
-            sy[u] += v[u].x * ((1.f - wx) * (e.x - a.x) + wx * (d.x - b.x)) +
-                     v[u].y * ((1.f - wx) * (e.y - a.y) + wx * (d.y - b.y));
+          if (in0) {
+            const float a = load1(im + (size_t)t.o00 * C, c);
+            const float b = load1(im + (size_t)t.o01 * C, c);
+            const float e = load1(im + (size_t)t.o10 * C, c);
+            const float d = load1(im + (size_t)t.o11 * C, c);
+            sx += v * ((1.f - t.wy) * (b - a) + t.wy * (d - e));
+            sy += v * ((1.f - t.wx) * (e - a) + t.wx * (d - b));
           }
         }
       }
       if constexpr (kWithGrid) {
-#pragma unroll
-        for (int u = 0; u < kU; ++u) {
-          if (!own[u]) continue;  // warp-uniform
-          const float dx = warp_sum(sx[u]), dy = warp_sum(sy[u]);
-          if (lane == 0) {
-            const float2 g = lg[k0 + u];
-            const float gx = (g.x + 1.f) * 0.5f * (float)(W - 1);
-            const float gy = (g.y + 1.f) * 0.5f * (float)(H - 1);
-            const bool in_x = gx >= 0.f && gx <= (float)(W - 1);
-            const bool in_y = gy >= 0.f && gy <= (float)(H - 1);
-            reinterpret_cast<float2*>(d_grid)[(size_t)n * npix + p0 +
-                                              list[k0 + u]] =
-                make_float2(in_x ? dx * (0.5f * (float)(W - 1)) : 0.f,
-                            in_y ? dy * (0.5f * (float)(H - 1)) : 0.f);
-          }
+        if (in0) {
+          const float gx = (g.x + 1.f) * 0.5f * (float)(W - 1);
+          const float gy = (g.y + 1.f) * 0.5f * (float)(H - 1);
+          const bool in_x = gx >= 0.f && gx <= (float)(W - 1);
+          const bool in_y = gy >= 0.f && gy <= (float)(H - 1);
+          reinterpret_cast<float2*>(d_grid)[(size_t)n * npix + p] =
+              make_float2(in_x ? sx * (0.5f * (float)(W - 1)) : 0.f,
+                          in_y ? sy * (0.5f * (float)(H - 1)) : 0.f);
         }
       }
     }
-    // (the next chunk's first sync orders its list after these reads)
+  } else {
+    for (int p0 = 0; p0 < npix; p0 += kChunk) {
+      const int cnt = min(kChunk, npix - p0);
+      // ---- 2. list the chunk's samples that meet the band
+      float2 gv[kPer];
+  #pragma unroll
+      for (int r = 0; r < kPer; ++r) {
+        const int i = r * kBwdThreads + tid;
+        gv[r] = i < cnt ? gr[p0 + i] : make_float2(0.f, 0.f);
+      }
+      int nsel = 0;
+  #pragma unroll
+      for (int r = 0; r < kPer; ++r) {
+        const int i = r * kBwdThreads + tid;
+        bool keep = false;
+        if (i < cnt) {
+          const BilinearTaps t = bilinear_taps(gv[r].x, gv[r].y, H, W);
+          keep = (unsigned)(t.o00 - lo) < (unsigned)span ||
+                 (unsigned)(t.o10 - lo) < (unsigned)span;
+        }
+        const unsigned m = __ballot_sync(0xffffffffu, keep);
+        // the last round's counts (and the chunk's list) have been read
+        __syncthreads();
+        if (lane == 0) wcnt[warp] = __popc(m);
+        __syncthreads();
+        int off = nsel;
+        for (int w = 0; w < kBwdWarps; ++w) {
+          off += w < warp ? wcnt[w] : 0;
+          nsel += wcnt[w];
+        }
+        if (keep) {
+          const int k = off + __popc(m & ((1u << lane) - 1u));
+          list[k] = i;
+          lg[k] = gv[r];
+        }
+      }
+      __syncthreads();
+
+      // ---- 3. add the listed samples' contributions, kU a warp
+      for (int k0 = warp * kU; k0 < nsel; k0 += kBwdWarps * kU) {
+        BilinearTaps t[kU];
+        const T* co[kU];
+        bool in0[kU], in1[kU], own[kU];
+        bool any_own = false;
+  #pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          // past the list's end: the first sample again, adding nothing
+          const bool valid = k0 + u < nsel;
+          const int k = valid ? k0 + u : k0;
+          t[u] = bilinear_taps(lg[k].x, lg[k].y, H, W);
+          co[u] = co_n + (size_t)(p0 + list[k]) * C;
+          in0[u] = valid && (unsigned)(t[u].o00 - lo) < (unsigned)span;
+          in1[u] = valid && (unsigned)(t[u].o10 - lo) < (unsigned)span;
+          own[u] = kWithGrid && s == 0 && in0[u];
+          any_own |= own[u];
+        }
+        // d_grid sums over every channel: an owner reads them all
+        const int c2_begin = any_own ? 0 : c2_lo;
+        const int c2_end = any_own ? C / 2 : c2_hi;
+        float sx[kU], sy[kU];
+  #pragma unroll
+        for (int u = 0; u < kU; ++u) sx[u] = sy[u] = 0.f;
+        for (int c2 = c2_begin + lane; c2 < c2_end; c2 += 32) {
+          float2 v[kU];
+  #pragma unroll
+          for (int u = 0; u < kU; ++u) v[u] = load2(co[u], c2);
+          if (c2 >= c2_lo && c2 < c2_hi) {
+            const int cl = 2 * (c2 - c2_lo);
+  #pragma unroll
+            for (int u = 0; u < kU; ++u) {
+              if (in0[u]) {
+                add_pair(acc + (size_t)(t[u].o00 - lo) * slab + cl, v[u],
+                         t[u].w00, first);
+                add_pair(acc + (size_t)(t[u].o01 - lo) * slab + cl, v[u],
+                         t[u].w01, first);
+              }
+              if (in1[u]) {
+                add_pair(acc + (size_t)(t[u].o10 - lo) * slab + cl, v[u],
+                         t[u].w10, first);
+                add_pair(acc + (size_t)(t[u].o11 - lo) * slab + cl, v[u],
+                         t[u].w11, first);
+              }
+            }
+          }
+          if constexpr (kWithGrid) {
+  #pragma unroll
+            for (int u = 0; u < kU; ++u) {
+              if (!own[u]) continue;
+              const float2 a = load2(im + (size_t)t[u].o00 * C, c2);
+              const float2 b = load2(im + (size_t)t[u].o01 * C, c2);
+              const float2 e = load2(im + (size_t)t[u].o10 * C, c2);
+              const float2 d = load2(im + (size_t)t[u].o11 * C, c2);
+              const float wy = t[u].wy, wx = t[u].wx;
+              sx[u] += v[u].x * ((1.f - wy) * (b.x - a.x) + wy * (d.x - e.x)) +
+                       v[u].y * ((1.f - wy) * (b.y - a.y) + wy * (d.y - e.y));
+              sy[u] += v[u].x * ((1.f - wx) * (e.x - a.x) + wx * (d.x - b.x)) +
+                       v[u].y * ((1.f - wx) * (e.y - a.y) + wx * (d.y - b.y));
+            }
+          }
+        }
+        if constexpr (kWithGrid) {
+  #pragma unroll
+          for (int u = 0; u < kU; ++u) {
+            if (!own[u]) continue;  // warp-uniform
+            const float dx = warp_sum(sx[u]), dy = warp_sum(sy[u]);
+            if (lane == 0) {
+              const float2 g = lg[k0 + u];
+              const float gx = (g.x + 1.f) * 0.5f * (float)(W - 1);
+              const float gy = (g.y + 1.f) * 0.5f * (float)(H - 1);
+              const bool in_x = gx >= 0.f && gx <= (float)(W - 1);
+              const bool in_y = gy >= 0.f && gy <= (float)(H - 1);
+              reinterpret_cast<float2*>(d_grid)[(size_t)n * npix + p0 +
+                                                list[k0 + u]] =
+                  make_float2(in_x ? dx * (0.5f * (float)(W - 1)) : 0.f,
+                              in_y ? dy * (0.5f * (float)(H - 1)) : 0.f);
+            }
+          }
+        }
+      }
+      // (the next chunk's first sync orders its list after these reads)
+    }
   }
 
   // ---- 4. store the band, once
@@ -320,6 +413,8 @@ grid_sample_bwd_kernel(const float* __restrict__ grid,  // (N, npix, 2)
     for (int e = tid; e < elems / 4; e += kBwdThreads)
       reinterpret_cast<float4*>(dst)[e] =
           reinterpret_cast<const float4*>(acc)[e];
+  } else if (kNarrow) {
+    for (int e = tid; e < elems; e += kBwdThreads) dst[e] = acc[e];
   } else {
     for (int e = tid; e < span * pairs; e += kBwdThreads) {
       const int px = e / pairs, c2 = e - px * pairs;
@@ -343,7 +438,8 @@ template <typename T, bool kWithGrid>
 void launch_typed(const float* grid, const void* cot, const void* img,
                   float* d_img, float* d_grid, int H, int W, int C, int npix,
                   const BwdPlan& p, cudaStream_t s) {
-  auto kernel = grid_sample_bwd_kernel<T, kWithGrid>;
+  auto kernel = (C & 1) ? grid_sample_bwd_kernel<T, kWithGrid, true>
+                        : grid_sample_bwd_kernel<T, kWithGrid, false>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)p.smem);
   kernel<<<p.blocks, kBwdThreads, p.smem, s>>>(grid, (const T*)cot,
@@ -378,9 +474,17 @@ dim3 blocks(int N, int npix) {
 extern "C" int tpk_grid_sample_fwd(const void* img, const float* grid,
                                    void* out, int N, int H, int W, int C,
                                    int npix, int is_bf16, void* stream) {
-  if (C & 1) return (int)cudaErrorInvalidValue;
+  if (C < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
+  if (C & 1) {
+    const dim3 nb((npix + kThreads - 1) / kThreads, N);
+    if (is_bf16)
+      grid_sample_fwd_narrow_kernel<bf16><<<nb, kThreads, 0, s>>>(
+          (const bf16*)img, grid, (bf16*)out, H, W, C, npix);
+    else
+      grid_sample_fwd_narrow_kernel<float><<<nb, kThreads, 0, s>>>(
+          (const float*)img, grid, (float*)out, H, W, C, npix);
+  } else if (is_bf16)
     grid_sample_fwd_kernel<bf16><<<blocks(N, npix), kThreads, 0, s>>>(
         (const bf16*)img, grid, (bf16*)out, H, W, C, npix);
   else

@@ -88,6 +88,10 @@ class ResNetABIBase(nn.Module):
             x = self._stage(i)(x)
         return nchw_to_nhwc(x)
 
+    def forward(self, x):
+        """x (N, H, W, C_in) -> the feature (N, h, w, c), NHWC."""
+        return self.tail(self.stem_and_head(x)[0])
+
 
 @BACKBONES.register_module()
 class ResNetABI(ResNetABIBase):

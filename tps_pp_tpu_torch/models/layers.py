@@ -202,3 +202,52 @@ def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
 
 def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def max_pool(x: torch.Tensor, window, stride, padding=0) -> torch.Tensor:
+    """``nn.MaxPool2d`` over an NCHW tensor, the padding -inf as torch's
+    (JAX ``tps_pp_tpu/models/layers.py:107-113``, flax's ``max_pool`` with
+    the same pads)."""
+    return F.max_pool2d(x, _pair(window), _pair(stride), _pair(padding))
+
+
+class Float32LSTM(nn.LSTM):
+    """``nn.LSTM`` that stays in float32 (or wider) whatever the model is
+    cast to: a named float32 island, as the attention scores are one. A
+    bf16 model's LSTM keeps float32 weights and runs on float32 inputs,
+    outside autocast, so that cuDNN's recurrence is the float32 one on
+    every model (the JAX package runs its scan in the model's dtype; the
+    CRNN decoder's 26 steps carry their state in float32 here). The
+    ``state_dict`` keys and shapes are ``nn.LSTM``'s."""
+
+    def _apply(self, fn, recurse=True):
+        def keep_wide(t):
+            out = fn(t)
+            if out.is_floating_point():
+                out = out.to(torch.promote_types(out.dtype, torch.float32))
+            return out
+        return super()._apply(keep_wide, recurse)
+
+    def forward(self, x, hx=None):
+        """x (N, T, In) in any float dtype -> (out (N, T, D * H), (h, c))
+        in the LSTM's dtype."""
+        with torch.autocast(x.device.type, enabled=False):
+            return super().forward(x.to(self.weight_ih_l0.dtype), hx)
+
+
+class BidirectionalLSTM(nn.Module):
+    """CRNN's BiLSTM (JAX ``tps_pp_tpu/models/layers.py:230-244``,
+    reference ``lstm_layer.py:5-21``): a bidirectional one-layer LSTM
+    ``rnn`` (gate order i, f, g, o; both biases; the float32 island of
+    :class:`Float32LSTM`) and a ``Linear`` ``embedding`` over the two
+    directions' outputs, in the input's dtype. (N, T, in) -> (N, T, out)."""
+
+    def __init__(self, in_channels: int, hidden_size: int, out_channels: int):
+        super().__init__()
+        self.rnn = Float32LSTM(in_channels, hidden_size, bidirectional=True,
+                               batch_first=True)
+        self.embedding = nn.Linear(2 * hidden_size, out_channels)
+
+    def forward(self, x):
+        h, _ = self.rnn(x)
+        return self.embedding(h.to(x.dtype))

@@ -24,6 +24,7 @@ class ABINetRecognizerModule(nn.Module):
                  fuser: Optional[nn.Module] = None,
                  tpsnet: Optional[nn.Module] = None, iter_size: int = 1):
         super().__init__()
+        self.preprocessor = None      # ABINetRecognizer refuses one
         self.backbone = backbone
         self.tpsnet = tpsnet
         self.encoder = encoder

@@ -1,11 +1,15 @@
 """Encode-decode recognizer (counterpart of
-``tps_pp_tpu/models/recognizers/encode_decode.py``).
+``tps_pp_tpu/models/recognizers/encode_decode.py:25-76``).
 
-backbone + optional TPS++ rectifier + encoder + decoder. The rectifier is a
-mid-backbone stage: ``x, skips = backbone.stem_and_head(img)``,
-``x = tpsnet(x, skips)['output']``, ``x = backbone.tail(x)``. Images and
-features are NHWC at these boundaries. ``forward`` is the teacher-forced
-training pass (JAX ``encode_decode.py:63-69``).
+optional image-space preprocessor (TPS-STN) + backbone + optional TPS++
+rectifier + optional encoder + decoder. The rectifier is a mid-backbone
+stage: ``x, skips = backbone.stem_and_head(img)``,
+``x = tpsnet(x, skips)['output']``, ``x = backbone.tail(x)``; without one
+the backbone runs whole. Images and features are NHWC at these
+boundaries. ``forward`` is the training pass (JAX ``encode_decode.py:
+63-69``): with an encoder the decoder takes ``(out_enc, targets, ...)``
+(NRTR), without one ``(feat, None, targets, ...)`` (CRNN).
+``forward_test_nar`` is the single pass of a non-autoregressive decoder.
 """
 from __future__ import annotations
 
@@ -17,9 +21,11 @@ import torch.nn as nn
 
 class EncodeDecodeRecognizer(nn.Module):
 
-    def __init__(self, backbone: nn.Module, encoder: nn.Module,
-                 decoder: nn.Module, tpsnet: Optional[nn.Module] = None):
+    def __init__(self, backbone: nn.Module, encoder: Optional[nn.Module],
+                 decoder: nn.Module, tpsnet: Optional[nn.Module] = None,
+                 preprocessor: Optional[nn.Module] = None):
         super().__init__()
+        self.preprocessor = preprocessor
         self.backbone = backbone
         self.tpsnet = tpsnet
         self.encoder = encoder
@@ -28,9 +34,14 @@ class EncodeDecodeRecognizer(nn.Module):
     def extract_feat(self, img: torch.Tensor, plain: bool = False,
                      stem=None):
         """img (N, H, W, C) -> backbone feature (N, h, w, c). ``plain``
-        makes the rectifier use the sampler's plain version on any device;
-        ``stem``, a precomputed (x, skips) (``ops.stem.fused_stem_forward``),
-        replaces ``backbone.stem_and_head``."""
+        makes the preprocessor's and the rectifier's warps use the plain
+        versions on any device; ``stem``, a precomputed (x, skips)
+        (``ops.stem.fused_stem_forward``), replaces
+        ``backbone.stem_and_head``."""
+        if self.preprocessor is not None:
+            img = self.preprocessor(img, plain=plain)
+        if self.tpsnet is None and stem is None:
+            return self.backbone(img)
         x, skips = (stem if stem is not None else
                     self.backbone.stem_and_head(img))
         if self.tpsnet is not None:
@@ -40,19 +51,31 @@ class EncodeDecodeRecognizer(nn.Module):
     def forward(self, img: torch.Tensor, targets: torch.Tensor,
                 valid_ratio=None, rng: Optional[torch.Generator] = None,
                 plain: bool = False) -> torch.Tensor:
-        """Teacher-forced logits (N, T, C-1) of img (N, H, W, C) against
-        targets (N, T); ``rng`` draws the dropout masks in train mode,
-        ``plain`` makes the rectifier's warp take the plain versions."""
+        """Training logits of img (N, H, W, C) against targets (N, T):
+        teacher-forced (N, T, C-1) for NRTR, the single pass's for CRNN.
+        ``rng`` draws the dropout masks in train mode, ``plain`` makes the
+        warps take the plain versions."""
         feat = self.extract_feat(img, plain=plain)
+        if self.encoder is None:
+            return self.decoder(feat, None, targets, valid_ratio, rng=rng)
         out_enc = self.encoder(feat, valid_ratio, rng=rng)
         return self.decoder(out_enc, targets, valid_ratio, rng=rng)
 
     def encode_full(self, img, valid_ratio=None, plain: bool = False,
                     stem=None):
-        """(feat, out_enc) of the module path; ``plain`` and ``stem`` as
-        in :meth:`extract_feat`."""
+        """(feat, out_enc) of the module path, out_enc None without an
+        encoder; ``plain`` and ``stem`` as in :meth:`extract_feat`."""
         feat = self.extract_feat(img, plain=plain, stem=stem)
+        if self.encoder is None:
+            return feat, None
         return feat, self.encoder(feat, valid_ratio)
+
+    def forward_test_nar(self, img, valid_ratio=None,
+                         plain: bool = False) -> torch.Tensor:
+        """The single test pass of a non-autoregressive decoder (CRNN):
+        its logits (N, T, C)."""
+        feat, out_enc = self.encode_full(img, valid_ratio, plain=plain)
+        return self.decoder(feat, out_enc, valid_ratio=valid_ratio)
 
     def decode_full_fused(self, img, valid_ratio=None,
                           end_idx: Optional[int] = None,

@@ -34,6 +34,11 @@ allocated with ``torch.empty`` and nothing zeroes it; ``grid_sample_plan``
 reports the band plan the kernels take at a shape on the current card, and
 each wrapper keeps the plan of its last launch in ``last_plan``.
 
+Any channel count: an even C loads channel pairs (its image and cotangent
+aligned to two elements), an odd C (the CTC family's one-channel crops,
+RGB crops) takes the kernels' narrow path, one thread a sample, and a
+slab of all of C; a shape that no plan fits raises.
+
 ``grid_sample(img, grid, plain=False)`` is the differentiable entry point
 (``GridSampleFunction``): forward through kernel 8, backward through
 kernel 9, or kernel 10 when the grid needs no gradient. ``plain=True``
@@ -122,25 +127,27 @@ def grid_sample_grad_img_plain(grid: torch.Tensor, cot: torch.Tensor, H: int,
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _expect(t, what, name, shape, dtypes, device):
+def _expect(t, what, name, shape, dtypes, device, pairs=True):
     """Raise unless ``t`` is a contiguous tensor of ``shape`` on ``device``
-    in one of ``dtypes``, aligned for the kernels' two-channel loads."""
+    in one of ``dtypes``, aligned for the kernels' two-element loads where
+    ``pairs``."""
+    align = (2 if pairs else 1) * t.element_size()
     if t.device != device or t.dtype not in dtypes or \
             tuple(t.shape) != tuple(shape) or not t.is_contiguous() or \
-            t.data_ptr() % (2 * t.element_size()):
+            t.data_ptr() % align:
         raise ValueError(
-            f'{what}: {name} must be a contiguous, {2 * t.element_size()}-'
-            f'byte aligned tensor of shape {tuple(shape)} in one of '
-            f'{dtypes} on {device}, got {t.dtype} {tuple(t.shape)} on '
-            f'{t.device} (contiguous={t.is_contiguous()})')
+            f'{what}: {name} must be a contiguous, {align}-byte aligned '
+            f'tensor of shape {tuple(shape)} in one of {dtypes} on '
+            f'{device}, got {t.dtype} {tuple(t.shape)} on {t.device} '
+            f'(contiguous={t.is_contiguous()})')
 
 
 def _check_common(what, grid, src, C):
     dev = src.device
     _lib.require_cuda(dev, what)
-    if grid.dim() != 4 or src.dim() != 4 or C % 2:
-        raise ValueError(f'{what}: needs 4-d NHWC tensors with an even '
-                         f'channel count, got grid {tuple(grid.shape)}, '
+    if grid.dim() != 4 or src.dim() != 4 or C < 1:
+        raise ValueError(f'{what}: needs 4-d NHWC tensors with a channel, '
+                         f'got grid {tuple(grid.shape)}, '
                          f'{tuple(src.shape)}')
     N, Ho, Wo = grid.shape[:3]
     _expect(grid, what, 'grid', (N, Ho, Wo, 2), (torch.float32,), dev)
@@ -156,7 +163,7 @@ def grid_sample_forward(img: torch.Tensor, grid: torch.Tensor
     what = 'grid_sample_forward'
     N, H, W, C = img.shape
     dev, _, npix = _check_common(what, grid, img, C)
-    _expect(img, what, 'img', (N, H, W, C), _KERNEL_DTYPES, dev)
+    _expect(img, what, 'img', (N, H, W, C), _KERNEL_DTYPES, dev, C % 2 == 0)
     out = torch.empty(tuple(grid.shape[:3]) + (C,), dtype=img.dtype,
                       device=dev)
     rc = _lib.load().tpk_grid_sample_fwd(
@@ -172,10 +179,10 @@ _PLAN_KEYS = ('rows', 'slab', 'ctas_per_sm', 'blocks', 'smem')
 
 def grid_sample_plan(N: int, H: int, W: int, C: int) -> Dict[str, int]:
     """The plan that kernels 9 and 10 take for an (N, H, W, C) image on the
-    current CUDA device (``csrc/grid_sample.cu`` ``bwd_plan``): ``rows`` a
-    band, ``slab`` channels a CTA, ``ctas_per_sm`` that fit an SM,
-    ``blocks`` (one an image, band and slab) and the shared memory of a CTA
-    in bytes (``smem``). Raises a ValueError where no plan fits."""
+    current CUDA device (``csrc/grid_sample.cu`` ``bwd_plan``; any C, the
+    slab all of an odd one): ``rows`` a band, ``slab`` channels a CTA,
+    ``ctas_per_sm`` that fit an SM, ``blocks`` (one an image, band and
+    slab) and the shared memory of a CTA in bytes (``smem``). Raises a ValueError where no plan fits."""
     plan = (ctypes.c_int * len(_PLAN_KEYS))()
     _lib.check(_lib.load().tpk_grid_sample_plan(N, H, W, C, plan),
                'grid_sample_plan')
@@ -193,9 +200,9 @@ def grid_sample_grad(grid: torch.Tensor, cot: torch.Tensor,
     what = 'grid_sample_grad'
     N, H, W, C = img.shape
     dev, _, npix = _check_common(what, grid, img, C)
-    _expect(img, what, 'img', (N, H, W, C), _KERNEL_DTYPES, dev)
+    _expect(img, what, 'img', (N, H, W, C), _KERNEL_DTYPES, dev, C % 2 == 0)
     _expect(cot, what, 'cot', tuple(grid.shape[:3]) + (C,), (img.dtype,),
-            dev)
+            dev, C % 2 == 0)
     d_img = torch.empty((N, H, W, C), dtype=torch.float32, device=dev)
     d_grid = torch.empty(grid.shape, dtype=torch.float32, device=dev)
     plan = (ctypes.c_int * len(_PLAN_KEYS))()
@@ -221,7 +228,7 @@ def grid_sample_grad_img(grid: torch.Tensor, cot: torch.Tensor, H: int,
     C = cot.shape[-1]
     dev, N, npix = _check_common(what, grid, cot, C)
     _expect(cot, what, 'cot', tuple(grid.shape[:3]) + (C,), _KERNEL_DTYPES,
-            dev)
+            dev, C % 2 == 0)
     d_img = torch.empty((N, H, W, C), dtype=torch.float32, device=dev)
     plan = (ctypes.c_int * len(_PLAN_KEYS))()
     rc = _lib.load().tpk_grid_sample_grad_img(

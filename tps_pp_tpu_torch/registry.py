@@ -48,6 +48,7 @@ class Registry:
 
 BACKBONES = Registry('torch_backbones')
 RECTIFIERS = Registry('torch_rectifiers')
+PREPROCESSORS = Registry('torch_preprocessors')
 ENCODERS = Registry('torch_encoders')
 DECODERS = Registry('torch_decoders')
 FUSERS = Registry('torch_fusers')

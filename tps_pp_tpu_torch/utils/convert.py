@@ -83,6 +83,41 @@ def tps_pp_rules() -> List[Rule]:
     return rules
 
 
+def crnn_rules(rnn_flag: bool = True) -> List[Rule]:
+    """VeryDeepVgg + CRNNDecoder (JAX ``torch_convert.py:210-227``): the
+    reference's ``cnn.conv{i}`` / ``cnn.batchnorm{i}``, and each BiLSTM's
+    ``rnn`` (one torch ``nn.LSTM`` from the flax ``fwd`` and ``bwd``
+    subtrees) and ``embedding``. Without ``rnn_flag`` the decoder is the
+    reference's 1x1 conv ``decoder.decoder`` from the flax ``conv1x1``
+    Dense (a rule the JAX table has not)."""
+    rules = [(f'backbone.cnn.conv{i}', f'backbone/conv{i}', 'conv')
+             for i in range(7)]
+    rules += [(f'backbone.cnn.batchnorm{i}', f'backbone/batchnorm{i}', 'bn')
+              for i in (2, 4, 6)]
+    if not rnn_flag:
+        return rules + [('decoder.decoder', 'decoder/conv1x1',
+                         'conv1x1_as_dense')]
+    for j in (0, 1):
+        tp, fp = f'decoder.decoder.{j}', f'decoder/rnn{j}'
+        rules += [(f'{tp}.rnn', f'{fp}/fwd', 'lstm'),
+                  (f'{tp}.rnn', f'{fp}/bwd', 'lstm_reverse'),
+                  (f'{tp}.embedding', f'{fp}/embedding', 'linear')]
+    return rules
+
+
+def tps_preprocessor_rules() -> List[Rule]:
+    """RARE's TPS-STN (JAX ``torch_convert.py:566-586``): the
+    LocalizationNetwork's ``conv`` Sequential (conv, bn, relu, pool) x 4,
+    ``localization_fc1.0`` and ``localization_fc2``."""
+    ln, fl = 'preprocessor.LocalizationNetwork', 'preprocessor/localization'
+    rules = []
+    for i, idx in enumerate((0, 4, 8, 12)):
+        rules += [(f'{ln}.conv.{idx}', f'{fl}/conv{i}', 'conv_nobias'),
+                  (f'{ln}.conv.{idx + 1}', f'{fl}/bn{i}', 'bn')]
+    return rules + [(f'{ln}.localization_fc1.0', f'{fl}/fc1', 'linear'),
+                    (f'{ln}.localization_fc2', f'{fl}/fc2', 'linear')]
+
+
 def _attn_rules(tp: str, fp: str) -> List[Rule]:
     return [(f'{tp}.{n}', f'{fp}/{n}', 'linear_nobias')
             for n in ('linear_q', 'linear_k', 'linear_v', 'fc')]
@@ -190,8 +225,14 @@ def _abinet_position_tables(cfg: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def rules_for_config(cfg: Mapping) -> List[Rule]:
-    """The rule table of an NRTR or ABINet (+ TPS_PP) recognizer config."""
-    rules = resnet_abi_rules(tuple(cfg['backbone'].get(
+    """The rule table of an NRTR, ABINet (+ TPS_PP) or CRNN (+ TPS-STN)
+    recognizer config."""
+    pre = ((cfg.get('preprocessor') or {}).get('type') == 'TPSPreprocessor')
+    pre_rules = tps_preprocessor_rules() if pre else []
+    dec = cfg.get('decoder') or {}
+    if dec.get('type') == 'CRNNDecoder':
+        return pre_rules + crnn_rules(bool(dec.get('rnn_flag', False)))
+    rules = pre_rules + resnet_abi_rules(tuple(cfg['backbone'].get(
         'arch_settings', (3, 4, 6, 6, 3))))
     if cfg.get('tpsnet'):
         rules += tps_pp_rules()
@@ -218,7 +259,7 @@ def _torch_entries(kind: str, get) -> Dict[str, np.ndarray]:
     leaves; ``get(tree, name)`` reads a leaf."""
     if kind in ('conv', 'conv_nobias'):
         out = {'weight': np.transpose(get('params', 'kernel'), (3, 2, 0, 1))}
-    elif kind == 'conv1x1_as_dense_nobias':
+    elif kind in ('conv1x1_as_dense', 'conv1x1_as_dense_nobias'):
         out = {'weight': get('params', 'kernel').T[:, :, None, None]}
     elif kind in ('linear', 'linear_nobias'):
         out = {'weight': get('params', 'kernel').T}
@@ -231,6 +272,12 @@ def _torch_entries(kind: str, get) -> Dict[str, np.ndarray]:
                'num_batches_tracked': np.zeros((), np.int64)}
     elif kind == 'embed':
         return {'weight': get('params', 'embedding')}
+    elif kind in ('lstm', 'lstm_reverse'):
+        # the inverse of JAX's 'lstm' kinds: one direction of a one-layer
+        # torch nn.LSTM, gate order i, f, g, o in both
+        sfx = '_reverse' if kind == 'lstm_reverse' else ''
+        return {f'{n}_l0{sfx}': get('params', n)
+                for n in ('weight_ih', 'weight_hh', 'bias_ih', 'bias_hh')}
     elif kind == 'torch_mha':
         # the inverse of JAX's 'torch_mha' rule: q;k;v rows packed
         qkv = ('linear_q', 'linear_k', 'linear_v')
@@ -243,7 +290,7 @@ def _torch_entries(kind: str, get) -> Dict[str, np.ndarray]:
             'out_proj.bias': get('params', 'fc/bias')}
     else:
         raise ValueError(kind)
-    if kind in ('conv', 'linear', 'ln', 'bn'):
+    if kind in ('conv', 'conv1x1_as_dense', 'linear', 'ln', 'bn'):
         out['bias'] = get('params', 'bias')
     return out
 
@@ -255,7 +302,8 @@ def convert_rules(variables: Mapping, rules: List[Rule]
     sd = {}
     for tp, fp, kind in rules:
         probe = {'ln': 'scale', 'bn': 'scale', 'embed': 'embedding',
-                 'torch_mha': 'fc/kernel'}.get(kind, 'kernel')
+                 'torch_mha': 'fc/kernel', 'lstm': 'weight_ih',
+                 'lstm_reverse': 'weight_ih'}.get(kind, 'kernel')
         if _leaf(variables['params'], f'{fp}/{probe}') is None:
             if '.downsample.' in tp:
                 continue
@@ -270,11 +318,13 @@ def convert_rules(variables: Mapping, rules: List[Rule]
 def state_dict_from_jax(variables: Mapping, cfg: Mapping
                         ) -> Dict[str, torch.Tensor]:
     """JAX recognizer variables -> a ``state_dict`` that the model of
-    ``build_recognizer(cfg)`` (NRTR or ABINet) takes with
+    ``build_recognizer(cfg)`` (NRTR, ABINet or CRNN) takes with
     ``load_state_dict(strict=True)``."""
     sd = convert_rules(variables, rules_for_config(cfg))
     if cfg.get('type') == 'ABINet':
         sd.update(_abinet_position_tables(cfg))
+        return sd
+    if 'decoder.trg_word_emb.weight' not in sd:      # no position table
         return sd
     d = sd['decoder.trg_word_emb.weight'].shape[1]
     sd['decoder.position_enc.position_table'] = torch.from_numpy(
