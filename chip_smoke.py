@@ -125,6 +125,32 @@ seed):
   launching kernels 8 and 9 once each a step; then the warp of a
   training batch with a detached grid, whose backward is kernel 10.
 
+* the ResNet31 attention family, last, which runs no hand-written kernel
+  (in JAX it is plain XLA): the models of ``SAR_CONFIGS`` (SAR's parallel
+  and sequential decoders, RobustScanner, and the parallel config with
+  ``ParallelSARDecoderWithBS``) at full width in bf16, seed-0 weights.
+  Serving at B=512 (random 48x160x3 crops, valid ratios of widths 48-160
+  in steps of 4 over 160, the columns past the width zeroed), the beam
+  decoder at B=64 and width 5: ``predict`` timed, its stages by CUDA
+  events (``extract_feat``, the encoder, the decode), the resolved decode
+  mode ``'steps'``. Each path's float32 model on the card against the
+  same weights on the CPU at B=8 (TF32 off): the greedy argmax equal but
+  where the CPU path's top-2 gap is below ``NEAR_TIE`` at a row's first
+  parting, the beam's best-beam tokens equal but where the CPU ranking
+  has a near-tie (``BEAM_TIE``), the probabilities within
+  ``SAR_F32_ATOL``; bf16 against float32 on the card at B=512, recorded.
+  Training SAR-parallel and RobustScanner at the configs' B=64 (f32
+  parameters, bf16 autocast, Adam 1e-3, random DICT90 labels of 1-25
+  characters), timed; one float32 step without dropout at B=8, the card
+  against the CPU: the loss within ``SAR_LOSS_RTOL`` and the grad norm
+  within ``SAR_GRAD_NORM_RTOL``. ``init_recognizer`` from the SAR config
+  and a ``.pth``, ``model_inference`` on 64 uint8 crops (heights 16-64,
+  widths 24-400): the texts of ``simple_test`` on the pipeline's batch.
+  The NRTR configs on ResNet31 (``NRTR_R31_CONFIGS``) in bf16 with
+  ``'auto'``: their 40 and 320 encoder tokens send them to ``'steps'``,
+  B=64 at 32x160 served without a ``ValueError``. No kernel launches in
+  the phase.
+
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
 the checks and on TPS++'s own [0, 1]^2 grid, which puts every sample in
 the lower half of the map's rows; their band plan is logged.
@@ -242,6 +268,26 @@ N_ABINET_CROPS, ABINET_F32_ATOL = 64, 1e-3
 CRNN_TPS_CONFIG = 'configs/textrecog/tps/crnn_tps_academic_dataset.py'
 N_CRNN_CROPS, CRNN_F32_ATOL = 64, 1e-3
 CRNN_FC2_SCALE, CRNN_MAX_LABEL = 0.05, 12
+# the ResNet31 attention phase: its configs (the beam-search decoder is the
+# parallel config with decoder.type='ParallelSARDecoderWithBS'), the NRTR
+# configs on ResNet31 whose token counts (40, 320) kernel 3 refuses, the
+# beam batch (also the fallback's), the float32 batch held against the CPU,
+# the crops of its inference API check, and the bounds of the card against
+# the CPU in float32 with TF32 off, where cuDNN and the CPU's convolutions
+# sum up to 4,608 terms in other orders: the probabilities (absolute), the
+# check step's loss and grad norm (relative)
+SAR_CONFIGS = {
+    'sar_parallel':
+        'configs/textrecog/sar/sar_r31_parallel_decoder_academic.py',
+    'sar_sequential':
+        'configs/textrecog/sar/sar_r31_sequential_decoder_academic.py',
+    'robust_scanner':
+        'configs/textrecog/robust_scanner/robustscanner_r31_academic.py',
+    'sar_beam': 'configs/textrecog/sar/sar_r31_parallel_decoder_academic.py'}
+NRTR_R31_CONFIGS = ('configs/textrecog/nrtr/nrtr_r31_1by16_1by8_academic.py',
+                    'configs/textrecog/nrtr/nrtr_r31_1by8_1by4_academic.py')
+B_SAR_BEAM, B_SAR_F32, N_SAR_CROPS = 64, 8, 64
+SAR_F32_ATOL, SAR_LOSS_RTOL, SAR_GRAD_NORM_RTOL = 1e-4, 1e-4, 1e-3
 
 
 def log(*a):
@@ -366,9 +412,13 @@ def first_divergence(kernel_probs, plain_probs):
     return out
 
 
-def check_decode(kernel_probs, plain_probs, what, near_tie=NEAR_TIE):
+def check_decode(kernel_probs, plain_probs, what, near_tie=NEAR_TIE,
+                 bound=None):
     """The decode rule; returns (max abs error on the agreeing prefix,
-    number of rows that part at a near-tie, their largest top-2 gap)."""
+    number of rows that part at a near-tie, their largest top-2 gap).
+    ``bound``: (atol, rtol) of the probabilities on the agreeing prefix,
+    (DECODE_ATOL, DECODE_RTOL) when None."""
+    atol, rtol = bound or (DECODE_ATOL, DECODE_RTOL)
     div = first_divergence(kernel_probs, plain_probs)
     err, ties, widest = 0.0, 0, 0.0
     for r, (t, gap) in enumerate(div):
@@ -383,10 +433,10 @@ def check_decode(kernel_probs, plain_probs, what, near_tie=NEAR_TIE):
         k, p = kernel_probs[r, :stop].float(), plain_probs[r, :stop].float()
         if stop:
             err = max(err, float((k - p).abs().max()))
-            bad = (k - p).abs() > DECODE_ATOL + DECODE_RTOL * p.abs()
+            bad = (k - p).abs() > atol + rtol * p.abs()
             if bool(bad.any()):
                 raise AssertionError(f'{what}: row {r} probabilities beyond '
-                                     f'atol {DECODE_ATOL} rtol {DECODE_RTOL}')
+                                     f'atol {atol} rtol {rtol}')
     return err, ties, widest
 
 
@@ -2270,6 +2320,351 @@ def crnn_tps_phase(dev, name, record):
                 launches['detached grid']['grid_sample_grad_img']}
 
 
+def sar_phase(dev, name):
+    """The ResNet31 attention family on ``dev``, the card (see the module
+    docstring): serving, beam search, the float32 models against the CPU,
+    bf16 against float32, training, the inference API and the NRTR-R31
+    fallback, with no hand-written kernel launched. Returns the phase's
+    launch counts (all 0)."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import (TextRecognizer, build_recognizer,
+                                       init_recognizer, model_inference)
+    from tps_pp_tpu_torch.config import load_config, merge_cli_options
+    from tps_pp_tpu_torch.datasets.pipelines.transforms import Compose
+    from tps_pp_tpu_torch.models.decoders import beam_decode, greedy_decode
+    from tps_pp_tpu_torch.parallel import (build_optimizer_from_run_cfg,
+                                           make_train_step)
+    from tps_pp_tpu_torch.tools.train import train_cfg_of
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cpu = torch.device('cpu')
+
+    def model_cfg(key, dtype, no_dropout=False):
+        cfg = load_config(os.path.join(repo, SAR_CONFIGS[key]))
+        merge_cli_options(cfg, {'model.dtype': dtype})
+        model = copy.deepcopy(dict(cfg['model']))
+        if key == 'sar_beam':
+            model['decoder'] = dict(model['decoder'],
+                                    type='ParallelSARDecoderWithBS')
+        if no_dropout and model['type'] == 'SARNet':
+            model['encoder'] = dict(model['encoder'], enc_do_rnn=0.0)
+            model['decoder'] = dict(model['decoder'], pred_dropout=0.0)
+        return cfg, model
+
+    def build(key, dtype, device, state=None, no_dropout=False, **kw):
+        r = build_recognizer(model_cfg(key, dtype, no_dropout)[1],
+                             device=device, **kw)
+        if state is None:
+            r.init_weights(SEED)
+        else:
+            r.model.load_state_dict(state)
+        if type(r) is not TextRecognizer or r.device.type != device.type \
+                or r.resolved_decode_mode() != 'steps':
+            raise AssertionError(f'sar {key}: built {type(r).__name__} on '
+                                 f'{r.device}, {r.resolved_decode_mode()}')
+        return r
+
+    def crops(n, h=48, w=160):
+        """Random crops, their valid ratios (widths 48-160 in steps of 4,
+        over 160) and the columns past each width zeroed, as the
+        keep-aspect pipeline pads them."""
+        x = g.standard_normal((n, h, w, 3)).astype(np.float32)
+        widths = g.choice(np.arange(48, 161, 4), n)
+        for i, wd in enumerate(widths):
+            x[i, :, wd:] = 0.0
+        return (torch.from_numpy(x).to(dev),
+                torch.from_numpy((widths / 160).astype(np.float32)).to(dev))
+
+    def timed(fn, rounds=2, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) / reps)
+        return min(ts), ts
+
+    zero_launches()
+    g = np.random.default_rng(SEED + 16)
+    img, vr = crops(B)
+    bf16_out, sections = {}, {}
+    t_sec = [time.perf_counter()]
+
+    def section(what):
+        now = time.perf_counter()
+        sections[what] = round(now - t_sec[0], 1)
+        t_sec[0] = now
+
+    def random_labels(lc, n):
+        """n DICT90 labels of 1-25 characters as ``lc``'s padded
+        targets."""
+        chars = lc.idx2char[:90]
+        return lc.str2tensor([''.join(g.choice(chars, int(g.integers(1, 26))))
+                              for _ in range(n)])['padded_targets']
+
+    # ---- serving, bf16, B=512 (the beam decoder at B_SAR_BEAM) ------------
+    states = {}
+    for key in SAR_CONFIGS:
+        rec = build(key, 'bfloat16', dev)
+        states[key] = {k: v.detach().cpu()
+                       for k, v in rec.model.state_dict().items()}
+        m, lc = rec.model, rec.label_convertor
+        n = B_SAR_BEAM if key == 'sar_beam' else B
+        x, v = img[:n].to(torch.bfloat16), vr[:n]
+        out = rec.predict(x, v)
+        if tuple(out.shape) != (n, rec.max_seq_len, lc.num_classes() - 1) \
+                or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f'sar {key}: bad output {tuple(out.shape)}')
+        ms, ts = timed(lambda: rec.predict(x, v))
+        with torch.inference_mode():
+            feat = m.extract_feat(x)
+            enc = m.encode(feat, v)
+            kw = dict(max_seq_len=rec.max_seq_len, start_idx=lc.start_idx,
+                      feat=feat)
+
+            def decode():
+                if rec.beam_width > 1:
+                    return beam_decode(m.decoder, enc, v,
+                                       beam_width=rec.beam_width, **kw)
+                return greedy_decode(m.decoder, enc, v, end_idx=lc.end_idx,
+                                     **kw)
+            stages = {'extract_feat': lambda: m.extract_feat(x),
+                      'encoder': lambda: m.encode(feat, v),
+                      'decode': decode}
+            st = {k: cuda_ms(fn, 3) for k, fn in stages.items()}
+        if key != 'sar_beam':
+            bf16_out[key] = out         # held against float32 below
+        texts = [r['text'] for r in rec.simple_test(x[:3], v[:3])]
+        log(f'sar {key} serving B={n} bf16 ({rec.resolved_decode_mode()}, '
+            f'beam_width {rec.beam_width}): {n / ms:.1f} images/s '
+            f'({ms * 1e3:.3f} ms/batch, best of 2 rounds of 3; '
+            f'{", ".join(f"{t * 1e3:.3f}" for t in ts)}); stages (CUDA '
+            f'events, mean of 3): '
+            + ', '.join(f'{k} {t:.3f} ms' for k, t in st.items())
+            + f'; first texts {texts} [{name}]')
+        del rec, m, feat, enc, out
+        torch.cuda.empty_cache()
+    section('serving')
+
+    # ---- float32: the card against the CPU (B_SAR_F32); bf16 against f32 --
+    # (dropout-free builds, kept for the training check step)
+    f32_models = {}
+    tf_targets = random_labels(lc, B_SAR_F32)
+    for key in SAR_CONFIGS:
+        rg = build(key, 'float32', dev, states[key], no_dropout=True)
+        rc = build(key, 'float32', cpu, states[key], no_dropout=True)
+        x, v = img[:B_SAR_F32], vr[:B_SAR_F32]
+        t0 = time.perf_counter()
+        if key == 'sar_beam':
+            with torch.inference_mode():
+                def run(r, xx, vv):
+                    feat, enc = r.model.encode_full(xx, vv)
+                    return beam_decode(
+                        r.model.decoder, enc, vv,
+                        max_seq_len=r.max_seq_len,
+                        start_idx=r.label_convertor.start_idx,
+                        beam_width=r.beam_width, feat=feat,
+                        return_ranking=True)
+                pk, _, _ = run(rg, x, v)
+                pc, totals, cut = run(rc, x.cpu(), v.cpu())
+            pk = pk.cpu()
+            same = (pk.argmax(-1) == pc.argmax(-1)).all(-1)
+            near = torch.minimum(totals[:, 0] - totals[:, 1],
+                                 cut.min(1).values)
+            for row in torch.nonzero(~same).flatten().tolist():
+                if not float(near[row]) < BEAM_TIE:
+                    raise AssertionError(
+                        f'sar beam float32: row {row} picks another best '
+                        f'beam than the CPU path, whose ranking has no '
+                        f'near-tie ({float(near[row]):.4g} >= {BEAM_TIE})')
+            err = float((pk[same] - pc[same]).abs().max()) if bool(
+                same.any()) else 0.0
+            if not err <= SAR_F32_ATOL:
+                raise AssertionError(f'sar beam float32: scores part by '
+                                     f'{err:.4g} > {SAR_F32_ATOL}')
+            ties = int((~same).sum())
+            widest = float(near[~same].max()) if ties else 0.0
+        else:
+            pk = rg.predict(x, v).cpu()
+            pc = rc.predict(x.cpu(), v.cpu())
+            # the decode rule, the CPU path as the plain side
+            err, ties, widest = check_decode(pk, pc, f'sar {key} float32',
+                                             bound=(SAR_F32_ATOL, 0.0))
+            # the teacher-forced pass over varied labels: seed-0 weights
+            # decode one token at every step, this feeds the others
+            tgt = torch.from_numpy(tf_targets)
+            with torch.inference_mode():
+                lk = rg.model(x, tgt.to(dev), v).float().cpu()
+                lp = rc.model(x.cpu(), tgt, v.cpu()).float()
+            tf_err = float((lk - lp).abs().max())
+            tf_bound = SAR_F32_ATOL * max(1.0, float(lp.abs().max()))
+            if not tf_err <= tf_bound:
+                raise AssertionError(f'sar {key} float32 teacher-forced: '
+                                     f'logits part by {tf_err:.4g} > '
+                                     f'{tf_bound:.4g}')
+        cpu_s = time.perf_counter() - t0
+        line = (f'sar {key} float32 B={B_SAR_F32}, card against CPU: max '
+                f'abs probability error {err:.4g} (<= {SAR_F32_ATOL}), '
+                f'{ties} rows part at a near-tie of the CPU path (widest '
+                f'{widest:.4g})')
+        if key != 'sar_beam':
+            line += (f'; teacher-forced logits over random labels within '
+                     f'{tf_err:.4g} (<= {tf_bound:.4g}, SAR_F32_ATOL x their '
+                     f'largest magnitude)')
+        line += f'; {cpu_s:.1f} s'
+        if key != 'sar_beam':
+            # bf16 against float32 on the card, the serving batch
+            with torch.inference_mode():
+                p32 = rg.predict(img, vr)
+            pb = bf16_out.pop(key).float()
+            div = first_divergence(pb, p32)
+            parts = [(t, gap) for t, gap in div if t is not None]
+            line += (f'; bf16 against float32 on the card, B={B}: '
+                     f'{len(parts)} rows part, first at steps '
+                     f'{sorted({t for t, _ in parts})[:6]}, widest top-2 '
+                     f'gap of the float32 path there '
+                     f'{max((gap for _, gap in parts), default=0.0):.4g}')
+            del p32
+        log(line + f' [{name}]')
+        if key in ('sar_parallel', 'robust_scanner'):
+            f32_models[key] = (rg, rc)
+        del rg, rc
+        torch.cuda.empty_cache()
+    section('float32 checks')
+
+    # ---- training: B=64 steps, then a float32 step against the CPU -------
+    for key in ('sar_parallel', 'robust_scanner'):
+        cfg, _ = model_cfg(key, 'bfloat16')
+        tc = train_cfg_of(cfg)
+        bt = int(tc['samples_per_gpu'])
+        rt = build(key, 'bfloat16', dev, states[key], param_dtype='float32')
+        xt, vt = crops(bt)
+        batch = dict(img=xt, valid_ratio=vt,
+                     padded_targets=random_labels(lc, bt))
+
+        def step_fn(r):
+            opt, _ = build_optimizer_from_run_cfg(
+                tc, r.model.named_parameters(), steps_per_epoch=1,
+                total_epochs=tc['total_epochs'])
+            return make_train_step(r, opt)
+
+        step = step_fn(rt)
+        losses = [float(step(batch)['loss']) for _ in range(2)]
+        ms, ts = timed(lambda: step(batch), rounds=2, reps=3)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f'sar {key} train: losses {losses}')
+        # one float32 step without dropout on both devices, B_SAR_F32, on
+        # the models of the float32 checks (their weights still the
+        # serving model's)
+        small = {k: t[:B_SAR_F32] for k, t in batch.items()}
+        mets = []
+        for r in f32_models.pop(key):
+            d = r.device
+            b = dict(small, img=small['img'].to(d),
+                     valid_ratio=small['valid_ratio'].to(d))
+            mt = step_fn(r)(b)
+            mets.append((float(mt['loss']), float(mt['grad_norm'])))
+        (lk, nk), (lp, np_) = mets
+        if not (abs(lk - lp) <= SAR_LOSS_RTOL * abs(lp)
+                and abs(nk - np_) <= SAR_GRAD_NORM_RTOL * abs(np_)):
+            raise AssertionError(f'sar {key} train check: loss {lk} / {lp}, '
+                                 f'grad norm {nk} / {np_}')
+        log(f'sar {key} train B={bt}, f32 parameters, bf16 autocast, '
+            f'{tc["optimizer"]["type"]} lr {tc["optimizer"]["lr"]}: '
+            f'{ms * 1e3:.2f} ms/step, {bt / ms:.1f} images/s (best of 2 '
+            f'rounds of 3; {", ".join(f"{t * 1e3:.2f}" for t in ts)}); '
+            f'losses {losses}; float32 step without dropout B={B_SAR_F32}, '
+            f'card / CPU: loss {lk:.7f} / {lp:.7f} (rel '
+            f'{abs(lk - lp) / abs(lp):.3g} <= {SAR_LOSS_RTOL}), grad norm '
+            f'{nk:.6f} / {np_:.6f} (rel {abs(nk - np_) / abs(np_):.3g} <= '
+            f'{SAR_GRAD_NORM_RTOL}) [{name}]')
+        del rt, step
+        torch.cuda.empty_cache()
+    section('training')
+
+    # ---- the inference API: .pth, init_recognizer, model_inference -------
+    cfg_path = os.path.join(repo, SAR_CONFIGS['sar_parallel'])
+    cfg = load_config(cfg_path)
+    merge_cli_options(cfg, {'model.dtype': 'bfloat16'})
+    u8 = [g.integers(0, 256, (int(g.integers(16, 65)),
+                              int(g.integers(24, 401)), 3), np.uint8)
+          for _ in range(N_SAR_CROPS)]
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = os.path.join(tmp, 'sar.pth')
+        torch.save({'meta': {}, 'state_dict': states['sar_parallel']}, pth)
+        r = init_recognizer(cfg, pth, device=dev, seed=1)
+    if not all(torch.equal(t.cpu(), states['sar_parallel'][k].to(t.dtype))
+               for k, t in r.model.state_dict().items()):
+        raise AssertionError('sar init_recognizer: not the written weights')
+    got = model_inference(r, u8, batch_mode=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = model_inference(r, u8, batch_mode=True)
+    ms_api = (time.perf_counter() - t0) * 1e3
+    pipeline = Compose([dict(type='LoadImageFromNdarray')] +
+                       [dict(t) for t in r.test_pipeline_cfg[1:]])
+    datas = [pipeline(dict(img=c, img_info=dict(filename=None)))
+             for c in u8]
+    order = sorted(range(len(datas)),
+                   key=lambda i: float(datas[i]['img_metas']['valid_ratio']))
+    batch = np.stack([datas[i]['img'] for i in order]).astype(np.float32)
+    vrs = np.asarray([datas[i]['img_metas']['valid_ratio'] for i in order],
+                     np.float32)
+    want = r.simple_test(batch, vrs,
+                         img_metas=[datas[i]['img_metas'] for i in order])
+    if batch.shape[1:] != (48, 160, 3) or [got[i]['text'] for i in order] \
+            != [w['text'] for w in want]:
+        raise AssertionError('sar model_inference: texts other than '
+                             'simple_test\'s on the pipeline batch')
+    log(f'sar inference API: init_recognizer({SAR_CONFIGS["sar_parallel"]}, '
+        f'.pth, model.dtype=bfloat16), model_inference on {N_SAR_CROPS} '
+        f'uint8 crops (valid ratios {float(vrs.min()):.2f}-'
+        f'{float(vrs.max()):.2f}) in {ms_api:.1f} ms, texts equal to '
+        f'simple_test\'s on the pipeline batch; first texts '
+        f'{[x["text"] for x in got[:3]]} [{name}]')
+    del r
+    section('inference API')
+
+    # ---- the fallback: NRTR on ResNet31, 'auto' in bf16 on the card ------
+    for path in NRTR_R31_CONFIGS:
+        c = load_config(os.path.join(repo, path))
+        merge_cli_options(c, {'model.dtype': 'bfloat16'})
+        r = build_recognizer(copy.deepcopy(dict(c['model'])), device=dev)
+        r.init_weights(SEED)
+        x = torch.from_numpy(g.standard_normal((B_SAR_BEAM, 32, 160, 3))
+                             .astype(np.float32)).to(dev)
+        with torch.inference_mode():
+            feat = r.model.extract_feat(x.to(torch.bfloat16))
+        tokens = int(feat.shape[1] * feat.shape[2])
+        before, after = r.resolved_decode_mode(), r.resolved_decode_mode(
+            tokens)
+        out = r.predict(x)
+        if after != 'steps' or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f'sar fallback {path}: {before} -> {after}')
+        ms, _ = timed(lambda: r.predict(x), rounds=1, reps=2)
+        log(f'sar fallback {path}, bf16, decode_mode auto, B={B_SAR_BEAM} '
+            f'at 32 x 160: {tokens} encoder tokens an image; resolved '
+            f'{before} before the trunk, {after} after it (kernel 3 takes '
+            f'64 tokens, kernel 4 at most 256); predict {ms * 1e3:.2f} ms, '
+            f'no ValueError [{name}]')
+        del r, feat, out
+        torch.cuda.empty_cache()
+
+    section('fallback')
+    launches = read_launches('sar', 'the whole phase', {})
+    log(f'sar phase: {time.perf_counter() - t_phase:.1f} s (by section: '
+        f'{sections}); no hand-written kernel launched')
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2886,6 +3281,9 @@ def main():
 
     # ---- the CTC family's CRNN-TPS: kernels 8-10 at one channel
     path_launches.update(crnn_tps_phase(dev, name, record))
+
+    # ---- the ResNet31 attention family: SAR and RobustScanner, no kernel
+    sar_phase(dev, name)
     path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])

@@ -1,8 +1,9 @@
 """The port stands alone: importing it, serving (through every decode mode,
 the fused decode step, the fused stem and the two-stage sampler) and
 training on the CPU (``train_recognizer`` on crops through the flagship's
-train augmentations), and the same for a tiny ABINet + TPS++ and for a
-small CRNN + TPS-STN (the CTC family, grayscale crops), loads neither JAX,
+train augmentations), and the same for a tiny ABINet + TPS++, for a
+small CRNN + TPS-STN (the CTC family, grayscale crops) and for a small SAR
+(beam search) and RobustScanner on ResNet31, loads neither JAX,
 flax, cv2 nor the JAX package, and launches no kernel (CPU tensors go to
 the kernels' plain versions; nothing is built)."""
 import json
@@ -168,6 +169,38 @@ opt, history = train.train_recognizer(
     rec, gray, dict(optimizer=dict(type='Adadelta', lr=1.0),
                     samples_per_gpu=4, total_epochs=1, log_interval=1))
 assert opt.count == 1 and np.isfinite(history[0]['loss_ctc'])
+
+# the ResNet31 attention family: serving (greedy and beam) and a training
+# step of a small SAR and a small RobustScanner
+from tps_pp_tpu_torch.models.backbones import resnet31
+from tps_pp_tpu_torch.models.decoders import robust_scanner as drs, sar as dsar
+from tps_pp_tpu_torch.models.encoders import sar as esar
+r31 = dict(type='ResNet31OCR', layers=[1, 1, 1, 1],
+           channels=[8, 8, 8, 8, 16, 16, 16])
+lc36 = dict(type='AttnConvertor', dict_type='DICT36', with_unknown=True)
+for family_cfg in (
+        dict(type='SARNet', label_convertor=lc36, backbone=r31,
+             encoder=dict(type='SAREncoder', d_model=16, d_enc=16,
+                          enc_do_rnn=0.1),
+             decoder=dict(type='ParallelSARDecoderWithBS', d_model=16,
+                          d_enc=16, d_k=8, pred_concat=True, beam_width=2),
+             loss=dict(type='SARLoss'), max_seq_len=5),
+        dict(type='RobustScanner', label_convertor=lc36, backbone=r31,
+             encoder=dict(type='ChannelReductionEncoder', in_channels=16,
+                          out_channels=8),
+             decoder=dict(type='RobustScannerDecoder', dim_input=16,
+                          dim_model=8),
+             loss=dict(type='SARLoss'), max_seq_len=5)):
+    rec = build_recognizer(family_cfg, device='cpu', param_dtype='float32')
+    assert rec.resolved_decode_mode() == 'steps'
+    rec.init_weights(0)
+    assert len(rec.simple_test(np.zeros((3, 32, 64, 3), np.float32),
+                               [1.0, 0.5, 0.8])) == 3
+    opt, history = train.train_recognizer(
+        rec, Crops(), dict(optimizer=dict(type='Adam', lr=1e-3),
+                           samples_per_gpu=4, total_epochs=1,
+                           log_interval=1))
+    assert opt.count == 1 and np.isfinite(history[0]['loss_ce'])
 assert not dist.is_active()
 print(json.dumps({
     'loaded': sorted(m for m in ('jax', 'flax', 'cv2', 'tps_pp_tpu')

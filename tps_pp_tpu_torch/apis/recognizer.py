@@ -9,7 +9,10 @@ non-autoregressive decoder (CRNN) has no decode loop:
 ``resolved_decode_mode()`` is ``'single_pass'`` and ``predict`` returns
 its raw float32 logits (N, T, C), which the CTC convertor's
 ``tensor2idx`` softmaxes, as in JAX. What follows is the autoregressive
-decoders' (NRTR).
+decoders' (NRTR; SAR's three and RobustScanner's, which run ``steps``
+only: they have no whole-decode kernel, as in JAX, where they are plain
+XLA). A decoder with ``READS_FEAT`` (SAR, RobustScanner) gets the
+backbone's feature map in ``decode_init`` too.
 
 ``predict`` pads the batch to the next power of two (replicating the last
 row, so the all-rows-EOS exit is not held up) and slices the result back,
@@ -29,7 +32,14 @@ as the JAX package does. Decode modes, the JAX package's
   decoder with ``use_fused_step`` runs each layer's step as two kernels
   (``ops.decode_step``); one with ``kv_dtype='int8'`` keeps int8 caches.
 * ``'auto'`` (default): ``'fused40_bf16'`` for a bf16 model on CUDA whose
-  decoder has ``d_k == d_v``, else ``'steps'``.
+  encoder and decoder the kernels take (``kernel_accepts``: d_k == d_v,
+  kernel 3's d_k 64 and d_model 512, and, once the trunk has run, kernel
+  3's 64 tokens an image and kernel 4's at most 256), else ``'steps'``. A
+  token count the kernels refuse is seen only after ``extract_feat``; the
+  ``steps`` path then goes on from that feature, and the trunk runs once.
+  An explicit ``'fused40*'`` on such a model raises the kernels'
+  ``ValueError``; on a decoder without a whole decode (SAR, RobustScanner)
+  it runs ``'steps'``, as in JAX.
 
 Setting the attribute ``plain`` to True makes every mode run its kernels'
 plain PyTorch versions on any device: the reference the kernels are held
@@ -64,9 +74,10 @@ softmax in float32 and leaves their outputs there, and the decoder's
 embedding lookup is not cast, so the decoder's residual stream stays
 float32 where flax keeps bf16 activations throughout. The attention scores,
 the TPS grids and the warps run outside autocast, as JAX keeps them in
-float32; so do the CRNN decoder's LSTMs, which stay float32 in a bf16
-model too (``models/layers.py`` ``Float32LSTM``), where JAX runs its scan
-in the model's dtype. ``predict`` on such a recognizer serves a copy of
+float32; so do the recurrences (the CRNN decoder's LSTMs, SAR's and
+RobustScanner's LSTMs and cells), which stay float32 in a bf16 model too
+(``models/layers.py`` ``_Float32Island``), where JAX runs its scans in the
+model's dtype. ``predict`` on such a recognizer serves a copy of
 the model cast to the compute dtype, made again after the weights
 change. ``'float64'``
 is for parity tests: the model runs in float64 apart from the float32
@@ -102,8 +113,8 @@ STEM_MODES = ('auto', 'xla', 'fused')
 
 
 class TextRecognizer:
-    """Encode-decode recognizer (NRTR, CRNN) with an optional TPS++
-    rectifier or image-space preprocessor."""
+    """Encode-decode recognizer (NRTR, CRNN, SAR, RobustScanner) with an
+    optional TPS++ rectifier or image-space preprocessor."""
 
     def __init__(self, cfg: Dict[str, Any], device=None,
                  param_dtype: Optional[str] = None):
@@ -182,8 +193,9 @@ class TextRecognizer:
         """Random weights from a seeded ``torch.Generator``, drawn on the
         CPU so that every device gets the same values: conv and linear
         weights uniform with variance 1/fan_in, zero biases, unit normal
-        embeddings (pad row zero), LSTM weights and biases
-        U(-1/sqrt(H), 1/sqrt(H)) as the JAX package's init, identity norms
+        embeddings (pad row zero where the embedding has one), the weights
+        and biases of LSTMs, GRUs and their cells U(-1/sqrt(H), 1/sqrt(H))
+        as the JAX package's init, identity norms
         and BatchNorm statistics, and the localization heads of TPS++ and
         of the TPS-STN at their reference init."""
         g = torch.Generator().manual_seed(seed)
@@ -207,7 +219,7 @@ class TextRecognizer:
                     b = (3.0 / w.shape[1]) ** 0.5
                     fill(w, lambda x: x.uniform_(-b, b, generator=g))
                     m.in_proj_bias.zero_()
-                elif isinstance(m, nn.LSTM):
+                elif isinstance(m, (nn.RNNBase, nn.RNNCellBase)):
                     b = 1.0 / m.hidden_size ** 0.5
                     for w in m.parameters():
                         fill(w, lambda x: x.uniform_(-b, b, generator=g))
@@ -263,20 +275,39 @@ class TextRecognizer:
             model.train(was)
 
     # -------------------------------------------------------- inference
-    def resolved_decode_mode(self) -> str:
+    def resolved_decode_mode(self, tokens: Optional[int] = None) -> str:
         """The decode ``predict`` runs: ``'single_pass'`` for a
-        non-autoregressive decoder; a beam search (``beam_width`` > 1)
-        runs ``'steps'`` whatever the mode, as in JAX
-        (``tps_pp_tpu/apis/recognizer.py:146-165``)."""
+        non-autoregressive decoder; ``'steps'`` for a beam search
+        (``beam_width`` > 1) or a decoder without a whole decode
+        (``fused_full_decode``), whatever the mode, as in JAX
+        (``tps_pp_tpu/apis/recognizer.py:146-177``); ``'auto'`` resolved
+        by :meth:`auto_decode_mode` on this recognizer's device, over
+        ``tokens`` encoder tokens an image where they are known."""
         if not self.autoregressive:
             return 'single_pass'
         if self.decode_mode != 'auto':
-            if self.beam_width > 1 and self.decode_mode != 'steps':
+            if self.decode_mode != 'steps' and not self._fused_capable():
                 return 'steps'
             return self.decode_mode
-        dec = self.model.decoder
-        if (self.device.type == 'cuda' and self.dtype == torch.bfloat16
-                and dec.d_k == dec.d_v and self.beam_width <= 1):
+        return self.auto_decode_mode(self.device.type, tokens)
+
+    def _fused_capable(self) -> bool:
+        return self.beam_width <= 1 and hasattr(type(self.model.decoder),
+                                                'fused_full_decode')
+
+    def auto_decode_mode(self, device_type: str,
+                         tokens: Optional[int] = None) -> str:
+        """``'auto'`` for a model on a device of ``device_type``:
+        ``'fused40_bf16'`` for a bf16 model on CUDA whose decoder has a
+        whole decode and whose encoder and decoder the kernels take
+        (``kernel_accepts``, over ``tokens`` encoder tokens an image where
+        they are known), else ``'steps'``. It never picks a path whose
+        kernels would refuse the model."""
+        m = self.model
+        enc_ok = getattr(m.encoder, 'kernel_accepts', None)
+        if (device_type == 'cuda' and self.dtype == torch.bfloat16
+                and self._fused_capable() and enc_ok is not None
+                and enc_ok(tokens) and m.decoder.kernel_accepts(tokens)):
             return 'fused40_bf16'
         return 'steps'
 
@@ -318,26 +349,30 @@ class TextRecognizer:
         stem = (fused_stem_forward(model.backbone, img, self.dtype,
                                    plain=self.plain)
                 if self.resolved_stem_mode() == 'fused' else None)
-        if mode in ('fused40_bf16', 'fused40'):
+        feat = model.extract_feat(img, plain=self.plain, stem=stem)
+        if mode in ('fused40_bf16', 'fused40') and (
+                self.decode_mode != 'auto' or self.resolved_decode_mode(
+                    feat.shape[1] * feat.shape[2]) != 'steps'):
             return model.decode_full_fused(
                 img, valid_ratio,
                 end_idx=end_idx if self.fused_early_exit else None,
                 plain=self.plain,
                 enc_dtype='int8' if mode == 'fused40' else 'bfloat16',
-                stem=stem)
-        _, out_enc = model.encode_full(img, valid_ratio, plain=self.plain,
-                                       stem=stem)
+                feat=feat)
+        out_enc = model.encode(feat, valid_ratio)
+        if not getattr(model.decoder, 'READS_FEAT', False):
+            feat = None
         if self.beam_width > 1:
             return beam_decode(model.decoder, out_enc, valid_ratio,
                                max_seq_len=self.max_seq_len,
                                start_idx=start_idx,
                                beam_width=self.beam_width,
                                length_norm=self.beam_length_norm,
-                               plain=self.plain)
+                               plain=self.plain, feat=feat)
         return greedy_decode(model.decoder, out_enc, valid_ratio,
                              max_seq_len=self.max_seq_len,
                              start_idx=start_idx, end_idx=end_idx,
-                             plain=self.plain)
+                             plain=self.plain, feat=feat)
 
     def predict(self, img, valid_ratio=None,
                 bucket_batch: bool = True) -> torch.Tensor:
@@ -380,15 +415,16 @@ def build_recognizer(cfg: Dict[str, Any], device=None,
                      param_dtype: Optional[str] = None) -> TextRecognizer:
     """The recognizer of a model config: ``type`` ABINet builds an
     ``ABINetRecognizer`` (JAX ``apis/recognizer.py:337-348``); NRTR,
-    CRNNNet and EncodeDecodeRecognizer a ``TextRecognizer`` (JAX
-    ``models/recognizers/encode_decode.py:110-111``). The other families
-    are not ported yet. ``device`` defaults to the CUDA device (see
-    :class:`TextRecognizer`)."""
+    CRNNNet, SARNet, RobustScanner and EncodeDecodeRecognizer a
+    ``TextRecognizer`` (JAX ``models/recognizers/encode_decode.py:110-111``).
+    The other families (SATRN, SegRecognizer) are not ported yet.
+    ``device`` defaults to the CUDA device (see :class:`TextRecognizer`)."""
     type_name = cfg.get('type', 'EncodeDecodeRecognizer')
     if type_name == 'ABINet':
         from .abinet import ABINetRecognizer
         return ABINetRecognizer(cfg, device, param_dtype)
-    if type_name not in ('NRTR', 'CRNNNet', 'EncodeDecodeRecognizer'):
+    if type_name not in ('NRTR', 'CRNNNet', 'SARNet', 'RobustScanner',
+                         'EncodeDecodeRecognizer'):
         raise NotImplementedError(
             f'recognizer type {type_name!r} is not ported yet')
     return TextRecognizer(cfg, device, param_dtype)

@@ -1,5 +1,5 @@
 """Cross-entropy recognition losses (counterpart of
-``tps_pp_tpu/losses/ce.py:27-98``): ``CELoss`` and ``TFLoss``.
+``tps_pp_tpu/losses/ce.py:27-98``): ``CELoss``, ``SARLoss`` and ``TFLoss``.
 
 The reduction is the reference's end to end: with ``reduction='none'`` (the
 default of both) the per-position losses are averaged over ALL positions,
@@ -69,6 +69,19 @@ class TFLoss(CELoss):
                  **kwargs):
         super().__init__(ignore_index, reduction)
         self.flatten = flatten
+
+    def format(self, outputs, targets):
+        return outputs[:, :-1, :], targets[:, 1:]
+
+
+@LOSSES.register_module()
+class SARLoss(CELoss):
+    """SAR's and RobustScanner's loss: the logits of steps 0..T-2 against
+    the targets of steps 1..T-1, averaged over the positions that are not
+    ignored (``reduction='mean'``; reference ce_loss.py:86-96)."""
+
+    def __init__(self, ignore_index=0, reduction='mean', **kwargs):
+        super().__init__(ignore_index, reduction)
 
     def format(self, outputs, targets):
         return outputs[:, :-1, :], targets[:, 1:]

@@ -1,4 +1,5 @@
+from .resnet31 import ResNet31OCR
 from .resnet_abi import ResNetABI, ResNetABI_v2_large
 from .vgg import VeryDeepVgg
 
-__all__ = ['ResNetABI', 'ResNetABI_v2_large', 'VeryDeepVgg']
+__all__ = ['ResNet31OCR', 'ResNetABI', 'ResNetABI_v2_large', 'VeryDeepVgg']

@@ -2,10 +2,14 @@
 (counterpart of ``tps_pp_tpu/models/decoders/base.py``: ``greedy_decode``,
 the ``steps`` path, and ``beam_decode``).
 
-An autoregressive decoder implements ``decode_init(out_enc, valid_ratio)
--> (carry, static)`` and ``decode_step(token, t, carry, static, plain) ->
-(probs, carry)``. ``greedy_decode`` feeds each step's argmax (first index
-on ties) back in; ``plain`` asks the step for its kernels' plain versions.
+An autoregressive decoder implements ``decode_init(out_enc, valid_ratio,
+feat=None) -> (carry, static)`` and ``decode_step(token, t, carry, static,
+plain) -> (probs, carry)``. ``feat``, the backbone's feature map, is what
+SAR's and RobustScanner's attention reads (JAX ``decode_init(feat,
+out_enc, valid_ratio)``); both decodes hand it to ``decode_init`` when they
+are given it, and a decoder that does not read it (NRTR) ignores it.
+``greedy_decode`` feeds each step's argmax (first index on ties) back in;
+``plain`` asks the step for its kernels' plain versions.
 With ``end_idx`` it stops once every row has emitted it; the steps it
 skips read back as zeros, as in the JAX loop.
 
@@ -28,13 +32,26 @@ import torch
 EXIT_LAG = 2
 
 
+def _rows(feat, out_enc):
+    x = feat if feat is not None else out_enc
+    return x.shape[0], x.device
+
+
+def _feat_kw(feat):
+    """``decode_init``'s keyword for ``feat``, none without one, so that a
+    decoder that takes no ``feat`` is called as before."""
+    return {} if feat is None else {'feat': feat}
+
+
 def greedy_decode(decoder, out_enc: torch.Tensor, valid_ratio, *,
                   max_seq_len: int, start_idx: int,
                   end_idx: Optional[int] = None,
-                  plain: bool = False) -> torch.Tensor:
+                  plain: bool = False,
+                  feat: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Returns (N, max_seq_len, C') float32 per-step probabilities."""
-    N, dev = out_enc.shape[0], out_enc.device
-    carry, static = decoder.decode_init(out_enc, valid_ratio)
+    N, dev = _rows(feat, out_enc)
+    carry, static = decoder.decode_init(out_enc, valid_ratio,
+                                        **_feat_kw(feat))
     token = torch.full((N,), start_idx, dtype=torch.long, device=dev)
     done = torch.zeros((N,), dtype=torch.bool, device=dev)
     cuda = dev.type == 'cuda'
@@ -85,7 +102,8 @@ def _first_exit(flags, events, lo, hi):
 def beam_decode(decoder, out_enc: torch.Tensor, valid_ratio, *,
                 max_seq_len: int, start_idx: int, beam_width: int = 5,
                 length_norm: bool = False, plain: bool = False,
-                return_ranking: bool = False):
+                return_ranking: bool = False,
+                feat: Optional[torch.Tensor] = None):
     """Beam search over decode_init / decode_step, the JAX package's
     ``beam_decode`` (``tps_pp_tpu/models/decoders/base.py:105-189``) with
     its criterion: beams are ranked by the sum of their tokens' softmax
@@ -100,8 +118,9 @@ def beam_decode(decoder, out_enc: torch.Tensor, valid_ratio, *,
     beam).
 
     The decode runs N * W rows, beam-major within each image: the encoder
-    output and valid ratios are tiled with ``repeat_interleave`` (JAX's
-    ``jnp.repeat(axis=0)``) before ``decode_init``. ``decode_step`` writes
+    output, ``feat`` (where given) and the valid ratios are tiled with
+    ``repeat_interleave`` (JAX's ``jnp.repeat(axis=0)``) before
+    ``decode_init``. ``decode_step`` writes
     its caches in place, so each step's reindex by parent beam copies every
     carry tensor of N * W rows (``index_select``) and never aliases a
     parent's cache.
@@ -110,12 +129,13 @@ def beam_decode(decoder, out_enc: torch.Tensor, valid_ratio, *,
     exact ties, and it is not emulated. On random weights the only exact
     ties are the dead beams at step 0 (all at -1e9), which are never chosen
     while C >= W."""
-    N, dev, W = out_enc.shape[0], out_enc.device, beam_width
+    (N, dev), W = _rows(feat, out_enc), beam_width
     T = max_seq_len
-    vr = None if valid_ratio is None else valid_ratio.repeat_interleave(
-        W, dim=0)
-    carry, static = decoder.decode_init(out_enc.repeat_interleave(W, dim=0),
-                                        vr)
+
+    def tile(x):
+        return None if x is None else x.repeat_interleave(W, dim=0)
+    carry, static = decoder.decode_init(tile(out_enc), tile(valid_ratio),
+                                        **_feat_kw(tile(feat)))
     tokens = torch.full((N * W,), start_idx, dtype=torch.long, device=dev)
     scores = torch.full((N, W), -1e9, dtype=torch.float32, device=dev)
     scores[:, 0] = 0.0

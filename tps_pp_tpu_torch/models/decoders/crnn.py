@@ -21,6 +21,7 @@ from ..layers import BidirectionalLSTM, nchw_to_nhwc, nhwc_to_nchw
 @DECODERS.register_module()
 class CRNNDecoder(nn.Module):
     IS_AUTOREGRESSIVE = False
+    READS_FEAT = True
 
     def __init__(self, in_channels: int = 512, num_classes: int = 37,
                  rnn_flag: bool = False):

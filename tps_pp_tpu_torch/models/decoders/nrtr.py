@@ -37,7 +37,7 @@ import torch.nn as nn
 from ...ops.decode_step import (cross_ffn_step, cross_ffn_step_plain,
                                 self_attn_step, self_attn_step_plain)
 from ...ops.full_decode import (fold_decoder_weights, full_decode,
-                                full_decode_plain)
+                                full_decode_accepts, full_decode_plain)
 from ...registry import DECODERS
 from ..encoders.nrtr import sequence_mask
 from ..layers import weights_stamp
@@ -99,11 +99,12 @@ class NRTRDecoder(nn.Module):
         return self.classifier(self.layer_norm(x))
 
     # ---- steps path ----------------------------------------------------
-    def decode_init(self, out_enc: torch.Tensor, valid_ratio=None):
+    def decode_init(self, out_enc: torch.Tensor, valid_ratio=None,
+                    feat=None):
         """carry: per-layer self-attention K/V caches of max_seq_len + 1
         slots (with ``kv_dtype='int8'``: (k8, k scales, v8, v scales));
         static: per-layer encoder K/V and the source mask, in the form the
-        step takes."""
+        step takes. ``feat`` is not read."""
         N, TE = out_enc.shape[:2]
         T = self.max_seq_len + 1
         enc_kvs = [layer.enc_attn.project_kv(out_enc)
@@ -302,6 +303,15 @@ class NRTRDecoder(nn.Module):
                 pe=self.position_enc.position_table[0, :self.max_seq_len])
             return fold_decoder_weights(raw, self.n_head, dtype)
         return self._cached((self.classifier.weight.device, dtype), make)
+
+    def kernel_accepts(self, tokens: Optional[int] = None) -> bool:
+        """Whether the whole decode's kernels take this decoder over
+        ``tokens`` source tokens an image (None: not asked)
+        (``ops.full_decode.full_decode_accepts``; the fused kernels pack
+        q|k|v in one layout, hence d_k == d_v)."""
+        return self.d_k == self.d_v and full_decode_accepts(
+            self.d_model, self.d_k, self.layer_stack[0].mlp.w_1.out_features,
+            self.max_seq_len, tokens, self.classifier.out_features)
 
     def fused_full_decode(self, out_enc: torch.Tensor, valid_ratio=None,
                           end_idx: Optional[int] = None,

@@ -1,5 +1,6 @@
 from .abi import ABIVisionModel, PostNormTransformerLayer, TransformerEncoder
 from .nrtr import NRTREncoder
+from .sar import ChannelReductionEncoder, SAREncoder
 
-__all__ = ['ABIVisionModel', 'NRTREncoder', 'PostNormTransformerLayer',
-           'TransformerEncoder']
+__all__ = ['ABIVisionModel', 'ChannelReductionEncoder', 'NRTREncoder',
+           'PostNormTransformerLayer', 'SAREncoder', 'TransformerEncoder']

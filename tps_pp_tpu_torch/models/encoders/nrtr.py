@@ -20,10 +20,16 @@ import torch
 import torch.nn as nn
 
 from ...ops.encoder import (encoder_forward, encoder_forward_plain,
-                            fold_encoder_weights)
+                            encoder_kernel_accepts, fold_encoder_weights)
 from ...registry import ENCODERS
 from ..layers import weights_stamp
 from ..transformer import TFEncoderLayer
+
+
+def valid_steps(valid_ratio: torch.Tensor, T: int) -> torch.Tensor:
+    """(N,) ratios -> (N,) long ``min(T, ceil(T * ratio))``, the valid
+    length of each row on an axis of T (a float32 product, as JAX)."""
+    return torch.clamp(torch.ceil(T * valid_ratio.float()), max=T).long()
 
 
 def sequence_mask(valid_ratio: Optional[torch.Tensor], T: int):
@@ -31,10 +37,8 @@ def sequence_mask(valid_ratio: Optional[torch.Tensor], T: int):
     None passes through."""
     if valid_ratio is None:
         return None
-    vr = valid_ratio.float()
-    valid = torch.clamp(torch.ceil(T * vr), max=T)
-    idx = torch.arange(T, device=vr.device)[None, :]
-    return (idx < valid[:, None]).float()
+    idx = torch.arange(T, device=valid_ratio.device)[None, :]
+    return (idx < valid_steps(valid_ratio, T)[:, None]).float()
 
 
 @ENCODERS.register_module()
@@ -49,6 +53,16 @@ class NRTREncoder(nn.Module):
             for _ in range(n_layers)])
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-5)
         self._folded: Dict = {}
+
+    def kernel_accepts(self, tokens: Optional[int] = None) -> bool:
+        """Whether kernel 3 takes this encoder over ``tokens`` tokens an
+        image (None: not asked) (``ops.encoder.encoder_kernel_accepts``)."""
+        first = self.layer_stack[0]
+        D = first.norm1.normalized_shape[0]
+        HD = first.attn.linear_q.out_features
+        return encoder_kernel_accepts(tokens, D, self.n_head,
+                                      HD // self.n_head,
+                                      first.mlp.w_1.out_features)
 
     def folded_weights(self, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
         """All layers' weights stacked in (in, out) layout with the

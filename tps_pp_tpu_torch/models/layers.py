@@ -13,12 +13,15 @@ are those of the global batch.
 from __future__ import annotations
 
 import itertools
-from typing import Tuple, Union
+import warnings
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .transformer import dropout as _dropout
 
 
 def _pair(v):
@@ -145,18 +148,25 @@ class ConvModule(nn.Module):
 
 
 class BasicBlock(nn.Module):
-    """ResNet basic block in its ``use_conv1x1`` form, the one the ABINet
-    trunks use: conv1x1 -> conv3x3 with the stride on the 3x3 (reference
-    conv_layer.py:31-33). ``downsample`` is the reference's
+    """ResNet basic block (JAX ``tps_pp_tpu/models/layers.py:67-105``). With
+    ``use_conv1x1`` (the default here, the form the ABINet trunks use) it is
+    conv1x1 -> conv3x3 with the stride on the 3x3 (reference
+    conv_layer.py:31-33); without it, conv3x3 -> conv3x3 with the stride on
+    the first, ResNet31's form. ``downsample`` is the reference's
     ``Sequential(conv1x1, bn)`` shortcut."""
 
     def __init__(self, inplanes: int, planes: int,
                  stride: Union[int, Tuple[int, int]] = 1,
-                 use_downsample: bool = False):
+                 use_downsample: bool = False, use_conv1x1: bool = True):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride=_pair(stride),
-                               padding=1, bias=False)
+        if use_conv1x1:
+            self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+            self.conv2 = nn.Conv2d(planes, planes, 3, stride=_pair(stride),
+                                   padding=1, bias=False)
+        else:
+            self.conv1 = nn.Conv2d(inplanes, planes, 3, stride=_pair(stride),
+                                   padding=1, bias=False)
+            self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
         self.bn1 = BatchNorm2d(planes, eps=1e-5)
         self.bn2 = BatchNorm2d(planes, eps=1e-5)
         self.downsample = nn.Sequential(
@@ -211,14 +221,17 @@ def max_pool(x: torch.Tensor, window, stride, padding=0) -> torch.Tensor:
     return F.max_pool2d(x, _pair(window), _pair(stride), _pair(padding))
 
 
-class Float32LSTM(nn.LSTM):
-    """``nn.LSTM`` that stays in float32 (or wider) whatever the model is
+class _Float32Island:
+    """Keeps a recurrent module in float32 (or wider) whatever the model is
     cast to: a named float32 island, as the attention scores are one. A
-    bf16 model's LSTM keeps float32 weights and runs on float32 inputs,
-    outside autocast, so that cuDNN's recurrence is the float32 one on
-    every model (the JAX package runs its scan in the model's dtype; the
-    CRNN decoder's 26 steps carry their state in float32 here). The
-    ``state_dict`` keys and shapes are ``nn.LSTM``'s."""
+    bf16 model's recurrence keeps float32 weights and state and runs on
+    float32 inputs, outside autocast, so that it is the float32 one on every
+    model (the JAX package runs its scans in the model's dtype). Why the
+    port keeps it so: the CRNN decoder and SAR's / RobustScanner's
+    recurrences are short (26-40 steps over at most 512 units), their
+    arithmetic small beside the trunk's, while a bf16 state would round the
+    carried cell state at every step of the decode. The ``state_dict`` keys
+    and shapes are torch's."""
 
     def _apply(self, fn, recurse=True):
         def keep_wide(t):
@@ -228,11 +241,94 @@ class Float32LSTM(nn.LSTM):
             return out
         return super()._apply(keep_wide, recurse)
 
+
+class _Float32RNN(_Float32Island):
+    """``forward`` and a layer-by-layer run for ``nn.LSTM`` / ``nn.GRU``."""
+
     def forward(self, x, hx=None):
-        """x (N, T, In) in any float dtype -> (out (N, T, D * H), (h, c))
-        in the LSTM's dtype."""
+        """x (N, T, In) in any float dtype -> (out (N, T, D * H), state) in
+        the module's dtype."""
         with torch.autocast(x.device.type, enabled=False):
             return super().forward(x.to(self.weight_ih_l0.dtype), hx)
+
+    def run_layers(self, x: torch.Tensor, rate: float = 0.0,
+                   rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The stacked layers on x (N, T, In) from zero states, with
+        ``dropout(rate, rng)`` on the output of every layer but the last,
+        as torch's ``dropout=`` and the JAX package's scans apply it in
+        training, its masks from ``rng`` (the port's explicit generator).
+        Returns the last layer's outputs (N, T, D * H) in the module's
+        dtype. At rate 0 it is ``forward``'s one call."""
+        if rate == 0.0 or self.num_layers == 1:
+            return self(x)[0]
+        dirs = 2 if self.bidirectional else 1
+        per_layer = len(self._flat_weights) // self.num_layers
+        fn = torch.lstm if isinstance(self, nn.LSTM) else torch.gru
+        with torch.autocast(x.device.type, enabled=False), \
+                warnings.catch_warnings():
+            # cuDNN copies one layer's four weights into a buffer of its own
+            # at each call (a few MB) and warns that it does
+            warnings.filterwarnings('ignore', 'RNN module weights are not')
+            y = x.to(self.weight_ih_l0.dtype)
+            for k in range(self.num_layers):
+                if k:
+                    y = _dropout(y, rate, rng)
+                w = self._flat_weights[k * per_layer:(k + 1) * per_layer]
+                h0 = y.new_zeros((dirs, y.shape[0], self.hidden_size))
+                hx = (h0, h0) if isinstance(self, nn.LSTM) else h0
+                y = fn(y, hx, w, True, 1, 0.0, self.training,
+                       self.bidirectional, True)[0]
+        return y
+
+    def cell_step(self, layer: int, x: torch.Tensor, h: torch.Tensor,
+                  c: torch.Tensor):
+        """One step of layer ``layer`` (forward direction) on x (N, In):
+        :func:`rnn_cell_step` with that layer's weights."""
+        return rnn_cell_step(
+            x, h, c, *(getattr(self, f'{n}_l{layer}') for n in (
+                'weight_ih', 'weight_hh', 'bias_ih', 'bias_hh')),
+            gru=isinstance(self, nn.GRU))
+
+
+class Float32LSTM(_Float32RNN, nn.LSTM):
+    """``nn.LSTM`` as a float32 island (:class:`_Float32Island`)."""
+
+
+class Float32GRU(_Float32RNN, nn.GRU):
+    """``nn.GRU`` as a float32 island (:class:`_Float32Island`)."""
+
+
+class _Float32Cell(_Float32Island):
+    def step(self, x, h, c):
+        """:func:`rnn_cell_step` with the cell's weights."""
+        return rnn_cell_step(x, h, c, self.weight_ih, self.weight_hh,
+                             self.bias_ih, self.bias_hh,
+                             gru=isinstance(self, nn.GRUCell))
+
+
+class Float32LSTMCell(_Float32Cell, nn.LSTMCell):
+    """``nn.LSTMCell`` as a float32 island (:class:`_Float32Island`)."""
+
+
+class Float32GRUCell(_Float32Cell, nn.GRUCell):
+    """``nn.GRUCell`` as a float32 island; ``step`` returns (h, h)."""
+
+
+def rnn_cell_step(x, h, c, w_ih, w_hh, b_ih, b_hh, gru: bool = False):
+    """One step of a torch-gate LSTM cell (gate order i, f, g, o; both
+    biases) or, with ``gru``, GRU cell (r, z, n; b_hn inside the reset
+    product), in the weights' dtype (float32 or wider: the island), outside
+    autocast; x (N, In) and the state (N, H) are cast to it. Returns the new
+    (h, c); the GRU returns (h, h), so that the carried c slot stays inert,
+    as the reference's ``hx = cx = GRUCell(...)`` (JAX
+    ``tps_pp_tpu/models/decoders/robust_scanner.py:26-52``)."""
+    dt = w_ih.dtype
+    with torch.autocast(x.device.type, enabled=False):
+        x, h = x.to(dt), h.to(dt)
+        if gru:
+            h = torch.gru_cell(x, h, w_ih, w_hh, b_ih, b_hh)
+            return h, h
+        return torch.lstm_cell(x, (h, c.to(dt)), w_ih, w_hh, b_ih, b_hh)
 
 
 class BidirectionalLSTM(nn.Module):

@@ -7,8 +7,9 @@ stage: ``x, skips = backbone.stem_and_head(img)``,
 ``x = tpsnet(x, skips)['output']``, ``x = backbone.tail(x)``; without one
 the backbone runs whole. Images and features are NHWC at these
 boundaries. ``forward`` is the training pass (JAX ``encode_decode.py:
-63-69``): with an encoder the decoder takes ``(out_enc, targets, ...)``
-(NRTR), without one ``(feat, None, targets, ...)`` (CRNN).
+63-69``): a decoder with ``READS_FEAT`` (CRNN, SAR, RobustScanner) takes
+``(feat, out_enc, targets, ...)``, out_enc None without an encoder; NRTR's
+takes ``(out_enc, targets, ...)``.
 ``forward_test_nar`` is the single pass of a non-autoregressive decoder.
 """
 from __future__ import annotations
@@ -52,13 +53,15 @@ class EncodeDecodeRecognizer(nn.Module):
                 valid_ratio=None, rng: Optional[torch.Generator] = None,
                 plain: bool = False) -> torch.Tensor:
         """Training logits of img (N, H, W, C) against targets (N, T):
-        teacher-forced (N, T, C-1) for NRTR, the single pass's for CRNN.
+        teacher-forced (N, T, C-1) for the autoregressive decoders, the
+        single pass's for CRNN.
         ``rng`` draws the dropout masks in train mode, ``plain`` makes the
         warps take the plain versions."""
         feat = self.extract_feat(img, plain=plain)
-        if self.encoder is None:
-            return self.decoder(feat, None, targets, valid_ratio, rng=rng)
-        out_enc = self.encoder(feat, valid_ratio, rng=rng)
+        out_enc = (None if self.encoder is None
+                   else self.encoder(feat, valid_ratio, rng=rng))
+        if getattr(self.decoder, 'READS_FEAT', False):
+            return self.decoder(feat, out_enc, targets, valid_ratio, rng=rng)
         return self.decoder(out_enc, targets, valid_ratio, rng=rng)
 
     def encode_full(self, img, valid_ratio=None, plain: bool = False,
@@ -66,9 +69,12 @@ class EncodeDecodeRecognizer(nn.Module):
         """(feat, out_enc) of the module path, out_enc None without an
         encoder; ``plain`` and ``stem`` as in :meth:`extract_feat`."""
         feat = self.extract_feat(img, plain=plain, stem=stem)
-        if self.encoder is None:
-            return feat, None
-        return feat, self.encoder(feat, valid_ratio)
+        return feat, self.encode(feat, valid_ratio)
+
+    def encode(self, feat, valid_ratio=None):
+        """The encoder's output of feat, None without an encoder."""
+        return None if self.encoder is None else self.encoder(feat,
+                                                              valid_ratio)
 
     def forward_test_nar(self, img, valid_ratio=None,
                          plain: bool = False) -> torch.Tensor:
@@ -81,14 +87,16 @@ class EncodeDecodeRecognizer(nn.Module):
                           end_idx: Optional[int] = None,
                           plain: bool = False,
                           enc_dtype: str = 'bfloat16',
-                          stem=None) -> torch.Tensor:
+                          stem=None, feat=None) -> torch.Tensor:
         """The serving path: rectifier sampler, whole encoder and whole
         decode through the ops (kernels on CUDA tensors); ``plain`` runs
         the same functions through their plain PyTorch versions;
         ``enc_dtype`` is the decode's encoder K/V type (``'bfloat16'`` or
-        ``'int8'``); ``stem`` as in :meth:`extract_feat`. Returns (N, S,
-        C-1) float32 probabilities."""
-        feat = self.extract_feat(img, plain=plain, stem=stem)
+        ``'int8'``); ``stem`` as in :meth:`extract_feat`; ``feat``, the
+        output of :meth:`extract_feat` where it is computed already. Returns
+        (N, S, C-1) float32 probabilities."""
+        if feat is None:
+            feat = self.extract_feat(img, plain=plain, stem=stem)
         out_enc = self.encoder(feat, valid_ratio, fused=True, plain=plain)
         return self.decoder.fused_full_decode(out_enc, valid_ratio,
                                               end_idx=end_idx, plain=plain,

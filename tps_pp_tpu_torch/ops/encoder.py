@@ -21,6 +21,21 @@ import torch.nn.functional as F
 from . import _lib
 
 NEG_INF = -1e9
+# kernel 3's shape limits: the constants of csrc/encoder.cu (kT, kDk) and
+# csrc/gemm.cuh (kGemmLnWidth) that tpk_encoder_forward checks
+KERNEL_TOKENS, KERNEL_DK, KERNEL_D = 64, 64, 512
+
+
+def encoder_kernel_accepts(T: Optional[int], D: int, n_head: int, DK: int,
+                           DI: int) -> bool:
+    """Whether kernel 3 takes an encoder of these shapes: T tokens an image
+    (None: not asked), d_model D, n_head heads of DK, FFN width DI. The
+    check of ``csrc/encoder.cu`` ``tpk_encoder_forward``, which
+    :func:`encoder_forward` makes before it launches."""
+    HD = n_head * DK
+    return ((T is None or T == KERNEL_TOKENS) and DK == KERNEL_DK
+            and D == KERNEL_D and n_head >= 1 and (3 * HD) % 256 == 0
+            and DI >= 256 and DI % 256 == 0)
 
 
 def ln_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -137,7 +152,8 @@ def encoder_forward(x: torch.Tensor, mask: Optional[torch.Tensor],
     """The kernels on CUDA tensors (bf16 tokens and weights), the plain
     version on CPU tensors. Same arguments as
     :func:`encoder_forward_plain`. The kernels' limits (64 tokens an image,
-    d_k 64, d_model 512, ...) are checked at their entry point,
+    d_k 64, d_model 512, ...; :func:`encoder_kernel_accepts`) raise a
+    ``ValueError`` here, and are checked again at their entry point,
     ``csrc/encoder.cu`` ``tpk_encoder_forward``."""
     if x.device.type == 'cpu':
         return encoder_forward_plain(x, mask, w, n_head)
@@ -160,6 +176,11 @@ def encoder_forward(x: torch.Tensor, mask: Optional[torch.Tensor],
     if HD != n_head * DK:
         raise ValueError(f'encoder_forward: n_head {n_head} does not divide '
                          f'the attention width {HD}')
+    if not encoder_kernel_accepts(T, D, n_head, DK, DI):
+        raise ValueError(f'encoder_forward: needs {KERNEL_TOKENS} tokens an '
+                         f'image, d_k {KERNEL_DK}, d_model {KERNEL_D}, 3 x '
+                         f'the attention width and d_inner multiples of 256; '
+                         f'got T={T}, d_k={DK}, D={D}, H={n_head}, DI={DI}')
     M = N * T
     x32 = torch.empty((M, D), dtype=f32, device=dev)
     y = torch.empty((M, D), dtype=bf, device=dev)

@@ -70,6 +70,18 @@ def _dims(w, n_head):
                 NC=w['wcls'].shape[1])
 
 
+def full_decode_accepts(D: int, DK: int, DI: int, S: int,
+                        TE: Optional[int], NC: int, N: int = 1) -> bool:
+    """Whether kernels 4-5 take a decode of these shapes: d_model D, heads
+    of DK, FFN width DI, S steps, TE source tokens an image (None: not
+    asked), NC classes, N rows. The check :func:`full_decode` makes before
+    it launches (``csrc/full_decode.cu`` ``tpk_full_decode`` checks it
+    again)."""
+    return (DK == 64 and D % 64 == 0 and DI % 64 == 0 and D <= 1024
+            and S <= 256 and (TE is None or 1 <= TE <= 256) and N >= 1
+            and (D + NC) * 4 <= 48 * 1024)
+
+
 def quantize_enc_kv(ekv: torch.Tensor, dk: int):
     """(rows, L*2*H*dk) encoder K/V, columns [K | V] per layer and heads of
     dk columns -> (int8 values, float32 scales (L*2*H,), index
@@ -387,8 +399,7 @@ def full_decode(out_enc: torch.Tensor, src_mask: torch.Tensor,
         'w1': (w['w1'], (L, D, DI), bf), 'b1': (w['b1'], (L, DI), f32),
         'w2': (w['w2'], (L, DI, D), bf), 'b2': (w['b2'], (L, D), f32),
         'wcls': (w['wcls'], (D, NC), bf), 'bcls': (w['bcls'], (NC,), f32)})
-    if DK != 64 or D % 64 or DI % 64 or D > 1024 or S > 256 or TE > 256 \
-            or N < 1 or TE < 1 or (D + NC) * 4 > 48 * 1024:
+    if not full_decode_accepts(D, DK, DI, S, TE, NC, N):
         raise ValueError(f'full_decode: needs d_k == 64, d_model and d_inner '
                          f'multiples of 64, d_model <= 1024, at most 256 '
                          f'steps and source tokens, at least one row and '

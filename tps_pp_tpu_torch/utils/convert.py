@@ -12,6 +12,7 @@ requires the original variables bit for bit.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
@@ -40,6 +41,94 @@ def resnet_abi_rules(arch=(3, 4, 6, 6, 3)) -> List[Rule]:
                            'conv_nobias'),
                           (f'{tp}.downsample.1', f'{fp}/downsample_bn', 'bn')]
     return rules
+
+
+def resnet31_rules(layers=(1, 2, 5, 3)) -> List[Rule]:
+    """ResNet31OCR (JAX ``torch_convert.py:509-539``): the reference's
+    ``conv1_1`` / ``bn1_1``, ``conv1_2`` / ``bn1_2``, ``block{k}.{b}``
+    (with ``downsample.{0,1}`` where the width changes) and ``conv{k}`` /
+    ``bn{k}``."""
+    rules = [('backbone.conv1_1', 'backbone/stem1/conv', 'conv'),
+             ('backbone.bn1_1', 'backbone/stem1/bn', 'bn'),
+             ('backbone.conv1_2', 'backbone/stem2/conv', 'conv'),
+             ('backbone.bn1_2', 'backbone/stem2/bn', 'bn')]
+    for si, blocks in enumerate(layers):
+        k = si + 2
+        for b in range(blocks):
+            tp, bp = f'backbone.block{k}.{b}', f'backbone/block{k}/block{b}'
+            rules += [(f'{tp}.conv1', f'{bp}/conv1', 'conv_nobias'),
+                      (f'{tp}.bn1', f'{bp}/bn1', 'bn'),
+                      (f'{tp}.conv2', f'{bp}/conv2', 'conv_nobias'),
+                      (f'{tp}.bn2', f'{bp}/bn2', 'bn'),
+                      (f'{tp}.downsample.0', f'{bp}/downsample_conv',
+                       'conv_nobias'),
+                      (f'{tp}.downsample.1', f'{bp}/downsample_bn', 'bn')]
+        rules += [(f'backbone.conv{k}', f'backbone/conv{k}/conv', 'conv'),
+                  (f'backbone.bn{k}', f'backbone/conv{k}/bn', 'bn')]
+    return rules
+
+
+def sar_rules(enc_bi_rnn: bool = False) -> List[Rule]:
+    """SAREncoder + ParallelSARDecoder (JAX ``torch_convert.py:335-353``):
+    the encoder's two scans from one two-layer ``rnn_encoder`` (with
+    ``enc_bi_rnn`` also their reverse directions, a rule the JAX table has
+    not), ``linear``, and the decoder's ``conv1x1_1`` / ``conv3x3_1`` /
+    ``conv1x1_2``, its two scans from one two-layer ``rnn_decoder``,
+    ``embedding`` and ``prediction``."""
+    rules = [('encoder.rnn_encoder', 'encoder/rnn0_fwd', 'lstm'),
+             ('encoder.rnn_encoder', 'encoder/rnn1_fwd', 'lstm_l1')]
+    if enc_bi_rnn:
+        rules += [('encoder.rnn_encoder', 'encoder/rnn0_bwd', 'lstm_reverse'),
+                  ('encoder.rnn_encoder', 'encoder/rnn1_bwd',
+                   'lstm_l1_reverse')]
+    return rules + [
+        ('encoder.linear', 'encoder/linear', 'linear'),
+        ('decoder.conv1x1_1', 'decoder/conv1x1_1', 'linear'),
+        ('decoder.conv3x3_1', 'decoder/conv3x3_1', 'conv'),
+        ('decoder.conv1x1_2', 'decoder/conv1x1_2', 'linear'),
+        ('decoder.rnn_decoder', 'decoder/rnn0', 'lstm'),
+        ('decoder.rnn_decoder', 'decoder/rnn1', 'lstm_l1'),
+        ('decoder.embedding', 'decoder/embedding', 'embed'),
+        ('decoder.prediction', 'decoder/prediction', 'linear')]
+
+
+def sequential_sar_rules() -> List[Rule]:
+    """SequentialSARDecoder (JAX ``torch_convert.py:356-372``): the same
+    flax modules from the reference's cells ``rnn_decoder_layer1/2`` and
+    1x1 ``Conv2d`` projections."""
+    return [
+        ('decoder.conv1x1_1', 'decoder/conv1x1_1', 'conv1x1_as_dense'),
+        ('decoder.conv3x3_1', 'decoder/conv3x3_1', 'conv'),
+        ('decoder.conv1x1_2', 'decoder/conv1x1_2', 'conv1x1_as_dense'),
+        ('decoder.rnn_decoder_layer1', 'decoder/rnn0', 'lstm_cell'),
+        ('decoder.rnn_decoder_layer2', 'decoder/rnn1', 'lstm_cell'),
+        ('decoder.embedding', 'decoder/embedding', 'embed'),
+        ('decoder.prediction', 'decoder/prediction', 'linear')]
+
+
+def robust_scanner_rules(rnn_layers: int = 2) -> List[Rule]:
+    """ChannelReductionEncoder + RobustScannerDecoder (JAX
+    ``torch_convert.py:412-439``): the hybrid branch's ``embedding`` and
+    its scans from one stacked ``sequence_layer``, the position branch's
+    ``embedding``, the position-aware module's scans from one stacked
+    ``rnn`` and its ``mixer.0`` / ``mixer.2``, the fusion and the
+    classifier."""
+    hd, pd = 'decoder.hybrid_decoder', 'decoder.position_decoder'
+    pam, fpam = (f'{pd}.position_aware_module',
+                 'decoder/position/position_aware_module')
+    rules = [('encoder.layer', 'encoder/layer', 'conv'),
+             (f'{hd}.embedding', 'decoder/hybrid/embedding', 'embed')]
+    rules += [(f'{hd}.sequence_layer', f'decoder/hybrid/rnns_{i}',
+               f'lstm_l{i}' if i else 'lstm') for i in range(rnn_layers)]
+    rules.append((f'{pd}.embedding', 'decoder/position/embedding', 'embed'))
+    rules += [(f'{pam}.rnn', f'{fpam}/rnn{i}', f'lstm_l{i}' if i else 'lstm')
+              for i in range(rnn_layers)]
+    return rules + [
+        (f'{pam}.mixer.0', f'{fpam}/mixer0', 'conv'),
+        (f'{pam}.mixer.2', f'{fpam}/mixer1', 'conv'),
+        ('decoder.fusion_module.linear_layer',
+         'decoder/fusion_module/linear_layer', 'linear'),
+        ('decoder.prediction', 'decoder/prediction', 'linear')]
 
 
 def tps_pp_rules() -> List[Rule]:
@@ -225,15 +314,21 @@ def _abinet_position_tables(cfg: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def rules_for_config(cfg: Mapping) -> List[Rule]:
-    """The rule table of an NRTR, ABINet (+ TPS_PP) or CRNN (+ TPS-STN)
-    recognizer config."""
+    """The rule table of an NRTR, ABINet (+ TPS_PP), CRNN (+ TPS-STN), SAR
+    (parallel, sequential, beam search) or RobustScanner recognizer
+    config, on a ResNetABI or ResNet31OCR trunk."""
     pre = ((cfg.get('preprocessor') or {}).get('type') == 'TPSPreprocessor')
     pre_rules = tps_preprocessor_rules() if pre else []
     dec = cfg.get('decoder') or {}
     if dec.get('type') == 'CRNNDecoder':
         return pre_rules + crnn_rules(bool(dec.get('rnn_flag', False)))
-    rules = pre_rules + resnet_abi_rules(tuple(cfg['backbone'].get(
-        'arch_settings', (3, 4, 6, 6, 3))))
+    bb = cfg['backbone']
+    if bb.get('type') == 'ResNet31OCR':
+        rules = pre_rules + resnet31_rules(tuple(bb.get('layers',
+                                                        (1, 2, 5, 3))))
+    else:
+        rules = pre_rules + resnet_abi_rules(tuple(bb.get(
+            'arch_settings', (3, 4, 6, 6, 3))))
     if cfg.get('tpsnet'):
         rules += tps_pp_rules()
     if cfg.get('type') == 'ABINet':
@@ -242,8 +337,22 @@ def rules_for_config(cfg: Mapping) -> List[Rule]:
             int(vision.get('n_layers', 3)),
             int((cfg.get('decoder') or {}).get('n_layers', 4)),
             language=bool(cfg.get('decoder')), fuser=bool(cfg.get('fuser')))
-    rules += nrtr_encoder_rules(int(cfg['encoder'].get('n_layers', 6)))
-    return rules + nrtr_decoder_rules(int(cfg['decoder'].get('n_layers', 6)))
+    enc = cfg.get('encoder') or {}
+    if enc.get('type') == 'SAREncoder':
+        rules += [r for r in sar_rules(bool(enc.get('enc_bi_rnn', False)))
+                  if r[0].startswith('encoder.')]
+    elif enc.get('type') == 'ChannelReductionEncoder':
+        rules.append(('encoder.layer', 'encoder/layer', 'conv'))
+    elif enc:
+        rules += nrtr_encoder_rules(int(enc.get('n_layers', 6)))
+    if dec.get('type') in ('ParallelSARDecoder', 'ParallelSARDecoderWithBS'):
+        return rules + [r for r in sar_rules() if r[0].startswith('decoder.')]
+    if dec.get('type') == 'SequentialSARDecoder':
+        return rules + sequential_sar_rules()
+    if dec.get('type') == 'RobustScannerDecoder':
+        return rules + [r for r in robust_scanner_rules()
+                        if r[0].startswith('decoder.')]
+    return rules + nrtr_decoder_rules(int(dec.get('n_layers', 6)))
 
 
 def _leaf(tree, path: str):
@@ -252,6 +361,9 @@ def _leaf(tree, path: str):
             return None
         tree = tree[part]
     return np.asarray(tree)
+
+
+_LSTM_KIND = re.compile(r'lstm(?:_l(\d+))?(_reverse)?')
 
 
 def _torch_entries(kind: str, get) -> Dict[str, np.ndarray]:
@@ -272,11 +384,17 @@ def _torch_entries(kind: str, get) -> Dict[str, np.ndarray]:
                'num_batches_tracked': np.zeros((), np.int64)}
     elif kind == 'embed':
         return {'weight': get('params', 'embedding')}
-    elif kind in ('lstm', 'lstm_reverse'):
-        # the inverse of JAX's 'lstm' kinds: one direction of a one-layer
-        # torch nn.LSTM, gate order i, f, g, o in both
-        sfx = '_reverse' if kind == 'lstm_reverse' else ''
-        return {f'{n}_l0{sfx}': get('params', n)
+    elif _LSTM_KIND.fullmatch(kind):
+        # the inverse of JAX's 'lstm' kinds: one direction of one layer of
+        # a torch nn.LSTM (or nn.GRU: the same names), 'lstm_l{k}' the
+        # layer k, gate order i, f, g, o (r, z, n) in both
+        m = _LSTM_KIND.fullmatch(kind)
+        sfx = f'_l{m.group(1) or 0}{m.group(2) or ""}'
+        return {f'{n}{sfx}': get('params', n)
+                for n in ('weight_ih', 'weight_hh', 'bias_ih', 'bias_hh')}
+    elif kind == 'lstm_cell':
+        # a torch LSTMCell / GRUCell: one layer's weights, unsuffixed
+        return {n: get('params', n)
                 for n in ('weight_ih', 'weight_hh', 'bias_ih', 'bias_hh')}
     elif kind == 'torch_mha':
         # the inverse of JAX's 'torch_mha' rule: q;k;v rows packed
@@ -301,9 +419,9 @@ def convert_rules(variables: Mapping, rules: List[Rule]
     in ``variables``; only a stage's optional downsample may be absent."""
     sd = {}
     for tp, fp, kind in rules:
-        probe = {'ln': 'scale', 'bn': 'scale', 'embed': 'embedding',
-                 'torch_mha': 'fc/kernel', 'lstm': 'weight_ih',
-                 'lstm_reverse': 'weight_ih'}.get(kind, 'kernel')
+        probe = ('weight_ih' if kind.startswith('lstm') else
+                 {'ln': 'scale', 'bn': 'scale', 'embed': 'embedding',
+                  'torch_mha': 'fc/kernel'}.get(kind, 'kernel'))
         if _leaf(variables['params'], f'{fp}/{probe}') is None:
             if '.downsample.' in tp:
                 continue
@@ -318,8 +436,8 @@ def convert_rules(variables: Mapping, rules: List[Rule]
 def state_dict_from_jax(variables: Mapping, cfg: Mapping
                         ) -> Dict[str, torch.Tensor]:
     """JAX recognizer variables -> a ``state_dict`` that the model of
-    ``build_recognizer(cfg)`` (NRTR, ABINet or CRNN) takes with
-    ``load_state_dict(strict=True)``."""
+    ``build_recognizer(cfg)`` (NRTR, ABINet, CRNN, SAR or RobustScanner)
+    takes with ``load_state_dict(strict=True)``."""
     sd = convert_rules(variables, rules_for_config(cfg))
     if cfg.get('type') == 'ABINet':
         sd.update(_abinet_position_tables(cfg))
