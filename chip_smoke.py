@@ -146,10 +146,39 @@ seed):
   within ``SAR_GRAD_NORM_RTOL``. ``init_recognizer`` from the SAR config
   and a ``.pth``, ``model_inference`` on 64 uint8 crops (heights 16-64,
   widths 24-400): the texts of ``simple_test`` on the pipeline's batch.
-  The NRTR configs on ResNet31 (``NRTR_R31_CONFIGS``) in bf16 with
-  ``'auto'``: their 40 and 320 encoder tokens send them to ``'steps'``,
-  B=64 at 32x160 served without a ``ValueError``. No kernel launches in
-  the phase.
+  No kernel launches in the phase.
+
+* the transformer family on its other trunks, last: the models of
+  ``TRANSFORMER_CONFIGS`` (SATRN academic and small, NRTR on the modality
+  transform and on ResNet31 1by16 and 1by8) at full width in bf16, seed-0
+  weights. For each, ``'auto'`` must resolve to ``fused40_bf16`` before
+  the trunk and again over its token count (200, 40 or 320); serving at
+  B=512 (random crops at 32 x 100 or 32 x 160, valid ratios of widths in
+  steps of 4, the columns past the width zeroed) must launch kernel 4, and
+  kernel 3 where the encoder fuses (NRTR's; SATRN's encoder runs as a
+  module); its argmax must equal the plain path's at every row but where
+  the plain top-2 gap is below the near-tie width: ``TIE_MULT`` times the
+  widest gap at which the plain decode parts from itself when only the
+  encoder's rounding changes (the path's encoding against the encoder run
+  in float32 and rounded to bf16), never below ``NEAR_TIE``; kernel 4
+  against its plain version on one encoding under ``TIE_MULT`` times the
+  widest gap at which the plain decode parts from itself when every value
+  of that encoding moves by one bf16 ulp (``bf16_ulp_step``), never below
+  ``NEAR_TIE``. ``predict`` timed against the plain path, its stages by
+  CUDA events;
+  SATRN-small also on ``fused40`` (kernel 5 at d_k 32). Kernel 3 at 40 and
+  320 tokens (beside ``nn.TransformerEncoder``) and kernels 4-5 at d_k 32
+  and kernel 4 at 320 source tokens are recorded (``encoder_t40``,
+  ``encoder_t320``, ``full_decode_dk32``, ``full_decode_int8_dk32``,
+  ``full_decode_te320``). Each float32 model on the card against the CPU
+  at B=8 (TF32 off): argmax equal but at a CPU near-tie, probabilities and
+  teacher-forced logits within ``TF_F32_ATOL``. The fallback: NRTR-R31
+  1by16 in bf16 with ``'auto'`` on crops of 32 x ``TF_FALLBACK_WIDTH``
+  (520 tokens, more than kernels 3 and 4 take) resolves to
+  ``fused40_bf16`` before the trunk and to ``'steps'`` over its token
+  count; ``predict`` serves them without a ``ValueError``, finite, and
+  launches no kernel. B=64 training steps of SATRN academic and NRTR-R31
+  1by16, timed, with finite losses.
 
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
 the checks and on TPS++'s own [0, 1]^2 grid, which puts every sample in
@@ -269,9 +298,8 @@ CRNN_TPS_CONFIG = 'configs/textrecog/tps/crnn_tps_academic_dataset.py'
 N_CRNN_CROPS, CRNN_F32_ATOL = 64, 1e-3
 CRNN_FC2_SCALE, CRNN_MAX_LABEL = 0.05, 12
 # the ResNet31 attention phase: its configs (the beam-search decoder is the
-# parallel config with decoder.type='ParallelSARDecoderWithBS'), the NRTR
-# configs on ResNet31 whose token counts (40, 320) kernel 3 refuses, the
-# beam batch (also the fallback's), the float32 batch held against the CPU,
+# parallel config with decoder.type='ParallelSARDecoderWithBS'), the
+# beam batch, the float32 batch held against the CPU,
 # the crops of its inference API check, and the bounds of the card against
 # the CPU in float32 with TF32 off, where cuDNN and the CPU's convolutions
 # sum up to 4,608 terms in other orders: the probabilities (absolute), the
@@ -284,10 +312,27 @@ SAR_CONFIGS = {
     'robust_scanner':
         'configs/textrecog/robust_scanner/robustscanner_r31_academic.py',
     'sar_beam': 'configs/textrecog/sar/sar_r31_parallel_decoder_academic.py'}
-NRTR_R31_CONFIGS = ('configs/textrecog/nrtr/nrtr_r31_1by16_1by8_academic.py',
-                    'configs/textrecog/nrtr/nrtr_r31_1by8_1by4_academic.py')
 B_SAR_BEAM, B_SAR_F32, N_SAR_CROPS = 64, 8, 64
 SAR_F32_ATOL, SAR_LOSS_RTOL, SAR_GRAD_NORM_RTOL = 1e-4, 1e-4, 1e-3
+# the transformer family on its other trunks: each config with its crop
+# width (SATRN's fixed 32 x 100; NRTR's keep-aspect pipeline up to 32 x
+# 160, which gives 40 tokens on the modality transform and the 1by16
+# trunk, 320 on the 1by8 trunk); the training batch (the configs'
+# samples_per_gpu), the float32 batch held against the CPU, the bound of
+# the card against the CPU in float32 with TF32 off (as SAR's), and the
+# batch and crop width of the fallback (32 x 2080 gives the 1by16 trunk
+# 2 x 260 = 520 tokens, past the kernels' 512)
+TRANSFORMER_CONFIGS = {
+    'satrn_academic': ('configs/textrecog/satrn/satrn_academic.py', 100),
+    'satrn_small': ('configs/textrecog/satrn/satrn_small.py', 100),
+    'nrtr_modality': (
+        'configs/textrecog/nrtr/nrtr_modality_transform_academic.py', 160),
+    'nrtr_r31_1by16': (
+        'configs/textrecog/nrtr/nrtr_r31_1by16_1by8_academic.py', 160),
+    'nrtr_r31_1by8': (
+        'configs/textrecog/nrtr/nrtr_r31_1by8_1by4_academic.py', 160)}
+B_TF_TRAIN, B_TF_F32, TF_F32_ATOL = 64, 8, 1e-4
+B_TF_FALLBACK, TF_FALLBACK_WIDTH = 16, 2080
 
 
 def log(*a):
@@ -440,6 +485,17 @@ def check_decode(kernel_probs, plain_probs, what, near_tie=NEAR_TIE,
     return err, ties, widest
 
 
+def bf16_ulp_step(t, seed):
+    """``t`` (bf16) with every value moved by one ulp, up or down at random
+    (from ``seed``); a zero moves off 0 by the least subnormal."""
+    import torch
+    gen = torch.Generator(device=t.device).manual_seed(seed)
+    step = torch.randint(0, 2, t.shape, generator=gen, device=t.device,
+                         dtype=torch.int16) * 2 - 1
+    step = torch.where(t == 0, torch.ones_like(step), step)
+    return (t.contiguous().view(torch.int16) + step).view(torch.bfloat16)
+
+
 def steps_tie_widths(r, img):
     """How far the bf16 ``steps`` decodes of ``r`` (a recognizer whose
     decoder has ``use_fused_step``) part from themselves on ``img``, each
@@ -510,6 +566,45 @@ def stem_tie_widths(r, img):
                    path=(fused_k, fused_p))
     return {k: check_decode(a, b, f'stem_tie_widths {k}', near_tie=1.0)[1:]
             for k, (a, b) in out.items()}
+
+
+def transformer_tie_widths(rec, x, v, what):
+    """How far the whole decode of ``rec`` (bf16, a transformer-family
+    model whose decoder has one) parts from itself on crops ``x`` (bf16)
+    with valid ratios ``v``, each as (rows that part, widest top-2 gap of
+    the second side where they part), with the probabilities before that
+    held to the decode rule:
+
+    * ``ulp``: the plain decode on the path's encoding against it on that
+      encoding with every value one bf16 ulp away (``bf16_ulp_step``):
+      the decode's own sensitivity to one rounding of its input;
+    * ``kernel``: kernel 4 against its plain version on one encoding;
+    * ``encoder``: the plain decode on the path's encoding against it on
+      the encoder's run in float32, rounded to bf16: its sensitivity to
+      the encoder's rounding, which the path's encoder changes.
+
+    Returns (the widths, the path's encoding)."""
+    import copy
+
+    import torch
+    m, end = rec.model, rec.label_convertor.end_idx
+    fuses = getattr(type(m.encoder), 'SUPPORTS_FUSED_FORWARD', False)
+
+    def decode(enc, plain):
+        return m.decoder.fused_full_decode(enc, v, end_idx=end, plain=plain)
+    with torch.inference_mode():
+        feat = m.extract_feat(x)
+        out_enc = (m.encoder(feat, v, fused=True) if fuses
+                   else m.encode(feat, v))
+        enc32 = copy.deepcopy(m.encoder).float()
+        enc_f = enc32(feat.float(), v).to(torch.bfloat16)
+        del enc32
+        on_k = decode(out_enc, True)
+        pairs = dict(ulp=(decode(bf16_ulp_step(out_enc, SEED), True), on_k),
+                     kernel=(decode(out_enc, False), on_k),
+                     encoder=(on_k, decode(enc_f, True)))
+        return {k: check_decode(a, b, f'{what} {k}', near_tie=1.0)[1:]
+                for k, (a, b) in pairs.items()}, out_enc
 
 
 def check_close(what, got, want, bound):
@@ -2323,9 +2418,9 @@ def crnn_tps_phase(dev, name, record):
 def sar_phase(dev, name):
     """The ResNet31 attention family on ``dev``, the card (see the module
     docstring): serving, beam search, the float32 models against the CPU,
-    bf16 against float32, training, the inference API and the NRTR-R31
-    fallback, with no hand-written kernel launched. Returns the phase's
-    launch counts (all 0)."""
+    bf16 against float32, training and the inference API, with no
+    hand-written kernel launched. Returns the phase's launch counts (all
+    0)."""
     import copy
     import tempfile
 
@@ -2633,35 +2728,330 @@ def sar_phase(dev, name):
     del r
     section('inference API')
 
-    # ---- the fallback: NRTR on ResNet31, 'auto' in bf16 on the card ------
-    for path in NRTR_R31_CONFIGS:
-        c = load_config(os.path.join(repo, path))
-        merge_cli_options(c, {'model.dtype': 'bfloat16'})
-        r = build_recognizer(copy.deepcopy(dict(c['model'])), device=dev)
-        r.init_weights(SEED)
-        x = torch.from_numpy(g.standard_normal((B_SAR_BEAM, 32, 160, 3))
-                             .astype(np.float32)).to(dev)
-        with torch.inference_mode():
-            feat = r.model.extract_feat(x.to(torch.bfloat16))
-        tokens = int(feat.shape[1] * feat.shape[2])
-        before, after = r.resolved_decode_mode(), r.resolved_decode_mode(
-            tokens)
-        out = r.predict(x)
-        if after != 'steps' or not bool(torch.isfinite(out).all()):
-            raise AssertionError(f'sar fallback {path}: {before} -> {after}')
-        ms, _ = timed(lambda: r.predict(x), rounds=1, reps=2)
-        log(f'sar fallback {path}, bf16, decode_mode auto, B={B_SAR_BEAM} '
-            f'at 32 x 160: {tokens} encoder tokens an image; resolved '
-            f'{before} before the trunk, {after} after it (kernel 3 takes '
-            f'64 tokens, kernel 4 at most 256); predict {ms * 1e3:.2f} ms, '
-            f'no ValueError [{name}]')
-        del r, feat, out
-        torch.cuda.empty_cache()
-
-    section('fallback')
     launches = read_launches('sar', 'the whole phase', {})
     log(f'sar phase: {time.perf_counter() - t_phase:.1f} s (by section: '
         f'{sections}); no hand-written kernel launched')
+    return launches
+
+
+def transformer_phase(dev, name, record):
+    """The transformer family on its other trunks on ``dev``, the card (see
+    the module docstring): ``'auto'`` resolving to ``fused40_bf16`` for
+    each of ``TRANSFORMER_CONFIGS``, B=512 serving through kernels 3 (the
+    NRTR configs) and 4 against the plain path, SATRN-small on ``fused40``
+    (kernel 5), kernel 3 at 40 and 320 tokens and kernels 4-5 at d_k 32
+    and 320 source tokens recorded, the float32 models against the CPU,
+    and B=64 training steps. Returns the launch counts of its rows of the
+    kernels line, from the serving runs."""
+    import copy
+
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import TextRecognizer, build_recognizer
+    from tps_pp_tpu_torch.config import load_config, merge_cli_options
+    from tps_pp_tpu_torch.models.encoders.nrtr import sequence_mask
+    from tps_pp_tpu_torch.ops.encoder import (encoder_forward,
+                                              encoder_forward_plain)
+    from tps_pp_tpu_torch.ops.full_decode import (_dims, full_decode,
+                                                  full_decode_plain)
+    from tps_pp_tpu_torch.parallel import (build_optimizer_from_run_cfg,
+                                           make_train_step)
+    from tps_pp_tpu_torch.tools.train import train_cfg_of
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cpu, bf = torch.device('cpu'), torch.bfloat16
+    g = np.random.default_rng(SEED + 17)
+
+    def model_cfg(key, dtype):
+        cfg = load_config(os.path.join(repo, TRANSFORMER_CONFIGS[key][0]))
+        merge_cli_options(cfg, {'model.dtype': dtype})
+        return cfg, copy.deepcopy(dict(cfg['model']))
+
+    def build(key, dtype, device, state=None, **kw):
+        r = build_recognizer(model_cfg(key, dtype)[1], device=device, **kw)
+        if state is None:
+            r.init_weights(SEED)
+        else:
+            r.model.load_state_dict(state)
+        if type(r) is not TextRecognizer or r.device.type != device.type:
+            raise AssertionError(f'transformer {key}: built '
+                                 f'{type(r).__name__} on {r.device}')
+        return r
+
+    def crops(n, w):
+        """Random 32 x w crops, their valid ratios (widths 32-w in steps
+        of 4, over w) and the columns past each width zeroed."""
+        x = g.standard_normal((n, 32, w, 3)).astype(np.float32)
+        widths = g.choice(np.arange(32, w + 1, 4), n)
+        for i, wd in enumerate(widths):
+            x[i, :, wd:] = 0.0
+        return (torch.from_numpy(x).to(dev),
+                torch.from_numpy((widths / w).astype(np.float32)).to(dev))
+
+    def timed(fn, rounds=2, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) / reps)
+        return min(ts), ts
+
+    def random_labels(lc, n):
+        chars = lc.idx2char[:len(lc.idx2char) - 3]
+        return lc.str2tensor([''.join(g.choice(chars, int(g.integers(1, 26))))
+                              for _ in range(n)])['padded_targets']
+
+    def record_encoder(label, m, feat, v):
+        """Kernel 3 at this model's token count, on its trunk's feature,
+        with nn.TransformerEncoder as the library call."""
+        n, h, w, c = feat.shape
+        x = feat.reshape(n, h * w, c).contiguous()
+        mask = sequence_mask(v, h * w)
+        wts = m.encoder.folded_weights(bf)
+        H = m.encoder.n_head
+        got = encoder_forward(x, mask, wts, H)
+        want = encoder_forward_plain(x, mask, wts, H)
+        torch.cuda.synchronize()
+        err = check_close(label, got, want, (ENCODER_ATOL, ENCODER_RTOL))
+        te = transformer_encoder_yardstick(m.encoder, bf)
+        pad = mask <= 0
+
+        def te_call():
+            with torch.no_grad():
+                return te(x, src_key_padding_mask=pad)
+        L, D = wts['wqkv'].shape[:2]
+        HD, DI, T = wts['wfc'].shape[1], wts['w1'].shape[2], h * w
+        record(label, 'tps_pp_tpu_torch/csrc/encoder.cu',
+               'tps_pp_tpu/ops/pallas_encoder.py:178',
+               lambda: encoder_forward(x, mask, wts, H),
+               lambda: encoder_forward_plain(x, mask, wts, H), err, 5,
+               nbytes(x, mask, got, *wts.values()),
+               bf16_flops=2 * n * T * L * (D * 3 * HD + HD * D + 2 * D * DI)
+               + 4 * n * T * T * HD * L, fn_lib=te_call,
+               label=f'{label} (T={T}, B={n}, {L} layers)')
+        del te
+
+    def record_decode(label, m, out_enc, v, lc, enc_dtype, near_tie):
+        """Kernel 4 (or 5) at this model's widths and source tokens, its
+        argmax against the plain version's under ``near_tie``."""
+        dec = m.decoder
+        wd = dec.packed_weights(bf)
+        dd = _dims(wd, dec.n_head)
+        n, TE = out_enc.shape[:2]
+        src_mask = sequence_mask(v, TE).contiguous()
+        args = (out_enc, src_mask, wd, dec.n_head, lc.start_idx, lc.end_idx,
+                enc_dtype)
+        pk = full_decode(*args)
+        steps = full_decode.last_steps
+        pp = full_decode_plain(*args)
+        torch.cuda.synchronize()
+        err, ties, widest = check_decode(pk, pp, label, near_tie)
+        mm_ops, att_ops = decode_flops(dd, n, steps, TE)
+        record(label, 'tps_pp_tpu_torch/csrc/full_decode.cu',
+               'tps_pp_tpu/ops/pallas_full_decode.py:378',
+               lambda: full_decode(*args), lambda: full_decode_plain(*args),
+               err, 3, nbytes(out_enc, src_mask, pk, *wd.values()),
+               bf16_flops=mm_ops, f32_flops=att_ops,
+               label=f'{label} (N={n}, TE={TE}, d_k={dd["DK"]}, {steps} '
+                     f'steps; {ties} rows part at a near-tie, widest '
+                     f'{widest:.3g})')
+
+    # ---- serving, bf16, B=512: 'auto', kernels 3 and 4 ---------------------
+    states, launches = {}, {}
+    for key, (path, width) in TRANSFORMER_CONFIGS.items():
+        rec = build(key, 'bfloat16', dev)
+        states[key] = {k: t.detach().cpu()
+                       for k, t in rec.model.state_dict().items()}
+        m, lc = rec.model, rec.label_convertor
+        fuses = getattr(type(m.encoder), 'SUPPORTS_FUSED_FORWARD', False)
+        x, v = crops(B, width)
+        x = x.to(bf)
+        with torch.inference_mode():
+            feat = m.extract_feat(x)
+        tokens = int(feat.shape[1] * feat.shape[2])
+        modes = (rec.resolved_decode_mode(), rec.resolved_decode_mode(tokens))
+        if modes != ('fused40_bf16', 'fused40_bf16'):
+            raise AssertionError(f'transformer {key}: auto resolved to '
+                                 f'{modes} over {tokens} tokens')
+        zero_launches()
+        out = rec.predict(x, v)
+        want = {'full_decode': 1, **({'encoder': 1} if fuses else {})}
+        got = read_launches('transformer', f'{key} predict B={B}', want)
+        S, NC = rec.max_seq_len, lc.num_classes() - 1
+        if tuple(out.shape) != (B, S, NC) or not bool(
+                torch.isfinite(out).all()):
+            raise AssertionError(f'transformer {key}: bad output '
+                                 f'{tuple(out.shape)}')
+        rec.plain = True
+        pp = rec.predict(x, v)
+        ms_p, _ = timed(lambda: rec.predict(x, v), rounds=1, reps=1)
+        rec.plain = False
+        tw, out_enc = transformer_tie_widths(rec, x, v, f'transformer {key}')
+        # the near-tie of the path: TIE_MULT times the widest gap at which
+        # the plain decode parts from itself when only the encoder's
+        # rounding changes; of kernel 4 on one encoding: when every value
+        # of that encoding moves by one bf16 ulp; never below NEAR_TIE
+        sens, ulp, k4 = tw['encoder'], tw['ulp'], tw['kernel']
+        tie = max(NEAR_TIE, TIE_MULT * sens[1])
+        tie_k4 = max(NEAR_TIE, TIE_MULT * ulp[1])
+        if k4[0] and not k4[1] < tie_k4:
+            raise AssertionError(f'transformer {key} kernel 4, one encoding: '
+                                 f'a row parts from the plain version at a '
+                                 f'top-2 gap of {k4[1]:.3g} (>= '
+                                 f'{tie_k4:.3g})')
+        err, ties, widest = check_decode(out, pp, f'transformer {key}',
+                                         near_tie=tie)
+        ms, ts = timed(lambda: rec.predict(x, v))
+        with torch.inference_mode():
+            st = {'extract_feat': lambda: m.extract_feat(x),
+                  'encoder': (lambda: m.encoder(feat, v, fused=True))
+                  if fuses else (lambda: m.encode(feat, v)),
+                  'decode': lambda: m.decoder.fused_full_decode(
+                      out_enc, v, end_idx=lc.end_idx)}
+            st = {k: cuda_ms(fn, 3) for k, fn in st.items()}
+        log(f'transformer {key} serving B={B} bf16 (auto -> '
+            f'{modes[1]}, {tokens} encoder tokens, encoder '
+            f'{"kernel 3" if fuses else "module"}): {B / ms:.1f} images/s '
+            f'({ms * 1e3:.3f} ms/batch, best of 2 rounds of 3; '
+            f'{", ".join(f"{t * 1e3:.3f}" for t in ts)}; plain path '
+            f'{ms_p * 1e3:.1f} ms); stages (CUDA events, mean of 3): '
+            + ', '.join(f'{k} {t:.3f} ms' for k, t in st.items())
+            + f'; the plain decode on the encoding one bf16 ulp away: '
+            f'{ulp[0]} rows part (widest {ulp[1]:.3g}), near-tie '
+            f'{tie_k4:.3g}; kernel 4 against its plain version on one '
+            f'encoding: {k4[0]} part (widest {k4[1]:.3g}); the plain decode '
+            f'on the path\'s encoding against the float32 encoder\'s: '
+            f'{sens[0]} rows part (widest {sens[1]:.3g}), near-tie '
+            f'{tie:.3g}; the path against the plain path: {ties} of {B} rows '
+            f'part at a near-tie (widest {widest:.3g} < {tie:.3g}), max abs '
+            f'err {err:.4g}; launches {got} [{name}]')
+        with torch.inference_mode():
+            if key == 'nrtr_r31_1by16':
+                record_encoder('encoder_t40', m, feat, v)
+                launches['encoder_t40'] = got['encoder']
+            if key == 'nrtr_r31_1by8':
+                record_encoder('encoder_t320', m, feat, v)
+                launches['encoder_t320'] = got['encoder']
+                record_decode('full_decode_te320', m, out_enc, v, lc,
+                              'bfloat16', tie_k4)
+                launches['full_decode_te320'] = got['full_decode']
+            if key == 'satrn_small':
+                record_decode('full_decode_dk32', m, out_enc, v, lc,
+                              'bfloat16', tie_k4)
+                launches['full_decode_dk32'] = got['full_decode']
+                record_decode('full_decode_int8_dk32', m, out_enc, v, lc,
+                              'int8', tie_k4)
+        if key == 'satrn_small':
+            # fused40: int8 encoder K/V, one scale per (layer, K or V, head)
+            rec.decode_mode = 'fused40'
+            zero_launches()
+            out8 = rec.predict(x, v)
+            got8 = read_launches('transformer', f'{key} fused40 B={B}',
+                                 {'full_decode_int8': 1})
+            launches['full_decode_int8_dk32'] = got8['full_decode_int8']
+            rec.plain = True
+            pp8 = rec.predict(x, v)
+            rec.plain = False
+            err8, ties8, widest8 = check_decode(
+                out8, pp8, f'transformer {key} fused40', tie)
+            ms8, _ = timed(lambda: rec.predict(x, v))
+            log(f'transformer {key} serving B={B} fused40 (int8 K/V): '
+                f'{B / ms8:.1f} images/s ({ms8 * 1e3:.3f} ms/batch); '
+                f'{ties8} rows part at a near-tie (widest {widest8:.3g}), '
+                f'max abs err {err8:.4g} [{name}]')
+        del rec, m, feat, out_enc, out, pp, x
+        torch.cuda.empty_cache()
+
+    # ---- float32: the card against the CPU, B_TF_F32 ------------------------
+    for key, (path, width) in TRANSFORMER_CONFIGS.items():
+        rg = build(key, 'float32', dev, states[key])
+        rc = build(key, 'float32', cpu, states[key])
+        x, v = crops(B_TF_F32, width)
+        t0 = time.perf_counter()
+        pk = rg.predict(x, v).cpu()
+        pc = rc.predict(x.cpu(), v.cpu())
+        err, ties, widest = check_decode(pk, pc, f'transformer {key} float32',
+                                         bound=(TF_F32_ATOL, 0.0))
+        tgt = torch.from_numpy(random_labels(rg.label_convertor, B_TF_F32))
+        with torch.inference_mode():
+            lk = rg.model(x, tgt.to(dev), v).float().cpu()
+            lp = rc.model(x.cpu(), tgt, v.cpu()).float()
+        tf_err = float((lk - lp).abs().max())
+        tf_bound = TF_F32_ATOL * max(1.0, float(lp.abs().max()))
+        if not tf_err <= tf_bound:
+            raise AssertionError(f'transformer {key} float32 teacher-forced: '
+                                 f'logits part by {tf_err:.4g} > '
+                                 f'{tf_bound:.4g}')
+        log(f'transformer {key} float32 B={B_TF_F32} '
+            f'({rg.resolved_decode_mode()}), card against CPU: max abs '
+            f'probability error {err:.4g} (<= {TF_F32_ATOL}), {ties} rows '
+            f'part at a near-tie of the CPU path (widest {widest:.4g}); '
+            f'teacher-forced logits within '
+            f'{tf_err:.4g} (<= {tf_bound:.4g}); '
+            f'{time.perf_counter() - t0:.1f} s [{name}]')
+        del rg, rc
+        torch.cuda.empty_cache()
+
+    # ---- the fallback: 'auto' over more tokens than the kernels take ------
+    key = 'nrtr_r31_1by16'
+    rf = build(key, 'bfloat16', dev, states[key])
+    x, v = crops(B_TF_FALLBACK, TF_FALLBACK_WIDTH)
+    with torch.inference_mode():
+        feat = rf.model.extract_feat(x.to(bf))
+    tokens = int(feat.shape[1] * feat.shape[2])
+    modes = (rf.resolved_decode_mode(), rf.resolved_decode_mode(tokens))
+    if tokens <= 512 or modes != ('fused40_bf16', 'steps'):
+        raise AssertionError(f'transformer {key} fallback: auto resolved to '
+                             f'{modes} over {tokens} tokens')
+    zero_launches()
+    out = rf.predict(x, v)
+    read_launches('transformer', f'{key} fallback', {})
+    if tuple(out.shape) != (B_TF_FALLBACK, rf.max_seq_len,
+                            rf.label_convertor.num_classes() - 1) or not bool(
+                                torch.isfinite(out).all()):
+        raise AssertionError(f'transformer {key} fallback: bad output '
+                             f'{tuple(out.shape)}')
+    ms, _ = timed(lambda: rf.predict(x, v), rounds=1, reps=2)
+    log(f'transformer {key} fallback, bf16, decode_mode auto, '
+        f'B={B_TF_FALLBACK} at 32 x {TF_FALLBACK_WIDTH}: {tokens} encoder '
+        f'tokens an image; resolved {modes[0]} before the trunk, {modes[1]} '
+        f'after it (kernels 3 and 4 take at most 512); predict '
+        f'{ms * 1e3:.2f} ms, no ValueError, no kernel launched [{name}]')
+    del rf, feat, out
+    torch.cuda.empty_cache()
+
+    # ---- training: B=64 steps (f32 parameters, bf16 autocast) -------------
+    for key in ('satrn_academic', 'nrtr_r31_1by16'):
+        cfg, _ = model_cfg(key, 'bfloat16')
+        tc = train_cfg_of(cfg)
+        rt = build(key, 'bfloat16', dev, states[key], param_dtype='float32')
+        xt, vt = crops(B_TF_TRAIN, TRANSFORMER_CONFIGS[key][1])
+        batch = dict(img=xt, valid_ratio=vt, padded_targets=random_labels(
+            rt.label_convertor, B_TF_TRAIN))
+        opt, _ = build_optimizer_from_run_cfg(
+            tc, rt.model.named_parameters(), steps_per_epoch=1,
+            total_epochs=tc['total_epochs'])
+        step = make_train_step(rt, opt)
+        zero_launches()
+        losses = [float(step(batch)['loss']) for _ in range(2)]
+        read_launches('transformer', f'{key} train', {})
+        ms, ts = timed(lambda: step(batch), rounds=2, reps=3)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f'transformer {key} train: losses {losses}')
+        log(f'transformer {key} train B={B_TF_TRAIN}, f32 parameters, bf16 '
+            f'autocast, {tc["optimizer"]["type"]} lr '
+            f'{tc["optimizer"]["lr"]}: {ms * 1e3:.2f} ms/step, '
+            f'{B_TF_TRAIN / ms:.1f} images/s (best of 2 rounds of 3; '
+            f'{", ".join(f"{t * 1e3:.2f}" for t in ts)}); losses {losses} '
+            f'[{name}]')
+        del rt, step, opt
+        torch.cuda.empty_cache()
+    log(f'transformer phase: {time.perf_counter() - t_phase:.1f} s')
     return launches
 
 
@@ -3284,6 +3674,9 @@ def main():
 
     # ---- the ResNet31 attention family: SAR and RobustScanner, no kernel
     sar_phase(dev, name)
+
+    # ---- the transformer family on its other trunks: kernels 3 and 4-5
+    path_launches.update(transformer_phase(dev, name, record))
     path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])

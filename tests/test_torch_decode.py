@@ -14,7 +14,13 @@
   int8 values against the JAX formula (pallas_full_decode.py:302-311) on
   the same K/V: scales to 1e-6 relative, values equal.
 * The all-rows-EOS early exit, forced by classifier-bias surgery.
+* The same against JAX's steps and the Pallas kernel (both K/V types) at
+  d_k 32 (SATRN-small's heads) and at 300 source tokens, which kernels 4-5
+  take since they were widened.
+* ``chip_smoke.bf16_ulp_step``, the one-ulp perturbation behind the
+  near-tie width of kernel 4 on the card.
 """
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -232,6 +238,73 @@ def test_early_exit_forced_by_classifier_bias(setup, monkeypatch):
     np.testing.assert_allclose(steps, got, atol=1e-5, rtol=0)
 
 
+# the whole decode at SATRN-small's head width (d_model 256, 8 heads of 32)
+# and over more than 256 source tokens (NRTR on ResNet31 1by8: 320)
+WIDER = {'dk32': (dict(d_embedding=256, d_model=256, n_head=8, d_k=32,
+                       d_v=32, d_inner=512), 16),
+         'te300': ({}, 300)}
+
+
+@pytest.fixture(scope='module', params=list(WIDER))
+def wider(request):
+    """(JAX decoder, its variables, the port's decoder, encoder output,
+    valid ratios, JAX steps probabilities) at one of the ``WIDER`` shapes:
+    two layers, S steps, three rows."""
+    dims, TE = WIDER[request.param]
+    dims = dict(DIMS, **dims)
+    D = dims.get('d_model', 512)
+    rng = np.random.default_rng(1)
+    jdec = JaxDecoder(**dims, dtype=jnp.float32)
+    out_enc = rng.standard_normal((3, TE, D)).astype(np.float32)
+    vr = np.array([0.7, 1.0, 0.45], np.float32)
+    v = to_numpy(jdec.init(jax.random.PRNGKey(1), None, jnp.asarray(out_enc),
+                           targets=jnp.full((3, S), 38, jnp.int32),
+                           valid_ratio=jnp.asarray(vr)))
+    sd = convert_rules({'params': {'decoder': v['params']}},
+                       nrtr_decoder_rules(DIMS['n_layers']))
+    sd = {k[len('decoder.'):]: t for k, t in sd.items()}
+    sd['position_enc.position_table'] = torch.from_numpy(
+        sinusoid_position_table(200, D))
+    dec = NRTRDecoder(**dims).eval()
+    dec.load_state_dict(sd, strict=True)
+    jv = jnp_tree(v)
+    carry, static = jdec.apply(jv, None, jnp.asarray(out_enc),
+                               jnp.asarray(vr), method='decode_init')
+    tok, ref = jnp.full((3,), 1, jnp.int32), []
+    for t in range(S):
+        p, carry = jdec.apply(jv, tok, t, carry, static,
+                              method='decode_step')
+        ref.append(np.asarray(p))
+        tok = jnp.argmax(p, -1).astype(jnp.int32)
+    return jdec, v, dec, out_enc, vr, np.stack(ref, axis=1)
+
+
+def test_fused_path_matches_jax_steps_wider(wider):
+    """d_k 32 and 300 source tokens, which kernels 4-5 now take: as
+    ``test_fused_path_matches_jax_steps``."""
+    _, _, dec, out_enc, vr, ref = wider
+    got = _fused(dec, out_enc, vr)
+    np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize('enc_dtype', ['bfloat16', 'int8'])
+def test_fused_path_matches_pallas_kernel_wider(wider, monkeypatch,
+                                                enc_dtype):
+    """The plain version against the Pallas decode in interpret mode at d_k
+    32 and at 300 source tokens, both K/V types, at the JAX kernel's
+    contract (argmax equal, atol 2e-2 / rtol 5e-2); int8 with one scale per
+    (layer, K or V, head), groups of d_k columns."""
+    _interpret(monkeypatch)
+    jdec, v, dec, out_enc, vr, _ = wider
+    want = np.asarray(jdec.apply(jnp_tree(v), None, jnp.asarray(out_enc),
+                                 jnp.asarray(vr), method='fused_full_decode',
+                                 enc_dtype=enc_dtype))
+    got = _fused(dec, out_enc, vr, enc_dtype=enc_dtype)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=5e-2)
+
+
 def test_rows_without_valid_tokens_start_finished():
     """A row whose source mask is all invalid counts as finished from the
     start: with no valid row at all, the exit fires before step 0."""
@@ -245,3 +318,22 @@ def test_rows_without_valid_tokens_start_finished():
         ran = full_decode(out_enc, mask, w, 8, 1, None)
     assert bool((got == 0).all())
     assert bool((ran.sum(-1) > 0.99).all())
+
+
+def test_bf16_ulp_step_moves_every_value_by_one_ulp():
+    """The encoding that sets kernel 4's near-tie width on the card: every
+    bf16 value one ulp up or down (its bits one apart), zeros off 0, none
+    to inf or NaN, both ways taken, and the same steps from the same
+    seed."""
+    t = torch.randn(4, 40, 512, generator=torch.Generator().manual_seed(2))
+    t = t.to(torch.bfloat16)
+    t[0, 0, :3] = torch.tensor([0.0, -0.0, -1.0])
+    got = chip_smoke.bf16_ulp_step(t, 0)
+    bits = (got.view(torch.int16).int() - t.view(torch.int16).int()).abs()
+    assert bool((bits == 1).all())
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool((got.float() != 0).all())
+    up = got.float().abs() > t.float().abs()
+    assert 0.4 < float(up.float().mean()) < 0.6
+    assert torch.equal(chip_smoke.bf16_ulp_step(t, 0).view(torch.int16),
+                       got.view(torch.int16))

@@ -3,6 +3,7 @@
 * The fused path (``ops.encoder``, here its plain version) against the
   whole-encoder Pallas kernel in interpret mode, at atol 2e-5 / rtol 1e-4,
   the JAX kernel's own contract (tests/test_pallas_encoder.py).
+  Also at 8, 40 and 100 tokens an image, which kernel 3 now takes.
 * The module path against the XLA ``NRTREncoder``, same tolerance.
 * The fused path on a batch with an image whose keys are all masked
   (valid ratio 0) against the XLA encoder, which attends within each
@@ -89,6 +90,29 @@ def test_fused_path_matches_pallas_kernel(models, monkeypatch, n, masked):
     np.testing.assert_array_equal(encoder_forward(x, mask, w, 4).numpy(),
                                   encoder_forward_plain(x, mask, w,
                                                         4).numpy())
+
+
+@pytest.mark.parametrize('T', [8, 40, 100])
+def test_fused_path_matches_pallas_kernel_at_other_token_counts(
+        models, monkeypatch, T):
+    """Kernel 3 takes any token count up to 512 (the NRTR configs give
+    8-40 and 64-320): its plain version against the Pallas kernel in
+    interpret mode at T = 8, 40 and 100 tokens an image (a row of T
+    cells), with masks, at the tolerance above."""
+    import tps_pp_tpu.ops.pallas_encoder as pe
+    orig = pe.fused_encoder_forward
+    monkeypatch.setattr(pe, 'fused_encoder_forward',
+                        lambda *a, **k: orig(*a, **dict(k, interpret=True)))
+    jenc, v, enc, _, vr = models
+    feat = np.random.default_rng(T).standard_normal(
+        (4, 1, T, 64)).astype(np.float32)
+    vr = vr[:4]
+    want = np.asarray(jenc.apply(v, jnp.asarray(feat), fused=True,
+                                 valid_ratio=jnp.asarray(vr)))
+    with torch.no_grad():
+        got = enc(torch.from_numpy(feat), torch.from_numpy(vr), fused=True)
+    assert got.shape == (4, T, 64)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 @pytest.mark.parametrize('masked', [True, False])

@@ -2,8 +2,9 @@
 the fused decode step, the fused stem and the two-stage sampler) and
 training on the CPU (``train_recognizer`` on crops through the flagship's
 train augmentations), and the same for a tiny ABINet + TPS++, for a
-small CRNN + TPS-STN (the CTC family, grayscale crops) and for a small SAR
-(beam search) and RobustScanner on ResNet31, loads neither JAX,
+small CRNN + TPS-STN (the CTC family, grayscale crops), for a small SAR
+(beam search) and RobustScanner on ResNet31 and for a small SATRN and NRTR
+on the modality transform, loads neither JAX,
 flax, cv2 nor the JAX package, and launches no kernel (CPU tensors go to
 the kernels' plain versions; nothing is built)."""
 import json
@@ -196,6 +197,38 @@ for family_cfg in (
     rec.init_weights(0)
     assert len(rec.simple_test(np.zeros((3, 32, 64, 3), np.float32),
                                [1.0, 0.5, 0.8])) == 3
+    opt, history = train.train_recognizer(
+        rec, Crops(), dict(optimizer=dict(type='Adam', lr=1e-3),
+                           samples_per_gpu=4, total_epochs=1,
+                           log_interval=1))
+    assert opt.count == 1 and np.isfinite(history[0]['loss_ce'])
+# the transformer family on its other trunks: serving (steps and the
+# whole decode's plain version) and a training step of a small SATRN and a
+# small NRTR on the modality transform
+from tps_pp_tpu_torch.models.backbones import misc
+from tps_pp_tpu_torch.models.encoders import satrn as esatrn
+tf_dims = dict(n_head=2, d_k=16, d_v=16, d_inner=32, dropout=0.1)
+for family_cfg in (
+        dict(type='SATRN', label_convertor=lc36,
+             backbone=dict(type='ShallowCNN', input_channels=3,
+                           hidden_dim=32),
+             encoder=dict(type='SatrnEncoder', n_layers=1, d_model=32,
+                          **tf_dims),
+             decoder=dict(type='TFDecoder', n_layers=1, d_model=32,
+                          d_embedding=32, **tf_dims),
+             loss=dict(type='TFLoss'), max_seq_len=5),
+        dict(type='NRTR', label_convertor=lc36,
+             backbone=dict(type='NRTRModalityTransform'),
+             encoder=dict(type='NRTREncoder', n_layers=1),
+             decoder=dict(type='NRTRDecoder', n_layers=1),
+             loss=dict(type='TFLoss'), max_seq_len=5)):
+    for mode in ('steps', 'fused40_bf16'):
+        rec = build_recognizer(dict(family_cfg, decode_mode=mode),
+                               device='cpu', param_dtype='float32')
+        assert rec.resolved_decode_mode() == mode
+        rec.init_weights(0)
+        assert len(rec.simple_test(np.zeros((3, 32, 64, 3), np.float32),
+                                   [1.0, 0.5, 0.8])) == 3
     opt, history = train.train_recognizer(
         rec, Crops(), dict(optimizer=dict(type='Adam', lr=1e-3),
                            samples_per_gpu=4, total_epochs=1,

@@ -64,29 +64,36 @@ def _sampler_args(device, N=4, dtype=BF):
     return args
 
 
-def _encoder_args(device, N=4):
-    """The flagship encoder's folded weights and N images of tokens; N=4
+def _encoder_args(device, N=4, T=64):
+    """The flagship encoder's folded weights and N images of T tokens; N=4
     has valid ratios 1, 0.5, 0.3, 0.9, any other N seeded ones in
     [0.3, 1] with the second image's keys all masked (ratio 0)."""
     torch.manual_seed(0)
     enc = NRTREncoder().to(device, BF)
-    x = torch.randn((N, 64, 512), generator=torch.Generator().manual_seed(0))
+    x = torch.randn((N, T, 512), generator=torch.Generator().manual_seed(0))
     if N == 4:
         vr = torch.tensor([1.0, 0.5, 0.3, 0.9])
     else:
         vr = torch.from_numpy(np.random.default_rng(N).uniform(
             0.3, 1.0, N).astype(np.float32))
         vr[1:2] = 0.0
-    mask = sequence_mask(vr, 64)
+    mask = sequence_mask(vr, T)
     return x.to(device, BF), mask.to(device), enc.folded_weights(BF)
 
 
-def _decoder_args(device):
+# the whole decode's widths: the flagship's (and NRTR's, SATRN-academic's)
+# and SATRN-small's, (d_model, d_k, d_inner) with 8 heads
+DECODER_WIDTHS = {'dk64': (512, 64, 256), 'dk32': (256, 32, 1024)}
+
+
+def _decoder_args(device, TE=64, width='dk64'):
+    D, DK, DI = DECODER_WIDTHS[width]
     torch.manual_seed(0)
-    dec = NRTRDecoder(max_seq_len=40).to(device, BF)
-    out_enc = torch.randn((8, 64, 512),
+    dec = NRTRDecoder(max_seq_len=40, d_embedding=D, d_model=D, d_k=DK,
+                      d_v=DK, d_inner=DI).to(device, BF)
+    out_enc = torch.randn((8, TE, D),
                           generator=torch.Generator().manual_seed(0))
-    mask = sequence_mask(torch.tensor([1.0, 0.5, 0.3, 0.9] * 2), 64)
+    mask = sequence_mask(torch.tensor([1.0, 0.5, 0.3, 0.9] * 2), TE)
     return (out_enc.to(device, BF), mask.to(device),
             dec.packed_weights(BF))
 
@@ -574,6 +581,50 @@ def test_encoder_attention_kernel(cuda_device, N):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize('T', [1, 8, 40, 64, 100, 320, 512])
+def test_encoder_attention_kernel_any_tokens(cuda_device, T):
+    """The attention at the token counts of the NRTR configs (8-40 on the
+    1by16 trunk and the modality transform, 64-320 on the 1by8 trunk) and
+    at its bounds, against the plain version, as above; the fully masked
+    image spreads its weights over its own T keys only."""
+    N = 3
+    g = torch.Generator().manual_seed(T)
+    qkv = torch.randn((N * T, 3 * 512), generator=g).to(cuda_device, BF)
+    mask = sequence_mask(torch.tensor([0.7, 0.0, 1.0]), T).to(cuda_device)
+    got = encoder_attention(qkv, mask, 8)
+    want = encoder_attention_plain(qkv, mask, 8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2 ** -7)
+    v = qkv[T:2 * T, 1024:].float()
+    torch.testing.assert_close(got[T:2 * T].float(),
+                               v.mean(0, keepdim=True).expand(T, 512),
+                               atol=2e-2, rtol=2 ** -7)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('T', [8, 40, 64, 100, 320])
+def test_encoder_kernel_any_tokens(cuda_device, T):
+    """Kernel 3 at the NRTR configs' token counts (and 100, which is no
+    multiple of 16), with the bounds of the flagship's test below."""
+    x, mask, w = _encoder_args(cuda_device, 7, T)
+    before = encoder_forward.launches
+    got = encoder_forward(x, mask, w, 8)
+    want = encoder_forward_plain(x, mask, w, 8)
+    torch.cuda.synchronize()
+    assert encoder_forward.launches == before + 1
+    d = (got.float() - want.float()).abs()
+    assert bool((d <= 6.25e-2 + 3.125e-2 * want.float().abs()).all())
+
+
+@pytest.mark.requires_cuda
+def test_encoder_kernel_refuses_its_limits(cuda_device):
+    x, mask, w = _encoder_args(cuda_device, 1, 513)
+    with pytest.raises(ValueError, match='1-512 tokens'):
+        encoder_forward(x, mask, w, 8)
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize('N', [1, 3, 4, 64, 512])
 def test_encoder_kernel(cuda_device, N):
     """Both versions round to bf16 at the same points; an f32 sum in
@@ -640,6 +691,30 @@ def test_full_decode_kernel(cuda_device, enc_dtype):
     assert (full_decode.launches, full_decode.launches_int8) == (
         before[0] + (not q8), before[1] + q8)
     _assert_decode_rule(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('enc_dtype', ['bfloat16', 'int8'])
+@pytest.mark.parametrize('width,TE', [('dk32', 200), ('dk64', 320),
+                                      ('dk32', 320), ('dk64', 512)])
+def test_full_decode_kernel_wider(cuda_device, enc_dtype, width, TE):
+    """Kernels 4 and 5 at SATRN-small's head width (d_k 32, over its 200
+    source tokens) and over more than 256 source tokens (NRTR on the 1by8
+    trunk: 320), under the decode rule; int8 with one scale per (layer, K
+    or V, head) at either width."""
+    out_enc, mask, w = _decoder_args(cuda_device, TE, width)
+    got = full_decode(out_enc, mask, w, 8, 91, 91, enc_dtype)
+    want = full_decode_plain(out_enc, mask, w, 8, 91, 91, enc_dtype)
+    torch.cuda.synchronize()
+    assert full_decode.last_steps == 40
+    _assert_decode_rule(got, want)
+
+
+@pytest.mark.requires_cuda
+def test_full_decode_kernel_refuses_its_limits(cuda_device):
+    out_enc, mask, w = _decoder_args(cuda_device, 513)
+    with pytest.raises(ValueError, match='512 source tokens'):
+        full_decode(out_enc, mask, w, 8, 91, 91)
 
 
 def _decode_inputs(device, N, seed=0):
@@ -778,6 +853,22 @@ def test_cross_ffn_step_kernel(cuda_device, N, dtype, mask):
     torch.testing.assert_close(got.float(), want.float(), atol=STEP_ATOL,
                                rtol=STEP_RTOL)
     assert torch.equal(ek, ek0) and torch.equal(ev, ev0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [BF, torch.float32])
+@pytest.mark.parametrize('TE', [257, 320, 512])
+def test_cross_ffn_step_kernel_more_source_tokens(cuda_device, TE, dtype):
+    """Kernel 7 over more than 256 encoder keys (its attention is the
+    whole decode's, widened to 512), as above."""
+    x, _, _, ek, ev, m, w = _step_args(cuda_device, N=64, TE=TE,
+                                       dtype=dtype)
+    args = (x, ek, ev, m) + tuple(w[k] for k in _CROSS_W)
+    got = cross_ffn_step(*args)
+    want = cross_ffn_step_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=STEP_ATOL,
+                               rtol=STEP_RTOL)
 
 
 @pytest.mark.requires_cuda

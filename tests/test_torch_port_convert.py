@@ -2,7 +2,12 @@
 ``state_dict_from_jax`` fed back through the JAX package's own
 ``convert_state_dict`` + ``merge_flat`` must give the original variables bit
 for bit. That also proves the port's keys are the reference's torch names.
+The flagship (tiny and full), and the transformer family's five shipped
+configs on its other trunks (SATRN academic and small, NRTR on the
+modality transform and on ResNet31 1by16 and 1by8) at full width.
 """
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -13,16 +18,29 @@ from tps_pp_tpu.apis.recognizer import build_recognizer as build_jax
 from tps_pp_tpu.utils import torch_convert as jtc
 
 from tps_pp_tpu_torch.apis import build_recognizer
+from tps_pp_tpu_torch.config import load_config
 from tps_pp_tpu_torch.utils import convert
 
 torch.set_num_threads(2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# config, crop width
+TRANSFORMER_CONFIGS = {
+    'satrn_academic': ('configs/textrecog/satrn/satrn_academic.py', 100),
+    'satrn_small': ('configs/textrecog/satrn/satrn_small.py', 100),
+    'nrtr_modality': (
+        'configs/textrecog/nrtr/nrtr_modality_transform_academic.py', 160),
+    'nrtr_r31_1by16': (
+        'configs/textrecog/nrtr/nrtr_r31_1by16_1by8_academic.py', 160),
+    'nrtr_r31_1by8': (
+        'configs/textrecog/nrtr/nrtr_r31_1by8_1by4_academic.py', 160),
+}
 
 
-def _random_variables(cfg, tiny, seed=0):
+def _random_variables(cfg, tiny, seed=0, shape=None):
     """Random float32 leaves in the shapes of the JAX recognizer's
     variables (no JAX init needed for a bit-exact round trip)."""
     rec = build_jax(cfg)
-    shape = (1, 32, 64, 3) if tiny else (1, 32, 128, 3)
+    shape = shape or ((1, 32, 64, 3) if tiny else (1, 32, 128, 3))
     shapes = jax.eval_shape(
         lambda: rec.init_variables(jax.random.PRNGKey(0), shape))
     rng = np.random.default_rng(seed)
@@ -30,10 +48,9 @@ def _random_variables(cfg, tiny, seed=0):
         lambda s: rng.standard_normal(s.shape).astype(s.dtype), shapes)
 
 
-@pytest.mark.parametrize('tiny', [True, False])
-def test_state_dict_round_trips_through_jax_converter(tiny):
-    cfg = nrtr_tps_pp_cfg(tiny=tiny)
-    v = _random_variables(cfg, tiny)
+def _round_trip(cfg, v):
+    """state_dict_from_jax(v) loads strictly into the port's model of
+    ``cfg``, and the JAX converter gives ``v`` back bit for bit."""
     sd = convert.state_dict_from_jax(v, cfg)
     # the keys are exactly the port model's
     model = build_recognizer(cfg, device='cpu').model
@@ -52,7 +69,24 @@ def test_state_dict_round_trips_through_jax_converter(tiny):
 
 
 @pytest.mark.parametrize('tiny', [True, False])
+def test_state_dict_round_trips_through_jax_converter(tiny):
+    cfg = nrtr_tps_pp_cfg(tiny=tiny)
+    _round_trip(cfg, _random_variables(cfg, tiny))
+
+
+@pytest.mark.parametrize('tiny', [True, False])
 def test_rule_tables_match_the_jax_package(tiny):
     cfg = nrtr_tps_pp_cfg(tiny=tiny)
     assert set(convert.rules_for_config(cfg)) == set(
         jtc.rules_for_config(cfg))
+
+
+@pytest.mark.parametrize('name', list(TRANSFORMER_CONFIGS))
+def test_transformer_configs_round_trip_through_jax_converter(name):
+    """The five configs at full width; the sinusoid tables (the SATRN
+    encoder's and the decoder's) are buffers made from the config."""
+    path, width = TRANSFORMER_CONFIGS[name]
+    cfg = dict(load_config(os.path.join(REPO, path))['model'])
+    assert set(convert.rules_for_config(cfg)) == set(
+        jtc.rules_for_config(cfg))
+    _round_trip(cfg, _random_variables(cfg, False, shape=(1, 32, width, 3)))

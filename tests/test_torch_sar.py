@@ -23,8 +23,8 @@ and the gradients within 1e-4 relative and 1e-4 of the largest gradient.
   ``beam_decode``; ``compute_loss`` and its gradients in train mode;
 * the decode protocol carries ``feat`` (greedy, beam, the training pass),
   and ``'auto'`` never picks a path the kernels refuse (SAR; an NRTR on
-  ResNet31 with d_k 32 or a token count other than 64; the predicates
-  against the constants of the CUDA sources);
+  ResNet31 with d_k 32 or more than 512 tokens; the predicates against the
+  constants of the CUDA sources);
 * weights: the round trip through the JAX package's converter and the rule
   tables, for the shipped configs;
 * entry points: ``init_recognizer`` / ``model_inference`` against JAX's,
@@ -40,7 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_port_util import perturb_batch_stats
+from torch_port_util import load_sub, perturb_batch_stats
 
 from tps_pp_tpu.apis.inference import init_recognizer as jax_init
 from tps_pp_tpu.apis.inference import model_inference as jax_infer
@@ -103,22 +103,6 @@ def close_scaled(got, want, atol=ATOL):
     """Within ``atol`` times the largest magnitude of ``want`` (at least
     1)."""
     close(got, want, atol * max(1.0, float(np.abs(np.asarray(want)).max())))
-
-
-def load_sub(module, variables, rules, fp, tp=''):
-    """Load the JAX variables of one module (its subtree's ``{'params',
-    'batch_stats'}``) into the port's ``module`` through ``rules``, whose
-    flax paths start with ``fp`` (a '/' path) and torch names with
-    ``tp``."""
-    def wrap(t):
-        for part in reversed(fp.split('/')):
-            t = {part: t}
-        return t
-    sd = convert_rules({k: wrap(t) for k, t in variables.items()},
-                       [r for r in rules if r[1].startswith(fp + '/')])
-    cut = len(tp) + 1 if tp else 0
-    module.load_state_dict({k[cut:]: t for k, t in sd.items()}, strict=True)
-    return module
 
 
 def jax_init_vars(module, *args, seed=0, **kw):
@@ -588,21 +572,32 @@ def _constant(path, name):
 
 def test_kernel_shape_predicates_agree_with_the_cuda_limits():
     """``encoder_kernel_accepts`` against the constants that
-    ``csrc/encoder.cu`` checks (kT, kDk; kGemmLnWidth of ``gemm.cuh``),
-    and ``full_decode_accepts`` at the bounds its wrapper states."""
-    assert (tenc.KERNEL_TOKENS, tenc.KERNEL_DK, tenc.KERNEL_D) == (
-        _constant('encoder.cu', 'kT'), _constant('encoder.cu', 'kDk'),
+    ``csrc/encoder.cu`` checks (kMaxT, kDk; kGemmLnWidth of ``gemm.cuh``),
+    and ``full_decode_accepts`` against those of ``csrc/decode_blocks.cuh``
+    (kShortKeys steps, kMaxKeys source tokens) and at the bounds its
+    wrapper states: kernel 3 at any token count up to 512, kernels 4-5 at
+    d_k 32 or 64 and up to 512 source tokens."""
+    assert (tenc.KERNEL_MAX_TOKENS, tenc.KERNEL_DK, tenc.KERNEL_D) == (
+        _constant('encoder.cu', 'kMaxT'), _constant('encoder.cu', 'kDk'),
         _constant('gemm.cuh', 'kGemmLnWidth'))
+    assert (tfd.KERNEL_MAX_STEPS, tfd.KERNEL_MAX_SOURCE) == (
+        _constant('decode_blocks.cuh', 'kShortKeys'),
+        _constant('decode_blocks.cuh', 'kMaxKeys'))
     ok = dict(T=64, D=512, n_head=8, DK=64, DI=512)
     assert tenc.encoder_kernel_accepts(**ok)
-    assert tenc.encoder_kernel_accepts(**dict(ok, T=None))
-    for k, bad in (('T', 40), ('T', 320), ('DK', 32), ('D', 256),
+    for T in (None, 1, 8, 40, 100, 320, 512):
+        assert tenc.encoder_kernel_accepts(**dict(ok, T=T)), T
+    for k, bad in (('T', 0), ('T', 513), ('DK', 32), ('D', 256),
                    ('DI', 128), ('DI', 384)):
         assert not tenc.encoder_kernel_accepts(**dict(ok, **{k: bad})), k
     ok = dict(D=512, DK=64, DI=256, S=40, TE=64, NC=92)
     assert tfd.full_decode_accepts(**ok)
-    assert tfd.full_decode_accepts(**dict(ok, TE=256))
-    for k, bad in (('TE', 257), ('TE', 320), ('DK', 32), ('S', 257),
+    for k, good in (('TE', 256), ('TE', 320), ('TE', 512), ('DK', 32),
+                    ('S', 256)):
+        assert tfd.full_decode_accepts(**dict(ok, **{k: good})), k
+    assert tfd.full_decode_accepts(D=256, DK=32, DI=1024, S=25, TE=200,
+                                   NC=91)
+    for k, bad in (('TE', 513), ('DK', 16), ('DK', 128), ('S', 257),
                    ('D', 1088), ('D', 480)):
         assert not tfd.full_decode_accepts(**dict(ok, **{k: bad})), k
 
@@ -629,16 +624,17 @@ def nrtr_r31_cfg(d_k=64, dtype='bfloat16'):
 
 def test_auto_falls_back_to_steps_where_the_kernels_refuse():
     """On the card, ``'auto'`` picks ``fused40_bf16`` for an NRTR on
-    ResNet31 only where the token count is 64 and d_k 64; at 32 x 160 the
-    1by16 trunk gives 40 tokens, so ``predict`` (asked as if on the card)
-    runs ``'steps'`` from the feature it has, the trunk once, and gives
-    the ``'steps'`` recognizer's output. An explicit ``'fused40_bf16'``
-    keeps its path (on the card its kernels raise)."""
+    ResNet31 only where the token count is at most 512 and d_k 64; at 32 x
+    2080 the 1by16 trunk gives 520 tokens, so ``predict`` (asked as if on
+    the card) runs ``'steps'`` from the feature it has, the trunk once, and
+    gives the ``'steps'`` recognizer's output. An explicit
+    ``'fused40_bf16'`` keeps its path (on the card its kernels raise)."""
     rec = build_recognizer(nrtr_r31_cfg(), device='cpu').init_weights(0)
     assert rec.auto_decode_mode('cuda') == 'fused40_bf16'
     assert rec.auto_decode_mode('cuda', 64) == 'fused40_bf16'
-    assert rec.auto_decode_mode('cuda', 40) == 'steps'
-    assert rec.auto_decode_mode('cuda', 320) == 'steps'
+    assert rec.auto_decode_mode('cuda', 40) == 'fused40_bf16'
+    assert rec.auto_decode_mode('cuda', 320) == 'fused40_bf16'
+    assert rec.auto_decode_mode('cuda', 520) == 'steps'
     assert rec.auto_decode_mode('cpu', 64) == 'steps'
     rec32 = build_recognizer(nrtr_r31_cfg(d_k=32), device='cpu')
     assert rec32.auto_decode_mode('cuda') == 'steps'
@@ -649,7 +645,7 @@ def test_auto_falls_back_to_steps_where_the_kernels_refuse():
     assert build_recognizer(dict(nrtr_r31_cfg(), decode_mode='fused40'),
                             device='cpu').resolved_decode_mode() == 'fused40'
 
-    img = randn(2, 32, 160, 3, seed=18)
+    img = randn(2, 32, 2080, 3, seed=18)
     steps = build_recognizer(dict(nrtr_r31_cfg(), decode_mode='steps'),
                              device='cpu')
     steps.model.load_state_dict(rec.model.state_dict())
@@ -662,7 +658,7 @@ def test_auto_falls_back_to_steps_where_the_kernels_refuse():
     assert rec.resolved_decode_mode() == 'fused40_bf16'
     got = rec.predict(img)
     assert calls == [1] and not fused
-    assert rec.resolved_decode_mode(40) == 'steps'
+    assert rec.resolved_decode_mode(520) == 'steps'
     close(got.float(), steps.predict(img).float().numpy(), 0.0)
 
 

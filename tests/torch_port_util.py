@@ -9,7 +9,7 @@ from tps_pp_tpu.apis.flagship import nrtr_tps_pp_cfg
 from tps_pp_tpu.apis.recognizer import build_recognizer as build_jax
 
 from tps_pp_tpu_torch.apis import build_recognizer
-from tps_pp_tpu_torch.utils.convert import state_dict_from_jax
+from tps_pp_tpu_torch.utils.convert import convert_rules, state_dict_from_jax
 
 
 def to_numpy(tree):
@@ -70,3 +70,19 @@ def port_from_jax(cfg, variables, **overrides):
 
 def jnp_tree(tree):
     return jax.tree.map(jnp.asarray, tree)
+
+
+def load_sub(module, variables, rules, fp, tp=''):
+    """Load the JAX variables of one module (its subtree's ``{'params',
+    'batch_stats'}``) into the port's ``module`` through ``rules``, whose
+    flax paths start with ``fp`` (a '/' path) and torch names with
+    ``tp``."""
+    def wrap(t):
+        for part in reversed(fp.split('/')):
+            t = {part: t}
+        return t
+    sd = convert_rules({k: wrap(t) for k, t in variables.items()},
+                       [r for r in rules if r[1].startswith(fp + '/')])
+    cut = len(tp) + 1 if tp else 0
+    module.load_state_dict({k[cut:]: t for k, t in sd.items()}, strict=True)
+    return module

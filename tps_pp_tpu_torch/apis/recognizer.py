@@ -32,9 +32,11 @@ as the JAX package does. Decode modes, the JAX package's
   decoder with ``use_fused_step`` runs each layer's step as two kernels
   (``ops.decode_step``); one with ``kv_dtype='int8'`` keeps int8 caches.
 * ``'auto'`` (default): ``'fused40_bf16'`` for a bf16 model on CUDA whose
-  encoder and decoder the kernels take (``kernel_accepts``: d_k == d_v,
-  kernel 3's d_k 64 and d_model 512, and, once the trunk has run, kernel
-  3's 64 tokens an image and kernel 4's at most 256), else ``'steps'``. A
+  decoder, and encoder where it fuses, the kernels take
+  (``kernel_accepts``: d_k == d_v, kernel 3's d_k 64 and d_model 512,
+  kernel 4's d_k 32 or 64, and, once the trunk has run, at most 512
+  tokens an image for both), else ``'steps'``. An encoder without a fused
+  forward (SATRN's) runs as a module before the whole decode. A
   token count the kernels refuse is seen only after ``extract_feat``; the
   ``steps`` path then goes on from that feature, and the trunk runs once.
   An explicit ``'fused40*'`` on such a model raises the kernels'
@@ -113,8 +115,8 @@ STEM_MODES = ('auto', 'xla', 'fused')
 
 
 class TextRecognizer:
-    """Encode-decode recognizer (NRTR, CRNN, SAR, RobustScanner) with an
-    optional TPS++ rectifier or image-space preprocessor."""
+    """Encode-decode recognizer (NRTR, SATRN, CRNN, SAR, RobustScanner)
+    with an optional TPS++ rectifier or image-space preprocessor."""
 
     def __init__(self, cfg: Dict[str, Any], device=None,
                  param_dtype: Optional[str] = None):
@@ -299,15 +301,18 @@ class TextRecognizer:
                          tokens: Optional[int] = None) -> str:
         """``'auto'`` for a model on a device of ``device_type``:
         ``'fused40_bf16'`` for a bf16 model on CUDA whose decoder has a
-        whole decode and whose encoder and decoder the kernels take
-        (``kernel_accepts``, over ``tokens`` encoder tokens an image where
-        they are known), else ``'steps'``. It never picks a path whose
-        kernels would refuse the model."""
+        whole decode and whose decoder, and encoder where it fuses
+        (``SUPPORTS_FUSED_FORWARD``), the kernels take (``kernel_accepts``,
+        over ``tokens`` encoder tokens an image where they are known), else
+        ``'steps'``. An encoder that does not fuse (SATRN's) runs as a
+        module on that path, so only the decoder's predicate asks. It never
+        picks a path whose kernels would refuse the model."""
         m = self.model
-        enc_ok = getattr(m.encoder, 'kernel_accepts', None)
+        enc_ok = (not getattr(type(m.encoder), 'SUPPORTS_FUSED_FORWARD',
+                              False) or m.encoder.kernel_accepts(tokens))
         if (device_type == 'cuda' and self.dtype == torch.bfloat16
-                and self._fused_capable() and enc_ok is not None
-                and enc_ok(tokens) and m.decoder.kernel_accepts(tokens)):
+                and self._fused_capable() and enc_ok
+                and m.decoder.kernel_accepts(tokens)):
             return 'fused40_bf16'
         return 'steps'
 
@@ -415,16 +420,16 @@ def build_recognizer(cfg: Dict[str, Any], device=None,
                      param_dtype: Optional[str] = None) -> TextRecognizer:
     """The recognizer of a model config: ``type`` ABINet builds an
     ``ABINetRecognizer`` (JAX ``apis/recognizer.py:337-348``); NRTR,
-    CRNNNet, SARNet, RobustScanner and EncodeDecodeRecognizer a
+    CRNNNet, SARNet, SATRN, RobustScanner and EncodeDecodeRecognizer a
     ``TextRecognizer`` (JAX ``models/recognizers/encode_decode.py:110-111``).
-    The other families (SATRN, SegRecognizer) are not ported yet.
+    SegRecognizer is not ported yet.
     ``device`` defaults to the CUDA device (see :class:`TextRecognizer`)."""
     type_name = cfg.get('type', 'EncodeDecodeRecognizer')
     if type_name == 'ABINet':
         from .abinet import ABINetRecognizer
         return ABINetRecognizer(cfg, device, param_dtype)
-    if type_name not in ('NRTR', 'CRNNNet', 'SARNet', 'RobustScanner',
-                         'EncodeDecodeRecognizer'):
+    if type_name not in ('NRTR', 'CRNNNet', 'SARNet', 'SATRN',
+                         'RobustScanner', 'EncodeDecodeRecognizer'):
         raise NotImplementedError(
             f'recognizer type {type_name!r} is not ported yet')
     return TextRecognizer(cfg, device, param_dtype)

@@ -30,9 +30,9 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int kAttnWarps = 4;
-constexpr int kMaxKeys = 256;
-constexpr int kMaxPass = kMaxKeys / 32;
-constexpr int kDk = 64;
+constexpr int kShortKeys = 256;   // keys of the first template case
+constexpr int kMaxKeys = 512;     // keys of the second
+constexpr int kDk = 64;           // the step kernels' head width
 
 // Launches `kernel` in clusters of cluster_z blocks along z, with
 // programmatic stream serialization: it may start while the kernel before
@@ -508,12 +508,16 @@ static __device__ __forceinline__ void axpy_vec(float* acc, float p, uint4 v,
   acc[3] += p * __uint_as_float(v.w);
 }
 
-// One warp per (row n, head h); head width 64; two contracts, chosen at
-// compile time so that each compiles to its own code:
+// One warp per (row n, head h); head width DK (32 or 64), at most MP * 32
+// keys (MP passes of 32: 8 up to kShortKeys, 16 up to kMaxKeys; at 64 keys
+// a 16-pass case takes 17% longer in the whole decode's attention and 32%
+// in kernel 7's, on an H100: tools/torch_profile_slice.py --stages
+// decode,fused_step); two contracts, chosen at compile time so that each
+// compiles to its own code:
 // * the whole decode's (STEP false): q (bf16, or f32 for int8 K/V) at q +
-//   n*q_rs + h*64, scaled already; K and V of key j at kbase/vbase +
-//   n*kv_rs + h*64 + j*kv_ks (bf16 or int8); with app_k (bf16), this
-//   step's K/V (app_k/app_v + n*app_rs + h*64) are copied to key slot
+//   n*q_rs + h*DK, scaled already; K and V of key j at kbase/vbase +
+//   n*kv_rs + h*DK + j*kv_ks (bf16 or int8); with app_k (bf16), this
+//   step's K/V (app_k/app_v + n*app_rs + h*DK) are copied to key slot
 //   app_slot and read there; softmax weights rounded to bf16 before P.V;
 //   the go gate;
 // * the per-step kernels' (STEP true): q (f32) times qmul; K and V (bf16
@@ -523,7 +527,7 @@ static __device__ __forceinline__ void axpy_vec(float* acc, float p, uint4 v,
 // mask (N, nkeys): key j valid iff mask > 0, else -1e9 (null = all
 // valid). int8 K/V come with the layer's per-head scales: q is rounded to
 // bf16 after the K scale, the output takes the V scale. The output, (N,
-// H*64) bf16 of row stride out_rs.
+// H*DK) bf16 of row stride out_rs.
 //
 // Scores with lanes over keys: key j = pass * 32 + lane, each lane's whole
 // K row in 16-byte loads, PIF passes' loads (64 keys for bf16 and int8, 32
@@ -534,9 +538,9 @@ static __device__ __forceinline__ void axpy_vec(float* acc, float p, uint4 v,
 // and this one's launch; only this step's key (app_slot) waits. An
 // appended key of another type than the cache's (f32 this step, bf16
 // cache) is staged in shared memory as f32 and its lane reads it there.
-// One warp max, one warp sum; then P.V with lanes over the 64 dims, NV
+// One warp max, one warp sum; then P.V with lanes over the DK dims, NV
 // lanes a V row, each row read coalesced, up to 64 rows in flight.
-template <bool STEP, typename Q, typename KV, typename A>
+template <bool STEP, typename Q, typename KV, typename A, int DK, int MP>
 __global__ void __launch_bounds__(kAttnWarps * 32)
 attend_keys_kernel(const int* __restrict__ go, const Q* __restrict__ q,
                    long long q_rs, float qmul, KV* kbase, KV* vbase,
@@ -546,21 +550,24 @@ attend_keys_kernel(const int* __restrict__ go, const Q* __restrict__ q,
                    const float* __restrict__ vscale, bf16* __restrict__ out,
                    long long out_rs, int N, int H, const A* app_k,
                    const A* app_v, long long app_rs, int app_slot) {
-  constexpr int NV = kDk * (int)sizeof(KV) / 16;   // 16-byte vectors a row
+  constexpr int NV = DK * (int)sizeof(KV) / 16;    // 16-byte vectors a row
   constexpr int VD = 16 / (int)sizeof(KV);          // dims a vector
   constexpr int PIF = sizeof(KV) == 4 ? 1 : 2;      // key passes in flight
   constexpr bool kInt8 = std::is_same<KV, signed char>::value;
   constexpr bool kAppF32 = !kInt8 && !std::is_same<A, KV>::value;
-  __shared__ __align__(16) float qs[kAttnWarps][kDk];
-  __shared__ float ps[kAttnWarps][kMaxKeys];
+  static_assert(DK == 32 || DK == 64, "a head of 32 or 64 dims");
+  __shared__ __align__(16) float qs[kAttnWarps][DK];
+  __shared__ float ps[kAttnWarps][MP * 32];
   // (a key of one float when unused, as in the whole decode)
-  __shared__ __align__(16) float apk[kAttnWarps][kAppF32 ? kDk : 1];
-  __shared__ __align__(16) float apv[kAttnWarps][kAppF32 ? kDk : 1];
+  __shared__ __align__(16) float apk[kAttnWarps][kAppF32 ? DK : 1];
+  __shared__ __align__(16) float apv[kAttnWarps][kAppF32 ? DK : 1];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int w = blockIdx.x * kAttnWarps + warp;
   const bool live = w < N * H;
   const int n = live ? w / H : 0, h = w % H;
-  const int off = h * kDk;
+  const int off = h * DK;
+  // the lanes that hold two dims of q (and copy two of an appended key)
+  const bool pair_lane = 2 * lane < DK;
   KV* kr = kbase + n * kv_rs + (STEP ? h * kv_hs : off);
   KV* vr = vbase + n * kv_rs + (STEP ? h * kv_hs : off);
   auto load_k = [&](uint4 (&kv)[NV], const KV* kp) {
@@ -581,27 +588,31 @@ attend_keys_kernel(const int* __restrict__ go, const Q* __restrict__ q,
   if (!live || (!STEP && !*go)) return;
   ptx::grid_dep_launch();
 
-  float2 qf = load2(q + n * q_rs + off, lane);
-  if constexpr (STEP) {
-    qf.x *= qmul;
-    qf.y *= qmul;
+  if (pair_lane) {
+    float2 qf = load2(q + n * q_rs + off, lane);
+    if constexpr (STEP) {
+      qf.x *= qmul;
+      qf.y *= qmul;
+    }
+    if (kscale) {
+      qf.x = bf_round(qf.x * kscale[h]);
+      qf.y = bf_round(qf.y * kscale[h]);
+    }
+    qs[warp][2 * lane] = qf.x;
+    qs[warp][2 * lane + 1] = qf.y;
   }
-  if (kscale) {
-    qf.x = bf_round(qf.x * kscale[h]);
-    qf.y = bf_round(qf.y * kscale[h]);
-  }
-  qs[warp][2 * lane] = qf.x;
-  qs[warp][2 * lane + 1] = qf.y;
   const KV* ak = nullptr;
   const KV* av = nullptr;
   if constexpr (!STEP && !kInt8) {
     if (app_k) {
       const bf16* sk = app_k + n * app_rs + off;
       const bf16* sv = app_v + n * app_rs + off;
-      reinterpret_cast<bf162*>(kr + app_slot * kv_ks)[lane] =
-          reinterpret_cast<const bf162*>(sk)[lane];
-      reinterpret_cast<bf162*>(vr + app_slot * kv_ks)[lane] =
-          reinterpret_cast<const bf162*>(sv)[lane];
+      if (pair_lane) {
+        reinterpret_cast<bf162*>(kr + app_slot * kv_ks)[lane] =
+            reinterpret_cast<const bf162*>(sk)[lane];
+        reinterpret_cast<bf162*>(vr + app_slot * kv_ks)[lane] =
+            reinterpret_cast<const bf162*>(sv)[lane];
+      }
       ak = reinterpret_cast<const KV*>(sk);
       av = reinterpret_cast<const KV*>(sv);
 #pragma unroll
@@ -613,15 +624,18 @@ attend_keys_kernel(const int* __restrict__ go, const Q* __restrict__ q,
     if (app_k) {
       const A* sk = app_k + n * app_rs + off;
       const A* sv = app_v + n * app_rs + off;
-      const float2 k2 = load2(sk, lane), v2 = load2(sv, lane);
-      store2(kr + app_slot * kv_ks, lane, k2.x, k2.y);
-      store2(vr + app_slot * kv_ks, lane, v2.x, v2.y);
-      if constexpr (kAppF32) {
-        apk[warp][2 * lane] = k2.x;
-        apk[warp][2 * lane + 1] = k2.y;
-        apv[warp][2 * lane] = v2.x;
-        apv[warp][2 * lane + 1] = v2.y;
-      } else {
+      if (pair_lane) {
+        const float2 k2 = load2(sk, lane), v2 = load2(sv, lane);
+        store2(kr + app_slot * kv_ks, lane, k2.x, k2.y);
+        store2(vr + app_slot * kv_ks, lane, v2.x, v2.y);
+        if constexpr (kAppF32) {
+          apk[warp][2 * lane] = k2.x;
+          apk[warp][2 * lane + 1] = k2.y;
+          apv[warp][2 * lane] = v2.x;
+          apv[warp][2 * lane + 1] = v2.y;
+        }
+      }
+      if constexpr (!kAppF32) {
         ak = reinterpret_cast<const KV*>(sk);
         av = reinterpret_cast<const KV*>(sv);
 #pragma unroll
@@ -635,12 +649,12 @@ attend_keys_kernel(const int* __restrict__ go, const Q* __restrict__ q,
   const bool app_smem = kAppF32 && app_k;
 
   // scores: key j = pass * 32 + lane
-  float sc[kMaxPass];
+  float sc[MP];
 #pragma unroll
-  for (int i = 0; i < kMaxPass; ++i) sc[i] = -INFINITY;
+  for (int i = 0; i < MP; ++i) sc[i] = -INFINITY;
   float m = -INFINITY;
 #pragma unroll
-  for (int pp = 0; pp < kMaxPass; pp += PIF) {
+  for (int pp = 0; pp < MP; pp += PIF) {
     if (pp * 32 >= nkeys) break;
     if (pp > 0) {
 #pragma unroll
@@ -656,7 +670,7 @@ attend_keys_kernel(const int* __restrict__ go, const Q* __restrict__ q,
       if (j < nkeys) {
         float s = 0.f;
         if (app_smem && j == app_slot) {
-          for (int d = 0; d < (kAppF32 ? kDk : 1); ++d)
+          for (int d = 0; d < (kAppF32 ? DK : 1); ++d)
             s += qs[warp][d] * apk[warp][d];
         } else {
 #pragma unroll
@@ -670,16 +684,16 @@ attend_keys_kernel(const int* __restrict__ go, const Q* __restrict__ q,
     }
   }
   m = warp_max(m);
-  float e[kMaxPass];
+  float e[MP];
   float sum = 0.f;
 #pragma unroll
-  for (int i = 0; i < kMaxPass; ++i) {
+  for (int i = 0; i < MP; ++i) {
     e[i] = expf(sc[i] - m);
     sum += e[i];
   }
   sum = warp_sum(sum);
 #pragma unroll
-  for (int i = 0; i < kMaxPass; ++i) {
+  for (int i = 0; i < MP; ++i) {
     const int j = i * 32 + lane;
     if (j < nkeys) ps[warp][j] = STEP ? e[i] / sum : bf_round(e[i] / sum);
   }
@@ -731,7 +745,9 @@ attend_keys_kernel(const int* __restrict__ go, const Q* __restrict__ q,
   }
 }
 
-template <bool STEP, typename Q, typename KV, typename A>
+// Up to kShortKeys keys on the first case (8 passes), up to kMaxKeys on
+// the second (16); more is cudaErrorInvalidValue.
+template <bool STEP, typename Q, typename KV, typename A, int DK = kDk>
 int launch_attend(const int* go, const Q* q, long long q_rs, float qmul,
                   KV* k, KV* v, long long kv_rs, long long kv_hs,
                   long long kv_ks, int nkeys, const float* mask, int mask_rs,
@@ -740,10 +756,14 @@ int launch_attend(const int* go, const Q* q, long long q_rs, float qmul,
                   const A* app_v, long long app_rs, int app_slot,
                   cudaStream_t st) {
   const int blocks = (N * H + kAttnWarps - 1) / kAttnWarps;
-  return launch_pdl(attend_keys_kernel<STEP, Q, KV, A>, blocks,
-                    kAttnWarps * 32, 0, st, 1, go, q, q_rs, qmul, k, v,
-                    kv_rs, kv_hs, kv_ks, nkeys, mask, mask_rs, kscale, vscale,
-                    out, out_rs, N, H, app_k, app_v, app_rs, app_slot);
+  if (nkeys > kMaxKeys) return (int)cudaErrorInvalidValue;
+  auto kernel = nkeys <= kShortKeys
+                    ? attend_keys_kernel<STEP, Q, KV, A, DK, kShortKeys / 32>
+                    : attend_keys_kernel<STEP, Q, KV, A, DK, kMaxKeys / 32>;
+  return launch_pdl(kernel, blocks, kAttnWarps * 32, 0, st, 1, go, q, q_rs,
+                    qmul, k, v, kv_rs, kv_hs, kv_ks, nkeys, mask, mask_rs,
+                    kscale, vscale, out, out_rs, N, H, app_k, app_v, app_rs,
+                    app_slot);
 }
 
 }  // namespace

@@ -730,8 +730,9 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
 // The limits of both entry points, the only copy of them: d_k == 64 (the
 // attention's head width), d_model and d_inner multiples of 64, d_model at
 // most 512 (the x band of a LayerNorm + product block sits in shared
-// memory), at most kMaxKeys keys (a warp's softmax weights sit in shared
-// memory), every pointer 16-byte aligned. Outside them an entry point
+// memory), a cache of at most kShortKeys steps and at most kMaxKeys
+// encoder keys (a warp's softmax weights sit in shared memory), every
+// pointer 16-byte aligned. Outside them an entry point
 // launches nothing and returns cudaErrorInvalidValue.
 //
 // Self-attention step. is_bf16 selects X: 1 = bf16, 0 = f32. x (N, D) X;
@@ -746,7 +747,7 @@ extern "C" int tpk_self_attn_step(const void* x, void* ck, void* cv,
                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (DK != kDk || D % 64 || D > kStepMaxD || t < 0 || t >= T ||
-      t >= kMaxKeys ||
+      t >= kShortKeys ||
       !aligned16({x, ck, cv, wqkv, wfc, ln_s, ln_b, scratch, x_out}))
     return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;

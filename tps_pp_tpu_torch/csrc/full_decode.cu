@@ -59,7 +59,11 @@
 // * attends one query per (row, head) with one warp (attend_keys_kernel):
 //   lanes over keys, every lane's 16-byte K loads issued before its dot
 //   products, q broadcast from shared memory, one warp max and one warp
-//   sum, then P.V with lanes over the 64 dims, each V row read coalesced.
+//   sum, then P.V with lanes over the head's dims, each V row read
+//   coalesced. The head width is 64 or 32 (SATRN-small) and the keys at
+//   most 512 source tokens (NRTR on ResNet31 1by8: 320), each a template
+//   case, so that the flagship's 64-dim, 64-key attention keeps its code;
+//   the steps stay at most 256.
 // * computes the classifier a class a warp over a few rows a block
 //   (decode_head_kernel), from the classifier transposed (a copy that the
 //   wrapper's graph makes at every replay, so that it reads the weights
@@ -74,7 +78,8 @@
 //
 // int8 encoder K/V (`enc_q8` given; the JAX package's `fused40`): from the
 // projection that the wrapper computes (outside the kernel, as in JAX), one
-// absmax scale per (layer, K|V, head) over the whole batch as passed,
+// absmax scale per (layer, K|V, head), a group of d_k columns, over the
+// whole batch as passed,
 // max|x| / 127 + 1e-8 (pallas_full_decode.py:302-313), and the values
 // round(x / scale), half to even, clipped to +-127. The cross-attention
 // (the same one-query kernel, on int8) then reads half the bytes of the
@@ -132,21 +137,24 @@ __global__ void embed_ln_kernel(const int* __restrict__ remaining,
 }
 
 // ---- int8 encoder K/V ----------------------------------------------------
-// amax[g] = max |ekv[r, g*64 + c]| over every row r and c < 64, as the bits
-// of a non-negative float (which order as unsigned ints). Block (g, chunk
-// of rows_per_block rows); one warp per row, two columns per lane.
+// amax[g] = max |ekv[r, g*DK + c]| over every row r and c < DK (a head's
+// columns: one group a (layer, K or V, head)), as the bits of a
+// non-negative float (which order as unsigned ints). Block (g, chunk of
+// rows_per_block rows); one warp per row, two columns per lane (the lanes
+// past DK / 2 idle at DK = 32).
 __global__ void group_absmax_kernel(const bf16* __restrict__ ekv, int rows,
-                                    int KV, int rows_per_block,
+                                    int KV, int DK, int rows_per_block,
                                     unsigned* __restrict__ amax) {
   __shared__ float red[32];
   const int g = blockIdx.x, lane = threadIdx.x & 31;
   const int r0 = blockIdx.y * rows_per_block;
   const int r1 = min(rows, r0 + rows_per_block);
   float m = 0.f;
-  for (int r = r0 + (threadIdx.x >> 5); r < r1; r += blockDim.x >> 5) {
-    const float2 v = load2(ekv + (size_t)r * KV + g * 64, lane);
-    m = fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y)));
-  }
+  if (2 * lane < DK)
+    for (int r = r0 + (threadIdx.x >> 5); r < r1; r += blockDim.x >> 5) {
+      const float2 v = load2(ekv + (size_t)r * KV + g * DK, lane);
+      m = fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y)));
+    }
   m = block_max(m, red);
   if (threadIdx.x == 0) atomicMax(amax + g, __float_as_uint(m));
 }
@@ -166,12 +174,13 @@ __global__ void quantize_groups_kernel(const bf16* __restrict__ ekv,
                                        const unsigned* __restrict__ amax,
                                        float* __restrict__ scales,
                                        signed char* __restrict__ q8,
-                                       size_t n_pairs, int KV, int G) {
+                                       size_t n_pairs, int KV, int DK,
+                                       int G) {
   const size_t stride = (size_t)gridDim.x * blockDim.x;
   const size_t i0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i0 < (size_t)G) scales[i0] = group_scale(amax, (int)i0);
   for (size_t i = i0; i < n_pairs; i += stride) {
-    const float s = group_scale(amax, (int)((2 * i) % KV) / 64);
+    const float s = group_scale(amax, (int)((2 * i) % KV) / DK);
     const float2 v = load2(ekv + 2 * i, 0);
     reinterpret_cast<char2*>(q8)[i] = make_char2(quantize(v.x, s),
                                                  quantize(v.y, s));
@@ -344,8 +353,8 @@ extern "C" int tpk_full_decode(
     int S, int NC, int start_idx, int end_idx, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int HD = H * DK, KV = L * 2 * HD;
-  if (N < 1 || TE < 1 || DK != kDk || S > kMaxKeys || TE > kMaxKeys ||
-      D % 64 || DI % 64 || D > 32 * kLnMaxPerLane)
+  if (N < 1 || TE < 1 || (DK != 32 && DK != 64) || S > kShortKeys ||
+      TE > kMaxKeys || D % 64 || DI % 64 || D > 32 * kLnMaxPerLane)
     return (int)cudaErrorInvalidValue;
   // the head's rows a block: enough blocks for the SMs, then what fits
   int head_rows = std::min(kHeadWarps, std::max(1, (N + 131) / 132));
@@ -379,15 +388,15 @@ extern "C" int tpk_full_decode(
     TPK_TRY(gemm_tc((const bf16*)out_enc, D, (const bf16*)wkv_enc, KV,
                     N * TE, KV, D, ep, st));
   } else {
-    const int G = KV / 64, rows = N * TE, rpb = 256;
+    const int G = KV / DK, rows = N * TE, rpb = 256;
     cudaMemsetAsync(amax, 0, sizeof(unsigned) * G, st);
     TPK_CHECK();
     group_absmax_kernel<<<dim3(G, (rows + rpb - 1) / rpb), 256, 0, st>>>(
-        ekv, rows, KV, rpb, amax);
+        ekv, rows, KV, DK, rpb, amax);
     TPK_CHECK();
     const size_t pairs = (size_t)rows * KV / 2;
     quantize_groups_kernel<<<1024, 256, 0, st>>>(ekv, amax, scales, q8,
-                                                 pairs, KV, G);
+                                                 pairs, KV, DK, G);
     TPK_CHECK();
   }
   cudaMemsetAsync(probs, 0, sizeof(float) * (size_t)N * S * NC, st);
@@ -422,6 +431,23 @@ extern "C" int tpk_full_decode(
     p.out_bf16 = out_bf16;
     return launch_step_gemm(p, plan[2 * i], st);
   };
+  // one-query attention at this decode's head width (whole-decode
+  // contract: no per-step scaling, A the K/V type)
+  auto attend = [&](auto q, auto k, auto v, long long kv_rs,
+                    long long kv_ks, int nkeys, const float* mask,
+                    int mask_rs, const float* kscale, const float* vscale,
+                    long long q_rs, decltype(k) app_k, decltype(k) app_v,
+                    long long app_rs, int app_slot) {
+    using Q = std::remove_const_t<std::remove_pointer_t<decltype(q)>>;
+    using KVT = std::remove_pointer_t<decltype(k)>;
+    if (DK == 32)
+      return launch_attend<false, Q, KVT, KVT, 32>(
+          go, q, q_rs, 1.f, k, v, kv_rs, 32, kv_ks, nkeys, mask, mask_rs,
+          kscale, vscale, ab, HD, N, H, app_k, app_v, app_rs, app_slot, st);
+    return launch_attend<false, Q, KVT, KVT, 64>(
+        go, q, q_rs, 1.f, k, v, kv_rs, 64, kv_ks, nkeys, mask, mask_rs,
+        kscale, vscale, ab, HD, N, H, app_k, app_v, app_rs, app_slot, st);
+  };
   // y = bf16(LN(x32)), the operand of the next product
   auto layernorm = [&]() {
     return launch_pdl(ln_rows_kernel, (N + kLnWarps - 1) / kLnWarps,
@@ -438,10 +464,9 @@ extern "C" int tpk_full_decode(
       bf16* cl = ch + (size_t)l * N * S * 2 * HD;
       // self-attention over the cached steps 0..t (y = LN1(x) on entry)
       TPK_TRY(gemm(0, yb, D, wqkv, l, qb, 3 * HD, bqkv, 0, 0, 1));
-      TPK_TRY((launch_attend<false, bf16, bf16, bf16>(
-          go, qb, 3 * HD, 1.f, cl, cl + HD, (long long)S * 2 * HD, kDk,
-          2 * HD, t + 1, nullptr, 0, nullptr, nullptr, ab, HD, N, H,
-          qb + HD, qb + 2 * HD, 3 * HD, t, st)));
+      TPK_TRY(attend(qb, cl, cl + HD, (long long)S * 2 * HD, 2 * HD, t + 1,
+                     nullptr, 0, nullptr, nullptr, 3 * HD, qb + HD,
+                     qb + 2 * HD, 3 * HD, t));
       TPK_TRY(gemm(1, ab, HD, wfc1, l, x32, D, nullptr, 0, 1, 0));
       TPK_TRY(layernorm());
       // cross-attention over the encoder K/V (q2 reuses the qkv buffer;
@@ -451,16 +476,13 @@ extern "C" int tpk_full_decode(
       if (q8) {
         signed char* ek8 = q8 + (size_t)l * 2 * HD;
         const float* sl = scales + (size_t)l * 2 * H;
-        TPK_TRY((launch_attend<false, float, signed char, signed char>(
-            go, q32, HD, 1.f, ek8, ek8 + HD, (long long)TE * KV, kDk, KV, TE,
-            src_mask, TE, sl, sl + H, ab, HD, N, H, nullptr, nullptr, 0,
-            0, st)));
+        TPK_TRY(attend((const float*)q32, ek8, ek8 + HD, (long long)TE * KV,
+                       KV, TE, src_mask, TE, sl, sl + H, HD, nullptr,
+                       nullptr, 0, 0));
       } else {
         bf16* ek = ekv + (size_t)l * 2 * HD;
-        TPK_TRY((launch_attend<false, bf16, bf16, bf16>(
-            go, qb, HD, 1.f, ek, ek + HD, (long long)TE * KV, kDk, KV, TE,
-            src_mask, TE, nullptr, nullptr, ab, HD, N, H, nullptr,
-            nullptr, 0, 0, st)));
+        TPK_TRY(attend(qb, ek, ek + HD, (long long)TE * KV, KV, TE, src_mask,
+                       TE, nullptr, nullptr, HD, nullptr, nullptr, 0, 0));
       }
       TPK_TRY(gemm(3, ab, HD, wfc2, l, x32, D, nullptr, 0, 1, 0));
       TPK_TRY(layernorm());

@@ -327,3 +327,8 @@ class NRTRDecoder(nn.Module):
         fn = full_decode_plain if plain else full_decode
         return fn(out_enc, src_mask, self.packed_weights(out_enc.dtype),
                   self.n_head, self.start_idx, end_idx, enc_dtype=enc_dtype)
+
+
+# SATRN's configs name the same decoder TFDecoder (JAX
+# tps_pp_tpu/models/decoders/nrtr.py:360-362)
+DECODERS.register_module(name='TFDecoder')(NRTRDecoder)

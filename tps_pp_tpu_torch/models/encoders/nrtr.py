@@ -6,8 +6,10 @@ mask. The reference's quirk is kept: the mask is built over the *flattened
 token index* (``valid = ceil(H*W * valid_ratio)``), not over the width axis.
 
 ``forward(..., fused=True)`` runs the whole encoder through
-``ops.encoder`` in eval mode: the CUDA kernels on CUDA tensors, their plain
-version on CPU tensors (or everywhere with ``plain=True``). Its weights are
+``ops.encoder`` in eval mode (``SUPPORTS_FUSED_FORWARD``, which the
+recognizer's fused path routes by, as JAX's does): the CUDA kernels on
+CUDA tensors, their plain version on CPU tensors (or everywhere with
+``plain=True``). Its weights are
 stacked and folded once per (device, dtype) and cached until a weight
 changes (``layers.weights_stamp``). Train mode takes the module path, with
 dropout, as the JAX package does (``encoders/nrtr.py:59-62``).
@@ -43,6 +45,7 @@ def sequence_mask(valid_ratio: Optional[torch.Tensor], T: int):
 
 @ENCODERS.register_module()
 class NRTREncoder(nn.Module):
+    SUPPORTS_FUSED_FORWARD = True
 
     def __init__(self, n_layers=6, n_head=8, d_k=64, d_v=64, d_model=512,
                  d_inner=256, dropout=0.1):

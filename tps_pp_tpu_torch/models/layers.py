@@ -127,17 +127,18 @@ class _GlobalBatchNorm(torch.autograd.Function):
 
 class ConvModule(nn.Module):
     """Conv2d + optional BatchNorm + ReLU, mmcv ConvModule semantics: the
-    conv has a bias iff there is no norm."""
+    conv has a bias iff there is no norm. ``groups`` as ``nn.Conv2d``'s
+    (the channel count for a depthwise conv)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Union[int, Tuple[int, int]] = 3,
                  stride: Union[int, Tuple[int, int]] = 1,
                  padding: Union[int, Tuple[int, int]] = 0,
-                 use_norm: bool = False):
+                 use_norm: bool = False, groups: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, _pair(kernel_size),
                               stride=_pair(stride), padding=_pair(padding),
-                              bias=not use_norm)
+                              groups=groups, bias=not use_norm)
         self.bn = BatchNorm2d(out_channels, eps=1e-5) if use_norm else None
 
     def forward(self, x):

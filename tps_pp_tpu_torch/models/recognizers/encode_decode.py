@@ -89,15 +89,22 @@ class EncodeDecodeRecognizer(nn.Module):
                           enc_dtype: str = 'bfloat16',
                           stem=None, feat=None) -> torch.Tensor:
         """The serving path: rectifier sampler, whole encoder and whole
-        decode through the ops (kernels on CUDA tensors); ``plain`` runs
-        the same functions through their plain PyTorch versions;
+        decode through the ops (kernels on CUDA tensors); an encoder
+        without ``SUPPORTS_FUSED_FORWARD`` (SATRN's) runs as a module before
+        the whole decode, as in JAX (``tps_pp_tpu/apis/recognizer.py:
+        233-243``); ``plain`` runs the same functions through their plain
+        PyTorch versions;
         ``enc_dtype`` is the decode's encoder K/V type (``'bfloat16'`` or
         ``'int8'``); ``stem`` as in :meth:`extract_feat`; ``feat``, the
         output of :meth:`extract_feat` where it is computed already. Returns
         (N, S, C-1) float32 probabilities."""
         if feat is None:
             feat = self.extract_feat(img, plain=plain, stem=stem)
-        out_enc = self.encoder(feat, valid_ratio, fused=True, plain=plain)
+        if getattr(type(self.encoder), 'SUPPORTS_FUSED_FORWARD', False):
+            out_enc = self.encoder(feat, valid_ratio, fused=True,
+                                   plain=plain)
+        else:
+            out_enc = self.encode(feat, valid_ratio)
         return self.decoder.fused_full_decode(out_enc, valid_ratio,
                                               end_idx=end_idx, plain=plain,
                                               enc_dtype=enc_dtype)

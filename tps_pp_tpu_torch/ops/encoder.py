@@ -21,9 +21,9 @@ import torch.nn.functional as F
 from . import _lib
 
 NEG_INF = -1e9
-# kernel 3's shape limits: the constants of csrc/encoder.cu (kT, kDk) and
-# csrc/gemm.cuh (kGemmLnWidth) that tpk_encoder_forward checks
-KERNEL_TOKENS, KERNEL_DK, KERNEL_D = 64, 64, 512
+# kernel 3's shape limits: the constants of csrc/encoder.cu (kMaxT, kDk)
+# and csrc/gemm.cuh (kGemmLnWidth) that tpk_encoder_forward checks
+KERNEL_MAX_TOKENS, KERNEL_DK, KERNEL_D = 512, 64, 512
 
 
 def encoder_kernel_accepts(T: Optional[int], D: int, n_head: int, DK: int,
@@ -33,7 +33,7 @@ def encoder_kernel_accepts(T: Optional[int], D: int, n_head: int, DK: int,
     check of ``csrc/encoder.cu`` ``tpk_encoder_forward``, which
     :func:`encoder_forward` makes before it launches."""
     HD = n_head * DK
-    return ((T is None or T == KERNEL_TOKENS) and DK == KERNEL_DK
+    return ((T is None or 1 <= T <= KERNEL_MAX_TOKENS) and DK == KERNEL_DK
             and D == KERNEL_D and n_head >= 1 and (3 * HD) % 256 == 0
             and DI >= 256 and DI % 256 == 0)
 
@@ -99,9 +99,9 @@ def encoder_attention_plain(qkv: torch.Tensor, mask: torch.Tensor,
 
 def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor,
                       n_head: int) -> torch.Tensor:
-    """The encoder's attention kernel on CUDA tensors (bf16 qkv, f32 mask),
-    the plain version on CPU tensors. Same arguments as
-    :func:`encoder_attention_plain`."""
+    """The encoder's attention kernel on CUDA tensors (bf16 qkv, f32 mask;
+    1-512 tokens an image, d_k 64), the plain version on CPU tensors. Same
+    arguments as :func:`encoder_attention_plain`."""
     if qkv.device.type == 'cpu':
         return encoder_attention_plain(qkv, mask, n_head)
     dev = qkv.device
@@ -151,8 +151,8 @@ def encoder_forward(x: torch.Tensor, mask: Optional[torch.Tensor],
                     w: Dict[str, torch.Tensor], n_head: int) -> torch.Tensor:
     """The kernels on CUDA tensors (bf16 tokens and weights), the plain
     version on CPU tensors. Same arguments as
-    :func:`encoder_forward_plain`. The kernels' limits (64 tokens an image,
-    d_k 64, d_model 512, ...; :func:`encoder_kernel_accepts`) raise a
+    :func:`encoder_forward_plain`. The kernels' limits (1-512 tokens an
+    image, d_k 64, d_model 512, ...; :func:`encoder_kernel_accepts`) raise a
     ``ValueError`` here, and are checked again at their entry point,
     ``csrc/encoder.cu`` ``tpk_encoder_forward``."""
     if x.device.type == 'cpu':
@@ -177,8 +177,9 @@ def encoder_forward(x: torch.Tensor, mask: Optional[torch.Tensor],
         raise ValueError(f'encoder_forward: n_head {n_head} does not divide '
                          f'the attention width {HD}')
     if not encoder_kernel_accepts(T, D, n_head, DK, DI):
-        raise ValueError(f'encoder_forward: needs {KERNEL_TOKENS} tokens an '
-                         f'image, d_k {KERNEL_DK}, d_model {KERNEL_D}, 3 x '
+        raise ValueError(f'encoder_forward: needs 1-{KERNEL_MAX_TOKENS} '
+                         f'tokens an image, d_k {KERNEL_DK}, d_model '
+                         f'{KERNEL_D}, 3 x '
                          f'the attention width and d_inner multiples of 256; '
                          f'got T={T}, d_k={DK}, D={D}, H={n_head}, DI={DI}')
     M = N * T

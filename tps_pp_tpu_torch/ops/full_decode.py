@@ -70,6 +70,12 @@ def _dims(w, n_head):
                 NC=w['wcls'].shape[1])
 
 
+# kernels 4-5's limits: the head widths they are built for, and the
+# constants of csrc/decode_blocks.cuh (kShortKeys: the steps, kMaxKeys: the
+# source tokens) that tpk_full_decode checks
+KERNEL_DKS, KERNEL_MAX_STEPS, KERNEL_MAX_SOURCE = (32, 64), 256, 512
+
+
 def full_decode_accepts(D: int, DK: int, DI: int, S: int,
                         TE: Optional[int], NC: int, N: int = 1) -> bool:
     """Whether kernels 4-5 take a decode of these shapes: d_model D, heads
@@ -77,8 +83,9 @@ def full_decode_accepts(D: int, DK: int, DI: int, S: int,
     asked), NC classes, N rows. The check :func:`full_decode` makes before
     it launches (``csrc/full_decode.cu`` ``tpk_full_decode`` checks it
     again)."""
-    return (DK == 64 and D % 64 == 0 and DI % 64 == 0 and D <= 1024
-            and S <= 256 and (TE is None or 1 <= TE <= 256) and N >= 1
+    return (DK in KERNEL_DKS and D % 64 == 0 and DI % 64 == 0 and D <= 1024
+            and S <= KERNEL_MAX_STEPS
+            and (TE is None or 1 <= TE <= KERNEL_MAX_SOURCE) and N >= 1
             and (D + NC) * 4 <= 48 * 1024)
 
 
@@ -400,11 +407,11 @@ def full_decode(out_enc: torch.Tensor, src_mask: torch.Tensor,
         'w2': (w['w2'], (L, DI, D), bf), 'b2': (w['b2'], (L, D), f32),
         'wcls': (w['wcls'], (D, NC), bf), 'bcls': (w['bcls'], (NC,), f32)})
     if not full_decode_accepts(D, DK, DI, S, TE, NC, N):
-        raise ValueError(f'full_decode: needs d_k == 64, d_model and d_inner '
-                         f'multiples of 64, d_model <= 1024, at most 256 '
-                         f'steps and source tokens, at least one row and '
-                         f'token; got d_k={DK}, D={D}, DI={DI}, S={S}, N={N}, '
-                         f'TE={TE}')
+        raise ValueError(f'full_decode: needs d_k 32 or 64, d_model and '
+                         f'd_inner multiples of 64, d_model <= 1024, at most '
+                         f'{KERNEL_MAX_STEPS} steps and {KERNEL_MAX_SOURCE} '
+                         f'source tokens, at least one row and token; got '
+                         f'd_k={DK}, D={D}, DI={DI}, S={S}, N={N}, TE={TE}')
     key = (dev, N, TE, q8, n_head, start_idx, end_idx)
     graphs = _GRAPHS.setdefault(w['wqkv'], {})
     g = graphs.get(key)

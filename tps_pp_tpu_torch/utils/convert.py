@@ -131,6 +131,50 @@ def robust_scanner_rules(rnn_layers: int = 2) -> List[Rule]:
         ('decoder.prediction', 'decoder/prediction', 'linear')]
 
 
+def shallow_cnn_rules() -> List[Rule]:
+    """ShallowCNN (JAX ``torch_convert.py:554-563``): the reference's two
+    ConvModules ``conv1`` / ``conv2``, each ``.conv`` and ``.bn``."""
+    return [('backbone.conv1.conv', 'backbone/conv1', 'conv_nobias'),
+            ('backbone.conv1.bn', 'backbone/bn1', 'bn'),
+            ('backbone.conv2.conv', 'backbone/conv2', 'conv_nobias'),
+            ('backbone.conv2.bn', 'backbone/bn2', 'bn')]
+
+
+def nrtr_modality_rules() -> List[Rule]:
+    """NRTRModalityTransform (JAX ``torch_convert.py:541-551``): ``conv_1``,
+    ``bn_1``, ``conv_2``, ``bn_2`` and ``linear``."""
+    return [('backbone.conv_1', 'backbone/conv_1', 'conv'),
+            ('backbone.bn_1', 'backbone/bn_1', 'bn'),
+            ('backbone.conv_2', 'backbone/conv_2', 'conv'),
+            ('backbone.bn_2', 'backbone/bn_2', 'bn'),
+            ('backbone.linear', 'backbone/linear', 'linear')]
+
+
+def satrn_rules(n_layers: int = 12) -> List[Rule]:
+    """SatrnEncoder (JAX ``torch_convert.py:375-409``): the positional
+    encoding's gates ``h_scale.{0,2}`` / ``w_scale.{0,2}``, and per layer
+    ``norm1`` / ``norm2``, the attention's four linears and the
+    locality-aware FFN's three ConvModules (``depthwise_conv.bn`` from the
+    flax ``depthwise_bn``), then ``layer_norm``."""
+    pe, fpe = 'encoder.position_enc', 'encoder/position_enc'
+    rules = [(f'{pe}.{a}_scale.{i}', f'{fpe}/{a}_scale_{j}', 'conv')
+             for a in ('h', 'w') for i, j in ((0, 0), (2, 1))]
+    for i in range(n_layers):
+        tp, fp = f'encoder.layer_stack.{i}', f'encoder/layer{i}'
+        ff, fff = f'{tp}.feed_forward', f'{fp}/feed_forward'
+        rules += [(f'{tp}.norm1', f'{fp}/norm1', 'ln'),
+                  (f'{tp}.norm2', f'{fp}/norm2', 'ln')]
+        rules += _attn_rules(f'{tp}.attn', f'{fp}/attn')
+        rules += [(f'{ff}.conv1.conv', f'{fff}/conv1/conv', 'conv_nobias'),
+                  (f'{ff}.conv1.bn', f'{fff}/conv1/bn', 'bn'),
+                  (f'{ff}.depthwise_conv.conv', f'{fff}/depthwise_conv',
+                   'conv_nobias'),
+                  (f'{ff}.depthwise_conv.bn', f'{fff}/depthwise_bn', 'bn'),
+                  (f'{ff}.conv2.conv', f'{fff}/conv2/conv', 'conv_nobias'),
+                  (f'{ff}.conv2.bn', f'{fff}/conv2/bn', 'bn')]
+    return rules + [('encoder.layer_norm', 'encoder/layer_norm', 'ln')]
+
+
 def tps_pp_rules() -> List[Rule]:
     """TPS_PP (reference tps_pp.py:499-626 and DGAB.py names)."""
     p = 'tpsnet'
@@ -314,21 +358,30 @@ def _abinet_position_tables(cfg: Mapping) -> Dict[str, torch.Tensor]:
 
 
 def rules_for_config(cfg: Mapping) -> List[Rule]:
-    """The rule table of an NRTR, ABINet (+ TPS_PP), CRNN (+ TPS-STN), SAR
-    (parallel, sequential, beam search) or RobustScanner recognizer
-    config, on a ResNetABI or ResNet31OCR trunk."""
+    """The rule table of an NRTR, SATRN, ABINet (+ TPS_PP), CRNN (+
+    TPS-STN), SAR (parallel, sequential, beam search) or RobustScanner
+    recognizer config, dispatched on its backbone, encoder and decoder
+    types as JAX's ``rules_for_config`` (``torch_convert.py:604-684``); a
+    type without rules raises a ``ValueError``."""
     pre = ((cfg.get('preprocessor') or {}).get('type') == 'TPSPreprocessor')
     pre_rules = tps_preprocessor_rules() if pre else []
     dec = cfg.get('decoder') or {}
     if dec.get('type') == 'CRNNDecoder':
         return pre_rules + crnn_rules(bool(dec.get('rnn_flag', False)))
     bb = cfg['backbone']
-    if bb.get('type') == 'ResNet31OCR':
+    bb_type = bb.get('type')
+    if bb_type == 'ResNet31OCR':
         rules = pre_rules + resnet31_rules(tuple(bb.get('layers',
                                                         (1, 2, 5, 3))))
-    else:
+    elif bb_type in ('ResNetABI', 'ResNetABI_v2_large'):
         rules = pre_rules + resnet_abi_rules(tuple(bb.get(
             'arch_settings', (3, 4, 6, 6, 3))))
+    elif bb_type == 'NRTRModalityTransform':
+        rules = pre_rules + nrtr_modality_rules()
+    elif bb_type == 'ShallowCNN':
+        rules = pre_rules + shallow_cnn_rules()
+    else:
+        raise ValueError(f'no conversion rules for backbone type {bb_type!r}')
     if cfg.get('tpsnet'):
         rules += tps_pp_rules()
     if cfg.get('type') == 'ABINet':
@@ -338,21 +391,29 @@ def rules_for_config(cfg: Mapping) -> List[Rule]:
             int((cfg.get('decoder') or {}).get('n_layers', 4)),
             language=bool(cfg.get('decoder')), fuser=bool(cfg.get('fuser')))
     enc = cfg.get('encoder') or {}
-    if enc.get('type') == 'SAREncoder':
+    enc_type = enc.get('type')
+    if enc_type == 'SAREncoder':
         rules += [r for r in sar_rules(bool(enc.get('enc_bi_rnn', False)))
                   if r[0].startswith('encoder.')]
-    elif enc.get('type') == 'ChannelReductionEncoder':
+    elif enc_type == 'ChannelReductionEncoder':
         rules.append(('encoder.layer', 'encoder/layer', 'conv'))
-    elif enc:
+    elif enc_type == 'NRTREncoder':
         rules += nrtr_encoder_rules(int(enc.get('n_layers', 6)))
-    if dec.get('type') in ('ParallelSARDecoder', 'ParallelSARDecoderWithBS'):
+    elif enc_type == 'SatrnEncoder':
+        rules += satrn_rules(int(enc.get('n_layers', 12)))
+    elif enc:
+        raise ValueError(f'no conversion rules for encoder type {enc_type!r}')
+    dec_type = dec.get('type')
+    if dec_type in ('ParallelSARDecoder', 'ParallelSARDecoderWithBS'):
         return rules + [r for r in sar_rules() if r[0].startswith('decoder.')]
-    if dec.get('type') == 'SequentialSARDecoder':
+    if dec_type == 'SequentialSARDecoder':
         return rules + sequential_sar_rules()
-    if dec.get('type') == 'RobustScannerDecoder':
+    if dec_type == 'RobustScannerDecoder':
         return rules + [r for r in robust_scanner_rules()
                         if r[0].startswith('decoder.')]
-    return rules + nrtr_decoder_rules(int(dec.get('n_layers', 6)))
+    if dec_type in ('NRTRDecoder', 'TFDecoder'):
+        return rules + nrtr_decoder_rules(int(dec.get('n_layers', 6)))
+    raise ValueError(f'no conversion rules for decoder type {dec_type!r}')
 
 
 def _leaf(tree, path: str):
@@ -436,12 +497,21 @@ def convert_rules(variables: Mapping, rules: List[Rule]
 def state_dict_from_jax(variables: Mapping, cfg: Mapping
                         ) -> Dict[str, torch.Tensor]:
     """JAX recognizer variables -> a ``state_dict`` that the model of
-    ``build_recognizer(cfg)`` (NRTR, ABINet, CRNN, SAR or RobustScanner)
-    takes with ``load_state_dict(strict=True)``."""
+    ``build_recognizer(cfg)`` (NRTR, SATRN, ABINet, CRNN, SAR or
+    RobustScanner) takes with ``load_state_dict(strict=True)``. The
+    sinusoid tables, buffers as in the reference, are made from the
+    config."""
     sd = convert_rules(variables, rules_for_config(cfg))
     if cfg.get('type') == 'ABINet':
         sd.update(_abinet_position_tables(cfg))
         return sd
+    enc = cfg.get('encoder') or {}
+    if enc.get('type') == 'SatrnEncoder':
+        d, n = int(enc.get('d_model', 512)), int(enc.get('n_position', 100))
+        table = torch.from_numpy(sinusoid_position_table(n, d)[0]).t()
+        pe = 'encoder.position_enc'
+        sd[f'{pe}.h_position_encoder'] = table.reshape(1, d, n, 1).clone()
+        sd[f'{pe}.w_position_encoder'] = table.reshape(1, d, 1, n).clone()
     if 'decoder.trg_word_emb.weight' not in sd:      # no position table
         return sd
     d = sd['decoder.trg_word_emb.weight'].shape[1]
