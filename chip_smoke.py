@@ -180,6 +180,37 @@ seed):
   launches no kernel. B=64 training steps of SATRN academic and NRTR-R31
   1by16, timed, with finite losses.
 
+* the segmentation recognizer and the image-space preprocessors, last.
+  SegOCR (``SEG_CONFIG``, ResNet31 with four outputs, FPNOCR, SegHead;
+  47.7 M parameters) in bf16, seed-0 weights, runs no kernel (in JAX it is
+  plain XLA): ``predict`` on 512 random 64 x 256 crops timed, its stages
+  by CUDA events (``extract_feat``, the neck, the head) and the host's
+  ``tensor2str`` (connected components) of the 512 logit maps; its
+  float32 model on the card against the same weights on the CPU at B=8
+  (TF32 off): logits within ``SEG_F32_RTOL`` of their largest, the
+  per-pixel argmax equal but where the CPU's top-2 gap is below
+  ``NEAR_TIE``, the texts equal on the images without such a pixel; B=64
+  training steps (Adam, random char maps with 2% ignored pixels), timed,
+  and a float32 step at B=8, the card against the CPU, under
+  ``SEG_LOSS_RTOL`` and ``SEG_GRAD_NORM_RTOL``. Then MORAN in front of
+  CRNN (``CRNN_CONFIG`` with ``MORAN_PRE``: kernel 8 three times a
+  ``predict``, its offset map of 3 x 11 sampled up to 32 x 100) and SPIN
+  in front of ABINet + TPS++ (``ABINET_CONFIG``, its fc2 drawn at
+  ``SPIN_FC2_SCALE``: kernel 1 and kernel 8, SPIN's 2 x 8 offsets at
+  three channels up to 32 x 128): serving at B=512 and 5, the argmax
+  against the plain path but where the plain top-2 logit gap is below
+  ``TIE_MULT`` times the widest gap at which the plain path parts from
+  itself when only its warps' rounding changes (the gather + lerp for
+  ATen's warps, the two-stage sampler's plain version for the dense
+  one's), never below ``NEAR_TIE``; ``predict`` and its preprocessor
+  timed; at B=64 an f32-compute step, kernel path against plain path
+  (loss within ``LOSS_RTOL``, grad norm within ``GRAD_NORM_RTOL``), which
+  must launch kernels 8, 9 (the final warp, TPS++'s) and 10 (the offset
+  sample, whose grid is constant), then bf16 steps timed against the
+  plain path. The offset samples' kernels on the paths' own inputs are
+  recorded (``grid_sample_moran_offsets``, ``grid_sample_spin_offsets``
+  and their ``grid_sample_grad_img_*`` rows), device time by CUDA graph.
+
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
 the checks and on TPS++'s own [0, 1]^2 grid, which puts every sample in
 the lower half of the map's rows; their band plan is logged.
@@ -333,6 +364,19 @@ TRANSFORMER_CONFIGS = {
         'configs/textrecog/nrtr/nrtr_r31_1by8_1by4_academic.py', 160)}
 B_TF_TRAIN, B_TF_F32, TF_F32_ATOL = 64, 8, 1e-4
 B_TF_FALLBACK, TF_FALLBACK_WIDTH = 16, 2080
+# the segmentation recognizer and the image-space preprocessors: SegOCR's
+# config, the float32 batch held against the CPU (TF32 off) and its bounds
+# (logits relative to their largest; the check step's loss and grad norm,
+# as SAR's), its optimizer (the toy config's); MORAN in front of CRNN,
+# SPIN in front of ABINet + TPS++ (its fc2 drawn at this scale, off the
+# near-identity start), and the preprocessors' training batch
+SEG_CONFIG = 'configs/textrecog/seg/seg_r31_1by16_fpnocr_academic.py'
+B_SEG_F32, SEG_F32_RTOL = 8, 1e-4
+SEG_LOSS_RTOL, SEG_GRAD_NORM_RTOL = 1e-4, 1e-3
+SEG_OPT = dict(type='Adam', lr=1e-4)
+CRNN_CONFIG = 'configs/textrecog/crnn/crnn_academic_dataset.py'
+MORAN_PRE = dict(type='MORAN', num_img_channel=1, img_size=(32, 100))
+SPIN_FC2_SCALE, B_PRE_TRAIN = 0.05, 64
 
 
 def log(*a):
@@ -3055,6 +3099,470 @@ def transformer_phase(dev, name, record):
     return launches
 
 
+def seg_preproc_phase(dev, name, record):
+    """The segmentation recognizer and the image-space preprocessors on
+    ``dev``, the card (see the module docstring): SegOCR academic (no
+    kernel), CRNN + MORAN (kernels 8-10 at one channel), ABINet + TPS++ +
+    SPIN (kernels 1 and 8-10, SPIN's offsets at three channels); the
+    offset samples' kernel rows. Returns the rows' launches on the paths."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from tps_pp_tpu_torch.apis import SegRecognizer, build_recognizer
+    from tps_pp_tpu_torch.config import load_config, merge_cli_options
+    from tps_pp_tpu_torch.models.rectifiers import MORAN, SPIN
+    from tps_pp_tpu_torch.ops import grid_sample as gs
+    from tps_pp_tpu_torch.parallel import (build_optimizer,
+                                           build_optimizer_from_run_cfg,
+                                           make_train_step)
+    from tps_pp_tpu_torch.tools.train import train_cfg_of
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    cpu = torch.device('cpu')
+    bf, f32 = torch.bfloat16, torch.float32
+    g = np.random.default_rng(SEED + 18)
+    sections, t_sec = {}, [time.perf_counter()]
+
+    def section(what):
+        now = time.perf_counter()
+        sections[what] = round(now - t_sec[0], 1)
+        t_sec[0] = now
+
+    def model_cfg(path, dtype, pre=None, dropout=None):
+        cfg = load_config(os.path.join(repo, path))
+        merge_cli_options(cfg, {'model.dtype': dtype})
+        model = copy.deepcopy(dict(cfg['model']))
+        if pre:
+            model['preprocessor'] = dict(pre)
+        if dropout is not None:                # ABINet's two dropouts
+            model['encoder']['encoder']['dropout'] = dropout
+            model['decoder']['dropout'] = dropout
+        return cfg, model
+
+    def timed(fn, rounds=2, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(rounds):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) / reps)
+        return min(ts), ts
+
+    def fmt(ts):
+        return ', '.join(f'{t * 1e3:.3f}' for t in ts)
+
+    class Tap:
+        """``fn`` with ``hook`` called on its arguments first; attributes
+        (the wrapper's launch count, its last plan) read and written
+        through to ``fn``, which counts its launches under its module name,
+        the name this stands in for."""
+
+        def __init__(self, fn, hook):
+            object.__setattr__(self, '_fn', fn)
+            object.__setattr__(self, '_hook', hook)
+
+        def __call__(self, *args):
+            self._hook(*args)
+            return self._fn(*args)
+
+        def __getattr__(self, key):
+            return getattr(self._fn, key)
+
+        def __setattr__(self, key, value):
+            setattr(self._fn, key, value)
+
+    class OffsetSamples:
+        """Counts the kernel 8 and kernel 10 launches whose source is an
+        offset map of ``hw`` (the rows' launches on the path) and keeps
+        the first B=512 (padded) forward's and the first backward's inputs
+        (the rows' inputs). Every grid must be f32."""
+
+        def __init__(self, hw):
+            self.hw, self.fwd, self.bwd = hw, 0, 0
+            self.fwd_args = self.bwd_args = None
+            self._f, self._b = gs.grid_sample_forward, gs.grid_sample_grad_img
+
+        def _on_fwd(self, img, grid):
+            if grid.dtype != f32:
+                raise AssertionError(f'a {grid.dtype} grid')
+            if tuple(img.shape[1:3]) == self.hw:
+                self.fwd += 1
+                if self.fwd_args is None and img.shape[0] >= B:
+                    self.fwd_args = (img.clone(), grid.clone())
+
+        def _on_bwd(self, grid, cot, H, W):
+            if (H, W) == self.hw:
+                self.bwd += 1
+                if self.bwd_args is None:
+                    self.bwd_args = (grid.clone(), cot.clone())
+
+        def __enter__(self):
+            gs.grid_sample_forward = Tap(self._f, self._on_fwd)
+            gs.grid_sample_grad_img = Tap(self._b, self._on_bwd)
+            return self
+
+        def __exit__(self, *exc):
+            gs.grid_sample_forward = self._f
+            gs.grid_sample_grad_img = self._b
+
+    def gather_plain(img, grid):
+        """The same warp in another rounding, no kernel: the gather + lerp
+        of the plain backward in f32, rounded to the image's dtype once."""
+        return gs._gather_lerp(img.float(), grid).to(img.dtype)
+
+    # ==== SegOCR academic: no kernel ====================================
+    _, model = model_cfg(SEG_CONFIG, 'bfloat16')
+    rec = build_recognizer(model, device=dev)
+    if type(rec) is not SegRecognizer or rec.device != dev or \
+            rec.resolved_decode_mode() != 'single_pass':
+        raise AssertionError(f'seg: built {type(rec).__name__} on '
+                             f'{rec.device}, {rec.resolved_decode_mode()}')
+    rec.init_weights(SEED)
+    img = torch.from_numpy(g.standard_normal((B, 64, 256, 3)).astype(
+        np.float32)).to(dev)
+    zero_launches()
+    out = rec.predict(img)
+    read_launches('seg', f'predict B={B}', {})
+    C = len(rec.label_convertor.idx2char)
+    if tuple(out.shape) != (B, 64, 256, C) or out.dtype != f32 or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f'seg: bad output {tuple(out.shape)}')
+    ms, ts = timed(lambda: rec.predict(img))
+    t0 = time.perf_counter()
+    host = out.cpu().numpy()
+    copy_s = time.perf_counter() - t0
+    rec.label_convertor.tensor2str(host[:1])      # scipy's import
+    t0 = time.perf_counter()
+    texts, _ = rec.label_convertor.tensor2str(host)
+    decode_s = time.perf_counter() - t0
+    m = rec.model
+    with torch.inference_mode():
+        x = img.to(bf)
+        feats = m.backbone(x)
+        neck = m.neck(feats)
+        st = {'extract_feat (ResNet31)': lambda: m.backbone(x),
+              'neck (FPNOCR)': lambda: m.neck(feats),
+              'head (SegHead)': lambda: m.head(neck),
+              'forward_test_nar': lambda: m.forward_test_nar(x)}
+        st = {k: cuda_ms(fn, 3) for k, fn in st.items()}
+    log(f'seg serving B={B} bf16 64 x 256 ({SEG_CONFIG}): {B / ms:.1f} '
+        f'images/s ({ms * 1e3:.3f} ms/batch, best of 2 rounds of 3; '
+        f'{fmt(ts)}); stages (CUDA events, mean of 3): '
+        + ', '.join(f'{k} {v:.3f} ms' for k, v in st.items())
+        + f'; the f32 logits to the host ({host.nbytes / 2 ** 20:.0f} MiB) '
+        f'{copy_s * 1e3:.1f} ms; host tensor2str of the {B} maps '
+        f'{decode_s * 1e3:.1f} ms ({B / decode_s:.1f} images/s); first '
+        f'texts {texts[:3]} [{name}]')
+    state = {k: v.detach().float().cpu() for k, v in m.state_dict().items()}
+    del rec, m, out, host, feats, neck, x
+    torch.cuda.empty_cache()
+
+    # float32, the card against the CPU (TF32 off)
+    _, model32 = model_cfg(SEG_CONFIG, 'float32')
+    rg = build_recognizer(model32, device=dev)
+    rc = build_recognizer(model32, device=cpu)
+    for r in (rg, rc):
+        r.model.load_state_dict(state)
+    x8 = img[:B_SEG_F32]
+    zero_launches()
+    lk = rg.predict(x8).cpu()
+    read_launches('seg', f'float32 predict B={B_SEG_F32}', {})
+    lp = rc.predict(x8.cpu())
+    err = float((lk - lp).abs().max())
+    bound = SEG_F32_RTOL * float(lp.abs().max())
+    top2 = torch.topk(lp, 2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) < NEAR_TIE
+    part = lk.argmax(-1) != lp.argmax(-1)
+    if not err <= bound or bool((part & ~tie).any()):
+        raise AssertionError(f'seg float32: logits part by {err:.4g} '
+                             f'(bound {bound:.4g}), {int((part & ~tie).sum())}'
+                             f' pixels part off a CPU near-tie')
+    metas = [{'valid_ratio': float(v)}
+             for v in np.linspace(0.5, 1.0, B_SEG_F32)]
+    tk = rg.label_convertor.tensor2str(lk.numpy(), metas)[0]
+    tp = rc.label_convertor.tensor2str(lp.numpy(), metas)[0]
+    # texts equal where no pixel is a CPU near-tie, and wherever the two
+    # argmax maps are equal (the decode of equal maps)
+    clean = [i for i in range(B_SEG_F32) if not bool(tie[i].any())]
+    same = [i for i in range(B_SEG_F32) if not bool(part[i].any())]
+    if any(tk[i] != tp[i] for i in set(clean) | set(same)):
+        raise AssertionError(f'seg float32: texts {tk} against {tp}')
+    log(f'seg float32 B={B_SEG_F32}, card against CPU: max abs logit error '
+        f'{err:.4g} (<= {bound:.4g}, SEG_F32_RTOL x the largest), '
+        f'{int(part.sum())} pixels part, none off a CPU top-2 gap below '
+        f'{NEAR_TIE} ({int(tie.sum())} such pixels); texts equal on the '
+        f'{len(clean)} images without one and on the {len(same)} whose '
+        f'argmax maps are equal; texts {tk} [{name}]')
+    section('seg serving')
+
+    # training: B_PRE_TRAIN bf16 steps, then a float32 step against the CPU
+    rt = build_recognizer(model_cfg(SEG_CONFIG, 'bfloat16')[1], device=dev,
+                          param_dtype='float32')
+    rt.model.load_state_dict(state)
+    xt = torch.from_numpy(g.standard_normal((B_PRE_TRAIN, 64, 256, 3))
+                          .astype(np.float32)).to(dev)
+    gt = np.kron(g.integers(0, C, (B_PRE_TRAIN, 8, 32)),
+                 np.ones((1, 8, 8), np.int64))
+    gt[g.random(gt.shape) < 0.02] = 255
+    batch = dict(img=xt, gt_seg=gt.astype(np.int32))
+
+    def seg_step(r):
+        opt, _ = build_optimizer(dict(SEG_OPT), r.model.named_parameters())
+        return make_train_step(r, opt)
+
+    step = seg_step(rt)
+    zero_launches()
+    losses = [float(step(batch)['loss']) for _ in range(2)]
+    read_launches('seg', f'2 training steps B={B_PRE_TRAIN}', {})
+    ms_t, ts_t = timed(lambda: step(batch))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'seg train: losses {losses}')
+    small = dict(img=xt[:B_SEG_F32], gt_seg=batch['gt_seg'][:B_SEG_F32])
+    mets = []
+    for r in (rg, rc):
+        mt = seg_step(r)(dict(small, img=small['img'].to(r.device)))
+        mets.append((float(mt['loss']), float(mt['grad_norm'])))
+    (lk_, nk), (lp_, np_) = mets
+    if not (abs(lk_ - lp_) <= SEG_LOSS_RTOL * abs(lp_)
+            and abs(nk - np_) <= SEG_GRAD_NORM_RTOL * abs(np_)):
+        raise AssertionError(f'seg train check: loss {lk_} / {lp_}, grad '
+                             f'norm {nk} / {np_}')
+    log(f'seg train B={B_PRE_TRAIN}, f32 parameters, bf16 autocast, '
+        f'{SEG_OPT["type"]} lr {SEG_OPT["lr"]}: {ms_t * 1e3:.2f} ms/step, '
+        f'{B_PRE_TRAIN / ms_t:.1f} images/s (best of 2 rounds of 3; '
+        f'{fmt(ts_t)}); losses {losses}; float32 step B={B_SEG_F32}, card / '
+        f'CPU: loss {lk_:.7f} / {lp_:.7f} (rel {abs(lk_ - lp_) / abs(lp_):.3g}'
+        f' <= {SEG_LOSS_RTOL}), grad norm {nk:.6f} / {np_:.6f} (rel '
+        f'{abs(nk - np_) / abs(np_):.3g} <= {SEG_GRAD_NORM_RTOL}); no kernel '
+        f'launched [{name}]')
+    del rt, rg, rc, step, xt, batch, small, img, state
+    torch.cuda.empty_cache()
+    section('seg training')
+
+    # ==== the preprocessors ============================================
+    rows, launches = {}, {}
+
+    def preproc(family, path, pre, kind, shape, offs_hw, serve_want,
+                train_want, fc2_scale=None):
+        """Serving (B=512 and 5) and training (B_PRE_TRAIN) of the config
+        at ``path`` with the preprocessor ``pre``, kernel path against
+        plain path; its offset samples' row inputs into ``rows``."""
+        dropout = 0.0 if kind is SPIN else None
+        cfg, model = model_cfg(path, 'bfloat16', pre)
+        rec = build_recognizer(model, device=dev)
+        p = rec.model.preprocessor
+        if not isinstance(p, kind) or \
+                rec.resolved_decode_mode() != 'single_pass':
+            raise AssertionError(f'{family}: built {type(p).__name__}, '
+                                 f'{rec.resolved_decode_mode()}')
+        rec.init_weights(SEED)
+        if fc2_scale:         # SPIN off its near-identity start
+            gen = torch.Generator().manual_seed(SEED + 18)
+            with torch.no_grad():
+                p.fc2.weight.copy_(fc2_scale * torch.randn(
+                    tuple(p.fc2.weight.shape), generator=gen))
+        x = torch.from_numpy(g.standard_normal((B,) + shape).astype(
+            np.float32)).to(dev)
+        vr5 = np.array([1.0, 0.6, 0.85, 0.35, 1.0], np.float32)
+        zero_launches()
+        with OffsetSamples(offs_hw) as serve_samples:
+            pk = rec.predict(x)
+            pk5 = rec.predict(x[:5], vr5)
+        read_launches(family, 'serving B=512 and B=5', serve_want)
+        zero_launches()
+        rec.plain = True
+        pp, pp5 = rec.predict(x), rec.predict(x[:5], vr5)
+        # the plain path's own spread when only its warps' rounding
+        # changes: the gather + lerp for ATen's warps, and the two-stage
+        # sampler's plain version for the dense one's where TPS++ is
+        tps = rec.model.tpsnet
+        plain_fn, gs.grid_sample_plain = gs.grid_sample_plain, gather_plain
+        if tps is not None:
+            sample_mode, tps.sample_mode = tps.sample_mode, 'pallas'
+            os.environ['TPS_SAMPLER_VARIANT'] = 'twostage'
+        try:
+            p2 = rec.predict(x)
+        finally:
+            gs.grid_sample_plain = plain_fn
+            if tps is not None:
+                tps.sample_mode = sample_mode
+                os.environ.pop('TPS_SAMPLER_VARIANT')
+        read_launches(family, 'plain paths', {})
+        if not bool(torch.isfinite(pk).all()):
+            raise AssertionError(f'{family}: non-finite logits')
+        _, n_spread, spread = check_logits(p2, pp, f'{family} spread', 1e9)
+        near_tie = max(TIE_MULT * spread, NEAR_TIE)
+        err, parts, widest = check_logits(pk, pp, f'{family} B={B}',
+                                          near_tie)
+        err5, parts5, widest5 = check_logits(pk5, pp5, f'{family} B=5',
+                                             near_tie)
+        ms_p, _ = timed(lambda: rec.predict(x))
+        rec.plain = False
+        ms, ts = timed(lambda: rec.predict(x))
+        with torch.inference_mode():
+            xb = x.to(bf)
+            st = {'preprocessor': lambda: p(xb),
+                  'forward_test_nar': lambda: rec.model.forward_test_nar(xb)}
+            st = {k: cuda_ms(fn, 5) for k, fn in st.items()}
+        log(f'{family} serving B={B} bf16 {shape}: {B / ms:.1f} images/s '
+            f'({ms * 1e3:.3f} ms/batch, best of 2 rounds of 3; {fmt(ts)}; '
+            f'the plain path {ms_p * 1e3:.3f} ms); stages (CUDA events, mean '
+            f'of 5): ' + ', '.join(f'{k} {v:.3f} ms' for k, v in st.items())
+            + f'; the plain path with the gather + lerp warps parts from '
+            f'itself at {n_spread} of {pk.numel() // pk.shape[-1]} positions '
+            f'(widest gap {spread:.4g}): near-tie {near_tie:.4g}; kernel path '
+            f'against plain path B={B}: {parts} positions part (widest '
+            f'{widest:.4g}), max abs logit error {err:.4g}; B=5: {parts5} '
+            f'part (widest {widest5:.4g}), {err5:.4g}; offset-map samples '
+            f'through kernel 8: {serve_samples.fwd}; first texts '
+            f'{[r["text"] for r in rec.simple_test(x[:3])]} [{name}]')
+        state0 = {k: v.detach().float() for k, v in
+                  rec.model.state_dict().items()}
+        lc = rec.label_convertor
+        del rec, pk, pp, p2, pk5, pp5, xb
+        torch.cuda.empty_cache()
+
+        # training: an f32-compute step, kernel path against plain path,
+        # then bf16 steps, timed against the plain path
+        tc = train_cfg_of(cfg)
+        bt = B_PRE_TRAIN
+        chars = lc.idx2char[1:37] if kind is MORAN else lc.idx2char[:36]
+        td = lc.str2tensor([''.join(g.choice(chars, int(g.integers(1, 13))))
+                            for _ in range(bt)])
+        tbatch = dict(img=x[:bt].contiguous(),
+                      valid_ratio=np.ones(bt, np.float32),
+                      padded_targets=td['padded_targets'],
+                      target_lengths=td['target_lengths'])
+
+        def trainer(dtype):
+            rt = build_recognizer(model_cfg(path, dtype, pre, dropout)[1],
+                                  device=dev, param_dtype='float32')
+            if dropout == 0.0:
+                rt.model.decoder.token_encoder.dropout = 0.0
+            rt.model.load_state_dict(state0)
+            return rt
+
+        def step_fn(rt):
+            opt, _ = build_optimizer_from_run_cfg(
+                tc, rt.model.named_parameters(), steps_per_epoch=1,
+                total_epochs=tc['total_epochs'])
+            return make_train_step(rt, opt)
+
+        rt = trainer('float32')
+        res = {}
+        for plain in (False, True):
+            rt.model.load_state_dict(state0)
+            zero_launches()
+            with OffsetSamples(offs_hw) as train_samples:
+                mets = step_fn(rt)(tbatch, plain=plain)
+            read_launches(family, f'train check step, f32 compute, '
+                          f'{"plain" if plain else "kernel"} path',
+                          {} if plain else train_want)
+            if not plain:
+                kernel_samples = train_samples
+            res[plain] = (float(mets['loss']), float(mets['grad_norm']))
+        (lk_, nk), (lp_, np_) = res[False], res[True]
+        if not (np.isfinite(lk_) and abs(lk_ - lp_) <= LOSS_RTOL * abs(lp_)
+                and abs(nk - np_) <= GRAD_NORM_RTOL * abs(np_)):
+            raise AssertionError(f'{family} train: loss {lk_} / {lp_}, '
+                                 f'grad norm {nk} / {np_}')
+        rt = trainer('bfloat16')
+        step = step_fn(rt)
+        zero_launches()
+        losses = [float(step(tbatch)['loss']) for _ in range(2)]
+        read_launches(family, f'2 bf16 training steps B={bt}',
+                      {k: 2 * n for k, n in train_want.items()})
+        ms_t, ts_t = timed(lambda: step(tbatch))
+        ms_tp, _ = timed(lambda: step(tbatch, plain=True))
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f'{family} train: losses {losses}')
+        log(f'{family} train B={bt}, f32 parameters, bf16 autocast, '
+            f'{tc["optimizer"]["type"]} lr {tc["optimizer"]["lr"]}: f32 '
+            f'check step loss {lk_:.6f} kernel / {lp_:.6f} plain, grad_norm '
+            f'{nk:.6f} / {np_:.6f}; {ms_t * 1e3:.2f} ms/step, '
+            f'{bt / ms_t:.1f} images/s (best of 2 rounds of 3; {fmt(ts_t)}; '
+            f'the plain path {ms_tp * 1e3:.2f} ms); bf16 losses {losses}; '
+            f'offset-map d_img through kernel 10: {kernel_samples.bwd} '
+            f'[{name}]')
+        rows[kind.__name__] = (serve_samples, kernel_samples)
+        launches[kind.__name__] = (serve_samples.fwd, kernel_samples.bwd)
+        del rt, step, tbatch, x
+        torch.cuda.empty_cache()
+
+    preproc('crnn_moran', CRNN_CONFIG, MORAN_PRE, MORAN, (32, 100, 1),
+            (3, 11), {'grid_sample_forward': 6},
+            {'grid_sample_forward': 3, 'grid_sample_grad': 1,
+             'grid_sample_grad_img': 1})
+    section('crnn_moran')
+    preproc('abinet_spin', ABINET_CONFIG, dict(type='SPIN'), SPIN,
+            (32, 128, 3), (2, 8), {'tps_sampler': 2, 'grid_sample_forward': 2},
+            {'grid_sample_forward': 2, 'grid_sample_grad': 1,
+             'grid_sample_grad_img': 1}, fc2_scale=SPIN_FC2_SCALE)
+    section('abinet_spin')
+
+    # ==== the offset samples' rows: the paths' own inputs ================
+    src = 'tps_pp_tpu_torch/csrc/grid_sample.cu'
+    out = {}
+    for kind, key in (('MORAN', 'moran'), ('SPIN', 'spin')):
+        serve, train = rows[kind]
+        o, og = serve.fwd_args
+        ogt, cot = train.bwd_args
+        (n, h, w, c), (bt, hs, ws) = o.shape, ogt.shape[:3]
+        ol = o.permute(0, 3, 1, 2)
+        e_f = check_close(f'{key} offsets forward',
+                          gs.grid_sample_forward(o, og),
+                          gs.grid_sample_plain(o, og),
+                          WARP_BOUNDS['bfloat16']['fwd'])
+        e_b = check_close(f'{key} offsets d_img',
+                          gs.grid_sample_grad_img(ogt, cot, h, w),
+                          gs.grid_sample_grad_img_plain(ogt, cot, h, w),
+                          WARP_BOUNDS['float32']['d_img'])
+        zeros = torch.zeros((bt, c, h, w), dtype=cot.dtype, device=dev)
+        record(f'grid_sample_{key}_offsets', src,
+               'tps_pp_tpu/ops/pallas_grid_sample.py:126',
+               lambda: gs.grid_sample_forward(o, og),
+               lambda: gs.grid_sample_plain(o, og), e_f, 20,
+               # the offset map in, the grid, the upsampled map out
+               nbytes(o, og) + n * og.shape[1] * og.shape[2] * c *
+               o.element_size(),
+               f32_flops=n * og.shape[1] * og.shape[2] * c * 8,
+               fn_lib=lambda: F.grid_sample(ol, og.to(o.dtype),
+                                            mode='bilinear',
+                                            padding_mode='border',
+                                            align_corners=True),
+               label=f'grid_sample_{key}_offsets: kernel 8, C={c} '
+                     f'{o.dtype} B={n}, {h} x {w} -> {og.shape[1]} x '
+                     f'{og.shape[2]}', graph=True)
+        record(f'grid_sample_grad_img_{key}_offsets', src,
+               'tps_pp_tpu/ops/pallas_grid_sample.py:178',
+               lambda: gs.grid_sample_grad_img(ogt, cot, h, w),
+               lambda: gs.grid_sample_grad_img_plain(ogt, cot, h, w), e_b,
+               20,
+               # grid and cotangent in, the f32 d_img of the map out
+               nbytes(ogt, cot) + bt * h * w * c * 4,
+               f32_flops=bt * hs * ws * c * 8,
+               fn_lib=lambda: torch.ops.aten.grid_sampler_2d_backward(
+                   cot.permute(0, 3, 1, 2), zeros, ogt, 0, 1, True,
+                   [True, False]),
+               label=f'grid_sample_grad_img_{key}_offsets: kernel 10, '
+                     f'C={c} {cot.dtype} B={bt}, {hs} x {ws} samples into '
+                     f'{h} x {w}, band plan '
+                     f'{gs.grid_sample_plan(bt, h, w, c)}', graph=True)
+        out[f'grid_sample_{key}_offsets'] = launches[kind][0]
+        out[f'grid_sample_grad_img_{key}_offsets'] = launches[kind][1]
+    section('kernel rows')
+    log(f'seg_preproc phase: {time.perf_counter() - t_phase:.1f} s (by '
+        f'section: {sections}); the offset rows\' launches on the paths '
+        f'{json.dumps(out)}')
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3111,19 +3619,22 @@ def main():
 
     def record(name_, src, replaces, fn_k, fn_p, err, reps, moved,
                bf16_flops=0, f32_flops=0, fn_lib=None, calls=1,
-               listed=True, label=None):
+               listed=True, label=None, graph=False):
         """Time the kernel, its plain version and the library call (each
         ``fn`` makes ``calls`` calls) and note the bound of one call; the
         entry goes into the ``kernels`` line when ``listed``, the log line
-        in any case (under ``label``, default the name)."""
+        in any case (under ``label``, default the name). With ``graph``
+        the kernel and the library call are timed as device time
+        (``graph_ms``: calls too short for the host to keep up with)."""
         bound_ms, bound_by = bound(moved, bf16_flops, f32_flops)
+        timer = graph_ms if graph else (lambda fn: cuda_ms(fn, reps))
         k = dict(
             name=name_, route='cuda', source=src, replaces=replaces,
             launches=None, max_abs_err=err,
-            ms=cuda_ms(fn_k, reps) / calls,
+            ms=timer(fn_k) / calls,
             plain_ms=cuda_ms(fn_p, reps) / calls, bound_ms=bound_ms,
             bound_by=bound_by,
-            library_ms=None if fn_lib is None else cuda_ms(fn_lib, reps))
+            library_ms=None if fn_lib is None else timer(fn_lib))
         if listed:
             kernels.append(k)
         lib = ('none' if k['library_ms'] is None
@@ -3677,6 +4188,9 @@ def main():
 
     # ---- the transformer family on its other trunks: kernels 3 and 4-5
     path_launches.update(transformer_phase(dev, name, record))
+
+    # ---- SegOCR (no kernel); MORAN and SPIN in front of CRNN and ABINet
+    path_launches.update(seg_preproc_phase(dev, name, record))
     path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])

@@ -756,8 +756,8 @@ def test_build_needs_the_card_unless_asked():
     assert rec.model.encoder is None and not rec.autoregressive
     assert tuple(rec.predict(np.zeros((1, 32, 100, 1), np.float32)).shape) \
         == (1, 26, 37)
-    with pytest.raises(NotImplementedError, match='SegRecognizer'):
-        build_recognizer(dict(cfg, type='SegRecognizer'), device='cpu')
+    with pytest.raises(NotImplementedError, match='DBNet'):
+        build_recognizer(dict(cfg, type='DBNet'), device='cpu')
 
 
 def _crops(n, seed=0):

@@ -2,7 +2,8 @@
 ``configs/textrecog/crnn/crnn_academic_dataset.py`` and
 ``configs/textrecog/tps/crnn_tps_academic_dataset.py`` (VGG, two BiLSTMs,
 for CRNN-TPS the TPS-STN with 20 fiducials; ~1.8 GFLOP a 32 x 100 crop,
-8.3 M and 10.0 M parameters) built by both packages from the config files,
+8.3 M and 10.0 M parameters), and of ``crnn_toy_dataset.py`` (CRNN with
+``<UKN>``: 38 classes), built by both packages from the config files,
 the JAX variables (BatchNorm statistics perturbed; for CRNN-TPS fc2 drawn
 at random, so that the warp samples between pixels and past the border)
 carried into the port, and B=3 crops with mixed valid ratios through
@@ -35,11 +36,15 @@ torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = {
     'crnn': 'configs/textrecog/crnn/crnn_academic_dataset.py',
-    'crnn_tps': 'configs/textrecog/tps/crnn_tps_academic_dataset.py'}
+    'crnn_tps': 'configs/textrecog/tps/crnn_tps_academic_dataset.py',
+    'crnn_toy': 'configs/textrecog/crnn/crnn_toy_dataset.py'}
+# parameters of each model; the toy config's convertor has <UKN>, so its
+# classifier has one class more (38)
+N_PARAMS = {'crnn': 8_331_301, 'crnn_tps': 10_023_693, 'crnn_toy': 8_331_814}
 VR = np.array([1.0, 0.5, 0.77], np.float32)
 
 
-@pytest.mark.parametrize('name', ['crnn', 'crnn_tps'])
+@pytest.mark.parametrize('name', list(CONFIGS))
 def test_full_width_predict_and_simple_test_match_jax(name):
     path = os.path.join(REPO, CONFIGS[name])
     cfg = dict(load_config(path)['model'])
@@ -54,7 +59,7 @@ def test_full_width_predict_and_simple_test_match_jax(name):
     rec = build_recognizer(cfg, device='cpu')
     rec.model.load_state_dict(state_dict_from_jax(v, cfg), strict=True)
     n_params = sum(p.numel() for p in rec.model.parameters())
-    assert n_params == (10_023_693 if name == 'crnn_tps' else 8_331_301)
+    assert n_params == N_PARAMS[name]
     assert rec.resolved_decode_mode() == jrec.resolved_decode_mode() \
         == 'single_pass'
     img = np.random.default_rng(5).standard_normal((3, 32, 100, 1)).astype(
@@ -62,9 +67,14 @@ def test_full_width_predict_and_simple_test_match_jax(name):
     jv = jax.tree.map(jnp.asarray, v)
     want = np.asarray(jrec.predict(jv, jnp.asarray(img), jnp.asarray(VR)))
     got = rec.predict(img, VR)
+    C = rec.label_convertor.num_classes()
+    assert C == (38 if name == 'crnn_toy' else 37)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape \
-        == (3, 26, 37)
+        == (3, 26, C)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
+    if name == 'crnn_toy':        # no warp: within 1e-5 of the magnitude
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
     np.testing.assert_array_equal(got.numpy().argmax(-1), want.argmax(-1))
     want = jrec.simple_test(jv, jnp.asarray(img), jnp.asarray(VR))
     got = rec.simple_test(img, VR)

@@ -254,6 +254,122 @@ def test_port_imports_and_serves_without_jax():
     assert got == {'loaded': [], 'launches': [0] * 12, 'library': False}
 
 
+SEG_PREPROC_SCRIPT = r'''
+import importlib.abc, json, sys
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    """Refuses jax, flax, cv2 and the JAX package outright."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',
+                                  'tps_pp_tpu'):
+            raise ImportError(f'{name} is blocked')
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from tps_pp_tpu_torch.apis import SegRecognizer, build_recognizer
+from tps_pp_tpu_torch.convertors import seg as cseg
+from tps_pp_tpu_torch.datasets import ocr_seg_dataset
+from tps_pp_tpu_torch.datasets.pipelines import ocr_seg_targets
+from tps_pp_tpu_torch.models.recognizers import seg as rseg
+from tps_pp_tpu_torch.models.rectifiers import moran, spin
+from tps_pp_tpu_torch.ops import grid_sample
+from tps_pp_tpu_torch.parallel import build_optimizer, make_train_step
+
+lc = dict(type='SegConvertor', dict_type='DICT36', with_unknown=True,
+          lower=True)
+seg_cfg = dict(
+    type='SegRecognizer', label_convertor=lc,
+    backbone=dict(type='ResNet31OCR', layers=[1, 1, 1, 1],
+                  channels=[8, 8, 8, 16, 16, 16], out_indices=[0, 1, 2, 3],
+                  stage4_pool=(2, 2), last_stage_pool=True),
+    neck=dict(type='FPNOCR', in_channels=[8, 16, 16, 16], out_channels=8),
+    head=dict(type='SegHead', in_channels=8, upsample=2.0),
+    loss=dict(type='SegLoss'))
+targets = ocr_seg_targets.OCRSegTargets(label_convertor=lc)
+kern = targets(dict(resize_shape=(32, 50), pad_shape=(32, 64),
+                    pre_resize_shape=(20, 40), ann_info=dict(
+                        chars=['a', 'b'], char_rects=[[2, 2, 18, 18],
+                                                      [20, 3, 38, 19]],
+                        char_quads=[])))['gt_seg']
+rec = build_recognizer(seg_cfg, device='cpu', param_dtype='float32')
+assert isinstance(rec, SegRecognizer)
+rec.init_weights(0)
+res = rec.simple_test(np.zeros((2, 32, 64, 3), np.float32), [1.0, 0.5])
+assert len(res) == 2
+opt, _ = build_optimizer(dict(type='Adam', lr=1e-3),
+                         rec.model.named_parameters())
+step = make_train_step(rec, opt)
+seg_loss = float(step(dict(img=np.zeros((2, 32, 64, 3), np.float32),
+                           gt_seg=np.stack([kern, kern])))['loss'])
+
+crnn_cfg = dict(
+    type='CRNNNet',
+    label_convertor=dict(type='CTCConvertor', dict_type='DICT36',
+                         with_unknown=False, lower=True),
+    preprocessor=dict(type='MORAN', num_img_channel=1, img_size=(32, 64)),
+    backbone=dict(type='VeryDeepVgg', leaky_relu=False, input_channels=1),
+    decoder=dict(type='CRNNDecoder', in_channels=512, rnn_flag=True),
+    loss=dict(type='CTCLoss'), max_seq_len=8)
+abi_cfg = dict(
+    type='ABINet', preprocessor=dict(type='SPIN'),
+    label_convertor=dict(type='ABIConvertor', dict_type='DICT36',
+                         with_unknown=False, lower=True),
+    backbone=dict(type='ResNetABI', stem_channels=4, base_channels=4,
+                  arch_settings=[1, 1, 1, 1, 1], strides=[2, 1, 2, 1, 1]),
+    encoder=dict(type='ABIVisionModel',
+                 encoder=dict(type='TransformerEncoder', n_layers=1,
+                              n_head=2, d_model=64, d_inner=64,
+                              max_len=128),
+                 decoder=dict(type='ABIVisionDecoder', in_channels=64,
+                              num_channels=16)),
+    decoder=dict(type='ABILanguageDecoder', d_model=64, n_head=2,
+                 d_inner=64, n_layers=1),
+    fuser=dict(type='ABIFuser', d_model=64),
+    loss=dict(type='ABILoss'), max_seq_len=8, iter_size=1)
+losses = [seg_loss]
+for cfg, c in ((crnn_cfg, 1), (abi_cfg, 3)):
+    rec = build_recognizer(cfg, device='cpu', param_dtype='float32')
+    rec.init_weights(0)
+    x = np.random.default_rng(0).standard_normal((2, 32, 64, c)).astype(
+        np.float32)
+    assert len(rec.simple_test(x, [1.0, 0.5])) == 2
+    td = rec.label_convertor.str2tensor(['ab', 'c'])
+    opt, _ = build_optimizer(dict(type='Adam', lr=1e-3),
+                             rec.model.named_parameters())
+    losses.append(float(make_train_step(rec, opt)(dict(
+        img=x, valid_ratio=np.ones(2, np.float32),
+        padded_targets=td['padded_targets'],
+        target_lengths=td['target_lengths']))['loss']))
+print(json.dumps({
+    'loaded': sorted(m for m in ('jax', 'flax', 'cv2', 'tps_pp_tpu')
+                     if m in sys.modules),
+    'finite': bool(np.isfinite(losses).all()),
+    'launches': [grid_sample.grid_sample_forward.launches,
+                 grid_sample.grid_sample_grad.launches,
+                 grid_sample.grid_sample_grad_img.launches]}))
+'''
+
+
+def test_seg_and_preprocessors_serve_and_train_with_jax_blocked():
+    """A small SegRecognizer (``OCRSegTargets`` kernels as its targets),
+    CRNN + MORAN and ABINet + SPIN serve and take a training step on the
+    CPU with jax, flax, cv2 and the JAX package refused at import; no
+    kernel launches (CPU tensors take the plain versions)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', SEG_PREPROC_SCRIPT],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {'loaded': [], 'finite': True, 'launches': [0, 0, 0]}
+
+
 SERVE_SCRIPT = r'''
 import json, sys
 import numpy as np

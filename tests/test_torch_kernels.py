@@ -1204,6 +1204,31 @@ def test_grid_sample_odd_channels_other_grids(cuda_device, C):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('map_hw,out_hw,C', [((3, 11), (32, 100), 1),
+                                            ((2, 8), (32, 128), 3)])
+def test_grid_sample_offset_upsamples(cuda_device, dtype, map_hw, out_hw,
+                                      C):
+    """The preprocessors' offset samples: MORAN's 3 x 11 one-channel map
+    and SPIN's 2 x 8 three-channel map sampled up on the identity grid of
+    the crop (``float64 np.linspace`` rounded to float32), B=64: kernel 8
+    and kernels 9-10 against their plain versions, thousands of samples
+    adding into a few dozen source pixels an image."""
+    from tps_pp_tpu_torch.models.rectifiers.moran import identity_grid
+    grid = np.broadcast_to(identity_grid(*out_hw), (64,) + out_hw + (2,))
+    rng = np.random.default_rng(9)
+    img = torch.tensor(rng.uniform(-1, 1, (64,) + map_hw + (C,)),
+                       dtype=dtype, device=cuda_device)
+    g = torch.tensor(grid, dtype=torch.float32, device=cuda_device)
+    atol, rtol = WARP_BOUNDS[dtype]['fwd']
+    torch.testing.assert_close(grid_sample_forward(img, g).float(),
+                               grid_sample_plain(img, g).float(),
+                               atol=atol, rtol=rtol)
+    _check_warp_grads(cuda_device, dtype, grid.copy(), *map_hw, C)
+    assert grid_sample_plan(64, *map_hw, C)['blocks'] == 64
+
+
+@pytest.mark.requires_cuda
 def test_grid_sample_function_routes_at_one_channel(cuda_device):
     """Under autograd at C = 1: kernel 8 forward, kernel 9 backward with a
     grid gradient, kernel 10 without; d_img in the image's dtype."""

@@ -8,7 +8,10 @@ abinet.py``), as the JAX package does: the label convertor's
 ``max_seq_len`` where the vision decoder, the language decoder and the
 fuser leave them out, the language decoder's ``pad_idx`` defaults to the
 convertor's EOS, and the loss's ``num_classes`` to ``num_classes()``
-(38 for DICT36, copied as JAX has it).
+(38 for DICT36, copied as JAX has it). An image-space ``preprocessor``
+(MORAN, SPIN, the TPS-STN) runs before the backbone, as in JAX
+(``tps_pp_tpu/models/recognizers/abinet.py:23-27``); its warps go through
+kernels 8-10 (``ops.grid_sample``).
 
 Everything else is ``TextRecognizer``'s: ``init_weights``,
 ``compute_loss`` (train mode, autocast; the convertor's
@@ -30,7 +33,7 @@ import torch
 from ..models import fusers  # noqa: F401 (registration)
 from ..models.recognizers.abinet import ABINetRecognizerModule
 from ..registry import (BACKBONES, CONVERTORS, DECODERS, ENCODERS, FUSERS,
-                        LOSSES, RECTIFIERS)
+                        LOSSES, PREPROCESSORS, RECTIFIERS)
 from .recognizer import TextRecognizer
 
 
@@ -40,9 +43,6 @@ class ABINetRecognizer(TextRecognizer):
                  param_dtype: Optional[str] = None):
         """``device`` and ``param_dtype`` as in ``TextRecognizer``."""
         cfg = self._setup(cfg, device, param_dtype)
-        if cfg.get('preprocessor'):
-            raise NotImplementedError('ABINet: the preprocessors are not '
-                                      'ported yet')
         T = self.max_seq_len
         lc_cfg = dict(cfg['label_convertor'], max_seq_len=T)
         self.label_convertor = lc = CONVERTORS.build(lc_cfg)
@@ -63,9 +63,12 @@ class ABINetRecognizer(TextRecognizer):
         fuser = (FUSERS.build(cfg['fuser'], num_chars=num_chars,
                               max_seq_len=T)
                  if cfg.get('fuser') else None)
+        preprocessor = (PREPROCESSORS.build(cfg['preprocessor'])
+                        if cfg.get('preprocessor') else None)
         model = ABINetRecognizerModule(
             backbone, ENCODERS.build(enc_cfg), decoder, fuser, tpsnet,
-            iter_size=int(cfg.get('iter_size', 1)))
+            iter_size=int(cfg.get('iter_size', 1)),
+            preprocessor=preprocessor)
         self.model = model.to(self.device, self.param_dtype).eval()
         loss_cfg = dict(cfg['loss'])
         loss_cfg.setdefault('num_classes', num_chars)

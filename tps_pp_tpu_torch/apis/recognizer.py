@@ -100,7 +100,6 @@ from .. import losses as _losses  # noqa: F401 (registration)
 from ..models import backbones, decoders, encoders, rectifiers  # noqa: F401
 from ..models.decoders.base import beam_decode, greedy_decode
 from ..models.layers import weights_stamp
-from ..models.rectifiers.tps_stn import LocalizationNetwork
 from ..models.recognizers.encode_decode import EncodeDecodeRecognizer
 from ..models.transformer import PackedMultiheadAttention
 from ..ops.stem import fused_stem_forward
@@ -198,8 +197,9 @@ class TextRecognizer:
         embeddings (pad row zero where the embedding has one), the weights
         and biases of LSTMs, GRUs and their cells U(-1/sqrt(H), 1/sqrt(H))
         as the JAX package's init, identity norms
-        and BatchNorm statistics, and the localization heads of TPS++ and
-        of the TPS-STN at their reference init."""
+        and BatchNorm statistics, and every module's localization head at
+        its reference init (``reset_localization``: TPS++'s, the
+        TPS-STN's, SPIN's ``fc2``)."""
         g = torch.Generator().manual_seed(seed)
 
         def fill(t, draw):
@@ -225,12 +225,11 @@ class TextRecognizer:
                     b = 1.0 / m.hidden_size ** 0.5
                     for w in m.parameters():
                         fill(w, lambda x: x.uniform_(-b, b, generator=g))
-                elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+                elif isinstance(m, (nn.LayerNorm,
+                                    nn.modules.batchnorm._BatchNorm)):
                     m.reset_parameters()
-            if self.model.tpsnet is not None:
-                self.model.tpsnet.TPE.reset_localization()
             for m in self.model.modules():
-                if isinstance(m, LocalizationNetwork):
+                if hasattr(m, 'reset_localization'):
                     m.reset_localization()
         return self
 
@@ -419,15 +418,19 @@ class TextRecognizer:
 def build_recognizer(cfg: Dict[str, Any], device=None,
                      param_dtype: Optional[str] = None) -> TextRecognizer:
     """The recognizer of a model config: ``type`` ABINet builds an
-    ``ABINetRecognizer`` (JAX ``apis/recognizer.py:337-348``); NRTR,
-    CRNNNet, SARNet, SATRN, RobustScanner and EncodeDecodeRecognizer a
-    ``TextRecognizer`` (JAX ``models/recognizers/encode_decode.py:110-111``).
-    SegRecognizer is not ported yet.
+    ``ABINetRecognizer`` and SegRecognizer a ``SegRecognizer`` (JAX
+    ``apis/recognizer.py:337-348``); NRTR, CRNNNet, SARNet, SATRN,
+    RobustScanner and EncodeDecodeRecognizer a ``TextRecognizer`` (JAX
+    ``models/recognizers/encode_decode.py:110-111``); any other type raises
+    ``NotImplementedError``.
     ``device`` defaults to the CUDA device (see :class:`TextRecognizer`)."""
     type_name = cfg.get('type', 'EncodeDecodeRecognizer')
     if type_name == 'ABINet':
         from .abinet import ABINetRecognizer
         return ABINetRecognizer(cfg, device, param_dtype)
+    if type_name == 'SegRecognizer':
+        from .seg import SegRecognizer
+        return SegRecognizer(cfg, device, param_dtype)
     if type_name not in ('NRTR', 'CRNNNet', 'SARNet', 'SATRN',
                          'RobustScanner', 'EncodeDecodeRecognizer'):
         raise NotImplementedError(

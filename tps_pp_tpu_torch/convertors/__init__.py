@@ -2,5 +2,7 @@ from .base import BaseConvertor
 from .attn import AttnConvertor
 from .abi import ABIConvertor
 from .ctc import CTCConvertor
+from .seg import SegConvertor
 
-__all__ = ['BaseConvertor', 'AttnConvertor', 'ABIConvertor', 'CTCConvertor']
+__all__ = ['BaseConvertor', 'AttnConvertor', 'ABIConvertor', 'CTCConvertor',
+           'SegConvertor']

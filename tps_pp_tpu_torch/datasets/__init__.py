@@ -2,10 +2,12 @@
 (counterpart of ``tps_pp_tpu/datasets``, recognition)."""
 from . import pipelines  # noqa: F401 (registration)
 from .loader import HardDiskLoader, LineJsonParser, LineStrParser, LmdbLoader
+from .ocr_seg_dataset import OCRSegDataset, parse_char_anno
 from .ocr_dataset import (DataLoader, OCRDataset, UniformConcatDataset,
                           build_dataset, sample_key, seeded_rngs)
 from .pipelines.transforms import Compose
 
 __all__ = ['HardDiskLoader', 'LmdbLoader', 'LineStrParser', 'LineJsonParser',
-           'OCRDataset', 'UniformConcatDataset', 'DataLoader',
-           'build_dataset', 'Compose', 'sample_key', 'seeded_rngs']
+           'OCRDataset', 'OCRSegDataset', 'UniformConcatDataset',
+           'DataLoader', 'build_dataset', 'Compose', 'parse_char_anno',
+           'sample_key', 'seeded_rngs']

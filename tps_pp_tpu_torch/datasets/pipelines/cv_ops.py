@@ -36,7 +36,18 @@ that is cheap to follow:
   the copy was held against: another build's blocks would move some
   pixels by one grey level.
 
-``tests/test_torch_augment.py`` holds each against cv2 on seeded images.
+* ``resize_inter_nearest``: ``cv2.resize`` with ``INTER_NEAREST`` of any
+  dtype (the seg kernels are int32): source index
+  ``floor(x * (1 / (dst / src)))`` in float64, clamped.
+* ``fill_convex_poly``: ``cv2.fillConvexPoly`` of integer corners (shift
+  0, ``LINE_8``): the polygon's edges drawn by cv2's 8-connected line
+  iterator (left to right, ``clipLine`` where an end lies outside), then
+  cv2's scanline fill in 16-bit fixed point, its edge slopes divided with
+  C's truncation and each span rounded half up at both ends.
+
+``tests/test_torch_augment.py`` holds each against cv2 on seeded images
+(``fill_convex_poly`` and ``resize_inter_nearest``:
+``tests/test_torch_seg.py``).
 """
 from __future__ import annotations
 
@@ -362,3 +373,144 @@ def hsv_to_bgr(img: np.ndarray) -> np.ndarray:
     cut = bgr.shape[1] // HSV_BLOCK * HSV_BLOCK
     out[:, :cut] = np.floor(bgr[:, :cut])
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def resize_inter_nearest(img: np.ndarray, width: int,
+                         height: int) -> np.ndarray:
+    """``cv2.resize(img, (width, height), interpolation=INTER_NEAREST)``:
+    output (y, x) reads ``floor(y * h / height), floor(x * w / width)``
+    as cv2 computes them (``1 / (dst / src)`` in float64), clamped."""
+    h, w = img.shape[:2]
+
+    def taps(src, dst):
+        i = np.floor(np.arange(dst) * (1.0 / (dst / src))).astype(np.int64)
+        return np.minimum(i, src - 1)
+    return img[taps(h, height)][:, taps(w, width)]
+
+
+_XY_SHIFT = 16
+_XY_ONE = 1 << _XY_SHIFT
+
+
+def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """cv2's ``clipLine`` to the (w, h) image: the clipped ends, or None
+    where the segment misses it."""
+    right, bottom = w - 1, h - 1
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1, c1 = a, 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2, c2 = a, 0
+    return (x1, y1, x2, y2) if (c1 | c2) == 0 else None
+
+
+def _draw_line(img: np.ndarray, p1, p2, value) -> None:
+    """cv2's ``Line`` with 8-connectivity: ``LineIterator(img, p1, p2, 8,
+    leftToRight=True)`` sets ``dx + 1`` pixels (dx the longer axis)."""
+    h, w = img.shape[:2]
+    x1, y1 = p1
+    x2, y2 = p2
+    if not (0 <= x1 < w and 0 <= x2 < w and 0 <= y1 < h and 0 <= y2 < h):
+        ends = _clip_line(w, h, x1, y1, x2, y2)
+        if ends is None:
+            return
+        x1, y1, x2, y2 = ends
+    if x2 < x1:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    dx, dy = x2 - x1, y2 - y1
+    sy = -1 if dy < 0 else 1
+    dy = abs(dy)
+    if dy > dx:            # the major axis is y
+        major, minor, step_major, step_minor = dy, dx, (0, sy), (1, 0)
+    else:
+        major, minor, step_major, step_minor = dx, dy, (1, 0), (0, sy)
+    err = major - 2 * minor
+    x, y = x1, y1
+    for _ in range(major + 1):
+        img[y, x] = value
+        if err < 0:
+            x, y = x + step_minor[0], y + step_minor[1]
+            err += 2 * major
+        err -= 2 * minor
+        x, y = x + step_major[0], y + step_major[1]
+
+
+def _div_trunc(a: int, b: int) -> int:
+    """C's integer division, truncating toward zero."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b > 0) else -q
+
+
+def fill_convex_poly(img: np.ndarray, pts, value) -> np.ndarray:
+    """``cv2.fillConvexPoly(img, pts, value)`` in place for integer
+    corners ``pts`` (n, 2) of (x, y), shift 0, ``LINE_8``; returns img."""
+    v = [(int(x), int(y)) for x, y in np.asarray(pts).reshape(-1, 2)]
+    n = len(v)
+    h, w = img.shape[:2]
+    for i in range(n):
+        _draw_line(img, v[i - 1], v[i], value)
+    xs, ys = [p[0] for p in v], [p[1] for p in v]
+    ymin, ymax, xmin, xmax = min(ys), max(ys), min(xs), max(xs)
+    if n < 3 or xmax < 0 or ymax < 0 or xmin >= w or ymin >= h:
+        return img
+    imin = ys.index(ymin)
+    ymax = min(ymax, h - 1)
+    half = _XY_ONE >> 1
+    # (idx, di, x, dx, ye) of the left-going and right-going edges
+    edge = [[imin, 1, -_XY_ONE, 0, ymin], [imin, n - 1, -_XY_ONE, 0, ymin]]
+    edges, y = n, ymin
+    while True:
+        for e in edge:
+            if y < e[4]:
+                continue
+            idx0, di = e[0], e[1]
+            idx = (idx0 + di) % n
+            while True:
+                go = edges > 0
+                edges -= 1
+                if not go:
+                    break
+                ty = v[idx][1]
+                if ty > y:
+                    xs0, xe = v[idx0][0] << _XY_SHIFT, v[idx][0] << _XY_SHIFT
+                    e[4] = ty
+                    e[3] = _div_trunc((xe - xs0) * 2 + (ty - y),
+                                      2 * (ty - y))
+                    e[2] = xs0
+                    e[0] = idx
+                    break
+                idx0, idx = idx, (idx + di) % n
+        if edges < 0:
+            break
+        if y >= 0:
+            left, right = ((edge[1], edge[0]) if edge[0][2] > edge[1][2]
+                           else (edge[0], edge[1]))
+            x1 = (left[2] + half) >> _XY_SHIFT
+            x2 = (right[2] + half) >> _XY_SHIFT
+            if x2 >= 0 and x1 < w:
+                img[y, max(x1, 0):min(x2, w - 1) + 1] = value
+        edge[0][2] += edge[0][3]
+        edge[1][2] += edge[1][3]
+        y += 1
+        if y > ymax:
+            break
+    return img

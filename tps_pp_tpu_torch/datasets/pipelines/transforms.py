@@ -260,6 +260,42 @@ class NormalizeOCR:
 
 
 @PIPELINES.register_module()
+class Normalize:
+    """mmcv's normalize: (img - mean) / std with 0-255 statistics over the
+    raw image, BGR flipped to RGB first where ``to_rgb`` and the image has
+    three channels (``tps_pp_tpu/datasets/pipelines/transforms.py:
+    174-194``; the seg test pipeline's)."""
+
+    def __init__(self, mean, std, to_rgb=True):
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+        self.to_rgb = to_rgb
+
+    def __call__(self, results: Dict) -> Dict:
+        img = results['img'].astype(np.float32)
+        if self.to_rgb and img.shape[-1] == 3:
+            img = img[..., ::-1]
+        results['img'] = (img - self.mean) / self.std
+        results['img_norm_cfg'] = dict(mean=self.mean.tolist(),
+                                       std=self.std.tolist(),
+                                       to_rgb=self.to_rgb)
+        return results
+
+
+@PIPELINES.register_module()
+class DefaultFormatBundle:
+    """mmdet's formatting stage, a passthrough here: arrays stay NHWC numpy
+    and ``Collect`` picks them (``tps_pp_tpu/datasets/pipelines/
+    transforms.py:229-240``)."""
+
+    def __init__(self, **kwargs):
+        pass
+
+    def __call__(self, results: Dict) -> Dict:
+        return results
+
+
+@PIPELINES.register_module()
 class Collect:
     """Keep ``keys`` and gather ``meta_keys`` into ``img_metas``
     (``tps_pp_tpu/datasets/pipelines/transforms.py:213-226``)."""

@@ -81,6 +81,16 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+class BatchNorm1d(BatchNorm2d):
+    """:class:`BatchNorm2d`'s statistics over (N, C) features: the same
+    module on an (N, C, 1, 1) view, so that the biased running variance,
+    the float32 statistics and the global batch under a process group are
+    its own; the ``state_dict`` keys are ``nn.BatchNorm1d``'s."""
+
+    def forward(self, x):
+        return super().forward(x[:, :, None, None])[:, :, 0, 0]
+
+
 class _GlobalBatchNorm(torch.autograd.Function):
     """Train-mode batch norm over the global batch of a process group:
     the forward all-reduces each channel's sum, sum of squares and count;

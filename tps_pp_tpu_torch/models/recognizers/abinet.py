@@ -2,7 +2,8 @@
 ``tps_pp_tpu/models/recognizers/abinet.py``; reference
 recognizer/abinet.py:18-206).
 
-backbone + optional TPS++ rectifier (``extract_feat``, shared with
+optional image-space preprocessor (MORAN, SPIN, the TPS-STN) + backbone +
+optional TPS++ rectifier (``extract_feat``, shared with
 ``EncodeDecodeRecognizer``) + ``ABIVisionModel`` + ``iter_size`` rounds of
 the language decoder and the fuser, each round on the last fuser's logits
 (the first on the vision model's).
@@ -22,9 +23,10 @@ class ABINetRecognizerModule(nn.Module):
     def __init__(self, backbone: nn.Module, encoder: nn.Module,
                  decoder: Optional[nn.Module] = None,
                  fuser: Optional[nn.Module] = None,
-                 tpsnet: Optional[nn.Module] = None, iter_size: int = 1):
+                 tpsnet: Optional[nn.Module] = None, iter_size: int = 1,
+                 preprocessor: Optional[nn.Module] = None):
         super().__init__()
-        self.preprocessor = None      # ABINetRecognizer refuses one
+        self.preprocessor = preprocessor
         self.backbone = backbone
         self.tpsnet = tpsnet
         self.encoder = encoder
@@ -41,8 +43,8 @@ class ABINetRecognizerModule(nn.Module):
         """img (N, H, W, C) -> ``out_enc`` (the vision model's dict),
         ``out_decs`` and ``out_fusers`` (a dict a round), for ``ABILoss``.
         ``targets`` are unused, as in the reference; ``rng`` draws the
-        dropout masks in train mode; ``plain`` makes the rectifier's warp
-        take the kernels' plain versions."""
+        dropout masks in train mode; ``plain`` makes the preprocessor's
+        and the rectifier's warps take the kernels' plain versions."""
         feat = self.extract_feat(img, plain=plain)
         out_enc = self.encoder(feat, valid_ratio, rng=rng)
         text_logits = out_enc['logits']

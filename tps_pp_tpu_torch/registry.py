@@ -52,6 +52,9 @@ PREPROCESSORS = Registry('torch_preprocessors')
 ENCODERS = Registry('torch_encoders')
 DECODERS = Registry('torch_decoders')
 FUSERS = Registry('torch_fusers')
+# the segmentation recognizer's neck and head
+NECKS = Registry('torch_necks')
+HEADS = Registry('torch_heads')
 CONVERTORS = Registry('torch_convertors')
 LOSSES = Registry('torch_losses')
 # data side: the test pipeline's transforms, datasets, annotation loaders

@@ -357,14 +357,100 @@ def _abinet_position_tables(cfg: Mapping) -> Dict[str, torch.Tensor]:
         for k, (n, d) in sizes.items()}
 
 
+def moran_rules() -> List[Rule]:
+    """MORAN's offset net (JAX ``models/rectifiers/moran.py``): five 3x3
+    convs with bias ``conv{i}`` and their BatchNorms ``bn{i}``. The
+    reference's names cannot be read (its tree is absent, and JAX's
+    ``torch_convert.py`` has no MORAN table), so they mirror the flax
+    module's."""
+    p = 'preprocessor'
+    return [r for i in range(5) for r in (
+        (f'{p}.conv{i}', f'{p}/conv{i}', 'conv'),
+        (f'{p}.bn{i}', f'{p}/bn{i}', 'bn'))]
+
+
+def spin_rules(offsets: bool = True) -> List[Rule]:
+    """SPIN (JAX ``models/rectifiers/spin.py``): the trunk's
+    ``spt_conv{i}`` / ``spt_bn{i}``, the structure branch's
+    ``fc1_conv{i}`` / ``fc1_bn{i}``, ``fc1_linear``, ``fc1_bn1d`` and
+    ``fc2``, and with ``offsets`` the AIN branch's ``offset_conv1`` /
+    ``offset_bn1`` / ``offset_conv2``. Names mirror the flax module's, as
+    for MORAN."""
+    p = 'preprocessor'
+    rules = []
+    for stem, n in (('spt', 3), ('fc1', 3)):
+        for i in range(n):
+            rules += [(f'{p}.{stem}_conv{i}', f'{p}/{stem}_conv{i}',
+                       'conv_nobias'),
+                      (f'{p}.{stem}_bn{i}', f'{p}/{stem}_bn{i}', 'bn')]
+    rules += [(f'{p}.fc1_linear', f'{p}/fc1_linear', 'linear'),
+              (f'{p}.fc1_bn1d', f'{p}/fc1_bn1d', 'bn'),
+              (f'{p}.fc2', f'{p}/fc2', 'linear')]
+    if offsets:
+        rules += [(f'{p}.offset_conv1', f'{p}/offset_conv1', 'conv_nobias'),
+                  (f'{p}.offset_bn1', f'{p}/offset_bn1', 'bn'),
+                  (f'{p}.offset_conv2', f'{p}/offset_conv2', 'conv')]
+    return rules
+
+
+def preprocessor_rules(cfg: Mapping) -> List[Rule]:
+    """The rules of the config's image-space preprocessor, dispatched on
+    its type; none for no preprocessor or the identity, a ``ValueError``
+    for a type without rules."""
+    pre = cfg.get('preprocessor') or {}
+    pre_type = pre.get('type')
+    if pre_type in (None, 'BasePreprocessor'):
+        return []
+    if pre_type == 'TPSPreprocessor':
+        return tps_preprocessor_rules()
+    if pre_type == 'MORAN':
+        return moran_rules()
+    if pre_type == 'SPIN':
+        return spin_rules(bool(pre.get('offsets', True)))
+    raise ValueError(f'no conversion rules for preprocessor type '
+                     f'{pre_type!r}')
+
+
+def seg_rules(n_levels: int = 4) -> List[Rule]:
+    """FPNOCR + SegHead with MMOCR 0.4.0's names (``fpn_ocr.py``,
+    ``seg_head.py``): ``neck.lateral_convs.{i}``,
+    ``neck.smooth_convs_1x1.{i}`` and ``neck.smooth_convs_3x3.{i}``, each a
+    ``ConvModule`` (``.conv`` without bias, ``.bn``), ``head.seg_conv``
+    (the same) and ``head.pred_conv``. JAX's ``torch_convert.py`` has no
+    seg table and the reference tree is absent, so these names are read
+    from MMOCR's modules, not checked against a reference checkpoint."""
+    rules = []
+
+    def conv_module(tp, fp):
+        return [(f'{tp}.conv', f'{fp}/conv', 'conv_nobias'),
+                (f'{tp}.bn', f'{fp}/bn', 'bn')]
+    for i in range(n_levels):
+        rules += conv_module(f'neck.lateral_convs.{i}', f'neck/lateral{i}')
+    for i in range(n_levels - 1):
+        rules += conv_module(f'neck.smooth_convs_1x1.{i}',
+                             f'neck/smooth1x1_{i}')
+        rules += conv_module(f'neck.smooth_convs_3x3.{i}',
+                             f'neck/smooth3x3_{i}')
+    return rules + conv_module('head.seg_conv', 'head/seg_conv') + [
+        ('head.pred_conv', 'head/pred_conv', 'conv')]
+
+
 def rules_for_config(cfg: Mapping) -> List[Rule]:
-    """The rule table of an NRTR, SATRN, ABINet (+ TPS_PP), CRNN (+
-    TPS-STN), SAR (parallel, sequential, beam search) or RobustScanner
-    recognizer config, dispatched on its backbone, encoder and decoder
-    types as JAX's ``rules_for_config`` (``torch_convert.py:604-684``); a
-    type without rules raises a ``ValueError``."""
-    pre = ((cfg.get('preprocessor') or {}).get('type') == 'TPSPreprocessor')
-    pre_rules = tps_preprocessor_rules() if pre else []
+    """The rule table of an NRTR, SATRN, ABINet (+ TPS_PP), CRNN, SAR
+    (parallel, sequential, beam search), RobustScanner or SegRecognizer
+    config, with its image-space preprocessor (TPS-STN, MORAN, SPIN),
+    dispatched on its preprocessor, backbone, encoder and decoder types as
+    JAX's ``rules_for_config`` (``torch_convert.py:604-684``); a type
+    without rules raises a ``ValueError``."""
+    if cfg.get('type') == 'SegRecognizer':    # no preprocessor, as JAX
+        bb = cfg['backbone']
+        if bb.get('type') != 'ResNet31OCR':
+            raise ValueError(f'no conversion rules for backbone type '
+                             f'{bb.get("type")!r}')
+        return resnet31_rules(tuple(bb.get('layers', (1, 2, 5, 3)))) + \
+            seg_rules(len(cfg['neck'].get('in_channels',
+                                          (128, 256, 512, 512))))
+    pre_rules = preprocessor_rules(cfg)
     dec = cfg.get('decoder') or {}
     if dec.get('type') == 'CRNNDecoder':
         return pre_rules + crnn_rules(bool(dec.get('rnn_flag', False)))
@@ -497,10 +583,10 @@ def convert_rules(variables: Mapping, rules: List[Rule]
 def state_dict_from_jax(variables: Mapping, cfg: Mapping
                         ) -> Dict[str, torch.Tensor]:
     """JAX recognizer variables -> a ``state_dict`` that the model of
-    ``build_recognizer(cfg)`` (NRTR, SATRN, ABINet, CRNN, SAR or
-    RobustScanner) takes with ``load_state_dict(strict=True)``. The
-    sinusoid tables, buffers as in the reference, are made from the
-    config."""
+    ``build_recognizer(cfg)`` (NRTR, SATRN, ABINet, CRNN, SAR,
+    RobustScanner or SegRecognizer) takes with
+    ``load_state_dict(strict=True)``. The sinusoid tables, buffers as in
+    the reference, are made from the config."""
     sd = convert_rules(variables, rules_for_config(cfg))
     if cfg.get('type') == 'ABINet':
         sd.update(_abinet_position_tables(cfg))
