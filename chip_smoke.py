@@ -211,6 +211,34 @@ seed):
   recorded (``grid_sample_moran_offsets``, ``grid_sample_spin_offsets``
   and their ``grid_sample_grad_img_*`` rows), device time by CUDA graph.
 
+* text detection, last, which runs no hand-written kernel (in JAX it is
+  plain XLA, DCNv2 included): both DBNet configs (``DET_CONFIGS``: R18-FPNC
+  and R50-DCNv2-FPNC) through ``init_detector`` from their files, seed-0
+  weights, float32 (TF32 off), 640 x 640. Their forward must launch no
+  kernel. ``detect_batch`` on seeded uint8 640 x 640 x 3 images (B=16 and
+  8) timed whole and by stage: the host's prep, the batch's copy to the
+  card, the forward on a tensor already there (whole, and by stage with
+  CUDA events: trunk, neck, head, and the DCNv2 layers' share of the
+  trunk, each the mean of 3 runs), the map's copy to the host and
+  ``DBPostprocessor`` an image. Random weights put the whole seed-0 map
+  above the mask threshold (one box an image), so the postprocessor is
+  also timed on trained-like maps (``trained_like_maps``: word quads drawn
+  by ``cv_ops.fill_poly``) and, as a stress test, on the model's map with
+  the probability branch's last bias shifted until a share of
+  ``DET_STRESS_ABOVE`` of the pixels lie above the threshold, the first
+  share at which the float32 batch keeps ``DET_MIN_BOXES`` boxes. The
+  card against the CPU at B=2 on the same weights, stressed and seed-0:
+  each map channel within ``DET_F32_ATOL``; the number of mask pixels that
+  part is logged, and with the CPU map taking the card's value there (the
+  masks equal), the boundaries must be equal (points within 1e-3 px), at
+  least ``DET_MIN_BOXES`` of them on the stressed map and one an image on
+  the seed-0 map. Then ``MMOCR(det=<R18 config>,
+  recog='NRTR_TPS').readtext`` on ``N_PAGES`` seeded 640 x 480 pages, on
+  the seed-0 map and on the stress test's (the recognizer float32 from
+  its config): every page a result list, ms a page whole and split into
+  detection, crops and recognition, and the recognizer's launches (kernel
+  1).
+
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
 the checks and on TPS++'s own [0, 1]^2 grid, which puts every sample in
 the lower half of the map's rows; their band plan is logged.
@@ -377,6 +405,26 @@ SEG_OPT = dict(type='Adam', lr=1e-4)
 CRNN_CONFIG = 'configs/textrecog/crnn/crnn_academic_dataset.py'
 MORAN_PRE = dict(type='MORAN', num_img_channel=1, img_size=(32, 100))
 SPIN_FC2_SCALE, B_PRE_TRAIN = 0.05, 64
+# text detection: the two DBNet configs with their timing batches; the
+# float32 batch held against the CPU and its bound (TF32 off): on the CPU
+# the seed-0 maps of both configs at 640 x 640 lie within 4.3e-6 of their
+# float64 values (the binary channel, which scales P - T by k / 4 = 12.5;
+# 3.6e-7 on P and T), so two float32 roundings of them stay within 1e-4;
+# the stress test's shares of pixels above the mask threshold, tried in
+# turn until the float32 batch's map keeps DET_MIN_BOXES boxes (the seed-0
+# map lies above it everywhere: one box an image); the trained-like maps:
+# words a page, their height (px at 640 x 640), width over height and tilt
+# (degrees), DB's shrink ratio; readtext's pages (h, w)
+DET_CONFIGS = {
+    'dbnet_r18': ('configs/textdet/dbnet/dbnet_r18_fpnc_1200e_icdar2015.py',
+                  16),
+    'dbnet_r50dcnv2': (
+        'configs/textdet/dbnet/dbnet_r50dcnv2_fpnc_1200e_icdar2015.py', 8)}
+B_DET_F32, DET_F32_ATOL = 2, 1e-4
+DET_STRESS_ABOVE, DET_MIN_BOXES = (0.3, 0.4, 0.5, 0.6, 0.7), 10
+DET_WORDS, DET_WORD_H, DET_WORD_ASPECT, DET_WORD_TILT, DB_SHRINK = (
+    (10, 40), (8, 24), (1.5, 6.0), 20.0, 0.4)
+N_PAGES, PAGE_HW = 4, (480, 640)
 
 
 def log(*a):
@@ -3563,6 +3611,303 @@ def seg_preproc_phase(dev, name, record):
     return out
 
 
+def trained_like_maps(g, n, hw=(640, 640)):
+    """``n`` probability maps shaped like a trained DBNet's: ``DET_WORDS``
+    word quads a page (``DET_WORD_H`` px tall, ``DET_WORD_ASPECT`` times as
+    wide, tilted up to ``DET_WORD_TILT`` degrees), each drawn by
+    ``cv_ops.fill_poly`` as DB's shrunk text kernel (the offset D = A (1 -
+    r^2) / L of ``DB_SHRINK``), at 0.95 under a 5 x 5 box blur, over a
+    background of U(0, 0.1). The postprocessor's cost on such a map, not on
+    a map of random weights."""
+    import numpy as np
+    from tps_pp_tpu_torch.datasets.pipelines import cv_ops
+    H, W = hw
+    out = []
+    for _ in range(n):
+        kern = np.zeros((H, W), np.float32)
+        for _ in range(int(g.integers(*DET_WORDS, endpoint=True))):
+            h = g.uniform(*DET_WORD_H)
+            w = h * g.uniform(*DET_WORD_ASPECT)
+            d = w * h * (1 - DB_SHRINK ** 2) / (2 * (w + h))
+            kw, kh = w - 2 * d, h - 2 * d
+            a = np.deg2rad(g.uniform(-DET_WORD_TILT, DET_WORD_TILT))
+            cx, cy = g.uniform(w / 2, W - w / 2), g.uniform(h / 2, H - h / 2)
+            rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+            quad = (np.array([[-kw, -kh], [kw, -kh], [kw, kh], [-kw, kh]])
+                    / 2) @ rot.T + [cx, cy]
+            cv_ops.fill_poly(kern, [np.rint(quad).astype(np.int32)], 1.0)
+        for axis in (0, 1):
+            pad = np.pad(kern, [(2, 2) if i == axis else (0, 0)
+                                for i in (0, 1)], mode='edge')
+            kern = sum(np.take(pad, range(i, i + kern.shape[axis]),
+                               axis=axis) for i in range(5)) / 5
+        out.append(np.clip(0.95 * kern + g.uniform(0, 0.1, (H, W)), 0, 1)
+                   .astype(np.float32))
+    return np.stack(out)
+
+
+def det_phase(dev, name):
+    """Text detection on ``dev``, the card (see the module docstring):
+    both DBNet configs through ``init_detector``, ``detect_batch`` timed by
+    stage, the float32 maps and boundaries against the CPU, and
+    ``MMOCR.readtext``; the detector's forward launches no hand-written
+    kernel."""
+    import math
+
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import MMOCR, TextDetector, init_detector
+    from tps_pp_tpu_torch.ops.deform_conv import ModulatedDeformConv
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    g = np.random.default_rng(SEED + 19)
+    sections, t_sec = {}, [time.perf_counter()]
+
+    def section(what):
+        now = time.perf_counter()
+        sections[what] = round(now - t_sec[0], 1)
+        t_sec[0] = now
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def stage_ms(det, x, reps=3):
+        """Device ms of the trunk, the neck and the head on ``x``, and of
+        the DCNv2 layers inside the trunk (CUDA events, the mean of
+        ``reps`` runs after one)."""
+        m = det.model
+        pairs = []
+        hooks = []
+        for mod in m.modules():
+            if isinstance(mod, ModulatedDeformConv):
+                hooks.append(mod.register_forward_pre_hook(
+                    lambda *_: pairs.append([event(), None])))
+                hooks.append(mod.register_forward_hook(
+                    lambda *_: pairs[-1].__setitem__(1, event())))
+        ms, dcn = np.zeros(3), 0.0
+        with torch.inference_mode():
+            for r in range(reps + 1):
+                pairs.clear()
+                e0 = event()
+                feats = m.backbone(x)
+                e1 = event()
+                fused = m.neck(feats)
+                e2 = event()
+                m.head(fused)
+                e3 = event()
+                torch.cuda.synchronize()
+                if r:
+                    ms += [e0.elapsed_time(e1), e1.elapsed_time(e2),
+                           e2.elapsed_time(e3)]
+                    dcn += sum(a.elapsed_time(b) for a, b in pairs)
+        for h in hooks:
+            h.remove()
+        return ms / reps, dcn / reps
+
+    def n_boxes(det, x):
+        prob = det.forward(x)[..., 0].cpu().numpy()
+        return sum(len(b) for b in det.postprocess(prob,
+                                                   [(1.0, 1.0)] * len(x)))
+
+    def move_bias(det, shift):
+        with torch.no_grad():
+            det.model.head.binarize[6].bias.add_(shift)
+
+    def stress(det, x, key):
+        """The stress test: shift the probability branch's last bias so
+        that a share of the map's pixels on ``x`` lie above the mask
+        threshold, the first share of ``DET_STRESS_ABOVE`` at which ``x``
+        keeps ``DET_MIN_BOXES`` boxes; returns (share, shift, boxes)."""
+        logit = torch.logit(det.forward(x)[..., 0]).flatten()[::7].cpu()
+        thr = det.postprocessor.mask_thr
+        for above in DET_STRESS_ABOVE:
+            shift = (math.log(thr / (1 - thr))
+                     - float(torch.quantile(logit, 1 - above)))
+            move_bias(det, shift)
+            boxes = n_boxes(det, x)
+            if boxes >= DET_MIN_BOXES:
+                return above, shift, boxes
+            move_bias(det, -shift)
+        raise AssertionError(f'{key}: no share in {DET_STRESS_ABOVE} keeps '
+                             f'{DET_MIN_BOXES} boxes on {len(x)} images')
+
+    def post_ms(det, prob):
+        t0 = time.perf_counter()
+        boxes = det.postprocess(prob, [(1.0, 1.0)] * len(prob))
+        return ((time.perf_counter() - t0) / len(prob) * 1e3,
+                sum(len(b) for b in boxes) / len(prob))
+
+    stats, levels = {}, {}
+    for key, (path, n) in DET_CONFIGS.items():
+        det = init_detector(os.path.join(repo, path), device=dev, seed=SEED)
+        if det.device.type != 'cuda' or det.model.training:
+            raise AssertionError(f'{key}: built on {det.device}')
+        imgs = [g.integers(0, 256, (640, 640, 3), np.uint8)
+                for _ in range(n)]
+        # ---- the forward launches no hand-written kernel
+        zero_launches()
+        det.forward(np.stack([det.prep(i)[0] for i in imgs]))
+        read_launches('det', f'{key} forward', {})
+        # ---- detect_batch, whole and by stage, warm: the host's prep, the
+        # batch's copy to the card, the forward on the card's tensor (and
+        # by stage), the map's copy to the host, the postprocessor
+        det.detect_batch(imgs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = det.detect_batch(imgs)
+        whole = (time.perf_counter() - t0) / n
+        if len(out) != n:
+            raise AssertionError(f'{key}: {len(out)} results for {n}')
+        t0 = time.perf_counter()
+        preps = [det.prep(i) for i in imgs]
+        prep = (time.perf_counter() - t0) / n
+        batch = np.stack([p[0] for p in preps])
+        h2d = cuda_ms(lambda: torch.as_tensor(batch).to(dev), 3) / n
+        x = torch.as_tensor(batch, device=dev)
+        fwd = cuda_ms(lambda: det.forward(x), 3) / n
+        maps = det.forward(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prob = maps[..., 0].cpu().numpy()
+        copy = (time.perf_counter() - t0) / n
+        post, per_img = post_ms(det, prob)
+        (trunk, neck, head), dcn = stage_ms(det, x)
+        trunk, neck, head, dcn = trunk / n, neck / n, head / n, dcn / n
+        log(f'det {key} B={n} 640x640 (f32, TF32 off): detect_batch '
+            f'{whole * 1e3:.2f} ms/image; host prep {prep * 1e3:.2f}, '
+            f'batch copy to the card {h2d:.3f}, forward on the card\'s '
+            f'tensor {fwd:.3f} (by stage: trunk {trunk:.3f}, of which DCNv2 '
+            f'{dcn:.3f}; neck {neck:.3f}; head {head:.3f}; sum '
+            f'{trunk + neck + head:.3f}), map copy {copy * 1e3:.3f}, '
+            f'DBPostprocessor {post:.2f} ms/image ({per_img:.1f} boxes an '
+            f'image, seed-0 map) [{name}]')
+        # ---- the postprocessor on trained-like maps (the same for both
+        # configs: it sees only the map)
+        post_t, per_img_t = post_ms(det, trained_like_maps(
+            np.random.default_rng(SEED + 1900), 8))
+        log(f'det {key} trained-like maps ({DET_WORDS} word quads a page, '
+            f'{DET_WORD_H} px tall): DBPostprocessor {post_t:.2f} ms/image, '
+            f'{per_img_t:.1f} boxes an image [{name}]')
+        section(f'{key} timing')
+        # ---- the stress test: the postprocessor on the stressed map
+        xb = x[:B_DET_F32]
+        above, shift, _ = stress(det, xb, key)
+        levels[key] = above
+        prob = det.forward(x[:4])[..., 0].cpu().numpy()
+        post_s, per_img_s = post_ms(det, prob)
+        log(f'det {key} stress test (bias {shift:+.4f}, '
+            f'{float((prob > det.postprocessor.mask_thr).mean()):.3f} of '
+            f'the pixels above the threshold, the share {above} of '
+            f'{DET_STRESS_ABOVE}): DBPostprocessor {post_s:.1f} ms/image, '
+            f'{per_img_s:.1f} boxes an image [{name}]')
+        stats[f'{key} timing'] = dict(
+            prep=prep * 1e3, h2d=h2d, forward=fwd, trunk=trunk, dcn=dcn,
+            neck=neck, head=head, copy=copy * 1e3, post_seed0=post,
+            post_trained_like=post_t, post_stress=post_s, stress=above)
+        # ---- the card against the CPU, float32, TF32 off
+        cpu_det = TextDetector(det.model_cfg, det.img_size, device='cpu')
+        cpu_det.model.load_state_dict({k: v.cpu() for k, v in
+                                       det.model.state_dict().items()})
+        for label, stressed in (('stressed', True), ('seed-0', False)):
+            if not stressed:
+                move_bias(det, -shift)
+                move_bias(cpu_det, -shift)
+            got = det.forward(xb).cpu()
+            want = cpu_det.forward(xb.cpu())
+            err = [float(v) for v in
+                   (got - want).abs().amax(dim=(0, 1, 2))]
+            if max(err) > DET_F32_ATOL:
+                raise AssertionError(f'{key} {label}: maps {err} apart '
+                                     f'(bound {DET_F32_ATOL})')
+            pc, pw = got[..., 0].numpy(), want[..., 0].numpy()
+            thr = det.postprocessor.mask_thr
+            flips = int(((pc > thr) != (pw > thr)).sum())
+            # where the masks part, the CPU map takes the card's value, so
+            # that the two masks are equal
+            pw = np.where((pc > thr) == (pw > thr), pw, pc)
+            n_box = 0
+            for a, b in zip(det.postprocess(pc, [(1.0, 1.0)] * len(pc)),
+                            det.postprocess(pw, [(1.0, 1.0)] * len(pw))):
+                if len(a) != len(b) or any(
+                        np.abs(u[:-1] - v[:-1]).max() > 1e-3
+                        or abs(u[-1] - v[-1]) > DET_F32_ATOL
+                        for u, v in zip(a, b)):
+                    raise AssertionError(f'{key} {label}: boundaries part')
+                n_box += len(a)
+            # the stressed map keeps DET_MIN_BOXES; the seed-0 map one box
+            # an image
+            least = DET_MIN_BOXES if stressed else len(pc)
+            if n_box < least:
+                raise AssertionError(f'{key} {label}: {n_box} boundaries '
+                                     f'compared, fewer than {least}')
+            log(f'det {key} {label} B={B_DET_F32}: the card against the '
+                f'CPU, maps [prob, thr, binary] within {err} (bound '
+                f'{DET_F32_ATOL}); {flips} mask pixels part; {n_box} '
+                f'boundaries equal on equal masks')
+            stats[f'{key} {label}'] = dict(err=err, flips=flips,
+                                           boxes=n_box)
+        section(f'{key} checks')
+        del det, cpu_det, x, xb, maps
+        torch.cuda.empty_cache()
+
+    # ---- MMOCR.readtext: DBNet-R18 and NRTR + TPS++ from their configs, on
+    # the seed-0 map (one box a page) and on the stress test's
+    reader = MMOCR(det=os.path.join(repo, DET_CONFIGS['dbnet_r18'][0]),
+                   recog='NRTR_TPS', device=dev)
+    pages = [g.integers(0, 256, (*PAGE_HW, 3), np.uint8)
+             for _ in range(N_PAGES)]
+    reader.readtext(pages[:1])
+    for label in ('seed-0', 'stressed'):
+        if label == 'stressed':
+            x = torch.as_tensor(np.stack(
+                [reader.detector.prep(p)[0] for p in pages[:2]]), device=dev)
+            thr = reader.detector.postprocessor.mask_thr
+            logit = torch.logit(reader.detector.forward(x)[..., 0])
+            q = float(torch.quantile(logit.flatten()[::7].cpu(),
+                                     1 - levels['dbnet_r18']))
+            move_bias(reader.detector, math.log(thr / (1 - thr)) - q)
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        res = reader.readtext(pages, merge=True)
+        torch.cuda.synchronize()
+        whole = (time.perf_counter() - t0) / N_PAGES
+        rec_launches = read_launches('det', f'readtext {label}',
+                                     {'tps_sampler': None})
+        if len(res) != N_PAGES or any(not isinstance(r['result'], list)
+                                      for r in res):
+            raise AssertionError(f'readtext: {res!r:.300}')
+        t_det = t_crop = t_rec = 0.0
+        n_crops = 0
+        for page in pages:
+            t0 = time.perf_counter()
+            bounds = reader.detector.detect(page)
+            t1 = time.perf_counter()
+            crops, _ = reader.crops(page, bounds)
+            t2 = time.perf_counter()
+            if crops:
+                reader.recognize(crops)
+            torch.cuda.synchronize()
+            t_det += t1 - t0
+            t_crop += t2 - t1
+            t_rec += time.perf_counter() - t2
+            n_crops += len(crops)
+        log(f'det readtext {N_PAGES} pages {PAGE_HW[1]}x{PAGE_HW[0]} '
+            f'(DBNet-R18 f32 at 640x640, {label} map; NRTR + TPS++ f32 from '
+            f'its config): {whole * 1e3:.1f} ms/page; detection '
+            f'{t_det / N_PAGES * 1e3:.1f}, crops '
+            f'{t_crop / N_PAGES * 1e3:.2f}, recognition '
+            f'{t_rec / N_PAGES * 1e3:.1f} ms/page; {n_crops / N_PAGES:.1f} '
+            f'boxes a page; launches {rec_launches} [{name}]')
+        section(f'readtext {label}')
+    log(f'det phase: {time.perf_counter() - t_phase:.1f} s (by section: '
+        f'{sections}); the detector forward launched no hand-written '
+        f'kernel; {json.dumps(stats)}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4191,6 +4536,9 @@ def main():
 
     # ---- SegOCR (no kernel); MORAN and SPIN in front of CRNN and ABINet
     path_launches.update(seg_preproc_phase(dev, name, record))
+
+    # ---- text detection: DBNet R18 and R50-DCNv2, MMOCR.readtext; no kernel
+    det_phase(dev, name)
     path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])

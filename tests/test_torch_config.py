@@ -1,6 +1,7 @@
 """The port's config system (``tps_pp_tpu_torch/config.py``) against the
-JAX package's: every config under ``configs/textrecog/`` and
-``configs/_base_/`` loads to the same plain dict (a callable a config
+JAX package's: every config under ``configs/textrecog/``,
+``configs/textdet/dbnet/`` and ``configs/_base_/`` (the ``det_*`` bases
+among them) loads to the same plain dict (a callable a config
 defines compared by its qualified name), ``merge_cli_options`` applies the
 same overrides, and duplicate keys among ``_base_`` files raise the same
 error."""
@@ -18,6 +19,7 @@ CONFIGS = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, 'configs/textrecog/**/*.py'),
               recursive=True) +
+    glob.glob(os.path.join(REPO, 'configs/textdet/dbnet/*.py')) +
     glob.glob(os.path.join(REPO, 'configs/_base_/**/*.py'), recursive=True))
 
 
@@ -42,6 +44,9 @@ def load(module, path):
 def test_every_config_is_listed():
     assert len(CONFIGS) > 60
     assert 'configs/textrecog/nrtr/nrtr_tps++.py' in CONFIGS
+    assert 'configs/textdet/dbnet/dbnet_r18_fpnc_1200e_icdar2015.py' in \
+        CONFIGS
+    assert 'configs/_base_/det_models/dbnet_r50dcnv2_fpnc.py' in CONFIGS
 
 
 @pytest.mark.parametrize('rel', CONFIGS)

@@ -6,7 +6,9 @@ small CRNN + TPS-STN (the CTC family, grayscale crops), for a small SAR
 (beam search) and RobustScanner on ResNet31 and for a small SATRN and NRTR
 on the modality transform, loads neither JAX,
 flax, cv2 nor the JAX package, and launches no kernel (CPU tensors go to
-the kernels' plain versions; nothing is built)."""
+the kernels' plain versions; nothing is built). So do detection (DBNet on
+ResNetDet and on ResNetDet50 with DCNv2), its evaluation modules and
+``MMOCR.readtext``."""
 import json
 import os
 import subprocess
@@ -455,3 +457,83 @@ def test_bench_torch_without_a_gpu_fails_and_prints_no_result():
     assert out.returncode != 0
     assert '{' not in out.stdout
     assert 'no CUDA device' in out.stderr
+
+
+DET_SCRIPT = r'''
+import importlib.abc, json, sys
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    """Refuses jax, flax, cv2 and the JAX package outright."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',
+                                  'tps_pp_tpu'):
+            raise ImportError(f'{name} is blocked')
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from tps_pp_tpu_torch.apis import (MMOCR, TextDetector, init_detector,
+                                   nrtr_tps_pp_cfg)
+from tps_pp_tpu_torch.apis import detector, ocr
+from tps_pp_tpu_torch.datasets import textdet_dataset
+from tps_pp_tpu_torch.datasets.pipelines import cv_ops
+from tps_pp_tpu_torch.evaluation import eval_hmean_iou, hmean_ic13, polygon
+from tps_pp_tpu_torch.models.textdet import dbnet, pan, postprocess
+from tps_pp_tpu_torch.ops import deform_conv, grid_sample, tps_sampler
+from tps_pp_tpu_torch.tools import test as test_tool
+from tps_pp_tpu_torch.utils import box_util
+
+neck = dict(type='FPNC', lateral_channels=16, out_channels=4)
+head = dict(type='DBHead', in_channels=16)
+boxes = []
+for backbone, ins in (
+        (dict(type='ResNetDet', stage_blocks=[1, 1, 1, 1],
+              base_channels=8), [8, 16, 32, 64]),
+        (dict(type='ResNetDet50', stage_blocks=[1, 1, 1, 1],
+              base_channels=8, dcn=dict(type='DCNv2'),
+              stage_with_dcn=[False, True, True, True]),
+         [32, 64, 128, 256])):
+    cfg = dict(type='DBNet', backbone=backbone,
+               neck=dict(neck, in_channels=ins), head=head)
+    det = init_detector(dict(model=cfg), img_size=(64, 96), device='cpu')
+    imgs = [np.random.default_rng(i).integers(0, 256, (50 + i, 90, 3),
+                                              np.uint8) for i in range(3)]
+    boxes.append([len(b) for b in det.detect_batch(imgs)])
+pipeline = [dict(type='ResizeOCR', height=32, min_width=64, max_width=64,
+                 keep_aspect_ratio=False), dict(type='ToTensorOCR'),
+            dict(type='NormalizeOCR', mean=[0.5] * 3, std=[0.25] * 3),
+            dict(type='Collect', keys=['img'])]
+reader = MMOCR(det_config=dict(model=cfg), det_img_size=(64, 96),
+               recog_config=dict(model=nrtr_tps_pp_cfg(tiny=True),
+                                 test_pipeline=pipeline), device='cpu')
+pages = reader.readtext(imgs[:2], merge=True)
+gt = [np.array([[0, 0], [10, 0], [10, 8], [0, 8]], np.float32)]
+pred = [np.array([1, 0, 10, 0, 10, 8, 1, 8, 0.9], np.float32)]
+print(json.dumps({
+    'loaded': sorted(m for m in ('jax', 'flax', 'cv2', 'tps_pp_tpu')
+                     if m in sys.modules),
+    'images': [len(b) for b in boxes], 'pages': len(pages),
+    'hmean': [eval_hmean_iou([pred], [gt])['hmean'],
+              hmean_ic13.eval_hmean_ic13([pred], [gt])['hmean']],
+    'launches': [tps_sampler.tps_sampler.launches,
+                 grid_sample.grid_sample_forward.launches]}))
+'''
+
+
+def test_detection_and_readtext_with_jax_blocked():
+    """DBNet (R18 and R50-DCNv2, narrow) detects on the CPU, MMOCR reads
+    pages with a tiny recognizer, and the hmean metrics score, with jax,
+    flax, cv2 and the JAX package refused at import; nothing launches."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', DET_SCRIPT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {'loaded': [], 'images': [3, 3], 'pages': 2,
+                   'hmean': [1.0, 1.0], 'launches': [0, 0]}

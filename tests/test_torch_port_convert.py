@@ -4,7 +4,9 @@
 for bit. That also proves the port's keys are the reference's torch names.
 The flagship (tiny and full), and the transformer family's five shipped
 configs on its other trunks (SATRN academic and small, NRTR on the
-modality transform and on ResNet31 1by16 and 1by8) at full width.
+modality transform and on ResNet31 1by16 and 1by8) at full width; the two
+DBNet configs (R18-FPNC, R50-DCNv2-FPNC), for which the JAX converter has
+no table, through the port's rules.
 """
 import os
 
@@ -13,11 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from tps_pp_tpu.apis.flagship import nrtr_tps_pp_cfg
+from tps_pp_tpu.apis.train_det import build_detector_module as jax_det
 from tps_pp_tpu.apis.recognizer import build_recognizer as build_jax
 from tps_pp_tpu.utils import torch_convert as jtc
 
-from tps_pp_tpu_torch.apis import build_recognizer
+from tps_pp_tpu_torch.apis import build_detector_module, build_recognizer
 from tps_pp_tpu_torch.config import load_config
 from tps_pp_tpu_torch.utils import convert
 
@@ -33,6 +38,10 @@ TRANSFORMER_CONFIGS = {
         'configs/textrecog/nrtr/nrtr_r31_1by16_1by8_academic.py', 160),
     'nrtr_r31_1by8': (
         'configs/textrecog/nrtr/nrtr_r31_1by8_1by4_academic.py', 160),
+}
+DBNET_CONFIGS = {
+    'r18': 'configs/textdet/dbnet/dbnet_r18_fpnc_1200e_icdar2015.py',
+    'r50_dcn': 'configs/textdet/dbnet/dbnet_r50dcnv2_fpnc_1200e_icdar2015.py',
 }
 
 
@@ -90,3 +99,39 @@ def test_transformer_configs_round_trip_through_jax_converter(name):
     assert set(convert.rules_for_config(cfg)) == set(
         jtc.rules_for_config(cfg))
     _round_trip(cfg, _random_variables(cfg, False, shape=(1, 32, width, 3)))
+
+
+@pytest.mark.parametrize('name', list(DBNET_CONFIGS))
+def test_dbnet_configs_round_trip_through_jax_converter(name):
+    """``state_dict_from_jax`` of random variables loads strictly into the
+    port's detector; the JAX converter, given the port's rules, with each
+    transposed convolution handed over as the plain convolution that
+    computes the same (its kernel flipped, in and out swapped), gives the
+    variables back bit for bit."""
+    cfg = dict(load_config(os.path.join(REPO, DBNET_CONFIGS[name]))['model'])
+    module = jax_det(cfg)
+    shapes = jax.eval_shape(lambda: module.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))))
+    rng = np.random.default_rng(0)
+    v = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(s.dtype),
+                     shapes)
+    sd = convert.state_dict_from_jax(v, cfg)
+    build_detector_module(cfg).load_state_dict(sd, strict=True)
+    sd_np = {k: t.numpy() for k, t in sd.items()}
+    rules = []
+    for tp, fp, kind in convert.rules_for_config(cfg):
+        if kind == 'conv_transpose':
+            w = sd_np[f'{tp}.weight']                    # (in, out, kh, kw)
+            sd_np[f'{tp}.weight'] = np.ascontiguousarray(
+                w.transpose(1, 0, 2, 3)[:, :, ::-1, ::-1])
+            kind = 'conv'
+        rules.append((tp, fp, kind))
+    rules = jtc.filter_rules_to_state(rules, sd_np)
+    merged = jtc.merge_flat(jax.tree.map(np.zeros_like, v),
+                            jtc.convert_state_dict(sd_np, rules))
+    want = jax.tree_util.tree_flatten_with_path(v)[0]
+    got = dict(jax.tree_util.tree_flatten_with_path(merged)[0])
+    assert len(got) == len(want)
+    for path, leaf in want:
+        np.testing.assert_array_equal(np.asarray(got[path]), leaf,
+                                      err_msg=jax.tree_util.keystr(path))

@@ -5,7 +5,8 @@ Fixed-shape batches from the test-mode ``DataLoader`` go through
 ``predict`` without bucketing; the first ``n_real`` rows of each are
 decoded on the host; the metric is the dataset's ``evaluate``. One
 process and one device: the JAX package's ``mesh`` argument has no
-counterpart (several GPUs come with DDP, ``ROADMAP.md`` queue 1 item 4).
+counterpart (several GPUs: ``ROADMAP.md`` queue 1, the serving and
+evaluation side's rest).
 """
 from __future__ import annotations
 

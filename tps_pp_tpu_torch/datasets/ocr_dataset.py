@@ -49,12 +49,12 @@ class OCRDataset:
     def __init__(self, ann_file: str = '', loader: Dict = None,
                  pipeline: Sequence = (), img_prefix: str = '',
                  test_mode: bool = False, dataset_info=None, **kwargs):
-        self.ann_file = ann_file
         self.img_prefix = img_prefix
         self.test_mode = test_mode
         loader = dict(loader or {})
         loader.setdefault('ann_file', ann_file)
         self.data_infos = LOADERS.build(loader)
+        self.ann_file = self.data_infos.ann_file
         self.pipeline = Compose(pipeline)
 
     def __len__(self):
@@ -141,7 +141,7 @@ class UniformConcatDataset:
         for ds in self.datasets:
             end = start + len(ds)
             res = ds.evaluate(results[start:end], metric=metric, **kwargs)
-            name = getattr(ds.data_infos, 'ann_file', '') or 'dataset'
+            name = ds.ann_file or 'dataset'
             for k, v in res.items():
                 out[f'{len(ds)}_{name}_{k}'] = v
                 all_metrics.setdefault(k, []).append(v)

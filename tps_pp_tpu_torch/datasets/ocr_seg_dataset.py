@@ -62,6 +62,7 @@ class OCRSegDataset:
                  attn_shrink_ratio=0.5, seg_shrink_ratio=0.25,
                  box_type='char_rects', seg_downsample_ratio=0.5,
                  test_mode: bool = False, **kwargs):
+        self.ann_file = ann_file
         with open(ann_file, encoding='utf-8') as f:
             self.lines = [json.loads(line) for line in f if line.strip()]
         self.img_prefix = img_prefix

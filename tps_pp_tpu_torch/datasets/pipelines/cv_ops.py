@@ -45,9 +45,40 @@ that is cheap to follow:
   cv2's scanline fill in 16-bit fixed point, its edge slopes divided with
   C's truncation and each span rounded half up at both ends.
 
+The text detector's host side (``models/textdet/postprocess.py``, the
+hmean-ic13 raster) calls these:
+
+* ``find_contours`` (``RETR_LIST`` or ``RETR_EXTERNAL``,
+  ``CHAIN_APPROX_SIMPLE``): Suzuki-Abe border following as cv2 does it, in
+  cv2's order (the reverse of discovery). The mask is padded with zeros;
+  only the pixels where a row changes between zero and non-zero can start
+  a border, so the raster scan visits those (found with numpy) and the
+  Python loop runs over border pixels only. A border pixel is marked
+  negative where the search passed its right-hand neighbour, as cv2
+  marks it; ``RETR_EXTERNAL`` skips an outer border whose last marked
+  pixel on the row (cv2's ``lnbd``) is positive.
+* ``contour_area`` (the shoelace sum in float64), ``arc_length`` (each
+  side's length in float32, summed in float64), ``bounding_rect``.
+* ``convex_hull`` (Sklansky's scan over the points sorted by x then y,
+  counter-clockwise, with cv2's cyclic shift of the indices) and
+  ``min_area_rect``: cv2's rotating calipers over the hull in float32; the
+  angle in [-90, 0) degrees, a quarter turn swapping width and height, as
+  cv2 5.0 returns it. ``box_points``: ``RotatedRect::points`` in float32.
+* ``fill_poly`` and ``draw_contours`` (filled, ``LINE_8``): each edge drawn
+  by cv2's 8-connected line, then the even-odd scanline fill of the edges
+  in 16-bit fixed point: cv2 5.0 fills the pixels from the ceiling of the
+  left crossing to the floor of the right one, the crossings exact (no
+  half-pixel shift, as 4.x had). An edge with an end outside the image
+  takes the ends ``clipLine`` leaves (also where it misses the image):
+  their x always, their y only where they differ, so an edge clipped to
+  one point runs along the border column, as in cv2 5.0.
+* ``get_structuring_element`` (``MORPH_ELLIPSE``) and ``dilate`` (pixels
+  outside the image add nothing).
+
 ``tests/test_torch_augment.py`` holds each against cv2 on seeded images
 (``fill_convex_poly`` and ``resize_inter_nearest``:
-``tests/test_torch_seg.py``).
+``tests/test_torch_seg.py``; the contour functions:
+``tests/test_torch_textdet.py``).
 """
 from __future__ import annotations
 
@@ -392,9 +423,10 @@ _XY_SHIFT = 16
 _XY_ONE = 1 << _XY_SHIFT
 
 
-def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
-    """cv2's ``clipLine`` to the (w, h) image: the clipped ends, or None
-    where the segment misses it."""
+def _clip_ends(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """cv2's ``clipLine`` to the (w, h) image: the ends as it leaves them
+    (moved part of the way where the segment misses the image) and whether
+    the segment meets the image."""
     right, bottom = w - 1, h - 1
 
     def code(x, y):
@@ -420,7 +452,13 @@ def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
                 a = 0 if c2 == 1 else right
                 y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
                 x2, c2 = a, 0
-    return (x1, y1, x2, y2) if (c1 | c2) == 0 else None
+    return (x1, y1, x2, y2), (c1 | c2) == 0
+
+
+def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """The clipped ends, or None where the segment misses the image."""
+    ends, meets = _clip_ends(w, h, x1, y1, x2, y2)
+    return ends if meets else None
 
 
 def _draw_line(img: np.ndarray, p1, p2, value) -> None:
@@ -514,3 +552,500 @@ def fill_convex_poly(img: np.ndarray, pts, value) -> np.ndarray:
         if y > ymax:
             break
     return img
+
+
+# ------------------------------------------------ contours and polygons --
+
+RETR_EXTERNAL = 0
+RETR_LIST = 1
+# cv2's chain code directions (dx, dy), y down: 0 is right, then
+# counter-clockwise on the screen
+_CHAIN = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1),
+          (1, 1))
+
+
+def _follow_border(img: np.ndarray, step: int, x0: int, y0: int,
+                   is_hole: bool) -> list:
+    """cv2's ``icvFetchContour`` with ``CHAIN_APPROX_SIMPLE`` on the flat
+    padded image ``img`` (0 background, 1 unvisited, +-2 marked) from
+    (x0, y0); returns the turning points in image coordinates."""
+    deltas = [dx + dy * step for dx, dy in _CHAIN] * 2
+    i0 = y0 * step + x0
+    s_end = s = 0 if is_hole else 4
+    while True:                       # the first neighbour, clockwise
+        s = (s - 1) & 7
+        i1 = i0 + deltas[s]
+        if img[i1] != 0 or s == s_end:
+            break
+    px, py = x0 - 1, y0 - 1
+    if img[i1] == 0:                  # a single pixel
+        img[i0] = -2
+        return [(px, py)]
+    pts = []
+    i3, prev_s = i0, s ^ 4
+    while True:
+        s_end = s
+        while s < 15:                 # the next neighbour, counter-clockwise
+            s += 1
+            i4 = i3 + deltas[s]
+            if img[i4] != 0:
+                break
+        s &= 7
+        if 0 < s <= s_end:            # the search passed the right neighbour
+            img[i3] = -2
+        elif img[i3] == 1:
+            img[i3] = 2
+        if s != prev_s:
+            pts.append((px, py))
+            prev_s = s
+        px += _CHAIN[s][0]
+        py += _CHAIN[s][1]
+        if i4 == i0 and i3 == i1:
+            return pts
+        i3 = i4
+        s = (s + 4) & 7
+
+
+def find_contours(mask: np.ndarray, mode: int = RETR_LIST) -> list:
+    """``cv2.findContours(mask, mode, CHAIN_APPROX_SIMPLE)[0]`` for
+    ``RETR_LIST`` (outer and hole borders) or ``RETR_EXTERNAL``: a list of
+    (n, 1, 2) int32 arrays of (x, y), in cv2's order."""
+    if mode not in (RETR_LIST, RETR_EXTERNAL):
+        raise ValueError(f'mode {mode}: RETR_LIST or RETR_EXTERNAL only')
+    nz = np.asarray(mask) != 0
+    h, w = nz.shape
+    pad = np.zeros((h + 2, w + 2), np.int8)
+    pad[1:-1, 1:-1] = nz
+    step = w + 2
+    ys, xs = np.nonzero(np.diff(pad, axis=1))   # zero <-> non-zero steps
+    img = pad.reshape(-1).astype(np.int32)
+    external = mode == RETR_EXTERNAL
+    found = []
+    row = -1
+    for y, x in zip(ys.tolist(), (xs + 1).tolist()):
+        i = y * step + x
+        if y != row:
+            row, lnbd, last = y, y * step, y * step
+        if external and i - last > 1:
+            # cv2 stops wherever the row's value changes; the last stop on
+            # a marked pixel is lnbd
+            seg = img[last:i]
+            k = np.nonzero((seg[1:] != seg[:-1]) & (seg[1:] != 0)
+                           & (seg[1:] != 1))[0]
+            if len(k):
+                lnbd = last + 1 + int(k[-1])
+        last = i
+        p, prev = img[i], img[i - 1]
+        if prev == 0 and p == 1:                  # an outer border
+            if external and img[lnbd] > 0:
+                continue
+            found.append(_follow_border(img, step, x, y, False))
+        elif p == 0 and prev >= 1:                # a hole border
+            if prev != 1:
+                lnbd = i - 1
+            if not external:
+                found.append(_follow_border(img, step, x - 1, y, True))
+        elif p != 0 and p != 1:
+            lnbd = i
+    return [np.asarray(c, np.int32).reshape(-1, 1, 2) for c in found[::-1]]
+
+
+def bounding_rect(points) -> Tuple[int, int, int, int]:
+    """``cv2.boundingRect`` of integer points: (x, y, w, h)."""
+    p = np.asarray(points).reshape(-1, 2)
+    x0, y0 = p.min(0)
+    x1, y1 = p.max(0)
+    return int(x0), int(y0), int(x1 - x0 + 1), int(y1 - y0 + 1)
+
+
+def contour_area(points) -> float:
+    """``cv2.contourArea`` (not oriented): the shoelace sum in float64 of
+    the float32 points."""
+    p = np.asarray(points).reshape(-1, 2).astype(np.float32).astype(
+        np.float64)
+    if len(p) == 0:
+        return 0.0
+    prev = np.roll(p, 1, axis=0)
+    return abs(float(np.sum(prev[:, 0] * p[:, 1] - prev[:, 1] * p[:, 0]))
+               * 0.5)
+
+
+def arc_length(points, closed: bool = True) -> float:
+    """``cv2.arcLength``: each side's length in float32, summed in
+    float64."""
+    p = np.asarray(points).reshape(-1, 2).astype(np.float32)
+    if len(p) <= 1:
+        return 0.0
+    prev = np.roll(p, 1, axis=0)
+    if not closed:
+        prev[0] = p[0]
+    d = p - prev
+    return float(np.sum(np.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]),
+                        dtype=np.float64))
+
+
+def _sklansky(pts, start: int, end: int, nsign: int, sign2: int) -> list:
+    """cv2's ``Sklansky_`` over the sorted points ``pts``: the indices of
+    one quarter of the hull."""
+    incr = 1 if end > start else -1
+    if start == end or pts[start] == pts[end]:
+        return [start]
+    pprev, pcur, pnext = start, start + incr, start + 2 * incr
+    stack = [pprev, pcur, pnext]
+    end += incr
+    while pnext != end:
+        cury = pts[pcur][1]
+        by = pts[pnext][1] - cury
+        if (by > 0) - (by < 0) != nsign:
+            ax = pts[pcur][0] - pts[pprev][0]
+            bx = pts[pnext][0] - pts[pcur][0]
+            ay = cury - pts[pprev][1]
+            convexity = ay * bx - ax * by
+            if (convexity > 0) - (convexity < 0) == sign2 and (ax or ay):
+                pprev, pcur = pcur, pnext
+                pnext += incr
+                stack.append(pnext)
+            elif pprev == start:
+                pcur = pnext
+                stack[1] = pcur
+                pnext += incr
+                stack[2] = pnext
+            else:
+                stack[-2] = pnext
+                pcur = pprev
+                pprev = stack[-4]
+                stack.pop()
+        else:
+            pnext += incr
+            stack[-1] = pnext
+    return stack[:-1]
+
+
+def _cyclic_shift(hull: list) -> list:
+    """cv2's rotation of the hull's indices into one ascending or
+    descending run, where one rotation gives that."""
+    nout = len(hull)
+    min_idx = max_idx = lt = 0
+    for i in range(1, nout):
+        idx = hull[i]
+        lt += hull[i - 1] < idx
+        if 1 < lt <= i - 2:
+            break
+        if idx < hull[min_idx]:
+            min_idx = i
+        if idx > hull[max_idx]:
+            max_idx = i
+    mmdist = abs(max_idx - min_idx)
+    if not ((mmdist == 1 or mmdist == nout - 1)
+            and (lt <= 1 or lt >= nout - 2)):
+        return hull
+    ascending = (max_idx + 1) % nout == min_idx
+    j = min_idx if ascending else max_idx
+    if j == 0:
+        return hull
+    shifted = []
+    for i in range(nout):
+        shifted.append(hull[j])
+        nj = (j + 1) % nout
+        if i < nout - 1 and ascending != (hull[j] < hull[nj]):
+            return hull
+        j = nj
+    return shifted
+
+
+def convex_hull(points) -> np.ndarray:
+    """``cv2.convexHull(points)`` of integer points (counter-clockwise on
+    the screen, cv2's first point): (n, 2)."""
+    data = np.asarray(points).reshape(-1, 2)
+    order = np.lexsort((data[:, 1], data[:, 0]))
+    pts = [(int(data[k, 0]), int(data[k, 1])) for k in order]
+    total = len(pts)
+    miny = maxy = 0
+    for i in range(1, total):
+        if pts[miny][1] > pts[i][1]:
+            miny = i
+        if pts[maxy][1] < pts[i][1]:
+            maxy = i
+    if pts[0] == pts[-1]:
+        return data[order[:1]]
+    tl = _sklansky(pts, total - 1, maxy, -1, -1)
+    tr = _sklansky(pts, 0, maxy, -1, 1)
+    hull = tl[:-1] + tr[:0:-1]
+    stop = tr[1] if len(tr) > 2 else tl[-2] if len(tl) > 2 else -1
+    bl = _sklansky(pts, 0, miny, 1, -1)
+    br = _sklansky(pts, total - 1, miny, 1, 1)
+    nbl, nbr = len(bl), len(br)
+    if stop >= 0:
+        check = bl[1] if nbl > 2 else br[2 - nbl] if nbl + nbr > 2 else -1
+        if check == stop or (check >= 0 and pts[check] == pts[stop]):
+            # collinear points: the lower half mirrors the upper one
+            nbl, nbr = min(nbl, 2), min(nbr, 2)
+    hull += bl[:nbl - 1] + br[nbr - 1:0:-1]
+    hull = [int(order[k]) for k in hull]
+    if len(hull) >= 3:
+        hull = _cyclic_shift(hull)
+    return data[hull]
+
+
+def _rotating_calipers(p: np.ndarray):
+    """cv2's ``rotatingCalipers`` (``CALIPERS_MINAREARECT``) in float32
+    over the hull ``p``: a corner and the two side vectors."""
+    f32 = np.float32
+    n = len(p)
+    vect = np.empty((n, 2), f32)
+    inv_len = np.empty(n, f32)
+    left = bottom = right = top = 0
+    left_x = right_x = p[0, 0]
+    top_y = bottom_y = p[0, 1]
+    for i in range(n):
+        pt0, pt = p[i], p[(i + 1) % n]
+        if pt0[0] < left_x:
+            left_x, left = pt0[0], i
+        if pt0[0] > right_x:
+            right_x, right = pt0[0], i
+        if pt0[1] > top_y:
+            top_y, top = pt0[1], i
+        if pt0[1] < bottom_y:
+            bottom_y, bottom = pt0[1], i
+        dx, dy = float(pt[0] - pt0[0]), float(pt[1] - pt0[1])
+        vect[i] = (dx, dy)
+        inv_len[i] = 1.0 / math.sqrt(dx * dx + dy * dy)
+    orientation = f32(0)
+    ax, ay = float(vect[-1, 0]), float(vect[-1, 1])
+    for i in range(n):
+        bx, by = float(vect[i, 0]), float(vect[i, 1])
+        if ax * by - ay * bx != 0:
+            orientation = f32(1.0 if ax * by - ay * bx > 0 else -1.0)
+            break
+        ax, ay = bx, by
+    base_a, base_b = orientation, f32(0)
+    seq = [bottom, right, top, left]
+    minarea, best = f32(np.finfo(np.float32).max), None
+    for _ in range(n):
+        v = [vect[k] for k in seq]
+        dp = (base_a * v[0][0] + base_b * v[0][1],
+              -base_b * v[1][0] + base_a * v[1][1],
+              -base_a * v[2][0] - base_b * v[2][1],
+              base_b * v[3][0] - base_a * v[3][1])
+        main, maxcos = 0, dp[0] * inv_len[seq[0]]
+        for i in range(1, 4):
+            c = dp[i] * inv_len[seq[i]]
+            if c > maxcos:
+                main, maxcos = i, c
+        k = seq[main]
+        lead_x, lead_y = vect[k, 0] * inv_len[k], vect[k, 1] * inv_len[k]
+        base_a, base_b = ((lead_x, lead_y), (lead_y, -lead_x),
+                          (-lead_x, -lead_y), (-lead_y, lead_x))[main]
+        seq[main] = (seq[main] + 1) % n
+        d = p[seq[1]] - p[seq[3]]
+        width = d[0] * base_a + d[1] * base_b
+        d = p[seq[2]] - p[seq[0]]
+        height = -d[0] * base_b + d[1] * base_a
+        area = width * height
+        if area <= minarea:
+            minarea = area
+            best = (seq[3], base_a, width, base_b, height, seq[0])
+    left, a1, width, b1, height, bottom = best
+    a2, b2 = -b1, a1
+    c1 = a1 * p[left, 0] + p[left, 1] * b1
+    c2 = a2 * p[bottom, 0] + p[bottom, 1] * b2
+    idet = f32(1) / (a1 * b2 - a2 * b1)
+    corner = ((c1 * b2 - c2 * b1) * idet, (a1 * c2 - a2 * c1) * idet)
+    return corner, (a1 * width, b1 * width), (a2 * height, b2 * height)
+
+
+def min_area_rect(points):
+    """``cv2.minAreaRect`` of integer points: ((cx, cy), (w, h), angle),
+    the angle in [-90, 0) degrees, as cv2 5.0 gives them."""
+    f32 = np.float32
+    hull = convex_hull(points).astype(f32)
+    n = len(hull)
+    cx = cy = w = h = ang = f32(0)
+    if n > 2:
+        o, v1, v2 = _rotating_calipers(hull)
+        cx = o[0] + (v1[0] + v2[0]) * f32(0.5)
+        cy = o[1] + (v1[1] + v2[1]) * f32(0.5)
+        w = f32(math.hypot(float(v1[0]), float(v1[1])))
+        h = f32(math.hypot(float(v2[0]), float(v2[1])))
+        ang = f32(math.atan2(float(v1[1]), float(v1[0])))
+    elif n == 2:
+        cx = (hull[0, 0] + hull[1, 0]) * f32(0.5)
+        cy = (hull[0, 1] + hull[1, 1]) * f32(0.5)
+        dx = float(hull[1, 0]) - float(hull[0, 0])
+        dy = float(hull[1, 1]) - float(hull[0, 1])
+        w = f32(math.sqrt(dx * dx + dy * dy))
+        ang = f32(math.atan2(dy, dx))
+    elif n == 1:
+        cx, cy = hull[0]
+    ang = f32(float(ang * f32(180)) / math.pi)
+    while ang >= 0:
+        ang, w, h = ang - f32(90), h, w
+    while ang < -90:
+        ang, w, h = ang + f32(90), h, w
+    return (float(cx), float(cy)), (float(w), float(h)), float(ang)
+
+
+def box_points(rect) -> np.ndarray:
+    """``cv2.boxPoints(rect)``: the four corners (4, 2) in float32."""
+    f32 = np.float32
+    (cx, cy), (w, h), ang = rect
+    cx, cy, w, h = f32(cx), f32(cy), f32(w), f32(h)
+    rad = float(f32(ang)) * math.pi / 180.0
+    b = f32(math.cos(rad)) * f32(0.5)
+    a = f32(math.sin(rad)) * f32(0.5)
+    p0 = (cx - a * h - b * w, cy + b * h - a * w)
+    p1 = (cx + a * h - b * w, cy - b * h - a * w)
+    return np.asarray([p0, p1, (f32(2) * cx - p0[0], f32(2) * cy - p0[1]),
+                       (f32(2) * cx - p1[0], f32(2) * cy - p1[1])], f32)
+
+
+def _poly_edges(img: np.ndarray, v: Sequence, offset, value,
+                edges: list) -> None:
+    """cv2's ``CollectPolyEdges`` (shift 0, ``LINE_8``): draws each edge
+    and appends its [y0, y1, x, dx] in 16-bit fixed point."""
+    h, w = img.shape[:2]
+    ox, oy = offset
+    half = _XY_ONE >> 1
+    pts = [((x + ox) << _XY_SHIFT, y + oy) for x, y in v]
+    pt0 = pts[-1]
+    for pt1 in pts:
+        t0 = ((pt0[0] + half) >> _XY_SHIFT, pt0[1])
+        t1 = ((pt1[0] + half) >> _XY_SHIFT, pt1[1])
+        _draw_line(img, t0, t1, value)
+        c0, c1 = pt0, pt1
+        if not (0 <= t0[0] < w and 0 <= t1[0] < w and 0 <= t0[1] < h
+                and 0 <= t1[1] < h):
+            # the edge takes the clipped ends' x whether or not the segment
+            # meets the image, and their y only where they differ: a
+            # segment clipped to one point runs along the border column
+            (x0, y0, x1, y1), _ = _clip_ends(w, h, *t0, *t1)
+            if y0 == y1:
+                y0, y1 = pt0[1], pt1[1]
+            c0, c1 = (x0 << _XY_SHIFT, y0), (x1 << _XY_SHIFT, y1)
+        if pt0[1] != pt1[1]:
+            dx = _div_trunc(c1[0] - c0[0], c1[1] - c0[1])
+            lo, c = (pt0, c0) if pt0[1] < pt1[1] else (pt1, c1)
+            edges.append([lo[1], max(pt0[1], pt1[1]),
+                          c[0] + (lo[1] - c[1]) * dx, dx])
+        pt0 = pt1
+
+
+def _fill_edges(img: np.ndarray, edges: list, value) -> None:
+    """cv2's ``FillEdgeCollection`` (``LINE_8``): the even-odd spans of the
+    edges row by row, the active list kept in x order by bubble sort."""
+    h, w = img.shape[:2]
+    if len(edges) < 2:
+        return
+    xs = [e[2] for e in edges] + [e[2] + (e[1] - e[0]) * e[3] for e in edges]
+    y_max = max(e[1] for e in edges)
+    if (y_max < 0 or min(e[0] for e in edges) >= h or max(xs) < 0
+            or min(xs) >= (w << _XY_SHIFT)):
+        return
+    edges.sort(key=lambda e: (e[0], e[2], e[3]))
+    total, i = len(edges), 0
+    active = []
+    for y in range(edges[0][0], min(y_max, h)):
+        # drop the edges that end at y, merge in those that start there
+        merged, k, draw = [], 0, False
+        while True:
+            while k < len(active) and active[k][1] == y:
+                k += 1
+            last = active[k] if k < len(active) else None
+            e = edges[i] if i < total and edges[i][0] == y else None
+            if last is not None and (e is None or last[2] < e[2]):
+                merged.append(last)
+                k += 1
+            elif e is not None:
+                merged.append(e)
+                i += 1
+            else:
+                break
+            if draw:
+                a, b = merged[-2], merged[-1]
+                if y >= 0:
+                    x1, x2 = sorted((a[2], b[2]))
+                    x1 = (x1 + _XY_ONE - 1) >> _XY_SHIFT
+                    x2 >>= _XY_SHIFT
+                    if x1 < w and x2 >= 0:
+                        img[y, max(x1, 0):min(x2, w - 1) + 1] = value
+                a[2] += a[3]
+                b[2] += b[3]
+            draw = not draw
+        active = merged
+        for end in range(len(active) - 1, 0, -1):
+            swapped = False
+            for j in range(end):
+                if active[j][2] > active[j + 1][2]:
+                    active[j], active[j + 1] = active[j + 1], active[j]
+                    swapped = True
+            if not swapped:
+                break
+
+
+def fill_poly(img: np.ndarray, polys: Sequence, value,
+              offset=(0, 0)) -> np.ndarray:
+    """``cv2.fillPoly(img, polys, value, LINE_8, 0, offset)`` in place for
+    integer vertices; returns img."""
+    edges: list = []
+    for p in polys:
+        v = [(int(x), int(y)) for x, y in np.asarray(p).reshape(-1, 2)]
+        _poly_edges(img, v, offset, value, edges)
+    _fill_edges(img, edges, value)
+    return img
+
+
+def draw_contours(img: np.ndarray, contour, value,
+                  offset=(0, 0)) -> np.ndarray:
+    """``cv2.drawContours(img, [contour], -1, value, -1, offset=offset)``
+    (one contour, filled) in place; returns img."""
+    return fill_poly(img, [contour], value, offset)
+
+
+def get_structuring_element(ksize: Tuple[int, int]) -> np.ndarray:
+    """``cv2.getStructuringElement(cv2.MORPH_ELLIPSE, ksize)``, ksize
+    (width, height)."""
+    w, h = ksize
+    if (w, h) == (1, 1):
+        return np.ones((1, 1), np.uint8)
+    r, c = h // 2, w // 2
+    inv_r2 = 1.0 / (r * r) if r else 0.0
+    elem = np.zeros((h, w), np.uint8)
+    for i in range(h):
+        dy = i - r
+        if abs(dy) <= r:
+            dx = int(np.rint(c * math.sqrt((r * r - dy * dy) * inv_r2)))
+            elem[i, max(c - dx, 0):min(c + dx + 1, w)] = 1
+    return elem
+
+
+def _shifted_max(a: np.ndarray, lo: int, hi: int, axis: int) -> np.ndarray:
+    """``out[x] = max(a[x + lo], ..., a[x + hi])`` along ``axis``, the
+    indices outside ``a`` left out."""
+    n = a.shape[axis]
+    out = np.zeros_like(a)
+    for d in range(max(lo, 1 - n), min(hi, n - 1) + 1):
+        src = [slice(None)] * a.ndim
+        dst = [slice(None)] * a.ndim
+        src[axis] = slice(max(d, 0), n + min(d, 0))
+        dst[axis] = slice(max(-d, 0), n - max(d, 0))
+        np.maximum(out[tuple(dst)], a[tuple(src)], out=out[tuple(dst)])
+    return out
+
+
+def dilate(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.dilate(img, kernel)`` (anchor at the centre, one iteration):
+    each row of the kernel is one run, so the maximum is taken along x
+    once a run, then along y once a kernel row."""
+    kh, kw = kernel.shape
+    out = np.zeros_like(img)
+    runs: dict = {}
+    for i in range(kh):
+        js = np.nonzero(kernel[i])[0]
+        if len(js):
+            runs.setdefault((int(js[0]), int(js[-1])), []).append(i)
+    for (j0, j1), rows in runs.items():
+        along_x = _shifted_max(img, j0 - kw // 2, j1 - kw // 2, 1)
+        for i in rows:
+            np.maximum(out, _shifted_max(along_x, i - kh // 2, i - kh // 2,
+                                         0), out=out)
+    return out

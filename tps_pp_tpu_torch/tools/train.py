@@ -14,8 +14,8 @@ On several GPUs of one host, one process each:
 ``samples_per_gpu`` is the global batch, split over the processes.
 ``--cfg-options`` values are Python literals where they parse as such.
 The datasets of the config load their images from files, which needs cv2
-(``LoadImageFromFile``). Detection, KIE and NER configs are not ported
-(``ROADMAP.md`` queue 1 item 7).
+(``LoadImageFromFile``). Detection, KIE and NER training is not ported
+(``ROADMAP.md`` queue 1: detection training, KIE and NER).
 """
 from __future__ import annotations
 
@@ -65,7 +65,7 @@ def main(argv: Optional[List[str]] = None, device=None):
     if model_type in DET_TYPES + KIE_NER_TYPES:
         raise NotImplementedError(
             f'{model_type}: detection, KIE and NER training is not ported '
-            'yet (ROADMAP.md queue 1 item 7)')
+            'yet (ROADMAP.md queue 1: detection training, KIE and NER)')
     device = maybe_init_distributed(device)
     rec = build_recognizer(cfg['model'], device, param_dtype='float32')
     train_ds = build_dataset(cfg['data']['train'])

@@ -435,13 +435,106 @@ def seg_rules(n_levels: int = 4) -> List[Rule]:
         ('head.pred_conv', 'head/pred_conv', 'conv')]
 
 
+def resnet_det_rules(stage_blocks=(2, 2, 2, 2)) -> List[Rule]:
+    """ResNetDet (DBNet-R18's trunk) with mmdet ``ResNet``'s names:
+    ``conv1`` / ``bn1``, ``layer{i}.{j}.conv{k}`` / ``bn{k}`` and
+    ``downsample.{0,1}``."""
+    rules = [('backbone.conv1', 'backbone/stem_conv', 'conv_nobias'),
+             ('backbone.bn1', 'backbone/stem_bn', 'bn')]
+    for si, blocks in enumerate(stage_blocks):
+        for b in range(blocks):
+            tp = f'backbone.layer{si + 1}.{b}'
+            fp = f'backbone/layer{si + 1}_block{b}'
+            rules += [(f'{tp}.conv1', f'{fp}/conv1', 'conv_nobias'),
+                      (f'{tp}.bn1', f'{fp}/bn1', 'bn'),
+                      (f'{tp}.conv2', f'{fp}/conv2', 'conv_nobias'),
+                      (f'{tp}.bn2', f'{fp}/bn2', 'bn'),
+                      (f'{tp}.downsample.0', f'{fp}/downsample_conv',
+                       'conv_nobias'),
+                      (f'{tp}.downsample.1', f'{fp}/downsample_bn', 'bn')]
+    return rules
+
+
+def resnet_det50_rules(stage_blocks=(3, 4, 6, 3),
+                       stage_with_dcn=(False,) * 4) -> List[Rule]:
+    """ResNetDet50 with mmdet ``ResNet``'s names (``conv1..3`` /
+    ``bn1..3`` in each Bottleneck); a DCNv2 ``conv2`` has mmcv's
+    ``conv2.weight`` (the JAX ``kernel``) and ``conv2.conv_offset``."""
+    rules = [('backbone.conv1', 'backbone/stem_conv', 'conv_nobias'),
+             ('backbone.bn1', 'backbone/stem_bn', 'bn')]
+    for si, blocks in enumerate(stage_blocks):
+        for b in range(blocks):
+            tp = f'backbone.layer{si + 1}.{b}'
+            fp = f'backbone/layer{si + 1}_block{b}'
+            for k in (1, 2, 3):
+                rules += [(f'{tp}.conv{k}', f'{fp}/conv{k}', 'conv_nobias'),
+                          (f'{tp}.bn{k}', f'{fp}/bn{k}', 'bn')]
+            if stage_with_dcn[si]:
+                rules.append((f'{tp}.conv2.conv_offset',
+                              f'{fp}/conv2/conv_offset', 'conv'))
+            rules += [(f'{tp}.downsample.0', f'{fp}/downsample_conv',
+                       'conv_nobias'),
+                      (f'{tp}.downsample.1', f'{fp}/downsample_bn', 'bn')]
+    return rules
+
+
+def fpnc_rules(n_levels: int = 4) -> List[Rule]:
+    """FPNC with MMOCR 0.4.0's names: ``neck.lateral_convs.{i}.conv`` and
+    ``neck.smooth_convs.{i}.conv`` (``ConvModule`` without norm or
+    bias)."""
+    rules = []
+    for i in range(n_levels):
+        rules += [(f'neck.lateral_convs.{i}.conv', f'neck/lateral{i}',
+                   'conv_nobias'),
+                  (f'neck.smooth_convs.{i}.conv', f'neck/smooth{i}',
+                   'conv_nobias')]
+    return rules
+
+
+def db_head_rules() -> List[Rule]:
+    """DBHead with MMOCR 0.4.0's names: each branch an ``nn.Sequential``,
+    ``.0`` the 3x3 conv, ``.1`` / ``.4`` the norms, ``.3`` / ``.6`` the
+    transposed convolutions."""
+    rules = []
+    for br in ('binarize', 'threshold'):
+        rules += [(f'head.{br}.0', f'head/{br}/conv', 'conv_nobias'),
+                  (f'head.{br}.1', f'head/{br}/bn1', 'bn'),
+                  (f'head.{br}.3', f'head/{br}/up1', 'conv_transpose'),
+                  (f'head.{br}.4', f'head/{br}/bn2', 'bn'),
+                  (f'head.{br}.6', f'head/{br}/up2', 'conv_transpose')]
+    return rules
+
+
+def dbnet_rules(cfg: Mapping) -> List[Rule]:
+    """The rule table of a DBNet config, on ResNetDet or ResNetDet50. JAX's
+    ``torch_convert.py`` has no detection table and the reference tree is
+    absent, so the names are read from MMOCR 0.4.0's and mmdet's modules,
+    not checked against a reference checkpoint."""
+    bb = cfg['backbone']
+    if bb.get('type') == 'ResNetDet':
+        rules = resnet_det_rules(tuple(bb.get('stage_blocks', (2, 2, 2, 2))))
+    elif bb.get('type') == 'ResNetDet50':
+        dcn = (tuple(bb.get('stage_with_dcn', (False,) * 4))
+               if bb.get('dcn') else (False,) * 4)
+        rules = resnet_det50_rules(
+            tuple(bb.get('stage_blocks', (3, 4, 6, 3))), dcn)
+    else:
+        raise ValueError(f'no conversion rules for backbone type '
+                         f'{bb.get("type")!r}')
+    n = len(cfg['neck'].get('in_channels', (64, 128, 256, 512)))
+    return rules + fpnc_rules(n) + db_head_rules()
+
+
 def rules_for_config(cfg: Mapping) -> List[Rule]:
     """The rule table of an NRTR, SATRN, ABINet (+ TPS_PP), CRNN, SAR
     (parallel, sequential, beam search), RobustScanner or SegRecognizer
     config, with its image-space preprocessor (TPS-STN, MORAN, SPIN),
     dispatched on its preprocessor, backbone, encoder and decoder types as
-    JAX's ``rules_for_config`` (``torch_convert.py:604-684``); a type
-    without rules raises a ``ValueError``."""
+    JAX's ``rules_for_config`` (``torch_convert.py:604-684``), or of a
+    DBNet detector (``dbnet_rules``); a type without rules raises a
+    ``ValueError``."""
+    if cfg.get('type') == 'DBNet':
+        return dbnet_rules(cfg)
     if cfg.get('type') == 'SegRecognizer':    # no preprocessor, as JAX
         bb = cfg['backbone']
         if bb.get('type') != 'ResNet31OCR':
@@ -522,6 +615,12 @@ def _torch_entries(kind: str, get) -> Dict[str, np.ndarray]:
         out = {'weight': get('params', 'kernel').T[:, :, None, None]}
     elif kind in ('linear', 'linear_nobias'):
         out = {'weight': get('params', 'kernel').T}
+    elif kind == 'conv_transpose':
+        # flax's ConvTranspose (transpose_kernel=False) correlates the
+        # dilated input with its (kh, kw, in, out) kernel; torch's
+        # ConvTranspose2d (in, out, kh, kw) scatters, the kernel flipped
+        k = get('params', 'kernel')[::-1, ::-1]
+        out = {'weight': np.ascontiguousarray(np.transpose(k, (2, 3, 0, 1)))}
     elif kind == 'ln':
         out = {'weight': get('params', 'scale')}
     elif kind == 'bn':
@@ -555,7 +654,8 @@ def _torch_entries(kind: str, get) -> Dict[str, np.ndarray]:
             'out_proj.bias': get('params', 'fc/bias')}
     else:
         raise ValueError(kind)
-    if kind in ('conv', 'conv1x1_as_dense', 'linear', 'ln', 'bn'):
+    if kind in ('conv', 'conv1x1_as_dense', 'linear', 'ln', 'bn',
+                'conv_transpose'):
         out['bias'] = get('params', 'bias')
     return out
 
@@ -582,9 +682,10 @@ def convert_rules(variables: Mapping, rules: List[Rule]
 
 def state_dict_from_jax(variables: Mapping, cfg: Mapping
                         ) -> Dict[str, torch.Tensor]:
-    """JAX recognizer variables -> a ``state_dict`` that the model of
-    ``build_recognizer(cfg)`` (NRTR, SATRN, ABINet, CRNN, SAR,
-    RobustScanner or SegRecognizer) takes with
+    """JAX recognizer or detector variables -> a ``state_dict`` that the
+    model of ``build_recognizer(cfg)`` (NRTR, SATRN, ABINet, CRNN, SAR,
+    RobustScanner or SegRecognizer) or ``build_detector_module(cfg)``
+    (DBNet) takes with
     ``load_state_dict(strict=True)``. The sinusoid tables, buffers as in
     the reference, are made from the config."""
     sd = convert_rules(variables, rules_for_config(cfg))
