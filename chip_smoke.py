@@ -239,6 +239,33 @@ seed):
   detection, crops and recognition, and the recognizer's launches (kernel
   1).
 
+* detection training and PANet / PSENet, last, which run no hand-written
+  kernel (plain XLA and host numpy in JAX): PANet-R18
+  (``panet_r18_fpem_ffm_600e_icdar2015.py``) at B=16 and PSENet-R50
+  (``psenet_r50_fpnf_600e_icdar2015.py``) at B=8 through
+  ``init_detector``, seed-0 weights, float32 (TF32 off), 640 x 640: their
+  forward launches no kernel; ``detect_batch`` timed whole and by stage
+  (prep, the batch's copy, the forward on the card's tensor, the logits'
+  copy, the postprocessor an image on the seed-0 logits and on
+  ``N_TRAINED_LIKE`` trained-like logit maps made by ``pan_pse_maps``
+  from the ``word_quads`` of a page through the config's own targets);
+  the card against the CPU at B=2 on the seed-0 logits and on a stress
+  test (``PAN_PSE_STRESS``: the head's text and kernel channels scaled
+  and shifted until random weights give tens of regions): logits within
+  ``DET_F32_ATOL`` of each channel's scale, and where the two maps' pixel
+  decisions are equal the boundaries equal, at least ``DET_MIN_BOXES`` on
+  the stressed maps. One float32 step (train-mode BatchNorm, the config's
+  loss and optimizer) of DBNet-R18, PANet-R18 and PSENet-R50 on B=2 pages
+  of ``word_quads``, the card against the CPU on the same weights: loss
+  within ``DET_LOSS_RTOL`` and grad norm within ``DET_GRAD_NORM_RTOL``,
+  relative, finite, no kernel launched. ``train_detector`` on the
+  DBNet-R18 config at its ``samples_per_gpu`` (16), ``N_DET_TRAIN_PAGES``
+  seeded pages (``DetPages``), ``DET_TRAIN_EPOCHS`` epochs with their
+  ``.pth``: ms a warm step, the host's target ms a page and the share of
+  the epoch spent making batches; a resume from epoch 1's ``.pth`` repeats
+  epoch 2's step count and lr, its loss within ``LOSS_RTOL``. The whole
+  script's time is logged before the ``kernels`` line.
+
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
 the checks and on TPS++'s own [0, 1]^2 grid, which puts every sample in
 the lower half of the map's rows; their band plan is logged.
@@ -425,6 +452,25 @@ DET_STRESS_ABOVE, DET_MIN_BOXES = (0.3, 0.4, 0.5, 0.6, 0.7), 10
 DET_WORDS, DET_WORD_H, DET_WORD_ASPECT, DET_WORD_TILT, DB_SHRINK = (
     (10, 40), (8, 24), (1.5, 6.0), 20.0, 0.4)
 N_PAGES, PAGE_HW = 4, (480, 640)
+# PANet and PSENet serving (config, batch); the postprocessors' trained-like
+# maps a config; the stress test: the head's text and kernel logits scaled
+# to PAN_PSE_STRESS_STD times their std and shifted so that a share of
+# their pixels lies above 0 (text, then the kernels down to the last share:
+# random weights give one region an image); the one-step check's configs
+# (card against the CPU at B_DET_F32, bounds relative, as SAR's);
+# train_detector's config, pages and epochs
+PAN_PSE_CONFIGS = {
+    'panet_r18': ('configs/textdet/panet/panet_r18_fpem_ffm_600e_icdar2015.py',
+                  16),
+    'psenet_r50': ('configs/textdet/psenet/psenet_r50_fpnf_600e_icdar2015.py',
+                   8)}
+N_TRAINED_LIKE, PAN_PSE_STRESS_STD = 8, 4.0
+PAN_PSE_STRESS = {'PANet': (0.05, 0.005), 'PSENet': (0.3, 0.05)}
+DET_STEP_CONFIGS = {'dbnet_r18': DET_CONFIGS['dbnet_r18'][0],
+                    'panet_r18': PAN_PSE_CONFIGS['panet_r18'][0],
+                    'psenet_r50': PAN_PSE_CONFIGS['psenet_r50'][0]}
+DET_LOSS_RTOL, DET_GRAD_NORM_RTOL = 1e-4, 1e-3
+N_DET_TRAIN_PAGES, DET_TRAIN_EPOCHS = 32, 2
 
 
 def log(*a):
@@ -3611,30 +3657,40 @@ def seg_preproc_phase(dev, name, record):
     return out
 
 
+def word_quads(g, hw=(640, 640), shrink=0.0):
+    """``DET_WORDS`` word quads of a page (``DET_WORD_H`` px tall,
+    ``DET_WORD_ASPECT`` times as wide, tilted up to ``DET_WORD_TILT``
+    degrees), each shrunk by DB's offset D = A (1 - r^2) / L of
+    ``shrink`` (0: whole): (4, 2) float32 corners."""
+    import numpy as np
+    H, W = hw
+    out = []
+    for _ in range(int(g.integers(*DET_WORDS, endpoint=True))):
+        h = g.uniform(*DET_WORD_H)
+        w = h * g.uniform(*DET_WORD_ASPECT)
+        d = w * h * (1 - shrink ** 2) / (2 * (w + h)) if shrink else 0.0
+        kw, kh = w - 2 * d, h - 2 * d
+        a = np.deg2rad(g.uniform(-DET_WORD_TILT, DET_WORD_TILT))
+        cx, cy = g.uniform(w / 2, W - w / 2), g.uniform(h / 2, H - h / 2)
+        rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+        out.append(((np.array([[-kw, -kh], [kw, -kh], [kw, kh], [-kw, kh]])
+                     / 2) @ rot.T + [cx, cy]).astype(np.float32))
+    return out
+
+
 def trained_like_maps(g, n, hw=(640, 640)):
-    """``n`` probability maps shaped like a trained DBNet's: ``DET_WORDS``
-    word quads a page (``DET_WORD_H`` px tall, ``DET_WORD_ASPECT`` times as
-    wide, tilted up to ``DET_WORD_TILT`` degrees), each drawn by
-    ``cv_ops.fill_poly`` as DB's shrunk text kernel (the offset D = A (1 -
-    r^2) / L of ``DB_SHRINK``), at 0.95 under a 5 x 5 box blur, over a
-    background of U(0, 0.1). The postprocessor's cost on such a map, not on
-    a map of random weights."""
+    """``n`` probability maps shaped like a trained DBNet's: the
+    ``word_quads`` of a page, each drawn by ``cv_ops.fill_poly`` as DB's
+    shrunk text kernel (``DB_SHRINK``), at 0.95 under a 5 x 5 box blur,
+    over a background of U(0, 0.1). The postprocessor's cost on such a
+    map, not on a map of random weights."""
     import numpy as np
     from tps_pp_tpu_torch.datasets.pipelines import cv_ops
     H, W = hw
     out = []
     for _ in range(n):
         kern = np.zeros((H, W), np.float32)
-        for _ in range(int(g.integers(*DET_WORDS, endpoint=True))):
-            h = g.uniform(*DET_WORD_H)
-            w = h * g.uniform(*DET_WORD_ASPECT)
-            d = w * h * (1 - DB_SHRINK ** 2) / (2 * (w + h))
-            kw, kh = w - 2 * d, h - 2 * d
-            a = np.deg2rad(g.uniform(-DET_WORD_TILT, DET_WORD_TILT))
-            cx, cy = g.uniform(w / 2, W - w / 2), g.uniform(h / 2, H - h / 2)
-            rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
-            quad = (np.array([[-kw, -kh], [kw, -kh], [kw, kh], [-kw, kh]])
-                    / 2) @ rot.T + [cx, cy]
+        for quad in word_quads(g, hw, DB_SHRINK):
             cv_ops.fill_poly(kern, [np.rint(quad).astype(np.int32)], 1.0)
         for axis in (0, 1):
             pad = np.pad(kern, [(2, 2) if i == axis else (0, 0)
@@ -3908,8 +3964,271 @@ def det_phase(dev, name):
         f'kernel; {json.dumps(stats)}')
 
 
+class DetPages:
+    """``n`` seeded 640 x 640 pages for ``train_detector``: uint8 noise as
+    float32 in [0, 1] and the ``word_quads`` of each page as its
+    polygons; a fresh dict an item (the loop adds targets to it)."""
+
+    def __init__(self, g, n, hw=(640, 640)):
+        import numpy as np
+        self.items = [dict(img=(g.integers(0, 256, (*hw, 3), np.uint8)
+                                .astype(np.float32) / 255.0),
+                           gt_polygons=word_quads(g, hw),
+                           gt_polygons_ignore=[]) for _ in range(n)]
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return dict(self.items[i])
+
+
+def pan_pse_maps(det, g, n):
+    """``n`` raw logit maps shaped like a trained PANet's or PSENet's, at
+    the head's 1/4 of 640 x 640: the ``word_quads`` of a page through the
+    config's targets (``PANetTargets``: instance texts and kernels;
+    ``PSENetTargets``: text and six nested kernels), at the head's scale,
+    +/-8 inside and out, PAN's embedding one constant 4-vector an instance
+    (zero outside), plus N(0, 0.5) noise."""
+    import numpy as np
+    from tps_pp_tpu_torch.apis.train_det import DetBatches
+    batches = DetBatches(det.model_cfg, DetPages(g, n), None)
+    _, tgt = batches(range(n))
+    if det.det_type == 'PANet':
+        texts, kernels = tgt['gt_texts'], tgt['gt_kernels']
+        emb = g.normal(0, 3, (int(texts.max()) + 1, 4)).astype(np.float32)
+        emb[0] = 0
+        logits = np.concatenate([
+            (np.stack([texts, kernels], -1) > 0) * 16.0 - 8.0,
+            emb[texts.astype(int)]], -1)
+    else:
+        logits = np.moveaxis(tgt['gt_kernels'], 1, -1) * 16.0 - 8.0
+    return (logits + g.normal(0, 0.5, logits.shape)).astype(np.float32)
+
+
+def det_train_phase(dev, name):
+    """Detection training and PANet / PSENet on ``dev``, the card (see the
+    module docstring); nothing here launches a hand-written kernel."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import TextDetector, init_detector
+    from tps_pp_tpu_torch.apis.train_det import (DetBatches, _make_optimizer,
+                                                 make_det_train_step,
+                                                 train_detector)
+    from tps_pp_tpu_torch.config import load_config
+    from tps_pp_tpu_torch.registry import LOSSES
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    g = np.random.default_rng(SEED + 20)
+    stats = {}
+
+    def masks(det, maps):
+        """The pixels' decisions the postprocessor takes from its maps."""
+        score = 1.0 / (1.0 + np.exp(-maps))
+        if det.det_type == 'PANet':
+            return score[..., :2] > 0.5
+        return score > det.postprocessor.min_kernel_confidence
+
+    def post(det, maps):
+        t0 = time.perf_counter()
+        out = det.postprocess(maps, [(1.0, 1.0)] * len(maps))
+        return ((time.perf_counter() - t0) / len(maps) * 1e3,
+                sum(len(b) for b in out) / len(maps), out)
+
+    # ---- PANet-R18 and PSENet-R50 serving at 640 x 640, f32 -------------
+    for key, (path, n) in PAN_PSE_CONFIGS.items():
+        det = init_detector(os.path.join(repo, path), device=dev, seed=SEED)
+        if det.device.type != 'cuda' or det.model.training:
+            raise AssertionError(f'{key}: built on {det.device}')
+        imgs = [g.integers(0, 256, (640, 640, 3), np.uint8)
+                for _ in range(n)]
+        zero_launches()
+        det.forward(np.stack([det.prep(i)[0] for i in imgs]))
+        read_launches('det-train', f'{key} forward', {})
+        det.detect_batch(imgs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = det.detect_batch(imgs)
+        whole = (time.perf_counter() - t0) / n
+        if len(out) != n:
+            raise AssertionError(f'{key}: {len(out)} results for {n}')
+        t0 = time.perf_counter()
+        batch = np.stack([det.prep(i)[0] for i in imgs])
+        prep = (time.perf_counter() - t0) / n
+        h2d = cuda_ms(lambda: torch.as_tensor(batch).to(dev), 3) / n
+        x = torch.as_tensor(batch, device=dev)
+        fwd = cuda_ms(lambda: det.forward(x), 3) / n
+        maps = det.forward(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = det.host_maps(maps)
+        copy = (time.perf_counter() - t0) / n
+        post_ms, per_img, _ = post(det, host)
+        tl = pan_pse_maps(det, np.random.default_rng(SEED + 2000),
+                          N_TRAINED_LIKE)
+        post_t, per_img_t, _ = post(det, tl)
+        log(f'det-train {key} B={n} 640x640 (f32, TF32 off): detect_batch '
+            f'{whole * 1e3:.2f} ms/image; host prep {prep * 1e3:.2f}, '
+            f'batch copy to the card {h2d:.3f}, forward on the card\'s '
+            f'tensor {fwd:.3f}, logits copy {copy * 1e3:.3f}, '
+            f'{type(det.postprocessor).__name__} {post_ms:.2f} ms/image '
+            f'({per_img:.1f} boxes an image, seed-0 maps); trained-like '
+            f'maps {post_t:.2f} ms/image ({per_img_t:.1f} boxes an image) '
+            f'[{name}]')
+        stats[f'{key} serving'] = dict(
+            detect_batch=whole * 1e3, prep=prep * 1e3, h2d=h2d, forward=fwd,
+            copy=copy * 1e3, post_seed0=post_ms, boxes_seed0=per_img,
+            post_trained_like=post_t, boxes_trained_like=per_img_t)
+        # ---- the card against the CPU at B_DET_F32, float32, TF32 off: the
+        # seed-0 maps, then the stressed ones (each channel's bound scaled
+        # with it)
+        cpu_det = TextDetector(det.model_cfg, det.img_size, device='cpu')
+        cpu_det.model.load_state_dict({k: v.cpu() for k, v in
+                                       det.model.state_dict().items()})
+        xb = x[:B_DET_F32]
+        scale = np.ones(det.model.head.out_conv.out_channels)
+        for label in ('seed-0', 'stressed'):
+            if label == 'stressed':
+                logit = det.forward(xb)
+                k = logit.shape[-1] if det.det_type == 'PSENet' else 2
+                above = np.linspace(*PAN_PSE_STRESS[det.det_type], k)
+                for c in range(k):
+                    lc = logit[..., c].flatten()
+                    q = float(torch.quantile(lc[::3].cpu(), 1 - above[c]))
+                    scale[c] = PAN_PSE_STRESS_STD / float(lc.std())
+                    for d in (det, cpu_det):
+                        conv = d.model.head.out_conv
+                        with torch.no_grad():
+                            conv.weight[c] *= scale[c]
+                            conv.bias[c] = (conv.bias[c] - q) * scale[c]
+            got = det.host_maps(det.forward(xb))
+            want = cpu_det.host_maps(cpu_det.forward(xb.cpu()))
+            err = np.abs(got - want).max(axis=(0, 1, 2)) / scale
+            if err.max() > DET_F32_ATOL:
+                raise AssertionError(f'{key} {label}: maps {err} apart, '
+                                     f'over their scales {scale} (bound '
+                                     f'{DET_F32_ATOL})')
+            err = [float(v) for v in err]
+            mc, mw = masks(det, got), masks(det, want)
+            part = (mc != mw).any(-1)
+            flips = int(part.sum())
+            # where the decisions part, the CPU map takes the card's pixel
+            want = np.where(part[..., None], got, want)
+            _, _, bc = post(det, got)
+            _, _, bw = post(det, want)
+            n_box = 0
+            for a, b in zip(bc, bw):
+                if len(a) != len(b) or any(
+                        a_.shape != b_.shape
+                        or np.abs(a_[:-1] - b_[:-1]).max() > 1e-3
+                        or abs(a_[-1] - b_[-1]) > DET_F32_ATOL
+                        for a_, b_ in zip(a, b)):
+                    raise AssertionError(f'{key} {label}: boundaries part')
+                n_box += len(a)
+            log(f'det-train {key} {label} B={B_DET_F32}: the card against '
+                f'the CPU, logits within {max(err):.3g} of their scale '
+                f'(bound {DET_F32_ATOL}); {flips} pixels\' decisions part; '
+                f'{n_box} boundaries equal on equal decisions')
+            stats[f'{key} {label}'] = dict(err=max(err), flips=flips,
+                                           boxes=n_box)
+        if n_box < DET_MIN_BOXES:
+            raise AssertionError(f'{key}: {n_box} boundaries compared on '
+                                 f'the stressed maps, fewer than '
+                                 f'{DET_MIN_BOXES}')
+        del det, cpu_det, x, xb, maps
+        torch.cuda.empty_cache()
+
+    # ---- one f32 step, the card against the CPU, B_DET_F32 pages ---------
+    for key, path in DET_STEP_CONFIGS.items():
+        cfg = load_config(os.path.join(repo, path))
+        model_cfg = cfg['model']
+        pages = DetPages(g, B_DET_F32)
+        results = {}
+        for where in ('card', 'cpu'):
+            device = dev if where == 'card' else torch.device('cpu')
+            det = TextDetector(model_cfg, device=device, seed=SEED)
+            model = det.model.train()
+            loss_fn = LOSSES.build(model_cfg['loss'])
+            img, tgt = DetBatches(model_cfg, pages, loss_fn)(
+                range(B_DET_F32))
+            opt, _ = _make_optimizer(cfg, model.named_parameters())
+            step = make_det_train_step(model, loss_fn, opt)
+            img = torch.from_numpy(img).to(device)
+            tgt = {k: torch.from_numpy(v).to(device) for k, v in tgt.items()}
+            if where == 'card':
+                zero_launches()
+            m = step(img, tgt)
+            results[where] = {k: float(v) for k, v in m.items()}
+            if where == 'card':
+                read_launches('det-train', f'{key} step', {})
+                step_ms = cuda_ms(lambda: step(img, tgt), 3)
+            del det, model
+        a, b = results['card'], results['cpu']
+        dl = abs(a['loss'] - b['loss']) / abs(b['loss'])
+        dg = abs(a['grad_norm'] - b['grad_norm']) / abs(b['grad_norm'])
+        if not (all(np.isfinite(list(a.values())))
+                and dl <= DET_LOSS_RTOL and dg <= DET_GRAD_NORM_RTOL):
+            raise AssertionError(f'{key} step: card {a} against the CPU '
+                                 f'{b}')
+        log(f'det-train {key} f32 step B={B_DET_F32} 640x640, train-mode '
+            f'BatchNorm: loss {a["loss"]:.6f} (CPU {b["loss"]:.6f}, '
+            f'{dl:.3g} apart, bound {DET_LOSS_RTOL}), grad norm '
+            f'{a["grad_norm"]:.6f} ({dg:.3g} apart, bound '
+            f'{DET_GRAD_NORM_RTOL}); {step_ms:.2f} ms a step on the card '
+            f'[{name}]')
+        stats[f'{key} step'] = dict(loss_rel=dl, grad_norm_rel=dg,
+                                    step_ms=step_ms, **a)
+        torch.cuda.empty_cache()
+
+    # ---- train_detector: DBNet-R18 at its samples_per_gpu, a resume -----
+    cfg = load_config(os.path.join(repo, DET_CONFIGS['dbnet_r18'][0]))
+    bs = int(cfg['data']['samples_per_gpu'])
+    pages = DetPages(g, N_DET_TRAIN_PAGES)
+    with tempfile.TemporaryDirectory() as wd:
+        zero_launches()
+        _, opt, hist = train_detector(cfg, pages, work_dir=wd,
+                                      total_epochs=DET_TRAIN_EPOCHS,
+                                      batch_size=bs, seed=SEED, device=dev)
+        read_launches('det-train', 'train_detector', {})
+        _, opt2, again = train_detector(
+            cfg, pages, total_epochs=DET_TRAIN_EPOCHS, batch_size=bs,
+            seed=SEED, device=dev,
+            resume_from=os.path.join(wd, 'epoch_1.pth'))
+    last = hist[-1]
+    if not all(np.isfinite(h['loss']) for h in hist + again):
+        raise AssertionError(f'train_detector: {hist} {again}')
+    gap = abs(again[-1]['loss'] - last['loss']) / abs(last['loss'])
+    if ([h['epoch'] for h in again] != [DET_TRAIN_EPOCHS - 1]
+            or opt2.count != opt.count or again[-1]['lr'] != last['lr']
+            or gap > LOSS_RTOL):
+        raise AssertionError(f'train_detector resume: {again} against '
+                             f'{last}')
+    steps = -(-N_DET_TRAIN_PAGES // bs)
+    step_ms = (last['seconds'] - last['batch_seconds']) / steps * 1e3
+    log(f'det-train train_detector DBNet-R18 ({DET_TRAIN_EPOCHS} epochs of '
+        f'{N_DET_TRAIN_PAGES} 640x640 pages, B={bs}): epoch 2 '
+        f'{last["seconds"]:.2f} s, {step_ms:.1f} ms a warm step, host '
+        f'targets {last["batch_seconds"] / N_DET_TRAIN_PAGES * 1e3:.1f} ms '
+        f'a page, {last["batch_seconds"] / last["seconds"]:.3f} of the epoch '
+        f'making batches; losses {[round(h["loss"], 4) for h in hist]}; '
+        f'the resume from epoch 1 ran epoch 2 again: {opt2.count} steps, lr '
+        f'{again[-1]["lr"]:.6g}, loss {gap:.3g} apart (LOSS_RTOL '
+        f'{LOSS_RTOL}) [{name}]')
+    stats['train_detector'] = dict(
+        epoch_s=last['seconds'], step_ms=step_ms,
+        target_ms_page=last['batch_seconds'] / N_DET_TRAIN_PAGES * 1e3,
+        batch_share=last['batch_seconds'] / last['seconds'],
+        resume_gap=gap, losses=[h['loss'] for h in hist])
+    log(f'det-train phase: {time.perf_counter() - t_phase:.1f} s; no '
+        f'hand-written kernel launched; {json.dumps(stats)}')
+
+
 def main():
     import torch
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         sys.exit('chip_smoke: no CUDA device '
                  '(torch.cuda.is_available() is False)')
@@ -4539,6 +4858,9 @@ def main():
 
     # ---- text detection: DBNet R18 and R50-DCNv2, MMOCR.readtext; no kernel
     det_phase(dev, name)
+
+    # ---- detection training; PANet-R18 and PSENet-R50; no kernel
+    det_train_phase(dev, name)
     path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])
@@ -4547,6 +4869,8 @@ def main():
 
     for k in kernels:
         k['max_abs_err'] = float(k['max_abs_err'])
+    log(f'chip_smoke: {time.perf_counter() - t_script:.1f} s in all, the '
+        f'kernels\' build included')
     print(json.dumps({'kernels': kernels}), flush=True)
     print(name, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -2,8 +2,8 @@
 ``TextDetector.detect_batch`` at odd batch sizes on one narrow DBNet's
 weights (its map scaled so that it crosses the mask threshold in tens of
 blobs a page),
-``init_detector`` from a ``.pth``, the refusal of the other detector
-types, ``TextDetDataset`` in test mode and its ``evaluate``, and
+``init_detector`` from a ``.pth``, the refusal of the detector types
+not ported, ``TextDetDataset`` in test mode and its ``evaluate``, and
 ``tools/test.py`` on a config shaped like the shipped one, whose
 ``data.test`` is a ``UniformConcatDataset`` of ``IcdarDataset``s (which
 the JAX CLI cannot build)."""
@@ -124,9 +124,11 @@ def test_init_detector_from_a_pth(detectors):
 
 
 def test_other_detector_types_raise():
-    with pytest.raises(NotImplementedError, match='PANet'):
-        init_detector(os.path.join(REPO, 'configs/textdet/panet/'
-                                   'panet_r18_fpem_ffm_600e_icdar2015.py'),
+    """DBNet, PANet and PSENet build; FCENet (and TextSnake, DRRG, Mask
+    R-CNN) still raise."""
+    with pytest.raises(NotImplementedError, match='FCENet'):
+        init_detector(os.path.join(REPO, 'configs/textdet/fcenet/'
+                                   'fcenet_r50_fpn_1500e_icdar2015.py'),
                       device='cpu')
 
 
@@ -195,9 +197,17 @@ def test_textdet_dataset_items_and_evaluate_match_jax(tmp_path):
 
 
 def test_textdet_dataset_in_train_mode_raises(tmp_path):
+    """Train mode builds now (its items carry DBNet's maps,
+    ``tests/test_torch_det_train.py``); what raises is a ``target_cfg``
+    that ``DBNetTargets`` does not take, as in JAX."""
     ann = write_dataset(str(tmp_path), [(40, 60)])
-    with pytest.raises(NotImplementedError, match='DBNetTargets'):
-        TextDetDataset(ann, img_prefix=str(tmp_path / 'imgs'))
+    ds = TextDetDataset(ann, img_prefix=str(tmp_path / 'imgs'),
+                        img_size=SIZE)
+    assert ds[0]['gt_shrink'].shape == SIZE
+    for cls in (TextDetDataset, JaxDataset):
+        with pytest.raises(TypeError, match='unexpected keyword'):
+            cls(ann, img_prefix=str(tmp_path / 'imgs'),
+                target_cfg=dict(shrink=0.4))
 
 
 # ---------------------------------------------------------- tools/test --

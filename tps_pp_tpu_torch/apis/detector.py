@@ -2,16 +2,20 @@
 inference (counterpart of ``tps_pp_tpu/apis/detector.py:25-223`` and of
 ``build_detector_module`` in ``tps_pp_tpu/apis/train_det.py:37-56``).
 
-DBNet is the family the port has (``configs/textdet/dbnet/``: R18-FPNC and
-R50-DCNv2-FPNC). ``TextDetector`` holds its model, in float32 and eval
-mode, on the card unless given ``device='cpu'``, and its postprocessor.
-``detect_batch`` resizes each image to the fixed input size on the host
-(``cv_ops.resize_u8``, within one grey level of ``cv2.resize``), runs one
-forward over the batch padded to the next power of two (the last row
-repeated, ``utils/batching.py``), copies the probability maps to the host,
-postprocesses each image there and scales its boundaries
-``[x1, y1, ..., score]`` back to the image's size. The other six families
-of the JAX package raise ``NotImplementedError``.
+The port has three families: DBNet (``configs/textdet/dbnet/``: R18-FPNC,
+R50-DCNv2-FPNC), PANet (``configs/textdet/panet/``: R18 and R50 on
+FPEM_FFM) and PSENet (``configs/textdet/psenet/``: R50 on FPNF).
+``TextDetector`` holds its model, in float32 and eval mode, on the card
+unless given ``device='cpu'``, and its postprocessor (the config's, or the
+family's). ``detect_batch`` resizes each image to the fixed input size on
+the host (``cv_ops.resize_u8``, within one grey level of ``cv2.resize``),
+runs one forward over the batch padded to the next power of two (the last
+row repeated, ``utils/batching.py``), copies the maps to the host (DBNet's
+probability channel; PAN's and PSE's logits, at 1/4 of the input size),
+postprocesses each image there and scales its boundaries ``[x1, y1, ...,
+score]`` back to the image's size, through the head's 1/4 for PAN and PSE
+(``HEAD_SCALE``, JAX's ``_DOWNSAMPLE``). FCENet, TextSnake, DRRG and Mask
+R-CNN raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,18 +33,31 @@ from ..registry import BACKBONES, HEADS, NECKS
 from ..utils.batching import next_pow2, pad_rows
 from ..utils.convert import load_pth
 
+# the family's postprocessor where the config names none
+# (tps_pp_tpu/apis/detector.py:116-117), and the scale of its head's maps
+# where it is not the input's
+POSTPROCESSORS = {'DBNet': textdet.DBPostprocessor,
+                  'PANet': textdet.PANPostprocessor,
+                  'PSENet': textdet.PSEPostprocessor}
+HEAD_SCALE = {'PANet': 0.25, 'PSENet': 0.25}
+
+
 def build_detector_module(model_cfg: Dict) -> nn.Module:
-    """backbone -> neck -> head of a DBNet config; any other detector type
-    raises ``NotImplementedError``."""
+    """backbone -> neck -> head of a DBNet, PANet or PSENet config (a
+    PAN / PSE head's ``in_channels`` defaults to its neck's output); any
+    other detector type raises ``NotImplementedError``."""
     det_type = model_cfg.get('type', 'DBNet')
-    if det_type != 'DBNet':
+    if det_type not in POSTPROCESSORS:
         raise NotImplementedError(
             f'detector type {det_type!r} is not ported yet (ROADMAP.md '
-            'queue 1: PANet and PSENet, FCENet and TextSnake, DRRG, Mask '
-            'R-CNN)')
-    return textdet.DBNetModule(BACKBONES.build(model_cfg['backbone']),
-                               NECKS.build(model_cfg['neck']),
-                               HEADS.build(model_cfg['head']))
+            'queue 1: FCENet and TextSnake, DRRG, Mask R-CNN)')
+    backbone = BACKBONES.build(model_cfg['backbone'])
+    neck = NECKS.build(model_cfg['neck'])
+    if det_type == 'DBNet':
+        return textdet.DBNetModule(backbone, neck,
+                                   HEADS.build(model_cfg['head']))
+    head = HEADS.build(model_cfg['head'], in_channels=neck.out_channels)
+    return textdet.PANetModule(backbone, neck, head)
 
 
 def init_detector_weights(model: nn.Module, seed: int = 0) -> nn.Module:
@@ -71,7 +88,7 @@ def init_detector_weights(model: nn.Module, seed: int = 0) -> nn.Module:
 
 
 class TextDetector:
-    """A DBNet model, its postprocessor and a fixed input size."""
+    """A detector's model, its postprocessor and a fixed input size."""
 
     def __init__(self, model_cfg: Dict, img_size: Tuple[int, int] = (640, 640),
                  device=None, seed: int = 0,
@@ -98,17 +115,16 @@ class TextDetector:
             self.model.load_state_dict(load_pth(checkpoint), strict=True)
         self.model.to(self.device).eval()
         pp_cfg = dict(model_cfg.get('postprocessor') or {})
-        pp_type = pp_cfg.pop('type', 'DBPostprocessor')
-        if pp_type != 'DBPostprocessor':
-            raise NotImplementedError(f'postprocessor {pp_type!r} is not '
-                                      'ported yet')
-        self.postprocessor = textdet.DBPostprocessor(**pp_cfg)
+        pp_type = pp_cfg.pop('type',
+                             POSTPROCESSORS[self.det_type].__name__)
+        self.postprocessor = getattr(textdet, pp_type)(**pp_cfg)
+        self.downsample = HEAD_SCALE.get(self.det_type, 1.0)
 
     def prep(self, img: np.ndarray) -> Tuple[np.ndarray, float, float]:
         """An image -> (the input (H, W, C) float32 in [0, 1], the x and y
-        scales back to the image). A uint8 image of another size is resized
-        with ``cv_ops.resize_u8``; a float image must be at the input
-        size."""
+        scales from the head's maps back to the image). A uint8 image of
+        another size is resized with ``cv_ops.resize_u8``; a float image
+        must be at the input size."""
         h0, w0 = img.shape[:2]
         H, W = self.img_size
         if (h0, w0) != (H, W):
@@ -116,28 +132,30 @@ class TextDetector:
                 raise ValueError(f'a {img.dtype} image of {h0}x{w0}: only '
                                  f'uint8 images are resized to {H}x{W}')
             img = resize_u8(img, W, H)
-        return img.astype(np.float32) / 255.0, w0 / W, h0 / H
+        ds = self.downsample
+        return img.astype(np.float32) / 255.0, w0 / W / ds, h0 / H / ds
 
     @torch.inference_mode()
     def forward(self, batch: Union[np.ndarray, torch.Tensor]
                 ) -> torch.Tensor:
-        """(N, H, W, 3) inputs -> the model's (N, H, W, 3) maps [prob, thr,
-        binary] on the device, one forward over the batch padded to the
-        next power of two."""
+        """(N, H, W, 3) inputs -> the model's maps on the device, one
+        forward over the batch padded to the next power of two: DBNet's (N,
+        H, W, 3) [prob, thr, binary], PAN's and PSE's (N, H / 4, W / 4, C)
+        raw logits."""
         x = torch.as_tensor(batch, dtype=torch.float32).to(self.device)
         n = x.shape[0]
         (x,) = pad_rows((x,), n, next_pow2(n))
         return self.model(x)[:n]
 
-    def postprocess(self, prob_maps: np.ndarray,
+    def postprocess(self, maps: np.ndarray,
                     scales: Sequence[Tuple[float, float]]
                     ) -> List[List[np.ndarray]]:
-        """(N, H, W) probability maps on the host -> each image's
-        boundaries, scaled by its (sx, sy)."""
+        """The postprocessor's maps on the host (``host_maps``) -> each
+        image's boundaries, scaled by its (sx, sy)."""
         out = []
-        for prob, (sx, sy) in zip(prob_maps, scales):
+        for m, (sx, sy) in zip(maps, scales):
             scaled = []
-            for b in self.postprocessor(prob):
+            for b in self.postprocessor(m):
                 b = np.asarray(b, np.float32).copy()
                 b[:-1:2] *= sx
                 b[1:-1:2] *= sy
@@ -145,13 +163,20 @@ class TextDetector:
             out.append(scaled)
         return out
 
+    def host_maps(self, maps: torch.Tensor) -> np.ndarray:
+        """The part of ``forward``'s maps the postprocessor reads, copied
+        to the host: DBNet's probability channel, PAN's and PSE's whole
+        logits."""
+        if self.det_type == 'DBNet':
+            maps = maps[..., 0]
+        return maps.cpu().numpy()
+
     def detect_batch(self, imgs: List[np.ndarray]
                      ) -> List[List[np.ndarray]]:
         """Boundaries of each image, in its own coordinates."""
         preps = [self.prep(img) for img in imgs]
-        maps = self.forward(np.stack([p[0] for p in preps]))
-        prob = maps[..., 0].cpu().numpy()
-        return self.postprocess(prob, [(p[1], p[2]) for p in preps])
+        maps = self.host_maps(self.forward(np.stack([p[0] for p in preps])))
+        return self.postprocess(maps, [(p[1], p[2]) for p in preps])
 
     def detect(self, img: np.ndarray) -> List[np.ndarray]:
         """img: HWC BGR. Its boundaries [x1, y1, ..., score]."""

@@ -1,0 +1,232 @@
+"""``train_detector``: the detection training loop (counterpart of
+``tps_pp_tpu/apis/train_det.py:23-188``, the det half of the reference's
+``apis/train.py``).
+
+One process, as the JAX loop: per epoch the seeded
+``np.random.default_rng(seed).permutation`` of the dataset, cut into
+batches of ``batch_size`` (the last one short); per batch, each item's
+targets made on the host where the dataset did not make them
+(``build_det_targets``; ``TextDetDataset`` items carry DBNet's), PAN's and
+PSE's rescaled to the head's 1/4 (``cv_ops.resize_inter_nearest``), then
+one forward and backward in train mode (BatchNorm with flax's statistics,
+``models/layers.py``) and one step of the config's optimizer
+(``build_optimizer_from_run_cfg``: ``schedule_sgd_1200e`` is SGD 0.007,
+momentum 0.9, weight decay 1e-4, poly 0.9 to 1e-7; its ``by_epoch`` is
+not read, so the lr decays a step at a time, as in JAX; a ``grad_clip``
+where set). Each epoch writes ``epoch_{n}.pth`` (``utils/checkpoint.py``;
+JAX writes ``.npz``); ``resume_from`` restores weights, optimizer state
+and step and replays the permutations of the epochs it skips, so that a
+resumed run takes the batches and lrs of the uninterrupted one.
+
+The PAN loss supervises the embeddings of at most ``max_instances`` (24)
+instances an image, as JAX does; the first image with more logs a
+warning. OCRMaskRCNN and DRRG raise ``NotImplementedError`` (ROADMAP.md
+queue 1: DRRG, Mask R-CNN), FCENet and TextSnake too (through
+``build_detector_module``).
+"""
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..datasets.pipelines.cv_ops import resize_inter_nearest
+from ..models import textdet  # noqa: F401  (registers targets and losses)
+from ..parallel import OptimizerChain, build_optimizer_from_run_cfg
+from ..registry import LOSSES, PIPELINES
+from ..utils import checkpoint
+from .detector import (HEAD_SCALE, build_detector_module,
+                       init_detector_weights)
+
+logger = logging.getLogger('tps_pp_tpu_torch')
+
+# the detector types of the JAX package (its train_det.py:23)
+DET_TYPES = ('DBNet', 'PANet', 'PSENet', 'FCENet', 'TextSnake',
+             'OCRMaskRCNN', 'DRRG')
+
+# the target keys each family's loss reads
+_TARGET_KEYS = {
+    'DBNet': ('gt_shrink', 'gt_shrink_mask', 'gt_thr', 'gt_thr_mask'),
+    'PANet': ('gt_texts', 'gt_kernels', 'gt_mask'),
+    'PSENet': ('gt_kernels', 'gt_mask'),
+}
+
+
+def build_det_targets(model_cfg: Dict):
+    """The config's ``targets`` pipeline, or ``{type}Targets``."""
+    cfg = dict(model_cfg.get('targets') or
+               {'type': f"{model_cfg.get('type', 'DBNet')}Targets"})
+    return PIPELINES.build(cfg)
+
+
+def _make_optimizer(cfg: Dict, named_params, steps_per_epoch: int = 1,
+                    total_epochs: int = 1
+                    ) -> Tuple[OptimizerChain, callable]:
+    """The run config's optimizer and schedule, Adam 1e-3 where it names
+    none (as JAX's ``_make_optimizer``)."""
+    run_cfg = dict(cfg)
+    run_cfg.setdefault('optimizer', {'type': 'Adam', 'lr': 1e-3})
+    return build_optimizer_from_run_cfg(run_cfg, named_params,
+                                        steps_per_epoch, total_epochs)
+
+
+def _rescale(arr: np.ndarray, ratio: float) -> np.ndarray:
+    """A target map (H, W) or stack (K, H, W) at ``ratio`` of its size,
+    nearest (``cv2.resize(..., INTER_NEAREST)`` in JAX)."""
+    arr = np.asarray(arr)
+    if ratio == 1.0:
+        return arr
+    w, h = int(arr.shape[-1] * ratio), int(arr.shape[-2] * ratio)
+    if arr.ndim == 2:
+        return resize_inter_nearest(arr, w, h)
+    return np.stack([resize_inter_nearest(a, w, h) for a in arr])
+
+
+class DetBatches:
+    """Dataset indices -> (image batch, target batch) as numpy on the host,
+    as JAX's ``make_batch``: each item's targets made where it has none,
+    rescaled to the head's scale; ``seconds`` counts the time taken."""
+
+    def __init__(self, model_cfg: Dict, dataset, loss_fn):
+        self.det_type = model_cfg.get('type', 'DBNet')
+        self.keys = _TARGET_KEYS[self.det_type]
+        self.targets = build_det_targets(model_cfg)
+        self.ratio = HEAD_SCALE.get(self.det_type, 1.0)
+        self.dataset = dataset
+        self.max_instances = getattr(loss_fn, 'max_instances', None)
+        self.warned = False
+        self.seconds = 0.0
+
+    def __call__(self, indices) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        t0 = time.perf_counter()
+        imgs, tgts = [], {k: [] for k in self.keys}
+        for i in indices:
+            item = self.dataset[int(i)]
+            if self.keys[0] not in item:
+                item = self.targets(item)
+            n_inst = len(item.get('gt_polygons', ()))
+            if (self.max_instances and not self.warned
+                    and n_inst > self.max_instances):
+                logger.warning(
+                    'image has %d text instances but the loss supervises '
+                    'embeddings for at most max_instances=%d; raise '
+                    'model.loss.max_instances', n_inst, self.max_instances)
+                self.warned = True
+            imgs.append(item['img'])
+            for k in self.keys:
+                tgts[k].append(_rescale(item[k], self.ratio))
+        out = (np.stack(imgs).astype(np.float32),
+               {k: np.stack(v) for k, v in tgts.items()})
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+def make_det_train_step(model: torch.nn.Module, loss_fn,
+                        optimizer: OptimizerChain):
+    """``step(img, targets) -> metrics``: one forward and backward of
+    ``model`` (in the mode it is in) through ``loss_fn`` and one optimizer
+    step. The metrics (0-d tensors, not synchronised) are ``loss``, the
+    sum JAX differentiates, each named loss and ``grad_norm``, the global
+    norm of the gradients before clipping."""
+
+    def step(img: torch.Tensor, targets: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        optimizer.zero_grad()
+        losses = loss_fn(model(img), targets)
+        total = sum(losses.values())
+        total.backward()
+        return {'loss': total.detach(),
+                **{k: v.detach() for k, v in losses.items()},
+                'grad_norm': optimizer.step()}
+
+    return step
+
+
+def train_detector(cfg: Dict, train_ds, work_dir: Optional[str] = None,
+                   total_epochs: Optional[int] = None, batch_size: int = 4,
+                   log_interval: int = 10, seed: int = 0, device=None,
+                   model: Optional[torch.nn.Module] = None,
+                   resume_from: Optional[str] = None,
+                   load_from: Optional[str] = None
+                   ) -> Tuple[torch.nn.Module, OptimizerChain, List[Dict]]:
+    """Train the detector of ``cfg['model']`` on ``train_ds`` (items with
+    ``img`` (H, W, 3) float32 and ``gt_polygons``, or their targets):
+    ``model`` if given, else the config's with ``init_detector_weights(seed)``;
+    on the card unless ``device`` says otherwise. Returns (the model, the
+    optimizer chain, the history: one dict an epoch with the metrics of
+    its last step (``loss``, the total JAX's history holds, the named
+    losses and ``grad_norm``), the ``lr`` it stepped with, ``steps``,
+    ``seconds`` and ``batch_seconds``, the host's share of making
+    batches)."""
+    model_cfg = cfg['model']
+    det_type = model_cfg.get('type', 'DBNet')
+    if det_type in ('OCRMaskRCNN', 'DRRG'):
+        raise NotImplementedError(
+            f'{det_type} training is not ported yet (ROADMAP.md queue 1: '
+            'DRRG, Mask R-CNN)')
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError('train_detector: no CUDA device; pass '
+                               'device="cpu" to train on the CPU')
+        device = 'cuda'
+    device = torch.device(device)
+    if model is None:
+        model = init_detector_weights(build_detector_module(model_cfg),
+                                      seed)
+    model = model.to(device)
+    loss_cfg = dict(model_cfg.get('loss') or {'type': f'{det_type}Loss'})
+    loss_fn = LOSSES.build(loss_cfg)
+    batches = DetBatches(model_cfg, train_ds, loss_fn)
+    epochs = int(total_epochs or cfg.get('total_epochs') or 1)
+    n = len(train_ds)
+    if not n:
+        raise ValueError('train_detector: the dataset is empty')
+    steps = -(-n // batch_size)
+    optimizer, schedule = _make_optimizer(
+        cfg, model.named_parameters(), max(1, n // batch_size), epochs)
+    if load_from:
+        checkpoint.load_weights(model, load_from)
+    if resume_from:
+        meta = checkpoint.restore(model, optimizer, resume_from)
+        logger.info('resumed from %s: epoch %s, step %d', resume_from,
+                    meta.get('epoch'), optimizer.count)
+    ckpt = checkpoint.CheckpointManager(work_dir) if work_dir else None
+    rng = np.random.default_rng(seed)
+    start = min(optimizer.count // steps, epochs)
+    for _ in range(start):          # the permutations of the epochs done
+        rng.permutation(n)
+    model.train()
+    step = make_det_train_step(model, loss_fn, optimizer)
+    history: List[Dict] = []
+    for epoch in range(start, epochs):
+        order = rng.permutation(n)
+        t0 = time.perf_counter()
+        batches.seconds = 0.0
+        for it in range(0, n, batch_size):
+            img, tgt = batches(order[it:it + batch_size])
+            img = torch.from_numpy(img).to(device, non_blocking=True)
+            tgt = {k: torch.from_numpy(v).to(device, non_blocking=True)
+                   for k, v in tgt.items()}
+            lr = schedule(optimizer.count)
+            losses = step(img, tgt)
+            total = losses['loss']
+            if (it // batch_size) % log_interval == 0:
+                logger.info('epoch %d iter %d loss %.4f lr %.3e', epoch,
+                            it // batch_size, float(total), lr)
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+        history.append(dict(epoch=epoch, lr=lr, steps=optimizer.count,
+                            seconds=seconds, batch_seconds=batches.seconds,
+                            **{k: float(v) for k, v in losses.items()}))
+        logger.info('epoch %d done in %.2f s (%.2f s making batches) loss '
+                    '%.4f', epoch, seconds, batches.seconds, float(total))
+        if ckpt is not None:
+            ckpt.save(epoch + 1, model, optimizer,
+                      meta=dict(seed=seed,
+                                config=checkpoint.config_text(cfg)))
+    model.eval()
+    return model, optimizer, history

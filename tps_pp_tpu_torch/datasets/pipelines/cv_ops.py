@@ -45,11 +45,13 @@ that is cheap to follow:
   cv2's scanline fill in 16-bit fixed point, its edge slopes divided with
   C's truncation and each span rounded half up at both ends.
 
-The text detector's host side (``models/textdet/postprocess.py``, the
-hmean-ic13 raster) calls these:
+The text detector's host side (``models/textdet/postprocess.py``,
+``models/textdet/targets.py``, the hmean-ic13 raster) calls these:
 
 * ``find_contours`` (``RETR_LIST`` or ``RETR_EXTERNAL``,
-  ``CHAIN_APPROX_SIMPLE``): Suzuki-Abe border following as cv2 does it, in
+  ``CHAIN_APPROX_SIMPLE`` or ``CHAIN_APPROX_NONE``), and
+  ``draw_contour_lines`` (thickness 1): Suzuki-Abe border following as
+  cv2 does it, in
   cv2's order (the reverse of discovery). The mask is padded with zeros;
   only the pixels where a row changes between zero and non-zero can start
   a border, so the raster scan visits those (found with numpy) and the
@@ -60,7 +62,8 @@ hmean-ic13 raster) calls these:
 * ``contour_area`` (the shoelace sum in float64), ``arc_length`` (each
   side's length in float32, summed in float64), ``bounding_rect``.
 * ``convex_hull`` (Sklansky's scan over the points sorted by x then y,
-  counter-clockwise, with cv2's cyclic shift of the indices) and
+  counter-clockwise, with cv2's cyclic shift of the indices; float points
+  subtract in float32) and
   ``min_area_rect``: cv2's rotating calipers over the hull in float32; the
   angle in [-90, 0) degrees, a quarter turn swapping width and height, as
   cv2 5.0 returns it. ``box_points``: ``RotatedRect::points`` in float32.
@@ -74,11 +77,17 @@ hmean-ic13 raster) calls these:
   one point runs along the border column, as in cv2 5.0.
 * ``get_structuring_element`` (``MORPH_ELLIPSE``) and ``dilate`` (pixels
   outside the image add nothing).
+* ``connected_components`` (4-connectivity, cv2's label order) and
+  ``distance_transform`` (``DIST_L2``, mask 3: cv2 5.0's float32 chamfer
+  transform, its vector blocks of four columns included, see its
+  docstring).
 
 ``tests/test_torch_augment.py`` holds each against cv2 on seeded images
 (``fill_convex_poly`` and ``resize_inter_nearest``:
 ``tests/test_torch_seg.py``; the contour functions:
-``tests/test_torch_textdet.py``).
+``tests/test_torch_textdet.py``; ``distance_transform``:
+``tests/test_torch_det_train.py``; ``connected_components`` and the
+outlines: ``tests/test_torch_panet.py``).
 """
 from __future__ import annotations
 
@@ -558,6 +567,8 @@ def fill_convex_poly(img: np.ndarray, pts, value) -> np.ndarray:
 
 RETR_EXTERNAL = 0
 RETR_LIST = 1
+CHAIN_APPROX_NONE = 1
+CHAIN_APPROX_SIMPLE = 2
 # cv2's chain code directions (dx, dy), y down: 0 is right, then
 # counter-clockwise on the screen
 _CHAIN = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1),
@@ -565,10 +576,11 @@ _CHAIN = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1),
 
 
 def _follow_border(img: np.ndarray, step: int, x0: int, y0: int,
-                   is_hole: bool) -> list:
-    """cv2's ``icvFetchContour`` with ``CHAIN_APPROX_SIMPLE`` on the flat
-    padded image ``img`` (0 background, 1 unvisited, +-2 marked) from
-    (x0, y0); returns the turning points in image coordinates."""
+                   is_hole: bool, every: bool = False) -> list:
+    """cv2's ``icvFetchContour`` on the flat padded image ``img`` (0
+    background, 1 unvisited, +-2 marked) from (x0, y0); returns the turning
+    points in image coordinates (``CHAIN_APPROX_SIMPLE``), or with
+    ``every`` each point of the border (``CHAIN_APPROX_NONE``)."""
     deltas = [dx + dy * step for dx, dy in _CHAIN] * 2
     i0 = y0 * step + x0
     s_end = s = 0 if is_hole else 4
@@ -595,7 +607,7 @@ def _follow_border(img: np.ndarray, step: int, x0: int, y0: int,
             img[i3] = -2
         elif img[i3] == 1:
             img[i3] = 2
-        if s != prev_s:
+        if s != prev_s or every:
             pts.append((px, py))
             prev_s = s
         px += _CHAIN[s][0]
@@ -606,12 +618,18 @@ def _follow_border(img: np.ndarray, step: int, x0: int, y0: int,
         s = (s + 4) & 7
 
 
-def find_contours(mask: np.ndarray, mode: int = RETR_LIST) -> list:
-    """``cv2.findContours(mask, mode, CHAIN_APPROX_SIMPLE)[0]`` for
-    ``RETR_LIST`` (outer and hole borders) or ``RETR_EXTERNAL``: a list of
-    (n, 1, 2) int32 arrays of (x, y), in cv2's order."""
+def find_contours(mask: np.ndarray, mode: int = RETR_LIST,
+                  method: int = CHAIN_APPROX_SIMPLE) -> list:
+    """``cv2.findContours(mask, mode, method)[0]`` for ``RETR_LIST`` (outer
+    and hole borders) or ``RETR_EXTERNAL``, ``CHAIN_APPROX_SIMPLE`` or
+    ``CHAIN_APPROX_NONE``: a list of (n, 1, 2) int32 arrays of (x, y), in
+    cv2's order."""
     if mode not in (RETR_LIST, RETR_EXTERNAL):
         raise ValueError(f'mode {mode}: RETR_LIST or RETR_EXTERNAL only')
+    if method not in (CHAIN_APPROX_NONE, CHAIN_APPROX_SIMPLE):
+        raise ValueError(f'method {method}: CHAIN_APPROX_NONE or '
+                         'CHAIN_APPROX_SIMPLE only')
+    every = method == CHAIN_APPROX_NONE
     nz = np.asarray(mask) != 0
     h, w = nz.shape
     pad = np.zeros((h + 2, w + 2), np.int8)
@@ -639,12 +657,13 @@ def find_contours(mask: np.ndarray, mode: int = RETR_LIST) -> list:
         if prev == 0 and p == 1:                  # an outer border
             if external and img[lnbd] > 0:
                 continue
-            found.append(_follow_border(img, step, x, y, False))
+            found.append(_follow_border(img, step, x, y, False, every))
         elif p == 0 and prev >= 1:                # a hole border
             if prev != 1:
                 lnbd = i - 1
             if not external:
-                found.append(_follow_border(img, step, x - 1, y, True))
+                found.append(_follow_border(img, step, x - 1, y, True,
+                                            every))
         elif p != 0 and p != 1:
             lnbd = i
     return [np.asarray(c, np.int32).reshape(-1, 1, 2) for c in found[::-1]]
@@ -684,9 +703,11 @@ def arc_length(points, closed: bool = True) -> float:
                         dtype=np.float64))
 
 
-def _sklansky(pts, start: int, end: int, nsign: int, sign2: int) -> list:
+def _sklansky(pts, start: int, end: int, nsign: int, sign2: int,
+              sub=lambda p, q: p - q) -> list:
     """cv2's ``Sklansky_`` over the sorted points ``pts``: the indices of
-    one quarter of the hull."""
+    one quarter of the hull. ``sub`` is the coordinates' subtraction (in
+    float32 for float points); the convexity is a double product."""
     incr = 1 if end > start else -1
     if start == end or pts[start] == pts[end]:
         return [start]
@@ -695,11 +716,11 @@ def _sklansky(pts, start: int, end: int, nsign: int, sign2: int) -> list:
     end += incr
     while pnext != end:
         cury = pts[pcur][1]
-        by = pts[pnext][1] - cury
+        by = sub(pts[pnext][1], cury)
         if (by > 0) - (by < 0) != nsign:
-            ax = pts[pcur][0] - pts[pprev][0]
-            bx = pts[pnext][0] - pts[pcur][0]
-            ay = cury - pts[pprev][1]
+            ax = sub(pts[pcur][0], pts[pprev][0])
+            bx = sub(pts[pnext][0], pts[pcur][0])
+            ay = sub(cury, pts[pprev][1])
             convexity = ay * bx - ax * by
             if (convexity > 0) - (convexity < 0) == sign2 and (ax or ay):
                 pprev, pcur = pcur, pnext
@@ -753,12 +774,23 @@ def _cyclic_shift(hull: list) -> list:
     return shifted
 
 
+def _sub_f32(p: float, q: float) -> float:
+    return float(np.float32(p - q))
+
+
 def convex_hull(points) -> np.ndarray:
-    """``cv2.convexHull(points)`` of integer points (counter-clockwise on
-    the screen, cv2's first point): (n, 2)."""
+    """``cv2.convexHull(points)`` of integer or float32 points
+    (counter-clockwise on the screen, cv2's first point): (n, 2). Float
+    points are cv2's ``Sklansky_<float, double>``: differences in float32,
+    the convexity in double."""
     data = np.asarray(points).reshape(-1, 2)
+    is_float = data.dtype.kind == 'f'
+    if is_float:
+        data = data.astype(np.float32)
     order = np.lexsort((data[:, 1], data[:, 0]))
-    pts = [(int(data[k, 0]), int(data[k, 1])) for k in order]
+    cast = float if is_float else int
+    sub = _sub_f32 if is_float else (lambda p, q: p - q)
+    pts = [(cast(data[k, 0]), cast(data[k, 1])) for k in order]
     total = len(pts)
     miny = maxy = 0
     for i in range(1, total):
@@ -768,12 +800,12 @@ def convex_hull(points) -> np.ndarray:
             maxy = i
     if pts[0] == pts[-1]:
         return data[order[:1]]
-    tl = _sklansky(pts, total - 1, maxy, -1, -1)
-    tr = _sklansky(pts, 0, maxy, -1, 1)
+    tl = _sklansky(pts, total - 1, maxy, -1, -1, sub)
+    tr = _sklansky(pts, 0, maxy, -1, 1, sub)
     hull = tl[:-1] + tr[:0:-1]
     stop = tr[1] if len(tr) > 2 else tl[-2] if len(tl) > 2 else -1
-    bl = _sklansky(pts, 0, miny, 1, -1)
-    br = _sklansky(pts, total - 1, miny, 1, 1)
+    bl = _sklansky(pts, 0, miny, 1, -1, sub)
+    br = _sklansky(pts, total - 1, miny, 1, 1, sub)
     nbl, nbr = len(bl), len(br)
     if stop >= 0:
         check = bl[1] if nbl > 2 else br[2 - nbl] if nbl + nbr > 2 else -1
@@ -855,7 +887,8 @@ def _rotating_calipers(p: np.ndarray):
 
 
 def min_area_rect(points):
-    """``cv2.minAreaRect`` of integer points: ((cx, cy), (w, h), angle),
+    """``cv2.minAreaRect`` of integer or float32 points: ((cx, cy), (w, h),
+    angle),
     the angle in [-90, 0) degrees, as cv2 5.0 gives them."""
     f32 = np.float32
     hull = convex_hull(points).astype(f32)
@@ -1001,6 +1034,33 @@ def draw_contours(img: np.ndarray, contour, value,
     return fill_poly(img, [contour], value, offset)
 
 
+def draw_contour_lines(img: np.ndarray, contours: Sequence,
+                       value) -> np.ndarray:
+    """``cv2.drawContours(img, contours, -1, value)`` (thickness 1,
+    ``LINE_8``) in place: each contour closed and its sides drawn by cv2's
+    8-connected line; returns img."""
+    for c in contours:
+        pts = [(int(x), int(y)) for x, y in np.asarray(c).reshape(-1, 2)]
+        for p0, p1 in zip(pts, pts[1:] + pts[:1]):
+            _draw_line(img, p0, p1, value)
+    return img
+
+
+def connected_components(mask: np.ndarray, connectivity: int = 4):
+    """``cv2.connectedComponents(mask, connectivity=connectivity)``:
+    (the number of labels with the background's, (H, W) int32 labels).
+    ``scipy.ndimage.label`` numbers the components by their first pixel in
+    raster order, which is cv2's order at 4-connectivity (8-connectivity
+    runs cv2's block scan, whose order differs:
+    ``convertors/seg.py``)."""
+    from scipy import ndimage
+    if connectivity != 4:
+        raise ValueError('connectivity 4 only')
+    labels, n = ndimage.label(np.asarray(mask) != 0,
+                              structure=[[0, 1, 0], [1, 1, 1], [0, 1, 0]])
+    return n + 1, labels.astype(np.int32)
+
+
 def get_structuring_element(ksize: Tuple[int, int]) -> np.ndarray:
     """``cv2.getStructuringElement(cv2.MORPH_ELLIPSE, ksize)``, ksize
     (width, height)."""
@@ -1049,3 +1109,116 @@ def dilate(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
             np.maximum(out, _shifted_max(along_x, i - kh // 2, i - kh // 2,
                                          0), out=out)
     return out
+
+
+# ------------------------------------------------- distance transform --
+
+_DT_A = np.float32(0.955)        # cv2's DIST_L2 3x3 mask: a step across
+_DT_B = np.float32(1.3693)       # ... and a step along a diagonal
+_DT_LANES = 4                    # the width of cv2's vector blocks
+_DT_STEPS = np.float32(np.arange(_DT_LANES + 1)) * _DT_A   # k * a
+_FLT_MAX = np.float32(np.finfo(np.float32).max)
+
+
+def _dt_chain(v: np.ndarray, carry) -> np.ndarray:
+    """Along the last axis, ``out[j] = min(v[j], out[j - 1] + a)`` from
+    ``out[-1] = carry``, one float32 addition a step, as a scalar loop
+    computes it: the candidates relaxed together until nothing moves (a
+    round for each addition of the longest chain that wins)."""
+    out = v.copy()
+    if out.shape[-1]:
+        np.minimum(out[..., 0], carry + _DT_A, out=out[..., 0])
+    while out.shape[-1] > 1:
+        step = np.minimum(v[..., 1:], out[..., :-1] + _DT_A)
+        if not (step < out[..., 1:]).any():
+            break
+        out[..., 1:] = step
+    return out
+
+
+def _dt_seed_steps(inp: np.ndarray) -> np.ndarray:
+    """For every column of cv2's vector blocks (from column 4), ``min(inp[m]
+    + (k - m) a)`` over the block's lanes m before the column's lane k
+    (``FLT_MAX`` where there is none): the in-block term of
+    ``_dt_blocks``."""
+    lanes = _DT_LANES
+    w = inp.shape[-1]
+    nb = max(0, (w - 2 * lanes - 1) // lanes + 1)     # j0 + 4 < w
+    blk = inp[..., lanes:lanes + lanes * nb].reshape(*inp.shape[:-1], nb,
+                                                      lanes)
+    out = np.full(blk.shape, _FLT_MAX, np.float32)
+    for k in range(1, lanes):
+        for m in range(k):
+            np.minimum(out[..., k], blk[..., m] + _DT_STEPS[k - m],
+                       out=out[..., k])
+    return out
+
+
+def _dt_blocks(v: np.ndarray, seeds: np.ndarray) -> np.ndarray:
+    """A row of cv2's forward pass after its first (the last axis): columns
+    0-3 a scalar chain, then blocks of four columns from column 4 while a
+    block ends before the last column, then a scalar tail. In a block,
+    lane k takes ``min(v[k], carry + (k + 1) a, inp[m] + (k - m) a for m <
+    k)``: ``carry`` is the block before's last lane, one addition from it,
+    not k + 1, and ``inp`` the row before the pass (``seeds``, from
+    ``_dt_seed_steps``)."""
+    lanes = _DT_LANES
+    lead = v.shape[:-1]
+    nb = seeds.shape[-2]
+    out = np.empty_like(v)
+    out[..., :lanes] = _dt_chain(v[..., :lanes], _FLT_MAX)
+    end = lanes + lanes * nb
+    if nb:
+        base = np.minimum(v[..., lanes:end].reshape(*lead, nb, lanes),
+                          seeds)
+        # each block's carry is the block before's last lane: a chain of
+        # one addition of 4a a block, relaxed as _dt_chain does
+        into = np.empty((*lead, nb), np.float32)
+        into[..., 0] = out[..., lanes - 1]
+        into[..., 1:] = base[..., :-1, -1]
+        while True:
+            last = np.minimum(base[..., -1], into + _DT_STEPS[lanes])
+            step = last[..., :-1]
+            if not (step < into[..., 1:]).any():
+                break
+            into[..., 1:] = step
+        out[..., lanes:end] = np.minimum(
+            base, into[..., None] + _DT_STEPS[1:]).reshape(*lead, -1)
+    if end < v.shape[-1]:
+        out[..., end:] = _dt_chain(v[..., end:], out[..., end - 1])
+    return out
+
+
+def distance_transform(mask: np.ndarray) -> np.ndarray:
+    """``cv2.distanceTransform(mask, cv2.DIST_L2, 3)`` (cv2 5.0) of an (H,
+    W) mask, or of each of a stack (..., H, W): the float32 chamfer
+    distance of each non-zero pixel to the nearest zero one, a step across
+    0.955 and along a diagonal 1.3693, in two passes; pixels outside the
+    image are never zeros, and a pixel with no zero to reach is
+    ``FLT_MAX``. The forward pass (top to bottom) takes each pixel's three
+    upper neighbours, then the row left to right: its first and last rows
+    as a scalar loop, the rows between in cv2's vector blocks
+    (``_dt_blocks``), whose additions round differently. The backward pass
+    (bottom to top, right to left) is a scalar loop. On the rows between,
+    this is cv2 bit for bit; on the last row cv2's vector code, not
+    followed here, can land one float32 ulp lower, and that carries up
+    through the backward pass."""
+    nz = np.asarray(mask) != 0
+    *lead, h, w = nz.shape
+    t = np.full((*lead, h + 2, w + 2), _FLT_MAX, np.float32)
+    t[..., 1:-1, 1:-1] = np.where(nz, _FLT_MAX, np.float32(0))
+    a, b = _DT_A, _DT_B
+    seeds = _dt_seed_steps(t[..., 1:-1, 1:-1])
+    for i in range(1, h + 1):                       # forward
+        up = t[..., i - 1, :]
+        v = np.minimum(np.minimum(t[..., i, 1:-1], up[..., 1:-1] + a),
+                       np.minimum(up[..., :-2] + b, up[..., 2:] + b))
+        t[..., i, 1:-1] = (
+            _dt_chain(v, _FLT_MAX) if i in (1, h)
+            else _dt_blocks(v, seeds[..., i - 1, :, :]))
+    for i in range(h, 0, -1):                       # backward
+        down = t[..., i + 1, :]
+        v = np.minimum(np.minimum(t[..., i, 1:-1], down[..., 1:-1] + a),
+                       np.minimum(down[..., :-2] + b, down[..., 2:] + b))
+        t[..., i, 1:-1] = _dt_chain(v[..., ::-1], _FLT_MAX)[..., ::-1]
+    return t[..., 1:-1, 1:-1]

@@ -7,9 +7,12 @@ Annotations are JSON lines, ``{'file_name', 'annotations': [{'polygon':
 ``img_size`` (``cv_ops.resize_u8``, within one grey level of
 ``cv2.resize``) as float32 in [0, 1], its polygons scaled with it, and the
 don't-care polygons apart. Images are decoded with ``cv2.imread`` inside
-the call (``LoadImageFromFile``). ``evaluate`` scores boundaries in the
-resized coordinates with hmean-iou or hmean-ic13. Training items need the
-DBNet targets, which are not ported yet: ``test_mode=False`` raises.
+the call (``LoadImageFromFile``). Out of test mode an item also carries
+DBNet's maps (``DBNetTargets(**target_cfg)``, as JAX's does for every
+detector; ``train_detector`` makes another family's targets from the
+polygons). No augmentation runs: JAX's ``train_detector`` never runs a
+config's ``train_pipeline``. ``evaluate`` scores boundaries in the resized
+coordinates with hmean-iou or hmean-ic13.
 """
 from __future__ import annotations
 
@@ -27,12 +30,10 @@ from .pipelines.transforms import LoadImageFromFile
 @DATASETS.register_module()
 class TextDetDataset:
     def __init__(self, ann_file: str, img_prefix: str = '',
-                 img_size=(640, 640), test_mode: bool = False, **kwargs):
-        if not test_mode:
-            raise NotImplementedError(
-                'TextDetDataset: training items need DBNetTargets, which '
-                'are not ported yet (ROADMAP.md queue 1, detection '
-                'training); build it with test_mode=True')
+                 img_size=(640, 640), target_cfg: Optional[Dict] = None,
+                 test_mode: bool = False, **kwargs):
+        from ..models.textdet.targets import DBNetTargets
+        self.targets = DBNetTargets(**(target_cfg or {}))
         self.ann_file = ann_file
         with open(ann_file, encoding='utf-8') as f:
             self.lines = [json.loads(line) for line in f if line.strip()]
@@ -67,7 +68,7 @@ class TextDetDataset:
         img = self._read(index)
         H, W = self.img_size
         polys, polys_ignore = self._polygons(index, *img.shape[:2])
-        return {
+        out = {
             'img': resize_u8(img, W, H).astype(np.float32) / 255.0,
             'gt_polygons': polys,
             'gt_polygons_ignore': polys_ignore,
@@ -75,6 +76,10 @@ class TextDetDataset:
                           'valid_ratio': 1.0},
             'text': '',
         }
+        if not self.test_mode:
+            out.update(self.targets.generate(polys, H, W,
+                                             polygons_ignore=polys_ignore))
+        return out
 
     def sample(self, index: int, key: Optional[int] = None) -> Dict:
         return self[index]

@@ -1,6 +1,5 @@
 """DBNet, the differentiable-binarization text detector (counterpart of
-``tps_pp_tpu/models/textdet/dbnet.py:29-195``, without ``DBLoss``, which
-the training slice brings).
+``tps_pp_tpu/models/textdet/dbnet.py:29-195``).
 
 * ``ResNetDet``: a ResNet-18-style trunk, a 7x7/2 stem and a 3/2/1 max
   pool, then BasicBlock stages, giving C2-C5 at strides 4, 8, 16 and 32.
@@ -12,6 +11,10 @@ the training slice brings).
 * ``DBHead``: a probability and a threshold branch, each conv3x3-BN-ReLU
   and two stride-2 transposed convolutions, fused as
   ``1 / (1 + exp(-k (P - T)))``; the output is [prob, thr, binary].
+* ``DBLoss``: balanced BCE with OHEM on the probability map (all
+  positives and the largest ``min(#neg, 3 #pos)`` negative losses, summed
+  from a descending sort as JAX does, so that no count leaves the card),
+  masked L1 on the threshold map, dice on the binary map; float32.
 
 Modules take and return NHWC (the JAX package's layout) at the detector's
 boundary, and run NCHW inside. The ``state_dict`` names are MMOCR 0.4.0's:
@@ -29,7 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...registry import BACKBONES, HEADS, NECKS
+from ...registry import BACKBONES, HEADS, LOSSES, NECKS
 from ..layers import (BasicBlock, BatchNorm2d, max_pool, nhwc_to_nchw,
                       resize_nearest)
 
@@ -135,6 +138,49 @@ class DBHead(nn.Module):
         thr = self.threshold(x)
         binary = 1.0 / (1.0 + torch.exp(-self.k * (prob - thr)))
         return torch.cat([prob, thr, binary], dim=1)
+
+
+@LOSSES.register_module()
+class DBLoss:
+    """Balanced BCE + masked L1 + dice (reference ``losses/db_loss.py``;
+    JAX ``dbnet.py:133-182``)."""
+
+    def __init__(self, alpha=5.0, beta=10.0, negative_ratio=3.0, eps=1e-6,
+                 **kwargs):
+        self.alpha = alpha
+        self.beta = beta
+        self.negative_ratio = negative_ratio
+        self.eps = eps
+
+    def __call__(self, preds: torch.Tensor, targets) -> dict:
+        """preds: (N, H, W, 3) [prob, thr, binary]; targets: ``gt_shrink``,
+        ``gt_shrink_mask``, ``gt_thr``, ``gt_thr_mask``, each (N, H, W)."""
+        prob, thr, binary = preds.float().unbind(-1)
+        gt = targets['gt_shrink'].float()
+        mask = targets['gt_shrink_mask'].float()
+        gt_thr = targets['gt_thr'].float()
+        thr_mask = targets['gt_thr_mask'].float()
+        eps = self.eps
+        bce = -(gt * torch.log(prob + eps)
+                + (1 - gt) * torch.log(1 - prob + eps))
+        pos = gt * mask
+        neg = (1 - gt) * mask
+        n_pos = pos.sum()
+        n_neg_keep = torch.minimum(neg.sum(),
+                                   n_pos * self.negative_ratio).floor()
+        neg_losses = torch.sort((bce * neg).reshape(-1),
+                                descending=True).values
+        keep = (torch.arange(neg_losses.numel(), device=preds.device)
+                < n_neg_keep).float()
+        loss_prob = ((bce * pos).sum() + (neg_losses * keep).sum()) / (
+            n_pos + n_neg_keep + eps)
+        loss_thr = ((thr - gt_thr).abs() * thr_mask).sum() / (
+            thr_mask.sum() + eps)
+        inter = (binary * gt * mask).sum()
+        union = (binary * mask).sum() + (gt * mask).sum() + eps
+        return {'loss_prob': self.alpha * loss_prob,
+                'loss_thr': self.beta * loss_thr,
+                'loss_db': 1 - 2.0 * inter / union}
 
 
 class DBNetModule(nn.Module):

@@ -1,5 +1,6 @@
-"""DBNet's postprocessing and the hmean-IoU detection metric, on the host
-(counterpart of ``tps_pp_tpu/models/textdet/postprocess.py:19-147``).
+"""The segmentation detectors' postprocessing and the hmean-IoU detection
+metric, on the host (counterpart of
+``tps_pp_tpu/models/textdet/postprocess.py:19-262``).
 
 ``DBPostprocessor`` is the JAX package's, with its cv2 calls taken by the
 numpy copies in ``datasets/pipelines/cv_ops.py`` (the machine with the
@@ -9,6 +10,17 @@ bounding-box crop, and unclip. Quads grow the min-area rectangle by the DB
 offset ``d = A r / L`` on each side; polys dilate the filled contour by
 ``round(d)`` and take its largest outer border (pyclipper is absent in the
 JAX package too).
+
+``PSEPostprocessor`` (progressive scale expansion) and
+``PANPostprocessor`` (pixel aggregation) decode the raw logits of PSENet
+and PANet at the head's 1/4 scale: the smallest kernel's 4-connected
+components (``cv_ops.connected_components``) grown by ``contour_expand``
+or ``pixel_group`` (``pixel_ops.py``, copies of the JAX package's native
+C++), each text instance then a boundary by ``points2boundary``: the
+min-area rectangle's corners (quad) or the outer border of its pixels
+(poly). PAN also draws its kernels' outlines (``CHAIN_APPROX_NONE``
+contours, thickness 1), which ``pixel_group`` takes and, as the C++ does,
+does not read.
 
 ``eval_hmean_iou`` is the reference's hmean-IoU protocol
 (``core/evaluation/hmean_iou.py:8-120``) with exact polygon areas
@@ -23,6 +35,7 @@ import numpy as np
 from ...datasets.pipelines import cv_ops
 from ...evaluation.polygon import (poly_intersection_area, poly_iou,
                                    polygon_area)
+from .pixel_ops import contour_expand, pixel_group
 
 
 class DBPostprocessor:
@@ -82,6 +95,128 @@ class DBPostprocessor:
             boundaries.append(
                 np.concatenate([points.reshape(-1), [score]]).astype(
                     np.float32))
+        return boundaries
+
+
+def _row_ends(points: np.ndarray) -> np.ndarray:
+    """The first and last point of each row of a point set in raster
+    order, in that order: the same convex hull (every point lies between
+    its row's ends), far fewer points for ``convex_hull``'s loop."""
+    y = points[:, 1]
+    first = np.r_[True, y[1:] != y[:-1]]
+    last = np.r_[y[1:] != y[:-1], True]
+    return points[first | last]
+
+
+def points2boundary(points: np.ndarray, text_repr_type: str,
+                    score: float, min_width: int = -1):
+    """An instance's pixels (x, y) in raster order -> its boundary
+    ``[x1, y1, ..., score]`` (reference ``core/mask.py:8-52``): the
+    corners of the min-area rectangle (quad), or the first outer border
+    of its pixels drawn on a mask (poly); None when too thin or too
+    short."""
+    points = np.asarray(points)
+    if text_repr_type == 'quad':
+        rect = cv_ops.min_area_rect(_row_ends(points.astype(np.int32)))
+        if min(rect[1]) <= min_width:
+            return None
+        boundary = cv_ops.box_points(rect).flatten().tolist()
+    else:
+        height = int(points[:, 1].max()) + 10
+        width = int(points[:, 0].max()) + 10
+        mask = np.zeros((height, width), np.uint8)
+        mask[points[:, 1].astype(int), points[:, 0].astype(int)] = 255
+        contours = cv_ops.find_contours(mask, cv_ops.RETR_EXTERNAL)
+        if not contours:
+            return None
+        boundary = contours[0].flatten().tolist()
+    boundary = boundary + [score]
+    if len(boundary) < 8 + 1:
+        return None
+    return np.asarray(boundary, np.float32)
+
+
+class PSEPostprocessor:
+    """Progressive scale expansion (reference
+    ``pse_postprocessor.py:13-91``)."""
+
+    def __init__(self, text_repr_type='poly', min_kernel_confidence=0.5,
+                 min_text_avg_confidence=0.85, min_kernel_area=0,
+                 min_text_area=16, **kwargs):
+        self.text_repr_type = text_repr_type
+        self.min_kernel_confidence = min_kernel_confidence
+        self.min_text_avg_confidence = min_text_avg_confidence
+        self.min_kernel_area = min_kernel_area
+        self.min_text_area = min_text_area
+
+    def __call__(self, preds: np.ndarray) -> List[np.ndarray]:
+        """preds: (H, W, K + 1) raw logits [text, kernels large to
+        small]."""
+        preds = 1.0 / (1.0 + np.exp(-np.asarray(preds, np.float32)))
+        score = preds[..., 0]
+        masks = preds > self.min_kernel_confidence
+        text_mask = masks[..., 0]
+        kernel_masks = (masks * text_mask[..., None]).astype(
+            np.uint8).transpose(2, 0, 1)
+        region_num, labels = cv_ops.connected_components(kernel_masks[-1])
+        labels = contour_expand(kernel_masks, labels, self.min_kernel_area,
+                                region_num - 1)
+        boundaries = []
+        for i in range(1, labels.max() + 1):
+            points = np.array(np.where(labels == i)).T[:, ::-1]
+            area = points.shape[0]
+            score_i = float(score[labels == i].mean()) if area else 0.0
+            if area < self.min_text_area or \
+                    score_i < self.min_text_avg_confidence:
+                continue
+            vb = points2boundary(points, self.text_repr_type, score_i)
+            if vb is not None:
+                boundaries.append(vb)
+        return boundaries
+
+
+class PANPostprocessor:
+    """Pixel aggregation (reference ``pan_postprocessor.py:13-89``)."""
+
+    def __init__(self, text_repr_type='poly', min_text_confidence=0.5,
+                 min_kernel_confidence=0.5, min_text_avg_confidence=0.85,
+                 min_text_area=16, **kwargs):
+        self.text_repr_type = text_repr_type
+        self.min_text_confidence = min_text_confidence
+        self.min_kernel_confidence = min_kernel_confidence
+        self.min_text_avg_confidence = min_text_avg_confidence
+        self.min_text_area = min_text_area
+
+    def __call__(self, preds: np.ndarray) -> List[np.ndarray]:
+        """preds: (H, W, 6) raw logits [text, kernel, 4-d embedding]."""
+        preds = np.asarray(preds, np.float32)
+        text_score = 1.0 / (1.0 + np.exp(-preds[..., 0]))
+        kernel_score = 1.0 / (1.0 + np.exp(-preds[..., 1]))
+        text = text_score > self.min_text_confidence
+        kernel = (kernel_score > self.min_kernel_confidence) & text
+        embeddings = preds[..., 2:]
+        region_num, labels = cv_ops.connected_components(kernel)
+        contours = cv_ops.find_contours((kernel * 255).astype(np.uint8),
+                                        cv_ops.RETR_LIST,
+                                        cv_ops.CHAIN_APPROX_NONE)
+        kernel_contours = cv_ops.draw_contour_lines(
+            np.zeros(text.shape, np.uint8), contours, 255)
+        # the reference passes the average-confidence threshold as the
+        # embedding distance threshold; so do JAX and this port
+        text_points = pixel_group(text_score, text, embeddings, labels,
+                                  kernel_contours, region_num - 1,
+                                  self.min_text_avg_confidence)
+        boundaries = []
+        for tp in text_points:
+            score_i, count = tp[0], tp[1]
+            if count < self.min_text_area or \
+                    score_i < self.min_text_avg_confidence:
+                continue
+            points = np.asarray(tp[2:], dtype=int).reshape(-1, 2)
+            vb = points2boundary(points, self.text_repr_type,
+                                 float(score_i))
+            if vb is not None:
+                boundaries.append(vb)
         return boundaries
 
 

@@ -1,5 +1,5 @@
-"""Evaluate a text recognizer or a DBNet detector on its config's test
-set, on one GPU (counterpart of ``tools/test.py:194-281``):
+"""Evaluate a text recognizer or a detector on its config's test set, on
+one GPU (counterpart of ``tools/test.py:194-281``):
 
     python -m tps_pp_tpu_torch.tools.test CONFIG [CHECKPOINT] --eval acc \\
         [--out results.json] [--batch-size N] [--cfg-options k=v ...]
@@ -11,14 +11,15 @@ serves the flagship in bf16 on the kernels. Prints the metrics as JSON;
 ``--out`` also writes them with every result. One process, one GPU: the
 multi-host sharding of the JAX CLI has no counterpart yet.
 
-A DBNet config (``configs/textdet/dbnet/``) detects every test image at
-``det_img_size`` (640 x 640 unless the config sets it) in batches of
-``--batch-size`` or the config's ``samples_per_gpu``, logs the ms an
-image, and scores the boundaries with ``--eval`` (``hmean-iou`` for
-``acc``, or ``hmean-ic13``). ``data.test`` is built through the port's
-registry, so a ``UniformConcatDataset`` of ``IcdarDataset``s works (the
-JAX CLI passes it to ``TextDetDataset`` and fails). The other detector
-types, KIE and NER raise ``NotImplementedError``.
+A DBNet, PANet or PSENet config (``configs/textdet/{dbnet, panet,
+psenet}/``) detects every test image at ``det_img_size`` (640 x 640
+unless the config sets it) in batches of ``--batch-size`` or the config's
+``samples_per_gpu``, logs the ms an image, and scores the boundaries with
+``--eval`` (``hmean-iou`` for ``acc``, or ``hmean-ic13``). ``data.test``
+is built through the port's registry, so a ``UniformConcatDataset`` of
+``IcdarDataset``s works (the JAX CLI passes it to ``TextDetDataset`` and
+fails). The other detector types, KIE and NER raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,16 +30,16 @@ import logging
 import time
 from typing import Dict, List, Optional
 
-# model types of the JAX package's other branches
-# (tps_pp_tpu/apis/train_det.py:23, tps_pp_tpu/apis/train_kie.py:28-29)
-DET_TYPES = ('DBNet', 'PANet', 'PSENet', 'FCENet', 'TextSnake',
-             'OCRMaskRCNN', 'DRRG')
+from ..apis.train_det import DET_TYPES
+
+# model types of the JAX package's KIE and NER branches
+# (tps_pp_tpu/apis/train_kie.py:28-29)
 KIE_NER_TYPES = ('SDMGR', 'NerClassifier')
 
 
 def parse_args(argv: Optional[List[str]] = None):
     p = argparse.ArgumentParser(
-        description='Evaluate a text recognizer or a DBNet detector')
+        description='Evaluate a text recognizer or a text detector')
     p.add_argument('config')
     p.add_argument('checkpoint', nargs='?', default=None)
     p.add_argument('--eval', default='acc')

@@ -1,11 +1,11 @@
-"""Train a text recognizer (counterpart of the recognition branch of
-``tools/train.py:36-109``):
+"""Train a text recognizer or detector (counterpart of ``tools/train.py:
+36-109``):
 
     python -m tps_pp_tpu_torch.tools.train CONFIG [--work-dir WD] \\
         [--load-from CKPT.pth] [--resume-from CKPT.pth|WD] [--seed N] \\
         [--cfg-options k=v ...]
 
-On several GPUs of one host, one process each:
+On several GPUs of one host, one process each (recognizers):
 
     torchrun --nproc_per_node=G -m tps_pp_tpu_torch.tools.train CONFIG ...
 
@@ -14,8 +14,16 @@ On several GPUs of one host, one process each:
 ``samples_per_gpu`` is the global batch, split over the processes.
 ``--cfg-options`` values are Python literals where they parse as such.
 The datasets of the config load their images from files, which needs cv2
-(``LoadImageFromFile``). Detection, KIE and NER training is not ported
-(``ROADMAP.md`` queue 1: detection training, KIE and NER).
+(``LoadImageFromFile``).
+
+A DBNet, PANet or PSENet config trains through ``train_detector`` on one
+GPU, ``data.train`` built through the port's registry (a
+``UniformConcatDataset`` of ``IcdarDataset``s, which the JAX CLI passes to
+``TextDetDataset`` and fails on), in batches of ``samples_per_gpu`` (the
+JAX CLI leaves ``train_detector``'s default of 4), for ``total_epochs``,
+with no augmentation (JAX's loop runs no ``train_pipeline``). The other
+detectors, KIE and NER raise ``NotImplementedError`` (``ROADMAP.md`` queue
+1).
 """
 from __future__ import annotations
 
@@ -52,7 +60,8 @@ def train_cfg_of(cfg) -> dict:
 
 def main(argv: Optional[List[str]] = None, device=None):
     """Train; ``device`` as in ``build_recognizer`` (the process's GPU
-    when None). Returns ``train_recognizer``'s (optimizer, history)."""
+    when None). Returns ``train_recognizer``'s (optimizer, history), or
+    ``train_detector``'s (model, optimizer, history)."""
     from ..apis import build_recognizer, train_recognizer
     from ..config import load_config, merge_cli_options
     from ..datasets import build_dataset
@@ -62,10 +71,19 @@ def main(argv: Optional[List[str]] = None, device=None):
     cfg = load_config(args.config)
     merge_cli_options(cfg, parse_cfg_options(args.cfg_options))
     model_type = cfg['model'].get('type')
-    if model_type in DET_TYPES + KIE_NER_TYPES:
+    if model_type in KIE_NER_TYPES:
         raise NotImplementedError(
-            f'{model_type}: detection, KIE and NER training is not ported '
-            'yet (ROADMAP.md queue 1: detection training, KIE and NER)')
+            f'{model_type}: KIE and NER training is not ported yet '
+            '(ROADMAP.md queue 1, KIE and NER)')
+    if model_type in DET_TYPES:
+        from ..apis.train_det import train_detector
+        data = cfg.get('data', {})
+        return train_detector(
+            cfg, build_dataset(data['train']), work_dir=args.work_dir,
+            batch_size=int(data.get('samples_per_gpu', 4)),
+            log_interval=cfg.get('log_config', {}).get('interval', 10),
+            seed=args.seed, device=device, resume_from=args.resume_from,
+            load_from=args.load_from)
     device = maybe_init_distributed(device)
     rec = build_recognizer(cfg['model'], device, param_dtype='float32')
     train_ds = build_dataset(cfg['data']['train'])

@@ -510,19 +510,79 @@ def dbnet_rules(cfg: Mapping) -> List[Rule]:
     ``torch_convert.py`` has no detection table and the reference tree is
     absent, so the names are read from MMOCR 0.4.0's and mmdet's modules,
     not checked against a reference checkpoint."""
+    n = len(cfg['neck'].get('in_channels', (64, 128, 256, 512)))
+    return _det_trunk_rules(cfg) + fpnc_rules(n) + db_head_rules()
+
+
+def _det_trunk_rules(cfg: Mapping) -> List[Rule]:
+    """The rules of a detector's ResNetDet or ResNetDet50 trunk."""
     bb = cfg['backbone']
     if bb.get('type') == 'ResNetDet':
-        rules = resnet_det_rules(tuple(bb.get('stage_blocks', (2, 2, 2, 2))))
-    elif bb.get('type') == 'ResNetDet50':
+        return resnet_det_rules(tuple(bb.get('stage_blocks', (2, 2, 2, 2))))
+    if bb.get('type') == 'ResNetDet50':
         dcn = (tuple(bb.get('stage_with_dcn', (False,) * 4))
                if bb.get('dcn') else (False,) * 4)
-        rules = resnet_det50_rules(
+        return resnet_det50_rules(
             tuple(bb.get('stage_blocks', (3, 4, 6, 3))), dcn)
-    else:
-        raise ValueError(f'no conversion rules for backbone type '
-                         f'{bb.get("type")!r}')
-    n = len(cfg['neck'].get('in_channels', (64, 128, 256, 512)))
-    return rules + fpnc_rules(n) + db_head_rules()
+    raise ValueError(f'no conversion rules for backbone type '
+                     f'{bb.get("type")!r}')
+
+
+def fpem_ffm_rules(n_levels: int = 4, fpem_repeat: int = 2) -> List[Rule]:
+    """FPEM_FFM with MMOCR 0.4.0's names (``fpem_ffm.py``):
+    ``neck.reduce_conv_c{2..5}.{0,1}`` (1x1 conv with bias, BN) and
+    ``neck.fpems.{r}.{up,down}_add{1..3}.{depthwise_conv, pointwise_conv,
+    bn}``."""
+    rules = []
+    for i in range(n_levels):
+        rules += [(f'neck.reduce_conv_c{i + 2}.0', f'neck/reduce{i}', 'conv'),
+                  (f'neck.reduce_conv_c{i + 2}.1', f'neck/reduce_bn{i}',
+                   'bn')]
+    for r in range(fpem_repeat):
+        for name in ('up_add1', 'up_add2', 'up_add3', 'down_add1',
+                     'down_add2', 'down_add3'):
+            tp, fp = f'neck.fpems.{r}.{name}', f'neck/fpem{r}/{name}'
+            rules += [(f'{tp}.depthwise_conv', f'{fp}/depthwise', 'conv'),
+                      (f'{tp}.pointwise_conv', f'{fp}/pointwise', 'conv'),
+                      (f'{tp}.bn', f'{fp}/bn', 'bn')]
+    return rules
+
+
+def fpnf_rules(n_levels: int = 4) -> List[Rule]:
+    """FPNF with MMOCR 0.4.0's names (``fpnf.py``), each a ``ConvModule``
+    (``.conv`` without bias, ``.bn``): ``neck.lateral_convs.{i}``,
+    ``neck.fpn_convs.{i}`` and ``neck.output_convs``."""
+    rules = []
+
+    def conv_module(tp, fp):
+        return [(f'{tp}.conv', f'{fp}_conv', 'conv_nobias'),
+                (f'{tp}.bn', f'{fp}_bn', 'bn')]
+    for i in range(n_levels):
+        rules += conv_module(f'neck.lateral_convs.{i}', f'neck/lateral{i}')
+    for i in range(n_levels - 1):
+        rules += conv_module(f'neck.fpn_convs.{i}', f'neck/fpn{i}')
+    return rules + conv_module('neck.output_convs', 'neck/output')
+
+
+def panet_rules(cfg: Mapping) -> List[Rule]:
+    """The rule table of a PANet config (ResNetDet or ResNetDet50,
+    FPEM_FFM, PANHead's ``head.out_conv``). JAX's ``torch_convert.py`` has
+    no detection table and the reference tree is absent, so the names are
+    read from MMOCR 0.4.0's modules, not checked against a reference
+    checkpoint."""
+    neck = cfg['neck']
+    return _det_trunk_rules(cfg) + fpem_ffm_rules(
+        len(neck.get('in_channels', (64, 128, 256, 512))),
+        int(neck.get('fpem_repeat', 2))) + [
+        ('head.out_conv', 'head/out_conv', 'conv')]
+
+
+def psenet_rules(cfg: Mapping) -> List[Rule]:
+    """The rule table of a PSENet config (ResNetDet50, FPNF, PSEHead's
+    ``head.out_conv``), MMOCR 0.4.0's names as ``panet_rules``."""
+    return _det_trunk_rules(cfg) + fpnf_rules(len(cfg['neck'].get(
+        'in_channels', (256, 512, 1024, 2048)))) + [
+        ('head.out_conv', 'head/out_conv', 'conv')]
 
 
 def rules_for_config(cfg: Mapping) -> List[Rule]:
@@ -531,10 +591,12 @@ def rules_for_config(cfg: Mapping) -> List[Rule]:
     config, with its image-space preprocessor (TPS-STN, MORAN, SPIN),
     dispatched on its preprocessor, backbone, encoder and decoder types as
     JAX's ``rules_for_config`` (``torch_convert.py:604-684``), or of a
-    DBNet detector (``dbnet_rules``); a type without rules raises a
-    ``ValueError``."""
-    if cfg.get('type') == 'DBNet':
-        return dbnet_rules(cfg)
+    DBNet, PANet or PSENet detector (``dbnet_rules``, ``panet_rules``,
+    ``psenet_rules``); a type without rules raises a ``ValueError``."""
+    det = {'DBNet': dbnet_rules, 'PANet': panet_rules,
+           'PSENet': psenet_rules}.get(cfg.get('type'))
+    if det is not None:
+        return det(cfg)
     if cfg.get('type') == 'SegRecognizer':    # no preprocessor, as JAX
         bb = cfg['backbone']
         if bb.get('type') != 'ResNet31OCR':
@@ -685,7 +747,7 @@ def state_dict_from_jax(variables: Mapping, cfg: Mapping
     """JAX recognizer or detector variables -> a ``state_dict`` that the
     model of ``build_recognizer(cfg)`` (NRTR, SATRN, ABINet, CRNN, SAR,
     RobustScanner or SegRecognizer) or ``build_detector_module(cfg)``
-    (DBNet) takes with
+    (DBNet, PANet, PSENet) takes with
     ``load_state_dict(strict=True)``. The sinusoid tables, buffers as in
     the reference, are made from the config."""
     sd = convert_rules(variables, rules_for_config(cfg))
