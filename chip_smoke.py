@@ -263,8 +263,37 @@ seed):
   seeded pages (``DetPages``), ``DET_TRAIN_EPOCHS`` epochs with their
   ``.pth``: ms a warm step, the host's target ms a page and the share of
   the epoch spent making batches; a resume from epoch 1's ``.pth`` repeats
-  epoch 2's step count and lr, its loss within ``LOSS_RTOL``. The whole
-  script's time is logged before the ``kernels`` line.
+  epoch 2's step count and lr, its loss within ``LOSS_RTOL``.
+
+* FCENet and TextSnake, last, which run no hand-written kernel (plain XLA
+  and host numpy in JAX; DCNv2 on the port's plain ``ops/deform_conv.py``):
+  FCENet-R50 (``fcenet_r50_fpn_1500e_icdar2015.py``), FCENet-R50-DCNv2
+  (``fcenet_r50dcnv2_fpn_1500e_ctw1500.py``) and TextSnake-R50
+  (``textsnake_r50_fpn_unet_1200e_ctw1500.py``) through ``init_detector``,
+  seed-0 weights, float32 (TF32 off): the card against the CPU at B=2 on
+  640 x 640 (``fce_ts_card_checks``: every output within
+  ``FCE_TS_F32_RTOL`` of its largest magnitude on the seed-0 weights and
+  on a stressed map, whose first-decision logits are moved until half
+  its pixels pass the postprocessor's first threshold; there the
+  decisions that part are counted and, on equal decisions, FCENet's
+  polygons before NMS and TextSnake's boundaries compared; a trained-like
+  map moved by the card's difference from the CPU gives the unmoved
+  map's polygons or boundaries where the decisions are equal); FCENet's
+  text classes then lowered by ``FCE_QUIET`` (seed-0
+  weights put thousands of pixels above ``score_thr``, and ``poly_nms``
+  would take minutes a page); ``detect_batch`` at B=8 by stage, the
+  postprocessor on the seed-0 maps and on trained-like maps
+  (``fce_maps``, ``textsnake_maps``: each config's own targets of the
+  ``word_quads`` of a page, with FCENet's polygon IoUs counted and timed),
+  one B=1 forward at the config's test scale (``FCE_TS_CONFIGS``); one
+  float32 step of FCENet-R50 and TextSnake-R50, the card against the CPU
+  (``DET_LOSS_RTOL``, ``DET_GRAD_NORM_RTOL``); ``train_detector`` on
+  FCENet-R50 at B=8 over ``N_FCE_TRAIN_PAGES`` pages for
+  ``FCE_TRAIN_EPOCHS`` epochs and a resume from epoch 1; and
+  ``MMOCR.readtext`` with the FCENet-R50 config path and the flagship
+  recognizer on ``N_PAGES`` pages, FCENet's text classes lowered until at
+  most ``FCE_READ_PIXELS`` pixels pass. The whole script's time is logged
+  before the ``kernels`` line.
 
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
 the checks and on TPS++'s own [0, 1]^2 grid, which puts every sample in
@@ -471,6 +500,36 @@ DET_STEP_CONFIGS = {'dbnet_r18': DET_CONFIGS['dbnet_r18'][0],
                     'psenet_r50': PAN_PSE_CONFIGS['psenet_r50'][0]}
 DET_LOSS_RTOL, DET_GRAD_NORM_RTOL = 1e-4, 1e-3
 N_DET_TRAIN_PAGES, DET_TRAIN_EPOCHS = 32, 2
+# FCENet and TextSnake (config, batch, the test pipeline's img_scale (h,
+# w): TextSnake's 1333 padded to a multiple of 32, as its pipeline's Pad
+# does); their card-vs-CPU bound, relative to each output's largest
+# magnitude; the logit margin that quiets FCENet's random text classes
+# (seed-0 weights put thousands of p3 pixels above score_thr, and
+# poly_nms, exact polygon IoUs in Python, then takes minutes a page), also
+# the bisection's range; the stressed map of the card-vs-CPU check: the
+# share of pixels its bisection aims to pass the first threshold, the
+# shares it must reach, the least FCENet polygons compared (and trained-
+# like outputs of both), the share of TextSnake's boundaries that may
+# part, the px its radii are raised by (fce_ts_card_checks); the
+# words of FCENet's trained-like pages (each word costs about ten
+# polygon IoUs of ~0.5 s) and their count; TextSnake's trained-like maps;
+# the pixels readtext's FCENet leaves above score_thr on its pages;
+# train_detector's pages and epochs on FCENet-R50
+FCE_TS_CONFIGS = {
+    'fcenet_r50_ic15': (
+        'configs/textdet/fcenet/fcenet_r50_fpn_1500e_icdar2015.py', 8,
+        (2260, 2260)),
+    'fcenet_r50dcnv2_ctw': (
+        'configs/textdet/fcenet/fcenet_r50dcnv2_fpn_1500e_ctw1500.py', 8,
+        (736, 1080)),
+    'textsnake_r50_ctw': (
+        'configs/textdet/textsnake/textsnake_r50_fpn_unet_1200e_ctw1500.py',
+        8, (736, 1344))}
+FCE_TS_F32_RTOL, FCE_QUIET, FCE_READ_PIXELS = 1e-5, 30.0, 8
+FCE_TS_STRESS, FCE_TS_STRESS_SHARES, FCE_TS_MIN_COMPARED = 0.5, (0.3, 0.7), 10
+TS_STRESS_PART, TS_STRESS_RADIUS = 0.1, 8.0
+FCE_WORDS, N_FCE_TRAINED_LIKE, N_TS_TRAINED_LIKE = (1, 1), 1, 8
+N_FCE_TRAIN_PAGES, FCE_TRAIN_EPOCHS = 16, 2
 
 
 def log(*a):
@@ -4226,6 +4285,517 @@ def det_train_phase(dev, name):
         f'hand-written kernel launched; {json.dumps(stats)}')
 
 
+def fce_like(g, hw, polys):
+    """An FCENet output shaped like a trained one's, a (cls, reg) pair a
+    level: ``FCENetTargets`` of ``polys``, the text and centre regions as
+    +-4 logits plus N(0, 0.5) noise, the Fourier maps plus N(0, 0.05)."""
+    import numpy as np
+    from tps_pp_tpu_torch.models.textdet.targets import FCENetTargets
+    levels = []
+    for m in FCENetTargets().generate_level_targets(hw, polys, []):
+        tr, tcl = 2 * m[..., 0] - 1, 2 * m[..., 1] - 1
+        cls = np.stack([-tr, tr, -tcl, tcl], -1) * 4
+        levels.append(((cls + g.normal(0, 0.5, cls.shape)).astype(np.float32),
+                       (m[..., 3:] + g.normal(0, 0.05, m[..., 3:].shape)
+                        ).astype(np.float32)))
+    return levels
+
+
+def textsnake_like(g, hw, polys):
+    """A TextSnake output shaped like a trained one's: the
+    ``TextSnakeTargets`` of ``polys``, the text and centre masks as +-4
+    logits, the sin, cos and radius maps, plus noise."""
+    import numpy as np
+    from tps_pp_tpu_torch.models.textdet.targets import TextSnakeTargets
+    t = TextSnakeTargets().generate(polys, [], *hw)
+    x = np.stack([(2 * t['gt_text_mask'] - 1) * 4,
+                  (2 * t['gt_center_region_mask'] - 1) * 4, t['gt_sin_map'],
+                  t['gt_cos_map'], t['gt_radius_map']], -1)
+    noise = g.normal(0, 1, x.shape) * [0.5, 0.5, 0.05, 0.05, 0.2]
+    return (x + noise).astype(np.float32)
+
+
+def fce_maps(g, n, hw=(640, 640), words=None):
+    """``n`` ``fce_like`` outputs, each of a page's ``word_quads``
+    (``words`` of them where given)."""
+    out = []
+    for _ in range(n):
+        quads = word_quads(g, hw)
+        if words is not None:
+            quads = quads[:int(g.integers(*words, endpoint=True))]
+        out.append(fce_like(g, hw, quads))
+    return out
+
+
+def textsnake_maps(g, n, hw=(640, 640)):
+    """``n`` ``textsnake_like`` outputs of a page's ``word_quads``,
+    stacked."""
+    import numpy as np
+    return np.stack([textsnake_like(g, hw, word_quads(g, hw))
+                     for _ in range(n)])
+
+
+def lower_first_decision(det, d, radius=0.0):
+    """Lower by ``d`` (raise where negative) the logits of the first
+    decision ``det``'s postprocessor takes: FCENet's text and centre class
+    1, TextSnake's text and centre maps; raise TextSnake's radius map by
+    ``radius``."""
+    import torch
+    fce = det.det_type == 'FCENet'
+    conv = det.model.head.out_conv_cls if fce else det.model.head.out_conv
+    with torch.no_grad():
+        for i in ((1, 3) if fce else (0, 1)):
+            conv.bias[i] -= d
+        if not fce:
+            conv.bias[4] += radius
+
+
+def first_decisions(det, maps, d=0.0):
+    """The pixels' first decisions of ``det``'s postprocessor on batched
+    ``maps``, with the logits ``lower_first_decision`` moves lowered by
+    ``d``: FCENet's score above score_thr, level after level, TextSnake's
+    centre score above its threshold; flattened."""
+    import torch
+    pp = det.postprocessor
+    if det.det_type == 'FCENet':
+        out = []
+        for c, _ in maps:
+            c = c.float()
+            tr = torch.softmax(torch.stack([c[..., 0], c[..., 1] - d], -1),
+                               -1)[..., 1]
+            tcl = torch.softmax(torch.stack([c[..., 2], c[..., 3] - d], -1),
+                                -1)[..., 1]
+            out.append((tr ** pp.alpha * tcl ** pp.beta
+                        > pp.score_thr).flatten())
+        return torch.cat(out)
+    s = torch.sigmoid(maps[..., :2].float() - d)
+    return (s[..., 1] * s[..., 0] > pp.min_center_region_confidence
+            ).flatten()
+
+
+def first_decision_margin(det, maps, at_most):
+    """The least ``d`` in [-FCE_QUIET, FCE_QUIET] (bisection) at which at
+    most ``at_most`` of the first decisions on ``maps`` pass."""
+    lo, hi = -FCE_QUIET, FCE_QUIET
+    for _ in range(40):
+        mid = (lo + hi) / 2
+        if int(first_decisions(det, maps, mid).sum()) <= at_most:
+            hi = mid
+        else:
+            lo = mid
+    return hi
+
+
+def equal_first_decisions(det, maps, other, part):
+    """``maps`` with ``other``'s first-decision logits where ``part`` (laid
+    out as ``first_decisions``) says their decisions part: the two then
+    decide alike and differ elsewhere as they did."""
+    import torch
+    if det.det_type != 'FCENet':
+        sel = part.reshape(maps.shape[:-1])[..., None]
+        return torch.cat([torch.where(sel, other[..., :2], maps[..., :2]),
+                          maps[..., 2:]], -1)
+    out, i0 = [], 0
+    for (c, r), (oc, _) in zip(maps, other):
+        k = c[..., 0].numel()
+        sel = part[i0:i0 + k].reshape(c.shape[:-1])[..., None]
+        out.append((torch.where(sel, oc, c), r))
+        i0 += k
+    return tuple(out)
+
+
+def compare_postprocessed(det, a, b):
+    """(compared, parted) between what ``det``'s postprocessor makes of
+    the batched CPU maps ``a`` and ``b``: FCENet's polygons before NMS (one
+    a pixel of each contour; no ``poly_nms`` time), vertices within 1 px
+    (int32 truncations of the regression) and scores within 1e-4;
+    TextSnake's boundaries, vertices equal and scores within 1e-4 (all the
+    boundaries of an image whose counts differ part). Raises where FCENet's
+    contours differ."""
+    import numpy as np
+    pp = det.postprocessor
+    n = part = 0
+    if det.det_type == 'FCENet':
+        for i in range(len(a[0][0])):
+            for (ac, ar), (bc, br), s in zip(a, b, pp.scales):
+                pa = pp.candidates(ac[i].numpy(), ar[i].numpy(), s)
+                pb = pp.candidates(bc[i].numpy(), br[i].numpy(), s)
+                if [u.shape for u in pa] != [v.shape for v in pb]:
+                    raise AssertionError(f'FCENet contours part: '
+                                         f'{[u.shape for u in pa]} against '
+                                         f'{[v.shape for v in pb]}')
+                for u, v in zip(pa, pb):
+                    n += len(u)
+                    part += int(((np.abs(u[:, :-1] - v[:, :-1]).max(1) > 1)
+                                 | (np.abs(u[:, -1] - v[:, -1]) > 1e-4)
+                                 ).sum())
+        return n, part
+    scales = [(1.0, 1.0)] * len(a)
+    for us, vs in zip(det.postprocess(a.numpy(), scales),
+                      det.postprocess(b.numpy(), scales)):
+        n += max(len(us), len(vs))
+        if len(us) != len(vs):
+            part += max(len(us), len(vs))
+            continue
+        part += sum(u.shape != v.shape or bool((u[:-1] != v[:-1]).any())
+                    or bool(abs(u[-1] - v[-1]) > 1e-4)
+                    for u, v in zip(us, vs))
+    return n, part
+
+
+def fce_ts_card_checks(det, cpu_det, xb, one):
+    """The card's ``det`` against ``cpu_det`` (the same weights on the CPU)
+    on the batch ``xb`` and the trained-like map ``one`` (batched, on the
+    CPU); raises where a check fails, else returns the counts.
+
+    * The outputs within ``FCE_TS_F32_RTOL`` of their largest magnitude,
+      on the seed-0 weights and on a stressed map: the first decision's
+      logits moved on both (by bisection on the CPU's maps) until
+      ``FCE_TS_STRESS`` of the pixels pass it, the share reached within
+      ``FCE_TS_STRESS_SHARES``; TextSnake's radii raised by
+      ``TS_STRESS_RADIUS`` px (the random weights' are below the 1 px
+      that a disk needs).
+    * On the stressed map, the decisions that part counted; the CPU's map
+      given the card's logits where they part, the postprocessed outputs
+      (``compare_postprocessed``): for FCENet at least
+      ``FCE_TS_MIN_COMPARED`` polygons and none parting; for TextSnake at
+      least one boundary an image (the random weights' centre mask is a
+      few large regions) and at most ``TS_STRESS_PART`` of them parting
+      (``centralize`` truncates float64 walks of hundreds of steps to
+      int32).
+    * ``one`` moved by the stressed maps' difference, against ``one`` given
+      the moved map's logits where the decisions part: at least
+      ``FCE_TS_MIN_COMPARED`` compared and none parting."""
+    def outputs(m):
+        return [t for pair in m for t in pair] if isinstance(m, tuple) \
+            else [m]
+
+    def to_cpu(m):
+        return tuple((c.cpu(), r.cpu()) for c, r in m) \
+            if isinstance(m, tuple) else m.cpu()
+
+    def err(got, want):
+        e = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(outputs(got), outputs(want)))
+        if not e <= FCE_TS_F32_RTOL:
+            raise AssertionError(f'{det.det_type}: maps {e} apart over '
+                                 f'their scale (bound {FCE_TS_F32_RTOL})')
+        return e
+
+    fce = det.det_type == 'FCENet'
+    want = cpu_det.forward(xb.cpu())
+    seed0 = first_decisions(det, want)
+    checks = dict(err=err(to_cpu(det.forward(xb)), want),
+                  passed_seed0=float(seed0.float().mean()))
+    d = first_decision_margin(det, want, int(FCE_TS_STRESS * seed0.numel()))
+    lower_first_decision(det, d, TS_STRESS_RADIUS)
+    lower_first_decision(cpu_det, d, TS_STRESS_RADIUS)
+    got, want = to_cpu(det.forward(xb)), cpu_det.forward(xb.cpu())
+    lower_first_decision(det, -d, -TS_STRESS_RADIUS)
+    checks['err_stressed'] = err(got, want)
+    dc, dw = first_decisions(det, got), first_decisions(det, want)
+    share = float(dw.float().mean())
+    if not FCE_TS_STRESS_SHARES[0] <= share <= FCE_TS_STRESS_SHARES[1]:
+        raise AssertionError(f'{det.det_type}: the stressed map passes '
+                             f'{share} of its pixels')
+    n, part = compare_postprocessed(
+        det, got, equal_first_decisions(det, want, got, dc != dw))
+    if (n < (FCE_TS_MIN_COMPARED if fce else len(xb))
+            or part > (0 if fce else TS_STRESS_PART * n)):
+        raise AssertionError(f'{det.det_type} stressed: {part} of {n} '
+                             f'postprocessed outputs part')
+    checks.update(shift=d, passed=share, flips=int((dc != dw).sum()),
+                  compared=n, parted=part)
+    if fce:
+        moved = tuple((c + (gc - wc)[:1], r + (gr - wr)[:1])
+                      for (c, r), (gc, gr), (wc, wr) in zip(one, got, want))
+    else:
+        moved = one + (got - want)[:1]
+    du, dm = first_decisions(det, one), first_decisions(det, moved)
+    n, part = compare_postprocessed(
+        det, moved, equal_first_decisions(det, one, moved, du != dm))
+    if n < FCE_TS_MIN_COMPARED or part:
+        raise AssertionError(f'{det.det_type} trained-like: {part} of {n} '
+                             f'postprocessed outputs part')
+    checks.update(moved_flips=int((du != dm).sum()), moved_compared=n)
+    return checks
+
+
+def fce_textsnake_phase(dev, name):
+    """FCENet and TextSnake on ``dev``, the card (see the module
+    docstring); nothing here launches a hand-written kernel."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import MMOCR, TextDetector, init_detector
+    from tps_pp_tpu_torch.apis.train_det import (DetBatches, _make_optimizer,
+                                                 make_det_train_step,
+                                                 train_detector)
+    from tps_pp_tpu_torch.config import load_config
+    from tps_pp_tpu_torch.models.textdet import postprocess
+    from tps_pp_tpu_torch.registry import LOSSES
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    g = np.random.default_rng(SEED + 21)
+    stats, sections, t_sec = {}, {}, [time.perf_counter()]
+
+    def section(what):
+        now = time.perf_counter()
+        sections[what] = round(now - t_sec[0], 1)
+        t_sec[0] = now
+
+    def leaves(maps):
+        return [t for pair in maps for t in pair] if isinstance(
+            maps, tuple) else [maps]
+
+    def few(det, x, k):
+        """Lower FCENet's first decision by the least margin that leaves
+        at most ``k`` pixels of the pages ``x`` above score_thr; returns
+        their count."""
+        lower_first_decision(det, first_decision_margin(det, det.forward(x),
+                                                        k))
+        return int(first_decisions(det, det.forward(x)).sum())
+
+    def post(det, maps):
+        t0 = time.perf_counter()
+        out = det.postprocess(maps, [(1.0, 1.0)] * len(maps))
+        return ((time.perf_counter() - t0) / len(maps) * 1e3,
+                sum(len(b) for b in out) / len(maps), out)
+
+    readers = {}
+    for key, (path, n, scale) in FCE_TS_CONFIGS.items():
+        det = init_detector(os.path.join(repo, path), device=dev, seed=SEED)
+        if det.device.type != 'cuda' or det.model.training:
+            raise AssertionError(f'{key}: built on {det.device}')
+        fce = det.det_type == 'FCENet'
+        imgs = [g.integers(0, 256, (640, 640, 3), np.uint8)
+                for _ in range(n)]
+        batch = np.stack([det.prep(i)[0] for i in imgs])
+        x = torch.as_tensor(batch, device=dev)
+        # ---- the card against the CPU at B_DET_F32: seed-0 and stressed
+        # maps, and a trained-like map moved by the card's difference
+        cpu_det = TextDetector(det.model_cfg, det.img_size, device='cpu')
+        cpu_det.model.load_state_dict({k: v.cpu() for k, v in
+                                       det.model.state_dict().items()})
+        rng = np.random.default_rng(SEED + 2200)
+        if fce:
+            one = tuple((torch.from_numpy(c)[None], torch.from_numpy(r)[None])
+                        for c, r in fce_maps(rng, 1)[0])
+        else:
+            one = torch.from_numpy(textsnake_maps(rng, 1))
+        checks = fce_ts_card_checks(det, cpu_det, x[:B_DET_F32], one)
+        what = 'polygons before NMS' if fce else 'boundaries'
+        log(f'fce-ts {key} B={B_DET_F32} 640x640: the card against the CPU '
+            f'(f32, TF32 off); seed-0 weights: outputs within '
+            f'{checks["err"]:.3g} of their largest magnitude (bound '
+            f'{FCE_TS_F32_RTOL}), {checks["passed_seed0"]:.4f} of the pixels '
+            f'past the postprocessor\'s first threshold; stressed (its '
+            f'logits lowered by {checks["shift"]:+.4f} on both): within '
+            f'{checks["err_stressed"]:.3g}, {checks["passed"]:.4f} of the '
+            f'pixels past it, {checks["flips"]} decisions part, '
+            f'{checks["compared"]} {what} compared on equal decisions, '
+            f'{checks["parted"]} part; a trained-like map moved by the '
+            f'difference: {checks["moved_flips"]} decisions part, '
+            f'{checks["moved_compared"]} {what} compared, none part')
+        stats[f'{key} card-cpu'] = checks
+        del cpu_det
+        if fce:
+            lower_first_decision(det, FCE_QUIET)
+        # ---- serving: detect_batch by stage at B=n, 640 x 640
+        zero_launches()
+        det.forward(x)
+        read_launches('fce-ts', f'{key} forward', {})
+        det.detect_batch(imgs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = det.detect_batch(imgs)
+        whole = (time.perf_counter() - t0) / n
+        if len(out) != n:
+            raise AssertionError(f'{key}: {len(out)} results for {n}')
+        t0 = time.perf_counter()
+        np.stack([det.prep(i)[0] for i in imgs])
+        prep = (time.perf_counter() - t0) / n
+        h2d = cuda_ms(lambda: torch.as_tensor(batch).to(dev), 3) / n
+        fwd = cuda_ms(lambda: det.forward(x), 3) / n
+        maps = det.forward(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = det.host_maps(maps)
+        copy = (time.perf_counter() - t0) / n
+        post_ms, per_img, _ = post(det, host)
+        # ---- one image at the test pipeline's scale
+        big = TextDetector(det.model_cfg, scale, device=dev)
+        big.model.load_state_dict(det.model.state_dict())
+        xs = torch.rand((1, *scale, 3), device=dev)
+        big_ms = cuda_ms(lambda: big.forward(xs), 3)
+        big_out = leaves(big.forward(xs))
+        if not all(bool(torch.isfinite(t).all()) for t in big_out):
+            raise AssertionError(f'{key}: {scale} output not finite')
+        del big, big_out
+        # ---- the postprocessor on trained-like maps
+        if fce:
+            tl = fce_maps(np.random.default_rng(SEED + 2100),
+                          N_FCE_TRAINED_LIKE, words=FCE_WORDS)
+        else:
+            tl = textsnake_maps(np.random.default_rng(SEED + 2100),
+                                N_TS_TRAINED_LIKE)
+        calls = [0, 0.0]
+
+        def counted(a, b, _iou=postprocess.poly_iou):
+            t0 = time.perf_counter()
+            out = _iou(a, b)
+            calls[0] += 1
+            calls[1] += time.perf_counter() - t0
+            return out
+        postprocess.poly_iou = counted
+        try:
+            post_t, per_img_t, _ = post(det, tl)
+        finally:
+            postprocess.poly_iou = counted.__defaults__[0]
+        if per_img_t < 1:
+            raise AssertionError(f'{key}: no boundary on trained-like maps')
+        log(f'fce-ts {key} B={n} 640x640 (f32, TF32 off): detect_batch '
+            f'{whole * 1e3:.2f} ms/image; host prep {prep * 1e3:.2f}, batch '
+            f'copy to the card {h2d:.3f}, forward on the card\'s tensor '
+            f'{fwd:.3f}, maps copy {copy * 1e3:.3f}, '
+            f'{type(det.postprocessor).__name__} {post_ms:.2f} ms/image '
+            f'({per_img:.1f} boundaries an image, seed-0 maps'
+            f'{", text classes quieted" if fce else ""}); trained-like maps '
+            f'{post_t:.1f} ms/image ({per_img_t:.1f} boundaries an image, '
+            f'{len(tl)} maps{f" of {FCE_WORDS} words" if fce else ""}; '
+            f'{calls[0]} polygon IoUs, {calls[1] * 1e3:.1f} ms in all); B=1 '
+            f'at {scale[1]}x{scale[0]}: forward {big_ms:.2f} ms [{name}]')
+        stats[f'{key} serving'] = dict(
+            detect_batch=whole * 1e3, prep=prep * 1e3, h2d=h2d, forward=fwd,
+            copy=copy * 1e3, post_seed0=post_ms, boxes_seed0=per_img,
+            post_trained_like=post_t, boxes_trained_like=per_img_t,
+            poly_iou_calls=calls[0], poly_iou_ms=calls[1] * 1e3,
+            forward_test_scale=big_ms, test_scale=scale)
+        section(key)
+        del det, x, maps, host
+        torch.cuda.empty_cache()
+
+    # ---- one f32 step of each family, the card against the CPU ---------
+    for key in ('fcenet_r50_ic15', 'textsnake_r50_ctw'):
+        cfg = load_config(os.path.join(repo, FCE_TS_CONFIGS[key][0]))
+        model_cfg = cfg['model']
+        pages = DetPages(g, B_DET_F32)
+        results = {}
+        for where in ('card', 'cpu'):
+            device = dev if where == 'card' else torch.device('cpu')
+            det = TextDetector(model_cfg, device=device, seed=SEED)
+            model = det.model.train()
+            loss_fn = LOSSES.build(model_cfg['loss'])
+            img, tgt = DetBatches(model_cfg, pages, loss_fn)(
+                range(B_DET_F32))
+            opt, _ = _make_optimizer(cfg, model.named_parameters())
+            step = make_det_train_step(model, loss_fn, opt)
+            img = torch.from_numpy(img).to(device)
+            tgt = {k: torch.from_numpy(v).to(device) for k, v in tgt.items()}
+            if where == 'card':
+                zero_launches()
+            m = step(img, tgt)
+            results[where] = {k: float(v) for k, v in m.items()}
+            if where == 'card':
+                read_launches('fce-ts', f'{key} step', {})
+                step_ms = cuda_ms(lambda: step(img, tgt), 3)
+            del det, model
+        a, b = results['card'], results['cpu']
+        dl = abs(a['loss'] - b['loss']) / abs(b['loss'])
+        dg = abs(a['grad_norm'] - b['grad_norm']) / abs(b['grad_norm'])
+        if not (all(np.isfinite(list(a.values())))
+                and dl <= DET_LOSS_RTOL and dg <= DET_GRAD_NORM_RTOL):
+            raise AssertionError(f'{key} step: card {a} against the CPU '
+                                 f'{b}')
+        log(f'fce-ts {key} f32 step B={B_DET_F32} 640x640, train-mode '
+            f'BatchNorm: loss {a["loss"]:.6f} (CPU {b["loss"]:.6f}, '
+            f'{dl:.3g} apart, bound {DET_LOSS_RTOL}), grad norm '
+            f'{a["grad_norm"]:.6f} ({dg:.3g} apart, bound '
+            f'{DET_GRAD_NORM_RTOL}); {step_ms:.2f} ms a step on the card '
+            f'[{name}]')
+        stats[f'{key} step'] = dict(loss_rel=dl, grad_norm_rel=dg,
+                                    step_ms=step_ms, **a)
+        torch.cuda.empty_cache()
+    section('steps')
+
+    # ---- train_detector: FCENet-R50 at B=8, a resume ------------------
+    cfg = load_config(os.path.join(repo, FCE_TS_CONFIGS['fcenet_r50_ic15'][0]))
+    bs = int(cfg['data']['samples_per_gpu'])
+    pages = DetPages(g, N_FCE_TRAIN_PAGES)
+    with tempfile.TemporaryDirectory() as wd:
+        zero_launches()
+        _, opt, hist = train_detector(cfg, pages, work_dir=wd,
+                                      total_epochs=FCE_TRAIN_EPOCHS,
+                                      batch_size=bs, seed=SEED, device=dev)
+        read_launches('fce-ts', 'train_detector', {})
+        _, opt2, again = train_detector(
+            cfg, pages, total_epochs=FCE_TRAIN_EPOCHS, batch_size=bs,
+            seed=SEED, device=dev,
+            resume_from=os.path.join(wd, 'epoch_1.pth'))
+    last = hist[-1]
+    if not all(np.isfinite(h['loss']) for h in hist + again):
+        raise AssertionError(f'train_detector: {hist} {again}')
+    gap = abs(again[-1]['loss'] - last['loss']) / abs(last['loss'])
+    if ([h['epoch'] for h in again] != [FCE_TRAIN_EPOCHS - 1]
+            or opt2.count != opt.count or again[-1]['lr'] != last['lr']
+            or gap > LOSS_RTOL):
+        raise AssertionError(f'train_detector resume: {again} against '
+                             f'{last}')
+    steps = -(-N_FCE_TRAIN_PAGES // bs)
+    step_ms = (last['seconds'] - last['batch_seconds']) / steps * 1e3
+    log(f'fce-ts train_detector FCENet-R50 ({FCE_TRAIN_EPOCHS} epochs of '
+        f'{N_FCE_TRAIN_PAGES} 640x640 pages, B={bs}): epoch 2 '
+        f'{last["seconds"]:.2f} s, {step_ms:.1f} ms a warm step, host '
+        f'targets {last["batch_seconds"] / N_FCE_TRAIN_PAGES * 1e3:.1f} ms '
+        f'a page, {last["batch_seconds"] / last["seconds"]:.3f} of the epoch '
+        f'making batches; losses {[round(h["loss"], 4) for h in hist]}; the '
+        f'resume from epoch 1 ran epoch 2 again: {opt2.count} steps, lr '
+        f'{again[-1]["lr"]:.6g}, loss {gap:.3g} apart (LOSS_RTOL '
+        f'{LOSS_RTOL}) [{name}]')
+    stats['train_detector'] = dict(
+        epoch_s=last['seconds'], step_ms=step_ms,
+        target_ms_page=last['batch_seconds'] / N_FCE_TRAIN_PAGES * 1e3,
+        batch_share=last['batch_seconds'] / last['seconds'],
+        resume_gap=gap, losses=[h['loss'] for h in hist])
+    section('train_detector')
+
+    # ---- MMOCR.readtext: the FCENet-IC15 config path and the flagship ----
+    reader = MMOCR(det=os.path.join(repo,
+                                    FCE_TS_CONFIGS['fcenet_r50_ic15'][0]),
+                   recog='NRTR_TPS', device=dev)
+    pages = [g.integers(0, 256, (*PAGE_HW, 3), np.uint8)
+             for _ in range(N_PAGES)]
+    det = reader.detector
+    kept = few(det, torch.as_tensor(np.stack([det.prep(p)[0] for p in pages]),
+                                    device=dev), FCE_READ_PIXELS)
+    reader.readtext(pages[:1])
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = reader.readtext(pages, merge=True)
+    torch.cuda.synchronize()
+    whole = (time.perf_counter() - t0) / N_PAGES
+    n_boxes = sum(len(r['result']) for r in res)
+    rec_launches = read_launches('fce-ts', 'readtext',
+                                 {'tps_sampler': None} if n_boxes else {})
+    if len(res) != N_PAGES or any(not isinstance(r['result'], list)
+                                  for r in res) or not n_boxes:
+        raise AssertionError(f'readtext: {res!r:.300}')
+    log(f'fce-ts readtext {N_PAGES} pages {PAGE_HW[1]}x{PAGE_HW[0]} '
+        f'(FCENet-R50 f32 at 640x640 from its config, its text classes '
+        f'lowered until {kept} pixels of the pages pass score_thr; NRTR + '
+        f'TPS++ from its config): {whole * 1e3:.1f} ms/page; '
+        f'{n_boxes / N_PAGES:.1f} boxes a page; launches {rec_launches} '
+        f'[{name}]')
+    stats['readtext'] = dict(ms_page=whole * 1e3)
+    section('readtext')
+    log(f'fce-ts phase: {time.perf_counter() - t_phase:.1f} s (by section: '
+        f'{sections}); no hand-written kernel launched; '
+        f'{json.dumps(stats)}')
+
+
 def main():
     import torch
     t_script = time.perf_counter()
@@ -4861,6 +5431,9 @@ def main():
 
     # ---- detection training; PANet-R18 and PSENet-R50; no kernel
     det_train_phase(dev, name)
+
+    # ---- FCENet and TextSnake: serving, training, readtext; no kernel
+    fce_textsnake_phase(dev, name)
     path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])

@@ -124,11 +124,11 @@ def test_init_detector_from_a_pth(detectors):
 
 
 def test_other_detector_types_raise():
-    """DBNet, PANet and PSENet build; FCENet (and TextSnake, DRRG, Mask
+    """DBNet, PANet, PSENet, FCENet and TextSnake build; DRRG (and Mask
     R-CNN) still raise."""
-    with pytest.raises(NotImplementedError, match='FCENet'):
-        init_detector(os.path.join(REPO, 'configs/textdet/fcenet/'
-                                   'fcenet_r50_fpn_1500e_icdar2015.py'),
+    with pytest.raises(NotImplementedError, match='DRRG'):
+        init_detector(os.path.join(REPO, 'configs/textdet/drrg/'
+                                   'drrg_r50_fpn_unet_1200e_ctw1500.py'),
                       device='cpu')
 
 

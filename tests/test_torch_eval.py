@@ -267,10 +267,11 @@ def test_test_tool_matches_jax(tiny, tmp_path, capsys):
 def test_test_tool_options_and_other_tasks(tmp_path):
     assert tool.parse_cfg_options(['a.b=1', 'c=bfloat16', 'd=[1, 2]']) == \
         {'a.b': 1, 'c': 'bfloat16', 'd': [1, 2]}
-    # DBNet, PANet and PSENet evaluate (tests/test_torch_detector.py,
-    # tests/test_torch_panet.py); the other detector families, KIE and NER
-    # raise
-    for model_type, match in (('FCENet', 'FCENet'), ('SDMGR', 'KIE')):
+    # DBNet, PANet, PSENet, FCENet and TextSnake evaluate
+    # (tests/test_torch_detector.py, tests/test_torch_panet.py,
+    # tests/test_torch_fce_textsnake.py); the other detector families, KIE
+    # and NER raise
+    for model_type, match in (('DRRG', 'DRRG'), ('SDMGR', 'KIE')):
         cfg_file = tmp_path / f'{model_type}.py'
         cfg_file.write_text(f"model = dict(type='{model_type}')\n")
         with pytest.raises(NotImplementedError, match=match):

@@ -8,8 +8,9 @@ on the modality transform, loads neither JAX,
 flax, cv2 nor the JAX package, and launches no kernel (CPU tensors go to
 the kernels' plain versions; nothing is built). So do detection (DBNet on
 ResNetDet and on ResNetDet50 with DCNv2), its evaluation modules and
-``MMOCR.readtext``, and detection training (DBNet, PANet, PSENet) with
-PAN and PSE serving."""
+``MMOCR.readtext``, detection training (DBNet, PANet, PSENet) with
+PAN and PSE serving, and FCENet's and TextSnake's training and
+serving."""
 import json
 import os
 import subprocess
@@ -634,3 +635,101 @@ def test_detection_training_and_pan_pse_serving_with_jax_blocked():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {'loaded': [], 'finite': True, 'images': [3, 3, 3],
                    'pages': 2, 'launches': [0, 0]}
+
+
+FCE_TEXTSNAKE_SCRIPT = r'''
+import importlib.abc, json, sys
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    """Refuses jax, flax, cv2 and the JAX package outright."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',
+                                  'tps_pp_tpu'):
+            raise ImportError(f'{name} is blocked')
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from tps_pp_tpu_torch.apis import MMOCR, init_detector
+from tps_pp_tpu_torch.apis.train_det import train_detector
+from tps_pp_tpu_torch.models.textdet import postprocess, targets
+from tps_pp_tpu_torch.ops import grid_sample, tps_sampler
+
+
+class Pages:
+    def __init__(self, n):
+        g = np.random.default_rng(0)
+        self.items = []
+        for _ in range(n):
+            quads = [np.array([[x, y], [x + 20, y], [x + 20, y + 10],
+                               [x, y + 10]], np.float32)
+                     for x, y in g.uniform(2, 40, (3, 2))]
+            self.items.append(dict(img=g.random((64, 64, 3)).astype(
+                np.float32), gt_polygons=quads, gt_polygons_ignore=[]))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return dict(self.items[i])
+
+
+r50 = dict(type='ResNetDet50', stage_blocks=[1, 1, 1, 1], base_channels=8)
+cfgs = [
+    dict(type='FCENet', backbone=r50,
+         neck=dict(type='FPNDet', in_channels=[64, 128, 256],
+                   out_channels=8),
+         head=dict(type='FCEHead', in_channels=8), loss=dict(type='FCELoss'),
+         postprocessor=dict(type='FCEPostprocessor', score_thr=0.36)),
+    dict(type='TextSnake', backbone=r50,
+         neck=dict(type='FPN_UNet', in_channels=[32, 64, 128, 256],
+                   out_channels=4),
+         head=dict(type='TextSnakeHead'), loss=dict(type='TextSnakeLoss'),
+         postprocessor=dict(type='TextSnakePostprocessor'))]
+losses, images = [], []
+for cfg in cfgs:
+    _, opt, hist = train_detector(dict(model=cfg, total_epochs=1), Pages(3),
+                                  batch_size=2, device='cpu')
+    losses.append(hist[-1]['loss'])
+    det = init_detector(dict(model=cfg), img_size=(64, 96), device='cpu')
+    imgs = [np.random.default_rng(i).integers(0, 256, (50 + i, 90, 3),
+                                              np.uint8) for i in range(3)]
+    images.append(len(det.detect_batch(imgs)))
+# the TextSnake postprocessor on maps drawn from its own targets
+t = targets.TextSnakeTargets().generate(Pages(1)[0]['gt_polygons'], [],
+                                        64, 64)
+maps = np.stack([(2 * t['gt_text_mask'] - 1) * 4,
+                 (2 * t['gt_center_region_mask'] - 1) * 4, t['gt_sin_map'],
+                 t['gt_cos_map'], t['gt_radius_map']], -1)
+reader = MMOCR(det_config=dict(model=cfgs[0]), det_img_size=(64, 96),
+               recog=None, device='cpu')
+pages = reader.readtext(imgs[:2])
+print(json.dumps({
+    'loaded': sorted(m for m in ('jax', 'flax', 'cv2', 'tps_pp_tpu')
+                     if m in sys.modules),
+    'finite': bool(np.isfinite(losses).all()), 'images': images,
+    'snakes': len(postprocess.TextSnakePostprocessor()(maps)) > 0,
+    'pages': len(pages),
+    'launches': [tps_sampler.tps_sampler.launches,
+                 grid_sample.grid_sample_forward.launches]}))
+'''
+
+
+def test_fce_textsnake_training_and_serving_with_jax_blocked():
+    """train_detector (FCENet and TextSnake, narrow, their targets made on
+    the host), their detection, the TextSnake postprocessor on maps of its
+    targets and MMOCR with an FCENet detector run on the CPU with jax,
+    flax, cv2 and the JAX package refused at import; nothing launches."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', FCE_TEXTSNAKE_SCRIPT],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {'loaded': [], 'finite': True, 'images': [3, 3],
+                   'snakes': True, 'pages': 2, 'launches': [0, 0]}

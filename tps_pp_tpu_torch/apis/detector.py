@@ -2,20 +2,24 @@
 inference (counterpart of ``tps_pp_tpu/apis/detector.py:25-223`` and of
 ``build_detector_module`` in ``tps_pp_tpu/apis/train_det.py:37-56``).
 
-The port has three families: DBNet (``configs/textdet/dbnet/``: R18-FPNC,
+The port has five families: DBNet (``configs/textdet/dbnet/``: R18-FPNC,
 R50-DCNv2-FPNC), PANet (``configs/textdet/panet/``: R18 and R50 on
-FPEM_FFM) and PSENet (``configs/textdet/psenet/``: R50 on FPNF).
+FPEM_FFM), PSENet (``configs/textdet/psenet/``: R50 on FPNF), FCENet
+(``configs/textdet/fcenet/``: R50 and R50-DCNv2 on FPNDet) and TextSnake
+(``configs/textdet/textsnake/``: R50 on FPN_UNet).
 ``TextDetector`` holds its model, in float32 and eval mode, on the card
 unless given ``device='cpu'``, and its postprocessor (the config's, or the
 family's). ``detect_batch`` resizes each image to the fixed input size on
 the host (``cv_ops.resize_u8``, within one grey level of ``cv2.resize``),
 runs one forward over the batch padded to the next power of two (the last
 row repeated, ``utils/batching.py``), copies the maps to the host (DBNet's
-probability channel; PAN's and PSE's logits, at 1/4 of the input size),
-postprocesses each image there and scales its boundaries ``[x1, y1, ...,
-score]`` back to the image's size, through the head's 1/4 for PAN and PSE
-(``HEAD_SCALE``, JAX's ``_DOWNSAMPLE``). FCENet, TextSnake, DRRG and Mask
-R-CNN raise ``NotImplementedError``.
+probability channel; PAN's and PSE's logits, at 1/4 of the input size;
+each FCENet level's (cls, reg) pair, which its postprocessor scales by the
+level's stride; TextSnake's five maps at the input size), postprocesses
+each image there and scales its boundaries ``[x1, y1, ..., score]`` back
+to the image's size, through the head's 1/4 for PAN and PSE
+(``HEAD_SCALE``, JAX's ``_DOWNSAMPLE``). DRRG and Mask R-CNN raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,26 +42,32 @@ from ..utils.convert import load_pth
 # where it is not the input's
 POSTPROCESSORS = {'DBNet': textdet.DBPostprocessor,
                   'PANet': textdet.PANPostprocessor,
-                  'PSENet': textdet.PSEPostprocessor}
+                  'PSENet': textdet.PSEPostprocessor,
+                  'FCENet': textdet.FCEPostprocessor,
+                  'TextSnake': textdet.TextSnakePostprocessor}
 HEAD_SCALE = {'PANet': 0.25, 'PSENet': 0.25}
 
 
 def build_detector_module(model_cfg: Dict) -> nn.Module:
-    """backbone -> neck -> head of a DBNet, PANet or PSENet config (a
-    PAN / PSE head's ``in_channels`` defaults to its neck's output); any
-    other detector type raises ``NotImplementedError``."""
+    """backbone -> neck -> head of a DBNet, PANet, PSENet, FCENet or
+    TextSnake config (a PAN / PSE / TextSnake head's ``in_channels``
+    defaults to its neck's output); any other detector type raises
+    ``NotImplementedError``."""
     det_type = model_cfg.get('type', 'DBNet')
     if det_type not in POSTPROCESSORS:
         raise NotImplementedError(
             f'detector type {det_type!r} is not ported yet (ROADMAP.md '
-            'queue 1: FCENet and TextSnake, DRRG, Mask R-CNN)')
+            'queue 1: DRRG, Mask R-CNN)')
     backbone = BACKBONES.build(model_cfg['backbone'])
     neck = NECKS.build(model_cfg['neck'])
-    if det_type == 'DBNet':
-        return textdet.DBNetModule(backbone, neck,
-                                   HEADS.build(model_cfg['head']))
+    if det_type in ('DBNet', 'FCENet'):
+        module = (textdet.DBNetModule if det_type == 'DBNet'
+                  else textdet.FCENetModule)
+        return module(backbone, neck, HEADS.build(model_cfg['head']))
     head = HEADS.build(model_cfg['head'], in_channels=neck.out_channels)
-    return textdet.PANetModule(backbone, neck, head)
+    module = (textdet.TextSnakeModule if det_type == 'TextSnake'
+              else textdet.PANetModule)
+    return module(backbone, neck, head)
 
 
 def init_detector_weights(model: nn.Module, seed: int = 0) -> nn.Module:
@@ -136,19 +146,21 @@ class TextDetector:
         return img.astype(np.float32) / 255.0, w0 / W / ds, h0 / H / ds
 
     @torch.inference_mode()
-    def forward(self, batch: Union[np.ndarray, torch.Tensor]
-                ) -> torch.Tensor:
+    def forward(self, batch: Union[np.ndarray, torch.Tensor]):
         """(N, H, W, 3) inputs -> the model's maps on the device, one
         forward over the batch padded to the next power of two: DBNet's (N,
         H, W, 3) [prob, thr, binary], PAN's and PSE's (N, H / 4, W / 4, C)
-        raw logits."""
+        raw logits, TextSnake's (N, H, W, 5), FCENet's (cls (N, h, w, 4),
+        reg (N, h, w, 22)) pair a level (strides 8, 16, 32)."""
         x = torch.as_tensor(batch, dtype=torch.float32).to(self.device)
         n = x.shape[0]
         (x,) = pad_rows((x,), n, next_pow2(n))
-        return self.model(x)[:n]
+        out = self.model(x)
+        if self.det_type == 'FCENet':
+            return tuple((c[:n], r[:n]) for c, r in out)
+        return out[:n]
 
-    def postprocess(self, maps: np.ndarray,
-                    scales: Sequence[Tuple[float, float]]
+    def postprocess(self, maps, scales: Sequence[Tuple[float, float]]
                     ) -> List[List[np.ndarray]]:
         """The postprocessor's maps on the host (``host_maps``) -> each
         image's boundaries, scaled by its (sx, sy)."""
@@ -163,10 +175,15 @@ class TextDetector:
             out.append(scaled)
         return out
 
-    def host_maps(self, maps: torch.Tensor) -> np.ndarray:
+    def host_maps(self, maps):
         """The part of ``forward``'s maps the postprocessor reads, copied
-        to the host: DBNet's probability channel, PAN's and PSE's whole
-        logits."""
+        to the host, one entry an image: DBNet's probability channel, PAN's,
+        PSE's and TextSnake's whole maps (an array), FCENet's list of
+        (cls, reg) a level (JAX's ``_post_single``)."""
+        if self.det_type == 'FCENet':
+            levels = [(c.cpu().numpy(), r.cpu().numpy()) for c, r in maps]
+            return [[(c[b], r[b]) for c, r in levels]
+                    for b in range(len(levels[0][0]))]
         if self.det_type == 'DBNet':
             maps = maps[..., 0]
         return maps.cpu().numpy()

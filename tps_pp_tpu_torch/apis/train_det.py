@@ -7,7 +7,9 @@ One process, as the JAX loop: per epoch the seeded
 batches of ``batch_size`` (the last one short); per batch, each item's
 targets made on the host where the dataset did not make them
 (``build_det_targets``; ``TextDetDataset`` items carry DBNet's), PAN's and
-PSE's rescaled to the head's 1/4 (``cv_ops.resize_inter_nearest``), then
+PSE's rescaled to the head's 1/4 (``cv_ops.resize_inter_nearest``;
+FCENet's are made at each level's size and TextSnake's at the image's,
+neither rescaled, as in JAX), then
 one forward and backward in train mode (BatchNorm with flax's statistics,
 ``models/layers.py``) and one step of the config's optimizer
 (``build_optimizer_from_run_cfg``: ``schedule_sgd_1200e`` is SGD 0.007,
@@ -21,8 +23,7 @@ resumed run takes the batches and lrs of the uninterrupted one.
 The PAN loss supervises the embeddings of at most ``max_instances`` (24)
 instances an image, as JAX does; the first image with more logs a
 warning. OCRMaskRCNN and DRRG raise ``NotImplementedError`` (ROADMAP.md
-queue 1: DRRG, Mask R-CNN), FCENet and TextSnake too (through
-``build_detector_module``).
+queue 1: DRRG, Mask R-CNN).
 """
 from __future__ import annotations
 
@@ -52,6 +53,9 @@ _TARGET_KEYS = {
     'DBNet': ('gt_shrink', 'gt_shrink_mask', 'gt_thr', 'gt_thr_mask'),
     'PANet': ('gt_texts', 'gt_kernels', 'gt_mask'),
     'PSENet': ('gt_kernels', 'gt_mask'),
+    'TextSnake': ('gt_text_mask', 'gt_center_region_mask', 'gt_mask',
+                  'gt_radius_map', 'gt_sin_map', 'gt_cos_map'),
+    'FCENet': ('p3_maps', 'p4_maps', 'p5_maps'),
 }
 
 
@@ -199,6 +203,7 @@ def train_detector(cfg: Dict, train_ds, work_dir: Optional[str] = None,
     for _ in range(start):          # the permutations of the epochs done
         rng.permutation(n)
     model.train()
+    dtype = next(model.parameters()).dtype   # float32, or a float64 model's
     step = make_det_train_step(model, loss_fn, optimizer)
     history: List[Dict] = []
     for epoch in range(start, epochs):
@@ -207,7 +212,7 @@ def train_detector(cfg: Dict, train_ds, work_dir: Optional[str] = None,
         batches.seconds = 0.0
         for it in range(0, n, batch_size):
             img, tgt = batches(order[it:it + batch_size])
-            img = torch.from_numpy(img).to(device, non_blocking=True)
+            img = torch.from_numpy(img).to(device, dtype, non_blocking=True)
             tgt = {k: torch.from_numpy(v).to(device, non_blocking=True)
                    for k, v in tgt.items()}
             lr = schedule(optimizer.count)

@@ -48,7 +48,7 @@ that is cheap to follow:
 The text detector's host side (``models/textdet/postprocess.py``,
 ``models/textdet/targets.py``, the hmean-ic13 raster) calls these:
 
-* ``find_contours`` (``RETR_LIST`` or ``RETR_EXTERNAL``,
+* ``find_contours`` (``RETR_LIST``, ``RETR_EXTERNAL`` or ``RETR_TREE``,
   ``CHAIN_APPROX_SIMPLE`` or ``CHAIN_APPROX_NONE``), and
   ``draw_contour_lines`` (thickness 1): Suzuki-Abe border following as
   cv2 does it, in
@@ -58,7 +58,9 @@ The text detector's host side (``models/textdet/postprocess.py``,
   Python loop runs over border pixels only. A border pixel is marked
   negative where the search passed its right-hand neighbour, as cv2
   marks it; ``RETR_EXTERNAL`` skips an outer border whose last marked
-  pixel on the row (cv2's ``lnbd``) is positive.
+  pixel on the row (cv2's ``lnbd``) is positive, and ``RETR_TREE`` takes
+  each border's parent from the border that marked that pixel (Suzuki's
+  rule) and walks the tree as cv2 does.
 * ``contour_area`` (the shoelace sum in float64), ``arc_length`` (each
   side's length in float32, summed in float64), ``bounding_rect``.
 * ``convex_hull`` (Sklansky's scan over the points sorted by x then y,
@@ -75,8 +77,11 @@ The text detector's host side (``models/textdet/postprocess.py``,
   takes the ends ``clipLine`` leaves (also where it misses the image):
   their x always, their y only where they differ, so an edge clipped to
   one point runs along the border column, as in cv2 5.0.
-* ``get_structuring_element`` (``MORPH_ELLIPSE``) and ``dilate`` (pixels
-  outside the image add nothing).
+* ``get_structuring_element`` (``MORPH_ELLIPSE``, ``MORPH_CROSS``),
+  ``dilate`` (pixels outside the image add nothing), ``erode`` and
+  ``morphology_open`` with ``borderValue=0`` (pixels outside the image
+  are 0), ``flood_fill`` (4-connected, no tolerance) and ``circle``
+  (filled, cv2's midpoint walk).
 * ``connected_components`` (4-connectivity, cv2's label order) and
   ``distance_transform`` (``DIST_L2``, mask 3: cv2 5.0's float32 chamfer
   transform, its vector blocks of four columns included, see its
@@ -87,7 +92,9 @@ The text detector's host side (``models/textdet/postprocess.py``,
 ``tests/test_torch_seg.py``; the contour functions:
 ``tests/test_torch_textdet.py``; ``distance_transform``:
 ``tests/test_torch_det_train.py``; ``connected_components`` and the
-outlines: ``tests/test_torch_panet.py``).
+outlines: ``tests/test_torch_panet.py``; ``RETR_TREE``, ``erode``,
+``morphology_open``, ``flood_fill`` and ``circle``:
+``tests/test_torch_fce_textsnake.py``).
 """
 from __future__ import annotations
 
@@ -567,6 +574,7 @@ def fill_convex_poly(img: np.ndarray, pts, value) -> np.ndarray:
 
 RETR_EXTERNAL = 0
 RETR_LIST = 1
+RETR_TREE = 3
 CHAIN_APPROX_NONE = 1
 CHAIN_APPROX_SIMPLE = 2
 # cv2's chain code directions (dx, dy), y down: 0 is right, then
@@ -576,11 +584,13 @@ _CHAIN = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1),
 
 
 def _follow_border(img: np.ndarray, step: int, x0: int, y0: int,
-                   is_hole: bool, every: bool = False) -> list:
+                   is_hole: bool, every: bool = False, owner=None,
+                   nbd: int = 0) -> list:
     """cv2's ``icvFetchContour`` on the flat padded image ``img`` (0
     background, 1 unvisited, +-2 marked) from (x0, y0); returns the turning
     points in image coordinates (``CHAIN_APPROX_SIMPLE``), or with
-    ``every`` each point of the border (``CHAIN_APPROX_NONE``)."""
+    ``every`` each point of the border (``CHAIN_APPROX_NONE``). With
+    ``owner``, each pixel it marks records ``nbd``, as cv2's label does."""
     deltas = [dx + dy * step for dx, dy in _CHAIN] * 2
     i0 = y0 * step + x0
     s_end = s = 0 if is_hole else 4
@@ -592,6 +602,8 @@ def _follow_border(img: np.ndarray, step: int, x0: int, y0: int,
     px, py = x0 - 1, y0 - 1
     if img[i1] == 0:                  # a single pixel
         img[i0] = -2
+        if owner is not None:
+            owner[i0] = nbd
         return [(px, py)]
     pts = []
     i3, prev_s = i0, s ^ 4
@@ -605,8 +617,12 @@ def _follow_border(img: np.ndarray, step: int, x0: int, y0: int,
         s &= 7
         if 0 < s <= s_end:            # the search passed the right neighbour
             img[i3] = -2
+            if owner is not None:
+                owner[i3] = nbd
         elif img[i3] == 1:
             img[i3] = 2
+            if owner is not None:
+                owner[i3] = nbd
         if s != prev_s or every:
             pts.append((px, py))
             prev_s = s
@@ -621,11 +637,15 @@ def _follow_border(img: np.ndarray, step: int, x0: int, y0: int,
 def find_contours(mask: np.ndarray, mode: int = RETR_LIST,
                   method: int = CHAIN_APPROX_SIMPLE) -> list:
     """``cv2.findContours(mask, mode, method)[0]`` for ``RETR_LIST`` (outer
-    and hole borders) or ``RETR_EXTERNAL``, ``CHAIN_APPROX_SIMPLE`` or
-    ``CHAIN_APPROX_NONE``: a list of (n, 1, 2) int32 arrays of (x, y), in
-    cv2's order."""
-    if mode not in (RETR_LIST, RETR_EXTERNAL):
-        raise ValueError(f'mode {mode}: RETR_LIST or RETR_EXTERNAL only')
+    and hole borders), ``RETR_EXTERNAL`` or ``RETR_TREE``,
+    ``CHAIN_APPROX_SIMPLE`` or ``CHAIN_APPROX_NONE``: a list of (n, 1, 2)
+    int32 arrays of (x, y), in cv2's order. ``RETR_TREE`` orders the
+    borders as cv2's tree walk does: depth first, each border before its
+    children, the borders of one parent in the reverse of their discovery
+    (cv2 puts a new border first among its parent's children)."""
+    if mode not in (RETR_LIST, RETR_EXTERNAL, RETR_TREE):
+        raise ValueError(f'mode {mode}: RETR_LIST, RETR_EXTERNAL or '
+                         'RETR_TREE only')
     if method not in (CHAIN_APPROX_NONE, CHAIN_APPROX_SIMPLE):
         raise ValueError(f'method {method}: CHAIN_APPROX_NONE or '
                          'CHAIN_APPROX_SIMPLE only')
@@ -638,13 +658,18 @@ def find_contours(mask: np.ndarray, mode: int = RETR_LIST,
     ys, xs = np.nonzero(np.diff(pad, axis=1))   # zero <-> non-zero steps
     img = pad.reshape(-1).astype(np.int32)
     external = mode == RETR_EXTERNAL
+    tree = mode == RETR_TREE
+    # RETR_TREE: the border that last marked each pixel, and each border's
+    # parent (-1 the image's frame) and kind
+    owner = np.full(img.shape, -1, np.int32) if tree else None
+    parent, holes = [], []
     found = []
     row = -1
     for y, x in zip(ys.tolist(), (xs + 1).tolist()):
         i = y * step + x
         if y != row:
             row, lnbd, last = y, y * step, y * step
-        if external and i - last > 1:
+        if (external or tree) and i - last > 1:
             # cv2 stops wherever the row's value changes; the last stop on
             # a marked pixel is lnbd
             seg = img[last:i]
@@ -657,16 +682,39 @@ def find_contours(mask: np.ndarray, mode: int = RETR_LIST,
         if prev == 0 and p == 1:                  # an outer border
             if external and img[lnbd] > 0:
                 continue
-            found.append(_follow_border(img, step, x, y, False, every))
+            start, is_hole = i, False
         elif p == 0 and prev >= 1:                # a hole border
             if prev != 1:
                 lnbd = i - 1
-            if not external:
-                found.append(_follow_border(img, step, x - 1, y, True,
-                                            every))
-        elif p != 0 and p != 1:
-            lnbd = i
-    return [np.asarray(c, np.int32).reshape(-1, 1, 2) for c in found[::-1]]
+            if external:
+                continue
+            start, is_hole = i - 1, True
+        else:
+            if p != 0 and p != 1:
+                lnbd = i
+            continue
+        if tree:
+            par = int(owner[lnbd]) if lnbd % step else -1
+            if par >= 0 and holes[par] == is_hole:
+                par = parent[par]
+            parent.append(par)
+            holes.append(is_hole)
+        found.append(_follow_border(img, step, start % step, y, is_hole,
+                                    every, owner, len(found)))
+        lnbd = start
+    if tree:
+        children = [[] for _ in range(len(found) + 1)]
+        for c in range(len(found) - 1, -1, -1):
+            children[parent[c]].append(c)
+        order, todo = [], children[-1][::-1]
+        while todo:
+            c = todo.pop()
+            order.append(c)
+            todo.extend(children[c][::-1])
+        found = [found[c] for c in order]
+    else:
+        found = found[::-1]
+    return [np.asarray(c, np.int32).reshape(-1, 1, 2) for c in found]
 
 
 def bounding_rect(points) -> Tuple[int, int, int, int]:
@@ -1061,12 +1109,25 @@ def connected_components(mask: np.ndarray, connectivity: int = 4):
     return n + 1, labels.astype(np.int32)
 
 
-def get_structuring_element(ksize: Tuple[int, int]) -> np.ndarray:
-    """``cv2.getStructuringElement(cv2.MORPH_ELLIPSE, ksize)``, ksize
-    (width, height)."""
+MORPH_CROSS = 1
+MORPH_ELLIPSE = 2
+
+
+def get_structuring_element(ksize: Tuple[int, int],
+                            shape: int = MORPH_ELLIPSE) -> np.ndarray:
+    """``cv2.getStructuringElement(shape, ksize)``, ksize (width, height),
+    the anchor at the centre: ``MORPH_ELLIPSE`` (the default) or
+    ``MORPH_CROSS``."""
     w, h = ksize
+    if shape not in (MORPH_CROSS, MORPH_ELLIPSE):
+        raise ValueError(f'shape {shape}: MORPH_CROSS or MORPH_ELLIPSE only')
     if (w, h) == (1, 1):
         return np.ones((1, 1), np.uint8)
+    if shape == MORPH_CROSS:
+        elem = np.zeros((h, w), np.uint8)
+        elem[h // 2, :] = 1
+        elem[:, w // 2] = 1
+        return elem
     r, c = h // 2, w // 2
     inv_r2 = 1.0 / (r * r) if r else 0.0
     elem = np.zeros((h, w), np.uint8)
@@ -1111,6 +1172,64 @@ def dilate(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
     return out
 
 
+def erode(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.erode(img, kernel, borderValue=0)`` (anchor at the centre, one
+    iteration): the minimum over the kernel's taps, the pixels outside the
+    image 0, so that a shape touching the edge erodes from it too (cv2's
+    default border never lowers a pixel)."""
+    kh, kw = kernel.shape
+    h, w = img.shape
+    pad = np.zeros((h + kh - 1, w + kw - 1), img.dtype)
+    pad[kh // 2:kh // 2 + h, kw // 2:kw // 2 + w] = img
+    out = None
+    for i, j in zip(*np.nonzero(kernel)):
+        tap = pad[i:i + h, j:j + w]
+        out = tap.copy() if out is None else np.minimum(out, tap, out=out)
+    return np.zeros_like(img) if out is None else out
+
+
+def morphology_open(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """``cv2.morphologyEx(img, cv2.MORPH_OPEN, kernel, borderValue=0)``:
+    ``erode`` then ``dilate``, both with a border of 0."""
+    return dilate(erode(img, kernel), kernel)
+
+
+def flood_fill(img: np.ndarray, seed: Tuple[int, int], value) -> np.ndarray:
+    """``cv2.floodFill(img, mask, seed, value)`` with no tolerance (flags
+    4): the 4-connected region of the pixels equal to the seed's (x, y)
+    set to ``value``, in place; returns img."""
+    from scipy import ndimage
+    x, y = seed
+    labels, _ = ndimage.label(img == img[y, x],
+                              structure=[[0, 1, 0], [1, 1, 1], [0, 1, 0]])
+    img[labels == labels[y, x]] = value
+    return img
+
+
+def circle(img: np.ndarray, center: Tuple[int, int], radius: int,
+           value) -> np.ndarray:
+    """``cv2.circle(img, center, radius, value, -1)`` (filled, ``LINE_8``,
+    shift 0) in place: cv2's midpoint walk, whose each step fills the rows
+    ``cy +- dy`` over ``cx +- dx`` and ``cy +- dx`` over ``cx +- dy``,
+    clipped to the image; returns img."""
+    h, w = img.shape[:2]
+    cx, cy = int(center[0]), int(center[1])
+    err, dx, dy, plus, minus = 0, int(radius), 0, 1, 2 * int(radius) - 1
+    while dx >= dy:
+        for yy, half in ((cy - dy, dx), (cy + dy, dx), (cy - dx, dy),
+                         (cy + dx, dy)):
+            if 0 <= yy < h and cx - half < w and cx + half >= 0:
+                img[yy, max(cx - half, 0):min(cx + half, w - 1) + 1] = value
+        dy += 1
+        err += plus
+        plus += 2
+        if err > 0:
+            err -= minus
+            dx -= 1
+            minus -= 2
+    return img
+
+
 # ------------------------------------------------- distance transform --
 
 _DT_A = np.float32(0.955)        # cv2's DIST_L2 3x3 mask: a step across
@@ -1130,6 +1249,22 @@ def _dt_chain(v: np.ndarray, carry) -> np.ndarray:
         np.minimum(out[..., 0], carry + _DT_A, out=out[..., 0])
     while out.shape[-1] > 1:
         step = np.minimum(v[..., 1:], out[..., :-1] + _DT_A)
+        if not (step < out[..., 1:]).any():
+            break
+        out[..., 1:] = step
+    return out
+
+
+def _dt_chain2(v: np.ndarray) -> np.ndarray:
+    """Along the last axis, ``out[j] = min(v[j], out[j - 1] + a, out[j - 2]
+    + 2a)``: the forward pass's last row as cv2 computes it (from 35 steps
+    from a zero on, an ulp or more below ``_dt_chain``'s). Relaxed as
+    ``_dt_chain`` is."""
+    out = v.copy()
+    while out.shape[-1] > 1:
+        step = np.minimum(v[..., 1:], out[..., :-1] + _DT_A)
+        step[..., 1:] = np.minimum(step[..., 1:],
+                                   out[..., :-2] + _DT_STEPS[2])
         if not (step < out[..., 1:]).any():
             break
         out[..., 1:] = step
@@ -1196,13 +1331,12 @@ def distance_transform(mask: np.ndarray) -> np.ndarray:
     0.955 and along a diagonal 1.3693, in two passes; pixels outside the
     image are never zeros, and a pixel with no zero to reach is
     ``FLT_MAX``. The forward pass (top to bottom) takes each pixel's three
-    upper neighbours, then the row left to right: its first and last rows
-    as a scalar loop, the rows between in cv2's vector blocks
-    (``_dt_blocks``), whose additions round differently. The backward pass
-    (bottom to top, right to left) is a scalar loop. On the rows between,
-    this is cv2 bit for bit; on the last row cv2's vector code, not
-    followed here, can land one float32 ulp lower, and that carries up
-    through the backward pass."""
+    upper neighbours, then the row left to right: its first row as a scalar
+    loop, the rows between in cv2's vector blocks (``_dt_blocks``), whose
+    additions round differently, and its last row (of two or more) taking
+    the better of one step from the pixel before and two from the pixel
+    before that (``_dt_chain2``). The backward pass (bottom to top, right to
+    left) is a scalar loop. This is cv2 bit for bit on every row."""
     nz = np.asarray(mask) != 0
     *lead, h, w = nz.shape
     t = np.full((*lead, h + 2, w + 2), _FLT_MAX, np.float32)
@@ -1214,7 +1348,7 @@ def distance_transform(mask: np.ndarray) -> np.ndarray:
         v = np.minimum(np.minimum(t[..., i, 1:-1], up[..., 1:-1] + a),
                        np.minimum(up[..., :-2] + b, up[..., 2:] + b))
         t[..., i, 1:-1] = (
-            _dt_chain(v, _FLT_MAX) if i in (1, h)
+            _dt_chain(v, _FLT_MAX) if i == 1 else _dt_chain2(v) if i == h
             else _dt_blocks(v, seeds[..., i - 1, :, :]))
     for i in range(h, 0, -1):                       # backward
         down = t[..., i + 1, :]

@@ -1,15 +1,25 @@
-"""Text detection (counterpart of ``tps_pp_tpu/models/textdet``): DBNet's
-and PANet's / PSENet's trunks, necks, heads and losses, their targets and
-the host-side postprocessors."""
+"""Text detection (counterpart of ``tps_pp_tpu/models/textdet``): DBNet's,
+PANet's / PSENet's, FCENet's and TextSnake's trunks, necks, heads and
+losses, their targets and the host-side postprocessors."""
 from .dbnet import DBHead, DBLoss, DBNetModule, FPNC, ResNetDet
+from .fce_textsnake import (FCEHead, FCELoss, FCENetModule, FPNDet,
+                            FPN_UNet, TextSnakeHead, TextSnakeLoss,
+                            TextSnakeModule, UpBlock)
 from .pan import (Bottleneck, FPEM_FFM, FPNF, PANHead, PANLoss, PANetModule,
                   PSELoss, ResNetDet50)
-from .postprocess import (DBPostprocessor, PANPostprocessor,
-                          PSEPostprocessor, eval_hmean_iou)
-from .targets import DBNetTargets, PANetTargets, PSENetTargets
+from .postprocess import (DBPostprocessor, FCEPostprocessor,
+                          PANPostprocessor, PSEPostprocessor,
+                          TextSnakePostprocessor, eval_hmean_iou,
+                          fourier2poly, poly_nms)
+from .targets import (DBNetTargets, FCENetTargets, PANetTargets,
+                      PSENetTargets, TextSnakeTargets)
 
 __all__ = ['ResNetDet', 'FPNC', 'DBHead', 'DBLoss', 'DBNetModule',
            'Bottleneck', 'ResNetDet50', 'FPEM_FFM', 'FPNF', 'PANHead',
-           'PANLoss', 'PSELoss', 'PANetModule', 'DBPostprocessor',
-           'PANPostprocessor', 'PSEPostprocessor', 'DBNetTargets',
-           'PANetTargets', 'PSENetTargets', 'eval_hmean_iou']
+           'PANLoss', 'PSELoss', 'PANetModule', 'FPNDet', 'FCEHead',
+           'FCELoss', 'FCENetModule', 'UpBlock', 'FPN_UNet',
+           'TextSnakeHead', 'TextSnakeLoss', 'TextSnakeModule',
+           'DBPostprocessor', 'PANPostprocessor', 'PSEPostprocessor',
+           'FCEPostprocessor', 'TextSnakePostprocessor', 'fourier2poly',
+           'poly_nms', 'DBNetTargets', 'PANetTargets', 'PSENetTargets',
+           'TextSnakeTargets', 'FCENetTargets', 'eval_hmean_iou']

@@ -80,11 +80,12 @@ class ResNetDet(_ResNetStem):
 
 
 class _Conv(nn.Module):
-    """mmcv's ``ConvModule`` with neither norm nor activation: ``.conv``."""
+    """mmcv's ``ConvModule`` with neither norm nor activation: ``.conv``
+    (FPNC's has no bias, mmdet's FPN's has one)."""
 
-    def __init__(self, cin: int, cout: int, k: int):
+    def __init__(self, cin: int, cout: int, k: int, bias: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, k, padding=k // 2, bias=False)
+        self.conv = nn.Conv2d(cin, cout, k, padding=k // 2, bias=bias)
 
     def forward(self, x):
         return self.conv(x)

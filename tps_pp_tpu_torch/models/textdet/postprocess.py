@@ -1,6 +1,5 @@
-"""The segmentation detectors' postprocessing and the hmean-IoU detection
-metric, on the host (counterpart of
-``tps_pp_tpu/models/textdet/postprocess.py:19-262``).
+"""The map detectors' postprocessing and the hmean-IoU detection metric,
+on the host (counterpart of ``tps_pp_tpu/models/textdet/postprocess.py``).
 
 ``DBPostprocessor`` is the JAX package's, with its cv2 calls taken by the
 numpy copies in ``datasets/pipelines/cv_ops.py`` (the machine with the
@@ -22,6 +21,23 @@ min-area rectangle's corners (quad) or the outer border of its pixels
 contours, thickness 1), which ``pixel_group`` takes and, as the C++ does,
 does not read.
 
+``FCEPostprocessor`` (reference ``fce_postprocessor.py``) scores each
+level's pixels by ``tr ** alpha * tcl ** beta``, fills the holes of the
+mask above ``score_thr`` (``sidelines.fill_hole``), and for each of its
+contours (``RETR_TREE``, in cv2's order) turns every scored pixel's
+Fourier coefficients into a 50-point polygon (``fourier2poly``: inverse
+FFT, truncated to int32) at the level's scale, ``poly_nms`` over them
+(greedy, exact polygon IoU: a Python loop), then ``poly_nms`` over all
+levels; ``'quad'`` takes each polygon's min-area rectangle.
+``TextSnakePostprocessor`` (reference ``textsnake_postprocessor.py``)
+takes the centre mask's contours of at least ``min_center_area``, the
+skeleton of each (``sidelines.skeletonize``, the JAX package's thinning),
+slides its points to the local centre along the predicted normal
+(``centralize``, float64, with JAX's cap on the walk), merges the disks
+(``merge_disks``), draws them (``cv_ops.circle``) and keeps the first
+contour of their union. Both are the JAX package's, their cv2 calls taken
+by ``cv_ops``.
+
 ``eval_hmean_iou`` is the reference's hmean-IoU protocol
 (``core/evaluation/hmean_iou.py:8-120``) with exact polygon areas
 (``evaluation/polygon.py``); ``evaluation`` exports it too.
@@ -36,6 +52,7 @@ from ...datasets.pipelines import cv_ops
 from ...evaluation.polygon import (poly_intersection_area, poly_iou,
                                    polygon_area)
 from .pixel_ops import contour_expand, pixel_group
+from .sidelines import centralize, fill_hole, merge_disks, skeletonize
 
 
 class DBPostprocessor:
@@ -217,6 +234,173 @@ class PANPostprocessor:
                                  float(score_i))
             if vb is not None:
                 boundaries.append(vb)
+        return boundaries
+
+
+def poly_nms(polygons: List, threshold: float) -> List:
+    """Greedy polygon NMS by score (reference postprocess/utils.py:117-138);
+    exact polygon IoU (evaluation/polygon.py) like the reference's shapely."""
+    polygons = sorted(polygons, key=lambda x: x[-1])
+    keep = []
+    index = list(range(len(polygons)))
+    while index:
+        i = index.pop()
+        a = np.asarray(polygons[i][:-1], np.float32)
+        keep.append(list(polygons[i]))
+        index = [j for j in index
+                 if poly_iou(a.reshape(-1, 2),
+                             np.asarray(polygons[j][:-1],
+                                        np.float32).reshape(-1, 2))
+                 <= threshold]
+    return keep
+
+
+def fourier2poly(fourier_coeff: np.ndarray,
+                 num_reconstr_points: int = 50) -> np.ndarray:
+    """Inverse Fourier transform of (n, 2k+1) complex coefficients to
+    (n, 2*num_points) polygons (reference postprocess/utils.py:141-162)."""
+    a = np.zeros((len(fourier_coeff), num_reconstr_points), dtype=complex)
+    k = (fourier_coeff.shape[1] - 1) // 2
+    a[:, 0:k + 1] = fourier_coeff[:, k:]
+    a[:, -k:] = fourier_coeff[:, :k]
+    poly_complex = np.fft.ifft(a) * num_reconstr_points
+    polygon = np.zeros((len(fourier_coeff), num_reconstr_points, 2))
+    polygon[:, :, 0] = poly_complex.real
+    polygon[:, :, 1] = poly_complex.imag
+    return polygon.astype('int32').reshape((len(fourier_coeff), -1))
+
+
+class FCEPostprocessor:
+    """Fourier contour decode + poly NMS (reference
+    textdet/postprocess/fce_postprocessor.py:11-120). Operates on our NHWC
+    head outputs: call with a list of per-level (cls (H,W,4),
+    reg (H,W,2(2k+1))) plus the level scales."""
+
+    def __init__(self, fourier_degree=5, num_reconstr_points=50,
+                 text_repr_type='poly', alpha=1.0, beta=2.0, score_thr=0.3,
+                 nms_thr=0.1, scales=(8, 16, 32), **kwargs):
+        self.fourier_degree = fourier_degree
+        self.num_reconstr_points = num_reconstr_points
+        self.text_repr_type = text_repr_type
+        self.alpha = alpha
+        self.beta = beta
+        self.score_thr = score_thr
+        self.nms_thr = nms_thr
+        self.scales = scales
+
+    def candidates(self, cls_pred, reg_pred, scale) -> List[np.ndarray]:
+        """One level's polygons before NMS: an (n, 2 * num_reconstr_points
+        + 1) array [vertices, score] for each contour of the filled score
+        mask, a row for each of its pixels."""
+        def softmax2(x):
+            e = np.exp(x - x.max(-1, keepdims=True))
+            return e / e.sum(-1, keepdims=True)
+
+        k = 2 * self.fourier_degree + 1
+        cls_pred = np.asarray(cls_pred, np.float32)
+        reg_pred = np.asarray(reg_pred, np.float32)
+        tr_pred = softmax2(cls_pred[..., 0:2])
+        tcl_pred = softmax2(cls_pred[..., 2:4])
+        x_pred, y_pred = reg_pred[..., :k], reg_pred[..., k:]
+
+        score_pred = (tr_pred[..., 1] ** self.alpha) * \
+            (tcl_pred[..., 1] ** self.beta)
+        tr_pred_mask = score_pred > self.score_thr
+        tr_mask = fill_hole(tr_pred_mask)
+        contours = cv_ops.find_contours(tr_mask.astype(np.uint8),
+                                        cv_ops.RETR_TREE)
+        mask = np.zeros_like(tr_mask, np.uint8)
+        out = []
+        for cont in contours:
+            deal_map = mask.copy()
+            cv_ops.draw_contours(deal_map, cont, 1)
+            score_map = score_pred * deal_map
+            score_mask = score_map > 0
+            if not score_mask.any():
+                continue
+            xy_text = np.argwhere(score_mask)
+            dxy = xy_text[:, 1] + xy_text[:, 0] * 1j
+            x, y = x_pred[score_mask], y_pred[score_mask]
+            c = x + y * 1j
+            c[:, self.fourier_degree] = c[:, self.fourier_degree] + dxy
+            c *= scale
+            polygons = fourier2poly(c, self.num_reconstr_points)
+            score = score_map[score_mask].reshape(-1, 1)
+            out.append(np.hstack((polygons, score)))
+        return out
+
+    def __call__(self, preds, scales=None) -> List[np.ndarray]:
+        scales = scales or self.scales
+        boundaries = []
+        for (cls_pred, reg_pred), scale in zip(preds, scales):
+            for polys in self.candidates(cls_pred, reg_pred, scale):
+                boundaries += poly_nms(polys.tolist(), self.nms_thr)
+        boundaries = poly_nms(boundaries, self.nms_thr)
+        if self.text_repr_type == 'quad':
+            out = []
+            for b in boundaries:
+                poly = np.array(b[:-1]).reshape(-1, 2).astype(np.float32)
+                points = cv_ops.box_points(cv_ops.min_area_rect(poly))
+                out.append(points.reshape(-1).tolist() + [b[-1]])
+            boundaries = out
+        return [np.asarray(b, np.float32) for b in boundaries]
+
+
+class TextSnakePostprocessor:
+    """Skeleton + disk reconstruction (reference
+    textdet/postprocess/textsnake_postprocessor.py:13-120)."""
+
+    def __init__(self, text_repr_type='poly', min_text_region_confidence=0.6,
+                 min_center_region_confidence=0.2, min_center_area=30,
+                 disk_overlap_thr=0.03, radius_shrink_ratio=1.03, **kwargs):
+        self.min_text_region_confidence = min_text_region_confidence
+        self.min_center_region_confidence = min_center_region_confidence
+        self.min_center_area = min_center_area
+        self.disk_overlap_thr = disk_overlap_thr
+        self.radius_shrink_ratio = radius_shrink_ratio
+
+    def __call__(self, preds: np.ndarray) -> List[np.ndarray]:
+        """preds: (H, W, 5) raw maps [text, center, sin, cos, radius]."""
+        preds = np.asarray(preds, np.float32)
+        text_score = 1 / (1 + np.exp(-preds[..., 0]))
+        center_score = 1 / (1 + np.exp(-preds[..., 1])) * text_score
+        sin_p, cos_p, radius_p = preds[..., 2], preds[..., 3], preds[..., 4]
+        scale = np.sqrt(1.0 / (sin_p ** 2 + cos_p ** 2 + 1e-8))
+        sin_p, cos_p = sin_p * scale, cos_p * scale
+
+        center_mask = fill_hole(
+            center_score > self.min_center_region_confidence).astype(np.uint8)
+        contours = cv_ops.find_contours(center_mask, cv_ops.RETR_TREE)
+        boundaries = []
+        for contour in contours:
+            if cv_ops.contour_area(contour) < self.min_center_area:
+                continue
+            inst = np.zeros_like(center_mask)
+            cv_ops.draw_contours(inst, contour, 1)
+            skel_yx = np.argwhere(skeletonize(inst))
+            if len(skel_yx) == 0:
+                continue
+            y, x = skel_yx[:, 0], skel_yx[:, 1]
+            cos = cos_p[y, x].reshape(-1, 1)
+            sin = sin_p[y, x].reshape(-1, 1)
+            radius = radius_p[y, x].reshape(-1, 1)
+            center_yx = centralize(skel_yx, cos, -sin, radius, inst)
+            y, x = center_yx[:, 0], center_yx[:, 1]
+            radius = (radius_p[y, x] * self.radius_shrink_ratio).reshape(-1, 1)
+            score = center_score[y, x].reshape(-1, 1)
+            disks = merge_disks(
+                np.hstack([np.fliplr(center_yx), radius, score]),
+                self.disk_overlap_thr)
+            inst_mask = np.zeros_like(center_mask)
+            for dx, dy, r, _s in disks:
+                if r > 1:
+                    cv_ops.circle(inst_mask, (int(dx), int(dy)), int(r), 1)
+            cs = cv_ops.find_contours(inst_mask, cv_ops.RETR_TREE)
+            sc = float(np.sum(inst_mask * text_score) /
+                       (np.sum(inst_mask) + 1e-8))
+            if cs and cv_ops.contour_area(cs[0]) > 0 and cs[0].size > 8:
+                boundaries.append(np.asarray(
+                    cs[0].flatten().tolist() + [sc], np.float32))
         return boundaries
 
 

@@ -1,6 +1,10 @@
 """Ground truth of the segmentation detectors on the host (counterpart of
-``tps_pp_tpu/models/textdet/targets.py:24-180``): DBNet's shrunk text and
-threshold maps, PANet's and PSENet's shrunk instance kernels.
+``tps_pp_tpu/models/textdet/targets.py:24-354``): DBNet's shrunk text and
+threshold maps, PANet's and PSENet's shrunk instance kernels, TextSnake's
+text and centre-region masks with their radius / sin / cos maps, and
+FCENet's per-level maps (text region, centre region, effective mask and
+the Fourier signature of each polygon, its constant term relative to each
+pixel).
 
 The JAX package rasterises each polygon (``cv2.fillPoly`` of its vertices
 cast to int32, which truncates) and measures offsets with
@@ -16,6 +20,13 @@ image's (``tests/test_torch_det_train.py``). The maps are
 the JAX package's: float32, ``gt_shrink`` 1 where the polygon's inner
 distance reaches ``d``, ``gt_thr`` the ramp ``thr_min + (thr_max -
 thr_min) (1 - |signed| / d)`` in the band ``|signed| < d``.
+
+``TextSnakeTargets`` and ``FCENetTargets`` are the JAX package's, over the
+sideline geometry of ``sidelines.py`` and ``cv_ops``' fills; FCENet's
+Fourier signature (``resample_polygon``, ``normalize_polygon``,
+``poly2fourier``, ``clockwise``) runs in float64 with ``np.fft``, and each
+polygon goes to the levels whose proportion range holds the larger side of
+its ``bounding_rect`` over the image's height.
 """
 from __future__ import annotations
 
@@ -25,6 +36,7 @@ import numpy as np
 
 from ...datasets.pipelines import cv_ops
 from ...registry import PIPELINES
+from . import sidelines as sl
 
 _MARGIN = 8     # columns and rows past the farthest read pixel
 
@@ -190,4 +202,175 @@ class PSENetTargets(PANetTargets):
         results['gt_kernels'] = np.stack(
             [(k > 0).astype(np.float32) for k in kernels])
         results['gt_mask'] = gt_mask
+        return results
+
+
+@PIPELINES.register_module()
+class TextSnakeTargets:
+    """TextSnake gt generation (reference
+    textdet_targets/textsnake_targets.py:26-483): text region mask, center
+    region mask, radius/sin/cos attribute maps + effective mask."""
+
+    def __init__(self, orientation_thr=2.0, resample_step=4.0,
+                 center_region_shrink_ratio=0.3):
+        self.orientation_thr = orientation_thr
+        self.resample_step = resample_step
+        self.center_region_shrink_ratio = center_region_shrink_ratio
+
+    def generate(self, polygons, polygons_ignore, h, w):
+        gt_text = sl.generate_text_region_mask((h, w), polygons)
+        center, radius, sin_m, cos_m = sl.generate_center_mask_attrib_maps(
+            (h, w), polygons, self.resample_step,
+            self.center_region_shrink_ratio)
+        gt_mask = sl.generate_effective_mask((h, w), polygons_ignore)
+        return {
+            'gt_text_mask': gt_text.astype(np.float32),
+            'gt_center_region_mask': center.astype(np.float32),
+            'gt_mask': gt_mask.astype(np.float32),
+            'gt_radius_map': radius,
+            'gt_sin_map': sin_m,
+            'gt_cos_map': cos_m,
+        }
+
+    def __call__(self, results: Dict) -> Dict:
+        h, w = results['img'].shape[:2]
+        results.update(self.generate(results.get('gt_polygons', []),
+                                     results.get('gt_polygons_ignore', []),
+                                     h, w))
+        return results
+
+
+@PIPELINES.register_module()
+class FCENetTargets:
+    """FCENet gt generation (reference textdet_targets/fcenet_targets.py:
+    20-368): per-pyramid-level (4k+5)-channel maps [text region, center
+    region, effective mask, Fourier real, Fourier imag]."""
+
+    def __init__(self, fourier_degree=5, resample_step=4.0,
+                 center_region_shrink_ratio=0.3,
+                 level_size_divisors=(8, 16, 32),
+                 level_proportion_range=((0, 0.4), (0.3, 0.7), (0.6, 1.0))):
+        self.fourier_degree = fourier_degree
+        self.resample_step = resample_step
+        self.center_region_shrink_ratio = center_region_shrink_ratio
+        self.level_size_divisors = tuple(level_size_divisors)
+        self.level_proportion_range = tuple(level_proportion_range)
+
+    # --- Fourier signature (fcenet_targets.py:107-221) ---
+    def resample_polygon(self, polygon, n=400):
+        length = []
+        for i in range(len(polygon)):
+            p1 = polygon[i]
+            p2 = polygon[(i + 1) % len(polygon)]
+            length.append(((p1[0] - p2[0]) ** 2 +
+                           (p1[1] - p2[1]) ** 2) ** 0.5)
+        total = sum(length)
+        n_per = (np.array(length) / (total + 1e-8)) * n
+        n_per = n_per.astype(np.int32)
+        out = []
+        for i in range(len(polygon)):
+            num = n_per[i]
+            if num == 0:
+                continue
+            p1 = polygon[i]
+            p2 = polygon[(i + 1) % len(polygon)]
+            dxdy = (p2 - p1) / num
+            for j in range(num):
+                out.append(p1 + dxdy * j)
+        return np.array(out)
+
+    @staticmethod
+    def normalize_polygon(polygon):
+        temp = polygon - polygon.mean(axis=0)
+        x = np.abs(temp[:, 0])
+        y = temp[:, 1]
+        index_x = np.argsort(x)
+        index_y = np.argmin(y[index_x[:8]])
+        index = index_x[index_y]
+        return np.concatenate([polygon[index:], polygon[:index]])
+
+    def poly2fourier(self, polygon, k):
+        points = polygon[:, 0] + polygon[:, 1] * 1j
+        c_fft = np.fft.fft(points) / len(points)
+        return np.hstack((c_fft[-k:], c_fft[:k + 1]))
+
+    @staticmethod
+    def clockwise(c, k):
+        if np.abs(c[k + 1]) > np.abs(c[k - 1]):
+            return c
+        if np.abs(c[k + 1]) < np.abs(c[k - 1]):
+            return c[::-1]
+        return c if np.abs(c[k + 2]) > np.abs(c[k - 2]) else c[::-1]
+
+    def cal_fourier_signature(self, polygon, k):
+        poly = self.resample_polygon(polygon)
+        poly = self.normalize_polygon(poly)
+        c = self.clockwise(self.poly2fourier(poly, k), k)
+        return np.hstack([np.real(c).reshape(-1, 1),
+                          np.imag(c).reshape(-1, 1)])
+
+    def generate_fourier_maps(self, img_size, text_polys):
+        h, w = img_size
+        k = self.fourier_degree
+        real_map = np.zeros((h, w, 2 * k + 1), np.float32)
+        imag_map = np.zeros((h, w, 2 * k + 1), np.float32)
+        for poly in text_polys:
+            pts = np.asarray(poly, np.float32).reshape(-1, 2)
+            mask = np.zeros((h, w), np.uint8)
+            cv_ops.fill_poly(mask, [pts.astype(np.int32)], 1)
+            coeff = self.cal_fourier_signature(pts, k)
+            sel = mask > 0
+            for i in range(2 * k + 1):
+                if i != k:
+                    real_map[sel, i] = coeff[i, 0]
+                    imag_map[sel, i] = coeff[i, 1]
+            yx = np.argwhere(sel)
+            real_map[yx[:, 0], yx[:, 1], k] = coeff[k, 0] - yx[:, 1]
+            imag_map[yx[:, 0], yx[:, 1], k] = coeff[k, 1] - yx[:, 0]
+        return real_map, imag_map
+
+    def generate_level_targets(self, img_size, text_polys, ignore_polys):
+        h, w = img_size
+        lv_polys = [[] for _ in self.level_size_divisors]
+        lv_ignore = [[] for _ in self.level_size_divisors]
+        for poly in text_polys:
+            pts = np.asarray(poly, np.float32).reshape(-1, 2)
+            _, _, bw, bh = cv_ops.bounding_rect(pts.astype(np.int32))
+            proportion = max(bh, bw) / (h + 1e-8)
+            for ind, rng in enumerate(self.level_proportion_range):
+                if rng[0] < proportion < rng[1]:
+                    lv_polys[ind].append(
+                        pts / self.level_size_divisors[ind])
+        for poly in ignore_polys:
+            pts = np.asarray(poly, np.float32).reshape(-1, 2)
+            _, _, bw, bh = cv_ops.bounding_rect(pts.astype(np.int32))
+            proportion = max(bh, bw) / (h + 1e-8)
+            for ind, rng in enumerate(self.level_proportion_range):
+                if rng[0] < proportion < rng[1]:
+                    lv_ignore[ind].append(
+                        pts / self.level_size_divisors[ind])
+        level_maps = []
+        for ind, div in enumerate(self.level_size_divisors):
+            size = (h // div, w // div)
+            tr = sl.generate_text_region_mask(size, lv_polys[ind])
+            tcl = sl.generate_center_region_mask(
+                size, lv_polys[ind], self.resample_step,
+                self.center_region_shrink_ratio)
+            eff = sl.generate_effective_mask(size, lv_ignore[ind])
+            real_map, imag_map = self.generate_fourier_maps(size,
+                                                            lv_polys[ind])
+            level_maps.append(np.concatenate([
+                tr[..., None].astype(np.float32),
+                tcl[..., None].astype(np.float32),
+                eff[..., None].astype(np.float32),
+                real_map, imag_map], axis=-1))
+        return level_maps
+
+    def __call__(self, results: Dict) -> Dict:
+        h, w = results['img'].shape[:2]
+        maps = self.generate_level_targets(
+            (h, w), results.get('gt_polygons', []),
+            results.get('gt_polygons_ignore', []))
+        for i, m in enumerate(maps):
+            results[f'p{i + 3}_maps'] = m
         return results

@@ -585,16 +585,62 @@ def psenet_rules(cfg: Mapping) -> List[Rule]:
         ('head.out_conv', 'head/out_conv', 'conv')]
 
 
+def fpn_det_rules(n_levels: int = 3) -> List[Rule]:
+    """FPNDet with mmdet ``FPN``'s names: ``neck.lateral_convs.{i}.conv``
+    and ``neck.fpn_convs.{i}.conv`` (``ConvModule``s with a bias, no
+    norm)."""
+    rules = []
+    for i in range(n_levels):
+        rules += [(f'neck.lateral_convs.{i}.conv', f'neck/lateral{i}', 'conv'),
+                  (f'neck.fpn_convs.{i}.conv', f'neck/fpn{i}', 'conv')]
+    return rules
+
+
+def fcenet_rules(cfg: Mapping) -> List[Rule]:
+    """The rule table of an FCENet config (ResNetDet50 with or without
+    DCNv2, FPNDet, FCEHead's ``out_conv_cls`` / ``out_conv_reg``). The
+    head is ``head`` here as in the other detectors (MMOCR 0.4.0 names it
+    ``bbox_head``). JAX's ``torch_convert.py`` has no detection table and
+    the reference tree is absent, so the names are read from MMOCR 0.4.0's
+    and mmdet's modules, not checked against a reference checkpoint."""
+    n = len(cfg['neck'].get('in_channels', (512, 1024, 2048)))
+    return _det_trunk_rules(cfg) + fpn_det_rules(n) + [
+        ('head.out_conv_cls', 'head/out_conv_cls', 'conv'),
+        ('head.out_conv_reg', 'head/out_conv_reg', 'conv')]
+
+
+def fpn_unet_rules() -> List[Rule]:
+    """FPN_UNet with MMOCR 0.4.0's names (``fpn_unet.py``): ``neck.up4``
+    (a transposed convolution) and ``neck.up_block{0..3}.{conv1x1,
+    conv3x3, deconv}``."""
+    rules = [('neck.up4', 'neck/up4', 'conv_transpose')]
+    for i in range(4):
+        tp, fp = f'neck.up_block{i}', f'neck/up_block{i}'
+        rules += [(f'{tp}.conv1x1', f'{fp}/conv1x1', 'conv'),
+                  (f'{tp}.conv3x3', f'{fp}/conv3x3', 'conv'),
+                  (f'{tp}.deconv', f'{fp}/deconv', 'conv_transpose')]
+    return rules
+
+
+def textsnake_rules(cfg: Mapping) -> List[Rule]:
+    """The rule table of a TextSnake config (ResNetDet50, FPN_UNet,
+    TextSnakeHead's ``out_conv``), unchecked as ``fcenet_rules``."""
+    return _det_trunk_rules(cfg) + fpn_unet_rules() + [
+        ('head.out_conv', 'head/out_conv', 'conv')]
+
+
 def rules_for_config(cfg: Mapping) -> List[Rule]:
     """The rule table of an NRTR, SATRN, ABINet (+ TPS_PP), CRNN, SAR
     (parallel, sequential, beam search), RobustScanner or SegRecognizer
     config, with its image-space preprocessor (TPS-STN, MORAN, SPIN),
     dispatched on its preprocessor, backbone, encoder and decoder types as
     JAX's ``rules_for_config`` (``torch_convert.py:604-684``), or of a
-    DBNet, PANet or PSENet detector (``dbnet_rules``, ``panet_rules``,
-    ``psenet_rules``); a type without rules raises a ``ValueError``."""
+    DBNet, PANet, PSENet, FCENet or TextSnake detector (``dbnet_rules``,
+    ``panet_rules``, ``psenet_rules``, ``fcenet_rules``,
+    ``textsnake_rules``); a type without rules raises a ``ValueError``."""
     det = {'DBNet': dbnet_rules, 'PANet': panet_rules,
-           'PSENet': psenet_rules}.get(cfg.get('type'))
+           'PSENet': psenet_rules, 'FCENet': fcenet_rules,
+           'TextSnake': textsnake_rules}.get(cfg.get('type'))
     if det is not None:
         return det(cfg)
     if cfg.get('type') == 'SegRecognizer':    # no preprocessor, as JAX
@@ -747,7 +793,7 @@ def state_dict_from_jax(variables: Mapping, cfg: Mapping
     """JAX recognizer or detector variables -> a ``state_dict`` that the
     model of ``build_recognizer(cfg)`` (NRTR, SATRN, ABINet, CRNN, SAR,
     RobustScanner or SegRecognizer) or ``build_detector_module(cfg)``
-    (DBNet, PANet, PSENet) takes with
+    (DBNet, PANet, PSENet, FCENet, TextSnake) takes with
     ``load_state_dict(strict=True)``. The sinusoid tables, buffers as in
     the reference, are made from the config."""
     sd = convert_rules(variables, rules_for_config(cfg))
