@@ -265,7 +265,7 @@ seed):
   the epoch spent making batches; a resume from epoch 1's ``.pth`` repeats
   epoch 2's step count and lr, its loss within ``LOSS_RTOL``.
 
-* FCENet and TextSnake, last, which run no hand-written kernel (plain XLA
+* FCENet and TextSnake, which run no hand-written kernel (plain XLA
   and host numpy in JAX; DCNv2 on the port's plain ``ops/deform_conv.py``):
   FCENet-R50 (``fcenet_r50_fpn_1500e_icdar2015.py``), FCENet-R50-DCNv2
   (``fcenet_r50dcnv2_fpn_1500e_ctw1500.py``) and TextSnake-R50
@@ -292,8 +292,34 @@ seed):
   ``FCE_TRAIN_EPOCHS`` epochs and a resume from epoch 1; and
   ``MMOCR.readtext`` with the FCENet-R50 config path and the flagship
   recognizer on ``N_PAGES`` pages, FCENet's text classes lowered until at
-  most ``FCE_READ_PIXELS`` pixels pass. The whole script's time is logged
-  before the ``kernels`` line.
+  most ``FCE_READ_PIXELS`` pixels pass.
+
+* DRRG, last, which runs no hand-written kernel (flax and host numpy in
+  JAX): the shipped DRRG-R50 config (``DRRG_CONFIG``) through
+  ``init_detector``, seed-0 weights, float32 (TF32 off). The card against
+  the CPU at B=2 on 640 x 640 (``drrg_card_checks``: features and maps
+  within ``DRRG_F32_RTOL`` of their largest magnitude, seed-0 and with the
+  text and centre logits moved until half the pixels pass the
+  centre-mask decision; the GCN's logits on identical node features; on
+  trained-like maps (``drrg_maps``: ``DRRGTargets`` of 2-4 ``word_quads``
+  a page as +-8 logits) moved by the card's difference, the GCN's link
+  bias raised by ``DRRG_LINK_BIAS``, the boundaries equal where the
+  decisions and links are, at least ``DRRG_MIN_COMPARED``); the text
+  logits then lowered by ``DRRG_QUIET`` (seed-0 weights pass most
+  pixels); ``detect_batch`` at B=8 by stage (prep, copy in, the forward
+  and its trunk / neck / head, the features and maps' copy out in ms and
+  MB), the test graphs and postprocessor on the quieted maps and, beside
+  the card's features, on trained-like maps by stage (``DRRGStages``:
+  ``propose_comps`` with ``poly_nms``'s polygon IoUs, the graphs and RoI
+  pooling, the GCN on the card, the postprocessor); one B=1 forward at
+  the test pipeline's 1024 x 640; one float32 step on one page, the card
+  against the CPU (``DET_LOSS_RTOL``, ``DET_GRAD_NORM_RTOL``, the targets'
+  ``RandomState`` seeded alike); ``train_detector`` over
+  ``N_DRRG_TRAIN_PAGES`` pages, one a step, for ``DRRG_TRAIN_EPOCHS``
+  epochs and a resume from epoch 1; ``MMOCR.readtext`` with the DRRG
+  config path and the flagship recognizer on two pages, its text and
+  centre logits lowered until at most ``DRRG_READ_PIXELS`` pixels pass.
+  The whole script's time is logged before the ``kernels`` line.
 
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
 the checks and on TPS++'s own [0, 1]^2 grid, which puts every sample in
@@ -530,6 +556,23 @@ FCE_TS_STRESS, FCE_TS_STRESS_SHARES, FCE_TS_MIN_COMPARED = 0.5, (0.3, 0.7), 10
 TS_STRESS_PART, TS_STRESS_RADIUS = 0.1, 8.0
 FCE_WORDS, N_FCE_TRAINED_LIKE, N_TS_TRAINED_LIKE = (1, 1), 1, 8
 N_FCE_TRAIN_PAGES, FCE_TRAIN_EPOCHS = 16, 2
+# DRRG (config, serving batch, the test pipeline's img_scale (h, w)); the
+# card-vs-CPU bounds of the features and maps and of the GCN's logits,
+# relative to their largest magnitude; the margin that quiets the seed-0
+# text logits (random weights pass most pixels, and the skeleton of a
+# page-sized region would take poly_nms hours); the bias added to the
+# GCN's class-1 logit where links must form (random weights rarely reach
+# link_thr 0.8; exp stays finite), the distance from link_thr within which
+# a link decision counts as a tie; the words of a trained-like page and
+# the pages; the least boundaries compared card against CPU; training's
+# pages and epochs; the pixels readtext's DRRG leaves past the first
+# decision
+DRRG_CONFIG = 'configs/textdet/drrg/drrg_r50_fpn_unet_1200e_ctw1500.py'
+B_DRRG, DRRG_TEST_SCALE = 8, (640, 1024)
+DRRG_F32_RTOL, DRRG_QUIET = 1e-5, 30.0
+DRRG_LINK_BIAS, DRRG_LINK_MARGIN = 8.0, 1e-4
+DRRG_WORDS, N_DRRG_TRAINED_LIKE, DRRG_MIN_COMPARED = (2, 4), 4, 2
+N_DRRG_TRAIN_PAGES, DRRG_TRAIN_EPOCHS, DRRG_READ_PIXELS = 4, 2, 400
 
 
 def log(*a):
@@ -4028,12 +4071,19 @@ class DetPages:
     float32 in [0, 1] and the ``word_quads`` of each page as its
     polygons; a fresh dict an item (the loop adds targets to it)."""
 
-    def __init__(self, g, n, hw=(640, 640)):
+    def __init__(self, g, n, hw=(640, 640), words=None):
+        """``words``: (least, most) of each page's quads kept, where
+        given."""
         import numpy as np
-        self.items = [dict(img=(g.integers(0, 256, (*hw, 3), np.uint8)
-                                .astype(np.float32) / 255.0),
-                           gt_polygons=word_quads(g, hw),
-                           gt_polygons_ignore=[]) for _ in range(n)]
+        self.items = []
+        for _ in range(n):
+            img = (g.integers(0, 256, (*hw, 3), np.uint8).astype(np.float32)
+                   / 255.0)
+            quads = word_quads(g, hw)
+            if words is not None:
+                quads = quads[:int(g.integers(*words, endpoint=True))]
+            self.items.append(dict(img=img, gt_polygons=quads,
+                                   gt_polygons_ignore=[]))
 
     def __len__(self):
         return len(self.items)
@@ -4312,6 +4362,22 @@ def textsnake_like(g, hw, polys):
                   (2 * t['gt_center_region_mask'] - 1) * 4, t['gt_sin_map'],
                   t['gt_cos_map'], t['gt_radius_map']], -1)
     noise = g.normal(0, 1, x.shape) * [0.5, 0.5, 0.05, 0.05, 0.2]
+    return (x + noise).astype(np.float32)
+
+
+def drrg_like(g, hw, polys, seed=0):
+    """A DRRG output shaped like a trained one's: the ``DRRGTargets``
+    maps of ``polys`` (its generator seeded with ``seed``), the text and
+    centre masks as +-8 logits, the sin, cos, top and bottom height maps,
+    plus noise; (H, W, 6) float32."""
+    import numpy as np
+    from tps_pp_tpu_torch.models.textdet.targets import DRRGTargets
+    t = DRRGTargets(seed=seed).generate(polys, [], *hw)
+    x = np.stack([(2 * t['gt_text_mask'] - 1) * 8,
+                  (2 * t['gt_center_region_mask'] - 1) * 8, t['gt_sin_map'],
+                  t['gt_cos_map'], t['gt_top_height_map'],
+                  t['gt_bot_height_map']], -1)
+    noise = g.normal(0, 1, x.shape) * [0.5, 0.5, 0.05, 0.05, 0.2, 0.2]
     return (x + noise).astype(np.float32)
 
 
@@ -4792,6 +4858,524 @@ def fce_textsnake_phase(dev, name):
     stats['readtext'] = dict(ms_page=whole * 1e3)
     section('readtext')
     log(f'fce-ts phase: {time.perf_counter() - t_phase:.1f} s (by section: '
+        f'{sections}); no hand-written kernel launched; '
+        f'{json.dumps(stats)}')
+
+
+def drrg_maps(g, n, hw=(640, 640)):
+    """``n`` ``drrg_like`` maps, each of ``DRRG_WORDS`` of a page's
+    ``word_quads``, stacked (n, H, W, 6)."""
+    import numpy as np
+    out = []
+    for i in range(n):
+        quads = word_quads(g, hw)[:int(g.integers(*DRRG_WORDS,
+                                                  endpoint=True))]
+        out.append(drrg_like(g, hw, quads, seed=SEED + i))
+    return np.stack(out)
+
+
+def drrg_decisions(det, maps, d=0.0):
+    """The centre-mask decisions of ``det``'s component proposal on
+    batched maps (N, H, W, 6), the text and centre logits lowered by
+    ``d``: the centre score (times the text score) and the text score
+    both above their thresholds; flattened."""
+    import torch
+    gt = det.postprocessor.graph_test
+    maps = torch.as_tensor(maps)
+    text = torch.sigmoid(maps[..., 0].float() - d)
+    center = torch.sigmoid(maps[..., 1].float() - d) * text
+    return ((center > gt.center_region_thr)
+            & (text > gt.text_region_thr)).flatten()
+
+
+def drrg_margin(det, maps, at_most):
+    """The least ``d`` in [-DRRG_QUIET, DRRG_QUIET] (bisection) at which at
+    most ``at_most`` of ``drrg_decisions`` pass."""
+    lo, hi = -DRRG_QUIET, DRRG_QUIET
+    for _ in range(40):
+        mid = (lo + hi) / 2
+        if int(drrg_decisions(det, maps, mid).sum()) <= at_most:
+            hi = mid
+        else:
+            lo = mid
+    return hi
+
+
+def drrg_shift(det, d=0.0, link=0.0):
+    """Lower ``det``'s text and centre logits by ``d``; raise its GCN's
+    class-1 bias by ``link``."""
+    import torch
+    with torch.no_grad():
+        det.model.head.out_conv.bias[:2] -= d
+        det.model.head.gcn.classifier[2].bias[1] += link
+
+
+class DRRGStages:
+    """Times each host and card stage of a ``DRRGDetector`` (wrapping its
+    instance's methods): ``propose_comps`` (with ``poly_nms``'s polygon
+    IoUs, counted and timed), the rest of ``build_test`` (the local graphs
+    and the rotated RoI pooling), ``link_probs`` (the GCN on its device,
+    synchronised) and the postprocessor; keeps each call's link
+    probabilities."""
+
+    def __init__(self, detector):
+        from tps_pp_tpu_torch.models.textdet import postprocess
+        self.ms = dict(propose=0.0, graphs=0.0, gcn=0.0, post=0.0,
+                       iou=0.0)
+        self.ious, self.probs, self.comps = 0, [], 0
+        self.detector, self.postprocess = detector, postprocess
+        gt = detector.graph_test
+        self.saved = (gt.propose_comps, gt.build_test, detector.link_probs,
+                      detector.postprocessor, postprocess.poly_iou)
+        propose, build, links, post, iou = self.saved
+
+        def timed(key, fn):
+            def call(*a):
+                t0 = time.perf_counter()
+                out = fn(*a)
+                self.ms[key] += (time.perf_counter() - t0) * 1e3
+                return out
+            return call
+
+        def counted(a, b):
+            self.ious += 1
+            return iou(a, b)
+
+        def proposed(maps):
+            comps, geo = propose(maps)
+            self.comps += 0 if comps is None else len(comps)
+            return comps, geo
+
+        def built(*a):
+            before = self.ms['propose']
+            t0 = time.perf_counter()
+            out = build(*a)
+            self.ms['graphs'] += ((time.perf_counter() - t0) * 1e3
+                                  - (self.ms['propose'] - before))
+            return out
+
+        def probed(*a):
+            p = links(*a)       # on the host: the GCN's device has synced
+            self.probs.append(p)
+            return p
+        gt.propose_comps = timed('propose', proposed)
+        gt.build_test = built
+        detector.link_probs = timed('gcn', probed)
+        detector.postprocessor = timed('post', post)
+        postprocess.poly_iou = timed('iou', counted)
+
+    def restore(self):
+        gt = self.detector.graph_test
+        (gt.propose_comps, gt.build_test, self.detector.link_probs,
+         self.detector.postprocessor, self.postprocess.poly_iou) = self.saved
+
+    def near_ties(self):
+        """Link probabilities within ``DRRG_LINK_MARGIN`` of link_thr."""
+        import numpy as np
+        thr = self.detector.postprocessor.link_thr
+        return sum(int((np.abs(p - thr) < DRRG_LINK_MARGIN).sum())
+                   for p in self.probs)
+
+
+def drrg_card_checks(det, cpu_det, xb, g):
+    """The card's DRRG ``det`` against ``cpu_det`` (the same weights on the
+    CPU) on the batch ``xb``; raises where a check fails, else returns the
+    counts.
+
+    * The features and maps within ``DRRG_F32_RTOL`` of their largest
+      magnitude, on the seed-0 weights and on a stressed map: the text and
+      centre logits moved on both (bisection on the CPU's maps) until
+      half the pixels pass the centre-mask decision (the shares reached
+      within ``FCE_TS_STRESS_SHARES``); the decisions that part counted.
+    * The GCN's link logits on identical node features (the CPU's
+      stressed features and trained-like maps, ``drrg_maps``, through the
+      CPU's test graphs) within ``DRRG_F32_RTOL`` of their largest.
+    * Boundaries on trained-like maps, the GCN's link bias raised by
+      ``DRRG_LINK_BIAS`` on both: the card's detector on its stressed
+      features and the trained-like maps moved by the stressed maps'
+      difference, the CPU's on its own features and the unmoved maps
+      given the moved maps' text and centre logits where their decisions
+      part; a page with a link probability within ``DRRG_LINK_MARGIN`` of
+      link_thr on either side is left out; at least ``DRRG_MIN_COMPARED``
+      boundaries compared, all equal (vertices, scores within 1e-4)."""
+    import numpy as np
+    import torch
+
+    def err(got, want):
+        e = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(got, want))
+        if not e <= DRRG_F32_RTOL:
+            raise AssertionError(f'DRRG: outputs {e} apart over their '
+                                 f'scale (bound {DRRG_F32_RTOL})')
+        return e
+
+    def cpu(out):
+        return tuple(t.cpu() for t in out)
+
+    want = cpu_det.forward(xb.cpu())
+    seed0 = drrg_decisions(det, want[1])
+    checks = dict(err=err(cpu(det.forward(xb)), want),
+                  passed_seed0=float(seed0.float().mean()))
+    d = drrg_margin(det, want[1], int(FCE_TS_STRESS * seed0.numel()))
+    drrg_shift(det, d)
+    drrg_shift(cpu_det, d)
+    got, want = cpu(det.forward(xb)), cpu_det.forward(xb.cpu())
+    drrg_shift(det, -d)
+    drrg_shift(cpu_det, -d)
+    checks['err_stressed'] = err(got, want)
+    dc, dw = drrg_decisions(det, got[1]), drrg_decisions(det, want[1])
+    share = float(dw.float().mean())
+    if not FCE_TS_STRESS_SHARES[0] <= share <= FCE_TS_STRESS_SHARES[1]:
+        raise AssertionError(f'DRRG: the stressed map passes {share} of '
+                             f'its pixels')
+    checks.update(shift=d, passed=share, flips=int((dc != dw).sum()))
+    # ---- the GCN on identical node features
+    one = drrg_maps(g, len(xb))
+    feats = [np.concatenate([want[0][i].numpy(), one[i]], -1)
+             for i in range(len(xb))]
+    node, adj, knn = cpu_det.postprocessor.graph_test.build_test(
+        one[0], feats[0])[:3]
+    with torch.no_grad():
+        a = det.model.head.gcn(*(torch.from_numpy(t).to(det.device)
+                                 for t in (node, adj, knn))).cpu()
+        b = cpu_det.model.head.gcn(*map(torch.from_numpy, (node, adj, knn)))
+    checks['gcn_err'] = e = float((a - b).abs().max() / b.abs().max())
+    if not e <= DRRG_F32_RTOL:
+        raise AssertionError(f'DRRG: GCN logits {e} apart over their '
+                             f'scale (bound {DRRG_F32_RTOL})')
+    # ---- boundaries on moved trained-like maps, link bias raised
+    moved = one + (got[1] - want[1]).numpy()
+    part = (drrg_decisions(det, one) != drrg_decisions(det, moved)).reshape(
+        one.shape[:-1])
+    same = one.copy()
+    same[..., :2] = np.where(part[..., None].numpy(), moved[..., :2],
+                             one[..., :2])
+    drrg_shift(det, link=DRRG_LINK_BIAS)
+    drrg_shift(cpu_det, link=DRRG_LINK_BIAS)
+    compared = skipped = 0
+    try:
+        for i in range(len(xb)):
+            sa, sb = (DRRGStages(det.postprocessor),
+                      DRRGStages(cpu_det.postprocessor))
+            try:
+                ba = det.postprocessor(np.concatenate(
+                    [got[0][i].numpy(), moved[i]], -1))
+                bb = cpu_det.postprocessor(np.concatenate(
+                    [want[0][i].numpy(), same[i]], -1))
+            finally:
+                sa.restore()
+                sb.restore()
+            if sa.near_ties() or sb.near_ties():
+                skipped += 1
+                continue
+            if len(ba) != len(bb) or any(
+                    u.shape != v.shape or bool((u[:-1] != v[:-1]).any())
+                    or abs(float(u[-1] - v[-1])) > 1e-4
+                    for u, v in zip(ba, bb)):
+                raise AssertionError(
+                    f'DRRG page {i}: the card\'s {len(ba)} boundaries part '
+                    f'from the CPU\'s {len(bb)}')
+            compared += len(bb)
+    finally:
+        drrg_shift(det, link=-DRRG_LINK_BIAS)
+        drrg_shift(cpu_det, link=-DRRG_LINK_BIAS)
+    if compared < DRRG_MIN_COMPARED:
+        raise AssertionError(f'DRRG: {compared} boundaries compared '
+                             f'({skipped} pages with near-tie links)')
+    checks.update(moved_flips=int(part.sum()), compared=compared,
+                  skipped=skipped)
+    return checks
+
+
+def drrg_phase(dev, name):
+    """DRRG on ``dev``, the card (see the module docstring); nothing here
+    launches a hand-written kernel."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import MMOCR, TextDetector, init_detector
+    from tps_pp_tpu_torch.apis.train_det import (DetBatches, _make_optimizer,
+                                                 make_drrg_train_step,
+                                                 train_detector)
+    from tps_pp_tpu_torch.config import load_config
+    from tps_pp_tpu_torch.datasets.pipelines import cv_ops
+    from tps_pp_tpu_torch.models.textdet import postprocess
+    from tps_pp_tpu_torch.registry import LOSSES
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(repo, DRRG_CONFIG)
+    g = np.random.default_rng(SEED + 22)
+    stats, sections, t_sec = {}, {}, [time.perf_counter()]
+
+    def section(what):
+        now = time.perf_counter()
+        sections[what] = round(now - t_sec[0], 1)
+        t_sec[0] = now
+
+    det = init_detector(path, device=dev, seed=SEED)
+    if det.device.type != torch.device(dev).type or det.model.training:
+        raise AssertionError(f'DRRG: built on {det.device}')
+    imgs = [g.integers(0, 256, (640, 640, 3), np.uint8)
+            for _ in range(B_DRRG)]
+    batch = np.stack([det.prep(i)[0] for i in imgs])
+    x = torch.as_tensor(batch, device=dev)
+    # ---- the card against the CPU at B_DET_F32
+    cpu_det = TextDetector(det.model_cfg, det.img_size, device='cpu')
+    cpu_det.model.load_state_dict({k: v.cpu() for k, v in
+                                   det.model.state_dict().items()})
+    checks = drrg_card_checks(det, cpu_det, x[:B_DET_F32],
+                              np.random.default_rng(SEED + 2200))
+    log(f'drrg B={B_DET_F32} 640x640: the card against the CPU (f32, TF32 '
+        f'off); seed-0 weights: features and maps within '
+        f'{checks["err"]:.3g} of their largest magnitude (bound '
+        f'{DRRG_F32_RTOL}), {checks["passed_seed0"]:.4f} of the pixels past '
+        f'the centre-mask decision; stressed (text and centre logits '
+        f'lowered by {checks["shift"]:+.4f} on both): within '
+        f'{checks["err_stressed"]:.3g}, {checks["passed"]:.4f} of the '
+        f'pixels past it, {checks["flips"]} decisions part; the GCN on '
+        f'identical node features: logits within {checks["gcn_err"]:.3g}; '
+        f'trained-like maps moved by the difference ({checks["moved_flips"]} '
+        f'decisions part), link bias +{DRRG_LINK_BIAS}: '
+        f'{checks["compared"]} boundaries compared, none part, '
+        f'{checks["skipped"]} pages left out for near-tie links')
+    stats['card-cpu'] = checks
+    del cpu_det
+    section('card-cpu')
+
+    # ---- serving: detect_batch by stage at B_DRRG, 640 x 640
+    drrg_shift(det, DRRG_QUIET)
+    zero_launches()
+    det.forward(x)
+    read_launches('drrg', 'forward', {})
+    det.detect_batch(imgs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = det.detect_batch(imgs)
+    whole = (time.perf_counter() - t0) / B_DRRG
+    if len(out) != B_DRRG or any(out):
+        raise AssertionError(f'DRRG quieted: {[len(b) for b in out]}')
+    t0 = time.perf_counter()
+    np.stack([det.prep(i)[0] for i in imgs])
+    prep = (time.perf_counter() - t0) / B_DRRG
+    h2d = cuda_ms(lambda: torch.as_tensor(batch).to(dev), 3) / B_DRRG
+    fwd = cuda_ms(lambda: det.forward(x), 3) / B_DRRG
+    m = det.model
+    with torch.inference_mode():
+        trunk = cuda_ms(lambda: m.backbone(x), 3) / B_DRRG
+        c = m.backbone(x)
+        neck = cuda_ms(lambda: m.neck(c), 3) / B_DRRG
+        f = m.neck(c)
+        head = cuda_ms(lambda: m.head(f), 3) / B_DRRG
+        del c, f
+    maps = det.forward(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = det.host_maps(maps)
+    copy = (time.perf_counter() - t0) / B_DRRG
+    mb = host.nbytes / B_DRRG / 1e6
+    del maps
+    scales = [(1.0, 1.0)] * B_DRRG
+    t0 = time.perf_counter()
+    det.postprocess(host, scales)
+    post_quiet = (time.perf_counter() - t0) / B_DRRG * 1e3
+    # trained-like maps beside the card's features, the link bias raised
+    tl = drrg_maps(np.random.default_rng(SEED + 2100), N_DRRG_TRAINED_LIKE)
+    cat = np.concatenate([host[:N_DRRG_TRAINED_LIKE, ..., :-6], tl], -1)
+    drrg_shift(det, link=DRRG_LINK_BIAS)
+    st = DRRGStages(det.postprocessor)
+    try:
+        t0 = time.perf_counter()
+        bounds = det.postprocess(cat, scales[:N_DRRG_TRAINED_LIKE])
+        post_tl = (time.perf_counter() - t0) / N_DRRG_TRAINED_LIKE * 1e3
+    finally:
+        st.restore()
+        drrg_shift(det, link=-DRRG_LINK_BIAS)
+    per_img = sum(len(b) for b in bounds) / N_DRRG_TRAINED_LIKE
+    if per_img < 1:
+        raise AssertionError('DRRG: no boundary on trained-like maps')
+    stage = {k: v / N_DRRG_TRAINED_LIKE for k, v in st.ms.items()}
+    del host, cat
+    # ---- one image at the test pipeline's scale
+    big = TextDetector(det.model_cfg, DRRG_TEST_SCALE, device=dev)
+    big.model.load_state_dict(det.model.state_dict())
+    xs = torch.rand((1, *DRRG_TEST_SCALE, 3), device=dev)
+    big_ms = cuda_ms(lambda: big.forward(xs), 3)
+    if not all(bool(torch.isfinite(t).all()) for t in big.forward(xs)):
+        raise AssertionError(f'DRRG: {DRRG_TEST_SCALE} output not finite')
+    del big
+    log(f'drrg B={B_DRRG} 640x640 (DRRG-R50 f32, TF32 off): detect_batch '
+        f'{whole * 1e3:.2f} ms/image on quieted seed-0 maps; host prep '
+        f'{prep * 1e3:.2f}, batch copy to the card {h2d:.3f}, forward on '
+        f'the card\'s tensor {fwd:.3f} (trunk {trunk:.3f}, neck {neck:.3f}, '
+        f'head {head:.3f}), features and maps copy {copy * 1e3:.3f} ms '
+        f'({mb:.1f} MB an image), the test graphs and postprocessor '
+        f'{post_quiet:.2f} ms/image (no component); trained-like maps '
+        f'({N_DRRG_TRAINED_LIKE} pages of {DRRG_WORDS} words, link bias '
+        f'+{DRRG_LINK_BIAS}): {post_tl:.1f} ms/image, {per_img:.1f} '
+        f'boundaries an image, {st.comps / N_DRRG_TRAINED_LIKE:.1f} '
+        f'components; by stage a page: propose_comps '
+        f'{stage["propose"]:.1f} ms ({st.ious / N_DRRG_TRAINED_LIKE:.0f} '
+        f'polygon IoUs, {stage["iou"]:.1f} ms), graphs and RoI pooling '
+        f'{stage["graphs"]:.1f}, GCN on the card {stage["gcn"]:.2f}, '
+        f'postprocessor {stage["post"]:.1f}; B=1 at '
+        f'{DRRG_TEST_SCALE[1]}x{DRRG_TEST_SCALE[0]}: forward {big_ms:.2f} '
+        f'ms [{name}]')
+    stats['serving'] = dict(
+        detect_batch=whole * 1e3, prep=prep * 1e3, h2d=h2d, forward=fwd,
+        trunk=trunk, neck=neck, head=head, copy=copy * 1e3, copy_mb=mb,
+        post_quiet=post_quiet, post_trained_like=post_tl,
+        boxes_trained_like=per_img,
+        comps=st.comps / N_DRRG_TRAINED_LIKE,
+        poly_iou_calls=st.ious / N_DRRG_TRAINED_LIKE,
+        stages_ms=stage, forward_test_scale=big_ms)
+    drrg_shift(det, -DRRG_QUIET)
+    del det, x
+    torch.cuda.empty_cache()
+    section('serving')
+
+    # ---- one f32 step on one page, the card against the CPU
+    cfg = load_config(path)
+    model_cfg = cfg['model']
+    pages = DetPages(g, 1, words=DRRG_WORDS)
+    results = {}
+    for where in ('card', 'cpu'):
+        device = dev if where == 'card' else torch.device('cpu')
+        model = TextDetector(model_cfg, device=device, seed=SEED).model
+        loss_fn = LOSSES.build(dict(type='DRRGLoss'))
+        batches = DetBatches(model_cfg, pages, loss_fn)
+        batches.targets.rng = np.random.RandomState(SEED)
+        img, tgt = batches([0])
+        opt, _ = _make_optimizer(cfg, model.named_parameters())
+        step = make_drrg_train_step(model, loss_fn, opt)
+        img = torch.from_numpy(img).to(device)
+        tgt = {k: v if k == 'gt_comp_attribs' else
+               torch.from_numpy(v).to(device) for k, v in tgt.items()}
+        if where == 'card':
+            zero_launches()
+        results[where] = {k: float(v) for k, v in step(img, tgt).items()}
+        if where == 'card':
+            read_launches('drrg', 'step', {})
+            step_ms = cuda_ms(lambda: step(img, tgt), 3)
+        del model
+    a, b = results['card'], results['cpu']
+    dl = abs(a['loss'] - b['loss']) / abs(b['loss'])
+    dg = abs(a['grad_norm'] - b['grad_norm']) / abs(b['grad_norm'])
+    if not (all(np.isfinite(list(a.values())))
+            and dl <= DET_LOSS_RTOL and dg <= DET_GRAD_NORM_RTOL):
+        raise AssertionError(f'DRRG step: card {a} against the CPU {b}')
+    log(f'drrg f32 step, one 640x640 page of {len(pages[0]["gt_polygons"])} '
+        f'words ({len(tgt["gt_comp_attribs"][0])} components), '
+        f'train-mode BatchNorm: loss {a["loss"]:.6f} (CPU '
+        f'{b["loss"]:.6f}, {dl:.3g} apart, bound {DET_LOSS_RTOL}; '
+        f'loss_gcn {a["loss_gcn"]:.6f}), grad norm {a["grad_norm"]:.6f} '
+        f'({dg:.3g} apart, bound {DET_GRAD_NORM_RTOL}); {step_ms:.2f} ms '
+        f'a step on the card, the eval forward and the host graphs '
+        f'included [{name}]')
+    stats['step'] = dict(loss_rel=dl, grad_norm_rel=dg, step_ms=step_ms,
+                         **a)
+    torch.cuda.empty_cache()
+    section('step')
+
+    # ---- train_detector: 2 epochs of one page a step, a resume
+    pages = DetPages(g, N_DRRG_TRAIN_PAGES, words=DRRG_WORDS)
+    calls = [0]
+
+    def counted(p, q, _iou=postprocess.poly_iou):
+        calls[0] += 1
+        return _iou(p, q)
+    postprocess.poly_iou = counted
+    try:
+        with tempfile.TemporaryDirectory() as wd:
+            zero_launches()
+            _, opt, hist = train_detector(
+                cfg, pages, work_dir=wd, total_epochs=DRRG_TRAIN_EPOCHS,
+                seed=SEED, device=dev)
+            read_launches('drrg', 'train_detector', {})
+            ious = calls[0]
+            _, opt2, again = train_detector(
+                cfg, pages, total_epochs=DRRG_TRAIN_EPOCHS, seed=SEED,
+                device=dev, resume_from=os.path.join(wd, 'epoch_1.pth'))
+    finally:
+        postprocess.poly_iou = counted.__defaults__[0]
+    last = hist[-1]
+    if not all(np.isfinite(h['loss']) for h in hist + again):
+        raise AssertionError(f'DRRG train_detector: {hist} {again}')
+    gap = abs(again[-1]['loss'] - last['loss']) / abs(last['loss'])
+    if ([h['epoch'] for h in again] != [DRRG_TRAIN_EPOCHS - 1]
+            or opt2.count != opt.count or again[-1]['lr'] != last['lr']
+            or gap > LOSS_RTOL):
+        raise AssertionError(f'DRRG train_detector resume: {again} '
+                             f'against {last}')
+    step_ms = ((last['seconds'] - last['batch_seconds'])
+               / N_DRRG_TRAIN_PAGES * 1e3)
+    log(f'drrg train_detector DRRG-R50 ({DRRG_TRAIN_EPOCHS} epochs of '
+        f'{N_DRRG_TRAIN_PAGES} 640x640 pages of {DRRG_WORDS} words, one a '
+        f'step; its samples_per_gpu not read): epoch 2 '
+        f'{last["seconds"]:.2f} s, {step_ms:.1f} ms a warm step (the eval '
+        f'forward and the host graphs included), host targets '
+        f'{last["batch_seconds"] / N_DRRG_TRAIN_PAGES * 1e3:.1f} ms a page '
+        f'({ious / (DRRG_TRAIN_EPOCHS * N_DRRG_TRAIN_PAGES):.0f} polygon '
+        f'IoUs a page), {last["batch_seconds"] / last["seconds"]:.3f} of '
+        f'the epoch making batches; losses '
+        f'{[round(h["loss"], 4) for h in hist]}; the resume from epoch 1 '
+        f'ran epoch 2 again: {opt2.count} steps, lr {again[-1]["lr"]:.6g}, '
+        f'loss {gap:.3g} apart (LOSS_RTOL {LOSS_RTOL}) [{name}]')
+    stats['train_detector'] = dict(
+        epoch_s=last['seconds'], step_ms=step_ms,
+        target_ms_page=last['batch_seconds'] / N_DRRG_TRAIN_PAGES * 1e3,
+        batch_share=last['batch_seconds'] / last['seconds'],
+        ious_page=ious / (DRRG_TRAIN_EPOCHS * N_DRRG_TRAIN_PAGES),
+        resume_gap=gap, losses=[h['loss'] for h in hist])
+    section('train_detector')
+
+    # ---- MMOCR.readtext: the DRRG config path and the flagship ----------
+    reader = MMOCR(det=path, recog='NRTR_TPS', device=dev)
+    pages = [g.integers(0, 256, (*PAGE_HW, 3), np.uint8) for _ in range(2)]
+    det = reader.detector
+    xr = torch.as_tensor(np.stack([det.prep(p)[0] for p in pages]),
+                         device=dev)
+    drrg_shift(det, drrg_margin(det, det.forward(xr)[1], DRRG_READ_PIXELS),
+               DRRG_LINK_BIAS)
+    passed = drrg_decisions(det, det.forward(xr)[1]).reshape(
+        len(pages), *det.img_size).cpu().numpy()
+    kept = int(passed.sum())
+    # the passing pixels' 8-connected regions, and those large enough to
+    # propose components (center_region_area_thr)
+    regions = big_regions = 0
+    for m in passed:
+        n, lab = cv_ops.connected_components(m.astype(np.uint8), 8)
+        regions += n - 1
+        big_regions += int((np.bincount(lab.ravel())[1:] >= det.postprocessor
+                            .graph_test.center_region_area_thr).sum())
+    reader.readtext(pages[:1])
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = reader.readtext(pages, merge=True)
+    torch.cuda.synchronize()
+    whole = (time.perf_counter() - t0) / len(pages)
+    n_boxes = sum(len(r['result']) for r in res)
+    rec_launches = read_launches('drrg', 'readtext',
+                                 {'tps_sampler': None} if n_boxes else {})
+    if len(res) != len(pages) or any(not isinstance(r['result'], list)
+                                     for r in res):
+        raise AssertionError(f'DRRG readtext: {res!r:.300}')
+    log(f'drrg readtext {len(pages)} pages {PAGE_HW[1]}x{PAGE_HW[0]} '
+        f'(DRRG-R50 f32 at 640x640 from its config, its text and centre '
+        f'logits lowered until {kept} pixels of the pages pass the '
+        f'centre-mask decision, in {regions} regions, {big_regions} of them '
+        f'large enough to propose components; link bias '
+        f'+{DRRG_LINK_BIAS}; NRTR + TPS++ from its config): '
+        f'{whole * 1e3:.1f} ms/page; '
+        f'{n_boxes / len(pages):.1f} boxes a page; launches {rec_launches} '
+        f'[{name}]')
+    stats['readtext'] = dict(ms_page=whole * 1e3, boxes=n_boxes,
+                             pixels=kept, regions=regions,
+                             big_regions=big_regions)
+    section('readtext')
+    log(f'drrg phase: {time.perf_counter() - t_phase:.1f} s (by section: '
         f'{sections}); no hand-written kernel launched; '
         f'{json.dumps(stats)}')
 
@@ -5434,6 +6018,9 @@ def main():
 
     # ---- FCENet and TextSnake: serving, training, readtext; no kernel
     fce_textsnake_phase(dev, name)
+
+    # ---- DRRG: serving, the GCN, training, readtext; no kernel
+    drrg_phase(dev, name)
     path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])

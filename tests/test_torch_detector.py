@@ -124,11 +124,11 @@ def test_init_detector_from_a_pth(detectors):
 
 
 def test_other_detector_types_raise():
-    """DBNet, PANet, PSENet, FCENet and TextSnake build; DRRG (and Mask
-    R-CNN) still raise."""
-    with pytest.raises(NotImplementedError, match='DRRG'):
-        init_detector(os.path.join(REPO, 'configs/textdet/drrg/'
-                                   'drrg_r50_fpn_unet_1200e_ctw1500.py'),
+    """DBNet, PANet, PSENet, FCENet, TextSnake and DRRG build; Mask R-CNN
+    still raises."""
+    with pytest.raises(NotImplementedError, match='Mask R-CNN'):
+        init_detector(os.path.join(REPO, 'configs/textdet/maskrcnn/'
+                                   'mask_rcnn_r50_fpn_160e_ctw1500.py'),
                       device='cpu')
 
 

@@ -267,11 +267,12 @@ def test_test_tool_matches_jax(tiny, tmp_path, capsys):
 def test_test_tool_options_and_other_tasks(tmp_path):
     assert tool.parse_cfg_options(['a.b=1', 'c=bfloat16', 'd=[1, 2]']) == \
         {'a.b': 1, 'c': 'bfloat16', 'd': [1, 2]}
-    # DBNet, PANet, PSENet, FCENet and TextSnake evaluate
+    # DBNet, PANet, PSENet, FCENet, TextSnake and DRRG evaluate
     # (tests/test_torch_detector.py, tests/test_torch_panet.py,
-    # tests/test_torch_fce_textsnake.py); the other detector families, KIE
-    # and NER raise
-    for model_type, match in (('DRRG', 'DRRG'), ('SDMGR', 'KIE')):
+    # tests/test_torch_fce_textsnake.py, tests/test_torch_drrg.py); Mask
+    # R-CNN, KIE and NER raise
+    for model_type, match in (('OCRMaskRCNN', 'Mask R-CNN'),
+                              ('SDMGR', 'KIE')):
         cfg_file = tmp_path / f'{model_type}.py'
         cfg_file.write_text(f"model = dict(type='{model_type}')\n")
         with pytest.raises(NotImplementedError, match=match):

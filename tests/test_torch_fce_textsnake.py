@@ -582,8 +582,8 @@ def test_build_detector_module_families():
     assert fce.neck.in_channels == (64, 128, 256)
     ts = build_detector_module(CFGS['textsnake'])
     assert ts.head.out_conv.in_channels == 4
-    with pytest.raises(NotImplementedError, match='DRRG'):
-        build_detector_module(dict(type='DRRG'))
+    with pytest.raises(NotImplementedError, match='Mask R-CNN'):
+        build_detector_module(dict(type='OCRMaskRCNN'))
 
 
 def ts_pages(n, seed):

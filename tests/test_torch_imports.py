@@ -9,8 +9,8 @@ flax, cv2 nor the JAX package, and launches no kernel (CPU tensors go to
 the kernels' plain versions; nothing is built). So do detection (DBNet on
 ResNetDet and on ResNetDet50 with DCNv2), its evaluation modules and
 ``MMOCR.readtext``, detection training (DBNet, PANet, PSENet) with
-PAN and PSE serving, and FCENet's and TextSnake's training and
-serving."""
+PAN and PSE serving, FCENet's and TextSnake's training and serving, and
+DRRG's."""
 import json
 import os
 import subprocess
@@ -733,3 +733,114 @@ def test_fce_textsnake_training_and_serving_with_jax_blocked():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {'loaded': [], 'finite': True, 'images': [3, 3],
                    'snakes': True, 'pages': 2, 'launches': [0, 0]}
+
+
+DRRG_SCRIPT = r'''
+import importlib.abc, json, os, sys, tempfile
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    """Refuses jax, flax, cv2 and the JAX package outright."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',
+                                  'tps_pp_tpu'):
+            raise ImportError(f'{name} is blocked')
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from tps_pp_tpu_torch.apis import MMOCR, init_detector
+from tps_pp_tpu_torch.apis.train_det import train_detector
+from tps_pp_tpu_torch.models.textdet import drrg, targets
+from tps_pp_tpu_torch.ops import grid_sample, tps_sampler
+
+
+class Pages:
+    def __init__(self, n):
+        g = np.random.default_rng(0)
+        self.items = []
+        for _ in range(n):
+            quads = [np.array([[x, y], [x + 30, y], [x + 30, y + 12],
+                               [x, y + 12]], np.float32)
+                     for x, y in g.uniform(2, 30, (2, 2))]
+            self.items.append(dict(img=g.random((64, 64, 3)).astype(
+                np.float32), gt_polygons=quads, gt_polygons_ignore=[]))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return dict(self.items[i])
+
+
+cfg = dict(type='DRRG',
+           backbone=dict(type='ResNetDet', stage_blocks=[1, 1, 1, 1],
+                         base_channels=8),
+           neck=dict(type='FPN_UNet', in_channels=[8, 16, 32, 64],
+                     out_channels=8))
+_, opt, hist = train_detector(dict(model=cfg, total_epochs=1), Pages(2),
+                              device='cpu')
+det = init_detector(dict(model=cfg), img_size=(64, 96), device='cpu')
+imgs = [np.random.default_rng(i).integers(0, 256, (50 + i, 90, 3),
+                                          np.uint8) for i in range(3)]
+images = len(det.detect_batch(imgs))
+# the detector on maps drawn from DRRG's own targets, the GCN's link bias
+# raised
+quads = [np.array([[8, y], [120, y], [120, y + 14], [8, y + 14]],
+                  np.float32) for y in (10, 80)]
+t = targets.DRRGTargets(seed=0).generate(quads, [], 110, 128)
+maps = np.stack([(2 * t['gt_text_mask'] - 1) * 8,
+                 (2 * t['gt_center_region_mask'] - 1) * 8, t['gt_sin_map'],
+                 t['gt_cos_map'], t['gt_top_height_map'],
+                 t['gt_bot_height_map']], -1)
+with torch.no_grad():
+    det.model.head.gcn.classifier[2].bias[1] += 8
+feat = np.concatenate([np.zeros((110, 128, 8), np.float32), maps], -1)
+words = len(det.postprocessor(feat.astype(np.float32)))
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, 'drrg.py')
+    with open(path, 'w') as f:
+        f.write(f'model = {cfg!r}\n')
+    reader = MMOCR(det=path, det_img_size=(64, 96), recog=None,
+                   device='cpu')
+    pages = reader.readtext(imgs[:2])
+# and every module of the port imports with the JAX side refused
+import importlib, pkgutil, tps_pp_tpu_torch
+unimportable = []
+for m in pkgutil.walk_packages(tps_pp_tpu_torch.__path__,
+                               'tps_pp_tpu_torch.'):
+    try:
+        importlib.import_module(m.name)
+    except ImportError as e:
+        unimportable.append(f'{m.name}: {e}')
+print(json.dumps({
+    'loaded': sorted(m for m in ('jax', 'flax', 'cv2', 'tps_pp_tpu')
+                     if m in sys.modules),
+    'finite': bool(np.isfinite(hist[-1]['loss'])), 'steps': opt.count,
+    'images': images, 'words': words, 'pages': len(pages),
+    'unimportable': unimportable,
+    'launches': [tps_sampler.tps_sampler.launches,
+                 grid_sample.grid_sample_forward.launches]}))
+'''
+
+
+def test_drrg_training_and_serving_with_jax_blocked():
+    """DRRG's train_detector (narrow, its targets made on the host, one
+    page a step), its detection, the detector on maps of its targets with
+    the link bias raised (one boundary a word) and MMOCR with a DRRG
+    config path run on the CPU with jax, flax, cv2 and the JAX package
+    refused at import, and every module of the port imports so; nothing
+    launches."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', DRRG_SCRIPT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {'loaded': [], 'finite': True, 'steps': 2, 'images': 3,
+                   'words': 2, 'pages': 2, 'unimportable': [],
+                   'launches': [0, 0]}

@@ -2,11 +2,12 @@
 inference (counterpart of ``tps_pp_tpu/apis/detector.py:25-223`` and of
 ``build_detector_module`` in ``tps_pp_tpu/apis/train_det.py:37-56``).
 
-The port has five families: DBNet (``configs/textdet/dbnet/``: R18-FPNC,
+The port has six families: DBNet (``configs/textdet/dbnet/``: R18-FPNC,
 R50-DCNv2-FPNC), PANet (``configs/textdet/panet/``: R18 and R50 on
 FPEM_FFM), PSENet (``configs/textdet/psenet/``: R50 on FPNF), FCENet
-(``configs/textdet/fcenet/``: R50 and R50-DCNv2 on FPNDet) and TextSnake
-(``configs/textdet/textsnake/``: R50 on FPN_UNet).
+(``configs/textdet/fcenet/``: R50 and R50-DCNv2 on FPNDet), TextSnake
+(``configs/textdet/textsnake/``: R50 on FPN_UNet) and DRRG
+(``configs/textdet/drrg/``: R50 on FPN_UNet, ``DRRGHead`` with its GCN).
 ``TextDetector`` holds its model, in float32 and eval mode, on the card
 unless given ``device='cpu'``, and its postprocessor (the config's, or the
 family's). ``detect_batch`` resizes each image to the fixed input size on
@@ -15,11 +16,13 @@ runs one forward over the batch padded to the next power of two (the last
 row repeated, ``utils/batching.py``), copies the maps to the host (DBNet's
 probability channel; PAN's and PSE's logits, at 1/4 of the input size;
 each FCENet level's (cls, reg) pair, which its postprocessor scales by the
-level's stride; TextSnake's five maps at the input size), postprocesses
-each image there and scales its boundaries ``[x1, y1, ..., score]`` back
-to the image's size, through the head's 1/4 for PAN and PSE
-(``HEAD_SCALE``, JAX's ``_DOWNSAMPLE``). DRRG and Mask R-CNN raise
-``NotImplementedError``.
+level's stride; TextSnake's five maps at the input size; DRRG's features
+and six maps, concatenated on the card, at the input size), postprocesses
+each image there (DRRG: the test graphs on the host, the GCN on the
+card, the clustering on the host, ``drrg.DRRGDetector``) and scales its
+boundaries ``[x1, y1, ..., score]`` back to the image's size, through the
+head's 1/4 for PAN and PSE (``HEAD_SCALE``, JAX's ``_DOWNSAMPLE``). Mask
+R-CNN raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -44,26 +47,33 @@ POSTPROCESSORS = {'DBNet': textdet.DBPostprocessor,
                   'PANet': textdet.PANPostprocessor,
                   'PSENet': textdet.PSEPostprocessor,
                   'FCENet': textdet.FCEPostprocessor,
-                  'TextSnake': textdet.TextSnakePostprocessor}
+                  'TextSnake': textdet.TextSnakePostprocessor,
+                  'DRRG': textdet.DRRGPostprocessor}
+# DRRG's maps, as DBNet's, FCENet's and TextSnake's, at the input's scale
 HEAD_SCALE = {'PANet': 0.25, 'PSENet': 0.25}
 
 
 def build_detector_module(model_cfg: Dict) -> nn.Module:
-    """backbone -> neck -> head of a DBNet, PANet, PSENet, FCENet or
-    TextSnake config (a PAN / PSE / TextSnake head's ``in_channels``
-    defaults to its neck's output); any other detector type raises
-    ``NotImplementedError``."""
+    """backbone -> neck -> head of a DBNet, PANet, PSENet, FCENet,
+    TextSnake or DRRG config (a PAN / PSE / TextSnake / DRRG head's
+    ``in_channels`` defaults to its neck's output; DRRG's head is
+    ``DRRGHead`` where the config names none, as JAX builds it); any other
+    detector type raises ``NotImplementedError``."""
     det_type = model_cfg.get('type', 'DBNet')
     if det_type not in POSTPROCESSORS:
         raise NotImplementedError(
             f'detector type {det_type!r} is not ported yet (ROADMAP.md '
-            'queue 1: DRRG, Mask R-CNN)')
+            'queue 1: Mask R-CNN)')
     backbone = BACKBONES.build(model_cfg['backbone'])
     neck = NECKS.build(model_cfg['neck'])
     if det_type in ('DBNet', 'FCENet'):
         module = (textdet.DBNetModule if det_type == 'DBNet'
                   else textdet.FCENetModule)
         return module(backbone, neck, HEADS.build(model_cfg['head']))
+    if det_type == 'DRRG':
+        head = HEADS.build(model_cfg.get('head') or dict(type='DRRGHead'),
+                           in_channels=neck.out_channels)
+        return textdet.DRRGModule(backbone, neck, head)
     head = HEADS.build(model_cfg['head'], in_channels=neck.out_channels)
     module = (textdet.TextSnakeModule if det_type == 'TextSnake'
               else textdet.PANetModule)
@@ -75,8 +85,10 @@ def init_detector_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     so that every device gets the same values: the weights of convolutions
     (transposed and deformable ones included, and the DCNv2 offset
     predictors, which the reference zero-initialises, so that the
-    deformable sampling is exercised) uniform with variance 1/fan_in, zero
-    biases, identity BatchNorm affines and statistics."""
+    deformable sampling is exercised) and of linear layers uniform with
+    variance 1/fan_in, DRRG's graph convolutions Xavier-uniform (the
+    reference's), zero biases, PReLU slopes 0.25, identity BatchNorm
+    affines and statistics."""
     g = torch.Generator().manual_seed(seed)
 
     def uniform(t, fan_in):
@@ -92,6 +104,14 @@ def init_detector_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                     m.bias.zero_()
             elif isinstance(m, ModulatedDeformConv):
                 uniform(m.weight, m.weight[0].numel())
+            elif isinstance(m, nn.Linear):
+                uniform(m.weight, m.in_features)
+                m.bias.zero_()
+            elif isinstance(m, textdet.GraphConv):
+                uniform(m.weight, sum(m.weight.shape) / 2)
+                m.bias.zero_()
+            elif isinstance(m, nn.PReLU):
+                m.weight.fill_(0.25)
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
     return model
@@ -128,6 +148,9 @@ class TextDetector:
         pp_type = pp_cfg.pop('type',
                              POSTPROCESSORS[self.det_type].__name__)
         self.postprocessor = getattr(textdet, pp_type)(**pp_cfg)
+        if self.det_type == 'DRRG':
+            self.postprocessor = textdet.DRRGDetector(self.model.head.gcn,
+                                                      self.postprocessor)
         self.downsample = HEAD_SCALE.get(self.det_type, 1.0)
 
     def prep(self, img: np.ndarray) -> Tuple[np.ndarray, float, float]:
@@ -151,13 +174,16 @@ class TextDetector:
         forward over the batch padded to the next power of two: DBNet's (N,
         H, W, 3) [prob, thr, binary], PAN's and PSE's (N, H / 4, W / 4, C)
         raw logits, TextSnake's (N, H, W, 5), FCENet's (cls (N, h, w, 4),
-        reg (N, h, w, 22)) pair a level (strides 8, 16, 32)."""
+        reg (N, h, w, 22)) pair a level (strides 8, 16, 32), DRRG's
+        (features (N, H, W, C), maps (N, H, W, 6))."""
         x = torch.as_tensor(batch, dtype=torch.float32).to(self.device)
         n = x.shape[0]
         (x,) = pad_rows((x,), n, next_pow2(n))
         out = self.model(x)
         if self.det_type == 'FCENet':
             return tuple((c[:n], r[:n]) for c, r in out)
+        if self.det_type == 'DRRG':
+            return tuple(t[:n] for t in out)
         return out[:n]
 
     def postprocess(self, maps, scales: Sequence[Tuple[float, float]]
@@ -179,11 +205,14 @@ class TextDetector:
         """The part of ``forward``'s maps the postprocessor reads, copied
         to the host, one entry an image: DBNet's probability channel, PAN's,
         PSE's and TextSnake's whole maps (an array), FCENet's list of
-        (cls, reg) a level (JAX's ``_post_single``)."""
+        (cls, reg) a level (JAX's ``_post_single``), DRRG's features and
+        maps concatenated (N, H, W, C + 6), the features first."""
         if self.det_type == 'FCENet':
             levels = [(c.cpu().numpy(), r.cpu().numpy()) for c, r in maps]
             return [[(c[b], r[b]) for c, r in levels]
                     for b in range(len(levels[0][0]))]
+        if self.det_type == 'DRRG':
+            return torch.cat(maps, dim=-1).cpu().numpy()
         if self.det_type == 'DBNet':
             maps = maps[..., 0]
         return maps.cpu().numpy()

@@ -22,8 +22,21 @@ resumed run takes the batches and lrs of the uninterrupted one.
 
 The PAN loss supervises the embeddings of at most ``max_instances`` (24)
 instances an image, as JAX does; the first image with more logs a
-warning. OCRMaskRCNN and DRRG raise ``NotImplementedError`` (ROADMAP.md
-queue 1: DRRG, Mask R-CNN).
+warning.
+
+DRRG keeps JAX's ``_train_drrg`` loop: one page a step whatever
+``batch_size`` says (a log line says so), its targets made in the
+permutation's order from ``DRRGTargets``' ``RandomState`` (seeded with
+``seed``; JAX draws from numpy's global generator, which
+``np.random.seed(seed)`` puts on the same stream), then a no-grad
+eval-mode forward whose features and maps, copied to the host, give the
+GCN's node features (so the GCN pushes no gradient into the trunk), the
+local graphs padded as JAX pads them (nodes to ``1 + k0 (1 + k1)``,
+graphs to the next power of two, at least 8; the padded rows enter the
+GCN's batch statistics), and the train-mode step on the map losses plus
+``loss_gcn``. Its checkpoints also hold the targets' generator state, so
+that a resumed epoch draws what the whole run drew. OCRMaskRCNN raises
+``NotImplementedError`` (ROADMAP.md queue 1: Mask R-CNN).
 """
 from __future__ import annotations
 
@@ -35,7 +48,7 @@ import numpy as np
 import torch
 
 from ..datasets.pipelines.cv_ops import resize_inter_nearest
-from ..models import textdet  # noqa: F401  (registers targets and losses)
+from ..models import textdet  # (also registers targets and losses)
 from ..parallel import OptimizerChain, build_optimizer_from_run_cfg
 from ..registry import LOSSES, PIPELINES
 from ..utils import checkpoint
@@ -56,7 +69,12 @@ _TARGET_KEYS = {
     'TextSnake': ('gt_text_mask', 'gt_center_region_mask', 'gt_mask',
                   'gt_radius_map', 'gt_sin_map', 'gt_cos_map'),
     'FCENet': ('p3_maps', 'p4_maps', 'p5_maps'),
+    'DRRG': ('gt_comp_attribs', 'gt_text_mask', 'gt_center_region_mask',
+             'gt_mask', 'gt_top_height_map', 'gt_bot_height_map',
+             'gt_sin_map', 'gt_cos_map'),
 }
+# targets that stay on the host (DRRG's components build its graphs there)
+_HOST_KEYS = ('gt_comp_attribs',)
 
 
 def build_det_targets(model_cfg: Dict):
@@ -149,6 +167,57 @@ def make_det_train_step(model: torch.nn.Module, loss_fn,
     return step
 
 
+def make_drrg_train_step(model: torch.nn.Module, loss_fn,
+                         optimizer: OptimizerChain):
+    """DRRG's ``step(img, targets) -> metrics`` on one page (JAX's
+    ``_train_drrg``): the eval-mode forward without gradients, its features
+    and maps on the host, the page's local graphs from its
+    ``gt_comp_attribs`` (1, n, 7) numpy, padded as JAX pads them, then the
+    train-mode forward, the GCN on the graphs' node features (host
+    constants), ``loss_fn`` with ``loss_gcn``, the backward and one
+    optimizer step; the metrics of ``make_det_train_step``."""
+    graphs = textdet.LocalGraphs()
+
+    def step(img: torch.Tensor, targets: Dict) -> Dict[str, torch.Tensor]:
+        targets = dict(targets)
+        attribs = np.asarray(targets.pop('gt_comp_attribs')[0])
+        model.eval()
+        with torch.no_grad():
+            feat_cat = torch.cat(model(img), dim=-1)[0].cpu().numpy()
+        model.train()
+        feats, adjs, knns, links, _, _ = graphs.build(
+            feat_cat, attribs, pad_nodes=graphs.pad_nodes,
+            pad_graphs=max(8, 1 << (len(attribs) - 1).bit_length()))
+        dev = img.device
+        optimizer.zero_grad()
+        _, maps = model(img)
+        gcn_pred = model.head.gcn(torch.from_numpy(feats).to(dev),
+                                  torch.from_numpy(adjs).to(dev),
+                                  torch.from_numpy(knns).to(dev))
+        losses = loss_fn(maps, targets, gcn_pred,
+                         torch.from_numpy(links).to(dev))
+        total = sum(losses.values())
+        total.backward()
+        return {'loss': total.detach(),
+                **{k: v.detach() for k, v in losses.items()},
+                'grad_norm': optimizer.step()}
+
+    return step
+
+
+def _rng_state(rng: np.random.RandomState) -> Dict:
+    """A ``RandomState``'s state as tensors and numbers (what a
+    ``weights_only`` load reads back)."""
+    _, keys, pos, has_gauss, gauss = rng.get_state()
+    return dict(keys=torch.from_numpy(keys.astype(np.int64)), pos=int(pos),
+                has_gauss=int(has_gauss), gauss=float(gauss))
+
+
+def _set_rng_state(rng: np.random.RandomState, state: Dict) -> None:
+    rng.set_state(('MT19937', state['keys'].numpy().astype(np.uint32),
+                   state['pos'], state['has_gauss'], state['gauss']))
+
+
 def train_detector(cfg: Dict, train_ds, work_dir: Optional[str] = None,
                    total_epochs: Optional[int] = None, batch_size: int = 4,
                    log_interval: int = 10, seed: int = 0, device=None,
@@ -164,13 +233,18 @@ def train_detector(cfg: Dict, train_ds, work_dir: Optional[str] = None,
     its last step (``loss``, the total JAX's history holds, the named
     losses and ``grad_norm``), the ``lr`` it stepped with, ``steps``,
     ``seconds`` and ``batch_seconds``, the host's share of making
-    batches)."""
+    batches). DRRG trains one page a step (the module docstring)."""
     model_cfg = cfg['model']
     det_type = model_cfg.get('type', 'DBNet')
-    if det_type in ('OCRMaskRCNN', 'DRRG'):
+    if det_type == 'OCRMaskRCNN':
         raise NotImplementedError(
             f'{det_type} training is not ported yet (ROADMAP.md queue 1: '
-            'DRRG, Mask R-CNN)')
+            'Mask R-CNN)')
+    drrg = det_type == 'DRRG'
+    if drrg and batch_size != 1:
+        logger.info('DRRG trains one page a step, as the JAX loop does; '
+                    'batch_size %d is not read', batch_size)
+        batch_size = 1
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError('train_detector: no CUDA device; pass '
@@ -184,6 +258,8 @@ def train_detector(cfg: Dict, train_ds, work_dir: Optional[str] = None,
     loss_cfg = dict(model_cfg.get('loss') or {'type': f'{det_type}Loss'})
     loss_fn = LOSSES.build(loss_cfg)
     batches = DetBatches(model_cfg, train_ds, loss_fn)
+    if drrg:
+        batches.targets.rng = np.random.RandomState(seed)
     epochs = int(total_epochs or cfg.get('total_epochs') or 1)
     n = len(train_ds)
     if not n:
@@ -195,6 +271,8 @@ def train_detector(cfg: Dict, train_ds, work_dir: Optional[str] = None,
         checkpoint.load_weights(model, load_from)
     if resume_from:
         meta = checkpoint.restore(model, optimizer, resume_from)
+        if drrg:
+            _set_rng_state(batches.targets.rng, meta['targets_rng'])
         logger.info('resumed from %s: epoch %s, step %d', resume_from,
                     meta.get('epoch'), optimizer.count)
     ckpt = checkpoint.CheckpointManager(work_dir) if work_dir else None
@@ -204,7 +282,8 @@ def train_detector(cfg: Dict, train_ds, work_dir: Optional[str] = None,
         rng.permutation(n)
     model.train()
     dtype = next(model.parameters()).dtype   # float32, or a float64 model's
-    step = make_det_train_step(model, loss_fn, optimizer)
+    step = (make_drrg_train_step if drrg else make_det_train_step)(
+        model, loss_fn, optimizer)
     history: List[Dict] = []
     for epoch in range(start, epochs):
         order = rng.permutation(n)
@@ -213,7 +292,8 @@ def train_detector(cfg: Dict, train_ds, work_dir: Optional[str] = None,
         for it in range(0, n, batch_size):
             img, tgt = batches(order[it:it + batch_size])
             img = torch.from_numpy(img).to(device, dtype, non_blocking=True)
-            tgt = {k: torch.from_numpy(v).to(device, non_blocking=True)
+            tgt = {k: v if k in _HOST_KEYS else
+                   torch.from_numpy(v).to(device, non_blocking=True)
                    for k, v in tgt.items()}
             lr = schedule(optimizer.count)
             losses = step(img, tgt)
@@ -230,8 +310,9 @@ def train_detector(cfg: Dict, train_ds, work_dir: Optional[str] = None,
         logger.info('epoch %d done in %.2f s (%.2f s making batches) loss '
                     '%.4f', epoch, seconds, batches.seconds, float(total))
         if ckpt is not None:
-            ckpt.save(epoch + 1, model, optimizer,
-                      meta=dict(seed=seed,
-                                config=checkpoint.config_text(cfg)))
+            meta = dict(seed=seed, config=checkpoint.config_text(cfg))
+            if drrg:
+                meta['targets_rng'] = _rng_state(batches.targets.rng)
+            ckpt.save(epoch + 1, model, optimizer, meta=meta)
     model.eval()
     return model, optimizer, history

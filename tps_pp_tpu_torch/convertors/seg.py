@@ -10,13 +10,9 @@ those under 20 pixels dropped after the sort, ``<UKN>`` as ``''``, and a
 character's score ``counts[cls] / size``.
 
 JAX labels with ``cv2.connectedComponentsWithStats``; the port labels with
-``scipy.ndimage.label`` and renumbers the components in cv2's order.
-cv2's default algorithm for 8-connectivity (Spaghetti) scans the image in
-2 x 2 blocks, and any two pixels of a block are 8-neighbours, so a block
-lies in one component and a component's number is the rank of its first
-block in a raster scan of the blocks (not of its first pixel: a component
-starting at (row 1, col 0) comes before one starting at (row 0, col 3)).
-The order matters only where two components' centroids tie in x.
+``cv_ops.connected_components``, in cv2's order (its 2 x 2 block scan at
+8-connectivity). The order matters only where two components' centroids
+tie in x.
 """
 from __future__ import annotations
 
@@ -32,21 +28,12 @@ MIN_AREA = 20
 
 def label_components(mask: np.ndarray):
     """(count, labels, areas, centroid x) of the 8-connected components of
-    ``mask`` (H, W) bool, numbered from 1 in cv2's order (first 2 x 2
-    block in raster order); label 0 is the background, as in cv2, with
-    its own area and centroid."""
-    from scipy import ndimage
-    lab, k = ndimage.label(mask, structure=np.ones((3, 3), bool))
+    ``mask`` (H, W) bool, numbered from 1 in cv2's order
+    (``cv_ops.connected_components``); label 0 is the background, as in
+    cv2, with its own area and centroid."""
+    from ..datasets.pipelines.cv_ops import connected_components
+    n, lab = connected_components(mask, connectivity=8)
     lab = lab.astype(np.int64)
-    if k:
-        ys, xs = np.nonzero(lab)
-        blocks = (ys // 2) * ((mask.shape[1] + 1) // 2) + xs // 2
-        first = np.full(k + 1, np.iinfo(np.int64).max)
-        np.minimum.at(first, lab[ys, xs], blocks)
-        new = np.zeros(k + 1, np.int64)
-        new[1 + np.argsort(first[1:], kind='stable')] = np.arange(1, k + 1)
-        lab = new[lab]
-    n = k + 1
     areas = np.bincount(lab.ravel(), minlength=n)
     xs = np.broadcast_to(np.arange(mask.shape[1]), mask.shape)
     cx = np.bincount(lab.ravel(), weights=xs.ravel().astype(np.float64),

@@ -80,9 +80,11 @@ The text detector's host side (``models/textdet/postprocess.py``,
 * ``get_structuring_element`` (``MORPH_ELLIPSE``, ``MORPH_CROSS``),
   ``dilate`` (pixels outside the image add nothing), ``erode`` and
   ``morphology_open`` with ``borderValue=0`` (pixels outside the image
-  are 0), ``flood_fill`` (4-connected, no tolerance) and ``circle``
-  (filled, cv2's midpoint walk).
-* ``connected_components`` (4-connectivity, cv2's label order) and
+  are 0; ``erode`` also with cv2's default border), ``flood_fill``
+  (4-connected, no tolerance) and ``circle`` (filled, cv2's midpoint
+  walk).
+* ``polylines`` (open or closed, thickness 1, ``LINE_8``),
+  ``connected_components`` (4- and 8-connectivity, cv2's label order) and
   ``distance_transform`` (``DIST_L2``, mask 3: cv2 5.0's float32 chamfer
   transform, its vector blocks of four columns included, see its
   docstring).
@@ -94,7 +96,9 @@ The text detector's host side (``models/textdet/postprocess.py``,
 ``tests/test_torch_det_train.py``; ``connected_components`` and the
 outlines: ``tests/test_torch_panet.py``; ``RETR_TREE``, ``erode``,
 ``morphology_open``, ``flood_fill`` and ``circle``:
-``tests/test_torch_fce_textsnake.py``).
+``tests/test_torch_fce_textsnake.py``; ``erode`` with cv2's default
+border, ``polylines`` and 8-connected ``connected_components``:
+``tests/test_torch_drrg_full.py``).
 """
 from __future__ import annotations
 
@@ -1094,19 +1098,52 @@ def draw_contour_lines(img: np.ndarray, contours: Sequence,
     return img
 
 
+def polylines(img: np.ndarray, lines: Sequence, closed: bool = False,
+              value=1, thickness: int = 1) -> np.ndarray:
+    """``cv2.polylines(img, lines, closed, value, thickness)`` with
+    ``LINE_8`` and thickness 1, in place: each line's segments drawn in
+    order by cv2's 8-connected line (a closed line's closing segment
+    first, as cv2's ``PolyLine`` draws it); returns img."""
+    if thickness != 1:
+        raise ValueError(f'thickness {thickness}: 1 only')
+    for line in lines:
+        pts = [(int(x), int(y)) for x, y in np.asarray(line).reshape(-1, 2)]
+        if closed and pts:
+            pts = pts[-1:] + pts
+        for p0, p1 in zip(pts, pts[1:]):
+            _draw_line(img, p0, p1, value)
+    return img
+
+
 def connected_components(mask: np.ndarray, connectivity: int = 4):
     """``cv2.connectedComponents(mask, connectivity=connectivity)``:
     (the number of labels with the background's, (H, W) int32 labels).
     ``scipy.ndimage.label`` numbers the components by their first pixel in
-    raster order, which is cv2's order at 4-connectivity (8-connectivity
-    runs cv2's block scan, whose order differs:
-    ``convertors/seg.py``)."""
+    raster order, which is cv2's order at 4-connectivity. At 8-connectivity
+    cv2 (Spaghetti) scans the image in 2 x 2 blocks; any two pixels of a
+    block are 8-neighbours, so a block lies in one component, and a
+    component's number is the rank of its first block in a raster scan of
+    the blocks (not of its first pixel: a component starting at (row 1,
+    col 0) comes before one starting at (row 0, col 3))."""
     from scipy import ndimage
-    if connectivity != 4:
-        raise ValueError('connectivity 4 only')
-    labels, n = ndimage.label(np.asarray(mask) != 0,
-                              structure=[[0, 1, 0], [1, 1, 1], [0, 1, 0]])
-    return n + 1, labels.astype(np.int32)
+    if connectivity not in (4, 8):
+        raise ValueError(f'connectivity {connectivity}: 4 or 8 only')
+    mask = np.asarray(mask) != 0
+    if connectivity == 4:
+        labels, n = ndimage.label(mask, structure=[[0, 1, 0], [1, 1, 1],
+                                                   [0, 1, 0]])
+        return n + 1, labels.astype(np.int32)
+    lab, k = ndimage.label(mask, structure=np.ones((3, 3), bool))
+    lab = lab.astype(np.int64)
+    if k:
+        ys, xs = np.nonzero(lab)
+        blocks = (ys // 2) * ((mask.shape[1] + 1) // 2) + xs // 2
+        first = np.full(k + 1, np.iinfo(np.int64).max)
+        np.minimum.at(first, lab[ys, xs], blocks)
+        new = np.zeros(k + 1, np.int64)
+        new[1 + np.argsort(first[1:], kind='stable')] = np.arange(1, k + 1)
+        lab = new[lab]
+    return k + 1, lab.astype(np.int32)
 
 
 MORPH_CROSS = 1
@@ -1172,14 +1209,18 @@ def dilate(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
     return out
 
 
-def erode(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
-    """``cv2.erode(img, kernel, borderValue=0)`` (anchor at the centre, one
-    iteration): the minimum over the kernel's taps, the pixels outside the
-    image 0, so that a shape touching the edge erodes from it too (cv2's
-    default border never lowers a pixel)."""
+def erode(img: np.ndarray, kernel: np.ndarray, border=0) -> np.ndarray:
+    """``cv2.erode(img, kernel, borderValue=border)`` (anchor at the
+    centre, one iteration): the minimum over the kernel's taps. ``border``
+    0: the pixels outside the image are 0, so that a shape touching the
+    edge erodes from it too; ``None``: cv2's default border, which never
+    lowers a pixel (the outside taps left out)."""
     kh, kw = kernel.shape
     h, w = img.shape
-    pad = np.zeros((h + kh - 1, w + kw - 1), img.dtype)
+    if border is None:
+        border = (np.inf if np.issubdtype(img.dtype, np.floating)
+                  else np.iinfo(img.dtype).max)
+    pad = np.full((h + kh - 1, w + kw - 1), border, img.dtype)
     pad[kh // 2:kh // 2 + h, kw // 2:kw // 2 + w] = img
     out = None
     for i, j in zip(*np.nonzero(kernel)):

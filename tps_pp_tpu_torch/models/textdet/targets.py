@@ -1,10 +1,10 @@
 """Ground truth of the segmentation detectors on the host (counterpart of
-``tps_pp_tpu/models/textdet/targets.py:24-354``): DBNet's shrunk text and
+``tps_pp_tpu/models/textdet/targets.py:24-560``): DBNet's shrunk text and
 threshold maps, PANet's and PSENet's shrunk instance kernels, TextSnake's
 text and centre-region masks with their radius / sin / cos maps, and
 FCENet's per-level maps (text region, centre region, effective mask and
 the Fourier signature of each polygon, its constant term relative to each
-pixel).
+pixel), and DRRG's masks, height and angle maps and text components.
 
 The JAX package rasterises each polygon (``cv2.fillPoly`` of its vertices
 cast to int32, which truncates) and measures offsets with
@@ -21,12 +21,13 @@ the JAX package's: float32, ``gt_shrink`` 1 where the polygon's inner
 distance reaches ``d``, ``gt_thr`` the ramp ``thr_min + (thr_max -
 thr_min) (1 - |signed| / d)`` in the band ``|signed| < d``.
 
-``TextSnakeTargets`` and ``FCENetTargets`` are the JAX package's, over the
-sideline geometry of ``sidelines.py`` and ``cv_ops``' fills; FCENet's
-Fourier signature (``resample_polygon``, ``normalize_polygon``,
-``poly2fourier``, ``clockwise``) runs in float64 with ``np.fft``, and each
-polygon goes to the levels whose proportion range holds the larger side of
-its ``bounding_rect`` over the image's height.
+``TextSnakeTargets``, ``FCENetTargets`` and ``DRRGTargets`` are the JAX
+package's, over the sideline geometry of ``sidelines.py`` and ``cv_ops``'
+fills; FCENet's Fourier signature (``resample_polygon``,
+``normalize_polygon``, ``poly2fourier``, ``clockwise``) runs in float64
+with ``np.fft``, and each polygon goes to the levels whose proportion
+range holds the larger side of its ``bounding_rect`` over the image's
+height.
 """
 from __future__ import annotations
 
@@ -373,4 +374,222 @@ class FCENetTargets:
             results.get('gt_polygons_ignore', []))
         for i, m in enumerate(maps):
             results[f'p{i + 3}_maps'] = m
+        return results
+
+
+@PIPELINES.register_module()
+class DRRGTargets:
+    """DRRG gt generation (reference textdet_targets/drrg_targets.py:
+    17-534): text and centre masks, the top / bottom height and sin / cos
+    maps, and the text components' attributes (n, 7) [x, y, h, w, cos,
+    sin, label] that supervise the GCN: components sampled at every pixel
+    of the centre lines (``cv_ops.polylines`` within the centre mask),
+    ``poly_nms``, labelled by the centre mask's 8-connected components in
+    cv2's order, jittered, then topped up with random label-0 components
+    off the text up to ``num_min_comps``. JAX draws from numpy's global
+    generator; the port from ``rng``, a ``np.random.RandomState`` of
+    ``seed``, which draws numpy's global stream for the same seed
+    (``train_detector`` seeds it and keeps its state in checkpoints)."""
+
+    def __init__(self, orientation_thr=2.0, resample_step=8.0,
+                 num_min_comps=9, num_max_comps=600, min_width=8.0,
+                 max_width=24.0, center_region_shrink_ratio=0.3,
+                 comp_shrink_ratio=1.0, comp_w_h_ratio=0.3,
+                 text_comp_nms_thr=0.25, min_rand_half_height=8.0,
+                 max_rand_half_height=24.0, jitter_level=0.2, seed=None):
+        self.orientation_thr = orientation_thr
+        self.resample_step = resample_step
+        self.num_min_comps = num_min_comps
+        self.num_max_comps = num_max_comps
+        self.min_width = min_width
+        self.max_width = max_width
+        self.center_region_shrink_ratio = center_region_shrink_ratio
+        self.comp_shrink_ratio = comp_shrink_ratio
+        self.comp_w_h_ratio = comp_w_h_ratio
+        self.text_comp_nms_thr = text_comp_nms_thr
+        self.min_rand_half_height = min_rand_half_height
+        self.max_rand_half_height = max_rand_half_height
+        self.jitter_level = jitter_level
+        self.rng = np.random.RandomState(seed)
+
+    def jitter_comp_attribs(self, attribs, jitter_level):
+        """Jitter (x, y, h, w, cos, sin) of the true components so that the
+        GCN trains on imperfect proposals (reference drrg_targets.py:
+        320-369); labels kept, cos / sin back on the unit circle."""
+        if len(attribs) == 0 or jitter_level <= 0:
+            return attribs
+        x, y, h, w, cos, sin, labels = np.split(attribs, 7, axis=1)
+
+        def u():
+            return (self.rng.random_sample((len(attribs), 1)) - 0.5) \
+                * jitter_level
+        x = x + u() * (h * np.abs(cos) + w * np.abs(sin))
+        y = y + u() * (h * np.abs(sin) + w * np.abs(cos))
+        h = h + u() * h
+        w = w + u() * w
+        cos = cos + u() * 2
+        sin = sin + u() * 2
+        scale = np.sqrt(1.0 / (cos ** 2 + sin ** 2 + 1e-8))
+        return np.hstack([x, y, h, w, cos * scale, sin * scale,
+                          labels]).astype(np.float32)
+
+    def generate_rand_comp_attribs(self, num, center_sample_mask):
+        """``num`` random label-0 components in the non-text region, so
+        that every image has ``num_min_comps`` (the k-NN graph needs k
+        neighbours; reference drrg_targets.py:238-318)."""
+        h, w = center_sample_mask.shape
+        max_hh, min_hh = self.max_rand_half_height, self.min_rand_half_height
+        max_rand_width = np.clip(2 * max_hh * self.comp_w_h_ratio,
+                                 self.min_width, self.max_width)
+        margin = int(np.sqrt(max_hh ** 2 + (max_rand_width / 2) ** 2)) + 1
+        if 2 * margin + 1 > min(h, w):
+            max_hh = max(min(h, w) / 4, self.min_width / 2 + 1)
+            min_hh = max(max_hh / 4, self.min_width / 2)
+            max_rand_width = np.clip(2 * max_hh * self.comp_w_h_ratio,
+                                     self.min_width, self.max_width)
+            margin = int(np.sqrt(max_hh ** 2 + (max_rand_width / 2) ** 2)) + 1
+        inner = np.zeros_like(center_sample_mask, np.uint8)
+        lo = min(margin, min(h, w) // 2)
+        inner[lo:h - lo, lo:w - lo] = \
+            (center_sample_mask[lo:h - lo, lo:w - lo] > 0)
+        k = int(np.clip(max_hh, 7, 21))
+        inner = cv_ops.erode(inner, np.ones((k, k), np.uint8), border=None)
+        candidates = np.argwhere(inner > 0)
+        rng = self.rng
+        if len(candidates) == 0:            # degenerate mask: anywhere
+            candidates = np.stack([rng.randint(0, h, 64),
+                                   rng.randint(0, w, 64)], axis=1)
+        centers = candidates[rng.choice(len(candidates), num)]
+        top_hh = rng.randint(int(min_hh), max(int(max_hh), int(min_hh) + 1),
+                             (num, 1))
+        bot_hh = rng.randint(int(min_hh), max(int(max_hh), int(min_hh) + 1),
+                             (num, 1))
+        cos = 2 * rng.random_sample((num, 1)) - 1
+        sin = 2 * rng.random_sample((num, 1)) - 1
+        scale = np.sqrt(1.0 / (cos ** 2 + sin ** 2 + 1e-8))
+        height = (top_hh + bot_hh).astype(np.float32)
+        width = np.clip(height * self.comp_w_h_ratio, self.min_width,
+                        self.max_width)
+        return np.hstack([centers[:, ::-1], height, width, cos * scale,
+                          sin * scale, np.zeros((num, 1))]).astype(np.float32)
+
+    def _attrib_maps(self, polygons, h, w):
+        """The centre mask and the top / bottom height and sin / cos maps,
+        drawn a centre-line segment at a time (reference drrg_targets.py
+        draw_center_region_maps), and the centre lines."""
+        center_mask = np.zeros((h, w), np.uint8)
+        top_map = np.zeros((h, w), np.float32)
+        bot_map = np.zeros((h, w), np.float32)
+        sin_map = np.zeros((h, w), np.float32)
+        cos_map = np.zeros((h, w), np.float32)
+        center_lines = []
+        for poly in polygons:
+            pts = np.asarray(poly, np.float32).reshape(-1, 2)
+            if len(pts) < 4:
+                continue
+            top, bot, center = sl.sideline_center(pts, self.resample_step)
+            top, bot, center = sl.shrink_ends(top, bot, center,
+                                              self.resample_step)
+            center_lines.append(center.astype(np.int32))
+            for i in range(len(center) - 1):
+                th = np.linalg.norm((top[i] + top[i + 1]) / 2 -
+                                    (center[i] + center[i + 1]) / 2)
+                bh = np.linalg.norm((bot[i] + bot[i + 1]) / 2 -
+                                    (center[i] + center[i + 1]) / 2)
+                d = center[i + 1] - center[i]
+                s, c = sl.vector_sin(d), sl.vector_cos(d)
+                r = self.center_region_shrink_ratio
+                quad = np.vstack([
+                    center[i] + (top[i] - center[i]) * r,
+                    center[i + 1] + (top[i + 1] - center[i + 1]) * r,
+                    center[i + 1] + (bot[i + 1] - center[i + 1]) * r,
+                    center[i] + (bot[i] - center[i]) * r,
+                ]).astype(np.int32)
+                cv_ops.fill_poly(center_mask, [quad], 1)
+                cv_ops.fill_poly(top_map, [quad], float(max(th, 1.0)))
+                cv_ops.fill_poly(bot_map, [quad], float(max(bh, 1.0)))
+                cv_ops.fill_poly(sin_map, [quad], float(s))
+                cv_ops.fill_poly(cos_map, [quad], float(c))
+        return center_mask, top_map, bot_map, sin_map, cos_map, center_lines
+
+    def generate_comp_attribs(self, center_lines, center_mask, top_map,
+                              bot_map, sin_map, cos_map):
+        """Components at the centre lines' pixels (reference
+        drrg_targets.py:368-480)."""
+        from .postprocess import poly_nms
+        h, w = center_mask.shape
+        lines_mask = np.zeros_like(center_mask)
+        if center_lines:
+            cv_ops.polylines(lines_mask, center_lines, False, 1, 1)
+        lines_mask = lines_mask * center_mask
+        centers = np.argwhere(lines_mask > 0)
+        comps = []
+        for y, x in centers:
+            th = top_map[y, x] * self.comp_shrink_ratio
+            bh = bot_map[y, x] * self.comp_shrink_ratio
+            s, c = sin_map[y, x], cos_map[y, x]
+            # sin / cos are the centre line's tangent (c, s): the top at
+            # +th (s, -c), the bottom at -bh (s, -c) (y points down), the
+            # corners +-r (c, s) along the tangent
+            top_mid = np.array([x + th * s, y - th * c])
+            bot_mid = np.array([x - bh * s, y + bh * c])
+            width = np.clip((th + bh) * self.comp_w_h_ratio,
+                            self.min_width, self.max_width)
+            r = width / 2
+            dx, dy = c * r, s * r
+            quad = np.array([top_mid + [-dx, -dy], top_mid + [dx, dy],
+                             bot_mid + [dx, dy], bot_mid + [-dx, -dy]])
+            comps.append(np.hstack([quad.reshape(-1), [1.0]]))
+        if not comps:
+            return np.zeros((0, 8), np.float32)
+        comps = np.asarray(
+            poly_nms([cp.tolist() for cp in comps], self.text_comp_nms_thr),
+            np.float32)[:self.num_max_comps]
+        centers2 = comps[:, 0:8].reshape(-1, 4, 2).mean(axis=1)
+        cx = np.clip(centers2[:, 0].astype(np.int32), 0, w - 1)
+        cy = np.clip(centers2[:, 1].astype(np.int32), 0, h - 1)
+        height = np.maximum(top_map[cy, cx] + bot_map[cy, cx], 2.0)
+        width = np.clip(height * self.comp_w_h_ratio, self.min_width,
+                        self.max_width)
+        _, label_mask = cv_ops.connected_components(center_mask,
+                                                    connectivity=8)
+        labels = label_mask[cy, cx].astype(np.float32)
+        attribs = np.stack([
+            centers2[:, 0], centers2[:, 1], height, width,
+            cos_map[cy, cx], sin_map[cy, cx], labels], axis=1)
+        return attribs.astype(np.float32)
+
+    def generate(self, polygons, polygons_ignore, h, w):
+        gt_text = sl.generate_text_region_mask((h, w), polygons)
+        gt_mask = sl.generate_effective_mask((h, w), polygons_ignore)
+        (center_mask, top_map, bot_map, sin_map, cos_map,
+         center_lines) = self._attrib_maps(polygons, h, w)
+        comp_attribs = self.generate_comp_attribs(
+            center_lines, center_mask, top_map, bot_map, sin_map, cos_map)
+        # the true components jittered, then topped up with random label-0
+        # ones off the text (reference drrg_targets.py:460-476)
+        comp_attribs = self.jitter_comp_attribs(comp_attribs,
+                                                self.jitter_level)
+        if len(comp_attribs) < self.num_min_comps:
+            rand = self.generate_rand_comp_attribs(
+                self.num_min_comps - len(comp_attribs),
+                (1 - gt_text).astype(np.uint8))
+            comp_attribs = (np.vstack([comp_attribs, rand])
+                            if len(comp_attribs) else rand)
+        return {
+            'gt_text_mask': gt_text.astype(np.float32),
+            'gt_center_region_mask': center_mask.astype(np.float32),
+            'gt_mask': gt_mask.astype(np.float32),
+            'gt_top_height_map': top_map,
+            'gt_bot_height_map': bot_map,
+            'gt_sin_map': sin_map,
+            'gt_cos_map': cos_map,
+            'gt_comp_attribs': comp_attribs,
+        }
+
+    def __call__(self, results: Dict) -> Dict:
+        h, w = results['img'].shape[:2]
+        results.update(self.generate(results.get('gt_polygons', []),
+                                     results.get('gt_polygons_ignore', []),
+                                     h, w))
         return results

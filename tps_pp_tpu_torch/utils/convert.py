@@ -629,18 +629,36 @@ def textsnake_rules(cfg: Mapping) -> List[Rule]:
         ('head.out_conv', 'head/out_conv', 'conv')]
 
 
+def drrg_rules(cfg: Mapping) -> List[Rule]:
+    """The rule table of a DRRG config (its trunk, FPN_UNet, DRRGHead's
+    ``out_conv`` and its GCN with MMOCR 0.4.0's names: ``head.gcn.conv1``
+    .. ``conv4``, ``head.gcn.classifier.0/1/2``), unchecked as
+    ``fcenet_rules``. The flax paths are those of ``state_dict_from_jax``'s
+    merged tree: the JAX detector's ``net`` variables with its ``gcn``
+    parameters under ``gcn``."""
+    rules = _det_trunk_rules(cfg) + fpn_unet_rules() + [
+        ('head.out_conv', 'head/out_conv', 'conv')]
+    rules += [(f'head.gcn.conv{i}', f'gcn/conv{i}', 'graph_conv')
+              for i in range(1, 5)]
+    return rules + [('head.gcn.classifier.0', 'gcn/cls_fc1', 'linear'),
+                    ('head.gcn.classifier.1', 'gcn', 'prelu'),
+                    ('head.gcn.classifier.2', 'gcn/cls_fc2', 'linear')]
+
+
 def rules_for_config(cfg: Mapping) -> List[Rule]:
     """The rule table of an NRTR, SATRN, ABINet (+ TPS_PP), CRNN, SAR
     (parallel, sequential, beam search), RobustScanner or SegRecognizer
     config, with its image-space preprocessor (TPS-STN, MORAN, SPIN),
     dispatched on its preprocessor, backbone, encoder and decoder types as
     JAX's ``rules_for_config`` (``torch_convert.py:604-684``), or of a
-    DBNet, PANet, PSENet, FCENet or TextSnake detector (``dbnet_rules``,
-    ``panet_rules``, ``psenet_rules``, ``fcenet_rules``,
-    ``textsnake_rules``); a type without rules raises a ``ValueError``."""
+    DBNet, PANet, PSENet, FCENet, TextSnake or DRRG detector
+    (``dbnet_rules``, ``panet_rules``, ``psenet_rules``, ``fcenet_rules``,
+    ``textsnake_rules``, ``drrg_rules``); a type without rules raises a
+    ``ValueError``."""
     det = {'DBNet': dbnet_rules, 'PANet': panet_rules,
            'PSENet': psenet_rules, 'FCENet': fcenet_rules,
-           'TextSnake': textsnake_rules}.get(cfg.get('type'))
+           'TextSnake': textsnake_rules,
+           'DRRG': drrg_rules}.get(cfg.get('type'))
     if det is not None:
         return det(cfg)
     if cfg.get('type') == 'SegRecognizer':    # no preprocessor, as JAX
@@ -738,6 +756,11 @@ def _torch_entries(kind: str, get) -> Dict[str, np.ndarray]:
                'num_batches_tracked': np.zeros((), np.int64)}
     elif kind == 'embed':
         return {'weight': get('params', 'embedding')}
+    elif kind == 'graph_conv':      # DRRG's GraphConv: (2 in, out), as is
+        return {'weight': get('params', 'weight'),
+                'bias': get('params', 'bias')}
+    elif kind == 'prelu':           # a slope vector beside the GCN's layers
+        return {'weight': get('params', 'prelu_alpha')}
     elif _LSTM_KIND.fullmatch(kind):
         # the inverse of JAX's 'lstm' kinds: one direction of one layer of
         # a torch nn.LSTM (or nn.GRU: the same names), 'lstm_l{k}' the
@@ -776,7 +799,8 @@ def convert_rules(variables: Mapping, rules: List[Rule]
     for tp, fp, kind in rules:
         probe = ('weight_ih' if kind.startswith('lstm') else
                  {'ln': 'scale', 'bn': 'scale', 'embed': 'embedding',
-                  'torch_mha': 'fc/kernel'}.get(kind, 'kernel'))
+                  'torch_mha': 'fc/kernel', 'graph_conv': 'weight',
+                  'prelu': 'prelu_alpha'}.get(kind, 'kernel'))
         if _leaf(variables['params'], f'{fp}/{probe}') is None:
             if '.downsample.' in tp:
                 continue
@@ -793,9 +817,14 @@ def state_dict_from_jax(variables: Mapping, cfg: Mapping
     """JAX recognizer or detector variables -> a ``state_dict`` that the
     model of ``build_recognizer(cfg)`` (NRTR, SATRN, ABINet, CRNN, SAR,
     RobustScanner or SegRecognizer) or ``build_detector_module(cfg)``
-    (DBNet, PANet, PSENet, FCENet, TextSnake) takes with
-    ``load_state_dict(strict=True)``. The sinusoid tables, buffers as in
-    the reference, are made from the config."""
+    (DBNet, PANet, PSENet, FCENet, TextSnake, DRRG) takes with
+    ``load_state_dict(strict=True)``; DRRG's are the JAX ``TextDetector``'s
+    ``{'net': ..., 'gcn': ...}``. The sinusoid tables, buffers as in the
+    reference, are made from the config."""
+    if cfg.get('type') == 'DRRG':
+        net = variables['net']
+        variables = dict(net, params=dict(net['params'],
+                                          gcn=variables['gcn']['params']))
     sd = convert_rules(variables, rules_for_config(cfg))
     if cfg.get('type') == 'ABINet':
         sd.update(_abinet_position_tables(cfg))
