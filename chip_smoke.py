@@ -319,6 +319,41 @@ seed):
   epochs and a resume from epoch 1; ``MMOCR.readtext`` with the DRRG
   config path and the flagship recognizer on two pages, its text and
   centre logits lowered until at most ``DRRG_READ_PIXELS`` pixels pass.
+
+* Mask R-CNN, last, which runs no hand-written kernel (flax and host
+  numpy in JAX): the shipped ICDAR 2015 config (``MASKRCNN_CONFIG``: R50,
+  FPN 256, RPN of 5 anchors, box FCs of 1024, mask convs of 256) through
+  ``init_detector``, seed-0 weights, float32 (TF32 off). The card against
+  the CPU at B=2 on 640 x 640 (``maskrcnn_card_checks``): the five levels
+  and the RPN maps within ``MASKRCNN_F32_RTOL`` of their largest
+  magnitude; on the CPU's proposals, the card's 7x7 and 14x14 pooling
+  against ``roi_align_np`` of the card's levels copied out, and both
+  heads on the same pooled RoIs, within it too; ``detect_batch``'s
+  boundaries with the box head's text bias raised by
+  ``MASKRCNN_CLS_BIAS`` and the mask logits scaled by
+  ``MASKRCNN_MASK_SCALE`` on both, box by box, each side's decisions read
+  from its own stages (``maskrcnn_decisions``, ``compare_maskrcnn``):
+  equal but where a
+  decision lies within ``MASKRCNN_TIE`` of its threshold (top-k, ``wh >
+  2``, both NMSs, ``score_thr``, the RoI level, ``mask_thr``) or a box
+  corner within ``MASKRCNN_TIE_PX`` of an integer, at least
+  ``MASKRCNN_MIN_COMPARED`` equal. ``detect_batch`` at B=8 by stage: the
+  host's prep, the copy in, the forward and its trunk / FPN / RPN by CUDA
+  events, the RPN maps' copy out (ms, MB: the levels stay on the card),
+  the proposals and their NMS, pooling + box head and mask pooling + mask
+  head by CUDA events, the detections and their NMS, the paste with
+  ``points2boundary``, and proposals, boxes and boundaries a page; one
+  B=1 page at the CTW1500 config's 1600 x 1600; one float32 step on one
+  page, the card against the CPU on the CPU's RoI sample
+  (``DET_LOSS_RTOL``, ``DET_GRAD_NORM_RTOL``), timed on cuDNN's default
+  and deterministic algorithms; ``train_detector`` over
+  ``N_MASKRCNN_TRAIN_PAGES`` pages, one a step, for
+  ``MASKRCNN_TRAIN_EPOCHS`` epochs and a resume from epoch 1, as a user
+  calls it (it runs Mask R-CNN's epochs on cuDNN's deterministic
+  algorithms itself);
+  ``MMOCR.readtext`` with the config path and the flagship recognizer on
+  two pages, in the trained-like setting. The detector's path launches no
+  kernel.
   The whole script's time is logged before the ``kernels`` line.
 
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
@@ -573,6 +608,23 @@ DRRG_F32_RTOL, DRRG_QUIET = 1e-5, 30.0
 DRRG_LINK_BIAS, DRRG_LINK_MARGIN = 8.0, 1e-4
 DRRG_WORDS, N_DRRG_TRAINED_LIKE, DRRG_MIN_COMPARED = (2, 4), 4, 2
 N_DRRG_TRAIN_PAGES, DRRG_TRAIN_EPOCHS, DRRG_READ_PIXELS = 4, 2, 400
+# Mask R-CNN (config, serving batch, page size, the CTW1500 config's test
+# scale (h, w)); the card-vs-CPU bound of the levels, RPN maps, pooled
+# RoIs and the heads' outputs, relative to their largest magnitude; the distance from
+# a threshold within which a decision counts as a tie (scores, IoUs, mask
+# probabilities, the RoI level's log2), and in px for the paste's integer
+# box corners (results may part only where one lies so near); the least
+# boundaries compared equal; the text bias added to the
+# box head's fc_cls (random weights score most RoIs near 0.5) and the
+# scale of conv_logits' weights (random masks sit near 0.5 everywhere)
+# where boundaries are compared; training's pages and epochs; readtext's
+# pages
+MASKRCNN_CONFIG = ('configs/textdet/maskrcnn/'
+                   'mask_rcnn_r50_fpn_160e_icdar2015.py')
+B_MASKRCNN, MASKRCNN_HW, MASKRCNN_TEST_SCALE = 8, (640, 640), (1600, 1600)
+MASKRCNN_F32_RTOL, MASKRCNN_TIE, MASKRCNN_TIE_PX = 1e-5, 1e-4, 1e-3
+MASKRCNN_MIN_COMPARED, MASKRCNN_CLS_BIAS, MASKRCNN_MASK_SCALE = 10, 4.0, 8.0
+N_MASKRCNN_TRAIN_PAGES, MASKRCNN_TRAIN_EPOCHS = 4, 2
 
 
 def log(*a):
@@ -5380,6 +5432,620 @@ def drrg_phase(dev, name):
         f'{json.dumps(stats)}')
 
 
+def nms_margin(boxes, scores, thr, max_out):
+    """``nms_xyxy(boxes, scores, thr, max_out)``'s keep list and the least
+    distance of its decisions from their thresholds: each IoU it computes
+    from ``thr``, each suppressed box's score from the keeper's, and, where
+    it stops at ``max_out``, the last kept score from the next one's."""
+    import numpy as np
+    from tps_pp_tpu_torch.models.textdet.maskrcnn import bbox_iou_matrix
+    order = scores.argsort()[::-1]
+    keep, margin = [], np.inf
+    while order.size > 0 and len(keep) < max_out:
+        i = order[0]
+        keep.append(i)
+        if order.size == 1:
+            break
+        rest = order[1:]
+        ious = bbox_iou_matrix(boxes[i:i + 1], boxes[rest])[0]
+        margin = min(margin, float(np.abs(ious - thr).min()))
+        gone = ious > thr
+        if gone.any():
+            margin = min(margin, float((scores[i] - scores[rest[gone]]).min()))
+        order = rest[~gone]
+    if order.size and len(keep) == max_out:
+        margin = min(margin, float(scores[keep[-1]] - scores[order[0]]))
+    return np.asarray(keep, np.int64), margin
+
+
+def level_margin(boxes, n_levels):
+    """The least distance of ``roi_levels``' log2 from an integer, over the
+    boxes whose level is not clipped."""
+    import numpy as np
+    areas = np.prod(np.maximum(boxes[:, 2:] - boxes[:, :2], 1), -1)
+    v = np.log2(np.sqrt(areas) / 56 + 1e-6) + 2
+    inside = (v > 0) & (v < n_levels - 1)
+    return float(np.abs(v - np.round(v))[inside].min()) if inside.any() \
+        else np.inf
+
+
+def maskrcnn_decisions(det, run):
+    """``run()`` drives the port's serving (``det(levels, rpn_np, hw)`` or
+    a ``TextDetector``'s ``detect_batch``, whose postprocessor is the
+    ``MaskRCNNDetector`` ``det``) while hooks on ``det``'s stages and on
+    ``maskrcnn.delta2bbox`` / ``nms_xyxy`` record what they take and give;
+    from those intermediates, the distance of every decision from its
+    threshold. Returns (``run()``'s result, per image a dict):
+    ``boundaries`` (the paste of each final box alone: [] or its boundary;
+    together they are the paste's output and as many as the result's),
+    ``boxes``, ``scores``, ``box_margin`` (the least over the top-k cuts,
+    ``wh > 2``, both NMSs, ``score_thr`` and the RoI levels),
+    ``px_margins`` (each box's corners from the integers the paste
+    truncates them to), ``mask_margins`` (each box's least distance of a
+    resized mask probability from ``mask_thr``)."""
+    import numpy as np
+    from tps_pp_tpu_torch.models.textdet import maskrcnn
+    saved = maskrcnn.delta2bbox, maskrcnn.nms_xyxy
+    images, cur, at = [], [None], dict(det=0, paste=0)
+
+    def delta2bbox(*a, **k):
+        out = saved[0](*a, **k)
+        if cur[0] is not None:
+            cur[0]['decoded'].append(out)   # clipped in place after
+        return out
+
+    def nms_xyxy(boxes, scores, thr, max_out):
+        keep = saved[1](boxes, scores, thr, max_out)
+        if cur[0] is not None:
+            cur[0]['nms'].append((boxes.copy(), scores.copy(), thr,
+                                  max_out, keep))
+        return keep
+
+    def traced(fn, *a):
+        """``fn(*a)`` and the least margin of the decodes and NMSs it
+        ran."""
+        cur[0] = dict(decoded=[], nms=[])
+        try:
+            out = fn(*a)
+        finally:
+            rec, cur[0] = cur[0], None
+        margin = np.inf
+        for boxes, scores, thr, max_out, keep in rec['nms']:
+            again, m = nms_margin(boxes, scores, thr, max_out)
+            if not np.array_equal(again, keep):
+                raise AssertionError('nms_margin does not repeat nms_xyxy')
+            margin = min(margin, m)
+        return out, rec['decoded'], margin
+
+    def proposals(rpn_np, img_hw):
+        out, decoded, margin = traced(type(det).proposals, det, rpn_np,
+                                      img_hw)
+        for c, _ in rpn_np:
+            sc = np.sort(1 / (1 + np.exp(-c.reshape(-1))))[::-1]
+            k = min(det.pre_nms_top_n, len(sc))
+            if k < len(sc):
+                margin = min(margin, float(sc[k - 1] - sc[k]))
+        wh = np.concatenate([b[:, 2:] - b[:, :2] for b in decoded])
+        margin = min(margin, float(np.abs(wh - 2).min()),
+                     level_margin(out[0], len(rpn_np)))
+        images.append(dict(box_margin=margin, proposals=out[0],
+                           n_levels=len(rpn_np),
+                           boxes=np.zeros((0, 4), np.float32),
+                           scores=np.zeros((0,), np.float32), boundaries=[],
+                           px_margins=[], mask_margins=[]))
+        return out
+
+    def detections(props, probs, deltas, img_hw):
+        o = images[at['det']]
+        at['det'] += 1
+        if props is not o['proposals']:
+            raise AssertionError('detections of other proposals')
+        out, _, margin = traced(type(det).detections, det, props, probs,
+                                deltas, img_hw)
+        if len(probs):
+            margin = min(margin, float(np.abs(probs[:, 1]
+                                              - det.score_thr).min()))
+        o.update(boxes=out[0], scores=out[1], box_margin=min(
+            o['box_margin'], margin, level_margin(out[0], o['n_levels'])),
+            px_margins=[float(np.abs(bx - np.round(bx)).min())
+                        for bx in out[0]])
+        return out
+
+    def paste(boxes, scores, mask_logits, img_hw):
+        o = images[at['paste']]
+        at['paste'] += 1
+        out = type(det).paste(det, boxes, scores, mask_logits, img_hw)
+        if not np.array_equal(boxes, o['boxes']):
+            raise AssertionError('a paste of other boxes')
+        alone = [type(det).paste(det, boxes[j:j + 1], scores[j:j + 1],
+                                 mask_logits[j:j + 1], img_hw)
+                 for j in range(len(boxes))]
+        flat = sum(alone, [])
+        if len(flat) != len(out) or not all(
+                np.array_equal(u, v) for u, v in zip(flat, out)):
+            raise AssertionError('the paste box by box is not the paste')
+        o['boundaries'] = alone
+        for box, m in zip(boxes, mask_logits):
+            x0, y0, x1, y1 = box.astype(int)
+            prob = maskrcnn.cv_ops.resize_f32(1 / (1 + np.exp(-m)),
+                                              max(x1 - x0, 1),
+                                              max(y1 - y0, 1))
+            o['mask_margins'].append(float(np.abs(prob
+                                                  - det.mask_thr).min()))
+        return out
+
+    maskrcnn.delta2bbox, maskrcnn.nms_xyxy = delta2bbox, nms_xyxy
+    det.proposals, det.detections, det.paste = proposals, detections, paste
+    try:
+        result = run()
+    finally:
+        maskrcnn.delta2bbox, maskrcnn.nms_xyxy = saved
+        del det.proposals, det.detections, det.paste
+    if len(result) != len(images) or any(
+            len(r) != len(sum(o['boundaries'], []))
+            for r, o in zip(result, images)):
+        raise AssertionError('Mask R-CNN: the traced boundaries are not '
+                             'the result')
+    for o in images:
+        del o['proposals'], o['n_levels']
+    return result, images
+
+
+def compare_maskrcnn(got, want, atol=0.0):
+    """Boundaries of two ``maskrcnn_decisions`` traces on the same pages, each
+    final box's list against the other's, the points within ``atol`` px and
+    the scores within 1e-4: they must agree wherever no decision lies near
+    its threshold. An image whose final boxes part in number (or by more
+    than 1e-2 px) must have a box decision within ``MASKRCNN_TIE`` of its
+    threshold on one side, a box whose boundaries part a mask probability
+    within ``MASKRCNN_TIE`` of ``mask_thr`` or a corner within
+    ``MASKRCNN_TIE_PX`` of an integer; anything else raises. Returns
+    (boundaries compared equal, images parting at a box tie, boxes parting
+    at a mask or corner tie)."""
+    import numpy as np
+
+    def same(p, q):
+        return len(p) == len(q) and all(
+            u.shape == v.shape and bool(
+                (np.abs(u[:-1] - v[:-1]) <= atol).all())
+            and abs(float(u[-1] - v[-1])) <= 1e-4 for u, v in zip(p, q))
+    compared = box_ties = mask_ties = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        tied = min(a['box_margin'], b['box_margin']) <= MASKRCNN_TIE
+        if len(a['boxes']) != len(b['boxes']) or (
+                len(a['boxes']) and
+                float(np.abs(a['boxes'] - b['boxes']).max()) > 1e-2):
+            if not tied:
+                raise AssertionError(f'Mask R-CNN image {i}: the final '
+                                     f'boxes part with no decision tie')
+            box_ties += 1
+            continue
+        for j in range(len(b['boxes'])):
+            p, q = a['boundaries'][j], b['boundaries'][j]
+            if same(p, q):
+                compared += len(q)
+                continue
+            if not (tied or min(a['mask_margins'][j], b['mask_margins'][j])
+                    <= MASKRCNN_TIE or min(a['px_margins'][j],
+                                           b['px_margins'][j])
+                    <= MASKRCNN_TIE_PX):
+                raise AssertionError(f'Mask R-CNN image {i} box {j}: the '
+                                     f'boundaries part with no decision '
+                                     f'tie: {p} {q}')
+            mask_ties += 1
+    return compared, box_ties, mask_ties
+
+
+def maskrcnn_shift(det, cls_bias=0.0, mask_scale=1.0):
+    """Raise ``det``'s box head's text logit by ``cls_bias``; scale its
+    mask head's ``conv_logits`` by ``mask_scale`` (the trained-like
+    setting of the boundary comparison)."""
+    import torch
+    heads = det.model.roi_head
+    with torch.no_grad():
+        heads.bbox_head.fc_cls.bias[1] += cls_bias
+        heads.mask_head.conv_logits.weight.mul_(mask_scale)
+        heads.mask_head.conv_logits.bias.mul_(mask_scale)
+
+
+def maskrcnn_card_checks(det, cpu_det, imgs):
+    """The card's Mask R-CNN ``det`` against ``cpu_det`` (the same weights
+    on the CPU) on the pages ``imgs`` (uint8, at the input size); raises
+    where a check fails, else returns the numbers.
+
+    * The five levels and the RPN maps within ``MASKRCNN_F32_RTOL`` of
+      their largest magnitude.
+    * On identical host RoIs (the CPU's proposals), the card's pooling
+      within ``MASKRCNN_F32_RTOL`` of ``roi_align_np`` on the card's
+      levels copied to the host, and the box and mask heads' outputs on
+      the same pooled RoIs within ``MASKRCNN_F32_RTOL``.
+    * Boundaries in the trained-like setting (``maskrcnn_shift`` by
+      ``MASKRCNN_CLS_BIAS`` and ``MASKRCNN_MASK_SCALE`` on both): each
+      final box's boundary in ``detect_batch``'s result on either side
+      equal unless a decision of that side's stages
+      (``maskrcnn_decisions``) lies near its threshold
+      (``compare_maskrcnn``), at least ``MASKRCNN_MIN_COMPARED``
+      compared."""
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.models.textdet import maskrcnn
+
+    def err(got, want):
+        got, want = got.detach().cpu().float(), want.detach().cpu().float()
+        e = float((got - want).abs().max() / want.abs().max())
+        if not e <= MASKRCNN_F32_RTOL:
+            raise AssertionError(f'Mask R-CNN: {e} apart over the scale '
+                                 f'(bound {MASKRCNN_F32_RTOL})')
+        return e
+
+    p, q = det.postprocessor, cpu_det.postprocessor
+    xb = np.stack([det.prep(i)[0] for i in imgs])
+    (gl, gr), (wl, wr) = det.forward(xb), cpu_det.forward(xb)
+    checks = dict(levels=max(err(a, b) for a, b in zip(gl, wl)),
+                  rpn=max(max(err(a, c), err(b, d))
+                          for (a, b), (c, d) in zip(gr, wr)))
+    hw = det.img_size
+    props = [q.proposals(r, hw)[0] for r in q.host_rpn(wr)]
+    with torch.inference_mode():
+        for size, key in (((7, 7), 'pool7'), ((14, 14), 'pool14')):
+            pooled = p.pool(gl, props, size).cpu()
+            host = []
+            for i, b in enumerate(props):
+                lvl = maskrcnn.roi_levels(b, len(gl))
+                out = np.zeros((len(b), size[1], size[0], gl[0].shape[1]),
+                               np.float32)
+                for li in np.unique(lvl):
+                    out[lvl == li] = maskrcnn.roi_align_np(
+                        gl[li][i].permute(1, 2, 0).cpu().numpy(),
+                        b[lvl == li] / p.strides[li], size)
+                host.append(out)
+            checks[key] = err(pooled, torch.from_numpy(
+                np.concatenate(host)).permute(0, 3, 1, 2))
+            head = 'bbox_head' if key == 'pool7' else 'mask_head'
+            a = getattr(det.model.roi_head, head)(pooled.to(det.device))
+            b = getattr(cpu_det.model.roi_head, head)(pooled)
+            a, b = (a, b) if key == 'pool14' else (torch.cat(a, -1),
+                                                   torch.cat(b, -1))
+            checks[head] = err(a, b)
+    checks['rois'] = sum(len(b) for b in props)
+    maskrcnn_shift(det, MASKRCNN_CLS_BIAS, MASKRCNN_MASK_SCALE)
+    maskrcnn_shift(cpu_det, MASKRCNN_CLS_BIAS, MASKRCNN_MASK_SCALE)
+    try:
+        _, got = maskrcnn_decisions(p, lambda: det.detect_batch(imgs))
+        _, want = maskrcnn_decisions(q, lambda: cpu_det.detect_batch(imgs))
+    finally:
+        maskrcnn_shift(det, -MASKRCNN_CLS_BIAS, 1 / MASKRCNN_MASK_SCALE)
+        maskrcnn_shift(cpu_det, -MASKRCNN_CLS_BIAS, 1 / MASKRCNN_MASK_SCALE)
+    compared, box_ties, mask_ties = compare_maskrcnn(got, want)
+    if compared < MASKRCNN_MIN_COMPARED:
+        raise AssertionError(f'Mask R-CNN: {compared} boundaries compared '
+                             f'({box_ties} images, {mask_ties} boxes at a '
+                             f'tie)')
+    checks.update(compared=compared, box_ties=box_ties, mask_ties=mask_ties,
+                  boxes=sum(len(o['boxes']) for o in want))
+    return checks
+
+
+def maskrcnn_phase(dev, name):
+    """OCRMaskRCNN on ``dev``, the card (see the module docstring); nothing
+    of its path launches a hand-written kernel."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import MMOCR, TextDetector, init_detector
+    from tps_pp_tpu_torch.apis.train_det import (_deterministic_cudnn,
+                                                 _make_optimizer,
+                                                 make_maskrcnn_train_step,
+                                                 train_detector)
+    from tps_pp_tpu_torch.config import load_config
+    from tps_pp_tpu_torch.models.textdet import maskrcnn
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(repo, MASKRCNN_CONFIG)
+    g = np.random.default_rng(SEED + 23)
+    hw = f'{MASKRCNN_HW[1]}x{MASKRCNN_HW[0]}'
+    stats, sections, t_sec = {}, {}, [time.perf_counter()]
+
+    def section(what):
+        now = time.perf_counter()
+        sections[what] = round(now - t_sec[0], 1)
+        t_sec[0] = now
+
+    det = init_detector(path, img_size=MASKRCNN_HW, device=dev, seed=SEED)
+    if det.device.type != torch.device(dev).type or det.model.training:
+        raise AssertionError(f'Mask R-CNN: built on {det.device}')
+    p = det.postprocessor
+    imgs = [g.integers(0, 256, (*MASKRCNN_HW, 3), np.uint8)
+            for _ in range(B_MASKRCNN)]
+    batch = np.stack([det.prep(i)[0] for i in imgs])
+    x = torch.as_tensor(batch, device=dev)
+    # ---- the card against the CPU at B_DET_F32
+    cpu_det = TextDetector(det.model_cfg, det.img_size, device='cpu')
+    cpu_det.model.load_state_dict({k: v.cpu() for k, v in
+                                   det.model.state_dict().items()})
+    checks = maskrcnn_card_checks(det, cpu_det, imgs[:B_DET_F32])
+    log(f'maskrcnn B={B_DET_F32} {hw}: the card against the CPU (f32, '
+        f'TF32 off), seed-0 weights, each of their largest magnitude '
+        f'(bound {MASKRCNN_F32_RTOL}): levels within {checks["levels"]:.3g}, '
+        f'RPN maps {checks["rpn"]:.3g}; on the CPU\'s {checks["rois"]} '
+        f'proposals, the card\'s pooling against roi_align_np of its '
+        f'levels: 7x7 {checks["pool7"]:.3g}, 14x14 {checks["pool14"]:.3g}; '
+        f'box head {checks["bbox_head"]:.3g}, mask head '
+        f'{checks["mask_head"]:.3g}; boundaries (fc_cls text bias '
+        f'+{MASKRCNN_CLS_BIAS}, conv_logits x{MASKRCNN_MASK_SCALE}): '
+        f'{checks["boxes"]} final boxes on the CPU, {checks["compared"]} '
+        f'boundaries equal, {checks["box_ties"]} images and '
+        f'{checks["mask_ties"]} boxes parting at a decision within '
+        f'{MASKRCNN_TIE} ({MASKRCNN_TIE_PX} px) [{name}]')
+    stats['card-cpu'] = checks
+    del cpu_det
+    section('card-cpu')
+
+    # ---- serving: detect_batch by stage at B_MASKRCNN, on the seed-0
+    # weights (few RoIs pass score_thr) and in the trained-like setting
+    zero_launches()
+    det.detect_batch(imgs)
+    read_launches('maskrcnn', 'detect_batch', {})
+    t0 = time.perf_counter()
+    np.stack([det.prep(i)[0] for i in imgs])
+    prep = (time.perf_counter() - t0) / B_MASKRCNN
+    h2d = cuda_ms(lambda: torch.as_tensor(batch).to(dev), 3) / B_MASKRCNN
+    fwd = cuda_ms(lambda: det.forward(x), 3) / B_MASKRCNN
+    m = det.model
+    with torch.inference_mode():
+        trunk = cuda_ms(lambda: m.backbone(x), 3) / B_MASKRCNN
+        c = m.backbone(x)
+        fpn = cuda_ms(lambda: m.neck(c), 3) / B_MASKRCNN
+        levels = m.features(x)
+        rpn_ms = cuda_ms(lambda: m.rpn_head(levels), 3) / B_MASKRCNN
+        del c, levels
+    saved_nms = maskrcnn.nms_xyxy
+
+    def stages():
+        """detect_batch's ms an image whole, then by stage (host clock,
+        CUDA events for the pooling and heads), and its counts a page."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = det.detect_batch(imgs)
+        st = dict(detect_batch=(time.perf_counter() - t0) * 1e3
+                  / B_MASKRCNN)
+        if len(out) != B_MASKRCNN:
+            raise AssertionError(f'Mask R-CNN: {len(out)} pages')
+        levels, rpn = det.forward(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rpn_np = p.host_rpn(rpn)
+        st['copy'] = (time.perf_counter() - t0) * 1e3 / B_MASKRCNN
+        st['copy_mb'] = sum(c_.nbytes + r.nbytes
+                            for c_, r in rpn_np[0]) / 1e6
+        nms = [0.0]
+
+        def timed_nms(*a):
+            t = time.perf_counter()
+            kept = saved_nms(*a)
+            nms[0] += (time.perf_counter() - t) * 1e3
+            return kept
+        maskrcnn.nms_xyxy = timed_nms
+        try:
+            t0 = time.perf_counter()
+            props = [p.proposals(r, det.img_size)[0] for r in rpn_np]
+            st['proposals'] = (time.perf_counter() - t0) * 1e3 / B_MASKRCNN
+            st['rpn_nms'], nms[0] = nms[0] / B_MASKRCNN, 0.0
+            probs, deltas = p.box_outputs(levels, props)
+            t0 = time.perf_counter()
+            dets = [p.detections(a, b, c_, det.img_size)
+                    for a, b, c_ in zip(props, probs, deltas)]
+            st['detections'] = (time.perf_counter() - t0) * 1e3 / B_MASKRCNN
+            st['det_nms'] = nms[0] / B_MASKRCNN
+        finally:
+            maskrcnn.nms_xyxy = saved_nms
+        boxes = [b for b, _ in dets]
+        heads = p.model.roi_head
+        with torch.inference_mode():
+            st['box'] = cuda_ms(lambda: heads.bbox_head(
+                p.pool(levels, props, (7, 7))), 3) / B_MASKRCNN
+            if any(len(b) for b in boxes):
+                st['mask'] = cuda_ms(lambda: heads.mask_head(
+                    p.pool(levels, boxes, (14, 14))), 3) / B_MASKRCNN
+                masks = p.mask_outputs(levels, boxes)
+            else:
+                st['mask'], masks = 0.0, [None] * len(boxes)
+        t0 = time.perf_counter()
+        bounds = [p.paste(b, s_, m_, det.img_size) if len(b) else []
+                  for (b, s_), m_ in zip(dets, masks)]
+        st['paste'] = (time.perf_counter() - t0) * 1e3 / B_MASKRCNN
+        st.update(proposals_page=sum(map(len, props)) / B_MASKRCNN,
+                  boxes_page=sum(map(len, boxes)) / B_MASKRCNN,
+                  boundaries_page=sum(map(len, bounds)) / B_MASKRCNN)
+        return st
+
+    def fmt(st):
+        return (f'detect_batch {st["detect_batch"]:.2f} ms/image: RPN '
+                f'maps\' copy out {st["copy"]:.3f} ms ({st["copy_mb"]:.2f} '
+                f'MB an image), proposals {st["proposals"]:.2f} (their NMS '
+                f'{st["rpn_nms"]:.2f}), pooling + box head {st["box"]:.3f}, '
+                f'detections {st["detections"]:.2f} (NMS '
+                f'{st["det_nms"]:.2f}), mask pooling + mask head '
+                f'{st["mask"]:.3f}, paste with points2boundary '
+                f'{st["paste"]:.2f}; a page {st["proposals_page"]:.1f} '
+                f'proposals, {st["boxes_page"]:.1f} boxes, '
+                f'{st["boundaries_page"]:.1f} boundaries')
+    seed0 = stages()
+    maskrcnn_shift(det, MASKRCNN_CLS_BIAS, MASKRCNN_MASK_SCALE)
+    try:
+        shifted = stages()
+    finally:
+        maskrcnn_shift(det, -MASKRCNN_CLS_BIAS, 1 / MASKRCNN_MASK_SCALE)
+    if shifted['boxes_page'] < 1 or shifted['boundaries_page'] < 1:
+        raise AssertionError(f'Mask R-CNN trained-like: {shifted}')
+    # ---- one page at the CTW1500 config's test scale
+    big = TextDetector(det.model_cfg, MASKRCNN_TEST_SCALE, device=dev)
+    big.model.load_state_dict(det.model.state_dict())
+    page = g.integers(0, 256, (*MASKRCNN_TEST_SCALE, 3), np.uint8)
+    xs = torch.as_tensor(big.prep(page)[0][None], device=dev)
+    big_fwd = cuda_ms(lambda: big.forward(xs), 3)
+    big.detect(page)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    found = big.detect(page)
+    big_ms = (time.perf_counter() - t0) * 1e3
+    if not all(np.isfinite(b).all() for b in found):
+        raise AssertionError('Mask R-CNN: test-scale boundaries not finite')
+    del big, xs
+    log(f'maskrcnn B={B_MASKRCNN} {hw} (Mask R-CNN R50-FPN f32, TF32 '
+        f'off): host prep {prep * 1e3:.2f} ms/image, batch copy to the '
+        f'card {h2d:.3f}, forward on the card\'s tensor {fwd:.3f} (trunk '
+        f'{trunk:.3f}, FPN {fpn:.3f}, RPN {rpn_ms:.3f}); seed-0 weights: '
+        f'{fmt(seed0)}; trained-like (fc_cls text bias '
+        f'+{MASKRCNN_CLS_BIAS}, conv_logits x{MASKRCNN_MASK_SCALE}): '
+        f'{fmt(shifted)}; B=1 at '
+        f'{MASKRCNN_TEST_SCALE[1]}x{MASKRCNN_TEST_SCALE[0]}, seed-0: '
+        f'forward {big_fwd:.2f} ms, detect {big_ms:.1f} ms, {len(found)} '
+        f'boundaries [{name}]')
+    stats['serving'] = dict(
+        prep=prep * 1e3, h2d=h2d, forward=fwd, trunk=trunk, fpn=fpn,
+        rpn=rpn_ms, seed0=seed0, trained_like=shifted,
+        forward_test_scale=big_fwd, detect_test_scale=big_ms,
+        boundaries_test_scale=len(found))
+    del det, x
+    torch.cuda.empty_cache()
+    section('serving')
+
+    # ---- one f32 step on one page, the card against the CPU
+    cfg = load_config(path)
+    model_cfg = cfg['model']
+    pages = DetPages(g, 1, hw=MASKRCNN_HW)
+    item = pages[0]
+    img_np = item['img'][None]
+    gt_boxes, gt_masks = maskrcnn.poly_boxes_masks(item['gt_polygons'],
+                                                   *MASKRCNN_HW)
+    results, batch = {}, None
+    for where in ('cpu', 'card'):
+        device = dev if where == 'card' else torch.device('cpu')
+        model = TextDetector(model_cfg, MASKRCNN_HW, device=device,
+                             seed=SEED).model
+        d = maskrcnn.MaskRCNNDetector(model)
+        img = torch.from_numpy(img_np).to(device)
+        if batch is None:       # the CPU's sample, on both sides
+            batch = d.sample_train_batch(img, gt_boxes, gt_masks,
+                                         np.random.default_rng(SEED))
+        opt, _ = _make_optimizer(cfg, model.named_parameters())
+        step = make_maskrcnn_train_step(d, opt)
+        model.train()
+        if where == 'card':
+            zero_launches()
+        results[where] = {k: float(v) for k, v in step(img, batch).items()}
+        if where == 'card':
+            read_launches('maskrcnn', 'step', {})
+            # cuDNN's default algorithms, then the deterministic ones that
+            # train_detector runs Mask R-CNN with
+            step_ms = cuda_ms(lambda: step(img, batch), 3)
+            with _deterministic_cudnn(True):
+                det_step_ms = cuda_ms(lambda: step(img, batch), 3)
+        del model
+    a, b = results['card'], results['cpu']
+    dl = abs(a['loss'] - b['loss']) / abs(b['loss'])
+    dg = abs(a['grad_norm'] - b['grad_norm']) / abs(b['grad_norm'])
+    if not (all(np.isfinite(list(a.values())))
+            and dl <= DET_LOSS_RTOL and dg <= DET_GRAD_NORM_RTOL):
+        raise AssertionError(f'Mask R-CNN step: card {a} against the CPU '
+                             f'{b}')
+    log(f'maskrcnn f32 step, one {hw} page of '
+        f'{len(item["gt_polygons"])} words ({int(batch["labels"].sum())} '
+        f'positive RoIs of {len(batch["labels"])}), train-mode BatchNorm, '
+        f'the CPU\'s RoI sample on both: loss {a["loss"]:.6f} (CPU '
+        f'{b["loss"]:.6f}, {dl:.3g} apart, bound {DET_LOSS_RTOL}; '
+        f'loss_mask {a["loss_mask"]:.6f}), grad norm {a["grad_norm"]:.6f} '
+        f'({dg:.3g} apart, bound {DET_GRAD_NORM_RTOL}); a step on the '
+        f'card {step_ms:.2f} ms with cuDNN\'s default algorithms, '
+        f'{det_step_ms:.2f} ms with its deterministic ones [{name}]')
+    stats['step'] = dict(loss_rel=dl, grad_norm_rel=dg, step_ms=step_ms,
+                         deterministic_step_ms=det_step_ms, **a)
+    torch.cuda.empty_cache()
+    section('step')
+
+    # ---- train_detector: 2 epochs of one page a step, a resume (as a
+    # user calls it: train_detector itself runs Mask R-CNN's epochs with
+    # cuDNN's deterministic algorithms)
+    pages = DetPages(g, N_MASKRCNN_TRAIN_PAGES, hw=MASKRCNN_HW)
+    if torch.backends.cudnn.deterministic:
+        raise AssertionError('cuDNN deterministic before train_detector')
+    with tempfile.TemporaryDirectory() as wd:
+        zero_launches()
+        _, opt, hist = train_detector(
+            cfg, pages, work_dir=wd, total_epochs=MASKRCNN_TRAIN_EPOCHS,
+            seed=SEED, device=dev)
+        read_launches('maskrcnn', 'train_detector', {})
+        _, opt2, again = train_detector(
+            cfg, pages, total_epochs=MASKRCNN_TRAIN_EPOCHS, seed=SEED,
+            device=dev, resume_from=os.path.join(wd, 'epoch_1.pth'))
+    if torch.backends.cudnn.deterministic:
+        raise AssertionError('train_detector left cuDNN deterministic')
+    last = hist[-1]
+    if not all(np.isfinite(h['loss']) for h in hist + again):
+        raise AssertionError(f'Mask R-CNN train_detector: {hist} {again}')
+    gap = abs(again[-1]['loss'] - last['loss']) / abs(last['loss'])
+    if ([h['epoch'] for h in again] != [MASKRCNN_TRAIN_EPOCHS - 1]
+            or opt2.count != opt.count or again[-1]['lr'] != last['lr']
+            or gap > LOSS_RTOL):
+        raise AssertionError(f'Mask R-CNN train_detector resume: {again} '
+                             f'against {last}')
+    step_ms = ((last['seconds'] - last['batch_seconds'])
+               / N_MASKRCNN_TRAIN_PAGES * 1e3)
+    log(f'maskrcnn train_detector Mask R-CNN R50-FPN '
+        f'({MASKRCNN_TRAIN_EPOCHS} epochs of {N_MASKRCNN_TRAIN_PAGES} '
+        f'{hw} pages, one a step; schedule_sgd_160e; cuDNN '
+        f'deterministic, as train_detector runs it): epoch 2 '
+        f'{last["seconds"]:.2f} s, {step_ms:.1f} ms a warm step (the eval '
+        f'forward and the RPN maps\' copy included), host targets '
+        f'{last["batch_seconds"] / N_MASKRCNN_TRAIN_PAGES * 1e3:.1f} ms a '
+        f'page, {last["batch_seconds"] / last["seconds"]:.3f} of the epoch; '
+        f'losses {[round(h["loss"], 4) for h in hist]}; the resume from '
+        f'epoch 1 ran epoch 2 again: {opt2.count} steps, lr '
+        f'{again[-1]["lr"]:.6g}, loss {gap:.3g} apart (LOSS_RTOL '
+        f'{LOSS_RTOL}) [{name}]')
+    stats['train_detector'] = dict(
+        epoch_s=last['seconds'], step_ms=step_ms,
+        target_ms_page=last['batch_seconds'] / N_MASKRCNN_TRAIN_PAGES * 1e3,
+        batch_share=last['batch_seconds'] / last['seconds'],
+        resume_gap=gap, losses=[h['loss'] for h in hist])
+    section('train_detector')
+
+    # ---- MMOCR.readtext: the Mask R-CNN config path and the flagship ----
+    reader = MMOCR(det=path, recog='NRTR_TPS', det_img_size=MASKRCNN_HW,
+                   device=dev)
+    pages = [g.integers(0, 256, (*PAGE_HW, 3), np.uint8) for _ in range(2)]
+    # the trained-like setting: the seed-0 weights pass few RoIs
+    maskrcnn_shift(reader.detector, MASKRCNN_CLS_BIAS, MASKRCNN_MASK_SCALE)
+    reader.readtext(pages[:1])
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = reader.readtext(pages, merge=True)
+    torch.cuda.synchronize()
+    whole = (time.perf_counter() - t0) / len(pages)
+    n_boxes = sum(len(r['result']) for r in res)
+    rec_launches = read_launches('maskrcnn', 'readtext',
+                                 {'tps_sampler': None} if n_boxes else {})
+    if len(res) != len(pages) or any(not isinstance(r['result'], list)
+                                     for r in res):
+        raise AssertionError(f'Mask R-CNN readtext: {res!r:.300}')
+    log(f'maskrcnn readtext {len(pages)} pages {PAGE_HW[1]}x{PAGE_HW[0]} '
+        f'(Mask R-CNN R50-FPN f32 at {hw} from its config, seed-0 '
+        f'weights, fc_cls text bias +{MASKRCNN_CLS_BIAS}, conv_logits '
+        f'x{MASKRCNN_MASK_SCALE}; NRTR + TPS++ from its config): '
+        f'{whole * 1e3:.1f} '
+        f'ms/page; {n_boxes / len(pages):.1f} boxes a page; launches '
+        f'{rec_launches} (the recognizer\'s) [{name}]')
+    stats['readtext'] = dict(ms_page=whole * 1e3, boxes=n_boxes)
+    section('readtext')
+    log(f'maskrcnn phase: {time.perf_counter() - t_phase:.1f} s (by '
+        f'section: {sections}); no hand-written kernel launched by the '
+        f'detector; {json.dumps(stats)}')
+
+
 def main():
     import torch
     t_script = time.perf_counter()
@@ -6021,6 +6687,9 @@ def main():
 
     # ---- DRRG: serving, the GCN, training, readtext; no kernel
     drrg_phase(dev, name)
+
+    # ---- Mask R-CNN: serving, the card against the CPU, training, readtext
+    maskrcnn_phase(dev, name)
     path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])

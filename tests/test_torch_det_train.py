@@ -295,11 +295,22 @@ def test_train_detector_resumes_from_a_pth(tmp_path):
     assert none == []
 
 
-@pytest.mark.parametrize('match', ['OCRMaskRCNN', 'Mask R-CNN'])
-def test_other_detectors_do_not_train(match):
-    with pytest.raises(NotImplementedError, match=match):
-        train_detector(dict(model=dict(DB_CFG, type='OCRMaskRCNN')),
-                       Pages(1), device='cpu')
+@pytest.mark.parametrize('batch_size', [pytest.param(1, id='bs1'),
+                                        pytest.param(3, id='bs3')])
+def test_maskrcnn_trains_one_page_a_step(batch_size):
+    """Mask R-CNN trains one page a step whatever ``batch_size`` says,
+    with finite losses (``tests/test_torch_maskrcnn.py`` holds it against
+    JAX's loop)."""
+    cfg = dict(type='OCRMaskRCNN', backbone=DB_CFG['backbone'],
+               neck=dict(type='FPNDet', in_channels=[8, 16, 32, 64],
+                         out_channels=8),
+               rpn_head=dict(type='RPNHead', feat_channels=8),
+               box_head=dict(fc_out=16), mask_head=dict(channels=8),
+               num_train_rois=8)
+    _, opt, hist = train_detector(dict(model=cfg, total_epochs=1), Pages(3),
+                                  batch_size=batch_size, device='cpu')
+    assert opt.count == 3 and hist[0]['steps'] == 3
+    assert np.isfinite(hist[0]['loss']) and hist[0]['loss_mask'] > 0
 
 
 def test_train_detector_without_a_card_raises(monkeypatch):

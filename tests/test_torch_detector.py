@@ -124,12 +124,21 @@ def test_init_detector_from_a_pth(detectors):
 
 
 def test_other_detector_types_raise():
-    """DBNet, PANet, PSENet, FCENet, TextSnake and DRRG build; Mask R-CNN
-    still raises."""
-    with pytest.raises(NotImplementedError, match='Mask R-CNN'):
-        init_detector(os.path.join(REPO, 'configs/textdet/maskrcnn/'
-                                   'mask_rcnn_r50_fpn_160e_ctw1500.py'),
-                      device='cpu')
+    """Every family of the JAX package builds, Mask R-CNN last (it raised
+    before its port): the CTW1500 config at full width through
+    ``init_detector`` (R50, FPN 256, RPN of 5 anchors, box FCs of 1024,
+    mask convs of 256); a type that is not a detector raises."""
+    det = init_detector(os.path.join(REPO, 'configs/textdet/maskrcnn/'
+                                     'mask_rcnn_r50_fpn_160e_ctw1500.py'),
+                        device='cpu')
+    m = det.model
+    assert det.det_type == 'OCRMaskRCNN' and not m.training
+    assert m.rpn_head.rpn_cls.out_channels == 5
+    assert m.roi_head.bbox_head.shared_fcs[0].in_features == 256 * 49
+    assert m.roi_head.bbox_head.fc_cls.out_features == 2
+    assert m.roi_head.mask_head.upsample.out_channels == 256
+    with pytest.raises(ValueError, match='not a detector type'):
+        init_detector(dict(model=dict(CFG, type='SDMGR')), device='cpu')
 
 
 def test_no_card_and_no_device_raises(monkeypatch):

@@ -264,16 +264,23 @@ def test_test_tool_matches_jax(tiny, tmp_path, capsys):
     assert saved['metrics'] == want and len(saved['results']) == 30
 
 
-def test_test_tool_options_and_other_tasks(tmp_path):
+def test_test_tool_options_and_other_tasks(tmp_path, monkeypatch):
     assert tool.parse_cfg_options(['a.b=1', 'c=bfloat16', 'd=[1, 2]']) == \
         {'a.b': 1, 'c': 'bfloat16', 'd': [1, 2]}
-    # DBNet, PANet, PSENet, FCENet, TextSnake and DRRG evaluate
-    # (tests/test_torch_detector.py, tests/test_torch_panet.py,
-    # tests/test_torch_fce_textsnake.py, tests/test_torch_drrg.py); Mask
-    # R-CNN, KIE and NER raise
-    for model_type, match in (('OCRMaskRCNN', 'Mask R-CNN'),
-                              ('SDMGR', 'KIE')):
+    # every detector evaluates (tests/test_torch_detector.py,
+    # tests/test_torch_panet.py, tests/test_torch_fce_textsnake.py,
+    # tests/test_torch_drrg.py, tests/test_torch_maskrcnn.py): an
+    # OCRMaskRCNN config goes to the det branch; KIE and NER raise
+    calls = []
+    monkeypatch.setattr(tool, 'eval_detector', lambda cfg, args, device: (
+        calls.append(cfg['model']['type']) or ({'hmean': 0.5}, [])))
+    for model_type in ('OCRMaskRCNN', 'SDMGR'):
         cfg_file = tmp_path / f'{model_type}.py'
         cfg_file.write_text(f"model = dict(type='{model_type}')\n")
-        with pytest.raises(NotImplementedError, match=match):
-            tool.main([str(cfg_file)], device='cpu')
+        if model_type == 'SDMGR':
+            with pytest.raises(NotImplementedError, match='KIE'):
+                tool.main([str(cfg_file)], device='cpu')
+        else:
+            assert tool.main([str(cfg_file)], device='cpu') == \
+                {'hmean': 0.5}
+    assert calls == ['OCRMaskRCNN']

@@ -582,8 +582,20 @@ def test_build_detector_module_families():
     assert fce.neck.in_channels == (64, 128, 256)
     ts = build_detector_module(CFGS['textsnake'])
     assert ts.head.out_conv.in_channels == 4
-    with pytest.raises(NotImplementedError, match='Mask R-CNN'):
-        build_detector_module(dict(type='OCRMaskRCNN'))
+    # Mask R-CNN (which raised before its port) on the same FPNDet: its
+    # RPN and RoI heads on the neck's channels, a fifth level from P5
+    mask = build_detector_module(dict(
+        type='OCRMaskRCNN', backbone=CFGS['fce']['backbone'],
+        neck=dict(type='FPNDet', in_channels=[32, 64, 128, 256],
+                  out_channels=8),
+        rpn_head=dict(type='RPNHead', feat_channels=8)))
+    assert mask.rpn_head.rpn_conv.in_channels == 8
+    assert mask.roi_head.bbox_head.shared_fcs[0].in_features == 8 * 49
+    assert mask.roi_head.mask_head.convs[0].conv.in_channels == 8
+    with torch.no_grad():
+        levels, rpn = mask(torch.zeros((1, 64, 64, 3)))
+    assert [t.shape[-1] for t in levels] == [16, 8, 4, 2, 1]
+    assert [r.shape[-1] for _, r in rpn] == [20] * 5
 
 
 def ts_pages(n, seed):

@@ -9,8 +9,8 @@ flax, cv2 nor the JAX package, and launches no kernel (CPU tensors go to
 the kernels' plain versions; nothing is built). So do detection (DBNet on
 ResNetDet and on ResNetDet50 with DCNv2), its evaluation modules and
 ``MMOCR.readtext``, detection training (DBNet, PANet, PSENet) with
-PAN and PSE serving, FCENet's and TextSnake's training and serving, and
-DRRG's."""
+PAN and PSE serving, FCENet's and TextSnake's training and serving,
+DRRG's and Mask R-CNN's."""
 import json
 import os
 import subprocess
@@ -844,3 +844,96 @@ def test_drrg_training_and_serving_with_jax_blocked():
     assert got == {'loaded': [], 'finite': True, 'steps': 2, 'images': 3,
                    'words': 2, 'pages': 2, 'unimportable': [],
                    'launches': [0, 0]}
+
+
+MASKRCNN_SCRIPT = r'''
+import importlib.abc, json, os, sys, tempfile
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    """Refuses jax, flax, cv2 and the JAX package outright."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',
+                                  'tps_pp_tpu'):
+            raise ImportError(f'{name} is blocked')
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from tps_pp_tpu_torch.apis import MMOCR, init_detector
+from tps_pp_tpu_torch.apis.train_det import train_detector
+from tps_pp_tpu_torch.ops import grid_sample, tps_sampler
+
+
+class Pages:
+    def __init__(self, n):
+        g = np.random.default_rng(0)
+        self.items = []
+        for _ in range(n):
+            quads = [np.array([[x, y], [x + 30, y], [x + 30, y + 12],
+                               [x, y + 12]], np.float32)
+                     for x, y in g.uniform(2, 30, (2, 2))]
+            self.items.append(dict(img=g.random((64, 64, 3)).astype(
+                np.float32), gt_polygons=quads, gt_polygons_ignore=[]))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return dict(self.items[i])
+
+
+cfg = dict(type='OCRMaskRCNN',
+           backbone=dict(type='ResNetDet', stage_blocks=[1, 1, 1, 1],
+                         base_channels=8),
+           neck=dict(type='FPNDet', in_channels=[8, 16, 32, 64],
+                     out_channels=16),
+           rpn_head=dict(type='RPNHead', feat_channels=16),
+           box_head=dict(fc_out=64), mask_head=dict(channels=16),
+           num_train_rois=16)
+with tempfile.TemporaryDirectory() as d:
+    _, opt, hist = train_detector(dict(model=cfg, total_epochs=1), Pages(2),
+                                  work_dir=d, device='cpu')
+    saved = sorted(os.listdir(d))
+det = init_detector(dict(model=cfg), img_size=(64, 96), device='cpu')
+imgs = [np.random.default_rng(i).integers(0, 256, (50 + i, 90, 3),
+                                          np.uint8) for i in range(3)]
+found = det.detect_batch(imgs)
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, 'maskrcnn.py')
+    with open(path, 'w') as f:
+        f.write(f'model = {cfg!r}\n')
+    reader = MMOCR(det=path, det_img_size=(64, 96), recog=None,
+                   device='cpu')
+    pages = reader.readtext(imgs[:2])
+print(json.dumps({
+    'loaded': sorted(m for m in ('jax', 'flax', 'cv2', 'tps_pp_tpu')
+                     if m in sys.modules),
+    'finite': bool(np.isfinite(hist[-1]['loss'])), 'steps': opt.count,
+    'saved': saved, 'images': len(found),
+    'boundaries': all(np.isfinite(b).all() and b.size % 2 == 1
+                      for page in found for b in page),
+    'pages': len(pages),
+    'launches': [tps_sampler.tps_sampler.launches,
+                 grid_sample.grid_sample_forward.launches]}))
+'''
+
+
+def test_maskrcnn_training_and_serving_with_jax_blocked():
+    """Mask R-CNN's train_detector (narrow, one page a step, its
+    checkpoint), its batched detection and MMOCR with a Mask R-CNN config
+    path run on the CPU with jax, flax, cv2 and the JAX package refused at
+    import; nothing launches."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', MASKRCNN_SCRIPT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {'loaded': [], 'finite': True, 'steps': 2,
+                   'saved': ['epoch_1.pth'], 'images': 3,
+                   'boundaries': True, 'pages': 2, 'launches': [0, 0]}

@@ -6,7 +6,9 @@ The flagship (tiny and full), and the transformer family's five shipped
 configs on its other trunks (SATRN academic and small, NRTR on the
 modality transform and on ResNet31 1by16 and 1by8) at full width; the two
 DBNet configs (R18-FPNC, R50-DCNv2-FPNC), for which the JAX converter has
-no table, through the port's rules.
+no table, through the port's rules; so are the three shipped Mask R-CNN
+configs, whose box head's first layer the port reads flattened (C, 7, 7)
+where JAX flattens (7, 7, C).
 """
 import os
 
@@ -39,6 +41,8 @@ TRANSFORMER_CONFIGS = {
     'nrtr_r31_1by8': (
         'configs/textrecog/nrtr/nrtr_r31_1by8_1by4_academic.py', 160),
 }
+MASKRCNN_CONFIGS = [f'configs/textdet/maskrcnn/mask_rcnn_r50_fpn_160e_{d}.py'
+                    for d in ('ctw1500', 'icdar2015', 'icdar2017')]
 DBNET_CONFIGS = {
     'r18': 'configs/textdet/dbnet/dbnet_r18_fpnc_1200e_icdar2015.py',
     'r50_dcn': 'configs/textdet/dbnet/dbnet_r50dcnv2_fpnc_1200e_icdar2015.py',
@@ -135,3 +139,57 @@ def test_dbnet_configs_round_trip_through_jax_converter(name):
     for path, leaf in want:
         np.testing.assert_array_equal(np.asarray(got[path]), leaf,
                                       err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize('path', MASKRCNN_CONFIGS)
+def test_maskrcnn_configs_round_trip_through_jax_converter(path):
+    """Random variables in the shapes of the JAX ``MaskRCNNDetector``'s
+    ``{'main', 'box', 'mask'}`` at full width: ``state_dict_from_jax``
+    loads strictly into the port's model; the JAX converter, given the
+    port's rules, the transposed convolution handed over as the plain one
+    that computes the same and ``shared_fcs.0`` with its columns put back
+    in JAX's (7, 7, C) order (a plain ``'linear'``), gives the merged
+    variables back bit for bit."""
+    from tps_pp_tpu.apis.train_det import _build
+    from tps_pp_tpu.models.textdet import maskrcnn as jm
+    from tps_pp_tpu.registry import BACKBONES, NECKS
+    cfg = dict(load_config(os.path.join(REPO, path))['model'])
+    rpn = dict(cfg['rpn_head'])
+    rpn.pop('type')
+    module = jm.MaskRCNNModule(
+        backbone=_build(BACKBONES, cfg['backbone']),
+        neck=_build(NECKS, cfg['neck']), rpn_head=jm.RPNHead(**rpn),
+        box_head=jm.BoxHead(), mask_head=jm.MaskHead())
+    shapes = jax.eval_shape(lambda: jm.MaskRCNNDetector(
+        module).init_variables(jax.random.PRNGKey(0), (1, 64, 64, 3)))
+    rng = np.random.default_rng(0)
+    v = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(s.dtype),
+                     shapes)
+    sd = convert.state_dict_from_jax(v, cfg)
+    build_detector_module(cfg).load_state_dict(sd, strict=True)
+    sd_np = {k: t.numpy() for k, t in sd.items()}
+    rules = []
+    for tp, fp, kind in convert.rules_for_config(cfg):
+        w = sd_np.get(f'{tp}.weight')
+        if kind == 'conv_transpose':
+            sd_np[f'{tp}.weight'] = np.ascontiguousarray(
+                w.transpose(1, 0, 2, 3)[:, :, ::-1, ::-1])
+            kind = 'conv'
+        elif kind == 'linear_hwc7':
+            out = w.shape[0]
+            sd_np[f'{tp}.weight'] = np.ascontiguousarray(
+                w.reshape(out, -1, 49).transpose(0, 2, 1).reshape(out, -1))
+            kind = 'linear'
+        rules.append((tp, fp, kind))
+    main = v['main']
+    merged_v = dict(main, params=dict(main['params'], box=v['box']['params'],
+                                      mask=v['mask']['params']))
+    rules = jtc.filter_rules_to_state(rules, sd_np)
+    merged = jtc.merge_flat(jax.tree.map(np.zeros_like, merged_v),
+                            jtc.convert_state_dict(sd_np, rules))
+    want = jax.tree_util.tree_flatten_with_path(merged_v)[0]
+    got = dict(jax.tree_util.tree_flatten_with_path(merged)[0])
+    assert len(got) == len(want)
+    for p, leaf in want:
+        np.testing.assert_array_equal(np.asarray(got[p]), leaf,
+                                      err_msg=jax.tree_util.keystr(p))

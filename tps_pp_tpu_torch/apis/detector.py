@@ -2,27 +2,33 @@
 inference (counterpart of ``tps_pp_tpu/apis/detector.py:25-223`` and of
 ``build_detector_module`` in ``tps_pp_tpu/apis/train_det.py:37-56``).
 
-The port has six families: DBNet (``configs/textdet/dbnet/``: R18-FPNC,
-R50-DCNv2-FPNC), PANet (``configs/textdet/panet/``: R18 and R50 on
-FPEM_FFM), PSENet (``configs/textdet/psenet/``: R50 on FPNF), FCENet
+The port has the JAX package's seven families: DBNet
+(``configs/textdet/dbnet/``: R18-FPNC, R50-DCNv2-FPNC), PANet
+(``configs/textdet/panet/``: R18 and R50 on FPEM_FFM), PSENet
+(``configs/textdet/psenet/``: R50 on FPNF), FCENet
 (``configs/textdet/fcenet/``: R50 and R50-DCNv2 on FPNDet), TextSnake
-(``configs/textdet/textsnake/``: R50 on FPN_UNet) and DRRG
-(``configs/textdet/drrg/``: R50 on FPN_UNet, ``DRRGHead`` with its GCN).
-``TextDetector`` holds its model, in float32 and eval mode, on the card
-unless given ``device='cpu'``, and its postprocessor (the config's, or the
-family's). ``detect_batch`` resizes each image to the fixed input size on
-the host (``cv_ops.resize_u8``, within one grey level of ``cv2.resize``),
-runs one forward over the batch padded to the next power of two (the last
-row repeated, ``utils/batching.py``), copies the maps to the host (DBNet's
-probability channel; PAN's and PSE's logits, at 1/4 of the input size;
-each FCENet level's (cls, reg) pair, which its postprocessor scales by the
-level's stride; TextSnake's five maps at the input size; DRRG's features
-and six maps, concatenated on the card, at the input size), postprocesses
-each image there (DRRG: the test graphs on the host, the GCN on the
-card, the clustering on the host, ``drrg.DRRGDetector``) and scales its
-boundaries ``[x1, y1, ..., score]`` back to the image's size, through the
-head's 1/4 for PAN and PSE (``HEAD_SCALE``, JAX's ``_DOWNSAMPLE``). Mask
-R-CNN raises ``NotImplementedError``.
+(``configs/textdet/textsnake/``: R50 on FPN_UNet), DRRG
+(``configs/textdet/drrg/``: R50 on FPN_UNet, ``DRRGHead`` with its GCN)
+and OCRMaskRCNN (``configs/textdet/maskrcnn/``: R50 on FPNDet, the RPN and
+the box and mask heads). ``TextDetector`` holds its model, in float32 and
+eval mode, on the card unless given ``device='cpu'``, and its
+postprocessor (the config's, or the family's). ``detect_batch`` resizes
+each image to the fixed input size on the host (``cv_ops.resize_u8``,
+within one grey level of ``cv2.resize``), runs one forward over the batch
+padded to the next power of two (the last row repeated,
+``utils/batching.py``), copies the maps to the host (DBNet's probability
+channel; PAN's and PSE's logits, at 1/4 of the input size; each FCENet
+level's (cls, reg) pair, which its postprocessor scales by the level's
+stride; TextSnake's five maps at the input size; DRRG's features and six
+maps, concatenated on the card, at the input size; Mask R-CNN's RPN maps
+only, its FPN levels staying on the card), postprocesses each image there
+(DRRG: the test graphs on the host, the GCN on the card, the clustering on
+the host, ``drrg.DRRGDetector``; Mask R-CNN: the proposals and NMS on the
+host, the RoI pooling and both heads on the card over the batch's RoIs at
+once, the masks pasted on the host, ``maskrcnn.MaskRCNNDetector``) and
+scales its boundaries ``[x1, y1, ..., score]`` back to the image's size,
+through the head's 1/4 for PAN and PSE (``HEAD_SCALE``, JAX's
+``_DOWNSAMPLE``).
 """
 from __future__ import annotations
 
@@ -51,21 +57,37 @@ POSTPROCESSORS = {'DBNet': textdet.DBPostprocessor,
                   'DRRG': textdet.DRRGPostprocessor}
 # DRRG's maps, as DBNet's, FCENet's and TextSnake's, at the input's scale
 HEAD_SCALE = {'PANet': 0.25, 'PSENet': 0.25}
+# the detector types of the JAX package (its apis/train_det.py:23)
+DET_TYPES = ('DBNet', 'PANet', 'PSENet', 'FCENet', 'TextSnake',
+             'OCRMaskRCNN', 'DRRG')
 
 
 def build_detector_module(model_cfg: Dict) -> nn.Module:
     """backbone -> neck -> head of a DBNet, PANet, PSENet, FCENet,
-    TextSnake or DRRG config (a PAN / PSE / TextSnake / DRRG head's
-    ``in_channels`` defaults to its neck's output; DRRG's head is
-    ``DRRGHead`` where the config names none, as JAX builds it); any other
-    detector type raises ``NotImplementedError``."""
+    TextSnake, DRRG or OCRMaskRCNN config (a PAN / PSE / TextSnake / DRRG
+    head's ``in_channels`` defaults to its neck's output; DRRG's head is
+    ``DRRGHead`` where the config names none, as JAX builds it; Mask
+    R-CNN's ``rpn_head``, ``box_head`` and ``mask_head`` read their keys,
+    ``fc_out`` 1024 and ``channels`` 256 where the config leaves them out,
+    on the neck's channels); any other type raises a ``ValueError``."""
     det_type = model_cfg.get('type', 'DBNet')
-    if det_type not in POSTPROCESSORS:
-        raise NotImplementedError(
-            f'detector type {det_type!r} is not ported yet (ROADMAP.md '
-            'queue 1: Mask R-CNN)')
+    if det_type not in DET_TYPES:
+        raise ValueError(f'{det_type!r} is not a detector type '
+                         f'({", ".join(DET_TYPES)})')
     backbone = BACKBONES.build(model_cfg['backbone'])
     neck = NECKS.build(model_cfg['neck'])
+    if det_type == 'OCRMaskRCNN':
+        c = neck.out_channels
+
+        def part(key, cls):
+            cfg = dict(model_cfg.get(key) or {})
+            cfg.pop('type', None)
+            return cls(**{'in_channels': c, **cfg})
+        rpn = HEADS.build(model_cfg.get('rpn_head') or dict(type='RPNHead'),
+                          in_channels=c)
+        return textdet.MaskRCNNModule(backbone, neck, rpn, textdet.RoIHead(
+            part('box_head', textdet.BoxHead),
+            part('mask_head', textdet.MaskHead)))
     if det_type in ('DBNet', 'FCENet'):
         module = (textdet.DBNetModule if det_type == 'DBNet'
                   else textdet.FCENetModule)
@@ -144,6 +166,12 @@ class TextDetector:
                     '.pt) only')
             self.model.load_state_dict(load_pth(checkpoint), strict=True)
         self.model.to(self.device).eval()
+        self.downsample = HEAD_SCALE.get(self.det_type, 1.0)
+        if self.det_type == 'OCRMaskRCNN':
+            self.postprocessor = textdet.MaskRCNNDetector(
+                self.model,
+                text_repr_type=model_cfg.get('text_repr_type', 'quad'))
+            return
         pp_cfg = dict(model_cfg.get('postprocessor') or {})
         pp_type = pp_cfg.pop('type',
                              POSTPROCESSORS[self.det_type].__name__)
@@ -151,7 +179,6 @@ class TextDetector:
         if self.det_type == 'DRRG':
             self.postprocessor = textdet.DRRGDetector(self.model.head.gcn,
                                                       self.postprocessor)
-        self.downsample = HEAD_SCALE.get(self.det_type, 1.0)
 
     def prep(self, img: np.ndarray) -> Tuple[np.ndarray, float, float]:
         """An image -> (the input (H, W, C) float32 in [0, 1], the x and y
@@ -175,7 +202,9 @@ class TextDetector:
         H, W, 3) [prob, thr, binary], PAN's and PSE's (N, H / 4, W / 4, C)
         raw logits, TextSnake's (N, H, W, 5), FCENet's (cls (N, h, w, 4),
         reg (N, h, w, 22)) pair a level (strides 8, 16, 32), DRRG's
-        (features (N, H, W, C), maps (N, H, W, 6))."""
+        (features (N, H, W, C), maps (N, H, W, 6)), Mask R-CNN's (the five
+        NCHW levels, the RPN's (cls (N, h, w, A), reg (N, h, w, 4A)) pair
+        a level)."""
         x = torch.as_tensor(batch, dtype=torch.float32).to(self.device)
         n = x.shape[0]
         (x,) = pad_rows((x,), n, next_pow2(n))
@@ -184,16 +213,24 @@ class TextDetector:
             return tuple((c[:n], r[:n]) for c, r in out)
         if self.det_type == 'DRRG':
             return tuple(t[:n] for t in out)
+        if self.det_type == 'OCRMaskRCNN':
+            levels, rpn = out
+            return (tuple(t[:n] for t in levels),
+                    tuple((c[:n], r[:n]) for c, r in rpn))
         return out[:n]
 
     def postprocess(self, maps, scales: Sequence[Tuple[float, float]]
                     ) -> List[List[np.ndarray]]:
         """The postprocessor's maps on the host (``host_maps``) -> each
         image's boundaries, scaled by its (sx, sy)."""
+        if self.det_type == 'OCRMaskRCNN':
+            results = self.postprocessor(*maps, self.img_size)
+        else:
+            results = [self.postprocessor(m) for m in maps]
         out = []
-        for m, (sx, sy) in zip(maps, scales):
+        for boundaries, (sx, sy) in zip(results, scales):
             scaled = []
-            for b in self.postprocessor(m):
+            for b in boundaries:
                 b = np.asarray(b, np.float32).copy()
                 b[:-1:2] *= sx
                 b[1:-1:2] *= sy
@@ -206,7 +243,12 @@ class TextDetector:
         to the host, one entry an image: DBNet's probability channel, PAN's,
         PSE's and TextSnake's whole maps (an array), FCENet's list of
         (cls, reg) a level (JAX's ``_post_single``), DRRG's features and
-        maps concatenated (N, H, W, C + 6), the features first."""
+        maps concatenated (N, H, W, C + 6), the features first; for Mask
+        R-CNN (the levels, left on the card, and each image's list of
+        RPN (cls, reg) maps a level on the host)."""
+        if self.det_type == 'OCRMaskRCNN':
+            levels, rpn = maps
+            return levels, textdet.MaskRCNNDetector.host_rpn(rpn)
         if self.det_type == 'FCENet':
             levels = [(c.cpu().numpy(), r.cpu().numpy()) for c, r in maps]
             return [[(c[b], r[b]) for c, r in levels]

@@ -16,9 +16,10 @@ one forward and backward in train mode (BatchNorm with flax's statistics,
 momentum 0.9, weight decay 1e-4, poly 0.9 to 1e-7; its ``by_epoch`` is
 not read, so the lr decays a step at a time, as in JAX; a ``grad_clip``
 where set). Each epoch writes ``epoch_{n}.pth`` (``utils/checkpoint.py``;
-JAX writes ``.npz``); ``resume_from`` restores weights, optimizer state
-and step and replays the permutations of the epochs it skips, so that a
-resumed run takes the batches and lrs of the uninterrupted one.
+JAX writes ``.npz``) with the permutations' ``Generator`` state;
+``resume_from`` restores weights, optimizer state, step and that
+``Generator`` and goes on at the checkpoint's epoch, so that a resumed run
+takes the batches and lrs of the uninterrupted one.
 
 The PAN loss supervises the embeddings of at most ``max_instances`` (24)
 instances an image, as JAX does; the first image with more logs a
@@ -35,11 +36,28 @@ local graphs padded as JAX pads them (nodes to ``1 + k0 (1 + k1)``,
 graphs to the next power of two, at least 8; the padded rows enter the
 GCN's batch statistics), and the train-mode step on the map losses plus
 ``loss_gcn``. Its checkpoints also hold the targets' generator state, so
-that a resumed epoch draws what the whole run drew. OCRMaskRCNN raises
-``NotImplementedError`` (ROADMAP.md queue 1: Mask R-CNN).
+that a resumed epoch draws what the whole run drew.
+
+OCRMaskRCNN keeps JAX's ``_train_maskrcnn`` loop: one page a step whatever
+``batch_size`` says, the pages in the order of a
+``numpy.random.default_rng(seed)`` permutation an epoch, drawn from the
+same ``Generator`` as the RoI samples, as JAX draws them. A page's gt
+polygons become boxes and masks (``maskrcnn.poly_boxes_masks``), an
+eval-mode forward without gradients gives its RPN maps (the only tensors
+copied to the host), the host makes the anchor targets, the proposals, the
+RoI sample and the mask targets (``MaskRCNNDetector.train_targets``; a
+page with no candidate is skipped and takes no step; ``MaskRCNNBatches``),
+then the train-mode step on the five losses (RPN objectness and deltas,
+RoI class, deltas and mask). The optimizer's epoch is the dataset's length
+in steps, as JAX's. Its epochs run with cuDNN's deterministic algorithms
+(the settings before are restored after): a step's RoI sample follows the
+proposals of the weights before it, so with cuDNN's default algorithms
+(weight gradients summed in another order each run) a resumed run would
+part from the whole one.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from typing import Dict, List, Optional, Tuple
@@ -57,10 +75,6 @@ from .detector import (HEAD_SCALE, build_detector_module,
 
 logger = logging.getLogger('tps_pp_tpu_torch')
 
-# the detector types of the JAX package (its train_det.py:23)
-DET_TYPES = ('DBNet', 'PANet', 'PSENet', 'FCENet', 'TextSnake',
-             'OCRMaskRCNN', 'DRRG')
-
 # the target keys each family's loss reads
 _TARGET_KEYS = {
     'DBNet': ('gt_shrink', 'gt_shrink_mask', 'gt_thr', 'gt_thr_mask'),
@@ -73,8 +87,9 @@ _TARGET_KEYS = {
              'gt_mask', 'gt_top_height_map', 'gt_bot_height_map',
              'gt_sin_map', 'gt_cos_map'),
 }
-# targets that stay on the host (DRRG's components build its graphs there)
-_HOST_KEYS = ('gt_comp_attribs',)
+# targets that stay on the host (DRRG's components build its graphs there;
+# Mask R-CNN's RoI levels pick the level each RoI is pooled from)
+_HOST_KEYS = ('gt_comp_attribs', 'lvl')
 
 
 def build_det_targets(model_cfg: Dict):
@@ -145,6 +160,17 @@ class DetBatches:
         self.seconds += time.perf_counter() - t0
         return out
 
+    def state(self) -> Dict:
+        """What a checkpoint keeps of the batches: DRRG's targets'
+        ``RandomState``."""
+        if self.det_type != 'DRRG':
+            return {}
+        return {'targets_rng': _rng_state(self.targets.rng)}
+
+    def load_state(self, meta: Dict) -> None:
+        if self.det_type == 'DRRG':
+            _set_rng_state(self.targets.rng, meta['targets_rng'])
+
 
 def make_det_train_step(model: torch.nn.Module, loss_fn,
                         optimizer: OptimizerChain):
@@ -157,14 +183,20 @@ def make_det_train_step(model: torch.nn.Module, loss_fn,
     def step(img: torch.Tensor, targets: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
-        losses = loss_fn(model(img), targets)
-        total = sum(losses.values())
-        total.backward()
-        return {'loss': total.detach(),
-                **{k: v.detach() for k, v in losses.items()},
-                'grad_norm': optimizer.step()}
+        return _backward_and_step(loss_fn(model(img), targets), optimizer)
 
     return step
+
+
+def _backward_and_step(losses: Dict[str, torch.Tensor],
+                       optimizer: OptimizerChain) -> Dict[str, torch.Tensor]:
+    """The backward of the losses' sum and one optimizer step: the step's
+    metrics."""
+    total = sum(losses.values())
+    total.backward()
+    return {'loss': total.detach(),
+            **{k: v.detach() for k, v in losses.items()},
+            'grad_norm': optimizer.step()}
 
 
 def make_drrg_train_step(model: torch.nn.Module, loss_fn,
@@ -194,13 +226,9 @@ def make_drrg_train_step(model: torch.nn.Module, loss_fn,
         gcn_pred = model.head.gcn(torch.from_numpy(feats).to(dev),
                                   torch.from_numpy(adjs).to(dev),
                                   torch.from_numpy(knns).to(dev))
-        losses = loss_fn(maps, targets, gcn_pred,
-                         torch.from_numpy(links).to(dev))
-        total = sum(losses.values())
-        total.backward()
-        return {'loss': total.detach(),
-                **{k: v.detach() for k, v in losses.items()},
-                'grad_norm': optimizer.step()}
+        return _backward_and_step(
+            loss_fn(maps, targets, gcn_pred,
+                    torch.from_numpy(links).to(dev)), optimizer)
 
     return step
 
@@ -218,6 +246,70 @@ def _set_rng_state(rng: np.random.RandomState, state: Dict) -> None:
                    state['pos'], state['has_gauss'], state['gauss']))
 
 
+def make_maskrcnn_train_step(det, optimizer: OptimizerChain):
+    """Mask R-CNN's ``step(img, batch) -> metrics`` on one page:
+    ``det.train_losses`` in the model's mode, the backward and one
+    optimizer step; the metrics of ``make_det_train_step``."""
+
+    def step(img: torch.Tensor, batch: Dict) -> Dict[str, torch.Tensor]:
+        optimizer.zero_grad()
+        return _backward_and_step(det.train_losses(img, batch), optimizer)
+
+    return step
+
+
+class MaskRCNNBatches:
+    """A one-page index list -> (the page (1, H, W, 3) on ``device``,
+    ``MaskRCNNDetector.train_targets``' arrays), or None where the page has
+    no candidate RoI: its gt polygons as boxes and masks
+    (``maskrcnn.poly_boxes_masks``), the RPN maps of an eval-mode forward
+    (``eval_rpn``), then the host's targets, the RoIs drawn from ``rng``
+    (the ``Generator`` that permutes the pages, as in JAX); ``seconds``
+    counts the host's targets, not the forward."""
+
+    def __init__(self, det, dataset, device, dtype, rng):
+        self.det, self.dataset, self.rng = det, dataset, rng
+        self.device, self.dtype = device, dtype
+        self.seconds = 0.0
+
+    def __call__(self, indices):
+        (i,) = indices
+        item = self.dataset[int(i)]
+        img = torch.from_numpy(np.asarray(item['img'], np.float32)[None]
+                               ).to(self.device, self.dtype)
+        hw = tuple(img.shape[1:3])
+        t0 = time.perf_counter()
+        gt_boxes, gt_masks = textdet.maskrcnn.poly_boxes_masks(
+            item.get('gt_polygons', []), *hw)
+        self.seconds += time.perf_counter() - t0
+        rpn_np = self.det.eval_rpn(img)
+        t0 = time.perf_counter()
+        batch = self.det.train_targets(rpn_np, hw, gt_boxes, gt_masks,
+                                       self.rng)
+        self.seconds += time.perf_counter() - t0
+        return None if batch is None else (img, batch)
+
+    def state(self) -> Dict:
+        return {}
+
+    def load_state(self, meta: Dict) -> None:
+        pass
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn(on: bool):
+    """cuDNN's deterministic algorithms while the block runs, where ``on``
+    (the settings before restored after)."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    if on:
+        cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def train_detector(cfg: Dict, train_ds, work_dir: Optional[str] = None,
                    total_epochs: Optional[int] = None, batch_size: int = 4,
                    log_interval: int = 10, seed: int = 0, device=None,
@@ -233,17 +325,14 @@ def train_detector(cfg: Dict, train_ds, work_dir: Optional[str] = None,
     its last step (``loss``, the total JAX's history holds, the named
     losses and ``grad_norm``), the ``lr`` it stepped with, ``steps``,
     ``seconds`` and ``batch_seconds``, the host's share of making
-    batches). DRRG trains one page a step (the module docstring)."""
+    batches; Mask R-CNN's: the host's targets, not its eval-mode
+    forwards; a Mask R-CNN epoch without a step has a NaN ``loss``).
+    DRRG and Mask R-CNN train one page a step (the module docstring)."""
     model_cfg = cfg['model']
     det_type = model_cfg.get('type', 'DBNet')
-    if det_type == 'OCRMaskRCNN':
-        raise NotImplementedError(
-            f'{det_type} training is not ported yet (ROADMAP.md queue 1: '
-            'Mask R-CNN)')
-    drrg = det_type == 'DRRG'
-    if drrg and batch_size != 1:
-        logger.info('DRRG trains one page a step, as the JAX loop does; '
-                    'batch_size %d is not read', batch_size)
+    if det_type in ('DRRG', 'OCRMaskRCNN') and batch_size != 1:
+        logger.info('%s trains one page a step, as the JAX loop does; '
+                    'batch_size %d is not read', det_type, batch_size)
         batch_size = 1
     if device is None:
         if not torch.cuda.is_available():
@@ -255,64 +344,77 @@ def train_detector(cfg: Dict, train_ds, work_dir: Optional[str] = None,
         model = init_detector_weights(build_detector_module(model_cfg),
                                       seed)
     model = model.to(device)
-    loss_cfg = dict(model_cfg.get('loss') or {'type': f'{det_type}Loss'})
-    loss_fn = LOSSES.build(loss_cfg)
-    batches = DetBatches(model_cfg, train_ds, loss_fn)
-    if drrg:
-        batches.targets.rng = np.random.RandomState(seed)
     epochs = int(total_epochs or cfg.get('total_epochs') or 1)
     n = len(train_ds)
     if not n:
         raise ValueError('train_detector: the dataset is empty')
-    steps = -(-n // batch_size)
     optimizer, schedule = _make_optimizer(
         cfg, model.named_parameters(), max(1, n // batch_size), epochs)
+    rng = np.random.default_rng(seed)
+    dtype = next(model.parameters()).dtype   # float32, or a float64 model's
+    maskrcnn = det_type == 'OCRMaskRCNN'
+    if maskrcnn:
+        det = textdet.MaskRCNNDetector(
+            model, num_train_rois=model_cfg.get('num_train_rois', 64),
+            text_repr_type=model_cfg.get('text_repr_type', 'quad'))
+        batches = MaskRCNNBatches(det, train_ds, device, dtype, rng)
+        step = make_maskrcnn_train_step(det, optimizer)
+    else:
+        loss_cfg = dict(model_cfg.get('loss') or {'type': f'{det_type}Loss'})
+        loss_fn = LOSSES.build(loss_cfg)
+        batches = DetBatches(model_cfg, train_ds, loss_fn)
+        if det_type == 'DRRG':
+            batches.targets.rng = np.random.RandomState(seed)
+        step = (make_drrg_train_step if det_type == 'DRRG'
+                else make_det_train_step)(model, loss_fn, optimizer)
     if load_from:
         checkpoint.load_weights(model, load_from)
+    start = 0
     if resume_from:
         meta = checkpoint.restore(model, optimizer, resume_from)
-        if drrg:
-            _set_rng_state(batches.targets.rng, meta['targets_rng'])
+        rng.bit_generator.state = meta['rng']
+        batches.load_state(meta)
+        start = min(int(meta['epoch']), epochs)
         logger.info('resumed from %s: epoch %s, step %d', resume_from,
-                    meta.get('epoch'), optimizer.count)
+                    meta['epoch'], optimizer.count)
     ckpt = checkpoint.CheckpointManager(work_dir) if work_dir else None
-    rng = np.random.default_rng(seed)
-    start = min(optimizer.count // steps, epochs)
-    for _ in range(start):          # the permutations of the epochs done
-        rng.permutation(n)
     model.train()
-    dtype = next(model.parameters()).dtype   # float32, or a float64 model's
-    step = (make_drrg_train_step if drrg else make_det_train_step)(
-        model, loss_fn, optimizer)
     history: List[Dict] = []
-    for epoch in range(start, epochs):
-        order = rng.permutation(n)
-        t0 = time.perf_counter()
-        batches.seconds = 0.0
-        for it in range(0, n, batch_size):
-            img, tgt = batches(order[it:it + batch_size])
-            img = torch.from_numpy(img).to(device, dtype, non_blocking=True)
-            tgt = {k: v if k in _HOST_KEYS else
-                   torch.from_numpy(v).to(device, non_blocking=True)
-                   for k, v in tgt.items()}
-            lr = schedule(optimizer.count)
-            losses = step(img, tgt)
-            total = losses['loss']
-            if (it // batch_size) % log_interval == 0:
-                logger.info('epoch %d iter %d loss %.4f lr %.3e', epoch,
-                            it // batch_size, float(total), lr)
-        if device.type == 'cuda':
-            torch.cuda.synchronize(device)
-        seconds = time.perf_counter() - t0
-        history.append(dict(epoch=epoch, lr=lr, steps=optimizer.count,
-                            seconds=seconds, batch_seconds=batches.seconds,
-                            **{k: float(v) for k, v in losses.items()}))
-        logger.info('epoch %d done in %.2f s (%.2f s making batches) loss '
-                    '%.4f', epoch, seconds, batches.seconds, float(total))
-        if ckpt is not None:
-            meta = dict(seed=seed, config=checkpoint.config_text(cfg))
-            if drrg:
-                meta['targets_rng'] = _rng_state(batches.targets.rng)
-            ckpt.save(epoch + 1, model, optimizer, meta=meta)
+    # Mask R-CNN's epochs repeat themselves on the card (module docstring)
+    with _deterministic_cudnn(maskrcnn):
+        for epoch in range(start, epochs):
+            order = rng.permutation(n)
+            t0 = time.perf_counter()
+            batches.seconds = 0.0
+            losses, lr = {'loss': float('nan')}, schedule(optimizer.count)
+            for it in range(0, n, batch_size):
+                made = batches(order[it:it + batch_size])
+                if made is None:         # a Mask R-CNN page with no RoI
+                    continue
+                img, tgt = made
+                img = torch.as_tensor(img).to(device, dtype,
+                                              non_blocking=True)
+                tgt = {k: v if k in _HOST_KEYS else
+                       torch.as_tensor(v).to(device, non_blocking=True)
+                       for k, v in tgt.items()}
+                lr = schedule(optimizer.count)
+                losses = step(img, tgt)
+                if (it // batch_size) % log_interval == 0:
+                    logger.info('epoch %d iter %d loss %.4f lr %.3e', epoch,
+                                it // batch_size, float(losses['loss']), lr)
+            if device.type == 'cuda':
+                torch.cuda.synchronize(device)
+            seconds = time.perf_counter() - t0
+            history.append(dict(epoch=epoch, lr=lr, steps=optimizer.count,
+                                seconds=seconds,
+                                batch_seconds=batches.seconds,
+                                **{k: float(v) for k, v in losses.items()}))
+            logger.info('epoch %d done in %.2f s (%.2f s making batches) '
+                        'loss %.4f', epoch, seconds, batches.seconds,
+                        history[-1]['loss'])
+            if ckpt is not None:
+                ckpt.save(epoch + 1, model, optimizer, meta=dict(
+                    seed=seed, config=checkpoint.config_text(cfg),
+                    rng=rng.bit_generator.state, **batches.state()))
     model.eval()
     return model, optimizer, history

@@ -11,15 +11,15 @@ serves the flagship in bf16 on the kernels. Prints the metrics as JSON;
 ``--out`` also writes them with every result. One process, one GPU: the
 multi-host sharding of the JAX CLI has no counterpart yet.
 
-A DBNet, PANet, PSENet, FCENet, TextSnake or DRRG config
-(``configs/textdet/{dbnet, panet, psenet, fcenet, textsnake, drrg}/``)
-detects every test image at ``det_img_size`` (640 x 640 unless the config
+A DBNet, PANet, PSENet, FCENet, TextSnake, DRRG or OCRMaskRCNN config
+(``configs/textdet/{dbnet, panet, psenet, fcenet, textsnake, drrg,
+maskrcnn}/``) detects every test image at ``det_img_size`` (640 x 640 unless the config
 sets it) in batches of ``--batch-size`` or the config's ``samples_per_gpu``,
 logs the ms an image, and scores the boundaries with ``--eval``
 (``hmean-iou`` for ``acc``, or ``hmean-ic13``). ``data.test`` is built
 through the port's registry, so a ``UniformConcatDataset`` of
 ``IcdarDataset``s works (the JAX CLI passes it to ``TextDetDataset`` and
-fails). Mask R-CNN, KIE and NER raise ``NotImplementedError``.
+fails). KIE and NER raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ import logging
 import time
 from typing import Dict, List, Optional
 
-from ..apis.train_det import DET_TYPES
+from ..apis.detector import DET_TYPES
 
 # model types of the JAX package's KIE and NER branches
 # (tps_pp_tpu/apis/train_kie.py:28-29)

@@ -16,14 +16,16 @@ On several GPUs of one host, one process each (recognizers):
 The datasets of the config load their images from files, which needs cv2
 (``LoadImageFromFile``).
 
-A DBNet, PANet, PSENet, FCENet, TextSnake or DRRG config trains through
-``train_detector`` on one GPU, ``data.train`` built through the port's
-registry (a ``UniformConcatDataset`` of ``IcdarDataset``s, which the JAX
-CLI passes to ``TextDetDataset`` and fails on), in batches of
+A DBNet, PANet, PSENet, FCENet, TextSnake, DRRG or OCRMaskRCNN config
+trains through ``train_detector`` on one GPU, ``data.train`` built
+through the port's registry (a ``UniformConcatDataset`` of
+``IcdarDataset``s, which the JAX CLI passes to ``TextDetDataset`` and
+fails on), in batches of
 ``samples_per_gpu`` (the JAX CLI leaves ``train_detector``'s default of
-4; DRRG one page a step, as JAX's loop), for ``total_epochs``, with no
-augmentation (JAX's loop runs no ``train_pipeline``). Mask R-CNN, KIE and
-NER raise ``NotImplementedError`` (``ROADMAP.md`` queue 1).
+4; DRRG and Mask R-CNN one page a step, as JAX's loops), for
+``total_epochs``, with no augmentation (JAX's loop runs no
+``train_pipeline``). KIE and NER raise ``NotImplementedError``
+(``ROADMAP.md`` queue 1).
 """
 from __future__ import annotations
 

@@ -645,20 +645,46 @@ def drrg_rules(cfg: Mapping) -> List[Rule]:
                     ('head.gcn.classifier.2', 'gcn/cls_fc2', 'linear')]
 
 
+def maskrcnn_rules(cfg: Mapping) -> List[Rule]:
+    """The rule table of an OCRMaskRCNN config with mmdet's names: its
+    trunk, FPNDet, ``rpn_head.rpn_conv`` / ``rpn_cls`` / ``rpn_reg``,
+    ``roi_head.bbox_head.shared_fcs.{0,1}`` / ``fc_cls`` / ``fc_reg``
+    (``shared_fcs.0``'s rows permuted from JAX's (7, 7, C) flattening to
+    mmdet's (C, 7, 7), kind ``'linear_hwc7'``) and
+    ``roi_head.mask_head.convs.{0..3}.conv`` / ``upsample`` /
+    ``conv_logits``; unchecked as ``fcenet_rules``. The flax paths are
+    those of ``state_dict_from_jax``'s merged tree: the JAX detector's
+    ``main`` variables with its ``box`` and ``mask`` parameters under
+    ``box`` and ``mask``."""
+    n = len(cfg['neck'].get('in_channels', (256, 512, 1024, 2048)))
+    rules = _det_trunk_rules(cfg) + fpn_det_rules(n) + [
+        (f'rpn_head.{m}', f'rpn_head/{m}', 'conv')
+        for m in ('rpn_conv', 'rpn_cls', 'rpn_reg')]
+    box, mask = 'roi_head.bbox_head', 'roi_head.mask_head'
+    rules += [(f'{box}.shared_fcs.0', 'box/fc1', 'linear_hwc7'),
+              (f'{box}.shared_fcs.1', 'box/fc2', 'linear'),
+              (f'{box}.fc_cls', 'box/cls', 'linear'),
+              (f'{box}.fc_reg', 'box/reg', 'linear')]
+    rules += [(f'{mask}.convs.{i}.conv', f'mask/conv{i}', 'conv')
+              for i in range(4)]
+    return rules + [(f'{mask}.upsample', 'mask/up', 'conv_transpose'),
+                    (f'{mask}.conv_logits', 'mask/logits', 'conv')]
+
+
 def rules_for_config(cfg: Mapping) -> List[Rule]:
     """The rule table of an NRTR, SATRN, ABINet (+ TPS_PP), CRNN, SAR
     (parallel, sequential, beam search), RobustScanner or SegRecognizer
     config, with its image-space preprocessor (TPS-STN, MORAN, SPIN),
     dispatched on its preprocessor, backbone, encoder and decoder types as
     JAX's ``rules_for_config`` (``torch_convert.py:604-684``), or of a
-    DBNet, PANet, PSENet, FCENet, TextSnake or DRRG detector
+    DBNet, PANet, PSENet, FCENet, TextSnake, DRRG or OCRMaskRCNN detector
     (``dbnet_rules``, ``panet_rules``, ``psenet_rules``, ``fcenet_rules``,
-    ``textsnake_rules``, ``drrg_rules``); a type without rules raises a
-    ``ValueError``."""
+    ``textsnake_rules``, ``drrg_rules``, ``maskrcnn_rules``); a type
+    without rules raises a ``ValueError``."""
     det = {'DBNet': dbnet_rules, 'PANet': panet_rules,
            'PSENet': psenet_rules, 'FCENet': fcenet_rules,
-           'TextSnake': textsnake_rules,
-           'DRRG': drrg_rules}.get(cfg.get('type'))
+           'TextSnake': textsnake_rules, 'DRRG': drrg_rules,
+           'OCRMaskRCNN': maskrcnn_rules}.get(cfg.get('type'))
     if det is not None:
         return det(cfg)
     if cfg.get('type') == 'SegRecognizer':    # no preprocessor, as JAX
@@ -741,6 +767,13 @@ def _torch_entries(kind: str, get) -> Dict[str, np.ndarray]:
         out = {'weight': get('params', 'kernel').T[:, :, None, None]}
     elif kind in ('linear', 'linear_nobias'):
         out = {'weight': get('params', 'kernel').T}
+    elif kind == 'linear_hwc7':
+        # a Dense over a flattened (7, 7, C) RoI in JAX; the port flattens
+        # the NCHW RoI (C, 7, 7), so the kernel's rows are permuted
+        k = get('params', 'kernel')
+        k = k.reshape(49, -1, k.shape[-1]).transpose(1, 0, 2)
+        out = {'weight': np.ascontiguousarray(k.reshape(-1, k.shape[-1]).T),
+               'bias': get('params', 'bias')}
     elif kind == 'conv_transpose':
         # flax's ConvTranspose (transpose_kernel=False) correlates the
         # dilated input with its (kh, kw, in, out) kernel; torch's
@@ -817,14 +850,21 @@ def state_dict_from_jax(variables: Mapping, cfg: Mapping
     """JAX recognizer or detector variables -> a ``state_dict`` that the
     model of ``build_recognizer(cfg)`` (NRTR, SATRN, ABINet, CRNN, SAR,
     RobustScanner or SegRecognizer) or ``build_detector_module(cfg)``
-    (DBNet, PANet, PSENet, FCENet, TextSnake, DRRG) takes with
-    ``load_state_dict(strict=True)``; DRRG's are the JAX ``TextDetector``'s
-    ``{'net': ..., 'gcn': ...}``. The sinusoid tables, buffers as in the
-    reference, are made from the config."""
+    (DBNet, PANet, PSENet, FCENet, TextSnake, DRRG, OCRMaskRCNN) takes
+    with ``load_state_dict(strict=True)``; DRRG's are the JAX
+    ``TextDetector``'s ``{'net': ..., 'gcn': ...}``, Mask R-CNN's the JAX
+    ``MaskRCNNDetector.init_variables``' ``{'main', 'box', 'mask'}``. The
+    sinusoid tables, buffers as in the reference, are made from the
+    config."""
     if cfg.get('type') == 'DRRG':
         net = variables['net']
         variables = dict(net, params=dict(net['params'],
                                           gcn=variables['gcn']['params']))
+    elif cfg.get('type') == 'OCRMaskRCNN':
+        main = variables['main']
+        variables = dict(main, params=dict(main['params'],
+                                           box=variables['box']['params'],
+                                           mask=variables['mask']['params']))
     sd = convert_rules(variables, rules_for_config(cfg))
     if cfg.get('type') == 'ABINet':
         sd.update(_abinet_position_tables(cfg))
