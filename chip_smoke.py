@@ -281,7 +281,8 @@ seed):
   map's polygons or boundaries where the decisions are equal); FCENet's
   text classes then lowered by ``FCE_QUIET`` (seed-0
   weights put thousands of pixels above ``score_thr``, and ``poly_nms``
-  would take minutes a page); ``detect_batch`` at B=8 by stage, the
+  would take minutes a page); ``detect_batch`` at B=8 (TextSnake B=4, its
+  host postprocessor a second an image) by stage, the
   postprocessor on the seed-0 maps and on trained-like maps
   (``fce_maps``, ``textsnake_maps``: each config's own targets of the
   ``word_quads`` of a page, with FCENet's polygon IoUs counted and timed),
@@ -354,6 +355,44 @@ seed):
   ``MMOCR.readtext`` with the config path and the flagship recognizer on
   two pages, in the trained-like setting. The detector's path launches no
   kernel.
+
+* KIE and NER, last, which run no hand-written kernel (flax and numpy in
+  JAX): the shipped SDMGR configs (UNet16, no visual modality, openset)
+  and the BERT-softmax NER config at full width, on data the phase writes
+  in a temporary directory from a seed (``kie_ner_data``: receipts of
+  ``KIE_NODES`` boxes with texts of up to ``KIE_CHARS`` characters,
+  sentences of ``NER_LEN`` characters). Float32, TF32 off, seed weights
+  (``init_kie_weights``). The card against the CPU on the same weights:
+  SDMGR's node and edge logits at B=``B_KIE`` for each config, the UNet's
+  map and the pooled visual features (``KIE_F32_RTOL`` of their largest
+  magnitude), the openset pairs decoded
+  from the card's softmaxes equal to the CPU's but where a link lies
+  within ``OPENSET_TIE`` of ``edge_thr``; BERT-base's logits at
+  B=``B_NER_F32`` (``NER_F32_RTOL``), their argmax equal but at a CPU
+  top-2 gap below ``NER_TIE``; one f32 step of SDMGR-UNet16 at B=``B_KIE``
+  and of NER at B=``B_NER_F32`` without dropout (``DET_LOSS_RTOL``,
+  ``DET_GRAD_NORM_RTOL``). SDMGR's whole f32 gradient is ill-conditioned:
+  the fusion's signed square root has a derivative of 1 / (2 sqrt|z|) at
+  near-zero products, so the CPU's own f32 gradient norm lies ~1e-3 from
+  its float64 one. Its f32 step holds instead the gradient norm of each
+  group of leaves downstream of the fusion (``KIE_DOWNSTREAM``,
+  ``DET_GRAD_NORM_RTOL``; their difference over that norm is logged: a
+  ReLU flip in the GNN moves it), and the card's f32 gradient norm
+  no farther from the CPU's float64 one than ``KIE_F32_GRAD_MULT`` times
+  the CPU's own f32 one; a float64 step at B=``B_KIE`` holds the whole
+  gradient norm, card against CPU. ``train_kie``
+  on the UNet16 config (images as arrays), and ``tools/train.py`` on the
+  closed-set and NER configs, ``KIE_NER_EPOCHS`` epochs each;
+  ``tools/test.py`` on their checkpoints,
+  on the card and on the CPU, with equal metrics (the UNet16 checkpoint on
+  black pages: the image files are absent). ``MMOCR(det='DBNet',
+  recog=<the flagship config>, kie='SDMGR').readtext`` on two 640 x 480
+  pages, the DB map stressed so that it keeps boxes, every box with its
+  ``label`` and ``label_score``. No KIE or NER call moves a launch count.
+  It logs SDMGR's forward at B=``B_KIE`` by CUDA events (the LSTM, the GNN,
+  the UNet + pooling), BERT-base's at B=``B_NER``, T=``NER_LEN`` against
+  its bound, each step, the ms an item of each evaluation and a page of
+  ``readtext`` by stage (det / recog / kie).
   The whole script's time is logged before the ``kernels`` line.
 
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
@@ -585,11 +624,11 @@ FCE_TS_CONFIGS = {
         (736, 1080)),
     'textsnake_r50_ctw': (
         'configs/textdet/textsnake/textsnake_r50_fpn_unet_1200e_ctw1500.py',
-        8, (736, 1344))}
+        4, (736, 1344))}
 FCE_TS_F32_RTOL, FCE_QUIET, FCE_READ_PIXELS = 1e-5, 30.0, 8
 FCE_TS_STRESS, FCE_TS_STRESS_SHARES, FCE_TS_MIN_COMPARED = 0.5, (0.3, 0.7), 10
 TS_STRESS_PART, TS_STRESS_RADIUS = 0.1, 8.0
-FCE_WORDS, N_FCE_TRAINED_LIKE, N_TS_TRAINED_LIKE = (1, 1), 1, 8
+FCE_WORDS, N_FCE_TRAINED_LIKE, N_TS_TRAINED_LIKE = (1, 1), 1, 4
 N_FCE_TRAIN_PAGES, FCE_TRAIN_EPOCHS = 16, 2
 # DRRG (config, serving batch, the test pipeline's img_scale (h, w)); the
 # card-vs-CPU bounds of the features and maps and of the GCN's logits,
@@ -625,6 +664,32 @@ B_MASKRCNN, MASKRCNN_HW, MASKRCNN_TEST_SCALE = 8, (640, 640), (1600, 1600)
 MASKRCNN_F32_RTOL, MASKRCNN_TIE, MASKRCNN_TIE_PX = 1e-5, 1e-4, 1e-3
 MASKRCNN_MIN_COMPARED, MASKRCNN_CLS_BIAS, MASKRCNN_MASK_SCALE = 10, 4.0, 8.0
 N_MASKRCNN_TRAIN_PAGES, MASKRCNN_TRAIN_EPOCHS = 4, 2
+# KIE and NER: the shipped configs; the receipts' boxes and characters, a
+# sentence's characters; the batches (the configs' samples_per_gpu, and
+# BERT's card-vs-CPU batch); the card-vs-CPU bounds (of each output's
+# largest magnitude), the distance from edge_thr within which an openset
+# link counts as a tie, BERT's argmax near-tie; training's receipts and
+# sentences (NER's test set half as many more), epochs; the shares of DB's
+# map put above its threshold for readtext, and the boxes a page it keeps
+KIE_NER_CONFIGS = {
+    'unet16': 'configs/kie/sdmgr/sdmgr_unet16_60e_wildreceipt.py',
+    'novisual': 'configs/kie/sdmgr/sdmgr_novisual_60e_wildreceipt.py',
+    'openset': 'configs/kie/sdmgr/sdmgr_novisual_60e_wildreceipt_openset.py',
+    'ner': 'configs/ner/bert_softmax/bert_softmax_cluener_18e.py'}
+KIE_NODES, KIE_CHARS, NER_LEN = 64, 32, 128
+B_KIE, B_NER, B_NER_F32 = 4, 8, 2
+KIE_F32_RTOL, NER_F32_RTOL, OPENSET_TIE, NER_TIE = 1e-5, 1e-4, 1e-4, 1e-4
+N_RECEIPTS, N_SENTENCES, KIE_NER_EPOCHS = 8, 16, 2
+KIE_DB_ABOVE, KIE_MIN_BOXES = (0.05, 0.1, 0.2, 0.3, 0.5), 4
+# SDMGR's f32 step: the leaves downstream of BlockFusion (their gradients
+# do not pass through its signed square root), their grad norms held card
+# against CPU; the card's f32 gradient norm may lie this many times as far
+# from the CPU's float64 one as the CPU's own f32 one does (on an H100 at
+# B=4: 1.02e-3 on its host, 2.75e-3 on the card; one ReLU flip in the GNN
+# makes most of the gap: tools/torch_kie_precision.py --step)
+KIE_DOWNSTREAM = ('head.edge_embed', 'head.gnn_layers', 'head.node_cls',
+                  'head.edge_cls')
+KIE_F32_GRAD_MULT = 3
 
 
 def log(*a):
@@ -6046,6 +6111,538 @@ def maskrcnn_phase(dev, name):
         f'detector; {json.dumps(stats)}')
 
 
+def kie_ner_data(d, g):
+    """Receipts and sentences in the directory ``d`` from the generator
+    ``g``: a 90-character ``dict.txt``; ``closed.jsonl`` and
+    ``openset.jsonl``, ``N_RECEIPTS`` receipts of ``KIE_NODES`` boxes
+    (texts of 1 to ``KIE_CHARS`` characters, a few outside the
+    dictionary; 26 classes, or the openset's 4 with edge ids) on pages of
+    400-1000 px; a 21,128-token ``vocab.txt``; ``ner_train.jsonl`` and
+    ``ner_test.jsonl``, sentences of ``NER_LEN`` characters with entities.
+    Returns {name: path} and the receipts' uint8 BGR pages by file name."""
+    import string
+
+    import numpy as np
+    chars = (string.digits + string.ascii_letters + string.punctuation)[:90]
+    files = {k: os.path.join(d, f) for k, f in (
+        ('dict', 'dict.txt'), ('closed', 'closed.jsonl'),
+        ('openset', 'openset.jsonl'), ('vocab', 'vocab.txt'),
+        ('ner_train', 'ner_train.jsonl'), ('ner_test', 'ner_test.jsonl'))}
+    with open(files['dict'], 'w') as f:
+        f.write('\n'.join(chars) + '\n')
+    pool = list(chars) + ['é', '€']          # two unknown ones
+    images, closed, openset = {}, [], []
+    for i in range(N_RECEIPTS):
+        h, w = (int(v) for v in g.integers(400, 1000, 2))
+        name = f'receipt_{i}.png'
+        images[name] = g.integers(0, 256, (h, w, 3), np.uint8)
+        anns = []
+        for _ in range(KIE_NODES):
+            x, y = g.uniform(0, w - 60), g.uniform(0, h - 20)
+            bw, bh = g.uniform(10, min(200, w - x)), g.uniform(8, 20)
+            text = ''.join(g.choice(pool, int(g.integers(1, KIE_CHARS + 1))))
+            anns.append({'box': [x, y, x + bw, y, x + bw, y + bh, x, y + bh],
+                         'text': text})
+        closed.append({'file_name': name, 'height': h, 'width': w,
+                       'annotations': [dict(a, label=int(g.integers(0, 26)))
+                                       for a in anns]})
+        openset.append({'file_name': name, 'height': h, 'width': w,
+                        'annotations': [
+                            dict(a, label=int(g.integers(0, 4)),
+                                 edge=int(g.integers(-1, 12)))
+                            for a in anns]})
+    for key, lines in (('closed', closed), ('openset', openset)):
+        with open(files[key], 'w') as f:
+            f.write('\n'.join(json.dumps(ln) for ln in lines) + '\n')
+    vocab = ['[PAD]', '[UNK]'] + [chr(0x4e00 + k) for k in range(21126)]
+    with open(files['vocab'], 'w', encoding='utf-8') as f:
+        f.write('\n'.join(vocab) + '\n')
+    cats = ['address', 'book', 'company', 'game', 'government', 'movie',
+            'name', 'organization', 'position', 'scene']
+    sentences = []
+    for _ in range(N_SENTENCES + N_SENTENCES // 2):
+        text = ''.join(chr(0x4e00 + int(k))
+                       for k in g.integers(0, 21200, NER_LEN))
+        label = {}
+        for s0 in sorted(g.choice(NER_LEN - 8, 4, replace=False)):
+            e0 = int(s0 + g.integers(1, 6))
+            cat = cats[int(g.integers(0, 10))]
+            label.setdefault(cat, {})[text[s0:e0 + 1]] = [[int(s0), e0]]
+        sentences.append({'text': text, 'label': label})
+    for key, part in (('ner_train', sentences[:N_SENTENCES]),
+                      ('ner_test', sentences[N_SENTENCES:])):
+        with open(files[key], 'w', encoding='utf-8') as f:
+            f.write('\n'.join(json.dumps(ln, ensure_ascii=False)
+                              for ln in part) + '\n')
+    return files, images
+
+
+def kie_ner_options(key, files, d):
+    """``--cfg-options`` of a shipped KIE or NER config for the phase's
+    data: its train and test annotation files, dictionary or vocabulary,
+    and image directory (which holds no image: SDMGR's visual pages are
+    black there, as the JAX dataset makes them for an absent file)."""
+    opts = []
+    for split in ('train', 'test'):
+        if key == 'ner':
+            opts += [f'data.{split}.ann_file={files["ner_" + split]}',
+                     f'data.{split}.vocab_file={files["vocab"]}',
+                     f'data.{split}.max_len={NER_LEN}']
+        else:
+            ann = files['openset' if key == 'openset' else 'closed']
+            opts += [f'data.{split}.ann_file={ann}',
+                     f'data.{split}.dict_file={files["dict"]}',
+                     f'data.{split}.img_prefix={d}',
+                     f'data.{split}.max_nodes={KIE_NODES}',
+                     f'data.{split}.max_chars={KIE_CHARS}']
+    return opts + [f'total_epochs={KIE_NER_EPOCHS}']
+
+
+def logged_ms_item(fn):
+    """``fn()``'s result and the ms an item that the KIE / NER
+    evaluation logs (``tools/test.py`` ``eval_kie_ner``), read from its
+    log record (the root logger at INFO while ``fn`` runs)."""
+    import logging
+    seen = []
+
+    class Handler(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().endswith('ms/item'):
+                seen.append(record.args[-1])
+    root, handler = logging.getLogger(), Handler()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        out = fn()
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    return out, seen[-1]
+
+
+def kie_ner_phase(dev, name):
+    """SDMGR and BERT-softmax NER on ``dev``, the card (see the module
+    docstring); nothing of their paths launches a hand-written kernel."""
+    import copy
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import MMOCR
+    from tps_pp_tpu_torch.apis.train_det import _make_optimizer
+    from tps_pp_tpu_torch.apis.train_kie import (
+        KIE_KEYS, NER_KEYS, build_task_dataset, init_kie_weights,
+        make_kie_step, make_ner_step, train_kie)
+    from tps_pp_tpu_torch.config import load_config, merge_cli_options
+    from tps_pp_tpu_torch.models.kie import build_sdmgr
+    from tps_pp_tpu_torch.models.kie.sdmgr import _guarded_l2
+    from tps_pp_tpu_torch.models.ner import NerClassifier
+    from tps_pp_tpu_torch.registry import LOSSES
+    from tps_pp_tpu_torch.tools import test as test_tool
+    from tps_pp_tpu_torch.tools import train as train_tool
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    g = np.random.default_rng(SEED + 24)
+    stats, sections, t_sec = {}, {}, [time.perf_counter()]
+
+    def section(what):
+        now = time.perf_counter()
+        sections[what] = round(now - t_sec[0], 1)
+        t_sec[0] = now
+
+    def rel_err(got, want):
+        """The largest difference over the CPU's largest magnitude."""
+        want = want.detach().cpu().double()
+        return float((got.detach().cpu().double() - want).abs().max()
+                     / want.abs().max())
+
+    tmp = tempfile.TemporaryDirectory()
+    d = tmp.name
+    files, images = kie_ner_data(d, g)
+    paths = {k: os.path.join(repo, p) for k, p in KIE_NER_CONFIGS.items()}
+    opts = {k: kie_ner_options(k, files, d) for k in KIE_NER_CONFIGS}
+    cfgs = {k: merge_cli_options(load_config(paths[k]),
+                                 test_tool.parse_cfg_options(opts[k]))
+            for k in KIE_NER_CONFIGS}
+    section('data')
+
+    def batch_of(ds, keys, n):
+        return [torch.from_numpy(np.stack([ds[i][k] for i in range(n)]))
+                for k in keys]
+
+    # ---- SDMGR: the card against the CPU at B_KIE, each config ----------
+    checks, fwd = {}, {}
+    for key in ('novisual', 'openset', 'unet16'):
+        cfg = cfgs[key]
+        visual = key == 'unet16'
+        ds = build_task_dataset(cfg, 'test', **(
+            {'images': images} if visual else {}))
+        keys = ['relations', 'texts'] + (['img', 'boxes'] if visual else [])
+        batch = batch_of(ds, keys, B_KIE)
+        cpu = init_kie_weights(build_sdmgr(cfg['model'], visual), SEED).eval()
+        card = copy.deepcopy(cpu).to(dev)
+        xb = [b.to(dev) for b in batch]
+        zero_launches()
+        with torch.inference_mode():
+            node, edge = card(*xb)
+            read_launches('kie', f'{key} forward', {})
+            node_h, edge_h = cpu(*batch)
+            c = dict(node=rel_err(node, node_h), edge=rel_err(edge, edge_h))
+            if visual:
+                fm, fm_h = card.backbone(xb[2]), cpu.backbone(batch[2])
+                c['map'] = rel_err(fm, fm_h)
+                c['pooled'] = rel_err(
+                    card.visual_features(xb[2], xb[3]),
+                    cpu.visual_features(batch[2], batch[3]))
+        if max(c.values()) > KIE_F32_RTOL:
+            raise AssertionError(f'SDMGR {key}: card against CPU {c}')
+        if key == 'openset':
+            same = ties = pairs = 0
+            N = KIE_NODES
+            for b in range(B_KIE):
+                item = ds[b]
+                n = int((item['labels'] != -100).sum())
+                got = []
+                for nd, ed in ((node, edge), (node_h, edge_h)):
+                    nodes = torch.softmax(nd[b].float(), -1)[:n]
+                    links = torch.softmax(ed[b].float(), -1).reshape(
+                        N, N, 2)[:n, :n, 1]
+                    got.append(ds.decode_pred(dict(
+                        filename=item['filename'],
+                        nodes=nodes.cpu().numpy(),
+                        edges=links.cpu().numpy())))
+                pairs += len(got[1]['pairs'])
+                if got[0]['pairs'] == got[1]['pairs'] and \
+                        got[0]['labels'] == got[1]['labels']:
+                    same += 1
+                    continue
+                e = torch.softmax(edge_h[b], -1).reshape(N, N, 2)[:n, :n, 1]
+                e = torch.maximum(e, e.T)
+                if not bool(((e - ds.edge_thr).abs() < OPENSET_TIE).any()):
+                    raise AssertionError(f'SDMGR openset: receipt {b} pairs '
+                                         f'{got[0]["pairs"]} on the card, '
+                                         f'{got[1]["pairs"]} on the CPU')
+                ties += 1
+            c.update(decoded_equal=same, decoded_ties=ties, cpu_pairs=pairs)
+        checks[key] = c
+        if visual:             # SDMGR's forward by part, CUDA events
+            h = card.head
+            with torch.inference_mode():
+                fwd['whole'] = cuda_ms(lambda: card(*xb), 10)
+                fwd['unet_pool'] = cuda_ms(
+                    lambda: card.visual_features(xb[2], xb[3]), 10)
+                texts = xb[1]
+                B_, N_, L_ = texts.shape
+                emb = h.node_embed(texts.clamp(min=0).long()).reshape(
+                    B_ * N_, L_, -1)
+                fwd['lstm'] = cuda_ms(lambda: h.rnn(emb), 10)
+                nodes = torch.randn(B_, N_, h.node_cls.in_features,
+                                    device=dev)
+                edges = _guarded_l2(h.edge_embed(xb[0]))
+                mask = (texts > 0).any(-1).float()
+
+                def gnn():
+                    x = nodes
+                    for layer in h.gnn_layers:
+                        x, _ = layer(x, edges, mask)
+                    return x
+                fwd['gnn'] = cuda_ms(gnn, 10)
+        del card, cpu
+    log(f'kie SDMGR B={B_KIE}, {KIE_NODES} nodes of {KIE_CHARS} characters, '
+        f'f32 (TF32 off), the card against the CPU on seed-{SEED} weights '
+        f'(bound {KIE_F32_RTOL} of each largest magnitude): '
+        f'{json.dumps(checks)}; UNet16 512x512 '
+        f'forward {fwd["whole"]:.3f} ms (UNet + 7x7 RoI max pool '
+        f'{fwd["unet_pool"]:.3f}, LSTM {fwd["lstm"]:.3f}, 2 GNN layers '
+        f'{fwd["gnn"]:.3f}) [{name}]')
+    stats['sdmgr'] = dict(checks=checks, forward_ms=fwd)
+    section('sdmgr')
+
+    # ---- BERT-base: the card against the CPU at B_NER_F32, timed at B_NER
+    cfg = cfgs['ner']
+    ds = build_task_dataset(cfg, 'train')
+    cpu = init_kie_weights(NerClassifier(cfg['model']), SEED).eval()
+    card = copy.deepcopy(cpu).to(dev)
+    ids, mask, _ = batch_of(ds, NER_KEYS, B_NER)
+    zero_launches()
+    with torch.inference_mode():
+        got = card(ids[:B_NER_F32].to(dev), mask[:B_NER_F32].to(dev))
+        read_launches('ner', 'forward', {})
+        want = cpu(ids[:B_NER_F32], mask[:B_NER_F32])
+        err = rel_err(got, want)
+        top2 = want.topk(2, -1).values
+        gap = (top2[..., 0] - top2[..., 1])
+        parted = got.cpu().argmax(-1) != want.argmax(-1)
+        if err > NER_F32_RTOL or bool((parted & (gap >= NER_TIE)).any()):
+            raise AssertionError(f'BERT-base: card against CPU {err}, '
+                                 f'argmax parted at gaps {gap[parted]}')
+        idb, mb = ids.to(dev), mask.to(dev)
+        bert_ms = cuda_ms(lambda: card(idb, mb), 10)
+    enc = cfg['model']['encoder']
+    H, L_, F_ = (enc.get('hidden_size', 768), enc.get('num_hidden_layers', 12),
+                 enc.get('intermediate_size', 3072))
+    flops = B_NER * L_ * NER_LEN * (8 * H * H + 4 * H * F_ + 4 * NER_LEN * H)
+    flops += 2 * B_NER * NER_LEN * H * 21
+    bert_bound = flops / PEAK_F32 * 1e3
+    log(f'ner BERT-base f32 (TF32 off): B={B_NER_F32} T={NER_LEN} logits '
+        f'within {err:.3g} of their largest magnitude of the CPU\'s (bound '
+        f'{NER_F32_RTOL}), argmax parted at {int(parted.sum())} positions, '
+        f'each at a CPU top-2 gap below {NER_TIE}; forward B={B_NER} '
+        f'T={NER_LEN} {bert_ms:.3f} ms ({flops / 1e9:.1f} GFLOP, bound '
+        f'{bert_bound:.3f} ms at the f32 peak, '
+        f'{flops / bert_ms / 1e9:.1f} TFLOP/s) [{name}]')
+    stats['bert'] = dict(err=err, parted=int(parted.sum()), ms=bert_ms,
+                         gflop=flops / 1e9, bound_ms=bert_bound)
+    del card, cpu
+    section('bert')
+
+    # ---- one f32 step of each, the card against the CPU; SDMGR-UNet16's
+    # also in float64 (its whole f32 gradient is ill-conditioned: the
+    # fusion's signed square root has a derivative of 1 / (2 sqrt|z|) at
+    # near-zero z; tools/torch_kie_precision.py --step shows it by module)
+    steps = {}
+    ner_cfg = copy.deepcopy(cfgs['ner'])
+    merge_cli_options(ner_cfg, {
+        'model.encoder.hidden_dropout_prob': 0.0,
+        'model.encoder.attention_probs_dropout_prob': 0.0,
+        'model.decoder.hidden_dropout_prob': 0.0})
+    for key, cfg in (('unet16', cfgs['unet16']), ('ner', ner_cfg)):
+        model_cfg = cfg['model']
+        loss_fn = LOSSES.build(dict(model_cfg['loss']))
+        if key == 'unet16':
+            ds = build_task_dataset(cfg, 'train', images=images)
+            batch = batch_of(ds, KIE_KEYS + ('img', 'boxes'), B_KIE)
+            base = init_kie_weights(build_sdmgr(model_cfg, True), SEED)
+        else:
+            ds = build_task_dataset(cfg, 'train')
+            batch = batch_of(ds, NER_KEYS, B_NER_F32)
+            base = init_kie_weights(NerClassifier(model_cfg), SEED)
+        res, grads = {}, {}
+        dtypes = (torch.float32, torch.float64) if key == 'unet16' else (
+            torch.float32,)
+        for dtype in dtypes:
+            for where in ('cpu', 'card'):
+                device = dev if where == 'card' else torch.device('cpu')
+                model = copy.deepcopy(base).to(device, dtype).train()
+                opt, _ = _make_optimizer(cfg, model.named_parameters())
+                step = (make_kie_step(model, loss_fn, opt) if key == 'unet16'
+                        else make_ner_step(model, loss_fn, opt, SEED))
+                xb = [(b.to(dtype) if b.is_floating_point() else
+                       b).to(device) for b in batch]
+                if where == 'card':
+                    zero_launches()
+                res[where, dtype] = r = {k: float(v)
+                                         for k, v in step(xb).items()}
+                if key == 'unet16' and dtype == torch.float32:
+                    # the step's gradients, which the optimizer left in
+                    # .grad (no clipping in the config; Adam copies them)
+                    grad = {n: q.grad.detach().double().cpu()
+                            for n, q in model.named_parameters()}
+                    norm = float(torch.sqrt(sum((v * v).sum()
+                                                for v in grad.values())))
+                    if abs(norm - r['grad_norm']) > 1e-5 * r['grad_norm']:
+                        raise AssertionError(
+                            f'{key} {where}: .grad norm {norm} != '
+                            f'{r["grad_norm"]}')
+                    grads[where] = grad
+                if where == 'card':
+                    read_launches(key, 'step', {})
+                    if dtype == torch.float32:
+                        res['ms'] = cuda_ms(lambda: step(xb), 5)
+                del model, opt
+
+        def gap(a, b, k):
+            return abs(a[k] - b[k]) / abs(b[k])
+        f32 = torch.float32
+        a, b = res['card', f32], res['cpu', f32]
+        st = dict(loss_rel=gap(a, b, 'loss'),
+                  grad_norm_rel=gap(a, b, 'grad_norm'), ms=res['ms'],
+                  loss=a['loss'], grad_norm=a['grad_norm'])
+        ok = st['grad_norm_rel'] <= DET_GRAD_NORM_RTOL
+        if key == 'unet16':
+            c, d = res['card', torch.float64], res['cpu', torch.float64]
+            gc, gp = grads['card'], grads['cpu']
+            down, moved = {}, {}
+            for grp in KIE_DOWNSTREAM:
+                names = [n for n in gp if n.startswith(grp + '.')]
+                nc, npu, diff = (np.sqrt(sum(float((v ** 2).sum())
+                                             for v in vs)) for vs in (
+                    [gc[n] for n in names], [gp[n] for n in names],
+                    [gc[n] - gp[n] for n in names]))
+                down[grp] = float(abs(nc - npu) / npu)
+                moved[grp] = float(diff / npu)
+            st.update(f64_loss_rel=gap(c, d, 'loss'),
+                      f64_grad_norm_rel=gap(c, d, 'grad_norm'),
+                      downstream_rel=down, downstream_moved=moved,
+                      card_f32_from_f64=gap(a, d, 'grad_norm'),
+                      cpu_f32_from_f64=gap(b, d, 'grad_norm'))
+            ok = (st['f64_loss_rel'] <= DET_LOSS_RTOL
+                  and st['f64_grad_norm_rel'] <= DET_GRAD_NORM_RTOL
+                  and max(down.values()) <= DET_GRAD_NORM_RTOL
+                  and st['card_f32_from_f64'] <=
+                  KIE_F32_GRAD_MULT * st['cpu_f32_from_f64'])
+        if not (np.isfinite(a['loss']) and st['loss_rel'] <= DET_LOSS_RTOL
+                and ok):
+            raise AssertionError(f'{key} step: {res} {st}')
+        steps[key] = st
+    u = steps['unet16']
+    log(f'kie / ner steps, the card against the CPU (loss bound '
+        f'{DET_LOSS_RTOL}, grad norm {DET_GRAD_NORM_RTOL}, relative): '
+        f'SDMGR-UNet16 B={B_KIE} (train-mode BatchNorm) f32 loss '
+        f'{u["loss"]:.6f} ({u["loss_rel"]:.3g} apart), grad norm '
+        f'{u["grad_norm"]:.6f} ({u["grad_norm_rel"]:.3g} apart, logged), '
+        f'downstream of the fusion, grad norm (the difference over the '
+        f'norm, logged) '
+        + ', '.join(f'{k[5:]} {v:.3g} ({u["downstream_moved"][k]:.3g})'
+                    for k, v in u['downstream_rel'].items())
+        + f' apart; f32 grad norm from the CPU\'s float64: card '
+        f'{u["card_f32_from_f64"]:.3g}, CPU {u["cpu_f32_from_f64"]:.3g} '
+        f'(bound {KIE_F32_GRAD_MULT}x the CPU\'s); float64: loss '
+        f'{u["f64_loss_rel"]:.3g} and grad norm {u["f64_grad_norm_rel"]:.3g} '
+        f'apart; {u["ms"]:.2f} ms an f32 step; '
+        f'BERT-base B={B_NER_F32} T={NER_LEN} f32 without dropout loss '
+        f'{steps["ner"]["loss"]:.6f} ({steps["ner"]["loss_rel"]:.3g} '
+        f'apart), grad norm {steps["ner"]["grad_norm_rel"]:.3g} apart, '
+        f'{steps["ner"]["ms"]:.2f} ms a step [{name}]')
+    stats['steps'] = steps
+    torch.cuda.empty_cache()
+    section('steps')
+
+    # ---- training, then tools/test.py on the card and on the CPU --------
+    runs = {}
+    with tempfile.TemporaryDirectory() as wd:
+        zero_launches()
+        t0 = time.perf_counter()
+        _, opt, hist = train_kie(
+            cfgs['unet16'], build_task_dataset(cfgs['unet16'], 'train',
+                                               images=images),
+            work_dir=os.path.join(wd, 'unet16'),
+            batch_size=int(cfgs['unet16']['data']['samples_per_gpu']),
+            seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        runs['unet16'] = dict(seconds=time.perf_counter() - t0,
+                              steps=opt.count,
+                              losses=[h['loss'] for h in hist])
+        for key in ('novisual', 'ner'):
+            t0 = time.perf_counter()
+            _, opt, hist = train_tool.main(
+                [paths[key], '--work-dir', os.path.join(wd, key),
+                 '--seed', str(SEED), '--cfg-options'] + opts[key],
+                device=dev)
+            torch.cuda.synchronize()
+            runs[key] = dict(seconds=time.perf_counter() - t0,
+                             steps=opt.count,
+                             losses=[h['loss'] for h in hist])
+        read_launches('kie / ner', 'training', {})
+        for key in ('unet16', 'novisual', 'ner'):
+            ckpt = os.path.join(wd, key, f'epoch_{KIE_NER_EPOCHS}.pth')
+            argv = [paths[key], ckpt, '--cfg-options'] + opts[key]
+            if key != 'ner':
+                argv.append('evaluation.metric_options.macro_f1.ignores=[]')
+            zero_launches()
+            on_card, item_ms = logged_ms_item(
+                lambda: test_tool.main(argv, device=dev))
+            read_launches(key, 'tools/test.py', {})
+            on_cpu = test_tool.main(argv, device='cpu')
+            if on_card != on_cpu:
+                raise AssertionError(f'{key} tools/test.py: card {on_card}, '
+                                     f'CPU {on_cpu}')
+            runs[key].update(metrics=on_card, eval_ms_item=item_ms)
+    bad = [k for k, r in runs.items() if not np.isfinite(r['losses']).all()]
+    if bad:
+        raise AssertionError(f'kie / ner training: {runs}')
+    log(f'kie / ner training, {KIE_NER_EPOCHS} epochs each, then '
+        f'tools/test.py on the card and the CPU (equal metrics): '
+        f'train_kie SDMGR-UNet16 ({N_RECEIPTS} receipts, B=4) '
+        f'{runs["unet16"]["seconds"]:.2f} s, eval on black pages '
+        f'{runs["unet16"]["metrics"]} at '
+        f'{runs["unet16"]["eval_ms_item"]:.2f} ms an item; tools/train.py '
+        f'SDMGR closed set {runs["novisual"]["seconds"]:.2f} s, '
+        f'{runs["novisual"]["metrics"]} at '
+        f'{runs["novisual"]["eval_ms_item"]:.2f} ms an item; tools/train.py '
+        f'BERT-softmax ({N_SENTENCES} sentences, B=8) '
+        f'{runs["ner"]["seconds"]:.2f} s, {runs["ner"]["metrics"]} at '
+        f'{runs["ner"]["eval_ms_item"]:.2f} ms an item; losses '
+        f'{ {k: [round(x, 4) for x in r["losses"]] for k, r in runs.items()} }'
+        f' [{name}]')
+    stats['training'] = runs
+    section('training')
+
+    # ---- MMOCR.readtext with KIE: DBNet-R18, the flagship, SDMGR --------
+    reader = MMOCR(det=os.path.join(repo, DET_CONFIGS['dbnet_r18'][0]),
+                   recog='NRTR_TPS', kie='SDMGR', device=dev)
+    det = reader.detector
+    pages = [g.integers(0, 256, (*PAGE_HW, 3), np.uint8) for _ in range(2)]
+    x = torch.as_tensor(np.stack([det.prep(p)[0] for p in pages]),
+                        device=dev)
+    thr = det.postprocessor.mask_thr
+    logit = torch.logit(det.forward(x)[..., 0]).flatten()[::7].cpu()
+    for above in KIE_DB_ABOVE:       # DB's map stressed until it keeps boxes
+        shift = (math.log(thr / (1 - thr))
+                 - float(torch.quantile(logit, 1 - above)))
+        with torch.no_grad():
+            det.model.head.binarize[6].bias.add_(shift)
+        if min(len(b) for b in det.detect_batch(pages)) >= KIE_MIN_BOXES:
+            break
+        with torch.no_grad():
+            det.model.head.binarize[6].bias.sub_(shift)
+    else:
+        raise AssertionError(f'readtext: no share in {KIE_DB_ABOVE} keeps '
+                             f'{KIE_MIN_BOXES} boxes a page')
+    reader.readtext(pages[:1])
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    res = reader.readtext(pages)
+    torch.cuda.synchronize()
+    whole = (time.perf_counter() - t0) / len(pages)
+    rec_launches = read_launches('kie', 'readtext', {'tps_sampler': None})
+    boxes = [b for r in res for b in r['result']]
+    if len(res) != 2 or len(boxes) < 2 * KIE_MIN_BOXES or not all(
+            isinstance(b.get('label'), int) and
+            0.0 <= b.get('label_score', -1.0) <= 1.0 for b in boxes):
+        raise AssertionError(f'readtext with KIE: {res!r:.400}')
+    t_det = t_rec = t_kie = 0.0
+    for page in pages:
+        t0 = time.perf_counter()
+        crops, quads = reader.crops(page, det.detect(page))
+        t1 = time.perf_counter()
+        recs = reader.recognize(crops)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        results = [{'box': q, 'text': r['text']}
+                   for (q, _), r in zip(quads, recs)]
+        zero_launches()
+        reader.kie_infer(results)
+        torch.cuda.synchronize()
+        t_kie += time.perf_counter() - t2
+        read_launches('kie', 'kie_infer', {})
+        t_det += t1 - t0
+        t_rec += t2 - t1
+    n = len(pages)
+    log(f'kie readtext {n} pages {PAGE_HW[1]}x{PAGE_HW[0]} (DBNet-R18 f32, '
+        f'its map stressed: {above} of it above the threshold; NRTR + TPS++ '
+        f'f32 from its config; SDMGR at MMOCR\'s widths, seed-{SEED} '
+        f'weights): {whole * 1e3:.1f} ms/page; detection and crops '
+        f'{t_det / n * 1e3:.1f}, recognition {t_rec / n * 1e3:.1f}, KIE '
+        f'{t_kie / n * 1e3:.2f} ms/page; {len(boxes) / n:.1f} boxes a page, '
+        f'each labelled ({len({b["label"] for b in boxes})} classes); '
+        f'launches {rec_launches} (the recognizer\'s; KIE none) [{name}]')
+    stats['readtext'] = dict(ms_page=whole * 1e3, det=t_det / n * 1e3,
+                             recog=t_rec / n * 1e3, kie=t_kie / n * 1e3,
+                             boxes=len(boxes))
+    del reader, det, x
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    section('readtext')
+    log(f'kie_ner phase: {time.perf_counter() - t_phase:.1f} s (by '
+        f'section: {sections}); no hand-written kernel launched by KIE or '
+        f'NER; {json.dumps(stats)}')
+
+
 def main():
     import torch
     t_script = time.perf_counter()
@@ -6690,6 +7287,9 @@ def main():
 
     # ---- Mask R-CNN: serving, the card against the CPU, training, readtext
     maskrcnn_phase(dev, name)
+
+    # ---- KIE and NER: SDMGR, the UNet16, BERT-base, their CLIs, readtext
+    kie_ner_phase(dev, name)
     path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])

@@ -270,17 +270,17 @@ def test_test_tool_options_and_other_tasks(tmp_path, monkeypatch):
     # every detector evaluates (tests/test_torch_detector.py,
     # tests/test_torch_panet.py, tests/test_torch_fce_textsnake.py,
     # tests/test_torch_drrg.py, tests/test_torch_maskrcnn.py): an
-    # OCRMaskRCNN config goes to the det branch; KIE and NER raise
+    # OCRMaskRCNN config goes to the det branch, SDMGR and NerClassifier
+    # to the KIE / NER branch (tests/test_torch_kie_ner.py runs it)
     calls = []
     monkeypatch.setattr(tool, 'eval_detector', lambda cfg, args, device: (
         calls.append(cfg['model']['type']) or ({'hmean': 0.5}, [])))
-    for model_type in ('OCRMaskRCNN', 'SDMGR'):
+    monkeypatch.setattr(tool, 'eval_kie_ner', lambda cfg, args, device: (
+        calls.append(cfg['model']['type']) or ({'macro_f1': 0.5}, [])))
+    for model_type in ('OCRMaskRCNN', 'SDMGR', 'NerClassifier'):
         cfg_file = tmp_path / f'{model_type}.py'
         cfg_file.write_text(f"model = dict(type='{model_type}')\n")
-        if model_type == 'SDMGR':
-            with pytest.raises(NotImplementedError, match='KIE'):
-                tool.main([str(cfg_file)], device='cpu')
-        else:
-            assert tool.main([str(cfg_file)], device='cpu') == \
-                {'hmean': 0.5}
-    assert calls == ['OCRMaskRCNN']
+        assert tool.main([str(cfg_file)], device='cpu') == (
+            {'hmean': 0.5} if model_type == 'OCRMaskRCNN'
+            else {'macro_f1': 0.5})
+    assert calls == ['OCRMaskRCNN', 'SDMGR', 'NerClassifier']

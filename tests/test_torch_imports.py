@@ -10,7 +10,8 @@ the kernels' plain versions; nothing is built). So do detection (DBNet on
 ResNetDet and on ResNetDet50 with DCNv2), its evaluation modules and
 ``MMOCR.readtext``, detection training (DBNet, PANet, PSENet) with
 PAN and PSE serving, FCENet's and TextSnake's training and serving,
-DRRG's and Mask R-CNN's."""
+DRRG's and Mask R-CNN's, and KIE's and NER's (SDMGR with the UNet, BERT,
+their CLIs, ``MMOCR(kie='SDMGR')``)."""
 import json
 import os
 import subprocess
@@ -937,3 +938,129 @@ def test_maskrcnn_training_and_serving_with_jax_blocked():
     assert got == {'loaded': [], 'finite': True, 'steps': 2,
                    'saved': ['epoch_1.pth'], 'images': 3,
                    'boundaries': True, 'pages': 2, 'launches': [0, 0]}
+
+
+KIE_NER_SCRIPT = r'''
+import importlib.abc, json, os, sys, tempfile
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    """Refuses jax, flax, cv2 and the JAX package outright."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',
+                                  'tps_pp_tpu'):
+            raise ImportError(f'{name} is blocked')
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from tps_pp_tpu_torch.apis import MMOCR, nrtr_tps_pp_cfg
+from tps_pp_tpu_torch.apis.train_kie import (build_sdmgr_apply, train_kie,
+                                             train_ner)
+from tps_pp_tpu_torch.datasets import KIEDataset, NerDataset
+from tps_pp_tpu_torch.ops import grid_sample, tps_sampler
+from tps_pp_tpu_torch.tools import test as test_tool
+from tps_pp_tpu_torch.tools import train as train_tool
+
+g = np.random.default_rng(0)
+d = tempfile.mkdtemp()
+ann = os.path.join(d, 'receipts.jsonl')
+with open(ann, 'w') as f:
+    for i in range(3):
+        f.write(json.dumps({'file_name': f'{i}.png', 'height': 40,
+                            'width': 48, 'annotations': [
+            {'box': [2, 9 * j, 30, 9 * j, 30, 9 * j + 7, 2, 9 * j + 7],
+             'text': f'item{j}', 'label': j % 2} for j in range(3)]}) + '\n')
+ner = os.path.join(d, 'ner.jsonl')
+with open(ner, 'w') as f:
+    for i in range(3):
+        f.write(json.dumps({'text': f'alice in paris {i}', 'label': {
+            'name': {'alice': [[0, 4]]}}}) + '\n')
+images = {f'{i}.png': g.integers(0, 256, (40, 48, 3), np.uint8)
+          for i in range(3)}
+kie = KIEDataset(ann, max_nodes=4, max_chars=8, with_visual=True,
+                 img_size=(32, 32), images=images)
+cfg = dict(model=dict(type='SDMGR', visual_modality=True,
+                      backbone=dict(type='UNet', base_channels=4,
+                                    num_stages=3),
+                      head=dict(type='SDMGRHead', node_embed=16,
+                                edge_embed=16, fusion_dim=32, visual_dim=4,
+                                num_classes=3)))
+with tempfile.TemporaryDirectory() as wd:
+    model, opt, kie_hist = train_kie(cfg, kie, work_dir=wd, batch_size=2,
+                                     device='cpu')
+    apply, m, visual = build_sdmgr_apply(
+        cfg, os.path.join(wd, 'epoch_1.pth'), kie[0], device='cpu')
+    node, edge = apply(m, kie[0])
+ner_cfg = dict(model=dict(type='NerClassifier', encoder=dict(
+    type='BertEncoder', vocab_size=20200, hidden_size=16,
+    num_hidden_layers=1, num_attention_heads=2, intermediate_size=32,
+    max_position_embeddings=32), decoder=dict(type='FCDecoder',
+                                              num_labels=3)))
+_, ner_opt, ner_hist = train_ner(ner_cfg, NerDataset(ner, ['name'],
+                                                     max_len=24),
+                                 batch_size=2, device='cpu')
+kie_path = 'configs/kie/sdmgr/sdmgr_unet16_60e_wildreceipt.py'
+opts = ['data.train.ann_file=' + ann, 'data.test.ann_file=' + ann,
+        'data.train.dict_file=', 'data.test.dict_file=',
+        'data.train.with_visual=False', 'data.test.with_visual=False',
+        'model.head.node_embed=16', 'model.head.edge_embed=16',
+        'total_epochs=1']
+with tempfile.TemporaryDirectory() as wd:
+    train_tool.main([kie_path, '--work-dir', wd, '--cfg-options'] + opts,
+                    device='cpu')
+    metrics = test_tool.main([kie_path, os.path.join(wd, 'epoch_1.pth'),
+                              '--cfg-options'] + opts, device='cpu')
+det_cfg = dict(type='DBNet',
+               backbone=dict(type='ResNetDet', stage_blocks=[1, 1, 1, 1],
+                             base_channels=8),
+               neck=dict(type='FPNC', in_channels=[8, 16, 32, 64],
+                         lateral_channels=16, out_channels=4),
+               head=dict(type='DBHead', in_channels=16, k=50))
+pipeline = [dict(type='LoadImageFromNdarray'),
+            dict(type='ResizeOCR', height=32, min_width=64, max_width=64,
+                 keep_aspect_ratio=False),
+            dict(type='ToTensorOCR'),
+            dict(type='NormalizeOCR', mean=[0.5] * 3, std=[0.25] * 3),
+            dict(type='Collect', keys=['img'])]
+reader = MMOCR(det='DBNet', det_config=dict(model=det_cfg),
+               recog='NRTR_TPS', recog_config=dict(
+                   model=nrtr_tps_pp_cfg(tiny=True), test_pipeline=pipeline),
+               det_img_size=(64, 64), kie='SDMGR', device='cpu')
+pages = reader.readtext([g.integers(0, 256, (64, 64, 3), np.uint8)])
+boxes = reader.kie_infer([{'box': [0, 10 * i, 20, 10 * i, 20, 10 * i + 8,
+                                   0, 10 * i + 8], 'text': 'ab'}
+                          for i in range(3)])
+print(json.dumps({
+    'loaded': sorted(m for m in ('jax', 'flax', 'cv2', 'tps_pp_tpu')
+                     if m in sys.modules),
+    'finite': bool(np.isfinite([kie_hist[-1]['loss'],
+                                ner_hist[-1]['loss']]).all()),
+    'steps': [opt.count, ner_opt.count], 'visual': visual,
+    'logits': [list(node.shape), list(edge.shape)],
+    'metrics': sorted(metrics), 'pages': len(pages),
+    'labelled': all('label' in b and 'label_score' in b for b in boxes),
+    'launches': [tps_sampler.tps_sampler.launches,
+                 grid_sample.grid_sample_forward.launches]}))
+'''
+
+
+def test_kie_and_ner_train_and_serve_with_jax_blocked():
+    """SDMGR with the UNet (images given as arrays) and BERT-softmax NER
+    train on the CPU, the KIE CLIs run on the shipped UNet16 config and
+    MMOCR labels boxes with ``kie='SDMGR'``, with jax, flax, cv2 and the
+    JAX package refused at import; nothing launches."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', KIE_NER_SCRIPT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {'loaded': [], 'finite': True, 'steps': [2, 2],
+                   'visual': True, 'logits': [[4, 3], [16, 2]],
+                   'metrics': ['macro_f1'], 'pages': 1, 'labelled': True,
+                   'launches': [0, 0]}

@@ -2,8 +2,8 @@
 with a narrow DBNet and the tiny flagship recognizer on the same weights
 gives the same boxes, texts and merged lines, for pages as arrays and as
 files; recognition alone; ``output`` writes the returned value; ``kie=``
-and ``img_out_dir`` raise; ``TextRecInference``; and the box utilities
-against JAX's."""
+labels the boxes as JAX's does; ``img_out_dir`` raises;
+``TextRecInference``; and the box utilities against JAX's."""
 import json
 
 import cv2
@@ -143,9 +143,39 @@ def test_recognition_only_matches_jax(ocrs):
         [r['text'] for r in jrec_inf.readtext(crops)]
 
 
-def test_kie_and_drawn_output_raise(ocrs):
-    _, ocr, recog, pth = ocrs
-    with pytest.raises(NotImplementedError, match='SDMGR'):
+def test_kie_and_drawn_output_raise(ocrs, tmp_path):
+    """``kie='SDMGR'`` (on the JAX MMOCR's KIE weights, through a
+    ``kie_ckpt``) labels every box as JAX's does, each ``label_score``
+    within 1e-5; KIE without a recognizer fails JAX's assertion; the
+    drawn results (``img_out_dir``) still raise."""
+    jocr, ocr, recog, pth = ocrs
+    jocr._init_kie('SDMGR', None, 3)
+    try:
+        kie_cfg = dict(type='SDMGR', head=dict(type='SDMGRHead',
+                                               num_chars=64, num_classes=26))
+        kie_pth = str(tmp_path / 'sdmgr.pth')
+        torch.save({'state_dict': state_dict_from_jax(
+            {'params': {'head': jocr.kie_variables['params']}}, kie_cfg)},
+            kie_pth)
+        kocr = MMOCR(det='DBNet', recog='NRTR_TPS',
+                     det_config=dict(model=DET_CFG), recog_config=recog,
+                     recog_ckpt=pth, det_img_size=SIZE, kie='SDMGR',
+                     kie_ckpt=kie_pth, device='cpu')
+        kocr.detector.model.load_state_dict(ocr.detector.model.state_dict())
+        imgs = pages(2)
+        got = kocr.readtext(imgs, details=True)
+        want = jocr.readtext(imgs, details=True)
+    finally:
+        jocr.kie_head = None
+    same_results(got, want)
+    boxes = [(r, s) for a, b in zip(got, want)
+             for r, s in zip(a['result'], b['result'])]
+    assert len(boxes) >= 20
+    for r, s in boxes:
+        assert r['label'] == s['label']
+        assert abs(r['label_score'] - s['label_score']) <= 1e-5
+    assert len({r['label'] for r, _ in boxes}) > 1
+    with pytest.raises(AssertionError, match='KIE requires'):
         MMOCR(det=None, recog='NRTR_TPS', recog_config=recog, recog_ckpt=pth,
               kie='SDMGR', device='cpu')
     with pytest.raises(NotImplementedError, match='visualize'):

@@ -8,7 +8,9 @@ modality transform and on ResNet31 1by16 and 1by8) at full width; the two
 DBNet configs (R18-FPNC, R50-DCNv2-FPNC), for which the JAX converter has
 no table, through the port's rules; so are the three shipped Mask R-CNN
 configs, whose box head's first layer the port reads flattened (C, 7, 7)
-where JAX flattens (7, 7, C).
+where JAX flattens (7, 7, C); and the shipped SDMGR configs (with and
+without the UNet16) and the BERT-softmax NER config, through
+``sdmgr_rules`` and ``ner_rules``.
 """
 import os
 
@@ -188,6 +190,87 @@ def test_maskrcnn_configs_round_trip_through_jax_converter(path):
     merged = jtc.merge_flat(jax.tree.map(np.zeros_like, merged_v),
                             jtc.convert_state_dict(sd_np, rules))
     want = jax.tree_util.tree_flatten_with_path(merged_v)[0]
+    got = dict(jax.tree_util.tree_flatten_with_path(merged)[0])
+    assert len(got) == len(want)
+    for p, leaf in want:
+        np.testing.assert_array_equal(np.asarray(got[p]), leaf,
+                                      err_msg=jax.tree_util.keystr(p))
+
+
+KIE_NER_CONFIGS = {
+    'sdmgr_unet16': 'configs/kie/sdmgr/sdmgr_unet16_60e_wildreceipt.py',
+    'sdmgr_novisual': 'configs/kie/sdmgr/sdmgr_novisual_60e_wildreceipt.py',
+    'sdmgr_openset': ('configs/kie/sdmgr/'
+                      'sdmgr_novisual_60e_wildreceipt_openset.py'),
+    'bert_softmax': 'configs/ner/bert_softmax/bert_softmax_cluener_18e.py',
+}
+
+
+def _kie_ner_variables(cfg):
+    """The shapes of JAX ``train_kie``'s SDMGR variables (``{'params':
+    {'head', 'unet'}, 'batch_stats'}``, the UNet where the config has
+    ``visual_modality``) or of the JAX ``NerClassifierModule``'s."""
+    from tps_pp_tpu.models import common as jcommon
+    from tps_pp_tpu.models.kie import sdmgr as jsdmgr
+    from tps_pp_tpu.models.ner import bert as jbert
+
+    def kw(c):
+        c = dict(c)
+        c.pop('type')
+        return c
+    key = jax.random.PRNGKey(0)
+    if cfg['type'] == 'NerClassifier':
+        module = jbert.NerClassifierModule(
+            encoder=jbert.BertEncoder(**kw(cfg['encoder'])),
+            decoder=jbert.FCDecoder(**kw(cfg['decoder'])))
+        return jax.eval_shape(lambda: module.init(
+            key, jnp.zeros((1, 8), jnp.int32)))
+    head = jsdmgr.SDMGRHead(**kw(cfg['head']))
+    rel, texts = jnp.zeros((4, 4, 5)), jnp.zeros((4, 32), jnp.int32)
+    if not cfg.get('visual_modality'):
+        return jax.eval_shape(lambda: {'params': {'head': head.init(
+            key, rel, texts)['params']}})
+    unet = jcommon.UNet(**kw(cfg['backbone']))
+
+    def init():
+        uv = unet.init(key, jnp.zeros((1, 32, 32, 3)))
+        hv = head.init(key, rel, texts, jnp.zeros((4, 16)))
+        return {'params': {'head': hv['params'], 'unet': uv['params']},
+                'batch_stats': uv['batch_stats']}
+    return jax.eval_shape(init)
+
+
+@pytest.mark.parametrize('name', list(KIE_NER_CONFIGS))
+def test_kie_ner_configs_round_trip_through_jax_converter(name):
+    """``state_dict_from_jax`` of random variables loads strictly into the
+    port's SDMGR / NerClassifier; the JAX converter, given
+    ``rules_for_config``'s table (``sdmgr_rules`` / ``ner_rules``), gives
+    them back bit for bit (the UNet's statistics under ``unet``, where
+    ``state_dict_from_jax`` reads them)."""
+    from tps_pp_tpu_torch.models.kie import build_sdmgr
+    from tps_pp_tpu_torch.models.ner import NerClassifier
+    cfg = dict(load_config(os.path.join(REPO, KIE_NER_CONFIGS[name]))
+               ['model'])
+    rng = np.random.default_rng(0)
+    v = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(s.dtype),
+                     _kie_ner_variables(cfg))
+    sd = convert.state_dict_from_jax(v, cfg)
+    model = (NerClassifier(cfg) if cfg['type'] == 'NerClassifier'
+             else build_sdmgr(cfg))
+    model.load_state_dict(sd, strict=True)
+    rules = convert.rules_for_config(cfg)
+    assert rules == (convert.ner_rules(cfg) if cfg['type'] == 'NerClassifier'
+                     else convert.sdmgr_rules(cfg))
+    assert any(r[0].startswith('backbone.') for r in rules) == \
+        (name == 'sdmgr_unet16')
+    if 'batch_stats' in v:
+        v = dict(v, batch_stats={'unet': v['batch_stats']})
+    sd_np = {k: t.numpy() for k, t in sd.items()}
+    merged = jtc.merge_flat(jax.tree.map(np.zeros_like, v),
+                            jtc.convert_state_dict(
+                                sd_np, jtc.filter_rules_to_state(rules,
+                                                                 sd_np)))
+    want = jax.tree_util.tree_flatten_with_path(v)[0]
     got = dict(jax.tree_util.tree_flatten_with_path(merged)[0])
     assert len(got) == len(want)
     for p, leaf in want:

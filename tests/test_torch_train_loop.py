@@ -313,10 +313,27 @@ def test_train_cli_then_test_cli(tmp_path):
     metrics = test_tool.main([TOY_CFG, os.path.join(wd, 'epoch_2.pth'),
                               '--cfg-options'] + opts, device='cpu')
     assert metrics == evals[-1]
-    with pytest.raises(NotImplementedError):
-        train_tool.main([os.path.join(
-            REPO, 'configs/kie/sdmgr/sdmgr_unet16_60e_wildreceipt.py')],
-            device='cpu')
+    # the shipped SDMGR UNet16 config trains through the KIE branch, on a
+    # receipt annotation file given with --cfg-options (no images there:
+    # the text and layout modality alone, as the JAX CLI's test runs it)
+    import json
+    ann = tmp_path / 'receipts.jsonl'
+    ann.write_text('\n'.join(json.dumps({
+        'file_name': f'{i}.png', 'height': 64, 'width': 64,
+        'annotations': [{'box': [4, 8 * j, 40, 8 * j, 40, 8 * j + 6, 4,
+                                 8 * j + 6], 'text': f'item{j}',
+                         'label': j % 3} for j in range(3)]})
+        for i in range(3)))
+    kie_wd = str(tmp_path / 'kie')
+    kie_cfg = 'configs/kie/sdmgr/sdmgr_unet16_60e_wildreceipt.py'
+    _, kie_opt, kie_hist = train_tool.main([
+        os.path.join(REPO, kie_cfg), '--work-dir', kie_wd, '--cfg-options',
+        f'data.train.ann_file={ann}', 'data.train.dict_file=',
+        'data.train.max_nodes=4', 'data.train.with_visual=False',
+        'model.head.node_embed=16',
+        'model.head.edge_embed=16', 'total_epochs=1'], device='cpu')
+    assert kie_opt.count == 1 and np.isfinite(kie_hist[0]['loss'])
+    assert os.listdir(kie_wd) == ['epoch_1.pth']
 
 
 def test_jax_toy_config_loads_the_same_train_pipeline():

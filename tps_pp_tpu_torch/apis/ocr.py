@@ -3,11 +3,14 @@ the reference's ``mmocr/utils/ocr.py`` ``MMOCR`` and ``utils/recog.py``).
 
 ``MMOCR(det=..., recog=...)`` detects, crops each box (the axis-aligned
 quad of its boundary, ``crop_img``), recognizes the crops as one batch
-(``model_inference`` with ``batch_mode``) and, with ``merge``, stitches
-the words into lines. Either stage may be left out: det only returns
-boundaries, recog only reads whole images. Models are on the card unless
-``device='cpu'``. KIE (``kie=``) and the drawn results (``img_out_dir``)
-are not ported yet and raise ``NotImplementedError``.
+(``model_inference`` with ``batch_mode``), with ``kie='SDMGR'`` classes
+each box from its text and its place among the page's boxes (``label``,
+``label_score``), and, with ``merge``, stitches the words into lines.
+Either stage may be left out: det only returns boundaries, recog only
+reads whole images; KIE needs both. Models are on the card unless
+``device='cpu'``. The drawn results (``img_out_dir``) need
+``utils/visualize.py``, which is not ported yet, and raise
+``NotImplementedError``.
 
 Usage::
 
@@ -15,6 +18,8 @@ Usage::
     ocr.readtext(img, merge=True)
     # -> [{'filename': ..., 'result': [{'box', 'box_score', 'text'}, ...],
     #      'merged': [...]}]
+    MMOCR(det='DBNet', recog='NRTR_TPS', kie='SDMGR', kie_ckpt=pth)
+    # each box also carries 'label' and 'label_score'
 """
 from __future__ import annotations
 
@@ -23,11 +28,14 @@ import os
 from typing import Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
+from ..datasets.kie_dataset import KIE_CHARS, compute_relations, encode_texts
 from ..datasets.pipelines.transforms import LoadImageFromFile
 from ..utils.box_util import crop_img, stitch_boxes_into_lines
 from .detector import init_detector
 from .inference import init_recognizer, model_inference
+from .train_kie import _load, init_kie_weights, resolve_device
 
 # model name -> config path (the reference's MMOCR.textdet_models /
 # textrecog_models tables, ocr.py:214-311)
@@ -73,12 +81,9 @@ class MMOCR:
                  kie_ckpt: Optional[str] = None,
                  det_img_size=(640, 640), seed: int = 0, device=None,
                  **kwargs):
-        if kie:
-            raise NotImplementedError(
-                'kie: SDMGR is not ported yet (ROADMAP.md queue 1, KIE and '
-                'NER)')
         self.detector = None
         self.rec = None
+        self.kie_model = None
         if det:
             self.detector = init_detector(
                 det_config or _resolve(DET_CONFIGS, det), checkpoint=det_ckpt,
@@ -87,6 +92,53 @@ class MMOCR:
             self.rec = init_recognizer(
                 recog_config or _resolve(RECOG_CONFIGS, recog), recog_ckpt,
                 device=device, seed=seed)
+        if kie:
+            assert self.detector is not None and self.rec is not None, (
+                'KIE requires both det and recog (reference ocr.py:349-352)')
+            self._init_kie(kie_ckpt, seed, device)
+
+    # -- KIE -------------------------------------------------------------
+    def _init_kie(self, kie_ckpt: Optional[str], seed: int, device):
+        """SDMGR over the detected and recognized boxes (reference MMOCR
+        kie stage, ocr.py:499-585; JAX ``apis/ocr.py:87-131``): the
+        62-character set (``num_chars`` 64: the pad and the unknown),
+        texts cut to 32 characters, 26 classes, no visual modality;
+        ``kie_ckpt`` a ``.pth`` of its ``head.*`` weights."""
+        from ..models.kie import build_sdmgr
+        self.kie_max_chars = 32
+        self.kie_char2idx = {c: i + 1 for i, c in enumerate(KIE_CHARS)}
+        cfg = dict(head=dict(type='SDMGRHead', num_chars=len(KIE_CHARS) + 2,
+                             num_classes=26))
+        self.kie_device = resolve_device(device, 'MMOCR')
+        self.kie_model = _load(init_kie_weights(build_sdmgr(cfg, False),
+                                                seed),
+                               kie_ckpt).to(self.kie_device).eval()
+
+    def kie_infer(self, box_results: List[Dict]) -> List[Dict]:
+        """Each box's ``label`` (the argmax class) and ``label_score``
+        (its softmax probability), from the boxes' xyxy extents (relations
+        with norm 10) and their texts."""
+        n = len(box_results)
+        if n == 0:
+            return box_results
+        boxes = np.asarray([[min(r['box'][0::2]), min(r['box'][1::2]),
+                             max(r['box'][0::2]), max(r['box'][1::2])]
+                            for r in box_results], np.float32)
+        texts = encode_texts([r['text'] for r in box_results],
+                             self.kie_char2idx, self.kie_max_chars)
+        rel = compute_relations(boxes, 10.0)
+        dev = self.kie_device
+        with torch.inference_mode():
+            node_cls, _ = self.kie_model(
+                torch.from_numpy(rel)[None].to(dev),
+                torch.from_numpy(texts)[None].to(dev))
+            probs = torch.softmax(node_cls[0], -1).cpu().numpy()
+            logits = node_cls[0].cpu().numpy()
+        for r, lab, conf in zip(box_results, logits.argmax(-1),
+                                probs.max(-1)):
+            r['label'] = int(lab)
+            r['label_score'] = float(conf)
+        return box_results
 
     # -- single stages ---------------------------------------------------
     def detect(self, img) -> List[np.ndarray]:
@@ -149,6 +201,8 @@ class MMOCR:
                     'text': rec.get('text', ''),
                     'text_score': float(score),
                 })
+            if self.kie_model is not None:
+                box_results = self.kie_infer(box_results)
             res = {'filename': filename, 'result': box_results}
             if merge:
                 res['merged'] = stitch_boxes_into_lines(
@@ -188,6 +242,7 @@ class TextRecInference(MMOCR):
                  checkpoint: Optional[str] = None, batch_mode: bool = False,
                  seed: int = 0, device=None):
         self.detector = None
+        self.kie_model = None
         self.rec = init_recognizer(config, checkpoint, device=device,
                                    seed=seed)
         self.batch_mode = batch_mode

@@ -1,6 +1,7 @@
-"""Recognition and detection datasets, loaders, the pipelines and the
-batcher (counterpart of ``tps_pp_tpu/datasets``)."""
+"""Recognition, detection, KIE and NER datasets, loaders, the pipelines
+and the batcher (counterpart of ``tps_pp_tpu/datasets``)."""
 from . import pipelines  # noqa: F401 (registration)
+from .kie_dataset import KIEDataset, NerDataset, OpensetKIEDataset
 from .loader import HardDiskLoader, LineJsonParser, LineStrParser, LmdbLoader
 from .ocr_seg_dataset import OCRSegDataset, parse_char_anno
 from .ocr_dataset import (DataLoader, OCRDataset, UniformConcatDataset,
@@ -11,4 +12,5 @@ from .textdet_dataset import TextDetDataset
 __all__ = ['HardDiskLoader', 'LmdbLoader', 'LineStrParser', 'LineJsonParser',
            'OCRDataset', 'OCRSegDataset', 'UniformConcatDataset',
            'DataLoader', 'build_dataset', 'Compose', 'parse_char_anno',
-           'sample_key', 'seeded_rngs', 'TextDetDataset']
+           'sample_key', 'seeded_rngs', 'TextDetDataset', 'KIEDataset',
+           'OpensetKIEDataset', 'NerDataset']

@@ -1,10 +1,10 @@
-"""Recognition and detection metrics (counterpart of
-``tps_pp_tpu/evaluation``, without its NER metric, which the port has no
-model for yet)."""
+"""Recognition, detection, KIE and NER metrics (counterpart of
+``tps_pp_tpu/evaluation``)."""
+from .f1 import compute_f1_score, eval_ner_f1
 from .ocr_metric import count_matches, eval_ocr_metric, levenshtein
 
 __all__ = ['eval_ocr_metric', 'count_matches', 'levenshtein',
-           'eval_hmean_iou']
+           'eval_hmean_iou', 'compute_f1_score', 'eval_ner_f1']
 
 
 def __getattr__(name):

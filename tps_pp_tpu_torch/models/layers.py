@@ -216,6 +216,68 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return x
 
 
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """``jax.image.resize(..., 'bilinear')`` upsampling of an NCHW tensor:
+    half-pixel centres, the edge taps renormalised, which is torch's
+    ``align_corners=False`` with its source clamp (PANet's FFM and the
+    UNet's up stages)."""
+    if tuple(x.shape[2:]) == tuple(size):
+        return x
+    return F.interpolate(x, size=tuple(size), mode='bilinear',
+                         align_corners=False)
+
+
+def roi_align(feat: torch.Tensor, boxes: torch.Tensor,
+              out_size: Tuple[int, int],
+              batch: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RoIAlign of ``boxes`` (N, 4) xyxy in the level's coordinates from
+    ``feat`` (B, C, H, W), RoI i from image ``batch[i]`` (0 where None):
+    (N, C, out_h, out_w) bilinear samples at the bin centres (one sample a
+    bin), the four taps clamped to the map, in one gather (JAX's
+    ``roi_align_jax``); differentiable in ``feat``."""
+    out_w, out_h = out_size
+    B, C, H, W = feat.shape
+    dt = feat.dtype
+    boxes = boxes.to(dt)
+    cx = (boxes[:, 0] + boxes[:, 2]) / 2
+    cy = (boxes[:, 1] + boxes[:, 3]) / 2
+    w = torch.clamp(boxes[:, 2] - boxes[:, 0], min=1.0)
+    h = torch.clamp(boxes[:, 3] - boxes[:, 1], min=1.0)
+    # the bins' centres made on the host: on the card a division by a
+    # Python number is a product with its reciprocal, an ulp from the CPU's
+    # quotient, which moves a sample by up to an ulp times the box's width
+    gys = ((torch.arange(out_h, dtype=dt) + 0.5) / out_h - 0.5).to(
+        feat.device)
+    gxs = ((torch.arange(out_w, dtype=dt) + 0.5) / out_w - 0.5).to(
+        feat.device)
+    gy, gx = torch.meshgrid(gys, gxs, indexing='ij')        # (oh, ow)
+    px = cx[:, None, None] + gx[None] * w[:, None, None]    # (N, oh, ow)
+    py = cy[:, None, None] + gy[None] * h[:, None, None]
+    x0 = torch.clamp(torch.floor(px), 0, W - 1)
+    y0 = torch.clamp(torch.floor(py), 0, H - 1)
+    wx = torch.clamp(px - x0, 0, 1)[..., None]
+    wy = torch.clamp(py - y0, 0, 1)[..., None]
+    x0, y0 = x0.long(), y0.long()
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    base = (torch.zeros_like(x0) if batch is None
+            else batch.to(feat.device).long()[:, None, None] * (H * W))
+    idx = torch.stack([base + y0 * W + x0, base + y0 * W + x1,
+                       base + y1 * W + x0, base + y1 * W + x1])
+    rows = feat.permute(0, 2, 3, 1).reshape(B * H * W, C)
+    # a backward that sums each row's gradients in a fixed order, so that
+    # training repeats itself: on the card the indexing backward (a sort,
+    # then a sum a segment; index_add_ adds atomically there), on the CPU
+    # index_select's (index_add_ in index order; the indexing backward's
+    # accumulate follows the threads there)
+    flat = idx.flatten()
+    taps = rows[flat] if rows.is_cuda else rows.index_select(0, flat)
+    f00, f01, f10, f11 = taps.view(*idx.shape, C)    # each (N, oh, ow, C)
+    out = ((f00 * (1 - wx) + f01 * wx) * (1 - wy) +
+           (f10 * (1 - wx) + f11 * wx) * wy)
+    return out.permute(0, 3, 1, 2)
+
+
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC tensor -> NCHW-shaped view (channels-last strides, no copy)."""
     return x.permute(0, 3, 1, 2)

@@ -43,7 +43,8 @@ import torch.nn.functional as F
 
 from ...ops.deform_conv import ModulatedDeformConv
 from ...registry import BACKBONES, HEADS, LOSSES, NECKS
-from ..layers import BatchNorm2d, ConvModule, resize_nearest
+from ..layers import (BatchNorm2d, ConvModule, resize_bilinear,
+                      resize_nearest)
 from .dbnet import _ResNetStem
 
 
@@ -94,16 +95,6 @@ class ResNetDet50(_ResNetStem):
                 cin = ch * 4
             setattr(self, f'layer{si + 1}', nn.Sequential(*layers))
             ch *= 2
-
-
-def _resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
-    """``jax.image.resize(..., 'bilinear')`` upsampling of an NCHW tensor:
-    half-pixel centres, the edge taps renormalised, which is torch's
-    ``align_corners=False`` with its source clamp."""
-    if tuple(x.shape[2:]) == tuple(size):
-        return x
-    return F.interpolate(x, size=tuple(size), mode='bilinear',
-                         align_corners=False)
 
 
 class SeparableConv(nn.Module):
@@ -171,7 +162,7 @@ class FPEM_FFM(nn.Module):
             ffm = cs if ffm is None else tuple(a + b
                                                for a, b in zip(ffm, cs))
         size = ffm[0].shape[2:]
-        return (ffm[0],) + tuple(_resize_bilinear(f, size) for f in ffm[1:])
+        return (ffm[0],) + tuple(resize_bilinear(f, size) for f in ffm[1:])
 
 
 @NECKS.register_module()

@@ -19,7 +19,17 @@ logs the ms an image, and scores the boundaries with ``--eval``
 (``hmean-iou`` for ``acc``, or ``hmean-ic13``). ``data.test`` is built
 through the port's registry, so a ``UniformConcatDataset`` of
 ``IcdarDataset``s works (the JAX CLI passes it to ``TextDetDataset`` and
-fails). KIE and NER raise ``NotImplementedError``.
+fails).
+
+An SDMGR or NerClassifier config (``configs/kie/sdmgr/``,
+``configs/ner/bert_softmax/``) runs every item of ``data.test`` through
+the model one at a time, as the JAX CLI's KIE / NER branch
+(``tools/test.py:120-190``): SDMGR's node classes scored by the closed-set
+``macro_f1`` (``evaluation.metric_options.macro_f1``'s ``ignores``), or,
+on an ``OpensetKIEDataset``, the softmaxed nodes and links
+(``edges[:n, :n, 1]``) decoded into key-value pairs and scored by the
+openset F1s; NER's per-token argmax scored by the entity F1. It logs the
+ms an item (the item's making, the forward and the copy out).
 """
 from __future__ import annotations
 
@@ -31,10 +41,9 @@ import time
 from typing import Dict, List, Optional
 
 from ..apis.detector import DET_TYPES
+from ..apis.train_kie import KIE_TYPES, NER_TYPES
 
-# model types of the JAX package's KIE and NER branches
-# (tps_pp_tpu/apis/train_kie.py:28-29)
-KIE_NER_TYPES = ('SDMGR', 'NerClassifier')
+KIE_NER_TYPES = KIE_TYPES + NER_TYPES
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -75,10 +84,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> Dict:
     merge_cli_options(cfg, parse_cfg_options(args.cfg_options))
     model_type = cfg['model'].get('type')
     if model_type in KIE_NER_TYPES:
-        raise NotImplementedError(
-            f'{model_type}: KIE and NER evaluation is not ported yet '
-            '(ROADMAP.md queue 1, KIE and NER)')
-    if model_type in DET_TYPES:
+        metrics, results = eval_kie_ner(cfg, args, device)
+    elif model_type in DET_TYPES:
         metrics, results = eval_detector(cfg, args, device)
     else:
         rec = init_recognizer(cfg, args.checkpoint, device)
@@ -117,6 +124,62 @@ def eval_detector(cfg, args, device=None):
     metric = 'hmean-iou' if args.eval in ('acc', 'hmean-iou') else args.eval
     return (ds.evaluate(preds, metric=metric),
             [[b.tolist() for b in p] for p in preds])
+
+
+
+def eval_kie_ner(cfg, args, device=None):
+    """The KIE or NER branch of the JAX ``tools/test.py:120-190``; returns
+    (metrics, each item's result as lists)."""
+    import torch
+
+    from ..apis.train_kie import (build_ner_model, build_sdmgr_apply,
+                                  build_task_dataset)
+    from ..datasets.kie_dataset import OpensetKIEDataset
+
+    ds = build_task_dataset(cfg, 'test')
+    results = []
+    if cfg['model']['type'] in KIE_TYPES:
+        apply, model, _ = build_sdmgr_apply(cfg, args.checkpoint, ds[0],
+                                            device)
+        openset = isinstance(ds, OpensetKIEDataset)
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            item = ds[i]
+            node_cls, edge_cls = apply(model, item)
+            if openset:      # the pair decode reads softmaxed nodes, links
+                n = int((item['labels'] != -100).sum())
+                N = len(item['labels'])
+                edges = torch.softmax(edge_cls, -1).reshape(N, N, 2)
+                results.append({
+                    'filename': item['filename'],
+                    'nodes': torch.softmax(node_cls, -1)[:n].cpu().numpy(),
+                    'edges': edges[:n, :n, 1].cpu().numpy()})
+            else:
+                results.append(node_cls.cpu().numpy().argmax(-1))
+        item_seconds = time.perf_counter() - t0
+        opts = ((cfg.get('evaluation') or {}).get('metric_options')
+                or {}).get('macro_f1') or {}
+        metrics = ds.evaluate(results, metric=args.eval, **opts)
+    else:
+        model = build_ner_model(cfg, args.checkpoint, device)
+        dev = next(model.parameters()).device
+        t0 = time.perf_counter()
+        for i in range(len(ds)):
+            item = ds[i]
+            with torch.inference_mode():
+                logits = model(
+                    torch.from_numpy(item['input_ids'])[None].to(dev),
+                    torch.from_numpy(item['attention_mask'])[None].to(dev))
+            results.append(logits.cpu().numpy().argmax(-1)[0])
+        item_seconds = time.perf_counter() - t0
+        metrics = ds.evaluate(results)
+    # the items' making on the host, the forwards and the copies out; the
+    # metric's own time is left out
+    logging.info('%s eval: %d items, %.2f ms/item', cfg['model']['type'],
+                 len(ds), 1e3 * item_seconds / max(len(ds), 1))
+    return metrics, [{k: getattr(v, 'tolist', lambda: v)()
+                      for k, v in r.items()} if isinstance(r, dict)
+                     else r.tolist() for r in results]
 
 
 if __name__ == '__main__':

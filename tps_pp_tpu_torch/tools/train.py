@@ -24,8 +24,12 @@ fails on), in batches of
 ``samples_per_gpu`` (the JAX CLI leaves ``train_detector``'s default of
 4; DRRG and Mask R-CNN one page a step, as JAX's loops), for
 ``total_epochs``, with no augmentation (JAX's loop runs no
-``train_pipeline``). KIE and NER raise ``NotImplementedError``
-(``ROADMAP.md`` queue 1).
+``train_pipeline``).
+
+An SDMGR or NerClassifier config trains through ``train_kie`` /
+``train_ner`` on one GPU (the JAX CLI's ``tools/train.py:60-67``):
+``data.train`` built by its ``type`` (``build_task_dataset``), batches of
+``samples_per_gpu``, ``total_epochs`` epochs, a ``.pth`` each.
 """
 from __future__ import annotations
 
@@ -63,7 +67,8 @@ def train_cfg_of(cfg) -> dict:
 def main(argv: Optional[List[str]] = None, device=None):
     """Train; ``device`` as in ``build_recognizer`` (the process's GPU
     when None). Returns ``train_recognizer``'s (optimizer, history), or
-    ``train_detector``'s (model, optimizer, history)."""
+    ``train_detector``'s, ``train_kie``'s or ``train_ner``'s (model,
+    optimizer, history)."""
     from ..apis import build_recognizer, train_recognizer
     from ..config import load_config, merge_cli_options
     from ..datasets import build_dataset
@@ -74,9 +79,15 @@ def main(argv: Optional[List[str]] = None, device=None):
     merge_cli_options(cfg, parse_cfg_options(args.cfg_options))
     model_type = cfg['model'].get('type')
     if model_type in KIE_NER_TYPES:
-        raise NotImplementedError(
-            f'{model_type}: KIE and NER training is not ported yet '
-            '(ROADMAP.md queue 1, KIE and NER)')
+        from ..apis.train_kie import (KIE_TYPES, build_task_dataset,
+                                      train_kie, train_ner)
+        data = cfg.get('data', {})
+        return (train_kie if model_type in KIE_TYPES else train_ner)(
+            cfg, build_task_dataset(cfg, 'train'), work_dir=args.work_dir,
+            batch_size=int(data.get('samples_per_gpu', 4)),
+            log_interval=cfg.get('log_config', {}).get('interval', 10),
+            seed=args.seed, device=device, resume_from=args.resume_from,
+            load_from=args.load_from)
     if model_type in DET_TYPES:
         from ..apis.train_det import train_detector
         data = cfg.get('data', {})

@@ -671,6 +671,91 @@ def maskrcnn_rules(cfg: Mapping) -> List[Rule]:
                     (f'{mask}.conv_logits', 'mask/logits', 'conv')]
 
 
+def _double_conv_rules(tp: str, fp: str) -> List[Rule]:
+    return [r for k in range(2) for r in (
+        (f'{tp}.conv{k}', f'{fp}/conv{k}', 'conv_nobias'),
+        (f'{tp}.bn{k}', f'{fp}/bn{k}', 'bn'))]
+
+
+def unet_rules(num_stages: int = 5) -> List[Rule]:
+    """The UNet's names, which mirror the flax modules (``enc{i}``,
+    ``up{i}``, ``dec{i}``, each double convolution's ``conv{k}`` /
+    ``bn{k}``): the reference's UNet is built of mmcv blocks whose
+    layout (a BatchNorm and ReLU after the 1x1 up convolution) the JAX
+    package does not follow, so its checkpoint names cannot be taken
+    over."""
+    rules = []
+    for i in range(num_stages):
+        rules += _double_conv_rules(f'backbone.enc{i}', f'unet/enc{i}')
+    for i in range(num_stages - 1):
+        rules.append((f'backbone.up{i}', f'unet/up{i}', 'conv'))
+        rules += _double_conv_rules(f'backbone.dec{i}', f'unet/dec{i}')
+    return rules
+
+
+def sdmgr_rules(cfg: Mapping, visual=None) -> List[Rule]:
+    """The rule table of an SDMGR config with MMOCR 0.4.0's head names
+    (``head.node_embed``, ``head.rnn``, ``head.edge_embed``,
+    ``head.gnn_layers.{i}.{in_fc, coef_fc, out_fc}``, ``head.node_cls``,
+    ``head.edge_cls``; with the visual modality ``head.fusion.{linear0,
+    linear1, merge_linears0.{c}, merge_linears1.{c}, linear_out}`` and the
+    UNet, ``unet_rules``). JAX's ``torch_convert.py`` has no KIE table and
+    the reference tree is absent, so the names are read from MMOCR
+    0.4.0's modules, not checked against a reference checkpoint (MMOCR
+    calls the head ``bbox_head``). ``visual`` defaults to the config's
+    ``visual_modality``. The flax paths are those of JAX ``train_kie``'s
+    variables with the UNet's statistics under ``unet``
+    (``state_dict_from_jax``)."""
+    head = cfg.get('head') or {}
+    if visual is None:
+        visual = bool(cfg.get('visual_modality'))
+    rules = [('head.node_embed', 'head/node_embed', 'embed'),
+             ('head.rnn', 'head/rnn', 'lstm'),
+             ('head.edge_embed', 'head/edge_embed', 'linear')]
+    for i in range(int(head.get('num_gnn', 2))):
+        rules += [(f'head.gnn_layers.{i}.{m}', f'head/gnn{i}/{m}', 'linear')
+                  for m in ('in_fc', 'coef_fc', 'out_fc')]
+    rules += [('head.node_cls', 'head/node_cls', 'linear'),
+              ('head.edge_cls', 'head/edge_cls', 'linear')]
+    if not visual:
+        return rules
+    tp, fp = 'head.fusion', 'head/fusion'
+    rules += [(f'{tp}.linear0', f'{fp}/linear0', 'linear'),
+              (f'{tp}.linear1', f'{fp}/linear1', 'linear'),
+              (f'{tp}.linear_out', f'{fp}/linear_out', 'linear')]
+    for c in range(8):
+        rules += [(f'{tp}.merge_linears0.{c}', f'{fp}/m0_{c}', 'linear'),
+                  (f'{tp}.merge_linears1.{c}', f'{fp}/m1_{c}', 'linear')]
+    bb = cfg.get('backbone') or {}
+    return rules + unet_rules(int(bb.get('num_stages', 5)))
+
+
+def ner_rules(cfg: Mapping) -> List[Rule]:
+    """The rule table of a NerClassifier config with MMOCR 0.4.0's names
+    (its in-tree BERT: ``encoder.bert.embeddings.*``,
+    ``encoder.bert.encoder.layer.{i}.{attention.self.{query, key, value},
+    attention.output.{dense, LayerNorm}, intermediate.dense,
+    output.{dense, LayerNorm}}``, ``decoder.classifier``), unchecked as
+    ``sdmgr_rules``. The port has no pooler, as JAX has none: a reference
+    checkpoint's ``encoder.bert.pooler.*`` goes unread."""
+    n = int((cfg.get('encoder') or {}).get('num_hidden_layers', 12))
+    tp, fp = 'encoder.bert', 'encoder'
+    rules = [(f'{tp}.embeddings.{m}', f'{fp}/{m}', 'embed')
+             for m in ('word_embeddings', 'position_embeddings',
+                       'token_type_embeddings')]
+    rules.append((f'{tp}.embeddings.LayerNorm', f'{fp}/embeddings_ln', 'ln'))
+    for i in range(n):
+        lt, lf = f'{tp}.encoder.layer.{i}', f'{fp}/layer{i}'
+        rules += [(f'{lt}.attention.self.{m}', f'{lf}_attn/linear_{m[0]}',
+                   'linear') for m in ('query', 'key', 'value')]
+        rules += [(f'{lt}.attention.output.dense', f'{lf}_attn/fc', 'linear'),
+                  (f'{lt}.attention.output.LayerNorm', f'{lf}_ln1', 'ln'),
+                  (f'{lt}.intermediate.dense', f'{lf}_ffn1', 'linear'),
+                  (f'{lt}.output.dense', f'{lf}_ffn2', 'linear'),
+                  (f'{lt}.output.LayerNorm', f'{lf}_ln2', 'ln')]
+    return rules + [('decoder.classifier', 'decoder/cls', 'linear')]
+
+
 def rules_for_config(cfg: Mapping) -> List[Rule]:
     """The rule table of an NRTR, SATRN, ABINet (+ TPS_PP), CRNN, SAR
     (parallel, sequential, beam search), RobustScanner or SegRecognizer
@@ -679,8 +764,13 @@ def rules_for_config(cfg: Mapping) -> List[Rule]:
     JAX's ``rules_for_config`` (``torch_convert.py:604-684``), or of a
     DBNet, PANet, PSENet, FCENet, TextSnake, DRRG or OCRMaskRCNN detector
     (``dbnet_rules``, ``panet_rules``, ``psenet_rules``, ``fcenet_rules``,
-    ``textsnake_rules``, ``drrg_rules``, ``maskrcnn_rules``); a type
+    ``textsnake_rules``, ``drrg_rules``, ``maskrcnn_rules``), of an SDMGR
+    (``sdmgr_rules``) or of a NerClassifier (``ner_rules``); a type
     without rules raises a ``ValueError``."""
+    if cfg.get('type') == 'SDMGR':
+        return sdmgr_rules(cfg)
+    if cfg.get('type') == 'NerClassifier':
+        return ner_rules(cfg)
     det = {'DBNet': dbnet_rules, 'PANet': panet_rules,
            'PSENet': psenet_rules, 'FCENet': fcenet_rules,
            'TextSnake': textsnake_rules, 'DRRG': drrg_rules,
@@ -847,15 +937,29 @@ def convert_rules(variables: Mapping, rules: List[Rule]
 
 def state_dict_from_jax(variables: Mapping, cfg: Mapping
                         ) -> Dict[str, torch.Tensor]:
-    """JAX recognizer or detector variables -> a ``state_dict`` that the
-    model of ``build_recognizer(cfg)`` (NRTR, SATRN, ABINet, CRNN, SAR,
-    RobustScanner or SegRecognizer) or ``build_detector_module(cfg)``
-    (DBNet, PANet, PSENet, FCENet, TextSnake, DRRG, OCRMaskRCNN) takes
+    """JAX recognizer, detector, KIE or NER variables -> a ``state_dict``
+    that the model of ``build_recognizer(cfg)`` (NRTR, SATRN, ABINet, CRNN,
+    SAR, RobustScanner or SegRecognizer), ``build_detector_module(cfg)``
+    (DBNet, PANet, PSENet, FCENet, TextSnake, DRRG, OCRMaskRCNN),
+    ``build_sdmgr(cfg)`` or ``NerClassifier(cfg)`` takes
     with ``load_state_dict(strict=True)``; DRRG's are the JAX
     ``TextDetector``'s ``{'net': ..., 'gcn': ...}``, Mask R-CNN's the JAX
     ``MaskRCNNDetector.init_variables``' ``{'main', 'box', 'mask'}``. The
     sinusoid tables, buffers as in the reference, are made from the
-    config."""
+    config. An SDMGR's variables are JAX ``train_kie``'s (``{'params':
+    {'head', 'unet'}, 'batch_stats'}``, the UNet's statistics at the top of
+    ``batch_stats``; the UNet's rules where ``unet`` is there), a
+    NerClassifier's JAX ``NerClassifierModule``'s. The head's fusion
+    comes along where its parameters are there."""
+    if cfg.get('type') == 'SDMGR':
+        params = variables['params']
+        rules = sdmgr_rules(cfg, 'fusion' in params['head'])
+        if 'unet' in params:
+            variables = dict(variables, batch_stats={
+                'unet': variables.get('batch_stats', {})})
+        else:
+            rules = [r for r in rules if not r[0].startswith('backbone.')]
+        return convert_rules(variables, rules)
     if cfg.get('type') == 'DRRG':
         net = variables['net']
         variables = dict(net, params=dict(net['params'],
