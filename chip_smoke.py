@@ -393,6 +393,26 @@ seed):
   the UNet + pooling), BERT-base's at B=``B_NER``, T=``NER_LEN`` against
   its bound, each step, the ms an item of each evaluation and a page of
   ``readtext`` by stage (det / recog / kie).
+
+* deployment, last (``deploy_phase``): the flagship at full width in bf16
+  (``fused40_bf16``, seed-0 weights) through ``utils/export.py``:
+  ``export_serialized`` at B=8 and B=``B``, ``load_serialized`` and a run
+  of the loaded program on seed-0 crops with mixed valid ratios, which
+  must launch kernels 1, 3 and 4 (counted from 0 just before) and equal
+  the eager kernel path's argmax on every row (the largest probability
+  difference logged); ``aot_compile`` at B=``B``, whose CUDA graph must
+  hold kernels 1, 3 and 4 and whose replay must equal the eager argmax,
+  its replay ms against the eager ``predict``'s; ``ExportedRecognizer``
+  at batch 8 against ``simple_test`` on 5 crops; ``tools/serve_model.py``
+  on ``configs/textrecog/nrtr/nrtr_tps++.py`` (``model.dtype=bfloat16``)
+  in a thread on a free port: ``DEPLOY_CROPS`` uint8 crops as PNG bodies
+  (``cv_ops.png_encode``; the card's machine has no cv2), raw and base64,
+  each text equal to ``model_inference`` on the decoded array and its
+  score within ``DEPLOY_SCORE_ATOL``, the p50 and largest ms a request;
+  ``/ping``, a body that does not decode (400) and a wrong path (404); and
+  ``--det`` with DBNet-R18's config on a 640 x 480 PNG page, the
+  boundaries equal to ``detect``'s. It logs the export and capture
+  seconds, the artifacts' bytes and the graph pool's.
   The whole script's time is logged before the ``kernels`` line.
 
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
@@ -690,6 +710,10 @@ KIE_DB_ABOVE, KIE_MIN_BOXES = (0.05, 0.1, 0.2, 0.3, 0.5), 4
 KIE_DOWNSTREAM = ('head.edge_embed', 'head.gnn_layers', 'head.node_cls',
                   'head.edge_cls')
 KIE_F32_GRAD_MULT = 3
+# deployment: the crops the server answers (each raw and as base64), the
+# bound on a served score against model_inference's on the same array, on
+# a served boundary's values against detect's (the same forward twice)
+DEPLOY_CROPS, DEPLOY_SCORE_ATOL, DEPLOY_BOX_ATOL = 16, 1e-6, 1e-3
 
 
 def log(*a):
@@ -6643,6 +6667,252 @@ def kie_ner_phase(dev, name):
         f'NER; {json.dumps(stats)}')
 
 
+def deploy_phase(dev, name):
+    """The deployment entry points on the card (see the module docstring,
+    "deployment")."""
+    import base64
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import (FLAGSHIP_INPUT, build_recognizer,
+                                       model_inference, nrtr_tps_pp_cfg)
+    from tps_pp_tpu_torch.datasets.pipelines.cv_ops import (png_decode,
+                                                             png_encode)
+    from tps_pp_tpu_torch.tools import serve_model
+    from tps_pp_tpu_torch.utils import export
+
+    t_phase = time.perf_counter()
+    want = {'tps_sampler': 1, 'encoder': 1, 'full_decode': 1}
+    rec = build_recognizer(nrtr_tps_pp_cfg(
+        dtype='bfloat16', decode_mode='fused40_bf16')).init_weights(SEED)
+    g = np.random.default_rng(SEED)
+    h, w, c = FLAGSHIP_INPUT
+    img = torch.from_numpy(g.standard_normal((B, h, w, c)).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    vr = torch.from_numpy(g.uniform(0.3, 1.0, B).astype(np.float32)).to(dev)
+    vr[::4] = 1.0
+
+    def same_argmax(what, got, ref):
+        if tuple(got.shape) != tuple(ref.shape) or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError(f'deploy {what}: output {tuple(got.shape)}'
+                                 f', finite {bool(torch.isfinite(got).all())}')
+        rows = int((got.argmax(-1) == ref.argmax(-1)).all(-1).sum())
+        diff = float((got.float() - ref.float()).abs().max())
+        log(f'deploy {what}: argmax equal to the eager kernel path on '
+            f'{rows} of {got.shape[0]} rows; largest probability '
+            f'difference {diff:.4g}')
+        if rows != got.shape[0]:
+            raise AssertionError(f'deploy {what}: {got.shape[0] - rows} '
+                                 f'rows part from the eager kernel path')
+
+    # ---- torch.export at B=8 and B=512: the loaded program's launches
+    for n in (8, B):
+        eager = rec.predict(img[:n], vr[:n], bucket_batch=False)
+        t0 = time.perf_counter()
+        blob = export.export_serialized(rec, n, FLAGSHIP_INPUT)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = export.load_serialized(blob).module()
+        t_load = time.perf_counter() - t0
+        zero_launches()
+        with torch.no_grad():
+            got = program(img[:n].contiguous(), vr[:n].contiguous())
+        read_launches('deploy', f'exported program B={n}', want)
+        log(f'deploy export B={n}: {len(blob)} bytes, export '
+            f'{t_export:.2f} s, load {t_load:.2f} s [{name}]')
+        same_argmax(f'exported program B={n}', got, eager)
+        del blob, program
+
+    # ---- aot_compile at B=512: the captured graph and its replay
+    t0 = time.perf_counter()
+    call = export.aot_compile(rec, B, FLAGSHIP_INPUT)
+    t_aot = time.perf_counter() - t0
+    log(f'deploy aot_compile B={B}: {t_aot:.2f} s (two eager calls, then '
+        f'the capture {call.capture_ms:.1f} ms); graph pool '
+        f'{call.pool_bytes} bytes; launches captured '
+        f'{call.captured_launches} [{name}]')
+    if call.captured_launches != want:
+        raise AssertionError(f'deploy aot_compile: captured '
+                             f'{call.captured_launches}, not {want}')
+    zero_launches()
+    got = call(img, vr).clone()
+    read_launches('deploy', 'graph replay (no Python launch)', {})
+    same_argmax(f'graph replay B={B}', got,
+                rec.predict(img, vr, bucket_batch=False))
+    with torch.inference_mode():
+        for what, fn in (('replay', lambda: call(img, vr)),
+                         ('eager predict', lambda: rec.predict(
+                             img, vr, bucket_batch=False)),
+                         ('eager predict', lambda: rec.predict(
+                             img, vr, bucket_batch=False)),
+                         ('replay', lambda: call(img, vr))):
+            log(f'deploy B={B} {what}: {cuda_ms(fn, 5):.3f} ms [{name}]')
+    del call
+
+    # ---- ExportedRecognizer: simple_test at a compiled batch of 8
+    five = img[:5].float().cpu().numpy()
+    er = export.ExportedRecognizer(rec, 8, FLAGSHIP_INPUT)
+    got = [r['text'] for r in er.simple_test(five)]
+    ref = [r['text'] for r in rec.simple_test(five)]
+    log(f'deploy ExportedRecognizer: texts {got[:2]}...; equal to '
+        f'simple_test: {got == ref}')
+    if got != ref:
+        raise AssertionError('deploy ExportedRecognizer: texts differ from '
+                             'simple_test')
+    del er, rec
+
+    # ---- serve_model in a thread: the flagship config, PNG bodies
+    repo = os.path.dirname(os.path.abspath(__file__))
+
+    def serve(argv):
+        server = serve_model.make_server(argv + ['--port', '0'])
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        return server, thread, f'http://127.0.0.1:{server.server_address[1]}'
+
+    def stop(server, thread):
+        server.shutdown()
+        server.server_close()
+        server.model.close()
+        thread.join(timeout=60)
+        if thread.is_alive():
+            raise AssertionError('deploy: the server thread did not stop')
+
+    def request(url, body=None):
+        req = urllib.request.Request(url, data=body,
+                                     method='GET' if body is None
+                                     else 'POST')
+        try:
+            r = urllib.request.urlopen(req, timeout=300)
+            return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    server, thread, base = serve([
+        os.path.join(repo, 'configs/textrecog/nrtr/nrtr_tps++.py'),
+        '--cfg-options', 'model.dtype=bfloat16'])
+    try:
+        srec = server.model.rec
+        crops = [g.integers(0, 256, (int(g.integers(16, 65)),
+                                     int(g.integers(24, 401)), 3), np.uint8)
+                 for _ in range(DEPLOY_CROPS)]
+        request(base + '/predictions/ocr', png_encode(crops[0]))   # warm
+        # the server's own time a request: the body's decode (in the
+        # request's thread) and the model's predict (model_inference on the
+        # model's worker thread, the wait for it included)
+        inside = {'decode': [], 'predict': []}
+
+        def timed(key, fn):
+            def call(*a):
+                t0 = time.perf_counter()
+                out = fn(*a)
+                torch.cuda.synchronize()
+                inside[key].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return call
+        decode_image = serve_model.decode_image
+        serve_model.decode_image = timed('decode', decode_image)
+        server.model.predict = timed('predict', server.model.predict)
+        zero_launches()
+        # the references first, in this thread, so that no work of this
+        # thread runs beside a request
+        refs, decode_ms, infer_ms = [], [], []
+        for crop in crops:
+            raw = png_encode(crop)
+            t0 = time.perf_counter()
+            arr = png_decode(raw)
+            t1 = time.perf_counter()
+            refs.append((raw, arr, model_inference(srec, arr)))
+            torch.cuda.synchronize()
+            decode_ms.append((t1 - t0) * 1e3)
+            infer_ms.append((time.perf_counter() - t1) * 1e3)
+        # model_inference in a new thread a call, as the server runs it
+        fresh_ms = []
+        for _, arr, _ in refs:
+            def run(a=arr):
+                t0 = time.perf_counter()
+                model_inference(srec, a)
+                torch.cuda.synchronize()
+                fresh_ms.append((time.perf_counter() - t0) * 1e3)
+            th = threading.Thread(target=run)
+            th.start()
+            th.join()
+        fresh_ms.sort()
+        log(f'deploy model_inference of one crop in a new thread a call: '
+            f'p50 {fresh_ms[len(fresh_ms) // 2]:.2f} ms, max '
+            f'{fresh_ms[-1]:.2f} [{name}]')
+        times, worst = [], 0.0
+        for raw, arr, ref in refs:
+            for body in (raw, base64.b64encode(raw)):
+                t0 = time.perf_counter()
+                code, out = request(base + '/predictions/ocr', body)
+                times.append((time.perf_counter() - t0) * 1e3)
+                score = float(np.mean(ref['score']))
+                worst = max(worst, abs(out.get('score', np.inf) - score))
+                if code != 200 or out['text'] != ref['text'] or \
+                        abs(out['score'] - score) > DEPLOY_SCORE_ATOL:
+                    raise AssertionError(f'deploy serve: {code} {out} '
+                                         f'against {ref}')
+        read_launches('deploy', f'serve_model, {2 * DEPLOY_CROPS} requests '
+                      f'and their model_inference', {k: None for k in want})
+        serve_model.decode_image = decode_image
+        for ts in (times, decode_ms, infer_ms, *inside.values()):
+            ts.sort()
+        log(f'deploy serve_model ({srec.resolved_decode_mode()}): '
+            f'{len(times)} PNG requests (raw and base64) equal to '
+            f'model_inference (largest score difference {worst:.3g}); ms a '
+            f'request p50 {times[len(times) // 2]:.2f}, max {times[-1]:.2f}; '
+            f'of a crop, png_decode p50 {decode_ms[len(crops) // 2]:.2f} '
+            f'(max {decode_ms[-1]:.2f}), model_inference p50 '
+            f'{infer_ms[len(crops) // 2]:.2f} (max {infer_ms[-1]:.2f}); in '
+            f'the server, a request\'s decode p50 '
+            f'{inside["decode"][len(times) // 2]:.2f} and predict p50 '
+            f'{inside["predict"][len(times) // 2]:.2f} [{name}]')
+        checks = {'ping': request(base + '/ping'),
+                  'bad body': request(base + '/predictions/ocr',
+                                      b'garbage\x00'),
+                  'bad path': request(base + '/predictions/nope',
+                                      png_encode(crops[0]))}
+        codes = {k: v[0] for k, v in checks.items()}
+        log(f'deploy serve_model: {codes}, ping {checks["ping"][1]}')
+        if codes != {'ping': 200, 'bad body': 400, 'bad path': 404} or \
+                checks['ping'][1] != {'status': 'Healthy'}:
+            raise AssertionError(f'deploy serve_model: {checks}')
+    finally:
+        stop(server, thread)
+    del srec
+
+    # ---- --det: DBNet-R18 on a 640 x 480 page
+    server, thread, base = serve([os.path.join(repo, DET_CONFIGS[
+        'dbnet_r18'][0]), '--det'])
+    try:
+        page = g.integers(0, 256, PAGE_HW + (3,), np.uint8)
+        t0 = time.perf_counter()
+        code, out = request(base + '/predictions/ocr', png_encode(page))
+        t_det = (time.perf_counter() - t0) * 1e3
+        got = out.get('boundary_result', [])
+        ref = [list(map(float, b))
+               for b in server.model.detector.detect(page)]
+        same = len(got) == len(ref) > 0 and all(
+            len(a) == len(b) for a, b in zip(got, ref))
+        diff = max((float(np.abs(np.subtract(a, b)).max())
+                    for a, b in zip(got, ref)), default=0.0)
+        log(f'deploy serve_model --det: {code}, {len(got)} boundaries, '
+            f'detect {len(ref)}, largest difference {diff:.3g}; '
+            f'{t_det:.1f} ms the request (the first) [{name}]')
+        if code != 200 or not same or diff > DEPLOY_BOX_ATOL:
+            raise AssertionError(f'deploy --det: {code}, {len(got)} '
+                                 f'boundaries against detect\'s {len(ref)}, '
+                                 f'{diff}')
+    finally:
+        stop(server, thread)
+    log(f'deploy phase: {time.perf_counter() - t_phase:.1f} s [{name}]')
+
+
 def main():
     import torch
     t_script = time.perf_counter()
@@ -7290,6 +7560,9 @@ def main():
 
     # ---- KIE and NER: SDMGR, the UNet16, BERT-base, their CLIs, readtext
     kie_ner_phase(dev, name)
+
+    # ---- deployment: export, CUDA-graph capture, the server
+    deploy_phase(dev, name)
     path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])

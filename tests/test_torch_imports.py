@@ -11,7 +11,8 @@ ResNetDet and on ResNetDet50 with DCNv2), its evaluation modules and
 ``MMOCR.readtext``, detection training (DBNet, PANet, PSENet) with
 PAN and PSE serving, FCENet's and TextSnake's training and serving,
 DRRG's and Mask R-CNN's, and KIE's and NER's (SDMGR with the UNet, BERT,
-their CLIs, ``MMOCR(kie='SDMGR')``)."""
+their CLIs, ``MMOCR(kie='SDMGR')``), and the deployment slice (export,
+the CPU ``aot_compile``, the server on a PNG body, ``fileio``)."""
 import json
 import os
 import subprocess
@@ -1064,3 +1065,102 @@ def test_kie_and_ner_train_and_serve_with_jax_blocked():
                    'visual': True, 'logits': [[4, 3], [16, 2]],
                    'metrics': ['macro_f1'], 'pages': 1, 'labelled': True,
                    'launches': [0, 0]}
+
+
+DEPLOY_SCRIPT = r'''
+import importlib.abc, json, os, sys, tempfile, threading, urllib.request
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    """Refuses jax, flax, cv2 and the JAX package outright."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',
+                                  'tps_pp_tpu'):
+            raise ImportError(f'{name} is blocked')
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from tps_pp_tpu_torch.apis import build_recognizer, nrtr_tps_pp_cfg
+from tps_pp_tpu_torch.datasets.pipelines import cv_ops
+from tps_pp_tpu_torch.ops import encoder, full_decode, tps_sampler
+from tps_pp_tpu_torch.tools import (det_test_imgs, export_model,
+                                    kie_test_imgs, recog_test_imgs,
+                                    serve_model)
+from tps_pp_tpu_torch.utils import export, fileio, visualize
+
+rec = build_recognizer(nrtr_tps_pp_cfg(tiny=True, decode_mode='fused40_bf16'),
+                       device='cpu').init_weights(0)
+img = torch.from_numpy(np.random.default_rng(0).standard_normal(
+    (2, 32, 64, 3)).astype(np.float32))
+ep = export.load_serialized(export.export_serialized(rec, 2, (32, 64, 3)))
+with torch.no_grad():
+    out = ep.module()(img, torch.ones(2))
+same = bool(torch.equal(out, rec.predict(img, bucket_batch=False)))
+aot = export.aot_compile(rec, 2, (32, 64, 3))
+same_aot = bool(torch.equal(aot(img, torch.ones(2)), out))
+crop = np.random.default_rng(1).integers(0, 256, (20, 50, 3), np.uint8)
+png = cv_ops.png_encode(crop)
+decoded = bool(np.array_equal(serve_model.decode_image(png), crop))
+jpeg_without_cv2 = serve_model.decode_image(b'\xff\xd8\xff\xe0 not png')
+with tempfile.TemporaryDirectory() as wd:
+    cfg = os.path.join(wd, 'cfg.py')
+    with open(cfg, 'w') as f:
+        f.write(f'model = {nrtr_tps_pp_cfg(tiny=True)!r}\n'
+                'test_pipeline = [dict(type="ResizeOCR", height=32, '
+                'min_width=64, max_width=64, keep_aspect_ratio=False), '
+                'dict(type="ToTensorOCR"), dict(type="NormalizeOCR", '
+                'mean=[0.5] * 3, std=[0.25] * 3), '
+                'dict(type="Collect", keys=["img"])]\n')
+    server = serve_model.make_server([cfg, '--port', '0', '--device', 'cpu'])
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    base = f'http://127.0.0.1:{server.server_address[1]}'
+    req = urllib.request.Request(base + '/predictions/ocr', data=png,
+                                 method='POST')
+    served = json.loads(urllib.request.urlopen(req, timeout=60).read())
+    server.shutdown()
+    server.server_close()
+    server.model.close()
+    t.join(timeout=30)
+    fileio.list_to_file(os.path.join(wd, 'a', 'l.txt'), ['x y', 'z'])
+    lines = fileio.list_from_file(os.path.join(wd, 'a', 'l.txt'))
+try:
+    visualize.imshow_text_label(crop, 'a')
+    drew = True
+except ImportError as e:
+    drew = str(e)
+env = fileio.collect_env()
+print(json.dumps({
+    'loaded': sorted(m for m in ('jax', 'flax', 'cv2', 'tps_pp_tpu')
+                     if m in sys.modules),
+    'same': [same, same_aot], 'decoded': decoded,
+    'jpeg': jpeg_without_cv2 is None, 'served': sorted(served),
+    'lines': lines, 'drew': 'cv2 is not installed' in drew,
+    'env': [env['cv2'], env['cuda.is_available']],
+    'launches': [tps_sampler.tps_sampler.launches,
+                 encoder.encoder_forward.launches,
+                 full_decode.full_decode.launches]}))
+'''
+
+
+def test_deployment_with_jax_and_cv2_blocked():
+    """The deployment slice on the CPU with jax, flax, cv2 and the JAX
+    package refused at import: export, load and run, the CPU
+    ``aot_compile``, the server answering a PNG body (decoded without cv2;
+    a JPEG body gets None), ``fileio``, ``collect_env``; drawing raises the
+    ImportError that names cv2; nothing launches."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', DEPLOY_SCRIPT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {'loaded': [], 'same': [True, True], 'decoded': True,
+                   'jpeg': True, 'served': ['score', 'text'],
+                   'lines': ['x y', 'z'], 'drew': True,
+                   'env': ['missing', False], 'launches': [0, 0, 0]}

@@ -2,9 +2,10 @@
 with a narrow DBNet and the tiny flagship recognizer on the same weights
 gives the same boxes, texts and merged lines, for pages as arrays and as
 files; recognition alone; ``output`` writes the returned value; ``kie=``
-labels the boxes as JAX's does; ``img_out_dir`` raises;
+labels the boxes as JAX's does; ``img_out_dir`` draws JAX's page;
 ``TextRecInference``; and the box utilities against JAX's."""
 import json
+import os
 
 import cv2
 import jax
@@ -147,7 +148,7 @@ def test_kie_and_drawn_output_raise(ocrs, tmp_path):
     """``kie='SDMGR'`` (on the JAX MMOCR's KIE weights, through a
     ``kie_ckpt``) labels every box as JAX's does, each ``label_score``
     within 1e-5; KIE without a recognizer fails JAX's assertion; the
-    drawn results (``img_out_dir``) still raise."""
+    drawn result (``img_out_dir``) is the file JAX draws."""
     jocr, ocr, recog, pth = ocrs
     jocr._init_kie('SDMGR', None, 3)
     try:
@@ -178,8 +179,16 @@ def test_kie_and_drawn_output_raise(ocrs, tmp_path):
     with pytest.raises(AssertionError, match='KIE requires'):
         MMOCR(det=None, recog='NRTR_TPS', recog_config=recog, recog_ckpt=pth,
               kie='SDMGR', device='cpu')
-    with pytest.raises(NotImplementedError, match='visualize'):
-        ocr.readtext(pages(1)[0], img_out_dir='/nonexistent')
+    # the drawn page (img_out_dir) is JAX's, byte for byte
+    page = pages(1, seed=4)[0]
+    mine, theirs = tmp_path / 'port_vis', tmp_path / 'jax_vis'
+    theirs.mkdir()
+    got = ocr.readtext(page, img_out_dir=str(mine))
+    same_results(got, jocr.readtext(page, img_out_dir=str(theirs)))
+    assert len(got[0]['result']) >= 5
+    assert os.listdir(mine) == os.listdir(theirs) == ['out_img_0.jpg']
+    assert (mine / 'out_img_0.jpg').read_bytes() == \
+        (theirs / 'out_img_0.jpg').read_bytes()
 
 
 def word_boxes(seed):

@@ -8,9 +8,11 @@ each box from its text and its place among the page's boxes (``label``,
 ``label_score``), and, with ``merge``, stitches the words into lines.
 Either stage may be left out: det only returns boundaries, recog only
 reads whole images; KIE needs both. Models are on the card unless
-``device='cpu'``. The drawn results (``img_out_dir``) need
-``utils/visualize.py``, which is not ported yet, and raise
-``NotImplementedError``.
+``device='cpu'``. With ``img_out_dir`` each detected page is drawn
+(``utils.visualize.det_recog_show_result``: the boxes beside their texts,
+which needs cv2) to ``<img_out_dir>/out_<file name>`` (``img_<i>.jpg`` for
+an array), as the JAX package does; a recognition-only call draws
+nothing.
 
 Usage::
 
@@ -33,6 +35,7 @@ import torch
 from ..datasets.kie_dataset import KIE_CHARS, compute_relations, encode_texts
 from ..datasets.pipelines.transforms import LoadImageFromFile
 from ..utils.box_util import crop_img, stitch_boxes_into_lines
+from ..utils.visualize import det_recog_show_result
 from .detector import init_detector
 from .inference import init_recognizer, model_inference
 from .train_kie import _load, init_kie_weights, resolve_device
@@ -169,10 +172,6 @@ class MMOCR:
         """img: a path, an ndarray or a list of them. One dict per image
         (reference det_recog_kie_inference, ocr.py:499-585); ``output``
         writes the returned value as JSON."""
-        if img_out_dir:
-            raise NotImplementedError(
-                'img_out_dir: drawing the results (utils/visualize.py) is '
-                'not ported yet')
         single = not isinstance(img, (list, tuple))
         out = []
         for item in ([img] if single else list(img)):
@@ -204,6 +203,12 @@ class MMOCR:
             if self.kie_model is not None:
                 box_results = self.kie_infer(box_results)
             res = {'filename': filename, 'result': box_results}
+            if img_out_dir:
+                name = os.path.basename(filename) or f'img_{len(out)}.jpg'
+                os.makedirs(img_out_dir, exist_ok=True)
+                det_recog_show_result(
+                    arr, res, out_file=os.path.join(img_out_dir,
+                                                    f'out_{name}'))
             if merge:
                 res['merged'] = stitch_boxes_into_lines(
                     [{'box': r['box'], 'text': r['text']}

@@ -103,10 +103,26 @@ outlines: ``tests/test_torch_panet.py``; ``RETR_TREE``, ``erode``,
 border, ``polylines`` and 8-connected ``connected_components``:
 ``tests/test_torch_drrg_full.py``; ``resize_f32`` and
 ``resize_inter_nearest`` on float32: ``tests/test_torch_maskrcnn.py``).
+
+The server decodes request bodies where cv2 is absent:
+
+* ``png_decode(buf, grayscale=False)``: ``cv2.imdecode`` with
+  ``IMREAD_COLOR`` (BGR, alpha dropped, grey replicated) or
+  ``IMREAD_GRAYSCALE`` of an 8-bit, non-interlaced PNG of colour type 0,
+  2, 3 (without ``tRNS``), 4 or 6, any of the five row filters; colour to
+  grey is libpng's ``png_set_rgb_to_gray`` with OpenCV's 0.299 / 0.587,
+  ``(9797 R + 19234 G + 13737 B) >> 15``. Other PNGs raise, naming cv2.
+* ``png_encode(img)``: an 8-bit grey, BGR or BGRA PNG, each row filtered
+  by libpng's heuristic (the filter with the least sum of absolute signed
+  bytes).
+
+``tests/test_torch_deploy.py`` holds both against cv2.
 """
 from __future__ import annotations
 
 import math
+import struct
+import zlib
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -1436,3 +1452,189 @@ def distance_transform(mask: np.ndarray) -> np.ndarray:
                        np.minimum(down[..., :-2] + b, down[..., 2:] + b))
         t[..., i, 1:-1] = _dt_chain(v[..., ::-1], _FLT_MAX)[..., ::-1]
     return t[..., 1:-1, 1:-1]
+
+
+# ---------------------------------------------------------------- PNG
+PNG_SIGNATURE = b'\x89PNG\r\n\x1a\n'
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# libpng's png_set_rgb_to_gray_fixed of OpenCV's (0.299, 0.587), in 1/32768
+_GRAY_R, _GRAY_G = 9797, 19234
+
+
+def _png_refuse(why: str):
+    raise ValueError(f'png_decode: {why}; decode it with cv2.imdecode '
+                     '(cv2 is not part of the port)')
+
+
+def _png_chunks(buf: bytes):
+    """The (type, data) chunks of a PNG stream, their CRCs checked."""
+    if buf[:8] != PNG_SIGNATURE:
+        raise ValueError('png_decode: not a PNG stream')
+    pos = 8
+    while pos + 12 <= len(buf):
+        n, kind = struct.unpack('>I4s', buf[pos:pos + 8])
+        data = buf[pos + 8:pos + 8 + n]
+        crc = buf[pos + 8 + n:pos + 12 + n]
+        if len(data) != n or len(crc) != 4 or \
+                zlib.crc32(kind + data) != struct.unpack('>I', crc)[0]:
+            raise ValueError(f'png_decode: chunk {kind!r} is cut or its CRC '
+                             'is wrong')
+        yield kind, data
+        if kind == b'IEND':
+            return
+        pos += 12 + n
+    raise ValueError('png_decode: the stream ends before IEND')
+
+
+def _unfilter(raw: np.ndarray, h: int, w: int, ch: int) -> np.ndarray:
+    """The (h, w, ch) samples of the filtered rows ``raw`` (each led by its
+    filter byte). Rows of None, Sub and Up alone are undone a row at a
+    time; with Average or Paeth rows, whose bytes depend on the byte
+    before them in the row, the image is undone an anti-diagonal at a time
+    (a pixel needs its left, upper and upper-left neighbours only), on a
+    sheared copy where each anti-diagonal is one column."""
+    rows = raw.reshape(h, w * ch + 1)
+    types, data = rows[:, 0], rows[:, 1:].reshape(h, w, ch)
+    if types.max(initial=0) > 4:
+        raise ValueError(f'png_decode: filter type {int(types.max())}')
+    if types.max(initial=0) <= 2:
+        out = np.empty((h, w, ch), np.uint8)
+        prev = np.zeros((w, ch), np.uint8)
+        for y in range(h):
+            t = types[y]
+            if t == 0:
+                prev = data[y]
+            elif t == 1:
+                prev = (np.cumsum(data[y], axis=0, dtype=np.int64) % 256
+                        ).astype(np.uint8)
+            else:
+                prev = data[y] + prev
+            out[y] = prev
+        return out
+    # sheared: pixel (y, x) at S[y + 1, y + x]; row 0 is the zero row above
+    # the image, and a column left of x = 0 is never written, so it reads 0
+    S = np.zeros((h + 1, h + w, ch), np.int16)
+    D = np.zeros((h, h + w, ch), np.int16)
+    ys = np.arange(h)[:, None]
+    D[ys, ys + np.arange(w)[None, :]] = data
+    t = types.astype(np.int16)[:, None]
+    for k in range(h + w - 1):
+        lo, hi = max(0, k - w + 1), min(h - 1, k) + 1
+        a = S[lo + 1:hi + 1, k - 1] if k else np.zeros((hi - lo, ch),
+                                                         np.int16)
+        b = S[lo:hi, k - 1] if k else a
+        c = S[lo:hi, k - 2] if k > 1 else np.zeros_like(a)
+        p = a + b - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+        paeth = np.where((pa <= pb) & (pa <= pc), a,
+                         np.where(pb <= pc, b, c))
+        tk = t[lo:hi]
+        pred = np.where(tk == 4, paeth, np.where(
+            tk == 3, (a + b) >> 1, np.where(tk == 2, b, np.where(
+                tk == 1, a, 0))))
+        S[lo + 1:hi + 1, k] = (D[lo:hi, k] + pred) & 255
+    return S[1 + ys, ys + np.arange(w)[None, :]].astype(np.uint8)
+
+
+def png_decode(buf, grayscale: bool = False) -> np.ndarray:
+    """``cv2.imdecode(buf, IMREAD_GRAYSCALE if grayscale else
+    IMREAD_COLOR)`` of an 8-bit, non-interlaced PNG of colour type 0, 2,
+    3 (no ``tRNS``), 4 or 6: (H, W, 3) BGR or (H, W) grey uint8, bit for
+    bit. A PNG of another kind raises a ``ValueError`` naming cv2, and so
+    does a stream that is not a whole PNG."""
+    buf = bytes(buf)
+    head, palette, idat = None, None, []
+    for kind, data in _png_chunks(buf):
+        if kind == b'IHDR':
+            head = struct.unpack('>IIBBBBB', data)
+        elif kind == b'PLTE':
+            palette = np.frombuffer(data, np.uint8).reshape(-1, 3)
+        elif kind == b'IDAT':
+            idat.append(data)
+        elif kind == b'tRNS':
+            _png_refuse('a tRNS chunk (transparency) is not decoded here')
+    if head is None or not idat:
+        raise ValueError('png_decode: no IHDR or no IDAT chunk')
+    w, h, depth, ctype, _, _, interlace = head
+    if depth != 8 or ctype not in _PNG_CHANNELS:
+        _png_refuse(f'bit depth {depth}, colour type {ctype}: only 8-bit '
+                    f'colour types {sorted(_PNG_CHANNELS)} are decoded here')
+    if interlace:
+        _png_refuse('an interlaced PNG')
+    if ctype == 3 and palette is None:
+        raise ValueError('png_decode: a palette image without PLTE')
+    ch = _PNG_CHANNELS[ctype]
+    try:
+        raw = np.frombuffer(zlib.decompress(b''.join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f'png_decode: IDAT does not inflate: {e}') from e
+    if raw.size != h * (w * ch + 1):
+        raise ValueError(f'png_decode: {raw.size} bytes of image data, '
+                         f'not {h * (w * ch + 1)}')
+    px = _unfilter(raw, h, w, ch)
+    if ctype == 3:
+        if int(px.max(initial=0)) >= len(palette):
+            raise ValueError('png_decode: a palette index past PLTE')
+        px = palette[px[..., 0]]
+    elif ctype in (4, 6):
+        px = px[..., :-1]                   # the alpha is stripped
+    if px.shape[-1] == 1:
+        return px[..., 0] if grayscale else np.repeat(px, 3, axis=-1)
+    if not grayscale:
+        return np.ascontiguousarray(px[..., ::-1])
+    r, g, b = (px[..., i].astype(np.int64) for i in range(3))
+    return ((_GRAY_R * r + _GRAY_G * g + (32768 - _GRAY_R - _GRAY_G) * b)
+            >> 15).astype(np.uint8)
+
+
+def _png_filtered(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Each (h, stride) uint8 row filtered by the type among the five
+    whose bytes, read as signed, sum to the least magnitude (the first on a
+    tie): (h, stride + 1) with the type byte in front."""
+    x = rows.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    cands = np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - paeth]) & 255
+    cost = np.where(cands > 127, 256 - cands, cands).sum(axis=2)
+    best = cost.argmin(axis=0)
+    out = np.empty((rows.shape[0], rows.shape[1] + 1), np.uint8)
+    out[:, 0] = best
+    out[:, 1:] = np.take_along_axis(cands, best[None, :, None], 0)[0]
+    return out
+
+
+def png_encode(img: np.ndarray, level: int = 6) -> bytes:
+    """An 8-bit PNG of ``img``: (H, W) or (H, W, 1) grey, (H, W, 3) BGR or
+    (H, W, 4) BGRA uint8, as ``cv2.imencode('.png', img)`` takes them
+    (written as grey, RGB or RGBA); ``level`` is zlib's."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f'png_encode: uint8 images only, got {img.dtype}')
+    if img.ndim == 3 and img.shape[-1] == 1:
+        img = img[..., 0]
+    if img.ndim == 2:
+        ctype, px = 0, img[..., None]
+    elif img.ndim == 3 and img.shape[-1] in (3, 4):
+        ctype = 2 if img.shape[-1] == 3 else 6
+        px = np.concatenate([img[..., 2::-1], img[..., 3:]], axis=-1)
+    else:
+        raise ValueError(f'png_encode: grey, BGR or BGRA images, got shape '
+                         f'{img.shape}')
+    h, w, ch = px.shape
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack('>I', len(data)) + kind + data +
+                struct.pack('>I', zlib.crc32(kind + data)))
+
+    rows = _png_filtered(np.ascontiguousarray(px).reshape(h, w * ch), ch)
+    return (PNG_SIGNATURE +
+            chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, ctype, 0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(rows.tobytes(), level))
+            + chunk(b'IEND', b''))

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from ...ops.stem import fold_stem
 from ...registry import BACKBONES
 from ..layers import (BasicBlock, BatchNorm2d, nchw_to_nhwc, nhwc_to_nchw,
-                      weights_stamp)
+                      cached_per_weights)
 
 
 class ResNetABIBase(nn.Module):
@@ -63,11 +63,9 @@ class ResNetABIBase(nn.Module):
         """The stem's and the first two stages' weights with their
         BatchNorms folded, for ``ops.stem.fused_stem_forward``; computed once
         per (device, dtype) and weights stamp."""
-        key = (self.conv1.weight.device, dtype)
-        stamp = weights_stamp(self)
-        if self._fused_stem.get(key, (None,))[0] != stamp:
-            self._fused_stem[key] = (stamp, fold_stem(self, dtype))
-        return self._fused_stem[key][1]
+        return cached_per_weights(self._fused_stem,
+                                  (self.conv1.weight.device, dtype), self,
+                                  lambda: fold_stem(self, dtype))
 
     def _stage(self, i):
         return getattr(self, f'layer{i + 1}')

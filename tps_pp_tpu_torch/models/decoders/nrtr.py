@@ -40,7 +40,7 @@ from ...ops.full_decode import (fold_decoder_weights, full_decode,
                                 full_decode_accepts, full_decode_plain)
 from ...registry import DECODERS
 from ..encoders.nrtr import sequence_mask
-from ..layers import weights_stamp
+from ..layers import cached_per_weights
 from ..transformer import (NEG_INF, PositionalEncoding, TFDecoderLayer,
                            attend, dropout)
 
@@ -242,10 +242,7 @@ class NRTRDecoder(nn.Module):
 
     def _cached(self, key, make):
         """``make()``, computed once per key and weights stamp."""
-        stamp = weights_stamp(self)
-        if self._packed.get(key, (None,))[0] != stamp:
-            self._packed[key] = (stamp, make())
-        return self._packed[key][1]
+        return cached_per_weights(self._packed, key, self, make)
 
     def step_weights(self) -> Dict[str, torch.Tensor]:
         """The fused step's weights: the stacked matmul weights in bf16 (the

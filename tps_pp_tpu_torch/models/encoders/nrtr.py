@@ -24,7 +24,7 @@ import torch.nn as nn
 from ...ops.encoder import (encoder_forward, encoder_forward_plain,
                             encoder_kernel_accepts, fold_encoder_weights)
 from ...registry import ENCODERS
-from ..layers import weights_stamp
+from ..layers import cached_per_weights
 from ..transformer import TFEncoderLayer
 
 
@@ -71,9 +71,7 @@ class NRTREncoder(nn.Module):
         """All layers' weights stacked in (in, out) layout with the
         LayerNorm affines and 1/sqrt(d_k) folded in, matmul weights in
         ``dtype``; computed once per (device, dtype) and weights stamp."""
-        key = (self.layer_norm.weight.device, dtype)
-        stamp = weights_stamp(self)
-        if self._folded.get(key, (None,))[0] != stamp:
+        def make():
             def lin(m):
                 return m.weight.t()
             raw = {k: [] for k in ('ln1_s', 'ln1_b', 'ln2_s', 'ln2_b',
@@ -96,9 +94,9 @@ class NRTREncoder(nn.Module):
             raw = {k: torch.stack(v) for k, v in raw.items()}
             raw['lnf_s'] = self.layer_norm.weight
             raw['lnf_b'] = self.layer_norm.bias
-            self._folded[key] = (stamp, fold_encoder_weights(
-                raw, self.n_head, dtype))
-        return self._folded[key][1]
+            return fold_encoder_weights(raw, self.n_head, dtype)
+        return cached_per_weights(
+            self._folded, (self.layer_norm.weight.device, dtype), self, make)
 
     def forward(self, feat: torch.Tensor, valid_ratio=None,
                 fused: bool = False, plain: bool = False,

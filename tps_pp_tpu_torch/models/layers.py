@@ -37,6 +37,26 @@ def weights_stamp(module: nn.Module) -> tuple:
         module.parameters(), module.buffers()))
 
 
+def cached_per_weights(cache: dict, key, module: nn.Module, make):
+    """``make()``, computed once per ``key`` and :func:`weights_stamp` of
+    ``module`` and kept in ``cache`` as (stamp, value). While
+    ``torch.export`` traces, the parameters are fake tensors without
+    storage: the value cached for ``key`` is returned as it is, so that the
+    exported program holds it as constants and folds nothing at a call
+    (``utils.export`` runs the model eagerly first, which fills the
+    cache)."""
+    if torch.compiler.is_exporting():
+        if key not in cache:
+            raise RuntimeError(
+                f'{type(module).__name__}: nothing cached for {key} while '
+                'torch.export traces; run the model once eagerly first')
+        return cache[key][1]
+    stamp = weights_stamp(module)
+    if cache.get(key, (None,))[0] != stamp:
+        cache[key] = (stamp, make())
+    return cache[key][1]
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with flax's train-mode statistics (``flax.linen
     .BatchNorm``, ``tps_pp_tpu/models/layers.py:56``): the running variance

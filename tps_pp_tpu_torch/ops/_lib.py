@@ -6,6 +6,16 @@ interface, loaded with ``ctypes``. The build runs at first use, never at
 import, into ``build/tps_pp_tpu_torch/`` beside the package; the library's
 file name carries a hash of the sources and flags, so an edit rebuilds it.
 ``load()`` raises if there is no ``nvcc``.
+
+``define_op`` makes a wrapper's kernel a PyTorch operator of the
+``tps_pp`` namespace (``torch.ops.tps_pp.<name>``): its CUDA kernel is the
+wrapper's ``ctypes`` launch, its CPU kernel the plain version, and its
+fake kernel gives the output's shape and dtype without running anything,
+so that ``torch.export`` records the operator as one node of its graph and
+a CUDA graph captures the launch. The operators are registered through
+``torch.library.Library(...).impl``: a Python kernel behind the C++
+dispatcher, which costs a launch less on the host than
+``torch.library.custom_op``'s Python dispatch (``PERF.md`` gives both).
 """
 from __future__ import annotations
 
@@ -42,6 +52,10 @@ _SIGNATURES = {
 }
 
 _lib = None
+_OPS = None         # the torch.library.Library of the tps_pp namespace
+# every operator defined: name -> (schema, CUDA kernel), for tools that time
+# the dispatch (tools/torch_dispatch_cost.py)
+OP_KERNELS = {}
 
 
 def _nvcc() -> str:
@@ -114,6 +128,35 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def define_op(name: str, schema: str, cuda, cpu, fake):
+    """Define the operator ``tps_pp::<name>`` with the argument list and
+    result of ``schema`` (``'(Tensor x, int n) -> Tensor'``) and its CUDA,
+    CPU and fake kernels; return ``torch.ops.tps_pp.<name>``. Autograd
+    falls through to the kernels, as it did when the wrappers called them
+    directly: the plain version's operations record their graph on CPU
+    tensors, a kernel's output carries none. Other devices have no kernel:
+    the wrappers refuse them before they dispatch
+    (:func:`require_kernel_device`)."""
+    import torch
+    global _OPS
+    if _OPS is None:
+        _OPS = torch.library.Library('tps_pp', 'DEF')
+    _OPS.define(name + schema)
+    _OPS.impl(name, cuda, 'CUDA')
+    _OPS.impl(name, cpu, 'CPU')
+    _OPS.impl(name, torch.library.fallthrough_kernel, 'Autograd')
+    torch.library.register_fake(f'tps_pp::{name}', fake, lib=_OPS)
+    OP_KERNELS[name] = (schema, cuda)
+    return getattr(torch.ops.tps_pp, name)
+
+
+def require_kernel_device(device, name: str):
+    """Raise unless ``device`` is the CPU (the plain version) or a CUDA
+    device (the kernel): what a wrapper checks before it dispatches."""
+    if device.type != 'cpu':
+        require_cuda(device, name)
 
 
 def require_cuda(device, name: str):

@@ -9,7 +9,9 @@ kernels of ``csrc/decode_step.cu`` run on CUDA tensors (bf16 or float32
 activations, caches and encoder K/V of the activations' dtype, bf16
 weights; the limits of the shapes are stated there); the ``*_plain``
 versions are the same functions in plain PyTorch, for CPU tensors (float64
-too) and as the kernels' reference.
+too) and as the kernels' reference. The two are the operators
+``torch.ops.tps_pp.self_attn_step`` and ``cross_ffn_step``
+(``_lib.define_op``).
 
 Rounding points are the Pallas kernels': LayerNorm with its affine in
 float32 (not folded into the weights); matmul operands rounded to bf16,
@@ -125,13 +127,8 @@ def _remember_weights(name, ws, ptrs):
     _CHECKED[(name,) + ptrs] = tuple(weakref.ref(t) for t in ws)
 
 
-def self_attn_step(x, ck, cv, t: int, wqkv, wfc, ln_s, ln_b):
-    """The kernel on CUDA tensors, the plain version on CPU tensors. Same
-    arguments as :func:`self_attn_step_plain`."""
-    if x.device.type == 'cpu':
-        return self_attn_step_plain(x, ck, cv, t, wqkv, wfc, ln_s, ln_b)
+def _self_attn_cuda(x, ck, cv, t: int, wqkv, wfc, ln_s, ln_b):
     dev = x.device
-    _lib.require_cuda(dev, 'self_attn_step')
     N, D = x.shape
     _, H, T, DK = ck.shape
     HD = H * DK
@@ -155,19 +152,12 @@ def self_attn_step(x, ck, cv, t: int, wqkv, wfc, ln_s, ln_b):
         _lib.stream_ptr(dev))
     _lib.check(rc, 'self_attn_step')
     self_attn_step.launches += 1
-    return out, ck, cv
+    return out
 
 
-def cross_ffn_step(x, enc_k, enc_v, src_mask, wq, wfc, ln2_s, ln2_b, w1, b1,
-                   w2, b2, ln3_s, ln3_b):
-    """The kernel on CUDA tensors, the plain version on CPU tensors. Same
-    arguments as :func:`cross_ffn_step_plain`."""
-    args = (x, enc_k, enc_v, src_mask, wq, wfc, ln2_s, ln2_b, w1, b1, w2,
-            b2, ln3_s, ln3_b)
-    if x.device.type == 'cpu':
-        return cross_ffn_step_plain(*args)
+def _cross_ffn_cuda(x, enc_k, enc_v, src_mask, wq, wfc, ln2_s, ln2_b, w1,
+                    b1, w2, b2, ln3_s, ln3_b):
     dev = x.device
-    _lib.require_cuda(dev, 'cross_ffn_step')
     N, D = x.shape
     _, H, TE, DK = enc_k.shape
     HD, DI = H * DK, w1.shape[1]
@@ -198,6 +188,38 @@ def cross_ffn_step(x, enc_k, enc_v, src_mask, wq, wfc, ln2_s, ln2_b, w1, b1,
     _lib.check(rc, 'cross_ffn_step')
     cross_ffn_step.launches += 1
     return out
+
+
+_self_attn_op = _lib.define_op(
+    'self_attn_step', '(Tensor x, Tensor(a!) ck, Tensor(b!) cv, int t, '
+    'Tensor wqkv, Tensor wfc, Tensor ln_s, Tensor ln_b) -> Tensor',
+    _self_attn_cuda, lambda *a: self_attn_step_plain(*a)[0],
+    lambda x, *rest: torch.empty_like(x))
+_cross_ffn_op = _lib.define_op(
+    'cross_ffn_step', '(Tensor x, Tensor enc_k, Tensor enc_v, Tensor? '
+    'src_mask, Tensor wq, Tensor wfc, Tensor ln2_s, Tensor ln2_b, Tensor w1, '
+    'Tensor b1, Tensor w2, Tensor b2, Tensor ln3_s, Tensor ln3_b) -> Tensor',
+    _cross_ffn_cuda, lambda *a: cross_ffn_step_plain(*a),
+    lambda x, *rest: torch.empty_like(x))
+
+
+def self_attn_step(x, ck, cv, t: int, wqkv, wfc, ln_s, ln_b):
+    """The kernel on CUDA tensors, the plain version on CPU tensors, through
+    ``torch.ops.tps_pp.self_attn_step`` (which writes slot ``t`` of the
+    caches in place and returns x_out). Same arguments and result as
+    :func:`self_attn_step_plain`."""
+    _lib.require_kernel_device(x.device, 'self_attn_step')
+    return _self_attn_op(x, ck, cv, t, wqkv, wfc, ln_s, ln_b), ck, cv
+
+
+def cross_ffn_step(x, enc_k, enc_v, src_mask, wq, wfc, ln2_s, ln2_b, w1, b1,
+                   w2, b2, ln3_s, ln3_b):
+    """The kernel on CUDA tensors, the plain version on CPU tensors, through
+    ``torch.ops.tps_pp.cross_ffn_step``. Same arguments as
+    :func:`cross_ffn_step_plain`."""
+    _lib.require_kernel_device(x.device, 'cross_ffn_step')
+    return _cross_ffn_op(x, enc_k, enc_v, src_mask, wq, wfc, ln2_s, ln2_b,
+                         w1, b1, w2, b2, ln3_s, ln3_b)
 
 
 self_attn_step.launches = 0

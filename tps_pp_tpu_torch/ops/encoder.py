@@ -4,7 +4,10 @@ Counterpart of ``tps_pp_tpu/ops/pallas_encoder.py``
 (``fused_encoder_forward``): ``encoder_forward`` launches the CUDA kernels of
 ``csrc/encoder.cu`` (its products on the GEMM of ``csrc/gemm.cu``) on CUDA
 tensors; ``encoder_forward_plain`` is the same function in plain PyTorch,
-used for CPU tensors and as the kernel's reference. Both take the weights as
+used for CPU tensors and as the kernel's reference. ``encoder_forward``
+and ``encoder_attention`` are the operators
+``torch.ops.tps_pp.encoder_forward`` and ``encoder_attention``
+(``_lib.define_op``). Both take the weights as
 folded by :func:`fold_encoder_weights` once, when the weights are loaded:
 each LayerNorm affine goes into the matmul that consumes it (``y@W`` for
 ``y = norm*s + b`` equals ``norm@(s*W) + b@W``), and 1/sqrt(d_k) into the q
@@ -97,15 +100,9 @@ def encoder_attention_plain(qkv: torch.Tensor, mask: torch.Tensor,
     return (p.float() @ v).to(qkv.dtype).transpose(1, 2).reshape(N * T, HD)
 
 
-def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor,
-                      n_head: int) -> torch.Tensor:
-    """The encoder's attention kernel on CUDA tensors (bf16 qkv, f32 mask;
-    1-512 tokens an image, d_k 64), the plain version on CPU tensors. Same
-    arguments as :func:`encoder_attention_plain`."""
-    if qkv.device.type == 'cpu':
-        return encoder_attention_plain(qkv, mask, n_head)
+def _attention_cuda(qkv: torch.Tensor, mask: torch.Tensor,
+                    n_head: int) -> torch.Tensor:
     dev = qkv.device
-    _lib.require_cuda(dev, 'encoder_attention')
     N, T = mask.shape
     HD = qkv.shape[1] // 3
     _lib.check_args('encoder_attention', dev, {
@@ -118,6 +115,23 @@ def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor,
     _lib.check(rc, 'encoder_attention')
     encoder_attention.launches += 1
     return out
+
+
+_attention_op = _lib.define_op(
+    'encoder_attention', '(Tensor qkv, Tensor mask, int n_head) -> Tensor',
+    _attention_cuda, lambda *a: encoder_attention_plain(*a),
+    lambda qkv, mask, n_head: qkv.new_empty((qkv.shape[0],
+                                             qkv.shape[1] // 3)))
+
+
+def encoder_attention(qkv: torch.Tensor, mask: torch.Tensor,
+                      n_head: int) -> torch.Tensor:
+    """The encoder's attention kernel on CUDA tensors (bf16 qkv, f32 mask;
+    1-512 tokens an image, d_k 64), the plain version on CPU tensors,
+    through ``torch.ops.tps_pp.encoder_attention``. Same arguments as
+    :func:`encoder_attention_plain`."""
+    _lib.require_kernel_device(qkv.device, 'encoder_attention')
+    return _attention_op(qkv, mask, n_head)
 
 
 encoder_attention.launches = 0
@@ -147,18 +161,14 @@ def encoder_forward_plain(x: torch.Tensor, mask: Optional[torch.Tensor],
     return out.to(x.dtype).reshape(N, T, D)
 
 
-def encoder_forward(x: torch.Tensor, mask: Optional[torch.Tensor],
-                    w: Dict[str, torch.Tensor], n_head: int) -> torch.Tensor:
-    """The kernels on CUDA tensors (bf16 tokens and weights), the plain
-    version on CPU tensors. Same arguments as
-    :func:`encoder_forward_plain`. The kernels' limits (1-512 tokens an
-    image, d_k 64, d_model 512, ...; :func:`encoder_kernel_accepts`) raise a
-    ``ValueError`` here, and are checked again at their entry point,
-    ``csrc/encoder.cu`` ``tpk_encoder_forward``."""
-    if x.device.type == 'cpu':
-        return encoder_forward_plain(x, mask, w, n_head)
+# the order of the folded weights in the operator's Tensor[] argument
+WEIGHT_ORDER = ('wqkv', 'bqkv', 'wfc', 'w1', 'b1', 'w2', 'b2', 'lnf_s',
+                'lnf_b')
+
+
+def _forward_cuda(x, mask, ws, n_head):
+    w = dict(zip(WEIGHT_ORDER, ws))
     dev = x.device
-    _lib.require_cuda(dev, 'encoder_forward')
     N, T, D = x.shape
     L, HD, DI = w['wqkv'].shape[0], w['wfc'].shape[1], w['w1'].shape[2]
     DK = HD // n_head
@@ -200,6 +210,27 @@ def encoder_forward(x: torch.Tensor, mask: Optional[torch.Tensor],
     _lib.check(rc, 'encoder_forward')
     encoder_forward.launches += 1
     return out
+
+
+_forward_op = _lib.define_op(
+    'encoder_forward', '(Tensor x, Tensor? mask, Tensor[] w, int n_head) '
+    '-> Tensor', _forward_cuda,
+    lambda x, mask, ws, n_head: encoder_forward_plain(
+        x, mask, dict(zip(WEIGHT_ORDER, ws)), n_head),
+    lambda x, mask, ws, n_head: torch.empty_like(x))
+
+
+def encoder_forward(x: torch.Tensor, mask: Optional[torch.Tensor],
+                    w: Dict[str, torch.Tensor], n_head: int) -> torch.Tensor:
+    """The kernels on CUDA tensors (bf16 tokens and weights), the plain
+    version on CPU tensors, through ``torch.ops.tps_pp.encoder_forward``
+    (the weights as a list in ``WEIGHT_ORDER``). Same arguments as
+    :func:`encoder_forward_plain`. The kernels' limits (1-512 tokens an
+    image, d_k 64, d_model 512, ...; :func:`encoder_kernel_accepts`) raise a
+    ``ValueError`` here, and are checked again at their entry point,
+    ``csrc/encoder.cu`` ``tpk_encoder_forward``."""
+    _lib.require_kernel_device(x.device, 'encoder_forward')
+    return _forward_op(x, mask, [w[k] for k in WEIGHT_ORDER], n_head)
 
 
 encoder_forward.launches = 0

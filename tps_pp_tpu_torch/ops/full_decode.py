@@ -1,8 +1,9 @@
 """Whole NRTR greedy decode with the all-rows-EOS early exit.
 
 Counterpart of ``tps_pp_tpu/ops/pallas_full_decode.py``
-(``full_greedy_decode``): ``full_decode`` runs the CUDA kernels of
-``csrc/full_decode.cu`` on CUDA tensors; ``full_decode_plain`` is the same
+(``full_greedy_decode``): ``full_decode``, the operator
+``torch.ops.tps_pp.full_decode`` (``_lib.define_op``), runs the CUDA kernels
+of ``csrc/full_decode.cu`` on CUDA tensors; ``full_decode_plain`` is the same
 function in plain PyTorch, used for CPU tensors and as the kernels'
 reference. The encoder K/V projection of every layer is part of the function
 (one GEMM over the encoder output), so both take the encoder output itself.
@@ -346,7 +347,7 @@ class _DecodeGraph:
         self.graph = graph
         full_decode.captures += 1
 
-    def run(self, out_enc, src_mask, w):
+    def _copy_in(self, out_enc, src_mask, w):
         if self.q8:
             # the projection that the JAX package computes outside its
             # kernel, by the plain version's own op: quantization turns a
@@ -356,10 +357,20 @@ class _DecodeGraph:
         else:
             self.out_enc.copy_(out_enc)
         self.src_mask.copy_(src_mask)
+
+    def run(self, out_enc, src_mask, w):
+        self._copy_in(out_enc, src_mask, w)
         if self.graph is None:
             self._capture(w, out_enc.device)
         self.graph.replay()
         return self.probs.clone(), int(self.steps_run.item())
+
+    def enqueue(self, out_enc, src_mask, w):
+        """The decode enqueued once, without a graph of its own (inside a
+        caller's capture): returns the probabilities' buffer."""
+        self._copy_in(out_enc, src_mask, w)
+        self._enqueue(w, out_enc.device)
+        return self.probs
 
 
 def graph_bytes(w: Dict[str, torch.Tensor]) -> Dict[tuple, int]:
@@ -369,23 +380,10 @@ def graph_bytes(w: Dict[str, torch.Tensor]) -> Dict[tuple, int]:
     return {k: g.nbytes for k, g in _GRAPHS.get(w['wqkv'], {}).items()}
 
 
-def full_decode(out_enc: torch.Tensor, src_mask: torch.Tensor,
-                w: Dict[str, torch.Tensor], n_head: int, start_idx: int,
-                end_idx: Optional[int] = None,
-                enc_dtype: str = 'bfloat16') -> torch.Tensor:
-    """The kernels on CUDA tensors (bf16 encoder output and weights), the
-    plain version on CPU tensors. Same arguments as
-    :func:`full_decode_plain`. The decode of a shape is captured as a CUDA
-    graph at its first call for a weight set and replayed from then on
-    (``_GRAPHS``).
-    ``launches`` counts the bf16 branch's calls, ``launches_int8`` the int8
-    branch's, ``captures`` the graphs captured; ``last_steps`` is the steps
-    the last call ran."""
-    if out_enc.device.type == 'cpu':
-        return full_decode_plain(out_enc, src_mask, w, n_head, start_idx,
-                                 end_idx, enc_dtype)
+def _full_decode_cuda(out_enc, src_mask, ws, n_head, start_idx, end_idx,
+                      enc_dtype):
+    w = dict(zip(_WEIGHT_ORDER, ws))
     dev = out_enc.device
-    _lib.require_cuda(dev, 'full_decode')
     q8 = _check_enc_dtype(enc_dtype)
     d = _dims(w, n_head)
     L, D, HD, H, DK, DI, S, NC = (d[k] for k in
@@ -412,22 +410,65 @@ def full_decode(out_enc: torch.Tensor, src_mask: torch.Tensor,
                          f'{KERNEL_MAX_STEPS} steps and {KERNEL_MAX_SOURCE} '
                          f'source tokens, at least one row and token; got '
                          f'd_k={DK}, D={D}, DI={DI}, S={S}, N={N}, TE={TE}')
-    key = (dev, N, TE, q8, n_head, start_idx, end_idx)
-    graphs = _GRAPHS.setdefault(w['wqkv'], {})
-    g = graphs.get(key)
-    if g is None or g.ptrs != _weight_ptrs(w):
-        # another tensor in a weight's place: the old bucket goes before the
-        # new one is allocated
-        graphs.pop(key, None)
-        g = None
-        g = graphs[key] = _DecodeGraph(w, d, N, TE, q8, start_idx, end_idx,
-                                       dev)
-    probs, full_decode.last_steps = g.run(out_enc, src_mask, w)
+    if torch.cuda.is_current_stream_capturing():
+        # inside a caller's capture (utils.export.aot_compile): the decode
+        # is enqueued into that graph with buffers from its pool, and the
+        # steps run stay on the card
+        g = _DecodeGraph(w, d, N, TE, q8, start_idx, end_idx, dev)
+        probs = g.enqueue(out_enc, src_mask, w)
+    else:
+        key = (dev, N, TE, q8, n_head, start_idx, end_idx)
+        graphs = _GRAPHS.setdefault(w['wqkv'], {})
+        g = graphs.get(key)
+        if g is None or g.ptrs != _weight_ptrs(w):
+            # another tensor in a weight's place: the old bucket goes before
+            # the new one is allocated
+            graphs.pop(key, None)
+            g = None
+            g = graphs[key] = _DecodeGraph(w, d, N, TE, q8, start_idx,
+                                           end_idx, dev)
+        probs, full_decode.last_steps = g.run(out_enc, src_mask, w)
     if q8:
         full_decode.launches_int8 += 1
     else:
         full_decode.launches += 1
     return probs
+
+
+def _full_decode_fake(out_enc, src_mask, ws, n_head, start_idx, end_idx,
+                      enc_dtype):
+    w = dict(zip(_WEIGHT_ORDER, ws))
+    return out_enc.new_empty((out_enc.shape[0], w['pe'].shape[0],
+                              w['wcls'].shape[1]), dtype=torch.float32)
+
+
+_full_decode_op = _lib.define_op(
+    'full_decode', '(Tensor out_enc, Tensor src_mask, Tensor[] w, int '
+    'n_head, int start_idx, int? end_idx, str enc_dtype) -> Tensor',
+    _full_decode_cuda,
+    lambda out_enc, src_mask, ws, *rest: full_decode_plain(
+        out_enc, src_mask, dict(zip(_WEIGHT_ORDER, ws)), *rest),
+    _full_decode_fake)
+
+
+def full_decode(out_enc: torch.Tensor, src_mask: torch.Tensor,
+                w: Dict[str, torch.Tensor], n_head: int, start_idx: int,
+                end_idx: Optional[int] = None,
+                enc_dtype: str = 'bfloat16') -> torch.Tensor:
+    """The kernels on CUDA tensors (bf16 encoder output and weights), the
+    plain version on CPU tensors, through ``torch.ops.tps_pp.full_decode``
+    (the weights as a list in ``_WEIGHT_ORDER``). Same arguments as
+    :func:`full_decode_plain`. The decode of a shape is captured as a CUDA
+    graph at its first call for a weight set and replayed from then on
+    (``_GRAPHS``); inside a caller's CUDA-graph capture it is enqueued into
+    that graph instead.
+    ``launches`` counts the bf16 branch's calls, ``launches_int8`` the int8
+    branch's, ``captures`` the graphs captured; ``last_steps`` is the steps
+    the last call outside a capture ran."""
+    _lib.require_kernel_device(out_enc.device, 'full_decode')
+    return _full_decode_op(out_enc, src_mask,
+                           [w[k] for k in _WEIGHT_ORDER], n_head, start_idx,
+                           end_idx, enc_dtype)
 
 
 full_decode.launches = 0

@@ -4,7 +4,8 @@ It carries the encoder's products (``ops/encoder.py``) and the whole
 decode's encoder K/V projection (``ops/full_decode.py``), which launch it
 from their C entry points. ``gemm`` launches it on CUDA tensors and runs
 ``gemm_plain``, the same function in plain PyTorch, on CPU tensors; the
-tests hold one against the other.
+tests hold one against the other. ``gemm`` is the operator
+``torch.ops.tps_pp.gemm`` (``gemm_ln`` with the LayerNorm output).
 """
 from __future__ import annotations
 
@@ -42,22 +43,8 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor,
     return v.to(out_dtype), y.to(torch.bfloat16)
 
 
-def gemm(a: torch.Tensor, b: torch.Tensor,
-         bias: Optional[torch.Tensor] = None,
-         residual: Optional[torch.Tensor] = None, gelu: bool = False,
-         out_dtype: torch.dtype = torch.bfloat16, ln: bool = False,
-         ln_s: Optional[torch.Tensor] = None,
-         ln_b: Optional[torch.Tensor] = None):
-    """The kernel on CUDA tensors (bf16 a and b; float32 bias, residual,
-    ln_s, ln_b), the plain version on CPU tensors. Same arguments as
-    :func:`gemm_plain`. The kernel's limits (K a multiple of 64, N of 256,
-    N = 512 with ``ln``) are checked at its entry point, ``csrc/gemm.cu``
-    ``tpk_gemm``."""
-    if a.device.type == 'cpu':
-        return gemm_plain(a, b, bias, residual, gelu, out_dtype, ln, ln_s,
-                          ln_b)
+def _gemm_cuda(a, b, bias, residual, gelu, out_dtype, ln, ln_s, ln_b):
     dev = a.device
-    _lib.require_cuda(dev, 'gemm')
     M, K = a.shape
     N = b.shape[1]
     bf, f32 = torch.bfloat16, torch.float32
@@ -83,6 +70,38 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
     _lib.check(rc, 'gemm')
     gemm.launches += 1
     return (c, y) if ln else c
+
+
+def _fake(a, b, bias, residual, gelu, out_dtype, ln, ln_s, ln_b):
+    c = a.new_empty((a.shape[0], b.shape[1]), dtype=out_dtype)
+    return (c, a.new_empty(c.shape, dtype=torch.bfloat16)) if ln else c
+
+
+_SCHEMA = ('(Tensor a, Tensor b, Tensor? bias, Tensor? residual, bool gelu, '
+           'ScalarType out_dtype, bool ln, Tensor? ln_s, Tensor? ln_b) -> ')
+# two operators, as a schema has no optional result: the product alone, and
+# the product with its LayerNorm
+_gemm_op = _lib.define_op('gemm', _SCHEMA + 'Tensor', _gemm_cuda,
+                          lambda *a: gemm_plain(*a), _fake)
+_gemm_ln_op = _lib.define_op('gemm_ln', _SCHEMA + '(Tensor, Tensor)',
+                             _gemm_cuda, lambda *a: gemm_plain(*a), _fake)
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor,
+         bias: Optional[torch.Tensor] = None,
+         residual: Optional[torch.Tensor] = None, gelu: bool = False,
+         out_dtype: torch.dtype = torch.bfloat16, ln: bool = False,
+         ln_s: Optional[torch.Tensor] = None,
+         ln_b: Optional[torch.Tensor] = None):
+    """The kernel on CUDA tensors (bf16 a and b; float32 bias, residual,
+    ln_s, ln_b), the plain version on CPU tensors, through
+    ``torch.ops.tps_pp.gemm`` (``gemm_ln`` with ``ln``). Same arguments as
+    :func:`gemm_plain`. The kernel's limits (K a multiple of 64, N of 256,
+    N = 512 with ``ln``) are checked at its entry point, ``csrc/gemm.cu``
+    ``tpk_gemm``."""
+    _lib.require_kernel_device(a.device, 'gemm')
+    op = _gemm_ln_op if ln else _gemm_op
+    return op(a, b, bias, residual, gelu, out_dtype, ln, ln_s, ln_b)
 
 
 gemm.launches = 0

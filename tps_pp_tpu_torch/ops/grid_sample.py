@@ -23,7 +23,10 @@ to them on the card):
 Kernels (``csrc/grid_sample.cu``), each wrapper launching on CUDA tensors and
 taking the plain version on CPU tensors:
 
-* ``grid_sample_forward``: kernel 8, replaces ``_fwd_kernel``;
+* ``grid_sample_forward``: kernel 8, replaces ``_fwd_kernel``; the operator
+  ``torch.ops.tps_pp.grid_sample_fwd`` (``_lib.define_op``), which a
+  serving path reaches (the backward kernels, training only, stay plain
+  calls inside ``GridSampleFunction``);
 * ``grid_sample_grad``: kernel 9, replaces ``_bwd_fused_kernel``;
 * ``grid_sample_grad_img``: kernel 10, replaces ``_bwd_kernel``.
 
@@ -154,12 +157,7 @@ def _check_common(what, grid, src, C):
     return dev, N, Ho * Wo
 
 
-def grid_sample_forward(img: torch.Tensor, grid: torch.Tensor
-                        ) -> torch.Tensor:
-    """Kernel 8 on CUDA tensors (bf16 or f32 image, f32 grid), the plain
-    version on CPU tensors. Same contract as :func:`grid_sample_plain`."""
-    if img.device.type == 'cpu':
-        return grid_sample_plain(img, grid)
+def _forward_cuda(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     what = 'grid_sample_forward'
     N, H, W, C = img.shape
     dev, _, npix = _check_common(what, grid, img, C)
@@ -172,6 +170,22 @@ def grid_sample_forward(img: torch.Tensor, grid: torch.Tensor
     _lib.check(rc, what)
     grid_sample_forward.launches += 1
     return out
+
+
+_forward_op = _lib.define_op(
+    'grid_sample_fwd', '(Tensor img, Tensor grid) -> Tensor', _forward_cuda,
+    lambda img, grid: grid_sample_plain(img, grid).contiguous(),
+    lambda img, grid: img.new_empty(tuple(grid.shape[:3]) +
+                                    (img.shape[-1],)))
+
+
+def grid_sample_forward(img: torch.Tensor, grid: torch.Tensor
+                        ) -> torch.Tensor:
+    """Kernel 8 on CUDA tensors (bf16 or f32 image, f32 grid), the plain
+    version on CPU tensors, through ``torch.ops.tps_pp.grid_sample_fwd``.
+    Same contract as :func:`grid_sample_plain`."""
+    _lib.require_kernel_device(img.device, 'grid_sample_forward')
+    return _forward_op(img, grid)
 
 
 _PLAN_KEYS = ('rows', 'slab', 'ctas_per_sm', 'blocks', 'smem')

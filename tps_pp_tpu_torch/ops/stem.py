@@ -7,7 +7,9 @@ package's public layout, and a 3x3 SAME convolution is one product of the
 nine shifted, zero-masked views of its input.
 
 Kernels (``csrc/stem.cu``), each wrapper launching on CUDA tensors and
-taking the plain version on CPU tensors:
+taking the plain version on CPU tensors, through the operators
+``torch.ops.tps_pp.conv3x3_cp`` and ``basic_block_cp``
+(``_lib.define_op``):
 
 * ``conv3x3_cp``: kernel 11, replaces ``_conv3x3_kernel``: a 3x3 SAME
   convolution + bias (+ ReLU);
@@ -164,16 +166,8 @@ def _kernel_dtype(name, x2d) -> torch.dtype:
     return x2d.dtype
 
 
-def conv3x3_cp(x2d, w, b, *, H: int, W: int,
-               relu: bool = False) -> torch.Tensor:
-    """The kernel on CUDA tensors (bf16 or float32 activations and weights
-    of the same dtype, float32 bias; the limits of the shapes are stated in
-    ``csrc/stem.cu``), the plain version on CPU tensors. Arguments as
-    :func:`conv3x3_cp_plain`."""
-    if x2d.device.type == 'cpu':
-        return conv3x3_cp_plain(x2d, w, b, H=H, W=W, relu=relu)
+def _conv_cuda(x2d, w, b, H: int, W: int, relu: bool) -> torch.Tensor:
     dev = x2d.device
-    _lib.require_cuda(dev, 'conv3x3_cp')
     N = _images('conv3x3_cp', x2d, H, W)
     dt = _kernel_dtype('conv3x3_cp', x2d)
     C, P = x2d.shape
@@ -190,20 +184,9 @@ def conv3x3_cp(x2d, w, b, *, H: int, W: int,
     return out
 
 
-conv3x3_cp.launches = 0
-
-
-def basic_block_cp(t, w1, b1, wtaps, b2, *, H: int, W: int,
-                   residual: bool = True) -> torch.Tensor:
-    """The kernel on CUDA tensors (bf16 or float32 activations and weights
-    of the same dtype, float32 biases; the limits of the shapes are stated
-    in ``csrc/stem.cu``), the plain version on CPU tensors. Arguments as
-    :func:`basic_block_cp_plain`."""
-    if t.device.type == 'cpu':
-        return basic_block_cp_plain(t, w1, b1, wtaps, b2, H=H, W=W,
-                                    residual=residual)
+def _block_cuda(t, w1, b1, wtaps, b2, H: int, W: int,
+                residual: bool) -> torch.Tensor:
     dev = t.device
-    _lib.require_cuda(dev, 'basic_block_cp')
     N = _images('basic_block_cp', t, H, W)
     dt = _kernel_dtype('basic_block_cp', t)
     Cin, P = t.shape
@@ -220,6 +203,47 @@ def basic_block_cp(t, w1, b1, wtaps, b2, *, H: int, W: int,
     _lib.check(rc, 'basic_block_cp')
     basic_block_cp.launches += 1
     return out
+
+
+_conv_op = _lib.define_op(
+    'conv3x3_cp', '(Tensor x2d, Tensor w, Tensor b, int H, int W, bool relu) '
+    '-> Tensor', _conv_cuda,
+    lambda x2d, w, b, H, W, relu: conv3x3_cp_plain(x2d, w, b, H=H, W=W,
+                                                   relu=relu),
+    lambda x2d, w, b, H, W, relu: x2d.new_empty((w.shape[0],
+                                                 x2d.shape[1])))
+_block_op = _lib.define_op(
+    'basic_block_cp', '(Tensor t, Tensor w1, Tensor b1, Tensor wtaps, Tensor '
+    'b2, int H, int W, bool residual) -> Tensor', _block_cuda,
+    lambda t, w1, b1, wtaps, b2, H, W, residual: basic_block_cp_plain(
+        t, w1, b1, wtaps, b2, H=H, W=W, residual=residual),
+    lambda t, w1, b1, wtaps, b2, H, W, residual: t.new_empty(
+        (wtaps.shape[0], t.shape[1])))
+
+
+def conv3x3_cp(x2d, w, b, *, H: int, W: int,
+               relu: bool = False) -> torch.Tensor:
+    """The kernel on CUDA tensors (bf16 or float32 activations and weights
+    of the same dtype, float32 bias; the limits of the shapes are stated in
+    ``csrc/stem.cu``), the plain version on CPU tensors, through
+    ``torch.ops.tps_pp.conv3x3_cp``. Arguments as
+    :func:`conv3x3_cp_plain`."""
+    _lib.require_kernel_device(x2d.device, 'conv3x3_cp')
+    return _conv_op(x2d, w, b, H, W, relu)
+
+
+conv3x3_cp.launches = 0
+
+
+def basic_block_cp(t, w1, b1, wtaps, b2, *, H: int, W: int,
+                   residual: bool = True) -> torch.Tensor:
+    """The kernel on CUDA tensors (bf16 or float32 activations and weights
+    of the same dtype, float32 biases; the limits of the shapes are stated
+    in ``csrc/stem.cu``), the plain version on CPU tensors, through
+    ``torch.ops.tps_pp.basic_block_cp``. Arguments as
+    :func:`basic_block_cp_plain`."""
+    _lib.require_kernel_device(t.device, 'basic_block_cp')
+    return _block_op(t, w1, b1, wtaps, b2, H, W, residual)
 
 
 basic_block_cp.launches = 0

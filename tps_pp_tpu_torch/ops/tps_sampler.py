@@ -11,7 +11,8 @@ in its two variants:
   rounds them.
 
 ``tps_grid_sample_fused`` also warps ``batch_img`` (``with_mp``) from the
-same grid. ``tps_sampler`` is the rectified map alone, the serving path.
+same grid. ``tps_sampler`` is the rectified map alone, the serving path,
+and is the operator ``torch.ops.tps_pp.tps_sampler`` (``_lib.define_op``).
 Both launch the CUDA kernel ``csrc/tps_sampler.cu`` on CUDA tensors and
 take the plain version of their variant on CPU tensors;
 ``tps_sampler_plain`` (``build_P_prime`` + ``F.grid_sample``) and
@@ -135,6 +136,14 @@ def tps_grid_sample_fused(feat_grid, batch_img, control_point, pc_score,
         args = (control_point, pc_score, inv_delta_C, P_hat, P, out_hw)
         return (plain(feat_grid, *args),
                 plain(batch_img, *args) if with_mp else None)
+    return _launch(feat_grid, batch_img if with_mp else None, control_point,
+                   pc_score, inv_delta_C, P_hat, P, out_hw, variant)
+
+
+def _launch(feat_grid, batch_img, control_point, pc_score, inv_delta_C,
+            P_hat, P, out_hw, variant: str):
+    """The kernel's launch: (rect, mp), mp None without ``batch_img``."""
+    with_mp = batch_img is not None
     dev = feat_grid.device
     _lib.require_cuda(dev, 'tps_sampler')
     if feat_grid.dim() != 4:
@@ -180,17 +189,41 @@ def tps_grid_sample_fused(feat_grid, batch_img, control_point, pc_score,
     return rect, mp
 
 
+def _sampler_cuda(feat_grid, control_point, pc_score, inv_delta_C, P_hat, P,
+                  out_hw, variant):
+    return _launch(feat_grid, None, control_point, pc_score, inv_delta_C,
+                   P_hat, P, out_hw, variant)[0]
+
+
+def _sampler_cpu(feat_grid, control_point, pc_score, inv_delta_C, P_hat, P,
+                 out_hw, variant):
+    return PLAIN[variant](feat_grid, control_point, pc_score, inv_delta_C,
+                          P_hat, P, tuple(out_hw)).contiguous()
+
+
+def _sampler_fake(feat_grid, control_point, pc_score, inv_delta_C, P_hat, P,
+                  out_hw, variant):
+    N, C = feat_grid.shape[0], feat_grid.shape[-1]
+    return feat_grid.new_empty((N, out_hw[0], out_hw[1], C))
+
+
+_sampler_op = _lib.define_op(
+    'tps_sampler', '(Tensor feat_grid, Tensor control_point, Tensor '
+    'pc_score, Tensor inv_delta_C, Tensor P_hat, Tensor P, int[] out_hw, '
+    'str variant) -> Tensor', _sampler_cuda, _sampler_cpu, _sampler_fake)
+
+
 def tps_sampler(feat_grid, control_point, pc_score, inv_delta_C, P_hat, P,
                 out_hw: Tuple[int, int],
                 variant: Optional[str] = None) -> torch.Tensor:
-    """The rectified map alone (``with_mp=False``): the kernel of
-    ``variant`` on CUDA tensors, its plain version on CPU tensors. Launches
-    count in ``tps_sampler.launches`` (dense) and
-    ``tps_sampler.launches_twostage``. Arguments as
-    :func:`tps_sampler_plain`."""
-    return tps_grid_sample_fused(feat_grid, None, control_point, pc_score,
-                                 inv_delta_C, P_hat, P, out_hw,
-                                 with_mp=False, variant=variant)[0]
+    """The rectified map alone, through the operator
+    ``torch.ops.tps_pp.tps_sampler``: the kernel of ``variant`` on CUDA
+    tensors, its plain version on CPU tensors. Launches count in
+    ``tps_sampler.launches`` (dense) and ``tps_sampler.launches_twostage``.
+    Arguments as :func:`tps_sampler_plain`."""
+    _lib.require_kernel_device(feat_grid.device, 'tps_sampler')
+    return _sampler_op(feat_grid, control_point, pc_score, inv_delta_C,
+                       P_hat, P, list(out_hw), resolve_variant(variant))
 
 
 tps_sampler.launches = 0
