@@ -396,7 +396,7 @@ seed):
 
 * deployment, last (``deploy_phase``): the flagship at full width in bf16
   (``fused40_bf16``, seed-0 weights) through ``utils/export.py``:
-  ``export_serialized`` at B=8 and B=``B``, ``load_serialized`` and a run
+  ``export_serialized`` at B=``B``, ``load_serialized`` and a run
   of the loaded program on seed-0 crops with mixed valid ratios, which
   must launch kernels 1, 3 and 4 (counted from 0 just before) and equal
   the eager kernel path's argmax on every row (the largest probability
@@ -412,7 +412,20 @@ seed):
   ``/ping``, a body that does not decode (400) and a wrong path (404); and
   ``--det`` with DBNet-R18's config on a 640 x 480 PNG page, the
   boundaries equal to ``detect``'s. It logs the export and capture
-  seconds, the artifacts' bytes and the graph pool's.
+  seconds, the artifacts' bytes and the graph pool's. Then a TPSPACK1
+  annotation file (``tools.data.pack_converter``) through
+  ``eval_recognizer`` on ``PACKED_CROPS`` PNG crops, its texts and metrics
+  those of the same lines as text (``packed_roundtrip``); and greedy
+  ``steps`` + ``use_fused_step`` with its early exit
+  (``steps_exit_deploy``): ``export_serialized`` / ``load_serialized``
+  and ``aot_compile`` at B=8 and B=``B``, bf16, the exit forced at step
+  0, mid-sequence and never through the valid ratios
+  (``exit_by_ratio``): argmax and zeros equal to the eager decode's on
+  every row, the program launching kernels 6-7 240 times each, the graph
+  holding them and a replay launching none from Python; the replay,
+  eager ``predict`` (the host exit) and the eager device exit timed in
+  turns. Kernels 6-7 are also held with the ``skip`` flag set and unset
+  against their plain versions, and read by CUDA graph.
   The whole script's time is logged before the ``kernels`` line.
 
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
@@ -714,6 +727,8 @@ KIE_F32_GRAD_MULT = 3
 # bound on a served score against model_inference's on the same array, on
 # a served boundary's values against detect's (the same forward twice)
 DEPLOY_CROPS, DEPLOY_SCORE_ATOL, DEPLOY_BOX_ATOL = 16, 1e-6, 1e-3
+# the crops of the TPSPACK1 round trip through eval_recognizer
+PACKED_CROPS = 12
 
 
 def log(*a):
@@ -6667,6 +6682,195 @@ def kie_ner_phase(dev, name):
         f'NER; {json.dumps(stats)}')
 
 
+def exit_by_ratio(dec, end_idx):
+    """Wrap ``dec``'s ``decode_init`` and ``decode_step`` on the instance so
+    that row n emits EOS (a one-hot of ``end_idx`` in place of its
+    probabilities) at step ``exit_code(valid_ratio[n])``: the exit's
+    schedule is an input of an exported or captured program, and one
+    program serves every schedule."""
+    import torch
+    init, step = dec.decode_init, dec.decode_step
+
+    def decode_init(out_enc, valid_ratio=None, **kw):
+        carry, static = init(out_enc, valid_ratio, **kw)
+        finish = torch.round(valid_ratio * 1000).long() % 64 - 1
+        return carry, (static, finish)
+
+    def decode_step(token, t, carry, static, plain=False, **kw):
+        static, finish = static
+        probs, carry = step(token, t, carry, static, plain=plain, **kw)
+        eos = (torch.arange(probs.shape[-1], device=probs.device) ==
+               end_idx).to(probs.dtype)
+        return torch.where((finish == t)[:, None], eos, probs), carry
+    dec.decode_init, dec.decode_step = decode_init, decode_step
+
+
+def ratio_for_exit(steps, g):
+    """Valid ratios in [0.32, 0.94] whose ``exit_by_ratio`` code is
+    ``steps`` (-1: the row never emits EOS)."""
+    import numpy as np
+    k = g.integers(5, 15, len(steps))
+    return ((k * 64 + np.asarray(steps) + 1) / 1000).astype(np.float32)
+
+
+def steps_exit_deploy(dev, name, img):
+    """Greedy ``steps`` + ``use_fused_step`` with its early exit through
+    ``export_serialized`` / ``load_serialized`` and ``aot_compile``, at
+    B=8 and B=512, bf16, with the exit forced at step 0, mid-sequence and
+    never (``exit_by_ratio``): argmax and zeros equal to the eager
+    decode's, kernels 6-7 in the program and in the graph, none launched
+    from Python at a replay; the replay, eager ``predict`` (the host
+    exit) and the eager device exit timed in turns."""
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import (FLAGSHIP_INPUT, build_recognizer,
+                                       nrtr_tps_pp_cfg)
+    from tps_pp_tpu_torch.utils import export
+
+    cfg = nrtr_tps_pp_cfg(dtype='bfloat16', decode_mode='steps')
+    cfg['decoder'] = dict(cfg['decoder'], use_fused_step=True)
+    rec = build_recognizer(cfg).init_weights(SEED)
+    model = rec.serving_model()
+    S, end = rec.max_seq_len, rec.label_convertor.end_idx
+    exit_by_ratio(model.decoder, end)
+    g = np.random.default_rng(SEED + 7)
+    want = {'tps_sampler': 1, 'self_attn_step': 6 * S,
+            'cross_ffn_step': 6 * S}
+    for n in (B_SMALL, B):
+        rows = np.arange(n)
+        mid = (7 * rows) % 20 + 1          # the last row to end: step 20
+        schedules = {'step 0': np.zeros(n, int), 'mid-sequence': mid,
+                     'never': np.where(rows == 0, -1, mid)}
+        im = img[:n].contiguous()
+        t0 = time.perf_counter()
+        blob = export.export_serialized(rec, n, FLAGSHIP_INPUT)
+        t_export = time.perf_counter() - t0
+        program = export.load_serialized(blob).module()
+        t0 = time.perf_counter()
+        call = export.aot_compile(rec, n, FLAGSHIP_INPUT)
+        t_aot = time.perf_counter() - t0
+        log(f'deploy steps exit B={n}: export {t_export:.2f} s, '
+            f'{len(blob)} bytes; aot_compile {t_aot:.2f} s (capture '
+            f'{call.capture_ms:.1f} ms), graph pool {call.pool_bytes} '
+            f'bytes; launches captured {call.captured_launches} [{name}]')
+        if call.captured_launches != want:
+            raise AssertionError(f'deploy steps exit B={n}: captured '
+                                 f'{call.captured_launches}, not {want}')
+        for what, steps in schedules.items():
+            vr = torch.from_numpy(ratio_for_exit(steps, g)).to(dev)
+            eager = rec.predict(im, vr, bucket_batch=False)
+            stop = int(steps.max()) if steps.min() >= 0 else None
+            ended = eager.argmax(-1) == end
+            if stop is not None and not (
+                    bool((eager[:, stop + 1:] == 0).all()) and
+                    bool(ended[:, stop].any())):
+                raise AssertionError(f'deploy steps exit B={n} {what}: the '
+                                     f'eager decode did not stop at {stop}')
+            zero_launches()
+            with torch.no_grad():
+                got_p = program(im, vr)
+            read_launches('deploy', f'steps exit program B={n} {what}',
+                          want)
+            zero_launches()
+            got_r = call(im, vr).clone()
+            read_launches('deploy', f'steps exit replay B={n} {what} (no '
+                          f'Python launch)', {})
+            for kind, got in (('program', got_p), ('replay', got_r)):
+                same = int((got.argmax(-1) == eager.argmax(-1)).all(-1)
+                           .sum())
+                zeros = bool(torch.equal(got == 0, eager == 0))
+                log(f'deploy steps exit B={n} {what}: {kind} argmax equal '
+                    f'to eager on {same} of {n} rows, its zeros the eager '
+                    f'decode\'s: {zeros}, bit-equal: '
+                    f'{bool(torch.equal(got, eager))} (exit step '
+                    f'{stop})')
+                if same != n or not zeros:
+                    raise AssertionError(f'deploy steps exit B={n} {what}: '
+                                         f'the {kind} parts from eager')
+            # eager: predict, whose decode reads the exit on the host;
+            # eager device exit: the same batch through the traced form
+            with torch.inference_mode():
+                fns = {'replay': lambda: call(im, vr),
+                       'eager': lambda: rec.predict(im, vr,
+                                                    bucket_batch=False),
+                       'eager device exit': lambda: rec._predict_impl(
+                           model, im, vr, device_exit=True)}
+                ms = {k: [] for k in fns}
+                for k in ('replay', 'eager', 'eager device exit',
+                          'eager device exit', 'eager', 'replay'):
+                    ms[k].append(cuda_ms(fns[k], 2))
+            log(f'deploy steps exit B={n} {what}: ms a batch (CUDA events, '
+                f'in turns) ' + ', '.join(
+                    f'{k} {" / ".join(f"{v:.3f}" for v in vs)}'
+                    for k, vs in ms.items()) + f' [{name}]')
+        del blob, program, call
+    del rec, model
+
+
+def packed_roundtrip(rec, g):
+    """``eval_recognizer`` over PNG crops whose annotation file is a
+    TPSPACK1 file written by ``tools.data.pack_converter`` and over the same
+    lines as text: the same texts and metrics."""
+    import tempfile
+
+    import numpy as np
+    from tps_pp_tpu_torch.apis import eval_recognizer
+    from tps_pp_tpu_torch.apis.inference import DEFAULT_TEST_PIPELINE
+    from tps_pp_tpu_torch.convertors.base import BaseConvertor
+    from tps_pp_tpu_torch.datasets import OCRDataset
+    from tps_pp_tpu_torch.datasets.pipelines.cv_ops import (png_decode,
+                                                             png_encode)
+    from tps_pp_tpu_torch.tools.data import pack_converter
+    from tps_pp_tpu_torch.utils.packed import PackedReader
+
+    def load_png(results):
+        path = os.path.join(results['img_prefix'],
+                            results['img_info']['filename'])
+        with open(path, 'rb') as f:
+            img = png_decode(f.read())
+        results.update(filename=path, img=img, img_shape=img.shape,
+                       ori_shape=img.shape)
+        return results
+
+    chars = BaseConvertor.DICT90
+    with tempfile.TemporaryDirectory() as d:
+        lines = []
+        for i in range(PACKED_CROPS):
+            crop = g.integers(0, 256, (int(g.integers(16, 65)),
+                                       int(g.integers(24, 401)), 3),
+                              np.uint8)
+            with open(os.path.join(d, f'crop_{i}.png'), 'wb') as f:
+                f.write(png_encode(crop))
+            text = ''.join(chars[int(c)] for c in g.integers(
+                0, len(chars), int(g.integers(1, 26))))
+            lines.append(f'crop_{i}.png {text}')
+        txt = os.path.join(d, 'label.txt')
+        pack = os.path.join(d, 'label.pack')
+        with open(txt, 'w', encoding='utf-8') as f:
+            f.write('\n'.join(lines) + '\n')
+        pack_converter.main([txt, pack])
+        if [PackedReader(pack)[i].decode() for i in range(len(lines))] != \
+                lines:
+            raise AssertionError('packed: the records are not the lines')
+        out = {}
+        for kind, ann, loader in (('text', txt, 'HardDiskLoader'),
+                                  ('TPSPACK1', pack, 'PackedLoader')):
+            ds = OCRDataset(ann_file=ann, img_prefix=d, test_mode=True,
+                            loader=dict(type=loader,
+                                        parser=dict(type='LineStrParser')),
+                            pipeline=[load_png] + DEFAULT_TEST_PIPELINE)
+            out[kind] = eval_recognizer(rec, ds, batch_size=8,
+                                        return_results=True)
+    (m_t, r_t), (m_p, r_p) = out['text'], out['TPSPACK1']
+    same = [a['text'] for a in r_t] == [b['text'] for b in r_p]
+    log(f'packed round trip: eval_recognizer over {PACKED_CROPS} PNG crops, '
+        f'annotations as TPSPACK1 {m_p} and as text {m_t}; texts equal: '
+        f'{same}')
+    if not same or m_t != m_p:
+        raise AssertionError('packed: TPSPACK1 and text annotations read '
+                             'differently')
+
+
 def deploy_phase(dev, name):
     """The deployment entry points on the card (see the module docstring,
     "deployment")."""
@@ -6709,8 +6913,9 @@ def deploy_phase(dev, name):
             raise AssertionError(f'deploy {what}: {got.shape[0] - rows} '
                                  f'rows part from the eager kernel path')
 
-    # ---- torch.export at B=8 and B=512: the loaded program's launches
-    for n in (8, B):
+    # ---- torch.export at B=512: the loaded program's launches (B=8 is
+    # exported on the steps path, steps_exit_deploy)
+    for n in (B,):
         eager = rec.predict(img[:n], vr[:n], bucket_batch=False)
         t0 = time.perf_counter()
         blob = export.export_serialized(rec, n, FLAGSHIP_INPUT)
@@ -6763,7 +6968,12 @@ def deploy_phase(dev, name):
     if got != ref:
         raise AssertionError('deploy ExportedRecognizer: texts differ from '
                              'simple_test')
+    packed_roundtrip(rec, g)
     del er, rec
+
+    # ---- greedy steps + use_fused_step with its early exit, exported and
+    # captured
+    steps_exit_deploy(dev, name, img)
 
     # ---- serve_model in a thread: the flagship config, PNG bodies
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -7269,9 +7479,43 @@ def main():
     log(f'self_attn_step at t = 0, 1, 20, {T - 2} and cross_ffn_step '
         f'(bf16 B={B}, f32 B={B_SMALL}): max abs errors {err6:.4g}, '
         f'{err7:.4g}; caches equal outside slot t')
+    # the device exit's skip flag: set, both give x and leave the caches
+    # as they were, bit for bit with their plain versions; unset, within
+    # the bounds
+    for dt, n in ((bf, B), (f32, B_SMALL)):
+        xd, ckd, cvd, ekd, evd = (a[:n].to(dt).contiguous() for a in
+                                  (xs, ck0, cv0, ek, ev))
+        md = mask[:n].contiguous()
+        for flag in (True, False):
+            sk = torch.tensor(flag, device=dev)
+            ck, cv, ckp, cvp = (ckd.clone(), cvd.clone(), ckd.clone(),
+                                cvd.clone())
+            outs = (self_attn_step(xd, ck, cv, 20, *sa_w, sk)[0],
+                    self_attn_step_plain(xd, ckp, cvp, 20, *sa_w, sk)[0],
+                    cross_ffn_step(xd, ekd, evd, md, *cf_w, sk),
+                    cross_ffn_step_plain(xd, ekd, evd, md, *cf_w, sk))
+            torch.cuda.synchronize()
+            what = f'skip {flag} {dt} N={n}'
+            if flag:
+                if not (all(torch.equal(o, xd) for o in outs) and
+                        torch.equal(ck, ckd) and torch.equal(cv, cvd) and
+                        torch.equal(ckp, ckd) and torch.equal(cvp, cvd)):
+                    raise AssertionError(f'{what}: a skipped step is not x '
+                                         f'with the caches untouched')
+                continue
+            check_close(f'self_attn_step {what}', outs[0], outs[1],
+                        (STEP_ATOL, STEP_RTOL))
+            check_close(f'self_attn_step {what} cache', ck[:, :, 20],
+                        ckp[:, :, 20], (STEP_ATOL, STEP_RTOL))
+            check_close(f'cross_ffn_step {what}', outs[2], outs[3],
+                        (STEP_ATOL, STEP_RTOL))
+    log(f'self_attn_step and cross_ffn_step with the skip flag (bf16 B={B}, '
+        f'f32 B={B_SMALL}): set, x and the caches bit-equal to the plain '
+        f'versions; unset, within the bounds')
     ck, cv = ck0.clone(), cv0.clone()
     S = dec.max_seq_len
     slot = nbytes(ck[:, :, 0])                  # one slot of K (or V)
+    # device time (CUDA graph), as the step decode's launches are short
     record('self_attn_step', 'tps_pp_tpu_torch/csrc/decode_step.cu',
            'tps_pp_tpu/ops/pallas_decode.py:122',
            lambda: [self_attn_step(xs, ck, cv, t, *sa_w) for t in range(S)],
@@ -7280,14 +7524,20 @@ def main():
            # the mean step of the 40: reads t slots, writes slot t
            nbytes(xs, xs, *sa_w) + 2 * slot * ((S - 1) / 2 + 1),
            bf16_flops=2 * B * (512 * 3 * 512 + 512 * 512),
-           f32_flops=4 * B * 512 * (S + 1) / 2, calls=S)
+           f32_flops=4 * B * 512 * (S + 1) / 2, calls=S, graph=True)
     record('cross_ffn_step', 'tps_pp_tpu_torch/csrc/decode_step.cu',
            'tps_pp_tpu/ops/pallas_decode.py:219',
            lambda: cross_ffn_step(xs, ek, ev, mask, *cf_w),
            lambda: cross_ffn_step_plain(xs, ek, ev, mask, *cf_w), err7, 20,
            nbytes(xs, ek, ev, mask, xs, *cf_w),
            bf16_flops=2 * B * (2 * 512 * 512 + 2 * 512 * 256),
-           f32_flops=4 * B * 512 * 64)
+           f32_flops=4 * B * 512 * 64, graph=True)
+    # a skipped step: the flag set, device time
+    sk = torch.tensor(True, device=dev)
+    ms6 = graph_ms(lambda: self_attn_step(xs, ck, cv, 20, *sa_w, sk))
+    ms7 = graph_ms(lambda: cross_ffn_step(xs, ek, ev, mask, *cf_w, sk))
+    log(f'skipped step (flag set) B={B}, device time: self_attn_step '
+        f'{ms6:.4f} ms, cross_ffn_step {ms7:.4f} ms [{name}]')
     del ck, cv, ck0, cv0, ek, ev
 
     # ---- kernels 8-10: the training warp at B_TRAIN, bf16 and f32 --------

@@ -27,6 +27,14 @@ heads of 8).
   1e-5 (int8: 1e-4, an int8 value may sit one step away where f32 noise
   moves x / scale across a rounding boundary, and over 12 steps that
   reaches ~2e-5).
+* ``greedy_decode``'s device exit (``device_exit=True``: every step, each
+  zeroed on the device where every row ended before it, the flag handed to
+  the fused step as ``skip``) on the same paths and schedules: bit-equal to
+  the host exit on every row, and to the JAX loop within the tolerances
+  above.
+* The skipped step of the plain step functions: with ``skip`` set, x_out
+  is x and the caches are untouched, bit for bit; with it unset, the step
+  is the one without the flag, bit for bit.
 """
 import functools
 
@@ -357,3 +365,73 @@ def test_greedy_decode_exit(setup, jax_exit, path, schedule):
     np.testing.assert_array_equal(got == 0, ref == 0)
     np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
     np.testing.assert_allclose(got, ref, atol=EXIT_ATOL[path], rtol=0)
+
+
+class _ForcedSkip(_Forced):
+    """``_Forced`` that takes the device exit's ``skip`` flag and hands it
+    to the decoder's step."""
+    TAKES_SKIP = True
+
+    def decode_step(self, token, t, carry, static, plain=False, skip=None):
+        probs, carry = self.dec.decode_step(token, t, carry, static,
+                                            plain=plain, skip=skip)
+        eos = torch.nn.functional.one_hot(torch.tensor(END), C - 1).float()
+        return torch.where((self.finish == t)[:, None], eos, probs), carry
+
+
+@pytest.mark.parametrize('schedule', list(EXIT_SCHEDULES))
+@pytest.mark.parametrize('path', list(EXIT_PATHS))
+def test_greedy_device_exit(setup, jax_exit, path, schedule):
+    v, out_enc = setup
+    finish = EXIT_SCHEDULES[schedule]
+    dec = _port(v, max_seq_len=EXIT_S, **EXIT_PATHS[path])
+    kw = dict(max_seq_len=EXIT_S, start_idx=1, end_idx=END)
+    enc, vr = torch.from_numpy(out_enc), torch.from_numpy(VR)
+    with torch.no_grad():
+        host = greedy_decode(_Forced(dec, finish), enc, vr, **kw)
+        got = greedy_decode(_ForcedSkip(dec, finish), enc, vr,
+                            device_exit=True, **kw)
+    assert torch.equal(got, host)
+    got = got.numpy()
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ('self_attn_step', 'cross_ffn_step'):
+            mp.setattr(pd, name, functools.partial(getattr(pd, name),
+                                                   interpret=True))
+        ref = np.asarray(jax_exit[path](jnp.asarray(finish, jnp.int32)))
+    np.testing.assert_array_equal(got == 0, ref == 0)
+    np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
+    np.testing.assert_allclose(got, ref, atol=EXIT_ATOL[path], rtol=0)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_skipped_step_plain(setup, dtype):
+    """The plain step functions under ``skip``: set, x passes through and
+    the caches keep every slot; unset, the step without the flag."""
+    v, out_enc = setup
+    dt = getattr(torch, dtype)
+    dec = _port(v, use_fused_step=True)
+    (sa_w, cf_w), = dec._step_layer_args()[:1]
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((N, 64), generator=g).to(dt)
+    ck, cv = (torch.randn((N, 2, S + 1, 8), generator=g).to(dt)
+              for _ in range(2))
+    ek, ev = (torch.randn((N, 2, TE, 8), generator=g).to(dt)
+              for _ in range(2))
+    mask = torch.from_numpy((np.arange(TE)[None] < VR[:, None] * TE
+                             ).astype(np.float32))
+    t = 3
+    for skip in (True, False):
+        flag = torch.tensor(skip)
+        a = [c.clone() for c in (ck, cv)]
+        b = [c.clone() for c in (ck, cv)]
+        got, _, _ = self_attn_step_plain(x, *a, t, *sa_w, flag)
+        want, _, _ = self_attn_step_plain(x, *b, t, *sa_w)
+        got2 = cross_ffn_step_plain(x, ek, ev, mask, *cf_w, flag)
+        want2 = cross_ffn_step_plain(x, ek, ev, mask, *cf_w)
+        if skip:
+            assert torch.equal(got, x) and torch.equal(got2, x)
+            assert torch.equal(a[0], ck) and torch.equal(a[1], cv)
+            assert not torch.equal(want, x)
+        else:
+            assert torch.equal(got, want) and torch.equal(got2, want2)
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])

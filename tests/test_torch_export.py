@@ -12,15 +12,23 @@ its operators on the CPU, against the JAX package's ``utils/export.py``.
   ``predict`` exactly (the same plain versions run) and, on the whole
   decode, JAX's ``predict`` in argmax and within 1e-6 (the tolerance of
   ``tests/test_torch_flagship.py``); ``aot_compile`` on the CPU equals
-  ``predict``; ``ExportedRecognizer`` pads a smaller batch; greedy
-  ``steps`` with its early exit raises the ``ValueError``.
+  ``predict``; ``ExportedRecognizer`` pads a smaller batch.
+* Greedy ``steps`` with its early exit, which a trace and ``aot_compile``
+  take in its device form (``greedy_decode(device_exit=True)``): the
+  tiny NRTR on the module step and on ``use_fused_step``, a tiny SAR and
+  a tiny RobustScanner,
+  each row forced to emit EOS at a chosen step (at step 0, mid-sequence,
+  never): the exported program and the CPU ``aot_compile`` equal the
+  eager ``predict`` (which reads the exit on the host) exactly.
 * ``torch.library.opcheck`` on every operator of ``torch.ops.tps_pp``
-  with CPU inputs (schema, fake kernel, dynamic-shape tracing).
+  with CPU inputs (schema, fake kernel, dynamic-shape tracing); the step
+  operators with and without their ``skip`` flag.
 * The ``export_model`` CLI's ``export``, ``aot`` and ``test`` modes.
 """
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch_port_util import jax_flagship, jax_recognizer, jnp_tree
 
 import jax
@@ -141,7 +149,7 @@ def test_flagship_export_holds_the_operators_and_matches(tiny, path):
     v, cfg, img, probs = tiny
     (mode, fused_step, stem_mode, early_exit), ops = PATHS[path]
     rec = port(cfg, v, mode, fused_step, stem_mode, early_exit)
-    assert export.check_exportable(rec) == mode
+    assert rec.resolved_decode_mode() == mode
     ep = export.load_serialized(export.export_serialized(rec, 5,
                                                          (32, 64, 3)))
     assert operators(ep) == ops
@@ -207,12 +215,88 @@ def test_exported_recognizer_pads_to_its_batch(tiny):
 
 
 def test_steps_with_early_exit_does_not_export(tiny):
-    v, cfg, _, _ = tiny
+    """(Its name is from when the path refused to export.) Greedy
+    ``steps`` with its early exit exports and captures: the program and
+    the CPU ``aot_compile`` equal the eager ``predict`` on random weights,
+    where no row emits EOS."""
+    v, cfg, img, _ = tiny
     rec = port(cfg, v, 'steps')
-    with pytest.raises(ValueError, match="'steps'"):
-        export.export_serialized(rec, 2, (32, 64, 3))
-    with pytest.raises(ValueError, match="'steps'"):
-        export.aot_compile(rec, 2, (32, 64, 3))
+    eager = rec.predict(img, VR5, bucket_batch=False)
+    ep = export.load_serialized(export.export_serialized(rec, 5,
+                                                         (32, 64, 3)))
+    with torch.no_grad():
+        got = ep.module()(torch.from_numpy(img), torch.from_numpy(VR5))
+    assert torch.equal(got, eager)
+    call = export.aot_compile(rec, 5, (32, 64, 3))
+    assert torch.equal(call(torch.from_numpy(img), torch.from_numpy(VR5)),
+                       eager)
+
+
+# step at which each of the five rows is forced to emit EOS (-1: never)
+FINISH = {'at_0': [0, 0, 0, 0, 0], 'mid': [2, 4, 1, 3, 0],
+          'never': [2, -1, 4, 1, 0]}
+# a tiny SAR with the parallel decoder (tests/test_torch_sar.py small_cfg)
+SAR_CFG = dict(
+    type='SARNet',
+    label_convertor=dict(type='AttnConvertor', dict_type='DICT36',
+                         with_unknown=True),
+    backbone=dict(type='ResNet31OCR', layers=[1, 1, 1, 1],
+                  channels=[8, 8, 8, 8, 16, 16, 16]),
+    encoder=dict(type='SAREncoder', enc_do_rnn=0.1, d_model=16, d_enc=16),
+    decoder=dict(type='ParallelSARDecoder', d_model=16, d_enc=16, d_k=8,
+                 pred_dropout=0.1, pred_concat=True),
+    loss=dict(type='SARLoss'), max_seq_len=6)
+# and a tiny RobustScanner on the same trunk
+RS_CFG = dict(
+    SAR_CFG, type='RobustScanner',
+    encoder=dict(type='ChannelReductionEncoder', in_channels=16,
+                 out_channels=8),
+    decoder=dict(type='RobustScannerDecoder', dim_input=16, dim_model=8,
+                 hybrid_decoder=dict(type='SequenceAttentionDecoder'),
+                 position_decoder=dict(type='PositionAttentionDecoder')))
+
+
+def force_exit(rec, finish):
+    """Replace row n's probabilities at step finish[n] by a one-hot EOS
+    (the decoder's ``decode_step`` wrapped on the instance)."""
+    dec = rec.model.decoder
+    step, end = dec.decode_step, rec.label_convertor.end_idx
+    finish = torch.tensor(finish)
+
+    def decode_step(token, t, carry, static, plain=False, **kw):
+        probs, carry = step(token, t, carry, static, plain=plain, **kw)
+        eos = F.one_hot(torch.tensor(end), probs.shape[-1]).to(probs.dtype)
+        return torch.where((finish == t)[:, None], eos, probs), carry
+    dec.decode_step = decode_step
+
+
+@pytest.mark.parametrize('finish', list(FINISH))
+@pytest.mark.parametrize('model', ['nrtr', 'nrtr, use_fused_step', 'sar',
+                                   'robust_scanner'])
+def test_steps_early_exit_export_equals_eager(tiny, model, finish):
+    v, cfg, img, _ = tiny
+    if model in ('sar', 'robust_scanner'):
+        rec = build_recognizer(SAR_CFG if model == 'sar' else RS_CFG,
+                               device='cpu').init_weights(0)
+    else:
+        rec = port(cfg, v, 'steps', fused_step='fused' in model)
+    force_exit(rec, FINISH[finish])
+    eager = rec.predict(img, VR5, bucket_batch=False)
+    stop = max(FINISH[finish]) if min(FINISH[finish]) >= 0 else None
+    end = rec.label_convertor.end_idx
+    if stop is not None:
+        assert (eager[:, stop + 1:] == 0).all()
+        assert (eager[:, stop].argmax(-1) == end).any()
+    else:
+        assert (eager.sum(-1) > 0.99).all()
+    ep = export.load_serialized(export.export_serialized(rec, 5,
+                                                         (32, 64, 3)))
+    with torch.no_grad():
+        got = ep.module()(torch.from_numpy(img), torch.from_numpy(VR5))
+    assert torch.equal(got, eager)
+    call = export.aot_compile(rec, 5, (32, 64, 3))
+    assert torch.equal(call(torch.from_numpy(img), torch.from_numpy(VR5)),
+                       eager)
 
 
 # ---------------------------------------------------------- opcheck
@@ -280,6 +364,13 @@ def _op_cases():
         'cross_ffn_step': (ops.cross_ffn_step,
                            (r(2, 32), r(2, 2, 6, 8), r(2, 2, 6, 8), mask,
                             *cf)),
+        'self_attn_step_skip': (ops.self_attn_step,
+                                (r(2, 32), r(2, 2, 5, 8), r(2, 2, 5, 8), 2,
+                                 sw['wqkv'], sw['wfc1'], sw['ln1_s'],
+                                 sw['ln1_b'], torch.tensor(True))),
+        'cross_ffn_step_skip': (ops.cross_ffn_step,
+                                (r(2, 32), r(2, 2, 6, 8), r(2, 2, 6, 8),
+                                 mask, *cf, torch.tensor(False))),
         'grid_sample_fwd': (ops.grid_sample_fwd,
                             (r(2, 5, 7, 3), r(2, 3, 4, 2) * 0.6)),
         'conv3x3_cp': (ops.conv3x3_cp, (x2d, r(5, 36), r(5, 1), 4, 6,
@@ -293,12 +384,13 @@ def _op_cases():
 OP_CASES = ['tps_sampler', 'tps_sampler_twostage', 'encoder_forward',
             'encoder_attention', 'gemm', 'gemm_ln', 'full_decode',
             'full_decode_int8', 'self_attn_step', 'cross_ffn_step',
+            'self_attn_step_skip', 'cross_ffn_step_skip',
             'grid_sample_fwd', 'conv3x3_cp', 'basic_block_cp']
 
 
 def test_every_operator_has_a_case():
-    assert {c.replace('_twostage', '').replace('_int8', '')
-            for c in OP_CASES} == set(_lib.OP_KERNELS)
+    assert {c.replace('_twostage', '').replace('_int8', '').replace(
+        '_skip', '') for c in OP_CASES} == set(_lib.OP_KERNELS)
 
 
 @pytest.mark.parametrize('case', OP_CASES)

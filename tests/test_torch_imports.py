@@ -1164,3 +1164,134 @@ def test_deployment_with_jax_and_cv2_blocked():
                    'jpeg': True, 'served': ['score', 'text'],
                    'lines': ['x y', 'z'], 'drew': True,
                    'env': ['missing', False], 'launches': [0, 0, 0]}
+
+
+TOOLS_SCRIPT = r'''
+import importlib.abc, json, os, sys, tempfile
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    """Refuses jax, flax, cv2 and the JAX package outright."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2',
+                                  'tps_pp_tpu'):
+            raise ImportError(f'{name} is blocked')
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+import contextlib, io
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from tps_pp_tpu_torch.apis import build_recognizer, nrtr_tps_pp_cfg
+from tps_pp_tpu_torch.datasets import OCRDataset
+from tps_pp_tpu_torch.datasets.pipelines.cv_ops import png_decode, png_encode
+from tps_pp_tpu_torch.tools import (benchmark_processing, convert_checkpoint,
+                                    publish_model)
+from tps_pp_tpu_torch.tools.data import (closeset_to_openset, lmdb_converter,
+                                         pack_converter, textdet_converter,
+                                         textrecog_converter)
+from tps_pp_tpu_torch.tools.misc import print_config
+from tps_pp_tpu_torch.utils import export, profiling
+from tps_pp_tpu_torch.utils.packed import PackedReader
+
+out = {}
+quiet = contextlib.redirect_stdout(io.StringIO())
+with tempfile.TemporaryDirectory() as d, quiet:
+    crop = np.random.default_rng(0).integers(0, 256, (20, 40, 3), np.uint8)
+    with open(os.path.join(d, 'a.png'), 'wb') as f:
+        f.write(png_encode(crop))
+    txt = os.path.join(d, 'label.txt')
+    with open(txt, 'w') as f:
+        f.write('a.png hello\na.png world\n')
+    pack = os.path.join(d, 'label.pack')
+    out['packed'] = pack_converter.main([txt, pack])
+    out['records'] = [PackedReader(pack)[i].decode() for i in range(2)]
+    try:
+        lmdb_converter.main(['txt2lmdb', txt, os.path.join(d, 'x.lmdb')])
+        out['lmdb'] = 'ran'
+    except ImportError as e:
+        out['lmdb'] = 'pack_converter' in str(e)
+
+    def load(results):
+        path = os.path.join(results['img_prefix'],
+                            results['img_info']['filename'])
+        results['img'] = png_decode(open(path, 'rb').read())
+        return results
+    ds = OCRDataset(ann_file=pack, img_prefix=d, test_mode=True,
+                    loader=dict(type='PackedLoader',
+                                parser=dict(type='LineStrParser')),
+                    pipeline=[load])
+    out['dataset'] = [bool(np.array_equal(ds[i]['img'], crop)) and
+                      ds[i]['text'] for i in range(2)]
+    jl = os.path.join(d, 'a.jsonl')
+    with open(jl, 'w') as f:
+        f.write('{"filename": "a.png", "text": "x"}\n')
+    out['jsonl'] = textrecog_converter.main(
+        ['jsonl', jl, d, os.path.join(d, 'r'), '--pack'])
+    svt = os.path.join(d, 'svt.xml')
+    with open(svt, 'w') as f:
+        f.write('<tagset><image><imageName>a.png</imageName>'
+                '<taggedRectangles><taggedRectangle x="1" y="1" width="9" '
+                'height="9"><tag>HI</tag></taggedRectangle>'
+                '</taggedRectangles></image></tagset>')
+    try:
+        textrecog_converter.main(['svt', svt, d, os.path.join(d, 's')])
+        out['svt'] = 'ran'
+    except ImportError as e:
+        out['svt'] = 'cv2' in str(e)
+    coco = os.path.join(d, 'coco.json')
+    with open(coco, 'w') as f:
+        json.dump({'images': [{'id': 1, 'file_name': 'a.png'}],
+                   'annotations': [{'image_id': 1, 'segmentation': [
+                       [0, 0, 4, 0, 4, 4, 0, 4]]}]}, f)
+    out['det'] = len(textdet_converter.main(
+        ['coco', coco, d, os.path.join(d, 'det.jsonl')]))
+    close = os.path.join(d, 'close.txt')
+    with open(close, 'w') as f:
+        f.write(json.dumps({'file_name': 'a', 'height': 1, 'width': 1,
+                            'annotations': [{'label': 1}, {'label': 2}]})
+                + '\n')
+    out['openset'] = closeset_to_openset.main(
+        [close, os.path.join(d, 'open.txt')])
+    out['config'] = "'type': 'NRTR'" in print_config.main(
+        ['configs/textrecog/nrtr/nrtr_tps++.py'])
+    with profiling.trace(os.path.join(d, 'tr')) as path:
+        torch.ones(8) @ torch.ones(8)
+    out['trace'] = os.path.isfile(path)
+    cfg = dict(nrtr_tps_pp_cfg(tiny=True), decode_mode='steps')
+    cfg['decoder'] = dict(cfg['decoder'], use_fused_step=True)
+    rec = build_recognizer(cfg, device='cpu').init_weights(0)
+    img = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 32, 64, 3)).astype(np.float32))
+    ep = export.load_serialized(export.export_serialized(rec, 2,
+                                                         (32, 64, 3)))
+    with torch.no_grad():
+        same = torch.equal(ep.module()(img, torch.ones(2)),
+                           rec.predict(img, bucket_batch=False))
+    out['steps_exit_export'] = bool(same)
+print(json.dumps({'loaded': sorted(m for m in ('jax', 'flax', 'cv2',
+                                               'tps_pp_tpu')
+                                   if m in sys.modules), **out}))
+'''
+
+
+def test_data_tools_and_steps_export_with_jax_and_cv2_blocked():
+    """The TPSPACK1 format, ``PackedLoader``, the data and config CLIs,
+    ``profiling.trace`` and the export of greedy ``steps`` with its early
+    exit on the CPU with jax, flax, cv2 and the JAX package refused at
+    import: the LMDB branch raises the ImportError that names
+    ``pack_converter``, a JPEG crop the one that names cv2."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', TOOLS_SCRIPT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {'loaded': [], 'packed': 2,
+                   'records': ['a.png hello', 'a.png world'], 'lmdb': True,
+                   'dataset': ['hello', 'world'], 'jsonl': ['a.png x'],
+                   'svt': True, 'det': 1, 'openset': 1, 'config': True,
+                   'trace': True, 'steps_exit_export': True}

@@ -856,6 +856,47 @@ def test_cross_ffn_step_kernel(cuda_device, N, dtype, mask):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize('skip', ['set', 'unset'])
+@pytest.mark.parametrize('dtype', [BF, torch.float32])
+@pytest.mark.parametrize('t', [0, 1, 20, 39])
+@pytest.mark.parametrize('N', STEP_NS)
+def test_step_kernels_skip_flag(cuda_device, N, t, dtype, skip):
+    """Kernels 6 and 7 with the device exit's ``skip`` flag: set, both
+    give x and leave the caches as they were, bit-equal to their plain
+    versions; unset, within the bounds above, the caches as in
+    ``test_self_attn_step_kernel``."""
+    x, ck, cv, ek, ev, m, w = _step_args(cuda_device, N=N, dtype=dtype,
+                                         mask='masked')
+    flag = torch.tensor(skip == 'set', device=cuda_device)
+    sa = (w['wqkv'], w['wfc1'], w['ln1_s'], w['ln1_b'], flag)
+    cf = (x, ek, ev, m) + tuple(w[k] for k in _CROSS_W) + (flag,)
+    ck0, cv0 = ck.clone(), cv.clone()
+    ck_p, cv_p = ck.clone(), cv.clone()
+    before = (self_attn_step.launches, cross_ffn_step.launches)
+    got, _, _ = self_attn_step(x, ck, cv, t, *sa)
+    want, _, _ = self_attn_step_plain(x, ck_p, cv_p, t, *sa)
+    got7 = cross_ffn_step(*cf)
+    want7 = cross_ffn_step_plain(*cf)
+    torch.cuda.synchronize()
+    assert (self_attn_step.launches, cross_ffn_step.launches) == (
+        before[0] + 1, before[1] + 1)
+    if skip == 'set':
+        for a in (got, want, got7, want7):
+            assert torch.equal(a, x)
+        for c in (ck, cv, ck_p, cv_p):
+            assert torch.equal(c, ck0 if c is ck or c is ck_p else cv0)
+        return
+    for g, p in ((got, want), (got7, want7)):
+        torch.testing.assert_close(g.float(), p.float(), atol=STEP_ATOL,
+                                   rtol=STEP_RTOL)
+    for k, p, k0 in ((ck, ck_p, ck0), (cv, cv_p, cv0)):
+        torch.testing.assert_close(k[:, :, t].float(), p[:, :, t].float(),
+                                   atol=STEP_ATOL, rtol=STEP_RTOL)
+        keep = torch.arange(k.shape[2], device=k.device) != t
+        assert torch.equal(k[:, :, keep], k0[:, :, keep])
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize('dtype', [BF, torch.float32])
 @pytest.mark.parametrize('TE', [257, 320, 512])
 def test_cross_ffn_step_kernel_more_source_tokens(cuda_device, TE, dtype):

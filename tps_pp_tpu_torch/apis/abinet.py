@@ -82,6 +82,8 @@ class ABINetRecognizer(TextRecognizer):
         """The module stem, always: the fused stem is the flagship's."""
         return 'xla'
 
-    def _predict_impl(self, model, img, valid_ratio) -> torch.Tensor:
+    def _predict_impl(self, model, img, valid_ratio,
+                      device_exit: bool = False) -> torch.Tensor:
+        """One pass, no decode loop (``device_exit`` is not read)."""
         return model.forward_test_nar(img, valid_ratio,
                                       plain=self.plain).float()

@@ -343,7 +343,12 @@ class TextRecognizer:
             self._serving = (stamp, model.to(self.dtype))
         return self._serving[1]
 
-    def _predict_impl(self, model, img, valid_ratio):
+    def _predict_impl(self, model, img, valid_ratio,
+                      device_exit: bool = False):
+        """The serving path on a prepared batch. ``device_exit`` keeps
+        the greedy ``steps`` exit on the device (``greedy_decode``), as a
+        trace or a CUDA-graph capture needs; eager ``predict`` reads it on
+        the host."""
         if not self.autoregressive:
             return model.forward_test_nar(img, valid_ratio,
                                           plain=self.plain).float()
@@ -376,7 +381,8 @@ class TextRecognizer:
         return greedy_decode(model.decoder, out_enc, valid_ratio,
                              max_seq_len=self.max_seq_len,
                              start_idx=start_idx, end_idx=end_idx,
-                             plain=self.plain, feat=feat)
+                             plain=self.plain, feat=feat,
+                             device_exit=device_exit)
 
     def predict(self, img, valid_ratio=None,
                 bucket_batch: bool = True) -> torch.Tensor:

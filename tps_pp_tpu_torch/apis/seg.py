@@ -78,7 +78,9 @@ class SegRecognizer(TextRecognizer):
         losses = self.loss_obj(out, gt)
         return sum(losses.values()), losses
 
-    def _predict_impl(self, model, img, valid_ratio) -> torch.Tensor:
+    def _predict_impl(self, model, img, valid_ratio,
+                      device_exit: bool = False) -> torch.Tensor:
+        """One pass, no decode loop (``device_exit`` is not read)."""
         return model.forward_test_nar(img, valid_ratio).float()
 
     def simple_test(self, img, valid_ratio=None, img_metas=None,

@@ -8,7 +8,10 @@
 // A kernel here that takes a `go` gate (the whole decode's step gate)
 // returns at once when *go is 0; step_gemm_kernel also takes a null gate
 // (the per-step kernels have none), and attend_keys_kernel's per-step
-// contract reads none. Every
+// contract reads none. The per-step kernels' gate is `skip` instead, a
+// one-byte flag (null: none), "every row ended before this step": where
+// it is set, attend_keys_kernel returns at once and step_gemm_kernel
+// writes its residual through to C (C = res) and returns. Every
 // kernel calls ptx::grid_dep_wait() before it reads what an earlier kernel
 // of the stream wrote, before it writes anything and before it exits, and
 // ptx::grid_dep_launch() only after that wait, so that each kernel's
@@ -130,6 +133,7 @@ struct StepGemm {
   const float* bias;
   const void* res;
   const int* go;
+  const unsigned char* skip;   // set: C = res, no product (needs res)
   int lda, ldb, ldc, ldr, M, N, K, splits, gelu, res_bf16, out_bf16;
 };
 
@@ -224,6 +228,21 @@ step_gemm_kernel(const StepGemm p) {
   ptx::grid_dep_wait();
   if (p.go && !*p.go) {
     ptx::cp_async_wait_all();
+    return;
+  }
+  if (p.skip && *p.skip) {
+    // a skipped step: the tile's first part writes res through to C
+    ptx::cp_async_wait_all();
+    if (blockIdx.z == 0)
+      for (int e = tid; e < rows * (BN / 2); e += kGemmThreads) {
+        const int r = m0 + e / (BN / 2), c = n0 + (e % (BN / 2)) * 2;
+        const float2 v = load_pair(p.res, p.res_bf16, (size_t)r * p.ldr + c);
+        const size_t at = (size_t)r * p.ldc + c;
+        if (p.out_bf16)
+          store2(reinterpret_cast<bf16*>(p.C) + at, 0, v.x, v.y);
+        else
+          store2(reinterpret_cast<float*>(p.C) + at, 0, v.x, v.y);
+      }
     return;
   }
   ptx::grid_dep_launch();
@@ -523,7 +542,8 @@ static __device__ __forceinline__ void axpy_vec(float* acc, float p, uint4 v,
 // * the per-step kernels' (STEP true): q (f32) times qmul; K and V (bf16
 //   or f32) at kbase/vbase + n*kv_rs + h*kv_hs + j*kv_ks; with app_k (f32),
 //   this step's K/V are written to slot app_slot rounded to the K/V type
-//   and read unrounded; softmax weights f32; no gate.
+//   and read unrounded; softmax weights f32; the skip flag (null: none),
+//   set: nothing is read or written.
 // mask (N, nkeys): key j valid iff mask > 0, else -1e9 (null = all
 // valid). int8 K/V come with the layer's per-head scales: q is rounded to
 // bf16 after the K scale, the output takes the V scale. The output, (N,
@@ -542,7 +562,9 @@ static __device__ __forceinline__ void axpy_vec(float* acc, float p, uint4 v,
 // lanes a V row, each row read coalesced, up to 64 rows in flight.
 template <bool STEP, typename Q, typename KV, typename A, int DK, int MP>
 __global__ void __launch_bounds__(kAttnWarps * 32)
-attend_keys_kernel(const int* __restrict__ go, const Q* __restrict__ q,
+attend_keys_kernel(const int* __restrict__ go,
+                   const unsigned char* __restrict__ skip,
+                   const Q* __restrict__ q,
                    long long q_rs, float qmul, KV* kbase, KV* vbase,
                    long long kv_rs, long long kv_hs, long long kv_ks,
                    int nkeys, const float* __restrict__ mask, int mask_rs,
@@ -585,7 +607,7 @@ attend_keys_kernel(const int* __restrict__ go, const Q* __restrict__ q,
     }
   }
   ptx::grid_dep_wait();
-  if (!live || (!STEP && !*go)) return;
+  if (!live || (!STEP && !*go) || (STEP && skip && *skip)) return;
   ptx::grid_dep_launch();
 
   if (pair_lane) {
@@ -748,7 +770,8 @@ attend_keys_kernel(const int* __restrict__ go, const Q* __restrict__ q,
 // Up to kShortKeys keys on the first case (8 passes), up to kMaxKeys on
 // the second (16); more is cudaErrorInvalidValue.
 template <bool STEP, typename Q, typename KV, typename A, int DK = kDk>
-int launch_attend(const int* go, const Q* q, long long q_rs, float qmul,
+int launch_attend(const int* go, const unsigned char* skip, const Q* q,
+                  long long q_rs, float qmul,
                   KV* k, KV* v, long long kv_rs, long long kv_hs,
                   long long kv_ks, int nkeys, const float* mask, int mask_rs,
                   const float* kscale, const float* vscale, bf16* out,
@@ -760,7 +783,8 @@ int launch_attend(const int* go, const Q* q, long long q_rs, float qmul,
   auto kernel = nkeys <= kShortKeys
                     ? attend_keys_kernel<STEP, Q, KV, A, DK, kShortKeys / 32>
                     : attend_keys_kernel<STEP, Q, KV, A, DK, kMaxKeys / 32>;
-  return launch_pdl(kernel, blocks, kAttnWarps * 32, 0, st, 1, go, q, q_rs,
+  return launch_pdl(kernel, blocks, kAttnWarps * 32, 0, st, 1, go, skip, q,
+                    q_rs,
                     qmul, k, v, kv_rs, kv_hs, kv_ks, nkeys, mask, mask_rs,
                     kscale, vscale, out, out_rs, N, H, app_k, app_v, app_rs,
                     app_slot);

@@ -171,7 +171,8 @@ template <typename X, int S>
 __global__ void __launch_bounds__(kRbThreads)
 ln_product_kernel(const X* __restrict__ x, const float* __restrict__ ln_s,
                   const float* __restrict__ ln_b, const bf16* __restrict__ B,
-                  float* __restrict__ C, int N, int D, int Nout, int W) {
+                  float* __restrict__ C, int N, int D, int Nout, int W,
+                  const unsigned char* __restrict__ skip) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ald = D + 8;
   bf16* As = reinterpret_cast<bf16*>(smem);
@@ -193,6 +194,10 @@ ln_product_kernel(const X* __restrict__ x, const float* __restrict__ ln_s,
   };
   for (int g = 0; g < S - 1; ++g) issue(g);
   ptx::grid_dep_wait();
+  if (skip && *skip) {
+    ptx::cp_async_wait_all();
+    return;
+  }
   ptx::grid_dep_launch();
 
   const int xv = D / VX;  // 16-byte vectors a row
@@ -347,7 +352,7 @@ int sm_count() {
 template <typename X>
 int launch_ln_product(const X* x, const float* s, const float* b,
                       const bf16* B, float* C, int N, int D, int Nout,
-                      int sms, cudaStream_t st) {
+                      int sms, const unsigned char* skip, cudaStream_t st) {
   const long long bands = (N + kRbM - 1) / kRbM;
   int W = 0, S = 0;
   long long best[3] = {0, 0, 0};
@@ -370,7 +375,7 @@ int launch_ln_product(const X* x, const float* s, const float* b,
   auto kernel = S == 8 ? ln_product_kernel<X, 8> : ln_product_kernel<X, 4>;
   TPK_TRY(allow_smem(kernel, smem));
   return launch_pdl(kernel, dim3(Nout / W, bands), kRbThreads, smem, st, 1,
-                    x, s, b, B, C, N, D, Nout, W);
+                    x, s, b, B, C, N, D, Nout, W, skip);
 }
 
 // ---- fc + residual -> LN3 -> W1 + GELU -> W2 + b2 + residual -------------
@@ -407,7 +412,8 @@ ffn_cluster_kernel(const X* __restrict__ x, const bf16* __restrict__ att,
                    const float* __restrict__ ln_b,
                    const bf16* __restrict__ w1, const float* __restrict__ b1,
                    const bf16* __restrict__ w2, const float* __restrict__ b2,
-                   X* __restrict__ out, int N, int D, int HD, int DI) {
+                   X* __restrict__ out, int N, int D, int HD, int DI,
+                   const unsigned char* __restrict__ skip) {
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int CS = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
@@ -464,6 +470,21 @@ ffn_cluster_kernel(const X* __restrict__ x, const bf16* __restrict__ att,
                      ? load2(xb + (size_t)r * D + j * 8 + 2 * q4, 0)
                      : make_float2(0.f, 0.f);
     }
+  if (skip && *skip) {
+    // a skipped step: x written through, every block its own columns
+    ptx::cp_async_wait_all();
+    X* ob = out + (size_t)m0 * D + rank * sd + wcd;
+#pragma unroll
+    for (int j = 0; j < kRbMaxNF; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = gr + 8 * h;
+        if (j < nfd && r < rows)
+          store2(ob + (size_t)r * D + j * 8 + 2 * q4, 0, xv[j][h].x,
+                 xv[j][h].y);
+      }
+    return;
+  }
 
   // the band's rows of att (zeros past N)
   const int av = HD / 8;
@@ -620,7 +641,8 @@ template <typename X>
 int launch_ffn(const X* x, const bf16* att, const bf16* wfc,
                const float* ln_s, const float* ln_b, const bf16* w1,
                const float* b1, const bf16* w2, const float* b2, X* out,
-               int N, int D, int HD, int DI, cudaStream_t st) {
+               int N, int D, int HD, int DI, const unsigned char* skip,
+               cudaStream_t st) {
   const int cs = ffn_cluster_size(D, DI), bands = (N + kRbM - 1) / kRbM;
   const size_t smem8 = ffn_layout(D, HD, DI, cs, 8).bytes;
   TPK_TRY(allow_smem(ffn_cluster_kernel<X, 8>, smem8));
@@ -662,20 +684,22 @@ int launch_ffn(const X* x, const bf16* att, const bf16* wfc,
   auto kernel = S == 8 ? ffn_cluster_kernel<X, 8> : ffn_cluster_kernel<X, 4>;
   TPK_TRY(allow_smem(kernel, smem));
   return launch_pdl(kernel, dim3(1, bands, cs), kRbThreads, smem, st, cs, x,
-                    att, wfc, ln_s, ln_b, w1, b1, w2, b2, out, N, D, HD, DI);
+                    att, wfc, ln_s, ln_b, w1, b1, w2, b2, out, N, D, HD, DI,
+                    skip);
 }
 
 template <typename X>
 int self_attn_step(const X* x, X* ck, X* cv, const bf16* wqkv,
                    const bf16* wfc, const float* ln_s, const float* ln_b,
-                   void* scratch, X* x_out, int N, int D, int H, int T, int t,
-                   cudaStream_t st) {
+                   void* scratch, X* x_out, const unsigned char* skip, int N,
+                   int D, int H, int T, int t, cudaStream_t st) {
   const int HD = H * kDk, sms = sm_count();
   float* qkv = reinterpret_cast<float*>(scratch);
   bf16* att = reinterpret_cast<bf16*>(qkv + (size_t)N * 3 * HD);
-  TPK_TRY(launch_ln_product(x, ln_s, ln_b, wqkv, qkv, N, D, 3 * HD, sms, st));
+  TPK_TRY(launch_ln_product(x, ln_s, ln_b, wqkv, qkv, N, D, 3 * HD, sms, skip,
+                            st));
   TPK_TRY((launch_attend<true, float, X, float>(
-      nullptr, qkv, 3 * HD, kQScale, ck, cv, (long long)H * T * kDk,
+      nullptr, skip, qkv, 3 * HD, kQScale, ck, cv, (long long)H * T * kDk,
       (long long)T * kDk, kDk, t + 1, nullptr, 0, nullptr, nullptr, att,
       HD, N, H, qkv + HD, qkv + 2 * HD, 3 * HD, t, st)));
   const GemmPlan plan = step_gemm_plan(N, D, HD, sms);
@@ -684,6 +708,7 @@ int self_attn_step(const X* x, X* ck, X* cv, const bf16* wqkv,
   p.B = wfc;
   p.C = x_out;
   p.res = x;
+  p.skip = skip;
   p.lda = HD;
   p.ldb = D;
   p.ldc = D;
@@ -701,20 +726,22 @@ int cross_ffn_step(const X* x, const X* ek, const X* ev, const float* mask,
                    const bf16* wq, const bf16* wfc, const float* ln2_s,
                    const float* ln2_b, const bf16* w1, const float* b1,
                    const bf16* w2, const float* b2, const float* ln3_s,
-                   const float* ln3_b, void* scratch, X* x_out, int N, int D,
-                   int H, int TE, int DI, cudaStream_t st) {
+                   const float* ln3_b, void* scratch, X* x_out,
+                   const unsigned char* skip, int N, int D, int H, int TE,
+                   int DI, cudaStream_t st) {
   const int HD = H * kDk;
   float* q32 = reinterpret_cast<float*>(scratch);
   bf16* att = reinterpret_cast<bf16*>(q32 + (size_t)N * HD);
   TPK_TRY(launch_ln_product(x, ln2_s, ln2_b, wq, q32, N, D, HD, sm_count(),
-                            st));
+                            skip, st));
   // the encoder K/V are read only: no appended key
   TPK_TRY((launch_attend<true, float, X, X>(
-      nullptr, q32, HD, kQScale, const_cast<X*>(ek), const_cast<X*>(ev),
-      (long long)H * TE * kDk, (long long)TE * kDk, kDk, TE, mask, TE,
-      nullptr, nullptr, att, HD, N, H, nullptr, nullptr, 0, -1, st)));
+      nullptr, skip, q32, HD, kQScale, const_cast<X*>(ek),
+      const_cast<X*>(ev), (long long)H * TE * kDk, (long long)TE * kDk, kDk,
+      TE, mask, TE, nullptr, nullptr, att, HD, N, H, nullptr, nullptr, 0, -1,
+      st)));
   return launch_ffn(x, att, wfc, ln3_s, ln3_b, w1, b1, w2, b2, x_out, N, D,
-                    HD, DI, st);
+                    HD, DI, skip, st);
 }
 
 // Whether every pointer is 16-byte aligned (the kernels copy 16 bytes at
@@ -735,6 +762,12 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
 // pointer 16-byte aligned. Outside them an entry point
 // launches nothing and returns cudaErrorInvalidValue.
 //
+// skip (both entry points): null, or a device byte that says every row
+// ended before this step. Where it is set, every block of the three
+// launches returns after its wait on the kernel before, but for the last
+// launch's, which write x through to x_out: x_out = x, the caches and the
+// scratch untouched.
+//
 // Self-attention step. is_bf16 selects X: 1 = bf16, 0 = f32. x (N, D) X;
 // ck/cv (N, H, T, DK) X, slot t written in place; wqkv (D, 3HD), wfc
 // (HD, D) bf16; ln_s/ln_b (D) f32. Scratch: N * HD * 14 bytes (qkv (N, 3HD)
@@ -742,7 +775,8 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
 extern "C" int tpk_self_attn_step(const void* x, void* ck, void* cv,
                                   const void* wqkv, const void* wfc,
                                   const float* ln_s, const float* ln_b,
-                                  void* scratch, void* x_out, int N, int D,
+                                  void* scratch, void* x_out,
+                                  const unsigned char* skip, int N, int D,
                                   int H, int DK, int T, int t, int is_bf16,
                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
@@ -754,10 +788,10 @@ extern "C" int tpk_self_attn_step(const void* x, void* ck, void* cv,
   if (is_bf16)
     return self_attn_step((const bf16*)x, (bf16*)ck, (bf16*)cv,
                           (const bf16*)wqkv, (const bf16*)wfc, ln_s, ln_b,
-                          scratch, (bf16*)x_out, N, D, H, T, t, st);
+                          scratch, (bf16*)x_out, skip, N, D, H, T, t, st);
   return self_attn_step((const float*)x, (float*)ck, (float*)cv,
                         (const bf16*)wqkv, (const bf16*)wfc, ln_s, ln_b,
-                        scratch, (float*)x_out, N, D, H, T, t, st);
+                        scratch, (float*)x_out, skip, N, D, H, T, t, st);
 }
 
 // Cross-attention + FFN step. x (N, D) X; ek/ev (N, H, TE, DK) X; mask
@@ -768,8 +802,9 @@ extern "C" int tpk_cross_ffn_step(
     const void* x, const void* ek, const void* ev, const float* mask,
     const void* wq, const void* wfc, const float* ln2_s, const float* ln2_b,
     const void* w1, const float* b1, const void* w2, const float* b2,
-    const float* ln3_s, const float* ln3_b, void* scratch, void* x_out, int N,
-    int D, int H, int DK, int TE, int DI, int is_bf16, void* stream) {
+    const float* ln3_s, const float* ln3_b, void* scratch, void* x_out,
+    const unsigned char* skip, int N, int D, int H, int DK, int TE, int DI,
+    int is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (DK != kDk || D % 64 || D > kStepMaxD || DI % 64 || TE < 1 ||
       TE > kMaxKeys || !ffn_cluster_size(D, DI) ||
@@ -781,11 +816,11 @@ extern "C" int tpk_cross_ffn_step(
     return cross_ffn_step(
         (const bf16*)x, (const bf16*)ek, (const bf16*)ev, mask,
         (const bf16*)wq, (const bf16*)wfc, ln2_s, ln2_b, (const bf16*)w1, b1,
-        (const bf16*)w2, b2, ln3_s, ln3_b, scratch, (bf16*)x_out, N, D, H, TE,
-        DI, st);
+        (const bf16*)w2, b2, ln3_s, ln3_b, scratch, (bf16*)x_out, skip, N, D,
+        H, TE, DI, st);
   return cross_ffn_step(
       (const float*)x, (const float*)ek, (const float*)ev, mask,
       (const bf16*)wq, (const bf16*)wfc, ln2_s, ln2_b, (const bf16*)w1, b1,
-      (const bf16*)w2, b2, ln3_s, ln3_b, scratch, (float*)x_out, N, D, H, TE,
-      DI, st);
+      (const bf16*)w2, b2, ln3_s, ln3_b, scratch, (float*)x_out, skip, N, D,
+      H, TE, DI, st);
 }

@@ -411,7 +411,7 @@ extern "C" int tpk_full_decode(
   auto gemm = [&](int i, const bf16* A, int lda, const void* B, int l,
                   void* C, int ldc, const float* bias, int gelu, int residual,
                   int out_bf16) {
-    StepGemm p;
+    StepGemm p = {};
     p.A = A;
     p.B = (const bf16*)B + (size_t)l * prod_k[i] * prod_n[i];
     p.C = C;
@@ -442,11 +442,13 @@ extern "C" int tpk_full_decode(
     using KVT = std::remove_pointer_t<decltype(k)>;
     if (DK == 32)
       return launch_attend<false, Q, KVT, KVT, 32>(
-          go, q, q_rs, 1.f, k, v, kv_rs, 32, kv_ks, nkeys, mask, mask_rs,
-          kscale, vscale, ab, HD, N, H, app_k, app_v, app_rs, app_slot, st);
+          go, nullptr, q, q_rs, 1.f, k, v, kv_rs, 32, kv_ks, nkeys, mask,
+          mask_rs, kscale, vscale, ab, HD, N, H, app_k, app_v, app_rs,
+          app_slot, st);
     return launch_attend<false, Q, KVT, KVT, 64>(
-        go, q, q_rs, 1.f, k, v, kv_rs, 64, kv_ks, nkeys, mask, mask_rs,
-        kscale, vscale, ab, HD, N, H, app_k, app_v, app_rs, app_slot, st);
+        go, nullptr, q, q_rs, 1.f, k, v, kv_rs, 64, kv_ks, nkeys, mask,
+        mask_rs, kscale, vscale, ab, HD, N, H, app_k, app_v, app_rs,
+        app_slot, st);
   };
   // y = bf16(LN(x32)), the operand of the next product
   auto layernorm = [&]() {

@@ -4,8 +4,9 @@
 
 ``LmdbLoader`` opens the database lazily in each process, as the JAX
 package does, and raises an ``ImportError`` that names the alternatives
-when python-lmdb is absent. The JAX package's ``PackedLoader`` reads its
-files through its native library and is not ported.
+when python-lmdb is absent. ``PackedLoader`` reads the annotation lines of
+a TPSPACK1 file (``utils/packed.py``, the JAX package's format, read here
+in plain Python), one UTF-8 line a record.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import os
 from typing import Dict, List
 
 from ..registry import LOADERS, PARSERS
+from ..utils.packed import PackedReader
 from ..utils.string_util import StringStrip
 
 
@@ -124,7 +126,8 @@ class _LmdbBackend:
         except ImportError as e:
             raise ImportError(
                 'python-lmdb is not installed; use HardDiskLoader (a text '
-                'file of annotation lines) instead') from e
+                'file of annotation lines) or PackedLoader (a TPSPACK1 file, '
+                'tools/data/pack_converter.py) instead') from e
         return lmdb.open(self.lmdb_path, max_readers=1, readonly=True,
                          lock=False, readahead=False, meminit=False)
 
@@ -149,3 +152,25 @@ class LmdbLoader(BaseLoader):
 
     def _load(self, ann_file):
         return _LmdbBackend(ann_file)
+
+
+class _PackedBackend:
+    """The annotation lines of a TPSPACK1 file, decoded from UTF-8."""
+
+    def __init__(self, path: str):
+        self._reader = PackedReader(path)
+
+    def __len__(self):
+        return len(self._reader)
+
+    def __getitem__(self, index: int) -> str:
+        return self._reader[index].decode('utf-8')
+
+
+@LOADERS.register_module()
+class PackedLoader(BaseLoader):
+    """Annotation lines stored in a TPSPACK1 file (JAX
+    ``tps_pp_tpu/datasets/loader.py:154-175``)."""
+
+    def _load(self, ann_file):
+        return _PackedBackend(ann_file)

@@ -14,13 +14,25 @@ With ``end_idx`` it stops once every row has emitted it; the steps it
 skips read back as zeros, as in the JAX loop.
 
 The JAX loop decides its exit on the device (``lax.while_loop``). Here
-the all-done flag stays on the device too: each step copies it,
-non-blocking, into a pinned host slot and records an event, and the host
-reads the flag of the step EXIT_LAG steps behind the one it has just
-issued, so that it never waits for the step in flight. The loop stops at
-the first step whose flag is set; the steps issued past it are dropped
-(their outputs zeroed), so the result is the one of a loop that checks
-every step.
+the exit has two forms with one result, that of a loop that checks the
+all-done flag after every step:
+
+* the host exit (default, eager ``predict``): each step copies the flag,
+  non-blocking, into a pinned host slot and records an event, and the host
+  reads the flag of the step EXIT_LAG steps behind the one it has just
+  issued, so that it never waits for the step in flight. The loop stops at
+  the first step whose flag is set; the steps issued past it are dropped
+  (their outputs zeroed).
+* the device exit (``device_exit=True``: a trace or a CUDA-graph capture,
+  ``utils/export.py``): all ``max_seq_len`` steps run and the host reads
+  nothing. Before each step the flag "every row ended before this step"
+  is ``done.all()`` on the device; the step's output is zeroed where it is
+  set (``done`` only grows, so that zeroes every step past the first
+  all-done one). A decoder whose class sets ``TAKES_SKIP`` gets the flag
+  as ``decode_step(..., skip=flag)``; NRTR's fused step hands it to the
+  step kernels, which then skip the step's work. The module step and the
+  int8 step compute every step: the result is the same, the exit saves
+  nothing there.
 """
 from __future__ import annotations
 
@@ -47,13 +59,19 @@ def greedy_decode(decoder, out_enc: torch.Tensor, valid_ratio, *,
                   max_seq_len: int, start_idx: int,
                   end_idx: Optional[int] = None,
                   plain: bool = False,
-                  feat: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Returns (N, max_seq_len, C') float32 per-step probabilities."""
+                  feat: Optional[torch.Tensor] = None,
+                  device_exit: bool = False) -> torch.Tensor:
+    """Returns (N, max_seq_len, C') float32 per-step probabilities; with
+    ``end_idx``, ``device_exit`` picks the exit's form (module
+    docstring)."""
     N, dev = _rows(feat, out_enc)
     carry, static = decoder.decode_init(out_enc, valid_ratio,
                                         **_feat_kw(feat))
     token = torch.full((N,), start_idx, dtype=torch.long, device=dev)
     done = torch.zeros((N,), dtype=torch.bool, device=dev)
+    if end_idx is not None and device_exit:
+        return _greedy_device_exit(decoder, carry, static, token, done,
+                                   max_seq_len, end_idx, plain)
     cuda = dev.type == 'cuda'
     if end_idx is not None:
         # flags[t]: every row done after step t, as the host sees it once
@@ -85,6 +103,26 @@ def greedy_decode(decoder, out_enc: torch.Tensor, valid_ratio, *,
         stop = _first_exit(flags, events, read, max_seq_len)
     if stop is not None:
         out[:, stop + 1:] = 0
+    return out
+
+
+def _greedy_device_exit(decoder, carry, static, token, done,
+                        max_seq_len: int, end_idx: int, plain: bool):
+    """The device exit's loop: every step, each zeroed where every row
+    ended before it."""
+    skip_kw = getattr(type(decoder), 'TAKES_SKIP', False)
+    out = None
+    for t in range(max_seq_len):
+        ended = done.all()
+        kw = {'skip': ended} if skip_kw else {}
+        probs, carry = decoder.decode_step(token, t, carry, static,
+                                           plain=plain, **kw)
+        if out is None:
+            out = probs.new_zeros((token.shape[0], max_seq_len,
+                                   probs.shape[-1]))
+        out[:, t] = torch.where(ended, 0.0, probs)
+        token = probs.argmax(dim=-1)
+        done |= token == end_idx
     return out
 
 

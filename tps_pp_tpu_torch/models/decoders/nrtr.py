@@ -16,7 +16,10 @@ probabilities:
   ``ops.decode_step`` (the CUDA kernels on CUDA tensors, their plain
   versions on CPU tensors or with ``plain=True``), on the unfolded weights
   packed once per weights stamp (JAX ``nrtr.py:323-357``). The two options
-  exclude each other, as in JAX.
+  exclude each other, as in JAX. ``decode_step`` takes the device exit's
+  ``skip`` flag (``TAKES_SKIP``; ``models/decoders/base.py``): the fused
+  step hands it to both step functions, which then skip the step; the
+  module and int8 steps compute the step all the same.
 * ``fused_full_decode``: the whole decode through ``ops.full_decode``, the
   counterpart of ``decode_mode='fused40_bf16'`` (bf16 encoder K/V) and
   ``'fused40'`` (int8 encoder K/V). Its packed, folded weights are computed
@@ -48,6 +51,7 @@ from ..transformer import (NEG_INF, PositionalEncoding, TFDecoderLayer,
 @DECODERS.register_module()
 class NRTRDecoder(nn.Module):
     IS_AUTOREGRESSIVE = True
+    TAKES_SKIP = True
 
     def __init__(self, n_layers=6, d_embedding=512, n_head=8, d_k=64,
                  d_v=64, d_model=512, d_inner=256, n_position=200,
@@ -129,16 +133,19 @@ class NRTRDecoder(nn.Module):
                         for d, dt in slots) for _ in self.layer_stack]
         return caches, (enc_kvs, src_mask)
 
-    def decode_step(self, token, t: int, carry, static, plain: bool = False):
+    def decode_step(self, token, t: int, carry, static, plain: bool = False,
+                    skip: Optional[torch.Tensor] = None):
         """token (N,) -> (probs (N, C-1) float32, carry). The caches are
         updated in place at slot t. ``plain`` makes the fused step run the
-        kernels' plain versions on any device."""
+        kernels' plain versions on any device; ``skip``, the device exit's
+        flag, reaches the fused step only."""
         if self.use_fused_step:
             # the fused step takes 2-tuple caches; int8 caches are 4-tuples
             if self.kv_dtype == 'int8':
                 raise ValueError('use_fused_step does not support '
                                  "kv_dtype='int8'")
-            return self._fused_decode_step(token, t, carry, static, plain)
+            return self._fused_decode_step(token, t, carry, static, plain,
+                                           skip)
         if self.kv_dtype == 'int8':
             return self._decode_step_q8(token, t, carry, static)
         enc_kvs, src_mask = static
@@ -272,7 +279,8 @@ class NRTRDecoder(nn.Module):
         return self._cached((self.classifier.weight.device, 'step_layers'),
                             make)
 
-    def _fused_decode_step(self, token, t: int, carry, static, plain: bool):
+    def _fused_decode_step(self, token, t: int, carry, static, plain: bool,
+                           skip: Optional[torch.Tensor] = None):
         """decode_step through ``ops.decode_step``: per layer
         ``self_attn_step`` (LN1, QKV, cache append, attention, projection,
         residual) then ``cross_ffn_step`` (LN2, cross-attention, projection,
@@ -283,8 +291,8 @@ class NRTRDecoder(nn.Module):
         x = self._embed(token[:, None], offset=t)[:, 0].contiguous()
         for (sa_w, cf_w), (ck, cv), (ek, ev) in zip(self._step_layer_args(),
                                                     carry, enc_kvs):
-            x, _, _ = sa_fn(x, ck, cv, t, *sa_w)
-            x = cf_fn(x, ek, ev, src_mask, *cf_w)
+            x, _, _ = sa_fn(x, ck, cv, t, *sa_w, skip)
+            x = cf_fn(x, ek, ev, src_mask, *cf_w, skip)
         return self._head(x), carry
 
     # ---- fused path ----------------------------------------------------

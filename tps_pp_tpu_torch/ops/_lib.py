@@ -40,8 +40,8 @@ _SIGNATURES = {
     'tpk_encoder_attention': [_P] * 3 + [_I] * 4 + [_P],
     'tpk_gemm': [_P] * 8 + [_I] * 5 + [_P],
     'tpk_full_decode': [_P] * 35 + [_I] * 11 + [_P],
-    'tpk_self_attn_step': [_P] * 9 + [_I] * 7 + [_P],
-    'tpk_cross_ffn_step': [_P] * 16 + [_I] * 7 + [_P],
+    'tpk_self_attn_step': [_P] * 10 + [_I] * 7 + [_P],
+    'tpk_cross_ffn_step': [_P] * 17 + [_I] * 7 + [_P],
     'tpk_grid_sample_fwd': [_P] * 3 + [_I] * 6 + [_P],
     'tpk_grid_sample_grad': [_P] * 5 + [_I] * 6 + [_P, _P],
     'tpk_grid_sample_grad_img': [_P] * 3 + [_I] * 6 + [_P, _P],

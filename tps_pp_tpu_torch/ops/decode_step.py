@@ -20,6 +20,14 @@ residual stream in float32 inside a call, rounded to x's dtype on the way
 out. The self-attention cache receives this step's K/V rounded to its dtype
 at slot ``t`` (in place: the JAX call aliases the caches), while this
 step's attention reads the unrounded float32 K/V at slot ``t``.
+
+Both take an optional ``skip``, a 0-dim bool tensor on x's device: "every
+row ended before this step" (the greedy decode's exit kept on the device,
+``models/decoders/base.py``). Where it is True the step is skipped: x_out
+is x, and the caches are untouched. The kernels then return after their
+wait on the kernel before (the last launch writes x through); the plain
+versions compute the step and select x with ``torch.where``, so that both
+give the same bits and no call reads the flag on the host.
 """
 from __future__ import annotations
 
@@ -49,37 +57,45 @@ def _bmm(a, w):
 def self_attn_step_plain(x: torch.Tensor, ck: torch.Tensor,
                          cv: torch.Tensor, t: int, wqkv: torch.Tensor,
                          wfc: torch.Tensor, ln_s: torch.Tensor,
-                         ln_b: torch.Tensor
+                         ln_b: torch.Tensor,
+                         skip: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
     """x (N, D); ck/cv (N, H, T, DK) caches, slot ``t`` written in place;
-    wqkv (D, 3*H*DK) (q|k|v, no bias); wfc (H*DK, D); ln_s/ln_b (D,).
-    Returns (x_out in x's dtype, ck, cv)."""
+    wqkv (D, 3*H*DK) (q|k|v, no bias); wfc (H*DK, D); ln_s/ln_b (D,);
+    ``skip`` (module docstring). Returns (x_out in x's dtype, ck, cv)."""
     N = x.shape[0]
     _, H, T, DK = ck.shape
     HD = H * DK
     qkv = _bmm(_ln_affine(x, ln_s, ln_b), wqkv)
     q, k, v = (a.reshape(N, H, DK) for a in qkv.split(HD, dim=1))
     q = q * (1.0 / DK ** 0.5)
-    ck[:, :, t] = k.to(ck.dtype)
-    cv[:, :, t] = v.to(cv.dtype)
     # slots > t are masked: their softmax weights are exactly 0
     keys = torch.cat([ck[:, :, :t].float(), k[:, :, None]], dim=2)
     vals = torch.cat([cv[:, :, :t].float(), v[:, :, None]], dim=2)
     p = torch.softmax(torch.einsum('nhd,nhjd->nhj', q, keys), dim=-1)
     merged = torch.einsum('nhj,nhjd->nhd', p, vals).reshape(N, HD)
-    return (x.float() + _bmm(merged, wfc)).to(x.dtype), ck, cv
+    out = (x.float() + _bmm(merged, wfc)).to(x.dtype)
+    k, v = k.to(ck.dtype), v.to(cv.dtype)
+    if skip is not None:
+        k = torch.where(skip, ck[:, :, t], k)
+        v = torch.where(skip, cv[:, :, t], v)
+        out = torch.where(skip, x, out)
+    ck[:, :, t] = k
+    cv[:, :, t] = v
+    return out, ck, cv
 
 
 def cross_ffn_step_plain(x: torch.Tensor, enc_k: torch.Tensor,
                          enc_v: torch.Tensor,
                          src_mask: Optional[torch.Tensor], wq, wfc, ln2_s,
-                         ln2_b, w1, b1, w2, b2, ln3_s,
-                         ln3_b) -> torch.Tensor:
+                         ln2_b, w1, b1, w2, b2, ln3_s, ln3_b,
+                         skip: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """x (N, D); enc_k/enc_v (N, H, TE, DK); src_mask (N, TE), key valid
     iff > 0 (None: all valid); wq (D, H*DK), wfc (H*DK, D), w1 (D, DI), b1
-    (DI,), w2 (DI, D), b2 (D,), ln*_s/ln*_b (D,). Returns x_out in x's
-    dtype."""
+    (DI,), w2 (DI, D), b2 (D,), ln*_s/ln*_b (D,); ``skip`` (module
+    docstring). Returns x_out in x's dtype."""
     N = x.shape[0]
     _, H, TE, DK = enc_k.shape
     q = _bmm(_ln_affine(x, ln2_s, ln2_b), wq).reshape(N, H, DK)
@@ -90,7 +106,8 @@ def cross_ffn_step_plain(x: torch.Tensor, enc_k: torch.Tensor,
     merged = torch.einsum('nhj,nhjd->nhd', p, enc_v.float()).reshape(N, -1)
     x2 = x.float() + _bmm(merged, wfc)
     h = F.gelu(_bmm(_ln_affine(x2, ln3_s, ln3_b), w1) + b1.float())
-    return (x2 + (_bmm(h, w2) + b2.float())).to(x.dtype)
+    out = (x2 + (_bmm(h, w2) + b2.float())).to(x.dtype)
+    return out if skip is None else torch.where(skip, x, out)
 
 
 def _act_dtype(name, x):
@@ -99,6 +116,15 @@ def _act_dtype(name, x):
         raise ValueError(f'{name}: x must be one of {_KERNEL_DTYPES}, got '
                          f'{x.dtype}')
     return x.dtype
+
+
+def _skip_ptr(name, skip, dev):
+    """The device pointer of ``skip`` (a 0-dim bool tensor on ``dev``), or
+    None for no flag."""
+    if skip is None:
+        return None
+    _lib.check_args(name, dev, {'skip': (skip, (), torch.bool)})
+    return skip.data_ptr()
 
 
 def _scratch(n_bytes, dev):
@@ -127,7 +153,7 @@ def _remember_weights(name, ws, ptrs):
     _CHECKED[(name,) + ptrs] = tuple(weakref.ref(t) for t in ws)
 
 
-def _self_attn_cuda(x, ck, cv, t: int, wqkv, wfc, ln_s, ln_b):
+def _self_attn_cuda(x, ck, cv, t: int, wqkv, wfc, ln_s, ln_b, skip=None):
     dev = x.device
     N, D = x.shape
     _, H, T, DK = ck.shape
@@ -148,15 +174,15 @@ def _self_attn_cuda(x, ck, cv, t: int, wqkv, wfc, ln_s, ln_b):
     out = torch.empty((N, D), dtype=xt, device=dev)
     rc = _lib.load().tpk_self_attn_step(
         x.data_ptr(), ck.data_ptr(), cv.data_ptr(), *wp, scratch.data_ptr(),
-        out.data_ptr(), N, D, H, DK, T, t, int(xt == _BF),
-        _lib.stream_ptr(dev))
+        out.data_ptr(), _skip_ptr('self_attn_step', skip, dev), N, D, H, DK,
+        T, t, int(xt == _BF), _lib.stream_ptr(dev))
     _lib.check(rc, 'self_attn_step')
     self_attn_step.launches += 1
     return out
 
 
 def _cross_ffn_cuda(x, enc_k, enc_v, src_mask, wq, wfc, ln2_s, ln2_b, w1,
-                    b1, w2, b2, ln3_s, ln3_b):
+                    b1, w2, b2, ln3_s, ln3_b, skip=None):
     dev = x.device
     N, D = x.shape
     _, H, TE, DK = enc_k.shape
@@ -183,7 +209,8 @@ def _cross_ffn_cuda(x, enc_k, enc_v, src_mask, wq, wfc, ln2_s, ln2_b, w1,
     out = torch.empty((N, D), dtype=xt, device=dev)
     rc = _lib.load().tpk_cross_ffn_step(
         x.data_ptr(), enc_k.data_ptr(), enc_v.data_ptr(), src_mask.data_ptr(),
-        *wp, scratch.data_ptr(), out.data_ptr(), N, D, H, DK, TE, DI,
+        *wp, scratch.data_ptr(), out.data_ptr(),
+        _skip_ptr('cross_ffn_step', skip, dev), N, D, H, DK, TE, DI,
         int(xt == _BF), _lib.stream_ptr(dev))
     _lib.check(rc, 'cross_ffn_step')
     cross_ffn_step.launches += 1
@@ -192,34 +219,36 @@ def _cross_ffn_cuda(x, enc_k, enc_v, src_mask, wq, wfc, ln2_s, ln2_b, w1,
 
 _self_attn_op = _lib.define_op(
     'self_attn_step', '(Tensor x, Tensor(a!) ck, Tensor(b!) cv, int t, '
-    'Tensor wqkv, Tensor wfc, Tensor ln_s, Tensor ln_b) -> Tensor',
+    'Tensor wqkv, Tensor wfc, Tensor ln_s, Tensor ln_b, Tensor? skip=None) '
+    '-> Tensor',
     _self_attn_cuda, lambda *a: self_attn_step_plain(*a)[0],
     lambda x, *rest: torch.empty_like(x))
 _cross_ffn_op = _lib.define_op(
     'cross_ffn_step', '(Tensor x, Tensor enc_k, Tensor enc_v, Tensor? '
     'src_mask, Tensor wq, Tensor wfc, Tensor ln2_s, Tensor ln2_b, Tensor w1, '
-    'Tensor b1, Tensor w2, Tensor b2, Tensor ln3_s, Tensor ln3_b) -> Tensor',
+    'Tensor b1, Tensor w2, Tensor b2, Tensor ln3_s, Tensor ln3_b, '
+    'Tensor? skip=None) -> Tensor',
     _cross_ffn_cuda, lambda *a: cross_ffn_step_plain(*a),
     lambda x, *rest: torch.empty_like(x))
 
 
-def self_attn_step(x, ck, cv, t: int, wqkv, wfc, ln_s, ln_b):
+def self_attn_step(x, ck, cv, t: int, wqkv, wfc, ln_s, ln_b, skip=None):
     """The kernel on CUDA tensors, the plain version on CPU tensors, through
     ``torch.ops.tps_pp.self_attn_step`` (which writes slot ``t`` of the
     caches in place and returns x_out). Same arguments and result as
     :func:`self_attn_step_plain`."""
     _lib.require_kernel_device(x.device, 'self_attn_step')
-    return _self_attn_op(x, ck, cv, t, wqkv, wfc, ln_s, ln_b), ck, cv
+    return _self_attn_op(x, ck, cv, t, wqkv, wfc, ln_s, ln_b, skip), ck, cv
 
 
 def cross_ffn_step(x, enc_k, enc_v, src_mask, wq, wfc, ln2_s, ln2_b, w1, b1,
-                   w2, b2, ln3_s, ln3_b):
+                   w2, b2, ln3_s, ln3_b, skip=None):
     """The kernel on CUDA tensors, the plain version on CPU tensors, through
     ``torch.ops.tps_pp.cross_ffn_step``. Same arguments as
     :func:`cross_ffn_step_plain`."""
     _lib.require_kernel_device(x.device, 'cross_ffn_step')
     return _cross_ffn_op(x, enc_k, enc_v, src_mask, wq, wfc, ln2_s, ln2_b,
-                         w1, b1, w2, b2, ln3_s, ln3_b)
+                         w1, b1, w2, b2, ln3_s, ln3_b, skip)
 
 
 self_attn_step.launches = 0

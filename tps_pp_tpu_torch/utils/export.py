@@ -24,12 +24,15 @@ cached_per_weights``) and are constants of the exported program, so a call
 folds nothing; the parameters themselves are its state. A captured graph
 reads every weight through the pointer it was captured with.
 
-The one path that does not trace raises a ``ValueError`` naming its
-mode: the ``steps`` greedy loop with its early exit, which reads the
-all-rows-EOS flag on the host. The whole decodes (``fused40_bf16``,
-``fused40``) keep their early exit inside kernel 4; ``steps`` with
-``early_exit`` off, beam search (which has no early exit) and the single
-pass of a CTC decoder have none, and trace as fixed loops.
+Every decode mode traces. The whole decodes (``fused40_bf16``,
+``fused40``) keep their early exit inside kernel 4. The greedy ``steps``
+loop with its early exit takes its device form in a trace and a capture
+(``_predict_impl(..., device_exit=True)``, ``models/decoders/base.py``):
+all ``max_seq_len`` steps, each zeroed on the device where every row
+ended before it, with the flag handed to the fused step's kernels, which
+skip the step; eager ``predict`` reads the flag on the host instead.
+``steps`` with ``early_exit`` off, beam search (which has no early exit)
+and the single pass of a CTC decoder trace as fixed loops.
 """
 from __future__ import annotations
 
@@ -77,21 +80,8 @@ class _Serving(nn.Module):
         self.rec = rec
 
     def forward(self, img: torch.Tensor, valid_ratio: torch.Tensor):
-        return self.rec._predict_impl(self.model, img, valid_ratio)
-
-
-def check_exportable(rec) -> str:
-    """The decode mode that a trace of ``rec`` takes; raises a
-    ``ValueError`` naming it where it does not trace: greedy ``steps``
-    with its early exit."""
-    mode = rec.resolved_decode_mode()
-    if mode == 'steps' and rec.early_exit and \
-            getattr(rec, 'beam_width', 1) <= 1:
-        raise ValueError("export: decode mode 'steps' does not trace: its "
-                         'early exit reads the all-rows-EOS flag on the '
-                         "host; use 'fused40_bf16' or 'fused40', whose exit "
-                         'stays in the kernel, or early_exit=False')
-    return mode
+        return self.rec._predict_impl(self.model, img, valid_ratio,
+                                      device_exit=True)
 
 
 def _inputs(rec, batch: int, input_shape: Tuple[int, int, int], dtype):
@@ -109,7 +99,6 @@ def export_program(rec, batch: int, input_shape: Tuple[int, int, int],
     compute dtype) and (batch,) float32 valid ratios, traced on the
     recognizer's device in eval mode under ``torch.no_grad()`` after one
     eager call that fills the weight caches."""
-    check_exportable(rec)
     img, vr = _inputs(rec, batch, input_shape, dtype)
     model = rec.serving_model()
     with rec._mode(model, False), torch.no_grad():
@@ -144,7 +133,6 @@ class AotCall:
 
     def __init__(self, rec, batch: int, input_shape: Tuple[int, int, int],
                  dtype: Optional[torch.dtype] = None):
-        check_exportable(rec)
         self.rec, self.model = rec, rec.serving_model()
         self.img, self.vr = _inputs(rec, batch, input_shape, dtype)
         self.graph, self.out = None, None
@@ -155,7 +143,8 @@ class AotCall:
 
     def _run(self):
         with self.rec._mode(self.model, False), torch.no_grad():
-            return self.rec._predict_impl(self.model, self.img, self.vr)
+            return self.rec._predict_impl(self.model, self.img, self.vr,
+                                          device_exit=True)
 
     def _capture(self):
         """Two eager calls on a side stream (they build the kernels and
@@ -170,6 +159,9 @@ class AotCall:
                 self._run()
         cur.wait_stream(side)
         torch.cuda.synchronize(dev)
+        # the capture empties the allocator's cache first: so does the
+        # baseline of the pool's bytes
+        torch.cuda.empty_cache()
         before, reserved = launch_counts(), torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
