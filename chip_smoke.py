@@ -426,6 +426,21 @@ seed):
   eager ``predict`` (the host exit) and the eager device exit timed in
   turns. Kernels 6-7 are also held with the ``skip`` flag set and unset
   against their plain versions, and read by CUDA graph.
+- the mesh phase (``mesh_phase``): ``predict(mesh=)`` on the flagship in
+  bf16 at B=``B``, full width, over two meshes of local devices: every
+  visible card (one host thread a card), and card 0 listed twice (the
+  split and the padding on a one-card machine: its two shards run in turn
+  on the card's one thread), and B=``MESH_SMALL`` on the second
+  (padded to 8 rows, two shards of 4). Kernels 1, 3 and 4 must launch on
+  every shard (each shard's own counts, ``last_shard_launches``), and each
+  shard's rows must equal ``predict`` of the same rows alone on its card,
+  bit for bit (the same kernels at the same shapes; where they are not,
+  the argmax is held under the decode's near-tie rule and the rows that
+  part are logged). ``eval_recognizer(mesh=)`` on the card-twice mesh at
+  batches of 32 gives the metrics and results of the call without a mesh
+  at batches of 16 (the shards' shapes; at 32 the whole decode's plan
+  differs, and rows part at near-ties, which are counted). The meshes
+  and the one-card ``predict`` are timed in turns.
   The whole script's time is logged before the ``kernels`` line.
 
 The warp's backward kernels (9 and 10) are timed on the uniform grid of
@@ -461,6 +476,7 @@ B = 512          # serving batch (bench.py's)
 N_DECODE = 64    # batch of the decode kernel check
 B_SMALL = 8      # the small batch the fused step is kept for
 SEED = 0
+MESH_SMALL = 6   # the mesh phase's batch that pads (to 8 rows, 2 shards)
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): HBM bytes/s,
 # bf16 tensor-core and f32 FLOP/s
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
@@ -7123,6 +7139,122 @@ def deploy_phase(dev, name):
     log(f'deploy phase: {time.perf_counter() - t_phase:.1f} s [{name}]')
 
 
+def mesh_phase(dev, name, hw=(32, 128)):
+    """``predict(mesh=)`` and ``eval_recognizer(mesh=)`` on the card (see
+    the module docstring, "the mesh phase"), on crops of ``hw``."""
+    import numpy as np
+    import torch
+    from tps_pp_tpu_torch.apis import (build_recognizer, eval_recognizer,
+                                       nrtr_tps_pp_cfg)
+    from tps_pp_tpu_torch.apis.inference import DEFAULT_TEST_PIPELINE
+    from tps_pp_tpu_torch.convertors.base import BaseConvertor
+    from tps_pp_tpu_torch.datasets.pipelines import Compose
+    from tps_pp_tpu_torch.evaluation import eval_ocr_metric
+    from tps_pp_tpu_torch.parallel import create_mesh
+    from tps_pp_tpu_torch.utils.batching import next_pow2, pad_rows
+
+    rec = build_recognizer(nrtr_tps_pp_cfg(dtype='bfloat16',
+                                           decode_mode='auto'))
+    rec.init_weights(SEED)
+    g = np.random.default_rng(SEED + 27)
+    img = torch.from_numpy(g.standard_normal((B,) + tuple(hw) + (3,)).astype(
+        np.float32)).to(dev, rec.dtype)
+    vr = torch.from_numpy(g.uniform(0.3, 1.0, B).astype(np.float32)).to(dev)
+    cards = [torch.device('cuda', i) for i in range(torch.cuda.device_count())]
+    meshes = {f'{len(cards)} card(s)': create_mesh(devices=cards),
+              'card 0 twice': create_mesh(devices=[cards[0]] * 2)}
+    counted = ('tps_sampler.launches', 'encoder_forward.launches',
+               'full_decode.launches')
+    rec.predict(img, vr)
+    for label, mesh in meshes.items():
+        for n in ((B, MESH_SMALL) if 'twice' in label else (B,)):
+            zero_launches()
+            got = rec.predict(img[:n], vr[:n], mesh=mesh)
+            torch.cuda.synchronize()
+            shards = rec.last_shard_launches
+            nd = mesh.shape['data']
+            if len(shards) != nd or any(
+                    c.get(k, 0) < 1 for c in shards for k in counted):
+                raise AssertionError(f'mesh {label} B={n}: kernels 1, 3, 4 '
+                                     f'not launched on every shard: {shards}')
+            m = -(-next_pow2(n) // nd) * nd
+            xp, vp = pad_rows((img[:n], vr[:n]), n, m)
+            s = m // nd
+            replicas = rec._shard_replicas(mesh.data_devices())
+            bitwise, parted = 0, 0
+            for i, d in enumerate(mesh.data_devices()):
+                with torch.cuda.device(d), torch.inference_mode(), \
+                        rec._mode(replicas[i], False):
+                    alone = rec._predict_impl(
+                        replicas[i], xp[i * s:(i + 1) * s].to(d).contiguous(),
+                        vp[i * s:(i + 1) * s].to(d).contiguous())
+                rows = got[i * s:min((i + 1) * s, n)]
+                alone = alone[:rows.shape[0]].to(rows.device)
+                if torch.equal(rows, alone):
+                    bitwise += 1
+                elif rows.shape[0]:
+                    _, ties, _ = check_decode(rows, alone,
+                                              f'mesh {label} shard {i}')
+                    parted += ties
+            log(f'mesh {label} B={n}: {nd} shard(s) of {s} rows, launches '
+                f'by shard {shards}; {bitwise} of {nd} shards bit-equal to '
+                f'predict of their rows alone on their card, {parted} rows '
+                f'part at a near-tie')
+    # eval_recognizer over crops: with the card-twice mesh as without
+    pipeline = Compose([dict(type='LoadImageFromNdarray')]
+                       + DEFAULT_TEST_PIPELINE)
+    chars = BaseConvertor.DICT90
+    crops = [g.integers(0, 256, (int(g.integers(16, 65)),
+                                 int(g.integers(24, 401)), 3), np.uint8)
+             for _ in range(100)]
+    labels = [''.join(chars[int(i)] for i in g.integers(
+        0, len(chars), int(g.integers(1, 26)))) for _ in crops]
+
+    class ArrayDataset:
+        def __len__(self):
+            return len(crops)
+
+        def __getitem__(self, i):
+            return pipeline(dict(img=crops[i], img_info=dict(filename=None)))
+
+        def evaluate(self, results, metric='acc'):
+            return eval_ocr_metric([x['text'] for x in results], labels)
+
+    # batches of 32 split in two shards of 16 rows: the call without a mesh
+    # at batches of 16 runs the same rows at the same shapes
+    got = eval_recognizer(rec, ArrayDataset(), batch_size=32,
+                          return_results=True, mesh=meshes['card 0 twice'])
+    want = eval_recognizer(rec, ArrayDataset(), batch_size=16,
+                           return_results=True)
+    whole = eval_recognizer(rec, ArrayDataset(), batch_size=32,
+                            return_results=True)
+    same = got[1] == want[1]
+    log(f'mesh eval_recognizer, batches of 32 on card 0 twice: {got[0]}; '
+        f'results equal to the call without a mesh at batches of 16 (the '
+        f'shards\' shapes): {same}; texts equal to it at batches of 32: '
+        f'{sum(a["text"] == b["text"] for a, b in zip(got[1], whole[1]))} '
+        f'of {len(crops)}')
+    if got[0] != want[0] or not same:
+        raise AssertionError(f'mesh eval_recognizer: {got[0]} != {want[0]} '
+                             f'or other results')
+    # the meshes against one card, in turns
+    runs = {'one card': None, **meshes}
+    times = {k: [] for k in runs}
+    for k in list(runs) + list(reversed(list(runs))):
+        rec.predict(img, vr, mesh=runs[k])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            rec.predict(img, vr, mesh=runs[k])
+        torch.cuda.synchronize()
+        times[k].append((time.perf_counter() - t0) / 3)
+    for k, ts in times.items():
+        log(f'mesh predict B={B} {k}: {B / min(ts):.1f} images/s '
+            f'({min(ts) * 1e3:.2f} ms/batch, best of 2 rounds of 3) [{name}]')
+    del rec
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     t_script = time.perf_counter()
@@ -7813,6 +7945,11 @@ def main():
 
     # ---- deployment: export, CUDA-graph capture, the server
     deploy_phase(dev, name)
+
+    # ---- the mesh: predict and eval_recognizer split over cards
+    t_mesh = time.perf_counter()
+    mesh_phase(dev, name)
+    log(f'mesh phase: {time.perf_counter() - t_mesh:.1f} s')
     path_launches['conv3x3_cp'] = conv_launches
     for k in kernels:
         k['launches'] = path_launches.get(k['name'])

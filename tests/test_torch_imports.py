@@ -1295,3 +1295,76 @@ def test_data_tools_and_steps_export_with_jax_and_cv2_blocked():
                    'dataset': ['hello', 'world'], 'jsonl': ['a.png x'],
                    'svt': True, 'det': 1, 'openset': 1, 'config': True,
                    'trace': True, 'steps_exit_export': True}
+
+
+MESH_SCRIPT = r'''
+import importlib.abc, json, os, sys
+
+
+class Blocked(importlib.abc.MetaPathFinder):
+    """Refuses jax, flax, cv2, PIL and the JAX package outright."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'cv2', 'PIL',
+                                  'tps_pp_tpu'):
+            raise ImportError(f'{name} is blocked')
+        return None
+
+
+sys.meta_path.insert(0, Blocked())
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from tps_pp_tpu_torch.apis import build_recognizer, nrtr_tps_pp_cfg
+from tps_pp_tpu_torch.convertors import mask
+from tps_pp_tpu_torch.datasets import seeded_rngs
+from tps_pp_tpu_torch.datasets.pipelines import Compose, extras, tps_aug
+from tps_pp_tpu_torch.losses import kd
+from tps_pp_tpu_torch.models.decoders import tf_common
+from tps_pp_tpu_torch.parallel import create_mesh, mesh, tp
+from tps_pp_tpu_torch.tools import compare_activations
+from tps_pp_tpu_torch.utils import synth_text
+
+out = {}
+rec = build_recognizer(nrtr_tps_pp_cfg(tiny=True, decode_mode='steps'),
+                       device='cpu').init_weights(0)
+img = np.random.default_rng(0).standard_normal((6, 32, 64, 3)).astype(
+    np.float32)
+m = create_mesh(data=4, devices=['cpu'] * 4)
+out['mesh'] = bool(torch.allclose(rec.predict(img, mesh=m), rec.predict(img),
+                                  atol=2e-5))
+pipe = Compose([dict(type='OpencvToPil'),
+                dict(type='RandomRotateImageBox', max_angle=20),
+                dict(type='PilToOpencv'), dict(type='Stretch', prob=1.0),
+                dict(type='Distort', prob=1.0), dict(type='Curve', prob=1.0),
+                dict(type='FancyPCA'), dict(type='RandomPaddingOCR')])
+crop = np.random.default_rng(1).integers(0, 256, (32, 100, 3), np.uint8)
+res = pipe(dict(img=crop, ann_info=dict(chars=['a'], char_quads=[
+    [10, 10, 20, 10, 20, 20, 10, 20]]), **seeded_rngs(3)))
+out['augment'] = list(res['img'].shape[2:])
+out['kd'] = bool(torch.isfinite(kd.kd_loss(torch.ones(2, 2, 2, 3),
+                                           torch.rand(2, 2, 2, 3))))
+try:
+    synth_text.render_dataset(2)
+except ImportError as e:
+    out['synth_text'] = 'cv2' in str(e)
+print(json.dumps({'loaded': sorted(m for m in ('jax', 'flax', 'cv2', 'PIL',
+                                               'tps_pp_tpu')
+                                   if m in sys.modules), **out}))
+'''
+
+
+def test_mesh_and_training_extras_with_jax_cv2_and_pil_blocked():
+    """The mesh, tensor parallelism, the TPS and extra augmentations, the
+    KD loss, the mask convertors, TFCommonDecoder, ``synth_text`` and
+    ``compare_activations`` import with jax, flax, cv2, PIL and the JAX
+    package refused; ``predict(mesh=)`` and the augmentations run;
+    ``render_dataset`` raises the ImportError of cv2 only when called."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, '-c', MESH_SCRIPT], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {'loaded': [], 'mesh': True, 'augment': [3], 'kd': True,
+                   'synth_text': True}

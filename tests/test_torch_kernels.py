@@ -1287,3 +1287,49 @@ def test_grid_sample_function_routes_at_one_channel(cuda_device):
         assert got == ([1, 1, 0] if grid_grad else [1, 0, 1])
         assert img.grad.dtype == torch.bfloat16
         img.grad = None
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('mode,fused_step', [('fused40_bf16', False),
+                                             ('steps', True)])
+def test_two_threads_first_calls_on_one_card(cuda_device, mode, fused_step):
+    """Two replicas of the flagship on one card, their first calls made
+    from two host threads at once (``predict(mesh=)`` runs a thread a
+    card; here two share one): the kernels' host caches (shared memory
+    caps, cluster occupancy, SM counts) and the whole decode's graph
+    captures are shared between the threads; each output equals its
+    replica's single-thread result, bit for bit."""
+    import copy
+    import threading
+    cfg = nrtr_tps_pp_cfg(dtype='bfloat16', decode_mode=mode)
+    cfg['decoder'] = dict(cfg['decoder'], use_fused_step=fused_step)
+    rec = build_recognizer(cfg, device=cuda_device).init_weights(0)
+    g = np.random.default_rng(3)
+    imgs = [torch.from_numpy(g.standard_normal((64, 32, 128, 3)).astype(
+        np.float32)).to(cuda_device, BF) for _ in range(2)]
+    vr = torch.ones(64, device=cuda_device)
+    solo = [copy.deepcopy(rec.model) for _ in range(2)]
+    pair = [copy.deepcopy(rec.model) for _ in range(2)]
+
+    def run(model, x):
+        with torch.inference_mode():
+            return rec._predict_impl(model, x, vr)
+
+    want = [run(m, x) for m, x in zip(solo, imgs)]
+    torch.cuda.synchronize()
+    got = [None, None]
+    start = threading.Barrier(2)
+
+    def worker(i):
+        with torch.cuda.device(cuda_device):
+            start.wait()
+            got[i] = run(pair[i], imgs[i])
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a is not None and torch.equal(a, b)

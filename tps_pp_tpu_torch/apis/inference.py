@@ -66,11 +66,13 @@ def init_recognizer(config: Union[str, Dict],
 
 def model_inference(rec: TextRecognizer, imgs,
                     test_pipeline: Optional[Sequence] = None,
-                    batch_mode: bool = False) -> Union[Dict, List[Dict]]:
+                    batch_mode: bool = False,
+                    mesh=None) -> Union[Dict, List[Dict]]:
     """``{'text', 'score'}`` of an image, or a list of them for a list of
     images (paths or ndarrays). ``batch_mode=False`` runs each image alone;
     ``batch_mode=True`` runs them as one batch sorted by ``valid_ratio``
-    and returns the results in input order."""
+    and returns the results in input order. ``mesh`` reaches
+    ``simple_test`` (``predict(mesh=)``)."""
     single = not isinstance(imgs, (list, tuple))
     if single:
         imgs = [imgs]
@@ -101,7 +103,7 @@ def model_inference(rec: TextRecognizer, imgs,
         vr = np.asarray([d['img_metas'].get('valid_ratio', 1.0) or 1.0
                          for d in subset], np.float32)
         metas = [d['img_metas'] for d in subset]
-        return rec.simple_test(batch, vr, img_metas=metas)
+        return rec.simple_test(batch, vr, img_metas=metas, mesh=mesh)
 
     if batch_mode:
         # sorted by valid_ratio, so that crops of like width share the

@@ -16,7 +16,16 @@ backbone's feature map in ``decode_init`` too.
 
 ``predict`` pads the batch to the next power of two (replicating the last
 row, so the all-rows-EOS exit is not held up) and slices the result back,
-as the JAX package does. Decode modes, the JAX package's
+as the JAX package does. With a ``mesh`` of local devices
+(``parallel.create_mesh``) it then pads to a multiple of the data axis and
+runs one equal shard a data row on that row's device, with one copy of
+the serving model a card (copied again when the weights change), from
+one host thread a card under ``torch.cuda.device`` (as
+``torch.nn.parallel.parallel_apply`` does; a card listed twice runs its
+shards in turn), and gathers the shards in order on the recognizer's
+device: the JAX ``shard_map`` over ``'data'``
+(``tps_pp_tpu/apis/recognizer.py:272-322``). Each shard's kernel launches
+are kept in ``last_shard_launches``. Decode modes, the JAX package's
 (``tps_pp_tpu/apis/recognizer.py:91-101``):
 
 * ``'fused40_bf16'``: the serving path. The TPS sampler, the whole encoder
@@ -90,7 +99,8 @@ from __future__ import annotations
 
 import contextlib
 import copy
-from typing import Any, Dict, Optional, Tuple
+import threading
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -102,6 +112,7 @@ from ..models.decoders.base import beam_decode, greedy_decode
 from ..models.layers import weights_stamp
 from ..models.recognizers.encode_decode import EncodeDecodeRecognizer
 from ..models.transformer import PackedMultiheadAttention
+from ..ops import _lib
 from ..ops.stem import fused_stem_forward
 from ..registry import (BACKBONES, CONVERTORS, DECODERS, ENCODERS, LOSSES,
                         PREPROCESSORS, RECTIFIERS)
@@ -111,6 +122,14 @@ _DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16,
            'float64': torch.float64}
 DECODE_MODES = ('auto', 'fused40_bf16', 'fused40', 'steps')
 STEM_MODES = ('auto', 'xla', 'fused')
+
+
+def _concrete(device) -> torch.device:
+    """``device`` with the current card's index where it names none."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        return torch.device('cuda', torch.cuda.current_device())
+    return device
 
 
 class TextRecognizer:
@@ -185,6 +204,9 @@ class TextRecognizer:
         self.device = torch.device(device)
         self.plain = False
         self._serving = None     # (weights stamp, model in self.dtype)
+        # predict(mesh=): {device: (weights stamp, replica)}
+        self._replicas: Dict[torch.device, Tuple] = {}
+        self.last_shard_launches: List[Dict[str, int]] = []
         # the test pipeline of the config, set by apis.inference
         # init_recognizer for model_inference
         self.test_pipeline_cfg = None
@@ -384,34 +406,103 @@ class TextRecognizer:
                              plain=self.plain, feat=feat,
                              device_exit=device_exit)
 
-    def predict(self, img, valid_ratio=None,
-                bucket_batch: bool = True) -> torch.Tensor:
+    def predict(self, img, valid_ratio=None, bucket_batch: bool = True,
+                mesh=None) -> torch.Tensor:
         """img (N, H, W, C) array or tensor -> (N, S, C-1) float32
         per-step probabilities (an autoregressive decoder's) or (N, T, C)
-        float32 logits (a single pass's) on the model's device."""
-        img = torch.as_tensor(img).to(self.device, self.dtype)
+        float32 logits (a single pass's) on the model's device. ``mesh``:
+        data-parallel serving over a mesh of local devices (see the
+        module's docstring)."""
+        img = torch.as_tensor(img)
         n = int(img.shape[0])
         if valid_ratio is None:
-            vr = torch.ones((n,), dtype=torch.float32, device=self.device)
+            vr = torch.ones((n,), dtype=torch.float32)
         else:
-            vr = torch.as_tensor(valid_ratio, dtype=torch.float32).to(
-                self.device)
+            vr = torch.as_tensor(valid_ratio, dtype=torch.float32)
+        nd = mesh.shape['data'] if mesh is not None else 1
         m = next_pow2(n) if bucket_batch else n
-        img, vr = pad_rows((img, vr), n, m)
+        m = -(-m // nd) * nd                       # divisible per shard
+        if mesh is not None:
+            img, vr = pad_rows((img, vr.to(img.device)), n, m)
+            return self._predict_mesh(mesh, img, vr)[:n]
+        img, vr = pad_rows((img.to(self.device, self.dtype),
+                            vr.to(self.device)), n, m)
         model = self.serving_model()
         with self._mode(model, False), torch.inference_mode():
             out = self._predict_impl(model, img.contiguous(),
                                      vr.contiguous())
         return out[:n]
 
+    def _shard_replicas(self, devices) -> List[nn.Module]:
+        """The serving model for each shard's device: the model itself on
+        its own device, one copy on each other device (the shards that
+        share a card run in turn on one thread), made again when the
+        serving model's weights change. Copies on devices that ``devices``
+        does not list are dropped."""
+        model = self.serving_model()
+        stamp = weights_stamp(model)
+        devices = [_concrete(d) for d in devices]
+        home = _concrete(self.device)
+        wanted = set(devices) - {home}
+        self._replicas = {d: c for d, c in self._replicas.items()
+                          if d in wanted and c[0] == stamp}
+        for d in wanted - set(self._replicas):
+            self._replicas[d] = (stamp, copy.deepcopy(model).to(d))
+        return [model if d == home else self._replicas[d][1]
+                for d in devices]
+
+    def _predict_mesh(self, mesh, img, vr) -> torch.Tensor:
+        devices = [_concrete(d) for d in mesh.data_devices()]
+        replicas = self._shard_replicas(devices)
+        s = img.shape[0] // len(devices)
+        outs: List[Optional[torch.Tensor]] = [None] * len(devices)
+        errors: List[Optional[BaseException]] = [None] * len(devices)
+        counts: List[Dict[str, int]] = [{} for _ in devices]
+
+        def run(shards):
+            for i in shards:
+                dev = devices[i]
+                ctx = (torch.cuda.device(dev) if dev.type == 'cuda'
+                       else contextlib.nullcontext())
+                try:
+                    with ctx, _lib.launch_scope() as counts[i], \
+                            torch.inference_mode(), \
+                            self._mode(replicas[i], False):
+                        outs[i] = self._predict_impl(
+                            replicas[i],
+                            img[i * s:(i + 1) * s].to(dev, self.dtype)
+                            .contiguous(),
+                            vr[i * s:(i + 1) * s].to(dev).contiguous())
+                except BaseException as e:      # re-raised by the caller
+                    errors[i] = e
+
+        # one host thread a card, running its shards in turn: two threads
+        # on one card contend in the CUDA driver (PERF.md, section 6)
+        by_card: Dict[str, List[int]] = {}
+        for i, d in enumerate(devices):
+            by_card.setdefault(str(d), []).append(i)
+        groups = list(by_card.values())
+        threads = [threading.Thread(target=run, args=(g,))
+                   for g in groups[1:]]
+        for t in threads:
+            t.start()
+        run(groups[0])
+        for t in threads:
+            t.join()
+        for e in errors:
+            if e is not None:
+                raise e
+        self.last_shard_launches = counts
+        return torch.cat([o.to(self.device) for o in outs])
+
     def simple_test(self, img, valid_ratio=None, img_metas=None,
-                    bucket_batch: bool = True):
+                    bucket_batch: bool = True, mesh=None):
         """Full test path with host-side decoding ->
         ``[{'text': str, 'score': [float, ...]}, ...]``. Without
         ``img_metas`` each row's meta holds its ``valid_ratio`` (1.0 when
         none is given), which clips a CTC decode, as in JAX."""
-        out = self.predict(img, valid_ratio,
-                           bucket_batch=bucket_batch).cpu().numpy()
+        out = self.predict(img, valid_ratio, bucket_batch=bucket_batch,
+                           mesh=mesh).cpu().numpy()
         if img_metas is None:
             vr = (torch.as_tensor(valid_ratio).tolist()
                   if valid_ratio is not None else [1.0] * out.shape[0])

@@ -84,13 +84,15 @@ class SegRecognizer(TextRecognizer):
         return model.forward_test_nar(img, valid_ratio).float()
 
     def simple_test(self, img, valid_ratio=None, img_metas=None,
-                    bucket_batch: bool = True):
-        """``predict``, then the connected-component decode on the host ->
+                    bucket_batch: bool = True, mesh=None):
+        """``predict`` (over ``mesh`` where given, as the JAX
+        ``SegRecognizer.predict`` takes one: ``tps_pp_tpu/apis/seg.py:
+        68-78``), then the connected-component decode on the host ->
         ``[{'text': str, 'score': [float, ...]}, ...]``. Without
         ``img_metas`` each row's meta holds its ``valid_ratio`` (1.0 when
         none is given), which cuts the columns decoded."""
-        out = self.predict(img, valid_ratio,
-                           bucket_batch=bucket_batch).cpu().numpy()
+        out = self.predict(img, valid_ratio, bucket_batch=bucket_batch,
+                           mesh=mesh).cpu().numpy()
         if img_metas is None:
             vr = (torch.as_tensor(valid_ratio).tolist()
                   if valid_ratio is not None else [1.0] * out.shape[0])

@@ -3,10 +3,11 @@ the reference's ``apis/test.py`` single_gpu_test).
 
 Fixed-shape batches from the test-mode ``DataLoader`` go through
 ``predict`` without bucketing; the first ``n_real`` rows of each are
-decoded on the host; the metric is the dataset's ``evaluate``. One
-process and one device: the JAX package's ``mesh`` argument has no
-counterpart (several GPUs: ``ROADMAP.md`` queue 1, the serving and
-evaluation side's rest).
+decoded on the host; the metric is the dataset's ``evaluate``. A
+``mesh`` of local devices splits each batch over its data axis
+(``predict(mesh=)``, which pads a batch to a multiple of it); the TTA
+branch runs unsharded, as in JAX (``tps_pp_tpu/apis/test.py:42``). Several
+processes shard the dataset instead (``tools/test.py``).
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ def _decode(rec, out, metas) -> List[Dict]:
 
 
 def eval_recognizer(rec, dataset, batch_size: int = 64, metric: str = 'acc',
-                    return_results: bool = False):
+                    return_results: bool = False, mesh=None):
     """The dataset's metrics over ``rec``'s reading of every sample (and
     the results, with ``return_results``). Logs ms per image, the time of
     ``predict`` and its copy to the host.
@@ -37,7 +38,8 @@ def eval_recognizer(rec, dataset, batch_size: int = 64, metric: str = 'acc',
     Test-time augmentation: with ``MultiRotateAugOCR`` in the pipeline and
     ``batch_size`` 1, each image's variants run as one batch and
     ``merge_aug_results`` keeps the best reading; at larger batches the
-    variants are ignored (reference apis/utils.py:61-98)."""
+    variants are ignored (reference apis/utils.py:61-98). ``mesh``: see
+    the module's docstring."""
     if batch_size == 1 and len(dataset):
         probe = dataset[0]
         if 'aug_imgs' in probe:
@@ -48,7 +50,7 @@ def eval_recognizer(rec, dataset, batch_size: int = 64, metric: str = 'acc',
     for batch in DataLoader(dataset, batch_size, pad_to_batch=True):
         t0 = time.perf_counter()
         out = rec.predict(batch['img'], batch['valid_ratio'],
-                          bucket_batch=False).cpu().numpy()
+                          bucket_batch=False, mesh=mesh).cpu().numpy()
         total_time += time.perf_counter() - t0
         n_real = batch['n_real']
         results.extend(_decode(rec, out[:n_real],

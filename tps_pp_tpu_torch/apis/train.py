@@ -21,8 +21,9 @@ import torch
 
 from ..datasets.ocr_dataset import DataLoader
 from ..parallel import (OptimizerChain, build_optimizer_from_run_cfg, dist,
-                        make_train_step, step_generator)
+                        make_train_step, param_sharding, step_generator, tp)
 from ..utils import checkpoint
+from ..utils.convert import rules_for_config
 from .test import eval_recognizer
 
 logger = logging.getLogger('tps_pp_tpu_torch')
@@ -31,8 +32,8 @@ logger = logging.getLogger('tps_pp_tpu_torch')
 def train_recognizer(rec, train_dataset, cfg: Dict, val_dataset=None,
                      work_dir: Optional[str] = None,
                      resume_from: Optional[str] = None,
-                     load_from: Optional[str] = None, seed: int = 0
-                     ) -> Tuple[OptimizerChain, List[Dict]]:
+                     load_from: Optional[str] = None, seed: int = 0,
+                     mesh=None) -> Tuple[OptimizerChain, List[Dict]]:
     """Train ``rec`` (a ``TextRecognizer`` or ``ABINetRecognizer``) on
     ``train_dataset``, from ``rec.init_weights(seed)`` unless
     ``load_from`` / ``resume_from`` say otherwise. ``cfg`` keys (the
@@ -47,6 +48,13 @@ def train_recognizer(rec, train_dataset, cfg: Dict, val_dataset=None,
     total_epochs = int(cfg.get('total_epochs', 12))
     log_interval = int(cfg.get('log_interval', 50))
     world, rank = dist.world_size(), dist.rank()
+    if mesh is not None:
+        if not mesh.distributed and len(mesh.devices) > 1:
+            raise ValueError('train_recognizer(mesh=) takes a mesh over the '
+                             'ranks of a process group (one card a rank)')
+        world, data_rank = mesh.shape['data'], mesh.data_index
+    else:
+        data_rank = rank
     if batch_size % world:
         batch_size = -(-batch_size // world) * world
         logger.info('batch size rounded up to %d (a multiple of the %d '
@@ -54,7 +62,7 @@ def train_recognizer(rec, train_dataset, cfg: Dict, val_dataset=None,
     device = rec.device
     loader = DataLoader(train_dataset, batch_size, shuffle=True, seed=seed,
                         num_workers=int(cfg.get('workers_per_gpu', 0)),
-                        pin_memory=device.type == 'cuda', rank=rank,
+                        pin_memory=device.type == 'cuda', rank=data_rank,
                         world_size=world)
     steps_per_epoch = len(loader)
     optimizer, schedule = build_optimizer_from_run_cfg(
@@ -69,8 +77,15 @@ def train_recognizer(rec, train_dataset, cfg: Dict, val_dataset=None,
                     meta.get('epoch'), optimizer.count)
     dist.broadcast_from_rank0(list(rec.model.parameters())
                               + list(rec.model.buffers()))
+    split = mesh is not None and mesh.shape['model'] > 1
+    if split:
+        tp.shard_model(rec.model, mesh, param_sharding(
+            rec.model, mesh, rules_for_config(rec.cfg)))
+        tp.shard_optimizer_state(optimizer, rec.model)
+        optimizer.set_model_parallel(mesh.group('model'),
+                                     tp.sharded_parameters(rec.model))
     ckpt = checkpoint.CheckpointManager(work_dir) if work_dir else None
-    train_step = make_train_step(rec, optimizer)
+    train_step = make_train_step(rec, optimizer, mesh)
     start_epoch = min(optimizer.count // max(steps_per_epoch, 1),
                       total_epochs)
     history: List[Dict] = []
@@ -95,7 +110,8 @@ def train_recognizer(rec, train_dataset, cfg: Dict, val_dataset=None,
                 if 'target_lengths' in td:
                     batch['target_lengths'] = td['target_lengths']
                 lr = schedule(optimizer.count)
-                gen = step_generator(seed + 1, optimizer.count, device)
+                gen = step_generator(seed + 1, optimizer.count, device,
+                                     data_rank)
                 metrics = train_step(batch, gen)
                 images += len(host_batch['texts']) * world
                 if it % log_interval == 0:
@@ -116,16 +132,33 @@ def train_recognizer(rec, train_dataset, cfg: Dict, val_dataset=None,
                 logger.info('epoch %d: %d images in %.2f s (%.1f img/s), '
                             '%.2f s waiting on the loader', epoch, images,
                             seconds, images / max(seconds, 1e-9), waited)
+            whole = None
+            if split and (ckpt is not None or val_dataset is not None):
+                whole = (tp.gather_state_dict(rec.model),
+                         tp.gather_optimizer_state(optimizer, rec.model))
             if ckpt is not None:
                 ckpt.save(epoch + 1, rec.model, optimizer,
                           meta=dict(seed=seed,
-                                    config=checkpoint.config_text(cfg)))
+                                    config=checkpoint.config_text(cfg)),
+                          state=whole)
             if val_dataset is not None and rank == 0:
-                res = eval_recognizer(rec, val_dataset,
-                                      batch_size=batch_size // world)
+                res = eval_recognizer(
+                    _whole_copy(rec, whole[0]) if split else rec,
+                    val_dataset, batch_size=batch_size // world)
                 logger.info('epoch %d eval: %s', epoch, res)
                 history.append(dict(epoch=epoch, eval=res))
             dist.barrier(device)
     finally:
         loader.close()
     return optimizer, history
+
+
+def _whole_copy(rec, state_dict):
+    """A recognizer of ``rec``'s config holding the whole ``state_dict``,
+    for the evaluation of a split model."""
+    from .recognizer import _DTYPES, build_recognizer
+    name = {v: k for k, v in _DTYPES.items()}[rec.param_dtype]
+    whole = build_recognizer(rec.cfg, rec.device, name)
+    whole.model.load_state_dict(state_dict, strict=True)
+    whole.test_pipeline_cfg = rec.test_pipeline_cfg
+    return whole

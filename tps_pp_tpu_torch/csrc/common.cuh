@@ -10,6 +10,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <mutex>
+
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
 

@@ -72,14 +72,17 @@ int launch_pdl(void (*kernel)(KArgs...), dim3 grid, dim3 block, size_t smem,
 
 // Lets `kernel` take up to 227 KB of dynamic shared memory when a launch
 // needs more than 48 KB: set once per (kernel, device), a host call that
-// a decode step would otherwise repeat at every launch.
+// a decode step would otherwise repeat at every launch. The record is read
+// and written under a lock: host threads launch on their cards at once.
 template <typename... KArgs>
 int allow_smem(void (*kernel)(KArgs...), size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   static const void* done_fn[32];
   static int done_dev[32], done_n = 0;
+  static std::mutex mu;
   int dev = 0;
   cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> hold(mu);
   for (int i = 0; i < done_n; ++i)
     if (done_fn[i] == (const void*)kernel && done_dev[i] == dev) return 0;
   const cudaError_t e = cudaFuncSetAttribute(

@@ -331,12 +331,15 @@ size_t ln_product_smem(int D, int W, size_t x_bytes, int S) {
          x_bytes * kRbM * D + 16 * kRbM + 2 * sizeof(float) * D;
 }
 
-// The current device's SM count, read once a device.
+// The current device's SM count, read once a device (under a lock: host
+// threads launch on their cards at once).
 int sm_count() {
   static int sms[64];
+  static std::mutex mu;
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 64) dev = 63;
+  std::lock_guard<std::mutex> hold(mu);
   if (!sms[dev]) {
     int n = 0;
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
@@ -659,13 +662,16 @@ int launch_ffn(const X* x, const bf16* att, const bf16* wfc,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   // the clusters resident at once, cached per (device, kernel, shared
-  // memory, cluster size): the query is a host call
+  // memory, cluster size): the query is a host call; the cache is read and
+  // written under a lock
   static long long key[16][4];
   static int val[16], n_cached = 0;
+  static std::mutex mu;
   int dev = 0, fit = -1;
   cudaGetDevice(&dev);
   const long long k[4] = {dev, std::is_same<X, bf16>::value, (long long)smem8,
                           cs};
+  std::unique_lock<std::mutex> hold(mu);
   for (int i = 0; i < n_cached && fit < 0; ++i)
     if (std::equal(k, k + 4, key[i])) fit = val[i];
   if (fit < 0) {
@@ -679,6 +685,7 @@ int launch_ffn(const X* x, const bf16* att, const bf16* wfc,
       val[n_cached++] = fit;
     }
   }
+  hold.unlock();
   const int S = fit >= bands ? 8 : 4;
   const size_t smem = ffn_layout(D, HD, DI, cs, S).bytes;
   auto kernel = S == 8 ? ffn_cluster_kernel<X, 8> : ffn_cluster_kernel<X, 4>;

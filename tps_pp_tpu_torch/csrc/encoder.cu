@@ -424,13 +424,16 @@ size_t pair_attn_bytes(int hg) {
 // T == kT on the first case, two heads a block where H allows it; any
 // other T up to kMaxT on the second. The kernels' shared-memory caps are
 // raised once a device, to their largest launch (a host call, once a
-// layer otherwise).
+// layer otherwise), under a lock: host threads launch on their cards at
+// once.
 int launch_attention(const bf16* qkv, const float* mask, bf16* out, int N,
                      int T, int H, cudaStream_t st) {
   static bool capped[64];
+  static std::mutex mu;
   int dev = 0;
   TPK_TRY((int)cudaGetDevice(&dev));
   if (dev >= 64) dev = 63;
+  std::unique_lock<std::mutex> hold(mu);
   if (!capped[dev]) {
     TPK_TRY((int)cudaFuncSetAttribute(
         encoder_attn_any_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -440,6 +443,7 @@ int launch_attention(const bf16* qkv, const float* mask, bf16* out, int N,
         (int)pair_attn_bytes(2)));
     capped[dev] = true;
   }
+  hold.unlock();
   if (T != kT) {
     const int Tp = (T + 63) / 64 * 64;
     encoder_attn_any_kernel<<<N * H * (Tp / 64), kAttnThreads,

@@ -274,16 +274,18 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
+// The driver's entry point, looked up once (a function-local static's
+// initialisation is thread-safe).
 EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
+  static const EncodeTiled fn = []() -> EncodeTiled {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult q;
     if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
                                 cudaEnableDefault, &q) == cudaSuccess &&
         q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
+      return reinterpret_cast<EncodeTiled>(p);
+    return nullptr;
+  }();
   return fn;
 }
 

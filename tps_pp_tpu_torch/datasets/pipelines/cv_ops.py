@@ -15,6 +15,12 @@ that is cheap to follow:
   ``p00 + a (p01 - p00)`` per row, then ``+ b (v1 - v0)``, each a fused
   multiply-add in float32, rounded half to even for uint8. The fused
   operations are emulated in float64, which holds the products exactly.
+  ``remap_linear`` (``cv2.remap``, the TPS augmentations' warp) samples
+  float32 maps through the same blend, bit for bit on uint8.
+* ``pil_rotate_nearest``: PIL's ``rotate(angle, resample=NEAREST,
+  expand=False, center=...)`` (the seg recipe's ``RandomRotateImageBox``;
+  the card's machine has no PIL): PIL's inverse affine map in its 16.16
+  fixed point, sampled at pixel centres, 0 outside.
 * ``resize_u8``: ``cv2.resize`` with ``INTER_LINEAR`` of a uint8 image,
   in cv2's fixed point: 11-bit weights from float32 positions (a column's
   weight pinned at the edges, a row's not, its taps clamped), the row pass
@@ -243,6 +249,55 @@ def _remap_linear(img: np.ndarray, sx: np.ndarray,
     v0 = _fma(a, p01 - p00, p00)
     v1 = _fma(a, p11 - p10, p10)
     return _to_dtype(_fma(b, v1 - v0, v0), img.dtype)
+
+
+def remap_linear(img: np.ndarray, map_x: np.ndarray,
+                 map_y: np.ndarray) -> np.ndarray:
+    """``cv2.remap(img, map_x, map_y, cv2.INTER_LINEAR,
+    borderMode=cv2.BORDER_REPLICATE)``: (H, W[, C]) -> the maps' shape,
+    the float32 maps' positions sampled by ``_remap_linear`` (the float
+    bilinear blend of cv2 5.0's remap, bit for bit on uint8)."""
+    return _remap_linear(img, np.asarray(map_x, np.float32),
+                         np.asarray(map_y, np.float32))
+
+
+def pil_rotate_nearest(img: np.ndarray, angle: float,
+                       center: Tuple[float, float]) -> np.ndarray:
+    """PIL's ``Image.fromarray(img).rotate(angle, resample=NEAREST,
+    expand=False, center=center)`` of an (H, W[, C]) uint8 array, bit for
+    bit: the inverse affine map PIL builds (its coefficients rounded to
+    15 decimals), sampled at pixel centres in PIL's 16.16 fixed point
+    (``affine_fixed`` of libImaging/Geometry.c), pixels whose source falls
+    outside set to 0."""
+    h, w = img.shape[:2]
+    angle = angle % 360.0
+    rad = -math.radians(angle)
+    a = [round(math.cos(rad), 15), round(math.sin(rad), 15), 0.0,
+         round(-math.sin(rad), 15), round(math.cos(rad), 15), 0.0]
+    cx, cy = center
+    a[2] = a[0] * -cx + a[1] * -cy + a[2]
+    a[5] = a[3] * -cx + a[4] * -cy + a[5]
+    a[2] += cx
+    a[5] += cy
+
+    def fix(v):
+        return math.floor(v * 65536.0 + 0.5)
+
+    if not (abs(w * a[0] + h * a[1] + a[2]) < 32768.0
+            and abs(w * a[3] + h * a[4] + a[5]) < 32768.0):
+        raise ValueError('pil_rotate_nearest: an image too large for '
+                         "PIL's fixed-point path")
+    a0, a1, a3, a4 = fix(a[0]), fix(a[1]), fix(a[3]), fix(a[4])
+    a2 = fix(a[2] + a[1] * 0.5 + a[0] * 0.5)
+    a5 = fix(a[5] + a[4] * 0.5 + a[3] * 0.5)
+    xs = np.arange(w, dtype=np.int64)[None]
+    ys = np.arange(h, dtype=np.int64)[:, None]
+    xin = (a2 + a1 * ys + a0 * xs) >> 16
+    yin = (a5 + a4 * ys + a3 * xs) >> 16
+    inside = (xin >= 0) & (xin < w) & (yin >= 0) & (yin < h)
+    out = np.zeros_like(img)
+    out[inside] = img[yin[inside], xin[inside]]
+    return out
 
 
 def warp_affine(img: np.ndarray, m, dsize: Tuple[int, int]) -> np.ndarray:

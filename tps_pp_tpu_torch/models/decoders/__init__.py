@@ -6,9 +6,11 @@ from .robust_scanner import (PositionAttentionDecoder, RobustScannerDecoder,
                              SequenceAttentionDecoder)
 from .sar import (ParallelSARDecoder, ParallelSARDecoderWithBS,
                   SequentialSARDecoder)
+from .tf_common import TFCommonDecoder, TFCommonDecoderLayer
 
 __all__ = ['ABILanguageDecoder', 'ABIVisionDecoder', 'beam_decode',
            'CRNNDecoder', 'greedy_decode', 'NRTRDecoder',
            'ParallelSARDecoder', 'ParallelSARDecoderWithBS',
            'PositionAttentionDecoder', 'RobustScannerDecoder',
-           'SequenceAttentionDecoder', 'SequentialSARDecoder']
+           'SequenceAttentionDecoder', 'SequentialSARDecoder',
+           'TFCommonDecoder', 'TFCommonDecoderLayer']

@@ -72,7 +72,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     all-reduce, and the backward all-reduces its two sums, so that it is
     the global batch's too (``_GlobalBatchNorm``; ``nn.SyncBatchNorm``
     keeps torch's unbiased running variance and does not run on gloo CPU
-    tensors)."""
+    tensors). Under a 2-D mesh the reductions run over the data group
+    (``parallel.dist.data_group``); a BatchNorm whose channels tensor
+    parallelism splits takes the statistics of this rank's channels."""
 
     def forward(self, x):
         if not self.training:
@@ -91,8 +93,9 @@ class BatchNorm2d(nn.BatchNorm2d):
                             self.eps)
 
     def _global_batch_forward(self, x):
+        from ..parallel.dist import data_group
         y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
-                                              self.eps)
+                                              self.eps, data_group())
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
@@ -117,17 +120,18 @@ class _GlobalBatchNorm(torch.autograd.Function):
     the backward all-reduces the sums of the output gradient and of its
     product with the centred input, so that the input gradient is the
     global batch's. The weight and bias gradients stay this rank's, for
-    the step's gradient all-reduce. Statistics in float32 at least.
+    the step's gradient all-reduce. Statistics in float32 at least. Both
+    all-reduces run over ``group`` (None: the world).
     Returns (y, mean, biased variance)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, group=None):
         c = x.shape[1]
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         stats = torch.cat([xf.sum(dim=(0, 2, 3)),
                            (xf * xf).sum(dim=(0, 2, 3)),
                            xf.new_full((1,), x.numel() // c)])
-        dist.all_reduce(stats)
+        dist.all_reduce(stats, group=group)
         n = stats[2 * c]
         mean = stats[:c] / n
         var = (stats[c:2 * c] / n - mean * mean).clamp(min=0)
@@ -137,6 +141,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
         y = torch.addcmul(shift.to(x.dtype)[:, None, None], x,
                           scale.to(x.dtype)[:, None, None])
         ctx.save_for_backward(x, weight, mean, invstd, n)
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -148,11 +153,11 @@ class _GlobalBatchNorm(torch.autograd.Function):
         xc = x.to(mean.dtype) - mean[:, None, None]
         sums = torch.cat([g.sum(dim=(0, 2, 3)), (g * xc).sum(dim=(0, 2, 3))])
         d_bias, d_weight = sums[:c].clone(), sums[c:] * invstd
-        dist.all_reduce(sums)
+        dist.all_reduce(sums, group=ctx.group)
         k = (weight * invstd)[:, None, None]
         gx = k * (g - (sums[:c] / n)[:, None, None]
                   - xc * (invstd * invstd * sums[c:] / n)[:, None, None])
-        return gx.to(x.dtype), d_weight, d_bias, None
+        return gx.to(x.dtype), d_weight, d_bias, None, None
 
 
 class ConvModule(nn.Module):

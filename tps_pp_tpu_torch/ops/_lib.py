@@ -19,11 +19,13 @@ dispatcher, which costs a launch less on the host than
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
@@ -150,6 +152,35 @@ def define_op(name: str, schema: str, cuda, cpu, fake):
     torch.library.register_fake(f'tps_pp::{name}', fake, lib=_OPS)
     OP_KERNELS[name] = (schema, cuda)
     return getattr(torch.ops.tps_pp, name)
+
+
+_COUNT_LOCK = threading.Lock()
+_SCOPE = threading.local()
+
+
+def count_launch(wrapper, attr: str = 'launches'):
+    """Add one to ``wrapper.<attr>``, a wrapper's launch count, under a
+    lock (``predict(mesh=)`` launches from one host thread a card), and to
+    the innermost ``launch_scope`` of this thread, keyed by
+    ``'<wrapper name>.<attr>'``."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+    scope = getattr(_SCOPE, 'counts', None)
+    if scope is not None:
+        key = f'{wrapper.__name__}.{attr}'
+        scope[key] = scope.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def launch_scope():
+    """The launches this thread makes inside the block, as a dict
+    ``{'<wrapper name>.<attr>': count}`` filled as they happen."""
+    prev = getattr(_SCOPE, 'counts', None)
+    _SCOPE.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _SCOPE.counts = prev
 
 
 def require_kernel_device(device, name: str):

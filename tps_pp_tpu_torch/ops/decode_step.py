@@ -177,7 +177,7 @@ def _self_attn_cuda(x, ck, cv, t: int, wqkv, wfc, ln_s, ln_b, skip=None):
         out.data_ptr(), _skip_ptr('self_attn_step', skip, dev), N, D, H, DK,
         T, t, int(xt == _BF), _lib.stream_ptr(dev))
     _lib.check(rc, 'self_attn_step')
-    self_attn_step.launches += 1
+    _lib.count_launch(self_attn_step)
     return out
 
 
@@ -213,7 +213,7 @@ def _cross_ffn_cuda(x, enc_k, enc_v, src_mask, wq, wfc, ln2_s, ln2_b, w1,
         _skip_ptr('cross_ffn_step', skip, dev), N, D, H, DK, TE, DI,
         int(xt == _BF), _lib.stream_ptr(dev))
     _lib.check(rc, 'cross_ffn_step')
-    cross_ffn_step.launches += 1
+    _lib.count_launch(cross_ffn_step)
     return out
 
 

@@ -113,7 +113,7 @@ def _attention_cuda(qkv: torch.Tensor, mask: torch.Tensor,
         qkv.data_ptr(), mask.data_ptr(), out.data_ptr(), N, T, n_head,
         HD // n_head, _lib.stream_ptr(dev))
     _lib.check(rc, 'encoder_attention')
-    encoder_attention.launches += 1
+    _lib.count_launch(encoder_attention)
     return out
 
 
@@ -208,7 +208,7 @@ def _forward_cuda(x, mask, ws, n_head):
         y.data_ptr(), qkv.data_ptr(), att.data_ptr(), hid.data_ptr(),
         out.data_ptr(), N, T, D, n_head, DK, DI, L, _lib.stream_ptr(dev))
     _lib.check(rc, 'encoder_forward')
-    encoder_forward.launches += 1
+    _lib.count_launch(encoder_forward)
     return out
 
 

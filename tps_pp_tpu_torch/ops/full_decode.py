@@ -16,6 +16,7 @@ into the classifier.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -260,6 +261,10 @@ def gemm_plan(M: int, N: int, K: int) -> Tuple[int, int]:
 # replay, and a weight set with another tensor in its place is captured
 # again.
 _GRAPHS = WeakTensorKeyDictionary()
+# guards _GRAPHS: host threads of predict(mesh=) look buckets up at once
+_GRAPHS_LOCK = threading.Lock()
+# one capture at a time (``_DecodeGraph._capture``)
+_CAPTURE_LOCK = threading.Lock()
 
 
 def _weight_ptrs(w: Dict[str, torch.Tensor]) -> tuple:
@@ -308,6 +313,7 @@ class _DecodeGraph:
                      -1 if end_idx is None else end_idx)
         self.c_plan = (ctypes.c_int * 12)(*[v for p in plan for v in p])
         self.graph = None
+        self.lock = threading.Lock()
 
     @property
     def nbytes(self) -> int:
@@ -334,7 +340,13 @@ class _DecodeGraph:
 
     def _capture(self, w, dev):
         """A first run on a side stream (it loads the kernels), then the
-        capture."""
+        capture, one capture at a time in the process: two captures at
+        once fail in PyTorch's registration of the generator state with
+        the graph."""
+        with _CAPTURE_LOCK:
+            self._capture_locked(w, dev)
+
+    def _capture_locked(self, w, dev):
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
@@ -342,7 +354,12 @@ class _DecodeGraph:
             self._enqueue(w, dev)
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        # on a stream of this card: torch.cuda.graph's default capture
+        # stream is made once, on the card of the first capture;
+        # thread_local: another host thread (predict(mesh=) runs one a
+        # card) may launch work on this or another card meanwhile
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode='thread_local'):
             self._enqueue(w, dev)
         self.graph = graph
         full_decode.captures += 1
@@ -418,20 +435,22 @@ def _full_decode_cuda(out_enc, src_mask, ws, n_head, start_idx, end_idx,
         probs = g.enqueue(out_enc, src_mask, w)
     else:
         key = (dev, N, TE, q8, n_head, start_idx, end_idx)
-        graphs = _GRAPHS.setdefault(w['wqkv'], {})
-        g = graphs.get(key)
-        if g is None or g.ptrs != _weight_ptrs(w):
-            # another tensor in a weight's place: the old bucket goes before
-            # the new one is allocated
-            graphs.pop(key, None)
-            g = None
-            g = graphs[key] = _DecodeGraph(w, d, N, TE, q8, start_idx,
-                                           end_idx, dev)
-        probs, full_decode.last_steps = g.run(out_enc, src_mask, w)
+        with _GRAPHS_LOCK:
+            graphs = _GRAPHS.setdefault(w['wqkv'], {})
+            g = graphs.get(key)
+            if g is None or g.ptrs != _weight_ptrs(w):
+                # another tensor in a weight's place: the old bucket goes
+                # before the new one is allocated
+                graphs.pop(key, None)
+                g = None
+                g = graphs[key] = _DecodeGraph(w, d, N, TE, q8, start_idx,
+                                               end_idx, dev)
+        with g.lock:         # one call at a time replays a bucket
+            probs, full_decode.last_steps = g.run(out_enc, src_mask, w)
     if q8:
-        full_decode.launches_int8 += 1
+        _lib.count_launch(full_decode, 'launches_int8')
     else:
-        full_decode.launches += 1
+        _lib.count_launch(full_decode)
     return probs
 
 

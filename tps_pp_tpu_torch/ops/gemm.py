@@ -68,7 +68,7 @@ def _gemm_cuda(a, b, bias, residual, gelu, out_dtype, ln, ln_s, ln_b):
         ptr(y), ptr(ln_s), ptr(ln_b), M, N, K, int(out_dtype == bf),
         int(gelu), _lib.stream_ptr(dev))
     _lib.check(rc, 'gemm')
-    gemm.launches += 1
+    _lib.count_launch(gemm)
     return (c, y) if ln else c
 
 

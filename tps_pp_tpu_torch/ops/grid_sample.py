@@ -168,7 +168,7 @@ def _forward_cuda(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
         img.data_ptr(), grid.data_ptr(), out.data_ptr(), N, H, W, C, npix,
         int(img.dtype == torch.bfloat16), _lib.stream_ptr(dev))
     _lib.check(rc, what)
-    grid_sample_forward.launches += 1
+    _lib.count_launch(grid_sample_forward)
     return out
 
 
@@ -225,7 +225,7 @@ def grid_sample_grad(grid: torch.Tensor, cot: torch.Tensor,
         d_grid.data_ptr(), N, H, W, C, npix,
         int(img.dtype == torch.bfloat16), plan, _lib.stream_ptr(dev))
     _lib.check(rc, what)
-    grid_sample_grad.launches += 1
+    _lib.count_launch(grid_sample_grad)
     grid_sample_grad.last_plan = dict(zip(_PLAN_KEYS, plan))
     return d_img, d_grid
 
@@ -249,7 +249,7 @@ def grid_sample_grad_img(grid: torch.Tensor, cot: torch.Tensor, H: int,
         grid.data_ptr(), cot.data_ptr(), d_img.data_ptr(), N, H, W, C, npix,
         int(cot.dtype == torch.bfloat16), plan, _lib.stream_ptr(dev))
     _lib.check(rc, what)
-    grid_sample_grad_img.launches += 1
+    _lib.count_launch(grid_sample_grad_img)
     grid_sample_grad_img.last_plan = dict(zip(_PLAN_KEYS, plan))
     return d_img
 

@@ -180,7 +180,7 @@ def _conv_cuda(x2d, w, b, H: int, W: int, relu: bool) -> torch.Tensor:
         x2d.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), C, Cout,
         N, H, W, int(relu), int(dt == torch.bfloat16), _lib.stream_ptr(dev))
     _lib.check(rc, 'conv3x3_cp')
-    conv3x3_cp.launches += 1
+    _lib.count_launch(conv3x3_cp)
     return out
 
 
@@ -201,7 +201,7 @@ def _block_cuda(t, w1, b1, wtaps, b2, H: int, W: int,
         b2.data_ptr(), out.data_ptr(), Cin, Cmid, Cout, N, H, W,
         int(residual), int(dt == torch.bfloat16), _lib.stream_ptr(dev))
     _lib.check(rc, 'basic_block_cp')
-    basic_block_cp.launches += 1
+    _lib.count_launch(basic_block_cp)
     return out
 
 

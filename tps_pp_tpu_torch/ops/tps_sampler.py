@@ -183,9 +183,9 @@ def _launch(feat_grid, batch_img, control_point, pc_score, inv_delta_C,
         _lib.stream_ptr(dev))
     _lib.check(rc, 'tps_sampler')
     if twostage:
-        tps_sampler.launches_twostage += 1
+        _lib.count_launch(tps_sampler, 'launches_twostage')
     else:
-        tps_sampler.launches += 1
+        _lib.count_launch(tps_sampler)
     return rect, mp
 
 

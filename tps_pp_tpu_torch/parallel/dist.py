@@ -10,9 +10,15 @@ share of every global batch (``datasets.DataLoader``), the gradients are
 averaged over the ranks after the backward (``parallel.train``), and
 train-mode BatchNorm takes its statistics over the global batch
 (``models.layers.BatchNorm2d``).
+
+Under a 2-D mesh (``parallel.mesh``) those reductions run over the data
+group, the ranks that hold the same shard of the model: ``use_data_group``
+sets it for a block, and ``data_group()`` is what they read (None: the
+whole world, which is the data group when there is no model axis).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional, Sequence
 
@@ -31,6 +37,27 @@ def rank() -> int:
 
 def world_size() -> int:
     return dist.get_world_size() if is_active() else 1
+
+
+_DATA_GROUP = None
+
+
+def data_group():
+    """The process group that the gradient mean and BatchNorm's statistics
+    reduce over: the mesh's data group inside ``use_data_group``, else None
+    (the world)."""
+    return _DATA_GROUP
+
+
+@contextlib.contextmanager
+def use_data_group(group):
+    """Reduce over ``group`` instead of the world for the block."""
+    global _DATA_GROUP
+    prev, _DATA_GROUP = _DATA_GROUP, group
+    try:
+        yield group
+    finally:
+        _DATA_GROUP = prev
 
 
 def maybe_init_distributed(device=None) -> torch.device:
@@ -68,13 +95,15 @@ def broadcast_from_rank0(tensors: Sequence[torch.Tensor]):
 BUCKET_BYTES = 64 << 20
 
 
-def all_reduce_mean(tensors: Sequence[torch.Tensor]):
-    """Replace each tensor by its mean over the ranks, in buckets of about
+def all_reduce_mean(tensors: Sequence[torch.Tensor], group=None):
+    """Replace each tensor by its mean over the ranks of ``group`` (default:
+    ``data_group()``, the world outside a mesh), in buckets of about
     ``BUCKET_BYTES`` flattened into one all-reduce each (a group of one
     runs the collective too)."""
     if not is_active():
         return
-    n = world_size()
+    group = group if group is not None else data_group()
+    n = dist.get_world_size(group)
     bucket, size = [], 0
     for t in list(tensors) + [None]:
         if t is not None:
@@ -82,7 +111,7 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor]):
             size += t.numel() * t.element_size()
         if bucket and (t is None or size >= BUCKET_BYTES):
             flat = torch.cat([b.reshape(-1) for b in bucket])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=group)
             flat.div_(n)
             offset = 0
             for b in bucket:

@@ -28,6 +28,13 @@ backward (``dist.all_reduce_mean``), as the mesh's ``psum`` over the data
 axis does in JAX; with equal shares of the batch and the loss's mean over
 all positions that is the gradient of the global batch's loss. The
 metrics are averaged too.
+
+With a ``mesh`` (``parallel.mesh``) whose model axis is above 1, the model
+is split over the model group (``parallel.tp``): the gradients and metrics
+are averaged over the data group only, BatchNorm's statistics are the data
+group's, and the global norm behind ``grad_norm`` and the clip sums each
+split parameter's squares over the model group and counts the replicated
+ones once (``OptimizerChain.set_model_parallel``).
 """
 from __future__ import annotations
 
@@ -91,6 +98,28 @@ class OptimizerChain:
         self.count = 0
         self.params: List[torch.Tensor] = [
             p for g in optimizer.param_groups for p in g['params']]
+        self._model_group = None
+        self._sharded = ()
+
+    def set_model_parallel(self, group, sharded: Iterable[torch.Tensor]):
+        """Take the global norm over a model group: the squares of the
+        ``sharded`` parameters' gradients summed over ``group``, the other
+        parameters' counted once."""
+        ids = {id(p) for p in sharded}
+        self._model_group = group
+        self._sharded = [i for i, p in enumerate(self.params)
+                         if id(p) in ids]
+
+    def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        norms = torch._foreach_norm(grads)
+        if self._model_group is None:
+            return torch.linalg.vector_norm(torch.stack(norms))
+        sq = torch.stack(norms) ** 2
+        split = torch.zeros(len(sq), dtype=torch.bool, device=sq.device)
+        split[self._sharded] = True
+        sq_split = torch.where(split, sq, 0).sum()
+        torch.distributed.all_reduce(sq_split, group=self._model_group)
+        return torch.sqrt(torch.where(split, 0, sq).sum() + sq_split)
 
     def zero_grad(self):
         self.optimizer.zero_grad(set_to_none=True)
@@ -106,7 +135,7 @@ class OptimizerChain:
         """Clip, set the lr, step; returns the global norm of the gradients
         before clipping (a 0-d tensor, not synchronised)."""
         grads = self.grads()
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self.global_norm(grads)
         if self.max_norm is not None:
             torch._foreach_mul_(grads, torch.clamp(self.max_norm / norm,
                                                    max=1.0))
@@ -206,35 +235,44 @@ def build_optimizer_from_run_cfg(cfg: Dict, named_params, steps_per_epoch: int,
                            steps_per_epoch=steps_per_epoch)
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device,
+                   rank: Optional[int] = None) -> torch.Generator:
     """The dropout generator of ``step``: seeded from ``(seed, step)`` and
-    the rank, as JAX folds the step into its key
-    (``tps_pp_tpu/parallel/train.py:196``), so that a resumed run draws
-    the masks the uninterrupted run drew."""
-    key = ((seed * 1000003 + step) * 1000003 + dist.rank()) % (2 ** 63)
+    the rank (``rank``, default the process's; a mesh's data index, so
+    that the ranks of a model group draw alike), as JAX folds the step
+    into its key (``tps_pp_tpu/parallel/train.py:196``), so that a resumed
+    run draws the masks the uninterrupted run drew."""
+    rank = dist.rank() if rank is None else rank
+    key = ((seed * 1000003 + step) * 1000003 + rank) % (2 ** 63)
     return torch.Generator(device=device).manual_seed(key)
 
 
-def make_train_step(recognizer, optimizer: OptimizerChain) -> Callable:
+def make_train_step(recognizer, optimizer: OptimizerChain,
+                    mesh=None) -> Callable:
     """``train_step(batch, generator=None, plain=False) -> metrics``: one
     forward and backward through ``recognizer.compute_loss`` in train mode
     and one optimizer step. The metrics (0-d tensors, not synchronised)
     are ``loss``, each named loss (``loss_ce``) and ``grad_norm``, the
     global norm of the gradients before clipping; under a process group,
-    means over the ranks."""
+    means over the ranks (over the data group of ``mesh`` where its model
+    axis is above 1: the model is then split with ``parallel.tp``, and the
+    optimizer's norm set with ``set_model_parallel``)."""
+    group = (mesh.group('data') if mesh is not None and mesh.distributed
+             and mesh.shape['model'] > 1 else None)
 
     def train_step(batch, generator: Optional[torch.Generator] = None,
                    plain: bool = False) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
-        total, losses = recognizer.compute_loss(batch, generator,
-                                                plain=plain)
-        total.backward()
+        with dist.use_data_group(group):
+            total, losses = recognizer.compute_loss(batch, generator,
+                                                    plain=plain)
+            total.backward()
         metrics = {'loss': total.detach(),
                    **{k: v.detach() for k, v in losses.items()}}
         if dist.is_active():
-            dist.all_reduce_mean(optimizer.grads())
+            dist.all_reduce_mean(optimizer.grads(), group=group)
             values = torch.stack(list(metrics.values()))
-            dist.all_reduce_mean([values])
+            dist.all_reduce_mean([values], group=group)
             metrics = dict(zip(metrics, values))
         metrics['grad_norm'] = optimizer.step()
         return metrics

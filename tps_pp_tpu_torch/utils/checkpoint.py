@@ -23,7 +23,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -63,17 +63,23 @@ class CheckpointManager:
         self.directory = os.path.abspath(directory)
 
     def save(self, epoch: int, model: torch.nn.Module, optimizer,
-             meta: Optional[Dict] = None) -> Optional[str]:
+             meta: Optional[Dict] = None,
+             state: Optional[Tuple[Dict, Dict]] = None) -> Optional[str]:
         """Write ``epoch_{epoch}.pth`` on rank 0 (other ranks write
-        nothing and get None); drop the oldest beyond ``MAX_TO_KEEP``."""
+        nothing and get None); drop the oldest beyond ``MAX_TO_KEEP``.
+        ``state``: the (state_dict, optimizer state) to write in place of
+        the model's and the optimizer's own (a split model's, gathered
+        whole: ``parallel.tp``)."""
         if dist.rank() != 0:
             return None
+        sd, osd = state if state is not None else (model.state_dict(),
+                                                   optimizer.state_dict())
         os.makedirs(self.directory, exist_ok=True)
         path = os.path.join(self.directory, f'epoch_{epoch}.pth')
         state = {
             'meta': dict(meta or {}, epoch=epoch, step=optimizer.count),
-            'state_dict': model.state_dict(),
-            'optimizer': optimizer.state_dict(),
+            'state_dict': sd,
+            'optimizer': osd,
         }
         tmp = path + '.tmp'
         torch.save(state, tmp)

@@ -283,6 +283,23 @@ def nrtr_decoder_rules(n_layers: int) -> List[Rule]:
         ('decoder.classifier', 'decoder/classifier', 'linear')]
 
 
+def tf_common_rules(n_layers: int = 3) -> List[Rule]:
+    """TFCommonDecoder: per layer the attention's four linears (no bias,
+    JAX's ``qkv_bias=False``), ``norm1``, ``mlp.w_1`` / ``w_2``, ``norm2``;
+    then ``cls``. The names mirror the flax modules (``layer{i}`` as
+    ``layer_stack.{i}``): JAX's ``torch_convert.py`` has no table for this
+    decoder (it gives it NRTR's, which its flax tree does not have)."""
+    rules = []
+    for i in range(n_layers):
+        tp, fp = f'decoder.layer_stack.{i}', f'decoder/layer{i}'
+        rules += _attn_rules(f'{tp}.attn', f'{fp}/attn') + [
+            (f'{tp}.norm1', f'{fp}/norm1', 'ln'),
+            (f'{tp}.mlp.w_1', f'{fp}/mlp/w_1', 'linear'),
+            (f'{tp}.mlp.w_2', f'{fp}/mlp/w_2', 'linear'),
+            (f'{tp}.norm2', f'{fp}/norm2', 'ln')]
+    return rules + [('decoder.cls', 'decoder/cls', 'linear')]
+
+
 def _post_norm_layer_rules(tp: str, fp_attn: str, fp_norm1: str,
                            fp_norm2: str, fp_fc1: str,
                            fp_fc2: str) -> List[Rule]:
@@ -834,6 +851,8 @@ def rules_for_config(cfg: Mapping) -> List[Rule]:
                         if r[0].startswith('decoder.')]
     if dec_type in ('NRTRDecoder', 'TFDecoder'):
         return rules + nrtr_decoder_rules(int(dec.get('n_layers', 6)))
+    if dec_type == 'TFCommonDecoder':
+        return rules + tf_common_rules(int(dec.get('n_layers', 3)))
     raise ValueError(f'no conversion rules for decoder type {dec_type!r}')
 
 
@@ -980,6 +999,11 @@ def state_dict_from_jax(variables: Mapping, cfg: Mapping
         pe = 'encoder.position_enc'
         sd[f'{pe}.h_position_encoder'] = table.reshape(1, d, n, 1).clone()
         sd[f'{pe}.w_position_encoder'] = table.reshape(1, d, 1, n).clone()
+    if (cfg.get('decoder') or {}).get('type') == 'TFCommonDecoder':
+        dec = cfg['decoder']
+        sd['decoder.pos_encoder.position_table'] = torch.from_numpy(
+            sinusoid_position_table(int(cfg.get('max_seq_len', dec.get(
+                'max_seq_len', 64))), int(dec.get('d_model', 512))))
     if 'decoder.trg_word_emb.weight' not in sd:      # no position table
         return sd
     d = sd['decoder.trg_word_emb.weight'].shape[1]
