@@ -106,14 +106,19 @@ seed):
   grids, bf16 and f32, at the serving shape (B=512) and the training
   shape (B=64), and at three channels on a uniform grid; the one-channel
   rows are recorded (``*_c1``) at the serving (8) and training (9, 10)
-  shapes. Serving at B=512 and B=5 (random 32x100x1 crops) must launch
-  kernel 8 and no other kernel; its logits' argmax must equal the plain
-  path's at every position but where the plain top-2 logit gap is below
-  ``TIE_MULT`` times the widest gap at which the plain path parts from
-  itself when only the warp's rounding changes (the gather + lerp of the
-  plain backward, in f32, rounded to bf16 once, against ATen's warp),
-  never below ``NEAR_TIE``; ``predict`` timed against the plain path,
-  and its stages by CUDA events. A float32 model at B=8: logits within
+  shapes, 9 and 10 also as device time by CUDA graph (``*_c1_graph``)
+  on the config's own initial grid (fc2 at zero weights and the fiducial
+  bias, as training starts), held there against their plain versions
+  too, ATen's backward timed the same way; the label names the grid and
+  the plan's cluster of CTAs an image. Serving at B=512 and B=5 (random
+  32x100x1 crops) must launch kernel 8 and no other kernel; its logits'
+  argmax must equal the plain path's at every position but where the
+  plain top-2 logit gap is below ``TIE_MULT`` times the widest gap at
+  which the plain path parts from itself when only the warp's rounding
+  changes (the gather + lerp of the plain backward, in f32, rounded to
+  bf16 once, against ATen's warp), never below ``NEAR_TIE``;
+  ``predict`` timed against the plain path, and its stages by CUDA
+  events. A float32 model at B=8: logits within
   ``CRNN_F32_ATOL``. ``init_recognizer`` from the config and a ``.pth``,
   ``model_inference`` on 64 uint8 crops of mixed widths through the
   grayscale test pipeline (kernel 8; valid ratios below 1 clip the CTC
@@ -2531,12 +2536,21 @@ def crnn_tps_phase(dev, name, record):
     for dt in (bf, f32):
         warp_check(crops(bt, 3).to(dt), grid3, f'C = 3, B={bt}')
     e_s, e_t = errs['serving B=512', bf], errs[f'training B={bt}', f32]
+    # the config's own initial warp, the traffic of the rows by CUDA graph:
+    # fc2 at zero weights and the fiducial bias, as training starts (the
+    # same grid for every crop; trained warps stay near it)
+    pre0 = copy.deepcopy(m.preprocessor).float()
+    pre0.reset_localization()
+    with torch.no_grad():
+        grid0 = pre0.grid(img[:bt]).contiguous()
+    del pre0
+    cot0, e0 = warp_check(x_t, grid0, f'initial grid, training B={bt}')
     taps_s, taps_t = grid.shape[0] * 3200 * 8, bt * 3200 * 8
 
-    def aten_bwd(masks):
-        x_l, c_l = x_t.permute(0, 3, 1, 2), cot_t.permute(0, 3, 1, 2)
+    def aten_bwd(masks, gr, cot):
+        x_l, c_l = x_t.permute(0, 3, 1, 2), cot.permute(0, 3, 1, 2)
         return lambda: torch.ops.aten.grid_sampler_2d_backward(
-            c_l, x_l, grid_t, 0, 1, True, masks)
+            c_l, x_l, gr, 0, 1, True, masks)
 
     record('grid_sample_forward_c1', src,
            'tps_pp_tpu/ops/pallas_grid_sample.py:126',
@@ -2548,38 +2562,47 @@ def crnn_tps_phase(dev, name, record):
                x_s.permute(0, 3, 1, 2), grid.to(bf), mode='bilinear',
                padding_mode='border', align_corners=True),
            label=f'grid_sample_forward C=1 bf16 B={B} (CRNN-TPS serving)')
-    record('grid_sample_grad_c1', src,
-           'tps_pp_tpu/ops/pallas_grid_sample.py:283',
-           lambda: grid_sample_grad(grid_t, cot_t, x_t),
-           lambda: grid_sample_grad_plain(grid_t, cot_t, x_t),
-           max(e_t['d_img'], e_t['d_grid']), 50,
-           # grid, cotangent and image in; f32 d_img and d_grid out
-           nbytes(grid_t, cot_t, x_t, x_t, grid_t), f32_flops=2 * taps_t,
-           fn_lib=aten_bwd([True, True]),
-           label=f'grid_sample_grad C=1 f32 B={bt} (CRNN-TPS training)')
-    record('grid_sample_grad_img_c1', src,
-           'tps_pp_tpu/ops/pallas_grid_sample.py:178',
-           lambda: grid_sample_grad_img(grid_t, cot_t, 32, 100),
-           lambda: grid_sample_grad_img_plain(grid_t, cot_t, 32, 100),
-           e_t['d_img10'], 50, nbytes(grid_t, cot_t, x_t), f32_flops=taps_t,
-           fn_lib=aten_bwd([True, False]),
-           label=f'grid_sample_grad_img C=1 f32 B={bt} (detached grid)')
-    # the calls above are short enough for the host to pace them: their
-    # device time alone, the kernels' and the library calls'
+    plan_t = grid_sample_plan(bt, 32, 100, 1)
+    # kernels 9 and 10 by CUDA events on the random fc2's grid (the host
+    # paces calls this short), then as device time by CUDA graph on the
+    # config's initial grid, each beside ATen's timed the same way
+    for sfx, graph, gr, cot, e, grid_name in (
+            ('', False, grid_t, cot_t, e_t, 'random fc2 grid'),
+            ('_graph', True, grid0, cot0, e0, 'initial grid')):
+        how = 'CUDA graph' if graph else 'CUDA events'
+        record(f'grid_sample_grad_c1{sfx}', src,
+               'tps_pp_tpu/ops/pallas_grid_sample.py:283',
+               lambda gr=gr, cot=cot: grid_sample_grad(gr, cot, x_t),
+               lambda gr=gr, cot=cot: grid_sample_grad_plain(gr, cot, x_t),
+               max(e['d_img'], e['d_grid']), 50,
+               # grid, cotangent and image in; f32 d_img and d_grid out
+               nbytes(gr, cot, x_t, x_t, gr), f32_flops=2 * taps_t,
+               fn_lib=aten_bwd([True, True], gr, cot), graph=graph,
+               label=f'grid_sample_grad C=1 f32 B={bt} (CRNN-TPS training; '
+                     f'{grid_name}; {how}; cluster {plan_t["cluster"]}, '
+                     f'plan {plan_t})')
+        record(f'grid_sample_grad_img_c1{sfx}', src,
+               'tps_pp_tpu/ops/pallas_grid_sample.py:178',
+               lambda gr=gr, cot=cot: grid_sample_grad_img(gr, cot, 32, 100),
+               lambda gr=gr, cot=cot: grid_sample_grad_img_plain(
+                   gr, cot, 32, 100),
+               e['d_img10'], 50, nbytes(gr, cot, x_t),
+               f32_flops=taps_t, fn_lib=aten_bwd([True, False], gr, cot),
+               graph=graph,
+               label=f'grid_sample_grad_img C=1 f32 B={bt} (detached grid; '
+                     f'{grid_name}; {how}; cluster {plan_t["cluster"]})')
+    # kernel 8's calls are short enough for the host to pace them too:
+    # its device time alone, and the library call's
     device = {
         'kernel 8': lambda: grid_sample_forward(x_s, grid),
         'F.grid_sample': lambda: F.grid_sample(
             x_s.permute(0, 3, 1, 2), grid.to(bf), mode='bilinear',
-            padding_mode='border', align_corners=True),
-        'kernel 9': lambda: grid_sample_grad(grid_t, cot_t, x_t),
-        'aten backward (d_img, d_grid)': aten_bwd([True, True]),
-        'kernel 10': lambda: grid_sample_grad_img(grid_t, cot_t, 32, 100),
-        'aten backward (d_img)': aten_bwd([True, False])}
-    log('crnn_tps C=1 device ms a call (CUDA graph of 20 calls, 5 replays; '
-        f'8 at B={B} bf16, 9 and 10 at B={bt} f32): ' + ', '.join(
+            padding_mode='border', align_corners=True)}
+    log(f'crnn_tps C=1 device ms a call (CUDA graph of 20 calls, 5 replays; '
+        f'B={B} bf16): ' + ', '.join(
             f'{k} {graph_ms(fn):.4f}' for k, fn in device.items())
         + f' [{name}]')
-    del x_s, x_t, grid3
+    del x_s, x_t, grid3, grid0
 
     # ---- serving, B=512 and B=5: kernel 8 only ---------------------------
     zero_launches()
@@ -2820,11 +2843,15 @@ def crnn_tps_phase(dev, name, record):
     torch.cuda.empty_cache()
     log(f'crnn_tps phase: {time.perf_counter() - t_phase:.1f} s; launches '
         f'{json.dumps(launches)}')
-    return {'grid_sample_forward_c1': sum(
-                n.get('grid_sample_forward', 0) for n in launches.values()),
-            'grid_sample_grad_c1': launches['training']['grid_sample_grad'],
-            'grid_sample_grad_img_c1':
-                launches['detached grid']['grid_sample_grad_img']}
+    out = {'grid_sample_forward_c1': sum(
+               n.get('grid_sample_forward', 0) for n in launches.values()),
+           'grid_sample_grad_c1': launches['training']['grid_sample_grad'],
+           'grid_sample_grad_img_c1':
+               launches['detached grid']['grid_sample_grad_img']}
+    # the rows by CUDA graph time the same launches of the same paths
+    out['grid_sample_grad_c1_graph'] = out['grid_sample_grad_c1']
+    out['grid_sample_grad_img_c1_graph'] = out['grid_sample_grad_img_c1']
+    return out
 
 
 def sar_phase(dev, name):

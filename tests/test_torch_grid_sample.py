@@ -14,8 +14,16 @@ port pass the whole gradient (1); against the Pallas kernel they are in.
 The pixel centres are exact where size - 1 is a power of two (5, 9, 17,
 33); elsewhere 2p/(size-1) - 1 rounds, the centre lands one ulp to either
 side, and which side depends on how an implementation orders its f32
-unnormalization, so the comparisons with the Pallas kernel's gradient use
-those sizes only.
+unnormalization, so the comparisons with the Pallas kernel's gradient put
+interior centres in those sizes only.
+
+The narrow path's shapes (odd C) are cases of the same tests: C = 1 and
+C = 3 at a 32 x 100 map (CRNN-TPS's crops; random points and exact border
+ties, no interior centres), MORAN's 3 x 11 one-channel offset map and
+SPIN's 2 x 8 three-channel map sampled up to 32 x 100 and 32 x 128 on the
+identity grid (thousands of samples on a few dozen pixels; its first and
+last rows and columns are exact border ties, and no interior point falls
+on a pixel centre: 10i/99 and 2j/31 are whole only at the ends).
 """
 import jax
 import jax.numpy as jnp
@@ -29,20 +37,28 @@ from tps_pp_tpu.ops.pallas_grid_sample import (grid_sample_grad,
                                                grid_sample_grad_img,
                                                grid_sample_pallas)
 
+from tps_pp_tpu_torch.models.rectifiers.moran import identity_grid
 from tps_pp_tpu_torch.ops import grid_sample as tgs
 
 torch.set_num_threads(2)
 
 
-def _case(seed, N=2, H=7, W=13, C=6, Ho=4, Wo=6, ties=False):
-    """img, grid, cot as float32 numpy. The grid spans [-1.3, 1.3]; its
-    first row holds interior pixel centres, and with ``ties`` its second
-    row holds exact border points (g = -1 and g = 1 on each axis)."""
+def _case(seed, N=2, H=7, W=13, C=6, Ho=4, Wo=6, ties=False,
+          kind='centres'):
+    """img, grid, cot as float32 numpy. ``kind`` 'centres': the grid spans
+    [-1.3, 1.3] and its first row holds interior pixel centres; 'random':
+    the same without the centres; 'identity': the identity grid of
+    (Ho, Wo). With ``ties`` (not for 'identity') the second and third rows
+    hold exact border points (g = -1 and g = 1 on each axis)."""
     rng = np.random.default_rng(seed)
     img = rng.standard_normal((N, H, W, C)).astype(np.float32)
-    grid = rng.uniform(-1.3, 1.3, (N, Ho, Wo, 2)).astype(np.float32)
-    grid[:, 0, :, 0] = 2 * rng.integers(1, W - 1, (N, Wo)) / (W - 1) - 1
-    grid[:, 0, :, 1] = 2 * rng.integers(1, H - 1, (N, Wo)) / (H - 1) - 1
+    if kind == 'identity':
+        grid = np.broadcast_to(identity_grid(Ho, Wo), (N, Ho, Wo, 2)).copy()
+    else:
+        grid = rng.uniform(-1.3, 1.3, (N, Ho, Wo, 2)).astype(np.float32)
+    if kind == 'centres':
+        grid[:, 0, :, 0] = 2 * rng.integers(1, W - 1, (N, Wo)) / (W - 1) - 1
+        grid[:, 0, :, 1] = 2 * rng.integers(1, H - 1, (N, Wo)) / (H - 1) - 1
     if ties:
         grid[:, 1, :, 0] = rng.choice([-1.0, 1.0], (N, Wo))
         grid[:, 1, :, 1] = rng.uniform(-0.9, 0.9, (N, Wo))
@@ -56,9 +72,28 @@ def _t(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
-@pytest.mark.parametrize('seed,H,W', [(0, 7, 13), (1, 16, 32), (2, 5, 9)])
-def test_forward_matches_jax_and_pallas(seed, H, W):
-    img, grid, _ = _case(seed, H=H, W=W, ties=True)
+# the narrow path's shapes: (seed, H, W, C, Ho, Wo, grid kind)
+_NARROW_CASES = [
+    pytest.param(10, 32, 100, 1, 8, 16, 'random', id='c1_32x100'),
+    pytest.param(11, 32, 100, 3, 8, 16, 'random', id='c3_32x100'),
+    pytest.param(12, 3, 11, 1, 32, 100, 'identity',
+                 id='moran_3x11_to_32x100'),
+    pytest.param(13, 2, 8, 3, 32, 128, 'identity',
+                 id='spin_2x8_to_32x128'),
+]
+
+
+def _narrow_or_even(seed, H, W, C, Ho, Wo, kind):
+    return _case(seed, H=H, W=W, C=C, Ho=Ho, Wo=Wo,
+                 ties=kind != 'identity', kind=kind)
+
+
+@pytest.mark.parametrize('seed,H,W,C,Ho,Wo,kind', [
+    pytest.param(0, 7, 13, 6, 4, 6, 'centres', id='0-7-13'),
+    pytest.param(1, 16, 32, 6, 4, 6, 'centres', id='1-16-32'),
+    pytest.param(2, 5, 9, 6, 4, 6, 'centres', id='2-5-9')] + _NARROW_CASES)
+def test_forward_matches_jax_and_pallas(seed, H, W, C, Ho, Wo, kind):
+    img, grid, _ = _narrow_or_even(seed, H, W, C, Ho, Wo, kind)
     want = np.asarray(jgrid_sample(jnp.asarray(img), jnp.asarray(grid)))
     pallas = np.asarray(grid_sample_pallas(jnp.asarray(img),
                                            jnp.asarray(grid),
@@ -90,16 +125,23 @@ def test_backward_matches_jax_vjp(seed, H, W):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize('seed,H,W', [(5, 5, 9), (6, 17, 33), (7, 9, 17)])
-def test_backward_matches_pallas_kernels(seed, H, W):
+@pytest.mark.parametrize('seed,H,W,C,Ho,Wo,kind', [
+    pytest.param(5, 5, 9, 6, 4, 6, 'centres', id='5-5-9'),
+    pytest.param(6, 17, 33, 6, 4, 6, 'centres', id='6-17-33'),
+    pytest.param(7, 9, 17, 6, 4, 6, 'centres', id='7-9-17')] +
+    _NARROW_CASES)
+def test_backward_matches_pallas_kernels(seed, H, W, C, Ho, Wo, kind):
     """Kernel 9 (fused VJP) and kernel 10 (d_img only) of the JAX package
-    in interpret mode, exact border ties included."""
-    img, grid, cot = _case(seed, H=H, W=W, ties=True)
+    in interpret mode, exact border ties included, over several tiles of
+    samples an image (8 a tile; 512 for the upsampled offset maps)."""
+    img, grid, cot = _narrow_or_even(seed, H, W, C, Ho, Wo, kind)
+    tile = 512 if kind == 'identity' else 8
     want_img, want_grid = (np.asarray(a) for a in grid_sample_grad(
-        jnp.asarray(grid), jnp.asarray(cot), jnp.asarray(img), tile=8,
+        jnp.asarray(grid), jnp.asarray(cot), jnp.asarray(img), tile=tile,
         interpret=True))
     want_img10 = np.asarray(grid_sample_grad_img(
-        jnp.asarray(grid), jnp.asarray(cot), H, W, tile=8, interpret=True))
+        jnp.asarray(grid), jnp.asarray(cot), H, W, tile=tile,
+        interpret=True))
     tg, tc, ti = _t(grid, cot, img)
     for d_img, d_grid in (tgs.grid_sample_grad_plain(tg, tc, ti),
                           tgs.grid_sample_grad(tg, tc, ti)):

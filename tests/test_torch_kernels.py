@@ -1192,8 +1192,8 @@ def _odd_warp_args(device, dtype, C, N=4, H=32, W=100, scale=1.0, seed=5):
 def test_grid_sample_kernels_odd_channels(cuda_device, dtype, C):
     """Kernels 8, 9 and 10 on the narrow path (C = 1, CRNN-TPS's crops, and
     C = 3) against their plain versions, within the even path's bounds;
-    the plan's slab is all of C, and a whole 32 x 100 image fits one
-    CTA."""
+    the plan's slab is all of C, and a whole 32 x 100 image fits one band,
+    taken by one cluster of CTAs."""
     b = WARP_BOUNDS[dtype]
     img, grid, cot = _odd_warp_args(cuda_device, dtype, C,
                                     scale=b['cot_scale'])
@@ -1221,7 +1221,8 @@ def test_grid_sample_kernels_odd_channels(cuda_device, dtype, C):
     plan = grid_sample_plan(4, 32, 100, C)
     assert grid_sample_grad.last_plan == grid_sample_grad_img.last_plan \
         == plan
-    assert plan['slab'] == C and plan['rows'] == 32 and plan['blocks'] == 4
+    assert plan['slab'] == C and plan['rows'] == 32
+    assert plan['blocks'] == 4 * plan['cluster']
 
 
 @pytest.mark.requires_cuda
@@ -1266,7 +1267,60 @@ def test_grid_sample_offset_upsamples(cuda_device, dtype, map_hw, out_hw,
                                grid_sample_plain(img, g).float(),
                                atol=atol, rtol=rtol)
     _check_warp_grads(cuda_device, dtype, grid.copy(), *map_hw, C)
-    assert grid_sample_plan(64, *map_hw, C)['blocks'] == 64
+    plan = grid_sample_plan(64, *map_hw, C)
+    assert plan['blocks'] == 64 * plan['cluster'] and plan['private'] == 1
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('case', ['b1', 'odd_b', 'five_channels',
+                                  'one_pixel', 'beyond', 'tall',
+                                  'offsets_one_pixel', 'b140'])
+def test_grid_sample_narrow_cluster_plans(cuda_device, dtype, case):
+    """The narrow path's clusters at the shapes that stress them, kernels 9
+    and 10 against their plain versions: ``b1``, one 32 x 100 crop (the
+    whole cluster on one image); ``odd_b``, five three-channel crops (a
+    cluster takes one image, so an odd B leaves no cluster partial);
+    ``five_channels``, an odd C other than 1 and 3 (one channel a pass);
+    ``one_pixel``, every sample of an image on one source pixel (each
+    thread's window on the same taps, the shared band's worst contention);
+    ``beyond``, every sample past the border by up to three widths (the
+    clamped taps, zero terms, d_grid cut by the clip); ``tall``, a
+    300 x 100 map that needs several bands, a cluster each;
+    ``offsets_one_pixel``, MORAN's 3 x 11 map, private, with every sample
+    on one pixel; ``b140``, 140 crops of 32 x 100, at least as many
+    (image, band) pairs as the card has SMs, so one CTA a cluster. The
+    plan the kernels ran (``last_plan``) is the one ``grid_sample_plan``
+    gives, its cluster 2 CTAs an image and band while there are fewer
+    (image, band) pairs than SMs, else 1."""
+    rng = np.random.default_rng(11)
+    N, H, W, C, out_hw = dict(
+        b1=(1, 32, 100, 1, (32, 100)), odd_b=(5, 32, 100, 3, (32, 100)),
+        five_channels=(3, 32, 100, 5, (32, 100)),
+        one_pixel=(3, 32, 100, 1, (32, 100)),
+        beyond=(2, 32, 100, 1, (32, 100)), tall=(3, 300, 100, 1, (16, 64)),
+        offsets_one_pixel=(3, 3, 11, 1, (32, 100)),
+        b140=(140, 32, 100, 1, (32, 100)))[case]
+    shape = (N,) + out_hw
+    if case in ('one_pixel', 'offsets_one_pixel'):
+        grid = np.broadcast_to(rng.uniform(-1, 1, (N, 1, 1, 2)),
+                               shape + (2,)).copy()
+    elif case == 'beyond':
+        grid = rng.uniform(1, 4, shape + (2,)) * rng.choice([-1, 1],
+                                                            shape + (2,))
+    else:
+        grid = rng.uniform(-1.2, 1.2, shape + (2,))
+    _check_warp_grads(cuda_device, dtype, grid, H, W, C)
+    plan = grid_sample_plan(N, H, W, C)
+    assert grid_sample_grad.last_plan == grid_sample_grad_img.last_plan \
+        == plan
+    bands = -(-H // plan['rows'])
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert plan['cluster'] == (2 if N * bands < sms else 1)
+    assert plan['slab'] == C
+    assert plan['blocks'] == N * bands * plan['cluster']
+    assert (bands > 1) == (case == 'tall')
+    assert plan['private'] == (case == 'offsets_one_pixel')
 
 
 @pytest.mark.requires_cuda

@@ -73,6 +73,7 @@ static __device__ __forceinline__ float block_max(float v, float* red) {
 // pixel indices y * W + x; the weights stay f32.
 struct BilinearTaps {
   int o00, o01, o10, o11;        // (y0,x0) (y0,x1) (y1,x0) (y1,x1)
+  int x0, y0;                    // the near tap's column and row
   float wx, wy;                  // fractional parts
   float w00, w01, w10, w11;      // (1-wx)(1-wy), wx(1-wy), (1-wx)wy, wx wy
 };
@@ -90,6 +91,8 @@ static __device__ __forceinline__ BilinearTaps bilinear_taps(float px,
   t.wy = gy - y0f;
   const int x0 = (int)x0f, y0 = (int)y0f;
   const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
+  t.x0 = x0;
+  t.y0 = y0;
   t.o00 = y0 * W + x0;
   t.o01 = y0 * W + x1;
   t.o10 = y1 * W + x0;

@@ -17,7 +17,8 @@
 // one 128-byte access); the taps and weights come from common.cuh, shared
 // with the serving sampler. The backward keeps the TPU's resident sum at
 // the size of shared memory: each CTA owns a band of source rows and sums
-// its d_img there (below), so nothing scatters into device memory.
+// its d_img there (below), so nothing scatters into device memory (the
+// narrow path adds its CTAs' copies of a band to d_img whole, coalesced).
 //
 // Gradient conventions (those of the Pallas backward, which are autodiff
 // of the floor-based lerp):
@@ -28,8 +29,9 @@
 //     included, and d_grid = d gx * (W-1)/2 (align_corners=True).
 // d_img: the f32 sums of each element are the same terms in another order
 // than the plain version's, added by shared-memory atomics from several
-// warps whose order varies, so d_img varies in its last bits from run to
-// run.
+// warps whose order varies (and on the narrow path the cluster's copies
+// added to d_img in any order), so d_img varies in its last bits from run
+// to run.
 //
 // Bound on the H100: memory. At the flagship's training shape (N=256,
 // 16x64 samples of a 32x128x64 map) the forward reads 4 taps of 128 B a
@@ -39,25 +41,24 @@
 // 134 MB map.
 //
 // Odd channel counts (the one-channel 32x100 crops that the CTC family's
-// TPS-STN warps, C = 1; RGB crops, C = 3) cannot be loaded as pairs, and a
+// TPS-STN warps, C = 1; RGB crops, C = 3; MORAN's 3x11 and SPIN's 2x8
+// offset maps sampled up to the crop) cannot be loaded as pairs, and a
 // warp over one channel would leave 31 of its lanes idle. There each
-// kernel takes its narrow path: one thread a sample, four scalar taps from
-// bilinear_taps, one load or store a channel. The backward's slab is all
-// of C, and a 32x100 f32 band of one channel is 12.8 KB, so one CTA holds
-// a whole image. Each of its threads takes every 512th sample, with no
-// list: it adds the four weighted cotangents of a sample that meets its
-// band with scalar shared-memory atomics, and kernel 9 takes d_grid from
-// the four taps directly, with no shuffle sum. (Cutting the images of a
-// B=64 batch into 5 bands, to put CTAs on every SM, measured slower on an
-// H100: each band scans all of its image's samples.) Even C keeps the
-// paths above. At CRNN-TPS's serving shape (N=512 bf16) the forward moves
-// ~20 MB, a few microseconds at the memory rate: it is bound by its
-// launch.
+// kernel takes its narrow path: the forward one thread a sample, the
+// backward a cluster of CTAs an image, a run of samples a thread (below,
+// "the narrow path"). At these shapes every bound is under the launch
+// latency, so the narrow backward is built to leave nothing waiting in
+// series. At CRNN-TPS's serving shape (N=512 bf16) the forward moves ~20
+// MB, a few microseconds at the memory rate: it is bound by its launch.
 #include <algorithm>
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
@@ -131,11 +132,12 @@ grid_sample_fwd_kernel(const T* __restrict__ img,      // (N, H, W, C)
 // What bounds it (tools/grid_sample_variants.py): zeroing, listing and the
 // store alone reach the bytes bound; the accumulate is latency-bound, each
 // warp waiting on its samples' cotangent rows and on the compare-and-swap
-// loops that shared f32 atomicAdd compiles to on Hopper (there is no
-// native shared f32 add), one after another. So a CTA has 16 warps, two
-// CTAs an SM, with few samples each in flight (the registers of two
-// 512-thread CTAs allow 64 a thread): more warps hide more of the wait
-// than 8 with more samples each.
+// loops that a shared-memory f32 atomicAdd compiles to on Hopper (the
+// sm_90a SASS has no native shared f32 add: ATOMS.CAST.SPIN in a loop, as
+// the tool's SASS count shows), one after another. So a CTA has 16 warps,
+// two CTAs an SM, with few samples each in flight (the registers of two
+// 512-thread CTAs allow 64 a thread): more warps hide more of the wait than
+// 8 with more samples each.
 constexpr int kChunk = 1024;     // samples listed at a time
 constexpr int kBwdThreads = 512;
 constexpr int kBwdWarps = kBwdThreads / 32;
@@ -152,18 +154,301 @@ size_t bwd_smem(int rows, int W, int slab) {
          kChunk * (sizeof(float2) + sizeof(int)) + kBwdWarps * sizeof(int);
 }
 
+// ---- kernels 9 and 10 at an odd C: the narrow path ----------------------
+//
+// At an odd C the slab is all of C, and a band of a small map is small
+// (12.8 KB for a 32x100 crop of one channel; 132 B for MORAN's 3x11 offset
+// map). One CTA an image would leave most of the card idle (B=64 images
+// on 132 SMs), a thread a sample would wait on its samples' loads in
+// series, and the upsampled offset maps would send thousands of atomics
+// an image to a few dozen addresses. So:
+//   * a cluster of `cluster` CTAs takes one image's band: CTA r of the
+//     cluster takes the r-th share of the image's samples, so no sample is
+//     read twice, and every CTA sums into its own copy of the band. The
+//     plan takes clusters of 2 while there are fewer (image, band) pairs
+//     than SMs, else of 1 (below);
+//   * a thread takes a contiguous run of samples along the rows, loads a
+//     piece of kRun of them (grid and cotangent; kernel 9 one sample at a
+//     time, its four image taps with it) all in flight at once, and adds
+//     their weighted cotangents into registers: a 2x2 window of taps at
+//     (x0, y0). The window carries over while the samples' near tap
+//     stays, slides by a column when x0 steps by one (its left column is
+//     added to the band), and is added whole when the taps jump.
+//     Upsampled maps keep one window over 9-16 samples; a 1:1 warp adds
+//     two taps a sample, not four; zero terms (the taps of a pixel centre,
+//     the border) are not added at all;
+//   * where the band has few elements (`private`: a copy for each thread
+//     fits shared memory, as MORAN's 33 and SPIN's 48 do), each thread adds
+//     into its own copy with plain adds and no atomic, and the CTA sums the
+//     copies after; elsewhere the threads share one copy and add with
+//     shared-memory atomics, each a compare-and-swap loop (above);
+//   * d_img is written whole in the one launch, with no zero pass before
+//     it: each CTA first zeroes its 1/cluster slice of the band in d_img and
+//     arrives on the cluster's barrier, and waits on it only when its own
+//     copy is summed; then it adds the copy to d_img by global reductions
+//     (RED, 16 bytes each where aligned) that no thread waits on. The
+//     barrier's latency hides behind the samples, and no CTA reads
+//     another's shared memory, so none waits for another to finish.
+// A tall map whose band of all rows does not fit takes several bands, a
+// cluster each, each scanning its image's samples for those that meet it;
+// kernel 9's d_grid is written by the band that holds y0, from the CTA
+// whose share holds the sample: one writer.
+//
+// What bounds it (tools/grid_sample_variants.py --shape crnn_tps | moran |
+// spin [--batch N], device time by CUDA graph on an H100 80GB HBM3 at
+// 700.00 W; the breakdown by phase is in PERF.md section 6): every bound
+// is under a microsecond, and an empty kernel of this grid takes 1.3 us.
+// At a near 1:1 warp (CRNN-TPS's crops on the config's initial grid) a
+// thread adds ~2.5 taps a sample to the shared band, each a
+// compare-and-swap loop; those and the samples' loads take most of the
+// ~10-11 us, the zeroing, the barrier and the reductions ~3 us. Measured
+// and not kept: the copies summed through distributed shared memory
+// between two cluster barriers, ~0.5 us slower; a global reduction for
+// every tap and no shared band, ~3 us slower; clusters of 4 CTAs, or CTAs
+// of 256 threads, slower at all three shapes; 8 samples in flight in
+// kernel 10, 6-8 us slower from B=100 up (registers); clusters of 2 at
+// B=140, ~5 us slower than 1 (at B=100 they tie, at B=64 2 is ~1 us
+// faster); 2 or 4 samples in flight in kernel 9, up to 0.6 us slower at
+// B=64 and 1.5-8 us from B=140 up.
+constexpr int kNarrowThreads = 512;
+constexpr int kMaxCluster = 2;
+// samples a thread has in flight (kernel 9 also holds their image taps)
+template <bool kWithGrid>
+constexpr int kRun = kWithGrid ? 1 : 4;
+
+// Adds v to element i of the band: to this thread's own copy (private: the
+// copies interleaved, element-major, so a warp's adds fall in 32 banks) or
+// to the CTA's one copy by a shared-memory atomic.
+static __device__ __forceinline__ void band_add(float* acc, int i, float v,
+                                                bool priv) {
+  if (priv)
+    acc[i * kNarrowThreads + threadIdx.x] += v;
+  else
+    atomicAdd(acc + i, v);
+}
+
+// Adds a column of the window, its taps at (x, y) and (x, yb), to the rows
+// of the band [r0, r0 + nrows) that hold them; zero terms are not added.
+template <int G>
+static __device__ __forceinline__ void add_column(
+    float* acc, const float (&top)[G], const float (&bottom)[G], int x,
+    int y, int yb, int r0, int nrows, int W, int C, int c0, bool priv) {
+  const bool in_top = (unsigned)(y - r0) < (unsigned)nrows;
+  const bool in_bottom = (unsigned)(yb - r0) < (unsigned)nrows;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (in_top && top[g] != 0.f)
+      band_add(acc, ((y - r0) * W + x) * C + c0 + g, top[g], priv);
+    if (in_bottom && bottom[g] != 0.f)
+      band_add(acc, ((yb - r0) * W + x) * C + c0 + g, bottom[g], priv);
+  }
+}
+
+// kC: the channels, 1 or 3 (unrolled, all in one pass), or 0 for any other
+// odd C (one channel a pass over the samples).
+template <typename T, bool kWithGrid, int kC>
+__global__ void __launch_bounds__(kNarrowThreads)
+grid_sample_bwd_narrow_kernel(const float* __restrict__ grid,  // (N, npix, 2)
+                              const T* __restrict__ cot,       // (N, npix, C)
+                              const T* __restrict__ img,       // (N, H, W, C)
+                              float* __restrict__ d_img,       // (N, H, W, C)
+                              float* __restrict__ d_grid,      // (N, npix, 2)
+                              int H, int W, int C_, int npix, int rows,
+                              int priv) {
+  // (rows, W, C) f32: one copy, or kNarrowThreads interleaved copies
+  extern __shared__ __align__(16) float acc[];
+  constexpr int G = kC ? kC : 1;  // channels a pass
+  constexpr int kR = kRun<kWithGrid>;
+  const int C = kC ? kC : C_;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int bands = (H + rows - 1) / rows;
+  const int cid = blockIdx.x / k, band = cid % bands, n = cid / bands;
+  const int r0 = band * rows, nrows = min(rows, H - r0);
+  const int elems = nrows * W * C, tid = threadIdx.x;
+  float* dst = d_img + ((size_t)n * H * W + (size_t)r0 * W) * C;
+  const bool vec = (elems & 3) == 0 &&
+                   (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
+
+  // ---- 1. zero the band (a private copy is this thread's alone)
+  if (priv) {
+    for (int e = 0; e < elems; ++e) acc[e * kNarrowThreads + tid] = 0.f;
+  } else {
+    for (int e = tid; e < elems / 4; e += kNarrowThreads)
+      reinterpret_cast<float4*>(acc)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int e = (elems & ~3) + tid; e < elems; e += kNarrowThreads)
+      acc[e] = 0.f;
+    __syncthreads();
+  }
+  // and this CTA's slice of the band in d_img; the cluster's barrier
+  // orders the zeros before every CTA's adds (step 4), and is waited on
+  // only there, so its latency hides behind the samples
+  {
+    const int per = ((elems + k - 1) / k + 3) & ~3;
+    const int e_lo = min(rank * per, elems), e_hi = min(e_lo + per, elems);
+    if (vec) {
+      for (int e = e_lo / 4 + tid; e < e_hi / 4; e += kNarrowThreads)
+        reinterpret_cast<float4*>(dst)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      for (int e = e_lo + tid; e < e_hi; e += kNarrowThreads) dst[e] = 0.f;
+    }
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+
+  // ---- 2. this CTA's share of the image's samples, a run a thread
+  const int p_lo = (int)((long long)npix * rank / k);
+  const int p_hi = (int)((long long)npix * (rank + 1) / k);
+  const int run = (p_hi - p_lo + kNarrowThreads - 1) / kNarrowThreads;
+  const int p_begin = min(p_lo + tid * run, p_hi);
+  const int p_end = min(p_begin + run, p_hi);
+  const float2* gr = reinterpret_cast<const float2*>(grid) + (size_t)n * npix;
+  const T* co_n = cot + (size_t)n * npix * C;
+  const T* im = kWithGrid ? img + (size_t)n * H * W * C : nullptr;
+
+  for (int c0 = 0; c0 < C; c0 += G) {
+    // the window: taps (y0, x0), (y0, x1), (y1, x0), (y1, x1) at (wx, wy)
+    float a[4][G];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int g = 0; g < G; ++g) a[j][g] = 0.f;
+    int wx = -2, wy = -1;
+    // adds the window's left (col 0) or right (col 1) column to the band
+#define TPK_FLUSH(col)                                                    \
+  add_column<G>(acc, a[col], a[2 + col],                                  \
+                (col) ? min(wx + 1, W - 1) : wx, wy, min(wy + 1, H - 1), \
+                r0, nrows, W, C, c0, priv)
+    for (int p0 = p_begin; p0 < p_end; p0 += kR) {
+      // the piece's loads, all in flight; past the run's end the run's
+      // last sample again, added to nothing
+      float2 gv[kR];
+      float v[kR][G];
+#pragma unroll
+      for (int u = 0; u < kR; ++u) {
+        const int p = min(p0 + u, p_end - 1);
+        gv[u] = gr[p];
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          v[u][g] = load1(co_n + (size_t)p * C, c0 + g);
+      }
+      BilinearTaps t[kR];
+#pragma unroll
+      for (int u = 0; u < kR; ++u)
+        t[u] = bilinear_taps(gv[u].x, gv[u].y, H, W);
+      if constexpr (kWithGrid) {
+        if (c0 == 0) {
+          // d_grid sums over every channel; the band that holds y0 writes
+          // it (the image taps of every sample are loaded, so that the
+          // piece's loads are in flight together)
+          float sx[kR], sy[kR];
+#pragma unroll
+          for (int u = 0; u < kR; ++u) {
+            sx[u] = sy[u] = 0.f;
+            const T* co = co_n + (size_t)min(p0 + u, p_end - 1) * C;
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              const float vc = c < G ? v[u][kC ? c : 0] : load1(co, c);
+              const float av = load1(im + (size_t)t[u].o00 * C, c);
+              const float bv = load1(im + (size_t)t[u].o01 * C, c);
+              const float ev = load1(im + (size_t)t[u].o10 * C, c);
+              const float dv = load1(im + (size_t)t[u].o11 * C, c);
+              const float wx = t[u].wx, wy = t[u].wy;
+              sx[u] += vc * ((1.f - wy) * (bv - av) + wy * (dv - ev));
+              sy[u] += vc * ((1.f - wx) * (ev - av) + wx * (dv - bv));
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kR; ++u) {
+            if (p0 + u >= p_end ||
+                (unsigned)(t[u].y0 - r0) >= (unsigned)nrows)
+              continue;
+            const float gx = (gv[u].x + 1.f) * 0.5f * (float)(W - 1);
+            const float gy = (gv[u].y + 1.f) * 0.5f * (float)(H - 1);
+            const bool in_x = gx >= 0.f && gx <= (float)(W - 1);
+            const bool in_y = gy >= 0.f && gy <= (float)(H - 1);
+            reinterpret_cast<float2*>(d_grid)[(size_t)n * npix + p0 + u] =
+                make_float2(in_x ? sx[u] * (0.5f * (float)(W - 1)) : 0.f,
+                            in_y ? sy[u] * (0.5f * (float)(H - 1)) : 0.f);
+          }
+        }
+      }
+      // ---- the window: carry, slide or add
+#pragma unroll
+      for (int u = 0; u < kR; ++u) {
+        if (p0 + u >= p_end) break;
+        if (t[u].y0 != wy || (t[u].x0 != wx && t[u].x0 != wx + 1)) {
+          TPK_FLUSH(0);
+          TPK_FLUSH(1);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int g = 0; g < G; ++g) a[j][g] = 0.f;
+          wx = t[u].x0;
+          wy = t[u].y0;
+        } else if (t[u].x0 == wx + 1) {
+          TPK_FLUSH(0);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            a[0][g] = a[1][g];
+            a[2][g] = a[3][g];
+            a[1][g] = a[3][g] = 0.f;
+          }
+          wx = t[u].x0;
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          a[0][g] += t[u].w00 * v[u][g];
+          a[1][g] += t[u].w01 * v[u][g];
+          a[2][g] += t[u].w10 * v[u][g];
+          a[3][g] += t[u].w11 * v[u][g];
+        }
+      }
+    }
+    TPK_FLUSH(0);
+    TPK_FLUSH(1);
+#undef TPK_FLUSH
+  }
+
+  // ---- 3. every CTA adds its copy of the band to d_img: reductions
+  // (RED) that no thread waits on; the private copies summed over the CTA
+  // first, a warp an element
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  if (priv) {
+    const int warp = tid >> 5, lane = tid & 31;
+    for (int e = warp; e < elems; e += kNarrowThreads / 32) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNarrowThreads / 32; ++j)
+        s += acc[e * kNarrowThreads + j * 32 + lane];
+      s = warp_sum(s);
+      if (lane == 0) atomicAdd(dst + e, s);
+    }
+  } else if (vec) {
+    for (int e = tid; e < elems / 4; e += kNarrowThreads)
+      atomicAdd(reinterpret_cast<float4*>(dst) + e,
+                reinterpret_cast<const float4*>(acc)[e]);
+  } else {
+    for (int e = tid; e < elems; e += kNarrowThreads)
+      atomicAdd(dst + e, acc[e]);
+  }
+}
+
 struct BwdPlan {
-  int rows, slab, ctas_per_sm, blocks;
+  int rows, slab, ctas_per_sm, blocks, cluster, priv;
   size_t smem;
 };
 
-// The plan on the current device: the widest slab (an even divisor of C;
-// all of an odd C) of which one row fits kMinCtasPerSm CTAs an SM (C
-// unless a row of C is too wide), then as many rows as fit beside it.
+// The plan on the current device. Even C: the widest slab (an even divisor
+// of C) of which one row fits kMinCtasPerSm CTAs an SM (C unless a row of C
+// is too wide), then as many rows as fit beside it; a CTA a band. Odd C
+// (the narrow path): the slab all of C, as many rows as fit, the band
+// private where a copy for each thread fits, and clusters of 1 or 2 CTAs
+// a band: 2 while there are fewer (image, band) pairs than SMs.
 // cudaErrorInvalidValue where none fits or the CTAs overflow a 1-D grid.
 int bwd_plan(int N, int H, int W, int C, BwdPlan& p) {
   if (N < 1 || H < 1 || W < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  int dev, per_sm, per_block, reserved;
+  int dev, per_sm, per_block, reserved, sms;
   TPK_TRY((int)cudaGetDevice(&dev));
   TPK_TRY((int)cudaDeviceGetAttribute(
       &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev));
@@ -171,23 +456,38 @@ int bwd_plan(int N, int H, int W, int C, BwdPlan& p) {
       &per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
   TPK_TRY((int)cudaDeviceGetAttribute(
       &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev));
+  TPK_TRY((int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev));
   const size_t budget =
       (size_t)std::min(per_block, per_sm / kMinCtasPerSm - reserved);
+  long long blocks;
   if (C & 1) {
+    const size_t row = (size_t)W * C * sizeof(float);
     p.slab = C;
-    if (bwd_smem(1, W, C) > budget) return (int)cudaErrorInvalidValue;
+    if (row > budget) return (int)cudaErrorInvalidValue;
+    p.rows = (int)std::min<size_t>(H, budget / row);
+    const int bands = (H + p.rows - 1) / p.rows;
+    p.priv = row * p.rows * kNarrowThreads <= budget;
+    p.smem = row * p.rows * (p.priv ? kNarrowThreads : 1);
+    p.cluster = 1;
+    while (p.cluster < kMaxCluster && (long long)N * bands * p.cluster < sms)
+      p.cluster *= 2;
+    p.ctas_per_sm = std::min(2048 / kNarrowThreads,
+                             per_sm / (int)(p.smem + reserved));
+    blocks = (long long)N * bands * p.cluster;
   } else {
     for (p.slab = C; p.slab >= 2; p.slab -= 2)
       if (C % p.slab == 0 && bwd_smem(1, W, p.slab) <= budget) break;
     if (p.slab < 2) return (int)cudaErrorInvalidValue;
+    p.rows = 1;
+    while (p.rows < H && bwd_smem(p.rows + 1, W, p.slab) <= budget) ++p.rows;
+    p.smem = bwd_smem(p.rows, W, p.slab);
+    p.cluster = 1;
+    p.priv = 0;
+    p.ctas_per_sm = std::min(2048 / kBwdThreads,
+                             per_sm / (int)(p.smem + reserved));
+    blocks = (long long)N * ((H + p.rows - 1) / p.rows) * (C / p.slab);
   }
-  p.rows = 1;
-  while (p.rows < H && bwd_smem(p.rows + 1, W, p.slab) <= budget) ++p.rows;
-  p.smem = bwd_smem(p.rows, W, p.slab);
-  p.ctas_per_sm = std::min(2048 / kBwdThreads,
-                           per_sm / (int)(p.smem + reserved));
-  const long long blocks =
-      (long long)N * ((H + p.rows - 1) / p.rows) * (C / p.slab);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   p.blocks = (int)blocks;
   return 0;
@@ -201,8 +501,8 @@ static __device__ __forceinline__ void add_pair(float* p, float2 v, float w,
   atomicAdd(p + 1 - first, w * (first ? v.x : v.y));
 }
 
-// kNarrow: the path of an odd C (slab = C), one thread a sample.
-template <typename T, bool kWithGrid, bool kNarrow>
+// The path of an even C (channel pairs, listed samples).
+template <typename T, bool kWithGrid>
 __global__ void __launch_bounds__(kBwdThreads, kMinCtasPerSm)
 grid_sample_bwd_kernel(const float* __restrict__ grid,  // (N, npix, 2)
                        const T* __restrict__ cot,       // (N, npix, C)
@@ -236,173 +536,125 @@ grid_sample_bwd_kernel(const float* __restrict__ grid,  // (N, npix, 2)
   const T* im = kWithGrid ? img + (size_t)n * H * W * C : nullptr;
   const int c2_lo = s * pairs, c2_hi = c2_lo + pairs;
   const int first = lane >= 16;
-  if constexpr (kNarrow) {
-    // ---- 2n-3n. the narrow path lists nothing: a thread takes the samples
-    // p = tid, tid + 512, ..., adds the taps of those that meet the band
-    // and, in kernel 9, writes the d_grid of those whose y0 it holds
-    __syncthreads();  // the zeroed accumulator
-    for (int p = tid; p < npix; p += kBwdThreads) {
-      const float2 g = gr[p];
-      const BilinearTaps t = bilinear_taps(g.x, g.y, H, W);
-      const bool in0 = (unsigned)(t.o00 - lo) < (unsigned)span;
-      const bool in1 = (unsigned)(t.o10 - lo) < (unsigned)span;
-      if (!in0 && !in1) continue;
-      const T* co = co_n + (size_t)p * C;
-      float sx = 0.f, sy = 0.f;
-      for (int c = 0; c < C; ++c) {
-        const float v = load1(co, c);
-        if (in0) {
-          atomicAdd(acc + (size_t)(t.o00 - lo) * C + c, t.w00 * v);
-          atomicAdd(acc + (size_t)(t.o01 - lo) * C + c, t.w01 * v);
-        }
-        if (in1) {
-          atomicAdd(acc + (size_t)(t.o10 - lo) * C + c, t.w10 * v);
-          atomicAdd(acc + (size_t)(t.o11 - lo) * C + c, t.w11 * v);
+  for (int p0 = 0; p0 < npix; p0 += kChunk) {
+    const int cnt = min(kChunk, npix - p0);
+    // ---- 2. list the chunk's samples that meet the band
+    float2 gv[kPer];
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = r * kBwdThreads + tid;
+      gv[r] = i < cnt ? gr[p0 + i] : make_float2(0.f, 0.f);
+    }
+    int nsel = 0;
+#pragma unroll
+    for (int r = 0; r < kPer; ++r) {
+      const int i = r * kBwdThreads + tid;
+      bool keep = false;
+      if (i < cnt) {
+        const BilinearTaps t = bilinear_taps(gv[r].x, gv[r].y, H, W);
+        keep = (unsigned)(t.o00 - lo) < (unsigned)span ||
+               (unsigned)(t.o10 - lo) < (unsigned)span;
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, keep);
+      // the last round's counts (and the chunk's list) have been read
+      __syncthreads();
+      if (lane == 0) wcnt[warp] = __popc(m);
+      __syncthreads();
+      int off = nsel;
+      for (int w = 0; w < kBwdWarps; ++w) {
+        off += w < warp ? wcnt[w] : 0;
+        nsel += wcnt[w];
+      }
+      if (keep) {
+        const int k = off + __popc(m & ((1u << lane) - 1u));
+        list[k] = i;
+        lg[k] = gv[r];
+      }
+    }
+    __syncthreads();
+
+    // ---- 3. add the listed samples' contributions, kU a warp
+    for (int k0 = warp * kU; k0 < nsel; k0 += kBwdWarps * kU) {
+      BilinearTaps t[kU];
+      const T* co[kU];
+      bool in0[kU], in1[kU], own[kU];
+      bool any_own = false;
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        // past the list's end: the first sample again, adding nothing
+        const bool valid = k0 + u < nsel;
+        const int k = valid ? k0 + u : k0;
+        t[u] = bilinear_taps(lg[k].x, lg[k].y, H, W);
+        co[u] = co_n + (size_t)(p0 + list[k]) * C;
+        in0[u] = valid && (unsigned)(t[u].o00 - lo) < (unsigned)span;
+        in1[u] = valid && (unsigned)(t[u].o10 - lo) < (unsigned)span;
+        own[u] = kWithGrid && s == 0 && in0[u];
+        any_own |= own[u];
+      }
+      // d_grid sums over every channel: an owner reads them all
+      const int c2_begin = any_own ? 0 : c2_lo;
+      const int c2_end = any_own ? C / 2 : c2_hi;
+      float sx[kU], sy[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) sx[u] = sy[u] = 0.f;
+      for (int c2 = c2_begin + lane; c2 < c2_end; c2 += 32) {
+        float2 v[kU];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) v[u] = load2(co[u], c2);
+        if (c2 >= c2_lo && c2 < c2_hi) {
+          const int cl = 2 * (c2 - c2_lo);
+#pragma unroll
+          for (int u = 0; u < kU; ++u) {
+            if (in0[u]) {
+              add_pair(acc + (size_t)(t[u].o00 - lo) * slab + cl, v[u],
+                       t[u].w00, first);
+              add_pair(acc + (size_t)(t[u].o01 - lo) * slab + cl, v[u],
+                       t[u].w01, first);
+            }
+            if (in1[u]) {
+              add_pair(acc + (size_t)(t[u].o10 - lo) * slab + cl, v[u],
+                       t[u].w10, first);
+              add_pair(acc + (size_t)(t[u].o11 - lo) * slab + cl, v[u],
+                       t[u].w11, first);
+            }
+          }
         }
         if constexpr (kWithGrid) {
-          if (in0) {
-            const float a = load1(im + (size_t)t.o00 * C, c);
-            const float b = load1(im + (size_t)t.o01 * C, c);
-            const float e = load1(im + (size_t)t.o10 * C, c);
-            const float d = load1(im + (size_t)t.o11 * C, c);
-            sx += v * ((1.f - t.wy) * (b - a) + t.wy * (d - e));
-            sy += v * ((1.f - t.wx) * (e - a) + t.wx * (d - b));
+#pragma unroll
+          for (int u = 0; u < kU; ++u) {
+            if (!own[u]) continue;
+            const float2 a = load2(im + (size_t)t[u].o00 * C, c2);
+            const float2 b = load2(im + (size_t)t[u].o01 * C, c2);
+            const float2 e = load2(im + (size_t)t[u].o10 * C, c2);
+            const float2 d = load2(im + (size_t)t[u].o11 * C, c2);
+            const float wy = t[u].wy, wx = t[u].wx;
+            sx[u] += v[u].x * ((1.f - wy) * (b.x - a.x) + wy * (d.x - e.x)) +
+                     v[u].y * ((1.f - wy) * (b.y - a.y) + wy * (d.y - e.y));
+            sy[u] += v[u].x * ((1.f - wx) * (e.x - a.x) + wx * (d.x - b.x)) +
+                     v[u].y * ((1.f - wx) * (e.y - a.y) + wx * (d.y - b.y));
           }
         }
       }
       if constexpr (kWithGrid) {
-        if (in0) {
-          const float gx = (g.x + 1.f) * 0.5f * (float)(W - 1);
-          const float gy = (g.y + 1.f) * 0.5f * (float)(H - 1);
-          const bool in_x = gx >= 0.f && gx <= (float)(W - 1);
-          const bool in_y = gy >= 0.f && gy <= (float)(H - 1);
-          reinterpret_cast<float2*>(d_grid)[(size_t)n * npix + p] =
-              make_float2(in_x ? sx * (0.5f * (float)(W - 1)) : 0.f,
-                          in_y ? sy * (0.5f * (float)(H - 1)) : 0.f);
-        }
-      }
-    }
-  } else {
-    for (int p0 = 0; p0 < npix; p0 += kChunk) {
-      const int cnt = min(kChunk, npix - p0);
-      // ---- 2. list the chunk's samples that meet the band
-      float2 gv[kPer];
-  #pragma unroll
-      for (int r = 0; r < kPer; ++r) {
-        const int i = r * kBwdThreads + tid;
-        gv[r] = i < cnt ? gr[p0 + i] : make_float2(0.f, 0.f);
-      }
-      int nsel = 0;
-  #pragma unroll
-      for (int r = 0; r < kPer; ++r) {
-        const int i = r * kBwdThreads + tid;
-        bool keep = false;
-        if (i < cnt) {
-          const BilinearTaps t = bilinear_taps(gv[r].x, gv[r].y, H, W);
-          keep = (unsigned)(t.o00 - lo) < (unsigned)span ||
-                 (unsigned)(t.o10 - lo) < (unsigned)span;
-        }
-        const unsigned m = __ballot_sync(0xffffffffu, keep);
-        // the last round's counts (and the chunk's list) have been read
-        __syncthreads();
-        if (lane == 0) wcnt[warp] = __popc(m);
-        __syncthreads();
-        int off = nsel;
-        for (int w = 0; w < kBwdWarps; ++w) {
-          off += w < warp ? wcnt[w] : 0;
-          nsel += wcnt[w];
-        }
-        if (keep) {
-          const int k = off + __popc(m & ((1u << lane) - 1u));
-          list[k] = i;
-          lg[k] = gv[r];
-        }
-      }
-      __syncthreads();
-
-      // ---- 3. add the listed samples' contributions, kU a warp
-      for (int k0 = warp * kU; k0 < nsel; k0 += kBwdWarps * kU) {
-        BilinearTaps t[kU];
-        const T* co[kU];
-        bool in0[kU], in1[kU], own[kU];
-        bool any_own = false;
-  #pragma unroll
+#pragma unroll
         for (int u = 0; u < kU; ++u) {
-          // past the list's end: the first sample again, adding nothing
-          const bool valid = k0 + u < nsel;
-          const int k = valid ? k0 + u : k0;
-          t[u] = bilinear_taps(lg[k].x, lg[k].y, H, W);
-          co[u] = co_n + (size_t)(p0 + list[k]) * C;
-          in0[u] = valid && (unsigned)(t[u].o00 - lo) < (unsigned)span;
-          in1[u] = valid && (unsigned)(t[u].o10 - lo) < (unsigned)span;
-          own[u] = kWithGrid && s == 0 && in0[u];
-          any_own |= own[u];
-        }
-        // d_grid sums over every channel: an owner reads them all
-        const int c2_begin = any_own ? 0 : c2_lo;
-        const int c2_end = any_own ? C / 2 : c2_hi;
-        float sx[kU], sy[kU];
-  #pragma unroll
-        for (int u = 0; u < kU; ++u) sx[u] = sy[u] = 0.f;
-        for (int c2 = c2_begin + lane; c2 < c2_end; c2 += 32) {
-          float2 v[kU];
-  #pragma unroll
-          for (int u = 0; u < kU; ++u) v[u] = load2(co[u], c2);
-          if (c2 >= c2_lo && c2 < c2_hi) {
-            const int cl = 2 * (c2 - c2_lo);
-  #pragma unroll
-            for (int u = 0; u < kU; ++u) {
-              if (in0[u]) {
-                add_pair(acc + (size_t)(t[u].o00 - lo) * slab + cl, v[u],
-                         t[u].w00, first);
-                add_pair(acc + (size_t)(t[u].o01 - lo) * slab + cl, v[u],
-                         t[u].w01, first);
-              }
-              if (in1[u]) {
-                add_pair(acc + (size_t)(t[u].o10 - lo) * slab + cl, v[u],
-                         t[u].w10, first);
-                add_pair(acc + (size_t)(t[u].o11 - lo) * slab + cl, v[u],
-                         t[u].w11, first);
-              }
-            }
-          }
-          if constexpr (kWithGrid) {
-  #pragma unroll
-            for (int u = 0; u < kU; ++u) {
-              if (!own[u]) continue;
-              const float2 a = load2(im + (size_t)t[u].o00 * C, c2);
-              const float2 b = load2(im + (size_t)t[u].o01 * C, c2);
-              const float2 e = load2(im + (size_t)t[u].o10 * C, c2);
-              const float2 d = load2(im + (size_t)t[u].o11 * C, c2);
-              const float wy = t[u].wy, wx = t[u].wx;
-              sx[u] += v[u].x * ((1.f - wy) * (b.x - a.x) + wy * (d.x - e.x)) +
-                       v[u].y * ((1.f - wy) * (b.y - a.y) + wy * (d.y - e.y));
-              sy[u] += v[u].x * ((1.f - wx) * (e.x - a.x) + wx * (d.x - b.x)) +
-                       v[u].y * ((1.f - wx) * (e.y - a.y) + wx * (d.y - b.y));
-            }
-          }
-        }
-        if constexpr (kWithGrid) {
-  #pragma unroll
-          for (int u = 0; u < kU; ++u) {
-            if (!own[u]) continue;  // warp-uniform
-            const float dx = warp_sum(sx[u]), dy = warp_sum(sy[u]);
-            if (lane == 0) {
-              const float2 g = lg[k0 + u];
-              const float gx = (g.x + 1.f) * 0.5f * (float)(W - 1);
-              const float gy = (g.y + 1.f) * 0.5f * (float)(H - 1);
-              const bool in_x = gx >= 0.f && gx <= (float)(W - 1);
-              const bool in_y = gy >= 0.f && gy <= (float)(H - 1);
-              reinterpret_cast<float2*>(d_grid)[(size_t)n * npix + p0 +
-                                                list[k0 + u]] =
-                  make_float2(in_x ? dx * (0.5f * (float)(W - 1)) : 0.f,
-                              in_y ? dy * (0.5f * (float)(H - 1)) : 0.f);
-            }
+          if (!own[u]) continue;  // warp-uniform
+          const float dx = warp_sum(sx[u]), dy = warp_sum(sy[u]);
+          if (lane == 0) {
+            const float2 g = lg[k0 + u];
+            const float gx = (g.x + 1.f) * 0.5f * (float)(W - 1);
+            const float gy = (g.y + 1.f) * 0.5f * (float)(H - 1);
+            const bool in_x = gx >= 0.f && gx <= (float)(W - 1);
+            const bool in_y = gy >= 0.f && gy <= (float)(H - 1);
+            reinterpret_cast<float2*>(d_grid)[(size_t)n * npix + p0 +
+                                              list[k0 + u]] =
+                make_float2(in_x ? dx * (0.5f * (float)(W - 1)) : 0.f,
+                            in_y ? dy * (0.5f * (float)(H - 1)) : 0.f);
           }
         }
       }
-      // (the next chunk's first sync orders its list after these reads)
     }
+    // (the next chunk's first sync orders its list after these reads)
   }
 
   // ---- 4. store the band, once
@@ -413,8 +665,6 @@ grid_sample_bwd_kernel(const float* __restrict__ grid,  // (N, npix, 2)
     for (int e = tid; e < elems / 4; e += kBwdThreads)
       reinterpret_cast<float4*>(dst)[e] =
           reinterpret_cast<const float4*>(acc)[e];
-  } else if (kNarrow) {
-    for (int e = tid; e < elems; e += kBwdThreads) dst[e] = acc[e];
   } else {
     for (int e = tid; e < span * pairs; e += kBwdThreads) {
       const int px = e / pairs, c2 = e - px * pairs;
@@ -424,7 +674,8 @@ grid_sample_bwd_kernel(const float* __restrict__ grid,  // (N, npix, 2)
   }
 }
 
-// Writes {rows, slab, CTAs an SM, blocks, shared memory bytes} to plan.
+// Writes {rows, slab, CTAs an SM, blocks, shared memory bytes, cluster,
+// private} to plan.
 void report(const BwdPlan& p, int* plan) {
   if (!plan) return;
   plan[0] = p.rows;
@@ -432,19 +683,60 @@ void report(const BwdPlan& p, int* plan) {
   plan[2] = p.ctas_per_sm;
   plan[3] = p.blocks;
   plan[4] = (int)p.smem;
+  plan[5] = p.cluster;
+  plan[6] = p.priv;
+}
+
+// The narrow path's launch: clusters of p.cluster CTAs along x. A launch
+// the device refuses returns its error; nothing falls back.
+template <typename T, bool kWithGrid>
+int launch_narrow(const float* grid, const void* cot, const void* img,
+                  float* d_img, float* d_grid, int H, int W, int C, int npix,
+                  const BwdPlan& p, cudaStream_t s) {
+  auto kernel = C == 1   ? grid_sample_bwd_narrow_kernel<T, kWithGrid, 1>
+                : C == 3 ? grid_sample_bwd_narrow_kernel<T, kWithGrid, 3>
+                         : grid_sample_bwd_narrow_kernel<T, kWithGrid, 0>;
+  if (p.smem > 48 * 1024 &&
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)p.smem) != cudaSuccess)
+    return (int)cudaGetLastError();
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = p.cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.blocks);
+  cfg.blockDim = dim3(kNarrowThreads);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, grid, (const T*)cot, (const T*)img, d_img, d_grid, H, W,
+      C, npix, p.rows, p.priv);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  return 0;
 }
 
 template <typename T, bool kWithGrid>
-void launch_typed(const float* grid, const void* cot, const void* img,
-                  float* d_img, float* d_grid, int H, int W, int C, int npix,
-                  const BwdPlan& p, cudaStream_t s) {
-  auto kernel = (C & 1) ? grid_sample_bwd_kernel<T, kWithGrid, true>
-                        : grid_sample_bwd_kernel<T, kWithGrid, false>;
+int launch_typed(const float* grid, const void* cot, const void* img,
+                 float* d_img, float* d_grid, int H, int W, int C, int npix,
+                 const BwdPlan& p, cudaStream_t s) {
+  if (C & 1)
+    return launch_narrow<T, kWithGrid>(grid, cot, img, d_img, d_grid, H, W,
+                                       C, npix, p, s);
+  auto kernel = grid_sample_bwd_kernel<T, kWithGrid>;
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)p.smem);
   kernel<<<p.blocks, kBwdThreads, p.smem, s>>>(grid, (const T*)cot,
                                             (const T*)img, d_img, d_grid, H,
                                             W, C, npix, p.rows, p.slab);
+  return 0;
 }
 
 template <bool kWithGrid>
@@ -454,11 +746,11 @@ int launch_bwd(const float* grid, const void* cot, const void* img,
   BwdPlan p;
   TPK_TRY(bwd_plan(N, H, W, C, p));
   if (is_bf16)
-    launch_typed<bf16, kWithGrid>(grid, cot, img, d_img, d_grid, H, W, C,
-                                  npix, p, s);
+    TPK_TRY((launch_typed<bf16, kWithGrid>(grid, cot, img, d_img, d_grid, H,
+                                           W, C, npix, p, s)));
   else
-    launch_typed<float, kWithGrid>(grid, cot, img, d_img, d_grid, H, W, C,
-                                   npix, p, s);
+    TPK_TRY((launch_typed<float, kWithGrid>(grid, cot, img, d_img, d_grid, H,
+                                            W, C, npix, p, s)));
   TPK_CHECK();
   report(p, plan);
   return 0;
@@ -516,7 +808,8 @@ extern "C" int tpk_grid_sample_grad_img(const float* grid, const void* cot,
 
 // The plan of kernels 9 and 10 at this shape on the current device: plan =
 // {rows a band, channels a slab, CTAs an SM, CTAs, shared memory bytes of
-// a CTA}. cudaErrorInvalidValue where none fits.
+// a CTA, CTAs a cluster, 1 where each thread sums into its own copy of the
+// band}. cudaErrorInvalidValue where none fits.
 extern "C" int tpk_grid_sample_plan(int N, int H, int W, int C, int* plan) {
   BwdPlan p;
   TPK_TRY(bwd_plan(N, H, W, C, p));

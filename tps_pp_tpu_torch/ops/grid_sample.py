@@ -30,17 +30,21 @@ taking the plain version on CPU tensors:
 * ``grid_sample_grad``: kernel 9, replaces ``_bwd_fused_kernel``;
 * ``grid_sample_grad_img``: kernel 10, replaces ``_bwd_kernel``.
 
-Kernels 9 and 10 are one template: each CTA owns a band of source rows of
-one image (and a slab of channels where one row of all of them does not
-fit), sums its d_img in shared memory and writes it once, so d_img is
-allocated with ``torch.empty`` and nothing zeroes it; ``grid_sample_plan``
-reports the band plan the kernels take at a shape on the current card, and
-each wrapper keeps the plan of its last launch in ``last_plan``.
-
-Any channel count: an even C loads channel pairs (its image and cotangent
-aligned to two elements), an odd C (the CTC family's one-channel crops,
-RGB crops) takes the kernels' narrow path, one thread a sample, and a
-slab of all of C; a shape that no plan fits raises.
+Kernels 9 and 10 sum d_img in shared memory and write all of it in their
+one launch, so d_img is allocated with ``torch.empty`` and nothing zeroes
+it before. An even C loads channel pairs (its image and cotangent aligned
+to two elements): each CTA owns a band of source rows of one image (and a
+slab of channels where one row of all of them does not fit) and stores it
+once. An odd C (the CTC family's one-channel crops, RGB crops, MORAN's
+and SPIN's offset maps) takes the narrow path: a cluster of CTAs an
+image's band, each CTA a share of the image's samples and its own copy of
+the band, a thread a run of samples whose taps it sums in registers while
+they stay, the band a private copy for each thread where it is small;
+each CTA zeroes its slice of the band in d_img and, after the cluster's
+barrier, adds its copy to d_img by global reductions. ``grid_sample_plan``
+reports the plan the kernels take at a shape on the current card, and
+each wrapper keeps the plan of its last launch in ``last_plan``; a shape
+that no plan fits raises, and so does a launch the card refuses.
 
 ``grid_sample(img, grid, plain=False)`` is the differentiable entry point
 (``GridSampleFunction``): forward through kernel 8, backward through
@@ -188,15 +192,20 @@ def grid_sample_forward(img: torch.Tensor, grid: torch.Tensor
     return _forward_op(img, grid)
 
 
-_PLAN_KEYS = ('rows', 'slab', 'ctas_per_sm', 'blocks', 'smem')
+_PLAN_KEYS = ('rows', 'slab', 'ctas_per_sm', 'blocks', 'smem', 'cluster',
+              'private')
 
 
 def grid_sample_plan(N: int, H: int, W: int, C: int) -> Dict[str, int]:
     """The plan that kernels 9 and 10 take for an (N, H, W, C) image on the
     current CUDA device (``csrc/grid_sample.cu`` ``bwd_plan``; any C, the
     slab all of an odd one): ``rows`` a band, ``slab`` channels a CTA,
-    ``ctas_per_sm`` that fit an SM, ``blocks`` (one an image, band and
-    slab) and the shared memory of a CTA in bytes (``smem``). Raises a ValueError where no plan fits."""
+    ``ctas_per_sm`` that fit an SM, ``blocks`` (CTAs: one an image, band
+    and slab at an even C; ``cluster`` an image and band at an odd C), the
+    shared memory of a CTA in bytes (``smem``), ``cluster`` (CTAs a
+    cluster: 1 at an even C) and ``private`` (1 where each thread of the
+    narrow path sums into its own copy of the band). Raises a ValueError
+    where no plan fits."""
     plan = (ctypes.c_int * len(_PLAN_KEYS))()
     _lib.check(_lib.load().tpk_grid_sample_plan(N, H, W, C, plan),
                'grid_sample_plan')
