@@ -110,7 +110,12 @@ seed):
   on the config's own initial grid (fc2 at zero weights and the fiducial
   bias, as training starts), held there against their plain versions
   too, ATen's backward timed the same way; the label names the grid and
-  the plan's cluster of CTAs an image. Serving at B=512 and B=5 (random
+  the plan's cluster of CTAs an image. Kernel 8's rows by CUDA graph are
+  the serving shape's (``grid_sample_forward_c1_graph``, bf16 B=512) and
+  the training forward's (``grid_sample_forward_c1_f32_graph``, f32
+  B=64), each also read cold (the calls rotated over copies of their
+  inputs that exceed the L2 cache), ``F.grid_sample`` beside them the
+  same ways; the label names kernel 8's plan. Serving at B=512 and B=5 (random
   32x100x1 crops) must launch kernel 8 and no other kernel; its logits'
   argmax must equal the plain path's at every position but where the
   plain top-2 logit gap is below ``TIE_MULT`` times the widest gap at
@@ -214,7 +219,8 @@ seed):
   sample, whose grid is constant), then bf16 steps timed against the
   plain path. The offset samples' kernels on the paths' own inputs are
   recorded (``grid_sample_moran_offsets``, ``grid_sample_spin_offsets``
-  and their ``grid_sample_grad_img_*`` rows), device time by CUDA graph.
+  and their ``grid_sample_grad_img_*`` rows), device time by CUDA graph,
+  kernel 8's also cold.
 
 * text detection, last, which runs no hand-written kernel (in JAX it is
   plain XLA, DCNv2 included): both DBNet configs (``DET_CONFIGS``: R18-FPNC
@@ -458,8 +464,9 @@ The band walk's plan at each stem shape (kernels 11 and 12 in bf16) is
 logged, and the module stem is timed against the fused stem.
 
 For every kernel it reports the time, the plain version's time, the time of
-one PyTorch call that computes the same function where there is one, and
-the bound: the larger of the bytes it must move (each input read once,
+one PyTorch call that computes the same function where there is one (and,
+for kernel 8's graph rows, both on cold inputs: ``cold_ms``,
+``library_cold_ms``, None elsewhere), and the bound: the larger of the bytes it must move (each input read once,
 each output written once) over the card's memory rate and its operations
 over the peak rate of their type (bf16 tensor cores for the matmuls, f32
 for the rest), at this run's shapes and steps.
@@ -472,6 +479,7 @@ Output: progress lines, then one JSON line with the kernels, the card's
 device it exits non-zero and prints no result.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -483,8 +491,9 @@ B_SMALL = 8      # the small batch the fused step is kept for
 SEED = 0
 MESH_SMALL = 6   # the mesh phase's batch that pads (to 8 rows, 2 shards)
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): HBM bytes/s,
-# bf16 tensor-core and f32 FLOP/s
+# bf16 tensor-core and f32 FLOP/s; its L2 cache's bytes
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+L2_BYTES = 50e6
 
 # tolerances of the kernel-vs-plain checks (both sides in bf16 on the card)
 SAMPLER_ATOL = 2e-2
@@ -783,18 +792,24 @@ def graph_ms(fn, calls=20, reps=5):
     """Device milliseconds of one ``fn()`` call: ``calls`` calls captured
     in one CUDA graph and replayed ``reps`` times between CUDA events, so
     that the host's cost of a call (Python, the wrapper's checks, the
-    launch) is not in it, as it is in ``cuda_ms`` where a call is short."""
+    launch) is not in it, as it is in ``cuda_ms`` where a call is short.
+    ``fn`` may be a list of calls, captured in turn (``calls`` at least as
+    many): the same call on copies of its inputs and outputs that together
+    exceed the L2 cache (``cold_copies``) finds them cold."""
     import torch
+    fns = list(fn) if isinstance(fn, (list, tuple)) else [fn]
+    calls = max(calls, len(fns))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
-            fn()
+            for f in fns:
+                f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode='relaxed'):
-        for _ in range(calls):
-            fn()
+        for i in range(calls):
+            fns[i % len(fns)]()
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -806,6 +821,25 @@ def graph_ms(fn, calls=20, reps=5):
     ms = start.elapsed_time(end) / (reps * calls)
     del graph
     return ms
+
+
+def rotated(fn, sets):
+    """Calls of ``fn`` on each argument tuple of ``sets``, for a cold
+    reading by ``graph_ms``: each call's result is held in a slot of its
+    own until the same set's next call, so the calls of one capture write
+    outputs of their own too."""
+    held = [None] * len(sets)
+
+    def call(i):
+        held[i] = fn(*sets[i])
+    return [lambda i=i: call(i) for i in range(len(sets))]
+
+
+def cold_copies(call_bytes):
+    """How many copies of a call's inputs and outputs (``call_bytes``
+    together) exceed twice the L2 cache, so that ``graph_ms`` over them
+    reads each copy cold."""
+    return int(math.ceil(2 * L2_BYTES / call_bytes)) + 1
 
 
 def bound(nbytes, bf16_flops=0, f32_flops=0):
@@ -2431,8 +2465,9 @@ def crnn_tps_phase(dev, name, record):
     from tps_pp_tpu_torch.datasets.pipelines.transforms import Compose
     from tps_pp_tpu_torch.ops.grid_sample import (
         GridSampleFunction, _gather_lerp, grid_sample_forward,
-        grid_sample_grad, grid_sample_grad_img, grid_sample_grad_img_plain,
-        grid_sample_grad_plain, grid_sample_plain, grid_sample_plan)
+        grid_sample_fwd_plan, grid_sample_grad, grid_sample_grad_img,
+        grid_sample_grad_img_plain, grid_sample_grad_plain,
+        grid_sample_plain, grid_sample_plan)
     from tps_pp_tpu_torch.parallel import (build_optimizer_from_run_cfg,
                                            make_train_step)
     from tps_pp_tpu_torch.tools.train import train_cfg_of
@@ -2591,17 +2626,33 @@ def crnn_tps_phase(dev, name, record):
                graph=graph,
                label=f'grid_sample_grad_img C=1 f32 B={bt} (detached grid; '
                      f'{grid_name}; {how}; cluster {plan_t["cluster"]})')
-    # kernel 8's calls are short enough for the host to pace them too:
-    # its device time alone, and the library call's
-    device = {
-        'kernel 8': lambda: grid_sample_forward(x_s, grid),
-        'F.grid_sample': lambda: F.grid_sample(
-            x_s.permute(0, 3, 1, 2), grid.to(bf), mode='bilinear',
-            padding_mode='border', align_corners=True)}
-    log(f'crnn_tps C=1 device ms a call (CUDA graph of 20 calls, 5 replays; '
-        f'B={B} bf16): ' + ', '.join(
-            f'{k} {graph_ms(fn):.4f}' for k, fn in device.items())
-        + f' [{name}]')
+    # kernel 8's calls are short enough for the host to pace them too: its
+    # device time by CUDA graph at the serving batch (bf16) and in the
+    # training forward (f32), warm and on inputs rotated past the L2 cache
+
+    def aten_fwd(x, gr):
+        return F.grid_sample(x.permute(0, 3, 1, 2), gr.to(x.dtype),
+                             mode='bilinear', padding_mode='border',
+                             align_corners=True)
+
+    for sfx, x, gr, e, what in (
+            ('', x_s, grid, e_s, f'bf16 B={B} (CRNN-TPS serving)'),
+            ('_f32', x_t, grid_t, e_t, f'f32 B={bt} (CRNN-TPS training)')):
+        moved = nbytes(x, gr, x)
+        sets = [(x, gr)] + [(x.clone(), gr.clone())
+                            for _ in range(cold_copies(moved) - 1)]
+        record(f'grid_sample_forward_c1{sfx}_graph', src,
+               'tps_pp_tpu/ops/pallas_grid_sample.py:126',
+               lambda x=x, gr=gr: grid_sample_forward(x, gr),
+               lambda x=x, gr=gr: grid_sample_plain(x, gr), e['fwd'], 20,
+               moved, f32_flops=gr.shape[0] * 3200 * 8,
+               fn_lib=lambda x=x, gr=gr: aten_fwd(x, gr), graph=True,
+               cold=(rotated(grid_sample_forward, sets),
+                     rotated(aten_fwd, sets)),
+               label=f'grid_sample_forward C=1 {what}; CUDA graph, warm '
+                     f'and over {len(sets)} copies cold; plan '
+                     f'{grid_sample_fwd_plan(*x.shape, 3200, x.dtype)}')
+        del sets
     del x_s, x_t, grid3, grid0
 
     # ---- serving, B=512 and B=5: kernel 8 only ---------------------------
@@ -2848,9 +2899,14 @@ def crnn_tps_phase(dev, name, record):
            'grid_sample_grad_c1': launches['training']['grid_sample_grad'],
            'grid_sample_grad_img_c1':
                launches['detached grid']['grid_sample_grad_img']}
-    # the rows by CUDA graph time the same launches of the same paths
+    # the rows by CUDA graph time the same launches of the same paths:
+    # kernel 8's the serving path's (bf16) and the training steps' (f32)
     out['grid_sample_grad_c1_graph'] = out['grid_sample_grad_c1']
     out['grid_sample_grad_img_c1_graph'] = out['grid_sample_grad_img_c1']
+    out['grid_sample_forward_c1_graph'] = \
+        launches['serving']['grid_sample_forward']
+    out['grid_sample_forward_c1_f32_graph'] = \
+        launches['training']['grid_sample_forward']
     return out
 
 
@@ -3904,12 +3960,17 @@ def seg_preproc_phase(dev, name, record):
     # ==== the offset samples' rows: the paths' own inputs ================
     src = 'tps_pp_tpu_torch/csrc/grid_sample.cu'
     out = {}
+
+    def aten_fwd(x, gr):
+        return F.grid_sample(x.permute(0, 3, 1, 2), gr.to(x.dtype),
+                             mode='bilinear', padding_mode='border',
+                             align_corners=True)
+
     for kind, key in (('MORAN', 'moran'), ('SPIN', 'spin')):
         serve, train = rows[kind]
         o, og = serve.fwd_args
         ogt, cot = train.bwd_args
         (n, h, w, c), (bt, hs, ws) = o.shape, ogt.shape[:3]
-        ol = o.permute(0, 3, 1, 2)
         e_f = check_close(f'{key} offsets forward',
                           gs.grid_sample_forward(o, og),
                           gs.grid_sample_plain(o, og),
@@ -3919,21 +3980,23 @@ def seg_preproc_phase(dev, name, record):
                           gs.grid_sample_grad_img_plain(ogt, cot, h, w),
                           WARP_BOUNDS['float32']['d_img'])
         zeros = torch.zeros((bt, c, h, w), dtype=cot.dtype, device=dev)
+        # the offset map in, the grid, the upsampled map out
+        npix = og.shape[1] * og.shape[2]
+        moved = nbytes(o, og) + n * npix * c * o.element_size()
+        plan = gs.grid_sample_fwd_plan(n, h, w, c, npix, o.dtype)
+        sets = [(o, og)] + [(o.clone(), og.clone())
+                            for _ in range(cold_copies(moved) - 1)]
         record(f'grid_sample_{key}_offsets', src,
                'tps_pp_tpu/ops/pallas_grid_sample.py:126',
                lambda: gs.grid_sample_forward(o, og),
-               lambda: gs.grid_sample_plain(o, og), e_f, 20,
-               # the offset map in, the grid, the upsampled map out
-               nbytes(o, og) + n * og.shape[1] * og.shape[2] * c *
-               o.element_size(),
-               f32_flops=n * og.shape[1] * og.shape[2] * c * 8,
-               fn_lib=lambda: F.grid_sample(ol, og.to(o.dtype),
-                                            mode='bilinear',
-                                            padding_mode='border',
-                                            align_corners=True),
+               lambda: gs.grid_sample_plain(o, og), e_f, 20, moved,
+               f32_flops=n * npix * c * 8, fn_lib=lambda: aten_fwd(o, og),
+               cold=(rotated(gs.grid_sample_forward, sets),
+                     rotated(aten_fwd, sets)),
                label=f'grid_sample_{key}_offsets: kernel 8, C={c} '
                      f'{o.dtype} B={n}, {h} x {w} -> {og.shape[1]} x '
-                     f'{og.shape[2]}', graph=True)
+                     f'{og.shape[2]}, plan {plan}', graph=True)
+        del sets
         record(f'grid_sample_grad_img_{key}_offsets', src,
                'tps_pp_tpu/ops/pallas_grid_sample.py:178',
                lambda: gs.grid_sample_grad_img(ogt, cot, h, w),
@@ -7339,13 +7402,17 @@ def main():
 
     def record(name_, src, replaces, fn_k, fn_p, err, reps, moved,
                bf16_flops=0, f32_flops=0, fn_lib=None, calls=1,
-               listed=True, label=None, graph=False):
+               listed=True, label=None, graph=False, cold=None):
         """Time the kernel, its plain version and the library call (each
         ``fn`` makes ``calls`` calls) and note the bound of one call; the
         entry goes into the ``kernels`` line when ``listed``, the log line
         in any case (under ``label``, default the name). With ``graph``
         the kernel and the library call are timed as device time
-        (``graph_ms``: calls too short for the host to keep up with)."""
+        (``graph_ms``: calls too short for the host to keep up with), and
+        ``cold``, a pair of lists of calls (the kernel's and the library
+        call's, ``rotated`` over copies of the inputs that exceed the L2
+        cache), adds their device time on cold inputs (``cold_ms``,
+        ``library_cold_ms``; None where not read)."""
         bound_ms, bound_by = bound(moved, bf16_flops, f32_flops)
         timer = graph_ms if graph else (lambda fn: cuda_ms(fn, reps))
         k = dict(
@@ -7354,14 +7421,19 @@ def main():
             ms=timer(fn_k) / calls,
             plain_ms=cuda_ms(fn_p, reps) / calls, bound_ms=bound_ms,
             bound_by=bound_by,
-            library_ms=None if fn_lib is None else timer(fn_lib))
+            library_ms=None if fn_lib is None else timer(fn_lib),
+            cold_ms=None if cold is None else graph_ms(cold[0]),
+            library_cold_ms=None if cold is None else graph_ms(cold[1]))
         if listed:
             kernels.append(k)
         lib = ('none' if k['library_ms'] is None
                else f'{k["library_ms"]:.4f} ms')
+        cold_log = ('' if cold is None else
+                    f'; cold: {k["cold_ms"]:.4f} ms kernel, '
+                    f'{k["library_cold_ms"]:.4f} ms library')
         log(f'{label or name_}: max_abs_err {err:.4g}; {k["ms"]:.4f} ms '
             f'kernel, {k["plain_ms"]:.4f} ms plain, bound {bound_ms:.4f} ms '
-            f'({bound_by}), library {lib} [{name}]')
+            f'({bound_by}), library {lib}{cold_log} [{name}]')
 
     # ---- kernel 1: TPS++ grid + warp at (B, 32, 128, 64) -> (B, 16, 64, 64)
     tps = model.tpsnet

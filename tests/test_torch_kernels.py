@@ -7,6 +7,8 @@ machine with a card and without JAX it runs alone:
 The kernel tests carry ``requires_cuda`` and skip without a card; the
 tolerances are those of ``chip_smoke.py``, at the flagship's widths.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -28,8 +30,8 @@ from tps_pp_tpu_torch.ops.full_decode import (full_decode, full_decode_plain,
 from tps_pp_tpu_torch.ops.gemm import gemm, gemm_plain
 from tps_pp_tpu_torch.ops.grid_sample import (
     GridSampleFunction, grid_sample_forward, grid_sample_grad,
-    grid_sample_grad_img, grid_sample_grad_img_plain, grid_sample_grad_plain,
-    grid_sample_plain, grid_sample_plan)
+    grid_sample_fwd_plan, grid_sample_grad_img, grid_sample_grad_img_plain,
+    grid_sample_grad_plain, grid_sample_plain, grid_sample_plan)
 from tps_pp_tpu_torch.ops.stem import (basic_block_cp, basic_block_cp_plain,
                                       conv3x3_cp, conv3x3_cp_plain,
                                       fused_stem_forward, stem_plan)
@@ -1269,6 +1271,138 @@ def test_grid_sample_offset_upsamples(cuda_device, dtype, map_hw, out_hw,
     _check_warp_grads(cuda_device, dtype, grid.copy(), *map_hw, C)
     plan = grid_sample_plan(64, *map_hw, C)
     assert plan['blocks'] == 64 * plan['cluster'] and plan['private'] == 1
+
+
+def _check_fwd(device, dtype, grid, H, W, C, grid_offset=False, seed=12):
+    """Kernel 8 on a random (N, H, W, C) map at ``grid`` (numpy,
+    (N, Ho, Wo, 2)), with the grid 8 bytes past a 16-byte boundary where
+    ``grid_offset``: the wrapper's output within the plain version's
+    bounds, in one launch; then the C entry point into an output filled
+    with NaN, which must come out equal to the wrapper's (every element
+    written). Returns the plan of the shape."""
+    rng = np.random.default_rng(seed)
+    N, Ho, Wo = grid.shape[:3]
+    img = torch.tensor(rng.uniform(-1, 1, (N, H, W, C)), dtype=dtype,
+                       device=device)
+    flat = torch.empty(grid.size + 2, device=device)
+    g = flat[2:] if grid_offset else flat[:grid.size]
+    g.copy_(torch.from_numpy(grid.reshape(-1)).float())
+    g = g.view(N, Ho, Wo, 2)
+    assert (g.data_ptr() % 16 == 8) == grid_offset
+    n0 = grid_sample_forward.launches
+    out = grid_sample_forward(img, g)
+    torch.cuda.synchronize()
+    assert grid_sample_forward.launches == n0 + 1
+    atol, rtol = WARP_BOUNDS[dtype]['fwd']
+    torch.testing.assert_close(out.float(),
+                               grid_sample_plain(img, g).float(),
+                               atol=atol, rtol=rtol)
+    nan = torch.full_like(out, float('nan'))
+    rc = _lib.load().tpk_grid_sample_fwd(
+        img.data_ptr(), g.data_ptr(), nan.data_ptr(), N, H, W, C, Ho * Wo,
+        int(dtype == BF), _lib.stream_ptr(device))
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert not bool(torch.isnan(nan).any())
+    assert torch.equal(nan, out)
+    return grid_sample_fwd_plan(N, H, W, C, Ho * Wo, dtype)
+
+
+def _expected_fwd_plan(device, N, P):
+    """The narrow forward's run, CTAs an image and warps a CTA by the rule
+    of ``csrc/grid_sample.cu`` ``fwd_plan``: 8 samples a lane, halved (to
+    2) while the warps would not fill 16 an SM; at most 16 warps a CTA,
+    an image's runs split evenly."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+
+    def warp_runs(run):
+        return -(-P // (32 * run))
+    run = 8
+    while run > 2 and N * warp_runs(run) < sms * 16:
+        run //= 2
+    ctas = -(-warp_runs(run) // 16)
+    return run, ctas, -(-warp_runs(run) // ctas)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('C', [1, 3])
+@pytest.mark.parametrize('case', ['p1', 'p91', 'p3201', 'cta_less_one',
+                                  'grid_offset', 'fill_below',
+                                  'fill_at'])
+def test_grid_sample_fwd_narrow_ragged(cuda_device, dtype, C, case):
+    """Kernel 8's narrow path where the samples do not make whole warps'
+    runs or whole CTAs, on 32 x 100 maps: one sample an image (``p1``),
+    7 x 13 (``p91``), 3,201 (one past CRNN-TPS's 3,200: its images' outputs
+    off 16-byte alignment), one fewer than a CTA's most samples at 8 a
+    lane (``cta_less_one``: 16 warps of 256, at a batch that keeps 8);
+    3,200 with the grid 8 bytes off a 16-byte boundary (``grid_offset``);
+    and the batches on either side of the run rule at 3,200 samples
+    (``fill_below`` one image short of 16 warps an SM at 8 a lane, which
+    halves the run; ``fill_at`` enough). The plan: the map staged at
+    C = 1 (12.8 KB in f32), read where it lies at C = 3 (51.2 KB as RGBx
+    f32 pixels), and the rule of ``_expected_fwd_plan``."""
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    fill = -(-sms * 16 // 13)         # images of 13 warps at 8 a lane
+    N, Ho, Wo = dict(p1=(3, 1, 1), p91=(3, 7, 13), p3201=(3, 1, 3201),
+                     cta_less_one=(sms, 1, 4095), grid_offset=(3, 32, 100),
+                     fill_below=(fill - 1, 32, 100),
+                     fill_at=(fill, 32, 100))[case]
+    grid = np.random.default_rng(13).uniform(-1.2, 1.2, (N, Ho, Wo, 2))
+    plan = _check_fwd(cuda_device, dtype, grid, 32, 100, C,
+                      grid_offset=case == 'grid_offset')
+    run, ctas, warps = _expected_fwd_plan(cuda_device, N, Ho * Wo)
+    assert plan['narrow'] == 1
+    assert plan['taps_shared'] == (C == 1)
+    assert (plan['run'], plan['blocks'], plan['threads']) == (
+        run, N * ctas, 32 * warps)
+    if case == 'cta_less_one':
+        assert (run, ctas, warps) == (8, 1, 16)
+    if case.startswith('fill'):
+        assert run == (8 if case == 'fill_at' else 4)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('C', [5, 7])
+def test_grid_sample_fwd_other_odd_channels(cuda_device, dtype, C):
+    """Kernel 8 at an odd C other than 1 and 3 (a channel at a time), at
+    whole runs (32 x 100 samples) and ragged ones (7 x 13), on a 16 x 50
+    map (staged) and a 32 x 100 one (32 KB and more: read where it
+    lies)."""
+    rng = np.random.default_rng(14)
+    for (H, W), (Ho, Wo) in itertools.product(((16, 50), (32, 100)),
+                                               ((32, 100), (7, 13))):
+        grid = rng.uniform(-1.2, 1.2, (2, Ho, Wo, 2))
+        plan = _check_fwd(cuda_device, dtype, grid, H, W, C)
+        assert plan['narrow'] == 1 and plan['taps_shared'] == (H == 16)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize('dtype,shape,shared', [
+    (torch.float32, (2, 300, 100, 1), False),
+    (torch.bfloat16, (2, 300, 100, 1), False),
+    (torch.bfloat16, (1, 600, 600, 3), False),
+    (torch.float32, (2, 32, 100, 1), True),
+    (torch.bfloat16, (2, 3, 11, 1), True)])
+def test_grid_sample_fwd_plan_taps(cuda_device, dtype, shape, shared):
+    """The plan's branch by the map's size: a map whose window exceeds the
+    shared memory kept for it (300 x 100 x 1, 600 x 600 x 3) is read where
+    it lies, a 32 x 100 crop and MORAN's 3 x 11 offsets (a map of 66 bytes,
+    off 16-byte alignment from the second image on) are staged; each
+    against the plain version on 32 x 100 samples. An even C takes the
+    even path's plan, and a shape no grid holds raises."""
+    N, H, W, C = shape
+    grid = np.random.default_rng(15).uniform(-1.1, 1.1, (N, 32, 100, 2))
+    plan = _check_fwd(cuda_device, dtype, grid, H, W, C)
+    assert plan['taps_shared'] == shared
+    elt = torch.tensor([], dtype=dtype).element_size()
+    assert (plan['smem'] > H * W * C * elt) == shared
+    even = grid_sample_fwd_plan(4, 32, 128, 64, 1024)
+    assert even['narrow'] == 0 and even['blocks'] == 4 * 1024 // 64
+    with pytest.raises(ValueError, match='outside the kernel'):
+        grid_sample_fwd_plan(70000, 32, 100, 1, 3200)
 
 
 @pytest.mark.requires_cuda

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time of kernels 9 and 10 (the training warp's VJPs,
-``tps_pp_tpu_torch/csrc/grid_sample.cu``) goes, on one CUDA GPU.
+"""Where the time of the training warp's kernels goes
+(``tps_pp_tpu_torch/csrc/grid_sample.cu``), on one CUDA GPU: kernels 9 and
+10 (the VJPs) at the backward shapes, kernel 8's narrow (odd-C) forward at
+the forward shapes.
 
 Builds ``csrc/grid_sample.cu`` as it is and in variants made by text
-substitution, each into its own shared library, and times the two
-backward kernels of each at one shape (``--shape``, its batch changed by
-``--batch``), in turns:
+substitution, each into its own shared library, and times the kernels of
+each at one shape (``--shape``, its batch changed by ``--batch``), in
+turns. The backward shapes:
 
 * ``flagship``: N=256, 16x64 samples of a 32x128x64 bf16 map (the even-C
   path), on a uniform [-1.3, 1.3]^2 grid and on TPS++'s own [0, 1]^2 grid;
@@ -17,7 +19,7 @@ backward kernels of each at one shape (``--shape``, its batch changed by
   maps sampled up to 32x100 / 32x128 on the identity grid (the narrow
   path's private band).
 
-The variants (``--variants``, comma-separated; default all of the
+Their variants (``--variants``, comma-separated; default all of the
 shape's):
 
 * ``kernel``: the source as it is (checked against the plain version);
@@ -42,10 +44,43 @@ calls captured, replayed 5 times between CUDA events), beside ATen's
 size. First it prints, for each backward kernel of the source as it is,
 the atomic and reduction instructions of its ``sm_90a`` SASS by opcode
 (``cuobjdump -sass``): what a shared-memory f32 ``atomicAdd`` compiles
-to. Run from the repository root:
+to.
+
+The forward shapes (kernel 8 at an odd C; ``--shape`` takes several,
+comma-separated, built once):
+
+* ``crnn_tps_serve``: N=512, 32x100 samples of a 32x100x1 bf16 crop
+  (CRNN-TPS's serving warp) on the config's initial grid and on a uniform
+  [-1.3, 1.3]^2 grid; ``crnn_tps_fwd32``: the same at N=64 in f32 (the
+  training forward), on the initial grid;
+* ``moran_serve``, ``spin_serve``: N=512 bf16, MORAN's 3x11x1 and SPIN's
+  2x8x3 offset maps sampled up to 32x100 / 32x128 on the identity grid;
+  ``moran_fwd32``, ``spin_fwd32``: the same at N=64 in f32.
+
+Their variants:
+
+* ``kernel``: the source as it is, checked against the plain version
+  (and, with ``--parent``, its largest difference from the parent's);
+* ``empty``: the narrow kernel returns at once (the launch of its grid);
+* ``no_gather``: no tap read and no map staged: the grid read, the
+  arithmetic and the store (the memory floor);
+* ``global_taps``: every map read where it lies (the plan for a map too
+  large for shared memory);
+* ``run_4``, ``run_16``: at most 4 (16) samples a lane, not 8;
+* ``parent`` (``--parent DIR``).
+
+Each is timed by CUDA graph warm (20 calls on the same inputs, which the
+50 MB L2 holds after the first) and cold (the calls rotated over copies
+of the inputs and outputs that together exceed twice the L2), beside
+``F.grid_sample`` timed the same ways (its grid cast to the image's dtype
+inside the call, as ``chip_smoke.py`` times it), and the bound: the
+image, the grid and the output once at 3.35 TB/s. Run from the
+repository root:
 
     python3 tools/grid_sample_variants.py [--shape crnn_tps] [--batch 140]
         [--parent DIR] [--variants kernel,no_atomics]
+    python3 tools/grid_sample_variants.py \
+        --shape crnn_tps_serve,moran_serve,spin_serve [--parent DIR]
 """
 import argparse
 import ctypes
@@ -109,6 +144,35 @@ NARROW_VARIANTS = {
                    'p.cluster < sms', 'p.cluster < kMaxCluster')],
 }
 PLAN_INTS = 8      # room for any tree's plan (5 ints before the cluster)
+# kernel 8's narrow forward: (N, H, W, C, Ho, Wo, element type, grids)
+FWD_SHAPES = {
+    'crnn_tps_serve': (512, 32, 100, 1, 32, 100, torch.bfloat16,
+                       ('initial', 'uniform')),
+    'moran_serve': (512, 3, 11, 1, 32, 100, torch.bfloat16, ('identity',)),
+    'spin_serve': (512, 2, 8, 3, 32, 128, torch.bfloat16, ('identity',)),
+    'crnn_tps_fwd32': (64, 32, 100, 1, 32, 100, torch.float32, ('initial',)),
+    'moran_fwd32': (64, 3, 11, 1, 32, 100, torch.float32, ('identity',)),
+    'spin_fwd32': (64, 2, 8, 3, 32, 128, torch.float32, ('identity',)),
+}
+FWD_VARIANTS = {
+    'empty': [('  extern __shared__ __align__(16) unsigned char fwd_smem[];',
+               '  extern __shared__ __align__(16) unsigned char fwd_smem[];\n'
+               '  if (run > 0) return;')],
+    'no_gather': [('''  return t.w00 * load1(m + (size_t)t.o00 * C, c) +
+         t.w01 * load1(m + (size_t)t.o01 * C, c) +
+         t.w10 * load1(m + (size_t)t.o10 * C, c) +
+         t.w11 * load1(m + (size_t)t.o11 * C, c);''',
+                   '  return t.w00 + t.w01 * t.wx + t.w10 * t.wy + t.w11 '
+                   '+ c;'),
+                  ('p.taps_shared = staged <= (size_t)kMapSmemMax;',
+                   'p.taps_shared = 0;')],
+    'global_taps': [('p.taps_shared = staged <= (size_t)kMapSmemMax;',
+                     'p.taps_shared = 0;')],
+    'run_4': [('constexpr int kFwdMaxRun = 8;',
+               'constexpr int kFwdMaxRun = 4;')],
+    'run_16': [('constexpr int kFwdMaxRun = 8;',
+                'constexpr int kFwdMaxRun = 16;')],
+}
 
 
 def build(sources, out_dir):
@@ -135,15 +199,19 @@ def build(sources, out_dir):
         if proc.returncode:
             raise RuntimeError(f'nvcc {name}: {log[-3000:]}')
         libs[name] = ctypes.CDLL(so)
-        for fn in ('tpk_grid_sample_grad', 'tpk_grid_sample_grad_img'):
-            getattr(libs[name], fn).argtypes = _SIGNATURES[fn]
-            getattr(libs[name], fn).restype = ctypes.c_int
+        for fn in ('tpk_grid_sample_grad', 'tpk_grid_sample_grad_img',
+                   'tpk_grid_sample_fwd', 'tpk_grid_sample_fwd_plan'):
+            if hasattr(libs[name], fn):     # a parent may lack the plan
+                getattr(libs[name], fn).argtypes = _SIGNATURES[fn]
+                getattr(libs[name], fn).restype = ctypes.c_int
     return libs
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument('--shape', choices=sorted(SHAPES), default='flagship')
+    ap.add_argument('--shape', default='flagship',
+                    help=f'one of {sorted(SHAPES)}, or forward shapes of '
+                    f'{sorted(FWD_SHAPES)}, comma-separated')
     ap.add_argument('--batch', type=int, help="the shape's N instead")
     ap.add_argument('--parent', help='an older checkout to time beside')
     ap.add_argument('--variants', help='comma-separated variants to build '
@@ -153,6 +221,11 @@ def main():
         sys.exit('grid_sample_variants: no CUDA device')
     with open(os.path.join(CSRC, 'grid_sample.cu')) as f:
         src = f.read()
+    fwd = args.shape.split(',')
+    if all(k in FWD_SHAPES for k in fwd):
+        return main_fwd(args, src, fwd)
+    if args.shape not in SHAPES:
+        sys.exit(f'grid_sample_variants: unknown shape {args.shape}')
     sources = {'kernel': (src, CSRC)}
     sources.update(variant_sources(src, args.shape, args.variants))
     if args.parent:
@@ -168,13 +241,33 @@ def main():
         run(libs, shape, args.shape)
 
 
-def variant_sources(src, shape, variants=None):
+def main_fwd(args, src, shapes):
+    sources = {'kernel': (src, CSRC)}
+    sources.update(variant_sources(src, None, args.variants, FWD_VARIANTS))
+    if args.parent:
+        pdir = os.path.join(args.parent, 'tps_pp_tpu_torch', 'csrc')
+        with open(os.path.join(pdir, 'grid_sample.cu')) as f:
+            sources['parent'] = (f.read(), pdir)
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build(sources, tmp)
+        for name in shapes:
+            shape = FWD_SHAPES[name]
+            if args.batch:
+                shape = (args.batch,) + shape[1:]
+            run_fwd(libs, shape, name)
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+
+
+def variant_sources(src, shape, variants=None, known=None):
     """{name: (text, include dir)} of the variants named in ``variants``
     (comma-separated; 'kernel' is always built), or of every variant of
-    ``shape``."""
-    known = dict(VARIANTS)
-    if SHAPES[shape][3] % 2:
-        known.update(NARROW_VARIANTS)
+    ``shape`` (of ``known`` where given)."""
+    if known is None:
+        known = dict(VARIANTS)
+        if SHAPES[shape][3] % 2:
+            known.update(NARROW_VARIANTS)
     names = variants.split(',') if variants else list(known)
     out = {}
     for name in names:
@@ -236,6 +329,97 @@ def make_grid(kind, g, N, Ho, Wo, dev):
     with torch.no_grad():
         return pre.grid(torch.zeros((N,) + tuple(kw['img_size']) + (
             kw['num_img_channel'],), device=dev)).contiguous()
+
+
+def run_fwd(libs, shape, shape_name):
+    """Kernel 8 of every library at one forward shape: checked against
+    the plain version (and the parent's output), then timed warm and cold
+    by CUDA graph beside F.grid_sample, in two rounds of opposite order."""
+    import torch.nn.functional as F
+    from chip_smoke import PEAK_BYTES, cold_copies, graph_ms
+    from tps_pp_tpu_torch.ops.grid_sample import grid_sample_plain
+    N, H, W, C, HO, WO, dtype, grid_kinds = shape
+    dev = torch.device('cuda')
+    g = np.random.default_rng(0)
+    elt = torch.tensor([], dtype=dtype).element_size()
+    call_bytes = N * (H * W * C * elt + HO * WO * 8 + HO * WO * C * elt)
+    copies = cold_copies(call_bytes)
+    bound_ms = call_bytes / PEAK_BYTES * 1e3
+    P = ctypes.c_void_p
+    is_bf16 = int(dtype == torch.bfloat16)
+    plans = {}
+    for name, lib in libs.items():
+        if hasattr(lib, 'tpk_grid_sample_fwd_plan'):
+            plan = (ctypes.c_int * 8)()
+            rc = lib.tpk_grid_sample_fwd_plan(N, H, W, C, HO * WO, is_bf16,
+                                              plan)
+            plans[name] = list(plan) if rc == 0 else f'error {rc}'
+    print(f'{shape_name}: N={N}, {H}x{W}x{C} {dtype} -> {HO}x{WO}; plans '
+          f'{plans}; bound {bound_ms:.4f} ms ({call_bytes / 1e6:.3f} MB '
+          f'a call); cold: {copies} copies', flush=True)
+
+    def call(name, img, grid, out):
+        rc = libs[name].tpk_grid_sample_fwd(
+            P(img.data_ptr()), P(grid.data_ptr()), P(out.data_ptr()), N, H,
+            W, C, HO * WO, is_bf16,
+            P(torch.cuda.current_stream().cuda_stream))
+        if rc:
+            raise RuntimeError(f'{name} kernel 8: CUDA error {rc}')
+
+    for gname in grid_kinds:
+        grid = make_grid(gname, g, N, HO, WO, dev)
+        sets = []
+        for i in range(copies):
+            img = torch.tensor(g.uniform(-1, 1, (N, H, W, C)), dtype=dtype,
+                               device=dev)
+            sets.append((img, grid.clone() if i else grid,
+                         torch.empty((N, HO, WO, C), dtype=dtype,
+                                     device=dev)))
+        img, grid, out = sets[0]
+        want = grid_sample_plain(img, grid).float()
+        got = {}
+        for name in libs:
+            if name in ('empty', 'no_gather'):
+                continue
+            out.fill_(float('nan'))
+            call(name, img, grid, out)
+            torch.cuda.synchronize()
+            got[name] = out.float().clone()
+            err = float((got[name] - want).abs().max())
+            bad = (got[name] - want).abs() > (2e-2 if is_bf16 else 1e-5)
+            if bool(bad.any()) or bool(torch.isnan(got[name]).any()):
+                raise AssertionError(f'{shape_name} {gname}: {name} max '
+                                     f'abs error {err}')
+            print(f'{shape_name} {gname} grid: {name} max abs error '
+                  f'against the plain version {err:.3g}', flush=True)
+        for name in got if 'parent' in got else ():
+            diff = float((got[name] - got['parent']).abs().max())
+            same = bool(torch.equal(got[name], got['parent']))
+            print(f'{shape_name} {gname} grid: {name} largest difference '
+                  f'from the parent {diff:.3g} (equal: {same})', flush=True)
+
+        def lib_call(im, gr):
+            return F.grid_sample(im.permute(0, 3, 1, 2), gr.to(dtype),
+                                 mode='bilinear', padding_mode='border',
+                                 align_corners=True)
+
+        for rnd in range(2):
+            order = list(libs) if rnd == 0 else list(libs)[::-1]
+            row = {}
+            for name in order:
+                row[name] = (round(graph_ms(lambda n=name: call(n, *sets[0])),
+                                   5),
+                             round(graph_ms([lambda n=name, s=s: call(n, *s)
+                                             for s in sets]), 5))
+            row['F.grid_sample'] = (
+                round(graph_ms(lambda: lib_call(*sets[0][:2])), 5),
+                round(graph_ms([lambda s=s: lib_call(*s[:2])
+                                for s in sets]), 5))
+            print(f'{shape_name} B={N}, {gname} grid, round {rnd + 1} (ms by '
+                  f'CUDA graph, (warm, cold); bound {bound_ms:.4f}): {row}',
+                  flush=True)
+        del sets, img, grid, out
+        torch.cuda.empty_cache()
 
 
 def run(libs, shape, shape_name):

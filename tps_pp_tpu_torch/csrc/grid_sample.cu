@@ -44,13 +44,14 @@
 // TPS-STN warps, C = 1; RGB crops, C = 3; MORAN's 3x11 and SPIN's 2x8
 // offset maps sampled up to the crop) cannot be loaded as pairs, and a
 // warp over one channel would leave 31 of its lanes idle. There each
-// kernel takes its narrow path: the forward one thread a sample, the
-// backward a cluster of CTAs an image, a run of samples a thread (below,
-// "the narrow path"). At these shapes every bound is under the launch
-// latency, so the narrow backward is built to leave nothing waiting in
-// series. At CRNN-TPS's serving shape (N=512 bf16) the forward moves ~20
-// MB, a few microseconds at the memory rate: it is bound by its launch.
+// kernel takes its narrow path: the forward a lane a sample, a warp a run
+// of adjacent samples (below), the backward a cluster of CTAs an image, a
+// run of samples a thread (below, "the narrow path"). At these shapes the
+// backward's bounds are under the launch latency, so the narrow backward
+// is built to leave nothing waiting in series. At CRNN-TPS's serving shape
+// (N=512 bf16) the forward moves ~20 MB, 5.9 us at the memory rate.
 #include <algorithm>
+#include <cstring>
 
 #include <cooperative_groups.h>
 
@@ -63,29 +64,6 @@ namespace cg = cooperative_groups;
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kPixPerBlock = 64;
-
-// The forward's narrow path (odd C): one thread a sample.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-grid_sample_fwd_narrow_kernel(const T* __restrict__ img,      // (N, H, W, C)
-                              const float* __restrict__ grid,  // (N, npix, 2)
-                              T* __restrict__ out,             // (N, npix, C)
-                              int H, int W, int C, int npix) {
-  const int n = blockIdx.y, p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= npix) return;
-  const size_t np = (size_t)n * npix + p;
-  const float2 g = reinterpret_cast<const float2*>(grid)[np];
-  const BilinearTaps t = bilinear_taps(g.x, g.y, H, W);
-  const T* im = img + (size_t)n * H * W * C;
-  const T* r00 = im + (size_t)t.o00 * C;
-  const T* r01 = im + (size_t)t.o01 * C;
-  const T* r10 = im + (size_t)t.o10 * C;
-  const T* r11 = im + (size_t)t.o11 * C;
-  for (int c = 0; c < C; ++c)
-    store1(out + np * C, c,
-           t.w00 * load1(r00, c) + t.w01 * load1(r01, c) +
-               t.w10 * load1(r10, c) + t.w11 * load1(r11, c));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -103,6 +81,329 @@ grid_sample_fwd_kernel(const T* __restrict__ img,      // (N, H, W, C)
     warp_sample_pixel(im, bilinear_taps(g.x, g.y, H, W), out + np * C, C,
                       lane);
   }
+}
+
+// ---- kernel 8 at an odd C: the narrow forward ---------------------------
+//
+// At an odd C a pixel's channels cannot be loaded as pairs, so the lanes of
+// a warp span samples, not channels, and gather a channel at a time. The
+// bytes are mostly the grid, read once (8 bytes a sample against 2-6 of
+// output and a map of a few KB an image: 13.1 of CRNN-TPS's 19.7 MB at
+// B=512 bf16), so the design keeps as much of it in flight as an SM holds
+// and waits on no tap in series with it:
+//   * a warp takes a run of 32 x `run` adjacent samples as pairs, lane l
+//     the pairs l, l + 32, ...: each of its run / 2 grid loads is one
+//     16-byte word a lane, 512 contiguous bytes a warp (ld.global.cs: read
+//     once), all issued before the first tap. `run` is kFwdMaxRun, halved
+//     (to 2) while the warps would not fill kFillWarps an SM (small
+//     batches);
+//   * a CTA takes up to kFwdMaxWarps of an image's runs (a larger image is
+//     split evenly over CTAs, so that none is left mostly idle at the
+//     image's end) and stages the image's map in shared memory where it
+//     fits kMapSmemMax (`taps_shared`), while the grid loads are in
+//     flight: the 16-byte window that holds it, or at C = 3 its pixels as
+//     RGBx f32, a tap's three channels one 16-byte load and no
+//     conversion. As neighbouring lanes hold neighbouring pairs, a warp's
+//     taps fall in distinct banks or on one word (a C = 1 map in f32 would
+//     put them two to a bank: measured slower). A larger map is read where
+//     it lies, through L1;
+//   * at C = 1 a pair's two outputs go out as one store, a warp's as whole
+//     lines; at C = 3 through the warp's tile of shared memory, laid at the
+//     same offset modulo 16 as their place in `out`, as whole 16-byte words
+//     (the run's first and last few elements one by one); any other odd C
+//     a channel at a time.
+// Where an image's first sample is odd (an odd npix) or a tensor is not
+// aligned, a pair is loaded and stored a sample at a time. Each sample's
+// arithmetic is bilinear_taps and tap_sum, the expression of the kernel
+// this one replaced, so the outputs are bit-equal to that kernel's.
+// Measured and not kept (tools/grid_sample_variants.py; PERF.md section
+// 6): a thread 8 adjacent samples, whose lanes' taps fell 4 to a bank; a
+// lane every 32nd sample, 8-byte loads and every output through shared
+// memory; a persistent grid of 2 CTAs an SM over tiles of an image,
+// their grid and map brought into a ring of 2-3 shared-memory stages by
+// 1-D bulk copies (cp.async.bulk on an mbarrier), the outputs written back
+// by a bulk copy: faster warm at all three serving shapes, slower cold at
+// CRNN-TPS's and MORAN's and on every f32 training forward.
+constexpr int kFwdMaxRun = 8;      // samples a lane, even
+constexpr int kFwdMaxWarps = 16;   // a CTA's
+constexpr int kFillWarps = 16;     // warps an SM that the runs are cut to fill
+constexpr int kMapSmemMax = 24 * 1024;  // bytes of a staged map's window
+
+// The bilinear sum of channel c at t's taps of a map of C-channel pixels,
+// in f32.
+template <typename T>
+static __device__ __forceinline__ float tap_sum(const T* m,
+                                                const BilinearTaps& t, int C,
+                                                int c) {
+  return t.w00 * load1(m + (size_t)t.o00 * C, c) +
+         t.w01 * load1(m + (size_t)t.o01 * C, c) +
+         t.w10 * load1(m + (size_t)t.o10 * C, c) +
+         t.w11 * load1(m + (size_t)t.o11 * C, c);
+}
+
+// The same sums, all three channels, over a map staged as RGBx f32 pixels.
+// The values are the ones load1 gives, so the sums are bit-equal to
+// tap_sum's.
+static __device__ __forceinline__ float3 tap_sum(const float4* m,
+                                                 const BilinearTaps& t) {
+  const float4 a = m[t.o00], b = m[t.o01], c = m[t.o10], d = m[t.o11];
+  return make_float3(t.w00 * a.x + t.w01 * b.x + t.w10 * c.x + t.w11 * d.x,
+                     t.w00 * a.y + t.w01 * b.y + t.w10 * c.y + t.w11 * d.y,
+                     t.w00 * a.z + t.w01 * b.z + t.w10 * c.z + t.w11 * d.z);
+}
+template <typename T>
+static __device__ __forceinline__ float3 tap_sum3(const T* m,
+                                                  const BilinearTaps& t) {
+  return make_float3(tap_sum(m, t, 3, 0), tap_sum(m, t, 3, 1),
+                     tap_sum(m, t, 3, 2));
+}
+
+// The 16-byte aligned window that holds the bytes [p, p + bytes): its
+// first word, its words and p's offset into it. A 16-byte word that holds
+// a byte of a tensor lies in that byte's page, so reading the window
+// cannot fault.
+struct Window16 {
+  const uint4* lo;
+  int words, skew;
+};
+static __device__ __forceinline__ Window16 window16(const void* p,
+                                                    size_t bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t lo = a & ~(uintptr_t)15;
+  const uintptr_t hi = (a + bytes + 15) & ~(uintptr_t)15;
+  return {reinterpret_cast<const uint4*>(lo), (int)((hi - lo) >> 4),
+          (int)(a - lo)};
+}
+// its bytes at most
+static __host__ __device__ size_t window16_bytes(size_t bytes) {
+  return (bytes + 15) / 16 * 16 + 16;
+}
+// the bytes of an H x W x C map of elt-byte elements as the narrow forward
+// stages it: RGBx f32 pixels (C = 3) or its window
+static __host__ __device__ size_t staged_bytes(int H, int W, int C,
+                                               int elt) {
+  return C == 3 ? (size_t)H * W * 16
+                : window16_bytes((size_t)H * W * C * elt);
+}
+// the bytes of a warp's output tile: its samples' outputs and a skew
+static __host__ __device__ int tile_bytes(int run, int C, int elt) {
+  return (32 * run * C * elt + 31) & ~15;
+}
+
+// Copies `bytes` of outputs from the warp's tile (at the same offset modulo
+// 16 as dst) to dst: whole 16-byte words a lane at a time, the elements
+// before the first and after the last word one by one.
+template <typename T>
+static __device__ __forceinline__ void store_tile(T* dst, const T* tile,
+                                                  int bytes, int lane) {
+  const int skew = (int)(reinterpret_cast<uintptr_t>(dst) & 15);
+  const int head = min(bytes, (16 - skew) & 15);
+  const int words = (bytes - head) >> 4;
+  uint4* dw = reinterpret_cast<uint4*>(reinterpret_cast<char*>(dst) + head);
+  const uint4* tw = reinterpret_cast<const uint4*>(
+      reinterpret_cast<const char*>(tile) + head);
+  for (int k = lane; k < words; k += 32) dw[k] = tw[k];
+  constexpr int E = (int)sizeof(T);
+  const int tail = (head + words * 16) / E, total = bytes / E;
+  if (lane < head / E) dst[lane] = tile[lane];
+  if (tail + lane < total) dst[tail + lane] = tile[tail + lane];
+}
+
+// kC: the channels, 1 or 3 (unrolled), or 0 for any other odd C. run: the
+// samples of a lane, even; stage_off: the byte offset of the warps' tiles
+// (C = 3) in shared memory, after the staged map.
+template <typename T, int kC, bool kTapsShared>
+__global__ void __launch_bounds__(kFwdMaxWarps * 32, 2)
+grid_sample_fwd_narrow_kernel(const T* __restrict__ img,      // (N, H, W, C)
+                              const float* __restrict__ grid,  // (N, npix, 2)
+                              T* __restrict__ out,             // (N, npix, C)
+                              int H, int W, int C_, int npix, int run,
+                              int stage_off) {
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  constexpr int kPairs = kFwdMaxRun / 2;
+  const int C = kC ? kC : C_;
+  const int n = blockIdx.y, tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int span = 32 * run;  // a warp's samples
+  const int base = (blockIdx.x * (blockDim.x >> 5) + warp) * span;
+  const int count = max(0, min(span, npix - base));
+  const size_t s0 = (size_t)n * npix + base;  // the warp's first sample
+  // pairs of samples loaded as one 16-byte word and (C = 1) stored as one
+  // where the first sample of a pair is even (the image's first is) and
+  // the tensors aligned
+  const bool vec =
+      !(s0 & 1) && !(reinterpret_cast<uintptr_t>(grid) & 15) &&
+      !(reinterpret_cast<uintptr_t>(out) & (2 * sizeof(T) - 1));
+
+  // ---- 1. the warp's grid points, all in flight before the first tap:
+  // lane l's pairs l, l + 32, ... (a 16-byte word of the image's last, odd
+  // sample holds the next image's first, read and not used)
+  float4 g[kPairs];
+  const float2* g2 = reinterpret_cast<const float2*>(grid) + s0;
+#pragma unroll
+  for (int k = 0; k < kPairs; ++k) {
+    const int i = 2 * (lane + 32 * k);
+    g[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (2 * k < run && i < count) {
+      if (vec) {
+        g[k] = __ldcs(reinterpret_cast<const float4*>(g2 + i));
+      } else {
+        const float2 a = __ldcs(g2 + i);
+        const float2 b = i + 1 < count ? __ldcs(g2 + i + 1) : a;
+        g[k] = make_float4(a.x, a.y, b.x, b.y);
+      }
+    }
+  }
+
+  // ---- 2. the image's map, staged in shared memory (C = 3: its pixels as
+  // RGBx in f32; any other C: the 16-byte window that holds it), or read
+  // where it lies
+  const T* taps = img + (size_t)n * H * W * C;
+  const float4* m3 = nullptr;
+  if constexpr (kTapsShared) {
+    if constexpr (kC == 3) {
+      float4* m = reinterpret_cast<float4*>(fwd_smem);
+      for (int p = tid; p < H * W; p += blockDim.x) {
+        const T* px = taps + 3 * (size_t)p;
+        m[p] = make_float4(load1(px, 0), load1(px, 1), load1(px, 2), 0.f);
+      }
+      m3 = m;
+    } else {
+      const Window16 w = window16(taps, (size_t)H * W * C * sizeof(T));
+      uint4* dst = reinterpret_cast<uint4*>(fwd_smem);
+      for (int i = tid; i < w.words; i += blockDim.x)
+        dst[i] = __ldg(w.lo + i);
+      taps = reinterpret_cast<const T*>(fwd_smem + w.skew);
+    }
+    __syncthreads();
+  }
+
+  // ---- 3. the samples. C = 1: a pair's two outputs in one store (a warp
+  // writes a whole line); C = 3: through the warp's tile; any other odd C
+  // a channel at a time
+  T* dst = out + s0 * C;
+  T* tile = reinterpret_cast<T*>(fwd_smem + stage_off +
+                                 warp * tile_bytes(run, 3, sizeof(T)) +
+                                 (reinterpret_cast<uintptr_t>(dst) & 15));
+#pragma unroll
+  for (int k = 0; k < kPairs; ++k) {
+    const int i = 2 * (lane + 32 * k);
+    if (2 * k < run && i < count) {
+      const bool second = i + 1 < count;
+      const BilinearTaps t0 = bilinear_taps(g[k].x, g[k].y, H, W);
+      const BilinearTaps t1 = bilinear_taps(g[k].z, g[k].w, H, W);
+      if constexpr (kC == 1) {
+        const float a = tap_sum(taps, t0, 1, 0);
+        const float b = tap_sum(taps, t1, 1, 0);
+        if (vec && second) {
+          store2(dst + i, 0, a, b);
+        } else {
+          store1(dst, i, a);
+          if (second) store1(dst, i + 1, b);
+        }
+      } else if constexpr (kC == 3) {
+        const float3 a = kTapsShared ? tap_sum(m3, t0) : tap_sum3(taps, t0);
+        const float3 b = kTapsShared ? tap_sum(m3, t1) : tap_sum3(taps, t1);
+        T* o = tile + i * 3;
+        store1(o, 0, a.x);
+        store1(o, 1, a.y);
+        store1(o, 2, a.z);
+        store1(o, 3, b.x);
+        store1(o, 4, b.y);
+        store1(o, 5, b.z);
+      } else {
+        T* o = dst + (size_t)i * C;
+        for (int c = 0; c < C; ++c) {
+          store1(o, c, tap_sum(taps, t0, C, c));
+          if (second) store1(o + C, c, tap_sum(taps, t1, C, c));
+        }
+      }
+    }
+  }
+  if constexpr (kC == 3) {
+    __syncwarp();
+    store_tile(dst, tile, count * 3 * (int)sizeof(T), lane);
+  }
+}
+
+struct FwdPlan {
+  int narrow, taps_shared, run, threads, blocks, smem;
+};
+
+// Kernel 8's plan for N images of H x W x C elements of elt bytes and npix
+// samples each, on the current device. Even C: a warp a sample,
+// kPixPerBlock samples a CTA. Odd C (above): runs of kFwdMaxRun samples a
+// lane, halved (to 2) while the runs would not fill kFillWarps an SM; an
+// image's runs over the fewest CTAs of at most kFwdMaxWarps warps, split
+// evenly; the map staged where it fits kMapSmemMax as staged; a warp's
+// output tile at C = 3. cudaErrorInvalidValue where the grid overflows.
+int fwd_plan(int N, int H, int W, int C, int npix, int elt, FwdPlan& p) {
+  if (N < 1 || H < 1 || W < 1 || C < 1 || npix < 1 || N > 65535)
+    return (int)cudaErrorInvalidValue;
+  p = FwdPlan{};
+  long long ctas;
+  if (!(C & 1)) {
+    p.threads = kThreads;
+    ctas = (npix + kPixPerBlock - 1) / kPixPerBlock;
+    if (ctas * N > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    p.blocks = (int)(ctas * N);
+    return 0;
+  }
+  int dev, sms;
+  TPK_TRY((int)cudaGetDevice(&dev));
+  TPK_TRY((int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev));
+  p.narrow = 1;
+  const size_t staged = staged_bytes(H, W, C, elt);
+  p.taps_shared = staged <= (size_t)kMapSmemMax;
+  const auto warp_runs = [&](int run) {
+    return ((long long)npix + 32 * run - 1) / (32 * run);
+  };
+  p.run = kFwdMaxRun;
+  while (p.run > 2 && N * warp_runs(p.run) < (long long)sms * kFillWarps)
+    p.run /= 2;
+  ctas = (warp_runs(p.run) + kFwdMaxWarps - 1) / kFwdMaxWarps;
+  const int warps = (int)((warp_runs(p.run) + ctas - 1) / ctas);
+  p.threads = 32 * warps;
+  p.smem = (p.taps_shared ? (int)staged : 0) +
+           (C == 3 ? warps * tile_bytes(p.run, 3, elt) : 0);
+  if (ctas * N > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  p.blocks = (int)(ctas * N);
+  return 0;
+}
+
+template <typename T, int kC>
+int launch_fwd_narrow(const void* img, const float* grid, void* out, int N,
+                      int H, int W, int C, int npix, const FwdPlan& p,
+                      cudaStream_t s) {
+  auto kernel = p.taps_shared ? grid_sample_fwd_narrow_kernel<T, kC, true>
+                              : grid_sample_fwd_narrow_kernel<T, kC, false>;
+  // the tiles of three f32 channels beside a staged map
+  if (p.smem > 48 * 1024 &&
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           p.smem) != cudaSuccess)
+    return (int)cudaGetLastError();
+  const int stage_off =
+      p.taps_shared ? (int)staged_bytes(H, W, C, sizeof(T)) : 0;
+  kernel<<<dim3(p.blocks / N, N), p.threads, p.smem, s>>>(
+      (const T*)img, grid, (T*)out, H, W, C, npix, p.run, stage_off);
+  return 0;
+}
+
+template <typename T>
+int launch_fwd(const void* img, const float* grid, void* out, int N, int H,
+               int W, int C, int npix, const FwdPlan& p, cudaStream_t s) {
+  if (!p.narrow) {
+    grid_sample_fwd_kernel<T><<<dim3(p.blocks / N, N), p.threads, 0, s>>>(
+        (const T*)img, grid, (T*)out, H, W, C, npix);
+    return 0;
+  }
+  if (C == 1)
+    return launch_fwd_narrow<T, 1>(img, grid, out, N, H, W, C, npix, p, s);
+  if (C == 3)
+    return launch_fwd_narrow<T, 3>(img, grid, out, N, H, W, C, npix, p, s);
+  return launch_fwd_narrow<T, 0>(img, grid, out, N, H, W, C, npix, p, s);
 }
 
 // ---- kernels 9 and 10: owner-computes over source bands -----------------
@@ -756,33 +1057,33 @@ int launch_bwd(const float* grid, const void* cot, const void* img,
   return 0;
 }
 
-dim3 blocks(int N, int npix) {
-  return dim3((npix + kPixPerBlock - 1) / kPixPerBlock, N);
-}
-
 }  // namespace
 
 // is_bf16 selects the element type of img / cot / out: 1 = bf16, 0 = f32.
 extern "C" int tpk_grid_sample_fwd(const void* img, const float* grid,
                                    void* out, int N, int H, int W, int C,
                                    int npix, int is_bf16, void* stream) {
-  if (C < 1) return (int)cudaErrorInvalidValue;
+  FwdPlan p;
+  TPK_TRY(fwd_plan(N, H, W, C, npix, is_bf16 ? 2 : 4, p));
   cudaStream_t s = (cudaStream_t)stream;
-  if (C & 1) {
-    const dim3 nb((npix + kThreads - 1) / kThreads, N);
-    if (is_bf16)
-      grid_sample_fwd_narrow_kernel<bf16><<<nb, kThreads, 0, s>>>(
-          (const bf16*)img, grid, (bf16*)out, H, W, C, npix);
-    else
-      grid_sample_fwd_narrow_kernel<float><<<nb, kThreads, 0, s>>>(
-          (const float*)img, grid, (float*)out, H, W, C, npix);
-  } else if (is_bf16)
-    grid_sample_fwd_kernel<bf16><<<blocks(N, npix), kThreads, 0, s>>>(
-        (const bf16*)img, grid, (bf16*)out, H, W, C, npix);
-  else
-    grid_sample_fwd_kernel<float><<<blocks(N, npix), kThreads, 0, s>>>(
-        (const float*)img, grid, (float*)out, H, W, C, npix);
+  TPK_TRY(is_bf16 ? launch_fwd<bf16>(img, grid, out, N, H, W, C, npix, p, s)
+                  : launch_fwd<float>(img, grid, out, N, H, W, C, npix, p,
+                                      s));
   TPK_CHECK();
+  return 0;
+}
+
+// Kernel 8's plan at this shape on the current device: plan = {1 on the
+// narrow (odd-C) path, 1 where the map is staged in shared memory, samples
+// a lane, threads a CTA, CTAs, shared memory bytes of a CTA}.
+// cudaErrorInvalidValue where none fits.
+extern "C" int tpk_grid_sample_fwd_plan(int N, int H, int W, int C, int npix,
+                                        int is_bf16, int* plan) {
+  FwdPlan p;
+  TPK_TRY(fwd_plan(N, H, W, C, npix, is_bf16 ? 2 : 4, p));
+  const int v[] = {p.narrow, p.taps_shared, p.run, p.threads, p.blocks,
+                   p.smem};
+  memcpy(plan, v, sizeof(v));
   return 0;
 }
 

@@ -48,6 +48,7 @@ _SIGNATURES = {
     'tpk_grid_sample_grad': [_P] * 5 + [_I] * 6 + [_P, _P],
     'tpk_grid_sample_grad_img': [_P] * 3 + [_I] * 6 + [_P, _P],
     'tpk_grid_sample_plan': [_I] * 4 + [_P],
+    'tpk_grid_sample_fwd_plan': [_I] * 6 + [_P],
     'tpk_conv3x3_cp': [_P] * 4 + [_I] * 7 + [_P],
     'tpk_basic_block_cp': [_P] * 6 + [_I] * 8 + [_P],
     'tpk_stem_plan': [_I] * 7 + [_P],

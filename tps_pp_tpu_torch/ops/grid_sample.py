@@ -30,6 +30,13 @@ taking the plain version on CPU tensors:
 * ``grid_sample_grad``: kernel 9, replaces ``_bwd_fused_kernel``;
 * ``grid_sample_grad_img``: kernel 10, replaces ``_bwd_kernel``.
 
+Kernel 8 at an odd C takes its narrow path: a warp a run of adjacent
+samples, a lane every 32nd, their grid points loaded before the first tap;
+a CTA an image's runs, the image's map staged in shared memory where it
+fits (read where it lies where it does not); a warp's outputs stored as
+whole lines through shared memory. ``grid_sample_fwd_plan`` reports the
+plan it takes at a shape.
+
 Kernels 9 and 10 sum d_img in shared memory and write all of it in their
 one launch, so d_img is allocated with ``torch.empty`` and nothing zeroes
 it before. An even C loads channel pairs (its image and cotangent aligned
@@ -210,6 +217,32 @@ def grid_sample_plan(N: int, H: int, W: int, C: int) -> Dict[str, int]:
     _lib.check(_lib.load().tpk_grid_sample_plan(N, H, W, C, plan),
                'grid_sample_plan')
     return dict(zip(_PLAN_KEYS, plan))
+
+
+_FWD_PLAN_KEYS = ('narrow', 'taps_shared', 'run', 'threads', 'blocks',
+                  'smem')
+
+
+def grid_sample_fwd_plan(N: int, H: int, W: int, C: int, P: int,
+                         dtype: torch.dtype = torch.bfloat16
+                         ) -> Dict[str, int]:
+    """The plan that kernel 8 takes for an (N, H, W, C) image of ``dtype``
+    sampled at P points an image, on the current CUDA device
+    (``csrc/grid_sample.cu`` ``fwd_plan``): ``narrow`` (1 at an odd C; an
+    even C runs a warp a sample, and only ``threads`` and ``blocks`` mean
+    anything else), ``taps_shared`` (1 where the image's map is staged in
+    shared memory, 0 where it is too large and the taps are read where
+    they lie), ``run`` (samples a lane: a warp takes 32 x run), ``threads``
+    (a CTA's), ``blocks`` (CTAs) and ``smem`` (bytes of a CTA). Raises a
+    ValueError where no plan fits."""
+    if dtype not in _KERNEL_DTYPES:
+        raise ValueError(f'grid_sample_fwd_plan: {dtype} is not one of '
+                         f'{_KERNEL_DTYPES}')
+    plan = (ctypes.c_int * len(_FWD_PLAN_KEYS))()
+    _lib.check(_lib.load().tpk_grid_sample_fwd_plan(
+        N, H, W, C, P, int(dtype == torch.bfloat16), plan),
+        'grid_sample_fwd_plan')
+    return dict(zip(_FWD_PLAN_KEYS, plan))
 
 
 def grid_sample_grad(grid: torch.Tensor, cot: torch.Tensor,
